@@ -13,7 +13,8 @@ Phases, in order (any failure exits non-zero without the final line):
    power limit;
 2. build: every CUDA source of the port compiled with ``nvcc`` for
    ``sm_90a`` (one process per source, in parallel), with each kernel's
-   registers / shared memory / spills from ``-Xptxas -v``;
+   registers / shared memory / spills from ``-Xptxas -v``; a kernel that
+   spills fails the run;
 3. kernels: each Hopper kernel against its plain PyTorch version at the
    main path's shapes (Hq 32, Hkv 8, D 128, bf16), within the stated
    tolerance, then timed (CUDA events around CUDA-graph replays, so host
@@ -28,7 +29,12 @@ Phases, in order (any failure exits non-zero without the final line):
    and within 2e-2 in every (head, 64-row tile), so a fault confined to
    some rows or tiles shows (the kernels round P and dS to bf16 before
    their products, as the TPU kernels do; the plain version keeps f32),
-   beside SDPA's backward as the yardstick;
+   beside SDPA's backward as the yardstick; the int8 kernels on quantized
+   inputs (``quantize_kv`` of N(0, 1) K/V; random int8 GEMM operands):
+   decode_i8 and decode_paged_i8 at the decode shape, flash_fwd_i8 at the
+   chunk shape (same tolerances), matmul_i8 at (m, k, n) = (8, 4096,
+   14336) and (512, 4096, 14336) by exact equality with its float64
+   plain version, ``torch._int_mm`` at m 512 as the yardstick;
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -36,6 +42,16 @@ Phases, in order (any failure exits non-zero without the final line):
    prompt tokens and 32..64 new tokens; every request must finish, and a
    teacher-forced forward with the plain attention must agree with the
    served tokens at >= 0.98 of positions (bf16 near-ties may flip a few);
+5b. quantized generator: ``Generator(kv_dtype=torch.int8)`` at 32 layers,
+   batch 2, a 512-token prompt through ``prefill_chunked(chunk_size=256)``
+   (flash_fwd_i8), then 32 greedy tokens (decode_i8);
+5c. quantized engine: phase 5's mix over int8 pools with ``w8a8=True``
+   (decode_paged_i8, flash_fwd_i8, matmul_i8); every request finishes,
+   the pools read 67,584 bytes per token, and the served tokens agree with
+   a teacher-forced forward of the same quantized model whose attention
+   and int8 GEMMs are the plain versions, at phase 5's floors; the
+   greedy prefix match against phase 5's float streams is printed (int8
+   error is real: no gate);
 6. train (run last, after the serving state is freed): Llama-3-8B at full
    width, random weights from seed 0, tokens [S 2048, B 1] from a seed:
    (a) 4 plain-SGD steps at all 32 layers (``make_train_step``, lr
@@ -48,8 +64,10 @@ Phases, in order (any failure exits non-zero without the final line):
    zeroed just before (a) and read just after, are each > 0.
 
 The launch counters of the three serving kernels are zeroed just before
-phase 4 and read just after phase 5: each must be > 0; the backward
-kernels' counts in the ``kernels`` line come from phase 6 (a).  A
+phase 4 and read just after phase 5: each must be > 0; every counter is
+zeroed again just before phase 5b and read just after 5c, where the four
+int8 kernels must each be > 0; the backward kernels' counts in the
+``kernels`` line come from phase 6 (a).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -60,6 +78,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +101,17 @@ LSE_TOL = 1e-3   # f32 log-sum-exp on both sides
 AGREE_MIN = 0.98
 NEAR_TIE = 0.125
 STRICT_MIN = 0.90
+# The W8A8 model amplifies such rounding: each projection re-quantizes its
+# input rows to int8, so an input that moves by one bf16 step flips the
+# rounding of some of its 4096..14336 values by a whole int8 step.  One
+# prompt forward of the quantized model with the kernels and with the
+# plain versions (the quantized noise-floor line) lands up to ~0.46 apart
+# and picks another argmax at ~19% of positions (NVIDIA H100 80GB HBM3,
+# 700 W); near-ties therefore reach QUANT_NEAR_TIE there, and the exact
+# floor is QUANT_STRICT_MIN.  A wrong kernel is several logits off, and
+# every kernel is also held to its plain version directly (phase 3).
+QUANT_NEAR_TIE = 0.5
+QUANT_STRICT_MIN = 0.75
 # flash backward, kernel against plain gradient (P and dS rounded to bf16
 # give ~4e-3 relative L2): max |err| / max |plain|; ||err|| / ||plain||
 # over the tensor; the same over each (head, 64-row tile)
@@ -93,6 +123,8 @@ ADAMW_LR = 1e-4     # phase 6 (b)
 TRAIN_SEQ = 2048
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+KV_BYTES_PER_TOKEN_I8 = 2 * 32 * 8 * (128 + 4)   # Llama-3-8B int8 pools
 
 
 def log(*a):
@@ -149,9 +181,9 @@ def call_ms(fn, iters=50):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_ops, ops_s=BF16_FLOPS_S):
     t_b = n_bytes / HBM_BYTES_S * 1e3
-    t_f = n_flops / BF16_FLOPS_S * 1e3
+    t_f = n_ops / ops_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -338,8 +370,163 @@ def kernel_phase(dev):
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
     rows["decode_paged"] = dict(main, max_abs_err=max(errs))
+    rows.update(i8_attention_rows(dev, randn, k, v, lens, k_pool, v_pool,
+                                  table))
+    rows["matmul_i8"] = matmul_i8_row(dev, g)
     rows.update(bwd_kernel_rows(dev, randn))
     return rows
+
+
+def check_attention(tag, out, lse, ref_out, ref_lse):
+    e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+    log(f"{tag}: max|out-plain| {e_out:.3e} (tol {OUT_TOL}), max|lse-plain|"
+        f" {e_lse:.3e} (tol {LSE_TOL})")
+    if not (e_out <= OUT_TOL and e_lse <= LSE_TOL):
+        raise AssertionError(f"{tag} disagrees with plain")
+    return e_out
+
+
+def i8_attention_rows(dev, randn, k, v, lens, k_pool, v_pool, table):
+    """decode_i8 / decode_paged_i8 at the decode shape (the bf16 rows'
+    K/V, quantized) and flash_fwd_i8 at the chunk shape, each against its
+    plain version on the same int8 inputs, then timed.  No single
+    PyTorch call dequantizes inside attention: library_ms is null."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+
+    Hq, D = 32, 128
+    B, Hkv = k.shape[0], k.shape[1]
+    rows = {}
+    n_kv = int(lens.sum())
+    io_bytes = B * Hq * D * 2 + B * Hq * (D + 1) * 4   # q in, out + lse
+    kv_bytes = 2 * n_kv * Hkv * (D + 4)                 # int8 rows + scales
+    kq, ks = fd.quantize_kv(k.float())
+    vq, vs = fd.quantize_kv(v.float())
+    kpq, kps = fd.quantize_kv(k_pool.float())
+    vpq, vps = fd.quantize_kv(v_pool.float())
+    cases = {
+        "decode_i8": (lambda q, **kw: fd.gqa_decode_shard(
+            q, kq, vq, lens, k_scale=ks, v_scale=vs, **kw),
+            lambda q, **kw: fd.decode_ref(q, kq, vq, lens, k_scale=ks,
+                                          v_scale=vs, **kw), 0),
+        "decode_paged_i8": (lambda q, **kw: fd.gqa_decode_paged_shard(
+            q, kpq, vpq, table, lens, k_scale=kps, v_scale=vps, **kw),
+            lambda q, **kw: fd.decode_paged_ref(
+                q, kpq, vpq, table, lens, k_scale=kps, v_scale=vps, **kw),
+            int((table != 0).sum()) * 4),
+    }
+    for name, (kern, plain, table_bytes) in cases.items():
+        errs = []
+        for tag, T, q_lens in (("T1", 1, None),
+                               ("T4", 4, [4, 3, 0, 4, 1, 4, 2, 4])):
+            q = randn(B, Hq, D) if T == 1 else randn(B, T, Hq, D)
+            ql = (None if q_lens is None else
+                  torch.tensor(q_lens, dtype=torch.int32, device=dev))
+            out, lse = kern(q, q_lens=ql)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = plain(q, q_lens=ql)
+            errs.append(check_attention(f"{name} {tag}", out, lse, ref_out,
+                                        ref_lse))
+            if q_lens is not None:
+                dead = q_lens.index(0)
+                if not (torch.all(out[dead] == 0)
+                        and torch.all(lse[dead] <= -1e29)):
+                    raise AssertionError(f"{name}: dead row not zero")
+            if T == 1:
+                ms = time_ms(lambda: kern(q))
+                eager = call_ms(lambda: kern(q))
+                plain_ms = time_ms(lambda: plain(q), iters=5)
+                b_ms, b_by = bound_ms(kv_bytes + io_bytes + table_bytes,
+                                      4 * n_kv * Hq * D)
+                log(f"{name} {tag}: kernel {ms:.4f} ms (eager call "
+                    f"{eager:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}, {kv_bytes / 1e6:.2f} MB of "
+                    f"int8 K/V and scales); no single PyTorch call "
+                    f"dequantizes inside attention")
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
+        rows[name] = dict(main, max_abs_err=max(errs))
+
+    # flash_fwd_i8: the engine's 512-row chunk at q_offset 1536, extent 2048
+    Sq, Sk, off = 512, 2048, 1536
+    q = randn(1, Hq, Sq, D)
+    fk, fks = fd.quantize_kv(randn(1, Hkv, Sk, D).float())
+    fv, fvs = fd.quantize_kv(randn(1, Hkv, Sk, D).float())
+    kw = dict(q_offset=off, k_scale=fks, v_scale=fvs)
+    out, lse = fa.flash_attention(q, fk, fv, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_ref(q, fk, fv, **kw)
+    err = check_attention("flash_fwd_i8 chunk512@1536", out, lse, ref_out,
+                          ref_lse)
+    ms = time_ms(lambda: fa.flash_attention(q, fk, fv, **kw))
+    eager = call_ms(lambda: fa.flash_attention(q, fk, fv, **kw))
+    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, fk, fv, **kw),
+                       iters=5)
+    visible = int((off + torch.arange(Sq, device=dev)[:, None]
+                   >= torch.arange(Sk, device=dev)[None, :]).sum())
+    n_bytes = 2 * q.numel() * 2 + 2 * Hkv * Sk * (D + 4) + Sq * Hq * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * Hq * D * visible)
+    log(f"flash_fwd_i8 chunk512@1536: kernel {ms:.4f} ms (eager call "
+        f"{eager:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); no single PyTorch call dequantizes inside attention")
+    rows["flash_fwd_i8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None,
+                                max_abs_err=err)
+    return rows
+
+
+def matmul_i8_row(dev, g):
+    """matmul_i8 at the gate/up projection's decode width (m 8) and at a
+    512-row prefill chunk (k 4096, n 14336): exact equality with the plain
+    version (float64, exact), then timed beside its bound and, at m 512,
+    ``torch._int_mm`` (cuBLASLt; it takes no m <= 16).  The row reports
+    m 512; the m 8 numbers ride along under ``"m8"``."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import quant
+
+    k, n = 4096, 14336
+    out = {}
+    b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    for m in (8, 512):
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        got = quant.matmul_i8(a, b)
+        torch.cuda.synchronize()
+        want = quant.matmul_i8_ref(a, b)
+        exact = torch.equal(got, want)
+        err = (got.double() - want.double()).abs().max().item()
+        log(f"matmul_i8 m{m}: exact {exact}, max|kernel-plain| {err:.1f}")
+        if not exact:
+            raise AssertionError(f"matmul_i8 m{m} is not exact")
+        ms = time_ms(lambda: quant.matmul_i8(a, b))
+        eager = call_ms(lambda: quant.matmul_i8(a, b))
+        plain_ms = time_ms(lambda: quant.matmul_i8_ref(a, b), iters=3)
+        lib, why = None, "cuBLASLt's int8 product takes no m <= 16"
+        if m > 16:
+            # cuBLASLt's int8 path wants B column-major: time both layouts
+            # of the same B, keep the faster
+            b_cm = b.t().contiguous().t()
+            same = all(torch.equal(torch._int_mm(a, x), want)
+                       for x in (b, b_cm))
+            t_rm = time_ms(lambda: torch._int_mm(a, b))
+            t_cm = time_ms(lambda: torch._int_mm(a, b_cm))
+            lib = min(t_rm, t_cm)
+            why = (f"torch._int_mm, B row-major {t_rm:.4f} ms, "
+                   f"column-major {t_cm:.4f} ms; equal to the plain version:"
+                   f" {same}")
+        b_ms, b_by = bound_ms(m * k + k * n + m * n * 4, 2 * m * n * k,
+                              INT8_OPS_S)
+        log(f"matmul_i8 m{m}: kernel {ms:.4f} ms (eager call {eager:.4f} "
+            f"ms), plain {plain_ms:.4f} ms, library "
+            f"{'null' if lib is None else f'{lib:.4f} ms'} ({why}), bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        out[m] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib, max_abs_err=err)
+    return dict(out[512], m8=out[8])
 
 
 def bwd_kernel_rows(dev, randn):
@@ -425,12 +612,14 @@ def bwd_kernel_rows(dev, randn):
 # ---------------------------------------------------------------------------
 
 
-def teacher_forced_agreement(params, cfg, prompt, served):
+def teacher_forced_agreement(params, cfg, prompt, served, logits_fn=None,
+                             near_tie=NEAR_TIE):
     """Compare served tokens with the argmax of one plain-attention forward
+    (``logits_fn(tokens [1, L])``, by default the float prompt forward)
     over prompt + served[:-1] at the positions that produced them.
     Returns (exact matches, matches counting near-ties, positions): a
     mismatch is a near-tie when the served token's reference logit lies
-    within NEAR_TIE of the reference maximum."""
+    within ``near_tie`` of the reference maximum."""
     import torch
 
     from triton_dist_tpu_torch.models.generate import _prompt_forward
@@ -438,7 +627,10 @@ def teacher_forced_agreement(params, cfg, prompt, served):
     seq = np.concatenate([np.asarray(prompt), np.asarray(served[:-1])])
     toks = torch.as_tensor(seq[None], device="cuda")
     with torch.no_grad():
-        _, logits = _prompt_forward(params, toks, cfg=cfg, plain=True)
+        if logits_fn is not None:
+            logits = logits_fn(toks)
+        else:
+            _, logits = _prompt_forward(params, toks, cfg=cfg, plain=True)
     ref = logits[0, len(prompt) - 1:]
     if not torch.isfinite(ref).all():
         raise AssertionError("teacher-forced logits are not finite")
@@ -450,16 +642,16 @@ def teacher_forced_agreement(params, cfg, prompt, served):
         log(f"  teacher-forced flips at {miss.tolist()}: reference logit "
             f"gap to the served token {[round(x, 4) for x in gaps]}")
     n = len(served)
-    return n - len(gaps), n - sum(g > NEAR_TIE for g in gaps), n
+    return n - len(gaps), n - sum(g > near_tie for g in gaps), n
 
 
-def check_agreement(tag, counts, strict_min):
+def check_agreement(tag, counts, strict_min, near_tie=NEAR_TIE):
     exact = sum(c[0] for c in counts)
     ties = sum(c[1] for c in counts)
     n = sum(c[2] for c in counts)
     log(f"{tag}: teacher-forced agreement {exact}/{n} = {exact / n:.4f} "
         f"exact, {ties}/{n} = {ties / n:.4f} counting near-ties "
-        f"(gap <= {NEAR_TIE})")
+        f"(gap <= {near_tie})")
     if ties / n < AGREE_MIN or exact / n < strict_min:
         raise AssertionError(
             f"{tag}: agreement {exact / n:.4f} exact (floor {strict_min}), "
@@ -516,7 +708,116 @@ def generator_phase(cfg, params):
     return gen
 
 
-def engine_phase(cfg, params, gen):
+def quant_plain_logits(params, cfg, w8a8):
+    """A forward of the quantized model that runs the plain versions: one
+    ``_chunk_forward`` over the whole sequence into int8 caches (rows
+    quantized as they are written, as the served path does), attention by
+    ``flash_attention_ref`` on the int8 K/V and, with ``w8a8``, the W8A8
+    hooks on ``matmul_i8_ref``."""
+    import functools
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.models import llama_w8a8
+    from triton_dist_tpu_torch.models.generate import _chunk_forward
+
+    def attend(q, k, v, off, k_scale=None, v_scale=None):
+        out, _ = fa.flash_attention_ref(q.permute(0, 2, 1, 3), k, v,
+                                        q_offset=off, k_scale=k_scale,
+                                        v_scale=v_scale)
+        return out.permute(0, 2, 1, 3).float()
+
+    hooks = {}
+    if w8a8:
+        hooks = dict(ffn=functools.partial(llama_w8a8.w8a8_serve_ffn,
+                                           plain=True),
+                     out_proj=functools.partial(
+                         llama_w8a8.w8a8_serve_out_proj, plain=True))
+
+    def fn(toks):
+        shape = (1, cfg.n_kv_heads, toks.shape[1], cfg.head_dim)
+
+        def store():
+            return {"q": torch.zeros(shape, dtype=torch.int8,
+                                     device=toks.device),
+                    "s": torch.ones(shape[:3], device=toks.device)}
+
+        caches = [(store(), store()) for _ in range(cfg.n_layers)]
+        _, logits = _chunk_forward(params, toks, caches, 0, cfg=cfg,
+                                   attend=attend, **hooks)
+        return logits
+
+    return fn
+
+
+def quant_noise_floor(qparams, cfg, plain):
+    """The W8A8 model's noise floor: one 2 x 512 prompt forward of the
+    quantized model (int8 caches, W8A8 hooks) with the kernels and with
+    the plain versions (after the launch counters are read)."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama_w8a8
+    from triton_dist_tpu_torch.models.generate import _chunk_forward
+
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 512)),
+                           device="cuda")
+    shape = (2, cfg.n_kv_heads, 512, cfg.head_dim)
+
+    def store():
+        return {"q": torch.zeros(shape, dtype=torch.int8, device="cuda"),
+                "s": torch.ones(shape[:3], device="cuda")}
+
+    _, lk = _chunk_forward(qparams, toks, [(store(), store()) for _ in
+                                           range(cfg.n_layers)], 0, cfg=cfg,
+                           ffn=llama_w8a8.w8a8_serve_ffn,
+                           out_proj=llama_w8a8.w8a8_serve_out_proj)
+    lp = torch.cat([plain(toks[b:b + 1]) for b in range(2)])
+    diff = (lk - lp).abs()
+    top2 = torch.topk(lp, 2, dim=-1).values
+    log(f"quantized noise floor: prompt logits of the W8A8 + int8-KV model, "
+        f"kernels vs plain versions: max |diff| {diff.max().item():.4f}, "
+        f"mean {diff.mean().item():.4f}, argmax agreement "
+        f"{(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.4f}; "
+        f"median top-2 gap "
+        f"{(top2[..., 0] - top2[..., 1]).median().item():.4f}")
+
+
+def quant_generator_phase(cfg, params):
+    """Phase 5b: the int8-cache Generator (flash_fwd_i8 for 256-token
+    prompt chunks, decode_i8 for the steps)."""
+    import torch
+
+    from triton_dist_tpu_torch.models.generate import Generator
+
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab, size=(2, 512)).astype(np.int64)
+    gen = Generator(cfg, max_seq=2048, kv_dtype=torch.int8)
+    t0 = time.perf_counter()
+    st = gen.prefill_chunked(params, prompt, chunk_size=256)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks, st = gen.generate(params, st, 32)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    toks = toks.cpu().numpy()
+    if toks.shape != (2, 32) or not torch.isfinite(st.last_logits).all():
+        raise AssertionError(f"quantized generator: bad output "
+                             f"{toks.shape}")
+    log(f"quantized generator: prefill_chunked 2x512 (chunks of 256) "
+        f"{t_pre * 1e3:.1f} ms, 32 decode steps {t_dec * 1e3:.1f} ms "
+        f"({t_dec / 32 * 1e3:.2f} ms/step)")
+    plain = quant_plain_logits(params, cfg, w8a8=False)
+    check_agreement("quantized generator", [
+        teacher_forced_agreement(params, cfg, prompt[b], toks[b],
+                                 logits_fn=plain)
+        for b in range(2)], 0.0)
+    return gen
+
+
+def engine_phase(cfg, params, gen, *, w8a8=False, tag="engine"):
     import torch
 
     from triton_dist_tpu_torch.serve import (
@@ -531,7 +832,8 @@ def engine_phase(cfg, params, gen):
     news = rng.integers(32, 65, size=8)
     prompts = [rng.integers(0, cfg.vocab, size=int(n)) for n in lens]
     eng = ServeEngine(gen, params, num_blocks=1 + 8 * 2048 // 16,
-                      page_size=16, max_batch=8, prefill_chunk=512)
+                      page_size=16, max_batch=8, prefill_chunk=512,
+                      w8a8=w8a8)
     reqs = [Request(f"r{i}", p, SamplingParams(max_new_tokens=int(n)))
             for i, (p, n) in enumerate(zip(prompts, news))]
     t0 = time.perf_counter()
@@ -544,12 +846,12 @@ def engine_phase(cfg, params, gen):
             outs[o.request_id] = o
         steps += 1
         if steps > 2000:
-            raise AssertionError("engine did not drain in 2000 steps")
+            raise AssertionError(f"{tag} did not drain in 2000 steps")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     s = eng.metrics.summary()
     n_out = sum(len(o.token_ids) for o in outs.values())
-    log(f"engine: {len(outs)} requests, prompts {sorted(lens.tolist())}, "
+    log(f"{tag}: {len(outs)} requests, prompts {sorted(lens.tolist())}, "
         f"{s['prefill_tokens']} prefill + {n_out} generated tokens in "
         f"{steps} steps, {wall:.2f} s wall ({n_out / wall:.1f} tok/s), "
         f"{s['decode_steps']} decode steps, step p50 "
@@ -561,7 +863,7 @@ def engine_phase(cfg, params, gen):
         o = outs.get(r.request_id)
         if (o is None or o.finish_reason is not FinishReason.LENGTH
                 or len(o.token_ids) != int(news[i])):
-            raise AssertionError(f"engine: {r.request_id} did not finish "
+            raise AssertionError(f"{tag}: {r.request_id} did not finish "
                                  f"({o and o.finish_reason})")
     return eng, reqs, outs, prompts
 
@@ -729,6 +1031,7 @@ def main() -> int:
         from triton_dist_tpu_torch.kernels import _build
         from triton_dist_tpu_torch.kernels import flash_attention as fa
         from triton_dist_tpu_torch.kernels import flash_decode as fd
+        from triton_dist_tpu_torch.kernels import quant
         from triton_dist_tpu_torch.models.llama import (
             LlamaConfig,
             init_params,
@@ -753,11 +1056,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, text in _build.ptxas_report().items():
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "smem")):
                 log(f"ptxas {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
 
     # phase 3: kernels
     rows = kernel_phase(dev)
@@ -790,7 +1100,58 @@ def main() -> int:
         teacher_forced_agreement(params, cfg, p,
                                  outs[r.request_id].token_ids)
         for r, p in zip(reqs, prompts)], STRICT_MIN)
-    del params, gen, eng, outs
+    float_streams = {rid: list(o.token_ids) for rid, o in outs.items()}
+    del gen, eng, outs
+    free_cuda()
+
+    # phases 5b-5c: the quantized path, every counter zeroed first
+    q_counters = {"flash_fwd_i8": fa.flash_fwd_i8,
+                  "decode_i8": fd.decode_i8,
+                  "decode_paged_i8": fd.decode_paged_i8,
+                  "matmul_i8": quant.matmul_i8}
+    for fn in list(counters.values()) + list(q_counters.values()):
+        fn.launches = 0
+    with torch.no_grad():
+        gen_q = quant_generator_phase(cfg, params)
+        after_gen = {n: fn.launches for n, fn in q_counters.items()}
+        eng_q, reqs, outs, prompts = engine_phase(
+            cfg, params, gen_q, w8a8=True, tag="quantized engine")
+    q_launches = {n: fn.launches for n, fn in q_counters.items()}
+    log(f"launches: quantized generator {after_gen}, quantized generator+"
+        f"engine {q_launches} (float kernels "
+        f"{ {n: fn.launches for n, fn in counters.items()} })")
+    for n in ("flash_fwd_i8", "decode_i8"):
+        if after_gen[n] <= 0:
+            raise AssertionError(f"kernel {n} never launched by the "
+                                 f"quantized generator")
+    for n in ("flash_fwd_i8", "decode_paged_i8", "matmul_i8"):
+        if q_launches[n] - after_gen[n] <= 0:
+            raise AssertionError(f"kernel {n} never launched by the "
+                                 f"quantized engine")
+    kv = eng_q.metrics.summary()["kv"]
+    log(f"quantized engine kv_stats: {kv}")
+    if kv["bytes_per_token"] != KV_BYTES_PER_TOKEN_I8 or not kv["quantized"]:
+        raise AssertionError(f"int8 pools: {kv['bytes_per_token']} bytes "
+                             f"per token, expected {KV_BYTES_PER_TOKEN_I8}")
+    plain = quant_plain_logits(eng_q.params, cfg, w8a8=True)
+    with torch.no_grad():
+        quant_noise_floor(eng_q.params, cfg, plain)
+    check_agreement("quantized engine", [
+        teacher_forced_agreement(eng_q.params, cfg, p,
+                                 outs[r.request_id].token_ids,
+                                 logits_fn=plain, near_tie=QUANT_NEAR_TIE)
+        for r, p in zip(reqs, prompts)], QUANT_STRICT_MIN, QUANT_NEAR_TIE)
+    match = []
+    for rid, fl in float_streams.items():
+        q_toks, n = outs[rid].token_ids, 0
+        while n < min(len(fl), len(q_toks)) and fl[n] == q_toks[n]:
+            n += 1
+        match.append(n / len(fl))
+    log(f"quantized engine vs float engine: mean greedy prefix match "
+        f"{np.mean(match):.4f} (per request "
+        f"{[round(x, 3) for x in match]}; no gate: int8 error is real)")
+    launches.update(q_launches)
+    del params, gen_q, eng_q, outs, plain   # plain holds the W8A8 tree
     free_cuda()
 
     # phase 6: training; the backward kernels' counts come from it (the
@@ -808,7 +1169,16 @@ def main() -> int:
            "flash_bwd_dq": ("triton_dist_tpu_torch/csrc/flash_bwd.cu",
                             "triton_dist_tpu/kernels/flash_attention.py:347"),
            "flash_bwd_dkv": ("triton_dist_tpu_torch/csrc/flash_bwd.cu",
-                             "triton_dist_tpu/kernels/flash_attention.py:388")}
+                             "triton_dist_tpu/kernels/flash_attention.py:388"),
+           "decode_i8": ("triton_dist_tpu_torch/csrc/decode.cu",
+                         "triton_dist_tpu/kernels/flash_decode.py:246"),
+           # the reference has no Pallas kernel for int8 pages (XLA math)
+           "decode_paged_i8": ("triton_dist_tpu_torch/csrc/decode.cu",
+                               "triton_dist_tpu/kernels/flash_decode.py:692"),
+           "flash_fwd_i8": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
+                            "triton_dist_tpu/kernels/flash_attention.py:209"),
+           "matmul_i8": ("triton_dist_tpu_torch/csrc/matmul_i8.cu",
+                         "triton_dist_tpu/kernels/quant.py:52")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -817,7 +1187,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **({"m8": r["m8"]} if "m8" in r else {})})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

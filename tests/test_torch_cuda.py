@@ -7,11 +7,13 @@ machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Inputs are bf16 (the kernels' type).  Tolerances: the kernels round P to
-bf16 before the PV product (as the TPU kernels do) while the plain versions
-keep it in f32, and flash_fwd writes bf16 output — so outputs agree to
-~1e-2 absolute at unit-scale inputs; the log-sum-exp is f32 on both sides
-and agrees to 1e-3.
+Inputs are bf16 (the kernels' type); int8 K/V are ``quantize_kv`` of
+N(0, 1) data, fed to the kernel and its plain version alike.  Tolerances:
+the kernels round P to bf16 before the PV product (as the TPU kernels do)
+while the plain versions keep it in f32, and flash_fwd writes bf16 output
+— so outputs agree to ~1e-2 absolute at unit-scale inputs; the
+log-sum-exp is f32 on both sides and agrees to 1e-3.  The int8 GEMM is
+exact and is held to equality with its float64 plain version.
 """
 
 import zlib
@@ -296,3 +298,200 @@ def test_flash_bwd_refuses_f32_and_head_dim(cuda):
     h = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(h, h, h, h, lse, h)
+
+
+# ---------------------------------------------------------------------------
+# int8 K/V attention and the int8 GEMM (quantized serving)
+# ---------------------------------------------------------------------------
+
+
+def _quantized(g, shape, dev):
+    """int8 rows and f32 per-position scales of N(0, 1) data."""
+    x = torch.from_numpy(g.standard_normal(shape).astype(np.float32))
+    return fd.quantize_kv(x.to(dev))
+
+
+DECODE_I8_CASES = [
+    # (B, T, Hq, Hkv, S, window, cap, q_lens)
+    (8, 1, 32, 8, 2048, 0, 0.0, None),          # the main path's shape
+    (3, 4, 32, 8, 700, 100, 20.0, [4, 2, 0]),   # window + cap, a dead row
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_I8_CASES)
+def test_decode_i8_matches_plain(cuda, case):
+    B, T, Hq, Hkv, S, window, cap, q_lens = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    shape = (B, T, Hq, 128) if T > 1 else (B, Hq, 128)
+    q = _randn(g, shape, cuda)
+    kq, ks = _quantized(g, (B, Hkv, S, 128), cuda)
+    vq, vs = _quantized(g, (B, Hkv, S, 128), cuda)
+    lens = torch.from_numpy(g.integers(T, S + 1, size=B).astype(
+        np.int32)).to(cuda)
+    lens[0] = S
+    ql = (None if q_lens is None
+          else torch.tensor(q_lens, dtype=torch.int32, device=cuda))
+    kw = dict(window=window, soft_cap=cap, q_lens=ql, k_scale=ks,
+              v_scale=vs)
+    n0 = (fd.decode_i8.launches, fd.gqa_decode_shard.launches)
+    out, lse = fd.gqa_decode_shard(q, kq, vq, lens, **kw)
+    torch.cuda.synchronize()
+    assert (fd.decode_i8.launches, fd.gqa_decode_shard.launches) == (
+        n0[0] + 1, n0[1])
+    ref_out, ref_lse = fd.decode_ref(q, kq, vq, lens, **kw)
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+    if q_lens is not None and 0 in q_lens:
+        dead = q_lens.index(0)
+        assert torch.all(out[dead] == 0)
+        assert torch.all(lse[dead] <= -1e29)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,T,window", [(16, 1, 0), (64, 4, 90)])
+def test_decode_paged_i8_matches_plain(cuda, page, T, window):
+    """int8 pools and their scale pools read through one shuffled table;
+    T 4 carries a dead row (q_lens 0) and a window."""
+    B, Hq, Hkv, n_pages = 8, 32, 8, 2048 // page + 1
+    g = np.random.default_rng(page * 10 + T)
+    lens = g.integers(T, n_pages * page - page, size=B).astype(np.int32)
+    k_pool, v_pool, table = _shuffled_pool(g, B, Hkv, page, n_pages, lens,
+                                           cuda)
+    kq, ks = fd.quantize_kv(k_pool.float())
+    vq, vs = fd.quantize_kv(v_pool.float())
+    shape = (B, T, Hq, 128) if T > 1 else (B, Hq, 128)
+    q = _randn(g, shape, cuda)
+    lens_t = torch.from_numpy(lens).to(cuda)
+    ql = (torch.tensor([T, 0] + [T] * (B - 2), dtype=torch.int32,
+                       device=cuda) if T > 1 else None)
+    kw = dict(q_lens=ql, window=window, k_scale=ks, v_scale=vs)
+    n0 = (fd.decode_paged_i8.launches, fd.gqa_decode_paged_shard.launches)
+    out, lse = fd.gqa_decode_paged_shard(q, kq, vq, table, lens_t, **kw)
+    torch.cuda.synchronize()
+    assert (fd.decode_paged_i8.launches,
+            fd.gqa_decode_paged_shard.launches) == (n0[0] + 1, n0[1])
+    ref_out, ref_lse = fd.decode_paged_ref(q, kq, vq, table, lens_t, **kw)
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+    if ql is not None:
+        assert torch.all(out[1] == 0) and torch.all(lse[1] <= -1e29)
+
+
+FLASH_I8_CASES = [
+    # (B, Hq, Hkv, Sq, Sk, q_offset, kv_offset, window, soft_cap)
+    (1, 32, 8, 512, 2048, 1536, 0, 0, 0.0),     # the main path's chunk
+    (2, 8, 2, 200, 330, 0, 100, 48, 25.0),      # dead rows, window, cap
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_I8_CASES)
+def test_flash_fwd_i8_matches_plain(cuda, case):
+    B, Hq, Hkv, Sq, Sk, qo, ko, window, cap = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    q = _randn(g, (B, Hq, Sq, 128), cuda)
+    kq, ks = _quantized(g, (B, Hkv, Sk, 128), cuda)
+    vq, vs = _quantized(g, (B, Hkv, Sk, 128), cuda)
+    kw = dict(causal=True, q_offset=qo, kv_offset=ko, window=window,
+              soft_cap=cap, k_scale=ks, v_scale=vs)
+    n0 = (fa.flash_fwd_i8.launches, fa.flash_attention.launches)
+    out, lse = fa.flash_attention(q, kq, vq, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_i8.launches, fa.flash_attention.launches) == (
+        n0[0] + 1, n0[1])
+    ref_out, ref_lse = fa.flash_attention_ref(q, kq, vq, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+    if ko:
+        assert torch.all(out[:, :, :ko] == 0)
+        assert torch.all(lse[:, :, :ko] <= -1e29)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 37, 512])
+def test_matmul_i8_exact(cuda, m):
+    """Exact equality with the float64 plain product (split-K with int32
+    atomics at decode widths, one pass at 512 rows)."""
+    from triton_dist_tpu_torch.kernels import quant
+
+    g = torch.Generator(device=cuda).manual_seed(m)
+    k, n = 4096, 14336
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    n0 = quant.matmul_i8.launches
+    got = quant.matmul_i8(a, b)
+    torch.cuda.synchronize()
+    assert quant.matmul_i8.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, quant.matmul_i8_ref(a, b))
+    # the down projection's shape: k 14336, n 4096, and a ragged n tail
+    a2 = torch.randint(-127, 128, (m, 14336), generator=g, device=cuda,
+                       dtype=torch.int8)
+    b2 = torch.randint(-127, 128, (14336, 4096 + 48), generator=g,
+                       device=cuda, dtype=torch.int8)
+    assert torch.equal(quant.matmul_i8(a2, b2), quant.matmul_i8_ref(a2, b2))
+
+
+@pytest.mark.gpu
+def test_matmul_i8_refuses_shapes(cuda):
+    from triton_dist_tpu_torch.kernels import quant
+
+    a = torch.zeros((8, 48), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        quant.matmul_i8(a, torch.zeros((48, 128), dtype=torch.int8,
+                                       device=cuda))
+    a = torch.zeros((8, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        quant.matmul_i8(a, torch.zeros((64, 120), dtype=torch.int8,
+                                       device=cuda))
+
+
+@pytest.mark.gpu
+def test_quantized_generator_step(cuda):
+    """Llama-3-8B widths at 2 layers, int8 cache: chunked prefill (flash
+    int8), then one step (decode int8), against the same step taken by a
+    chunk forward whose attention is the plain int8 version, from the
+    same cache."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models.generate import (
+        Generator,
+        _chunk_forward,
+    )
+    from triton_dist_tpu_torch.runtime.utils import (
+        tree_map,
+        use_full_precision_matmul,
+    )
+
+    use_full_precision_matmul()
+    cfg = replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    params = llama.init_params(cfg, seed=0)
+    gen = Generator(cfg, max_seq=512, kv_dtype=torch.int8)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, size=(2, 300))
+    n0 = (fa.flash_fwd_i8.launches, fd.decode_i8.launches)
+    with torch.no_grad():
+        st = gen.prefill_chunked(params, prompt, chunk_size=256)
+        assert fa.flash_fwd_i8.launches == n0[0] + 2 * cfg.n_layers
+        before = tree_map(lambda t: t.clone(), st.caches)
+        token = torch.argmax(st.last_logits, -1).to(torch.int32)
+        st = gen.step(params, st, token)
+        assert fd.decode_i8.launches == n0[1] + cfg.n_layers
+
+        def plain(q, k, v, off, k_scale=None, v_scale=None):
+            lens = torch.full((q.shape[0],), q.shape[1] + off,
+                              dtype=torch.int32, device=q.device)
+            out, _ = fd.decode_ref(q, k, v, lens, k_scale=k_scale,
+                                   v_scale=v_scale)
+            return out.float()
+
+        _, want = _chunk_forward(params, token[:, None], before, 300,
+                                 cfg=cfg, extent=512, attend=plain)
+    got, want = st.last_logits.float(), want[:, 0].float()
+    assert torch.isfinite(got).all()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-2, f"step logits relative L2 {rel}"

@@ -146,3 +146,40 @@ def test_kernel_wrappers_use_plain_versions_only_for_cpu_tensors():
         fa.flash_attention(meta, meta, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_bwd(meta, meta, meta, meta, meta[..., 0], meta)
+
+
+def test_int8_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """The int8 kernels' wrappers (decode_i8, decode_paged_i8, flash_fwd_i8,
+    matmul_i8) take their plain versions for CPU tensors without counting
+    a launch, and refuse other devices."""
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+    from triton_dist_tpu_torch.kernels import quant
+
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 8, 128)).astype(
+        np.float32))
+    kq, ks = fd.quantize_kv(torch.from_numpy(
+        rng.standard_normal((1, 2, 8, 128)).astype(np.float32)))
+    lens = torch.tensor([8], dtype=torch.int32)
+    counters = (fd.decode_i8, fd.decode_paged_i8, fa.flash_fwd_i8,
+                quant.matmul_i8)
+    n0 = [fn.launches for fn in counters]
+    o1, _ = fd.gqa_decode_shard(q[:, :, 0], kq, kq, lens, k_scale=ks,
+                                v_scale=ks)
+    assert torch.equal(o1, fd.decode_ref(q[:, :, 0], kq, kq, lens,
+                                         k_scale=ks, v_scale=ks)[0])
+    table = torch.zeros((1, 1), dtype=torch.int32)
+    o2, _ = fd.gqa_decode_paged_shard(q[:, :, 0], kq, kq, table, lens,
+                                      k_scale=ks, v_scale=ks)
+    assert torch.equal(o1, o2)
+    out = fa.flash_attention(q, kq, kq, k_scale=ks, v_scale=ks)
+    assert torch.equal(out, fa.flash_attention_ref(q, kq, kq, k_scale=ks,
+                                                   v_scale=ks)[0])
+    a = kq[0, 0]
+    assert torch.equal(quant.matmul_i8(a, a.t().contiguous()),
+                       a.long().matmul(a.long().t()).int())
+    assert [fn.launches for fn in counters] == n0
+    meta = torch.empty((8, 128), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        quant.matmul_i8(meta, meta.t())

@@ -8,7 +8,9 @@ port's attention runs its plain PyTorch versions (CPU tensors).
 Tolerances: prompt logits agree to 1e-4 (f32; matmul and softmax sums run
 in different orders in XLA and PyTorch, ~1e-6 relative at these widths);
 greedy token streams must be identical; sampling distributions agree to
-1e-6.
+1e-6.  int8 caches: bytes may differ by one step where a value sits on a
+rounding boundary (at most 1 LSB); scales (absmax / 127 of K/V rows that
+the two f32 forwards compute ~1e-6 apart) agree to 4e-6 relative.
 """
 
 import jax
@@ -61,6 +63,30 @@ def test_params_from_jax_round_trip(model):
     bad = dict(host, layers=host["layers"][:1])
     with pytest.raises(ValueError):
         tllama.params_from_jax(bad, tcfg, device="cpu")
+
+
+def test_w8a8_serving_tree_matches_jax(model):
+    """``quantize_serve_params`` gives the reference's W8A8 serving tree
+    bit for bit (int8 weights, f32 scales, the [1, N] row-weight scale
+    stack), and ``params_from_jax`` carries the reference's tree across."""
+    from triton_dist_tpu.models import llama_w8a8 as jw8
+    from triton_dist_tpu_torch.models import llama_w8a8 as tw8
+
+    jcfg, tcfg, jparams, tparams = model
+    jtree = jax.device_get(jw8.quantize_serve_params(jparams, jcfg, 1))
+    ttree = tw8.quantize_serve_params(tparams, tcfg)
+    carried = tllama.params_from_jax(jtree, tcfg, device="cpu")
+    for jl, tl, cl in zip(jtree["layers"], ttree["layers"],
+                          carried["layers"]):
+        assert set(jl) == set(tl) == set(cl)
+        for name in jl:
+            assert tl[name].dtype == cl[name].dtype, name
+            assert tl[name].shape == jl[name].shape, name
+            assert np.array_equal(tl[name].numpy(), np.asarray(jl[name]))
+            assert torch.equal(tl[name], cl[name]), name
+    assert ttree["layers"][0]["wo_s"].shape == (1, SMALL["dim"])
+    assert ttree["layers"][0]["wgate_q"].dtype == torch.int8
+    assert ttree["embed"] is tparams["embed"]     # float parts shared
 
 
 def test_init_params_scaling_and_seed():
@@ -229,9 +255,56 @@ def test_decode_layer_matches_jax_layer():
 def test_unported_options_raise():
     from triton_dist_tpu_torch.layers.sp_flash_decode import (
         SpGQAFlashDecodeAttention)
+    from triton_dist_tpu_torch.models import llama_w8a8
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpGQAFlashDecodeAttention(world=2, device="cpu")
+    # the W8A8 hooks under tensor parallelism (Queue 1 item 12)
+    x = torch.zeros((2, 256))
+    layer = llama_w8a8.quantize_serve_params(
+        tllama.init_params(tllama.LlamaConfig(**SMALL), device="cpu"),
+        None)["layers"][0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGenerator(tllama.LlamaConfig(**SMALL), device="cpu",
-                   kv_dtype=torch.int8)
+        llama_w8a8.w8a8_serve_ffn(x, layer, axis="tp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        llama_w8a8.w8a8_serve_out_proj(x, layer, axis="tp")
+
+
+def _assert_int8_caches_match(jcaches, tcaches):
+    for jpair, tpair in zip(jcaches, tcaches):
+        for jc, tc in zip(jpair, tpair):
+            assert tc["q"].dtype == torch.int8
+            lsb = np.abs(tc["q"].numpy().astype(np.int32)
+                         - np.asarray(jc["q"]).astype(np.int32))
+            assert lsb.max() <= 1
+            assert_allclose(tc["s"], np.asarray(jc["s"]), atol=0,
+                            rtol=4e-6)
+
+
+@pytest.mark.parametrize("mode", ["prefill", "chunked16", "chunked64"])
+def test_int8_generator_matches_jax(model, mode):
+    """``Generator(kv_dtype=torch.int8)`` against the reference's
+    ``Generator(kv_dtype=jnp.int8)``: prefill (quantized once), chunked
+    prefill (chunks of 16 ride the int8 decode path, chunks of 64 the int8
+    flash path), then 8 greedy steps — identical streams, caches within
+    1 LSB and scales within 4e-6."""
+    jcfg, tcfg, jparams, tparams = model
+    toks = _prompts(9, 2, 40)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("sp",))
+    jgen = JGenerator(jcfg, mesh, axis="sp", max_seq=128, kv_dtype=jnp.int8)
+    tgen = TGenerator(tcfg, max_seq=128, device="cpu", kv_dtype=torch.int8)
+    assert tgen.attn.quantized
+    if mode == "prefill":
+        jst = jgen.prefill(jparams, jnp.asarray(toks))
+        tst = tgen.prefill(tparams, toks)
+    else:
+        c = int(mode[len("chunked"):])
+        jst = jgen.prefill_chunked(jparams, jnp.asarray(toks), chunk_size=c)
+        tst = tgen.prefill_chunked(tparams, toks, chunk_size=c)
+    _assert_int8_caches_match(jst.caches, tst.caches)
+    assert_allclose(tst.last_logits, np.asarray(jst.last_logits), atol=1e-4,
+                    rtol=1e-4)
+    jtoks, jst = jgen.generate(jparams, jst, 8)
+    ttoks, tst = tgen.generate(tparams, tst, 8)
+    assert np.array_equal(ttoks.numpy(), np.asarray(jtoks))
+    _assert_int8_caches_match(jst.caches, tst.caches)

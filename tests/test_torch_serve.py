@@ -9,6 +9,10 @@
   streams must be identical to the JAX engine's and to the port's own
   per-request ``Generator``, and the metrics counters equal to the JAX
   engine's (a deterministic +1-per-reading clock drives both).
+- The same against the JAX engine serving quantized: int8 paged KV pools
+  (``kv_dtype`` int8), alone and with W8A8 weights — identical streams,
+  counters and KV capacity stats; the quantized stream reproducible and
+  continuous batching equal to dedicated serving.
 """
 
 import jax
@@ -303,8 +307,9 @@ def test_engine_metrics_match_jax_engine(served):
     assert all(s is None for s in eng.slots)
 
 
-def _small_engine(served, **kw):
-    gen = TGenerator(served["tcfg"], max_seq=64, device="cpu")
+def _small_engine(served, kv_dtype=None, **kw):
+    gen = TGenerator(served["tcfg"], max_seq=64, device="cpu",
+                     kv_dtype=kv_dtype)
     args = dict(ENGINE_KW, num_blocks=24, clock=_Tick())
     args.update(kw)
     return tserve.ServeEngine(gen, served["tparams"], **args)
@@ -366,7 +371,7 @@ def test_engine_pool_too_small_retires_with_error(served):
 
 @pytest.mark.parametrize("option", [
     dict(horizon=4), dict(prefix_cache=True), dict(spec_k=2),
-    dict(w8a8=True), dict(mesh=object()), dict(max_queue=4),
+    dict(class_aware=True), dict(mesh=object()), dict(max_queue=4),
     dict(snapshot_dir="snap"),
 ])
 def test_engine_unported_options_raise(served, option):
@@ -382,3 +387,122 @@ def test_engine_refuses_deadlines_and_duplicates(served):
     eng.submit(Request("x", p))
     with pytest.raises(ValueError):
         eng.submit(Request("x", p))
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: int8 pools, alone and with W8A8 weights
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["int8", "int8_w8a8"])
+def served_q(request, served):
+    """The MIX (with its preemption) through the JAX and the port engines
+    with int8 pools (and W8A8 weights), on the float fixture's weights."""
+    w8a8 = request.param == "int8_w8a8"
+    jcfg = jllama.LlamaConfig(**SMALL, dtype=jnp.float32)
+    jparams = jllama.init_params(jcfg, jax.random.key(1))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("sp",))
+    prompts = served["prompts"]
+
+    def drive(mod, eng):
+        reqs = [mod.Request(f"r{i}", p, mod.SamplingParams(max_new_tokens=m))
+                for i, (p, (_, m)) in enumerate(zip(prompts, MIX))]
+        outs, sub, step = {}, 0, 0
+        while eng.has_work() or sub < len(reqs):
+            if step % 2 == 0 and sub < len(reqs):
+                eng.submit(reqs[sub])
+                sub += 1
+            for o in eng.step():
+                outs[o.request_id] = o
+            step += 1
+            assert step < 500
+        return outs
+
+    jeng = jserve.ServeEngine(
+        JGenerator(jcfg, mesh, axis="sp", max_seq=64, kv_dtype=jnp.int8),
+        jparams, prefix_cache=False, clock=_Tick(), w8a8=w8a8, **ENGINE_KW)
+    jouts = drive(jserve, jeng)
+    teng = tserve.ServeEngine(
+        TGenerator(served["tcfg"], max_seq=64, device="cpu",
+                   kv_dtype=torch.int8),
+        served["tparams"], clock=_Tick(), w8a8=w8a8, **ENGINE_KW)
+    touts = drive(tserve, teng)
+    return dict(jeng=jeng, jouts=jouts, teng=teng, touts=touts, w8a8=w8a8)
+
+
+def test_quantized_engine_matches_jax_engine(served_q):
+    """Identical greedy streams and counters; the LIFO preemption happens
+    and its recompute re-quantizes nothing it should not (the streams
+    would split)."""
+    jouts, touts = served_q["jouts"], served_q["touts"]
+    assert sorted(touts) == sorted(jouts)
+    for rid in jouts:
+        assert touts[rid].token_ids == jouts[rid].token_ids, rid
+    js = served_q["jeng"].metrics.summary()
+    ts = served_q["teng"].metrics.summary()
+    for key in ("steps", "decode_steps", "prefill_tokens", "preemptions",
+                "completed", "peak_kv_utilization", "mean_ttft",
+                "mean_itl"):
+        assert ts[key] == pytest.approx(js[key]), key
+    assert ts["preemptions"] >= 1
+    eng = served_q["teng"]
+    assert eng.kv_quant and eng.w8a8 == served_q["w8a8"]
+    layer = eng._pools[0][0]
+    assert layer["q"].dtype == torch.int8 and layer["s"].dtype == \
+        torch.float32
+    if served_q["w8a8"]:
+        assert eng.params["layers"][0]["wgate_q"].dtype == torch.int8
+        assert "wgate" not in eng.params["layers"][0]
+
+
+def test_quantized_kv_stats_match_jax(served_q, served):
+    """Pool bytes count int8 pages and their f32 scales: 2 x layers x
+    Hkv x (D + 4) bytes per token, as the reference's gauges say."""
+    kv = served_q["teng"].metrics.kv_stats()
+    assert kv == served_q["jeng"].metrics.kv_stats()
+    cfg = served["tcfg"]
+    want = 2 * cfg.n_layers * cfg.n_kv_heads * (cfg.head_dim + 4)
+    assert kv["quantized"] and kv["bytes_per_token"] == want
+    assert kv["token_slots"] == ENGINE_KW["num_blocks"] * \
+        ENGINE_KW["page_size"]
+    assert served_q["teng"].metrics.summary()["kv"] == kv
+    fp = served["teng"].metrics.kv_stats()
+    assert fp == served["jeng"].metrics.kv_stats() and not fp["quantized"]
+    assert fp["bytes_per_token"] == 2 * cfg.n_layers * cfg.n_kv_heads * \
+        cfg.head_dim * 4
+
+
+def _mixed_reqs(prompts, new_tokens=6):
+    """Greedy and seeded-sampled requests: both must be reproducible."""
+    return [Request(f"q{i}", p, SamplingParams(
+        max_new_tokens=new_tokens, temperature=0.0 if i % 2 == 0 else 0.6,
+        top_k=8, seed=i)) for i, p in enumerate(prompts)]
+
+
+def _serve(eng, reqs, stagger=2):
+    sub = step = 0
+    while eng.has_work() or sub < len(reqs):
+        if step % stagger == 0 and sub < len(reqs):
+            eng.submit(reqs[sub])
+            sub += 1
+        eng.step()
+        step += 1
+        assert step < 500
+    return {rid: list(o.token_ids) for rid, o in eng._outputs.items()}
+
+
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_quantized_engine_reproducible_and_batching_equals_dedicated(
+        served, w8a8):
+    """The same traffic through two fresh int8 engines is identical, and
+    continuous batching over shared int8 pools equals each request served
+    alone (pages quantize once at write; batching never re-quantizes a
+    neighbour's pages) — tests/test_serve_kv_int8.py's gate (a)."""
+    prompts = [p[:9] for p in served["prompts"]]
+    kw = dict(kv_dtype=torch.int8, w8a8=w8a8)
+    a = _serve(_small_engine(served, **kw), _mixed_reqs(prompts))
+    b = _serve(_small_engine(served, **kw), _mixed_reqs(prompts))
+    assert a == b
+    for r in _mixed_reqs(prompts):
+        alone = _serve(_small_engine(served, **kw), [r])
+        assert alone[r.request_id] == a[r.request_id], r.request_id

@@ -20,12 +20,22 @@
 // (nullptr = zero-fill), whether a tile needs the per-element mask, and
 // the visibility rule mask(row, pos).  Masked logits become NEG_INF and
 // their probability an explicit 0, exactly as the TPU kernels do.
+//
+// int8 K/V (the I8 instantiation; the port of the TPU `_decode_kernel_i8`
+// recipe): each tile's int8 rows and their per-position f32 scales
+// arrive by cp.async (half the bytes of bf16 rows) and convert to bf16 in
+// shared memory (|q| <= 127 is exact in bf16), so the same tensor-core
+// products run; K's scale multiplies the logit columns after Q K^T, V's
+// scale folds into P before P is rounded to bf16 for P V, where the TPU
+// kernel rounds.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "mma_frag.cuh"
 
 namespace tdt {
 
@@ -37,6 +47,7 @@ constexpr int LDH = D + 8;      // bf16 row stride of the Q / K / V tiles
 constexpr int LDS = BN + 4;     // f32 row stride of the score tile
 constexpr int LDP = BN + 8;     // bf16 row stride of the probability tile
 constexpr int LDO = D + 4;      // f32 row stride of the output accumulator
+constexpr int LD8 = D + 16;     // byte row stride of the staged int8 tiles
 constexpr float NEG_INF = -1.0e30f;  // finite -inf proxy, as on the TPU
 
 struct Smem {
@@ -48,22 +59,29 @@ struct Smem {
   float* o;
   float* m;
   float* l;
+  int8_t* k8;  // int8 staging tiles and their scales (I8 only)
+  int8_t* v8;
+  float* ks;
+  float* vs;
 };
 
 __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);
 }
 
-__host__ __device__ inline size_t smem_bytes(int R) {
+__host__ __device__ inline size_t smem_bytes(int R, bool i8 = false) {
   return align128(static_cast<size_t>(R) * LDH * 2)      // q
          + 2 * align128(static_cast<size_t>(BN) * LDH * 2)  // k, v
          + align128(static_cast<size_t>(R) * LDS * 4)     // s
          + align128(static_cast<size_t>(R) * LDP * 2)     // p
          + align128(static_cast<size_t>(R) * LDO * 4)     // o
-         + 2 * align128(static_cast<size_t>(R) * 4);      // m, l
+         + 2 * align128(static_cast<size_t>(R) * 4)       // m, l
+         + (i8 ? 2 * align128(static_cast<size_t>(BN) * LD8)  // k8, v8
+                     + 2 * align128(static_cast<size_t>(BN) * 4)  // ks, vs
+               : 0);
 }
 
-__device__ inline Smem carve(char* base, int R) {
+__device__ inline Smem carve(char* base, int R, bool i8 = false) {
   Smem sm;
   size_t off = 0;
   sm.q = reinterpret_cast<bf16*>(base + off);
@@ -81,6 +99,18 @@ __device__ inline Smem carve(char* base, int R) {
   sm.m = reinterpret_cast<float*>(base + off);
   off += align128(static_cast<size_t>(R) * 4);
   sm.l = reinterpret_cast<float*>(base + off);
+  off += align128(static_cast<size_t>(R) * 4);
+  sm.k8 = sm.v8 = nullptr;
+  sm.ks = sm.vs = nullptr;
+  if (i8) {
+    sm.k8 = reinterpret_cast<int8_t*>(base + off);
+    off += align128(static_cast<size_t>(BN) * LD8);
+    sm.v8 = reinterpret_cast<int8_t*>(base + off);
+    off += align128(static_cast<size_t>(BN) * LD8);
+    sm.ks = reinterpret_cast<float*>(base + off);
+    off += align128(static_cast<size_t>(BN) * 4);
+    sm.vs = reinterpret_cast<float*>(base + off);
+  }
   return sm;
 }
 
@@ -125,6 +155,56 @@ __device__ inline void load_tile_async(bf16* tile, const bf16* any,
     const int n = src[i] != nullptr ? 16 : 0;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(dst), "l"(g), "r"(n) : "memory");
+  }
+}
+
+// The int8 twin of load_tile_async: BN rows of D int8 values (D / 16
+// chunks of 16 bytes each) into a staging tile of row stride LD8.
+template <int NT, class RowPtr>
+__device__ inline void load_tile_i8_async(int8_t* tile, const void* any,
+                                          const RowPtr& row_ptr) {
+  constexpr int VEC = D / 16;
+  constexpr int PER = BN * VEC / NT;
+  static_assert(BN * VEC % NT == 0, "tile chunks must divide by threads");
+  const int8_t* src[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) src[i] = row_ptr((threadIdx.x + i * NT) / VEC);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = threadIdx.x + i * NT;
+    const int r = j / VEC, c = j % VEC;
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(tile + r * LD8 + c * 16));
+    const void* g = src[i] != nullptr ? src[i] + c * 16 : any;
+    const int n = src[i] != nullptr ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(g), "r"(n) : "memory");
+  }
+}
+
+// The tile's BN K and BN V scales, one 4-byte cp.async per thread
+// (nullptr = 0).
+template <int NT, class Prob>
+__device__ inline void load_scales_async(const Smem& sm, const Prob& prob,
+                                         int t0) {
+  static_assert(NT == 2 * BN, "one scale per thread");
+  const int r = threadIdx.x % BN;
+  const bool is_v = threadIdx.x >= BN;
+  const float* src = is_v ? prob.v_scale(t0 + r) : prob.k_scale(t0 + r);
+  const unsigned dst = static_cast<unsigned>(
+      __cvta_generic_to_shared((is_v ? sm.vs : sm.ks) + r));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src != nullptr ? src : prob.any_scale),
+                  "r"(src != nullptr ? 4 : 0) : "memory");
+}
+
+// Staged int8 tile -> bf16 tile (exact), 16 values per thread per step.
+template <int NT>
+__device__ inline void int8_to_bf16_tile(bf16* tile, const int8_t* src) {
+  constexpr int VEC = D / 16;
+  for (int j = threadIdx.x; j < BN * VEC; j += NT) {
+    const int r = j / VEC, c = j % VEC;
+    tdt_frag::cvt_i8x16_bf16(tile + r * LDH + c * 16, src + r * LD8 + c * 16);
   }
 }
 
@@ -213,7 +293,9 @@ __device__ inline float lane_sum(float x, int tpr) {
 // Online-softmax update of one tile (the TPU kernels' m/l/alpha rule):
 // scaled (and soft-capped) logits, mask, row max, p = exp(x - m_new) in
 // f32 summed into l, P stored as bf16 for the PV product, O rescaled.
-template <int NT, class Mask>
+// I8: column c's logit is scaled by k_scale[c] * scale, and p by
+// v_scale[c] before it is rounded (l sums the unscaled p).
+template <int NT, bool I8, class Mask>
 __device__ inline void softmax_tile(const Smem& sm, int R, int tile_start,
                                     float scale, float soft_cap,
                                     bool need_mask, const Mask& mask) {
@@ -224,7 +306,7 @@ __device__ inline void softmax_tile(const Smem& sm, int R, int tile_start,
   const float l_old = sm.l[rl.row];
   float mx = NEG_INF;
   for (int c = rl.sub; c < BN; c += rl.tpr) {
-    float x = srow[c] * scale;
+    float x = srow[c] * (I8 ? sm.ks[c] * scale : scale);
     if (soft_cap > 0.0f) x = soft_cap * tanhf(x / soft_cap);
     if (need_mask && !mask(rl.row, tile_start + c)) x = NEG_INF;
     srow[c] = x;
@@ -237,7 +319,7 @@ __device__ inline void softmax_tile(const Smem& sm, int R, int tile_start,
     const float x = srow[c];
     const float p = (x > 0.5f * NEG_INF) ? expf(x - m_new) : 0.0f;
     sum += p;
-    prow[c] = __float2bfloat16(p);
+    prow[c] = __float2bfloat16(I8 ? p * sm.vs[c] : p);
   }
   sum = lane_sum(sum, rl.tpr);
   const float alpha = expf(m_old - m_new);
@@ -255,9 +337,13 @@ __device__ inline void softmax_tile(const Smem& sm, int R, int tile_start,
 //   const bf16* any   a valid global address (source of zero-fills)
 //   bool full(int tile_start)   tile needs no per-element mask
 //   bool operator()(int row, int pos)   visibility
+// and for I8 instead of k_row / v_row / any:
+//   const int8_t* k_row8(int pos), v_row8(int pos)
+//   const float* k_scale(int pos), v_scale(int pos)
+//   const void* any8, const float* any_scale
 // Q must already sit in sm.q; on return sm.o / sm.m / sm.l hold the
 // unnormalised output and the softmax statistics of every row.
-template <int NT, class Prob>
+template <int NT, bool I8, class Prob>
 __device__ inline void attend(const Smem& sm, int R, const Prob& prob,
                               int pos_lo, int pos_hi, float scale,
                               float soft_cap) {
@@ -269,15 +355,27 @@ __device__ inline void attend(const Smem& sm, int R, const Prob& prob,
   const int first = (pos_lo / BN) * BN;
   for (int t0 = first; t0 < pos_hi; t0 += BN) {
     __syncthreads();  // previous tile's readers are done with k/v/s/p
-    load_tile_async<NT>(sm.k, prob.any,
-                        [&](int r) { return prob.k_row(t0 + r); });
-    load_tile_async<NT>(sm.v, prob.any,
-                        [&](int r) { return prob.v_row(t0 + r); });
-    wait_async();
+    if constexpr (I8) {
+      load_tile_i8_async<NT>(sm.k8, prob.any8,
+                             [&](int r) { return prob.k_row8(t0 + r); });
+      load_tile_i8_async<NT>(sm.v8, prob.any8,
+                             [&](int r) { return prob.v_row8(t0 + r); });
+      load_scales_async<NT>(sm, prob, t0);
+      wait_async();
+      __syncthreads();
+      int8_to_bf16_tile<NT>(sm.k, sm.k8);
+      int8_to_bf16_tile<NT>(sm.v, sm.v8);
+    } else {
+      load_tile_async<NT>(sm.k, prob.any,
+                          [&](int r) { return prob.k_row(t0 + r); });
+      load_tile_async<NT>(sm.v, prob.any,
+                          [&](int r) { return prob.v_row(t0 + r); });
+      wait_async();
+    }
     __syncthreads();
     qk_tile<NT>(sm, R);
     __syncthreads();
-    softmax_tile<NT>(sm, R, t0, scale, soft_cap, !prob.full(t0), prob);
+    softmax_tile<NT, I8>(sm, R, t0, scale, soft_cap, !prob.full(t0), prob);
     __syncthreads();
     pv_tile<NT>(sm, R);
   }

@@ -30,6 +30,16 @@
 // tiles stream through a two-stage cp.async ring in shared memory.
 // wgmma, TMA and warp specialisation are the next steps (PERF.md has the
 // measured time beside the bound).
+//
+// int8 K/V (the I8 instantiation, the port of `_flash_kernel_i8`: chunked
+// prefill against an int8 cache, forward only): the int8 K/V tiles and
+// their per-position f32 scales [B, Hkv, Sk] stream through the two-stage
+// cp.async ring (half the bytes), and each tile converts to bf16 in
+// shared memory ahead of the same ldmatrix / mma.sync path (|q| <= 127 is
+// exact in bf16).  K's scale applies per S column after Q K^T: a thread's
+// C fragment holds columns 2 (lane % 4) + {0, 1} + 8 j, whose scales it
+// reads from shared memory; V's scale folds into P before P is rounded to
+// the bf16 A fragment of P V, where the TPU kernel rounds.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,30 +56,47 @@ constexpr int BN = 64;       // keys per tile
 constexpr int NT = 128;      // 4 warps
 constexpr int LD = D + 8;    // bf16 row stride in shared memory (272 B)
 constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+constexpr int LD8 = D + 16;    // int8 staging row stride (bytes)
 constexpr float NEG_INF = -1.0e30f;  // finite -inf proxy, as on the TPU
 
 struct FlashParams {
   const bf16* q;
   const bf16* k;
   const bf16* v;
+  const int8_t* k8;   // I8: int8 K/V and their f32 scales [B, Hkv, Sk]
+  const int8_t* v8;
+  const float* ksc;
+  const float* vsc;
   bf16* out;
   float* lse;
   int Sq, Sk, Hq, Hkv, G, BQ;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
+  long long ks_sb, ks_sh, ks_ss;
+  long long vs_sb, vs_sh, vs_ss;
   int q_offset, kv_offset, causal, window;
   float scale, soft_cap;
 };
 
+// bf16: Q and a two-stage K/V ring.  I8: Q, one bf16 K/V tile, and a
+// two-stage ring of int8 K/V tiles with their scales.
 constexpr size_t SMEM_BYTES = static_cast<size_t>(BM + 4 * BN) * LD * 2;
+constexpr size_t SMEM_BYTES_I8 =
+    static_cast<size_t>(BM + 2 * BN) * LD * 2 + 4 * BN * LD8 + 4 * BN * 4;
 
+template <bool I8>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const __grid_constant__ FlashParams p) {
   extern __shared__ __align__(128) char smem_raw[];
+  constexpr int KV_STAGES = I8 ? 1 : 2;
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
-  bf16* sK = sQ + BM * LD;                       // [2][BN][LD]
-  bf16* sV = sK + 2 * BN * LD;                   // [2][BN][LD]
+  bf16* sK = sQ + BM * LD;                       // [KV_STAGES][BN][LD]
+  bf16* sV = sK + KV_STAGES * BN * LD;           // [KV_STAGES][BN][LD]
+  int8_t* sK8 = reinterpret_cast<int8_t*>(sV + KV_STAGES * BN * LD);
+  int8_t* sV8 = sK8 + 2 * BN * LD8;              // I8: [2][BN][LD8] each
+  float* sKs = reinterpret_cast<float*>(sV8 + 2 * BN * LD8);  // I8: [2][BN]
+  float* sVs = sKs + 2 * BN;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
   const int b = blockIdx.z, h = blockIdx.y;
@@ -88,6 +115,34 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
   const int n_tiles = hi > first ? (hi - first + BN - 1) / BN : 0;
 
   auto load_kv = [&](int t0, int buf) {
+    if constexpr (I8) {
+      int8_t* dk = sK8 + buf * BN * LD8;
+      int8_t* dv = sV8 + buf * BN * LD8;
+#pragma unroll
+      for (int i = 0; i < BN * (D / 16) / NT; ++i) {
+        const int j = tid + i * NT, r = j / (D / 16), c = j % (D / 16);
+        const int key = t0 + r;
+        const bool ok = key < p.Sk;
+        cp_async16(dk + r * LD8 + c * 16,
+                   ok ? p.k8 + b * p.k_sb + h * p.k_sh + key * p.k_ss + c * 16
+                      : nullptr, p.k8);
+        cp_async16(dv + r * LD8 + c * 16,
+                   ok ? p.v8 + b * p.v_sb + h * p.v_sh + key * p.v_ss + c * 16
+                      : nullptr, p.k8);
+      }
+      static_assert(NT == 2 * BN, "one scale per thread");
+      const int r = tid % BN, key = t0 + r;
+      const bool ok = key < p.Sk;
+      if (tid < BN)
+        cp_async4(sKs + buf * BN + r,
+                  ok ? p.ksc + b * p.ks_sb + h * p.ks_sh + key * p.ks_ss
+                     : nullptr, p.ksc);
+      else
+        cp_async4(sVs + buf * BN + r,
+                  ok ? p.vsc + b * p.vs_sb + h * p.vs_sh + key * p.vs_ss
+                     : nullptr, p.ksc);
+      return;
+    }
     bf16* dk = sK + buf * BN * LD;
     bf16* dv = sV + buf * BN * LD;
 #pragma unroll
@@ -141,8 +196,22 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
       for (int kk = 0; kk < D / 16; ++kk)
         load_a(qf[kk], sQ, LD, warp * 16, kk * 16);
     }
-    const bf16* k_t = sK + buf * BN * LD;
-    const bf16* v_t = sV + buf * BN * LD;
+    const bf16* k_t = sK + (I8 ? 0 : buf) * BN * LD;
+    const bf16* v_t = sV + (I8 ? 0 : buf) * BN * LD;
+    const float* ks_t = sKs + buf * BN;
+    const float* vs_t = sVs + buf * BN;
+    if constexpr (I8) {
+      // the staged int8 tiles -> the bf16 tiles the fragments read
+#pragma unroll
+      for (int i = 0; i < BN * (D / 16) / NT; ++i) {
+        const int j = tid + i * NT, r = j / (D / 16), c = j % (D / 16);
+        cvt_i8x16_bf16(sK + r * LD + c * 16, sK8 + buf * BN * LD8 + r * LD8
+                                                 + c * 16);
+        cvt_i8x16_bf16(sV + r * LD + c * 16, sV8 + buf * BN * LD8 + r * LD8
+                                                 + c * 16);
+      }
+      __syncthreads();
+    }
 
     // S[16 x 64] = Q K^T: 8 key n-tiles of 8, 8 k-steps of 16 over D.
     float s[BN / 8][4];
@@ -169,9 +238,13 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
+      float2 ks2 = make_float2(1.f, 1.f);
+      if constexpr (I8)
+        ks2 = *reinterpret_cast<const float2*>(ks_t + j * 8 + 2 * tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale;
+        float x = I8 ? s[j][e] * ((e & 1 ? ks2.y : ks2.x) * p.scale)
+                     : s[j][e] * p.scale;
         if (p.soft_cap > 0.f) x = p.soft_cap * tanhf(x / p.soft_cap);
         if (!full) {
           // `_visibility_mask`
@@ -198,12 +271,16 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
     float sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
+      float2 vs2 = make_float2(1.f, 1.f);
+      if constexpr (I8)
+        vs2 = *reinterpret_cast<const float2*>(vs_t + j * 8 + 2 * tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = s[j][e];
         const float pe = x > 0.5f * NEG_INF ? expf(x - m_r[e >> 1]) : 0.f;
-        s[j][e] = pe;
         sum[e >> 1] += pe;
+        // I8: V's scale folds into P before its bf16 rounding
+        s[j][e] = I8 ? pe * (e & 1 ? vs2.y : vs2.x) : pe;
       }
     }
 #pragma unroll
@@ -252,20 +329,40 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
   }
 }
 
-}  // namespace
+template <bool I8>
+int launch_flash(FlashParams& p, int B, void* stream) {
+  constexpr size_t smem = I8 ? SMEM_BYTES_I8 : SMEM_BYTES;
+  // once per device, process and instantiation (outside graph capture)
+  static unsigned attr_set = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(attr_set & (1u << dev))) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set |= 1u << dev;
+  }
+  const dim3 grid((p.Sq + p.BQ - 1) / p.BQ, p.Hkv, B);
+  flash_fwd_kernel<I8><<<grid, NT, smem,
+                         static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
 
-extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* out, void* lse, int B, int Hq, int Hkv,
-                             int Sq, int Sk, long long q_sb, long long q_sh,
-                             long long q_ss, long long k_sb, long long k_sh,
-                             long long k_ss, long long v_sb, long long v_sh,
-                             long long v_ss, int q_offset, int kv_offset,
-                             int causal, int window, float scale,
-                             float soft_cap, void* stream) {
-  FlashParams p;
+void fill_params(FlashParams& p, const void* q, const void* k,
+                 const void* v, void* out, void* lse, int Hq, int Hkv,
+                 int Sq, int Sk, long long q_sb, long long q_sh,
+                 long long q_ss, long long k_sb, long long k_sh,
+                 long long k_ss, long long v_sb, long long v_sh,
+                 long long v_ss, int q_offset, int kv_offset, int causal,
+                 int window, float scale, float soft_cap) {
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
+  p.k8 = static_cast<const int8_t*>(k);
+  p.v8 = static_cast<const int8_t*>(v);
+  p.ksc = p.vsc = nullptr;
+  p.ks_sb = p.ks_sh = p.ks_ss = p.vs_sb = p.vs_sh = p.vs_ss = 0;
   p.out = static_cast<bf16*>(out);
   p.lse = static_cast<float*>(lse);
   p.Sq = Sq;
@@ -283,19 +380,43 @@ extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   p.soft_cap = soft_cap;
-  // once per device and process (outside any graph capture)
-  static unsigned attr_set = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (!(attr_set & (1u << dev))) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set |= 1u << dev;
-  }
-  const dim3 grid((Sq + p.BQ - 1) / p.BQ, Hkv, B);
-  flash_fwd_kernel<<<grid, NT, SMEM_BYTES,
-                     static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int B, int Hq, int Hkv,
+                             int Sq, int Sk, long long q_sb, long long q_sh,
+                             long long q_ss, long long k_sb, long long k_sh,
+                             long long k_ss, long long v_sb, long long v_sh,
+                             long long v_ss, int q_offset, int kv_offset,
+                             int causal, int window, float scale,
+                             float soft_cap, void* stream) {
+  FlashParams p;
+  fill_params(p, q, k, v, out, lse, Hq, Hkv, Sq, Sk, q_sb, q_sh, q_ss, k_sb,
+              k_sh, k_ss, v_sb, v_sh, v_ss, q_offset, kv_offset, causal,
+              window, scale, soft_cap);
+  return launch_flash<false>(p, B, stream);
+}
+
+// The int8 twin: k/v int8 (strides in bytes) with f32 scale planes
+// k_scale / v_scale [B, Hkv, Sk] and their strides.
+extern "C" int tdt_flash_fwd_i8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, void* out, void* lse, int B, int Hq, int Hkv,
+    int Sq, int Sk, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long ks_sb, long long ks_sh,
+    long long ks_ss, long long vs_sb, long long vs_sh, long long vs_ss,
+    int q_offset, int kv_offset, int causal, int window, float scale,
+    float soft_cap, void* stream) {
+  FlashParams p;
+  fill_params(p, q, k, v, out, lse, Hq, Hkv, Sq, Sk, q_sb, q_sh, q_ss, k_sb,
+              k_sh, k_ss, v_sb, v_sh, v_ss, q_offset, kv_offset, causal,
+              window, scale, soft_cap);
+  p.ksc = static_cast<const float*>(k_scale);
+  p.vsc = static_cast<const float*>(v_scale);
+  p.ks_sb = ks_sb; p.ks_sh = ks_sh; p.ks_ss = ks_ss;
+  p.vs_sb = vs_sb; p.vs_sh = vs_sh; p.vs_ss = vs_ss;
+  return launch_flash<true>(p, B, stream);
 }

@@ -1,6 +1,7 @@
 // Register-tile building blocks of the flash kernels (flash_fwd.cu,
-// flash_bwd.cu): cp.async copies into shared memory, ldmatrix fragment
-// loads and the bf16 mma.sync.m16n8k16 product with f32 accumulation.
+// flash_bwd.cu) and the int8 GEMM (matmul_i8.cu): cp.async copies into
+// shared memory, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16
+// product with f32 accumulation and the int8 m16n8k32 one with int32.
 //
 // Fragment layout of m16n8k16 (lane = 4 * gq + tq): A rows gq and gq + 8,
 // columns 2tq, 2tq + 1 (+ 8); B columns gq, rows 2tq, 2tq + 1 (+ 8); C rows
@@ -23,11 +24,19 @@ __device__ inline unsigned smem_addr(const void* p) {
 
 // 16-byte async copy; src == nullptr zero-fills (a zero-byte read of the
 // valid address `any`).
-__device__ inline void cp_async16(void* dst, const bf16* src,
-                                  const bf16* any) {
+__device__ inline void cp_async16(void* dst, const void* src,
+                                  const void* any) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src ? src : any),
                   "r"(src ? 16 : 0) : "memory");
+}
+
+// 4-byte async copy (one f32 scale); src == nullptr zero-fills.
+__device__ inline void cp_async4(void* dst, const void* src,
+                                 const void* any) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src ? src : any),
+                  "r"(src ? 4 : 0) : "memory");
 }
 
 __device__ inline void cp_commit() {
@@ -61,6 +70,20 @@ __device__ inline void mma16816(float (&c)[4], const unsigned (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[16 x 8] += a[16 x 32] @ b[32 x 8], int8 in, exact int32 accumulate.
+// Fragments as m16n8k16 bf16 with each 32-bit register holding four
+// int8 values instead of two bf16: a row-major int8 tile viewed as bf16
+// (half the row stride, half the column) loads with load_a, and an
+// int8 tile laid out [n][k] with load_b_nk.
+__device__ inline void mma16832_s8(int (&c)[4], const unsigned (&a)[4],
+                                   unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -106,6 +129,20 @@ __device__ inline void load_b_kn(unsigned (&b)[4], const bf16* tile, int ld,
   const int lane = threadIdx.x % 32;
   ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
                            n0 + (lane >> 4) * 8);
+}
+
+// 16 int8 values (16 bytes of shared memory) -> 16 bf16 (32 bytes),
+// exact: |q| <= 127 needs 7 of bf16's 8 mantissa bits.
+__device__ inline void cvt_i8x16_bf16(bf16* dst, const int8_t* src) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  unsigned h[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    h[e] = pack_bf16(static_cast<float>(b[2 * e]),
+                     static_cast<float>(b[2 * e + 1]));
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(h[0], h[1], h[2], h[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(h[4], h[5], h[6], h[7]);
 }
 
 __device__ inline float quad_max(float x) {

@@ -10,8 +10,12 @@ On the CPU, a tiny config through the plain PyTorch attention:
 
     python -m triton_dist_tpu_torch.examples.serve --engine --device cpu
 
-Counterpart of ``examples/serve.py``'s ``run_engine`` (world 1, float
-pools, single-step decode).
+Quantized serving: ``--kv-int8`` (int8 paged KV pools with per-position
+scales) and ``--w8a8`` (int8 weights and activations in the out and FFN
+projections); the two compose.
+
+Counterpart of ``examples/serve.py``'s ``run_engine`` (world 1,
+single-step decode).
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ def parse_args(argv=None):
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 paged KV pools (per-position f32 scales; "
+                        "~0.52 of the bf16 bytes per token at head_dim "
+                        "128)")
+    p.add_argument("--w8a8", action="store_true",
+                   help="W8A8 weights: per-channel int8 wo/wgate/wup/wdown, "
+                        "per-row int8 activations, exact int8 GEMMs")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after the run, a second wave of the same prompts: "
                         "once every row decodes, time N steps, then run N "
@@ -145,16 +156,21 @@ def run_engine(args) -> dict:
                          f"tokens exceed max_seq {max_seq}")
     t0 = time.perf_counter()
     params = llama.init_params(cfg, seed=args.seed, device=args.device)
-    gen = Generator(cfg, max_seq=max_seq, device=args.device)
+    gen = Generator(cfg, max_seq=max_seq, device=args.device,
+                    kv_dtype=torch.int8 if args.kv_int8 else None)
     num_blocks = args.num_blocks or 1 + args.max_batch * (max_seq //
                                                          args.page_size)
     eng = ServeEngine(gen, params, num_blocks=num_blocks,
                       page_size=args.page_size, max_batch=args.max_batch,
-                      prefill_chunk=chunk)
+                      prefill_chunk=chunk, w8a8=args.w8a8)
+    kv = eng.metrics.kv_stats()
     print(f"[serve] {cfg.n_layers}-layer dim-{cfg.dim} model on "
           f"{gen.device} ({time.perf_counter() - t0:.1f} s to build); "
           f"{args.requests} requests, prompts {sorted(lens.tolist())}, "
-          f"{args.new_tokens} new tokens each")
+          f"{args.new_tokens} new tokens each; KV pools "
+          f"{'int8' if kv['quantized'] else str(cfg.dtype)}, "
+          f"{kv['bytes_per_token']:.0f} B/token, weights "
+          f"{'w8a8' if args.w8a8 else str(cfg.dtype)}")
     sp = SamplingParams(max_new_tokens=args.new_tokens,
                         temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.seed)

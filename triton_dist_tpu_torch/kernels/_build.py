@@ -14,6 +14,7 @@ port on a machine with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_fwd", "flash_bwd", "decode")
+SOURCES = ("flash_fwd", "flash_bwd", "decode", "matmul_i8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -112,6 +113,14 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (grid sizing)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -13,6 +13,12 @@ kernel does not take.  On a CPU tensor it runs :func:`flash_attention_ref`,
 the plain PyTorch version (the counterpart of ``_flash_xla``), which the
 CPU tests and ``chip_smoke.py`` also call directly.
 
+int8 K/V (``k_scale``/``v_scale`` [B, Hkv, Sk] f32, the serving int8
+cache) dequantize inside attention as the reference's ``_flash_xla`` does;
+on a CUDA tensor that is the int8 instantiation of the same kernel
+(:func:`flash_fwd_i8`, the port of ``_flash_kernel_i8``, with its own
+launch count).  The quantized path is forward-only, as in the reference.
+
 Under autograd (grad enabled, an input that requires grad, no
 ``return_lse``) the call goes through :class:`FlashAttentionFn`, the
 counterpart of the reference's ``jax.custom_vjp`` ``_flash_diff``: it saves
@@ -34,9 +40,12 @@ from triton_dist_tpu_torch.kernels import _build
 
 NEG_INF = -1.0e30  # finite -inf proxy: survives exp/log without NaNs
 
+_FLASH_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float] * 2
+               + [ctypes.c_void_p])
 _FLASH_SIG = {"tdt_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
-              + [ctypes.c_float] * 2 + [ctypes.c_void_p]}
+              + [ctypes.c_longlong] * 9 + _FLASH_TAIL,
+              "tdt_flash_fwd_i8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+              + [ctypes.c_longlong] * 15 + _FLASH_TAIL}
 _BWD_TAIL = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
              + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _FLASH_BWD_SIG = {"tdt_flash_bwd_dq": [ctypes.c_void_p] * 7 + _BWD_TAIL,
@@ -77,9 +86,11 @@ def _visibility_mask(Sq, Sk, *, causal, window, q_offset, kv_offset,
 
 
 def flash_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0,
-                        kv_offset=0, soft_cap=0.0, window=0):
+                        kv_offset=0, k_scale=None, v_scale=None,
+                        soft_cap=0.0, window=0):
     """Plain PyTorch version (dense, f32 math): out [B, Hq, Sq, D] in
-    q.dtype, lse [B, Hq, Sq] f32 — the ``_flash_xla`` contract."""
+    q.dtype, lse [B, Hq, Sq] f32 — the ``_flash_xla`` contract, int8 K/V
+    with ``k_scale``/``v_scale`` [B, Hkv, Sk] included."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -88,6 +99,8 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0,
     q_offset, kv_offset = _as_int(q_offset), _as_int(kv_offset)
     qf = q.float().reshape(B, Hkv, g, Sq, D)
     logits = torch.einsum("bhgsd,bhtd->bhgst", qf, k.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, None, :]
     logits = apply_soft_cap(logits, soft_cap)
     mask = _visibility_mask(Sq, Sk, causal=causal, window=window,
                             q_offset=q_offset, kv_offset=kv_offset,
@@ -100,6 +113,8 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0,
     if mask is not None:
         p = torch.where(mask, p, torch.zeros_like(p))
     l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, None, :]
     out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
     l_safe = torch.where(nonempty, l, torch.ones_like(l))
     out = torch.where(nonempty[..., None], out / l_safe[..., None],
@@ -155,25 +170,39 @@ def _check_cuda_operand(name, x, dtype):
     if x.dtype != dtype:
         raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got "
                         f"{x.dtype}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) \
-            or x.data_ptr() % 16:
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(
+            s * x.element_size() % 16 for s in x.stride()[:-1]):
         raise ValueError(f"{name}: the CUDA kernel needs a unit last "
                          f"stride, 16-byte aligned rows (strides "
                          f"{tuple(x.stride())})")
 
 
-def _flash_fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset,
-                    soft_cap, window):
+def _check_scale(name, s, shape, device):
+    """An int8 cache's f32 scale plane: one scale per cached position."""
+    if s is None:
+        raise ValueError(f"int8 K/V needs both k_scale and v_scale "
+                         f"({name} is missing)")
+    if s.dtype != torch.float32 or tuple(s.shape) != tuple(shape):
+        raise ValueError(f"{name}: f32 {tuple(shape)} expected, got "
+                         f"{s.dtype} {tuple(s.shape)}")
+    if s.device != device:
+        raise ValueError(f"{name} is on {s.device}, q on {device}")
+
+
+def _flash_fwd_operands(q, k, v, kv_dtype):
+    """Check what the forward kernel takes (D 128, G dividing 64, bf16 q,
+    k/v in ``kv_dtype``, 16-byte aligned rows); returns the outputs."""
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv = k.shape[1]
     if D != 128:
         raise ValueError(f"flash_fwd kernel: head_dim must be 128, got {D}")
     g = Hq // Hkv
     if 64 % g:
         raise ValueError(f"flash_fwd kernel: the group size Hq/Hkv={g} must "
                          f"divide 64 (one 64-row q tile holds the group)")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_cuda_operand(name, x, torch.bfloat16)
+    for name, x, dt in (("q", q, torch.bfloat16), ("k", k, kv_dtype),
+                        ("v", v, kv_dtype)):
+        _check_cuda_operand(name, x, dt)
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
@@ -181,6 +210,14 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset,
                          f"not match q {tuple(q.shape)}")
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    return out, lse
+
+
+def _flash_fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset,
+                    soft_cap, window):
+    B, Hq, Sq, _ = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out, lse = _flash_fwd_operands(q, k, v, torch.bfloat16)
     lib = _build.load("flash_fwd", _FLASH_SIG)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -193,6 +230,34 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset,
     _build.check(err, "flash_fwd")
     flash_attention.launches += 1
     return out, lse
+
+
+def flash_fwd_i8(q, k, v, k_scale, v_scale, *, causal, scale, q_offset,
+                 kv_offset, soft_cap, window):
+    """The int8 instantiation of the forward kernel on CUDA tensors (the
+    port of ``_flash_kernel_i8``): q bf16 [B, Hq, Sq, D]; k/v int8
+    [B, Hkv, Sk, D] with f32 ``k_scale``/``v_scale`` [B, Hkv, Sk]
+    (any strides with unit last stride).  Returns (out bf16, lse f32)."""
+    B, Hq, Sq, _ = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out, lse = _flash_fwd_operands(q, k, v, torch.int8)
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check_scale(name, sc, k.shape[:3], q.device)
+    lib = _build.load("flash_fwd", _FLASH_SIG)
+    with torch.cuda.device(q.device):
+        err = lib.tdt_flash_fwd_i8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Hq, Hkv,
+            Sq, Sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *k_scale.stride(), *v_scale.stride(), q_offset, kv_offset,
+            int(bool(causal)), int(window), float(scale),
+            float(soft_cap or 0.0), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_fwd_i8")
+    flash_fwd_i8.launches += 1
+    return out, lse
+
+
+flash_fwd_i8.launches = 0
 
 
 def _bwd_operands(q, k, v, do):
@@ -346,11 +411,8 @@ def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
     ``return_lse``).  The causal rule is ``q_offset + i >= kv_offset + j``;
     ``window`` keeps keys with ``qpos - kpos < window``.  Differentiable
     through :class:`FlashAttentionFn` when grad is enabled and an input
-    requires grad (not with ``return_lse``, as in the reference)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 K/V (k_scale/v_scale) is not ported yet: ROADMAP Queue 2 "
-            "item 5 (_flash_kernel_i8)")
+    requires grad (not with ``return_lse``, as in the reference).  int8
+    k/v with ``k_scale``/``v_scale`` [B, Hkv, Sk] f32: forward only."""
     q_offset, kv_offset = _as_int(q_offset), _as_int(kv_offset)
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
@@ -360,6 +422,20 @@ def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
         scale = 1.0 / math.sqrt(D)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               kv_offset=kv_offset, soft_cap=soft_cap, window=window)
+    if k_scale is not None or v_scale is not None:
+        if torch.is_grad_enabled() and q.requires_grad:
+            raise NotImplementedError(
+                "the int8 K/V path is forward-only (serving), as in the "
+                "reference: no gradient through a quantized cache")
+        if q.is_cuda:
+            out, lse = flash_fwd_i8(q, k, v, k_scale, v_scale, **kw)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_ref(q, k, v, k_scale=k_scale,
+                                           v_scale=v_scale, **kw)
+        else:
+            raise ValueError(f"flash_attention: unsupported device "
+                             f"{q.device}")
+        return (out, lse) if return_lse else out
     if (not return_lse and torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return FlashAttentionFn.apply(q, k, v, kw)

@@ -7,18 +7,25 @@ per-request ``q_lens``), ``window``/``window_lens`` and ``soft_cap``, f32
 partials (out, lse) with the reference's dead-row contract (out 0, lse
 ``NEG_INF``) and masking rule (``_chunk_valid``).
 
+int8 caches (``k_scale``/``v_scale``: f32 per-position scales, from
+:func:`quantize_kv`) dequantize inside attention exactly as the
+reference's ``_local_decode_xla`` does: K's scale multiplies the logit
+columns, V's folds into P before the PV product.
+
 On CUDA tensors both launch the hand-written Hopper kernel
 ``csrc/decode.cu`` (one device function; the paged entry reads page ids
-from the block table) or raise on what it does not take.  On CPU tensors
-they run the plain PyTorch versions :func:`decode_ref` and
+from the block table; an int8 instantiation for int8 caches) or raise on
+what it does not take.  Each kernel mode counts its own launches:
+``gqa_decode_shard.launches`` and ``gqa_decode_paged_shard.launches``
+(bf16), ``decode_i8.launches`` and ``decode_paged_i8.launches`` (int8).
+On CPU tensors they run the plain PyTorch versions :func:`decode_ref` and
 :func:`decode_paged_ref` (the counterparts of ``_local_decode_xla`` and of
-``_paged_gather`` followed by it).
+``_paged_gather`` + ``_paged_gather_scale`` followed by it).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -27,26 +34,26 @@ from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels.flash_attention import (
     NEG_INF,
     _check_cuda_operand,
+    _check_scale,
     apply_soft_cap,
 )
+from triton_dist_tpu_torch.kernels.quant import symmetric_quantize
 
 MAX_ROWS = 128  # T * G query rows one decode block holds
 TILE = 64       # key positions per kernel tile (csrc/attn_common.cuh BN)
 BLOCKS_PER_SM = 4  # split-KV target: about this many blocks per SM
 
+_TAIL = [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _DECODE_SIG = {
     "tdt_decode": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-    + [ctypes.c_void_p],
+    + [ctypes.c_longlong] * 6 + _TAIL,
     "tdt_decode_paged": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-    + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-    + [ctypes.c_void_p],
+    + [ctypes.c_longlong] * 6 + _TAIL,
+    "tdt_decode_i8": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    + [ctypes.c_longlong] * 12 + _TAIL,
+    "tdt_decode_paged_i8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+    + [ctypes.c_longlong] * 12 + _TAIL,
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def split_plan(n_pairs: int, S_total: int, sms: int):
@@ -60,11 +67,11 @@ def split_plan(n_pairs: int, S_total: int, sms: int):
     return -(-n_tiles // per), per * TILE
 
 
-def _no_int8(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 K/V (k_scale/v_scale) is not ported yet: ROADMAP Queue 1 "
-            "item 9 and Queue 2 item 4 (_decode_kernel_i8)")
+def quantize_kv(x):
+    """[..., S, D] float → ([..., S, D] int8, [..., S] f32 scales):
+    symmetric per-position row quant (the reference's int8-KV layout; the
+    one recipe of ``kernels/quant.py``)."""
+    return symmetric_quantize(x, -1)
 
 
 def pack_lens_arg(local_lens, window_lens, q_lens, *, n_tok, window):
@@ -84,11 +91,13 @@ def pack_lens_arg(local_lens, window_lens, q_lens, *, n_tok, window):
     return local_lens.contiguous(), False
 
 
-def decode_ref(q, k, v, local_lens, *, scale=None, soft_cap=0.0, window=0,
-               window_lens=None, q_lens=None):
+def decode_ref(q, k, v, local_lens, *, scale=None, k_scale=None,
+               v_scale=None, soft_cap=0.0, window=0, window_lens=None,
+               q_lens=None):
     """Plain PyTorch decode (f32 math, dense over the cache) — the
     ``_local_decode_xla`` contract: q [B, Hq, D] or [B, T, Hq, D]; k/v
-    [B, Hkv, S, D]; returns f32 (out, lse)."""
+    [B, Hkv, S, D] (int8 with ``k_scale``/``v_scale`` [B, Hkv, S]);
+    returns f32 (out, lse)."""
     multi = q.dim() == 4
     if not multi:
         q = q[:, None]
@@ -100,6 +109,8 @@ def decode_ref(q, k, v, local_lens, *, scale=None, soft_cap=0.0, window=0,
     dev = q.device
     qf = q.float().reshape(B, T, Hkv, g, D)
     logits = torch.einsum("bthgd,bhsd->bhtgs", qf, k.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, None, :]
     logits = apply_soft_cap(logits, soft_cap)
     ll = local_lens.to(device=dev, dtype=torch.int64)
     wl = ll if window_lens is None else window_lens.to(dev, torch.int64)
@@ -118,6 +129,8 @@ def decode_ref(q, k, v, local_lens, *, scale=None, soft_cap=0.0, window=0,
     p = torch.where(vmask, torch.exp(logits - m[..., None]),
                     torch.zeros_like(logits))
     l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, None, :]
     out = torch.einsum("bhtgs,bhsd->bthgd", p, v.float())
     l_safe = torch.where(nonempty, l, torch.ones_like(l))
     ne_t = nonempty.permute(0, 2, 1, 3)[..., None]
@@ -140,14 +153,27 @@ def paged_gather(pool, table):
     return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, n * Pg, D)
 
 
-def decode_paged_ref(q, k_pool, v_pool, block_table, local_lens, **kw):
-    """Plain paged decode: gather the pages, then :func:`decode_ref`."""
+def paged_gather_scale(scale_pool, table):
+    """[N, Hkv, P] per-position scale pool + [B, n] table → [B, Hkv, n*P]
+    (the twin of :func:`paged_gather` for an int8 pool's scale plane)."""
+    g = scale_pool[table.long()]                         # [B, n, Hkv, P]
+    B, n, Hkv, Pg = g.shape
+    return g.permute(0, 2, 1, 3).reshape(B, Hkv, n * Pg)
+
+
+def decode_paged_ref(q, k_pool, v_pool, block_table, local_lens, *,
+                     k_scale=None, v_scale=None, **kw):
+    """Plain paged decode: gather the pages (and, for int8 pools, their
+    scales), then :func:`decode_ref`."""
+    if k_scale is not None:
+        kw.update(k_scale=paged_gather_scale(k_scale, block_table),
+                  v_scale=paged_gather_scale(v_scale, block_table))
     return decode_ref(q, paged_gather(k_pool, block_table),
                       paged_gather(v_pool, block_table), local_lens, **kw)
 
 
 def _decode_setup(q, k, v, local_lens, window_lens, q_lens, window,
-                  S_total):
+                  S_total, kv_dtype=torch.bfloat16):
     """Shape and operand checks shared by the two CUDA entries, plus the
     outputs and the split-KV scratch (partial o and lse per split)."""
     multi = q.dim() == 4
@@ -170,7 +196,7 @@ def _decode_setup(q, k, v, local_lens, window_lens, q_lens, window,
     qc = q.contiguous()
     _check_cuda_operand("q", qc, torch.bfloat16)
     for name, x in (("k", k), ("v", v)):
-        _check_cuda_operand(name, x, torch.bfloat16)
+        _check_cuda_operand(name, x, kv_dtype)
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     if window_lens is not None:
@@ -180,7 +206,8 @@ def _decode_setup(q, k, v, local_lens, window_lens, q_lens, window,
     shape = (B, n_tok, Hq) if multi else (B, Hq)
     out = torch.empty(shape + (D,), dtype=torch.float32, device=q.device)
     lse = torch.empty(shape, dtype=torch.float32, device=q.device)
-    n_split, split_len = split_plan(B * Hkv, S_total, _sm_count(q.device))
+    n_split, split_len = split_plan(B * Hkv, S_total,
+                                    _build.sm_count(q.device))
     R = n_tok * (Hq // Hkv)
     part = (B, Hkv, n_split, R) if n_split > 1 else (0,)
     o_part = torch.empty(part + ((D,) if n_split > 1 else ()),
@@ -199,15 +226,17 @@ def gqa_decode_shard(q, k, v, local_lens, *, block_s=None, k_scale=None,
     [B, (T,) Hq, D], lse [B, (T,) Hq]).  ``block_s`` is accepted for the
     reference's signature; the kernel's tile is fixed."""
     del block_s
-    _no_int8(k_scale, v_scale)
     kw = dict(soft_cap=soft_cap, window=window, window_lens=window_lens,
               q_lens=q_lens)
     if q.device.type == "cpu":
-        return decode_ref(q, k, v, local_lens, **kw)
+        return decode_ref(q, k, v, local_lens, k_scale=k_scale,
+                          v_scale=v_scale, **kw)
     if not q.is_cuda:
         raise ValueError(f"gqa_decode_shard: unsupported device {q.device}")
     if k.shape[0] != q.shape[0]:
         raise ValueError(f"cache batch {k.shape[0]} != q batch {q.shape[0]}")
+    if k_scale is not None or v_scale is not None:
+        return decode_i8(q, k, v, k_scale, v_scale, local_lens, **kw)
     a = _decode_setup(q, k, v, local_lens, window_lens, q_lens, window,
                       k.shape[2])
     lens = a["lens"]
@@ -230,6 +259,38 @@ def gqa_decode_shard(q, k, v, local_lens, *, block_s=None, k_scale=None,
 gqa_decode_shard.launches = 0
 
 
+def decode_i8(q, k, v, k_scale, v_scale, local_lens, *, soft_cap=0.0,
+              window=0, window_lens=None, q_lens=None):
+    """The int8 instantiation of the decode kernel on CUDA tensors (the
+    port of ``_decode_kernel_i8``): k/v [B, Hkv, S, D] int8 with f32
+    ``k_scale``/``v_scale`` [B, Hkv, S]; the returns of
+    :func:`gqa_decode_shard`."""
+    a = _decode_setup(q, k, v, local_lens, window_lens, q_lens, window,
+                      k.shape[2], kv_dtype=torch.int8)
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check_scale(name, sc, k.shape[:3], q.device)
+    lens = a["lens"]
+    lib = _build.load("decode", _DECODE_SIG)
+    with torch.cuda.device(q.device):
+        err = lib.tdt_decode_i8(
+            a["qc"].data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
+            a["out"].data_ptr(), a["lse"].data_ptr(),
+            a["o_part"].data_ptr(), a["lse_part"].data_ptr(), a["B"],
+            a["T"], a["Hq"], a["Hkv"], k.shape[2], a["n_split"],
+            a["split_len"], *k.stride()[:3], *v.stride()[:3],
+            *k_scale.stride(), *v_scale.stride(),
+            lens.shape[0] if lens.dim() == 2 else 1, int(a["use_qlens"]),
+            int(window), 1.0 / math.sqrt(q.shape[-1]),
+            float(soft_cap or 0.0), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "decode_i8")
+    decode_i8.launches += 1
+    return a["out"], a["lse"]
+
+
+decode_i8.launches = 0
+
+
 def gqa_decode_paged_shard(q, k_pool, v_pool, block_table, local_lens, *,
                            soft_cap=0.0, window=0, window_lens=None,
                            q_lens=None, k_scale=None, v_scale=None):
@@ -239,14 +300,15 @@ def gqa_decode_paged_shard(q, k_pool, v_pool, block_table, local_lens, *,
     anywhere in the pool, e.g. the null block 0, but every entry must be
     a pool row — the kernel does not check, as that would cost a device
     sync per call).  Same returns as
-    :func:`gqa_decode_shard`.  The kernel takes pages that are multiples
-    of 16 up to 256."""
-    _no_int8(k_scale, v_scale)
+    :func:`gqa_decode_shard`.  int8 pools carry f32 scale pools
+    ``k_scale``/``v_scale`` [N, Hkv, page], addressed through the same
+    page ids.  The kernel takes pages that are multiples of 16 up to
+    256."""
     kw = dict(soft_cap=soft_cap, window=window, window_lens=window_lens,
               q_lens=q_lens)
     if q.device.type == "cpu":
         return decode_paged_ref(q, k_pool, v_pool, block_table, local_lens,
-                                **kw)
+                                k_scale=k_scale, v_scale=v_scale, **kw)
     if not q.is_cuda:
         raise ValueError(
             f"gqa_decode_paged_shard: unsupported device {q.device}")
@@ -258,6 +320,9 @@ def gqa_decode_paged_shard(q, k_pool, v_pool, block_table, local_lens, *,
     if table.shape[0] != q.shape[0]:
         raise ValueError(f"block_table rows {table.shape[0]} != batch "
                          f"{q.shape[0]}")
+    if k_scale is not None or v_scale is not None:
+        return decode_paged_i8(q, k_pool, v_pool, k_scale, v_scale, table,
+                               local_lens, **kw)
     a = _decode_setup(q, k_pool, v_pool, local_lens, window_lens, q_lens,
                       window, page * table.shape[1])
     lens = a["lens"]
@@ -279,3 +344,38 @@ def gqa_decode_paged_shard(q, k_pool, v_pool, block_table, local_lens, *,
 
 
 gqa_decode_paged_shard.launches = 0
+
+
+def decode_paged_i8(q, k_pool, v_pool, k_scale, v_scale, table, local_lens,
+                    *, soft_cap=0.0, window=0, window_lens=None,
+                    q_lens=None):
+    """The int8 instantiation of the paged decode kernel on CUDA tensors
+    (called by :func:`gqa_decode_paged_shard` with an int32 ``table`` on
+    q's device): int8 pools [N, Hkv, page, D] with f32 scale pools
+    [N, Hkv, page], both read through ``table``.  The reference has no
+    Pallas kernel here: it computes the int8 paged attend as XLA math."""
+    a = _decode_setup(q, k_pool, v_pool, local_lens, window_lens, q_lens,
+                      window, k_pool.shape[2] * table.shape[1],
+                      kv_dtype=torch.int8)
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check_scale(name, sc, k_pool.shape[:3], q.device)
+    lens = a["lens"]
+    lib = _build.load("decode", _DECODE_SIG)
+    with torch.cuda.device(q.device):
+        err = lib.tdt_decode_paged_i8(
+            a["qc"].data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
+            lens.data_ptr(), a["out"].data_ptr(), a["lse"].data_ptr(),
+            a["o_part"].data_ptr(), a["lse_part"].data_ptr(), a["B"],
+            a["T"], a["Hq"], a["Hkv"], k_pool.shape[2], table.shape[1],
+            a["n_split"], a["split_len"], *k_pool.stride()[:3],
+            *v_pool.stride()[:3], *k_scale.stride(), *v_scale.stride(),
+            lens.shape[0] if lens.dim() == 2 else 1, int(a["use_qlens"]),
+            int(window), 1.0 / math.sqrt(q.shape[-1]),
+            float(soft_cap or 0.0), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "decode_paged_i8")
+    decode_paged_i8.launches += 1
+    return a["out"], a["lse"]
+
+
+decode_paged_i8.launches = 0

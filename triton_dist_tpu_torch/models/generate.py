@@ -7,7 +7,10 @@ Counterpart of ``triton_dist_tpu/models/generate.py``: the
 addressing), ``_chunk_forward`` (one prompt chunk against the cached
 prefix) and ``_prompt_forward`` (the full-prompt forward).  Attention runs
 through the port's kernels: the flash prefill kernel for prompts and
-chunks, the decode kernel for decode steps and chunks of 32 or fewer.
+chunks, the decode kernel for decode steps and chunks of 32 or fewer —
+over float caches or int8 ones (``Generator(kv_dtype=torch.int8)``: each
+layer's cache is a ``{"q", "s"}`` pair of int8 rows and f32 per-position
+scales, and attention dequantizes inside the kernels).
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` programs are plain
 calls, and cache writes land in place.
@@ -24,7 +27,10 @@ from triton_dist_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_gqa_attention,
 )
-from triton_dist_tpu_torch.kernels.flash_decode import gqa_decode_shard
+from triton_dist_tpu_torch.kernels.flash_decode import (
+    gqa_decode_shard,
+    quantize_kv,
+)
 from triton_dist_tpu_torch.layers.sp_flash_decode import (
     SpGQAFlashDecodeAttention,
 )
@@ -43,7 +49,8 @@ from triton_dist_tpu_torch.runtime.utils import resolve_device
 class GenerationState:
     """Per-layer K/V caches + lengths."""
 
-    caches: list  # [(k_cache, v_cache)] per layer, [B, Hkv, S, D]
+    caches: list  # [(k_cache, v_cache)] per layer, [B, Hkv, S, D] (or
+    #               {"q": int8 [B, Hkv, S, D], "s": f32 [B, Hkv, S]})
     kv_lens: torch.Tensor  # [B] int32 — tokens currently in the cache
     last_logits: torch.Tensor  # [B, vocab] f32 — logits for the next token
 
@@ -122,28 +129,33 @@ def _attend_prefix(q, k_all, v_all, prefix_len, *, k_scale=None,
     [prefix, prefix + c); position j is visible to chunk row i iff
     j <= prefix + i.  Chunks of 32 or fewer ride the multi-token decode
     kernel (c * G query rows, one pass over the cache); larger ones the
-    flash prefill kernel at ``q_offset = prefix_len``.  Returns f32
-    [B, c, Hq, hd]."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet: ROADMAP Queue 1 item 9")
+    flash prefill kernel at ``q_offset = prefix_len``.  ``k_scale``/
+    ``v_scale`` [B, Hkv, S] dequantize an int8 cache on either route.
+    Returns f32 [B, c, Hq, hd]."""
     B, c = q.shape[0], q.shape[1]
     if c <= 32:
         lens = torch.full((B,), c + int(prefix_len), dtype=torch.int32,
                           device=q.device)
-        out, _ = gqa_decode_shard(q, k_all, v_all, lens, soft_cap=soft_cap,
+        out, _ = gqa_decode_shard(q, k_all, v_all, lens, k_scale=k_scale,
+                                  v_scale=v_scale, soft_cap=soft_cap,
                                   window=window)
         return out.float()
     out = flash_attention(q.permute(0, 2, 1, 3), k_all, v_all, causal=True,
-                          q_offset=prefix_len, window=window,
-                          soft_cap=soft_cap)
+                          q_offset=prefix_len, k_scale=k_scale,
+                          v_scale=v_scale, window=window, soft_cap=soft_cap)
     return out.permute(0, 2, 1, 3).float()
 
 
 def _write_chunk(cache, new, prefix_len):
     """Write chunk K or V rows [B, Hkv, c, hd] at ``prefix_len`` (in
-    place; float caches only)."""
+    place); for a quantized cache dict the rows quantize and the scale
+    plane updates too."""
     c = new.shape[2]
+    if isinstance(cache, dict):
+        q8, sc = quantize_kv(new)
+        cache["q"][:, :, prefix_len:prefix_len + c] = q8
+        cache["s"][:, :, prefix_len:prefix_len + c] = sc
+        return cache
     cache[:, :, prefix_len:prefix_len + c] = new.to(cache.dtype)
     return cache
 
@@ -154,16 +166,21 @@ def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
     """One prompt chunk [B, c] against the cached prefix; returns
     (new_caches, logits [B, c, V] f32 — position i predicts the token
     after chunk[:, i]).  The chunk's own K/V are written to the cache
-    first, then attention reads the cache back.  ``extent`` bounds the
-    cache rows attention reads.  ``n_valid`` marks rows >= n_valid as
-    padding: their K/V are written as exact zeros, so a padded final chunk
-    leaves the cache identical to an unpadded run (causality already
-    hides those rows from every valid query)."""
+    first (quantized for int8 ``{"q", "s"}`` caches: the reference's static
+    ``quantized`` flag is the cache type here), then attention reads the
+    cache back, so later chunks and this one see the same K/V.  ``extent``
+    bounds the cache rows attention reads.  ``n_valid`` marks rows >=
+    n_valid as padding: their K/V are written as exact zeros, so a padded
+    final chunk leaves the cache identical to an unpadded run (causality
+    already hides those rows from every valid query).  ``attend(q, k_view,
+    v_view, prefix_len, k_scale=, v_scale=)`` overrides the prefix
+    attention (scale views are None for float caches)."""
     ffn = ffn or _dense_prompt_ffn
     out_proj = out_proj or _default_out_proj
     if attend is None:
-        def attend(q, k, v, off):
-            return _attend_prefix(q, k, v, off, window=cfg.attn_window,
+        def attend(q, k, v, off, k_scale=None, v_scale=None):
+            return _attend_prefix(q, k, v, off, k_scale=k_scale,
+                                  v_scale=v_scale, window=cfg.attn_window,
                                   soft_cap=cfg.attn_soft_cap)
     prefix_len = int(prefix_len)
     B, c = chunk.shape
@@ -193,8 +210,15 @@ def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
         k_c = _write_chunk(k_c, k.permute(0, 2, 1, 3), prefix_len)
         v_c = _write_chunk(v_c, v.permute(0, 2, 1, 3), prefix_len)
         new_caches.append((k_c, v_c))
-        ext = extent or k_c.shape[2]
-        o = attend(q, k_c[:, :, :ext], v_c[:, :, :ext], prefix_len)
+        if isinstance(k_c, dict):
+            ext = extent or k_c["q"].shape[2]
+            o = attend(q, k_c["q"][:, :, :ext], v_c["q"][:, :, :ext],
+                       prefix_len, k_scale=k_c["s"][:, :, :ext],
+                       v_scale=v_c["s"][:, :, :ext])
+        else:
+            ext = extent or k_c.shape[2]
+            o = attend(q, k_c[:, :, :ext], v_c[:, :, :ext], prefix_len,
+                       k_scale=None, v_scale=None)
         o = o.reshape(B * c, cfg.n_heads * hd).to(cfg.dtype)
         x = x + out_proj(o, layer).reshape(B, c, cfg.dim)
         h2 = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps).reshape(
@@ -256,6 +280,11 @@ class Generator:
         gen = Generator(cfg, max_seq=4096)              # device="cuda"
         state = gen.prefill(params, prompt_tokens)      # [B, S0]
         tokens, state = gen.generate(params, state, n_new=64)
+
+    ``kv_dtype=torch.int8`` keeps every cache quantized (int8 rows + f32
+    per-position scales): prefill quantizes the prompt's K/V once,
+    chunked prefill and each decode step quantize the rows they write,
+    and the int8 kernels read them back.
     """
 
     def __init__(self, cfg: LlamaConfig, *, max_seq: int | None = None,
@@ -291,7 +320,8 @@ class Generator:
                         chunk_size: int = 512) -> GenerationState:
         """Prefill in fixed-size chunks against the growing KV cache (the
         scores are [chunk, extent] instead of [S0, S0]); same final state
-        as :meth:`prefill`."""
+        as :meth:`prefill` up to the quantization of earlier chunks' K/V
+        in an int8 cache."""
         cfg = self.cfg
         tokens = _as_tokens(tokens, self.device)
         B, S0 = tokens.shape

@@ -124,18 +124,23 @@ def params_from_jax(tree, cfg: LlamaConfig, device="cuda") -> dict:
     """Carry the reference's parameter pytree across: ``tree`` holds numpy
     arrays (``jax.device_get`` of ``llama.init_params``) in the same
     nesting and ``[in, out]`` orientation; returns the port's dict on
-    ``device`` in ``cfg.dtype``."""
+    ``device`` in ``cfg.dtype``.  A world-1 W8A8 serving tree (the
+    reference's ``llama_w8a8.quantize_serve_params``: ``wgate_q/s``,
+    ``wup_q/s``, ``wo_q/s``, ``wdown_q/s`` in place of the float
+    weights) converts too, its int8 weights and f32 scales kept as they
+    are."""
     dev = resolve_device(device)
 
-    def conv(x, shape):
+    def conv(x, shape, dtype=cfg.dtype):
         a = np.asarray(x)
         if a.dtype.kind == "V" or str(a.dtype) == "bfloat16":
             a = a.astype(np.float32)
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        np_dtype = np.int8 if dtype == torch.int8 else np.float32
+        t = torch.from_numpy(np.array(a, dtype=np_dtype))
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"parameter shape {tuple(t.shape)} != "
                              f"{tuple(shape)} for {cfg}")
-        return t.to(device=dev, dtype=cfg.dtype)
+        return t.to(device=dev, dtype=dtype)
 
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(tree['layers'])} layers, cfg has "
@@ -150,7 +155,15 @@ def params_from_jax(tree, cfg: LlamaConfig, device="cuda") -> dict:
         layer = {"attn_norm": conv(lt["attn_norm"], (cfg.dim,)),
                  "mlp_norm": conv(lt["mlp_norm"], (cfg.dim,))}
         for name, shape in _layer_shapes(cfg).items():
-            layer[name] = conv(lt[name], shape)
+            if name + "_q" not in lt:
+                layer[name] = conv(lt[name], shape)
+                continue
+            # W8A8: row weights (wo, wdown) stack one scale row per rank
+            s_shape = ((1, shape[1]) if name in ("wo", "wdown")
+                       else (shape[1],))
+            layer[name + "_q"] = conv(lt[name + "_q"], shape, torch.int8)
+            layer[name + "_s"] = conv(lt[name + "_s"], s_shape,
+                                      torch.float32)
         out["layers"].append(layer)
     return out
 

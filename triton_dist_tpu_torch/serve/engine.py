@@ -19,12 +19,21 @@ allocation the scheduler preempts the latest-admitted request
 (recompute: its emitted tokens are kept and it re-prefills
 ``prompt + generated``).
 
+Quantized serving (the reference's "Quantized serving"): a
+``Generator(kv_dtype=torch.int8)`` makes every pool layer a
+``{"q": int8 [NB, Hkv, page, D], "s": f32 [NB, Hkv, page]}`` pair —
+``_scatter_kv`` quantizes rows as they land, the page fill moves int8
+bytes and scales verbatim (never a dequant/requant round trip), and the
+paged decode kernel dequantizes inside attention; ``w8a8=True`` swaps the
+weight tree once for ``llama_w8a8.quantize_serve_params`` and binds the
+W8A8 ``ffn``/``out_proj`` hooks on the prefill and decode forwards.  The
+two compose.
+
 PyTorch runs eagerly, so the reference's counted jit programs are plain
 calls and pools update in place.  Options of the reference engine that
 are not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: decode horizon, speculative decoding, prefix cache, failure
-containment and crash recovery, overload control, int8 KV and w8a8,
-mesh serving.
+containment and crash recovery, overload control, mesh serving.
 """
 
 from __future__ import annotations
@@ -36,13 +45,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.kernels.flash_decode import gqa_decode_paged_shard
+from triton_dist_tpu_torch.kernels.flash_decode import (
+    gqa_decode_paged_shard,
+    quantize_kv,
+)
+from triton_dist_tpu_torch.models import llama_w8a8
 from triton_dist_tpu_torch.models.generate import (
     Generator,
     _chunk_forward,
     _token_forward,
 )
 from triton_dist_tpu_torch.models.sampling import sample_logits
+from triton_dist_tpu_torch.runtime.utils import tree_leaves
 from triton_dist_tpu_torch.serve.block_manager import (
     BlockExhausted,
     BlockManager,
@@ -81,19 +95,39 @@ def _page_slots(tables, kv_lens, active, *, page):
 
 def _scatter_kv(pool, k, v, pool_row, in_page):
     """The one paged K/V write: new rows [B, Hkv, D] land at
-    (pool_row, in_page) of each pool, in place."""
+    (pool_row, in_page) of each pool, in place.  Quantized pools
+    (``{"q", "s"}`` dicts) quantize each new row here — ``quantize_kv``'s
+    per-(head, position) absmax over D, the contiguous cache's recipe —
+    so a row's int8 bytes and its scale land together."""
     k_pool, v_pool = pool
     r, p = pool_row.long(), in_page.long()
+    if isinstance(k_pool, dict):
+        for dst, new in ((k_pool, k), (v_pool, v)):
+            q8, sc = quantize_kv(new)
+            dst["q"][r, :, p, :] = q8
+            dst["s"][r, :, p] = sc
+        return k_pool, v_pool
     k_pool[r, :, p, :] = k.to(k_pool.dtype)
     v_pool[r, :, p, :] = v.to(v_pool.dtype)
     return k_pool, v_pool
 
 
+def _pool_views(pool):
+    """``(k, v, k_scale, v_scale)`` kernel views of one pool layer: float
+    pools give ``(k, v, None, None)``; int8 dict pools their quant and
+    scale planes."""
+    k_pool, v_pool = pool
+    if isinstance(k_pool, dict):
+        return k_pool["q"], v_pool["q"], k_pool["s"], v_pool["s"]
+    return k_pool, v_pool, None, None
+
+
 def _paged_decode_forward(params, pools, tables, kv_lens, token, active, *,
-                          cfg, page):
+                          cfg, page, ffn=None, out_proj=None):
     """One decode token for every batch row over the paged pools:
     ``generate._token_forward`` with the contiguous append swapped for a
-    pool-page scatter and attention through the paged decode kernel."""
+    pool-page scatter and attention through the paged decode kernel
+    (``ffn``/``out_proj``: the W8A8 hooks, or None)."""
     inc = active.to(kv_lens.dtype)
     pool_row, in_page = _page_slots(tables, kv_lens, active, page=page)
 
@@ -101,13 +135,15 @@ def _paged_decode_forward(params, pools, tables, kv_lens, token, active, *,
         return _scatter_kv(pool, k, v, pool_row, in_page)
 
     def attend(li, q, pool):
+        kq, vq, ks, vs = _pool_views(pool)
         o, _ = gqa_decode_paged_shard(
-            q, pool[0], pool[1], tables, kv_lens + inc,
-            soft_cap=cfg.attn_soft_cap, window=cfg.attn_window)
+            q, kq, vq, tables, kv_lens + inc, soft_cap=cfg.attn_soft_cap,
+            window=cfg.attn_window, k_scale=ks, v_scale=vs)
         return o
 
     return _token_forward(params, pools, token, kv_lens, cfg=cfg,
-                          write_kv=write_kv, attend=attend)
+                          write_kv=write_kv, attend=attend, ffn=ffn,
+                          out_proj=out_proj)
 
 
 def _fill_pool_pages(pools, scratch, block_ids, *, page):
@@ -115,15 +151,26 @@ def _fill_pool_pages(pools, scratch, block_ids, *, page):
     [1, Hkv, n*page, D] per layer) into the request's pool pages, in
     place.  ``block_ids`` covers every scratch page; entries past the
     prompt's allocation hold the null block, so duplicate null ids only
-    ever carry the scratch's zero padding."""
+    ever carry the scratch's zero padding.  A quantized scratch's int8
+    bytes and scales move as they are: quantization is not idempotent, so
+    the pool rows stay bit-identical to the scratch rows."""
     n = block_ids.shape[0]
     ids = block_ids.long()
+
+    def as_pages(c):
+        Hkv, D = c.shape[1], c.shape[3]
+        return c[0].reshape(Hkv, n, page, D).transpose(0, 1)
+
+    def as_pages_s(sc):
+        return sc[0].reshape(sc.shape[1], n, page).transpose(0, 1)
+
     for (k_pool, v_pool), (kc, vc) in zip(pools, scratch):
-        Hkv, D = kc.shape[1], kc.shape[3]
-        k_pool[ids] = kc[0].reshape(Hkv, n, page, D).transpose(0, 1).to(
-            k_pool.dtype)
-        v_pool[ids] = vc[0].reshape(Hkv, n, page, D).transpose(0, 1).to(
-            v_pool.dtype)
+        for dst, src in ((k_pool, kc), (v_pool, vc)):
+            if isinstance(dst, dict):
+                dst["q"][ids] = as_pages(src["q"])
+                dst["s"][ids] = as_pages_s(src["s"])
+            else:
+                dst[ids] = as_pages(src).to(dst.dtype)
     return pools
 
 
@@ -166,8 +213,8 @@ def _stream_seed(seed: int, index: int) -> int:
 
 
 class ServeEngine:
-    """Continuous-batching serving over one :class:`Generator` (world 1,
-    float pools).
+    """Continuous-batching serving over one :class:`Generator` (world 1;
+    float or int8 pools, float or W8A8 weights).
 
     Usage::
 
@@ -180,6 +227,9 @@ class ServeEngine:
     Prefill always runs the one fixed ``prefill_chunk`` shape (the final
     residual pads, its K/V zero-masked by ``n_valid``) and each prompt's
     scratch extent rounds up the bucket ladder, as in the reference.
+    ``gen`` built with ``kv_dtype=torch.int8`` gives int8 pools;
+    ``w8a8=True`` serves W8A8 projections (``self.params`` becomes the
+    quantized tree).
     """
 
     def __init__(self, gen: Generator, params, *, num_blocks: int,
@@ -203,8 +253,6 @@ class ServeEngine:
         if draft is not None or draft_params is not None or spec_k:
             _not_ported("draft/spec_k (speculative decoding)",
                         "Queue 1 item 8")
-        if w8a8:
-            _not_ported("w8a8", "Queue 1 item 9")
         if mesh is not None:
             _not_ported("mesh (sharded serving)", "Queue 1 item 12")
         if faults is not None or step_timeout_s is not None \
@@ -214,8 +262,6 @@ class ServeEngine:
         if max_queue is not None or class_aware or brownout is not None:
             _not_ported("max_queue/class_aware/brownout (overload control)",
                         "Queue 1 item 10")
-        if gen.attn.quantized:
-            _not_ported("int8 KV pools", "Queue 1 item 9")
         if gen.max_seq % page_size:
             raise ValueError(
                 f"max_seq {gen.max_seq} must divide by page_size "
@@ -223,8 +269,18 @@ class ServeEngine:
         cfg = gen.cfg
         self.gen = gen
         self.cfg = cfg
-        self.params = params
         self.device = gen.device
+        self.kv_quant = bool(gen.attn.quantized)
+        self.w8a8 = bool(w8a8)
+        # w8a8 swaps the weight tree once, before any forward runs; the
+        # hooks ride the ffn=/out_proj= seams of both forwards, so a
+        # re-prefill after preemption runs the same hooked math
+        self._hooks = {}
+        if self.w8a8:
+            params = llama_w8a8.quantize_serve_params(params, cfg)
+            self._hooks = {"ffn": llama_w8a8.w8a8_serve_ffn,
+                           "out_proj": llama_w8a8.w8a8_serve_out_proj}
+        self.params = params
         self.page = page_size
         self.max_batch = max_batch
         self.n_pages_max = gen.max_seq // page_size
@@ -244,13 +300,28 @@ class ServeEngine:
             self._scratch_need(gen.max_seq - 1), page_size)
 
         shape = (num_blocks, cfg.n_kv_heads, page_size, cfg.head_dim)
-        self._pools = [
-            (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-             torch.zeros(shape, dtype=cfg.dtype, device=self.device))
-            for _ in range(cfg.n_layers)]
+        self._pools = [(self._zeros_kv(shape), self._zeros_kv(shape))
+                       for _ in range(cfg.n_layers)]
+        # KV capacity: the real allocated footprint (int8 pages and their
+        # scales both count) and the token slots it buys
+        self.metrics.set_kv_capacity(
+            pool_bytes=sum(t.numel() * t.element_size()
+                           for t in tree_leaves(self._pools)),
+            token_slots=num_blocks * page_size, quantized=self.kv_quant)
         self.slots: list[Optional[ReqState]] = [None] * max_batch
         self._states: dict[str, ReqState] = {}
         self._outputs: dict[str, RequestOutput] = {}
+
+    def _zeros_kv(self, shape):
+        """One zeroed K or V store of ``shape`` [.., S, D]: a float tensor,
+        or for int8 pools an int8 plane with its f32 [.., S] scale plane
+        (in the pool layout for pools and scratch alike)."""
+        if self.kv_quant:
+            return {"q": torch.zeros(shape, dtype=torch.int8,
+                                     device=self.device),
+                    "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=self.device)}
+        return torch.zeros(shape, dtype=self.cfg.dtype, device=self.device)
 
     # -- submission -------------------------------------------------------
 
@@ -352,10 +423,10 @@ class ServeEngine:
         s_ext = self._bucket_s_ext(int(rs.prompt_tokens.shape[0]))
         rs.s_ext = s_ext
         shape = (1, cfg.n_kv_heads, s_ext, cfg.head_dim)
-        rs.scratch = [
-            (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-             torch.zeros(shape, dtype=cfg.dtype, device=self.device))
-            for _ in range(cfg.n_layers)]
+        # a quantized scratch: chunked prefill quantizes each chunk's rows
+        # as it writes them, so the page fill moves finished bytes
+        rs.scratch = [(self._zeros_kv(shape), self._zeros_kv(shape))
+                      for _ in range(cfg.n_layers)]
 
     def _run_prefill(self, rs: ReqState, n_tokens: int,
                      now: float) -> Optional[RequestOutput]:
@@ -374,7 +445,7 @@ class ServeEngine:
             rs.scratch, logits = _chunk_forward(
                 self.params, torch.from_numpy(buf).to(self.device),
                 rs.scratch, rs.prefill_pos, cfg=self.cfg, extent=rs.s_ext,
-                n_valid=c)
+                n_valid=c, **self._hooks)
             rs.prefill_pos += c
             n_last = c
             self.metrics.prefill_tokens += c
@@ -552,7 +623,8 @@ class ServeEngine:
         self._pools, logits = _paged_decode_forward(
             self.params, self._pools, torch.from_numpy(tables).to(dev),
             torch.from_numpy(lens).to(dev), torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(active).to(dev), cfg=self.cfg, page=self.page)
+            torch.from_numpy(active).to(dev), cfg=self.cfg, page=self.page,
+            **self._hooks)
         greedy = torch.argmax(logits, dim=-1).tolist()  # the step's sync
         self.metrics.decode_steps += 1
         self.metrics.host_syncs += 1

@@ -3,7 +3,8 @@
 Counterpart of ``triton_dist_tpu/serve/metrics.py``: :class:`RequestMetrics`
 (copied whole) and the part of ``ServeMetrics`` the core engine touches —
 TTFT / ITL / queue / step histograms, the prefill / decode token and step
-counters, the streaming per-step gauges and :meth:`ServeMetrics.summary`.
+counters, the streaming per-step gauges, the KV pool capacity view
+(:meth:`ServeMetrics.kv_stats`) and :meth:`ServeMetrics.summary`.
 The compilation, speculative, recovery, migration, network, SLO-class and
 Prometheus views wait for the planes that feed them (ROADMAP Queue 1).
 """
@@ -125,6 +126,9 @@ class ServeMetrics:
     kv_util_last: float = 0.0
     kv_util_peak: float = 0.0
     kv_util_sum: float = 0.0
+    kv_pool_bytes: int = 0        # device bytes pinned by the KV pools
+    kv_token_slots: int = 0       # num_blocks * page_size token capacity
+    kv_quant: bool = False        # int8 pools (+ f32 scale planes)
     hist_ttft: LogHistogram = field(default_factory=LogHistogram,
                                     repr=False)
     hist_itl: LogHistogram = field(default_factory=LogHistogram,
@@ -146,6 +150,29 @@ class ServeMetrics:
         self.kv_util_last = kv_utilization
         self.kv_util_sum += kv_utilization
         self.kv_util_peak = max(self.kv_util_peak, kv_utilization)
+
+    def set_kv_capacity(self, *, pool_bytes: int, token_slots: int,
+                        quantized: bool) -> None:
+        """Stamp the engine's KV pool geometry (the engine calls this at
+        construction, right after allocating pools): resident device
+        bytes across every pool tensor (int8 pages and their f32 scales
+        both count), the token slots those bytes buy
+        (``num_blocks * page_size``), and whether the pools are
+        quantized."""
+        self.kv_pool_bytes = int(pool_bytes)
+        self.kv_token_slots = int(token_slots)
+        self.kv_quant = bool(quantized)
+
+    def kv_stats(self) -> dict:
+        """KV pool capacity (``summary()["kv"]``): pool bytes, token
+        slots, bytes per token, quantized."""
+        return {
+            "pool_bytes": self.kv_pool_bytes,
+            "token_slots": self.kv_token_slots,
+            "bytes_per_token": (self.kv_pool_bytes / self.kv_token_slots
+                                if self.kv_token_slots else 0.0),
+            "quantized": self.kv_quant,
+        }
 
     def observe_finish(self, request_id: str, rm: RequestMetrics,
                        reason=None) -> None:
@@ -213,6 +240,7 @@ class ServeMetrics:
             "mean_itl": mean_itl,
             "latency": self.latency_stats(),
             "decode": self.decode_stats(),
+            "kv": self.kv_stats(),
             "requests": {rid: m.to_dict()
                          for rid, m in self.requests.items()},
         }
