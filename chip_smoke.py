@@ -34,7 +34,12 @@ Phases, in order (any failure exits non-zero without the final line):
    decode_i8 and decode_paged_i8 at the decode shape, flash_fwd_i8 at the
    chunk shape (same tolerances), matmul_i8 at (m, k, n) = (8, 4096,
    14336) and (512, 4096, 14336) by exact equality with its float64
-   plain version, ``torch._int_mm`` at m 512 as the yardstick;
+   plain version, ``torch._int_mm`` at m 512 as the yardstick; the
+   grouped GEMM's three modes (bf16, dx, int8) at Mixtral-8x7B's gate/up
+   shape with a sort_align tile map: bf16 within 2e-2 of the plain
+   version's largest magnitude and 1e-2 relative L2 over the tensor and
+   over each row tile, int8 exactly equal, padding tiles exactly zero;
+   ``torch._grouped_mm`` as the bf16 yardstick;
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -61,13 +66,35 @@ Phases, in order (any failure exits non-zero without the final line):
    gradient leaf with the kernels against autograd through the plain
    attention — loss within 1e-3 relative, each leaf within 2e-2 relative
    L2; (d) the launch counters of flash_fwd and both backward kernels,
-   zeroed just before (a) and read just after, are each > 0.
+   zeroed just before (a) and read just after, are each > 0;
+7. MoE forward (after the Llama state is freed): Mixtral-8x7B at full
+   width cut to MOE_LAYERS layers, random weights from seed 0, tokens
+   [S 2048, B 1]: ``models/moe.make_forward`` with the group_gemm counter
+   zeroed just before (> 0 after), a profiled forward (device ms and the
+   grouped GEMMs' share), and the MoE noise-floor line (kernels vs plain
+   versions, layer by layer: max |d logit|, argmax agreement >=
+   MOE_ARGMAX_MIN, tokens whose top-2 expert set differs per layer);
+8. MoE generator: ``MoEGenerator`` on the same tree, batch 2, a 512-token
+   prompt, 32 greedy tokens; flash_fwd and decode launch; teacher-forced
+   agreement against a prompt forward with the plain attention
+   (near-ties within MOE_NEAR_TIE);
+9. MoE layer: ``DistributedMoELayer`` (E 8, H 4096, F 14336, top-2) at T
+   2048 and T 8, bf16 and after ``quantize_weights()``, each against the
+   same layer with the plain grouped GEMM (bf16 within the grouped-GEMM
+   tolerances, W8A8 equal), the W8A8 output against the float one within
+   the reference's tolerance (median relative error < 0.05, cosine >
+   0.995); group_gemm_i8 launches;
+10. MoE train: MOE_SGD_STEPS in-place SGD steps at MOE_TRAIN_LAYERS layers
+   (finite, falling losses; peak memory; group_gemm and group_gemm_dx
+   launch; a profiled step), then at 2 layers the loss and every gradient
+   leaf with the kernels against the plain grouped GEMM (1e-3, 2e-2).
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
 zeroed again just before phase 5b and read just after 5c, where the four
 int8 kernels must each be > 0; the backward kernels' counts in the
-``kernels`` line come from phase 6 (a).  A
+``kernels`` line come from phase 6 (a), the grouped GEMM's from phases 7
+(bf16), 9 (int8) and 10 (dx).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -119,8 +146,32 @@ BWD_REL_TOL = 2e-2
 BWD_L2_TOL = 1e-2
 BWD_TILE_L2_TOL = 2e-2
 SGD_LR = 0.2        # phase 6 (a): big enough that bf16 updates survive
+MOE_LAYERS = 16       # phases 7-8: 46.97 GB of Mixtral-8x7B weights
+MOE_TRAIN_LAYERS = 8  # phase 10 (a): parameters and gradients, 2 x 23.75 GB
+MOE_SGD_LR = 0.2
+MOE_SGD_STEPS = 3
+# MoE gates, set from the MoE noise-floor line (PERF.md Findings).  Routing
+# amplifies bf16 rounding: a token whose second and third router
+# probabilities nearly tie takes another expert when its hidden state
+# moves by one rounding, and its FFN output then moves by O(1).  One
+# 16-layer forward with the kernels and with the plain versions swapped
+# the top-2 set of 4 tokens (of 2048) at the first layer and 185 at the
+# sixteenth, landing up to 3.81 logits apart with 0.86 argmax agreement
+# (NVIDIA H100 80GB HBM3, 700 W).  So a mismatch within MOE_NEAR_TIE of
+# the reference maximum counts as a tie, and exact agreement is floored at
+# MOE_STRICT_MIN, far below the measured ~0.83-0.86 and far above what a
+# wrong kernel gives (a random token of 32000).  Each kernel is also held
+# to its plain version directly (phase 3).
+MOE_ARGMAX_MIN = 0.6
+MOE_NEAR_TIE = 4.0
+MOE_STRICT_MIN = 0.6
 ADAMW_LR = 1e-4     # phase 6 (b)
 TRAIN_SEQ = 2048
+# grouped GEMM, kernel against plain version (both round the f32 sums to
+# bf16 once): max |err| / max |plain|; ||err|| / ||plain|| over the
+# tensor and over each row tile
+GG_REL_TOL = 2e-2
+GG_L2_TOL = 1e-2
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_S = 1979e12       # H100 SXM dense int8 tensor-core peak
@@ -374,6 +425,7 @@ def kernel_phase(dev):
                                   table))
     rows["matmul_i8"] = matmul_i8_row(dev, g)
     rows.update(bwd_kernel_rows(dev, randn))
+    rows.update(group_gemm_rows(dev, g))
     return rows
 
 
@@ -605,6 +657,183 @@ def bwd_kernel_rows(dev, randn):
             "flash_bwd_dkv": dict(common, ms=dkv_ms, bound_ms=dkv_b[0],
                                   bound_by=dkv_b[1],
                                   max_abs_err=max(errs["dk"], errs["dv"]))}
+
+
+def event_ms(fn, iters=3):
+    """Eager device time per call between CUDA events (for a plain version
+    that reads the tile map on the host, which a CUDA graph cannot
+    capture)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_tiles(tag, got, want, block_m):
+    """The grouped GEMM's agreement rule: max |kernel - plain| <= GG_REL_TOL
+    max |plain|; relative L2 <= GG_L2_TOL over the tensor and over each
+    row tile (a tile steered to the wrong expert shows); a tile whose
+    plain output is zero (padding) must be exactly zero.  Returns
+    max |err|."""
+    import torch
+
+    err, want = got.float() - want.float(), want.float()
+    tiles = err.reshape(-1, block_m * err.shape[1]).norm(dim=1)
+    ref = want.reshape(-1, block_m * want.shape[1]).norm(dim=1)
+    pad = ref == 0
+    worst = (tiles[~pad] / ref[~pad]).max().item()
+    amax, top = err.abs().max().item(), want.abs().max().item()
+    l2 = (err.norm() / want.norm()).item()
+    pad_zero = bool(torch.all(tiles[pad] == 0))
+    log(f"{tag}: max|kernel-plain| {amax:.3e} (tol {GG_REL_TOL} x max|plain| "
+        f"{top:.3e}), relative L2 {l2:.3e} (tol {GG_L2_TOL}), worst row "
+        f"tile {worst:.3e} (tol {GG_L2_TOL}), {int(pad.sum())} padding tiles "
+        f"exactly zero: {pad_zero}")
+    if not (torch.isfinite(got).all() and amax <= GG_REL_TOL * top
+            and l2 <= GG_L2_TOL and worst <= GG_L2_TOL and pad_zero):
+        raise AssertionError(f"{tag} disagrees with plain")
+    return amax
+
+
+def group_gemm_rows(dev, g):
+    """The three modes of csrc/group_gemm.cu at Mixtral-8x7B's gate/up
+    projection (E 8, K 4096, N 14336), each row tile's expert from
+    sort_align of seeded top-2 routing: group_gemm at 2048 tokens (M_pad
+    5120, block_m 128) and, under "t8", at 8 tokens (M_pad 1152);
+    group_gemm_dx (dy [5120, 14336] against the same stack; padding rows
+    of dy zero, as the backward's are); group_gemm_i8 at the first plan.
+    Each against its plain version, then timed beside its bound and
+    ``torch._grouped_mm`` (bf16) where this PyTorch has it."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+
+    E, K, N, bm = 8, 4096, 14336, 128
+
+    def plan_for(T):
+        _, experts = mu.topk_routing(torch.randn(
+            (T, E), generator=g, device=dev), 2)
+        plan = mu.sort_align(experts, E, bm)
+        x = torch.randn((T, K), generator=g, device=dev).bfloat16()
+        return plan, mu.gather_sorted(x, plan["dest"], plan["m_pad"])
+
+    def library(a, b, te):
+        """torch._grouped_mm over the plan's groups (offsets: each
+        expert's end row, the trailing padding tiles counted to E - 1),
+        timed eagerly (a 1-3 ms call hides its launch; no graph capture
+        of a call the port does not own); None and the reason where it is
+        missing or fails."""
+        if not hasattr(torch, "_grouped_mm"):
+            return None, "this PyTorch has no torch._grouped_mm"
+        offs = (torch.bincount(te, minlength=E).cumsum(0) * bm).to(
+            torch.int32)
+        try:
+            out = torch._grouped_mm(a, b, offs=offs)
+            ms = event_ms(lambda: torch._grouped_mm(a, b, offs=offs),
+                          iters=10)
+        except Exception as e:   # a yardstick only: report why it is null
+            return None, f"torch._grouped_mm failed: {str(e)[:120]}"
+        return ms, out
+
+    def bound(x_bytes, te, slab_bytes, out_bytes, ops, rate=BF16_FLOPS_S):
+        n_slabs = len(set(te.tolist()))
+        return bound_ms(x_bytes + n_slabs * slab_bytes + out_bytes, ops,
+                        rate) + (n_slabs,)
+
+    w = (torch.randn((E, K, N), generator=g, device=dev) / K ** 0.5
+         ).bfloat16()
+    rows = {}
+    entries = {}
+    for tag, T in (("T2048", 2048), ("T8", 8)):
+        plan, xs = plan_for(T)
+        te = plan["tile_expert"]
+        M = xs.shape[0]
+        y = gg.group_gemm(xs, w, te, block_m=bm)
+        torch.cuda.synchronize()
+        want = gg.group_gemm_ref(xs, w, te, block_m=bm)
+        err = check_tiles(f"group_gemm {tag} (M_pad {M})", y, want, bm)
+        ms = time_ms(lambda: gg.group_gemm(xs, w, te, block_m=bm))
+        plain_ms = event_ms(lambda: gg.group_gemm_ref(xs, w, te,
+                                                      block_m=bm))
+        lib, out = library(xs, w, te)
+        why = out if lib is None else (
+            f"torch._grouped_mm, relative L2 to plain "
+            f"{((out.float() - want.float()).norm() / want.float().norm()).item():.2e}")
+        b_ms, b_by, n_slabs = bound(M * K * 2, te, K * N * 2, M * N * 2,
+                                    2 * M * K * N)
+        log(f"group_gemm {tag}: kernel {ms:.4f} ms "
+            f"({2 * M * K * N / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f}"
+            f" ms, library {'null' if lib is None else f'{lib:.4f} ms'} "
+            f"({why}), bound {b_ms:.4f} ms ({b_by}; {n_slabs} expert slabs "
+            f"of {K * N * 2 / 1e6:.1f} MB)")
+        entries[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib, max_abs_err=err)
+        if T == 2048:
+            main_plan, main_xs = plan, xs
+        del y, want, out
+    rows["group_gemm"] = dict(entries["T2048"], t8=entries["T8"])
+
+    te, valid = main_plan["tile_expert"], main_plan["valid_rows"]
+    M = main_xs.shape[0]
+    dy = (torch.randn((M, N), generator=g, device=dev)
+          * valid[:, None]).bfloat16()
+    dx = gg.group_gemm_dx(dy, w, te, block_m=bm)
+    torch.cuda.synchronize()
+    want = gg.group_gemm_ref(dy, w, te, block_m=bm, trans_w=True)
+    err = check_tiles("group_gemm_dx T2048", dx, want, bm)
+    ms = time_ms(lambda: gg.group_gemm_dx(dy, w, te, block_m=bm))
+    plain_ms = event_ms(lambda: gg.group_gemm_ref(dy, w, te, block_m=bm,
+                                                  trans_w=True))
+    lib, out = library(dy, w.transpose(1, 2), te)
+    why = out if lib is None else (
+        f"torch._grouped_mm on the transposed view, relative L2 to plain "
+        f"{((out.float() - want.float()).norm() / want.float().norm()).item():.2e}")
+    b_ms, b_by, n_slabs = bound(M * N * 2, te, K * N * 2, M * K * 2,
+                                2 * M * K * N)
+    log(f"group_gemm_dx T2048: kernel {ms:.4f} ms "
+        f"({2 * M * K * N / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"library {'null' if lib is None else f'{lib:.4f} ms'} ({why}), "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    rows["group_gemm_dx"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib,
+                                 max_abs_err=err)
+    del dy, dx, want, out
+
+    xq = torch.randint(-127, 128, main_xs.shape, generator=g, device=dev,
+                       dtype=torch.int8) * valid[:, None].to(torch.int8)
+    wq = torch.randint(-127, 128, (E, K, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    yq = gg.group_gemm_i8(xq, wq, te, block_m=bm)
+    torch.cuda.synchronize()
+    want = gg.group_gemm_ref(xq, wq, te, block_m=bm)
+    exact = torch.equal(yq, want)
+    pad_zero = bool(torch.all(yq[~valid] == 0))
+    err = (yq.double() - want.double()).abs().max().item()
+    log(f"group_gemm_i8 T2048: exact {exact}, max|kernel-plain| {err:.1f}, "
+        f"padding rows zero {pad_zero}")
+    if not (exact and pad_zero):
+        raise AssertionError("group_gemm_i8 is not exact")
+    ms = time_ms(lambda: gg.group_gemm_i8(xq, wq, te, block_m=bm))
+    plain_ms = event_ms(lambda: gg.group_gemm_ref(xq, wq, te, block_m=bm))
+    b_ms, b_by, _ = bound(M * K, te, K * N, M * N * 4, 2 * M * K * N,
+                          INT8_OPS_S)
+    log(f"group_gemm_i8 T2048: kernel {ms:.4f} ms "
+        f"({2 * M * K * N / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, "
+        f"library null (no single PyTorch call computes an int8 grouped "
+        f"product), bound {b_ms:.4f} ms ({b_by})")
+    rows["group_gemm_i8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None,
+                                 max_abs_err=err)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1020,6 +1249,338 @@ def train_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 7-10: the MoE family (Mixtral-8x7B widths)
+# ---------------------------------------------------------------------------
+
+
+def moe_noise_floor(params, cfg, tok):
+    """What routing does to bf16 rounding: one forward with the kernels and
+    one with the plain versions (plain attention, plain grouped GEMM),
+    walked layer by layer so the tokens whose top-2 expert set differs
+    between the two can be counted at each layer; then max |d logit| and
+    argmax agreement.  Returns (argmax agreement, max |d logit|)."""
+    import torch
+
+    from triton_dist_tpu_torch.models import llama, moe
+
+    lcfg = cfg.as_llama()
+    xk = xp = params["embed"][tok.long()]
+    flips = []
+    with torch.no_grad():
+        for layer in params["layers"]:
+            xk = llama.attention_block_shard(xk, layer, lcfg)
+            xp = llama.attention_block_shard(xp, layer, lcfg, plain=True)
+            sets = []
+            for x in (xk, xp):
+                h = llama._rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+                logits = h.reshape(-1, cfg.dim).float() @ layer["router"]
+                sets.append(torch.topk(logits, cfg.topk).indices.sort(
+                    -1).values)
+            flips.append(int((sets[0] != sets[1]).any(-1).sum()))
+            xk, _ = moe.moe_block_shard(xk, layer, cfg)
+            xp, _ = moe.moe_block_shard(xp, layer, cfg, plain=True)
+        out = []
+        for x in (xk, xp):
+            h = llama._rms_norm(x, params["final_norm"], cfg.norm_eps)
+            out.append(llama._LogitsF32.apply(h.reshape(-1, cfg.dim),
+                                              params["lm_head"]))
+    lk, lp = out
+    diff = (lk - lp).abs()
+    top2 = torch.topk(lp, 2, dim=-1).values
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    log(f"moe noise floor: {cfg.n_layers}-layer forward, kernels vs plain "
+        f"versions: max |d logit| {diff.max().item():.4f}, mean "
+        f"{diff.mean().item():.4f}, argmax agreement {agree:.4f}; reference "
+        f"logit std {lp.std().item():.4f}, median top-2 gap "
+        f"{(top2[:, 0] - top2[:, 1]).median().item():.4f}; tokens (of "
+        f"{lk.shape[0]}) whose top-{cfg.topk} expert set differs, per layer: "
+        f"{flips}")
+    return agree, diff.max().item()
+
+
+def moe_forward_phase(cfg, params, tok):
+    """Phase 7: ``make_forward`` at 16 layers, S 2048, B 1, with the
+    grouped-GEMM counter zeroed just before; then a profiled forward and
+    the noise floor.  Returns the launch count."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+    from triton_dist_tpu_torch.models import moe
+
+    fwd = moe.make_forward(cfg)
+    gg.group_gemm.launches = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, aux = fwd(params, tok)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+    launches = gg.group_gemm.launches
+    if (tuple(logits.shape) != (tok.shape[0], 1, cfg.vocab)
+            or not torch.isfinite(logits).all() or not np.isfinite(
+                float(aux))):
+        raise AssertionError(f"moe forward: bad output {tuple(logits.shape)}"
+                             f", aux {float(aux)}")
+    if launches <= 0:
+        raise AssertionError("group_gemm never launched by the MoE forward")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        fwd(params, tok)
+        torch.cuda.synchronize()
+        t_warm = (time.perf_counter() - t0) * 1e3
+        busy, top = profile_once(lambda: fwd(params, tok), top_n=12)
+    gg_ms = sum(ms for name, _, ms in top if "group_gemm" in name)
+    log(f"moe forward: {cfg.n_layers} layers, tokens [{tok.shape[0]}, 1]: "
+        f"aux {float(aux):.4f}, first call {t_first * 1e3:.1f} ms, warm "
+        f"{t_warm:.1f} ms wall; profiled: device busy {busy:.2f} ms, "
+        f"grouped GEMMs {gg_ms:.2f} ms ({gg_ms / busy:.3f} of it); "
+        f"group_gemm launches {launches}")
+    for name, n, ms in top:
+        log(f"moe forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    del logits
+    agree, dmax = moe_noise_floor(params, cfg, tok)
+    if agree < MOE_ARGMAX_MIN:
+        raise AssertionError(f"moe forward: argmax agreement with the plain "
+                             f"versions {agree:.4f} < {MOE_ARGMAX_MIN}")
+    return launches
+
+
+def moe_generator_phase(cfg, params):
+    """Phase 8: MoEGenerator, batch 2, a 512-token prompt, 32 greedy
+    tokens, with the attention counters zeroed just before; teacher-forced
+    agreement against a prompt forward with the plain attention."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+    from triton_dist_tpu_torch.models.generate_moe import (
+        MoEGenerator,
+        _moe_prompt_forward,
+    )
+
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab, size=(2, 512)).astype(np.int64)
+    counters = {"flash_fwd": fa.flash_attention,
+                "decode": fd.gqa_decode_shard}
+    for fn in counters.values():
+        fn.launches = 0
+    gen = MoEGenerator(cfg, max_seq=2048)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        st = gen.prefill(params, prompt)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks, st = gen.generate(params, st, 32)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    toks = toks.cpu().numpy()
+    if toks.shape != (2, 32) or not torch.isfinite(st.last_logits).all():
+        raise AssertionError(f"moe generator: bad output {toks.shape}")
+    log(f"moe generator: prefill 2x512 {t_pre * 1e3:.1f} ms, 32 decode "
+        f"steps {t_dec * 1e3:.1f} ms ({t_dec / 32 * 1e3:.2f} ms/step); "
+        f"launches {launches}")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched by the MoE "
+                                 f"generator")
+    # one more decode step under the profiler: where a step's time goes
+    last = torch.as_tensor(toks[:, -1], device="cuda")
+    with torch.no_grad():
+        busy, top = profile_once(lambda: gen.step(params, st, last))
+    log(f"moe generator profiled step: device busy {busy:.2f} ms of a "
+        f"{t_dec / 32 * 1e3:.2f} ms step, idle share "
+        f"{1 - busy / (t_dec / 32 * 1e3):.3f}")
+    for name, n, ms in top:
+        log(f"moe generator   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+
+    def plain(t):
+        with torch.no_grad():
+            return _moe_prompt_forward(params, t, cfg=cfg, plain=True)[1]
+
+    check_agreement("moe generator", [
+        teacher_forced_agreement(params, cfg, prompt[b], toks[b],
+                                 logits_fn=plain, near_tie=MOE_NEAR_TIE)
+        for b in range(2)], MOE_STRICT_MIN, MOE_NEAR_TIE)
+
+
+def moe_layer_phase():
+    """Phase 9: DistributedMoELayer (E 8, H 4096, F 14336, top-2) at T
+    2048 and T 8, bf16 then after quantize_weights(), each against the
+    same layer with the plain grouped GEMM (routing given, so both see the
+    same experts); the W8A8 output against the float one within the
+    reference's tolerance.  Returns the int8 launch count."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+    from triton_dist_tpu_torch.layers.moe_inference import (
+        DistributedMoELayer,
+    )
+
+    layer = DistributedMoELayer(n_experts=8, topk=2, hidden=4096,
+                                intermediate=14336)
+    layer.init_weights(seed=0)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    xs = {T: torch.randn((T, 4096), generator=g, device="cuda").bfloat16()
+          for T in (2048, 8)}
+    routes = {T: layer.route(x) for T, x in xs.items()}
+    gg.group_gemm.launches = gg.group_gemm_i8.launches = 0
+    floats = {}
+    with torch.no_grad():
+        for T, x in xs.items():
+            w, e = routes[T]
+            got = layer.forward(x, e, w)
+            torch.cuda.synchronize()
+            want = layer.forward(x, e, w, plain=True)
+            err, top = max_err(got, want), want.float().abs().max().item()
+            l2 = ((got.float() - want.float()).norm()
+                  / want.float().norm()).item()
+            log(f"moe layer bf16 T{T}: max|kernel-plain| {err:.3e} (tol "
+                f"{GG_REL_TOL} x {top:.3e}), relative L2 {l2:.3e} (tol "
+                f"{GG_L2_TOL})")
+            if not (torch.isfinite(got).all() and err <= GG_REL_TOL * top
+                    and l2 <= GG_L2_TOL):
+                raise AssertionError(f"moe layer bf16 T{T} disagrees")
+            floats[T] = got.float()
+        layer.quantize_weights()
+        for T, x in xs.items():
+            w, e = routes[T]
+            got = layer.forward(x, e, w)
+            torch.cuda.synchronize()
+            want = layer.forward(x, e, w, plain=True)
+            ref = floats[T]
+            rel = ((got.float() - ref).abs() / (ref.abs() + 1e-2)).median()
+            cos = ((got.float() * ref).sum()
+                   / (got.float().norm() * ref.norm())).item()
+            same = torch.equal(got, want)
+            log(f"moe layer w8a8 T{T}: equal to the plain int8 GEMMs "
+                f"{same}; against float: median relative error "
+                f"{rel.item():.4f} (tol 0.05), cosine {cos:.5f} (tol 0.995)")
+            if not (same and rel < 0.05 and cos > 0.995):
+                raise AssertionError(f"moe layer w8a8 T{T} disagrees")
+    launches = {"group_gemm": gg.group_gemm.launches,
+                "group_gemm_i8": gg.group_gemm_i8.launches}
+    log(f"moe layer launches {launches}")
+    if launches["group_gemm_i8"] <= 0:
+        raise AssertionError("group_gemm_i8 never launched by the layer")
+    return launches["group_gemm_i8"]
+
+
+def moe_train_phase(cfg):
+    """Phase 10: (a) MOE_SGD_STEPS in-place SGD steps at MOE_TRAIN_LAYERS
+    layers, S 2048, B 1, with the grouped-GEMM counters zeroed just before:
+    finite losses, the last below the first, peak memory; one more step
+    under the profiler; (b) at 2 layers, the loss and every gradient leaf
+    with the kernels against autograd through the plain grouped GEMM (both
+    sides attend through the flash kernels, so the first layer routes
+    alike).  Returns the launch counts of (a)."""
+    from dataclasses import replace
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+    from triton_dist_tpu_torch.models import moe, training
+
+    rng = np.random.default_rng(5)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
+                          device="cuda")
+    tgt = torch.roll(tok, -1, dims=0)
+    cfg8 = replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    params = moe.init_params(cfg8, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = moe.make_train_step(cfg8, lr=MOE_SGD_LR)
+    counters = {"group_gemm": gg.group_gemm, "group_gemm_dx": gg.group_gemm_dx}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(MOE_SGD_STEPS):
+        t0 = time.perf_counter()
+        _, loss = step(params, tok, tgt)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"moe train (a) SGD lr {MOE_SGD_LR}, {cfg8.n_layers} layers, tokens "
+        f"[{TRAIN_SEQ}, 1]: losses {[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in times]}, peak memory {peak:.2f} GB; "
+        f"launches {launches}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"moe train (a): losses {losses} not finite and "
+                             f"falling")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched in MoE training")
+    busy, top = profile_once(lambda: step(params, tok, tgt), top_n=10)
+    wall = float(np.median(times[1:]))
+    gg_ms = sum(ms for name, _, ms in top if "group_gemm" in name)
+    log(f"moe train (a) profiled step: device busy {busy:.1f} ms of a "
+        f"{wall:.1f} ms step, idle share {1 - busy / wall:.3f}; grouped "
+        f"GEMM kernels {gg_ms:.1f} ms")
+    for name, n, ms in top:
+        log(f"moe train (a)   {ms:8.2f} ms  x{n:<5d} {name[:90]}")
+    del params, step
+    free_cuda()
+
+    cfg2 = replace(cfg, n_layers=2)
+    params = moe.init_params(cfg2, seed=0)
+    loss_k, g_k = training.make_grads(moe, cfg2)(params, tok, tgt)
+    loss_p, g_p = training.make_grads(moe, cfg2, plain=True)(params, tok,
+                                                             tgt)
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = ("", 0.0)
+    for (name, a), (_, b) in zip(named_leaves(g_k), named_leaves(g_p)):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        if not rel <= 2e-2:
+            raise AssertionError(f"moe train (b): gradient {name} relative "
+                                 f"L2 {rel:.3e} > 2e-2")
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+    log(f"moe train (b) 2 layers, kernels vs plain grouped GEMM: loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f} (relative "
+        f"{rel_loss:.2e}, tol 1e-3); worst gradient leaf {worst[0]} "
+        f"relative L2 {worst[1]:.3e} (tol 2e-2)")
+    if not rel_loss <= 1e-3:
+        raise AssertionError(f"moe train (b): loss relative {rel_loss:.2e}")
+    del params, g_k, g_p
+    free_cuda()
+    return launches
+
+
+def moe_phases():
+    """Phases 7-10; returns each grouped-GEMM mode's launch count from the
+    phase that drives it (forward, layer, train)."""
+    from dataclasses import replace
+
+    import torch
+
+    from triton_dist_tpu_torch.models import moe
+    from triton_dist_tpu_torch.runtime.utils import tree_leaves
+
+    cfg = replace(moe.MoEConfig.mixtral_8x7b(), n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"mixtral_8x7b: {cfg.n_layers} of 32 layers, dim {cfg.dim}, "
+        f"{cfg.n_experts} experts of ffn {cfg.expert_ffn_dim}, top-"
+        f"{cfg.topk}, random weights (seed 0, {n_bytes / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(5)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
+                          device="cuda")
+    fwd_launches = moe_forward_phase(cfg, params, tok)
+    moe_generator_phase(cfg, params)
+    del params
+    free_cuda()
+    i8_launches = moe_layer_phase()
+    free_cuda()
+    trained = moe_train_phase(cfg)
+    return {"group_gemm": fwd_launches,
+            "group_gemm_dx": trained["group_gemm_dx"],
+            "group_gemm_i8": i8_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1160,6 +1721,10 @@ def main() -> int:
     launches.update(flash_bwd_dq=trained["flash_bwd_dq"],
                     flash_bwd_dkv=trained["flash_bwd_dkv"])
 
+    # phases 7-10: the MoE family; each grouped-GEMM mode's count comes
+    # from the phase that drives it
+    launches.update(moe_phases())
+
     src = {"flash_fwd": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
                          "triton_dist_tpu/kernels/flash_attention.py:116"),
            "decode": ("triton_dist_tpu_torch/csrc/decode.cu",
@@ -1178,7 +1743,13 @@ def main() -> int:
            "flash_fwd_i8": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
                             "triton_dist_tpu/kernels/flash_attention.py:209"),
            "matmul_i8": ("triton_dist_tpu_torch/csrc/matmul_i8.cu",
-                         "triton_dist_tpu/kernels/quant.py:52")}
+                         "triton_dist_tpu/kernels/quant.py:52"),
+           "group_gemm": ("triton_dist_tpu_torch/csrc/group_gemm.cu",
+                          "triton_dist_tpu/kernels/group_gemm.py:204"),
+           "group_gemm_dx": ("triton_dist_tpu_torch/csrc/group_gemm.cu",
+                             "triton_dist_tpu/kernels/group_gemm.py:204"),
+           "group_gemm_i8": ("triton_dist_tpu_torch/csrc/group_gemm.cu",
+                             "triton_dist_tpu/kernels/group_gemm.py:204")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -1188,7 +1759,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({"m8": r["m8"]} if "m8" in r else {})})
+                        **{k: r[k] for k in ("m8", "t8") if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

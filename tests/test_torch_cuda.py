@@ -12,8 +12,10 @@ N(0, 1) data, fed to the kernel and its plain version alike.  Tolerances:
 the kernels round P to bf16 before the PV product (as the TPU kernels do)
 while the plain versions keep it in f32, and flash_fwd writes bf16 output
 — so outputs agree to ~1e-2 absolute at unit-scale inputs; the
-log-sum-exp is f32 on both sides and agrees to 1e-3.  The int8 GEMM is
-exact and is held to equality with its float64 plain version.
+log-sum-exp is f32 on both sides and agrees to 1e-3.  The int8 GEMMs
+(dense and grouped) are exact and are held to equality with their
+float64 plain versions; the bf16 grouped GEMM to 2e-2 of the plain
+output's largest magnitude and 1e-2 relative L2 over each row tile.
 """
 
 import zlib
@@ -495,3 +497,165 @@ def test_quantized_generator_step(cuda):
     assert torch.isfinite(got).all()
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= 1e-2, f"step logits relative L2 {rel}"
+
+
+# ---------------------------------------------------------------------------
+# The grouped GEMM (MoE)
+# ---------------------------------------------------------------------------
+
+
+def _gg_case(cuda, T, E, K, N, block_m, seed):
+    """A sort_align plan of seeded top-2 routing of T tokens, x_sorted
+    (padding rows zero), bf16 weights [E, K, N] and a dy whose padding
+    rows are zero (as the backward's is)."""
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+
+    g = np.random.default_rng(seed)
+    _, experts = mu.topk_routing(torch.from_numpy(
+        g.standard_normal((T, E)).astype(np.float32)).to(cuda), 2)
+    plan = mu.sort_align(experts, E, block_m)
+    x = _randn(g, (T, K), cuda)
+    xs = mu.gather_sorted(x, plan["dest"], plan["m_pad"])
+    w = (_randn(g, (E, K, N), cuda).float() / K ** 0.5).bfloat16()
+    dy = _randn(g, (plan["m_pad"], N), cuda) * plan["valid_rows"][:, None]
+    return plan, xs, w, dy.bfloat16()
+
+
+def _tile_close(got, want, block_m, name):
+    """max |err| <= 2e-2 max |plain|; relative L2 <= 1e-2 over the tensor
+    and over each row tile (a tile steered to the wrong expert shows); a
+    tile whose plain output is zero (padding) must be exactly zero."""
+    err, want = got.float() - want.float(), want.float()
+    assert err.abs().max() <= 2e-2 * want.abs().max(), name
+    assert err.norm() <= 1e-2 * want.norm(), name
+    for t in range(want.shape[0] // block_m):
+        rows = slice(t * block_m, (t + 1) * block_m)
+        wn = want[rows].norm()
+        if wn == 0:
+            assert torch.all(got[rows] == 0), f"{name}: padding tile {t}"
+        else:
+            assert err[rows].norm() <= 1e-2 * wn, f"{name}: tile {t}"
+
+
+GG_CASES = [
+    # (T, E, K, N, block_m)
+    (100, 4, 256, 384, 128),          # mostly padding tiles
+    (2048, 8, 4096, 14336, 512),      # Mixtral gate/up, the layer's block_m
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GG_CASES)
+def test_group_gemm_modes_match_plain(cuda, case):
+    """The three modes of csrc/group_gemm.cu against the plain version:
+    bf16 forward, dx (dy @ w[e]^T on the [E, K, N] stack, no transposed
+    copy) and exact int8; padding rows come out as zeros."""
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+
+    T, E, K, N, bm = case
+    plan, xs, w, dy = _gg_case(cuda, T, E, K, N, bm, zlib.crc32(
+        repr(case).encode()))
+    te, valid = plan["tile_expert"], plan["valid_rows"]
+    n0 = (gg.group_gemm.launches, gg.group_gemm_dx.launches,
+          gg.group_gemm_i8.launches)
+    y = gg.group_gemm(xs, w, te, block_m=bm)
+    dx = gg.group_gemm_dx(dy, w, te, block_m=bm)
+    xq = torch.randint(-127, 128, xs.shape, device=cuda,
+                       dtype=torch.int8) * valid[:, None].to(torch.int8)
+    wq = torch.randint(-127, 128, w.shape, device=cuda, dtype=torch.int8)
+    yq = gg.group_gemm_i8(xq, wq, te, block_m=bm)
+    torch.cuda.synchronize()
+    assert (gg.group_gemm.launches, gg.group_gemm_dx.launches,
+            gg.group_gemm_i8.launches) == tuple(n + 1 for n in n0)
+    assert y.dtype == dx.dtype == torch.bfloat16 and yq.dtype == torch.int32
+    _tile_close(y, gg.group_gemm_ref(xs, w, te, block_m=bm), bm, "fwd")
+    _tile_close(dx, gg.group_gemm_ref(dy, w.transpose(1, 2), te,
+                                      block_m=bm), bm, "dx")
+    assert torch.equal(yq, gg.group_gemm_ref(xq, wq, te, block_m=bm))
+    for out in (y, dx, yq):
+        assert torch.all(out[~valid] == 0)
+
+
+@pytest.mark.gpu
+def test_group_gemm_autograd_matches_plain(cuda):
+    """GroupGemmFn's backward on the card — dx through the transposed
+    mode, dW by cuBLAS with f32 accumulation — against autograd through a
+    per-tile f32 product: dx by the row-tile rule, each expert's dW within
+    1e-2 relative L2 (bf16 rounding of the kernel's side), an expert with
+    no tile exactly zero."""
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+
+    E, bm = 6, 128
+    plan, xs, w, dy = _gg_case(cuda, 300, E, 512, 384, bm, 17)
+    te = plan["tile_expert"]
+    x1, w1 = xs.clone().requires_grad_(), w.clone().requires_grad_()
+    n0 = gg.group_gemm_dx.launches
+    gx, gw = torch.autograd.grad(gg.group_gemm(x1, w1, te, block_m=bm),
+                                 (x1, w1), dy)
+    assert gg.group_gemm_dx.launches == n0 + 1
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    x2, w2 = xs.float().requires_grad_(), w.float().requires_grad_()
+    y2 = torch.cat([x2[t * bm:(t + 1) * bm] @ w2[e]
+                    for t, e in enumerate(te.tolist())])
+    rx, rw = torch.autograd.grad(y2, (x2, w2), dy.float())
+    _tile_close(gx, rx, bm, "dx")
+    used = set(te.tolist())
+    for e in range(E):
+        if e in used:
+            err = (gw[e].float() - rw[e]).norm() / rw[e].norm()
+            assert err <= 1e-2, f"dW[{e}] relative L2 {err}"
+        else:
+            assert torch.all(gw[e] == 0)
+
+
+@pytest.mark.gpu
+def test_group_gemm_refuses_what_the_kernel_does_not_take(cuda):
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+
+    x = torch.zeros((128, 256), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((2, 256, 256), dtype=torch.bfloat16, device=cuda)
+    te = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="block_m"):
+        gg.group_gemm(x, w, te, block_m=64)          # bf16 tiles are 128
+    with pytest.raises(ValueError, match="block_m"):
+        gg.group_gemm(x, w[:, :, :200], te[:1], block_m=128)    # N % 128
+    with pytest.raises(TypeError):
+        gg.group_gemm(x.float(), w.float(), te[:1], block_m=128)
+    q = torch.zeros((128, 256), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="block_m"):
+        gg.group_gemm_i8(q, w.to(torch.int8), torch.zeros(
+            (4,), dtype=torch.int32, device=cuda), block_m=32)
+
+
+@pytest.mark.gpu
+def test_moe_forward_and_train_step_at_mixtral_width(cuda):
+    """Mixtral-8x7B widths at 2 layers, S 512: the forward with the
+    kernels against the plain versions (relative L2 of the logits within
+    2e-2; routing near-ties may move a few tokens), then an SGD step
+    whose loss is finite and whose backward ran the dx mode."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+    from triton_dist_tpu_torch.models import moe
+    from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
+
+    use_full_precision_matmul()
+    cfg = replace(moe.MoEConfig.mixtral_8x7b(), n_layers=2)
+    params = moe.init_params(cfg, seed=0)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(512, 1)), device=cuda)
+    n0 = gg.group_gemm.launches
+    with torch.no_grad():
+        got, aux = moe.make_forward(cfg)(params, tok)
+        want, aux_p = moe.make_forward(cfg, plain=True)(params, tok)
+    assert gg.group_gemm.launches == n0 + 3 * cfg.n_layers
+    assert torch.isfinite(got).all() and got.shape == (512, 1, cfg.vocab)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 2e-2, f"logits relative L2 {rel}"
+    assert abs(float(aux) - float(aux_p)) <= 1e-2 * float(aux_p)
+    del got, want
+    n0 = gg.group_gemm_dx.launches
+    _, loss = moe.make_train_step(cfg, lr=0.1)(params, tok,
+                                               torch.roll(tok, -1, 0))
+    assert np.isfinite(float(loss))
+    assert gg.group_gemm_dx.launches == n0 + 3 * cfg.n_layers

@@ -34,6 +34,12 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert "triton_dist_tpu_torch.serve.engine" in mods
+    assert {"triton_dist_tpu_torch.kernels.group_gemm",
+            "triton_dist_tpu_torch.kernels.moe_utils",
+            "triton_dist_tpu_torch.layers.ep_a2a",
+            "triton_dist_tpu_torch.layers.moe_inference",
+            "triton_dist_tpu_torch.models.moe",
+            "triton_dist_tpu_torch.models.generate_moe"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -183,3 +189,67 @@ def test_int8_wrappers_use_plain_versions_only_for_cpu_tensors():
     meta = torch.empty((8, 128), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         quant.matmul_i8(meta, meta.t())
+
+
+def test_moe_entry_points_default_to_cuda_and_raise_without_a_card():
+    """moe.init_params / params_from_jax, MoEGenerator and
+    DistributedMoELayer run on the card unless asked for the CPU."""
+    _no_card()
+    from triton_dist_tpu_torch.layers.moe_inference import (
+        DistributedMoELayer)
+    from triton_dist_tpu_torch.models import moe
+    from triton_dist_tpu_torch.models.generate_moe import MoEGenerator
+
+    cfg = moe.MoEConfig(vocab=64, dim=256, n_layers=1, n_heads=2,
+                        n_kv_heads=1, n_experts=4, expert_ffn_dim=64,
+                        max_seq=64, block_m=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        moe.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MoEGenerator(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedMoELayer(n_experts=4, topk=2, hidden=128,
+                            intermediate=128)
+    cpu = moe.init_params(cfg, device="cpu")
+    tree = {k: (v.numpy() if torch.is_tensor(v) else
+                [{kk: vv.numpy() for kk, vv in layer.items()}
+                 for layer in v]) for k, v in cpu.items()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        moe.params_from_jax(tree, cfg)
+    assert MoEGenerator(cfg, device="cpu").device.type == "cpu"
+    layer = DistributedMoELayer(n_experts=4, topk=2, hidden=128,
+                                intermediate=128, device="cpu")
+    assert layer.init_weights(0)["w_gate"].device.type == "cpu"
+
+
+def test_group_gemm_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """group_gemm, group_gemm_dx and group_gemm_i8 take the plain version
+    for CPU tensors without counting a launch, and refuse other
+    devices."""
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((16, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 32, 24)).astype(np.float32))
+    te = torch.tensor([2, 0], dtype=torch.int32)
+    counters = (gg.group_gemm, gg.group_gemm_dx, gg.group_gemm_i8)
+    n0 = [fn.launches for fn in counters]
+    y = gg.group_gemm(x, w, te, block_m=8)
+    assert torch.equal(y, gg.group_gemm_ref(x, w, te, block_m=8))
+    assert torch.allclose(y[:8], x[:8] @ w[2]) and torch.allclose(
+        y[8:], x[8:] @ w[0])
+    dx = gg.group_gemm_dx(y, w, te, block_m=8)
+    assert torch.allclose(dx[:8], y[:8] @ w[2].t(), atol=1e-5)
+    q = torch.from_numpy(rng.integers(-127, 128, (16, 32)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (3, 32, 24)).astype(
+        np.int8))
+    assert torch.equal(gg.group_gemm_i8(q, wq, te, block_m=8)[8:],
+                       (q[8:].long() @ wq[0].long()).int())
+    assert [fn.launches for fn in counters] == n0
+    meta = torch.empty((128, 128), dtype=torch.bfloat16, device="meta")
+    wm = torch.empty((2, 128, 128), dtype=torch.bfloat16, device="meta")
+    tm = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gg.group_gemm(meta, wm, tm, block_m=128)
+    with pytest.raises(ValueError, match="does not tile"):
+        gg.group_gemm(x, w, te, block_m=16)

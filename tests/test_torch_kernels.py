@@ -13,6 +13,12 @@ bound the reference's own kernel-vs-dense tests use.  Against the
 reference's int8 Pallas kernels in interpret mode, 2e-2: those cast the
 dequantized K/V and the V-scaled P to q's dtype before their products.
 The quantizers and the int8 GEMM are held to bit equality.
+
+The MoE modules (routing helpers, the grouped GEMM and its autograd,
+world-1 dispatch / combine, ``DistributedMoELayer``) against the
+reference at world 1: identical integers, f32 within 1e-6 (helpers) or
+1e-5 (layer, against ``impl="xla"``), 2e-2 against interpret-mode Pallas
+in bf16, 1e-4 for the VJP (the reference test's), exact int8.
 """
 
 import importlib
@@ -25,6 +31,8 @@ import torch
 
 from triton_dist_tpu_torch.kernels import flash_attention as tfa
 from triton_dist_tpu_torch.kernels import flash_decode as tfd
+from triton_dist_tpu_torch.kernels import group_gemm as tgg
+from triton_dist_tpu_torch.kernels import moe_utils as tmu
 from triton_dist_tpu_torch.kernels import quant as tq
 from triton_dist_tpu_torch.runtime.utils import assert_allclose
 
@@ -33,6 +41,8 @@ from triton_dist_tpu_torch.runtime.utils import assert_allclose
 jfa = importlib.import_module("triton_dist_tpu.kernels.flash_attention")
 jfd = importlib.import_module("triton_dist_tpu.kernels.flash_decode")
 jq = importlib.import_module("triton_dist_tpu.kernels.quant")
+jgg = importlib.import_module("triton_dist_tpu.kernels.group_gemm")
+jmu = importlib.import_module("triton_dist_tpu.kernels.moe_utils")
 
 TOL = 2e-5
 D = 128
@@ -448,3 +458,238 @@ def test_flash_i8_is_forward_only():
     with torch.no_grad():
         out = tfa.flash_attention(q, k, k, k_scale=s, v_scale=s)
     assert out.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# MoE: routing helpers, the grouped GEMM, dispatch / combine, the layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,E,topk,block_m", [(64, 4, 2, 16), (37, 8, 2, 8),
+                                              (5, 3, 1, 8)])
+def test_routing_helpers_match_reference(T, E, topk, block_m):
+    """topk_routing, sort_align, gather_sorted and combine_topk against
+    the reference: identical integers, f32 within 1e-6."""
+    logits, x, y = _inputs(120 + T, (T, E), (T, 24), (T * topk + E * block_m,
+                                                     40))
+    m_pad = jmu.padded_rows(T * topk, E, block_m)
+    ys = y[:m_pad]
+
+    @jax.jit
+    def ref(logits, x, ys):
+        w, e = jmu.topk_routing(logits, topk)
+        plan = jmu.sort_align(e, E, block_m)
+        xs = jmu.gather_sorted(x, plan["dest"], m_pad)
+        return (w, e, plan["dest"], plan["tile_expert"], plan["valid_rows"],
+                xs, jmu.combine_topk(ys, plan["dest"], w))
+
+    want = ref(jnp.asarray(logits), jnp.asarray(x), jnp.asarray(ys))
+    tw, te = tmu.topk_routing(_t(logits), topk)
+    tplan = tmu.sort_align(te, E, block_m)
+    assert tplan["m_pad"] == m_pad and te.dtype == torch.int32
+    got = (tw, te, tplan["dest"], tplan["tile_expert"], tplan["valid_rows"],
+           tmu.gather_sorted(_t(x), tplan["dest"], m_pad),
+           tmu.combine_topk(_t(ys), tplan["dest"], tw))
+    for i in (1, 2, 3, 4, 5):          # integers, masks, copied rows
+        assert np.array_equal(got[i].numpy(), np.asarray(want[i])), i
+    for i in (0, 6):
+        assert_allclose(got[i], np.asarray(want[i]), atol=1e-6, rtol=1e-6)
+
+
+def test_group_gemm_plain_matches_pallas_bf16():
+    """group_gemm on CPU bf16 tensors (its plain version) against the
+    reference's Pallas ``_kernel`` in interpret mode at
+    tests/test_group_gemm.py's bf16 shape (f32 accumulation, bf16 out on
+    both sides: 2e-2); the dx mode equals the plain product with the slabs
+    transposed (to one bf16 step: the f32 sums run in another order)."""
+    E, block_m, K, N, n_tiles = 8, 32, 256, 384, 6
+    x, w = _inputs(130, (n_tiles * block_m, K), (E, K, N))
+    te = np.random.default_rng(131).integers(0, E, n_tiles).astype(np.int32)
+    xb, wb = (jnp.asarray(a, jnp.bfloat16) for a in (x, w))
+    want = jgg.group_gemm(xb, wb, jnp.asarray(te), block_m=block_m,
+                          impl="pallas", interpret=True)
+    n0 = tgg.group_gemm.launches
+    tx, tw = _t(x).bfloat16(), _t(w).bfloat16()
+    got = tgg.group_gemm(tx, tw, _t(te), block_m=block_m)
+    assert got.dtype == torch.bfloat16 and tgg.group_gemm.launches == n0
+    assert_allclose(got.float(), np.asarray(want, np.float32), atol=2e-2,
+                    rtol=2e-2)
+    dy = _t(_inputs(132, (n_tiles * block_m, N))[0]).bfloat16()
+    dx = tgg.group_gemm_dx(dy, tw, _t(te), block_m=block_m)
+    want_dx = tgg.group_gemm_ref(dy, tw.transpose(1, 2).contiguous(),
+                                 _t(te), block_m=block_m)
+    assert dx.shape == (n_tiles * block_m, K)
+    assert_allclose(dx.float(), want_dx.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_group_gemm_int8_exact_and_padding_rows_zero():
+    """int8: exact int32 against the reference's Pallas kernel and numpy
+    (tests/test_group_gemm.py:150-167); padding rows of a sort_align plan
+    come out as exact zeros in f32 and int8 (:76-87)."""
+    rng = np.random.default_rng(0)
+    E, bm, K, N, n_tiles = 4, 8, 128, 128, 6
+    x = rng.integers(-127, 128, (n_tiles * bm, K), dtype=np.int8)
+    w = rng.integers(-127, 128, (E, K, N), dtype=np.int8)
+    te = rng.integers(0, E, (n_tiles,), dtype=np.int32)
+    n0 = tgg.group_gemm_i8.launches
+    got = tgg.group_gemm(_t(x), _t(w), _t(te), block_m=bm)
+    assert got.dtype == torch.int32 and tgg.group_gemm_i8.launches == n0
+    want = jgg.group_gemm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(te),
+                          block_m=bm, impl="pallas", interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    for t in range(n_tiles):
+        ref = (x[t * bm:(t + 1) * bm].astype(np.int64)
+               @ w[te[t]].astype(np.int64))
+        assert np.array_equal(got[t * bm:(t + 1) * bm].numpy(), ref)
+
+    plan = tmu.sort_align(torch.tensor([[0], [2], [2]]), 3, 8)
+    xs = tmu.gather_sorted(_t(_inputs(133, (3, K))[0]), plan["dest"],
+                           plan["m_pad"])
+    y = tgg.group_gemm(xs, torch.ones((3, K, N)), plan["tile_expert"],
+                       block_m=8)
+    assert torch.all(y[~plan["valid_rows"]] == 0)
+    q = tgg.group_gemm(xs.to(torch.int8), torch.ones((3, K, N),
+                                                     dtype=torch.int8),
+                       plan["tile_expert"], block_m=8)
+    assert torch.all(q[~plan["valid_rows"]] == 0)
+
+
+def test_group_gemm_autograd_matches_reference_vjp():
+    """dx (the transposed mode) and dW (per-expert sums) of GroupGemmFn
+    against jax.grad through the reference's custom VJP over the Pallas
+    kernel in interpret mode (tests/test_group_gemm.py:119-147, f32,
+    1e-4)."""
+    E, bm, K, N, n_tiles = 4, 8, 128, 128, 6
+    x, w = _inputs(134, (n_tiles * bm, K), (E, K, N))
+    w = w / np.sqrt(K)
+    te = np.array([0, 2, 2, 1, 3, 0], np.int32)
+
+    def loss(x_, w_):
+        return jnp.sum(jnp.sin(jgg.group_gemm(x_, w_, jnp.asarray(te),
+                                              block_m=bm, impl="pallas",
+                                              interpret=True)))
+
+    jgx, jgw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+    n0 = (tgg.group_gemm.launches, tgg.group_gemm_dx.launches)
+    y = tgg.group_gemm(tx, tw, _t(te), block_m=bm)
+    assert "GroupGemmFn" in type(y.grad_fn).__name__
+    gx, gw = torch.autograd.grad(torch.sin(y).sum(), (tx, tw))
+    assert (tgg.group_gemm.launches, tgg.group_gemm_dx.launches) == n0
+    assert_allclose(gx, np.asarray(jgx), atol=1e-4, rtol=1e-4)
+    assert_allclose(gw, np.asarray(jgw), atol=1e-4, rtol=1e-4)
+
+
+def _jax_ep(fn, *args):
+    """Run a reference shard-level function on a one-device mesh."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("tp",))
+    return jax.jit(jax.shard_map(fn, mesh=mesh,
+                                 in_specs=tuple(P() for _ in args),
+                                 out_specs=P(), check_vma=False))(*args)
+
+
+@pytest.mark.parametrize("max_tokens", [None, 5])
+def test_ep_dispatch_combine_world1_match_reference(max_tokens):
+    """ep_dispatch_shard / ep_combine_shard at world 1 against the
+    reference's on a one-device mesh: the same receive buffer, expert ids,
+    splits and dropped count (capacity 5 drops assignments), and the same
+    combined output (f32, 1e-6)."""
+    from triton_dist_tpu.layers import ep_a2a as jep
+    from triton_dist_tpu_torch.layers import ep_a2a as tep
+
+    T, H, E, topk = 6, 16, 4, 2
+    x, wts = _inputs(140, (T, H), (T, topk))
+    experts = np.random.default_rng(141).integers(0, E, (T, topk)).astype(
+        np.int32)
+
+    def ref(x_, e_, w_):
+        recv, re, sp, plan, nd = jep.ep_dispatch_shard(
+            x_, e_, axis="tp", n_experts=E, max_tokens=max_tokens,
+            impl="xla", interpret=False)
+        out = jep.ep_combine_shard(recv * 2.0 + 1.0, w_, plan, axis="tp",
+                                   impl="xla", interpret=False)
+        return recv, re, sp, nd, out
+
+    want = _jax_ep(ref, jnp.asarray(x), jnp.asarray(experts),
+                   jnp.asarray(wts))
+    recv, re, sp, plan, nd = tep.ep_dispatch_shard(
+        _t(x), _t(experts), n_experts=E, max_tokens=max_tokens)
+    out = tep.ep_combine_shard(recv * 2.0 + 1.0, _t(wts), plan)
+    assert np.array_equal(recv.numpy(), np.asarray(want[0]))
+    assert np.array_equal(re.numpy(), np.asarray(want[1]))
+    assert np.array_equal(sp.numpy(), np.asarray(want[2]))
+    assert int(nd) == int(want[3]) == (0 if max_tokens is None else 7)
+    assert_allclose(out, np.asarray(want[4]), atol=1e-6, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tep.ep_dispatch_shard(_t(x), _t(experts), n_experts=E, world=2)
+
+
+def _moe_layers(dtype_name, **kw):
+    """The reference's DistributedMoELayer on a one-device mesh and the
+    port's, with the same weights (T 32, H 128, F 128, E 8, top-2,
+    block_m 8: tests/test_moe_inference.py's sizes)."""
+    from jax.sharding import Mesh
+    from triton_dist_tpu.layers.moe_inference import (
+        DistributedMoELayer as JLayer)
+    from triton_dist_tpu_torch.layers.moe_inference import (
+        DistributedMoELayer as TLayer)
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("tp",))
+    opts = dict(n_experts=8, topk=2, hidden=128, intermediate=128, block_m=8)
+    jl = JLayer(mesh=mesh, axis="tp", dtype=getattr(jnp, dtype_name),
+                impl="xla", **opts, **kw)
+    w = jax.device_get(jl.init_weights(jax.random.key(3)))
+    tl = TLayer(dtype=getattr(torch, dtype_name), device="cpu", **opts)
+    tl.weights = {k: _t(np.array(v, np.float32)).to(
+        torch.float32 if k == "router" else tl.dtype) for k, v in w.items()}
+    x = _inputs(150, (32, 128))[0]
+    return jl, tl, x
+
+
+@pytest.mark.parametrize("dtype_name,tol", [("float32", 1e-5),
+                                            ("bfloat16", 2e-2)])
+def test_moe_layer_matches_reference(dtype_name, tol):
+    """DistributedMoELayer (internal router) against the reference's layer
+    at world 1 with impl="xla": f32 within 1e-5; bf16 within 2e-2 (both
+    round each grouped GEMM's f32 sums to bf16, in different orders)."""
+    jl, tl, x = _moe_layers(dtype_name)
+    want = jl.forward(jnp.asarray(x, getattr(jnp, dtype_name)))
+    n0 = tgg.group_gemm.launches
+    got = tl.forward(_t(x))
+    assert got.dtype == tl.dtype and tgg.group_gemm.launches == n0
+    assert_allclose(got.float(), np.asarray(want, np.float32), atol=tol,
+                    rtol=tol)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        type(tl)(n_experts=8, topk=2, hidden=128, intermediate=128,
+                 world=2, device="cpu")
+
+
+def test_moe_layer_w8a8_matches_reference():
+    """After quantize_weights(): the same int8 stacks and scales as the
+    reference's (bit for bit), and the W8A8 forward within 1e-4 of the
+    reference's W8A8 forward (f32; its row quantization may round a value
+    on a boundary one int8 step apart); it also tracks the float layer as
+    the reference's test asks (median relative error < 0.05, cosine >
+    0.995)."""
+    jl, tl, x = _moe_layers("float32")
+    wts, ex = jl.route(jnp.asarray(x))
+    ref_float = np.asarray(jl.forward(jnp.asarray(x), experts=ex,
+                                      routing_weights=wts))
+    jq = jax.device_get(jl.quantize_weights())
+    tq_ = tl.quantize_weights()
+    assert tl.is_quantized and set(tq_) == set(jq)
+    for k in jq:
+        assert np.array_equal(tq_[k].numpy(), np.asarray(jq[k])), k
+    want = np.asarray(jl.forward(jnp.asarray(x), experts=ex,
+                                 routing_weights=wts))
+    n0 = tgg.group_gemm_i8.launches
+    got = tl.forward(_t(x), experts=_t(np.array(ex)),
+                     routing_weights=_t(np.array(wts)))
+    assert tgg.group_gemm_i8.launches == n0
+    assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    rel = np.abs(got.numpy() - ref_float) / (np.abs(ref_float) + 1e-2)
+    assert np.median(rel) < 0.05
+    cos = (got.numpy() * ref_float).sum() / (np.linalg.norm(got.numpy())
+                                             * np.linalg.norm(ref_float))
+    assert cos > 0.995

@@ -14,6 +14,11 @@
 - ``runtime/watchdog.py``: the cases of tests/test_watchdog.py.
 - ``examples/train.py`` on ``--device cpu``, run twice over one
   checkpoint directory as tests/test_train_example.py does.
+- The MoE family (``models/moe.py``): ``MoEConfig.tiny()`` in f32 against
+  the reference's ``make_forward`` / ``make_grads`` / ``make_train_step``
+  with ``impl="xla"`` on a 1-device mesh — logits and aux within 2e-5,
+  loss within 1e-5, gradients within 1e-5 / 1e-4 and updated parameters
+  within 5e-4, as for Llama; and ``examples/train.py --model moe``.
 """
 
 import os
@@ -30,8 +35,11 @@ import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from triton_dist_tpu.models import llama as jllama
+from triton_dist_tpu.models import moe as jmoe
 from triton_dist_tpu.models import training as jtraining
+from triton_dist_tpu_torch.kernels import group_gemm as tgg
 from triton_dist_tpu_torch.models import llama as tllama
+from triton_dist_tpu_torch.models import moe as tmoe
 from triton_dist_tpu_torch.models import training as ttraining
 from triton_dist_tpu_torch.runtime import checkpoint as ck
 from triton_dist_tpu_torch.runtime.utils import assert_allclose, tree_leaves
@@ -138,7 +146,7 @@ def test_make_grads_matches_reference_and_refuses_other_families():
     for g, w in zip(tree_leaves(tgrads), jax.tree.leaves(jgrads)):
         assert_allclose(g, np.asarray(w), atol=1e-5, rtol=1e-4)
     from triton_dist_tpu_torch.models import sampling
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="models.moe"):
         ttraining.make_grads(sampling, tcfg)
 
 
@@ -290,8 +298,88 @@ def test_train_cli_and_resume(tmp_path):
 def test_train_cli_refuses_unported_options():
     from triton_dist_tpu_torch.examples import train
 
-    for flags, item in ((["--model", "moe"], "item 13"),
+    for flags, item in ((["--model", "moe", "--opt", "adamw", "--dp", "2"],
+                         "item 12"),
                         (["--dp", "2"], "item 12"),
                         (["--profile", "p"], "item 16")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
+
+
+# ---------------------------------------------------------------------------
+# The MoE family
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    """(jax cfg, jax params on mesh1, port cfg, host params tree): the same
+    ``MoEConfig.tiny()`` weights in both packages."""
+    jcfg = jmoe.MoEConfig.tiny()
+    jparams = jmoe.init_params(jcfg, jax.random.key(7))
+    host = jax.device_get(jparams)
+    return (jcfg, jmoe.place_params(jparams, jcfg, _mesh1()),
+            tmoe.MoEConfig.tiny(), host)
+
+
+def _moe_tokens(vocab, S=32, B=2, seed=8):
+    return _tokens(vocab, S=S, B=B, seed=seed)
+
+
+def test_moe_forward_matches_reference(moe_pair):
+    """Logits [S, B, vocab] f32 and the aux loss against the reference's
+    make_forward (f32; the two sum in different orders)."""
+    jcfg, jparams, tcfg, host = moe_pair
+    jtok, _, ttok, _ = _moe_tokens(jcfg.vocab)
+    want, jaux = jmoe.make_forward(jcfg, _mesh1(), impl="xla")(jparams, jtok)
+    tparams = tmoe.params_from_jax(host, tcfg, device="cpu")
+    assert tparams["layers"][0]["router"].dtype == torch.float32
+    n0 = tgg.group_gemm.launches
+    with torch.no_grad():
+        got, aux = tmoe.make_forward(tcfg)(tparams, ttok)
+    assert tgg.group_gemm.launches == n0       # CPU: the plain version
+    assert got.dtype == torch.float32 and got.shape == (32, 2, jcfg.vocab)
+    assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+    assert_allclose(aux, np.asarray(jaux), atol=1e-6, rtol=1e-5)
+
+
+def test_moe_make_grads_matches_reference(moe_pair):
+    jcfg, jparams, tcfg, host = moe_pair
+    jtok, jtgt, ttok, ttgt = _moe_tokens(jcfg.vocab)
+    jloss, jgrads = jtraining.make_grads(jmoe, jcfg, _mesh1(),
+                                         impl="xla")[0](jparams, jtok, jtgt)
+    tparams = tmoe.params_from_jax(host, tcfg, device="cpu")
+    tloss, tgrads = ttraining.make_grads(tmoe, tcfg)(tparams, ttok, ttgt)
+    assert_allclose(tloss, np.asarray(jloss), atol=1e-5, rtol=1e-5)
+    got, want = tree_leaves(tgrads), jax.tree.leaves(jgrads)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_allclose(g, np.asarray(w), atol=1e-5, rtol=1e-4)
+
+
+def test_moe_sgd_step_matches_reference(moe_pair):
+    """One in-place SGD step: the loss and every updated parameter, which
+    moved (the router and the experts too: gradients flowed through the
+    routing and the grouped GEMMs)."""
+    jcfg, jparams, tcfg, host = moe_pair
+    jtok, jtgt, ttok, ttgt = _moe_tokens(jcfg.vocab)
+    jstep, _ = jmoe.make_train_step(jcfg, _mesh1(), impl="xla", lr=0.5)
+    tparams = tmoe.params_from_jax(host, tcfg, device="cpu")
+    jnew, jloss = jstep(jparams, jtok, jtgt)
+    same, tloss = tmoe.make_train_step(tcfg, lr=0.5)(tparams, ttok, ttgt)
+    assert same is tparams
+    assert_allclose(tloss, np.asarray(jloss), atol=1e-5, rtol=1e-5)
+    _assert_params_close(tparams, jnew)
+    for name in ("router", "w_gate", "w_down"):
+        moved = np.abs(tparams["layers"][0][name].detach().numpy()
+                       - host["layers"][0][name]).max()
+        assert moved > 1e-6, name
+
+
+def test_train_cli_moe_runs(capsys):
+    from triton_dist_tpu_torch.examples import train
+
+    train.main(["--model", "moe", "--device", "cpu", "--steps", "2",
+                "--seq", "16", "--batch", "2", "--lr", "0.5"])
+    out = capsys.readouterr().out
+    assert "model=moe" in out and "step    1" in out and "done" in out

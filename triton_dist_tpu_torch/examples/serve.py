@@ -1,5 +1,5 @@
 """Serving CLI of the PyTorch port: staggered requests through the
-continuous-batching engine.
+continuous-batching engine, or a bare generation run (prefill + decode).
 
 On the card, Llama-3-8B at full width with random weights from a seed:
 
@@ -14,8 +14,16 @@ Quantized serving: ``--kv-int8`` (int8 paged KV pools with per-position
 scales) and ``--w8a8`` (int8 weights and activations in the out and FFN
 projections); the two compose.
 
-Counterpart of ``examples/serve.py``'s ``run_engine`` (world 1,
-single-step decode).
+The MoE family (``--model moe``) runs through ``MoEGenerator`` without
+``--engine``, as the reference's generation mode does: Mixtral-8x7B at
+full width on the card (``--layers`` cuts the depth; 16 layers fit), a
+tiny config on the CPU:
+
+    python -m triton_dist_tpu_torch.examples.serve --model moe --layers 16
+    python -m triton_dist_tpu_torch.examples.serve --model moe --device cpu
+
+Counterpart of ``examples/serve.py``'s ``run_engine`` and generation mode
+(world 1, single-step decode).
 """
 
 from __future__ import annotations
@@ -26,23 +34,29 @@ import time
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.models import llama
+from triton_dist_tpu_torch.models import llama, moe
 from triton_dist_tpu_torch.models.generate import Generator
+from triton_dist_tpu_torch.models.generate_moe import MoEGenerator
 from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
 from triton_dist_tpu_torch.serve import Request, SamplingParams, ServeEngine
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", choices=("llama", "moe"), default="llama")
     p.add_argument("--engine", action="store_true",
-                   help="drive the continuous-batching engine (the only "
-                        "mode this port has so far)")
+                   help="drive the continuous-batching engine (dense family "
+                        "only); without it, prefill a batch of prompts and "
+                        "decode them")
+    p.add_argument("--batch", type=int, default=2,
+                   help="prompts of the generation mode")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' (plain attention, tiny "
                         "config unless --config says otherwise)")
-    p.add_argument("--config", default=None, choices=sorted(llama.CONFIGS),
-                   help="model preset (default: llama3_8b on cuda, a tiny "
-                        "test config on cpu)")
+    p.add_argument("--config", default=None,
+                   choices=sorted(set(llama.CONFIGS) | set(moe.CONFIGS)),
+                   help="model preset (default: llama3_8b or mixtral_8x7b "
+                        "on cuda, a tiny test config on cpu)")
     p.add_argument("--layers", type=int, default=None,
                    help="cut the depth (widths stay the preset's)")
     p.add_argument("--requests", type=int, default=8)
@@ -127,23 +141,82 @@ def profile_steps(eng, n_steps: int) -> dict:
     return rep
 
 
-def _config(args) -> llama.LlamaConfig:
+def _config(args):
+    family = moe if args.model == "moe" else llama
+    cpu = torch.device(args.device).type == "cpu"
     if args.config is not None:
-        cfg = llama.CONFIGS[args.config]()
-    elif torch.device(args.device).type == "cpu":
+        if args.config not in family.CONFIGS:
+            raise SystemExit(f"--config {args.config} is not a "
+                             f"{args.model} preset")
+        cfg = family.CONFIGS[args.config]()
+    elif cpu and family is moe:
+        # the reference's toy MoE at world 1, widened to head_dim 128
+        cfg = moe.MoEConfig(vocab=512, dim=256, n_layers=2, n_heads=2,
+                            n_kv_heads=1, n_experts=4, topk=2,
+                            expert_ffn_dim=64, max_seq=256, block_m=8)
+    elif cpu:
         cfg = llama.LlamaConfig(vocab=512, dim=256, n_layers=2, n_heads=2,
                                 n_kv_heads=1, ffn_dim=512, max_seq=256)
+    elif family is moe:
+        cfg = moe.MoEConfig.mixtral_8x7b()
     else:
         cfg = llama.LlamaConfig.llama3_8b()
     if args.layers is not None:
         from dataclasses import replace
         cfg = replace(cfg, n_layers=args.layers)
-    return cfg
+    return family, cfg
+
+
+def run_generate(args):
+    """The generation mode: ``--batch`` random prompts of ``--prompt-len``
+    tokens (default 8), prefilled at once, then ``--new-tokens`` steps of
+    greedy or sampled decode.  Returns the tokens [batch, new] int32."""
+    use_full_precision_matmul()
+    family, cfg = _config(args)
+    prompt_len = args.prompt_len or 8
+    max_seq = min(cfg.max_seq, prompt_len + args.new_tokens)
+    if prompt_len + args.new_tokens > cfg.max_seq:
+        raise SystemExit(f"prompt {prompt_len} + {args.new_tokens} new "
+                         f"tokens exceed max_seq {cfg.max_seq}")
+    t0 = time.perf_counter()
+    params = family.init_params(cfg, seed=args.seed, device=args.device)
+    kv = torch.int8 if args.kv_int8 else None
+    gen = (MoEGenerator if family is moe else Generator)(
+        cfg, max_seq=max_seq, device=args.device, kv_dtype=kv)
+    print(f"[serve] {args.model} {cfg.n_layers}-layer dim-{cfg.dim} model on "
+          f"{gen.device} ({time.perf_counter() - t0:.1f} s to build)")
+    rng = np.random.default_rng(args.seed)
+    prompt = rng.integers(0, cfg.vocab, size=(args.batch, prompt_len))
+    sample = generator = None
+    if args.temperature > 0:
+        from triton_dist_tpu_torch.models.sampling import make_sampler
+        sample = make_sampler(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p)
+        generator = torch.Generator(device=gen.device).manual_seed(
+            args.seed + 1)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        state = gen.prefill(params, prompt)
+        if gen.device.type == "cuda":
+            torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks, state = gen.generate(params, state, args.new_tokens,
+                                   sample=sample, generator=generator)
+        if gen.device.type == "cuda":
+            torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    print(f"[serve] prefill {prompt_len} tokens x{args.batch}: "
+          f"{t_pre * 1e3:.1f} ms; decode {args.new_tokens} steps: "
+          f"{t_dec * 1e3:.1f} ms ({t_dec / args.new_tokens * 1e3:.1f} "
+          f"ms/token)")
+    print(f"tokens:\n{toks.cpu().numpy()}")
+    return toks
 
 
 def run_engine(args) -> dict:
     use_full_precision_matmul()
-    cfg = _config(args)
+    _, cfg = _config(args)
     prompt_len = args.prompt_len or min(512, cfg.max_seq // 4)
     max_seq = cfg.max_seq
     max_seq -= max_seq % args.page_size
@@ -220,9 +293,18 @@ def run_engine(args) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.model == "moe" and (args.engine or args.w8a8):
+        raise NotImplementedError(
+            "--engine / --w8a8 with --model moe: the reference's engine and "
+            "W8A8 forward serve the dense family only; MoE serving goes "
+            "through MoEGenerator (drop the flag), and its engine path is "
+            "ROADMAP Queue 1 item 13")
     if not args.engine:
-        raise SystemExit("pass --engine (the port serves through the "
-                         "continuous-batching engine only)")
+        if args.w8a8 or args.profile:
+            raise SystemExit("--w8a8 / --profile are engine-mode flags: add "
+                             "--engine")
+        run_generate(args)
+        return
     run_engine(args)
 
 

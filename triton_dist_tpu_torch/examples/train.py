@@ -1,6 +1,7 @@
 """Training CLI of the PyTorch port: a resumable trainer on one card.
 
-Counterpart of ``examples/train.py`` at world 1 (dense Llama): plain SGD
+Counterpart of ``examples/train.py`` at world 1, for the dense Llama
+family or the Mixtral-class MoE family (``--model moe``): plain SGD
 (the family's in-place step) or AdamW (``models/training.py``), random
 weights and a fixed random token book from ``--seed``, checkpoint/resume
 through ``runtime.CheckpointManager`` (kill the process at any step and
@@ -13,7 +14,14 @@ backward on the port's hand-written kernels):
     python -m triton_dist_tpu_torch.examples.train --steps 4 --seq 2048 \\
         --batch 1 --lr 0.2
 
-On the CPU, a tiny config (head_dim 128) through the plain attention:
+Mixtral-8x7B at full width, cut to 8 layers by default (every expert
+FFN on the hand-written grouped-GEMM kernel, dx through its transposed
+mode):
+
+    python -m triton_dist_tpu_torch.examples.train --model moe --steps 3 \\
+        --seq 2048 --batch 1 --lr 0.2
+
+On the CPU, a tiny config (head_dim 128) through the plain versions:
 
     python -m triton_dist_tpu_torch.examples.train --device cpu --steps 4
 """
@@ -29,7 +37,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from triton_dist_tpu_torch.models import llama, training
+from triton_dist_tpu_torch.models import llama, moe, training
 from triton_dist_tpu_torch.runtime.checkpoint import CheckpointManager
 from triton_dist_tpu_torch.runtime.utils import (
     resolve_device,
@@ -67,45 +75,61 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' (plain attention, tiny "
                         "config unless --config says otherwise)")
-    p.add_argument("--config", default=None, choices=sorted(llama.CONFIGS),
-                   help="model preset (default: llama3_8b on cuda, a tiny "
-                        "test config on cpu)")
+    p.add_argument("--config", default=None,
+                   choices=sorted(set(llama.CONFIGS) | set(moe.CONFIGS)),
+                   help="model preset (default: llama3_8b or mixtral_8x7b "
+                        "on cuda, a tiny test config on cpu)")
     p.add_argument("--layers", type=int, default=None,
-                   help="cut the depth (widths stay the preset's)")
+                   help="cut the depth (widths stay the preset's; "
+                        "mixtral_8x7b defaults to 8 layers: 32 do not fit "
+                        "one card)")
     return p.parse_args(argv)
 
 
-def _config(args) -> llama.LlamaConfig:
+def _config(args):
+    family = moe if args.model == "moe" else llama
+    cpu = torch.device(args.device).type == "cpu"
     if args.config is not None:
-        cfg = llama.CONFIGS[args.config]()
-    elif torch.device(args.device).type == "cpu":
+        if args.config not in family.CONFIGS:
+            raise SystemExit(f"--config {args.config} is not a "
+                             f"{args.model} preset")
+        cfg = family.CONFIGS[args.config]()
+    elif cpu and family is moe:
+        # the reference's toy MoE at world 1, widened to head_dim 128
+        cfg = moe.MoEConfig(vocab=256, dim=256, n_layers=2, n_heads=2,
+                            n_kv_heads=1, n_experts=4, topk=2,
+                            expert_ffn_dim=64, max_seq=max(args.seq, 64),
+                            block_m=8)
+    elif cpu:
         # head_dim 128, the width the attention kernels take (the
         # reference's toy config has head_dim 32)
         cfg = llama.LlamaConfig(vocab=256, dim=256, n_layers=2, n_heads=2,
                                 n_kv_heads=1, ffn_dim=512,
                                 max_seq=max(args.seq, 64))
+    elif family is moe:
+        cfg = replace(moe.MoEConfig.mixtral_8x7b(), n_layers=8)
     else:
         cfg = llama.LlamaConfig.llama3_8b()
     if args.layers is not None:
         cfg = replace(cfg, n_layers=args.layers)
-    return cfg
+    return family, cfg
 
 
 def build(args, device):
     """(cfg, params, opt, step_fn): ``opt`` is None for SGD;
     ``step_fn(tokens, targets) -> loss`` updates params (and opt) in
     place."""
-    cfg = _config(args)
-    params = llama.init_params(cfg, seed=args.seed, device=device)
+    family, cfg = _config(args)
+    params = family.init_params(cfg, seed=args.seed, device=device)
     if args.opt == "adamw":
         opt_step, opt_init = training.make_optim_train_step(
-            llama, cfg, training.adamw(args.lr))
+            family, cfg, training.adamw(args.lr))
         opt = opt_init(params)
 
         def step_fn(tokens, targets):
             return opt_step(params, opt, tokens, targets)[2]
     else:
-        sgd_step = llama.make_train_step(cfg, lr=args.lr)
+        sgd_step = family.make_train_step(cfg, lr=args.lr)
         opt = None
 
         def step_fn(tokens, targets):
@@ -115,9 +139,6 @@ def build(args, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model == "moe":
-        raise NotImplementedError("--model moe: the MoE family is not ported "
-                                  "yet (ROADMAP Queue 1 item 13)")
     if args.dp > 1:
         raise NotImplementedError("--dp > 1: data parallelism over several "
                                   "cards is not ported yet (ROADMAP Queue 1 "

@@ -307,7 +307,8 @@ class Generator:
         B, S0 = tokens.shape
         if S0 > self.max_seq:
             raise ValueError(f"prompt length {S0} > max_seq {self.max_seq}")
-        kvs, logits = _prompt_forward(params, tokens, cfg=cfg)
+        kvs, logits = _prompt_forward(params, tokens, cfg=cfg,
+                                      ffn=self._ffn_prompt)
         caches = [self.attn.init_cache(B, cfg.n_kv_heads, self.max_seq,
                                        cfg.head_dim, dtype=cfg.dtype,
                                        k_init=k, v_init=v)
@@ -335,7 +336,7 @@ class Generator:
         for off in range(0, S0, chunk_size):
             caches, logits = _chunk_forward(
                 params, tokens[:, off:off + chunk_size], caches, off,
-                cfg=cfg, extent=extent)
+                cfg=cfg, extent=extent, ffn=self._ffn_prompt)
         lens = torch.full((B,), S0, dtype=torch.int32, device=self.device)
         return GenerationState(caches=caches, kv_lens=lens,
                                last_logits=logits[:, -1])
@@ -361,7 +362,13 @@ class Generator:
         return GenerationState(caches=caches, kv_lens=kv_lens,
                                last_logits=logits)
 
+    def _ffn_prompt(self, h2, layer):
+        """FFN hook of the prompt and chunk forwards (a family's
+        subclass routes its own FFN through it)."""
+        return _dense_prompt_ffn(h2, layer)
+
     def _ffn_decode(self, h, layer):
+        """FFN hook of a decode step."""
         return _dense_prompt_ffn(h, layer)
 
     def _step_impl(self, params, caches, kv_lens, token, active=None):

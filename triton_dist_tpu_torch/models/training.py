@@ -1,9 +1,10 @@
 """Optimizer integration: stateful train steps over the port's kernels.
 
 Counterpart of ``triton_dist_tpu/models/training.py`` at world 1.  The
-family modules ship a plain-SGD ``make_train_step``; real training wants
-a stateful optimizer (AdamW etc.).  This module composes any
-``torch.optim.Optimizer`` with a family's loss:
+family modules (``models/llama.py``, ``models/moe.py``) ship a plain-SGD
+``make_train_step``; real training wants a stateful optimizer (AdamW
+etc.).  This module composes any ``torch.optim.Optimizer`` with a
+family's loss:
 
 - :func:`make_grads` — ``(loss, grads)`` of the family's ``loss_shard``
   by autograd (attention through the flash kernels' forward and backward
@@ -35,17 +36,18 @@ from triton_dist_tpu_torch.runtime.utils import tree_leaves, value_and_grad
 
 
 def _check_family(family) -> None:
-    if not family.__name__.endswith("models.llama"):
+    if not family.__name__.endswith(("models.llama", "models.moe")):
         raise NotImplementedError(
-            f"{family.__name__}: only the dense Llama family is ported; the "
-            f"MoE family is ROADMAP Queue 1 item 13")
+            f"{family.__name__}: the ported families are models.llama "
+            f"(dense) and models.moe (Mixtral class)")
 
 
 def make_grads(family, cfg, *, plain: bool = False) -> Callable:
     """``grads_fn(params, tokens, targets) -> (loss, grads)``, grads a
-    tree shaped like params.  ``family`` is ``models.llama``; ``plain``
-    differentiates the plain PyTorch attention instead of the kernels (a
-    reference gradient on any device)."""
+    tree shaped like params.  ``family`` is ``models.llama`` or
+    ``models.moe``; ``plain`` differentiates the family's plain PyTorch
+    version instead of its kernel — the attention for Llama, the grouped
+    GEMM for MoE — (a reference gradient on any device)."""
     _check_family(family)
 
     def grads_fn(params, tokens, targets):
