@@ -39,7 +39,11 @@ Phases, in order (any failure exits non-zero without the final line):
    shape with a sort_align tile map: bf16 within 2e-2 of the plain
    version's largest magnitude and 1e-2 relative L2 over the tensor and
    over each row tile, int8 exactly equal, padding tiles exactly zero;
-   ``torch._grouped_mm`` as the bf16 yardstick;
+   ``torch._grouped_mm`` as the bf16 yardstick; the bf16 forward and dx
+   also at the down projection's shape (K 14336, N 4096) on the same tile
+   map; the all-to-all kernel at the MoE dispatch's shape (send [1, 4096,
+   4096] bf16) and at a shape with a byte tail, exactly equal to its
+   plain version (a copy at world 1), one PyTorch copy as the yardstick;
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -69,11 +73,13 @@ Phases, in order (any failure exits non-zero without the final line):
    zeroed just before (a) and read just after, are each > 0;
 7. MoE forward (after the Llama state is freed): Mixtral-8x7B at full
    width cut to MOE_LAYERS layers, random weights from seed 0, tokens
-   [S 2048, B 1]: ``models/moe.make_forward`` with the group_gemm counter
-   zeroed just before (> 0 after), a profiled forward (device ms and the
-   grouped GEMMs' share), and the MoE noise-floor line (kernels vs plain
-   versions, layer by layer: max |d logit|, argmax agreement >=
-   MOE_ARGMAX_MIN, tokens whose top-2 expert set differs per layer);
+   [S 2048, B 1]: ``models/moe.make_forward`` with the group_gemm and
+   all_to_all counters zeroed just before (each > 0 after), a profiled
+   forward (device ms and the grouped GEMMs' share), and the MoE
+   noise-floor line (a forward with the kernels against one with the
+   plain versions: max |d logit|, argmax agreement >= MOE_ARGMAX_MIN, and
+   from the experts each layer picked, the tokens whose top-2 expert set
+   differs per layer);
 8. MoE generator: ``MoEGenerator`` on the same tree, batch 2, a 512-token
    prompt, 32 greedy tokens; flash_fwd and decode launch; teacher-forced
    agreement against a prompt forward with the plain attention
@@ -87,14 +93,15 @@ Phases, in order (any failure exits non-zero without the final line):
 10. MoE train: MOE_SGD_STEPS in-place SGD steps at MOE_TRAIN_LAYERS layers
    (finite, falling losses; peak memory; group_gemm and group_gemm_dx
    launch; a profiled step), then at 2 layers the loss and every gradient
-   leaf with the kernels against the plain grouped GEMM (1e-3, 2e-2).
+   leaf with the kernels against the plain versions, both routed alike
+   (1e-3, 2e-2).
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
 zeroed again just before phase 5b and read just after 5c, where the four
 int8 kernels must each be > 0; the backward kernels' counts in the
 ``kernels`` line come from phase 6 (a), the grouped GEMM's from phases 7
-(bf16), 9 (int8) and 10 (dx).  A
+(bf16), 9 (int8) and 10 (dx), the all-to-all's from phase 7.  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -150,20 +157,23 @@ MOE_LAYERS = 16       # phases 7-8: 46.97 GB of Mixtral-8x7B weights
 MOE_TRAIN_LAYERS = 8  # phase 10 (a): parameters and gradients, 2 x 23.75 GB
 MOE_SGD_LR = 0.2
 MOE_SGD_STEPS = 3
-# MoE gates, set from the MoE noise-floor line (PERF.md Findings).  Routing
-# amplifies bf16 rounding: a token whose second and third router
-# probabilities nearly tie takes another expert when its hidden state
-# moves by one rounding, and its FFN output then moves by O(1).  One
-# 16-layer forward with the kernels and with the plain versions swapped
-# the top-2 set of 4 tokens (of 2048) at the first layer and 185 at the
-# sixteenth, landing up to 3.81 logits apart with 0.86 argmax agreement
-# (NVIDIA H100 80GB HBM3, 700 W).  So a mismatch within MOE_NEAR_TIE of
-# the reference maximum counts as a tie, and exact agreement is floored at
-# MOE_STRICT_MIN, far below the measured ~0.83-0.86 and far above what a
-# wrong kernel gives (a random token of 32000).  Each kernel is also held
-# to its plain version directly (phase 3).
+# MoE gates (PERF.md Findings).  Routing amplifies bf16 rounding: a token
+# whose second and third router probabilities nearly tie takes another
+# expert when its hidden state moves by one rounding, and its FFN output
+# then moves by O(1).  One 16-layer forward with the kernels and with the
+# plain versions swapped the top-2 set of 4 tokens (of 2048) at the first
+# layer and 185 at the sixteenth, landing up to 3.81 logits apart with
+# 0.86 argmax agreement (NVIDIA H100 80GB HBM3, 700 W): MOE_ARGMAX_MIN
+# floors that agreement.  The generator's check differs only in its
+# attention (its FFNs are torch.matmul on both sides): its 64 teacher-
+# forced positions flipped 11 greedy tokens, the largest 1.27 logits below
+# the reference maximum (same card), so a mismatch within MOE_NEAR_TIE
+# counts as a tie, and exact agreement is floored at MOE_STRICT_MIN, below
+# the measured 0.83 and far above what a wrong kernel gives (a random
+# token of 32000).  Each kernel is also held to its plain version directly
+# (phase 3).
 MOE_ARGMAX_MIN = 0.6
-MOE_NEAR_TIE = 4.0
+MOE_NEAR_TIE = 1.5
 MOE_STRICT_MIN = 0.6
 ADAMW_LR = 1e-4     # phase 6 (b)
 TRAIN_SEQ = 2048
@@ -426,6 +436,7 @@ def kernel_phase(dev):
     rows["matmul_i8"] = matmul_i8_row(dev, g)
     rows.update(bwd_kernel_rows(dev, randn))
     rows.update(group_gemm_rows(dev, g))
+    rows["all_to_all"] = all_to_all_row(dev, g)
     return rows
 
 
@@ -808,6 +819,29 @@ def group_gemm_rows(dev, g):
                                  max_abs_err=err)
     del dy, dx, want, out
 
+    # the down projection on the same tile map: w [E, 14336, 4096], a
+    # 448-step K loop forward, and its dx (contraction 4096, 14336 columns)
+    w_down = (torch.randn((E, N, K), generator=g, device=dev) / N ** 0.5
+              ).bfloat16()
+    h = (torch.randn((M, N), generator=g, device=dev)
+         * valid[:, None]).bfloat16()
+    y = gg.group_gemm(h, w_down, te, block_m=bm)
+    torch.cuda.synchronize()
+    err = check_tiles("group_gemm down T2048", y,
+                      gg.group_gemm_ref(h, w_down, te, block_m=bm), bm)
+    rows["group_gemm"]["max_abs_err"] = max(rows["group_gemm"]["max_abs_err"],
+                                            err)
+    dy = (torch.randn((M, K), generator=g, device=dev)
+          * valid[:, None]).bfloat16()
+    dx = gg.group_gemm_dx(dy, w_down, te, block_m=bm)
+    torch.cuda.synchronize()
+    err = check_tiles("group_gemm_dx down T2048", dx,
+                      gg.group_gemm_ref(dy, w_down, te, block_m=bm,
+                                        trans_w=True), bm)
+    rows["group_gemm_dx"]["max_abs_err"] = max(
+        rows["group_gemm_dx"]["max_abs_err"], err)
+    del w_down, h, y, dy, dx
+
     xq = torch.randint(-127, 128, main_xs.shape, generator=g, device=dev,
                        dtype=torch.int8) * valid[:, None].to(torch.int8)
     wq = torch.randint(-127, 128, (E, K, N), generator=g, device=dev,
@@ -834,6 +868,43 @@ def group_gemm_rows(dev, g):
                                  bound_by=b_by, library_ms=None,
                                  max_abs_err=err)
     return rows
+
+
+def all_to_all_row(dev, g):
+    """csrc/all_to_all.cu at the MoE dispatch's shape (Mixtral-8x7B, 2048
+    tokens top-2: send [1, 4096, 4096] bf16 with one split of 4096 rows;
+    the combine's is the same) and at [1, 37, 3] (a segment of 222 bytes:
+    16-byte vectors and a byte tail), each exactly equal to its plain
+    version (at world 1 a copy); the first timed beside its bound (the
+    segment read once and written once) and one PyTorch copy of it."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    for shape in ((1, 37, 3), (1, 4096, 4096)):
+        send = torch.randn(shape, generator=g, device=dev).bfloat16()
+        splits = torch.tensor([shape[1] - 1], dtype=torch.int32, device=dev)
+        recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
+        torch.cuda.synchronize()
+        want, want_splits = a2a.all_to_all_ref(send, splits)
+        exact = (torch.equal(recv, want)
+                 and torch.equal(recv_splits, want_splits))
+        log(f"all_to_all send {list(shape)}: equal to the plain version "
+            f"{exact}")
+        if not exact:
+            raise AssertionError(f"all_to_all {list(shape)} disagrees with "
+                                 f"plain")
+    ms = time_ms(lambda: a2a.fast_all_to_all_shard(send, splits))
+    plain_ms = time_ms(lambda: a2a.all_to_all_ref(send, splits))
+    out = torch.empty_like(send)
+    lib = time_ms(lambda: out.copy_(send))
+    n_bytes = 2 * send.numel() * send.element_size() + 2 * 4
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    log(f"all_to_all [1, 4096, 4096] bf16: kernel {ms:.4f} ms "
+        f"({n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library "
+        f"{lib:.4f} ms (Tensor.copy_), bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, max_abs_err=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -1256,36 +1327,22 @@ def train_phase():
 
 def moe_noise_floor(params, cfg, tok):
     """What routing does to bf16 rounding: one forward with the kernels and
-    one with the plain versions (plain attention, plain grouped GEMM),
-    walked layer by layer so the tokens whose top-2 expert set differs
-    between the two can be counted at each layer; then max |d logit| and
-    argmax agreement.  Returns (argmax agreement, max |d logit|)."""
+    one with the plain versions, each recording the experts every layer
+    picked; the tokens whose top-2 expert set differs between the two at
+    each layer, then max |d logit| and argmax agreement.  Returns (argmax
+    agreement, max |d logit|)."""
     import torch
 
-    from triton_dist_tpu_torch.models import llama, moe
+    from triton_dist_tpu_torch.models import moe
 
-    lcfg = cfg.as_llama()
-    xk = xp = params["embed"][tok.long()]
-    flips = []
+    routes_k, routes_p = [], []
     with torch.no_grad():
-        for layer in params["layers"]:
-            xk = llama.attention_block_shard(xk, layer, lcfg)
-            xp = llama.attention_block_shard(xp, layer, lcfg, plain=True)
-            sets = []
-            for x in (xk, xp):
-                h = llama._rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-                logits = h.reshape(-1, cfg.dim).float() @ layer["router"]
-                sets.append(torch.topk(logits, cfg.topk).indices.sort(
-                    -1).values)
-            flips.append(int((sets[0] != sets[1]).any(-1).sum()))
-            xk, _ = moe.moe_block_shard(xk, layer, cfg)
-            xp, _ = moe.moe_block_shard(xp, layer, cfg, plain=True)
-        out = []
-        for x in (xk, xp):
-            h = llama._rms_norm(x, params["final_norm"], cfg.norm_eps)
-            out.append(llama._LogitsF32.apply(h.reshape(-1, cfg.dim),
-                                              params["lm_head"]))
-    lk, lp = out
+        lk, _ = moe.make_forward(cfg)(params, tok, routes=routes_k)
+        lp, _ = moe.make_forward(cfg, plain=True)(params, tok,
+                                                  routes=routes_p)
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for a, b in zip(routes_k, routes_p)]
+    lk, lp = lk.reshape(-1, cfg.vocab), lp.reshape(-1, cfg.vocab)
     diff = (lk - lp).abs()
     top2 = torch.topk(lp, 2, dim=-1).values
     agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
@@ -1301,28 +1358,34 @@ def moe_noise_floor(params, cfg, tok):
 
 def moe_forward_phase(cfg, params, tok):
     """Phase 7: ``make_forward`` at 16 layers, S 2048, B 1, with the
-    grouped-GEMM counter zeroed just before; then a profiled forward and
-    the noise floor.  Returns the launch count."""
+    grouped-GEMM and all-to-all counters zeroed just before; then a
+    profiled forward and the noise floor.  Returns the launch counts."""
     import torch
 
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
     from triton_dist_tpu_torch.kernels import group_gemm as gg
     from triton_dist_tpu_torch.models import moe
 
     fwd = moe.make_forward(cfg)
-    gg.group_gemm.launches = 0
+    counters = {"group_gemm": gg.group_gemm,
+                "all_to_all": a2a.fast_all_to_all_shard}
+    for fn in counters.values():
+        fn.launches = 0
     with torch.no_grad():
         t0 = time.perf_counter()
         logits, aux = fwd(params, tok)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-    launches = gg.group_gemm.launches
+    launches = {n: fn.launches for n, fn in counters.items()}
     if (tuple(logits.shape) != (tok.shape[0], 1, cfg.vocab)
             or not torch.isfinite(logits).all() or not np.isfinite(
                 float(aux))):
         raise AssertionError(f"moe forward: bad output {tuple(logits.shape)}"
                              f", aux {float(aux)}")
-    if launches <= 0:
-        raise AssertionError("group_gemm never launched by the MoE forward")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched by the MoE "
+                                 f"forward")
     with torch.no_grad():
         t0 = time.perf_counter()
         fwd(params, tok)
@@ -1334,7 +1397,7 @@ def moe_forward_phase(cfg, params, tok):
         f"aux {float(aux):.4f}, first call {t_first * 1e3:.1f} ms, warm "
         f"{t_warm:.1f} ms wall; profiled: device busy {busy:.2f} ms, "
         f"grouped GEMMs {gg_ms:.2f} ms ({gg_ms / busy:.3f} of it); "
-        f"group_gemm launches {launches}")
+        f"launches {launches}")
     for name, n, ms in top:
         log(f"moe forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
     del logits
@@ -1348,7 +1411,8 @@ def moe_forward_phase(cfg, params, tok):
 def moe_generator_phase(cfg, params):
     """Phase 8: MoEGenerator, batch 2, a 512-token prompt, 32 greedy
     tokens, with the attention counters zeroed just before; teacher-forced
-    agreement against a prompt forward with the plain attention."""
+    agreement against a prompt forward with the plain attention (its FFNs
+    run no kernel)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import flash_attention as fa
@@ -1472,15 +1536,18 @@ def moe_train_phase(cfg):
     layers, S 2048, B 1, with the grouped-GEMM counters zeroed just before:
     finite losses, the last below the first, peak memory; one more step
     under the profiler; (b) at 2 layers, the loss and every gradient leaf
-    with the kernels against autograd through the plain grouped GEMM (both
-    sides attend through the flash kernels, so the first layer routes
-    alike).  Returns the launch counts of (a)."""
+    with the kernels against autograd through the plain versions, the
+    plain side routed as the kernels' side was (``routes``: a near-tie
+    would otherwise send a token to another expert).  Returns the launch
+    counts of (a)."""
     from dataclasses import replace
 
     import torch
 
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
     from triton_dist_tpu_torch.kernels import group_gemm as gg
-    from triton_dist_tpu_torch.models import moe, training
+    from triton_dist_tpu_torch.models import moe
+    from triton_dist_tpu_torch.runtime.utils import value_and_grad
 
     rng = np.random.default_rng(5)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
@@ -1491,7 +1558,8 @@ def moe_train_phase(cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step = moe.make_train_step(cfg8, lr=MOE_SGD_LR)
-    counters = {"group_gemm": gg.group_gemm, "group_gemm_dx": gg.group_gemm_dx}
+    counters = {"group_gemm": gg.group_gemm, "group_gemm_dx": gg.group_gemm_dx,
+                "all_to_all": a2a.fast_all_to_all_shard}
     for fn in counters.values():
         fn.launches = 0
     losses, times = [], []
@@ -1525,9 +1593,11 @@ def moe_train_phase(cfg):
 
     cfg2 = replace(cfg, n_layers=2)
     params = moe.init_params(cfg2, seed=0)
-    loss_k, g_k = training.make_grads(moe, cfg2)(params, tok, tgt)
-    loss_p, g_p = training.make_grads(moe, cfg2, plain=True)(params, tok,
-                                                             tgt)
+    routes = []
+    loss_k, g_k = value_and_grad(moe.loss_shard, params, tok, tgt, cfg2,
+                                 routes=routes)
+    loss_p, g_p = value_and_grad(moe.loss_shard, params, tok, tgt, cfg2,
+                                 plain=True, routes=routes)
     rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     worst = ("", 0.0)
     for (name, a), (_, b) in zip(named_leaves(g_k), named_leaves(g_p)):
@@ -1536,7 +1606,8 @@ def moe_train_phase(cfg):
             raise AssertionError(f"moe train (b): gradient {name} relative "
                                  f"L2 {rel:.3e} > 2e-2")
         worst = max(worst, (name, rel), key=lambda x: x[1])
-    log(f"moe train (b) 2 layers, kernels vs plain grouped GEMM: loss "
+    log(f"moe train (b) 2 layers, kernels vs plain versions, routed "
+        f"alike: loss "
         f"{float(loss_k):.6f} vs {float(loss_p):.6f} (relative "
         f"{rel_loss:.2e}, tol 1e-3); worst gradient leaf {worst[0]} "
         f"relative L2 {worst[1]:.3e} (tol 2e-2)")
@@ -1549,7 +1620,8 @@ def moe_train_phase(cfg):
 
 def moe_phases():
     """Phases 7-10; returns each grouped-GEMM mode's launch count from the
-    phase that drives it (forward, layer, train)."""
+    phase that drives it (forward, layer, train), and the all-to-all's
+    from the forward."""
     from dataclasses import replace
 
     import torch
@@ -1569,14 +1641,14 @@ def moe_phases():
     rng = np.random.default_rng(5)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
                           device="cuda")
-    fwd_launches = moe_forward_phase(cfg, params, tok)
+    fwd = moe_forward_phase(cfg, params, tok)
     moe_generator_phase(cfg, params)
     del params
     free_cuda()
     i8_launches = moe_layer_phase()
     free_cuda()
     trained = moe_train_phase(cfg)
-    return {"group_gemm": fwd_launches,
+    return {"group_gemm": fwd["group_gemm"], "all_to_all": fwd["all_to_all"],
             "group_gemm_dx": trained["group_gemm_dx"],
             "group_gemm_i8": i8_launches}
 
@@ -1749,7 +1821,9 @@ def main() -> int:
            "group_gemm_dx": ("triton_dist_tpu_torch/csrc/group_gemm.cu",
                              "triton_dist_tpu/kernels/group_gemm.py:204"),
            "group_gemm_i8": ("triton_dist_tpu_torch/csrc/group_gemm.cu",
-                             "triton_dist_tpu/kernels/group_gemm.py:204")}
+                             "triton_dist_tpu/kernels/group_gemm.py:204"),
+           "all_to_all": ("triton_dist_tpu_torch/csrc/all_to_all.cu",
+                          "triton_dist_tpu/kernels/all_to_all.py:108")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",

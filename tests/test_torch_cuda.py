@@ -630,11 +630,12 @@ def test_group_gemm_refuses_what_the_kernel_does_not_take(cuda):
 @pytest.mark.gpu
 def test_moe_forward_and_train_step_at_mixtral_width(cuda):
     """Mixtral-8x7B widths at 2 layers, S 512: the forward with the
-    kernels against the plain versions (relative L2 of the logits within
-    2e-2; routing near-ties may move a few tokens), then an SGD step
-    whose loss is finite and whose backward ran the dx mode."""
+    kernels against the plain versions routed alike (relative L2 of the
+    logits within 2e-2), then an SGD step whose loss is finite and whose
+    backward ran the dx mode and the all-to-all's backward."""
     from dataclasses import replace
 
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
     from triton_dist_tpu_torch.kernels import group_gemm as gg
     from triton_dist_tpu_torch.models import moe
     from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
@@ -644,18 +645,68 @@ def test_moe_forward_and_train_step_at_mixtral_width(cuda):
     params = moe.init_params(cfg, seed=0)
     tok = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, size=(512, 1)), device=cuda)
-    n0 = gg.group_gemm.launches
+    n0 = (gg.group_gemm.launches, a2a.fast_all_to_all_shard.launches)
+    routes = []
     with torch.no_grad():
-        got, aux = moe.make_forward(cfg)(params, tok)
-        want, aux_p = moe.make_forward(cfg, plain=True)(params, tok)
-    assert gg.group_gemm.launches == n0 + 3 * cfg.n_layers
+        got, aux = moe.make_forward(cfg)(params, tok, routes=routes)
+        want, aux_p = moe.make_forward(cfg, plain=True)(params, tok,
+                                                        routes=routes)
+    assert (gg.group_gemm.launches, a2a.fast_all_to_all_shard.launches) == (
+        n0[0] + 3 * cfg.n_layers, n0[1] + 2 * cfg.n_layers)
     assert torch.isfinite(got).all() and got.shape == (512, 1, cfg.vocab)
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= 2e-2, f"logits relative L2 {rel}"
     assert abs(float(aux) - float(aux_p)) <= 1e-2 * float(aux_p)
     del got, want
-    n0 = gg.group_gemm_dx.launches
+    n0 = (gg.group_gemm_dx.launches, a2a.fast_all_to_all_shard.launches)
     _, loss = moe.make_train_step(cfg, lr=0.1)(params, tok,
                                                torch.roll(tok, -1, 0))
     assert np.isfinite(float(loss))
-    assert gg.group_gemm_dx.launches == n0 + 3 * cfg.n_layers
+    assert (gg.group_gemm_dx.launches, a2a.fast_all_to_all_shard.launches) \
+        == (n0[0] + 3 * cfg.n_layers, n0[1] + 4 * cfg.n_layers)
+
+
+# ---------------------------------------------------------------------------
+# The all-to-all (MoE dispatch and combine)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((1, 4096, 4096), torch.bfloat16),
+                                         ((1, 37, 3), torch.bfloat16),
+                                         ((1, 5, 8), torch.int32)])
+def test_all_to_all_matches_plain(cuda, shape, dtype):
+    """csrc/all_to_all.cu at world 1: recv equals send bit for bit (16-byte
+    vectors and a byte tail), recv_splits equals splits, one launch; a
+    world of 2 raises."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    send = torch.randint(-1000, 1000, shape, device=cuda).to(dtype)
+    splits = torch.tensor([shape[1] - 2], dtype=torch.int32, device=cuda)
+    n0 = a2a.fast_all_to_all_shard.launches
+    recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
+    torch.cuda.synchronize()
+    assert a2a.fast_all_to_all_shard.launches == n0 + 1
+    assert recv.data_ptr() != send.data_ptr()
+    assert torch.equal(recv, send) and torch.equal(recv_splits, splits)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        a2a.fast_all_to_all_shard(send.expand(2, *shape[1:]),
+                                  splits.expand(2))
+
+
+@pytest.mark.gpu
+def test_all_to_all_autograd_on_the_card(cuda):
+    """The backward shuffles the cotangent back through the kernel and
+    zeroes the rows past the split."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    g = np.random.default_rng(3)
+    send = _randn(g, (1, 64, 256), cuda).requires_grad_()
+    ct = _randn(g, (1, 64, 256), cuda)
+    splits = torch.tensor([40], dtype=torch.int32, device=cuda)
+    n0 = a2a.fast_all_to_all_shard.launches
+    recv, _ = a2a.fast_all_to_all_shard_diff(send, splits)
+    (d_send,) = torch.autograd.grad(recv, (send,), ct)
+    assert a2a.fast_all_to_all_shard.launches == n0 + 2
+    assert torch.equal(d_send[0, :40], ct[0, :40])
+    assert torch.all(d_send[0, 40:] == 0)

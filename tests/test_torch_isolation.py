@@ -34,7 +34,8 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert "triton_dist_tpu_torch.serve.engine" in mods
-    assert {"triton_dist_tpu_torch.kernels.group_gemm",
+    assert {"triton_dist_tpu_torch.kernels.all_to_all",
+            "triton_dist_tpu_torch.kernels.group_gemm",
             "triton_dist_tpu_torch.kernels.moe_utils",
             "triton_dist_tpu_torch.layers.ep_a2a",
             "triton_dist_tpu_torch.layers.moe_inference",
@@ -253,3 +254,27 @@ def test_group_gemm_wrappers_use_plain_versions_only_for_cpu_tensors():
         gg.group_gemm(meta, wm, tm, block_m=128)
     with pytest.raises(ValueError, match="does not tile"):
         gg.group_gemm(x, w, te, block_m=16)
+
+
+def test_all_to_all_wrapper_uses_plain_version_only_for_cpu_tensors():
+    """fast_all_to_all_shard (and its autograd twin) copies CPU tensors
+    through its plain version without counting a launch, and refuses other
+    devices."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    send = torch.arange(24, dtype=torch.float32).reshape(1, 4, 6)
+    splits = torch.tensor([3], dtype=torch.int32)
+    n0 = a2a.fast_all_to_all_shard.launches
+    recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
+    assert torch.equal(recv, send) and torch.equal(recv_splits, splits)
+    recv, _ = a2a.fast_all_to_all_shard_diff(send.requires_grad_(), splits)
+    (d_send,) = torch.autograd.grad(recv.sum(), (send,))
+    assert torch.equal(d_send[0, :3], torch.ones((3, 6)))
+    assert torch.all(d_send[0, 3:] == 0)
+    assert a2a.fast_all_to_all_shard.launches == n0
+    meta = torch.empty((1, 4, 6), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        a2a.fast_all_to_all_shard(meta, torch.zeros((1,), dtype=torch.int32,
+                                                    device="meta"))
+    with pytest.raises(TypeError, match="int32"):
+        a2a.fast_all_to_all_shard(send, splits.long())

@@ -14,11 +14,12 @@ reference's int8 Pallas kernels in interpret mode, 2e-2: those cast the
 dequantized K/V and the V-scaled P to q's dtype before their products.
 The quantizers and the int8 GEMM are held to bit equality.
 
-The MoE modules (routing helpers, the grouped GEMM and its autograd,
-world-1 dispatch / combine, ``DistributedMoELayer``) against the
-reference at world 1: identical integers, f32 within 1e-6 (helpers) or
-1e-5 (layer, against ``impl="xla"``), 2e-2 against interpret-mode Pallas
-in bf16, 1e-4 for the VJP (the reference test's), exact int8.
+The MoE modules (routing helpers, the grouped GEMM and its autograd, the
+all-to-all and its autograd, world-1 dispatch / combine,
+``DistributedMoELayer``) against the reference at world 1: identical
+integers, f32 within 1e-6 (helpers) or 1e-5 (layer, against
+``impl="xla"``), 2e-2 against interpret-mode Pallas in bf16, 1e-4 for the
+VJP (the reference test's), exact int8 and exact all-to-all (a copy).
 """
 
 import importlib
@@ -613,9 +614,13 @@ def test_ep_dispatch_combine_world1_match_reference(max_tokens):
 
     want = _jax_ep(ref, jnp.asarray(x), jnp.asarray(experts),
                    jnp.asarray(wts))
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+
+    n0 = ta.fast_all_to_all_shard.launches
     recv, re, sp, plan, nd = tep.ep_dispatch_shard(
         _t(x), _t(experts), n_experts=E, max_tokens=max_tokens)
     out = tep.ep_combine_shard(recv * 2.0 + 1.0, _t(wts), plan)
+    assert ta.fast_all_to_all_shard.launches == n0    # plain on the CPU
     assert np.array_equal(recv.numpy(), np.asarray(want[0]))
     assert np.array_equal(re.numpy(), np.asarray(want[1]))
     assert np.array_equal(sp.numpy(), np.asarray(want[2]))
@@ -623,6 +628,67 @@ def test_ep_dispatch_combine_world1_match_reference(max_tokens):
     assert_allclose(out, np.asarray(want[4]), atol=1e-6, rtol=1e-6)
     with pytest.raises(NotImplementedError, match="item 11"):
         tep.ep_dispatch_shard(_t(x), _t(experts), n_experts=E, world=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_all_to_all_world1_matches_pallas(dtype, monkeypatch):
+    """fast_all_to_all_shard at world 1 (its plain version on CPU tensors)
+    against the reference's Pallas ``_a2a_kernel`` in interpret mode on a
+    one-device mesh (spied, so the kernel is known to trace): recv equals
+    send, padding rows past the split included, and recv_splits equals
+    splits — exact."""
+    ja = importlib.import_module("triton_dist_tpu.kernels.all_to_all")
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+
+    traced = []
+    kernel = ja._a2a_kernel
+
+    def spy(*args, **kw):
+        traced.append(kw["world"])
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(ja, "_a2a_kernel", spy)
+    rng = np.random.default_rng(160)
+    send = (rng.standard_normal((1, 24, 128)) * 100).astype(dtype)
+    splits = np.array([17], np.int32)
+    want = _jax_ep(lambda s, p: ja.fast_all_to_all_shard(
+        s, p, axis="tp", impl="pallas", interpret=True),
+        jnp.asarray(send), jnp.asarray(splits))
+    assert traced == [1]
+    n0 = ta.fast_all_to_all_shard.launches
+    recv, recv_splits = ta.fast_all_to_all_shard(_t(send), _t(splits))
+    assert ta.fast_all_to_all_shard.launches == n0
+    assert np.array_equal(recv.numpy(), np.asarray(want[0]))
+    assert np.array_equal(recv_splits.numpy(), np.asarray(want[1]))
+    assert recv.data_ptr() != _t(send).data_ptr()       # a copy, not a view
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ta.fast_all_to_all_shard(torch.zeros((2, 4, 8)),
+                                 torch.zeros((2,), dtype=torch.int32))
+
+
+def test_all_to_all_autograd_matches_reference_vjp():
+    """The differentiable shuffle at world 1 against jax.grad through the
+    reference's custom VJP: the cotangent comes back with the rows past
+    the split zeroed (f32, exact: the two only copy and mask)."""
+    ja = importlib.import_module("triton_dist_tpu.kernels.all_to_all")
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+
+    send, ct = _inputs(161, (1, 12, 16), (1, 12, 16))
+    splits = np.array([7], np.int32)
+
+    def loss(s):
+        recv, _ = ja.fast_all_to_all_shard_diff(s, jnp.asarray(splits), "tp",
+                                                "xla", False)
+        return jnp.sum(recv * jnp.asarray(ct))
+
+    want = _jax_ep(jax.grad(loss), jnp.asarray(send))
+    ts = _t(send).requires_grad_()
+    recv, recv_splits = ta.fast_all_to_all_shard_diff(ts, _t(splits))
+    assert "AllToAllFn" in type(recv.grad_fn).__name__
+    (got,) = torch.autograd.grad((recv * _t(ct)).sum(), (ts,))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert torch.all(got[0, 7:] == 0) and torch.equal(got[0, :7],
+                                                       _t(ct)[0, :7])
 
 
 def _moe_layers(dtype_name, **kw):

@@ -18,7 +18,9 @@
   the reference's ``make_forward`` / ``make_grads`` / ``make_train_step``
   with ``impl="xla"`` on a 1-device mesh — logits and aux within 2e-5,
   loss within 1e-5, gradients within 1e-5 / 1e-4 and updated parameters
-  within 5e-4, as for Llama; and ``examples/train.py --model moe``.
+  within 5e-4, as for Llama; ``routes`` recorded and replayed give the
+  same forward and gradient to the bit; and ``examples/train.py --model
+  moe``.
 """
 
 import os
@@ -42,7 +44,11 @@ from triton_dist_tpu_torch.models import llama as tllama
 from triton_dist_tpu_torch.models import moe as tmoe
 from triton_dist_tpu_torch.models import training as ttraining
 from triton_dist_tpu_torch.runtime import checkpoint as ck
-from triton_dist_tpu_torch.runtime.utils import assert_allclose, tree_leaves
+from triton_dist_tpu_torch.runtime.utils import (
+    assert_allclose,
+    tree_leaves,
+    value_and_grad,
+)
 from triton_dist_tpu_torch.runtime.watchdog import (
     Heartbeat,
     WatchdogTimeout,
@@ -341,6 +347,34 @@ def test_moe_forward_matches_reference(moe_pair):
     assert got.dtype == torch.float32 and got.shape == (32, 2, jcfg.vocab)
     assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
     assert_allclose(aux, np.asarray(jaux), atol=1e-6, rtol=1e-5)
+
+
+def test_moe_routes_record_and_replay(moe_pair):
+    """``routes``: an empty list records each layer's top-k experts; fed
+    back, every layer routes by it and the forward (and its gradient) is
+    the same to the bit; other routes give other logits."""
+    jcfg, _, tcfg, host = moe_pair
+    _, _, ttok, ttgt = _moe_tokens(jcfg.vocab)
+    tparams = tmoe.params_from_jax(host, tcfg, device="cpu")
+    routes = []
+    with torch.no_grad():
+        want, aux = tmoe.make_forward(tcfg)(tparams, ttok, routes=routes)
+        assert len(routes) == tcfg.n_layers
+        assert all(r.shape == (ttok.numel(), tcfg.topk)
+                   and r.dtype == torch.int32 for r in routes)
+        got, aux2 = tmoe.make_forward(tcfg, plain=True)(tparams, ttok,
+                                                        routes=routes)
+        other = [(r + 1) % tcfg.n_experts for r in routes]
+        moved, _ = tmoe.make_forward(tcfg)(tparams, ttok, routes=other)
+    assert torch.equal(got, want) and torch.equal(aux, aux2)
+    assert len(routes) == tcfg.n_layers        # replay appends nothing
+    assert (moved - want).abs().max() > 1e-3
+    loss_a, g_a = value_and_grad(tmoe.loss_shard, tparams, ttok, ttgt, tcfg)
+    loss_b, g_b = value_and_grad(tmoe.loss_shard, tparams, ttok, ttgt, tcfg,
+                                 routes=routes)
+    assert torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_a),
+                                                  tree_leaves(g_b)))
 
 
 def test_moe_make_grads_matches_reference(moe_pair):

@@ -2,8 +2,8 @@
 
 Counterpart of ``triton_dist_tpu/layers/moe_inference.py``:
 
-- :func:`moe_infer_shard`: dispatch (``layers/ep_a2a.py``; at world 1 the
-  send buffer is the receive buffer), sort by expert, the grouped SwiGLU
+- :func:`moe_infer_shard`: dispatch (``layers/ep_a2a.py``: the all-to-all
+  kernel, a copy at world 1), sort by expert, the grouped SwiGLU
   (``kernels/group_gemm.moe_ffn_sorted``: the bf16 mode of
   ``csrc/group_gemm.cu`` on the card), combine;
 - :func:`moe_ffn_sorted_w8a8` / :func:`moe_infer_shard_w8a8`: the W8A8
@@ -16,8 +16,8 @@ Counterpart of ``triton_dist_tpu/layers/moe_inference.py``:
   takes ``device=`` where the reference's takes a mesh; more than one
   rank raises.
 
-``plain=True`` runs the plain grouped GEMM (a reference computation on
-the card).
+``plain=True`` runs the plain versions of the all-to-all and the grouped
+GEMM (a reference computation on the card).
 """
 
 from __future__ import annotations
@@ -50,12 +50,13 @@ from triton_dist_tpu_torch.runtime.utils import resolve_device
 
 
 def _sorted_ffn(x_loc, experts_loc, weights_loc, *, n_experts, max_tokens,
-                block_m, ffn):
+                block_m, ffn, plain):
     """dispatch -> sort by expert -> ``ffn(x_sorted, tile_expert)`` ->
     combine, for one (world-1) rank: x_loc [t_loc, H] -> [t_loc, H]."""
     hidden = x_loc.shape[1]
     recv, recv_expert, _splits, plan, _dropped = ep_dispatch_shard(
-        x_loc, experts_loc, n_experts=n_experts, max_tokens=max_tokens)
+        x_loc, experts_loc, n_experts=n_experts, max_tokens=max_tokens,
+        plain=plain)
     max_tokens = recv.shape[1]   # dispatch owns the None -> worst-case rule
     local_e = torch.clamp(recv_expert.reshape(max_tokens, 1), 0,
                           n_experts - 1)
@@ -64,7 +65,7 @@ def _sorted_ffn(x_loc, experts_loc, weights_loc, *, n_experts, max_tokens,
                              splan["m_pad"])
     y_sorted = ffn(x_sorted, splan["tile_expert"])
     y = y_sorted[splan["dest"]].reshape(1, max_tokens, hidden)
-    return ep_combine_shard(y, weights_loc, plan)
+    return ep_combine_shard(y, weights_loc, plan, plain=plain)
 
 
 def moe_infer_shard(x_loc, weights_loc, experts_loc, w_gate, w_up, w_down, *,
@@ -77,7 +78,8 @@ def moe_infer_shard(x_loc, weights_loc, experts_loc, w_gate, w_up, w_down, *,
                               block_m=block_m, plain=plain)
 
     return _sorted_ffn(x_loc, experts_loc, weights_loc, n_experts=n_experts,
-                       max_tokens=max_tokens, block_m=block_m, ffn=ffn)
+                       max_tokens=max_tokens, block_m=block_m, ffn=ffn,
+                       plain=plain)
 
 
 def moe_ffn_sorted_w8a8(x_sorted, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s,
@@ -110,7 +112,8 @@ def moe_infer_shard_w8a8(x_loc, weights_loc, experts_loc, wg_q, wg_s, wu_q,
                                    plain=plain)
 
     return _sorted_ffn(x_loc, experts_loc, weights_loc, n_experts=n_experts,
-                       max_tokens=max_tokens, block_m=block_m, ffn=ffn)
+                       max_tokens=max_tokens, block_m=block_m, ffn=ffn,
+                       plain=plain)
 
 
 @dataclass

@@ -73,7 +73,7 @@ def _moe_prompt_ffn(h2, layer, cfg: MoEConfig):
 def _moe_prompt_forward(params, tokens, *, cfg: MoEConfig, plain=False):
     """Full-prompt forward returning per-layer (K, V) and f32 logits:
     ``generate._prompt_forward`` with the MoE FFN in its ``ffn`` hook
-    (``plain``: the plain attention)."""
+    (``plain``: the plain attention, the one kernel this forward runs)."""
     return _prompt_forward(params, tokens, cfg=cfg, plain=plain,
                            ffn=lambda h2, layer: _moe_prompt_ffn(h2, layer,
                                                                  cfg))

@@ -3,8 +3,8 @@
 Counterpart of ``triton_dist_tpu/models/moe.py``: the Llama attention
 block (``models/llama.attention_block_shard``, through ``cfg.as_llama()``)
 with the dense FFN replaced by a top-k routed expert FFN — the f32
-router, the dispatch of ``layers/ep_a2a.py`` (at world 1 the send buffer
-is the receive buffer), the sort/align of ``kernels/moe_utils.py`` and
+router, the dispatch and combine of ``layers/ep_a2a.py`` (the all-to-all
+kernel, a copy at world 1), the sort/align of ``kernels/moe_utils.py`` and
 three grouped GEMMs (``kernels/group_gemm.py``: the hand-written kernel on
 the card, dx through its transposed mode in the backward).  The
 Switch-style load-balance aux loss is the reference's, divided by world
@@ -15,9 +15,10 @@ Parameters are a plain dict in the reference's pytree layout:
 "mlp_norm", "wq", "wk", "wv", "wo", "router" (f32), "w_gate" [E, D, F],
 "w_up" [E, D, F], "w_down" [E, F, D]}, ...]}``.  The reference's mesh,
 ``axis``, ``dp_axis``, ``impl`` and ``interpret`` arguments are dropped;
-``plain`` runs the plain grouped GEMM (a reference for the expert compute
-on any device; attention keeps the flash kernels, whose own ``plain`` is
-``llama.attention_block_shard``'s).
+``plain`` runs the plain version of every hand-written kernel the family
+runs (attention, all-to-all, grouped GEMM): a reference computation on any
+device.  ``routes`` pins the routing, so that two computations of the
+model can be compared token for token (:func:`forward_shard`).
 """
 
 from __future__ import annotations
@@ -211,14 +212,21 @@ def params_from_jax(tree, cfg: MoEConfig, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def moe_ffn_shard(h2, layer, cfg: MoEConfig, *, plain=False):
+def moe_ffn_shard(h2, layer, cfg: MoEConfig, *, plain=False, experts=None):
     """Routed expert FFN over the tokens h2 [T, D]: f32 router, top-k,
-    dispatch, sort by expert, grouped-GEMM SwiGLU, combine.  Returns
-    (out [T, D] in ``cfg.dtype``, aux-loss contribution f32 scalar)."""
+    dispatch, sort by expert, grouped-GEMM SwiGLU, combine.  ``experts``
+    [T, topk], where given, replaces the router's top-k choice (the
+    routing weights are still the router's renormalised probabilities of
+    those experts).  Returns (out [T, D] in ``cfg.dtype``, aux-loss
+    contribution f32 scalar, experts [T, topk] int32)."""
     E = cfg.n_experts
     t_loc = h2.shape[0]
     logits = h2.float() @ layer["router"]
-    weights, experts = topk_routing(logits, cfg.topk)
+    if experts is None:
+        weights, experts = topk_routing(logits, cfg.topk)
+    else:
+        picked = torch.softmax(logits, dim=-1).gather(1, experts.long())
+        weights = picked / picked.sum(dim=-1, keepdim=True)
 
     # Switch-style balance loss E * sum_e f_e * p_e over these tokens
     # (f: share of assignments to e, not differentiable; p: mean router
@@ -231,7 +239,8 @@ def moe_ffn_shard(h2, layer, cfg: MoEConfig, *, plain=False):
     aux = E * torch.sum(frac * probs.mean(dim=0))
 
     recv, recv_expert, _splits, plan, _dropped = ep_dispatch_shard(
-        h2.to(cfg.dtype), experts, n_experts=E, max_tokens=cfg.max_tokens)
+        h2.to(cfg.dtype), experts, n_experts=E, max_tokens=cfg.max_tokens,
+        plain=plain)
     max_tokens = recv.shape[1]   # dispatch owns the None -> worst-case rule
     local_e = torch.clamp(recv_expert.reshape(max_tokens, 1), 0, E - 1)
     splan = sort_align(local_e, E, cfg.block_m)
@@ -241,18 +250,18 @@ def moe_ffn_shard(h2, layer, cfg: MoEConfig, *, plain=False):
                               layer["w_down"], splan["tile_expert"],
                               block_m=cfg.block_m, plain=plain)
     y = y_sorted[splan["dest"]].reshape(1, max_tokens, cfg.dim)
-    out = ep_combine_shard(y, weights, plan)
-    return out.to(cfg.dtype), aux
+    out = ep_combine_shard(y, weights, plan, plain=plain)
+    return out.to(cfg.dtype), aux, experts
 
 
-def moe_block_shard(x, layer, cfg: MoEConfig, *, plain=False):
+def moe_block_shard(x, layer, cfg: MoEConfig, *, plain=False, experts=None):
     """MoE FFN sub-block with residual: RMSNorm, routed expert FFN.
-    x: [S, B, D].  Returns (x', aux contribution)."""
+    x: [S, B, D].  Returns (x', aux contribution, experts [S*B, topk])."""
     s, b, _ = x.shape
     h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    out, aux = moe_ffn_shard(h.reshape(s * b, cfg.dim), layer, cfg,
-                             plain=plain)
-    return x + out.reshape(s, b, cfg.dim), aux
+    out, aux, experts = moe_ffn_shard(h.reshape(s * b, cfg.dim), layer, cfg,
+                                      plain=plain, experts=experts)
+    return x + out.reshape(s, b, cfg.dim), aux, experts
 
 
 # ---------------------------------------------------------------------------
@@ -260,15 +269,27 @@ def moe_block_shard(x, layer, cfg: MoEConfig, *, plain=False):
 # ---------------------------------------------------------------------------
 
 
-def forward_shard(params, tokens, cfg: MoEConfig, *, plain=False):
+def forward_shard(params, tokens, cfg: MoEConfig, *, plain=False,
+                  routes=None):
     """tokens [S, B] int (seq-major) -> (logits [S, B, vocab] f32, aux
-    loss f32 scalar summed over layers)."""
+    loss f32 scalar summed over layers).
+
+    ``routes``, a list: when empty, each layer appends the experts it
+    picked ([S*B, topk] int32); when it holds one entry per layer, each
+    layer takes its experts from it instead of its router's top-k.  Two
+    computations that differ by rounding (kernels and plain versions) then
+    send every token to the same experts, where a near-tie of two router
+    probabilities could otherwise move a token's whole FFN output."""
     lcfg = cfg.as_llama()
     x = params["embed"][tokens.long()]                               # [S,B,D]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params["layers"]:
-        x = attention_block_shard(x, layer, lcfg)
-        x, aux = moe_block_shard(x, layer, cfg, plain=plain)
+    replay = bool(routes)
+    for i, layer in enumerate(params["layers"]):
+        x = attention_block_shard(x, layer, lcfg, plain=plain)
+        x, aux, experts = moe_block_shard(
+            x, layer, cfg, plain=plain, experts=routes[i] if replay else None)
+        if routes is not None and not replay:
+            routes.append(experts)
         aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     s, b, _ = x.shape
@@ -276,24 +297,29 @@ def forward_shard(params, tokens, cfg: MoEConfig, *, plain=False):
     return logits.reshape(s, b, cfg.vocab), aux_total
 
 
-def loss_shard(params, tokens, targets, cfg: MoEConfig, *, plain=False):
+def loss_shard(params, tokens, targets, cfg: MoEConfig, *, plain=False,
+               routes=None):
     """Mean next-token cross-entropy over every [S, B] position plus
-    ``aux_loss_coef`` times the balance loss."""
-    logits, aux = forward_shard(params, tokens, cfg, plain=plain)
+    ``aux_loss_coef`` times the balance loss (``routes`` as in
+    :func:`forward_shard`)."""
+    logits, aux = forward_shard(params, tokens, cfg, plain=plain,
+                                routes=routes)
     ce = F.cross_entropy(logits.reshape(-1, cfg.vocab),
                          targets.reshape(-1).long())
     return ce + cfg.aux_loss_coef * aux
 
 
 def make_forward(cfg: MoEConfig, *, plain=False):
-    """``fn(params, tokens [S, B]) -> (logits [S, B, vocab] f32, aux)``."""
+    """``fn(params, tokens [S, B], routes=None) -> (logits [S, B, vocab]
+    f32, aux)``."""
     return functools.partial(forward_shard, cfg=cfg, plain=plain)
 
 
 def make_train_step(cfg: MoEConfig, *, lr=1e-3):
     """Plain-SGD step ``step(params, tokens, targets) -> (params, loss)``:
     loss and gradients by autograd (attention through the flash kernels,
-    the expert FFN through the grouped GEMM's forward, dx and dW), then
+    dispatch and combine through the all-to-all kernel, the expert FFN
+    through the grouped GEMM's forward, dx and dW), then
     ``p - lr * g`` in the parameter dtype, IN PLACE as
     ``llama.make_train_step`` does (a second copy of the weights would
     not fit the card)."""

@@ -45,9 +45,9 @@ def _check_family(family) -> None:
 def make_grads(family, cfg, *, plain: bool = False) -> Callable:
     """``grads_fn(params, tokens, targets) -> (loss, grads)``, grads a
     tree shaped like params.  ``family`` is ``models.llama`` or
-    ``models.moe``; ``plain`` differentiates the family's plain PyTorch
-    version instead of its kernel — the attention for Llama, the grouped
-    GEMM for MoE — (a reference gradient on any device)."""
+    ``models.moe``; ``plain`` differentiates the plain PyTorch versions
+    of every hand-written kernel the family runs (a reference gradient on
+    any device)."""
     _check_family(family)
 
     def grads_fn(params, tokens, targets):
