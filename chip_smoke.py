@@ -44,6 +44,14 @@ Phases, in order (any failure exits non-zero without the final line):
    map; the all-to-all kernel at the MoE dispatch's shape (send [1, 4096,
    4096] bf16) and at a shape with a byte tail, exactly equal to its
    plain version (a copy at world 1), one PyTorch copy as the yardstick;
+   the dense GEMM (``csrc/gemm.cu``) at (M, K, N) = (2048, 4096, 14336)
+   and at the tensor-parallel logits' (2048, 4096, 128256) with an f32
+   output, torch.matmul / torch.mm as the yardstick; the AG-GEMM and the
+   GEMM-RS over a virtual world of TP ranks at every projection shape of
+   Llama-3-8B's TP-4 train step, both B layouts (the gathered A bit for
+   bit, the products within 2e-2 of the plain version's largest magnitude
+   and 1e-2 relative L2), timed eagerly between CUDA events (each call
+   carries a new epoch, so no CUDA graph);
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -94,14 +102,27 @@ Phases, in order (any failure exits non-zero without the final line):
    (finite, falling losses; peak memory; group_gemm and group_gemm_dx
    launch; a profiled step), then at 2 layers the loss and every gradient
    leaf with the kernels against the plain versions, both routed alike
-   (1e-3, 2e-2).
+   (1e-3, 2e-2);
+11. TP forward: Llama-3-8B at full width and 32 layers, random weights
+   from seed 0, the world-1 forward (and, as the noise floor, the same
+   with the plain attention), then ``shard_params`` to TP ranks and the
+   TP forward through ``make_forward(cfg, TP)`` with the ring and GEMM
+   counters zeroed just before (each > 0 after), timed and profiled; its
+   argmax agrees with the world-1 forward's at >= 0.98 of the 2048
+   positions counting ties within 0.125, >= 0.90 exact;
+12. TP train: (a) TP_SGD_STEPS in-place SGD steps at 32 layers, the
+   counters zeroed again (finite, falling losses; peak memory; a profiled
+   step); (b) at 2 layers the loss and every gradient leaf with the
+   kernels against the plain versions of every kernel (1e-3, 2e-2).
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
 zeroed again just before phase 5b and read just after 5c, where the four
 int8 kernels must each be > 0; the backward kernels' counts in the
 ``kernels`` line come from phase 6 (a), the grouped GEMM's from phases 7
-(bf16), 9 (int8) and 10 (dx), the all-to-all's from phase 7.  A
+(bf16), 9 (int8) and 10 (dx), the all-to-all's from phase 7, the ring
+kernels' and the dense GEMM's from phase 12 (a), their phase-11 counts
+beside under "forward_launches".  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -182,6 +203,9 @@ TRAIN_SEQ = 2048
 # tensor and over each row tile
 GG_REL_TOL = 2e-2
 GG_L2_TOL = 1e-2
+TP = 4              # phases 11-12: ranks of the virtual world
+TP_SGD_LR = 0.2
+TP_SGD_STEPS = 3
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_S = 1979e12       # H100 SXM dense int8 tensor-core peak
@@ -437,6 +461,8 @@ def kernel_phase(dev):
     rows.update(bwd_kernel_rows(dev, randn))
     rows.update(group_gemm_rows(dev, g))
     rows["all_to_all"] = all_to_all_row(dev, g)
+    rows["matmul"] = matmul_row(dev, g)
+    rows.update(ring_rows(dev, g))
     return rows
 
 
@@ -905,6 +931,162 @@ def all_to_all_row(dev, g):
         f"{lib:.4f} ms (Tensor.copy_), bound {b_ms:.4f} ms ({b_by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib, max_abs_err=0.0)
+
+
+def gemm_rule(tag, got, want):
+    """The bf16 GEMM agreement rule (both sides sum in f32, then round):
+    max |kernel - plain| <= GG_REL_TOL max |plain|, relative L2 <=
+    GG_L2_TOL.  Returns max |err|."""
+    import torch
+
+    err, want = got.float() - want.float(), want.float()
+    amax, top = err.abs().max().item(), want.abs().max().item()
+    l2 = (err.norm() / want.norm()).item()
+    log(f"{tag}: max|kernel-plain| {amax:.3e} (tol {GG_REL_TOL} x max|plain|"
+        f" {top:.3e}), relative L2 {l2:.3e} (tol {GG_L2_TOL})")
+    if not (torch.isfinite(got).all() and amax <= GG_REL_TOL * top
+            and l2 <= GG_L2_TOL):
+        raise AssertionError(f"{tag} disagrees with plain")
+    return amax
+
+
+def matmul_row(dev, g):
+    """csrc/gemm.cu at (M, K, N) = (2048, 4096, 14336) (a 2048-token
+    projection of Llama-3-8B's FFN width) against its plain version by the
+    bf16 GEMM rule, timed beside its bound and torch.matmul (cuBLAS, the
+    yardstick); under "logits" the tensor-parallel path's own call, the
+    f32 logits of 2048 tokens against the 128256-word head (to 1e-4 of
+    the largest magnitude: only the order of the f32 sums differs),
+    timed beside torch.mm with an f32 output."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import gemm
+
+    M, K, N, V = 2048, 4096, 14336, 128256
+    a = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    b = (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).bfloat16()
+    got = gemm.matmul(a, b)
+    torch.cuda.synchronize()
+    err = gemm_rule(f"matmul ({M}, {K}, {N})", got, gemm.matmul_ref(a, b))
+    ms = time_ms(lambda: gemm.matmul(a, b))
+    plain_ms = time_ms(lambda: gemm.matmul_ref(a, b), iters=3)
+    lib = time_ms(lambda: torch.matmul(a, b))
+    b_ms, b_by = bound_ms(2 * (M * K + K * N + M * N), 2 * M * N * K)
+    log(f"matmul ({M}, {K}, {N}): kernel {ms:.4f} ms "
+        f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"library {lib:.4f} ms (torch.matmul), bound {b_ms:.4f} ms ({b_by})")
+    del b, got
+    w = (torch.randn((K, V), generator=g, device=dev) / K ** 0.5).bfloat16()
+    lg = gemm.matmul(a, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = gemm.matmul_ref(a, w, out_dtype=torch.float32)
+    lg_err = (lg - want).abs().max().item()
+    lg_top = want.abs().max().item()
+    log(f"matmul logits ({M}, {K}, {V}) f32: max|kernel-plain| "
+        f"{lg_err:.3e} (tol 1e-4 x max|plain| {lg_top:.3e})")
+    if not (torch.isfinite(lg).all() and lg_err <= 1e-4 * lg_top):
+        raise AssertionError("matmul logits disagree with plain")
+    del lg, want
+    lg_ms = time_ms(lambda: gemm.matmul(a, w, out_dtype=torch.float32),
+                    iters=5)
+    lg_plain = time_ms(lambda: gemm.matmul_ref(a, w, out_dtype=torch.float32),
+                       iters=2)
+    lg_lib = time_ms(lambda: torch.mm(a, w, out_dtype=torch.float32),
+                     iters=5)
+    lg_b, lg_by = bound_ms(2 * (M * K + K * V) + 4 * M * V, 2 * M * V * K)
+    log(f"matmul logits: kernel {lg_ms:.4f} ms, plain {lg_plain:.4f} ms, "
+        f"library {lg_lib:.4f} ms (torch.mm out_dtype f32), bound "
+        f"{lg_b:.4f} ms ({lg_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, max_abs_err=err,
+                logits=dict(ms=lg_ms, plain_ms=lg_plain, bound_ms=lg_b,
+                            bound_by=lg_by, library_ms=lg_lib,
+                            max_abs_err=lg_err))
+
+
+def ring_rows(dev, g):
+    """csrc/ag_gemm.cu and csrc/gemm_rs.cu over a virtual world of TP ranks
+    at every projection shape of Llama-3-8B's TP-4 train step (m_loc 512
+    rows per rank): the AG-GEMM at the forward's QKV (n 1536) and gate/up
+    (n 3584) and, transposed, at the backward's wo^T (n 1024) and wdown^T
+    (n 3584); the GEMM-RS at the forward's wo (k 1024) and down (k 3584)
+    and, transposed, at the backward's QKV^T (k 1536) and gate/up^T (k
+    3584).  Each against its plain version (the gathered A bit for bit,
+    the products by the bf16 GEMM rule), timed eagerly between CUDA events
+    (a launch carries its call's epoch, so it is never captured in a
+    graph) beside its bound and its plain version; no single PyTorch call
+    gathers and multiplies, or multiplies and reduce-scatters (library
+    null): the batched torch.matmul of the same product alone is printed
+    for scale.  Rows report gate/up and down; every shape rides along
+    under "shapes"."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    W, m_loc, D, F, KO, QKV = TP, 512, 4096, 14336 // TP, 4096 // TP, 1536
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).bfloat16()
+
+    def entry(kind, tag, ms, plain_ms, n_bytes, ops, err, gemm_ms):
+        b_ms, b_by = bound_ms(n_bytes, ops)
+        log(f"{kind} {tag}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+            f"TFLOP/s over {W} ranks), plain {plain_ms:.4f} ms, library null "
+            f"(batched torch.matmul of the product alone {gemm_ms:.4f} ms), "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, max_abs_err=err)
+
+    rows = {}
+    shapes = {}
+    for tag, K, n, trans in (("qkv", D, QKV, False), ("gate_up", D, F, False),
+                             ("wo_bwd", D, KO, True),
+                             ("wdown_bwd", D, F, True)):
+        a = randn(W, m_loc, K)
+        b = randn(*((W, n, K) if trans else (W, K, n)), scale=K ** -0.5)
+        a_full, c = agm.ag_gemm(a, b, trans_b=trans)
+        torch.cuda.synchronize()
+        want_full, want_c = agm.ag_gemm_ref(a, b, trans_b=trans)
+        if not torch.equal(a_full, want_full):
+            raise AssertionError(f"ag_gemm {tag}: gathered A differs")
+        err = gemm_rule(f"ag_gemm {tag} (W {W}, m_loc {m_loc}, K {K}, n {n}"
+                        f"{', B^T' if trans else ''})", c, want_c)
+        del a_full, c, want_full, want_c
+        ms = event_ms(lambda: agm.ag_gemm(a, b, trans_b=trans), iters=10)
+        plain_ms = time_ms(lambda: agm.ag_gemm_ref(a, b, trans_b=trans),
+                           iters=3)
+        af = a.reshape(1, W * m_loc, K).expand(W, -1, -1)
+        bt = b.transpose(1, 2) if trans else b
+        gemm_ms = time_ms(lambda: torch.matmul(af, bt), iters=5)
+        shapes[tag] = entry("ag_gemm", tag, ms, plain_ms, 2 * (
+            W * m_loc * K + W * K * n + W * W * m_loc * (K + n)),
+            2 * W * W * m_loc * n * K, err, gemm_ms)
+    rows["ag_gemm"] = dict(shapes["gate_up"], shapes=shapes)
+
+    shapes = {}
+    for tag, k, N, trans in (("wo", KO, D, False), ("down", F, D, False),
+                             ("qkv_bwd", QKV, D, True),
+                             ("gate_up_bwd", F, D, True)):
+        a = randn(W, W * m_loc, k)
+        b = randn(*((W, N, k) if trans else (W, k, N)), scale=k ** -0.5)
+        out = grs.gemm_rs(a, b, trans_b=trans)
+        torch.cuda.synchronize()
+        err = gemm_rule(f"gemm_rs {tag} (W {W}, m_loc {m_loc}, k {k}, N {N}"
+                        f"{', B^T' if trans else ''})", out,
+                        grs.gemm_rs_ref(a, b, trans_b=trans))
+        del out
+        ms = event_ms(lambda: grs.gemm_rs(a, b, trans_b=trans), iters=10)
+        plain_ms = time_ms(lambda: grs.gemm_rs_ref(a, b, trans_b=trans),
+                           iters=3)
+        bt = b.transpose(1, 2) if trans else b
+        gemm_ms = time_ms(lambda: torch.matmul(a, bt), iters=5)
+        shapes[tag] = entry("gemm_rs", tag, ms, plain_ms, 2 * (
+            W * W * m_loc * k + W * k * N + W * m_loc * N),
+            2 * W * W * m_loc * k * N, err, gemm_ms)
+    rows["gemm_rs"] = dict(shapes["down"], shapes=shapes)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1653,6 +1835,177 @@ def moe_phases():
             "group_gemm_i8": i8_launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: tensor parallelism (Llama-3-8B, TP 4 on the virtual world)
+# ---------------------------------------------------------------------------
+
+
+def argmax_agreement(tag, got, ref, near_tie=NEAR_TIE):
+    """(exact, counting near-ties) agreement of ``got``'s argmax with
+    ``ref``'s over every position: a mismatch is a near-tie when ``ref``'s
+    logit at ``got``'s argmax lies within ``near_tie`` of ``ref``'s
+    maximum.  Prints max |d logit| beside."""
+    import torch
+
+    got, ref = got.reshape(-1, got.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    pg, pr = got.argmax(-1), ref.argmax(-1)
+    gap = ref.gather(1, pr[:, None])[:, 0] - ref.gather(1, pg[:, None])[:, 0]
+    exact = (pg == pr).float().mean().item()
+    ties = (gap <= near_tie).float().mean().item()
+    top2 = torch.topk(ref, 2, dim=-1).values
+    log(f"{tag}: argmax agreement {exact:.4f} exact, {ties:.4f} counting "
+        f"near-ties (gap <= {near_tie}); max |d logit| "
+        f"{(got - ref).abs().max().item():.4f}, largest flip gap "
+        f"{gap.max().item():.4f}, median top-2 gap "
+        f"{(top2[:, 0] - top2[:, 1]).median().item():.4f}")
+    return exact, ties
+
+
+def tp_phases():
+    """Phases 11-12: Llama-3-8B at full width and all 32 layers,
+    tensor-parallel over TP ranks of the virtual world, random weights from
+    seed 0, tokens [S 2048, B 1] from a seed.  11: the world-1 forward
+    (cuBLAS projections) and, as the noise floor, the same with the plain
+    attention; the tree sharded by ``shard_params``; the TP forward with
+    the ring and GEMM counters zeroed just before (each > 0 after), timed,
+    profiled, and its argmax held to the world-1 forward's (ties within
+    NEAR_TIE, >= AGREE_MIN with ties and >= STRICT_MIN exact).  12 (a):
+    TP_SGD_STEPS in-place SGD steps, counters zeroed again (finite, falling
+    losses; peak memory; a profiled step); (b) at 2 layers the loss and
+    every gradient leaf with the kernels against the plain versions of
+    every kernel (1e-3, 2e-2 relative L2).  Returns the launch counts of
+    the forward and of the steps."""
+    from dataclasses import replace
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.runtime.utils import value_and_grad
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    rng = np.random.default_rng(11)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
+                          device="cuda")
+    tgt = torch.roll(tok, -1, dims=0)
+    counters = {"ag_gemm": agm.ag_gemm, "gemm_rs": grs.gemm_rs,
+                "matmul": gemm.matmul}
+
+    # 11: forward
+    params = llama.init_params(cfg, seed=0)
+    with torch.no_grad():
+        ref = llama.make_forward(cfg)(params, tok)
+        floor = llama.make_forward(cfg, plain=True)(params, tok)
+    argmax_agreement("tp noise floor: world-1 forward, flash kernel vs "
+                     "plain attention", floor, ref)
+    del floor
+    tp = llama.shard_params(params, cfg, TP)
+    del params
+    free_cuda()
+    fwd = llama.make_forward(cfg, TP)
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = fwd(tp, tok)
+        torch.cuda.synchronize()
+        t_first = (time.perf_counter() - t0) * 1e3
+    fwd_launches = {n: fn.launches for n, fn in counters.items()}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        fwd(tp, tok)
+        torch.cuda.synchronize()
+        t_warm = (time.perf_counter() - t0) * 1e3
+        busy, top = profile_once(lambda: fwd(tp, tok), top_n=12)
+    ring_ms = sum(ms for name, _, ms in top
+                  if "ag_gemm" in name or "gemm_rs" in name)
+    log(f"tp forward: TP {TP}, {cfg.n_layers} layers, tokens [{TRAIN_SEQ}, "
+        f"1]: first call {t_first:.1f} ms, warm {t_warm:.1f} ms wall; "
+        f"profiled: device busy {busy:.2f} ms, ring kernels {ring_ms:.2f} ms"
+        f" ({ring_ms / busy:.3f} of it), idle share {1 - busy / t_warm:.3f};"
+        f" launches {fwd_launches}")
+    for name, n, ms in top:
+        log(f"tp forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    for n, c in fwd_launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched by the TP "
+                                 f"forward")
+    if tuple(logits.shape) != (TRAIN_SEQ, 1, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"tp forward: bad logits {tuple(logits.shape)}")
+    exact, ties = argmax_agreement(
+        f"tp forward vs world-1 forward ({TRAIN_SEQ} positions)", logits,
+        ref)
+    if ties < AGREE_MIN or exact < STRICT_MIN:
+        raise AssertionError(f"tp forward: agreement {exact:.4f} exact "
+                             f"(floor {STRICT_MIN}), {ties:.4f} with "
+                             f"near-ties (floor {AGREE_MIN})")
+    del logits, ref
+    free_cuda()
+
+    # 12 (a): SGD at 32 layers
+    torch.cuda.reset_peak_memory_stats()
+    step = llama.make_train_step(cfg, TP, lr=TP_SGD_LR)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(TP_SGD_STEPS):
+        t0 = time.perf_counter()
+        _, loss = step(tp, tok, tgt)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    train_launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"tp train (a) SGD lr {TP_SGD_LR}, TP {TP}, {cfg.n_layers} layers: "
+        f"losses {[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in times]}, peak memory {peak:.2f} GiB; "
+        f"launches {train_launches}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"tp train (a): losses {losses} not finite and "
+                             f"falling")
+    for n, c in train_launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched by TP training")
+    busy, top = profile_once(lambda: step(tp, tok, tgt), top_n=12)
+    wall = float(np.median(times[1:]))
+    ring_ms = sum(ms for name, _, ms in top
+                  if "ag_gemm" in name or "gemm_rs" in name)
+    log(f"tp train (a) profiled step: device busy {busy:.1f} ms of a "
+        f"{wall:.1f} ms step, idle share {1 - busy / wall:.3f}, ring "
+        f"kernels {ring_ms:.1f} ms ({ring_ms / busy:.3f})")
+    for name, n, ms in top:
+        log(f"tp train (a)   {ms:8.2f} ms  x{n:<5d} {name[:90]}")
+    del tp, step
+    free_cuda()
+
+    # 12 (b): 2-layer gradients, kernels vs plain versions
+    cfg2 = replace(cfg, n_layers=2)
+    p2 = llama.shard_params(llama.init_params(cfg2, seed=0), cfg2, TP)
+    loss_k, g_k = value_and_grad(llama.loss_shard, p2, tok, tgt, cfg2,
+                                 world=TP)
+    loss_p, g_p = value_and_grad(llama.loss_shard, p2, tok, tgt, cfg2,
+                                 world=TP, plain=True)
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = ("", 0.0)
+    for (name, a), (_, b) in zip(named_leaves(g_k), named_leaves(g_p)):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        if not rel <= 2e-2:
+            raise AssertionError(f"tp train (b): gradient {name} relative L2"
+                                 f" {rel:.3e} > 2e-2")
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+    log(f"tp train (b) TP {TP}, 2 layers, kernels vs plain versions: loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f} (relative "
+        f"{rel_loss:.2e}, tol 1e-3); worst gradient leaf {worst[0]} "
+        f"relative L2 {worst[1]:.3e} (tol 2e-2)")
+    if not rel_loss <= 1e-3:
+        raise AssertionError(f"tp train (b): loss relative {rel_loss:.2e}")
+    del p2, g_k, g_p
+    free_cuda()
+    return fwd_launches, train_launches
+
+
 def main() -> int:
     import torch
 
@@ -1704,6 +2057,7 @@ def main() -> int:
 
     # phase 3: kernels
     rows = kernel_phase(dev)
+    log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
 
     # phases 4-5: the main path, with the launch counters zeroed first
     cfg = LlamaConfig.llama3_8b()
@@ -1736,6 +2090,8 @@ def main() -> int:
     float_streams = {rid: list(o.token_ids) for rid, o in outs.items()}
     del gen, eng, outs
     free_cuda()
+
+    log(f"serving done at {time.perf_counter() - t_start:.1f} s")
 
     # phases 5b-5c: the quantized path, every counter zeroed first
     q_counters = {"flash_fwd_i8": fa.flash_fwd_i8,
@@ -1787,15 +2143,25 @@ def main() -> int:
     del params, gen_q, eng_q, outs, plain   # plain holds the W8A8 tree
     free_cuda()
 
+    log(f"quantized serving done at {time.perf_counter() - t_start:.1f} s")
+
     # phase 6: training; the backward kernels' counts come from it (the
     # flash_fwd row keeps the serving path's count, printed beside)
     trained = train_phase()
     launches.update(flash_bwd_dq=trained["flash_bwd_dq"],
                     flash_bwd_dkv=trained["flash_bwd_dkv"])
 
+    log(f"training done at {time.perf_counter() - t_start:.1f} s")
+
     # phases 7-10: the MoE family; each grouped-GEMM mode's count comes
     # from the phase that drives it
     launches.update(moe_phases())
+    log(f"moe done at {time.perf_counter() - t_start:.1f} s")
+
+    # phases 11-12: tensor parallelism; the ring kernels' and the GEMM's
+    # counts come from the SGD steps (the forward's ride along)
+    tp_fwd, tp_train = tp_phases()
+    launches.update(tp_train)
 
     src = {"flash_fwd": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
                          "triton_dist_tpu/kernels/flash_attention.py:116"),
@@ -1823,7 +2189,13 @@ def main() -> int:
            "group_gemm_i8": ("triton_dist_tpu_torch/csrc/group_gemm.cu",
                              "triton_dist_tpu/kernels/group_gemm.py:204"),
            "all_to_all": ("triton_dist_tpu_torch/csrc/all_to_all.cu",
-                          "triton_dist_tpu/kernels/all_to_all.py:108")}
+                          "triton_dist_tpu/kernels/all_to_all.py:108"),
+           "matmul": ("triton_dist_tpu_torch/csrc/gemm.cu",
+                      "triton_dist_tpu/kernels/gemm.py:192"),
+           "ag_gemm": ("triton_dist_tpu_torch/csrc/ag_gemm.cu",
+                       "triton_dist_tpu/kernels/allgather_gemm.py:240"),
+           "gemm_rs": ("triton_dist_tpu_torch/csrc/gemm_rs.cu",
+                       "triton_dist_tpu/kernels/gemm_reduce_scatter.py:103")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -1833,7 +2205,10 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **{k: r[k] for k in ("m8", "t8") if k in r}})
+                        **({"forward_launches": tp_fwd[name]}
+                           if name in tp_fwd else {}),
+                        **{k: r[k] for k in ("m8", "t8", "logits", "shapes")
+                           if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -15,7 +15,11 @@ while the plain versions keep it in f32, and flash_fwd writes bf16 output
 log-sum-exp is f32 on both sides and agrees to 1e-3.  The int8 GEMMs
 (dense and grouped) are exact and are held to equality with their
 float64 plain versions; the bf16 grouped GEMM to 2e-2 of the plain
-output's largest magnitude and 1e-2 relative L2 over each row tile.
+output's largest magnitude and 1e-2 relative L2 over each row tile.  The
+dense GEMM and the two tensor-parallel ring kernels (over a virtual world
+of W ranks on the one card) follow the same bf16 rule over the whole
+output (f32 output: 1e-4 of the largest magnitude), the gathered A bit
+for bit.
 """
 
 import zlib
@@ -710,3 +714,245 @@ def test_all_to_all_autograd_on_the_card(cuda):
     assert a2a.fast_all_to_all_shard.launches == n0 + 2
     assert torch.equal(d_send[0, :40], ct[0, :40])
     assert torch.all(d_send[0, 40:] == 0)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the dense GEMM and the two ring kernels
+# ---------------------------------------------------------------------------
+
+
+def _gemm_close(got, want, name, tol=2e-2):
+    """The bf16 GEMM rule: max |err| <= tol max |plain| and relative L2 <=
+    tol / 2 (both sides sum in f32; they differ by the order of the sum and
+    the output's one rounding)."""
+    err, want = got.float() - want.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    assert err.abs().max() <= tol * want.abs().max(), \
+        f"{name}: max |err| {err.abs().max().item()}"
+    assert err.norm() <= tol / 2 * want.norm(), \
+        f"{name}: relative L2 {(err.norm() / want.norm()).item()}"
+
+
+MATMUL_CASES = [
+    # (M, K, N): aligned, a ragged edge in every dimension (element loads),
+    # a K tail inside one 32-deep stage, a single row, the row-7 shape
+    (256, 512, 384), (130, 200, 97), (64, 40, 136), (1, 64, 8),
+    (2048, 4096, 14336),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MATMUL_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_matmul_matches_plain(cuda, case, out_dtype):
+    """csrc/gemm.cu against its plain version: bf16 output to the bf16
+    rule, f32 output to 1e-4 of the largest magnitude (only the order of
+    the f32 sums differs); one launch per call."""
+    from triton_dist_tpu_torch.kernels import gemm
+
+    M, K, N = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    a, b = _randn(g, (M, K), cuda), _randn(g, (K, N), cuda)
+    n0 = gemm.matmul.launches
+    got = gemm.matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert gemm.matmul.launches == n0 + 1
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    want = gemm.matmul_ref(a, b, out_dtype=torch.float32)
+    if out_dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    else:
+        _gemm_close(got, want, f"matmul {case}")
+
+
+@pytest.mark.gpu
+def test_matmul_refuses_what_the_kernel_does_not_take(cuda):
+    from triton_dist_tpu_torch.kernels import gemm
+
+    a = torch.zeros((16, 32), device=cuda)
+    with pytest.raises(TypeError):
+        gemm.matmul(a, a.t())                       # f32 operands
+    with pytest.raises(TypeError):
+        gemm.matmul(a.bfloat16(), a.t().bfloat16(), out_dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gemm.matmul(a.bfloat16(), a.bfloat16())     # contraction mismatch
+
+
+def _ring_case(cuda, g, world, m_loc, k, n, trans_b):
+    """Rank-stacked operands: the AG-GEMM's a [W, m_loc, K] and b [W, K, n]
+    (or [W, n, K]); the GEMM-RS's a [W, W m_loc, K] and b [W, K, n] (or
+    [W, n, K])."""
+    b_shape = (world, n, k) if trans_b else (world, k, n)
+    b = (_randn(g, b_shape, cuda).float() / k ** 0.5).bfloat16()
+    return (_randn(g, (world, m_loc, k), cuda),
+            _randn(g, (world, world * m_loc, k), cuda), b)
+
+
+RING_CASES = [
+    # (world, m_loc, K, N): one tile, a ragged N edge and K tail, several
+    # segment tiles per rank
+    (1, 128, 256, 384), (2, 128, 264, 200), (4, 256, 512, 256),
+    (4, 128, 128, 1000),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RING_CASES)
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_ring_kernels_match_plain(cuda, case, trans_b):
+    """csrc/ag_gemm.cu and csrc/gemm_rs.cu over a virtual world of W ranks
+    against their plain versions: the gathered A bit for bit, C and the
+    reduced chunks by the bf16 GEMM rule; both B layouts; one launch
+    each."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    world, m_loc, k, n = case
+    g = np.random.default_rng(zlib.crc32(repr((case, trans_b)).encode()))
+    a, a_rs, b = _ring_case(cuda, g, world, m_loc, k, n, trans_b)
+    n0 = (agm.ag_gemm.launches, grs.gemm_rs.launches)
+    a_full, c = agm.ag_gemm(a, b, trans_b=trans_b)
+    out = grs.gemm_rs(a_rs, b, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert (agm.ag_gemm.launches, grs.gemm_rs.launches) == (n0[0] + 1,
+                                                             n0[1] + 1)
+    want_full, want_c = agm.ag_gemm_ref(a, b, trans_b=trans_b)
+    assert a_full.shape == (world, world * m_loc, k)
+    assert torch.equal(a_full, want_full)
+    _gemm_close(c, want_c, f"ag_gemm {case} trans_b={trans_b}")
+    want = grs.gemm_rs_ref(a_rs, b, trans_b=trans_b)
+    assert out.shape == (world, m_loc, n)
+    _gemm_close(out, want, f"gemm_rs {case} trans_b={trans_b}")
+
+
+@pytest.mark.gpu
+def test_ring_kernels_rerandomized_back_to_back(cuda):
+    """24 calls of each kernel back to back on fresh random inputs (the
+    reference's test_ag_gemm_rerandomized_iterations): every result is
+    checked, so a flag or a staging buffer left by an earlier call that
+    let a wait pass early would show as a stale value."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    g = np.random.default_rng(5)
+    results = []
+    for i in range(24):
+        a, a_rs, b = _ring_case(cuda, g, 4, 256, 512, 512, bool(i % 2))
+        results.append((a, a_rs, b, bool(i % 2),
+                        agm.ag_gemm(a, b, trans_b=bool(i % 2)),
+                        grs.gemm_rs(a_rs, b, trans_b=bool(i % 2))))
+    torch.cuda.synchronize()
+    for i, (a, a_rs, b, tb, (a_full, c), out) in enumerate(results):
+        want_full, want_c = agm.ag_gemm_ref(a, b, trans_b=tb)
+        assert torch.equal(a_full, want_full), i
+        _gemm_close(c, want_c, f"ag_gemm call {i}")
+        _gemm_close(out, grs.gemm_rs_ref(a_rs, b, trans_b=tb),
+                    f"gemm_rs call {i}")
+
+
+@pytest.mark.gpu
+def test_ring_kernels_refuse_what_they_do_not_take(cuda):
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    with pytest.raises(ValueError, match="multiple of 128"):
+        agm.ag_gemm(z(2, 100, 256), z(2, 256, 256))        # m_loc % 128
+    with pytest.raises(ValueError, match="multiples of 8"):
+        agm.ag_gemm(z(2, 128, 260), z(2, 260, 256))        # K % 8
+    with pytest.raises(ValueError, match="multiples of 8"):
+        grs.gemm_rs(z(2, 256, 256), z(2, 256, 100))        # N % 8
+    with pytest.raises(ValueError, match="chunks"):
+        grs.gemm_rs(z(4, 130, 256), z(4, 256, 256))        # rows % W
+    with pytest.raises(TypeError):
+        agm.ag_gemm(z(2, 128, 256, dtype=torch.float32),
+                    z(2, 256, 256, dtype=torch.float32))
+    with pytest.raises(ValueError, match="at most 8"):
+        agm.ag_gemm(z(9, 128, 64), z(9, 64, 64))
+    with pytest.raises(ValueError, match="contraction"):
+        grs.gemm_rs(z(2, 256, 256), z(2, 128, 256))
+    graph = torch.cuda.CUDAGraph()
+    a, b = z(2, 128, 256), z(2, 256, 256)
+    agm.ag_gemm(a, b)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            agm.ag_gemm(a, b)
+
+
+@pytest.mark.gpu
+def test_tp_linears_autograd_match_plain(cuda):
+    """The column- and row-parallel autograd Functions on the card (the
+    forward and backward of each through the ring kernels) against the
+    same Functions over the plain versions, at W 4: outputs and both
+    gradients by the bf16 GEMM rule."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.layers import tp_linear as tl
+
+    g = np.random.default_rng(9)
+    W, m_loc, K, n = 4, 128, 512, 256
+    a = _randn(g, (W, m_loc, K), cuda)
+    b = (_randn(g, (W, K, n), cuda).float() / K ** 0.5).bfloat16()
+    dc = _randn(g, (W, W * m_loc, n), cuda)
+    a2 = _randn(g, (W, W * m_loc, n), cuda)
+    b2 = (_randn(g, (W, n, K), cuda).float() / n ** 0.5).bfloat16()
+    dc2 = _randn(g, (W, m_loc, K), cuda)
+    for fn, x, w, ct in ((tl.column_parallel_linear, a, b, dc),
+                         (tl.row_parallel_linear, a2, b2, dc2)):
+        outs = []
+        for plain in (False, True):
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            n0 = (agm.ag_gemm.launches, grs.gemm_rs.launches)
+            y = fn(xg, wg, plain=plain)
+            outs.append((y, *torch.autograd.grad(y, (xg, wg), ct)))
+            moved = (agm.ag_gemm.launches - n0[0], grs.gemm_rs.launches
+                     - n0[1])
+            assert moved == ((0, 0) if plain else (1, 1)), moved
+        for got, want, name in zip(outs[0], outs[1], ("out", "dx", "dw")):
+            _gemm_close(got, want, f"{fn.__name__} {name}")
+
+
+@pytest.mark.gpu
+def test_tp4_llama_forward_and_train_step_at_8b_width(cuda):
+    """Llama-3-8B widths at 2 layers, S 512, TP 4 on the virtual world:
+    the forward with the kernels against the plain versions (relative L2
+    of the logits within 2e-2), then an SGD step with a finite loss; the
+    forward runs 3 AG-GEMMs and 2 GEMM-RS per layer and the logits GEMM,
+    the backward their duals."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
+
+    use_full_precision_matmul()
+    cfg = replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    params = llama.shard_params(llama.init_params(cfg, seed=0), cfg, 4)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(512, 1)), device=cuda)
+
+    def counts():
+        return (agm.ag_gemm.launches, grs.gemm_rs.launches,
+                gemm.matmul.launches)
+
+    n0 = counts()
+    with torch.no_grad():
+        got = llama.make_forward(cfg, 4)(params, tok)
+        want = llama.make_forward(cfg, 4, plain=True)(params, tok)
+    assert tuple(x - y for x, y in zip(counts(), n0)) == (
+        3 * cfg.n_layers, 2 * cfg.n_layers, 1)
+    assert torch.isfinite(got).all() and got.shape == (512, 1, cfg.vocab)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 2e-2, f"logits relative L2 {rel}"
+    del got, want
+    n0 = counts()
+    _, loss = llama.make_train_step(cfg, 4, lr=0.1)(params, tok,
+                                                    torch.roll(tok, -1, 0))
+    assert np.isfinite(float(loss))
+    assert tuple(x - y for x, y in zip(counts(), n0)) == (
+        5 * cfg.n_layers, 5 * cfg.n_layers, 1)

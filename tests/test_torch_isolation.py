@@ -40,7 +40,13 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.layers.ep_a2a",
             "triton_dist_tpu_torch.layers.moe_inference",
             "triton_dist_tpu_torch.models.moe",
-            "triton_dist_tpu_torch.models.generate_moe"} <= set(mods)
+            "triton_dist_tpu_torch.models.generate_moe",
+            "triton_dist_tpu_torch.kernels.gemm",
+            "triton_dist_tpu_torch.kernels.allgather_gemm",
+            "triton_dist_tpu_torch.kernels.gemm_reduce_scatter",
+            "triton_dist_tpu_torch.layers.tp_linear",
+            "triton_dist_tpu_torch.runtime.bootstrap",
+            "triton_dist_tpu_torch.runtime.symm_mem"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -278,3 +284,49 @@ def test_all_to_all_wrapper_uses_plain_version_only_for_cpu_tensors():
                                                     device="meta"))
     with pytest.raises(TypeError, match="int32"):
         a2a.fast_all_to_all_shard(send, splits.long())
+
+
+def test_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """matmul, ag_gemm and gemm_rs take their plain versions for CPU
+    tensors without counting a launch (and without a world or workspace),
+    and refuse other devices; the virtual world defaults to the card and
+    the process-group backend is not ported."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.runtime import bootstrap
+
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 16, 24)).astype(np.float32))
+    counters = (gemm.matmul, agm.ag_gemm, grs.gemm_rs)
+    n0 = [fn.launches for fn in counters]
+    bootstrap.finalize_distributed()
+    assert torch.allclose(gemm.matmul(a[0], b[0]), a[0] @ b[0])
+    a_full, c = agm.ag_gemm(a, b)
+    assert torch.equal(a_full[1], a.reshape(16, 16))
+    assert torch.allclose(c[1], a.reshape(16, 16) @ b[1])
+    out = grs.gemm_rs(a, b)
+    assert torch.allclose(out[1], a[0, 4:] @ b[0] + a[1, 4:] @ b[1],
+                          atol=1e-5)
+    assert [fn.launches for fn in counters] == n0
+    assert not bootstrap._WORLDS
+    meta = torch.empty((2, 128, 128), dtype=torch.bfloat16, device="meta")
+    for fn in (agm.ag_gemm, grs.gemm_rs):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gemm.matmul(meta[0], meta[0])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        bootstrap.initialize_distributed(4, device="cpu", backend="nccl")
+    world = bootstrap.initialize_distributed(4, device="cpu")
+    assert bootstrap.num_ranks(world) == 4
+    assert list(bootstrap.rank(world)) == [0, 1, 2, 3]
+    flags = world.workspace.flags("probe", 3)
+    assert flags.shape == (4, 3) and flags.dtype == torch.int32
+    assert world.workspace.flags("probe", 3) is flags
+    assert [world.workspace.next_epoch() for _ in range(2)] == [1, 2]
+    bootstrap.finalize_distributed()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bootstrap.initialize_distributed(4)

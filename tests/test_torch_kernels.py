@@ -20,6 +20,13 @@ all-to-all and its autograd, world-1 dispatch / combine,
 integers, f32 within 1e-6 (helpers) or 1e-5 (layer, against
 ``impl="xla"``), 2e-2 against interpret-mode Pallas in bf16, 1e-4 for the
 VJP (the reference test's), exact int8 and exact all-to-all (a copy).
+
+Tensor parallelism: the plain versions of the AG-GEMM and the GEMM-RS at
+W in {1, 2, 4} against the reference's interpret-mode Pallas ring kernels
+(spied) on the conftest's meshes, and the dense GEMM's against the
+interpret-mode ``matmul`` with a K tail, f32 within 1e-5; the TP linears'
+autograd Functions against ``jax.vjp`` of the reference's custom VJPs
+inside ``shard_map`` (``impl="xla"``), 1e-5.
 """
 
 import importlib
@@ -759,3 +766,216 @@ def test_moe_layer_w8a8_matches_reference():
     cos = (got.numpy() * ref_float).sum() / (np.linalg.norm(got.numpy())
                                              * np.linalg.norm(ref_float))
     assert cos > 0.995
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the dense GEMM, the AG-GEMM and GEMM-RS plain
+# versions, and the TP linears' VJPs
+# ---------------------------------------------------------------------------
+
+
+def _mesh(world, request):
+    """The conftest's ``mesh2`` / ``mesh4`` fixtures, or one device."""
+    if world > 1:
+        return request.getfixturevalue(f"mesh{world}")
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:1]), ("tp",))
+
+
+def _shard_map(fn, mesh, in_specs, out_specs, *args):
+    """A fresh jit(shard_map(fn)) per call, so the kernel always traces."""
+    return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                                 out_specs=out_specs, check_vma=False))(*args)
+
+
+def _stack_cols(b, world):
+    """[K, N] -> [W, K, N/W]: rank r's column shard at [r]."""
+    return torch.stack(_t(b).chunk(world, dim=1))
+
+
+def _stack_rows(b, world):
+    """[K, N] -> [W, K/W, N]: rank r's row shard at [r]."""
+    return torch.stack(_t(b).chunk(world, dim=0))
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_ag_gemm_plain_matches_pallas(world, monkeypatch, request):
+    """ag_gemm (its plain version on CPU tensors) against the reference's
+    ``_ag_gemm_kernel`` in interpret mode on a ``world``-device mesh (spied,
+    so the kernel is known to trace), per-device shapes that pass
+    ``pallas_shapes_ok`` (m_loc 16, K 256, n_loc 128): every rank's
+    gathered A bit for bit, every rank's C within 1e-5 (f32)."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+
+    jag = importlib.import_module("triton_dist_tpu.kernels.allgather_gemm")
+    traced = []
+    kernel = jag._ag_gemm_kernel
+
+    def spy(*args, **kw):
+        traced.append(kw["world"])
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(jag, "_ag_gemm_kernel", spy)
+    m_loc, K, n_loc = 16, 256, 128
+    a, b = _inputs(170 + world, (world * m_loc, K), (K, world * n_loc))
+    b /= np.sqrt(K)          # unit outputs, as the reference's own tests
+
+    def shard(x, w):
+        a_full, c = jag.ag_gemm_shard(x, w, axis="tp", impl="pallas", bm=16,
+                                      bn=128, bk=128, interpret=True)
+        return a_full[None], c[None]
+
+    want_full, want_c = _shard_map(shard, _mesh(world, request),
+                                   (P("tp", None), P(None, "tp")),
+                                   (P("tp"), P("tp")), jnp.asarray(a),
+                                   jnp.asarray(b))
+    assert traced and set(traced) == {world}
+    n0 = tag.ag_gemm.launches
+    a_full, c = tag.ag_gemm(_t(a).reshape(world, m_loc, K),
+                            _stack_cols(b, world))
+    assert tag.ag_gemm.launches == n0                 # CPU: the plain version
+    assert a_full.shape == (world, world * m_loc, K)
+    assert np.array_equal(a_full.numpy(), np.asarray(want_full))
+    assert_allclose(c, np.asarray(want_c), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_gemm_rs_plain_matches_pallas(world, monkeypatch, request):
+    """gemm_rs (its plain version on CPU tensors) against the reference's
+    ``_gemm_rs_kernel`` in interpret mode (spied) on a ``world``-device
+    mesh, per-device (m_loc 16, k_loc 128, N 256): every rank's reduced
+    chunk within 1e-5 (f32: the plain version's f32 sum in rank order and
+    the reference's ring adds differ by f32 rounding only)."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as trs
+
+    jrs = importlib.import_module(
+        "triton_dist_tpu.kernels.gemm_reduce_scatter")
+    traced = []
+    kernel = jrs._gemm_rs_kernel
+
+    def spy(*args, **kw):
+        traced.append(kw["world"])
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(jrs, "_gemm_rs_kernel", spy)
+    m_loc, k_loc, N = 16, 128, 256
+    a, b = _inputs(180 + world, (world * m_loc, world * k_loc),
+                   (world * k_loc, N))
+    b /= np.sqrt(world * k_loc)
+    want = _shard_map(
+        lambda x, w: jrs.gemm_rs_shard(x, w, axis="tp", impl="pallas",
+                                       bm=16, bn=128, bk=128,
+                                       interpret=True),
+        _mesh(world, request), (P(None, "tp"), P("tp", None)), P("tp"),
+        jnp.asarray(a), jnp.asarray(b))
+    assert traced and set(traced) == {world}
+    n0 = trs.gemm_rs.launches
+    out = trs.gemm_rs(torch.stack(_t(a).chunk(world, dim=1)),
+                      _stack_rows(b, world))
+    assert trs.gemm_rs.launches == n0
+    assert out.shape == (world, m_loc, N)
+    assert_allclose(out.reshape(world * m_loc, N), np.asarray(want),
+                    atol=1e-5, rtol=1e-5)
+
+
+def test_ring_plain_versions_stage_in_the_operand_dtype():
+    """The plain versions' rounding: gemm_rs stages each rank's partial in
+    a's dtype and sums the partials in f32 in rank order, rounding once
+    (bf16 here, against a float64 reference of the same staging); the
+    transposed modes equal the products with the weight transposed."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as trs
+
+    a, b = (_t(x) for x in _inputs(190, (4, 32, 64), (4, 64, 48)))
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    out = trs.gemm_rs(a16, b16)
+    parts = [(a16[q].double() @ b16[q].double()).bfloat16().double()
+             .reshape(4, 8, 48) for q in range(4)]
+    want = (((parts[0] + parts[1]) + parts[2]) + parts[3])
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, want.float().bfloat16())
+    assert torch.equal(trs.gemm_rs(a, b.transpose(1, 2).contiguous(),
+                                   trans_b=True), trs.gemm_rs(a, b))
+    a_loc = a[:, :8]
+    full_t, c_t = tag.ag_gemm(a_loc, b.transpose(1, 2).contiguous(),
+                              trans_b=True)
+    full, c = tag.ag_gemm(a_loc, b)
+    assert torch.equal(full_t, full) and torch.equal(c_t, c)
+
+
+@pytest.mark.parametrize("m,k,n", [(40, 200, 256), (16, 128, 128)])
+def test_matmul_plain_matches_pallas(m, k, n):
+    """gemm.matmul (its plain version on CPU tensors) against the
+    reference's ``matmul`` in interpret mode, with a K tail (k 200 over
+    block_k 128: the kernel's masked last block) and a ragged M edge (m 40
+    over block_m 16), f32 within 1e-5; the out_dtype rule."""
+    from triton_dist_tpu_torch.kernels import gemm as tgemm
+
+    jg = importlib.import_module("triton_dist_tpu.kernels.gemm")
+    a, b = _inputs(200 + k, (m, k), (k, n))
+    want = jg.matmul(jnp.asarray(a), jnp.asarray(b),
+                     config=jg.MatmulConfig(block_m=16, block_n=128,
+                                            block_k=128), interpret=True)
+    n0 = tgemm.matmul.launches
+    got = tgemm.matmul(_t(a), _t(b))
+    assert tgemm.matmul.launches == n0
+    assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+    half = tgemm.matmul(_t(a).bfloat16(), _t(b).bfloat16(),
+                        out_dtype=torch.float32)
+    assert half.dtype == torch.float32
+    assert torch.equal(half, _t(a).bfloat16().float()
+                       @ _t(b).bfloat16().float())
+
+
+@pytest.mark.parametrize("kind", ["column", "row"])
+def test_tp_linear_vjp_matches_reference(kind, mesh4):
+    """column_parallel_linear / row_parallel_linear (their autograd
+    Functions over the plain versions) against ``jax.vjp`` of the
+    reference's custom-VJP linears inside ``shard_map`` on a 4-device mesh
+    (``impl="xla"``): the output, dA and dB of every rank within 1e-5
+    (f32)."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.layers import tp_linear as ttl
+
+    jtl = importlib.import_module("triton_dist_tpu.layers.tp_linear")
+    W, m_loc, K, n_loc = 4, 8, 64, 16
+    if kind == "column":
+        a, b, ct = _inputs(210, (W * m_loc, K), (K, W * n_loc),
+                           (W, W * m_loc, n_loc))
+        fn, specs = jtl.column_parallel_linear, (P("tp", None),
+                                                 P(None, "tp"))
+        ta = _t(a).reshape(W, m_loc, K)
+        tb = _stack_cols(b, W)
+        port = ttl.column_parallel_linear
+    else:
+        a, b, ct = _inputs(211, (W * m_loc, W * n_loc), (W * n_loc, K),
+                           (W, m_loc, K))
+        fn, specs = jtl.row_parallel_linear, (P(None, "tp"), P("tp", None))
+        ta = torch.stack(_t(a).chunk(W, dim=1))
+        tb = _stack_rows(b, W)
+        port = ttl.row_parallel_linear
+
+    def shard(x, w, g):
+        y, vjp = jax.vjp(lambda x_, w_: fn(x_, w_, "tp", "xla"), x, w)
+        dx, dw = vjp(g[0])
+        return y[None], dx[None], dw[None]
+
+    want = _shard_map(shard, mesh4, (*specs, P("tp")),
+                      (P("tp"), P("tp"), P("tp")), jnp.asarray(a),
+                      jnp.asarray(b), jnp.asarray(ct))
+    xg, wg = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+    y = port(xg, wg)
+    assert type(y.grad_fn).__name__.endswith("ParallelLinearFnBackward")
+    dx, dw = torch.autograd.grad(y, (xg, wg), _t(ct))
+    for got, w_ in zip((y, dx, dw), want):
+        assert_allclose(got, np.asarray(w_), atol=1e-5, rtol=1e-5)
+    # world 1 (2-D operands): a plain product
+    assert torch.equal(port(ta[0], tb[0]), ta[0] @ tb[0])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ttl.column_parallel_linear_w8a8(ta, tb, None)

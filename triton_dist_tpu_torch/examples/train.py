@@ -1,7 +1,9 @@
 """Training CLI of the PyTorch port: a resumable trainer on one card.
 
-Counterpart of ``examples/train.py`` at world 1, for the dense Llama
-family or the Mixtral-class MoE family (``--model moe``): plain SGD
+Counterpart of ``examples/train.py``, for the dense Llama family or the
+Mixtral-class MoE family (``--model moe``), at world 1 or, for Llama,
+tensor-parallel over ``--tp`` ranks of the virtual world on one device
+(the reference trainer's mesh of ``tp = n // dp`` devices): plain SGD
 (the family's in-place step) or AdamW (``models/training.py``), random
 weights and a fixed random token book from ``--seed``, checkpoint/resume
 through ``runtime.CheckpointManager`` (kill the process at any step and
@@ -14,6 +16,14 @@ backward on the port's hand-written kernels):
     python -m triton_dist_tpu_torch.examples.train --steps 4 --seq 2048 \\
         --batch 1 --lr 0.2
 
+Llama-3-8B tensor-parallel over 4 ranks of the virtual world on the card
+(every column-parallel projection on the hand-written AG-GEMM kernel and
+every row-parallel one on the GEMM-RS kernel, forward and backward; the
+logits on the hand-written GEMM):
+
+    python -m triton_dist_tpu_torch.examples.train --tp 4 --steps 3 \\
+        --seq 2048 --batch 1 --lr 0.2
+
 Mixtral-8x7B at full width, cut to 8 layers by default (every expert
 FFN on the hand-written grouped-GEMM kernel, dx through its transposed
 mode):
@@ -21,7 +31,8 @@ mode):
     python -m triton_dist_tpu_torch.examples.train --model moe --steps 3 \\
         --seq 2048 --batch 1 --lr 0.2
 
-On the CPU, a tiny config (head_dim 128) through the plain versions:
+On the CPU, a tiny config (head_dim 128) through the plain versions
+(``--tp 4`` too):
 
     python -m triton_dist_tpu_torch.examples.train --device cpu --steps 4
 """
@@ -55,6 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--model", choices=("llama", "moe"), default="llama")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--dp", type=int, default=1, help="data-parallel degree")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: ranks of the virtual world "
+                        "on the one device (Llama, SGD)")
     p.add_argument("--batch", type=int, default=4, help="global batch")
     p.add_argument("--seq", type=int, default=64, help="sequence length")
     p.add_argument("--lr", type=float, default=1e-3)
@@ -102,10 +116,11 @@ def _config(args):
                             block_m=8)
     elif cpu:
         # head_dim 128, the width the attention kernels take (the
-        # reference's toy config has head_dim 32)
-        cfg = llama.LlamaConfig(vocab=256, dim=256, n_layers=2, n_heads=2,
-                                n_kv_heads=1, ffn_dim=512,
-                                max_seq=max(args.seq, 64))
+        # reference's toy config has head_dim 32); whole heads per rank
+        heads = max(2, args.tp)
+        cfg = llama.LlamaConfig(vocab=256, dim=128 * heads, n_layers=2,
+                                n_heads=heads, n_kv_heads=max(1, args.tp),
+                                ffn_dim=512, max_seq=max(args.seq, 64))
     elif family is moe:
         cfg = replace(moe.MoEConfig.mixtral_8x7b(), n_layers=8)
     else:
@@ -121,6 +136,8 @@ def build(args, device):
     place."""
     family, cfg = _config(args)
     params = family.init_params(cfg, seed=args.seed, device=device)
+    if args.tp > 1:
+        params = llama.shard_params(params, cfg, args.tp)
     if args.opt == "adamw":
         opt_step, opt_init = training.make_optim_train_step(
             family, cfg, training.adamw(args.lr))
@@ -129,7 +146,9 @@ def build(args, device):
         def step_fn(tokens, targets):
             return opt_step(params, opt, tokens, targets)[2]
     else:
-        sgd_step = family.make_train_step(cfg, lr=args.lr)
+        sgd_step = (llama.make_train_step(cfg, args.tp, lr=args.lr)
+                    if args.tp > 1 else family.make_train_step(cfg,
+                                                               lr=args.lr))
         opt = None
 
         def step_fn(tokens, targets):
@@ -146,11 +165,19 @@ def main(argv=None):
     if args.profile:
         raise NotImplementedError("--profile: group_profile is not ported "
                                   "yet (ROADMAP Queue 1 item 16)")
+    if args.tp > 1 and args.model == "moe":
+        raise NotImplementedError("--model moe --tp > 1: the MoE family's "
+                                  "tensor and expert parallelism is not "
+                                  "ported yet (ROADMAP Queue 1 item 13)")
+    if args.tp > 1 and args.opt == "adamw":
+        raise NotImplementedError("--opt adamw --tp > 1: an optimizer over "
+                                  "the sharded tree is not ported yet "
+                                  "(ROADMAP Queue 1 item 14)")
     device = resolve_device(args.device)
     use_full_precision_matmul()
     cfg, params, opt, step_fn = build(args, device)
     print(f"device {device}  model={args.model}  {cfg.n_layers} layers dim "
-          f"{cfg.dim}  opt={args.opt}", flush=True)
+          f"{cfg.dim}  tp={args.tp}  opt={args.opt}", flush=True)
 
     # Deterministic toy data: next-token prediction on a fixed random book.
     rng = np.random.default_rng(args.seed + 1)

@@ -1,21 +1,35 @@
 """Llama-style dense transformer: configuration, parameters, RMSNorm, RoPE,
-and the world-1 training forward.
+and the training forward at world 1 and under tensor parallelism.
 
-Counterpart of ``triton_dist_tpu/models/llama.py`` at world 1.  Parameters
-are a plain dict of tensors in the reference's pytree layout and
-``[in, out]`` orientation (``x @ W``): ``{"embed", "lm_head", "final_norm",
-"layers": [{"attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "wgate",
-"wup", "wdown"}, ...]}``.
+Counterpart of ``triton_dist_tpu/models/llama.py``.  Parameters are a
+plain dict of tensors in the reference's pytree layout and ``[in, out]``
+orientation (``x @ W``): ``{"embed", "lm_head", "final_norm", "layers":
+[{"attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "wgate", "wup",
+"wdown"}, ...]}``.
 
 The training forward keeps the reference's names and layout (seq-major
-tokens ``[S, B]``, the fused ``wqkv`` projection, RoPE over
-``arange(S)``), with the mesh, ``axis``, ``impl`` and ``interpret``
-arguments dropped: at world 1 the reference's overlapped AG-GEMM /
-GEMM-RS projections and their custom VJPs reduce to a dot and its
-transpose, so every projection is ``torch.matmul`` and gradients are
-ordinary autograd.  Attention is the flash kernels'
-``FlashAttentionFn`` (hand-written forward and backward on the card).
-The serving path's layer math lives in ``models/generate.py``.
+tokens ``[S, B]``, the fused ``wqkv`` projection, RoPE over the full
+sequence), with the mesh, ``axis``, ``impl`` and ``interpret`` arguments
+dropped.  ``world`` chooses the parallelism:
+
+- world 1: every projection is ``torch.matmul`` (the reference's
+  overlapped projections reduce to a dot there) and gradients are
+  ordinary autograd;
+- world W > 1: the sequence-parallel tensor parallelism of the reference
+  (``param_specs`` :151) over the port's virtual world of W ranks on one
+  device.  :func:`shard_params` turns a world-1 tree into the TP tree:
+  column-parallel weights (wq, wk, wv, wgate, wup) become [W, in, out/W],
+  row-parallel ones (wo, wdown) [W, in/W, out], whole heads per rank; the
+  replicated leaves (embed, lm_head, the norms) are held once, so autograd
+  sums the ranks' contributions into their one gradient, the reference's
+  ``psum`` over tp (:357-362).  The residual stream is [W, S/W, B, D]
+  (rank r holds positions r S/W ...), every column-parallel projection is
+  the AG-GEMM kernel and every row-parallel one the GEMM-RS kernel
+  (``layers/tp_linear.py``), in the forward and the backward.
+
+Attention is the flash kernels' ``FlashAttentionFn`` (hand-written
+forward and backward on the card) over every rank's heads at once.  The
+serving path's layer math lives in ``models/generate.py``.
 """
 
 from __future__ import annotations
@@ -28,7 +42,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from triton_dist_tpu_torch.kernels import gemm
 from triton_dist_tpu_torch.kernels.flash_attention import flash_gqa_attention
+from triton_dist_tpu_torch.layers.tp_linear import (
+    column_parallel_linear,
+    row_parallel_linear,
+)
 from triton_dist_tpu_torch.runtime.utils import (
     resolve_device,
     tree_leaves,
@@ -212,47 +231,115 @@ def _silu_mul(gate, up):
 
 
 # ---------------------------------------------------------------------------
-# World-1 training forward (the reference's shard-level functions)
+# Tensor-parallel parameters
+# ---------------------------------------------------------------------------
+
+_COLUMN = ("wq", "wk", "wv", "wgate", "wup")   # P(None, tp)
+_ROW = ("wo", "wdown")                         # P(tp, None)
+
+
+def _check_world(cfg: LlamaConfig, world: int) -> None:
+    if world < 1 or cfg.n_heads % world or cfg.n_kv_heads % world:
+        raise ValueError(f"TP over {world} ranks needs n_heads "
+                         f"({cfg.n_heads}) and n_kv_heads ({cfg.n_kv_heads}) "
+                         f"divisible by it")
+
+
+def shard_params(params, cfg: LlamaConfig, world: int) -> dict:
+    """The tensor-parallel tree of a world-1 tree (``init_params`` or
+    ``params_from_jax`` output, or a gradient tree shaped like one):
+    column-parallel weights [W, in, out/W], row-parallel ones [W, in/W,
+    out], rank r's shard at [r] as the reference's ``param_specs`` cut
+    them; replicated leaves copied once.  No leaf aliases the input.  At
+    world 1 the tree is returned as it is."""
+    _check_world(cfg, world)
+    if world == 1:
+        return params
+
+    def split(t, dim):
+        return torch.stack(t.chunk(world, dim=dim))
+
+    out = {k: params[k].clone() for k in ("embed", "lm_head", "final_norm")}
+    out["layers"] = []
+    for layer in params["layers"]:
+        if any(k.endswith(("_q", "_s")) for k in layer):
+            raise NotImplementedError(
+                "a W8A8 tree under tensor parallelism: the TP half of "
+                "quantized serving is not ported yet (ROADMAP Queue 1 "
+                "item 9)")
+        out["layers"].append({
+            k: split(t, 1) if k in _COLUMN else split(t, 0) if k in _ROW
+            else t.clone() for k, t in layer.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training forward (the reference's shard-level functions)
 # ---------------------------------------------------------------------------
 
 
 def _attention(q, k, v, cfg: LlamaConfig, *, plain=False):
     """Causal GQA attention over the full sequence: q [S, B, Hq, hd], k/v
     [S, B, Hkv, hd] through the flash kernels (differentiable); ``plain``
-    takes the plain PyTorch version under autograd instead."""
-    return flash_gqa_attention(q, k, v, causal=True,
-                               scale=1.0 / math.sqrt(cfg.head_dim),
-                               window=cfg.attn_window,
-                               soft_cap=cfg.attn_soft_cap, plain=plain)
+    takes the plain PyTorch version under autograd instead.  With a
+    leading rank dimension (q [W, S, B, Hq/W, hd]) the ranks' heads are
+    laid side by side, rank-major (the world-1 head order, so every q head
+    keeps its kv head), and attended in one call."""
+    kw = dict(causal=True, scale=1.0 / math.sqrt(cfg.head_dim),
+              window=cfg.attn_window, soft_cap=cfg.attn_soft_cap,
+              plain=plain)
+    if q.dim() == 4:
+        return flash_gqa_attention(q, k, v, **kw)
+    world, s, b, hq, hd = q.shape
+
+    def heads(t):
+        return t.permute(1, 2, 0, 3, 4).reshape(s, b, -1, hd)
+
+    o = flash_gqa_attention(heads(q), heads(k), heads(v), **kw)
+    return o.reshape(s, b, world, hq, hd).permute(2, 0, 1, 3, 4)
 
 
 def attention_block_shard(x, layer, cfg: LlamaConfig, *, plain=False):
-    """RMSNorm → fused-QKV projection → RoPE → causal GQA → out
-    projection, residual added.  x: [S, B, D]."""
-    s, b, _ = x.shape
-    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    """RMSNorm → fused-QKV column-parallel projection → RoPE → causal GQA
+    on the local heads → row-parallel out projection, residual added.
+    x: [S, B, D] at world 1, [W, S/W, B, D] over W ranks (``layer``'s
+    weights sharded by :func:`shard_params`)."""
+    lead = x.shape[:-3]
+    world = lead[0] if lead else 1
+    s_loc, b, _ = x.shape[-3:]
+    s = world * s_loc
+    hd = cfg.head_dim
+    hq, hkv = cfg.n_heads // world, cfg.n_kv_heads // world
     positions = torch.arange(s, device=x.device)
     table = _rope_table(positions, hd, cfg.rope_theta)
     h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    wqkv = torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=1)
-    qkv = (h.reshape(s * b, cfg.dim) @ wqkv).reshape(s, b, (hq + 2 * hkv)
-                                                     * hd)
+    wqkv = torch.cat([layer["wq"], layer["wk"], layer["wv"]], dim=-1)
+    qkv = column_parallel_linear(h.reshape(*lead, s_loc * b, cfg.dim),
+                                 wqkv, plain=plain)
+    qkv = qkv.reshape(*lead, s, b, (hq + 2 * hkv) * hd)
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
-    q = _rope(q.reshape(s, b, hq, hd), positions, cfg.rope_theta, table)
-    k = _rope(k.reshape(s, b, hkv, hd), positions, cfg.rope_theta, table)
-    v = v.reshape(s, b, hkv, hd)
-    o = _attention(q, k, v, cfg, plain=plain).reshape(s * b, hq * hd)
-    return x + (o @ layer["wo"]).reshape(s, b, cfg.dim)
+    q = _rope(q.reshape(*lead, s, b, hq, hd), positions, cfg.rope_theta,
+              table)
+    k = _rope(k.reshape(*lead, s, b, hkv, hd), positions, cfg.rope_theta,
+              table)
+    v = v.reshape(*lead, s, b, hkv, hd)
+    o = _attention(q, k, v, cfg, plain=plain).reshape(*lead, s * b, hq * hd)
+    return x + row_parallel_linear(o, layer["wo"], plain=plain).reshape(
+        x.shape)
 
 
-def mlp_block_shard(x, layer, cfg: LlamaConfig):
-    """SwiGLU MLP sub-block: RMSNorm → gate/up → silu·mul → down, residual
-    added.  x: [S, B, D]."""
-    s, b, _ = x.shape
-    h2 = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps).reshape(s * b,
-                                                               cfg.dim)
-    act = _silu_mul(h2 @ layer["wgate"], h2 @ layer["wup"])
-    return x + (act @ layer["wdown"]).reshape(s, b, cfg.dim)
+def mlp_block_shard(x, layer, cfg: LlamaConfig, *, plain=False):
+    """SwiGLU MLP sub-block: RMSNorm → column-parallel gate/up → silu·mul →
+    row-parallel down, residual added.  x: [S, B, D] at world 1,
+    [W, S/W, B, D] over W ranks."""
+    lead = x.shape[:-3]
+    h2 = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps).reshape(
+        *lead, -1, cfg.dim)
+    gate = column_parallel_linear(h2, layer["wgate"], plain=plain)
+    up = column_parallel_linear(h2, layer["wup"], plain=plain)
+    act = _silu_mul(gate, up)
+    return x + row_parallel_linear(act, layer["wdown"], plain=plain).reshape(
+        x.shape)
 
 
 class _LogitsF32(torch.autograd.Function):
@@ -260,14 +347,18 @@ class _LogitsF32(torch.autograd.Function):
     ``preferred_element_type=jnp.float32``: bf16 operands multiply with
     f32 accumulation into an f32 result.  The backward rounds the f32
     cotangent to the operands' dtype and takes the two products there
-    (f32 models: exactly the reference's VJP)."""
+    (f32 models: exactly the reference's VJP).  ``kernel``: the forward
+    product of bf16 operands on the card is the port's ``gemm.matmul``
+    (the tensor-parallel path); otherwise ``torch.mm``."""
 
     @staticmethod
-    def forward(ctx, x2, w):
+    def forward(ctx, x2, w, kernel=False):
         ctx.save_for_backward(x2, w)
         if x2.dtype == torch.float32:
             return x2 @ w
         if x2.is_cuda:
+            if kernel:
+                return gemm.matmul(x2, w, out_dtype=torch.float32)
             return torch.mm(x2, w, out_dtype=torch.float32)
         return x2.float() @ w.float()
 
@@ -275,49 +366,70 @@ class _LogitsF32(torch.autograd.Function):
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
         g = g.to(x2.dtype)
-        return g @ w.t(), x2.t() @ g
+        return g @ w.t(), x2.t() @ g, None
 
 
-def forward_shard(params, tokens, cfg: LlamaConfig, *, plain=False):
-    """tokens [S, B] int (seq-major) → logits [S, B, vocab] f32."""
+def forward_shard(params, tokens, cfg: LlamaConfig, *, world=1,
+                  plain=False):
+    """tokens [S, B] int (seq-major) → logits [S, B, vocab] f32.  Over
+    ``world`` > 1 ranks ``params`` is the :func:`shard_params` tree and
+    rank r holds positions r S/W .. (r + 1) S/W - 1; the logits come back
+    in sequence order (the reference's ``out_specs=P("tp")``).  ``plain``
+    runs every kernel's plain version (attention, and over W ranks the
+    AG-GEMM, the GEMM-RS and the logits GEMM)."""
+    _check_world(cfg, world)
+    s, b = tokens.shape
+    if s % world:
+        raise ValueError(f"{s} positions do not split over {world} ranks")
     x = params["embed"][tokens.long()]                               # [S,B,D]
+    if world > 1:
+        x = x.reshape(world, s // world, b, cfg.dim)
     for layer in params["layers"]:
         x = attention_block_shard(x, layer, cfg, plain=plain)
-        x = mlp_block_shard(x, layer, cfg)
+        x = mlp_block_shard(x, layer, cfg, plain=plain)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    s, b, _ = x.shape
-    return _LogitsF32.apply(x.reshape(s * b, cfg.dim),
-                            params["lm_head"]).reshape(s, b, cfg.vocab)
+    return _LogitsF32.apply(x.reshape(s * b, cfg.dim), params["lm_head"],
+                            world > 1 and not plain).reshape(s, b, cfg.vocab)
 
 
-def loss_shard(params, tokens, targets, cfg: LlamaConfig, *, plain=False):
-    """Mean next-token cross-entropy over every [S, B] position (at world
-    1 the reference's per-device contribution is the whole loss)."""
-    logits = forward_shard(params, tokens, cfg, plain=plain)
+def loss_shard(params, tokens, targets, cfg: LlamaConfig, *, world=1,
+               plain=False):
+    """Mean next-token cross-entropy over every [S, B] position: at world
+    1 the reference's per-device contribution is the whole loss; over W
+    ranks each rank contributes its positions' sum over ``ll.size·W``
+    (:306-309), and the W contributions add up to this mean."""
+    logits = forward_shard(params, tokens, cfg, world=world, plain=plain)
     return F.cross_entropy(logits.reshape(-1, cfg.vocab),
                            targets.reshape(-1).long())
 
 
-def make_forward(cfg: LlamaConfig):
-    """``fn(params, tokens [S, B]) -> logits [S, B, vocab]`` f32."""
-    return functools.partial(forward_shard, cfg=cfg)
+def make_forward(cfg: LlamaConfig, world: int = 1, *, plain=False):
+    """``fn(params, tokens [S, B]) -> logits [S, B, vocab]`` f32; over
+    ``world`` > 1 ranks ``params`` is the :func:`shard_params` tree."""
+    _check_world(cfg, world)
+    return functools.partial(forward_shard, cfg=cfg, world=world,
+                             plain=plain)
 
 
-def make_train_step(cfg: LlamaConfig, *, lr=1e-3):
+def make_train_step(cfg: LlamaConfig, world: int = 1, *, lr=1e-3):
     """Plain-SGD training step ``step(params, tokens, targets) ->
     (params, loss)``: loss and gradients by autograd (attention through
-    the flash kernels' forward and backward), then ``p - lr * g`` with
-    the product taken in the parameter dtype, as the reference rounds.
+    the flash kernels' forward and backward; over ``world`` > 1 ranks
+    every projection through the AG-GEMM / GEMM-RS kernels and their
+    duals), then ``p - lr * g`` with the product taken in the parameter
+    dtype, as the reference rounds.  A replicated leaf's gradient is the
+    sum of every rank's contribution, the reference's ``psum``.
 
     Unlike the reference, which returns new arrays, the update is IN
     PLACE and the returned ``params`` is the same dict: a second copy of
     Llama-3-8B's parameters would cost another 16 GB of the card.  The
-    reference's ``specs`` have no meaning at world 1 and are not
-    returned."""
+    reference's ``specs`` are the layout :func:`shard_params` makes and
+    are not returned."""
+    _check_world(cfg, world)
 
     def step(params, tokens, targets):
         loss, grads = value_and_grad(loss_shard, params, tokens, targets,
-                                     cfg)
+                                     cfg, world=world)
         with torch.no_grad():
             for p, g in zip(tree_leaves(params), tree_leaves(grads)):
                 p.sub_(lr * g.to(p.dtype))
