@@ -44,14 +44,15 @@ Phases, in order (any failure exits non-zero without the final line):
    map; the all-to-all kernel at the MoE dispatch's shape (send [1, 4096,
    4096] bf16) and at a shape with a byte tail, exactly equal to its
    plain version (a copy at world 1), one PyTorch copy as the yardstick;
-   the dense GEMM (``csrc/gemm.cu``) at (M, K, N) = (2048, 4096, 14336)
-   and at the tensor-parallel logits' (2048, 4096, 128256) with an f32
-   output, torch.matmul / torch.mm as the yardstick; the AG-GEMM and the
-   GEMM-RS over a virtual world of TP ranks at every projection shape of
-   Llama-3-8B's TP-4 train step, both B layouts (the gathered A bit for
-   bit, the products within 2e-2 of the plain version's largest magnitude
-   and 1e-2 relative L2), timed eagerly between CUDA events (each call
-   carries a new epoch, so no CUDA graph);
+   the dense GEMM (``csrc/gemm.cu``, on no model path: the reference's
+   world-1 paths take XLA's dot) at (M, K, N) = (2048, 4096, 14336),
+   torch.matmul as the yardstick; the AG-GEMM and the GEMM-RS over a
+   virtual world of TP ranks at every projection shape of Llama-3-8B's
+   TP-4 train step, both B layouts (the gathered A bit for bit, the
+   products within 2e-2 of the plain version's largest magnitude and 1e-2
+   relative L2), timed eagerly between CUDA events (each call carries a
+   new epoch, so no CUDA graph), one batched torch.matmul (AG-GEMM) or
+   one einsum (GEMM-RS) over the virtual world's ranks as the yardstick;
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -121,8 +122,9 @@ zeroed again just before phase 5b and read just after 5c, where the four
 int8 kernels must each be > 0; the backward kernels' counts in the
 ``kernels`` line come from phase 6 (a), the grouped GEMM's from phases 7
 (bf16), 9 (int8) and 10 (dx), the all-to-all's from phase 7, the ring
-kernels' and the dense GEMM's from phase 12 (a), their phase-11 counts
-beside under "forward_launches".  A
+kernels' from phase 12 (a), their phase-11 counts beside under
+"forward_launches"; the dense GEMM's counter is zeroed and read with
+theirs and reads 0 (no model path calls it).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -954,15 +956,12 @@ def matmul_row(dev, g):
     """csrc/gemm.cu at (M, K, N) = (2048, 4096, 14336) (a 2048-token
     projection of Llama-3-8B's FFN width) against its plain version by the
     bf16 GEMM rule, timed beside its bound and torch.matmul (cuBLAS, the
-    yardstick); under "logits" the tensor-parallel path's own call, the
-    f32 logits of 2048 tokens against the 128256-word head (to 1e-4 of
-    the largest magnitude: only the order of the f32 sums differs),
-    timed beside torch.mm with an f32 output."""
+    yardstick)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import gemm
 
-    M, K, N, V = 2048, 4096, 14336, 128256
+    M, K, N = 2048, 4096, 14336
     a = torch.randn((M, K), generator=g, device=dev).bfloat16()
     b = (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).bfloat16()
     got = gemm.matmul(a, b)
@@ -975,33 +974,8 @@ def matmul_row(dev, g):
     log(f"matmul ({M}, {K}, {N}): kernel {ms:.4f} ms "
         f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"library {lib:.4f} ms (torch.matmul), bound {b_ms:.4f} ms ({b_by})")
-    del b, got
-    w = (torch.randn((K, V), generator=g, device=dev) / K ** 0.5).bfloat16()
-    lg = gemm.matmul(a, w, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    want = gemm.matmul_ref(a, w, out_dtype=torch.float32)
-    lg_err = (lg - want).abs().max().item()
-    lg_top = want.abs().max().item()
-    log(f"matmul logits ({M}, {K}, {V}) f32: max|kernel-plain| "
-        f"{lg_err:.3e} (tol 1e-4 x max|plain| {lg_top:.3e})")
-    if not (torch.isfinite(lg).all() and lg_err <= 1e-4 * lg_top):
-        raise AssertionError("matmul logits disagree with plain")
-    del lg, want
-    lg_ms = time_ms(lambda: gemm.matmul(a, w, out_dtype=torch.float32),
-                    iters=5)
-    lg_plain = time_ms(lambda: gemm.matmul_ref(a, w, out_dtype=torch.float32),
-                       iters=2)
-    lg_lib = time_ms(lambda: torch.mm(a, w, out_dtype=torch.float32),
-                     iters=5)
-    lg_b, lg_by = bound_ms(2 * (M * K + K * V) + 4 * M * V, 2 * M * V * K)
-    log(f"matmul logits: kernel {lg_ms:.4f} ms, plain {lg_plain:.4f} ms, "
-        f"library {lg_lib:.4f} ms (torch.mm out_dtype f32), bound "
-        f"{lg_b:.4f} ms ({lg_by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, max_abs_err=err,
-                logits=dict(ms=lg_ms, plain_ms=lg_plain, bound_ms=lg_b,
-                            bound_by=lg_by, library_ms=lg_lib,
-                            max_abs_err=lg_err))
+                library_ms=lib, max_abs_err=err)
 
 
 def ring_rows(dev, g):
@@ -1014,10 +988,13 @@ def ring_rows(dev, g):
     3584).  Each against its plain version (the gathered A bit for bit,
     the products by the bf16 GEMM rule), timed eagerly between CUDA events
     (a launch carries its call's epoch, so it is never captured in a
-    graph) beside its bound and its plain version; no single PyTorch call
-    gathers and multiplies, or multiplies and reduce-scatters (library
-    null): the batched torch.matmul of the same product alone is printed
-    for scale.  Rows report gate/up and down; every shape rides along
+    graph) beside its bound, its plain version and one PyTorch call of the
+    same function over the virtual world (library): for the AG-GEMM a
+    batched torch.matmul of the gathered A, a view of the rank-stacked
+    rows, against every rank's B; for the GEMM-RS one einsum that sums
+    each chunk's products over the ranks.  Across cards no single call
+    gathers or reduce-scatters; on one card the ranks' rows already lie
+    in one tensor.  Rows report gate/up and down; every shape rides along
     under "shapes"."""
     import torch
 
@@ -1030,14 +1007,13 @@ def ring_rows(dev, g):
         return (torch.randn(shape, generator=g, device=dev) * scale
                 ).bfloat16()
 
-    def entry(kind, tag, ms, plain_ms, n_bytes, ops, err, gemm_ms):
+    def entry(kind, tag, ms, plain_ms, n_bytes, ops, err, lib, lib_call):
         b_ms, b_by = bound_ms(n_bytes, ops)
         log(f"{kind} {tag}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
-            f"TFLOP/s over {W} ranks), plain {plain_ms:.4f} ms, library null "
-            f"(batched torch.matmul of the product alone {gemm_ms:.4f} ms), "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"TFLOP/s over {W} ranks), plain {plain_ms:.4f} ms, library "
+            f"{lib:.4f} ms ({lib_call}), bound {b_ms:.4f} ms ({b_by})")
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None, max_abs_err=err)
+                    library_ms=lib, max_abs_err=err)
 
     rows = {}
     shapes = {}
@@ -1059,10 +1035,10 @@ def ring_rows(dev, g):
                            iters=3)
         af = a.reshape(1, W * m_loc, K).expand(W, -1, -1)
         bt = b.transpose(1, 2) if trans else b
-        gemm_ms = time_ms(lambda: torch.matmul(af, bt), iters=5)
+        lib = time_ms(lambda: torch.matmul(af, bt), iters=5)
         shapes[tag] = entry("ag_gemm", tag, ms, plain_ms, 2 * (
             W * m_loc * K + W * K * n + W * W * m_loc * (K + n)),
-            2 * W * W * m_loc * n * K, err, gemm_ms)
+            2 * W * W * m_loc * n * K, err, lib, "batched torch.matmul")
     rows["ag_gemm"] = dict(shapes["gate_up"], shapes=shapes)
 
     shapes = {}
@@ -1080,11 +1056,12 @@ def ring_rows(dev, g):
         ms = event_ms(lambda: grs.gemm_rs(a, b, trans_b=trans), iters=10)
         plain_ms = time_ms(lambda: grs.gemm_rs_ref(a, b, trans_b=trans),
                            iters=3)
-        bt = b.transpose(1, 2) if trans else b
-        gemm_ms = time_ms(lambda: torch.matmul(a, bt), iters=5)
+        a4 = a.view(W, W, m_loc, k)
+        eq = "qrmk,qnk->rmn" if trans else "qrmk,qkn->rmn"
+        lib = time_ms(lambda: torch.einsum(eq, a4, b), iters=5)
         shapes[tag] = entry("gemm_rs", tag, ms, plain_ms, 2 * (
             W * W * m_loc * k + W * k * N + W * m_loc * N),
-            2 * W * W * m_loc * k * N, err, gemm_ms)
+            2 * W * W * m_loc * k * N, err, lib, "torch.einsum")
     rows["gemm_rs"] = dict(shapes["down"], shapes=shapes)
     return rows
 
@@ -1867,7 +1844,8 @@ def tp_phases():
     seed 0, tokens [S 2048, B 1] from a seed.  11: the world-1 forward
     (cuBLAS projections) and, as the noise floor, the same with the plain
     attention; the tree sharded by ``shard_params``; the TP forward with
-    the ring and GEMM counters zeroed just before (each > 0 after), timed,
+    the ring counters zeroed just before (each > 0 after; the dense GEMM's
+    zeroed too and reported, on no model path), timed,
     profiled, and its argmax held to the world-1 forward's (ties within
     NEAR_TIE, >= AGREE_MIN with ties and >= STRICT_MIN exact).  12 (a):
     TP_SGD_STEPS in-place SGD steps, counters zeroed again (finite, falling
@@ -1890,8 +1868,8 @@ def tp_phases():
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
                           device="cuda")
     tgt = torch.roll(tok, -1, dims=0)
-    counters = {"ag_gemm": agm.ag_gemm, "gemm_rs": grs.gemm_rs,
-                "matmul": gemm.matmul}
+    counters = {"ag_gemm": agm.ag_gemm, "gemm_rs": grs.gemm_rs}
+    off_path = {"matmul": gemm.matmul}
 
     # 11: forward
     params = llama.init_params(cfg, seed=0)
@@ -1905,14 +1883,15 @@ def tp_phases():
     del params
     free_cuda()
     fwd = llama.make_forward(cfg, TP)
-    for fn in counters.values():
+    for fn in (*counters.values(), *off_path.values()):
         fn.launches = 0
     with torch.no_grad():
         t0 = time.perf_counter()
         logits = fwd(tp, tok)
         torch.cuda.synchronize()
         t_first = (time.perf_counter() - t0) * 1e3
-    fwd_launches = {n: fn.launches for n, fn in counters.items()}
+    fwd_launches = {n: fn.launches
+                    for n, fn in {**counters, **off_path}.items()}
     with torch.no_grad():
         t0 = time.perf_counter()
         fwd(tp, tok)
@@ -1928,8 +1907,8 @@ def tp_phases():
         f" launches {fwd_launches}")
     for name, n, ms in top:
         log(f"tp forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
-    for n, c in fwd_launches.items():
-        if c <= 0:
+    for n in counters:
+        if fwd_launches[n] <= 0:
             raise AssertionError(f"kernel {n} never launched by the TP "
                                  f"forward")
     if tuple(logits.shape) != (TRAIN_SEQ, 1, cfg.vocab) or \
@@ -1948,7 +1927,7 @@ def tp_phases():
     # 12 (a): SGD at 32 layers
     torch.cuda.reset_peak_memory_stats()
     step = llama.make_train_step(cfg, TP, lr=TP_SGD_LR)
-    for fn in counters.values():
+    for fn in (*counters.values(), *off_path.values()):
         fn.launches = 0
     losses, times = [], []
     for _ in range(TP_SGD_STEPS):
@@ -1956,7 +1935,8 @@ def tp_phases():
         _, loss = step(tp, tok, tgt)
         losses.append(float(loss))
         times.append((time.perf_counter() - t0) * 1e3)
-    train_launches = {n: fn.launches for n, fn in counters.items()}
+    train_launches = {n: fn.launches
+                      for n, fn in {**counters, **off_path}.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"tp train (a) SGD lr {TP_SGD_LR}, TP {TP}, {cfg.n_layers} layers: "
         f"losses {[round(x, 4) for x in losses]}, step ms "
@@ -1965,8 +1945,8 @@ def tp_phases():
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"tp train (a): losses {losses} not finite and "
                              f"falling")
-    for n, c in train_launches.items():
-        if c <= 0:
+    for n in counters:
+        if train_launches[n] <= 0:
             raise AssertionError(f"kernel {n} never launched by TP training")
     busy, top = profile_once(lambda: step(tp, tok, tgt), top_n=12)
     wall = float(np.median(times[1:]))
@@ -2158,8 +2138,8 @@ def main() -> int:
     launches.update(moe_phases())
     log(f"moe done at {time.perf_counter() - t_start:.1f} s")
 
-    # phases 11-12: tensor parallelism; the ring kernels' and the GEMM's
-    # counts come from the SGD steps (the forward's ride along)
+    # phases 11-12: tensor parallelism; the ring kernels' counts come from
+    # the SGD steps (the forward's ride along), the dense GEMM's 0 too
     tp_fwd, tp_train = tp_phases()
     launches.update(tp_train)
 
@@ -2207,7 +2187,7 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         **({"forward_launches": tp_fwd[name]}
                            if name in tp_fwd else {}),
-                        **{k: r[k] for k in ("m8", "t8", "logits", "shapes")
+                        **{k: r[k] for k in ("m8", "t8", "shapes")
                            if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

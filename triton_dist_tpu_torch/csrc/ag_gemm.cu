@@ -26,9 +26,8 @@
 // at the 989 TFLOP/s bf16 peak, against 260 MB that must move (A, B, the
 // gathered A and C): operations bound it.  The gather moves 16 x 4 MB.
 //
-// Design (right and simple first).  One cooperative launch holds the
-// launch's ranks (all W in the virtual world, one per process across
-// cards): a persistent grid, sized by the occupancy calculator so every
+// Design (right and simple first).  One cooperative launch holds every
+// rank of the virtual world: a persistent grid, sized by the occupancy calculator so every
 // block is resident (a spin-wait is safe only then), split evenly among
 // the ranks.  A rank's blocks walk its item list in strides: the copies
 // first, then the 128 x 128 GEMM tiles on the tile loop of bf16_tile.cuh,
@@ -63,7 +62,7 @@ struct Params {
   Peers<bf16> c;           // rank r's C [W m_loc][n]
   Peers<unsigned> flags;   // rank r's [W segments][m_loc / BM] tile flags
   Peers<unsigned> bar;     // rank r's [W] barrier slots
-  int world, rank0, bpr, m_loc, n, k;
+  int world, m_loc, n, k;
   unsigned epoch;
 };
 
@@ -74,15 +73,14 @@ __global__ void __launch_bounds__(NT, 2)
 ag_gemm_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int me = p.rank0 + blockIdx.x / p.bpr;
-  const int lb = blockIdx.x % p.bpr;
+  const int me = blockIdx.y, lb = blockIdx.x;
   tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
 
   const int chunks = p.m_loc / BM, tiles_n = (p.n + BN - 1) / BN;
   const long long chunk = static_cast<long long>(BM) * p.k;   // elements
   const int n_copy = p.world * chunks;
   const int n_items = n_copy + p.world * chunks * tiles_n;
-  for (int it = lb; it < n_items; it += p.bpr) {
+  for (int it = lb; it < n_items; it += gridDim.x) {
     if (it < n_copy) {
       // 128 rows of my segment into rank `peer`'s gathered buffer (the
       // peers first; no block waits on my own copy)
@@ -116,19 +114,16 @@ ag_gemm_kernel(const __grid_constant__ Params p) {
 
 }  // namespace
 
-// One call for ranks rank0 .. rank0 + n_ranks - 1 of a world of `world`
-// (<= 8): each pointer table holds `world` device addresses (a, b and c
-// are read only for the launch's own ranks).  bf16 throughout; m_loc %
-// 128 == 0, k % 8 == 0 and n % 8 == 0, every row 16-byte aligned (the
-// wrapper checks); epoch: this call's, from the workspace.
+// One call for every rank of a world of `world` (<= 8): each pointer table
+// holds `world` device addresses.  bf16 throughout; m_loc % 128 == 0,
+// k % 8 == 0 and n % 8 == 0, every row 16-byte aligned (the wrapper
+// checks); epoch: this call's, from the workspace.
 extern "C" int tdt_ag_gemm(const long long* a, const long long* b,
                            const long long* ag, const long long* c,
                            const long long* flags, const long long* bar,
-                           int world, int rank0, int n_ranks, int m_loc,
-                           int n, int k, int b_nk, unsigned epoch,
-                           void* stream) {
-  if (world < 1 || world > MAX_RANKS || n_ranks < 1 ||
-      rank0 + n_ranks > world)
+                           int world, int m_loc, int n, int k, int b_nk,
+                           unsigned epoch, void* stream) {
+  if (world < 1 || world > MAX_RANKS)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.a = peers<const bf16>(a, world);
@@ -138,7 +133,6 @@ extern "C" int tdt_ag_gemm(const long long* a, const long long* b,
   p.flags = peers<unsigned>(flags, world);
   p.bar = peers<unsigned>(bar, world);
   p.world = world;
-  p.rank0 = rank0;
   p.m_loc = m_loc;
   p.n = n;
   p.k = k;
@@ -148,7 +142,7 @@ extern "C" int tdt_ag_gemm(const long long* a, const long long* b,
   const auto s = static_cast<cudaStream_t>(stream);
   static unsigned attr_kn = 0, attr_nk = 0;
   return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true>, p, NT, SMEM,
-                                      n_ranks, items, attr_nk, s)
+                                      world, items, attr_nk, s)
               : tdt_dist::launch_coop(ag_gemm_kernel<false>, p, NT, SMEM,
-                                      n_ranks, items, attr_kn, s);
+                                      world, items, attr_kn, s);
 }

@@ -148,7 +148,8 @@ Peers<T> peers(const long long* ptrs, int world) {
 
 // A cooperative launch of `kernel(p)` for `n_ranks` ranks: as many blocks
 // as can be resident at once (the occupancy calculator), the same number
-// `p.bpr` for each rank, at most one per item; cudaLaunchCooperativeKernel
+// for each rank, at most one per item, as a grid [blocks per rank][ranks]
+// (blockIdx.y is the rank); cudaLaunchCooperativeKernel
 // refuses a grid that could not be co-resident.  Sets the kernel's dynamic
 // shared memory limit once per device (`attr_set`).
 template <class Kern, class Params>
@@ -171,10 +172,9 @@ int launch_coop(Kern kernel, Params& p, int threads, int smem, int n_ranks,
   int bpr = per_sm * sms / n_ranks;
   if (bpr > items_per_rank) bpr = items_per_rank;
   if (bpr < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  p.bpr = bpr;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(bpr * n_ranks), dim3(threads), args,
+                                    dim3(bpr, n_ranks), dim3(threads), args,
                                     smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

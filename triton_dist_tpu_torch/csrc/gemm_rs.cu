@@ -31,7 +31,7 @@
 //
 // Design (right and simple first): one cooperative launch of a persistent
 // grid per call, as ag_gemm.cu: every block resident, split evenly among
-// the launch's ranks, each rank's blocks walking its items in strides: the
+// the world's ranks, each rank's blocks walking its items in strides: the
 // GEMM tiles first, then the reduction tiles (which wait only on GEMM
 // tiles), after barrier_all on entry (the reference's neighbour barrier,
 // :144-149).
@@ -62,7 +62,7 @@ struct Params {
   Peers<bf16> out;         // rank r's C [m_loc][N]
   Peers<unsigned> flags;   // rank r's [W slots][tiles of m_loc x N]
   Peers<unsigned> bar;     // rank r's [W] barrier slots
-  int world, rank0, bpr, m_loc, n, k;
+  int world, m_loc, n, k;
   unsigned epoch;
 };
 
@@ -73,15 +73,14 @@ __global__ void __launch_bounds__(NT, 2)
 gemm_rs_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int me = p.rank0 + blockIdx.x / p.bpr;
-  const int lb = blockIdx.x % p.bpr;
+  const int me = blockIdx.y, lb = blockIdx.x;
   tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
 
   const int tiles_n = (p.n + BN - 1) / BN;
   const int per = p.m_loc / BM * tiles_n;   // tiles of one chunk
   const long long slot = static_cast<long long>(p.m_loc) * p.n;
   const int n_gemm = p.world * per;
-  for (int it = lb; it < n_gemm + per; it += p.bpr) {
+  for (int it = lb; it < n_gemm + per; it += gridDim.x) {
     if (it < n_gemm) {
       // partial of chunk `owner`, tile (i, j), into my slot of its stage
       const int owner = (me + 2 * p.world - 1 - it / per) % p.world;
@@ -126,19 +125,16 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
 
 }  // namespace
 
-// One call for ranks rank0 .. rank0 + n_ranks - 1 of a world of `world`
-// (<= 8): each pointer table holds `world` device addresses (a, b and out
-// are read only for the launch's own ranks).  bf16 throughout; m_loc %
-// 128 == 0, k % 8 == 0 and n % 8 == 0, every row 16-byte aligned (the
-// wrapper checks); epoch: this call's, from the workspace.
+// One call for every rank of a world of `world` (<= 8): each pointer table
+// holds `world` device addresses.  bf16 throughout; m_loc % 128 == 0,
+// k % 8 == 0 and n % 8 == 0, every row 16-byte aligned (the wrapper
+// checks); epoch: this call's, from the workspace.
 extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
                            const long long* stage, const long long* out,
                            const long long* flags, const long long* bar,
-                           int world, int rank0, int n_ranks, int m_loc,
-                           int n, int k, int b_nk, unsigned epoch,
-                           void* stream) {
-  if (world < 1 || world > MAX_RANKS || n_ranks < 1 ||
-      rank0 + n_ranks > world)
+                           int world, int m_loc, int n, int k, int b_nk,
+                           unsigned epoch, void* stream) {
+  if (world < 1 || world > MAX_RANKS)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.a = peers<const bf16>(a, world);
@@ -148,7 +144,6 @@ extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
   p.flags = peers<unsigned>(flags, world);
   p.bar = peers<unsigned>(bar, world);
   p.world = world;
-  p.rank0 = rank0;
   p.m_loc = m_loc;
   p.n = n;
   p.k = k;
@@ -158,7 +153,7 @@ extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
   const auto s = static_cast<cudaStream_t>(stream);
   static unsigned attr_kn = 0, attr_nk = 0;
   return b_nk ? tdt_dist::launch_coop(gemm_rs_kernel<true>, p, NT, SMEM,
-                                      n_ranks, items, attr_nk, s)
+                                      world, items, attr_nk, s)
               : tdt_dist::launch_coop(gemm_rs_kernel<false>, p, NT, SMEM,
-                                      n_ranks, items, attr_kn, s);
+                                      world, items, attr_kn, s);
 }

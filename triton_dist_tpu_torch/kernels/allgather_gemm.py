@@ -40,7 +40,7 @@ from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, get_world
 from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
 TILE_M = 128     # csrc/bf16_tile.cuh BM: rows of one segment tile
-_RING_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_uint]
+_RING_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_uint]
              + [ctypes.c_void_p])
 _SIG = {"tdt_ag_gemm": _RING_SIG}
 
@@ -122,8 +122,8 @@ def ag_gemm(a, b, *, trans_b: bool = False, plain: bool = False):
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tdt_ag_gemm(*ring_tables(a, b, a_full, c, flags, bar),
-                              world, w.rank0, w.local_ranks, m_loc, n, k,
-                              int(trans_b), epoch, stream)
+                              world, m_loc, n, k, int(trans_b), epoch,
+                              stream)
     _build.check(err, "ag_gemm")
     ag_gemm.launches += 1
     return a_full, c

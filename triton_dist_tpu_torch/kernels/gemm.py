@@ -2,10 +2,10 @@
 
 Counterpart of ``triton_dist_tpu/kernels/gemm.py``'s ``matmul`` (:229)
 over ``_matmul_kernel`` (:192).  The reference's model paths take XLA's
-dot wherever it needs no collective; the port's tensor-parallel logits
-projection runs this kernel, and its tile loop (``csrc/bf16_tile.cuh``) is
-the inner loop of the grouped GEMM and of both ring kernels, so this is
-also that loop's standalone check against cuBLAS.
+dot wherever it needs no collective, and so do the port's: no model path
+calls this kernel.  Its tile loop (``csrc/bf16_tile.cuh``) is the inner
+loop of the grouped GEMM and of both ring kernels, so this is that loop's
+standalone check against cuBLAS.
 
 - :func:`matmul_ref`: the plain version, f32 products cast to the output
   dtype.

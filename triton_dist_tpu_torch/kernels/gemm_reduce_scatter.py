@@ -92,8 +92,8 @@ def gemm_rs(a, b, *, trans_b: bool = False, plain: bool = False):
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tdt_gemm_rs(*ring_tables(a, b, stage, out, flags, bar),
-                              world, w.rank0, w.local_ranks, m_loc, n, k,
-                              int(trans_b), epoch, stream)
+                              world, m_loc, n, k, int(trans_b), epoch,
+                              stream)
     _build.check(err, "gemm_rs")
     gemm_rs.launches += 1
     return out

@@ -42,7 +42,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from triton_dist_tpu_torch.kernels import gemm
 from triton_dist_tpu_torch.kernels.flash_attention import flash_gqa_attention
 from triton_dist_tpu_torch.layers.tp_linear import (
     column_parallel_linear,
@@ -347,18 +346,14 @@ class _LogitsF32(torch.autograd.Function):
     ``preferred_element_type=jnp.float32``: bf16 operands multiply with
     f32 accumulation into an f32 result.  The backward rounds the f32
     cotangent to the operands' dtype and takes the two products there
-    (f32 models: exactly the reference's VJP).  ``kernel``: the forward
-    product of bf16 operands on the card is the port's ``gemm.matmul``
-    (the tensor-parallel path); otherwise ``torch.mm``."""
+    (f32 models: exactly the reference's VJP)."""
 
     @staticmethod
-    def forward(ctx, x2, w, kernel=False):
+    def forward(ctx, x2, w):
         ctx.save_for_backward(x2, w)
         if x2.dtype == torch.float32:
             return x2 @ w
         if x2.is_cuda:
-            if kernel:
-                return gemm.matmul(x2, w, out_dtype=torch.float32)
             return torch.mm(x2, w, out_dtype=torch.float32)
         return x2.float() @ w.float()
 
@@ -366,7 +361,7 @@ class _LogitsF32(torch.autograd.Function):
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
         g = g.to(x2.dtype)
-        return g @ w.t(), x2.t() @ g, None
+        return g @ w.t(), x2.t() @ g
 
 
 def forward_shard(params, tokens, cfg: LlamaConfig, *, world=1,
@@ -376,7 +371,7 @@ def forward_shard(params, tokens, cfg: LlamaConfig, *, world=1,
     rank r holds positions r S/W .. (r + 1) S/W - 1; the logits come back
     in sequence order (the reference's ``out_specs=P("tp")``).  ``plain``
     runs every kernel's plain version (attention, and over W ranks the
-    AG-GEMM, the GEMM-RS and the logits GEMM)."""
+    AG-GEMM and the GEMM-RS)."""
     _check_world(cfg, world)
     s, b = tokens.shape
     if s % world:
@@ -388,8 +383,8 @@ def forward_shard(params, tokens, cfg: LlamaConfig, *, world=1,
         x = attention_block_shard(x, layer, cfg, plain=plain)
         x = mlp_block_shard(x, layer, cfg, plain=plain)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _LogitsF32.apply(x.reshape(s * b, cfg.dim), params["lm_head"],
-                            world > 1 and not plain).reshape(s, b, cfg.vocab)
+    return _LogitsF32.apply(x.reshape(s * b, cfg.dim),
+                            params["lm_head"]).reshape(s, b, cfg.vocab)
 
 
 def loss_shard(params, tokens, targets, cfg: LlamaConfig, *, world=1,

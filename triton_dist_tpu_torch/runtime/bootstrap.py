@@ -14,9 +14,8 @@ virtual CPU mesh in its tests:
   rank-indexed pointer table.
 
 A multi-process backend (one process per card, NCCL plus torch symmetric
-memory) changes only who fills that table: a process would hold one rank
-(``rank0`` = its rank, ``local_ranks`` = 1).  It is not ported yet;
-asking for it raises, naming the ROADMAP item.
+memory) changes only who fills that table.  It is not ported yet; asking
+for it raises, naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,13 +33,10 @@ _WORLDS: dict = {}
 
 @dataclass(eq=False)
 class World:
-    """``size`` ranks held by this process on ``device``: ranks ``rank0``
-    .. ``rank0 + local_ranks - 1`` (all of them in the virtual world)."""
+    """``size`` ranks, all held by this process on ``device``."""
 
     size: int
     device: torch.device
-    rank0: int = 0
-    local_ranks: int = 0
     workspace: object = field(default=None, repr=False)
 
     def __post_init__(self):
@@ -48,7 +44,6 @@ class World:
             raise ValueError(f"world size {self.size}: the kernels take 1.."
                              f"{MAX_RANKS} ranks")
         self.device = torch.device(self.device)
-        self.local_ranks = self.local_ranks or self.size
         if self.workspace is None:
             from triton_dist_tpu_torch.runtime.symm_mem import (
                 SymmetricWorkspace,
@@ -88,7 +83,7 @@ def finalize_distributed() -> None:
 def rank(world: World) -> range:
     """The ranks this process holds: in the virtual world, all of them
     (a per-rank tensor's leading dimension runs over them)."""
-    return range(world.rank0, world.rank0 + world.local_ranks)
+    return range(world.size)
 
 
 def num_ranks(world: World) -> int:
