@@ -41,9 +41,15 @@ Phases, in order (any failure exits non-zero without the final line):
    over each row tile, int8 exactly equal, padding tiles exactly zero;
    ``torch._grouped_mm`` as the bf16 yardstick; the bf16 forward and dx
    also at the down projection's shape (K 14336, N 4096) on the same tile
-   map; the all-to-all kernel at the MoE dispatch's shape (send [1, 4096,
-   4096] bf16) and at a shape with a byte tail, exactly equal to its
-   plain version (a copy at world 1), one PyTorch copy as the yardstick;
+   map; the all-to-all kernel at world 1 at the MoE dispatch's shape
+   (send [1, 1, 4096, 4096] bf16) and at a shape with a byte tail,
+   exactly equal to its plain version (a copy), one PyTorch copy as the
+   yardstick, and over EP ranks (its peer segments) at the EP-4 dispatch
+   (send [4, 4, 1024, 4096] bf16, balanced and skewed splits) and at [4,
+   4, 37, 3], equal to its plain version on every row it defines (below
+   each split, the own segment whole) and on the split counts, timed by
+   the profiler's device time, ``transpose(0, 1).contiguous()`` as the
+   yardstick;
    the dense GEMM (``csrc/gemm.cu``, on no model path: the reference's
    world-1 paths take XLA's dot) at (M, K, N) = (2048, 4096, 14336),
    torch.matmul as the yardstick; the AG-GEMM and the GEMM-RS over a
@@ -89,6 +95,14 @@ Phases, in order (any failure exits non-zero without the final line):
    plain versions: max |d logit|, argmax agreement >= MOE_ARGMAX_MIN, and
    from the experts each layer picked, the tokens whose top-2 expert set
    differs per layer);
+7b. MoE EP forward: phase 7's tree sharded over EP ranks of the virtual
+   world (``shard_params``: TP attention, expert-parallel FFNs), the
+   forward with the all_to_all, group_gemm, ag_gemm and gemm_rs counters
+   zeroed just before (each > 0 after), timed and profiled (device ms,
+   idle share, the grouped GEMMs', all-to-all's and ring kernels'
+   shares); routed as phase 7's forward was, its argmax agrees with the
+   world-1 forward's at phase 11's gates (the world-1 forward against its
+   plain versions, routed alike, printed beside as the noise floor);
 8. MoE generator: ``MoEGenerator`` on the same tree, batch 2, a 512-token
    prompt, 32 greedy tokens; flash_fwd and decode launch; teacher-forced
    agreement against a prompt forward with the plain attention
@@ -98,12 +112,15 @@ Phases, in order (any failure exits non-zero without the final line):
    same layer with the plain grouped GEMM (bf16 within the grouped-GEMM
    tolerances, W8A8 equal), the W8A8 output against the float one within
    the reference's tolerance (median relative error < 0.05, cosine >
-   0.995); group_gemm_i8 launches;
+   0.995); the same weights over EP ranks at T 2048, bf16 and W8A8, held
+   to their plain versions alike; group_gemm_i8 launches;
 10. MoE train: MOE_SGD_STEPS in-place SGD steps at MOE_TRAIN_LAYERS layers
    (finite, falling losses; peak memory; group_gemm and group_gemm_dx
    launch; a profiled step), then at 2 layers the loss and every gradient
    leaf with the kernels against the plain versions, both routed alike
    (1e-3, 2e-2);
+10b. MoE EP train: phase 10 over EP ranks (the ring kernels' counters
+   too; the steps' launches read into the all_to_all row);
 11. TP forward: Llama-3-8B at full width and 32 layers, random weights
    from seed 0, the world-1 forward (and, as the noise floor, the same
    with the plain attention), then ``shard_params`` to TP ranks and the
@@ -121,7 +138,9 @@ phase 4 and read just after phase 5: each must be > 0; every counter is
 zeroed again just before phase 5b and read just after 5c, where the four
 int8 kernels must each be > 0; the backward kernels' counts in the
 ``kernels`` line come from phase 6 (a), the grouped GEMM's from phases 7
-(bf16), 9 (int8) and 10 (dx), the all-to-all's from phase 7, the ring
+(bf16), 9 (int8) and 10 (dx), the all-to-all's from phase 7 (its
+phase-7b and 10b counts beside under "ep4_forward_launches" and
+"ep4_train_launches"), the ring
 kernels' from phase 12 (a), their phase-11 counts beside under
 "forward_launches"; the dense GEMM's counter is zeroed and read with
 theirs and reads 0 (no model path calls it).  A
@@ -198,6 +217,12 @@ MOE_SGD_STEPS = 3
 MOE_ARGMAX_MIN = 0.6
 MOE_NEAR_TIE = 1.5
 MOE_STRICT_MIN = 0.6
+# Phase 7b holds the EP-4 forward, routed as the world-1 forward was, to the
+# world-1 argmax at the dense gates (AGREE_MIN with ties within NEAR_TIE,
+# STRICT_MIN exact): with routing pinned, only bf16 rounding (the TP
+# attention's GEMM-RS partials) separates the two, and the world-1 forward
+# against its own plain versions, pinned alike, agreed at 0.9634 exact and
+# 1.0 with ties (EP 4: 0.9653 and 1.0; NVIDIA H100 80GB HBM3, 700 W).
 ADAMW_LR = 1e-4     # phase 6 (b)
 TRAIN_SEQ = 2048
 # grouped GEMM, kernel against plain version (both round the f32 sums to
@@ -206,6 +231,7 @@ TRAIN_SEQ = 2048
 GG_REL_TOL = 2e-2
 GG_L2_TOL = 1e-2
 TP = 4              # phases 11-12: ranks of the virtual world
+EP = 4              # phases 7b, 9, 10b: ranks of the virtual world
 TP_SGD_LR = 0.2
 TP_SGD_STEPS = 3
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
@@ -716,6 +742,29 @@ def event_ms(fn, iters=3):
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, key, iters=20):
+    """Device time per call of the kernels whose name holds ``key``, from
+    ``iters`` eager calls under ``torch.profiler`` (for a launch that
+    cannot be captured in a CUDA graph and is short enough that eager
+    calls wait on the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from triton_dist_tpu_torch.examples.serve import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages() if key in e.key)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no kernel named {key}")
+    return us / 1e3 / iters
+
+
 def check_tiles(tag, got, want, block_m):
     """The grouped GEMM's agreement rule: max |kernel - plain| <= GG_REL_TOL
     max |plain|; relative L2 <= GG_L2_TOL over the tensor and over each
@@ -898,20 +947,53 @@ def group_gemm_rows(dev, g):
     return rows
 
 
+def a2a_agree(tag, recv, recv_splits, want, want_splits):
+    """The all-to-all's agreement rule: recv_splits, each rank's own
+    segment whole and every peer segment's rows below min(split,
+    max_tokens) bit for bit (the rows past them are undefined)."""
+    import torch
+
+    world, _, max_tokens = recv.shape[:3]
+    ok = torch.equal(recv_splits, want_splits)
+    for p in range(world):
+        for r in range(world):
+            k = max_tokens if p == r else min(int(want_splits[p, r]),
+                                              max_tokens)
+            ok = ok and torch.equal(recv[p, r, :k], want[p, r, :k])
+    log(f"all_to_all {tag} send {list(recv.shape)}: equal to the plain "
+        f"version on every defined row and on recv_splits {ok}")
+    if not ok:
+        raise AssertionError(f"all_to_all {tag} disagrees with plain")
+
+
 def all_to_all_row(dev, g):
-    """csrc/all_to_all.cu at the MoE dispatch's shape (Mixtral-8x7B, 2048
-    tokens top-2: send [1, 4096, 4096] bf16 with one split of 4096 rows;
-    the combine's is the same) and at [1, 37, 3] (a segment of 222 bytes:
+    """csrc/all_to_all.cu.  World 1 (the local copy): the MoE dispatch's
+    shape at 2048 tokens top-2 (send [1, 1, 4096, 4096] bf16, one split of
+    4095 rows; the combine's is the same) and [1, 1, 37, 3] (222 bytes:
     16-byte vectors and a byte tail), each exactly equal to its plain
-    version (at world 1 a copy); the first timed beside its bound (the
-    segment read once and written once) and one PyTorch copy of it."""
+    version, the first timed (CUDA-graph replays) beside its bound (the
+    segment read once and written once) and one PyTorch copy.  EP over 4
+    ranks (the peer segments), under "shapes": the dispatch of 2048 tokens
+    top-2 (send [4, 4, 1024, 4096] bf16) with the splits of a balanced
+    routing (seeded top-2 over 8 experts, ~256 rows a segment) and of a
+    skewed one (all 1024 rows of a rank to one peer), and a ragged [4, 4,
+    37, 3]; each equal to its plain version on every defined row
+    (``a2a_agree``), timed by the profiler's device time of the kernel
+    (each call carries a new epoch, so no CUDA graph; back-to-back eager
+    calls between CUDA events, which count the host's launch cost where it
+    exceeds the kernel's, printed beside), next to its bound (the shipped
+    rows, min(split, max_tokens) of every segment, read once and written
+    once) and one ``send.transpose(0, 1).contiguous()`` (the full
+    segments)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
 
-    for shape in ((1, 37, 3), (1, 4096, 4096)):
+    for shape in ((1, 1, 37, 3), (1, 1, 4096, 4096)):
         send = torch.randn(shape, generator=g, device=dev).bfloat16()
-        splits = torch.tensor([shape[1] - 1], dtype=torch.int32, device=dev)
+        splits = torch.tensor([[shape[2] - 1]], dtype=torch.int32,
+                              device=dev)
         recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
         torch.cuda.synchronize()
         want, want_splits = a2a.all_to_all_ref(send, splits)
@@ -928,11 +1010,54 @@ def all_to_all_row(dev, g):
     lib = time_ms(lambda: out.copy_(send))
     n_bytes = 2 * send.numel() * send.element_size() + 2 * 4
     b_ms, b_by = bound_ms(n_bytes, 0)
-    log(f"all_to_all [1, 4096, 4096] bf16: kernel {ms:.4f} ms "
+    log(f"all_to_all [1, 1, 4096, 4096] bf16: kernel {ms:.4f} ms "
         f"({n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library "
         f"{lib:.4f} ms (Tensor.copy_), bound {b_ms:.4f} ms ({b_by})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, max_abs_err=0.0)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib, max_abs_err=0.0)
+    del send, out, recv, want
+
+    W, mt, H = EP, 1024, 4096
+    _, experts = mu.topk_routing(torch.randn((W * 512, 8), generator=g,
+                                             device=dev), 2)
+    dest = (experts.reshape(W, -1).long() // (8 // W))
+    balanced = torch.stack([torch.bincount(d, minlength=W) for d in dest]
+                           ).to(torch.int32)
+    skewed = torch.zeros((W, W), dtype=torch.int32, device=dev)
+    skewed[torch.arange(W), (torch.arange(W) + 1) % W] = mt
+    shapes = {}
+    for tag, shape, splits in (
+            ("ep4_balanced", (W, W, mt, H), balanced),
+            ("ep4_skewed", (W, W, mt, H), skewed),
+            ("ep4_ragged", (W, W, 37, 3),
+             torch.randint(0, 41, (W, W), generator=g, device=dev,
+                           dtype=torch.int32))):
+        send = torch.randn(shape, generator=g, device=dev).bfloat16()
+        recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
+        torch.cuda.synchronize()
+        want, want_splits = a2a.all_to_all_ref(send, splits)
+        a2a_agree(tag, recv, recv_splits, want, want_splits)
+        del recv, want
+        eager = event_ms(lambda: a2a.fast_all_to_all_shard(send, splits),
+                         iters=20)
+        ms = kernel_device_ms(
+            lambda: a2a.fast_all_to_all_shard(send, splits), "a2a_peer")
+        plain_ms = time_ms(lambda: a2a.all_to_all_ref(send, splits))
+        lib = time_ms(lambda: send.transpose(0, 1).contiguous())
+        rows = int(torch.clamp(splits, 0, shape[2]).sum())
+        n_bytes = 2 * rows * shape[3] * send.element_size() + 2 * 4 * W * W
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        log(f"all_to_all {tag} send {list(shape)} bf16, splits "
+            f"{splits.tolist()}: kernel {ms:.4f} ms device (profiler; eager "
+            f"calls {eager:.4f} ms between CUDA events), "
+            f"plain {plain_ms:.4f} ms, library {lib:.4f} ms "
+            f"(transpose(0, 1).contiguous()), bound {b_ms:.4f} ms ({b_by}:"
+            f" {rows} shipped rows)")
+        shapes[tag] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                           max_abs_err=0.0)
+        del send
+    return dict(row, shapes=shapes)
 
 
 def gemm_rule(tag, got, want):
@@ -1512,13 +1637,14 @@ def moe_noise_floor(params, cfg, tok):
         f"{(top2[:, 0] - top2[:, 1]).median().item():.4f}; tokens (of "
         f"{lk.shape[0]}) whose top-{cfg.topk} expert set differs, per layer: "
         f"{flips}")
-    return agree, diff.max().item()
+    return agree, diff.max().item(), lk, routes_k
 
 
 def moe_forward_phase(cfg, params, tok):
     """Phase 7: ``make_forward`` at 16 layers, S 2048, B 1, with the
     grouped-GEMM and all-to-all counters zeroed just before; then a
-    profiled forward and the noise floor.  Returns the launch counts."""
+    profiled forward and the noise floor.  Returns (the launch counts, the
+    kernels' logits [S, vocab] and routes, for phase 7b)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import all_to_all as a2a
@@ -1560,10 +1686,97 @@ def moe_forward_phase(cfg, params, tok):
     for name, n, ms in top:
         log(f"moe forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
     del logits
-    agree, dmax = moe_noise_floor(params, cfg, tok)
+    agree, dmax, ref, routes = moe_noise_floor(params, cfg, tok)
     if agree < MOE_ARGMAX_MIN:
         raise AssertionError(f"moe forward: argmax agreement with the plain "
                              f"versions {agree:.4f} < {MOE_ARGMAX_MIN}")
+    return launches, ref, routes
+
+
+def moe_ep_forward_phase(cfg, params, tok, ref, routes):
+    """Phase 7b: phase 7's tree sharded over EP ranks (``shard_params``:
+    the expert stacks and replicated leaves shared, the attention weights
+    cut) and ``make_forward(cfg, EP)`` with the all-to-all, grouped-GEMM
+    and ring counters zeroed just before (each > 0 after), timed and
+    profiled (device ms, idle share, the grouped GEMMs', all-to-all's and
+    ring kernels' shares); then, routing pinned to phase 7's routes, its
+    argmax against the world-1 forward's, beside the same comparison of the
+    world-1 forward with the plain versions of every kernel, pinned alike
+    (the noise floor); gated at STRICT_MIN exact and AGREE_MIN counting
+    near-ties within NEAR_TIE.  Returns the launch counts."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+    from triton_dist_tpu_torch.models import moe
+
+    counters = {"all_to_all": a2a.fast_all_to_all_shard,
+                "group_gemm": gg.group_gemm, "ag_gemm": agm.ag_gemm,
+                "gemm_rs": grs.gemm_rs}
+    p4 = moe.shard_params(params, cfg, EP)
+    fwd = moe.make_forward(cfg, EP)
+    for fn in counters.values():
+        fn.launches = 0
+    routes_ep = []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, aux = fwd(p4, tok, routes=routes_ep)
+        torch.cuda.synchronize()
+        t_first = (time.perf_counter() - t0) * 1e3
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if (tuple(logits.shape) != (tok.shape[0], 1, cfg.vocab)
+            or not torch.isfinite(logits).all() or not np.isfinite(
+                float(aux))):
+        raise AssertionError(f"moe ep forward: bad output "
+                             f"{tuple(logits.shape)}, aux {float(aux)}")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched by the EP "
+                                 f"forward")
+    flips = [int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+             for a, b in zip(routes_ep, routes)]
+    del logits, routes_ep
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        fwd(p4, tok)
+        torch.cuda.synchronize()
+        t_warm = (time.perf_counter() - t0) * 1e3
+        busy, top = profile_once(lambda: fwd(p4, tok), top_n=1000)
+
+    def share(*keys):
+        return sum(ms for name, _, ms in top if any(k in name for k in keys))
+
+    gg_ms, a2a_ms = share("group_gemm"), share("a2a_")
+    ring_ms = share("ag_gemm", "gemm_rs")
+    log(f"moe ep forward: EP {EP} (TP attention, expert-parallel FFN), "
+        f"{cfg.n_layers} layers, tokens [{tok.shape[0]}, 1]: aux "
+        f"{float(aux):.4f}, first call {t_first:.1f} ms, warm {t_warm:.1f} "
+        f"ms wall; profiled: device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / t_warm:.3f}; grouped GEMMs {gg_ms:.2f} ms "
+        f"({gg_ms / busy:.3f}), all-to-all {a2a_ms:.2f} ms "
+        f"({a2a_ms / busy:.3f}), ring kernels {ring_ms:.2f} ms "
+        f"({ring_ms / busy:.3f}); launches {launches}; tokens (of "
+        f"{tok.shape[0]}) whose top-{cfg.topk} expert set differs from the "
+        f"world-1 forward's, per layer: {flips}")
+    for name, n, ms in top[:12]:
+        log(f"moe ep forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    with torch.no_grad():
+        floor, _ = moe.make_forward(cfg, plain=True)(params, tok,
+                                                     routes=routes)
+        argmax_agreement("moe ep noise floor: world-1 forward, kernels vs "
+                         "plain versions, routed alike", floor, ref)
+        del floor
+        pinned, _ = fwd(p4, tok, routes=routes)
+    exact, ties = argmax_agreement(
+        f"moe ep forward vs world-1 forward, routed alike ({tok.shape[0]} "
+        f"positions)", pinned, ref)
+    if ties < AGREE_MIN or exact < STRICT_MIN:
+        raise AssertionError(f"moe ep forward: agreement {exact:.4f} exact "
+                             f"(floor {STRICT_MIN}), {ties:.4f} with "
+                             f"near-ties (floor {AGREE_MIN})")
+    del pinned, p4
     return launches
 
 
@@ -1633,7 +1846,9 @@ def moe_layer_phase():
     2048 and T 8, bf16 then after quantize_weights(), each against the
     same layer with the plain grouped GEMM (routing given, so both see the
     same experts); the W8A8 output against the float one within the
-    reference's tolerance.  Returns the int8 launch count."""
+    reference's tolerance; the same weights in the layer over EP ranks
+    ("w4": the all-to-all's peer segments) at T 2048, bf16 and W8A8,
+    against its plain versions.  Returns the int8 launch count."""
     import torch
 
     from triton_dist_tpu_torch.kernels import group_gemm as gg
@@ -1644,6 +1859,8 @@ def moe_layer_phase():
     layer = DistributedMoELayer(n_experts=8, topk=2, hidden=4096,
                                 intermediate=14336)
     layer.init_weights(seed=0)
+    layer_ep = DistributedMoELayer(n_experts=8, topk=2, hidden=4096,
+                                   intermediate=14336, world=EP)
     g = torch.Generator(device="cuda").manual_seed(9)
     xs = {T: torch.randn((T, 4096), generator=g, device="cuda").bfloat16()
           for T in (2048, 8)}
@@ -1652,36 +1869,49 @@ def moe_layer_phase():
     floats = {}
     with torch.no_grad():
         for T, x in xs.items():
-            w, e = routes[T]
-            got = layer.forward(x, e, w)
-            torch.cuda.synchronize()
-            want = layer.forward(x, e, w, plain=True)
-            err, top = max_err(got, want), want.float().abs().max().item()
-            l2 = ((got.float() - want.float()).norm()
-                  / want.float().norm()).item()
-            log(f"moe layer bf16 T{T}: max|kernel-plain| {err:.3e} (tol "
-                f"{GG_REL_TOL} x {top:.3e}), relative L2 {l2:.3e} (tol "
-                f"{GG_L2_TOL})")
-            if not (torch.isfinite(got).all() and err <= GG_REL_TOL * top
-                    and l2 <= GG_L2_TOL):
-                raise AssertionError(f"moe layer bf16 T{T} disagrees")
-            floats[T] = got.float()
+            for lay, tag in ((layer, ""), (layer_ep, f" w{EP}")):
+                if lay is layer_ep and T != 2048:
+                    continue
+                lay.weights = layer.weights
+                w, e = routes[T]
+                got = lay.forward(x, e, w)
+                torch.cuda.synchronize()
+                want = lay.forward(x, e, w, plain=True)
+                err = max_err(got, want)
+                top = want.float().abs().max().item()
+                l2 = ((got.float() - want.float()).norm()
+                      / want.float().norm()).item()
+                log(f"moe layer bf16 T{T}{tag}: max|kernel-plain| {err:.3e} "
+                    f"(tol {GG_REL_TOL} x {top:.3e}), relative L2 {l2:.3e} "
+                    f"(tol {GG_L2_TOL})")
+                if not (torch.isfinite(got).all() and err <= GG_REL_TOL * top
+                        and l2 <= GG_L2_TOL):
+                    raise AssertionError(f"moe layer bf16 T{T}{tag} "
+                                         f"disagrees")
+                floats[T, tag] = got.float()
         layer.quantize_weights()
         for T, x in xs.items():
-            w, e = routes[T]
-            got = layer.forward(x, e, w)
-            torch.cuda.synchronize()
-            want = layer.forward(x, e, w, plain=True)
-            ref = floats[T]
-            rel = ((got.float() - ref).abs() / (ref.abs() + 1e-2)).median()
-            cos = ((got.float() * ref).sum()
-                   / (got.float().norm() * ref.norm())).item()
-            same = torch.equal(got, want)
-            log(f"moe layer w8a8 T{T}: equal to the plain int8 GEMMs "
-                f"{same}; against float: median relative error "
-                f"{rel.item():.4f} (tol 0.05), cosine {cos:.5f} (tol 0.995)")
-            if not (same and rel < 0.05 and cos > 0.995):
-                raise AssertionError(f"moe layer w8a8 T{T} disagrees")
+            for lay, tag in ((layer, ""), (layer_ep, f" w{EP}")):
+                if lay is layer_ep and T != 2048:
+                    continue
+                lay.weights = layer.weights
+                w, e = routes[T]
+                got = lay.forward(x, e, w)
+                torch.cuda.synchronize()
+                want = lay.forward(x, e, w, plain=True)
+                ref = floats[T, tag]
+                rel = ((got.float() - ref).abs()
+                       / (ref.abs() + 1e-2)).median()
+                cos = ((got.float() * ref).sum()
+                       / (got.float().norm() * ref.norm())).item()
+                same = torch.equal(got, want)
+                log(f"moe layer w8a8 T{T}{tag}: equal to the plain int8 "
+                    f"GEMMs {same}; against float: median relative error "
+                    f"{rel.item():.4f} (tol 0.05), cosine {cos:.5f} (tol "
+                    f"0.995)")
+                if not (same and rel < 0.05 and cos > 0.995):
+                    raise AssertionError(f"moe layer w8a8 T{T}{tag} "
+                                         f"disagrees")
     launches = {"group_gemm": gg.group_gemm.launches,
                 "group_gemm_i8": gg.group_gemm_i8.launches}
     log(f"moe layer launches {launches}")
@@ -1690,35 +1920,43 @@ def moe_layer_phase():
     return launches["group_gemm_i8"]
 
 
-def moe_train_phase(cfg):
-    """Phase 10: (a) MOE_SGD_STEPS in-place SGD steps at MOE_TRAIN_LAYERS
-    layers, S 2048, B 1, with the grouped-GEMM counters zeroed just before:
-    finite losses, the last below the first, peak memory; one more step
-    under the profiler; (b) at 2 layers, the loss and every gradient leaf
-    with the kernels against autograd through the plain versions, the
-    plain side routed as the kernels' side was (``routes``: a near-tie
-    would otherwise send a token to another expert).  Returns the launch
-    counts of (a)."""
+def moe_train_phase(cfg, world=1):
+    """Phase 10 (world 1) and 10b (``world`` EP ranks: ``shard_params``,
+    TP attention and expert-parallel FFNs): (a) MOE_SGD_STEPS in-place SGD
+    steps at MOE_TRAIN_LAYERS layers, S 2048, B 1, with the grouped-GEMM
+    and all-to-all counters (over EP ranks the ring kernels' too) zeroed
+    just before: finite losses, the last below the first, peak memory;
+    one more step under the profiler; (b) at 2 layers, the loss and every
+    gradient leaf with the kernels against autograd through the plain
+    versions of every kernel, the plain side routed as the kernels' side
+    was (``routes``: a near-tie would otherwise send a token to another
+    expert).  Returns the launch counts of (a)."""
     from dataclasses import replace
 
     import torch
 
     from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
     from triton_dist_tpu_torch.kernels import group_gemm as gg
     from triton_dist_tpu_torch.models import moe
     from triton_dist_tpu_torch.runtime.utils import value_and_grad
+
+    tag = "moe train" if world == 1 else "moe ep train"
 
     rng = np.random.default_rng(5)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
                           device="cuda")
     tgt = torch.roll(tok, -1, dims=0)
     cfg8 = replace(cfg, n_layers=MOE_TRAIN_LAYERS)
-    params = moe.init_params(cfg8, seed=0)
+    params = moe.shard_params(moe.init_params(cfg8, seed=0), cfg8, world)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step = moe.make_train_step(cfg8, lr=MOE_SGD_LR)
+    step = moe.make_train_step(cfg8, world, lr=MOE_SGD_LR)
     counters = {"group_gemm": gg.group_gemm, "group_gemm_dx": gg.group_gemm_dx,
                 "all_to_all": a2a.fast_all_to_all_shard}
+    if world > 1:
+        counters.update(ag_gemm=agm.ag_gemm, gemm_rs=grs.gemm_rs)
     for fn in counters.values():
         fn.launches = 0
     losses, times = [], []
@@ -1729,58 +1967,66 @@ def moe_train_phase(cfg):
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {n: fn.launches for n, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"moe train (a) SGD lr {MOE_SGD_LR}, {cfg8.n_layers} layers, tokens "
-        f"[{TRAIN_SEQ}, 1]: losses {[round(x, 4) for x in losses]}, step ms "
+    log(f"{tag} (a) SGD lr {MOE_SGD_LR}, world {world}, {cfg8.n_layers} "
+        f"layers, tokens [{TRAIN_SEQ}, 1]: losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
         f"{[round(x, 1) for x in times]}, peak memory {peak:.2f} GB; "
         f"launches {launches}")
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"moe train (a): losses {losses} not finite and "
+        raise AssertionError(f"{tag} (a): losses {losses} not finite and "
                              f"falling")
     for n, c in launches.items():
         if c <= 0:
-            raise AssertionError(f"kernel {n} never launched in MoE training")
-    busy, top = profile_once(lambda: step(params, tok, tgt), top_n=10)
+            raise AssertionError(f"kernel {n} never launched in {tag}")
+    busy, top = profile_once(lambda: step(params, tok, tgt), top_n=1000)
     wall = float(np.median(times[1:]))
-    gg_ms = sum(ms for name, _, ms in top if "group_gemm" in name)
-    log(f"moe train (a) profiled step: device busy {busy:.1f} ms of a "
+
+    def share(*keys):
+        return sum(ms for name, _, ms in top if any(k in name for k in keys))
+
+    gg_ms, a2a_ms = share("group_gemm"), share("a2a_")
+    ring_ms = share("ag_gemm", "gemm_rs")
+    log(f"{tag} (a) profiled step: device busy {busy:.1f} ms of a "
         f"{wall:.1f} ms step, idle share {1 - busy / wall:.3f}; grouped "
-        f"GEMM kernels {gg_ms:.1f} ms")
-    for name, n, ms in top:
-        log(f"moe train (a)   {ms:8.2f} ms  x{n:<5d} {name[:90]}")
+        f"GEMM kernels {gg_ms:.1f} ms, all-to-all {a2a_ms:.2f} ms, ring "
+        f"kernels {ring_ms:.1f} ms")
+    for name, n, ms in top[:10]:
+        log(f"{tag} (a)   {ms:8.2f} ms  x{n:<5d} {name[:90]}")
     del params, step
     free_cuda()
 
     cfg2 = replace(cfg, n_layers=2)
-    params = moe.init_params(cfg2, seed=0)
+    params = moe.shard_params(moe.init_params(cfg2, seed=0), cfg2, world)
     routes = []
     loss_k, g_k = value_and_grad(moe.loss_shard, params, tok, tgt, cfg2,
-                                 routes=routes)
+                                 world=world, routes=routes)
     loss_p, g_p = value_and_grad(moe.loss_shard, params, tok, tgt, cfg2,
-                                 plain=True, routes=routes)
+                                 world=world, plain=True, routes=routes)
     rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     worst = ("", 0.0)
     for (name, a), (_, b) in zip(named_leaves(g_k), named_leaves(g_p)):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         if not rel <= 2e-2:
-            raise AssertionError(f"moe train (b): gradient {name} relative "
+            raise AssertionError(f"{tag} (b): gradient {name} relative "
                                  f"L2 {rel:.3e} > 2e-2")
         worst = max(worst, (name, rel), key=lambda x: x[1])
-    log(f"moe train (b) 2 layers, kernels vs plain versions, routed "
-        f"alike: loss "
+    log(f"{tag} (b) world {world}, 2 layers, kernels vs plain versions, "
+        f"routed alike: loss "
         f"{float(loss_k):.6f} vs {float(loss_p):.6f} (relative "
         f"{rel_loss:.2e}, tol 1e-3); worst gradient leaf {worst[0]} "
         f"relative L2 {worst[1]:.3e} (tol 2e-2)")
     if not rel_loss <= 1e-3:
-        raise AssertionError(f"moe train (b): loss relative {rel_loss:.2e}")
+        raise AssertionError(f"{tag} (b): loss relative {rel_loss:.2e}")
     del params, g_k, g_p
     free_cuda()
     return launches
 
 
 def moe_phases():
-    """Phases 7-10; returns each grouped-GEMM mode's launch count from the
-    phase that drives it (forward, layer, train), and the all-to-all's
-    from the forward."""
+    """Phases 7-10b; returns each grouped-GEMM mode's launch count from the
+    phase that drives it (forward, layer, train), the all-to-all's from
+    the forward, and the EP-4 forward's (7b) and train steps' (10b)
+    launches of every kernel they run."""
     from dataclasses import replace
 
     import torch
@@ -1800,16 +2046,20 @@ def moe_phases():
     rng = np.random.default_rng(5)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
                           device="cuda")
-    fwd = moe_forward_phase(cfg, params, tok)
+    fwd, ref, routes = moe_forward_phase(cfg, params, tok)
+    ep_fwd = moe_ep_forward_phase(cfg, params, tok, ref, routes)
+    del ref, routes
+    free_cuda()
     moe_generator_phase(cfg, params)
     del params
     free_cuda()
     i8_launches = moe_layer_phase()
     free_cuda()
     trained = moe_train_phase(cfg)
-    return {"group_gemm": fwd["group_gemm"], "all_to_all": fwd["all_to_all"],
-            "group_gemm_dx": trained["group_gemm_dx"],
-            "group_gemm_i8": i8_launches}
+    ep_trained = moe_train_phase(cfg, EP)
+    return ({"group_gemm": fwd["group_gemm"], "all_to_all": fwd["all_to_all"],
+             "group_gemm_dx": trained["group_gemm_dx"],
+             "group_gemm_i8": i8_launches}, ep_fwd, ep_trained)
 
 
 # ---------------------------------------------------------------------------
@@ -2133,9 +2383,10 @@ def main() -> int:
 
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
 
-    # phases 7-10: the MoE family; each grouped-GEMM mode's count comes
-    # from the phase that drives it
-    launches.update(moe_phases())
+    # phases 7-10b: the MoE family; each grouped-GEMM mode's count comes
+    # from the phase that drives it, the EP-4 counts ride along
+    moe_launches, ep_fwd, ep_train = moe_phases()
+    launches.update(moe_launches)
     log(f"moe done at {time.perf_counter() - t_start:.1f} s")
 
     # phases 11-12: tensor parallelism; the ring kernels' counts come from
@@ -2187,6 +2438,9 @@ def main() -> int:
                         "library_ms": r["library_ms"],
                         **({"forward_launches": tp_fwd[name]}
                            if name in tp_fwd else {}),
+                        **({"ep4_forward_launches": ep_fwd[name],
+                            "ep4_train_launches": ep_train[name]}
+                           if name == "all_to_all" else {}),
                         **{k: r[k] for k in ("m8", "t8", "shapes")
                            if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")

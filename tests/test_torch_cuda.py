@@ -19,7 +19,8 @@ output's largest magnitude and 1e-2 relative L2 over each row tile.  The
 dense GEMM and the two tensor-parallel ring kernels (over a virtual world
 of W ranks on the one card) follow the same bf16 rule over the whole
 output (f32 output: 1e-4 of the largest magnitude), the gathered A bit
-for bit.
+for bit.  The all-to-all moves bytes and is held to its plain version bit
+for bit on every row it defines (below each split, the own segment).
 """
 
 import zlib
@@ -680,22 +681,28 @@ def test_moe_forward_and_train_step_at_mixtral_width(cuda):
                                          ((1, 37, 3), torch.bfloat16),
                                          ((1, 5, 8), torch.int32)])
 def test_all_to_all_matches_plain(cuda, shape, dtype):
-    """csrc/all_to_all.cu at world 1: recv equals send bit for bit (16-byte
-    vectors and a byte tail), recv_splits equals splits, one launch; a
-    world of 2 raises."""
+    """csrc/all_to_all.cu at world 1 (send [1, 1, max_tokens, H]): recv
+    equals send bit for bit (16-byte vectors and a byte tail), recv_splits
+    equals splits, one launch; the same rows over two ranks go through
+    the peer kernel; nine ranks (more than the kernel takes) raise."""
     from triton_dist_tpu_torch.kernels import all_to_all as a2a
 
-    send = torch.randint(-1000, 1000, shape, device=cuda).to(dtype)
-    splits = torch.tensor([shape[1] - 2], dtype=torch.int32, device=cuda)
+    send = torch.randint(-1000, 1000, (1, *shape), device=cuda).to(dtype)
+    splits = torch.tensor([[shape[1] - 2]], dtype=torch.int32, device=cuda)
     n0 = a2a.fast_all_to_all_shard.launches
     recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
     torch.cuda.synchronize()
     assert a2a.fast_all_to_all_shard.launches == n0 + 1
     assert recv.data_ptr() != send.data_ptr()
     assert torch.equal(recv, send) and torch.equal(recv_splits, splits)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        a2a.fast_all_to_all_shard(send.expand(2, *shape[1:]),
-                                  splits.expand(2))
+    send2 = send.expand(2, 2, *shape[1:]).contiguous()
+    splits2 = torch.full((2, 2), shape[1], dtype=torch.int32, device=cuda)
+    recv2, rsplits2 = a2a.fast_all_to_all_shard(send2, splits2)
+    torch.cuda.synchronize()
+    assert torch.equal(recv2, send2) and torch.equal(rsplits2, splits2)
+    with pytest.raises(ValueError, match="at most 8 ranks"):
+        a2a.fast_all_to_all_shard(send.expand(9, 9, *shape[1:]),
+                                  splits.expand(9, 9))
 
 
 @pytest.mark.gpu
@@ -705,15 +712,184 @@ def test_all_to_all_autograd_on_the_card(cuda):
     from triton_dist_tpu_torch.kernels import all_to_all as a2a
 
     g = np.random.default_rng(3)
-    send = _randn(g, (1, 64, 256), cuda).requires_grad_()
-    ct = _randn(g, (1, 64, 256), cuda)
-    splits = torch.tensor([40], dtype=torch.int32, device=cuda)
+    send = _randn(g, (1, 1, 64, 256), cuda).requires_grad_()
+    ct = _randn(g, (1, 1, 64, 256), cuda)
+    splits = torch.tensor([[40]], dtype=torch.int32, device=cuda)
     n0 = a2a.fast_all_to_all_shard.launches
     recv, _ = a2a.fast_all_to_all_shard_diff(send, splits)
     (d_send,) = torch.autograd.grad(recv, (send,), ct)
     assert a2a.fast_all_to_all_shard.launches == n0 + 2
-    assert torch.equal(d_send[0, :40], ct[0, :40])
-    assert torch.all(d_send[0, 40:] == 0)
+    assert torch.equal(d_send[0, 0, :40], ct[0, 0, :40])
+    assert torch.all(d_send[0, 0, 40:] == 0)
+
+
+def _a2a_peer_case(cuda, g, world, max_tokens, hidden, dtype=torch.bfloat16):
+    """Random send [W, W, max_tokens, H] and splits [W, W] over 0 ..
+    max_tokens + 3 (0 and above max_tokens forced into the first row)."""
+    send = torch.from_numpy(g.standard_normal(
+        (world, world, max_tokens, hidden)).astype(np.float32) * 100).to(
+        device=cuda, dtype=dtype)
+    splits = g.integers(0, max_tokens + 4, (world, world))
+    splits[0, 0], splits[0, -1] = 0, max_tokens + 3
+    return send, torch.as_tensor(splits, dtype=torch.int32, device=cuda)
+
+
+def _a2a_agree(recv, recv_splits, want, want_splits):
+    """Rows below each clamped split (the whole own segment) and the
+    split counts bit for bit."""
+    world, _, max_tokens = recv.shape[:3]
+    assert torch.equal(recv_splits, want_splits)
+    raw = recv.view(torch.uint8) if recv.element_size() == 1 else recv
+    ref = want.view(torch.uint8) if want.element_size() == 1 else want
+    for p in range(world):
+        for r in range(world):
+            k = max_tokens if p == r else min(int(want_splits[p, r]),
+                                              max_tokens)
+            assert torch.equal(raw[p, r, :k], ref[p, r, :k]), (p, r, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world,max_tokens,hidden,dtype", [
+    (2, 64, 256, torch.bfloat16), (4, 256, 512, torch.bfloat16),
+    (8, 40, 128, torch.bfloat16), (4, 37, 3, torch.bfloat16),
+    (4, 16, 64, torch.int32), (2, 33, 64, torch.float8_e4m3fn)])
+def test_all_to_all_peers_match_plain(cuda, world, max_tokens, hidden,
+                                      dtype):
+    """The peer segments at W 2, 4 and 8 with random splits (0 and above
+    max_tokens among them), a ragged row of 6 bytes, int32 and fp8
+    payloads: every rank's rows below each split, its whole own segment
+    and recv_splits equal to the plain version bit for bit; three calls
+    back to back (a new epoch each), one launch each."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    g = np.random.default_rng(world * 100 + max_tokens)
+    for _ in range(3):
+        if dtype == torch.int32:
+            send = torch.randint(-2 ** 30, 2 ** 30, (world, world,
+                                 max_tokens, hidden), device=cuda,
+                                 dtype=torch.int32)
+            splits = _a2a_peer_case(cuda, g, world, max_tokens, 1)[1]
+        else:
+            send, splits = _a2a_peer_case(cuda, g, world, max_tokens,
+                                          hidden, dtype)
+        n0 = a2a.fast_all_to_all_shard.launches
+        recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
+        torch.cuda.synchronize()
+        assert a2a.fast_all_to_all_shard.launches == n0 + 1
+        want, want_splits = a2a.all_to_all_ref(send, splits)
+        _a2a_agree(recv, recv_splits, want, want_splits)
+
+
+@pytest.mark.gpu
+def test_all_to_all_debug_poison_on_the_card(cuda):
+    """debug_poison: the kernel's receive buffers equal the plain
+    version's with poison bit for bit (NaN past every peer segment's
+    split); dispatch with zero_undefined and combine, both poisoned, give
+    a finite output equal to the unpoisoned one."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.layers import ep_a2a as ep
+
+    g = np.random.default_rng(21)
+    send, splits = _a2a_peer_case(cuda, g, 4, 96, 256)
+    recv, recv_splits = a2a.fast_all_to_all_shard(send, splits,
+                                                  debug_poison=True)
+    torch.cuda.synchronize()
+    want, want_splits = a2a.all_to_all_ref(send, splits, debug_poison=True)
+    assert torch.equal(recv_splits, want_splits)
+    assert torch.equal(recv.view(torch.int16), want.view(torch.int16))
+    assert torch.isnan(recv.float()).any()
+
+    T, H, E = 512, 256, 8
+    x = _randn(g, (4, T // 4, H), cuda)
+    experts = torch.as_tensor(g.integers(0, E, (4, T // 4, 2)),
+                              dtype=torch.int32, device=cuda)
+    w = torch.full((4, T // 4, 2), 0.5, device=cuda)
+    outs = []
+    for poison in (False, True):
+        recv, _, _, plan, _ = ep.ep_dispatch_shard(
+            x, experts, n_experts=E, zero_undefined=True,
+            debug_poison=poison)
+        assert torch.isfinite(recv.float()).all()
+        outs.append(ep.ep_combine_shard(recv * 2, w, plan,
+                                        debug_poison=poison))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[1].float()).all()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+def test_all_to_all_peers_autograd_on_the_card(cuda):
+    """AllToAllFn over 4 ranks on the card against the same Function over
+    the plain version: the forward's rows below each split and the
+    cotangent (rows past the splits zero) bit for bit, two launches."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    g = np.random.default_rng(22)
+    send, splits = _a2a_peer_case(cuda, g, 4, 128, 256)
+    ct = _randn(g, tuple(send.shape), cuda)
+    outs = []
+    for plain in (False, True):
+        s = send.clone().requires_grad_()
+        n0 = a2a.fast_all_to_all_shard.launches
+        recv, rs = a2a.fast_all_to_all_shard_diff(s, splits, plain=plain)
+        keep = (torch.arange(128, device=cuda) < torch.clamp(
+            rs, max=128)[..., None])[..., None]
+        (d,) = torch.autograd.grad(recv, (s,), torch.where(keep, ct, 0))
+        torch.cuda.synchronize()
+        assert a2a.fast_all_to_all_shard.launches == n0 + (0 if plain else 2)
+        outs.append((torch.where(keep, recv, 0), d))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.gpu
+def test_moe_ep4_forward_and_train_step_at_mixtral_width(cuda):
+    """Mixtral-8x7B widths at 2 layers, S 512, over 4 ranks of the virtual
+    world (TP attention, expert-parallel FFN): the forward with the kernels
+    against the plain versions routed alike (relative L2 of the logits
+    within 2e-2), then an SGD step with a finite loss; per layer the
+    forward runs 2 all-to-alls, 3 grouped GEMMs, an AG-GEMM (QKV) and a
+    GEMM-RS (wo), the backward their duals."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+    from triton_dist_tpu_torch.models import moe
+    from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
+
+    use_full_precision_matmul()
+    cfg = replace(moe.MoEConfig.mixtral_8x7b(), n_layers=2)
+    params = moe.shard_params(moe.init_params(cfg, seed=0), cfg, 4)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(512, 1)), device=cuda)
+
+    def counts():
+        return (a2a.fast_all_to_all_shard.launches, gg.group_gemm.launches,
+                gg.group_gemm_dx.launches, agm.ag_gemm.launches,
+                grs.gemm_rs.launches)
+
+    n0 = counts()
+    routes = []
+    with torch.no_grad():
+        got, aux = moe.make_forward(cfg, 4)(params, tok, routes=routes)
+        want, aux_p = moe.make_forward(cfg, 4, plain=True)(params, tok,
+                                                           routes=routes)
+    L = cfg.n_layers
+    assert tuple(x - y for x, y in zip(counts(), n0)) == (
+        2 * L, 3 * L, 0, L, L)
+    assert torch.isfinite(got).all() and got.shape == (512, 1, cfg.vocab)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 2e-2, f"logits relative L2 {rel}"
+    assert abs(float(aux) - float(aux_p)) <= 1e-2 * float(aux_p)
+    del got, want
+    n0 = counts()
+    _, loss = moe.make_train_step(cfg, 4, lr=0.1)(params, tok,
+                                                  torch.roll(tok, -1, 0))
+    assert np.isfinite(float(loss))
+    assert tuple(x - y for x, y in zip(counts(), n0)) == (
+        4 * L, 3 * L, 3 * L, 2 * L, 2 * L)
 
 
 # ---------------------------------------------------------------------------

@@ -263,27 +263,33 @@ def test_group_gemm_wrappers_use_plain_versions_only_for_cpu_tensors():
 
 
 def test_all_to_all_wrapper_uses_plain_version_only_for_cpu_tensors():
-    """fast_all_to_all_shard (and its autograd twin) copies CPU tensors
-    through its plain version without counting a launch, and refuses other
-    devices."""
+    """fast_all_to_all_shard (and its autograd twin) shuffles CPU tensors
+    through its plain version without counting a launch, at world 1 and
+    over more ranks than the kernel takes, and refuses other devices."""
     from triton_dist_tpu_torch.kernels import all_to_all as a2a
 
-    send = torch.arange(24, dtype=torch.float32).reshape(1, 4, 6)
-    splits = torch.tensor([3], dtype=torch.int32)
+    send = torch.arange(24, dtype=torch.float32).reshape(1, 1, 4, 6)
+    splits = torch.tensor([[3]], dtype=torch.int32)
     n0 = a2a.fast_all_to_all_shard.launches
     recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
     assert torch.equal(recv, send) and torch.equal(recv_splits, splits)
     recv, _ = a2a.fast_all_to_all_shard_diff(send.requires_grad_(), splits)
     (d_send,) = torch.autograd.grad(recv.sum(), (send,))
-    assert torch.equal(d_send[0, :3], torch.ones((3, 6)))
-    assert torch.all(d_send[0, 3:] == 0)
+    assert torch.equal(d_send[0, 0, :3], torch.ones((3, 6)))
+    assert torch.all(d_send[0, 0, 3:] == 0)
+    nine = torch.arange(9 * 9 * 2, dtype=torch.float32).reshape(9, 9, 2, 1)
+    recv, _ = a2a.fast_all_to_all_shard(nine, torch.ones((9, 9),
+                                                         dtype=torch.int32))
+    assert torch.equal(recv, nine.transpose(0, 1))
     assert a2a.fast_all_to_all_shard.launches == n0
-    meta = torch.empty((1, 4, 6), device="meta")
+    meta = torch.empty((1, 1, 4, 6), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        a2a.fast_all_to_all_shard(meta, torch.zeros((1,), dtype=torch.int32,
-                                                    device="meta"))
+        a2a.fast_all_to_all_shard(meta, torch.zeros(
+            (1, 1), dtype=torch.int32, device="meta"))
     with pytest.raises(TypeError, match="int32"):
         a2a.fast_all_to_all_shard(send, splits.long())
+    with pytest.raises(ValueError, match="W, W, max_tokens"):
+        a2a.fast_all_to_all_shard(send[0], splits[0])
 
 
 def test_tp_wrappers_use_plain_versions_only_for_cpu_tensors():

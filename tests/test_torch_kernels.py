@@ -15,11 +15,16 @@ dequantized K/V and the V-scaled P to q's dtype before their products.
 The quantizers and the int8 GEMM are held to bit equality.
 
 The MoE modules (routing helpers, the grouped GEMM and its autograd, the
-all-to-all and its autograd, world-1 dispatch / combine,
-``DistributedMoELayer``) against the reference at world 1: identical
-integers, f32 within 1e-6 (helpers) or 1e-5 (layer, against
-``impl="xla"``), 2e-2 against interpret-mode Pallas in bf16, 1e-4 for the
-VJP (the reference test's), exact int8 and exact all-to-all (a copy).
+all-to-all and its autograd, dispatch / combine, ``DistributedMoELayer``)
+against the reference at world 1: identical integers, f32 within 1e-6
+(helpers) or 1e-5 (layer, against ``impl="xla"``), 2e-2 against
+interpret-mode Pallas in bf16, 1e-4 for the VJP (the reference test's),
+exact int8 and exact all-to-all (a copy).  Over W ranks (the conftest's
+``mesh2`` / ``mesh4``): the all-to-all against the interpret-mode Pallas
+``_a2a_kernel`` on every row below each split and on the split counts,
+and against ``impl="xla"`` whole, exact (fp8 bit for bit); its VJP
+exact; ``EPAll2AllLayer`` and ``DistributedMoELayer`` (bf16, f32, W8A8)
+at the world-1 tolerances.
 
 Tensor parallelism: the plain versions of the AG-GEMM and the GEMM-RS at
 W in {1, 2, 4} against the reference's interpret-mode Pallas ring kernels
@@ -599,10 +604,11 @@ def _jax_ep(fn, *args):
 
 @pytest.mark.parametrize("max_tokens", [None, 5])
 def test_ep_dispatch_combine_world1_match_reference(max_tokens):
-    """ep_dispatch_shard / ep_combine_shard at world 1 against the
-    reference's on a one-device mesh: the same receive buffer, expert ids,
-    splits and dropped count (capacity 5 drops assignments), and the same
-    combined output (f32, 1e-6)."""
+    """ep_dispatch_shard / ep_combine_shard at world 1 (rank-stacked
+    inputs, W = 1) against the reference's on a one-device mesh: the same
+    receive buffer, expert ids, splits and dropped count (capacity 5 drops
+    assignments), and the same combined output (f32, 1e-6); the same
+    tokens split over two ranks combine to the same output."""
     from triton_dist_tpu.layers import ep_a2a as jep
     from triton_dist_tpu_torch.layers import ep_a2a as tep
 
@@ -625,25 +631,32 @@ def test_ep_dispatch_combine_world1_match_reference(max_tokens):
 
     n0 = ta.fast_all_to_all_shard.launches
     recv, re, sp, plan, nd = tep.ep_dispatch_shard(
-        _t(x), _t(experts), n_experts=E, max_tokens=max_tokens)
-    out = tep.ep_combine_shard(recv * 2.0 + 1.0, _t(wts), plan)
+        _t(x)[None], _t(experts)[None], n_experts=E, max_tokens=max_tokens)
+    out = tep.ep_combine_shard(recv * 2.0 + 1.0, _t(wts)[None], plan)
     assert ta.fast_all_to_all_shard.launches == n0    # plain on the CPU
-    assert np.array_equal(recv.numpy(), np.asarray(want[0]))
-    assert np.array_equal(re.numpy(), np.asarray(want[1]))
-    assert np.array_equal(sp.numpy(), np.asarray(want[2]))
+    assert np.array_equal(recv[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(re[0].numpy(), np.asarray(want[1]))
+    assert np.array_equal(sp[0].numpy(), np.asarray(want[2]))
     assert int(nd) == int(want[3]) == (0 if max_tokens is None else 7)
-    assert_allclose(out, np.asarray(want[4]), atol=1e-6, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tep.ep_dispatch_shard(_t(x), _t(experts), n_experts=E, world=2)
+    assert_allclose(out[0], np.asarray(want[4]), atol=1e-6, rtol=1e-6)
+    if max_tokens is None:
+        recv2, _, _, plan2, nd2 = tep.ep_dispatch_shard(
+            _t(x).reshape(2, T // 2, H), _t(experts).reshape(2, T // 2, topk),
+            n_experts=E)
+        out2 = tep.ep_combine_shard(recv2 * 2.0 + 1.0,
+                                    _t(wts).reshape(2, T // 2, topk), plan2)
+        assert recv2.shape[:2] == (2, 2) and int(nd2) == 0
+        assert torch.equal(out2.reshape(T, H), out[0])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 def test_all_to_all_world1_matches_pallas(dtype, monkeypatch):
-    """fast_all_to_all_shard at world 1 (its plain version on CPU tensors)
-    against the reference's Pallas ``_a2a_kernel`` in interpret mode on a
-    one-device mesh (spied, so the kernel is known to trace): recv equals
-    send, padding rows past the split included, and recv_splits equals
-    splits — exact."""
+    """fast_all_to_all_shard at world 1 (send [1, 1, max_tokens, H]; its
+    plain version on CPU tensors) against the reference's Pallas
+    ``_a2a_kernel`` in interpret mode on a one-device mesh (spied, so the
+    kernel is known to trace): recv equals send, padding rows past the
+    split included, and recv_splits equals splits — exact; over two ranks
+    the same call is the transpose of the rank dimensions."""
     ja = importlib.import_module("triton_dist_tpu.kernels.all_to_all")
     from triton_dist_tpu_torch.kernels import all_to_all as ta
 
@@ -663,14 +676,17 @@ def test_all_to_all_world1_matches_pallas(dtype, monkeypatch):
         jnp.asarray(send), jnp.asarray(splits))
     assert traced == [1]
     n0 = ta.fast_all_to_all_shard.launches
-    recv, recv_splits = ta.fast_all_to_all_shard(_t(send), _t(splits))
+    recv, recv_splits = ta.fast_all_to_all_shard(_t(send)[None],
+                                                 _t(splits)[None])
     assert ta.fast_all_to_all_shard.launches == n0
-    assert np.array_equal(recv.numpy(), np.asarray(want[0]))
-    assert np.array_equal(recv_splits.numpy(), np.asarray(want[1]))
+    assert np.array_equal(recv[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(recv_splits[0].numpy(), np.asarray(want[1]))
     assert recv.data_ptr() != _t(send).data_ptr()       # a copy, not a view
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ta.fast_all_to_all_shard(torch.zeros((2, 4, 8)),
-                                 torch.zeros((2,), dtype=torch.int32))
+    send2 = _t((rng.standard_normal((2, 2, 4, 8)) * 100).astype(dtype))
+    splits2 = torch.tensor([[1, 4], [0, 3]], dtype=torch.int32)
+    recv2, rsplits2 = ta.fast_all_to_all_shard(send2, splits2)
+    assert torch.equal(recv2, send2.transpose(0, 1))
+    assert torch.equal(rsplits2, splits2.t())
 
 
 def test_all_to_all_autograd_matches_reference_vjp():
@@ -689,31 +705,292 @@ def test_all_to_all_autograd_matches_reference_vjp():
         return jnp.sum(recv * jnp.asarray(ct))
 
     want = _jax_ep(jax.grad(loss), jnp.asarray(send))
-    ts = _t(send).requires_grad_()
-    recv, recv_splits = ta.fast_all_to_all_shard_diff(ts, _t(splits))
+    ts = _t(send)[None].requires_grad_()
+    recv, recv_splits = ta.fast_all_to_all_shard_diff(ts, _t(splits)[None])
     assert "AllToAllFn" in type(recv.grad_fn).__name__
-    (got,) = torch.autograd.grad((recv * _t(ct)).sum(), (ts,))
-    assert np.array_equal(got.numpy(), np.asarray(want))
-    assert torch.all(got[0, 7:] == 0) and torch.equal(got[0, :7],
-                                                       _t(ct)[0, :7])
+    (got,) = torch.autograd.grad((recv * _t(ct)[None]).sum(), (ts,))
+    assert np.array_equal(got[0].numpy(), np.asarray(want))
+    assert torch.all(got[0, 0, 7:] == 0) and torch.equal(got[0, 0, :7],
+                                                          _t(ct)[0, :7])
 
 
-def _moe_layers(dtype_name, **kw):
-    """The reference's DistributedMoELayer on a one-device mesh and the
-    port's, with the same weights (T 32, H 128, F 128, E 8, top-2,
-    block_m 8: tests/test_moe_inference.py's sizes)."""
+# splits [src, dst] over 2 and 4 ranks: 0, below a block, equal to
+# max_tokens (8), and above it (clamped by the kernel, raw in recv_splits)
+A2A_SPLITS = {2: [[0, 8], [3, 5]],
+              4: [[0, 3, 8, 1], [8, 0, 2, 5], [4, 8, 0, 7], [1, 2, 3, 0]]}
+
+
+def _a2a_case(world, dtype, seed):
+    """(send [W * W, 8, 128] in ``dtype`` with NaN-free rows, splits
+    [W * W] int32) as the reference's host layout."""
+    rng = np.random.default_rng(seed)
+    send = rng.standard_normal((world * world, 8, 128)).astype(np.float32)
+    splits = np.array(A2A_SPLITS[world], np.int32).reshape(-1)
+    return jnp.asarray(send).astype(getattr(jnp, dtype)), splits
+
+
+def _as_torch(a):
+    """A numpy / jax array as a torch tensor; fp8 through its bytes."""
+    a = np.array(a)
+    if a.dtype.name.startswith("float8"):
+        return torch.from_numpy(a.view(np.uint8)).view(
+            getattr(torch, a.dtype.name))
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("world,dtype", [(2, "float32"), (4, "float32"),
+                                         (2, "float8_e4m3fn")])
+def test_all_to_all_peers_match_pallas(world, dtype, monkeypatch, request):
+    """fast_all_to_all_shard over W ranks (its plain version on CPU
+    tensors) against the reference's ``_a2a_kernel`` in interpret mode on
+    the conftest's ``mesh{W}`` (spied): every rank's rows below each split
+    and recv_splits exactly equal, splits of 0, of max_tokens and above it
+    included, fp8 bit for bit (tests/test_all_to_all.py:53); and the whole
+    buffers equal to the reference's ``impl="xla"`` full-segment
+    shuffle."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+
+    ja = importlib.import_module("triton_dist_tpu.kernels.all_to_all")
+    traced = []
+    kernel = ja._a2a_kernel
+
+    def spy(*args, **kw):
+        traced.append(kw["world"])
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(ja, "_a2a_kernel", spy)
+    send, splits = _a2a_case(world, dtype, 162 + world)
+    mesh = _mesh(world, request)
+    outs = {}
+    for impl in ("pallas", "xla"):
+        outs[impl] = _shard_map(
+            lambda s, p, impl=impl: ja.fast_all_to_all_shard(
+                s, p, axis="tp", impl=impl, interpret=impl == "pallas"),
+            mesh, (P("tp"), P("tp")), (P("tp"), P("tp")), send,
+            jnp.asarray(splits))
+    assert traced and set(traced) == {world}
+    mt = send.shape[1]
+    n0 = ta.fast_all_to_all_shard.launches
+    recv, recv_splits = ta.fast_all_to_all_shard(
+        _as_torch(send).reshape(world, world, mt, 128),
+        _t(splits).reshape(world, world))
+    assert ta.fast_all_to_all_shard.launches == n0
+    raw = recv.view(torch.uint8) if recv.element_size() == 1 else recv
+    want_splits = np.asarray(outs["pallas"][1]).reshape(world, world)
+    assert np.array_equal(recv_splits.numpy(), want_splits)
+    pallas = _as_torch(outs["pallas"][0]).reshape(world, world, mt, 128)
+    pallas = pallas.view(torch.uint8) if recv.element_size() == 1 else pallas
+    for p in range(world):
+        for r in range(world):
+            k = min(int(want_splits[p, r]), mt)
+            assert torch.equal(raw[p, r, :k], pallas[p, r, :k]), (p, r)
+    xla = _as_torch(outs["xla"][0]).reshape(world, world, mt, 128)
+    xla = xla.view(torch.uint8) if recv.element_size() == 1 else xla
+    assert torch.equal(raw, xla)
+    assert np.array_equal(recv_splits.numpy().reshape(-1),
+                          np.asarray(outs["xla"][1]))
+
+
+def test_all_to_all_peers_vjp_matches_reference(mesh4):
+    """AllToAllFn over 4 ranks against jax.grad through the reference's
+    custom VJP inside shard_map on mesh4 (``impl="xla"``): exact; the
+    rows past each split come back zero."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+
+    ja = importlib.import_module("triton_dist_tpu.kernels.all_to_all")
+    send, _ = _a2a_case(4, "float32", 170)
+    ct = _inputs(171, tuple(send.shape))[0]
+    splits = np.array(A2A_SPLITS[4], np.int32).reshape(-1)
+
+    def shard(s, p, c):
+        def loss(s_):
+            recv, _ = ja.fast_all_to_all_shard_diff(s_, p, "tp", "xla",
+                                                    False)
+            return jnp.sum(recv * c)
+        return jax.grad(loss)(s)
+
+    want = _shard_map(shard, mesh4, (P("tp"), P("tp"), P("tp")), P("tp"),
+                      send, jnp.asarray(splits), jnp.asarray(ct))
+    ts = _t(np.asarray(send)).reshape(4, 4, 8, 128).requires_grad_()
+    recv, _ = ta.fast_all_to_all_shard_diff(ts, _t(splits).reshape(4, 4))
+    (got,) = torch.autograd.grad(
+        (recv * _t(ct).reshape(4, 4, 8, 128)).sum(), (ts,))
+    assert np.array_equal(got.numpy().reshape(16, 8, 128), np.asarray(want))
+    sp = _t(splits).reshape(4, 4)
+    for r in range(4):
+        for p in range(4):
+            assert torch.all(got[r, p, sp[r, p]:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_all_to_all_debug_poison_and_consumers_mask(dtype):
+    """``debug_poison``: every peer segment's rows past min(split,
+    max_tokens) hold NaN (integers: the type's maximum), the own segment
+    and the rows below the splits are the shuffle's; dispatch with
+    ``zero_undefined`` and combine, both poisoned, give exactly the
+    unpoisoned output (each consumer masks)."""
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+    from triton_dist_tpu_torch.layers import ep_a2a as tep
+
+    send = (_t(np.asarray(_a2a_case(4, "float32", 172)[0])) * 100).to(
+        dtype).reshape(4, 4, 8, 128)
+    splits = torch.tensor(A2A_SPLITS[4], dtype=torch.int32)
+    clean, rs = ta.fast_all_to_all_shard(send, splits)
+    recv, rs2 = ta.fast_all_to_all_shard(send, splits, debug_poison=True)
+    assert torch.equal(rs, rs2)
+    sentinel = (float("nan") if dtype.is_floating_point
+                else torch.iinfo(dtype).max)
+    for p in range(4):
+        for r in range(4):
+            k = 8 if p == r else min(int(rs[p, r]), 8)
+            assert torch.equal(recv[p, r, :k], clean[p, r, :k])
+            tail = recv[p, r, k:]
+            assert (torch.isnan(tail).all() if dtype.is_floating_point
+                    else (tail == sentinel).all())
+    assert torch.isnan(recv).any() or not dtype.is_floating_point
+
+    T, H, E, topk = 32, 128, 8, 2
+    x, wts = (_t(a) for a in _inputs(173, (4, T // 4, H), (4, T // 4, topk)))
+    experts = _t(np.random.default_rng(174).integers(
+        0, E, (4, T // 4, topk)).astype(np.int32))
+    outs = []
+    for poison in (False, True):
+        recv, re, _, plan, _ = tep.ep_dispatch_shard(
+            x, experts, n_experts=E, max_tokens=3, zero_undefined=True,
+            debug_poison=poison)
+        assert torch.isfinite(recv).all()
+        outs.append(tep.ep_combine_shard(recv * 2.0 + 1.0, wts, plan,
+                                         debug_poison=poison))
+    assert torch.isfinite(outs[1]).all() and torch.equal(outs[0], outs[1])
+
+
+def test_all_to_all_context_entry_and_post_process(mesh4):
+    """fast_all_to_all over an AllToAllContext against the reference's
+    host entry on mesh4 (``impl="xla"``, tests/test_all_to_all.py:33):
+    recv[d][s] = send[s][d] and the splits likewise, exact; its shape and
+    max_tokens checks; all_to_all_post_process's flattening and mask; a
+    2-tuple axis raises."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+
+    ja = importlib.import_module("triton_dist_tpu.kernels.all_to_all")
+    send, splits = _a2a_case(4, "float32", 175)
+    sh = NamedSharding(mesh4, P("tp"))
+    jctx = ja.create_all_to_all_context(mesh4, 8, 128, axis="tp",
+                                        impl="xla")
+    want, want_splits = ja.fast_all_to_all(
+        jax.device_put(send, sh), jax.device_put(jnp.asarray(splits), sh),
+        jctx)
+    ctx = ta.create_all_to_all_context(4, 8, 128, device="cpu")
+    assert ctx.size == 4 and ctx.world.size == 4
+    recv, recv_splits = ta.fast_all_to_all(_as_torch(send), _t(splits), ctx)
+    assert recv.shape == (16, 8, 128)
+    assert np.array_equal(recv.numpy(), np.asarray(want))
+    assert np.array_equal(recv_splits.numpy(), np.asarray(want_splits))
+    with pytest.raises(ValueError, match="ctx sizing"):
+        ta.fast_all_to_all(_as_torch(send)[:8], _t(splits), ctx)
+    with pytest.raises(ValueError, match="explicit ctx.max_tokens"):
+        ta.fast_all_to_all(_as_torch(send), _t(splits),
+                           ta.create_all_to_all_context(4, None, 128,
+                                                        device="cpu"))
+    local = recv.reshape(4, 4, 8, 128)[1]
+    tokens, mask = ta.all_to_all_post_process(local,
+                                              recv_splits.reshape(4, 4)[1])
+    jt, jm = ja.all_to_all_post_process(jnp.asarray(local.numpy()),
+                                        jnp.asarray(recv_splits.reshape(
+                                            4, 4)[1].numpy()))
+    assert np.array_equal(tokens.numpy(), np.asarray(jt))
+    assert np.array_equal(mask.numpy(), np.asarray(jm))
+    with pytest.raises(NotImplementedError, match="items 14 and 15"):
+        ta.create_all_to_all_context(4, 8, 128, axis=("dp", "tp"),
+                                     device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_ep_layer_w4_matches_reference(impl, mesh4, mesh2):
+    """EPAll2AllLayer over 4 ranks against the reference's on mesh4
+    (tests/test_ep_layer.py:31): dispatch's receive buffer (against the
+    reference's interpret-mode Pallas kernel: the rows below each split),
+    expert ids, splits and dropped count, and the round trip through a
+    per-expert scale (f32, 1e-6); the capacity drop of
+    tests/test_ep_layer.py:62 on mesh2 (8 dropped, the survivors
+    exact)."""
+    from triton_dist_tpu.kernels.all_to_all import (
+        create_all_to_all_context as jcreate)
+    from triton_dist_tpu.kernels.moe_utils import topk_routing as jtopk
+    from triton_dist_tpu.layers.ep_a2a import EPAll2AllLayer as JLayer
+    from triton_dist_tpu_torch.kernels.all_to_all import (
+        create_all_to_all_context)
+    from triton_dist_tpu_torch.layers.ep_a2a import EPAll2AllLayer
+
+    W, T, H, E, topk = 4, 32, 64, 8, 2
+    x, logits = _inputs(176, (T, H), (T, E))
+    wts, experts = jtopk(jnp.asarray(logits), topk)
+    jl = JLayer(ctx=jcreate(mesh4, (T // W) * topk, H, axis="tp", impl=impl,
+                            interpret=impl == "pallas"), n_experts=E,
+                topk=topk)
+    jrecv, jre, jsp, jplan, jnd = jl.dispatch(jnp.asarray(x), experts)
+    scale = (1.0 + jre.astype(jnp.float32))[..., None]
+    jout = jl.combine((jrecv * scale).astype(jrecv.dtype), wts, jplan)
+
+    tl = EPAll2AllLayer(ctx=create_all_to_all_context(
+        W, (T // W) * topk, H, device="cpu"), n_experts=E, topk=topk)
+    recv, re, sp, plan, nd = tl.dispatch(_t(x), _t(np.asarray(experts)))
+    assert int(nd) == int(jnd) == 0
+    assert np.array_equal(sp.numpy(), np.asarray(jsp))
+    assert np.array_equal(re.numpy(), np.asarray(jre))
+    rows = np.arange(recv.shape[1])[None, :] < sp.numpy()[:, None]
+    assert np.array_equal(recv.numpy()[rows], np.asarray(jrecv)[rows])
+    for got, want in zip(plan, jplan):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    out = tl.combine(recv * (1.0 + re.float())[..., None],
+                     _t(np.asarray(wts)), plan)
+    assert_allclose(out, np.asarray(jout), atol=1e-6, rtol=1e-6)
+
+    # capacity: every token to expert 0 on rank 0, 4 slots per source
+    T2, H2 = 16, 32
+    x2 = _inputs(177, (T2, H2))[0]
+    jl2 = JLayer(ctx=jcreate(mesh2, 4, H2, axis="tp", impl="xla"),
+                 n_experts=2, topk=1)
+    e2 = np.zeros((T2, 1), np.int32)
+    w2 = np.ones((T2, 1), np.float32)
+    jrecv2, _, jsp2, jplan2, jnd2 = jl2.dispatch(jnp.asarray(x2),
+                                                 jnp.asarray(e2))
+    jout2 = jl2.combine(jrecv2, jnp.asarray(w2), jplan2)
+    tl2 = EPAll2AllLayer(ctx=create_all_to_all_context(2, 4, H2,
+                                                       device="cpu"),
+                         n_experts=2, topk=1)
+    recv2, _, sp2, plan2, nd2 = tl2.dispatch(_t(x2), _t(e2))
+    assert int(nd2) == int(jnd2) == 8
+    assert sp2.reshape(2, 2).tolist() == [[4, 4], [0, 0]]
+    out2 = tl2.combine(recv2, _t(w2), plan2)
+    assert np.array_equal(out2.numpy(), np.asarray(jout2))
+
+
+def _moe_layers(dtype_name, mesh=None, **kw):
+    """The reference's DistributedMoELayer on ``mesh`` (one device by
+    default) and the port's over as many ranks, with the same weights (T
+    32, H 128, F 128, E 8, top-2, block_m 8: tests/test_moe_inference.py's
+    sizes)."""
     from jax.sharding import Mesh
     from triton_dist_tpu.layers.moe_inference import (
         DistributedMoELayer as JLayer)
     from triton_dist_tpu_torch.layers.moe_inference import (
         DistributedMoELayer as TLayer)
 
-    mesh = Mesh(np.array(jax.devices()[:1]), ("tp",))
+    if mesh is None:
+        mesh = Mesh(np.array(jax.devices()[:1]), ("tp",))
     opts = dict(n_experts=8, topk=2, hidden=128, intermediate=128, block_m=8)
     jl = JLayer(mesh=mesh, axis="tp", dtype=getattr(jnp, dtype_name),
                 impl="xla", **opts, **kw)
     w = jax.device_get(jl.init_weights(jax.random.key(3)))
-    tl = TLayer(dtype=getattr(torch, dtype_name), device="cpu", **opts)
+    tl = TLayer(dtype=getattr(torch, dtype_name), device="cpu",
+                world=mesh.size, **opts, **kw)
     tl.weights = {k: _t(np.array(v, np.float32)).to(
         torch.float32 if k == "router" else tl.dtype) for k, v in w.items()}
     x = _inputs(150, (32, 128))[0]
@@ -725,7 +1002,8 @@ def _moe_layers(dtype_name, **kw):
 def test_moe_layer_matches_reference(dtype_name, tol):
     """DistributedMoELayer (internal router) against the reference's layer
     at world 1 with impl="xla": f32 within 1e-5; bf16 within 2e-2 (both
-    round each grouped GEMM's f32 sums to bf16, in different orders)."""
+    round each grouped GEMM's f32 sums to bf16, in different orders); the
+    same layer over two ranks gives the same output."""
     jl, tl, x = _moe_layers(dtype_name)
     want = jl.forward(jnp.asarray(x, getattr(jnp, dtype_name)))
     n0 = tgg.group_gemm.launches
@@ -733,9 +1011,46 @@ def test_moe_layer_matches_reference(dtype_name, tol):
     assert got.dtype == tl.dtype and tgg.group_gemm.launches == n0
     assert_allclose(got.float(), np.asarray(want, np.float32), atol=tol,
                     rtol=tol)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    tl2 = type(tl)(n_experts=8, topk=2, hidden=128, intermediate=128,
+                   block_m=8, dtype=tl.dtype, world=2, device="cpu")
+    tl2.weights = tl.weights
+    assert tl2.experts_per_rank == 4
+    assert_allclose(tl2.forward(_t(x)).float(), got.float(), atol=tol,
+                    rtol=tol)
+
+
+@pytest.mark.parametrize("dtype_name,tol", [("float32", 1e-5),
+                                            ("bfloat16", 2e-2)])
+def test_moe_layer_w4_matches_reference(dtype_name, tol, mesh4):
+    """DistributedMoELayer over 4 ranks against the reference's layer on
+    mesh4 (tests/test_moe_inference.py:47, :70, :106; impl="xla"), with
+    the internal router and with given routing: f32 within 1e-5, bf16
+    within 2e-2; ``weight_specs`` cut what the reference's cut; a tuple
+    axis and an expert count that does not split raise."""
+    jl, tl, x = _moe_layers(dtype_name, mesh=mesh4)
+    xj = jnp.asarray(x, getattr(jnp, dtype_name))
+    want = jl.forward(xj)
+    got = tl.forward(_t(x))
+    assert got.dtype == tl.dtype and got.shape == (32, 128)
+    assert_allclose(got.float(), np.asarray(want, np.float32), atol=tol,
+                    rtol=tol)
+    rng = np.random.default_rng(151)
+    ex = rng.integers(0, 8, (32, 2)).astype(np.int32)
+    wts = rng.dirichlet(np.ones(2), 32).astype(np.float32)
+    want = jl.forward(xj, experts=jnp.asarray(ex),
+                      routing_weights=jnp.asarray(wts))
+    got = tl.forward(_t(x), experts=_t(ex), routing_weights=_t(wts))
+    assert_allclose(got.float(), np.asarray(want, np.float32), atol=tol,
+                    rtol=tol)
+    specs = {k: (0 if len(v) and v[0] == "tp" else None)
+             for k, v in jl.weight_specs().items()}
+    assert tl.weight_specs() == specs and tl.experts_per_rank == 2
+    with pytest.raises(NotImplementedError, match="items 14 and 15"):
         type(tl)(n_experts=8, topk=2, hidden=128, intermediate=128,
-                 world=2, device="cpu")
+                 world=8, axis=("dp", "tp"), device="cpu")
+    with pytest.raises(ValueError, match="do not split"):
+        type(tl)(n_experts=6, topk=2, hidden=128, intermediate=128,
+                 world=4, device="cpu")
 
 
 def test_moe_layer_w8a8_matches_reference():
@@ -745,7 +1060,16 @@ def test_moe_layer_w8a8_matches_reference():
     on a boundary one int8 step apart); it also tracks the float layer as
     the reference's test asks (median relative error < 0.05, cosine >
     0.995)."""
-    jl, tl, x = _moe_layers("float32")
+    _check_w8a8_layer(*_moe_layers("float32"))
+
+
+def test_moe_layer_w4_w8a8_matches_reference(mesh4):
+    """test_moe_layer_w8a8_matches_reference over 4 ranks, against the
+    reference's layer on mesh4 (tests/test_moe_inference.py:106)."""
+    _check_w8a8_layer(*_moe_layers("float32", mesh=mesh4))
+
+
+def _check_w8a8_layer(jl, tl, x):
     wts, ex = jl.route(jnp.asarray(x))
     ref_float = np.asarray(jl.forward(jnp.asarray(x), experts=ex,
                                       routing_weights=wts))

@@ -259,7 +259,7 @@ def test_unported_options_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpGQAFlashDecodeAttention(world=2, device="cpu")
-    # the W8A8 hooks under tensor parallelism (Queue 1 item 12)
+    # the W8A8 hooks under tensor parallelism (Queue 1 item 9)
     x = torch.zeros((2, 256))
     layer = llama_w8a8.quantize_serve_params(
         tllama.init_params(tllama.LlamaConfig(**SMALL), device="cpu"),

@@ -20,7 +20,11 @@
   loss within 1e-5, gradients within 1e-5 / 1e-4 and updated parameters
   within 5e-4, as for Llama; ``routes`` recorded and replayed give the
   same forward and gradient to the bit; and ``examples/train.py --model
-  moe``.
+  moe``.  Over 4 ranks (TP attention, expert-parallel FFN):
+  ``shard_params`` of the same weights against the reference's mesh4
+  ``make_forward`` / ``make_grads`` / ``make_train_step`` and its
+  capacity-truncated forward at the same tolerances; world-1 routes
+  replayed at 4 ranks; ``examples/train.py --model moe --tp 4``.
 """
 
 import os
@@ -28,12 +32,15 @@ import subprocess
 import sys
 import time
 
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from triton_dist_tpu.models import llama as jllama
@@ -305,8 +312,8 @@ def test_train_cli_refuses_unported_options():
     from triton_dist_tpu_torch.examples import train
 
     for flags, item in ((["--model", "moe", "--opt", "adamw", "--dp", "2"],
-                         "item 12"),
-                        (["--dp", "2"], "item 12"),
+                         "items 14 and 15"),
+                        (["--dp", "2"], "items 14 and 15"),
                         (["--profile", "p"], "item 16")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
@@ -532,13 +539,157 @@ def test_train_cli_tp4_runs(capsys):
     assert "tp=4" in out and "step    1" in out and "done" in out
 
 
-def test_train_cli_refuses_unported_tp_options():
-    """--dp (checked first), AdamW and the MoE family at --tp > 1 raise,
-    each naming its ROADMAP item."""
+def test_train_cli_refuses_unported_tp_options(capsys):
+    """--dp (checked first) and AdamW at --tp > 1 raise, each naming its
+    ROADMAP item; the MoE family at --tp 2 runs."""
     from triton_dist_tpu_torch.examples import train
 
-    for flags, item in ((["--tp", "4", "--dp", "2"], "item 12"),
-                        (["--tp", "4", "--opt", "adamw"], "item 14"),
-                        (["--model", "moe", "--tp", "2"], "item 13")):
+    for flags, item in ((["--tp", "4", "--dp", "2"], "items 14 and 15"),
+                        (["--tp", "4", "--opt", "adamw"], "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
+    train.main(["--device", "cpu", "--model", "moe", "--tp", "2", "--steps",
+                "1", "--seq", "16", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "model=moe" in out and "tp=2" in out and "done" in out
+
+
+# ---------------------------------------------------------------------------
+# The MoE family over 4 ranks: TP attention, expert-parallel FFN
+# ---------------------------------------------------------------------------
+
+
+def _ep4_params(host, tcfg):
+    return tmoe.shard_params(tmoe.params_from_jax(host, tcfg, device="cpu"),
+                             tcfg, 4)
+
+
+def test_moe_ep4_forward_matches_reference(moe_pair):
+    """make_forward(cfg, 4) on shard_params(params_from_jax(...)) against
+    the reference's make_forward over mesh4 (``impl="xla"``), S 32, B 2
+    (8 positions per rank): logits within 2e-5 and the aux loss (each
+    rank's local-batch balance loss over 4, summed) within 1e-5; the
+    expert stacks are the world-1 tensors, the attention weights cut per
+    rank."""
+    jcfg, _, tcfg, host = moe_pair
+    jtok, _, ttok, _ = _tokens4(jcfg.vocab, S=32, B=2, seed=8)
+    want, jaux = jmoe.make_forward(jcfg, _mesh4(), impl="xla")(
+        jmoe.place_params(jax.tree.map(jnp.asarray, host), jcfg, _mesh4()),
+        jtok)
+    p1 = tmoe.params_from_jax(host, tcfg, device="cpu")
+    tparams = tmoe.shard_params(p1, tcfg, 4)
+    layer = tparams["layers"][0]
+    assert layer["wq"].shape == (4, tcfg.dim, tcfg.dim // 4)
+    assert layer["wo"].shape == (4, tcfg.dim // 4, tcfg.dim)
+    assert layer["w_gate"] is p1["layers"][0]["w_gate"]
+    assert layer["router"] is p1["layers"][0]["router"]
+    with torch.no_grad():
+        got, aux = tmoe.make_forward(tcfg, 4)(tparams, ttok)
+    assert got.dtype == torch.float32 and got.shape == (32, 2, jcfg.vocab)
+    assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+    assert_allclose(aux, np.asarray(jaux), atol=1e-6, rtol=1e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        tmoe.shard_params(p1, tcfg, 3)
+    with pytest.raises(ValueError, match="split over 4"):
+        tmoe.make_forward(tcfg, 4)(tparams, ttok[:30])
+
+
+def test_moe_ep4_sgd_step_matches_reference(moe_pair):
+    """One in-place SGD step over 4 ranks against the reference's
+    make_train_step on mesh4 (``impl="xla"``): the loss within 1e-5 and
+    every updated leaf within 5e-4 (the replicated leaves with the ranks'
+    gradients summed); the experts and the router moved."""
+    jcfg, _, tcfg, host = moe_pair
+    jtok, jtgt, ttok, ttgt = _tokens4(jcfg.vocab, S=32, B=2, seed=9)
+    jstep, _ = jmoe.make_train_step(jcfg, _mesh4(), impl="xla", lr=0.5)
+    jnew, jloss = jstep(jmoe.place_params(jax.tree.map(jnp.asarray, host),
+                                          jcfg, _mesh4()), jtok, jtgt)
+    tparams = _ep4_params(host, tcfg)
+    same, tloss = tmoe.make_train_step(tcfg, 4, lr=0.5)(tparams, ttok, ttgt)
+    assert same is tparams
+    assert_allclose(tloss, np.asarray(jloss), atol=1e-5, rtol=1e-5)
+    got = tree_leaves(tparams)
+    want = tree_leaves(_ep4_params(jax.device_get(jnew), tcfg))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_allclose(g, w, atol=5e-4, rtol=5e-4)
+    for name in ("router", "w_gate", "w_down"):
+        moved = np.abs(tparams["layers"][0][name].detach().numpy()
+                       - host["layers"][0][name]).max()
+        assert moved > 1e-6, name
+
+
+def test_moe_ep4_make_grads_matches_reference(moe_pair):
+    """training.make_grads(moe, cfg, world=4) against the reference's
+    make_grads on mesh4 (``impl="xla"``): the loss within 1e-5, every
+    gradient leaf, sharded alike, within 1e-5 / 1e-4."""
+    jcfg, _, tcfg, host = moe_pair
+    jtok, jtgt, ttok, ttgt = _tokens4(jcfg.vocab, S=32, B=2, seed=10)
+    jgrads_fn, _ = jtraining.make_grads(jmoe, jcfg, _mesh4(), impl="xla")
+    jloss, jgrads = jgrads_fn(jmoe.place_params(
+        jax.tree.map(jnp.asarray, host), jcfg, _mesh4()), jtok, jtgt)
+    tloss, tgrads = ttraining.make_grads(tmoe, tcfg, world=4)(
+        _ep4_params(host, tcfg), ttok, ttgt)
+    assert_allclose(tloss, np.asarray(jloss), atol=1e-5, rtol=1e-5)
+    got = tree_leaves(tgrads)
+    want = tree_leaves(_ep4_params(jax.device_get(jgrads), tcfg))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_allclose(g, w, atol=1e-5, rtol=1e-4)
+
+
+def test_moe_ep4_routes_replay_world1_routes(moe_pair):
+    """routes recorded at world 1 and at 4 ranks pick the same experts
+    per token (rank r's are rows r S/W B ... of the world-1 list); the
+    world-1 list replayed at 4 ranks gives the 4-rank forward, and its
+    cross-entropy and logits equal world 1's (the aux loss differs by
+    design: each rank balances its own batch)."""
+    _, _, tcfg, host = moe_pair
+    _, _, ttok, ttgt = _tokens4(tcfg.vocab, S=32, B=2, seed=11)
+    p1 = tmoe.params_from_jax(host, tcfg, device="cpu")
+    p4 = tmoe.shard_params(p1, tcfg, 4)
+    r1, r4 = [], []
+    with torch.no_grad():
+        l1, aux1 = tmoe.make_forward(tcfg)(p1, ttok, routes=r1)
+        l4, aux4 = tmoe.make_forward(tcfg, 4)(p4, ttok, routes=r4)
+        l4r, aux4r = tmoe.make_forward(tcfg, 4)(p4, ttok, routes=r1)
+    assert len(r1) == len(r4) == tcfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(r1, r4))
+    assert torch.equal(l4r, l4) and torch.equal(aux4r, aux4)
+    assert_allclose(l4, l1, atol=2e-5, rtol=2e-5)
+    assert abs(float(aux4) - float(aux1)) > 1e-6
+    ce = [F.cross_entropy(x.reshape(-1, tcfg.vocab), ttgt.reshape(-1))
+          for x in (l1, l4r)]
+    assert_allclose(ce[1], ce[0], atol=1e-6, rtol=1e-6)
+
+
+def test_moe_ep4_capacity_truncation_matches_reference(moe_pair):
+    """A tight capacity (max_tokens 8 of 32 assignments per rank) drops
+    assignments over 4 ranks (tests/test_moe_model.py:115): finite logits
+    of the right shape, within 2e-5 of the reference's mesh4 forward."""
+    jcfg, _, tcfg, host = moe_pair
+    jcfg8 = jmoe.MoEConfig(**{**jcfg.__dict__, "max_tokens": 8})
+    tcfg8 = replace(tcfg, max_tokens=8)
+    jtok, _, ttok, _ = _tokens4(jcfg.vocab, S=32, B=2, seed=12)
+    want, jaux = jmoe.make_forward(jcfg8, _mesh4(), impl="xla")(
+        jmoe.place_params(jax.tree.map(jnp.asarray, host), jcfg8, _mesh4()),
+        jtok)
+    with torch.no_grad():
+        got, aux = tmoe.make_forward(tcfg8, 4)(_ep4_params(host, tcfg8),
+                                               ttok)
+    assert torch.isfinite(got).all() and got.shape == (32, 2, jcfg.vocab)
+    assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+    assert_allclose(aux, np.asarray(jaux), atol=1e-6, rtol=1e-5)
+
+
+def test_train_cli_moe_tp4_runs(capsys):
+    """examples/train.py --model moe --tp 4 on the CPU: the loss falls."""
+    from triton_dist_tpu_torch.examples import train
+
+    train.main(["--model", "moe", "--tp", "4", "--device", "cpu", "--steps",
+                "3", "--seq", "16", "--batch", "2", "--lr", "0.5"])
+    out = capsys.readouterr().out
+    assert "model=moe" in out and "tp=4" in out and "done" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step")]
+    assert len(losses) == 3 and losses[-1] < losses[0]

@@ -1,9 +1,10 @@
 """Training CLI of the PyTorch port: a resumable trainer on one card.
 
 Counterpart of ``examples/train.py``, for the dense Llama family or the
-Mixtral-class MoE family (``--model moe``), at world 1 or, for Llama,
-tensor-parallel over ``--tp`` ranks of the virtual world on one device
-(the reference trainer's mesh of ``tp = n // dp`` devices): plain SGD
+Mixtral-class MoE family (``--model moe``), at world 1 or over ``--tp``
+ranks of the virtual world on one device (the reference trainer's mesh of
+``tp = n // dp`` devices: Llama tensor-parallel; MoE with tensor-parallel
+attention and expert-parallel FFNs, SGD only): plain SGD
 (the family's in-place step) or AdamW (``models/training.py``), random
 weights and a fixed random token book from ``--seed``, checkpoint/resume
 through ``runtime.CheckpointManager`` (kill the process at any step and
@@ -18,8 +19,7 @@ backward on the port's hand-written kernels):
 
 Llama-3-8B tensor-parallel over 4 ranks of the virtual world on the card
 (every column-parallel projection on the hand-written AG-GEMM kernel and
-every row-parallel one on the GEMM-RS kernel, forward and backward; the
-logits on the hand-written GEMM):
+every row-parallel one on the GEMM-RS kernel, forward and backward):
 
     python -m triton_dist_tpu_torch.examples.train --tp 4 --steps 3 \\
         --seq 2048 --batch 1 --lr 0.2
@@ -30,6 +30,13 @@ mode):
 
     python -m triton_dist_tpu_torch.examples.train --model moe --steps 3 \\
         --seq 2048 --batch 1 --lr 0.2
+
+Mixtral-8x7B at full width over 4 ranks (attention on the AG-GEMM and
+GEMM-RS kernels, the tokens' way to their experts and back on the
+all-to-all kernel's peer segments, the experts on the grouped GEMM):
+
+    python -m triton_dist_tpu_torch.examples.train --model moe --tp 4 \
+        --steps 3 --seq 2048 --batch 1 --lr 0.2
 
 On the CPU, a tiny config (head_dim 128) through the plain versions
 (``--tp 4`` too):
@@ -67,8 +74,9 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--dp", type=int, default=1, help="data-parallel degree")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree: ranks of the virtual world "
-                        "on the one device (Llama, SGD)")
+                   help="ranks of the virtual world on the one device "
+                        "(SGD): tensor parallelism (Llama), TP attention "
+                        "and expert-parallel FFNs (MoE)")
     p.add_argument("--batch", type=int, default=4, help="global batch")
     p.add_argument("--seq", type=int, default=64, help="sequence length")
     p.add_argument("--lr", type=float, default=1e-3)
@@ -109,9 +117,12 @@ def _config(args):
                              f"{args.model} preset")
         cfg = family.CONFIGS[args.config]()
     elif cpu and family is moe:
-        # the reference's toy MoE at world 1, widened to head_dim 128
-        cfg = moe.MoEConfig(vocab=256, dim=256, n_layers=2, n_heads=2,
-                            n_kv_heads=1, n_experts=4, topk=2,
+        # the reference's toy MoE at world 1, widened to head_dim 128;
+        # whole heads and experts per rank
+        heads = max(2, args.tp)
+        cfg = moe.MoEConfig(vocab=256, dim=128 * heads, n_layers=2,
+                            n_heads=heads, n_kv_heads=max(1, args.tp),
+                            n_experts=max(4, args.tp), topk=2,
                             expert_ffn_dim=64, max_seq=max(args.seq, 64),
                             block_m=8)
     elif cpu:
@@ -137,7 +148,7 @@ def build(args, device):
     family, cfg = _config(args)
     params = family.init_params(cfg, seed=args.seed, device=device)
     if args.tp > 1:
-        params = llama.shard_params(params, cfg, args.tp)
+        params = family.shard_params(params, cfg, args.tp)
     if args.opt == "adamw":
         opt_step, opt_init = training.make_optim_train_step(
             family, cfg, training.adamw(args.lr))
@@ -146,9 +157,7 @@ def build(args, device):
         def step_fn(tokens, targets):
             return opt_step(params, opt, tokens, targets)[2]
     else:
-        sgd_step = (llama.make_train_step(cfg, args.tp, lr=args.lr)
-                    if args.tp > 1 else family.make_train_step(cfg,
-                                                               lr=args.lr))
+        sgd_step = family.make_train_step(cfg, args.tp, lr=args.lr)
         opt = None
 
         def step_fn(tokens, targets):
@@ -161,14 +170,10 @@ def main(argv=None):
     if args.dp > 1:
         raise NotImplementedError("--dp > 1: data parallelism over several "
                                   "cards is not ported yet (ROADMAP Queue 1 "
-                                  "item 12)")
+                                  "items 14 and 15)")
     if args.profile:
         raise NotImplementedError("--profile: group_profile is not ported "
                                   "yet (ROADMAP Queue 1 item 16)")
-    if args.tp > 1 and args.model == "moe":
-        raise NotImplementedError("--model moe --tp > 1: the MoE family's "
-                                  "tensor and expert parallelism is not "
-                                  "ported yet (ROADMAP Queue 1 item 13)")
     if args.tp > 1 and args.opt == "adamw":
         raise NotImplementedError("--opt adamw --tp > 1: an optimizer over "
                                   "the sharded tree is not ported yet "

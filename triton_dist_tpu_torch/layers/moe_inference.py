@@ -1,9 +1,12 @@
-"""Serving-side MoE layer at world 1: dispatch, grouped FFN, combine.
+"""Serving-side MoE layer over a world of W ranks: dispatch, grouped FFN,
+combine.
 
-Counterpart of ``triton_dist_tpu/layers/moe_inference.py``:
+Counterpart of ``triton_dist_tpu/layers/moe_inference.py``.  The W ranks
+of the port's virtual world live on one device, so per-rank tensors carry
+a leading rank dimension (rank r's tokens ``x[r]``):
 
 - :func:`moe_infer_shard`: dispatch (``layers/ep_a2a.py``: the all-to-all
-  kernel, a copy at world 1), sort by expert, the grouped SwiGLU
+  kernel), sort by expert, the grouped SwiGLU
   (``kernels/group_gemm.moe_ffn_sorted``: the bf16 mode of
   ``csrc/group_gemm.cu`` on the card), combine;
 - :func:`moe_ffn_sorted_w8a8` / :func:`moe_infer_shard_w8a8`: the W8A8
@@ -11,13 +14,23 @@ Counterpart of ``triton_dist_tpu/layers/moe_inference.py``:
   (the int8 mode of the same kernel), per-expert-channel weight scales,
   dequantized in the reference's order ``acc * x_s[:, None] *
   w_s[row_e]``;
+- :func:`expert_ffn`: the expert compute over the received buffers of
+  every rank, shared with the training path (``models/moe.py``);
 - :class:`DistributedMoELayer`: ``init_weights(seed)``,
-  ``quantize_weights()``, ``route`` and ``forward``.  Its constructor
-  takes ``device=`` where the reference's takes a mesh; more than one
-  rank raises.
+  ``quantize_weights()``, ``weight_specs()``, ``route`` and ``forward``.
+  Its constructor takes ``world=`` (ranks of the virtual world) and
+  ``device=`` where the reference's takes a mesh.
 
-``plain=True`` runs the plain versions of the all-to-all and the grouped
-GEMM (a reference computation on the card).
+Expert ``e`` lives on rank ``e // (E / W)``.  The expert stacks stay
+``[E, K, N]``: stacked rank-major, they are exactly the world-1 layout, so
+rank r's slab is the view ``w[r E/W : (r + 1) E/W]`` and sharding them
+copies nothing.  Each rank sorts its received rows by its local experts
+(padding rows, undefined under the all-to-all, steered to its local expert
+0 as the reference does; combine never reads them); the ranks' sorted rows
+are laid end to end, each tile tagged with its global expert, and go
+through ONE grouped GEMM per projection.  ``plain=True`` runs the plain
+versions of the all-to-all and the grouped GEMM (a reference computation
+on the card).
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from typing import Any
 
 import torch
 
+from triton_dist_tpu_torch.kernels.all_to_all import check_axis
 from triton_dist_tpu_torch.kernels.group_gemm import (
     group_gemm_i8,
     load_aware_block_m,
@@ -49,30 +63,43 @@ from triton_dist_tpu_torch.layers.ep_a2a import (
 from triton_dist_tpu_torch.runtime.utils import resolve_device
 
 
+def expert_ffn(recv, recv_expert, *, n_experts, block_m, ffn):
+    """The experts' compute over every rank's received rows: recv [W, W,
+    max_tokens, H], recv_expert [W, W, max_tokens] global ids -> y in the
+    same layout, ``ffn(x_sorted, tile_expert)`` run once over all ranks'
+    sorted rows (tiles tagged with global experts; each expert's tiles
+    come from its owner alone)."""
+    world, _, max_tokens, hidden = recv.shape
+    epr = n_experts // world
+    base = torch.arange(world, device=recv.device)[:, None, None] * epr
+    # rank r's local expert clip(e - r E/W, 0, E/W - 1), as a global id
+    global_e = torch.clamp(recv_expert - base, 0, epr - 1) + base
+    rows = world * world * max_tokens
+    splan = sort_align(global_e.reshape(rows, 1), n_experts, block_m)
+    x_sorted = gather_sorted(recv.reshape(rows, hidden), splan["dest"],
+                             splan["m_pad"])
+    y_sorted = ffn(x_sorted, splan["tile_expert"])
+    return y_sorted[splan["dest"]].reshape(world, world, max_tokens, hidden)
+
+
 def _sorted_ffn(x_loc, experts_loc, weights_loc, *, n_experts, max_tokens,
                 block_m, ffn, plain):
-    """dispatch -> sort by expert -> ``ffn(x_sorted, tile_expert)`` ->
-    combine, for one (world-1) rank: x_loc [t_loc, H] -> [t_loc, H]."""
-    hidden = x_loc.shape[1]
+    """dispatch -> :func:`expert_ffn` -> combine: x_loc [W, t_loc, H] ->
+    [W, t_loc, H]."""
     recv, recv_expert, _splits, plan, _dropped = ep_dispatch_shard(
         x_loc, experts_loc, n_experts=n_experts, max_tokens=max_tokens,
         plain=plain)
-    max_tokens = recv.shape[1]   # dispatch owns the None -> worst-case rule
-    local_e = torch.clamp(recv_expert.reshape(max_tokens, 1), 0,
-                          n_experts - 1)
-    splan = sort_align(local_e, n_experts, block_m)
-    x_sorted = gather_sorted(recv.reshape(max_tokens, hidden), splan["dest"],
-                             splan["m_pad"])
-    y_sorted = ffn(x_sorted, splan["tile_expert"])
-    y = y_sorted[splan["dest"]].reshape(1, max_tokens, hidden)
+    y = expert_ffn(recv, recv_expert, n_experts=n_experts, block_m=block_m,
+                   ffn=ffn)
     return ep_combine_shard(y, weights_loc, plan, plain=plain)
 
 
 def moe_infer_shard(x_loc, weights_loc, experts_loc, w_gate, w_up, w_down, *,
                     n_experts, max_tokens, block_m, plain=False):
-    """The serving MoE FFN: x_loc [t_loc, H] -> [t_loc, H].  weights_loc
-    [t_loc, topk] f32 routing weights, experts_loc [t_loc, topk] expert
-    ids; w_* the expert stacks [E, H, F] / [E, F, H]."""
+    """The serving MoE FFN of every rank: x_loc [W, t_loc, H] -> [W, t_loc,
+    H].  weights_loc [W, t_loc, topk] f32 routing weights, experts_loc
+    [W, t_loc, topk] global expert ids; w_* the expert stacks [E, H, F] /
+    [E, F, H] (rank-major: rank r owns slabs r E/W ...)."""
     def ffn(x_sorted, tile_expert):
         return moe_ffn_sorted(x_sorted, w_gate, w_up, w_down, tile_expert,
                               block_m=block_m, plain=plain)
@@ -118,12 +145,17 @@ def moe_infer_shard_w8a8(x_loc, weights_loc, experts_loc, wg_q, wg_s, wu_q,
 
 @dataclass
 class DistributedMoELayer:
-    """Counterpart of the reference's ``DistributedMoELayer`` at world 1.
+    """Counterpart of the reference's ``DistributedMoELayer`` (:137) over
+    ``world`` ranks of the virtual world on ``device``.
 
-    ``max_tokens`` is the dispatch capacity (None: the lossless
-    ``T * topk``); ``block_m`` None picks :func:`load_aware_block_m` of
-    the batch.  ``weights`` is a dict of tensors on ``device``
-    (``init_weights``, or assigned directly)."""
+    Tokens [T, H] split over the ranks (rank r's rows r T/W ...), expert
+    ``e`` on rank ``e // (E / W)``.  ``max_tokens`` is the per-(src, dst)
+    dispatch capacity (None: the lossless ``t_loc * topk``); ``block_m``
+    None picks :func:`load_aware_block_m` of the batch.  ``weights`` is a
+    dict of tensors on ``device`` (``init_weights``, or assigned
+    directly), the expert stacks [E, ...] whatever the world (module
+    docstring).  A (slow, fast) tuple ``axis`` (the reference's two-tier
+    all-to-all) raises."""
 
     n_experts: int
     topk: int
@@ -133,16 +165,20 @@ class DistributedMoELayer:
     block_m: int | None = None
     dtype: Any = torch.bfloat16
     world: int = 1
+    axis: Any = "ep"
     device: Any = "cuda"
     weights: dict = field(default=None)
 
     def __post_init__(self):
-        if self.world != 1:
-            raise NotImplementedError(
-                f"DistributedMoELayer over {self.world} ranks needs the "
-                f"expert-parallel all-to-all: ROADMAP Queue 1 item 13, "
-                f"after items 11 and 12")
+        check_axis(self.axis)
+        if self.world < 1 or self.n_experts % self.world:
+            raise ValueError(f"{self.n_experts} experts do not split over "
+                             f"{self.world} ranks")
         self.device = resolve_device(self.device)
+
+    @property
+    def experts_per_rank(self) -> int:
+        return self.n_experts // self.world
 
     # -- weights -----------------------------------------------------------
     def init_weights(self, seed: int = 0) -> dict:
@@ -183,6 +219,12 @@ class DistributedMoELayer:
         self.weights = qw
         return qw
 
+    def weight_specs(self) -> dict:
+        """The reference's PartitionSpecs, as the dimension of each weight
+        split over the ranks (None: held once): the router is replicated,
+        the expert stacks split on their expert dimension."""
+        return {"router": None, "w_gate": 0, "w_up": 0, "w_down": 0}
+
     @property
     def is_quantized(self) -> bool:
         return self.weights is not None and "w_gate_q" in self.weights
@@ -194,9 +236,9 @@ class DistributedMoELayer:
 
     def forward(self, x, experts=None, routing_weights=None, *,
                 plain: bool = False):
-        """x [T, H].  ``experts`` / ``routing_weights`` may be given (the
-        reference's simulated indices) or come from the router.  Returns
-        [T, H] in ``dtype``."""
+        """x [T, H], T a multiple of ``world``.  ``experts`` /
+        ``routing_weights`` may be given (the reference's simulated
+        indices) or come from the router.  Returns [T, H] in ``dtype``."""
         if experts is None:
             routing_weights, experts = self.route(x)
         if routing_weights is None:
@@ -208,13 +250,20 @@ class DistributedMoELayer:
         opts = dict(n_experts=self.n_experts, max_tokens=self.max_tokens,
                     block_m=block_m, plain=plain)
         w = self.weights
-        x = x.to(self.dtype)
+
+        def ranks(t):
+            return t.reshape(self.world, -1, t.shape[-1])
+
+        x, routing_weights, experts = (ranks(x.to(self.dtype)),
+                                       ranks(routing_weights), ranks(experts))
         if self.is_quantized:
-            return moe_infer_shard_w8a8(
+            out = moe_infer_shard_w8a8(
                 x, routing_weights, experts, w["w_gate_q"], w["w_gate_s"],
                 w["w_up_q"], w["w_up_s"], w["w_down_q"], w["w_down_s"],
                 **opts)
-        return moe_infer_shard(x, routing_weights, experts, w["w_gate"],
-                               w["w_up"], w["w_down"], **opts)
+        else:
+            out = moe_infer_shard(x, routing_weights, experts, w["w_gate"],
+                                  w["w_up"], w["w_down"], **opts)
+        return out.reshape(-1, self.hidden)
 
     __call__ = forward

@@ -15,8 +15,8 @@ quant, the exact int8 GEMM, rank-1 f32 dequant).
 
 The tensor-parallel forms (``axis=`` on the hooks; the fused-QKV training
 forward ``quantize_params_w8a8`` / ``w8a8_forward_shard`` /
-``make_w8a8_forward``) need ``layers/tp_linear.py`` and the collectives:
-ROADMAP Queue 1 item 12.
+``make_w8a8_forward``) need the W8A8 tensor-parallel linears: ROADMAP
+Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def _no_axis(axis):
     if axis is not None:
         raise NotImplementedError(
             "w8a8 under tensor parallelism (axis=) is not ported yet: "
-            "ROADMAP Queue 1 item 12")
+            "ROADMAP Queue 1 item 9")
 
 
 def w8a8_serve_out_proj(o2, layer, *, axis=None, plain=False):

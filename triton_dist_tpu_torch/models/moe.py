@@ -1,14 +1,25 @@
-"""MoE transformer (Mixtral / DeepSeek class) at world 1.
+"""MoE transformer (Mixtral / DeepSeek class), at world 1 and expert-parallel
+over W ranks.
 
 Counterpart of ``triton_dist_tpu/models/moe.py``: the Llama attention
 block (``models/llama.attention_block_shard``, through ``cfg.as_llama()``)
 with the dense FFN replaced by a top-k routed expert FFN — the f32
 router, the dispatch and combine of ``layers/ep_a2a.py`` (the all-to-all
-kernel, a copy at world 1), the sort/align of ``kernels/moe_utils.py`` and
-three grouped GEMMs (``kernels/group_gemm.py``: the hand-written kernel on
-the card, dx through its transposed mode in the backward).  The
-Switch-style load-balance aux loss is the reference's, divided by world
-= 1.
+kernel), the sort/align of ``kernels/moe_utils.py`` and three grouped
+GEMMs (``kernels/group_gemm.py``: the hand-written kernel on the card, dx
+through its transposed mode in the backward).  The Switch-style
+load-balance aux loss is the reference's: each rank's local-batch loss,
+divided by the world size.
+
+``world`` chooses the parallelism (the reference's layout, :18-27):
+
+- world 1: every projection ``torch.matmul``, the all-to-all a copy;
+- world W > 1, over the port's virtual world of W ranks on one device:
+  attention tensor-parallel over heads with a sequence-parallel residual
+  stream [W, S/W, B, D] (the dense family's code: the AG-GEMM and GEMM-RS
+  kernels), the FFN expert-parallel (expert e on rank e // (E/W); tokens
+  travel to their experts through the all-to-all's peer segments and back
+  the same way).  :func:`shard_params` makes the tree.
 
 Parameters are a plain dict in the reference's pytree layout:
 ``{"embed", "lm_head", "final_norm", "layers": [{"attn_norm",
@@ -32,15 +43,13 @@ import torch
 import torch.nn.functional as F
 
 from triton_dist_tpu_torch.kernels.group_gemm import moe_ffn_sorted
-from triton_dist_tpu_torch.kernels.moe_utils import (
-    gather_sorted,
-    sort_align,
-    topk_routing,
-)
+from triton_dist_tpu_torch.kernels.moe_utils import topk_routing
 from triton_dist_tpu_torch.layers.ep_a2a import (
     ep_combine_shard,
     ep_dispatch_shard,
 )
+from triton_dist_tpu_torch.layers.moe_inference import expert_ffn
+from triton_dist_tpu_torch.models import llama
 from triton_dist_tpu_torch.models.llama import (
     LlamaConfig,
     _LogitsF32,
@@ -208,60 +217,110 @@ def params_from_jax(tree, cfg: MoEConfig, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# MoE FFN (shard level, world 1)
+# Expert parallelism over W ranks
+# ---------------------------------------------------------------------------
+
+
+def _check_world(cfg: MoEConfig, world: int) -> None:
+    if world < 1 or cfg.n_experts % world:
+        raise ValueError(f"EP over {world} ranks needs n_experts "
+                         f"({cfg.n_experts}) divisible by it")
+    llama._check_world(cfg.as_llama(), world)
+
+
+def shard_params(params, cfg: MoEConfig, world: int) -> dict:
+    """The W-rank tree of a world-1 tree (``init_params`` or
+    ``params_from_jax`` output, or a gradient tree shaped like one), as the
+    reference's ``param_specs`` (:160) cut it: the attention weights as in
+    ``llama.shard_params`` (wq, wk, wv [W, D, out/W]; wo [W, in/W, D]:
+    copies); the expert stacks stay [E, ...] (stacked rank-major they are
+    the sharded layout: rank r's slab is the view ``w[r E/W ...]``); the
+    router, norms, embed and lm_head held once, so autograd sums the
+    ranks' contributions into their one gradient (the reference's psum).
+    Every leaf but the attention weights is the input's own tensor (the
+    expert stacks are the bulk of the model).  At world 1 the tree is
+    returned as it is."""
+    _check_world(cfg, world)
+    if world == 1:
+        return params
+
+    def split(t, dim):
+        return torch.stack(t.chunk(world, dim=dim))
+
+    cut = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    out = {k: params[k] for k in ("embed", "lm_head", "final_norm")}
+    out["layers"] = [{k: split(t, cut[k]) if k in cut else t
+                      for k, t in layer.items()}
+                     for layer in params["layers"]]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN (shard level)
 # ---------------------------------------------------------------------------
 
 
 def moe_ffn_shard(h2, layer, cfg: MoEConfig, *, plain=False, experts=None):
-    """Routed expert FFN over the tokens h2 [T, D]: f32 router, top-k,
-    dispatch, sort by expert, grouped-GEMM SwiGLU, combine.  ``experts``
-    [T, topk], where given, replaces the router's top-k choice (the
-    routing weights are still the router's renormalised probabilities of
-    those experts).  Returns (out [T, D] in ``cfg.dtype``, aux-loss
-    contribution f32 scalar, experts [T, topk] int32)."""
+    """Routed expert FFN over every rank's tokens h2 [W, t_loc, D]: f32
+    router, top-k, dispatch (zero_undefined: the training path), sort by
+    expert, grouped-GEMM SwiGLU, combine.  ``experts`` [W, t_loc, topk],
+    where given, replaces the router's top-k choice (the routing weights
+    are still the router's renormalised probabilities of those experts).
+    Returns (out [W, t_loc, D] in ``cfg.dtype``, aux-loss contribution f32
+    scalar, experts [W, t_loc, topk] int32)."""
     E = cfg.n_experts
-    t_loc = h2.shape[0]
-    logits = h2.float() @ layer["router"]
+    world, t_loc, _ = h2.shape
+    logits = h2.float() @ layer["router"]                   # [W, t_loc, E]
     if experts is None:
         weights, experts = topk_routing(logits, cfg.topk)
     else:
-        picked = torch.softmax(logits, dim=-1).gather(1, experts.long())
+        picked = torch.softmax(logits, dim=-1).gather(-1, experts.long())
         weights = picked / picked.sum(dim=-1, keepdim=True)
 
-    # Switch-style balance loss E * sum_e f_e * p_e over these tokens
-    # (f: share of assignments to e, not differentiable; p: mean router
-    # probability of e), divided by world = 1
+    # Switch-style balance loss E * sum_e f_e * p_e over each rank's local
+    # tokens (f: share of assignments to e, not differentiable; p: mean
+    # router probability of e), the mean over the ranks (the reference's
+    # per-device contribution divided by the world, :205)
     probs = torch.softmax(logits, dim=-1)
-    frac = torch.zeros((E,), dtype=torch.float32, device=h2.device).index_add(
-        0, experts.reshape(-1).long(),
-        torch.ones((experts.numel(),), dtype=torch.float32,
-                   device=h2.device)) / (t_loc * cfg.topk)
-    aux = E * torch.sum(frac * probs.mean(dim=0))
+    rank = torch.arange(world, device=h2.device)[:, None]
+    frac = torch.zeros((world, E), dtype=torch.float32,
+                       device=h2.device).index_put(
+        (rank.expand(world, t_loc * cfg.topk),
+         experts.reshape(world, -1).long()),
+        torch.ones((), dtype=torch.float32, device=h2.device),
+        accumulate=True) / (t_loc * cfg.topk)
+    aux = E * torch.sum(frac * probs.mean(dim=1)) / world
 
     recv, recv_expert, _splits, plan, _dropped = ep_dispatch_shard(
         h2.to(cfg.dtype), experts, n_experts=E, max_tokens=cfg.max_tokens,
-        plain=plain)
-    max_tokens = recv.shape[1]   # dispatch owns the None -> worst-case rule
-    local_e = torch.clamp(recv_expert.reshape(max_tokens, 1), 0, E - 1)
-    splan = sort_align(local_e, E, cfg.block_m)
-    x_sorted = gather_sorted(recv.reshape(max_tokens, cfg.dim), splan["dest"],
-                             splan["m_pad"])
-    y_sorted = moe_ffn_sorted(x_sorted, layer["w_gate"], layer["w_up"],
-                              layer["w_down"], splan["tile_expert"],
+        plain=plain, zero_undefined=True)
+
+    def ffn(x_sorted, tile_expert):
+        return moe_ffn_sorted(x_sorted, layer["w_gate"], layer["w_up"],
+                              layer["w_down"], tile_expert,
                               block_m=cfg.block_m, plain=plain)
-    y = y_sorted[splan["dest"]].reshape(1, max_tokens, cfg.dim)
+
+    y = expert_ffn(recv, recv_expert, n_experts=E, block_m=cfg.block_m,
+                   ffn=ffn)
     out = ep_combine_shard(y, weights, plan, plain=plain)
     return out.to(cfg.dtype), aux, experts
 
 
 def moe_block_shard(x, layer, cfg: MoEConfig, *, plain=False, experts=None):
     """MoE FFN sub-block with residual: RMSNorm, routed expert FFN.
-    x: [S, B, D].  Returns (x', aux contribution, experts [S*B, topk])."""
-    s, b, _ = x.shape
+    x: [S, B, D] at world 1, [W, S/W, B, D] over W ranks.  Returns (x',
+    aux contribution, experts [S*B, topk]: every rank's, in sequence
+    order, the layout ``experts`` is given in too)."""
+    world = x.shape[0] if x.dim() == 4 else 1
+    s_loc, b = x.shape[-3:-1]
     h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    out, aux, experts = moe_ffn_shard(h.reshape(s * b, cfg.dim), layer, cfg,
-                                      plain=plain, experts=experts)
-    return x + out.reshape(s, b, cfg.dim), aux, experts
+    if experts is not None:
+        experts = experts.reshape(world, s_loc * b, cfg.topk)
+    out, aux, experts = moe_ffn_shard(h.reshape(world, s_loc * b, cfg.dim),
+                                      layer, cfg, plain=plain,
+                                      experts=experts)
+    return (x + out.reshape(x.shape), aux,
+            experts.reshape(world * s_loc * b, cfg.topk))
 
 
 # ---------------------------------------------------------------------------
@@ -269,19 +328,31 @@ def moe_block_shard(x, layer, cfg: MoEConfig, *, plain=False, experts=None):
 # ---------------------------------------------------------------------------
 
 
-def forward_shard(params, tokens, cfg: MoEConfig, *, plain=False,
+def forward_shard(params, tokens, cfg: MoEConfig, *, world=1, plain=False,
                   routes=None):
     """tokens [S, B] int (seq-major) -> (logits [S, B, vocab] f32, aux
-    loss f32 scalar summed over layers).
+    loss f32 scalar summed over layers).  Over ``world`` > 1 ranks
+    ``params`` is the :func:`shard_params` tree and rank r holds positions
+    r S/W .. (r + 1) S/W - 1: attention is tensor-parallel over heads on
+    the AG-GEMM and GEMM-RS kernels (``llama.attention_block_shard``), the
+    FFN expert-parallel; the logits come back in sequence order.
 
     ``routes``, a list: when empty, each layer appends the experts it
-    picked ([S*B, topk] int32); when it holds one entry per layer, each
-    layer takes its experts from it instead of its router's top-k.  Two
-    computations that differ by rounding (kernels and plain versions) then
-    send every token to the same experts, where a near-tie of two router
-    probabilities could otherwise move a token's whole FFN output."""
+    picked ([S*B, topk] int32, sequence order at every world, so rank r's
+    are rows r S/W B ...); when it holds one entry per layer, each layer
+    takes its experts from it instead of its router's top-k.  Two
+    computations that differ by rounding (kernels and plain versions, or
+    two worlds) then send every token to the same experts, where a
+    near-tie of two router probabilities could otherwise move a token's
+    whole FFN output."""
+    _check_world(cfg, world)
     lcfg = cfg.as_llama()
+    s, b = tokens.shape
+    if s % world:
+        raise ValueError(f"{s} positions do not split over {world} ranks")
     x = params["embed"][tokens.long()]                               # [S,B,D]
+    if world > 1:
+        x = x.reshape(world, s // world, b, cfg.dim)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     replay = bool(routes)
     for i, layer in enumerate(params["layers"]):
@@ -292,41 +363,47 @@ def forward_shard(params, tokens, cfg: MoEConfig, *, plain=False,
             routes.append(experts)
         aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    s, b, _ = x.shape
     logits = _LogitsF32.apply(x.reshape(s * b, cfg.dim), params["lm_head"])
     return logits.reshape(s, b, cfg.vocab), aux_total
 
 
-def loss_shard(params, tokens, targets, cfg: MoEConfig, *, plain=False,
-               routes=None):
+def loss_shard(params, tokens, targets, cfg: MoEConfig, *, world=1,
+               plain=False, routes=None):
     """Mean next-token cross-entropy over every [S, B] position plus
-    ``aux_loss_coef`` times the balance loss (``routes`` as in
+    ``aux_loss_coef`` times the balance loss: the sum of the reference's
+    per-device contributions over the ``world`` ranks (``routes`` as in
     :func:`forward_shard`)."""
-    logits, aux = forward_shard(params, tokens, cfg, plain=plain,
-                                routes=routes)
+    logits, aux = forward_shard(params, tokens, cfg, world=world,
+                                plain=plain, routes=routes)
     ce = F.cross_entropy(logits.reshape(-1, cfg.vocab),
                          targets.reshape(-1).long())
     return ce + cfg.aux_loss_coef * aux
 
 
-def make_forward(cfg: MoEConfig, *, plain=False):
+def make_forward(cfg: MoEConfig, world: int = 1, *, plain=False):
     """``fn(params, tokens [S, B], routes=None) -> (logits [S, B, vocab]
-    f32, aux)``."""
-    return functools.partial(forward_shard, cfg=cfg, plain=plain)
+    f32, aux)``; over ``world`` > 1 ranks ``params`` is the
+    :func:`shard_params` tree."""
+    _check_world(cfg, world)
+    return functools.partial(forward_shard, cfg=cfg, world=world,
+                             plain=plain)
 
 
-def make_train_step(cfg: MoEConfig, *, lr=1e-3):
+def make_train_step(cfg: MoEConfig, world: int = 1, *, lr=1e-3):
     """Plain-SGD step ``step(params, tokens, targets) -> (params, loss)``:
-    loss and gradients by autograd (attention through the flash kernels,
-    dispatch and combine through the all-to-all kernel, the expert FFN
-    through the grouped GEMM's forward, dx and dW), then
-    ``p - lr * g`` in the parameter dtype, IN PLACE as
-    ``llama.make_train_step`` does (a second copy of the weights would
-    not fit the card)."""
+    loss and gradients by autograd (attention through the flash kernels
+    and, over ``world`` > 1 ranks, the AG-GEMM / GEMM-RS kernels; dispatch
+    and combine through the all-to-all kernel, the expert FFN through the
+    grouped GEMM's forward, dx and dW), then ``p - lr * g`` in the
+    parameter dtype, IN PLACE as ``llama.make_train_step`` does (a second
+    copy of the weights would not fit the card).  A leaf held once (the
+    router, norms, embed, lm_head) gets the sum of every rank's gradient,
+    the reference's psum."""
+    _check_world(cfg, world)
 
     def step(params, tokens, targets):
         loss, grads = value_and_grad(loss_shard, params, tokens, targets,
-                                     cfg)
+                                     cfg, world=world)
         with torch.no_grad():
             for p, g in zip(tree_leaves(params), tree_leaves(grads)):
                 p.sub_(lr * g.to(p.dtype))

@@ -1,6 +1,6 @@
 """Optimizer integration: stateful train steps over the port's kernels.
 
-Counterpart of ``triton_dist_tpu/models/training.py`` at world 1.  The
+Counterpart of ``triton_dist_tpu/models/training.py``.  The
 family modules (``models/llama.py``, ``models/moe.py``) ship a plain-SGD
 ``make_train_step``; real training wants a stateful optimizer (AdamW
 etc.).  This module composes any ``torch.optim.Optimizer`` with a
@@ -8,8 +8,9 @@ family's loss:
 
 - :func:`make_grads` — ``(loss, grads)`` of the family's ``loss_shard``
   by autograd (attention through the flash kernels' forward and backward
-  on the card).  At world 1 the reference's per-leaf gradient psums are
-  identities.
+  on the card), at world 1 or over the ``world`` ranks of the virtual
+  world (the family's ``shard_params`` tree: a leaf held once gets the
+  sum of every rank's gradient, the reference's per-leaf psum).
 - :func:`make_optim_train_step` — the counterpart of
   ``make_optax_train_step``: it takes an optimizer FACTORY (a callable
   from the list of parameter leaves to a ``torch.optim.Optimizer``) where
@@ -42,17 +43,19 @@ def _check_family(family) -> None:
             f"(dense) and models.moe (Mixtral class)")
 
 
-def make_grads(family, cfg, *, plain: bool = False) -> Callable:
+def make_grads(family, cfg, *, world: int = 1,
+               plain: bool = False) -> Callable:
     """``grads_fn(params, tokens, targets) -> (loss, grads)``, grads a
     tree shaped like params.  ``family`` is ``models.llama`` or
-    ``models.moe``; ``plain`` differentiates the plain PyTorch versions
-    of every hand-written kernel the family runs (a reference gradient on
-    any device)."""
+    ``models.moe``; over ``world`` > 1 ranks ``params`` is the family's
+    ``shard_params`` tree; ``plain`` differentiates the plain PyTorch
+    versions of every hand-written kernel the family runs (a reference
+    gradient on any device)."""
     _check_family(family)
 
     def grads_fn(params, tokens, targets):
         return value_and_grad(family.loss_shard, params, tokens, targets,
-                              cfg, plain=plain)
+                              cfg, world=world, plain=plain)
 
     return grads_fn
 
