@@ -59,6 +59,12 @@ Phases, in order (any failure exits non-zero without the final line):
    relative L2), timed eagerly between CUDA events (each call carries a
    new epoch, so no CUDA graph), one batched torch.matmul (AG-GEMM) or
    one einsum (GEMM-RS) over the virtual world's ranks as the yardstick;
+   the SP combine (``csrc/sp_combine.cu``) over SP ranks at the SP-4
+   decode's shape (out [4, 8, 32, 128] f32) and the engine chunk's ([4,
+   512, 32, 128]), a dead rank and a row dead on every rank among the
+   partials: within 1e-5 of the plain result's largest magnitude, the dead
+   row 0, every rank's merge bit for bit the same; timed by the profiler's
+   device time, softmax + einsum over the gathered stack as the yardstick;
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -131,7 +137,19 @@ Phases, in order (any failure exits non-zero without the final line):
 12. TP train: (a) TP_SGD_STEPS in-place SGD steps at 32 layers, the
    counters zeroed again (finite, falling losses; peak memory; a profiled
    step); (b) at 2 layers the loss and every gradient leaf with the
-   kernels against the plain versions of every kernel (1e-3, 2e-2).
+   kernels against the plain versions of every kernel (1e-3, 2e-2);
+13. SP generator (run after 5c, on phase 4's weights): ``Generator(mesh=
+   World(SP), max_seq=8192)``, batch 2, a 7,000-token prompt through
+   ``prefill_chunked`` at 512, then 32 greedy tokens; the world-1
+   Generator on the same prompt, teacher-forced on the SP tokens, agrees
+   at the dense gates; decode ms per step of both;
+14. SP engine: ``ServeEngine(mesh=World(SP), kv_shard="seq")`` with phase
+   5's knobs at max_seq 8192 and 4,096 blocks: 8 requests of 300..7000
+   prompt tokens (two past 6,144) and 32..64 new tokens; every request
+   finishes and every partition holds pages; the served tokens agree with
+   a world-1 teacher-forced forward at the dense gates; the world-1
+   engine serves the same mix once beside (tok/s, TTFT, ITL, step time
+   of both).
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
@@ -143,7 +161,10 @@ phase-7b and 10b counts beside under "ep4_forward_launches" and
 "ep4_train_launches"), the ring
 kernels' from phase 12 (a), their phase-11 counts beside under
 "forward_launches"; the dense GEMM's counter is zeroed and read with
-theirs and reads 0 (no model path calls it).  A
+theirs and reads 0 (no model path calls it).  Every counter is zeroed
+again just before phase 13 and read just after phase 14: the combine's
+count comes from there (> 0 in each phase), and flash_fwd's, decode's and
+decode_paged's ride beside under "sp_launches".  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -232,6 +253,9 @@ GG_REL_TOL = 2e-2
 GG_L2_TOL = 1e-2
 TP = 4              # phases 11-12: ranks of the virtual world
 EP = 4              # phases 7b, 9, 10b: ranks of the virtual world
+SP = 4              # phases 13-14: ranks of the virtual world
+SP_MAX_SEQ = 8192   # Llama-3-8B's published context (max_position_embeddings)
+SP_COMBINE_TOL = 1e-5   # sp_combine vs plain, relative to the largest value
 TP_SGD_LR = 0.2
 TP_SGD_STEPS = 3
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
@@ -491,6 +515,7 @@ def kernel_phase(dev):
     rows["all_to_all"] = all_to_all_row(dev, g)
     rows["matmul"] = matmul_row(dev, g)
     rows.update(ring_rows(dev, g))
+    rows["sp_combine"] = sp_combine_row(dev, g)
     return rows
 
 
@@ -1196,6 +1221,77 @@ def ring_rows(dev, g):
 # ---------------------------------------------------------------------------
 
 
+def sp_combine_row(dev, g):
+    """csrc/sp_combine.cu over SP ranks of the virtual world at the two
+    shapes the SP paths give it: the SP-4 decode of 8 sequences (out
+    [4, 8, 32, 128] f32) and the engine's 512-token prompt chunk ([4, 512,
+    32, 128]), the partials drawn from a seed with rank 1 dead (it holds
+    nothing of any row) and one row dead on every rank.  Each against its
+    plain version (``combine_partials`` over the rank stack) within
+    SP_COMBINE_TOL of the plain result's largest magnitude, the dead row
+    exactly 0, and every rank's merge bit for bit the same; timed by the
+    profiler's device time (a launch carries its call's epoch, so no CUDA
+    graph; eager calls between CUDA events beside), next to its bound
+    (what the function must move: every rank's partial read once and
+    every rank's final written once; the kernel's own traffic, the W^2
+    plane pushes read and written, the merge's reads of W slots on every
+    rank and the finals' writes, beside as "algorithm_bound_ms"), its
+    plain version and, as the
+    yardstick, ``torch.softmax`` of the lse over the ranks then one
+    ``torch.einsum`` over the gathered stack (two calls: no single PyTorch
+    call gathers across ranks).  The row reports the decode shape; both
+    ride along under "shapes"."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+
+    W, Hq, D = SP, 32, 128
+    shapes, row = {}, None
+    for tag, B in (("decode", 8), ("chunk512", 512)):
+        out = torch.randn((W, B, Hq, D), generator=g, device=dev)
+        lse = 3 * torch.randn((W, B, Hq), generator=g, device=dev)
+        out[1], lse[1] = 0, fd.NEG_INF
+        out[:, 0, 0], lse[:, 0, 0] = 0, fd.NEG_INF
+        got = fd.sp_combine_shard(out, lse, all_ranks=True)
+        torch.cuda.synchronize()
+        want = fd.combine_partials(out, lse)
+        err = max_err(got[0], want)
+        scale = want.abs().max().item()
+        same = all(torch.equal(got[r], got[0]) for r in range(1, W))
+        log(f"sp_combine {tag} out {[W, B, Hq, D]} f32: max|kernel-plain| "
+            f"{err:.3e} (tol {SP_COMBINE_TOL} x {scale:.3f}), ranks bit-"
+            f"equal {same}, dead row zero "
+            f"{bool(torch.all(got[:, 0, 0] == 0))}")
+        if not (err <= SP_COMBINE_TOL * scale and same
+                and torch.all(got[:, 0, 0] == 0)):
+            raise AssertionError(f"sp_combine {tag} disagrees with plain")
+        del got
+        eager = event_ms(lambda: fd.sp_combine_shard(out, lse), iters=20)
+        ms = kernel_device_ms(lambda: fd.sp_combine_shard(out, lse),
+                              "sp_combine")
+        plain_ms = time_ms(lambda: fd.sp_combine_ref(out, lse))
+        lib = time_ms(lambda: torch.einsum(
+            "wbh,wbhd->bhd", torch.softmax(lse, 0), out))
+        bh, plane = B * Hq, (D + fd.SP_PLANE_PAD) * 4
+        n_bytes = W * bh * (D + 1) * 4 + W * bh * D * 4
+        algo_bytes = 3 * W * W * bh * plane + W * bh * D * 4
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        algo_ms, _ = bound_ms(algo_bytes, 0)
+        log(f"sp_combine {tag}: kernel {ms:.4f} ms device (profiler; eager "
+            f"calls {eager:.4f} ms between CUDA events), plain "
+            f"{plain_ms:.4f} ms, library {lib:.4f} ms (softmax + einsum, "
+            f"two calls), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} "
+            f"MB, inputs and outputs once), the kernel's own traffic "
+            f"{algo_ms:.4f} ms ({algo_bytes / 1e6:.1f} MB)")
+        shapes[tag] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           algorithm_bound_ms=algo_ms, library_ms=lib,
+                           max_abs_err=err)
+        row = row or dict(shapes[tag])
+        del out, lse
+    return dict(row, shapes=shapes)
+
+
 def teacher_forced_agreement(params, cfg, prompt, served, logits_fn=None,
                              near_tie=NEAR_TIE):
     """Compare served tokens with the argmax of one plain-attention forward
@@ -1450,6 +1546,258 @@ def engine_phase(cfg, params, gen, *, w8a8=False, tag="engine"):
             raise AssertionError(f"{tag}: {r.request_id} did not finish "
                                  f"({o and o.finish_reason})")
     return eng, reqs, outs, prompts
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: sequence-parallel serving over SP ranks
+# ---------------------------------------------------------------------------
+
+
+def forced_agreement(gen, params, state, served, near_tie=NEAR_TIE):
+    """Teacher-force ``served`` [B, n] greedy tokens through ``gen`` from
+    ``state``: the argmax of each step's logits against the served token
+    (a mismatch within ``near_tie`` of the maximum counts as a tie).
+    Returns (exact, ties, positions)."""
+    import torch
+
+    served = torch.as_tensor(np.asarray(served), device="cuda")
+    exact = ties = 0
+    logits = state.last_logits
+    for t in range(served.shape[1]):
+        tok = served[:, t]
+        pred = logits.argmax(-1)
+        gap = (logits.gather(1, pred[:, None])
+               - logits.gather(1, tok[:, None].long()))[:, 0]
+        exact += int((pred == tok).sum())
+        ties += int((gap <= near_tie).sum())
+        state = gen.step(params, state, tok)
+        logits = state.last_logits
+    return exact, ties, served.numel()
+
+
+def replay_ms(gen, params, state, served, warm=8):
+    """Wall ms per decode step of ``gen`` fed ``served`` [B, n] from
+    ``state``, no host sync inside the loop, after ``warm`` steps: the
+    one timing loop both generators of phase 13 go through.  The steps
+    rewrite the K/V rows the same tokens already wrote."""
+    import torch
+
+    served = torch.as_tensor(np.asarray(served), device="cuda")
+    for t in range(served.shape[1]):
+        if t == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state = gen.step(params, state, served[:, t])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (served.shape[1] - warm)
+
+
+def sp_generator_phase(cfg, params):
+    """Phase 13: ``Generator(mesh=World(SP), max_seq=SP_MAX_SEQ)`` on
+    phase 4's weights: batch 2, a 7,000-token prompt (rank 3's span holds
+    856 prompt rows) through ``prefill_chunked`` at 512 (per-rank flash
+    partials merged by the combine kernel), then 32 greedy tokens (one
+    folded decode launch and one combine launch per layer and step).
+    The world-1 Generator takes the same prompt, then the SP tokens
+    teacher-forced: its argmax agrees with them at the dense gates; decode
+    ms per step of both at the same context, through one timing loop."""
+    import torch
+
+    from triton_dist_tpu_torch.models.generate import Generator
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(0, cfg.vocab, size=(2, 7000)).astype(np.int64)
+    res = {}
+    for tag, mesh in (("sp", get_world(SP, "cuda")), ("world1", None)):
+        gen = Generator(cfg, mesh=mesh, max_seq=SP_MAX_SEQ)
+        gen.prefill_chunked(params, prompt[:, :1024], chunk_size=512)
+        torch.cuda.synchronize()              # warm-up: the chunk's shapes
+        t0 = time.perf_counter()
+        st = gen.prefill_chunked(params, prompt, chunk_size=512)
+        torch.cuda.synchronize()
+        res[tag] = dict(gen=gen, state=st,
+                        prefill_ms=(time.perf_counter() - t0) * 1e3)
+    sp, w1 = res["sp"], res["world1"]
+    d0 = (sp["state"].last_logits - w1["state"].last_logits).abs().max()
+    toks, st = sp["gen"].generate(params, sp["state"], 32)
+    toks = toks.cpu().numpy()
+    if toks.shape != (2, 32) or not torch.isfinite(st.last_logits).all():
+        raise AssertionError(f"sp generator: bad output {toks.shape}")
+    counts = forced_agreement(w1["gen"], params, w1["state"], toks)
+    # both decodes through one timing loop, twice in turn (the first pass
+    # warms the allocator); the second pass is reported
+    for _ in range(2):
+        sp_ms = replay_ms(sp["gen"], params, sp["state"], toks)
+        w1_ms = replay_ms(w1["gen"], params, w1["state"], toks)
+    tok = torch.as_tensor(toks[:, -1], device="cuda")
+    for tag, r, ms in (("SP", sp, sp_ms), ("world 1", w1, w1_ms)):
+        busy, top = profile_once(
+            lambda: r["gen"].step(params, r["state"], tok), top_n=8)
+        combine = sum(t for name, _, t in top if "sp_combine" in name)
+        log(f"sp generator, one {tag} decode step profiled: device busy "
+            f"{busy:.2f} ms, idle share {1 - busy / ms:.3f} of the "
+            f"{ms:.2f} ms step, sp_combine {combine:.3f} ms")
+        for name, n, t in top:
+            log(f"sp generator {tag:>7}  {t:7.3f} ms  x{n:<4d} {name[:80]}")
+    log(f"sp generator: SP {SP}, max_seq {SP_MAX_SEQ}, prompt 2 x 7000 "
+        f"(rank 3 holds {7000 - 3 * SP_MAX_SEQ // SP} prompt rows): "
+        f"prefill_chunked(512) {sp['prefill_ms']:.1f} ms (world 1 "
+        f"{w1['prefill_ms']:.1f} ms), last prefill logits max |SP - world "
+        f"1| {d0.item():.4f}; decode at context 7008-7032: SP {sp_ms:.2f} "
+        f"ms/step, world 1 {w1_ms:.2f} ms/step (the same tokens, one loop) "
+        f"= {sp_ms / w1_ms:.3f}x")
+    check_agreement("sp generator vs world 1", [counts], STRICT_MIN)
+    return dict(sp_ms=sp_ms, w1_ms=w1_ms)
+
+
+def sp_engine_phase(cfg, params, mesh):
+    """Phase 14 (``mesh`` a World of SP ranks; None: the world-1 engine
+    on the same mix, for the comparison): ``ServeEngine(kv_shard="seq")``
+    with phase 5's knobs (page 16, 8 slots, prefill chunk 512) at max_seq
+    SP_MAX_SEQ and 4,096 blocks (8.6 GB of pools): 8 requests of 300..7000
+    prompt tokens (two past 6,144, so every partition holds pages) and
+    32..64 new tokens, one every 2 steps.  Every request must finish, and
+    under SP every partition must hold a page during the run.  Returns
+    (streams by request id, prompts, summary line dict)."""
+    import torch
+
+    from triton_dist_tpu_torch.models.generate import Generator
+    from triton_dist_tpu_torch.serve import (
+        FinishReason,
+        Request,
+        SamplingParams,
+        ServeEngine,
+    )
+
+    tag = "sp engine" if mesh is not None else "sp engine world-1 twin"
+    rng = np.random.default_rng(14)
+    lens = rng.permutation([300, 1200, 2300, 3400, 4500, 5600, 6400, 7000])
+    news = rng.integers(32, 65, size=8)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)) for n in lens]
+    gen = Generator(cfg, max_seq=SP_MAX_SEQ)
+    eng = ServeEngine(gen, params, num_blocks=4096, page_size=16,
+                      max_batch=8, prefill_chunk=512, mesh=mesh,
+                      kv_shard="seq")
+    reqs = [Request(f"r{i}", p, SamplingParams(max_new_tokens=int(n)))
+            for i, (p, n) in enumerate(zip(prompts, news))]
+    parts = set()
+    t0 = time.perf_counter()
+    outs, sub, steps = {}, 0, 0
+    while eng.has_work() or sub < len(reqs):
+        if steps % 2 == 0 and sub < len(reqs):
+            eng.submit(reqs[sub])
+            sub += 1
+        for o in eng.step():
+            outs[o.request_id] = o
+        for rid in list(eng.bm._tables):
+            parts |= {eng.bm.part_of_block(b) for b in eng.bm.table(rid)}
+        steps += 1
+        if steps > 2000:
+            raise AssertionError(f"{tag} did not drain in 2000 steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.metrics.summary()
+    lat = s["latency"]
+    n_out = sum(len(o.token_ids) for o in outs.values())
+    line = dict(tok_s=n_out / wall, wall_s=wall, steps=steps,
+                ttft_ms={k: lat["ttft"][k] * 1e3 for k in ("mean", "p50",
+                                                          "p99")},
+                itl_ms={k: lat["itl"][k] * 1e3 for k in ("mean", "p50",
+                                                        "p99")},
+                step_ms={k: lat["step"][k] * 1e3 for k in ("p50", "p99")},
+                preemptions=s["preemptions"], partitions=sorted(parts))
+    log(f"{tag}: {len(outs)} requests, prompts {sorted(lens.tolist())}, "
+        f"{s['prefill_tokens']} prefill + {n_out} generated tokens in "
+        f"{steps} steps, {wall:.2f} s wall ({line['tok_s']:.1f} tok/s); "
+        f"ttft ms {_fmt(line['ttft_ms'])}, itl ms {_fmt(line['itl_ms'])}, "
+        f"step ms {_fmt(line['step_ms'])}, preemptions {s['preemptions']}, "
+        f"partitions that held pages {sorted(parts)}")
+    for i, r in enumerate(reqs):
+        o = outs.get(r.request_id)
+        if (o is None or o.finish_reason is not FinishReason.LENGTH
+                or len(o.token_ids) != int(news[i])):
+            raise AssertionError(f"{tag}: {r.request_id} did not finish "
+                                 f"({o and o.finish_reason})")
+    if mesh is not None and parts != set(range(SP)):
+        raise AssertionError(f"{tag}: partitions {sorted(parts)} held pages,"
+                             f" not all {SP}")
+    streams = {rid: list(o.token_ids) for rid, o in outs.items()}
+    del eng, outs
+    free_cuda()
+    return streams, {r.request_id: p for r, p in zip(reqs, prompts)}, line
+
+
+def _fmt(d):
+    return "{" + ", ".join(f"{k} {v:.1f}" for k, v in d.items()) + "}"
+
+
+def sp_phases(cfg, params):
+    """Phases 13-14 on phase 4's weights, every launch counter zeroed just
+    before and read just after; the SP engine's served tokens held to a
+    world-1 teacher-forced forward (the flash kernel over prompt + served
+    tokens) at the dense gates, the world-1 engine on the same mix run
+    once beside (its agreement under the same reference, the greedy
+    prefix match between the two).  Returns the phases' launch counts."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+    from triton_dist_tpu_torch.models.generate import _prompt_forward
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    counters = {"flash_fwd": fa.flash_attention,
+                "decode": fd.gqa_decode_shard,
+                "decode_paged": fd.gqa_decode_paged_shard,
+                "sp_combine": fd.sp_combine_shard}
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        gen_line = sp_generator_phase(cfg, params)
+        after_gen = {n: fn.launches for n, fn in counters.items()}
+        free_cuda()
+        streams, prompts, line = sp_engine_phase(cfg, params,
+                                                 get_world(SP, "cuda"))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    log(f"launches: sp generator {after_gen}, sp generator+engine "
+        f"{launches}")
+    for n in ("decode", "sp_combine"):
+        if after_gen[n] <= 0:
+            raise AssertionError(f"kernel {n} never launched by the SP "
+                                 f"generator")
+    for n in ("flash_fwd", "decode_paged", "sp_combine"):
+        if launches[n] - after_gen[n] <= 0:
+            raise AssertionError(f"kernel {n} never launched by the SP "
+                                 f"engine")
+    with torch.no_grad():
+        w1_streams, _, w1_line = sp_engine_phase(cfg, params, None)
+
+        def world1_logits(toks):
+            return _prompt_forward(params, toks, cfg=cfg)[1]
+
+        counts = {"sp": [], "world1": []}
+        for rid, p in prompts.items():
+            for tag, got in (("sp", streams), ("world1", w1_streams)):
+                counts[tag].append(teacher_forced_agreement(
+                    params, cfg, p, got[rid], logits_fn=world1_logits))
+    check_agreement("sp engine world-1 twin vs world-1 forward",
+                    counts["world1"], 0.0)
+    check_agreement("sp engine vs world-1 forward", counts["sp"],
+                    STRICT_MIN)
+    match = []
+    for rid, got in streams.items():
+        want, n = w1_streams[rid], 0
+        while n < min(len(got), len(want)) and got[n] == want[n]:
+            n += 1
+        match.append(n / len(want))
+    log(f"sp engine vs world-1 engine: mean greedy prefix match "
+        f"{np.mean(match):.4f} (per request {[round(x, 3) for x in match]})"
+        f"; tok/s {line['tok_s']:.1f} vs {w1_line['tok_s']:.1f}, step p50 "
+        f"{line['step_ms']['p50']:.1f} vs {w1_line['step_ms']['p50']:.1f} "
+        f"ms, itl p50 {line['itl_ms']['p50']:.1f} vs "
+        f"{w1_line['itl_ms']['p50']:.1f} ms")
+    return launches, dict(generator=gen_line, engine=line,
+                          engine_world1=w1_line)
 
 
 # ---------------------------------------------------------------------------
@@ -2370,10 +2718,19 @@ def main() -> int:
         f"{np.mean(match):.4f} (per request "
         f"{[round(x, 3) for x in match]}; no gate: int8 error is real)")
     launches.update(q_launches)
-    del params, gen_q, eng_q, outs, plain   # plain holds the W8A8 tree
+    del gen_q, eng_q, outs, plain   # plain holds the W8A8 tree
     free_cuda()
 
     log(f"quantized serving done at {time.perf_counter() - t_start:.1f} s")
+
+    # phases 13-14: sequence-parallel serving on phase 4's weights, every
+    # counter zeroed first; the combine's count comes from them, the
+    # other serving kernels' SP counts ride along
+    sp_launches, _ = sp_phases(cfg, params)
+    launches["sp_combine"] = sp_launches["sp_combine"]
+    del params
+    free_cuda()
+    log(f"sp serving done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 6: training; the backward kernels' counts come from it (the
     # flash_fwd row keeps the serving path's count, printed beside)
@@ -2426,7 +2783,9 @@ def main() -> int:
            "ag_gemm": ("triton_dist_tpu_torch/csrc/ag_gemm.cu",
                        "triton_dist_tpu/kernels/allgather_gemm.py:240"),
            "gemm_rs": ("triton_dist_tpu_torch/csrc/gemm_rs.cu",
-                       "triton_dist_tpu/kernels/gemm_reduce_scatter.py:103")}
+                       "triton_dist_tpu/kernels/gemm_reduce_scatter.py:103"),
+           "sp_combine": ("triton_dist_tpu_torch/csrc/sp_combine.cu",
+                          "triton_dist_tpu/kernels/flash_decode.py:851")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -2441,7 +2800,11 @@ def main() -> int:
                         **({"ep4_forward_launches": ep_fwd[name],
                             "ep4_train_launches": ep_train[name]}
                            if name == "all_to_all" else {}),
-                        **{k: r[k] for k in ("m8", "t8", "shapes")
+                        **({"sp_launches": sp_launches[name]}
+                           if name in sp_launches and name != "sp_combine"
+                           else {}),
+                        **{k: r[k] for k in ("m8", "t8", "shapes",
+                                             "algorithm_bound_ms")
                            if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

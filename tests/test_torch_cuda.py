@@ -1130,3 +1130,174 @@ def test_tp4_llama_forward_and_train_step_at_8b_width(cuda):
     assert np.isfinite(float(loss))
     assert tuple(x - y for x, y in zip(counts(), n0)) == (
         5 * cfg.n_layers, 5 * cfg.n_layers)
+
+
+def _sp_partials(g, dev, world, lead, D, dead_rank=None, dead_row=None):
+    """Rank-stacked decode partials: out N(0, 1) f32, lse N(0, 3); rank
+    ``dead_rank`` holds nothing of any row and row ``dead_row`` (a flat
+    index over ``lead``) is dead on every rank (out 0, lse NEG_INF)."""
+    out = torch.from_numpy(g.standard_normal((world, *lead, D)).astype(
+        np.float32)).to(dev)
+    lse = torch.from_numpy(3 * g.standard_normal((world, *lead)).astype(
+        np.float32)).to(dev)
+    flat_out, flat_lse = out.view(world, -1, D), lse.view(world, -1)
+    for rank, row in ((dead_rank, slice(None)), (slice(None), dead_row)):
+        if rank is None or row is None:
+            continue
+        flat_out[rank, row] = 0
+        flat_lse[rank, row] = fd.NEG_INF
+    return out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world,lead,D", [
+    (4, (8, 32), 128),      # the SP-4 decode of 8 sequences of Llama-3-8B
+    (4, (512, 32), 128),    # the engine's 512-token chunk
+    (2, (3, 5), 64), (8, (2, 7), 132), (4, (1, 1), 128)])
+def test_sp_combine_matches_plain(cuda, world, lead, D):
+    """The combine kernel against its plain version (``combine_partials``
+    over the stack) within 1e-5 of the largest magnitude, with a dead rank
+    and a row dead on every rank (merged to exactly 0); every rank's
+    merge bit for bit the same; three calls back to back (a new epoch
+    each), one launch each."""
+    g = np.random.default_rng(world * 1000 + D)
+    for _ in range(3):
+        out, lse = _sp_partials(g, cuda, world, lead, D, dead_rank=1,
+                                dead_row=0)
+        n0 = fd.sp_combine_shard.launches
+        # the result lives in the workspace until the next combine of
+        # this shape: keep a copy to hold the next call against
+        got = fd.sp_combine_shard(out, lse, all_ranks=True).clone()
+        torch.cuda.synchronize()
+        assert fd.sp_combine_shard.launches == n0 + 1
+        assert got.shape == (world, *lead, D)
+        want = fd.combine_partials(out, lse)
+        err = (got[0] - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+        for r in range(1, world):
+            assert torch.equal(got[r], got[0]), r
+        assert torch.all(got.reshape(world, -1, D)[:, 0] == 0)
+        assert torch.isfinite(got).all()
+        assert torch.equal(fd.sp_combine_shard(out, lse), got[0])
+
+
+@pytest.mark.gpu
+def test_sp_combine_refuses_what_it_does_not_take(cuda):
+    z = torch.zeros
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fd.sp_combine_shard(z((2, 3, 4, 6), device=cuda),
+                            z((2, 3, 4), device=cuda))
+    with pytest.raises(TypeError):
+        fd.sp_combine_shard(z((2, 3, 4, 8), device=cuda,
+                              dtype=torch.bfloat16),
+                            z((2, 3, 4), device=cuda))
+    with pytest.raises(ValueError, match="at most 8"):
+        fd.sp_combine_shard(z((9, 3, 8), device=cuda), z((9, 3),
+                                                         device=cuda))
+    with pytest.raises(ValueError, match=r"\[W, \.\.\., D\]"):
+        fd.sp_combine_shard(z((2, 3, 8), device=cuda), z((2, 4),
+                                                         device=cuda))
+    graph = torch.cuda.CUDAGraph()
+    out, lse = z((2, 3, 8), device=cuda), z((2, 3), device=cuda)
+    fd.sp_combine_shard(out, lse)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            fd.sp_combine_shard(out, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,window", [(1, 0), (4, 0), (1, 300)])
+def test_sp_decodes_match_world1_decode(cuda, T, window):
+    """SP-4 decode over contiguous spans and over a partitioned paged pool
+    (one decode launch for every rank, one combine launch) against the
+    world-1 decode kernel over the whole cache: within the bf16 output
+    tolerance; a request shorter than one span is live on rank 0 only."""
+    W, B, Hq, Hkv, S, D, page = 4, 4, 32, 8, 2048, 128, 16
+    g = np.random.default_rng(7 + T + window)
+    q = _randn(g, (B, T, Hq, D) if T > 1 else (B, Hq, D), cuda)
+    k, v = _randn(g, (B, Hkv, S, D), cuda), _randn(g, (B, Hkv, S, D), cuda)
+    lens = torch.tensor([2048, 1500, 300, 777], dtype=torch.int32,
+                        device=cuda)
+    want, _ = fd.gqa_decode_shard(q, k, v, lens, window=window)
+    n0 = (fd.gqa_decode_shard.launches, fd.sp_combine_shard.launches)
+    got = fd.sp_gqa_decode_shard(q, fd.shard_seq(k, W), fd.shard_seq(v, W),
+                                 lens, window=window)
+    torch.cuda.synchronize()
+    assert (fd.gqa_decode_shard.launches - n0[0],
+            fd.sp_combine_shard.launches - n0[1]) == (1, 1)
+    _close(got, want, OUT_TOL)
+    # the same cache as pages: rank r's pages in its own pool rows
+    n_loc, nb_loc = S // page // W, B * S // page // W + 1
+    pool_k = torch.zeros((W * nb_loc, Hkv, page, D), dtype=torch.bfloat16,
+                         device=cuda)
+    pool_v = torch.zeros_like(pool_k)
+    tables = torch.zeros((W, B, n_loc), dtype=torch.int32, device=cuda)
+    for r in range(W):
+        rows = r * nb_loc + 1 + torch.randperm(
+            B * n_loc, generator=torch.Generator().manual_seed(r)).to(cuda)
+        tables[r] = rows.view(B, n_loc).to(torch.int32)
+        span = slice(r * n_loc * page, (r + 1) * n_loc * page)
+        for src, pool in ((k, pool_k), (v, pool_v)):
+            pool[tables[r].long()] = src[:, :, span].reshape(
+                B, Hkv, n_loc, page, D).transpose(1, 2)
+    n0 = fd.gqa_decode_paged_shard.launches
+    got = fd.sp_gqa_decode_paged_shard(q, pool_k, pool_v, tables, lens,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert fd.gqa_decode_paged_shard.launches == n0 + 1
+    _close(got, want, OUT_TOL)
+
+
+@pytest.mark.gpu
+def test_sp_generator_and_engine_match_world1_at_8b_width(cuda):
+    """Llama-3-8B widths at 2 layers: ``Generator(mesh=World(4))`` against
+    world 1 (prefill_chunked at 256 over a 1,500-token prompt, so every
+    span holds prompt rows, then 8 steps teacher-forced on world 1's
+    tokens: logits within 5e-2 of each other's largest magnitude, the bf16
+    floor), and the seq engine over 4 ranks serving two requests to the
+    end, every partition holding pages, the combine launched."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models.generate import Generator
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+    from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
+    from triton_dist_tpu_torch.serve import (
+        Request,
+        SamplingParams,
+        ServeEngine,
+    )
+
+    use_full_precision_matmul()
+    cfg = replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    params = llama.init_params(cfg, seed=0)
+    world = get_world(4, cuda)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, (2, 1900))
+    g1 = Generator(cfg, max_seq=2048)
+    g4 = Generator(cfg, mesh=world, max_seq=2048)
+    with torch.no_grad():
+        s1 = g1.prefill_chunked(params, prompt[:, :1500], chunk_size=256)
+        s4 = g4.prefill_chunked(params, prompt[:, :1500], chunk_size=256)
+        n0 = fd.sp_combine_shard.launches
+        for _ in range(8):
+            scale = s1.last_logits.abs().max().item()
+            err = (s4.last_logits - s1.last_logits).abs().max().item()
+            assert err <= 5e-2 * scale, (err, scale)
+            tok = s1.last_logits.argmax(-1)
+            s1, s4 = g1.step(params, s1, tok), g4.step(params, s4, tok)
+        assert fd.sp_combine_shard.launches - n0 == 8 * cfg.n_layers
+        eng = ServeEngine(g1, params, num_blocks=4 * 129, page_size=16,
+                          max_batch=2, prefill_chunk=512, mesh=world,
+                          kv_shard="seq")
+        for i, n in enumerate((1900, 700)):
+            eng.submit(Request(f"r{i}", prompt[i, :n],
+                               SamplingParams(max_new_tokens=8)))
+        used = set()
+        while eng.has_work():
+            eng.step()
+            for rid in list(eng.bm._tables):
+                used |= {eng.bm.part_of_block(b) for b in eng.bm.table(rid)}
+        outs = eng._outputs
+    assert sorted(outs) == ["r0", "r1"]
+    assert all(len(o.token_ids) == 8 for o in outs.values())
+    assert used == {0, 1, 2, 3}

@@ -46,7 +46,8 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.kernels.gemm_reduce_scatter",
             "triton_dist_tpu_torch.layers.tp_linear",
             "triton_dist_tpu_torch.runtime.bootstrap",
-            "triton_dist_tpu_torch.runtime.symm_mem"} <= set(mods)
+            "triton_dist_tpu_torch.runtime.symm_mem",
+            "triton_dist_tpu_torch.serve.mesh"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -336,3 +337,33 @@ def test_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bootstrap.initialize_distributed(4)
+
+
+def test_sp_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """The SP combine merges CPU tensors through its plain version without
+    counting a launch (over more ranks than the kernel takes too) and
+    refuses other devices; the SP entry points default to the card."""
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+    from triton_dist_tpu_torch.runtime import bootstrap
+
+    rng = np.random.default_rng(5)
+    out = torch.from_numpy(rng.standard_normal((3, 2, 4, 8)).astype(
+        np.float32))
+    lse = torch.from_numpy(rng.standard_normal((3, 2, 4)).astype(
+        np.float32))
+    n0 = fd.sp_combine_shard.launches
+    got = fd.sp_combine_shard(out, lse, all_ranks=True)
+    want = fd.combine_partials(out, lse)
+    assert all(torch.equal(got[r], want) for r in range(3))
+    assert torch.equal(fd.sp_combine_shard(out, lse), want)
+    assert fd.sp_combine_shard.launches == n0
+    meta = torch.empty((2, 2, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fd.sp_combine_shard(meta, torch.empty((2, 2, 4), device="meta"))
+    with pytest.raises(ValueError, match="W, ..., D"):
+        fd.sp_combine_shard(out, lse[:, :1])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fd.create_sp_decode_context(4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bootstrap.get_world(4, None)

@@ -1303,3 +1303,231 @@ def test_tp_linear_vjp_matches_reference(kind, mesh4):
     assert torch.equal(port(ta[0], tb[0]), ta[0] @ tb[0])
     with pytest.raises(NotImplementedError, match="item 9"):
         ttl.column_parallel_linear_w8a8(ta, tb, None)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the combine, the SP decodes, SP flash
+# ---------------------------------------------------------------------------
+
+SP_TOL = 1e-5
+
+
+def _sp_partials(seed, world, B, H):
+    """Rank-stacked decode partials with rank 1 dead (it holds nothing of
+    any row) and row (0, 0) dead on every rank (out 0, lse NEG_INF)."""
+    out, lse = _inputs(seed, (world, B, H, D), (world, B, H))
+    lse = 3 * lse
+    out[1], lse[1] = 0, tfd.NEG_INF
+    out[:, 0, 0], lse[:, 0, 0] = 0, tfd.NEG_INF
+    return out, lse
+
+
+def test_sp_combine_plain_matches_pallas(mesh4):
+    """The port's plain combine (``sp_combine_shard`` on CPU tensors)
+    against the reference's comm-fused ``_sp_combine_kernel`` in interpret
+    mode under shard_map on mesh4 (tests/test_flash_decode.py's
+    harness), within 1e-5; the dead row merges to exactly 0 on both
+    sides, and every rank holds the same result."""
+    from jax.sharding import PartitionSpec as P
+
+    world, B, H = 4, 2, 8
+    out, lse = _sp_partials(30, world, B, H)
+
+    def shard(o, l):
+        r = jax.lax.axis_index("tp")
+        return jfd.sp_combine_shard(o[r], l[r], axis="tp", interpret=True)
+
+    want = _shard_map(shard, mesh4, (P(), P()), P(), jnp.asarray(out),
+                      jnp.asarray(lse))
+    got = tfd.sp_combine_shard(_t(out), _t(lse), all_ranks=True)
+    assert got.shape == (world, B, H, D) and got.dtype == torch.float32
+    for r in range(world):
+        assert_allclose(got[r], np.asarray(want), atol=SP_TOL, rtol=SP_TOL)
+    assert torch.all(got[:, 0, 0] == 0) and np.all(np.asarray(want)[0, 0]
+                                                   == 0)
+    assert_allclose(tfd.combine_partials(_t(out), _t(lse)),
+                    np.asarray(jfd.combine_partials(out, lse)), atol=SP_TOL,
+                    rtol=SP_TOL)
+    # world 1 passes through
+    assert torch.equal(tfd.sp_combine_shard(_t(out[:1]), _t(lse[:1])),
+                       _t(out[0]))
+
+
+SP_DECODE_CASES = {
+    # name: (B, T, Hq, Hkv, lens, q_lens, window, soft_cap, int8)
+    "t1": (3, 1, 4, 2, [512, 300, 77], None, 0, 0.0, False),
+    "multi": (2, 3, 4, 1, [400, 129], [3, 2], 0, 0.0, False),
+    "window": (2, 1, 4, 2, [500, 260], None, 200, 20.0, False),
+    "multi_window": (2, 2, 4, 2, [385, 300], [2, 0], 150, 0.0, False),
+    "int8": (2, 1, 4, 2, [512, 90], None, 0, 0.0, True),
+}
+
+
+def _sp_decode_jax(world, request, q, k, v, lens, *, paged=None, **kw):
+    """The reference's ``sp_gqa_decode_shard`` (or, with ``paged =
+    (tables [W, B, n], nb_loc)``, ``sp_gqa_decode_paged_shard`` over
+    per-rank pools) inside shard_map on the conftest's mesh, its local
+    decode and combine in interpret mode (int8 caches: ``impl="xla"``,
+    the reference's own plain path)."""
+    from jax.sharding import PartitionSpec as P
+
+    mesh = _mesh(world, request)
+    scales = kw.pop("scales", None)
+    impl = dict(impl="xla") if scales is not None else dict(
+        impl="pallas", interpret=True)
+    if kw.get("q_lens") is not None:
+        kw["q_lens"] = jnp.asarray(kw["q_lens"])
+    seq = P(None, None, "tp")
+    if paged is None:
+        def shard(q_, k_, v_, l_, *sc):
+            ks, vs = sc if sc else (None, None)
+            return jfd.sp_gqa_decode_shard(q_, k_, v_, l_, axis="tp",
+                                           block_s=128, k_scale=ks,
+                                           v_scale=vs, **impl, **kw)
+
+        args = [jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                jnp.asarray(lens)]
+        specs = [P(), seq, seq, P()]
+        if scales is not None:
+            args += [jnp.asarray(s) for s in scales]
+            specs += [seq, seq]
+        return np.asarray(_shard_map(shard, mesh, tuple(specs), P(), *args))
+    tables, nb_loc = paged
+
+    def shard(q_, kp, vp, tab, l_, *sc):
+        ks, vs = sc if sc else (None, None)
+        r = jax.lax.axis_index("tp")
+        return jfd.sp_gqa_decode_paged_shard(
+            q_, kp, vp, tab[r] - r * nb_loc, l_, axis="tp", k_scale=ks,
+            v_scale=vs, **impl, **kw)
+
+    args = [jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(tables), jnp.asarray(lens)]
+    specs = [P(), P("tp"), P("tp"), P(), P()]
+    if scales is not None:
+        args += [jnp.asarray(s) for s in scales]
+        specs += [P("tp"), P("tp")]
+    return np.asarray(_shard_map(shard, mesh, tuple(specs), P(), *args))
+
+
+def _sp_decode_inputs(name, world):
+    B, T, Hq, Hkv, lens, q_lens, window, cap, int8 = SP_DECODE_CASES[name]
+    S = 512
+    qshape = (B, T, Hq, D) if T > 1 else (B, Hq, D)
+    q, k, v = _inputs(40 + world + len(name), qshape, (B, Hkv, S, D),
+                      (B, Hkv, S, D))
+    kw = dict(window=window, soft_cap=cap,
+              q_lens=None if q_lens is None else np.asarray(q_lens,
+                                                            np.int32))
+    return q, k, v, np.asarray(lens, np.int32), kw, int8
+
+
+@pytest.mark.parametrize("name,world", [
+    ("t1", 4), ("t1", 2), ("multi", 2), ("window", 4), ("multi_window", 2),
+    ("int8", 4)])
+def test_sp_decode_plain_matches_reference(name, world, request):
+    """``sp_gqa_decode_shard`` (rank-stacked spans, every rank's decode
+    folded into one batch, then the combine) against the reference's on
+    mesh2 / mesh4: single- and multi-token q (a dead query row), the
+    global window rule with a soft cap, int8 scales, and a request live on
+    rank 0 only (77 / 90 tokens); within 1e-5.  The context entry
+    ``sp_gqa_decode`` gives the same."""
+    q, k, v, lens, kw, int8 = _sp_decode_inputs(name, world)
+    scales = None
+    if int8:
+        (k, ks), (v, vs) = (tuple(np.asarray(x) for x in
+                                  jfd.quantize_kv(jnp.asarray(c)))
+                            for c in (k, v))
+        scales = (ks, vs)
+    want = _sp_decode_jax(world, request, q, k, v, lens, scales=scales,
+                          **dict(kw))
+    tkw = dict(kw, q_lens=None if kw["q_lens"] is None else _t(kw["q_lens"]))
+    shard = [tfd.shard_seq(_t(x), world) for x in (k, v)]
+    sc = {} if scales is None else dict(
+        k_scale=tfd.shard_seq(_t(scales[0]), world),
+        v_scale=tfd.shard_seq(_t(scales[1]), world))
+    got = tfd.sp_gqa_decode_shard(_t(q), *shard, _t(lens), **sc, **tkw)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert_allclose(got, want, atol=SP_TOL, rtol=SP_TOL)
+    if not (int8 or kw["q_lens"] is not None):
+        ctx = tfd.create_sp_decode_context(world, window=kw["window"],
+                                           soft_cap=kw["soft_cap"],
+                                           device="cpu")
+        assert torch.equal(tfd.sp_gqa_decode(_t(q), *shard, _t(lens), ctx),
+                           got)
+
+
+@pytest.mark.parametrize("name,world", [
+    ("t1", 4), ("multi_window", 2), ("int8", 2)])
+def test_sp_decode_paged_plain_matches_reference(name, world, request):
+    """``sp_gqa_decode_paged_shard`` over ONE pool holding every rank's
+    pages (rank r's rows [r * nb_loc, (r + 1) * nb_loc), shuffled; the
+    rank-stacked tables point into them) against the reference's over
+    per-rank pools and local tables on mesh2 / mesh4, page 128 (the
+    Pallas paged kernel's page); within 1e-5."""
+    q, k, v, lens, kw, int8 = _sp_decode_inputs(name, world)
+    B, Hkv, S = k.shape[:3]
+    page = 128
+    n_loc = S // page // world
+    nb_loc = B * n_loc + 1                       # + the rank's null row
+    rng = np.random.default_rng(50 + world)
+    tables = np.zeros((world, B, n_loc), np.int32)
+    pool_k = np.zeros((world * nb_loc, Hkv, page, D), np.float32)
+    pool_v = np.zeros_like(pool_k)
+    for r in range(world):
+        tables[r] = (r * nb_loc + 1 + rng.permutation(B * n_loc)).reshape(
+            B, n_loc)
+        span = slice(r * n_loc * page, (r + 1) * n_loc * page)
+        for src, pool in ((k, pool_k), (v, pool_v)):
+            pool[tables[r]] = src[:, :, span].reshape(
+                B, Hkv, n_loc, page, D).transpose(0, 2, 1, 3, 4)
+    scales = None
+    if int8:
+        (pool_k, ks), (pool_v, vs) = (
+            tuple(np.asarray(x) for x in jfd.quantize_kv(jnp.asarray(c)))
+            for c in (pool_k, pool_v))
+        scales = (ks, vs)
+    want = _sp_decode_jax(world, request, q, pool_k, pool_v, lens,
+                          paged=(tables, nb_loc), scales=scales, **dict(kw))
+    tkw = dict(kw, q_lens=None if kw["q_lens"] is None else _t(kw["q_lens"]))
+    sc = {} if scales is None else dict(k_scale=_t(scales[0]),
+                                        v_scale=_t(scales[1]))
+    got = tfd.sp_gqa_decode_paged_shard(_t(q), _t(pool_k), _t(pool_v),
+                                        _t(tables), _t(lens), **sc, **tkw)
+    assert_allclose(got, want, atol=SP_TOL, rtol=SP_TOL)
+
+
+@pytest.mark.parametrize("q_offset,window,dead", [(256, 0, 3),
+                                                   (320, 100, 0)])
+def test_sp_flash_attention_plain_matches_pallas(q_offset, window, dead,
+                                                 mesh4):
+    """``sp_flash_attention_shard`` (a flash call per rank at its global
+    ``kv_offset``, the partials merged over the rank dimension) against
+    the reference's under shard_map on mesh4 with its flash kernel in
+    interpret mode: a 128-row chunk over 512 keys (128 per rank; one
+    rank's span sees nothing, in the future or outside the window, and
+    merges away), within 1e-5."""
+    from jax.sharding import PartitionSpec as P
+
+    world, B, Hq, Hkv, Sq, S = 4, 1, 4, 2, 128, 512
+    q, k, v = _inputs(60 + window, (B, Hq, Sq, D), (B, Hkv, S, D),
+                      (B, Hkv, S, D))
+
+    def shard(q_, k_, v_):
+        return jfa.sp_flash_attention_shard(
+            q_, k_, v_, axis="tp", causal=True, q_offset=q_offset,
+            impl="pallas", interpret=True, window=window)
+
+    seq = P(None, None, "tp")
+    want = _shard_map(shard, mesh4, (P(), seq, seq), P(), jnp.asarray(q),
+                      jnp.asarray(k), jnp.asarray(v))
+    got = tfa.sp_flash_attention_shard(
+        _t(q), tfd.shard_seq(_t(k), world), tfd.shard_seq(_t(v), world),
+        causal=True, q_offset=q_offset, window=window)
+    assert got.shape == q.shape
+    assert_allclose(got, np.asarray(want), atol=SP_TOL, rtol=SP_TOL)
+    outs, lses = tfa.sp_flash_partials(
+        _t(q), tfd.shard_seq(_t(k), world), tfd.shard_seq(_t(v), world),
+        q_offset=q_offset, window=window)
+    assert torch.all(lses[dead] == tfd.NEG_INF)
+    assert torch.all(outs[dead] == 0)

@@ -257,8 +257,13 @@ def test_unported_options_raise():
         SpGQAFlashDecodeAttention)
     from triton_dist_tpu_torch.models import llama_w8a8
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpGQAFlashDecodeAttention(world=2, device="cpu")
+    # sequence parallelism is ported: a world of 2 builds, a world the
+    # kernels cannot take is refused
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    assert SpGQAFlashDecodeAttention(get_world(2, "cpu")).world == 2
+    with pytest.raises(ValueError):
+        get_world(9, "cpu")
     # the W8A8 hooks under tensor parallelism (Queue 1 item 9)
     x = torch.zeros((2, 256))
     layer = llama_w8a8.quantize_serve_params(
@@ -352,3 +357,170 @@ def test_moe_generator_streams_match_jax():
     chunked = tgen.prefill_chunked(tparams, toks, chunk_size=8)
     assert_allclose(chunked.last_logits, np.asarray(jst.last_logits),
                     atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: Generator(mesh=World(4))
+# ---------------------------------------------------------------------------
+
+SP_WORLD = 4
+
+
+def _unshard_seq(x):
+    """[W, B, Hkv, S_loc, ...] rank spans -> [B, Hkv, W * S_loc, ...]."""
+    W, B, H, s_loc = x.shape[:4]
+    return x.movedim(0, 2).reshape(B, H, W * s_loc, *x.shape[4:])
+
+
+def _sp_world():
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    return get_world(SP_WORLD, "cpu")
+
+
+def _jax_sp_run(jcfg, jparams, mesh4, toks, n_new, max_seq=512):
+    """The reference's ``Generator(cfg, mesh4, axis, interpret=True)``:
+    prefill, then ``n_new`` greedy tokens (its SP decode and combine
+    kernels in interpret mode)."""
+    jgen = JGenerator(jcfg, mesh4, axis="tp", max_seq=max_seq,
+                      interpret=True)
+    jst = jgen.prefill(jparams, jnp.asarray(toks))
+    jtoks, _ = jgen.generate(jparams, jst, n_new)
+    return np.asarray(jst.last_logits), np.asarray(jtoks)
+
+
+@pytest.fixture(scope="module")
+def sp_oracle(model, mesh4):
+    """A 300-token prompt (prompt rows on ranks 0-2 of 128-row spans)
+    through the reference's SP Generator on mesh4: last prefill logits
+    and 4 greedy tokens."""
+    jcfg, _, jparams, _ = model
+    toks = _prompts(11, 2, 300)
+    logits, jtoks = _jax_sp_run(jcfg, jparams, mesh4, toks, 4)
+    return toks, logits, jtoks
+
+
+@pytest.mark.parametrize("mode", ["prefill", "chunked16", "chunked48"])
+def test_sp_generator_matches_jax_and_world1(model, sp_oracle, mode):
+    """``Generator(mesh=World(4, cpu))`` against the reference's SP
+    Generator on mesh4 (last logits within 1e-4, greedy tokens identical)
+    and against the port's world-1 Generator (identical tokens, the same
+    cache rows in rank spans): prefill, and chunked prefill whose chunks
+    of 16 ride ``sp_gqa_decode_shard`` and of 48 ``sp_flash_attention_
+    shard`` (spans crossed mid-chunk)."""
+    _, tcfg, _, tparams = model
+    toks, jlogits, jtoks = sp_oracle
+    gens = [TGenerator(tcfg, max_seq=512, device="cpu"),
+            TGenerator(tcfg, mesh=_sp_world(), max_seq=512)]
+    assert gens[1].world == SP_WORLD and gens[1].device.type == "cpu"
+    states = []
+    for gen in gens:
+        if mode == "prefill":
+            states.append(gen.prefill(tparams, toks))
+        else:
+            c = int(mode[len("chunked"):])
+            states.append(gen.prefill_chunked(tparams, toks, chunk_size=c))
+    w1, sp = states
+    assert sp.caches[0][0].shape == (SP_WORLD, 2, 1, 128, 128)
+    assert_allclose(sp.last_logits, jlogits, atol=1e-4, rtol=1e-4)
+    for (k1, v1), (k4, v4) in zip(w1.caches, sp.caches):
+        assert_allclose(_unshard_seq(k4), k1, atol=1e-5, rtol=1e-5)
+        assert_allclose(_unshard_seq(v4), v1, atol=1e-5, rtol=1e-5)
+    t1, _ = gens[0].generate(tparams, w1, 4)
+    t4, st4 = gens[1].generate(tparams, sp, 4)
+    assert np.array_equal(t4.numpy(), jtoks)
+    assert torch.equal(t4, t1)
+    assert st4.kv_lens.tolist() == [304, 304]
+
+
+def test_sp_generator_windowed_matches_jax_and_world1(mesh4):
+    """The windowed, soft-capped config of tests/test_generate.py:134-190
+    (window 64, cap 10) at world 4: the global window spans rank
+    boundaries as decode crosses position 256; prefill and chunked
+    prefill (128) give the reference SP Generator's logits (1e-4) and
+    tokens, and the port's world-1 tokens."""
+    base = dict(vocab=64, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                ffn_dim=128, max_seq=512, attn_window=64,
+                attn_soft_cap=10.0)
+    jcfg = jllama.LlamaConfig(**base, dtype=jnp.float32)
+    tcfg = tllama.LlamaConfig(**base)
+    jparams = jllama.init_params(jcfg, jax.random.key(3))
+    tparams = tllama.params_from_jax(jax.device_get(jparams), tcfg,
+                                     device="cpu")
+    toks = np.random.default_rng(12).integers(0, 64, (1, 256)).astype(
+        np.int32)
+    jlogits, jtoks = _jax_sp_run(jcfg, jparams, mesh4, toks, 4)
+    g1 = TGenerator(tcfg, max_seq=512, device="cpu")
+    t1, _ = g1.generate(tparams, g1.prefill(tparams, toks), 4)
+    g4 = TGenerator(tcfg, mesh=_sp_world(), max_seq=512)
+    for st in (g4.prefill(tparams, toks),
+               g4.prefill_chunked(tparams, toks, chunk_size=128)):
+        assert_allclose(st.last_logits, jlogits, atol=1e-4, rtol=1e-4)
+        t4, _ = g4.generate(tparams, st, 4)
+        assert np.array_equal(t4.numpy(), jtoks)
+        assert torch.equal(t4, t1)
+
+
+def test_sp_layer_appends_and_paged_calls_match_jax(mesh4):
+    """``SpGQAFlashDecodeAttention(mesh=World(4))``: prefill K/V cut into
+    rank spans, appends at a span boundary and on the last rank (owner
+    only), attention after each, int8 caches alike, and the paged call
+    over ``init_paged_cache``'s pools; against the reference layer on
+    mesh4 (``impl="xla"``), 2e-5 (int8 bytes within 1 LSB)."""
+    from triton_dist_tpu.layers.sp_flash_decode import (
+        SpGQAFlashDecodeAttention as JLayer)
+    from triton_dist_tpu_torch.layers.sp_flash_decode import (
+        SpGQAFlashDecodeAttention as TLayer)
+
+    B, Hq, Hkv, D, S, S0 = 2, 4, 2, 128, 512, 127
+    rng = np.random.default_rng(13)
+    k0, v0 = (rng.standard_normal((B, Hkv, S0, D)).astype(np.float32)
+              for _ in range(2))
+    for kv_dtype in (None, "int8"):
+        jl = JLayer(mesh4, axis="tp", impl="xla",
+                    kv_dtype=None if kv_dtype is None else jnp.int8)
+        tl = TLayer(mesh=_sp_world(),
+                    kv_dtype=None if kv_dtype is None else torch.int8)
+        assert tl.world == SP_WORLD
+        jk, jv = jl.init_cache(B, Hkv, S, D, jnp.float32,
+                               k_init=jnp.asarray(k0), v_init=jnp.asarray(v0))
+        tk, tv = tl.init_cache(B, Hkv, S, D, torch.float32,
+                               k_init=torch.from_numpy(k0),
+                               v_init=torch.from_numpy(v0))
+        lens = np.array([S0, 3 * 128 + 120], np.int32)
+        for _ in range(3):      # 127 -> 128 -> 129 crosses ranks 0 / 1
+            nk, nv = (rng.standard_normal((B, Hkv, D)).astype(np.float32)
+                      for _ in range(2))
+            q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+            jk, jv = jl.append_kv(jk, jv, jnp.asarray(nk), jnp.asarray(nv),
+                                  jnp.asarray(lens))
+            tk, tv = tl.append_kv(tk, tv, torch.from_numpy(nk),
+                                  torch.from_numpy(nv),
+                                  torch.from_numpy(lens))
+            lens = lens + 1
+            want = jl(jnp.asarray(q), jk, jv, jnp.asarray(lens))
+            got = tl(torch.from_numpy(q), tk, tv, torch.from_numpy(lens))
+            assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+        if kv_dtype is None:
+            assert np.array_equal(_unshard_seq(tk).numpy(),
+                                  np.asarray(jk))
+        else:
+            lsb = np.abs(_unshard_seq(tk["q"]).numpy().astype(np.int32)
+                         - np.asarray(jk["q"]).astype(np.int32))
+            assert lsb.max() <= 1
+    # paged: the table and pools of init_paged_cache, filled alike
+    jl = JLayer(mesh4, axis="tp", impl="xla")
+    tl = TLayer(mesh=_sp_world())
+    jkp, jvp, jtab = jl.init_paged_cache(B, Hkv, 16, 8, D, jnp.float32)
+    tkp, tvp, ttab = tl.init_paged_cache(B, Hkv, 16, 8, D, torch.float32)
+    assert np.array_equal(ttab.numpy(), np.asarray(jtab))
+    assert tuple(tkp.shape) == tuple(jkp.shape)
+    kp, vp = (rng.standard_normal(tuple(jkp.shape)).astype(np.float32)
+              for _ in range(2))
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    plens = np.array([128, 37], np.int32)
+    want = jl(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+              jnp.asarray(plens), block_table=jtab)
+    got = tl(torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+             torch.from_numpy(plens), block_table=ttab)
+    assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)

@@ -506,3 +506,187 @@ def test_quantized_engine_reproducible_and_batching_equals_dedicated(
     for r in _mixed_reqs(prompts):
         alone = _serve(_small_engine(served, **kw), [r])
         assert alone[r.request_id] == a[r.request_id], r.request_id
+
+
+# ---------------------------------------------------------------------------
+# sequence-sharded serving: mesh=World(W), kv_shard="seq"
+# ---------------------------------------------------------------------------
+
+# two 16-token requests that contend for partition 0 (7 allocatable blocks
+# of 8 rows: the seq allocator preempts), one whose span crosses into
+# rank 1's partition (positions 32..63), one short one
+SEQ_MIX = [(16, 16), (16, 16), (40, 12), (5, 6)]
+
+
+def _seq_world(W=2):
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    return get_world(W, "cpu")
+
+
+def _drive_seq(mod, eng, prompts, partitions=None):
+    """SEQ_MIX, one request every 2 steps; greedy streams by id.
+    ``partitions`` collects every partition that held a page."""
+    reqs = [mod.Request(f"r{i}", p, mod.SamplingParams(max_new_tokens=m))
+            for i, (p, (_, m)) in enumerate(zip(prompts, SEQ_MIX))]
+    sub, step = 0, 0
+    while eng.has_work() or sub < len(reqs):
+        if step % 2 == 0 and sub < len(reqs):
+            eng.submit(reqs[sub])
+            sub += 1
+        eng.step()
+        step += 1
+        if partitions is not None:
+            for rid in list(eng.bm._tables):
+                partitions |= {eng.bm.part_of_block(b)
+                               for b in eng.bm.table(rid)}
+        assert step < 500
+    return {rid: list(o.token_ids) for rid, o in eng._outputs.items()}
+
+
+@pytest.mark.parametrize("chunk", [8, 40])
+def test_engine_seq_streams_match_world1_and_jax(served, chunk):
+    """``ServeEngine(mesh=World(2), kv_shard="seq")``: block-partitioned
+    pools, the decode through ``sp_gqa_decode_paged_shard`` and the
+    combine, chunked prefill attending over rank spans (chunks of 8 ride
+    the decode kernel, of 40 the per-rank flash partials): greedy streams
+    identical to the port's world-1 engine and to the reference's
+    ``ServeEngine(mesh=mesh2, kv_shard="seq")``, with a preemption (16
+    blocks in 2 partitions) and a span crossing rank ownership."""
+    tcfg, tparams = served["tcfg"], served["tparams"]
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, SMALL["vocab"], size=n).astype(np.int32)
+               for n, _ in SEQ_MIX]
+    kw = dict(page_size=8, max_batch=2, prefill_chunk=chunk, clock=_Tick())
+    tgen = TGenerator(tcfg, max_seq=64, device="cpu")
+    want = _drive_seq(tserve, tserve.ServeEngine(tgen, tparams,
+                                                 num_blocks=24, **kw),
+                      prompts)
+    parts = set()
+    eng = tserve.ServeEngine(tgen, tparams, num_blocks=16, mesh=_seq_world(),
+                             kv_shard="seq", **kw)
+    assert eng.sp_world == 2 and eng.bm.shards == 2
+    got = _drive_seq(tserve, eng, prompts, parts)
+    assert got == want
+    assert eng.metrics.preemptions >= 1
+    assert parts == {0, 1}
+    assert eng.bm.num_free == eng.bm.num_allocatable
+    # the reference's seq engine on mesh2, on the same weights
+    jcfg = jllama.LlamaConfig(**SMALL, dtype=jnp.float32)
+    jparams = jllama.init_params(jcfg, jax.random.key(1))
+    mesh1 = Mesh(np.array(jax.devices()[:1]), ("sp",))
+    mesh2 = Mesh(np.array(jax.devices()[:2]), ("tp",))
+    jeng = jserve.ServeEngine(JGenerator(jcfg, mesh1, axis="sp", max_seq=64),
+                              jparams, num_blocks=16, mesh=mesh2,
+                              kv_shard="seq", prefix_cache=False, **kw)
+    assert _drive_seq(jserve, jeng, prompts) == got
+    assert jeng.metrics.preemptions == eng.metrics.preemptions
+
+
+def test_engine_seq_int8_pools_match_world1(served):
+    """int8 paged pools under ``kv_shard="seq"`` (the scales ride with
+    their pages; the decode dequantizes per rank, the combine is float):
+    greedy streams identical to the port's world-1 int8 engine."""
+    tcfg, tparams = served["tcfg"], served["tparams"]
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, SMALL["vocab"], size=n).astype(np.int32)
+               for n, _ in SEQ_MIX]
+    gen = TGenerator(tcfg, max_seq=64, device="cpu", kv_dtype=torch.int8)
+    kw = dict(page_size=8, max_batch=2, prefill_chunk=8, clock=_Tick())
+    want = _drive_seq(tserve, tserve.ServeEngine(gen, tparams,
+                                                 num_blocks=24, **kw),
+                      prompts)
+    eng = tserve.ServeEngine(gen, tparams, num_blocks=16, mesh=_seq_world(),
+                             kv_shard="seq", **kw)
+    assert eng.kv_quant
+    assert _drive_seq(tserve, eng, prompts) == want
+
+
+def test_engine_seq_geometry_rejection_rows(served):
+    """The ``seq`` rows of tests/test_serve_mesh.py's rejection matrix
+    (8 logical pages of 8 rows), plus the layouts not ported yet and W8A8
+    (a tensor-parallel weight layout) under seq."""
+    tcfg, tparams = served["tcfg"], served["tparams"]
+    gen = TGenerator(tcfg, max_seq=64, device="cpu")
+
+    def build(mesh, **kw):
+        base = dict(num_blocks=24, page_size=8, max_batch=2,
+                    prefill_chunk=4, kv_shard="seq")
+        base.update(kw)
+        return tserve.ServeEngine(gen, tparams, mesh=mesh, **base)
+
+    with pytest.raises(ValueError, match="kv_shard"):
+        build(_seq_world(4), kv_shard="rows")
+    with pytest.raises(ValueError, match="kv_shard"):
+        build(None, kv_shard="rows")
+    with pytest.raises(ValueError, match="logical pages"):
+        build(_seq_world(3))                    # 8 pages % 3
+    with pytest.raises(ValueError, match="num_blocks"):
+        build(_seq_world(4), num_blocks=26)
+    with pytest.raises(ValueError, match="null"):
+        build(_seq_world(4), num_blocks=4)
+    with pytest.raises(ValueError, match="page_size"):
+        build(_seq_world(4), page_size=2, num_blocks=64)  # 32 pages, 2 % 4
+    for layout in ("heads", "heads+seq"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build(_seq_world(2), kv_shard=layout)
+    # a mesh without a layout takes seq, the one ported
+    assert build(_seq_world(2), kv_shard=None).bm.shards == 2
+    with pytest.raises(ValueError, match="w8a8"):
+        build(_seq_world(2), w8a8=True)
+    # a span that cannot fit its partition is rejected at submit
+    eng = build(_seq_world(2), num_blocks=8)
+    with pytest.raises(ValueError, match="partition"):
+        eng.submit(Request("long", np.zeros((16,), np.int32),
+                           SamplingParams(max_new_tokens=16)))
+
+
+def test_seq_rebase_and_rank_tables_match_reference(mesh4):
+    """``serve.mesh._rebase_local`` against the reference's under
+    shard_map on mesh4 (every rank's (mine, local) of the same global
+    ids), and the rank tables the SP decode reads (owned ids kept, foreign
+    and padded ones on the rank's own null)."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu.serve import mesh as jmesh
+    from triton_dist_tpu_torch.serve import mesh as tmesh
+
+    W, nb, n_pages = 4, 32, 8
+    ids = np.array([[1, 2, 9, 10, 17, 0, 0, 0],
+                    [3, 0, 11, 12, 0, 0, 0, 0]], np.int32)
+
+    def shard(x):
+        mine, loc = jmesh._rebase_local(x, axis="tp", world=W,
+                                        num_blocks=nb)
+        return mine[None], loc[None]
+
+    jm, jl = jax.jit(jax.shard_map(shard, mesh=mesh4, in_specs=(P(),),
+                                   out_specs=(P("tp"), P("tp")),
+                                   check_vma=False))(jnp.asarray(ids))
+    tm, tl = tmesh._rebase_local(torch.from_numpy(ids), world=W,
+                                 num_blocks=nb)
+    assert np.array_equal(tm.numpy(), np.asarray(jm))
+    assert np.array_equal(tl.numpy(), np.asarray(jl))
+    tabs = tmesh._rank_tables(torch.from_numpy(ids), world=W,
+                              num_blocks=nb, n_pages_max=n_pages)
+    assert tabs.tolist() == [[[1, 2], [3, 0]], [[9, 10], [11, 12]],
+                             [[17, 16], [16, 16]], [[24, 24], [24, 24]]]
+
+
+def test_serve_cli_mesh_seq_on_cpu():
+    """``examples/serve.py --engine --mesh 4`` (``--kv-shard seq``, the
+    default with a mesh) serves on the CPU with prompts spanning three
+    ranks' spans; the other layouts raise naming their ROADMAP entry;
+    ``--kv-shard`` without ``--mesh`` is refused."""
+    from triton_dist_tpu_torch.examples import serve as cli
+
+    args = ["--engine", "--device", "cpu", "--requests", "2",
+            "--new-tokens", "3", "--prompt-len", "120"]
+    outs = cli.run_engine(cli.parse_args(args + ["--mesh", "4"]))
+    want = cli.run_engine(cli.parse_args(args))
+    assert {r: o.token_ids for r, o in outs.items()} == \
+        {r: o.token_ids for r, o in want.items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(args + ["--mesh", "4", "--kv-shard", "heads+seq"])
+    with pytest.raises(SystemExit):
+        cli.main(args + ["--kv-shard", "seq"])

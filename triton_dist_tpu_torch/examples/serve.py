@@ -14,6 +14,15 @@ Quantized serving: ``--kv-int8`` (int8 paged KV pools with per-position
 scales) and ``--w8a8`` (int8 weights and activations in the out and FFN
 projections); the two compose.
 
+Sequence-sharded serving: ``--mesh N`` (``--kv-shard seq``, the default
+and the one layout ported) places the engine on a virtual world of N
+ranks (on the one device): the paged KV shards by block over the ranks'
+sequence spans, and every decode and prompt chunk merges the ranks'
+attention partials through the SP combine kernel.  Long contexts (Llama-3-8B's 8,192 positions) span every rank:
+
+    python -m triton_dist_tpu_torch.examples.serve --engine --mesh 4 \\
+        --kv-shard seq --prompt-len 4096
+
 The MoE family (``--model moe``) runs through ``MoEGenerator`` without
 ``--engine``, as the reference's generation mode does: Mixtral-8x7B at
 full width on the card (``--layers`` cuts the depth; 16 layers fit), a
@@ -23,7 +32,7 @@ tiny config on the CPU:
     python -m triton_dist_tpu_torch.examples.serve --model moe --device cpu
 
 Counterpart of ``examples/serve.py``'s ``run_engine`` and generation mode
-(world 1, single-step decode).
+(single-step decode; ``--mesh`` with ``--kv-shard seq`` only).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 from triton_dist_tpu_torch.models import llama, moe
 from triton_dist_tpu_torch.models.generate import Generator
 from triton_dist_tpu_torch.models.generate_moe import MoEGenerator
+from triton_dist_tpu_torch.runtime.bootstrap import get_world
 from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
 from triton_dist_tpu_torch.serve import Request, SamplingParams, ServeEngine
 
@@ -81,6 +91,15 @@ def parse_args(argv=None):
     p.add_argument("--w8a8", action="store_true",
                    help="W8A8 weights: per-channel int8 wo/wgate/wup/wdown, "
                         "per-row int8 activations, exact int8 GEMMs")
+    p.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="engine mode: serve over a virtual world of N "
+                        "ranks on the one device (--kv-shard seq)")
+    p.add_argument("--kv-shard", choices=("heads", "seq", "heads+seq"),
+                   default=None,
+                   help="--mesh KV layout: 'seq' (the default with --mesh) "
+                        "shards the paged pools by block, each rank owning "
+                        "a contiguous sequence span (SP flash-decode); "
+                        "'heads' and 'heads+seq' are not ported yet")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after the run, a second wave of the same prompts: "
                         "once every row decodes, time N steps, then run N "
@@ -233,9 +252,18 @@ def run_engine(args) -> dict:
                     kv_dtype=torch.int8 if args.kv_int8 else None)
     num_blocks = args.num_blocks or 1 + args.max_batch * (max_seq //
                                                          args.page_size)
+    mesh = None
+    if args.mesh is not None:
+        mesh = get_world(args.mesh, gen.device)
+        if args.num_blocks is None:
+            # equal per-rank partitions, one null each, a full-length
+            # span still fitting its partition
+            num_blocks = -(-(num_blocks + args.mesh) // args.mesh) * \
+                args.mesh
     eng = ServeEngine(gen, params, num_blocks=num_blocks,
                       page_size=args.page_size, max_batch=args.max_batch,
-                      prefill_chunk=chunk, w8a8=args.w8a8)
+                      prefill_chunk=chunk, w8a8=args.w8a8, mesh=mesh,
+                      kv_shard=args.kv_shard)
     kv = eng.metrics.kv_stats()
     print(f"[serve] {cfg.n_layers}-layer dim-{cfg.dim} model on "
           f"{gen.device} ({time.perf_counter() - t0:.1f} s to build); "
@@ -243,7 +271,10 @@ def run_engine(args) -> dict:
           f"{args.new_tokens} new tokens each; KV pools "
           f"{'int8' if kv['quantized'] else str(cfg.dtype)}, "
           f"{kv['bytes_per_token']:.0f} B/token, weights "
-          f"{'w8a8' if args.w8a8 else str(cfg.dtype)}")
+          f"{'w8a8' if args.w8a8 else str(cfg.dtype)}"
+          + (f"; mesh {args.mesh} ranks, kv_shard="
+             f"{args.kv_shard or 'seq'!r}, "
+             f"{num_blocks} blocks" if mesh is not None else ""))
     sp = SamplingParams(max_new_tokens=args.new_tokens,
                         temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.seed)
@@ -299,10 +330,14 @@ def main(argv=None):
             "W8A8 forward serve the dense family only; MoE serving goes "
             "through MoEGenerator (drop the flag), and its engine path is "
             "ROADMAP Queue 1 item 13")
+    if args.kv_shard is not None and args.mesh is None:
+        # a non-default layout without a mesh would serve world 1 while
+        # the user believes they exercised sequence sharding
+        raise SystemExit("--kv-shard needs --mesh N (and --engine)")
     if not args.engine:
-        if args.w8a8 or args.profile:
-            raise SystemExit("--w8a8 / --profile are engine-mode flags: add "
-                             "--engine")
+        if args.w8a8 or args.profile or args.mesh is not None:
+            raise SystemExit("--w8a8 / --profile / --mesh are engine-mode "
+                             "flags: add --engine")
         run_generate(args)
         return
     run_engine(args)

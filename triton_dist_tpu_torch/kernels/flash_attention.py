@@ -19,6 +19,11 @@ on a CUDA tensor that is the int8 instantiation of the same kernel
 (:func:`flash_fwd_i8`, the port of ``_flash_kernel_i8``, with its own
 launch count).  The quantized path is forward-only, as in the reference.
 
+Sequence parallelism: :func:`sp_flash_partials` runs flash over each
+rank's span of a rank-stacked cache at its global ``kv_offset``, and
+:func:`sp_flash_attention_shard` merges the partials through the SP
+combine (the reference's ``sp_flash_attention_shard``).
+
 Under autograd (grad enabled, an input that requires grad, no
 ``return_lse``) the call goes through :class:`FlashAttentionFn`, the
 counterpart of the reference's ``jax.custom_vjp`` ``_flash_diff``: it saves
@@ -444,6 +449,51 @@ def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
 
 
 flash_attention.launches = 0
+
+
+def sp_flash_partials(q, k_shard, v_shard, *, causal=True, scale=None,
+                      q_offset=0, k_scale=None, v_scale=None, soft_cap=0.0,
+                      window=0):
+    """Every rank's flash partial over its span: q [B, Hq, Sq, D] held
+    once; k/v_shard [W, B, Hkv, S_loc, D] (rank r's positions
+    ``[r * S_loc, (r + 1) * S_loc)`` at [r]; any strides the kernel reads,
+    int8 with ``k_scale``/``v_scale`` [W, B, Hkv, S_loc]).  One flash call
+    per rank at ``kv_offset = r * S_loc``; returns (out [W, B, Hq, Sq, D]
+    in q's dtype, lse [W, B, Hq, Sq] f32), a rank with nothing visible
+    giving out 0 and lse NEG_INF."""
+    world, s_loc = k_shard.shape[0], k_shard.shape[3]
+    outs, lses = [], []
+    for r in range(world):
+        out, lse = flash_attention(
+            q, k_shard[r], v_shard[r], causal=causal, scale=scale,
+            q_offset=q_offset, kv_offset=r * s_loc, return_lse=True,
+            k_scale=None if k_scale is None else k_scale[r],
+            v_scale=None if v_scale is None else v_scale[r],
+            soft_cap=soft_cap, window=window)
+        outs.append(out)
+        lses.append(lse)
+    return torch.stack(outs), torch.stack(lses)
+
+
+def sp_flash_attention_shard(q, k_shard, v_shard, *, causal=True,
+                             scale=None, q_offset=0, k_scale=None,
+                             v_scale=None, soft_cap=0.0, window=0):
+    """Sequence-parallel prefill attention (the reference's
+    ``sp_flash_attention_shard``): :func:`sp_flash_partials`, then the
+    partials merge where the reference's ``pmax`` and two ``psum`` over
+    the ranks do, through the SP paths' one inter-rank combine
+    (``flash_decode._combine_across_ranks``: the combine kernel on CUDA
+    tensors, its plain version on CPU tensors).  A row visible on no rank
+    merges to 0.  Returns [B, Hq, Sq, D] in q's dtype."""
+    # flash_decode imports this module, so its combine is reached at call
+    from triton_dist_tpu_torch.kernels.flash_decode import (
+        _combine_across_ranks,
+    )
+
+    outs, lses = sp_flash_partials(
+        q, k_shard, v_shard, causal=causal, scale=scale, q_offset=q_offset,
+        k_scale=k_scale, v_scale=v_scale, soft_cap=soft_cap, window=window)
+    return _combine_across_ranks(outs, lses, q.dtype)
 
 
 def flash_gqa_attention(q, k, v, *, causal=True, scale=None, window=0,

@@ -1,4 +1,5 @@
-"""GQA decode attention over a contiguous or a paged KV cache (world 1).
+"""GQA decode attention over a contiguous or a paged KV cache, at world 1
+and sequence-parallel over the ranks of a virtual world.
 
 Counterpart of ``triton_dist_tpu/kernels/flash_decode.py``'s shard-level
 entries :func:`gqa_decode_shard` and :func:`gqa_decode_paged_shard`:
@@ -21,12 +22,34 @@ what it does not take.  Each kernel mode counts its own launches:
 On CPU tensors they run the plain PyTorch versions :func:`decode_ref` and
 :func:`decode_paged_ref` (the counterparts of ``_local_decode_xla`` and of
 ``_paged_gather`` + ``_paged_gather_scale`` followed by it).
+
+Sequence parallelism (SP) over the W ranks of a virtual world
+(``runtime/bootstrap.World``): rank r holds positions
+``[r * S_loc, (r + 1) * S_loc)`` of every sequence, and what differs per
+rank carries a leading rank dimension (cache spans ``[W, B, Hkv, S_loc,
+D]``, rank tables ``[W, B, n_local]``, partials ``[W, ...]``), while the
+query and the result are held once.
+
+- :func:`sp_gqa_decode_shard` / :func:`sp_gqa_decode_paged_shard`: every
+  rank's local decode in ONE kernel launch (the ranks folded into the
+  batch, with the reference's ``ends = kv_lens - r * S_loc`` rule), then
+  :func:`_combine_across_ranks`.
+- :func:`sp_combine_shard`: the inter-rank log-sum-exp merge.  On CUDA
+  tensors it launches ``csrc/sp_combine.cu`` (the port of the TPU
+  ``_sp_combine_kernel``: barrier, every rank's packed (out, lse) plane
+  pushed to every peer, the merge in rank order, one cooperative launch)
+  and counts ``sp_combine_shard.launches``, or raises on what the kernel
+  does not take; on CPU tensors the plain version :func:`sp_combine_ref`
+  (the gather is the rank stack itself: :func:`combine_partials`).
+- :class:`SpDecodeContext`, :func:`create_sp_decode_context` and the host
+  entry :func:`sp_gqa_decode`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -38,6 +61,8 @@ from triton_dist_tpu_torch.kernels.flash_attention import (
     apply_soft_cap,
 )
 from triton_dist_tpu_torch.kernels.quant import symmetric_quantize
+from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, World, get_world
+from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
 MAX_ROWS = 128  # T * G query rows one decode block holds
 TILE = 64       # key positions per kernel tile (csrc/attn_common.cuh BN)
@@ -54,6 +79,10 @@ _DECODE_SIG = {
     "tdt_decode_paged_i8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
     + [ctypes.c_longlong] * 12 + _TAIL,
 }
+_SP_SIG = {"tdt_sp_combine": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+           + [ctypes.c_uint, ctypes.c_void_p]}
+SP_PLANE_PAD = 4          # csrc/sp_combine.cu PAD: lse + 3 zeros per row
+SP_CHUNK_BYTES = 1 << 16  # plane rows a block pushes before it signals
 
 
 def split_plan(n_pairs: int, S_total: int, sms: int):
@@ -379,3 +408,259 @@ def decode_paged_i8(q, k_pool, v_pool, k_scale, v_scale, table, local_lens,
 
 
 decode_paged_i8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Inter-rank combine
+# ---------------------------------------------------------------------------
+
+
+def combine_partials(outs, lses):
+    """Log-sum-exp merge of per-rank partials: outs [W, ..., D], lses
+    [W, ...] -> [..., D] f32 (the reference's ``combine_partials``).  A
+    row with lse NEG_INF on every rank merges to 0: every weight is 1 and
+    every partial 0."""
+    lses = lses.float()
+    m = lses.amax(dim=0, keepdim=True)
+    w = torch.exp(lses - m)
+    denom = w.sum(dim=0)
+    out = (outs.float() * w[..., None]).sum(dim=0)
+    return out / denom[..., None]
+
+
+def sp_combine_ref(out, lse):
+    """Plain version of the combine: rank-stacked partials out
+    [W, B, H, D] and lse [W, B, H] -> every rank's merged result
+    [W, B, H, D] f32 (the same on every rank).  In the virtual world the
+    rank stack is the gathered buffer every rank reads (the reference's
+    packed gather), so this is :func:`combine_partials` over it."""
+    final = combine_partials(out, lse)
+    return final[None].expand(out.shape[0], *final.shape)
+
+
+def _check_combine(out, lse):
+    if out.dim() < 2 or tuple(lse.shape) != tuple(out.shape[:-1]):
+        raise ValueError(f"sp_combine: out {tuple(out.shape)} must be "
+                         f"[W, ..., D] and lse {tuple(lse.shape)} [W, ...]")
+    if out.shape[0] > MAX_RANKS:
+        raise ValueError(f"sp_combine: at most {MAX_RANKS} ranks, got "
+                         f"{out.shape[0]}")
+
+
+def _combine_plan(ws, bh, D):
+    """What a combine of ``bh`` rows of ``D`` over a workspace's world
+    keeps from call to call, made once per shape and held in the
+    workspace: (chunk_rows, n_chunk, the final buffer [W, bh, D] f32, and
+    the pointer tables of out, lse (filled in place by each call), the
+    gather buffer, the final, the flags and the barrier slots)."""
+    key = ("sp_combine", bh, D)
+    plan = ws.plans.get(key)
+    if plan is None:
+        world = ws.world.size
+        plane = D + SP_PLANE_PAD
+        chunk_rows = max(1, SP_CHUNK_BYTES // (plane * 4))
+        n_chunk = -(-bh // chunk_rows)
+        final = ws.get("sp_combine_final", (bh, D), torch.float32)
+        bufs = (ws.get("sp_combine", (world, bh, plane), torch.float32),
+                final, ws.flags("sp_combine", world * n_chunk),
+                ws.flags("barrier", world))
+        table = ctypes.c_longlong * world
+        plan = ws.plans[key] = (chunk_rows, n_chunk, final, table(),
+                                table(), *[table(*peer_table(t))
+                                           for t in bufs])
+    return plan
+
+
+def sp_combine_shard(out, lse, *, all_ranks: bool = False):
+    """The inter-rank combine of SP decode partials: out [W, B, H, D] f32,
+    lse [W, B, H] f32 (rank r's partial over its span at [r]; B and H may
+    be any leading shape) -> [B, H, D] f32, the merged result every rank
+    holds (rank 0's); ``all_ranks`` returns the rank-stacked [W, B, H, D]
+    instead (each rank's own merge, bit for bit the same on the card).
+    World 1 passes the partial through.  On CUDA tensors one launch of
+    ``csrc/sp_combine.cu`` (raising on what it does not take) into the
+    workspace's final buffer of this shape: the result stays valid until
+    the next combine of the same shape, as the reference's gather buffer
+    does.  On CPU tensors :func:`sp_combine_ref`, a new tensor."""
+    _check_combine(out, lse)
+    world = out.shape[0]
+    if world == 1:
+        return out if all_ranks else out[0]
+    if out.device.type == "cpu":
+        final = sp_combine_ref(out, lse)
+        return final if all_ranks else final[0]
+    if not out.is_cuda:
+        raise ValueError(f"sp_combine: unsupported device {out.device}")
+    if out.dtype != torch.float32 or lse.dtype != torch.float32:
+        raise TypeError(f"sp_combine kernel: f32 partials, got out "
+                        f"{out.dtype}, lse {lse.dtype}")
+    if lse.device != out.device:
+        raise ValueError(f"sp_combine: lse on {lse.device}, out on "
+                         f"{out.device}")
+    D = out.shape[-1]
+    if D % 4:
+        raise ValueError(f"sp_combine kernel: head_dim {D} must be a "
+                         f"multiple of 4 (16-byte plane rows)")
+    lead = out.shape[1:-1]
+    bh = math.prod(lead)
+    if bh == 0:
+        raise ValueError("sp_combine kernel: no rows to merge")
+    out, lse = out.contiguous(), lse.contiguous()
+    ws = get_world(world, out.device).workspace
+    chunk_rows, n_chunk, final, t_out, t_lse, gath, t_fin, flags, bar = \
+        _combine_plan(ws, bh, D)
+    for t, x, row in ((t_out, out, bh * D * 4), (t_lse, lse, bh * 4)):
+        base = x.data_ptr()
+        for r in range(world):
+            t[r] = base + r * row
+    epoch = ws.next_epoch()
+    lib = _build.load("sp_combine", _SP_SIG)
+    with torch.cuda.device(out.device):
+        err = lib.tdt_sp_combine(t_out, t_lse, gath, t_fin, flags, bar,
+                                 world, bh, D, chunk_rows, n_chunk, epoch,
+                                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "sp_combine")
+    sp_combine_shard.launches += 1
+    final = final.view(world, *lead, D)
+    return final if all_ranks else final[0]
+
+
+sp_combine_shard.launches = 0
+
+
+def _combine_across_ranks(out, lse, out_dtype):
+    """The one inter-rank combine dispatch of the SP paths (the decodes
+    and ``flash_attention.sp_flash_attention_shard``): rank-stacked
+    partials [W, B, H, D] / [W, B, H] -> [B, H, D] in ``out_dtype``.
+    World 1 passes through; otherwise :func:`sp_combine_shard` (the kernel
+    on CUDA tensors, the plain version on CPU tensors; partials in another
+    dtype than f32 widen first).  The reference's other branch
+    (``impl="xla"`` or head_dim % 128: a packed gather, then XLA's merge)
+    is the plain version here."""
+    return sp_combine_shard(out.float(), lse.float()).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel decode (shard + host entries)
+# ---------------------------------------------------------------------------
+
+
+def sp_local_lens(kv_lens, world: int, s_loc: int):
+    """(local_lens, ends) [W, B] int32 of global lengths ``kv_lens`` [B]:
+    rank r's unclipped local end ``kv_lens - r * s_loc`` and its clip to
+    [0, s_loc] (the reference's rule; the unclipped ends place windowed
+    and multi-token queries globally)."""
+    r = torch.arange(world, device=kv_lens.device, dtype=torch.int32)
+    ends = kv_lens.to(torch.int32)[None, :] - (r * s_loc)[:, None]
+    return ends.clamp(0, s_loc), ends
+
+
+def _fold_ranks(q, world):
+    """q [B, ...] held once -> [W * B, ...]: every rank's copy, so the
+    ranks fold into the decode kernel's batch."""
+    return q.expand(world, *q.shape).reshape(world * q.shape[0],
+                                             *q.shape[1:])
+
+
+def _combine_folded(out, lse, world, B, out_dtype):
+    """Partials of a folded decode ([W * B, (T,) H, D]) -> the combined
+    [B, (T,) H, D]: multi-token partials merge like a B * T batch."""
+    rest = out.shape[1:-1]
+    c = _combine_across_ranks(out.reshape(world, -1, rest[-1], out.shape[-1]),
+                              lse.reshape(world, -1, rest[-1]), out_dtype)
+    return c.reshape(B, *rest, out.shape[-1])
+
+
+def sp_gqa_decode_shard(q, k_shard, v_shard, kv_lens, *, k_scale=None,
+                        v_scale=None, soft_cap=0.0, window=0, q_lens=None):
+    """SP decode over contiguous cache spans: q [B, Hq, D] or
+    [B, T, Hq, D] (held once); k/v_shard [W, B, Hkv, S_loc, D] (rank r's
+    span of every sequence at [r], int8 with ``k_scale``/``v_scale``
+    [W, B, Hkv, S_loc]); kv_lens [B] GLOBAL lengths.  Every rank's local
+    partial in one decode launch (the ranks folded into the batch), then
+    the combine.  Returns [B, (T,) Hq, D] in q's dtype."""
+    world, B, Hkv, s_loc, D = k_shard.shape
+    multi = q.dim() == 4
+    local, ends = sp_local_lens(kv_lens.to(q.device), world, s_loc)
+
+    def fold(x):
+        return None if x is None else x.reshape(world * B, *x.shape[2:])
+
+    out, lse = gqa_decode_shard(
+        _fold_ranks(q, world), fold(k_shard), fold(v_shard),
+        local.reshape(-1), k_scale=fold(k_scale), v_scale=fold(v_scale),
+        soft_cap=soft_cap, window=window,
+        window_lens=ends.reshape(-1) if (window or multi) else None,
+        q_lens=None if q_lens is None else q_lens.to(q.device).repeat(world))
+    return _combine_folded(out, lse, world, B, q.dtype)
+
+
+def sp_gqa_decode_paged_shard(q, k_pool, v_pool, block_table, kv_lens, *,
+                              soft_cap=0.0, window=0, q_lens=None,
+                              k_scale=None, v_scale=None):
+    """SP decode over a paged pool: k/v_pool [N, Hkv, page, D] (int8 with
+    ``k_scale``/``v_scale`` [N, Hkv, page]) hold every rank's pages, and
+    ``block_table`` [W, B, n_local] gives rank r's logical pages of each
+    sequence as pool rows (its own pages; entries past a length may point
+    at any pool row, e.g. its null).  Rank r owns global positions
+    ``[r * s_loc, (r + 1) * s_loc)``, ``s_loc = n_local * page`` (the
+    contiguous rule); kv_lens [B] are GLOBAL lengths.  Under the
+    partitioned allocator the pool IS the rank-stacked pool (rank r's
+    rows ``[r * nb_loc, (r + 1) * nb_loc)``), so one paged launch over
+    W * B rows computes every rank's partial without copying it.  Returns
+    [B, (T,) Hq, D] in q's dtype."""
+    world, B, n_local = block_table.shape
+    s_loc = n_local * k_pool.shape[2]
+    multi = q.dim() == 4
+    local, ends = sp_local_lens(kv_lens.to(q.device), world, s_loc)
+    out, lse = gqa_decode_paged_shard(
+        _fold_ranks(q, world), k_pool, v_pool,
+        block_table.reshape(world * B, n_local), local.reshape(-1),
+        soft_cap=soft_cap, window=window,
+        window_lens=ends.reshape(-1) if (window or multi) else None,
+        q_lens=None if q_lens is None else q_lens.to(q.device).repeat(world),
+        k_scale=k_scale, v_scale=v_scale)
+    return _combine_folded(out, lse, world, B, q.dtype)
+
+
+def shard_seq(x, world: int):
+    """[B, Hkv, S, ...] -> [W, B, Hkv, S / W, ...] (a new contiguous
+    tensor): rank r's span of the sequence axis at [r]."""
+    B, H, S = x.shape[:3]
+    if S % world:
+        raise ValueError(f"sequence length {S} must divide by the world "
+                         f"size {world}")
+    return x.reshape(B, H, world, S // world, *x.shape[3:]).movedim(
+        2, 0).contiguous()
+
+
+@dataclass
+class SpDecodeContext:
+    """The world and the knobs of an SP decode (the reference's
+    ``SpDecodeContext``; its ``mesh``/``axis`` pair is the world here)."""
+
+    world: World
+    soft_cap: float = 0.0
+    window: int = 0
+
+
+def create_sp_decode_context(world, soft_cap=0.0, window=0, *,
+                             device=None) -> SpDecodeContext:
+    """The context over ``world``: a :class:`World`, or a rank count (the
+    world of that size on ``device``, made on first use).  The
+    reference's ``block_s`` has no counterpart: the kernel's tile is
+    fixed."""
+    if not isinstance(world, World):
+        world = get_world(int(world), device)
+    return SpDecodeContext(world=world, soft_cap=soft_cap, window=window)
+
+
+def sp_gqa_decode(q, k_cache, v_cache, kv_lens, ctx: SpDecodeContext):
+    """Host entry: q [B, Hq, D]; k/v_cache [W, B, Hkv, S_loc, D], the
+    sequence axis sharded over the context's W ranks (:func:`shard_seq`);
+    kv_lens [B] global lengths.  Returns [B, Hq, D]."""
+    if k_cache.shape[0] != ctx.world.size:
+        raise ValueError(f"cache of {k_cache.shape[0]} rank spans, world "
+                         f"of {ctx.world.size}")
+    return sp_gqa_decode_shard(q, k_cache, v_cache, kv_lens,
+                               soft_cap=ctx.soft_cap, window=ctx.window)

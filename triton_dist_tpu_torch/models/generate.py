@@ -1,8 +1,11 @@
-"""Autoregressive generation over a contiguous KV cache (world 1).
+"""Autoregressive generation over a contiguous KV cache, at world 1 or
+sequence-parallel over the ranks of a virtual world.
 
 Counterpart of ``triton_dist_tpu/models/generate.py``: the
 :class:`Generator` (``prefill``, ``prefill_chunked``, ``step``,
-``generate``) and the shared layer math the serving engine reuses —
+``generate``; ``mesh=`` a ``runtime.bootstrap.World`` shards every
+layer's cache over its ranks' sequence spans, weights and activations
+held once) and the shared layer math the serving engine reuses —
 ``_token_forward`` (one decode token, parameterized by the cache
 addressing), ``_chunk_forward`` (one prompt chunk against the cached
 prefix) and ``_prompt_forward`` (the full-prompt forward).  Attention runs
@@ -18,6 +21,7 @@ calls, and cache writes land in place.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,10 +30,12 @@ import torch
 from triton_dist_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_gqa_attention,
+    sp_flash_attention_shard,
 )
 from triton_dist_tpu_torch.kernels.flash_decode import (
     gqa_decode_shard,
     quantize_kv,
+    sp_gqa_decode_shard,
 )
 from triton_dist_tpu_torch.layers.sp_flash_decode import (
     SpGQAFlashDecodeAttention,
@@ -42,6 +48,7 @@ from triton_dist_tpu_torch.models.llama import (
     _rotate,
     _silu_mul,
 )
+from triton_dist_tpu_torch.runtime.bootstrap import World
 from triton_dist_tpu_torch.runtime.utils import resolve_device
 
 
@@ -50,7 +57,8 @@ class GenerationState:
     """Per-layer K/V caches + lengths."""
 
     caches: list  # [(k_cache, v_cache)] per layer, [B, Hkv, S, D] (or
-    #               {"q": int8 [B, Hkv, S, D], "s": f32 [B, Hkv, S]})
+    #               {"q": int8 [B, Hkv, S, D], "s": f32 [B, Hkv, S]});
+    #               over W ranks rank-stacked [W, B, Hkv, S / W, ...]
     kv_lens: torch.Tensor  # [B] int32 — tokens currently in the cache
     last_logits: torch.Tensor  # [B, vocab] f32 — logits for the next token
 
@@ -123,7 +131,7 @@ def _token_forward(params, caches, token, pos, *, cfg: LlamaConfig,
 
 
 def _attend_prefix(q, k_all, v_all, prefix_len, *, k_scale=None,
-                   v_scale=None, window=0, soft_cap=0.0):
+                   v_scale=None, window=0, soft_cap=0.0, spans=False):
     """Chunk attention against the cache prefix + itself: q [B, c, Hq, hd];
     k/v_all [B, Hkv, S, hd] with the chunk's rows already written at
     [prefix, prefix + c); position j is visible to chunk row i iff
@@ -131,18 +139,29 @@ def _attend_prefix(q, k_all, v_all, prefix_len, *, k_scale=None,
     kernel (c * G query rows, one pass over the cache); larger ones the
     flash prefill kernel at ``q_offset = prefix_len``.  ``k_scale``/
     ``v_scale`` [B, Hkv, S] dequantize an int8 cache on either route.
-    Returns f32 [B, c, Hq, hd]."""
+    With ``spans`` the caches are rank-stacked sequence spans
+    [W, B, Hkv, S_loc, hd] (scales [W, B, Hkv, S_loc]) and the routes are
+    their sequence-parallel forms, the reference's world > 1 branches:
+    ``sp_gqa_decode_shard`` (one decode launch for every rank) and
+    ``sp_flash_attention_shard`` (a flash call per rank), the partials
+    merged by the combine kernel on either.  The Generator and the seq
+    engine (``serve/mesh.py``) both attend here.  Returns f32
+    [B, c, Hq, hd]."""
     B, c = q.shape[0], q.shape[1]
     if c <= 32:
         lens = torch.full((B,), c + int(prefix_len), dtype=torch.int32,
                           device=q.device)
-        out, _ = gqa_decode_shard(q, k_all, v_all, lens, k_scale=k_scale,
-                                  v_scale=v_scale, soft_cap=soft_cap,
-                                  window=window)
+        kw = dict(k_scale=k_scale, v_scale=v_scale, soft_cap=soft_cap,
+                  window=window)
+        if spans:
+            out = sp_gqa_decode_shard(q, k_all, v_all, lens, **kw)
+        else:
+            out, _ = gqa_decode_shard(q, k_all, v_all, lens, **kw)
         return out.float()
-    out = flash_attention(q.permute(0, 2, 1, 3), k_all, v_all, causal=True,
-                          q_offset=prefix_len, k_scale=k_scale,
-                          v_scale=v_scale, window=window, soft_cap=soft_cap)
+    flash = sp_flash_attention_shard if spans else flash_attention
+    out = flash(q.permute(0, 2, 1, 3), k_all, v_all, causal=True,
+                q_offset=prefix_len, k_scale=k_scale, v_scale=v_scale,
+                window=window, soft_cap=soft_cap)
     return out.permute(0, 2, 1, 3).float()
 
 
@@ -160,9 +179,48 @@ def _write_chunk(cache, new, prefix_len):
     return cache
 
 
+def _write_span_rows(cache, new, prefix_len):
+    """Write rows [B, Hkv, c, ...] at global ``prefix_len`` into a
+    rank-stacked cache [W, B, Hkv, S_loc, ...], in place: each rank's
+    share lands in its own span (a chunk may cross span boundaries; rows
+    past the last span are dropped)."""
+    W, s_loc, c = cache.shape[0], cache.shape[3], new.shape[2]
+    for r in range(prefix_len // s_loc,
+                   min(W, -(-(prefix_len + c) // s_loc))):
+        lo = max(prefix_len, r * s_loc)
+        hi = min(prefix_len + c, (r + 1) * s_loc)
+        cache[r, :, :, lo - r * s_loc:hi - r * s_loc] = \
+            new[:, :, lo - prefix_len:hi - prefix_len]
+
+
+def _write_chunk_spans(cache, new, prefix_len):
+    """:func:`_write_chunk` for rank-stacked sequence spans: rows quantize
+    whole (per position, as world 1's do), then land on their owners."""
+    if isinstance(cache, dict):
+        q8, sc = quantize_kv(new)
+        _write_span_rows(cache["q"], q8, prefix_len)
+        _write_span_rows(cache["s"], sc, prefix_len)
+        return cache
+    _write_span_rows(cache, new.to(cache.dtype), prefix_len)
+    return cache
+
+
+def _cache_views(k_c, v_c, extent):
+    """(k, v, k_scale, v_scale): the attention reads of one layer's cache
+    pair (scales None for float caches), the position axis cut to
+    ``extent`` when given."""
+    if isinstance(k_c, dict):
+        views = (k_c["q"], v_c["q"], k_c["s"], v_c["s"])
+    else:
+        views = (k_c, v_c, None, None)
+    if extent is None:
+        return views
+    return tuple(None if x is None else x[:, :, :extent] for x in views)
+
+
 def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
                    extent: int | None = None, n_valid: int | None = None,
-                   ffn=None, out_proj=None, attend=None):
+                   ffn=None, out_proj=None, attend=None, write=None):
     """One prompt chunk [B, c] against the cached prefix; returns
     (new_caches, logits [B, c, V] f32 — position i predicts the token
     after chunk[:, i]).  The chunk's own K/V are written to the cache
@@ -174,8 +232,11 @@ def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
     final chunk leaves the cache identical to an unpadded run (causality
     already hides those rows from every valid query).  ``attend(q, k_view,
     v_view, prefix_len, k_scale=, v_scale=)`` overrides the prefix
-    attention (scale views are None for float caches)."""
+    attention (scale views are None for float caches); ``write(cache,
+    rows, prefix_len)`` the cache write (rank-stacked spans:
+    :func:`_write_chunk_spans`)."""
     ffn = ffn or _dense_prompt_ffn
+    write = write or _write_chunk
     out_proj = out_proj or _default_out_proj
     if attend is None:
         def attend(q, k, v, off, k_scale=None, v_scale=None):
@@ -207,18 +268,11 @@ def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
         if keep is not None:
             k = torch.where(keep, k, torch.zeros_like(k))
             v = torch.where(keep, v, torch.zeros_like(v))
-        k_c = _write_chunk(k_c, k.permute(0, 2, 1, 3), prefix_len)
-        v_c = _write_chunk(v_c, v.permute(0, 2, 1, 3), prefix_len)
+        k_c = write(k_c, k.permute(0, 2, 1, 3), prefix_len)
+        v_c = write(v_c, v.permute(0, 2, 1, 3), prefix_len)
         new_caches.append((k_c, v_c))
-        if isinstance(k_c, dict):
-            ext = extent or k_c["q"].shape[2]
-            o = attend(q, k_c["q"][:, :, :ext], v_c["q"][:, :, :ext],
-                       prefix_len, k_scale=k_c["s"][:, :, :ext],
-                       v_scale=v_c["s"][:, :, :ext])
-        else:
-            ext = extent or k_c.shape[2]
-            o = attend(q, k_c[:, :, :ext], v_c[:, :, :ext], prefix_len,
-                       k_scale=None, v_scale=None)
+        kq, vq, ks, vs = _cache_views(k_c, v_c, extent)
+        o = attend(q, kq, vq, prefix_len, k_scale=ks, v_scale=vs)
         o = o.reshape(B * c, cfg.n_heads * hd).to(cfg.dtype)
         x = x + out_proj(o, layer).reshape(B, c, cfg.dim)
         h2 = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps).reshape(
@@ -281,22 +335,34 @@ class Generator:
         state = gen.prefill(params, prompt_tokens)      # [B, S0]
         tokens, state = gen.generate(params, state, n_new=64)
 
+    ``mesh=World(W)`` (``runtime.bootstrap.get_world``) serves the same
+    model sequence-parallel: every layer's cache is cut into the W ranks'
+    spans of ``max_seq / W`` positions, the prompt and decode forwards run
+    once (weights and activations are held once), and attention runs
+    every rank's partial over its span, then the inter-rank combine
+    (``layers/sp_flash_decode.py``).
+
     ``kv_dtype=torch.int8`` keeps every cache quantized (int8 rows + f32
     per-position scales): prefill quantizes the prompt's K/V once,
     chunked prefill and each decode step quantize the rows they write,
     and the int8 kernels read them back.
     """
 
-    def __init__(self, cfg: LlamaConfig, *, max_seq: int | None = None,
-                 device="cuda", kv_dtype=None):
+    def __init__(self, cfg: LlamaConfig, *, mesh: World | None = None,
+                 max_seq: int | None = None, device="cuda", kv_dtype=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else
+                                     mesh.device)
         self.max_seq = max_seq or cfg.max_seq
         self.attn = SpGQAFlashDecodeAttention(
-            device=self.device,
+            mesh, device=self.device,
             check_bounds=False,  # the Generator guards lengths itself
             kv_dtype=kv_dtype, soft_cap=cfg.attn_soft_cap,
             window=cfg.attn_window)
+        self.world = self.attn.world
+        if self.max_seq % self.world:
+            raise ValueError(f"max_seq {self.max_seq} must divide by the "
+                             f"world size {self.world}")
 
     # -- prefill ----------------------------------------------------------
 
@@ -333,10 +399,18 @@ class Generator:
                   for _ in range(cfg.n_layers)]
         logits = None
         extent = min(self.max_seq, -(-S0 // chunk_size) * chunk_size)
+        kw = dict(extent=extent)
+        if self.world > 1:
+            # every rank attends over its whole span (masks bound the
+            # read), and writes land on the rows' owners
+            kw = dict(write=_write_chunk_spans,
+                      attend=functools.partial(
+                          _attend_prefix, window=cfg.attn_window,
+                          soft_cap=cfg.attn_soft_cap, spans=True))
         for off in range(0, S0, chunk_size):
             caches, logits = _chunk_forward(
                 params, tokens[:, off:off + chunk_size], caches, off,
-                cfg=cfg, extent=extent, ffn=self._ffn_prompt)
+                cfg=cfg, ffn=self._ffn_prompt, **kw)
         lens = torch.full((B,), S0, dtype=torch.int32, device=self.device)
         return GenerationState(caches=caches, kv_lens=lens,
                                last_logits=logits[:, -1])

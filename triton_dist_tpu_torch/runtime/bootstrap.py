@@ -61,18 +61,28 @@ def initialize_distributed(world_size: int = 1, *, device=None,
             f"backend {backend!r}: one process per card (NCCL plus torch "
             f"symmetric memory) is not ported yet (ROADMAP Queue 1 item 11); "
             f"the port runs the virtual world of one device")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = canonical_device(device)
     key = (int(world_size), str(dev))
     if key not in _WORLDS:
         _WORLDS[key] = World(int(world_size), dev)
     return _WORLDS[key]
 
 
+def canonical_device(device) -> torch.device:
+    """``device`` resolved (the card unless ``"cpu"`` is asked for), a
+    CUDA device with its index: the key a world is kept under."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def get_world(size: int, device) -> World:
-    """The world of ``size`` ranks on ``device`` (made on first use)."""
-    return initialize_distributed(size, device=device)
+    """The world of ``size`` ranks on ``device`` (made on first use; a
+    device already in its kept form, such as a tensor's, is looked up
+    directly)."""
+    world = _WORLDS.get((int(size), str(device)))
+    return world or initialize_distributed(size, device=device)
 
 
 def finalize_distributed() -> None:

@@ -50,6 +50,9 @@ class SymmetricWorkspace:
     def __init__(self, world):
         self.world = world
         self.buffers: dict = {}
+        # what a kernel derives once per shape from these buffers (pointer
+        # tables, chunking), kept by the kernel under its own key
+        self.plans: dict = {}
         self.epoch = 0
 
     def get(self, name: str, per_rank_shape: Sequence[int],

@@ -29,15 +29,25 @@ weight tree once for ``llama_w8a8.quantize_serve_params`` and binds the
 W8A8 ``ffn``/``out_proj`` hooks on the prefill and decode forwards.  The
 two compose.
 
+Sequence-sharded serving (``mesh=`` a ``runtime.bootstrap.World`` of W
+ranks, ``kv_shard="seq"``, the default with a mesh): weights stay whole,
+the pools shard by block over the ranks' sequence spans (the partitioned
+``BlockManager``), and the decode and chunked-prefill programs are
+``serve/mesh.py``'s (every rank's attention partial, then the SP combine
+kernel); the page fill is world 1's.  ``mesh=None`` is the world-1
+engine.
+
 PyTorch runs eagerly, so the reference's counted jit programs are plain
 calls and pools update in place.  Options of the reference engine that
 are not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: decode horizon, speculative decoding, prefix cache, failure
-containment and crash recovery, overload control, mesh serving.
+containment and crash recovery, overload control, the ``heads`` and
+``heads+seq`` mesh layouts.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 from typing import Optional
@@ -56,7 +66,9 @@ from triton_dist_tpu_torch.models.generate import (
     _token_forward,
 )
 from triton_dist_tpu_torch.models.sampling import sample_logits
+from triton_dist_tpu_torch.runtime.bootstrap import World, canonical_device
 from triton_dist_tpu_torch.runtime.utils import tree_leaves
+from triton_dist_tpu_torch.serve import mesh as serve_mesh
 from triton_dist_tpu_torch.serve.block_manager import (
     BlockExhausted,
     BlockManager,
@@ -213,8 +225,9 @@ def _stream_seed(seed: int, index: int) -> int:
 
 
 class ServeEngine:
-    """Continuous-batching serving over one :class:`Generator` (world 1;
-    float or int8 pools, float or W8A8 weights).
+    """Continuous-batching serving over one :class:`Generator` (float or
+    int8 pools; float or, at world 1, W8A8 weights; world 1, or
+    ``mesh=World(W), kv_shard="seq"``).
 
     Usage::
 
@@ -237,7 +250,9 @@ class ServeEngine:
                  prefill_chunk: int = 64,
                  prefill_budget: Optional[int] = None,
                  clock=time.monotonic,
-                 horizon: int = 1, mesh=None, w8a8: bool = False,
+                 horizon: int = 1, mesh=None,
+                 kv_shard: Optional[str] = None,
+                 w8a8: bool = False,
                  draft: Optional[Generator] = None, draft_params=None,
                  spec_k: int = 0, prefix_cache: bool = False,
                  max_queue: Optional[int] = None, class_aware: bool = False,
@@ -253,8 +268,30 @@ class ServeEngine:
         if draft is not None or draft_params is not None or spec_k:
             _not_ported("draft/spec_k (speculative decoding)",
                         "Queue 1 item 8")
+        if kv_shard is not None and kv_shard not in serve_mesh.KV_SHARDS:
+            # validated off-mesh too: a typo must not ride silently until
+            # a mesh is added
+            raise ValueError(f"kv_shard must be one of "
+                             f"{serve_mesh.KV_SHARDS}, got {kv_shard!r}")
+        self.sp_world = 1
+        if mesh is not None and not isinstance(mesh, World):
+            _not_ported(f"mesh={type(mesh).__name__} (a mesh over several "
+                        f"cards or processes; the port serves over a "
+                        f"runtime.bootstrap.World on one device)",
+                        "Queue 1 item 11 (the multi-process backend)")
         if mesh is not None:
-            _not_ported("mesh (sharded serving)", "Queue 1 item 12")
+            # "seq" is the one layout ported, so a mesh defaults to it
+            self.sp_world = serve_mesh.validate_mesh_geometry(
+                mesh=mesh, kv_shard=kv_shard or "seq", max_seq=gen.max_seq,
+                num_blocks=num_blocks, page_size=page_size)
+            if w8a8:
+                raise ValueError(
+                    "w8a8 is a tensor-parallel weight layout: supported at "
+                    "world 1 (the seq layout keeps float weights, as in "
+                    "the reference)")
+            if mesh.device != canonical_device(gen.device):
+                raise ValueError(f"the mesh's ranks live on {mesh.device}, "
+                                 f"the generator on {gen.device}")
         if faults is not None or step_timeout_s is not None \
                 or heartbeat is not None or snapshot_dir is not None:
             _not_ported("faults/step_timeout_s/heartbeat/snapshot_dir "
@@ -284,7 +321,23 @@ class ServeEngine:
         self.page = page_size
         self.max_batch = max_batch
         self.n_pages_max = gen.max_seq // page_size
-        self.bm = BlockManager(num_blocks, page_size, prefix_cache=False)
+        # kv_shard="seq" partitions the block-id space per rank (rank r
+        # owns pool rows [r*NB/W, (r+1)*NB/W), the pages of its sequence
+        # span; one null block per partition)
+        self.bm = BlockManager(num_blocks, page_size, prefix_cache=False,
+                               shards=self.sp_world,
+                               pages_per_shard=self.n_pages_max
+                               // self.sp_world)
+        # the device programs: world 1's, or their sequence-sharded twins
+        self._decode_fwd = _paged_decode_forward
+        self._chunk_fwd = _chunk_forward
+        if mesh is not None:
+            geo = dict(world=self.sp_world, num_blocks=num_blocks)
+            self._decode_fwd = functools.partial(
+                serve_mesh.sp_paged_decode_shard,
+                n_pages_max=self.n_pages_max, **geo)
+            self._chunk_fwd = functools.partial(
+                serve_mesh.sp_chunk_forward_shard, world=self.sp_world)
         self.scheduler = FCFSScheduler(
             self.bm, prefill_budget=prefill_budget or 4 * prefill_chunk,
             prefill_chunk=prefill_chunk)
@@ -442,7 +495,7 @@ class ServeEngine:
             # pads with zeros and n_valid zero-masks its K/V writes.
             buf = np.zeros((1, chunk_sz), np.int64)
             buf[0, :c] = prompt[rs.prefill_pos:rs.prefill_pos + c]
-            rs.scratch, logits = _chunk_forward(
+            rs.scratch, logits = self._chunk_fwd(
                 self.params, torch.from_numpy(buf).to(self.device),
                 rs.scratch, rs.prefill_pos, cfg=self.cfg, extent=rs.s_ext,
                 n_valid=c, **self._hooks)
@@ -620,7 +673,7 @@ class ServeEngine:
                                              self.n_pages_max)
         dev = self.device
         self.metrics.dispatches += 1
-        self._pools, logits = _paged_decode_forward(
+        self._pools, logits = self._decode_fwd(
             self.params, self._pools, torch.from_numpy(tables).to(dev),
             torch.from_numpy(lens).to(dev), torch.from_numpy(tokens).to(dev),
             torch.from_numpy(active).to(dev), cfg=self.cfg, page=self.page,
