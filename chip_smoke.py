@@ -59,6 +59,13 @@ Phases, in order (any failure exits non-zero without the final line):
    relative L2), timed eagerly between CUDA events (each call carries a
    new epoch, so no CUDA graph), one batched torch.matmul (AG-GEMM) or
    one einsum (GEMM-RS) over the virtual world's ranks as the yardstick;
+   the AG-GEMM's int8 mode (``ag_gemm_i8``) at the TP-4 W8A8 forward's
+   QKV (n 1536) and gate/up (n 3584) shapes (m_loc 512, K 4096): the
+   gathered A bit for bit and the int32 C exactly equal to the plain
+   version, ``torch._int_mm`` of the gathered rows against every rank's B
+   side by side as the yardstick; row tails at 250 rows per rank (a
+   1,000-token prompt at TP 4): the int8 AG-GEMM exactly, the bf16
+   AG-GEMM (gate/up) and GEMM-RS (down) by the bf16 GEMM rule;
    the SP combine (``csrc/sp_combine.cu``) over SP ranks at the SP-4
    decode's shape (out [4, 8, 32, 128] f32) and the engine chunk's ([4,
    512, 32, 128]), a dead rank and a row dead on every rank among the
@@ -149,7 +156,24 @@ Phases, in order (any failure exits non-zero without the final line):
    finishes and every partition holds pages; the served tokens agree with
    a world-1 teacher-forced forward at the dense gates; the world-1
    engine serves the same mix once beside (tok/s, TTFT, ITL, step time
-   of both).
+   of both);
+15. W8A8 TP forward (after 14, on phase 4's weights): ``quantize_params_
+   w8a8`` for TP ranks, ``place_w8a8_params``, ``make_w8a8_forward(cfg,
+   TP)`` at 32 layers on tokens [S 2048, B 1] (every column projection
+   through the int8 AG-GEMM, every row projection matmul_i8 per rank and
+   an f32 sum over the ranks), timed and profiled (the int8 AG-GEMM's
+   device share); its logits against the float world-1 forward (cosine
+   > 0.995) and its argmax against the same forward over the plain
+   versions at the W8A8 floors; once more at a ragged S 1,000 (250 rows
+   per rank); the first W8A8_GATE_LAYERS layers at both W8A8 gates
+   (median relative error < 0.05, cosine > 0.995);
+16. heads engine: phase 5's mix and knobs through ``ServeEngine(mesh=
+   World(TP), kv_shard="heads")``, float then ``w8a8=True``, each beside
+   the world-1 engine on the same mix (tok/s, TTFT, ITL); every request
+   finishes, and the served tokens agree with a world-1 teacher-forced
+   forward: the float run with the flash prompt forward at the dense
+   gates, the W8A8 run with the world-1 W8A8 model's forward at the W8A8
+   floors; the greedy prefix match against the world-1 engine printed.
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
@@ -164,7 +188,12 @@ kernels' from phase 12 (a), their phase-11 counts beside under
 theirs and reads 0 (no model path calls it).  Every counter is zeroed
 again just before phase 13 and read just after phase 14: the combine's
 count comes from there (> 0 in each phase), and flash_fwd's, decode's and
-decode_paged's ride beside under "sp_launches".  A
+decode_paged's ride beside under "sp_launches".  Phase 15 zeroes the int8
+AG-GEMM's, matmul_i8's and flash_fwd's counters just before its forward
+and reads them just after: the int8 AG-GEMM's count comes from there
+(matmul_i8's and flash_fwd's beside under "w8a8_tp_launches"); phase 16
+zeroes flash_fwd's, decode_paged's and matmul_i8's before each engine run
+and reads them after it ("heads_launches", each > 0 in its heads run).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -258,6 +287,14 @@ SP_MAX_SEQ = 8192   # Llama-3-8B's published context (max_position_embeddings)
 SP_COMBINE_TOL = 1e-5   # sp_combine vs plain, relative to the largest value
 TP_SGD_LR = 0.2
 TP_SGD_STEPS = 3
+# Phase 15 holds the W8A8 TP forward to the float forward at the W8A8
+# gates (median relative error < 0.05, cosine > 0.995).  W8A8 error grows
+# with depth (each projection re-quantizes its rows): at 32 layers the
+# cosine read 0.9973 and the median relative error 0.0719 (NVIDIA H100
+# 80GB HBM3, 700 W; the CPU tests hold the port to the reference's W8A8
+# forward), so the 32-layer logits are gated on the cosine, and both gates
+# hold the first W8A8_GATE_LAYERS layers of the same weights.
+W8A8_GATE_LAYERS = 2
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_S = 1979e12       # H100 SXM dense int8 tensor-core peak
@@ -1213,7 +1250,133 @@ def ring_rows(dev, g):
             W * W * m_loc * k + W * k * N + W * m_loc * N),
             2 * W * W * m_loc * k * N, err, lib, "torch.einsum")
     rows["gemm_rs"] = dict(shapes["down"], shapes=shapes)
+    rows["ag_gemm_i8"] = ag_gemm_i8_row(dev, g)
+    ragged_ring_rows(dev, g, rows)
     return rows
+
+
+def ag_gemm_i8_row(dev, g):
+    """The AG-GEMM's int8 mode (``tdt_ag_gemm_i8``) at the TP-4 W8A8
+    forward's column projections (m_loc 512 rows per rank, K 4096): QKV (n
+    1536) and gate/up (n 3584) on random int8 operands, the gathered A bit
+    for bit and the int32 C exactly equal to the plain version (exact on
+    both sides), timed eagerly between CUDA events (each launch carries
+    its call's epoch) beside its bound (int8 operations at 1,979 TOP/s
+    against the bytes of int8 A, B and gathered A and int32 C), its plain
+    version (float64 products, graph-timed) and one ``torch._int_mm`` of
+    the gathered rows against every rank's B side by side ([K, W n], B
+    column-major as the matmul_i8 row measures it; cuBLASLt). The row
+    reports gate/up; both ride along under "shapes"."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    W, m_loc, K = TP, 512, 4096
+    shapes = {}
+    for tag, n in (("qkv", 1536), ("gate_up", 14336 // TP)):
+        a = torch.randint(-127, 128, (W, m_loc, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (W, K, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        a_full, c = agm.ag_gemm(a, b)
+        torch.cuda.synchronize()
+        want_full, want_c = agm.ag_gemm_ref(a, b)
+        same_a, same_c = torch.equal(a_full, want_full), torch.equal(c,
+                                                                     want_c)
+        err = (c.double() - want_c.double()).abs().max().item()
+        b_cm = b.permute(1, 0, 2).reshape(K, W * n).t().contiguous().t()
+        af = a.reshape(W * m_loc, K)
+        lib_same = torch.equal(torch._int_mm(af, b_cm), torch.cat(
+            list(want_c), dim=1))
+        log(f"ag_gemm_i8 {tag} (W {W}, m_loc {m_loc}, K {K}, n {n}): "
+            f"gathered A equal {same_a}, C exactly equal {same_c} (max "
+            f"|kernel-plain| {err:.1f}); torch._int_mm equal {lib_same}")
+        if not (same_a and same_c):
+            raise AssertionError(f"ag_gemm_i8 {tag} disagrees with plain")
+        del a_full, c, want_full, want_c
+        ms = event_ms(lambda: agm.ag_gemm(a, b), iters=10)
+        plain_ms = time_ms(lambda: agm.ag_gemm_ref(a, b), iters=2, reps=2)
+        lib = time_ms(lambda: torch._int_mm(af, b_cm), iters=5)
+        ops = 2 * W * W * m_loc * n * K
+        n_bytes = W * m_loc * K + W * K * n + W * W * m_loc * K \
+            + 4 * W * W * m_loc * n
+        b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS_S)
+        log(f"ag_gemm_i8 {tag}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+            f"TOP/s over {W} ranks), plain {plain_ms:.4f} ms, library "
+            f"{lib:.4f} ms (torch._int_mm, B column-major), bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        shapes[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib, max_abs_err=err)
+    return dict(shapes["gate_up"], shapes=shapes)
+
+
+def ragged_ring_rows(dev, g, rows):
+    """The row tails: 250 rows per rank (a 1,000-token prompt at TP 4),
+    no multiple of either tile (128 bf16, 64 int8).  The int8 AG-GEMM at
+    the gate/up shape (exactly equal), the bf16 AG-GEMM at gate/up and the
+    GEMM-RS at down (the gathered A bit for bit, the products by the bf16
+    GEMM rule), each timed once between CUDA events beside its bound; the
+    entries ride under each row's "shapes" as "ragged250"."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    W, m_loc, D, F = TP, 250, 4096, 14336 // TP
+    a = torch.randint(-127, 128, (W, m_loc, D), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (W, D, F), generator=g, device=dev,
+                      dtype=torch.int8)
+    a_full, c = agm.ag_gemm(a, b)
+    torch.cuda.synchronize()
+    want_full, want_c = agm.ag_gemm_ref(a, b)
+    if not (torch.equal(a_full, want_full) and torch.equal(c, want_c)):
+        raise AssertionError("ag_gemm_i8 ragged250 disagrees with plain")
+    ms = event_ms(lambda: agm.ag_gemm(a, b), iters=5)
+    ops = 2 * W * W * m_loc * F * D
+    b_ms, b_by = bound_ms(W * m_loc * D + W * D * F + W * W * m_loc * D
+                          + 4 * W * W * m_loc * F, ops, INT8_OPS_S)
+    log(f"ag_gemm_i8 ragged250 (W {W}, m_loc {m_loc}, K {D}, n {F}): "
+        f"gathered A and C exactly equal; kernel {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    rows["ag_gemm_i8"]["shapes"]["ragged250"] = dict(
+        ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+    del a, b, a_full, c, want_full, want_c
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).bfloat16()
+
+    a, b = randn(W, m_loc, D), randn(W, D, F, scale=D ** -0.5)
+    a_full, c = agm.ag_gemm(a, b)
+    torch.cuda.synchronize()
+    want_full, want_c = agm.ag_gemm_ref(a, b)
+    if not torch.equal(a_full, want_full):
+        raise AssertionError("ag_gemm ragged250: gathered A differs")
+    err = gemm_rule(f"ag_gemm ragged250 (W {W}, m_loc {m_loc}, K {D}, n "
+                    f"{F})", c, want_c)
+    ms = event_ms(lambda: agm.ag_gemm(a, b), iters=5)
+    ops = 2 * W * W * m_loc * F * D
+    b_ms, b_by = bound_ms(2 * (W * m_loc * D + W * D * F + W * W * m_loc
+                               * (D + F)), ops)
+    log(f"ag_gemm ragged250: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    rows["ag_gemm"]["shapes"]["ragged250"] = dict(
+        ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    del a, b, a_full, c, want_full, want_c
+
+    a, b = randn(W, W * m_loc, F), randn(W, F, D, scale=F ** -0.5)
+    out = grs.gemm_rs(a, b)
+    torch.cuda.synchronize()
+    err = gemm_rule(f"gemm_rs ragged250 (W {W}, m_loc {m_loc}, k {F}, N "
+                    f"{D})", out, grs.gemm_rs_ref(a, b))
+    ms = event_ms(lambda: grs.gemm_rs(a, b), iters=5)
+    b_ms, b_by = bound_ms(2 * (W * W * m_loc * F + W * F * D + W * m_loc
+                               * D), 2 * W * W * m_loc * F * D)
+    log(f"gemm_rs ragged250: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    rows["gemm_rs"]["shapes"]["ragged250"] = dict(
+        ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -1497,7 +1660,8 @@ def quant_generator_phase(cfg, params):
     return gen
 
 
-def engine_phase(cfg, params, gen, *, w8a8=False, tag="engine"):
+def engine_phase(cfg, params, gen, *, w8a8=False, tag="engine", mesh=None,
+                 kv_shard=None):
     import torch
 
     from triton_dist_tpu_torch.serve import (
@@ -1513,7 +1677,7 @@ def engine_phase(cfg, params, gen, *, w8a8=False, tag="engine"):
     prompts = [rng.integers(0, cfg.vocab, size=int(n)) for n in lens]
     eng = ServeEngine(gen, params, num_blocks=1 + 8 * 2048 // 16,
                       page_size=16, max_batch=8, prefill_chunk=512,
-                      w8a8=w8a8)
+                      w8a8=w8a8, mesh=mesh, kv_shard=kv_shard)
     reqs = [Request(f"r{i}", p, SamplingParams(max_new_tokens=int(n)))
             for i, (p, n) in enumerate(zip(prompts, news))]
     t0 = time.perf_counter()
@@ -1798,6 +1962,250 @@ def sp_phases(cfg, params):
         f"{w1_line['itl_ms']['p50']:.1f} ms")
     return launches, dict(generator=gen_line, engine=line,
                           engine_world1=w1_line)
+
+
+# ---------------------------------------------------------------------------
+# phases 15-16: W8A8 tensor parallelism and head-sharded serving over TP
+# ranks (on phase 4's weights)
+# ---------------------------------------------------------------------------
+
+
+def w8a8_tp_phase(cfg, params):
+    """Phase 15: Llama-3-8B at full width and 32 layers, W8A8 over TP ranks
+    of the virtual world, on phase 4's float weights (``quantize_params_
+    w8a8`` for TP, ``place_w8a8_params``), tokens [S 2048, B 1] from a
+    seed: ``make_w8a8_forward(cfg, TP)`` with the int8 AG-GEMM, matmul_i8
+    and flash_fwd counters zeroed just before (each > 0 after), timed and
+    profiled (device busy, the int8 AG-GEMM's share); its logits against
+    the float world-1 forward (cosine > 0.995; the median relative error
+    printed) and its argmax against the same forward over the plain
+    versions at the W8A8 floors (ties within QUANT_NEAR_TIE, AGREE_MIN
+    with ties, QUANT_STRICT_MIN exact); then once at a ragged S 1,000 (250
+    rows per rank: the masked row tail) against the float forward's first
+    1,000 positions; then the first W8A8_GATE_LAYERS layers of the same
+    weights at S 2048 and 1,000 at both W8A8 gates (median relative error
+    < 0.05, cosine > 0.995).  Returns the forward's launch counts and its
+    line."""
+    from dataclasses import replace
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import quant
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models import llama_w8a8 as lw
+
+    rng = np.random.default_rng(15)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
+                          device="cuda")
+    counters = {"ag_gemm_i8": agm.ag_gemm_i8, "matmul_i8": quant.matmul_i8,
+                "flash_fwd": fa.flash_attention}
+
+    def against_float(tag, got, ref, rel_gate=True):
+        rel = ((got - ref).abs() / (ref.abs() + 1e-2)).median().item()
+        cos = ((got * ref).sum() / (got.norm() * ref.norm())).item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"{tag} vs the float world-1 forward: median relative error "
+            f"{rel:.4f} ({'tol 0.05' if rel_gate else 'not gated'}), "
+            f"cosine {cos:.5f} (tol 0.995), argmax agreement {agree:.4f}")
+        if not (torch.isfinite(got).all() and cos > 0.995
+                and (rel < 0.05 or not rel_gate)):
+            raise AssertionError(f"{tag}: against float {rel:.4f}, {cos:.5f}")
+
+    with torch.no_grad():
+        ref = llama.make_forward(cfg)(params, tok)
+        t0 = time.perf_counter()
+        qp = lw.place_w8a8_params(lw.quantize_params_w8a8(params, cfg, TP),
+                                  cfg, TP)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        free_cuda()
+        fwd = lw.make_w8a8_forward(cfg, TP)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        logits = fwd(qp, tok)
+        torch.cuda.synchronize()
+        t_first = (time.perf_counter() - t0) * 1e3
+        launches = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.perf_counter()
+        fwd(qp, tok)
+        torch.cuda.synchronize()
+        t_warm = (time.perf_counter() - t0) * 1e3
+        busy, top = profile_once(lambda: fwd(qp, tok), top_n=12)
+        plain = lw.make_w8a8_forward(cfg, TP, plain=True)(qp, tok)
+    ag_ms = sum(ms for name, _, ms in top if "ag_gemm" in name)
+    i8_ms = sum(ms for name, _, ms in top if "matmul_i8" in name)
+    log(f"w8a8 tp forward: TP {TP}, {cfg.n_layers} layers, tokens "
+        f"[{TRAIN_SEQ}, 1] (quantized and placed in {t_quant:.1f} s): first "
+        f"call {t_first:.1f} ms, warm {t_warm:.1f} ms wall; profiled: "
+        f"device busy {busy:.2f} ms, int8 AG-GEMM {ag_ms:.2f} ms "
+        f"({ag_ms / busy:.3f} of it), matmul_i8 {i8_ms:.2f} ms "
+        f"({i8_ms / busy:.3f}), idle share {1 - busy / t_warm:.3f}; "
+        f"launches {launches}")
+    for name, n, ms in top:
+        log(f"w8a8 tp forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    for n, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {n} never launched by the W8A8 TP "
+                                 f"forward")
+    if tuple(logits.shape) != (TRAIN_SEQ, 1, cfg.vocab):
+        raise AssertionError(f"w8a8 tp forward: logits "
+                             f"{tuple(logits.shape)}")
+    # the quantization error accumulates with depth: at 32 layers the
+    # cosine holds the W8A8 gate and the median relative error is printed
+    # (0.0719 on the first run, NVIDIA H100 80GB HBM3, 700 W: PERF.md);
+    # both gates hold the first W8A8_GATE_LAYERS layers of the weights
+    against_float("w8a8 tp forward", logits, ref, rel_gate=False)
+    exact, ties = argmax_agreement(
+        "w8a8 tp forward, kernels vs plain versions", logits, plain,
+        near_tie=QUANT_NEAR_TIE)
+    if ties < AGREE_MIN or exact < QUANT_STRICT_MIN:
+        raise AssertionError(f"w8a8 tp forward vs plain: {exact:.4f} exact "
+                             f"(floor {QUANT_STRICT_MIN}), {ties:.4f} with "
+                             f"near-ties (floor {AGREE_MIN})")
+    del logits, plain
+    free_cuda()
+    with torch.no_grad():
+        n0 = agm.ag_gemm_i8.launches
+        ragged = fwd(qp, tok[:1000])
+        torch.cuda.synchronize()
+    log(f"w8a8 tp forward, ragged S 1000 ({1000 // TP} rows per rank): "
+        f"{agm.ag_gemm_i8.launches - n0} int8 AG-GEMM launches")
+    if tuple(ragged.shape) != (1000, 1, cfg.vocab):
+        raise AssertionError(f"w8a8 ragged: logits {tuple(ragged.shape)}")
+    against_float("w8a8 tp forward, ragged S 1000", ragged, ref[:1000],
+                  rel_gate=False)
+    del ragged, ref, qp
+    free_cuda()
+    cut = dict(params, layers=params["layers"][:W8A8_GATE_LAYERS])
+    cfg_cut = replace(cfg, n_layers=W8A8_GATE_LAYERS)
+    with torch.no_grad():
+        qp = lw.place_w8a8_params(lw.quantize_params_w8a8(cut, cfg_cut, TP),
+                                  cfg_cut, TP)
+        for n_tok in (TRAIN_SEQ, 1000):
+            against_float(f"w8a8 tp forward, first {W8A8_GATE_LAYERS} "
+                          f"layers, S {n_tok}", lw.make_w8a8_forward(
+                              cfg_cut, TP)(qp, tok[:n_tok]),
+                          llama.make_forward(cfg_cut)(cut, tok[:n_tok]))
+    del qp
+    free_cuda()
+    return launches, dict(first_ms=t_first, warm_ms=t_warm, busy_ms=busy,
+                          ag_gemm_i8_ms=ag_ms, matmul_i8_ms=i8_ms)
+
+
+def heads_phase(cfg, params):
+    """Phase 16: phase 5's mix and knobs through ``ServeEngine(mesh=
+    World(TP), kv_shard="heads")`` on phase 4's weights, float then
+    ``w8a8=True`` (float pools), each beside the world-1 engine on the
+    same mix (tok/s, TTFT, ITL of both), every launch counter zeroed just
+    before each run; the heads runs launch flash_fwd and decode_paged (and
+    matmul_i8 under W8A8).  Every request finishes; the served tokens are
+    held to a world-1 teacher-forced forward: the float runs to the flash
+    prompt forward at the dense gates, the W8A8 runs to the world-1 W8A8
+    model's chunk forward (``quantize_serve_params`` at world 1, the
+    hooks on the kernels) at the W8A8 floors.  The sharded trees are freed
+    after each run.  Returns the heads runs' launch counts."""
+    import functools
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+    from triton_dist_tpu_torch.kernels import quant
+    from triton_dist_tpu_torch.models import llama_w8a8 as lw
+    from triton_dist_tpu_torch.models.generate import (
+        Generator,
+        _chunk_forward,
+        _prompt_forward,
+    )
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    counters = {"flash_fwd": fa.flash_attention,
+                "decode_paged": fd.gqa_decode_paged_shard,
+                "matmul_i8": quant.matmul_i8}
+    gen = Generator(cfg, max_seq=2048)
+    world = get_world(TP, "cuda")
+    runs, launches = {}, {}
+    for tag, mesh, w8a8 in (("world-1", None, False),
+                            ("heads", world, False),
+                            ("world-1 w8a8", None, True),
+                            ("heads w8a8", world, True)):
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.no_grad():
+            eng, reqs, outs, prompts = engine_phase(
+                cfg, params, gen, w8a8=w8a8, tag=f"{tag} engine", mesh=mesh,
+                kv_shard="heads" if mesh is not None else None)
+        if mesh is not None:
+            launches[tag] = {n: fn.launches for n, fn in counters.items()}
+            shards = eng.params["layers"][0]["wq"].shape[0]
+            log(f"{tag} engine: weights in {shards} rank shards, pools "
+                f"{tuple(eng._pools[0][0].shape)}; launches "
+                f"{launches[tag]}")
+            need = ("flash_fwd", "decode_paged") + (("matmul_i8",) if w8a8
+                                                    else ())
+            for n in need:
+                if launches[tag][n] <= 0:
+                    raise AssertionError(f"kernel {n} never launched by the "
+                                         f"{tag} engine")
+        lat = eng.metrics.summary()["latency"]
+        n_out = sum(len(o.token_ids) for o in outs.values())
+        runs[tag] = dict(
+            streams={r.request_id: list(outs[r.request_id].token_ids)
+                     for r in reqs},
+            prompts={r.request_id: p for r, p in zip(reqs, prompts)},
+            ttft_ms={k: lat["ttft"][k] * 1e3 for k in ("mean", "p50",
+                                                        "p99")},
+            itl_ms={k: lat["itl"][k] * 1e3 for k in ("mean", "p50",
+                                                      "p99")})
+        del eng, outs
+        free_cuda()
+    q1 = lw.quantize_serve_params(params, cfg)
+
+    def w8a8_logits(toks):
+        shape = (1, cfg.n_kv_heads, toks.shape[1], cfg.head_dim)
+        caches = [(torch.zeros(shape, dtype=cfg.dtype, device="cuda"),
+                   torch.zeros(shape, dtype=cfg.dtype, device="cuda"))
+                  for _ in range(cfg.n_layers)]
+        return _chunk_forward(q1, toks, caches, 0, cfg=cfg,
+                              ffn=lw.w8a8_serve_ffn,
+                              out_proj=lw.w8a8_serve_out_proj)[1]
+
+    teachers = {False: lambda toks: _prompt_forward(params, toks,
+                                                    cfg=cfg)[1],
+                True: w8a8_logits}
+    with torch.no_grad():
+        for tag, run in runs.items():
+            w8a8 = "w8a8" in tag
+            run["counts"] = [teacher_forced_agreement(
+                params, cfg, p, run["streams"][rid],
+                logits_fn=teachers[w8a8],
+                near_tie=QUANT_NEAR_TIE if w8a8 else NEAR_TIE)
+                for rid, p in run["prompts"].items()]
+    del q1
+    free_cuda()
+    for tag, run in runs.items():
+        w8a8, twin = "w8a8" in tag, tag.startswith("world-1")
+        check_agreement(
+            f"{tag} engine vs world-1 {'w8a8 ' if w8a8 else ''}forward",
+            run["counts"], 0.0 if twin else (QUANT_STRICT_MIN if w8a8
+                                             else STRICT_MIN),
+            QUANT_NEAR_TIE if w8a8 else NEAR_TIE)
+    for kind in ("", " w8a8"):
+        got, want = runs[f"heads{kind}"], runs[f"world-1{kind}"]
+        match = []
+        for rid, toks in got["streams"].items():
+            ref, n = want["streams"][rid], 0
+            while n < min(len(toks), len(ref)) and toks[n] == ref[n]:
+                n += 1
+            match.append(n / len(ref))
+        log(f"heads{kind} engine vs world-1{kind} engine: mean greedy "
+            f"prefix match {np.mean(match):.4f}; ttft ms "
+            f"{_fmt(got['ttft_ms'])} vs {_fmt(want['ttft_ms'])}, itl ms "
+            f"{_fmt(got['itl_ms'])} vs {_fmt(want['itl_ms'])}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2728,9 +3136,19 @@ def main() -> int:
     # other serving kernels' SP counts ride along
     sp_launches, _ = sp_phases(cfg, params)
     launches["sp_combine"] = sp_launches["sp_combine"]
-    del params
     free_cuda()
     log(f"sp serving done at {time.perf_counter() - t_start:.1f} s")
+
+    # phases 15-16: W8A8 tensor parallelism and head-sharded serving on
+    # phase 4's weights; the int8 AG-GEMM's count comes from phase 15's
+    # forward, the heads engines' serving counts ride beside
+    w8_launches, _ = w8a8_tp_phase(cfg, params)
+    launches["ag_gemm_i8"] = w8_launches["ag_gemm_i8"]
+    heads_launches = heads_phase(cfg, params)
+    del params
+    free_cuda()
+    log(f"w8a8 tp and heads serving done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     # phase 6: training; the backward kernels' counts come from it (the
     # flash_fwd row keeps the serving path's count, printed beside)
@@ -2784,6 +3202,8 @@ def main() -> int:
                        "triton_dist_tpu/kernels/allgather_gemm.py:240"),
            "gemm_rs": ("triton_dist_tpu_torch/csrc/gemm_rs.cu",
                        "triton_dist_tpu/kernels/gemm_reduce_scatter.py:103"),
+           "ag_gemm_i8": ("triton_dist_tpu_torch/csrc/ag_gemm.cu",
+                          "triton_dist_tpu/kernels/allgather_gemm.py:240"),
            "sp_combine": ("triton_dist_tpu_torch/csrc/sp_combine.cu",
                           "triton_dist_tpu/kernels/flash_decode.py:851")}
     kernels = []
@@ -2803,6 +3223,12 @@ def main() -> int:
                         **({"sp_launches": sp_launches[name]}
                            if name in sp_launches and name != "sp_combine"
                            else {}),
+                        **({"heads_launches": {t: c[name] for t, c in
+                                               heads_launches.items()}}
+                           if name in ("flash_fwd", "decode_paged",
+                                       "matmul_i8") else {}),
+                        **({"w8a8_tp_launches": w8_launches[name]}
+                           if name in ("matmul_i8", "flash_fwd") else {}),
                         **{k: r[k] for k in ("m8", "t8", "shapes",
                                              "algorithm_bound_ms")
                            if k in r}})

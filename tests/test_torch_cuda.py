@@ -13,8 +13,8 @@ the kernels round P to bf16 before the PV product (as the TPU kernels do)
 while the plain versions keep it in f32, and flash_fwd writes bf16 output
 — so outputs agree to ~1e-2 absolute at unit-scale inputs; the
 log-sum-exp is f32 on both sides and agrees to 1e-3.  The int8 GEMMs
-(dense and grouped) are exact and are held to equality with their
-float64 plain versions; the bf16 grouped GEMM to 2e-2 of the plain
+(dense, grouped, and the AG-GEMM's int8 mode) are exact and are held to
+equality with their float64 plain versions; the bf16 grouped GEMM to 2e-2 of the plain
 output's largest magnitude and 1e-2 relative L2 over each row tile.  The
 dense GEMM and the two tensor-parallel ring kernels (over a virtual world
 of W ranks on the one card) follow the same bf16 rule over the whole
@@ -967,9 +967,12 @@ def _ring_case(cuda, g, world, m_loc, k, n, trans_b):
 
 RING_CASES = [
     # (world, m_loc, K, N): one tile, a ragged N edge and K tail, several
-    # segment tiles per rank
+    # segment tiles per rank; row tails (m_loc no multiple of the 128-row
+    # tile: 250 rows per rank of a 1,000-token prompt at TP 4, a segment
+    # smaller than one tile, one row)
     (1, 128, 256, 384), (2, 128, 264, 200), (4, 256, 512, 256),
-    (4, 128, 128, 1000),
+    (4, 128, 128, 1000), (4, 250, 512, 384), (2, 5, 264, 200),
+    (4, 1, 128, 256),
 ]
 
 
@@ -1035,8 +1038,17 @@ def test_ring_kernels_refuse_what_they_do_not_take(cuda):
     def z(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, dtype=dtype, device=cuda)
 
-    with pytest.raises(ValueError, match="multiple of 128"):
-        agm.ag_gemm(z(2, 100, 256), z(2, 256, 256))        # m_loc % 128
+    with pytest.raises(ValueError, match="positive"):
+        agm.ag_gemm(z(2, 0, 256), z(2, 256, 256))          # no rows
+    with pytest.raises(ValueError, match="multiples of 32 and 16"):
+        agm.ag_gemm(z(2, 64, 48, dtype=torch.int8),
+                    z(2, 48, 256, dtype=torch.int8))       # int8 K % 32
+    with pytest.raises(ValueError, match="multiples of 32 and 16"):
+        agm.ag_gemm_i8(z(2, 64, 64, dtype=torch.int8),
+                       z(2, 64, 40, dtype=torch.int8))     # int8 N % 16
+    with pytest.raises(ValueError, match="without trans_b"):
+        agm.ag_gemm(z(2, 64, 64, dtype=torch.int8),
+                    z(2, 64, 64, dtype=torch.int8), trans_b=True)
     with pytest.raises(ValueError, match="multiples of 8"):
         agm.ag_gemm(z(2, 128, 260), z(2, 260, 256))        # K % 8
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -1130,6 +1142,130 @@ def test_tp4_llama_forward_and_train_step_at_8b_width(cuda):
     assert np.isfinite(float(loss))
     assert tuple(x - y for x, y in zip(counts(), n0)) == (
         5 * cfg.n_layers, 5 * cfg.n_layers)
+
+
+I8_RING_CASES = [
+    # (world, m_loc, K, n): aligned 64-row tiles, the TP-4 QKV shape cut
+    # in K, row tails (250 rows per rank of a 1,000-token prompt; fewer
+    # rows than one tile), a ragged n edge, world 1
+    (4, 128, 512, 256), (4, 512, 1024, 1536), (4, 250, 512, 384),
+    (2, 37, 256, 144), (1, 64, 128, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", I8_RING_CASES)
+def test_ag_gemm_i8_matches_plain(cuda, case):
+    """The AG-GEMM's int8 mode (``tdt_ag_gemm_i8``) over a virtual world
+    of W ranks against its plain version: the gathered int8 A bit for bit,
+    the int32 C exactly equal (the accumulation is exact); one launch of
+    the int8 mode, none of the bf16 one."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    world, m_loc, k, n = case
+    g = torch.Generator(device=cuda).manual_seed(zlib.crc32(
+        repr(case).encode()))
+    a = torch.randint(-127, 128, (world, m_loc, k), generator=g,
+                      device=cuda, dtype=torch.int8)
+    b = torch.randint(-127, 128, (world, k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    n0 = (agm.ag_gemm.launches, agm.ag_gemm_i8.launches)
+    a_full, c = agm.ag_gemm(a, b)
+    torch.cuda.synchronize()
+    assert (agm.ag_gemm.launches, agm.ag_gemm_i8.launches) == (n0[0],
+                                                               n0[1] + 1)
+    want_full, want_c = agm.ag_gemm_ref(a, b)
+    assert a_full.dtype == torch.int8 and c.dtype == torch.int32
+    assert torch.equal(a_full, want_full)
+    assert torch.equal(c, want_c)
+
+
+@pytest.mark.gpu
+def test_tp4_w8a8_forward_at_8b_width(cuda):
+    """Llama-3-8B widths at 2 layers, TP 4 on the virtual world, W8A8:
+    ``make_w8a8_forward`` with the kernels (the int8 AG-GEMM for QKV and
+    gate/up, matmul_i8 per rank for out and down, flash attention) against
+    the same forward over the plain versions, at S 512 and at a ragged S
+    1,000 (250 rows per rank): argmax agreement >= 0.75 (the W8A8 floor:
+    each projection re-quantizes rows that bf16 rounding moved), finite
+    logits, 3 int8 AG-GEMMs and 8 int8 GEMMs per layer; and against the
+    float forward: cosine > 0.995."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import quant
+    from triton_dist_tpu_torch.models import llama, llama_w8a8
+    from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
+
+    use_full_precision_matmul()
+    cfg = replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    params = llama.init_params(cfg, seed=0)
+    qp = llama_w8a8.place_w8a8_params(
+        llama_w8a8.quantize_params_w8a8(params, cfg, 4), cfg, 4)
+    for S in (512, 1000):
+        tok = torch.as_tensor(np.random.default_rng(S).integers(
+            0, cfg.vocab, size=(S, 1)), device=cuda)
+        n0 = (agm.ag_gemm_i8.launches, quant.matmul_i8.launches)
+        with torch.no_grad():
+            got = llama_w8a8.make_w8a8_forward(cfg, 4)(qp, tok)
+            moved = (agm.ag_gemm_i8.launches - n0[0],
+                     quant.matmul_i8.launches - n0[1])
+            want = llama_w8a8.make_w8a8_forward(cfg, 4, plain=True)(qp, tok)
+            ref = llama.make_forward(cfg)(params, tok)
+        assert moved == (3 * cfg.n_layers, 8 * cfg.n_layers), moved
+        assert torch.isfinite(got).all() and got.shape == (S, 1, cfg.vocab)
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        assert agree >= 0.75, agree
+        cos = ((got * ref).sum() / (got.norm() * ref.norm())).item()
+        assert cos > 0.995, cos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_heads_engine_on_the_card(cuda, w8a8):
+    """``ServeEngine(mesh=World(4), kv_shard="heads")`` at Llama-3-8B
+    widths cut to 2 layers, float and W8A8 (int8 pools with the W8A8
+    run): two requests served to the end through the folded paged decode
+    (decode_paged / decode_paged_i8 launched).  Token agreement with
+    world 1 is chip_smoke.py's phase 16 (at 32 layers, with its near-tie
+    gates)."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.models import llama
+    from triton_dist_tpu_torch.models.generate import Generator
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+    from triton_dist_tpu_torch.runtime.utils import use_full_precision_matmul
+    from triton_dist_tpu_torch.serve import (
+        Request,
+        SamplingParams,
+        ServeEngine,
+    )
+
+    use_full_precision_matmul()
+    cfg = replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    params = llama.init_params(cfg, seed=0)
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab, (2, 700))
+    kv = torch.int8 if w8a8 else None
+    gen = Generator(cfg, max_seq=1024, kv_dtype=kv)
+    paged = fd.decode_paged_i8 if w8a8 else fd.gqa_decode_paged_shard
+
+    def serve(mesh):
+        eng = ServeEngine(gen, params, num_blocks=1 + 2 * 64, page_size=16,
+                          max_batch=2, prefill_chunk=512, mesh=mesh,
+                          kv_shard="heads", w8a8=w8a8)
+        for i, n in enumerate((700, 300)):
+            eng.submit(Request(f"r{i}", prompt[i, :n],
+                               SamplingParams(max_new_tokens=8)))
+        with torch.no_grad():
+            while eng.has_work():
+                eng.step()
+        return {r: o.token_ids for r, o in eng._outputs.items()}
+
+    n0 = paged.launches
+    got = serve(get_world(4, cuda))
+    assert paged.launches > n0
+    assert sorted(got) == ["r0", "r1"]
+    assert all(len(t) == 8 for t in got.values())
 
 
 def _sp_partials(g, dev, world, lead, D, dead_rank=None, dead_row=None):

@@ -47,7 +47,8 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.layers.tp_linear",
             "triton_dist_tpu_torch.runtime.bootstrap",
             "triton_dist_tpu_torch.runtime.symm_mem",
-            "triton_dist_tpu_torch.serve.mesh"} <= set(mods)
+            "triton_dist_tpu_torch.serve.mesh",
+            "triton_dist_tpu_torch.models.llama_w8a8"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -367,3 +368,32 @@ def test_sp_wrappers_use_plain_versions_only_for_cpu_tensors():
             fd.create_sp_decode_context(4)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bootstrap.get_world(4, None)
+
+
+def test_w8a8_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """The AG-GEMM's int8 mode and the W8A8 tensor-parallel linears run
+    their plain versions on CPU tensors without counting a launch (of the
+    int8 AG-GEMM or the int8 GEMM), and refuse other devices; ``ag_gemm``
+    hands int8 operands to the int8 mode."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import quant
+    from triton_dist_tpu_torch.layers import tp_linear as tl
+
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.integers(-127, 128, (2, 3, 32), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (2, 32, 16), dtype=np.int8))
+    counters = (agm.ag_gemm, agm.ag_gemm_i8, quant.matmul_i8)
+    n0 = [fn.launches for fn in counters]
+    a_full, c = agm.ag_gemm(a, b)
+    assert c.dtype == torch.int32
+    assert torch.equal(c[1], quant.matmul_i8_ref(a.reshape(6, 32), b[1]))
+    assert torch.equal(agm.ag_gemm_i8(a, b)[1], c)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 32)).astype(np.float32))
+    scale = torch.ones((2, 16))
+    assert tl.column_parallel_linear_w8a8(x, b, scale).shape == (2, 6, 16)
+    assert tl.row_parallel_linear_w8a8(
+        x.reshape(2, 3, 32).repeat(1, 2, 1), b, scale).shape == (2, 3, 16)
+    assert [fn.launches for fn in counters] == n0
+    meta = torch.empty((2, 64, 64), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        agm.ag_gemm_i8(meta, meta)

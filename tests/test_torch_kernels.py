@@ -31,7 +31,12 @@ W in {1, 2, 4} against the reference's interpret-mode Pallas ring kernels
 (spied) on the conftest's meshes, and the dense GEMM's against the
 interpret-mode ``matmul`` with a K tail, f32 within 1e-5; the TP linears'
 autograd Functions against ``jax.vjp`` of the reference's custom VJPs
-inside ``shard_map`` (``impl="xla"``), 1e-5.
+inside ``shard_map`` (``impl="xla"``), 1e-5.  The AG-GEMM's int8 mode
+against the interpret-mode kernel on int8 A, exact; row counts that are
+no multiple of the kernels' tile (m_loc 8 and 24 against the Pallas
+kernels, 5 against the XLA path), 1e-5; the W8A8 TP linears against the
+reference's (``impl="xla"``), 1e-5, and its oracle (median relative error
+against the float product < 0.02).
 """
 
 import importlib
@@ -1301,8 +1306,173 @@ def test_tp_linear_vjp_matches_reference(kind, mesh4):
         assert_allclose(got, np.asarray(w_), atol=1e-5, rtol=1e-5)
     # world 1 (2-D operands): a plain product
     assert torch.equal(port(ta[0], tb[0]), ta[0] @ tb[0])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttl.column_parallel_linear_w8a8(ta, tb, None)
+    # the W8A8 twins are forward-only: no autograd Function
+    assert not hasattr(ttl, "ColumnParallelLinearW8A8Fn")
+
+
+def _spy(monkeypatch, module, name):
+    """Record the ``world`` of every trace of ``module.name``."""
+    traced = []
+    kernel = getattr(module, name)
+
+    def spy(*args, **kw):
+        traced.append(kw["world"])
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return traced
+
+
+def test_ag_gemm_i8_plain_matches_pallas(monkeypatch, mesh4):
+    """The AG-GEMM's int8 mode: ``ag_gemm`` on int8 CPU tensors (its plain
+    version, ``ag_gemm_i8``'s count unmoved) against the reference's
+    ``_ag_gemm_kernel`` on int8 A in interpret mode (spied) on mesh4,
+    per-device (m_loc 16, K 256, n_loc 128): the gathered int8 A and the
+    int32 C of every rank exactly equal (the accumulation is exact)."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+
+    jag = importlib.import_module("triton_dist_tpu.kernels.allgather_gemm")
+    traced = _spy(monkeypatch, jag, "_ag_gemm_kernel")
+    W, m_loc, K, n_loc = 4, 16, 256, 128
+    rng = np.random.default_rng(175)
+    a = rng.integers(-127, 128, size=(W * m_loc, K), dtype=np.int8)
+    b = rng.integers(-127, 128, size=(K, W * n_loc), dtype=np.int8)
+
+    def shard(x, w):
+        a_full, c = jag.ag_gemm_shard(x, w, axis="tp", impl="pallas", bm=16,
+                                      bn=128, bk=128, interpret=True)
+        return a_full[None], c[None]
+
+    want_full, want_c = _shard_map(shard, mesh4,
+                                   (P("tp", None), P(None, "tp")),
+                                   (P("tp"), P("tp")), jnp.asarray(a),
+                                   jnp.asarray(b))
+    assert traced and set(traced) == {W}
+    assert np.asarray(want_c).dtype == np.int32
+    n0 = (tag.ag_gemm.launches, tag.ag_gemm_i8.launches)
+    a_full, c = tag.ag_gemm(_t(a).reshape(W, m_loc, K), _stack_cols(b, W))
+    assert (tag.ag_gemm.launches, tag.ag_gemm_i8.launches) == n0
+    assert a_full.dtype == torch.int8 and c.dtype == torch.int32
+    assert np.array_equal(a_full.numpy(), np.asarray(want_full))
+    assert np.array_equal(c.numpy(), np.asarray(want_c))
+    with pytest.raises(ValueError, match="without trans_b"):
+        tag.ag_gemm(_t(a).reshape(W, m_loc, K),
+                    _stack_cols(b, W).transpose(1, 2).contiguous(),
+                    trans_b=True)
+
+
+@pytest.mark.parametrize("m_loc,impl", [(8, "pallas"), (24, "pallas"),
+                                        (5, "xla")])
+@pytest.mark.parametrize("op", ["ag_gemm", "gemm_rs"])
+def test_ring_plain_versions_take_ragged_rows(op, m_loc, impl, monkeypatch,
+                                              mesh4):
+    """Row counts that are no multiple of the kernels' 128-row tile: the
+    plain versions of ag_gemm and gemm_rs (the kernels mask each segment's
+    row tail on the card) against the reference at m_loc 8 and 24 (its
+    Pallas ring kernels in interpret mode, spied) and 5 (its XLA path,
+    which takes any row count) on mesh4, f32 within 1e-5 (the gathered A
+    bit for bit)."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as trs
+
+    W, K, n = 4, 256, 128
+    kw = dict(axis="tp", impl=impl, interpret=impl == "pallas")
+    if impl == "pallas":
+        kw.update(bm=8, bn=128, bk=128)
+    if op == "ag_gemm":
+        jag = importlib.import_module(
+            "triton_dist_tpu.kernels.allgather_gemm")
+        traced = _spy(monkeypatch, jag, "_ag_gemm_kernel")
+        a, b = _inputs(220 + m_loc, (W * m_loc, K), (K, W * n))
+        b /= np.sqrt(K)
+
+        def shard(x, w):
+            a_full, c = jag.ag_gemm_shard(x, w, **kw)
+            return a_full[None], c[None]
+
+        want_full, want_c = _shard_map(shard, mesh4,
+                                       (P("tp", None), P(None, "tp")),
+                                       (P("tp"), P("tp")), jnp.asarray(a),
+                                       jnp.asarray(b))
+        a_full, c = tag.ag_gemm(_t(a).reshape(W, m_loc, K),
+                                _stack_cols(b, W))
+        assert np.array_equal(a_full.numpy(), np.asarray(want_full))
+        assert_allclose(c, np.asarray(want_c), atol=1e-5, rtol=1e-5)
+    else:
+        jrs = importlib.import_module(
+            "triton_dist_tpu.kernels.gemm_reduce_scatter")
+        traced = _spy(monkeypatch, jrs, "_gemm_rs_kernel")
+        a, b = _inputs(230 + m_loc, (W * m_loc, W * K), (W * K, n))
+        b /= np.sqrt(W * K)
+        want = _shard_map(lambda x, w: jrs.gemm_rs_shard(x, w, **kw), mesh4,
+                          (P(None, "tp"), P("tp", None)), P("tp"),
+                          jnp.asarray(a), jnp.asarray(b))
+        out = trs.gemm_rs(torch.stack(_t(a).chunk(W, dim=1)),
+                          _stack_rows(b, W))
+        assert out.shape == (W, m_loc, n)
+        assert_allclose(out.reshape(W * m_loc, n), np.asarray(want),
+                        atol=1e-5, rtol=1e-5)
+    assert (set(traced) == {W}) if impl == "pallas" else not traced
+
+
+def _median_rel_err(y, ref):
+    y, ref = np.asarray(y, np.float32), np.asarray(ref, np.float32)
+    return np.median(np.abs(y - ref) / (np.abs(ref) + 1e-3))
+
+
+@pytest.mark.parametrize("kind", ["column", "row"])
+def test_tp_linear_w8a8_matches_reference(kind, mesh4):
+    """``column_parallel_linear_w8a8`` / ``row_parallel_linear_w8a8`` over
+    the plain versions against the reference's inside shard_map on mesh4
+    (``impl="xla"``, tests/test_tp_linear_w8a8.py's shapes and per-rank
+    quantization), every rank's output within 1e-5 (the same int8 bytes,
+    the exact int32 products, f32 dequant in the reference's order; the
+    row sum over ranks in f32), and both within that test's oracle: median
+    relative error against the float product < 0.02."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.layers import tp_linear as ttl
+
+    jtl = importlib.import_module("triton_dist_tpu.layers.tp_linear")
+    W, M, K, N = 4, 64, 4 * 128, 4 * 128
+    a, w = _inputs(240 if kind == "column" else 241, (M, K), (K, N))
+    w /= 8.0
+    if kind == "column":
+        w_q, w_s = jq.quantize_channelwise(jnp.asarray(w))
+        want = _shard_map(
+            lambda x, q, sc: jtl.column_parallel_linear_w8a8(
+                x, q, sc, "tp", impl="xla"), mesh4,
+            (P("tp", None), P(None, "tp"), P("tp")), P(None, "tp"),
+            jnp.asarray(a), w_q, w_s)
+        got = ttl.column_parallel_linear_w8a8(
+            _t(a).reshape(W, M // W, K), _stack_cols(np.array(w_q), W),
+            torch.stack(_t(np.array(w_s)).chunk(W)))
+        assert got.shape == (W, M, N // W)
+        got = torch.cat(list(got), dim=1)                    # [M, N]
+    else:
+        k_loc = K // W
+        chunks = [jq.quantize_channelwise(jnp.asarray(w[i * k_loc:
+                                                        (i + 1) * k_loc]))
+                  for i in range(W)]
+        w_q = jnp.concatenate([c[0] for c in chunks], axis=0)
+        w_s = jnp.stack([c[1] for c in chunks], axis=0)      # [W, N]
+        want = _shard_map(
+            lambda x, q, sc: jtl.row_parallel_linear_w8a8(
+                x, q, sc[0], "tp", impl="xla"), mesh4,
+            (P(None, "tp"), P("tp", None), P("tp", None)), P("tp", None),
+            jnp.asarray(a), w_q, w_s)
+        got = ttl.row_parallel_linear_w8a8(
+            torch.stack(_t(a).chunk(W, dim=1)),
+            _stack_rows(np.array(w_q), W), _t(np.array(w_s)))
+        assert got.shape == (W, M // W, N)
+        got = got.reshape(M, N)
+    assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert _median_rel_err(got.numpy(), a @ w) < 0.02
+    assert _median_rel_err(np.asarray(want), a @ w) < 0.02
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@ in different orders in XLA and PyTorch, ~1e-6 relative at these widths);
 greedy token streams must be identical; sampling distributions agree to
 1e-6.  int8 caches: bytes may differ by one step where a value sits on a
 rounding boundary (at most 1 LSB); scales (absmax / 127 of K/V rows that
-the two f32 forwards compute ~1e-6 apart) agree to 4e-6 relative.
+the two f32 forwards compute ~1e-6 apart) agree to 4e-6 relative.  The
+W8A8 tensor-parallel forward (``llama_w8a8``) against the reference's on
+mesh4: int8 weights equal, logits within 1e-2 of the largest (one int8
+step where a value sits on a rounding boundary).
 """
 
 import jax
@@ -87,6 +90,112 @@ def test_w8a8_serving_tree_matches_jax(model):
     assert ttree["layers"][0]["wo_s"].shape == (1, SMALL["dim"])
     assert ttree["layers"][0]["wgate_q"].dtype == torch.int8
     assert ttree["embed"] is tparams["embed"]     # float parts shared
+
+
+# the W8A8 tensor-parallel forward (reference tests/test_llama_w8a8.py)
+W8 = dict(vocab=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=4,
+          ffn_dim=512, max_seq=64)
+
+
+@pytest.fixture(scope="module")
+def w8_model():
+    jcfg = jllama.LlamaConfig(**W8, dtype=jnp.float32)
+    tcfg = tllama.LlamaConfig(**W8)
+    jparams = jllama.init_params(jcfg, jax.random.key(0))
+    tparams = tllama.params_from_jax(jax.device_get(jparams), tcfg,
+                                     device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def test_quantize_params_w8a8_matches_jax(w8_model):
+    """``quantize_params_w8a8`` leaf by leaf against the reference's at
+    world 4: the fused per-rank QKV and every int8 weight equal, every
+    scale within 1e-6 relative (both quantize the same f32 weights; the
+    absmax / 127 division rounds alike)."""
+    from triton_dist_tpu.models import llama_w8a8 as jw8
+    from triton_dist_tpu_torch.models import llama_w8a8 as tw8
+
+    jcfg, tcfg, jparams, tparams = w8_model
+    jtree = jax.device_get(jw8.quantize_params_w8a8(jparams, jcfg, world=4))
+    ttree = tw8.quantize_params_w8a8(tparams, tcfg, 4)
+    for jl, tl in zip(jtree["layers"], ttree["layers"]):
+        assert set(jl) == set(tl)
+        for name, want in jl.items():
+            got = tl[name]
+            assert tuple(got.shape) == want.shape, name
+            if name.endswith("_q"):
+                assert got.dtype == torch.int8
+                assert np.array_equal(got.numpy(), np.asarray(want)), name
+            else:
+                assert_allclose(got, np.asarray(want), atol=0, rtol=1e-6)
+    assert ttree["layers"][0]["wo_s"].shape == (4, W8["dim"])
+    assert ttree["embed"] is tparams["embed"]
+
+
+def test_place_w8a8_params_matches_jax_shards(w8_model, mesh4):
+    """``place_w8a8_params`` (``llama.shard_params`` of a W8A8 tree) holds
+    at [r] exactly what the reference's ``place_w8a8_params`` puts on
+    device r of mesh4: column weights and their scales by columns, row
+    weights by rows with the rank's own [1, N] scale row."""
+    from triton_dist_tpu.models import llama_w8a8 as jw8
+    from triton_dist_tpu_torch.models import llama_w8a8 as tw8
+
+    jcfg, tcfg, jparams, tparams = w8_model
+    jplaced = jw8.place_w8a8_params(
+        jw8.quantize_params_w8a8(jparams, jcfg, world=4), jcfg, mesh4)
+    tplaced = tw8.place_w8a8_params(
+        tw8.quantize_params_w8a8(tparams, tcfg, 4), tcfg, 4)
+    devs = list(mesh4.devices.flat)
+    for jl, tl in zip(jplaced["layers"], tplaced["layers"]):
+        for name, arr in jl.items():
+            if name.endswith(("_q", "_s")):
+                shards = {s.device: np.asarray(s.data)
+                          for s in arr.addressable_shards}
+                for r, d in enumerate(devs):
+                    assert np.allclose(tl[name][r].numpy(), shards[d],
+                                       rtol=1e-6, atol=0), (name, r)
+            else:
+                assert np.array_equal(tl[name].numpy(), np.asarray(arr))
+
+
+@pytest.mark.parametrize("S,B", [(32, 4), (20, 1)])
+def test_w8a8_forward_matches_jax(w8_model, mesh4, S, B):
+    """``make_w8a8_forward(cfg, 4)`` over the plain versions against the
+    reference's ``make_w8a8_forward`` on mesh4 (``impl="xla"``, the same
+    math as its kernels), at S 32 x B 4 (32 rows per rank) and at a ragged
+    S 20 x B 1 (5 rows per rank: the reference's XLA path, the port's
+    masked row tail): logits within 1e-2 of the largest (the two f32
+    forwards land ~1e-6 apart before each per-row quantization, and a value
+    on a rounding boundary moves by one int8 step; measured 5e-3), argmax
+    equal at >= 0.99 of positions; and both within the reference test's
+    oracle against the float forward: cosine > 0.999, argmax agreement
+    > 0.9."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu.models import llama_w8a8 as jw8
+    from triton_dist_tpu_torch.models import llama_w8a8 as tw8
+
+    jcfg, tcfg, jparams, tparams = w8_model
+    toks = np.random.default_rng(S).integers(
+        0, W8["vocab"], size=(S, B)).astype(np.int32)
+    jq = jw8.place_w8a8_params(jw8.quantize_params_w8a8(jparams, jcfg, 4),
+                               jcfg, mesh4)
+    want = np.asarray(jw8.make_w8a8_forward(jcfg, mesh4, impl="xla")(
+        jq, jax.device_put(jnp.asarray(toks), NamedSharding(mesh4,
+                                                              P("tp")))))
+    tq = tw8.place_w8a8_params(tw8.quantize_params_w8a8(tparams, tcfg, 4),
+                               tcfg, 4)
+    got = tw8.make_w8a8_forward(tcfg, 4)(tq, torch.from_numpy(toks))
+    assert got.shape == (S, B, W8["vocab"]) and got.dtype == torch.float32
+    got = got.numpy()
+    assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.99
+    ref = tllama.make_forward(tcfg)(tparams, torch.from_numpy(toks)).numpy()
+    for out in (got, want):
+        cos = (out * ref).sum() / (np.linalg.norm(out) * np.linalg.norm(ref))
+        assert cos > 0.999, cos
+        assert (out.argmax(-1) == ref.argmax(-1)).mean() > 0.9
 
 
 def test_init_params_scaling_and_seed():
@@ -264,15 +373,21 @@ def test_unported_options_raise():
     assert SpGQAFlashDecodeAttention(get_world(2, "cpu")).world == 2
     with pytest.raises(ValueError):
         get_world(9, "cpu")
-    # the W8A8 hooks under tensor parallelism (Queue 1 item 9)
+    # the W8A8 hooks under tensor parallelism take the rank axis of
+    # rank-stacked operands (dim 0), not a mesh axis name
     x = torch.zeros((2, 256))
     layer = llama_w8a8.quantize_serve_params(
         tllama.init_params(tllama.LlamaConfig(**SMALL), device="cpu"),
         None)["layers"][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="axis=0"):
         llama_w8a8.w8a8_serve_ffn(x, layer, axis="tp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="axis=0"):
         llama_w8a8.w8a8_serve_out_proj(x, layer, axis="tp")
+    # a W8A8 tree quantized for one world cannot be laid out over another
+    cfg = tllama.LlamaConfig(**dict(W8, dim=64, vocab=64))
+    with pytest.raises(ValueError, match="quantized for a world of 1"):
+        tllama.shard_params(llama_w8a8.quantize_serve_params(
+            tllama.init_params(cfg, device="cpu"), cfg, world=1), cfg, 2)
 
 
 def _assert_int8_caches_match(jcaches, tcaches):

@@ -29,6 +29,12 @@
 // TFLOP/s bf16 peak, against 192 MB of operands and output: operations
 // bound it.  The staging adds 4 x 16 MB of partials written and read.
 //
+// Row tails: m_loc is any positive count.  A chunk's tiles are indexed by
+// (row tile, column tile), ceil(m_loc / 128) row tiles per chunk, the last
+// masked to the rows it holds (loads past them zero-filled, stores and the
+// reduction past them skipped), so a partial tile never reaches into the
+// next chunk's rows.
+//
 // Design (right and simple first): one cooperative launch of a persistent
 // grid per call, as ag_gemm.cu: every block resident, split evenly among
 // the world's ranks, each rank's blocks walking its items in strides: the
@@ -77,7 +83,7 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
   tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
 
   const int tiles_n = (p.n + BN - 1) / BN;
-  const int per = p.m_loc / BM * tiles_n;   // tiles of one chunk
+  const int per = (p.m_loc + BM - 1) / BM * tiles_n;   // tiles of a chunk
   const long long slot = static_cast<long long>(p.m_loc) * p.n;
   const int n_gemm = p.world * per;
   for (int it = lb; it < n_gemm + per; it += gridDim.x) {
@@ -85,25 +91,27 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
       // partial of chunk `owner`, tile (i, j), into my slot of its stage
       const int owner = (me + 2 * p.world - 1 - it / per) % p.world;
       const int t = it % per, i = t / tiles_n, j = t % tiles_n;
+      const int rows = min(BM, p.m_loc - i * BM);
       float acc[4][4][4];
       tdt_bf16::mma_tile<B_NK, true>(
           acc, smem,
           p.a.p[me] + (static_cast<long long>(owner) * p.m_loc + i * BM) *
                           p.k,
-          p.k, p.b.p[me], B_NK ? p.k : p.n, BM, p.n, p.k, 0, j * BN);
+          p.k, p.b.p[me], B_NK ? p.k : p.n, rows, p.n, p.k, 0, j * BN);
       tdt_bf16::store_tile(
           acc, p.stage.p[owner] + me * slot + static_cast<long long>(i) *
                                                   BM * p.n,
-          p.n, BM, p.n, 0, j * BN);
+          p.n, rows, p.n, 0, j * BN);
       tdt_dist::signal(p.flags.p[owner] + me * per + t, p.epoch);
       continue;
     }
     // my chunk's tile (i, j): the W partials summed in rank order in f32
     const int t = it - n_gemm, i = t / tiles_n, j = t % tiles_n;
+    const int rows = min(BM, p.m_loc - i * BM);
     tdt_dist::wait(p.flags.p[me] + t, p.epoch, p.world, per);
     const bf16* st = p.stage.p[me];
     bf16* out = p.out.p[me];
-    for (int v = threadIdx.x; v < BM * (BN / 8); v += NT) {
+    for (int v = threadIdx.x; v < rows * (BN / 8); v += NT) {
       const int row = i * BM + v / (BN / 8);
       const int col = j * BN + (v % (BN / 8)) * 8;
       if (col >= p.n) continue;
@@ -126,15 +134,16 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
 }  // namespace
 
 // One call for every rank of a world of `world` (<= 8): each pointer table
-// holds `world` device addresses.  bf16 throughout; m_loc % 128 == 0,
-// k % 8 == 0 and n % 8 == 0, every row 16-byte aligned (the wrapper
-// checks); epoch: this call's, from the workspace.
+// holds `world` device addresses.  bf16 throughout; m_loc >= 1, k % 8 ==
+// 0 and n % 8 == 0, every row 16-byte aligned (the wrapper checks); flags:
+// W * ceil(m_loc / 128) * ceil(n / 128) per rank; epoch: this call's, from
+// the workspace.
 extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
                            const long long* stage, const long long* out,
                            const long long* flags, const long long* bar,
                            int world, int m_loc, int n, int k, int b_nk,
                            unsigned epoch, void* stream) {
-  if (world < 1 || world > MAX_RANKS)
+  if (world < 1 || world > MAX_RANKS || m_loc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.a = peers<const bf16>(a, world);
@@ -148,7 +157,7 @@ extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
   p.n = n;
   p.k = k;
   p.epoch = epoch;
-  const int per = m_loc / BM * ((n + BN - 1) / BN);
+  const int per = (m_loc + BM - 1) / BM * ((n + BN - 1) / BN);
   const int items = (world + 1) * per;
   const auto s = static_cast<cudaStream_t>(stream);
   static unsigned attr_kn = 0, attr_nk = 0;

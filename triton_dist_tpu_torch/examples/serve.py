@@ -14,14 +14,27 @@ Quantized serving: ``--kv-int8`` (int8 paged KV pools with per-position
 scales) and ``--w8a8`` (int8 weights and activations in the out and FFN
 projections); the two compose.
 
-Sequence-sharded serving: ``--mesh N`` (``--kv-shard seq``, the default
-and the one layout ported) places the engine on a virtual world of N
-ranks (on the one device): the paged KV shards by block over the ranks'
-sequence spans, and every decode and prompt chunk merges the ranks'
-attention partials through the SP combine kernel.  Long contexts (Llama-3-8B's 8,192 positions) span every rank:
+Sharded serving: ``--mesh N`` places the engine on a virtual world of N
+ranks (on the one device).  ``--kv-shard seq`` (the default with a mesh):
+the paged KV shards by block over the ranks' sequence spans, and every
+decode and prompt chunk merges the ranks' attention partials through the
+SP combine kernel; long contexts (Llama-3-8B's 8,192 positions) span
+every rank.  ``--kv-shard heads``: tensor-parallel weights and pools
+sharded by KV head, the out and FFN seams summed over the ranks;
+``--w8a8`` and ``--kv-int8`` compose with it:
 
     python -m triton_dist_tpu_torch.examples.serve --engine --mesh 4 \\
         --kv-shard seq --prompt-len 4096
+    python -m triton_dist_tpu_torch.examples.serve --engine --mesh 4 \\
+        --kv-shard heads --w8a8
+
+W8A8 prompt scoring (the reference's, without ``--engine``): after the
+generation run, ``--w8a8 --mesh N`` scores prompt plus generated tokens
+(padded to a multiple of N) through the tensor-parallel W8A8 forward over
+N ranks (the AG-GEMM's int8 mode, the int8 GEMM) and prints its cosine
+against the float forward:
+
+    python -m triton_dist_tpu_torch.examples.serve --w8a8 --mesh 4
 
 The MoE family (``--model moe``) runs through ``MoEGenerator`` without
 ``--engine``, as the reference's generation mode does: Mixtral-8x7B at
@@ -32,7 +45,9 @@ tiny config on the CPU:
     python -m triton_dist_tpu_torch.examples.serve --model moe --device cpu
 
 Counterpart of ``examples/serve.py``'s ``run_engine`` and generation mode
-(single-step decode; ``--mesh`` with ``--kv-shard seq`` only).
+(single-step decode; ``--mesh`` with ``--kv-shard seq`` or ``heads``).
+On the CPU a layout that shards heads over N ranks widens the tiny
+config to 2N query and N KV heads.
 """
 
 from __future__ import annotations
@@ -90,16 +105,21 @@ def parse_args(argv=None):
                         "128)")
     p.add_argument("--w8a8", action="store_true",
                    help="W8A8 weights: per-channel int8 wo/wgate/wup/wdown, "
-                        "per-row int8 activations, exact int8 GEMMs")
+                        "per-row int8 activations, exact int8 GEMMs (engine "
+                        "mode); with --mesh N and no --engine, the W8A8 "
+                        "prompt scoring over N ranks")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="engine mode: serve over a virtual world of N "
-                        "ranks on the one device (--kv-shard seq)")
+                        "ranks on the one device (--kv-shard); with --w8a8 "
+                        "and no --engine: score over N ranks")
     p.add_argument("--kv-shard", choices=("heads", "seq", "heads+seq"),
                    default=None,
                    help="--mesh KV layout: 'seq' (the default with --mesh) "
                         "shards the paged pools by block, each rank owning "
                         "a contiguous sequence span (SP flash-decode); "
-                        "'heads' and 'heads+seq' are not ported yet")
+                        "'heads' shards weights and pools by head "
+                        "(tensor parallelism); 'heads+seq' is not ported "
+                        "yet")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after the run, a second wave of the same prompts: "
                         "once every row decodes, time N steps, then run N "
@@ -160,6 +180,14 @@ def profile_steps(eng, n_steps: int) -> dict:
     return rep
 
 
+def _shards_heads(args) -> bool:
+    """Whether the run shards attention heads over ``--mesh`` ranks: the
+    heads engine, or the W8A8 scoring of the generation mode."""
+    if args.mesh is None:
+        return False
+    return args.kv_shard == "heads" if args.engine else args.w8a8
+
+
 def _config(args):
     family = moe if args.model == "moe" else llama
     cpu = torch.device(args.device).type == "cpu"
@@ -174,8 +202,11 @@ def _config(args):
                             n_kv_heads=1, n_experts=4, topk=2,
                             expert_ffn_dim=64, max_seq=256, block_m=8)
     elif cpu:
-        cfg = llama.LlamaConfig(vocab=512, dim=256, n_layers=2, n_heads=2,
-                                n_kv_heads=1, ffn_dim=512, max_seq=256)
+        # a layout that shards heads over N ranks needs N KV heads
+        kv = args.mesh if _shards_heads(args) else 1
+        cfg = llama.LlamaConfig(vocab=512, dim=256, n_layers=2,
+                                n_heads=2 * kv, n_kv_heads=kv, ffn_dim=512,
+                                max_seq=256)
     elif family is moe:
         cfg = moe.MoEConfig.mixtral_8x7b()
     else:
@@ -230,7 +261,33 @@ def run_generate(args):
           f"{t_dec * 1e3:.1f} ms ({t_dec / args.new_tokens * 1e3:.1f} "
           f"ms/token)")
     print(f"tokens:\n{toks.cpu().numpy()}")
+    if args.w8a8:
+        score_w8a8(args, cfg, params, prompt, toks)
     return toks
+
+
+def score_w8a8(args, cfg, params, prompt, toks) -> float:
+    """The reference's W8A8 prompt scoring: prompt plus generated tokens,
+    seq-major and padded with token 0 to a multiple of ``--mesh`` N,
+    through ``make_w8a8_forward`` over N ranks (the W8A8 tree quantized
+    for N and laid out rank by rank); prints and returns the cosine of its
+    logits against the float forward's."""
+    from triton_dist_tpu_torch.models import llama_w8a8
+
+    n = args.mesh
+    seq = torch.cat([torch.as_tensor(prompt, device=toks.device),
+                     toks.long()], dim=1).T                      # [S, B]
+    seq = torch.nn.functional.pad(seq, (0, 0, 0, -seq.shape[0] % n))
+    with torch.no_grad():
+        qp = llama_w8a8.place_w8a8_params(
+            llama_w8a8.quantize_params_w8a8(params, cfg, n), cfg, n)
+        ql = llama_w8a8.make_w8a8_forward(cfg, n)(qp, seq)
+        del qp
+        fl = llama.make_forward(cfg)(params, seq)
+    cos = float((ql * fl).sum() / (ql.norm() * fl.norm()))
+    print(f"[serve] w8a8 prompt scoring over {n} ranks, {seq.shape[0]} "
+          f"positions x{seq.shape[1]}: cosine vs float {cos:.4f}")
+    return cos
 
 
 def run_engine(args) -> dict:
@@ -255,7 +312,7 @@ def run_engine(args) -> dict:
     mesh = None
     if args.mesh is not None:
         mesh = get_world(args.mesh, gen.device)
-        if args.num_blocks is None:
+        if args.num_blocks is None and args.kv_shard != "heads":
             # equal per-rank partitions, one null each, a full-length
             # span still fitting its partition
             num_blocks = -(-(num_blocks + args.mesh) // args.mesh) * \
@@ -335,9 +392,13 @@ def main(argv=None):
         # the user believes they exercised sequence sharding
         raise SystemExit("--kv-shard needs --mesh N (and --engine)")
     if not args.engine:
-        if args.w8a8 or args.profile or args.mesh is not None:
-            raise SystemExit("--w8a8 / --profile / --mesh are engine-mode "
-                             "flags: add --engine")
+        # --w8a8 and --mesh together: the W8A8 prompt scoring
+        if args.profile or args.kv_shard is not None or \
+                args.w8a8 != (args.mesh is not None):
+            raise SystemExit("--profile / --kv-shard are engine-mode flags, "
+                             "as are --w8a8 and --mesh alone (together, "
+                             "without --engine: the W8A8 prompt scoring): "
+                             "add --engine")
         run_generate(args)
         return
     run_engine(args)

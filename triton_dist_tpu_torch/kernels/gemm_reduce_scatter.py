@@ -23,7 +23,8 @@ bf16 rounding; in f32 they agree to f32 rounding.
   every rank's partial tiles pushed into the owner's staging slots with a
   flag per tile, each owner reducing its chunk) over the world's symmetric
   workspace and counts the launch, or raises on what the kernel does not
-  take; on CPU tensors (or with ``plain``) the plain version.
+  take; on CPU tensors (or with ``plain``) the plain version.  Any
+  ``m_loc >= 1`` is taken: the last row tile of each chunk is masked.
 
 As for the AG-GEMM, the reference's block sizes and ``ring_mode`` have no
 counterpart (full-mesh schedule; the bidirectional ring is not ported).
@@ -82,7 +83,7 @@ def gemm_rs(a, b, *, trans_b: bool = False, plain: bool = False):
     a, b = a.contiguous(), b.contiguous()
     w = get_world(world, a.device)
     ws = w.workspace
-    tiles = (m_loc // TILE_M) * -(-n // TILE_M)     # 128 x 128 tiles
+    tiles = -(-m_loc // TILE_M) * -(-n // TILE_M)   # 128 x 128 tiles
     stage = ws.get("gemm_rs_stage", (world, m_loc, n), a.dtype)
     flags = ws.flags("gemm_rs", world * tiles)
     bar = ws.flags("barrier", world)

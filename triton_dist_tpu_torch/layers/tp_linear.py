@@ -27,7 +27,21 @@ At world 1 (2-D operands) both linears are ``torch.matmul``, as the
 reference's auto dispatch takes XLA's dot there
 (``allgather_gemm.py:730-748``, ``gemm_reduce_scatter.py:712-721``), so
 the world-1 paths keep their numerics.  ``plain`` runs the kernels' plain
-versions on any device.  The W8A8 variants (:115-153) are not ported.
+versions on any device.
+
+The W8A8 serving variants (:115-153; no backward) quantize activations per
+row and contract int8 exactly:
+
+* column-parallel: each rank's rows quantize before the gather, so the
+  AG-GEMM's int8 mode moves int8 and returns the exact int32 product; the
+  row scales gather alongside (the reference's ``all_gather`` of the
+  [m_loc] scales: here the rank-stacked [W, m_loc] scales read in rank
+  order, no kernel owed), and the rank-1 dequant follows in the
+  reference's order;
+* row-parallel: a local ``matmul_i8`` per rank, dequantized per rank (its
+  rows' and its weight chunk's scales), then the reference's f32
+  ``psum_scatter`` as a sum over the ranks in rank order (no kernel owed:
+  the reference uses ``lax.psum_scatter``).
 """
 
 from __future__ import annotations
@@ -36,6 +50,11 @@ import torch
 
 from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs
+from triton_dist_tpu_torch.kernels.quant import (
+    matmul_i8,
+    matmul_i8_ref,
+    quantize_rowwise,
+)
 
 
 def _local_dw(a, dc, dtype):
@@ -102,13 +121,44 @@ def row_parallel_linear(a, b, *, plain: bool = False):
     return _apply(RowParallelLinearFn, gemm_rs, a, b, plain)
 
 
-def column_parallel_linear_w8a8(*args, **kwargs):
-    raise NotImplementedError(
-        "W8A8 column-parallel linear: the tensor-parallel half of quantized "
-        "serving is not ported yet (ROADMAP Queue 1 item 9)")
+def rank_sum(parts, dtype):
+    """The reference's ``psum`` over the ranks of a rank-stacked tensor
+    [W, ...]: the W partials added in f32 in rank order, cast to ``dtype``
+    once (f32 partials: exactly the rank-order sum)."""
+    total = parts[0].float()
+    for r in range(1, parts.shape[0]):
+        total = total + parts[r].float()
+    return total.to(dtype)
 
 
-def row_parallel_linear_w8a8(*args, **kwargs):
-    raise NotImplementedError(
-        "W8A8 row-parallel linear: the tensor-parallel half of quantized "
-        "serving is not ported yet (ROADMAP Queue 1 item 9)")
+def column_parallel_linear_w8a8(a, w_q, w_scale, *, plain: bool = False):
+    """a [W, m_loc, K] float x int8 w_q [W, K, n_loc] with per-channel
+    ``w_scale`` [W, n_loc] -> [W, W m_loc, n_loc] in a's dtype: per-row
+    quant of every rank's rows, the AG-GEMM's int8 mode (exact int32),
+    ``acc * a_scale_full[:, None] * w_scale[None, :]`` in f32."""
+    world, m_loc, k = a.shape
+    a_q, a_scale = quantize_rowwise(a.reshape(world * m_loc, k))
+    _, acc = ag_gemm(a_q.reshape(world, m_loc, k), w_q, plain=plain)
+    y = acc.float() * a_scale[None, :, None] * w_scale[:, None, :]
+    return y.to(a.dtype)
+
+
+def row_parallel_linear_w8a8(a, w_q, w_scale, *, plain: bool = False):
+    """a [W, M, k_loc] float x int8 w_q [W, k_loc, N] quantized per output
+    channel per rank (``w_scale`` [W, N], rank r's row its own) -> [W,
+    M / W, N] in a's dtype: each rank's exact local product, dequantized
+    with its own scales, then chunk r of the W f32 partials summed in rank
+    order (the cross-rank sum needs dequantized partials: every rank's
+    int32 partial carries other scales)."""
+    world, rows, _ = a.shape
+    if rows % world:
+        raise ValueError(f"row_parallel_linear_w8a8: {rows} rows do not "
+                         f"split into {world} chunks")
+    mm = matmul_i8_ref if plain else matmul_i8
+    parts = []
+    for r in range(world):
+        a_q, a_scale = quantize_rowwise(a[r])
+        acc = mm(a_q, w_q[r])
+        parts.append(acc.float() * a_scale[:, None] * w_scale[r][None, :])
+    parts = torch.stack(parts).reshape(world, world, rows // world, -1)
+    return rank_sum(parts, a.dtype)

@@ -107,7 +107,14 @@ def _token_forward(params, caches, token, pos, *, cfg: LlamaConfig,
     ``Generator._step_impl`` (contiguous append + decode kernel) and
     ``serve.engine._paged_decode_forward`` (pool-page scatter + the paged
     kernel) are both this function with different pairs.  ``pos`` [B]
-    carries each row's RoPE position (its cache length)."""
+    carries each row's RoPE position (its cache length).
+
+    Under the head-sharded layout (``serve/mesh.py``, ``kv_shard="heads"``)
+    ``cfg`` is the local-head view and the QKV weights are rank-stacked
+    [W, D, H/W hd]: q/k/v then carry a leading rank dimension ([W, B, H/W,
+    hd]) through RoPE, ``write_kv`` and ``attend``, and the ``out_proj`` /
+    ``ffn`` seams sum the ranks' partials back to the replicated [B, D]
+    residual."""
     ffn = ffn or _dense_prompt_ffn
     out_proj = out_proj or _default_out_proj
     new_caches = []
@@ -115,14 +122,14 @@ def _token_forward(params, caches, token, pos, *, cfg: LlamaConfig,
     table = _rope_table(pos, cfg.head_dim, cfg.rope_theta)
     for li, layer in enumerate(params["layers"]):
         h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (h @ layer["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
-        k = (h @ layer["wk"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ layer["wv"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        q = (h @ layer["wq"]).unflatten(-1, (cfg.n_heads, cfg.head_dim))
+        k = (h @ layer["wk"]).unflatten(-1, (cfg.n_kv_heads, cfg.head_dim))
+        v = (h @ layer["wv"]).unflatten(-1, (cfg.n_kv_heads, cfg.head_dim))
         q = _rope_at(q, pos, cfg.rope_theta, table)
         k = _rope_at(k, pos, cfg.rope_theta, table)
         cache = write_kv(li, caches[li], k, v)
         o = attend(li, q, cache)                                    # [B,Hq,hd]
-        x = x + out_proj(o.reshape(o.shape[0], -1).to(cfg.dtype), layer)
+        x = x + out_proj(o.flatten(-2).to(cfg.dtype), layer)
         h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
         x = x + ffn(h, layer)
         new_caches.append(cache)
@@ -166,16 +173,16 @@ def _attend_prefix(q, k_all, v_all, prefix_len, *, k_scale=None,
 
 
 def _write_chunk(cache, new, prefix_len):
-    """Write chunk K or V rows [B, Hkv, c, hd] at ``prefix_len`` (in
-    place); for a quantized cache dict the rows quantize and the scale
-    plane updates too."""
-    c = new.shape[2]
+    """Write chunk K or V rows [..., B, Hkv, c, hd] at ``prefix_len`` (in
+    place; leading dims: a rank-stacked cache's); for a quantized cache
+    dict the rows quantize and the scale plane updates too."""
+    span = slice(prefix_len, prefix_len + new.shape[-2])
     if isinstance(cache, dict):
         q8, sc = quantize_kv(new)
-        cache["q"][:, :, prefix_len:prefix_len + c] = q8
-        cache["s"][:, :, prefix_len:prefix_len + c] = sc
+        cache["q"][..., span, :] = q8
+        cache["s"][..., span] = sc
         return cache
-    cache[:, :, prefix_len:prefix_len + c] = new.to(cache.dtype)
+    cache[..., span, :] = new.to(cache.dtype)
     return cache
 
 
@@ -207,15 +214,18 @@ def _write_chunk_spans(cache, new, prefix_len):
 
 def _cache_views(k_c, v_c, extent):
     """(k, v, k_scale, v_scale): the attention reads of one layer's cache
-    pair (scales None for float caches), the position axis cut to
-    ``extent`` when given."""
+    pair [..., S, hd] (scales [..., S], None for float caches), the
+    position axis cut to ``extent`` when given."""
     if isinstance(k_c, dict):
         views = (k_c["q"], v_c["q"], k_c["s"], v_c["s"])
     else:
         views = (k_c, v_c, None, None)
     if extent is None:
         return views
-    return tuple(None if x is None else x[:, :, :extent] for x in views)
+    k, v, ks, vs = views
+    return (k[..., :extent, :], v[..., :extent, :],
+            None if ks is None else ks[..., :extent],
+            None if vs is None else vs[..., :extent])
 
 
 def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
@@ -234,7 +244,10 @@ def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
     v_view, prefix_len, k_scale=, v_scale=)`` overrides the prefix
     attention (scale views are None for float caches); ``write(cache,
     rows, prefix_len)`` the cache write (rank-stacked spans:
-    :func:`_write_chunk_spans`)."""
+    :func:`_write_chunk_spans`).  Rank-stacked QKV weights (the
+    head-sharded layout, ``cfg`` its local-head view) give q/k/v a leading
+    rank dimension, as in :func:`_token_forward`; the caches are then
+    rank-stacked [W, B, Hkv/W, S, hd] and ``attend`` takes them so."""
     ffn = ffn or _dense_prompt_ffn
     write = write or _write_chunk
     out_proj = out_proj or _default_out_proj
@@ -249,7 +262,7 @@ def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
     dev = params["embed"].device
     x = params["embed"][chunk.long()]                               # [B,c,D]
     positions = prefix_len + torch.arange(c, device=dev)
-    table = _rope_table(positions, hd, cfg.rope_theta)
+    cos, sin = _rope_table(positions, hd, cfg.rope_theta)
     keep = (None if n_valid is None else
             (torch.arange(c, device=dev) < int(n_valid))[None, :, None,
                                                          None])
@@ -258,22 +271,22 @@ def _chunk_forward(params, chunk, caches, prefix_len, *, cfg: LlamaConfig,
         k_c, v_c = caches[li]
         h2 = _rms_norm(x, layer["attn_norm"], cfg.norm_eps).reshape(
             B * c, cfg.dim)
-        q = (h2 @ layer["wq"]).reshape(B, c, cfg.n_heads, hd)
-        k = (h2 @ layer["wk"]).reshape(B, c, cfg.n_kv_heads, hd)
-        v = (h2 @ layer["wv"]).reshape(B, c, cfg.n_kv_heads, hd)
-        q = _rope(q.transpose(0, 1), positions, cfg.rope_theta,
-                  table).transpose(0, 1)
-        k = _rope(k.transpose(0, 1), positions, cfg.rope_theta,
-                  table).transpose(0, 1)
+        q = (h2 @ layer["wq"]).unflatten(-1, (cfg.n_heads, hd))
+        k = (h2 @ layer["wk"]).unflatten(-1, (cfg.n_kv_heads, hd))
+        v = (h2 @ layer["wv"]).unflatten(-1, (cfg.n_kv_heads, hd))
+        # [..., B, c, H, hd]; RoPE by chunk position
+        q, k, v = (t.unflatten(-3, (B, c)) for t in (q, k, v))
+        q = _rotate(q, cos[:, None, :], sin[:, None, :])
+        k = _rotate(k, cos[:, None, :], sin[:, None, :])
         if keep is not None:
             k = torch.where(keep, k, torch.zeros_like(k))
             v = torch.where(keep, v, torch.zeros_like(v))
-        k_c = write(k_c, k.permute(0, 2, 1, 3), prefix_len)
-        v_c = write(v_c, v.permute(0, 2, 1, 3), prefix_len)
+        k_c = write(k_c, k.transpose(-3, -2), prefix_len)
+        v_c = write(v_c, v.transpose(-3, -2), prefix_len)
         new_caches.append((k_c, v_c))
         kq, vq, ks, vs = _cache_views(k_c, v_c, extent)
         o = attend(q, kq, vq, prefix_len, k_scale=ks, v_scale=vs)
-        o = o.reshape(B * c, cfg.n_heads * hd).to(cfg.dtype)
+        o = o.flatten(-2).flatten(-3, -2).to(cfg.dtype)     # [..., B c, .]
         x = x + out_proj(o, layer).reshape(B, c, cfg.dim)
         h2 = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps).reshape(
             B * c, cfg.dim)

@@ -233,8 +233,8 @@ def _silu_mul(gate, up):
 # Tensor-parallel parameters
 # ---------------------------------------------------------------------------
 
-_COLUMN = ("wq", "wk", "wv", "wgate", "wup")   # P(None, tp)
-_ROW = ("wo", "wdown")                         # P(tp, None)
+_COLUMN = ("wq", "wk", "wv", "wgate", "wup", "wqkv")   # P(None, tp)
+_ROW = ("wo", "wdown")                                  # P(tp, None)
 
 
 def _check_world(cfg: LlamaConfig, world: int) -> None:
@@ -244,32 +244,53 @@ def _check_world(cfg: LlamaConfig, world: int) -> None:
                          f"divisible by it")
 
 
-def shard_params(params, cfg: LlamaConfig, world: int) -> dict:
-    """The tensor-parallel tree of a world-1 tree (``init_params`` or
-    ``params_from_jax`` output, or a gradient tree shaped like one):
-    column-parallel weights [W, in, out/W], row-parallel ones [W, in/W,
-    out], rank r's shard at [r] as the reference's ``param_specs`` cut
-    them; replicated leaves copied once.  No leaf aliases the input.  At
-    world 1 the tree is returned as it is."""
-    _check_world(cfg, world)
-    if world == 1:
-        return params
+def _rank_stack(params, world: int) -> dict:
+    """Every leaf laid out rank by rank (rank r's shard at [r]) as the
+    reference's ``param_specs`` / ``w8a8_param_specs`` cut it: column
+    weights (and a W8A8 tree's int8 ``<name>_q`` of them) [W, in, out/W]
+    with their channel scales ``<name>_s`` [W, out/W]; row weights [W,
+    in/W, out] with rank r's own scale row ``[W, 1, out]`` (from the
+    ``[world, out]`` scales of a tree quantized for ``world``); every other
+    leaf copied once.  No leaf aliases the input."""
 
     def split(t, dim):
         return torch.stack(t.chunk(world, dim=dim))
 
+    def leaf(key, t):
+        name, suffix = key.rsplit("_", 1) if key.endswith(
+            ("_q", "_s")) else (key, "")
+        if name in _COLUMN:
+            return split(t, 0 if suffix == "s" else 1)
+        if name not in _ROW:
+            return t.clone()
+        if suffix != "s":
+            return split(t, 0)
+        if t.shape[0] != world:
+            raise ValueError(
+                f"{key}: scales quantized for a world of {t.shape[0]}, "
+                f"placed over {world} ranks (quantize the row weights "
+                f"with world={world})")
+        return t.clone().unsqueeze(1)
+
     out = {k: params[k].clone() for k in ("embed", "lm_head", "final_norm")}
-    out["layers"] = []
-    for layer in params["layers"]:
-        if any(k.endswith(("_q", "_s")) for k in layer):
-            raise NotImplementedError(
-                "a W8A8 tree under tensor parallelism: the TP half of "
-                "quantized serving is not ported yet (ROADMAP Queue 1 "
-                "item 9)")
-        out["layers"].append({
-            k: split(t, 1) if k in _COLUMN else split(t, 0) if k in _ROW
-            else t.clone() for k, t in layer.items()})
+    out["layers"] = [{k: leaf(k, t) for k, t in layer.items()}
+                     for layer in params["layers"]]
     return out
+
+
+def shard_params(params, cfg: LlamaConfig, world: int) -> dict:
+    """The tensor-parallel tree of a world-1 tree (``init_params`` or
+    ``params_from_jax`` output, a gradient tree shaped like one, or a W8A8
+    tree of ``llama_w8a8`` quantized for ``world``): column-parallel
+    weights [W, in, out/W], row-parallel ones [W, in/W, out], rank r's
+    shard at [r] as the reference's ``param_specs`` cut them (the W8A8
+    scales beside their weights: :func:`_rank_stack`); replicated leaves
+    copied once.  No leaf aliases the input.  At world 1 the tree is
+    returned as it is."""
+    _check_world(cfg, world)
+    if world == 1:
+        return params
+    return _rank_stack(params, world)
 
 
 # ---------------------------------------------------------------------------

@@ -29,20 +29,30 @@ weight tree once for ``llama_w8a8.quantize_serve_params`` and binds the
 W8A8 ``ffn``/``out_proj`` hooks on the prefill and decode forwards.  The
 two compose.
 
-Sequence-sharded serving (``mesh=`` a ``runtime.bootstrap.World`` of W
-ranks, ``kv_shard="seq"``, the default with a mesh): weights stay whole,
-the pools shard by block over the ranks' sequence spans (the partitioned
-``BlockManager``), and the decode and chunked-prefill programs are
-``serve/mesh.py``'s (every rank's attention partial, then the SP combine
-kernel); the page fill is world 1's.  ``mesh=None`` is the world-1
+Sharded serving over the W ranks of a ``runtime.bootstrap.World``
+(``mesh=``), the decode and chunked-prefill programs ``serve/mesh.py``'s:
+
+- ``kv_shard="seq"`` (the default with a mesh): weights stay whole, the
+  pools shard by block over the ranks' sequence spans (the partitioned
+  ``BlockManager``), attention is every rank's partial, then the SP
+  combine kernel;
+- ``kv_shard="heads"``: tensor-parallel weights (``llama.shard_params``:
+  QKV and gate/up by columns, out and down by rows, rank-stacked), pools
+  rank-stacked by KV head ``[W, num_blocks, Hkv/W, page, D]`` (int8
+  pools' scale planes with them), one folded paged decode launch over
+  every rank's heads, and the row-parallel seams summed over the ranks;
+  ``w8a8=True`` composes (the hooks' ``axis=0``).  Page ownership and
+  block tables are world 1's (the reference replicates them).
+
+The page fill is world 1's under both.  ``mesh=None`` is the world-1
 engine.
 
 PyTorch runs eagerly, so the reference's counted jit programs are plain
 calls and pools update in place.  Options of the reference engine that
 are not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: decode horizon, speculative decoding, prefix cache, failure
-containment and crash recovery, overload control, the ``heads`` and
-``heads+seq`` mesh layouts.
+containment and crash recovery, overload control, the ``heads+seq``
+mesh layout.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from triton_dist_tpu_torch.kernels.flash_decode import (
     quantize_kv,
 )
 from triton_dist_tpu_torch.models import llama_w8a8
+from triton_dist_tpu_torch.models.llama import shard_params
 from triton_dist_tpu_torch.models.generate import (
     Generator,
     _chunk_forward,
@@ -134,55 +145,98 @@ def _pool_views(pool):
     return k_pool, v_pool, None, None
 
 
+def _fold(x):
+    """A rank-stacked tensor [W, N, ...] viewed as [W N, ...] (a view: an
+    in-place write lands in the stack); None stays None."""
+    return None if x is None else x.flatten(0, 1)
+
+
+def _fold_pool(pool):
+    """A rank-stacked pool layer (K, V), each [W, NB, Hkv/W, page, D] or
+    an int8 ``{"q", "s"}`` pair of such planes, as one pool of W NB
+    blocks (views)."""
+    return tuple({n: _fold(t) for n, t in x.items()} if isinstance(x, dict)
+                 else _fold(x) for x in pool)
+
+
+def _rank_rows(ids, world, num_blocks):
+    """Block ids [B, ...] of every rank's pool as rows of the folded pool:
+    rank r's at ``id + r * num_blocks``, [W B, ...] (the null block 0
+    becomes each rank's own row 0)."""
+    off = torch.arange(world, device=ids.device, dtype=ids.dtype)
+    return (ids[None] + (off * num_blocks).reshape(
+        -1, *([1] * ids.dim()))).flatten(0, 1)
+
+
 def _paged_decode_forward(params, pools, tables, kv_lens, token, active, *,
-                          cfg, page, ffn=None, out_proj=None):
+                          cfg, page, fwd_cfg=None, ffn=None, out_proj=None):
     """One decode token for every batch row over the paged pools:
     ``generate._token_forward`` with the contiguous append swapped for a
-    pool-page scatter and attention through the paged decode kernel
-    (``ffn``/``out_proj``: the W8A8 hooks, or None)."""
-    inc = active.to(kv_lens.dtype)
+    pool-page scatter and attention through the paged decode kernel.
+
+    ``fwd_cfg``/``ffn``/``out_proj`` are the tensor-parallel seams
+    (``serve/mesh.py``; or the W8A8 hooks): the layer math runs under
+    ``fwd_cfg`` (the local-head view) while the page addressing and the
+    kernel's soft-cap/window stay on ``cfg``.  Under the head-sharded
+    layout the pools are rank-stacked by KV head [W, NB, Hkv/W, page, D]
+    and q/k/v carry a leading rank dimension: the W ranks' scatters and
+    decodes fold into one batch of W B rows (each rank's table rebased
+    onto its own pool rows), one launch for every rank — ONE copy of the
+    block-table addressing for world 1 and every rank."""
     pool_row, in_page = _page_slots(tables, kv_lens, active, page=page)
+    lens = kv_lens + active.to(kv_lens.dtype)
+    k0 = _pool_views(pools[0])[0]
+    world = k0.shape[0] if k0.dim() == 5 else None
+    if world is not None:
+        pool_row, tables = (_rank_rows(t, world, k0.shape[1])
+                            for t in (pool_row, tables))
+        in_page, lens = in_page.repeat(world), lens.repeat(world)
+    fold = (lambda x: x) if world is None else _fold
 
     def write_kv(li, pool, k, v):
-        return _scatter_kv(pool, k, v, pool_row, in_page)
+        _scatter_kv(pool if world is None else _fold_pool(pool), fold(k),
+                    fold(v), pool_row, in_page)
+        return pool
 
     def attend(li, q, pool):
         kq, vq, ks, vs = _pool_views(pool)
         o, _ = gqa_decode_paged_shard(
-            q, kq, vq, tables, kv_lens + inc, soft_cap=cfg.attn_soft_cap,
-            window=cfg.attn_window, k_scale=ks, v_scale=vs)
-        return o
+            fold(q), fold(kq), fold(vq), tables, lens,
+            soft_cap=cfg.attn_soft_cap, window=cfg.attn_window,
+            k_scale=fold(ks), v_scale=fold(vs))
+        return o if world is None else o.unflatten(0, (world, -1))
 
-    return _token_forward(params, pools, token, kv_lens, cfg=cfg,
+    return _token_forward(params, pools, token, kv_lens, cfg=fwd_cfg or cfg,
                           write_kv=write_kv, attend=attend, ffn=ffn,
                           out_proj=out_proj)
 
 
 def _fill_pool_pages(pools, scratch, block_ids, *, page):
     """Scatter a completed prefill's K/V (contiguous scratch caches
-    [1, Hkv, n*page, D] per layer) into the request's pool pages, in
-    place.  ``block_ids`` covers every scratch page; entries past the
-    prompt's allocation hold the null block, so duplicate null ids only
-    ever carry the scratch's zero padding.  A quantized scratch's int8
-    bytes and scales move as they are: quantization is not idempotent, so
-    the pool rows stay bit-identical to the scratch rows."""
+    [1, Hkv, n*page, D] per layer; rank-stacked [W, 1, Hkv/W, n*page, D]
+    into pools [W, NB, Hkv/W, page, D] under the head-sharded layout)
+    into the request's pool pages, in place.  ``block_ids`` covers every
+    scratch page; entries past the prompt's allocation hold the null
+    block, so duplicate null ids only ever carry the scratch's zero
+    padding.  A quantized scratch's int8 bytes and scales move as they
+    are: quantization is not idempotent, so the pool rows stay
+    bit-identical to the scratch rows."""
     n = block_ids.shape[0]
     ids = block_ids.long()
 
-    def as_pages(c):
-        Hkv, D = c.shape[1], c.shape[3]
-        return c[0].reshape(Hkv, n, page, D).transpose(0, 1)
+    def as_pages(c):    # [..., 1, Hkv, n page, D] -> [..., n, Hkv, page, D]
+        return c.select(-4, 0).unflatten(-2, (n, page)).transpose(-4, -3)
 
-    def as_pages_s(sc):
-        return sc[0].reshape(sc.shape[1], n, page).transpose(0, 1)
+    def as_pages_s(sc):     # [..., 1, Hkv, n page] -> [..., n, Hkv, page]
+        return sc.select(-3, 0).unflatten(-1, (n, page)).transpose(-3, -2)
 
     for (k_pool, v_pool), (kc, vc) in zip(pools, scratch):
         for dst, src in ((k_pool, kc), (v_pool, vc)):
             if isinstance(dst, dict):
-                dst["q"][ids] = as_pages(src["q"])
-                dst["s"][ids] = as_pages_s(src["s"])
+                dst["q"][..., ids, :, :, :] = as_pages(src["q"])
+                dst["s"][..., ids, :, :] = as_pages_s(src["s"])
             else:
-                dst[ids] = as_pages(src).to(dst.dtype)
+                dst[..., ids, :, :, :] = as_pages(src).to(dst.dtype)
     return pools
 
 
@@ -226,8 +280,8 @@ def _stream_seed(seed: int, index: int) -> int:
 
 class ServeEngine:
     """Continuous-batching serving over one :class:`Generator` (float or
-    int8 pools; float or, at world 1, W8A8 weights; world 1, or
-    ``mesh=World(W), kv_shard="seq"``).
+    int8 pools; float or W8A8 weights; world 1, or ``mesh=World(W)`` with
+    ``kv_shard="seq"`` or ``"heads"``, W8A8 under ``"heads"`` only).
 
     Usage::
 
@@ -273,22 +327,30 @@ class ServeEngine:
             # a mesh is added
             raise ValueError(f"kv_shard must be one of "
                              f"{serve_mesh.KV_SHARDS}, got {kv_shard!r}")
-        self.sp_world = 1
+        self.sp_world = 1       # block partitions (kv_shard="seq")
+        self.tp_world = 1       # head shards (kv_shard="heads")
+        self.kv_shard = None
         if mesh is not None and not isinstance(mesh, World):
             _not_ported(f"mesh={type(mesh).__name__} (a mesh over several "
                         f"cards or processes; the port serves over a "
                         f"runtime.bootstrap.World on one device)",
                         "Queue 1 item 11 (the multi-process backend)")
         if mesh is not None:
-            # "seq" is the one layout ported, so a mesh defaults to it
-            self.sp_world = serve_mesh.validate_mesh_geometry(
-                mesh=mesh, kv_shard=kv_shard or "seq", max_seq=gen.max_seq,
-                num_blocks=num_blocks, page_size=page_size)
-            if w8a8:
+            # "seq" was the first layout ported, so a mesh defaults to it
+            self.kv_shard = kv_shard or "seq"
+            world = serve_mesh.validate_mesh_geometry(
+                mesh=mesh, kv_shard=self.kv_shard, cfg=gen.cfg,
+                max_seq=gen.max_seq, num_blocks=num_blocks,
+                page_size=page_size)
+            if self.kv_shard == "seq":
+                self.sp_world = world
+            else:
+                self.tp_world = world
+            if w8a8 and self.kv_shard != "heads":
                 raise ValueError(
                     "w8a8 is a tensor-parallel weight layout: supported at "
-                    "world 1 (the seq layout keeps float weights, as in "
-                    "the reference)")
+                    "world 1 and kv_shard='heads' (the seq layout keeps "
+                    "float weights, as in the reference)")
             if mesh.device != canonical_device(gen.device):
                 raise ValueError(f"the mesh's ranks live on {mesh.device}, "
                                  f"the generator on {gen.device}")
@@ -311,12 +373,22 @@ class ServeEngine:
         self.w8a8 = bool(w8a8)
         # w8a8 swaps the weight tree once, before any forward runs; the
         # hooks ride the ffn=/out_proj= seams of both forwards, so a
-        # re-prefill after preemption runs the same hooked math
+        # re-prefill after preemption runs the same hooked math.  Under
+        # kv_shard="heads" the tree is laid out rank by rank
+        # (llama.shard_params: a copy; the caller's tree is not kept) and
+        # the hooks sum the ranks' partials (axis=0).
         self._hooks = {}
         if self.w8a8:
-            params = llama_w8a8.quantize_serve_params(params, cfg)
-            self._hooks = {"ffn": llama_w8a8.w8a8_serve_ffn,
-                           "out_proj": llama_w8a8.w8a8_serve_out_proj}
+            params = llama_w8a8.quantize_serve_params(params, cfg,
+                                                      world=self.tp_world)
+            axis = 0 if self.tp_world > 1 else None
+            self._hooks = {
+                "ffn": functools.partial(llama_w8a8.w8a8_serve_ffn,
+                                         axis=axis),
+                "out_proj": functools.partial(
+                    llama_w8a8.w8a8_serve_out_proj, axis=axis)}
+        if self.tp_world > 1:
+            params = shard_params(params, cfg, self.tp_world)
         self.params = params
         self.page = page_size
         self.max_batch = max_batch
@@ -328,16 +400,21 @@ class ServeEngine:
                                shards=self.sp_world,
                                pages_per_shard=self.n_pages_max
                                // self.sp_world)
-        # the device programs: world 1's, or their sequence-sharded twins
+        # the device programs: world 1's, or their sharded twins
         self._decode_fwd = _paged_decode_forward
         self._chunk_fwd = _chunk_forward
-        if mesh is not None:
+        if self.kv_shard == "seq":
             geo = dict(world=self.sp_world, num_blocks=num_blocks)
             self._decode_fwd = functools.partial(
                 serve_mesh.sp_paged_decode_shard,
                 n_pages_max=self.n_pages_max, **geo)
             self._chunk_fwd = functools.partial(
                 serve_mesh.sp_chunk_forward_shard, world=self.sp_world)
+        elif self.kv_shard == "heads":
+            self._decode_fwd = functools.partial(
+                serve_mesh.tp_paged_decode_shard, world=self.tp_world)
+            self._chunk_fwd = functools.partial(
+                serve_mesh.tp_chunk_forward_shard, world=self.tp_world)
         self.scheduler = FCFSScheduler(
             self.bm, prefill_budget=prefill_budget or 4 * prefill_chunk,
             prefill_chunk=prefill_chunk)
@@ -352,7 +429,9 @@ class ServeEngine:
             max(page_size, prefill_chunk),
             self._scratch_need(gen.max_seq - 1), page_size)
 
-        shape = (num_blocks, cfg.n_kv_heads, page_size, cfg.head_dim)
+        # kv_shard="heads": rank-stacked by KV head [W, NB, Hkv/W, ...]
+        shape = (*self._kv_lead(), num_blocks, cfg.n_kv_heads //
+                 self.tp_world, page_size, cfg.head_dim)
         self._pools = [(self._zeros_kv(shape), self._zeros_kv(shape))
                        for _ in range(cfg.n_layers)]
         # KV capacity: the real allocated footprint (int8 pages and their
@@ -364,6 +443,11 @@ class ServeEngine:
         self.slots: list[Optional[ReqState]] = [None] * max_batch
         self._states: dict[str, ReqState] = {}
         self._outputs: dict[str, RequestOutput] = {}
+
+    def _kv_lead(self) -> tuple:
+        """The rank dimension of the head-sharded layout's pools and
+        scratch ((W,) under kv_shard="heads", else ())."""
+        return (self.tp_world,) if self.tp_world > 1 else ()
 
     def _zeros_kv(self, shape):
         """One zeroed K or V store of ``shape`` [.., S, D]: a float tensor,
@@ -475,7 +559,8 @@ class ServeEngine:
         cfg = self.cfg
         s_ext = self._bucket_s_ext(int(rs.prompt_tokens.shape[0]))
         rs.s_ext = s_ext
-        shape = (1, cfg.n_kv_heads, s_ext, cfg.head_dim)
+        shape = (*self._kv_lead(), 1, cfg.n_kv_heads // self.tp_world,
+                 s_ext, cfg.head_dim)
         # a quantized scratch: chunked prefill quantizes each chunk's rows
         # as it writes them, so the page fill moves finished bytes
         rs.scratch = [(self._zeros_kv(shape), self._zeros_kv(shape))
