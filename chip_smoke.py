@@ -45,9 +45,11 @@ Phases, in order (any failure exits non-zero without the final line):
    (send [1, 1, 4096, 4096] bf16) and at a shape with a byte tail,
    exactly equal to its plain version (a copy), one PyTorch copy as the
    yardstick, and over EP ranks (its peer segments) at the EP-4 dispatch
-   (send [4, 4, 1024, 4096] bf16, balanced and skewed splits) and at [4,
-   4, 37, 3], equal to its plain version on every row it defines (below
-   each split, the own segment whole) and on the split counts, timed by
+   (send [4, 4, 1024, 4096] bf16, balanced and skewed splits), at [4,
+   4, 37, 3] and at Ulysses' two shuffles at Llama-3-8B CP 4 ([4, 4,
+   2048, 1536] and [4, 4, 2048, 1024], full splits), equal to its plain
+   version on every row it defines (below each split, the own segment
+   whole) and on the split counts, timed by
    the profiler's device time, ``transpose(0, 1).contiguous()`` as the
    yardstick;
    the dense GEMM (``csrc/gemm.cu``, on no model path: the reference's
@@ -72,6 +74,16 @@ Phases, in order (any failure exits non-zero without the final line):
    partials: within 1e-5 of the plain result's largest magnitude, the dead
    row 0, every rank's merge bit for bit the same; timed by the profiler's
    device time, softmax + einsum over the gathered stack as the yardstick;
+   the context-parallel rows at Llama-3-8B CP 4 (W 4, S_loc 2048): the
+   flash forward and the dq / dkv kernels in their segmented mode (the
+   four ranks of one zigzag ring step folded into the batch, per-row block
+   starts; f32 gradients), against their plain versions on the same run
+   starts, SDPA with the same mask as the yardstick; the fused ring kernel
+   ``ring_attn`` contiguous and zigzag against the dense ring (2e-2
+   absolute, and relative L2 over the output and each 64-row block), one
+   causal
+   SDPA call over the gathered 8,192 positions as the yardstick, and ten
+   calls in a row on new inputs, each checked;
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -173,7 +185,24 @@ Phases, in order (any failure exits non-zero without the final line):
    finishes, and the served tokens agree with a world-1 teacher-forced
    forward: the float run with the flash prompt forward at the dense
    gates, the W8A8 run with the world-1 W8A8 model's forward at the W8A8
-   floors; the greedy prefix match against the world-1 engine printed.
+   floors; the greedy prefix match against the world-1 engine printed;
+17. CP forward (after 16, on phase 4's weights): Llama-3-8B, 32 layers,
+   tokens [8192, 1] (``max_position_embeddings``), the world-1 forward
+   at the same S (its noise floor: the same with the plain attention),
+   then ``make_cp_forward(cfg, CP)`` over CP ranks three ways: the ring
+   under ``impl="auto"`` (the zigzag flash ring through the flash
+   kernels' segmented mode), ``impl="fused"`` (contiguous, through
+   ``ring_attn``) and Ulysses; each timed and profiled (device busy,
+   attention's share, the ring rotation's or the all-to-all's), its
+   argmax against the world-1 forward's at the dense gates;
+18. CP train (after 6, on its own tree): CP_SGD_STEPS SGD steps at 32
+   layers and S 8192 through ``make_cp_train_step(impl="auto",
+   remat=True)`` (finite, falling losses; step ms, trained tok/s, peak;
+   a profiled step), one Ulysses step at 32 layers, at 2 layers and S
+   4,096 the loss and every gradient leaf of each scheme against the same
+   scheme over the plain versions (1e-3, 2e-2 relative L2), the peak of a
+   2-layer gradient at S 8192 without and with remat, and one fused-ring
+   step at 2 layers and S 8192.
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
@@ -193,7 +222,14 @@ AG-GEMM's, matmul_i8's and flash_fwd's counters just before its forward
 and reads them just after: the int8 AG-GEMM's count comes from there
 (matmul_i8's and flash_fwd's beside under "w8a8_tp_launches"); phase 16
 zeroes flash_fwd's, decode_paged's and matmul_i8's before each engine run
-and reads them after it ("heads_launches", each > 0 in its heads run).  A
+and reads them after it ("heads_launches", each > 0 in its heads run).
+Phases 17 and 18 zero the CP counters (flash_fwd's launches, the flash
+kernels' segmented ones, ``ring_attn``'s and the all-to-all's) before
+each forward or step and read them after it: the segmented flash
+forward's count in the ``kernels`` line comes from phase 17's flash ring,
+``ring_attn``'s from its fused forward, the segmented backward kernels'
+from phase 18 (a); every scheme's counts ride beside under "cp_launches"
+(flash_fwd's and the all-to-all's too).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -244,6 +280,14 @@ QUANT_STRICT_MIN = 0.75
 BWD_REL_TOL = 2e-2
 BWD_L2_TOL = 1e-2
 BWD_TILE_L2_TOL = 2e-2
+# ring_attn returns no lse, and at Llama-3-8B CP 4 a row that sees n keys
+# has |out| ~ 0.8 sqrt(e / n) (~0.02 at the median row), so OUT_TOL alone
+# would pass a kernel that dropped a live key tile.  Its output is also
+# held to ||err|| / ||plain|| over the tensor and over each (rank, batch,
+# head, 64-row block): a kernel that rounds P to bf16 reads ~2e-3 on both,
+# one dropped 64-key tile of one q tile ~0.16 on its block.
+RING_L2_TOL = 1e-2
+RING_TILE_L2_TOL = 2e-2
 SGD_LR = 0.2        # phase 6 (a): big enough that bf16 updates survive
 MOE_LAYERS = 16       # phases 7-8: 46.97 GB of Mixtral-8x7B weights
 MOE_TRAIN_LAYERS = 8  # phase 10 (a): parameters and gradients, 2 x 23.75 GB
@@ -287,6 +331,10 @@ SP_MAX_SEQ = 8192   # Llama-3-8B's published context (max_position_embeddings)
 SP_COMBINE_TOL = 1e-5   # sp_combine vs plain, relative to the largest value
 TP_SGD_LR = 0.2
 TP_SGD_STEPS = 3
+CP = 4              # phases 17-18 and the CP kernel rows: virtual world ranks
+CP_SEQ = 8192       # Llama-3-8B's max_position_embeddings: 2,048 per rank
+CP_GRAD_SEQ = 4096  # phase 18 (c): the plain versions hold S x S f32 scores
+CP_SGD_STEPS = 3
 # Phase 15 holds the W8A8 TP forward to the float forward at the W8A8
 # gates (median relative error < 0.05, cosine > 0.995).  W8A8 error grows
 # with depth (each projection re-quantizes its rows): at 32 layers the
@@ -553,6 +601,7 @@ def kernel_phase(dev):
     rows["matmul"] = matmul_row(dev, g)
     rows.update(ring_rows(dev, g))
     rows["sp_combine"] = sp_combine_row(dev, g)
+    rows.update(cp_kernel_rows(dev, g))
     return rows
 
 
@@ -1039,7 +1088,11 @@ def all_to_all_row(dev, g):
     top-2 (send [4, 4, 1024, 4096] bf16) with the splits of a balanced
     routing (seeded top-2 over 8 experts, ~256 rows a segment) and of a
     skewed one (all 1024 rows of a rank to one peer), and a ragged [4, 4,
-    37, 3]; each equal to its plain version on every defined row
+    37, 3]; and Ulysses' two shuffles at Llama-3-8B CP 4 (phase 17's
+    shapes, full splits of S_loc 2048 rows: send [4, 4, 2048, 1536], each
+    rank's q | k | v heads of every peer, and [4, 4, 2048, 1024], the
+    attention output back); each equal to its plain version on every
+    defined row
     (``a2a_agree``), timed by the profiler's device time of the kernel
     (each call carries a new epoch, so no CUDA graph; back-to-back eager
     calls between CUDA events, which count the host's launch cost where it
@@ -1087,13 +1140,17 @@ def all_to_all_row(dev, g):
                            ).to(torch.int32)
     skewed = torch.zeros((W, W), dtype=torch.int32, device=dev)
     skewed[torch.arange(W), (torch.arange(W) + 1) % W] = mt
+    s_cp = CP_SEQ // CP
+    full = torch.full((CP, CP), s_cp, dtype=torch.int32, device=dev)
     shapes = {}
     for tag, shape, splits in (
             ("ep4_balanced", (W, W, mt, H), balanced),
             ("ep4_skewed", (W, W, mt, H), skewed),
             ("ep4_ragged", (W, W, 37, 3),
              torch.randint(0, 41, (W, W), generator=g, device=dev,
-                           dtype=torch.int32))):
+                           dtype=torch.int32)),
+            ("cp4_ulysses_qkv", (CP, CP, s_cp, 1536), full),
+            ("cp4_ulysses_out", (CP, CP, s_cp, 1024), full)):
         send = torch.randn(shape, generator=g, device=dev).bfloat16()
         recv, recv_splits = a2a.fast_all_to_all_shard(send, splits)
         torch.cuda.synchronize()
@@ -2992,6 +3049,459 @@ def tp_phases():
     return fwd_launches, train_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 3 (CP rows), 17-18: context parallelism, CP ranks of the virtual
+# world at Llama-3-8B's published context
+# ---------------------------------------------------------------------------
+
+
+def cp_kernel_rows(dev, g):
+    """Phase 3's context-parallel rows at Llama-3-8B CP 4 (W CP, S_loc
+    CP_SEQ / CP = 2048, B 1, Hq 32, Hkv 8, D 128).  "1z" (flash_fwd_seg):
+    the flash forward in its segmented mode, the four ranks of one zigzag
+    ring step folded into the batch (q [4, 32, 2048, 128], rank r's two
+    chunks against rank r - 1's, per-row block-start vectors), against the
+    plain version on the same run starts (2e-2 / 1e-3), timed as CUDA-graph
+    replays, SDPA with the same boolean mask as the yardstick.  "6z"
+    (flash_bwd_dq_seg, flash_bwd_dkv_seg): dq and dkv on the same inputs
+    with f32 gradients, by phase 3's gradient rule, SDPA's backward with
+    the mask (K/V expanded to Hq heads) as the yardstick.  Row 21
+    (ring_attn): the fused ring kernel at W 4, S_loc 2048, causal, in the
+    contiguous layout (phase 17's fused forward) and the zigzag one (under
+    "shapes"), against the dense ring (2e-2 absolute, and RING_L2_TOL /
+    RING_TILE_L2_TOL relative L2 over the output and over each (rank,
+    head, 64-row block)), timed eagerly between CUDA
+    events (a launch carries its call's epoch), one causal SDPA call over
+    the gathered 8,192-position sequence as the yardstick; then ten calls
+    in a row on new inputs, each checked (slot reuse, epochs).  Bounds:
+    the visible (query, key) pairs of these inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    W, S, Hq, Hkv, D = CP, CP_SEQ // CP, 32, 8, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    rows = {}
+    q, k, v, do = (randn(W, Hq, S, D), randn(W, Hkv, S, D),
+                   randn(W, Hkv, S, D), randn(W, Hq, S, D))
+    kw = dict(causal=True, q_offset=ra._fold_starts(W, 1, S, True, 0),
+              kv_offset=ra._fold_starts(W, 1, S, True, 1))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, **kw)
+    e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+    log(f"flash_fwd_seg (1z) W {W} folded, zigzag step 1, [{W}, {Hq}, {S}, "
+        f"{D}]: max|out-plain| {e_out:.3e} (tol {OUT_TOL}), max|lse-plain| "
+        f"{e_lse:.3e} (tol {LSE_TOL})")
+    if not (e_out <= OUT_TOL and e_lse <= LSE_TOL):
+        raise AssertionError("flash_fwd_seg disagrees with plain")
+    del ref_out, ref_lse
+    mask = fa._visibility_mask(S, S, causal=True, window=0,
+                               q_offset=kw["q_offset"],
+                               kv_offset=kw["kv_offset"], device=dev)
+    visible = int(mask.sum())            # every rank's pairs per q-head
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw),
+                       iters=2, reps=2)
+    amask = mask[:, None]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=amask, enable_gqa=True))
+    io = (2 * q.numel() + 2 * k.numel()) * 2
+    b_ms, b_by = bound_ms(io + W * Hq * S * 4, 4 * D * Hq * visible)
+    log(f"flash_fwd_seg (1z): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa (boolean mask) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"visible pairs {visible} of {W * S * S}")
+    rows["flash_fwd_seg"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib,
+                                 max_abs_err=e_out)
+
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                 grad_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    errs = {}
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        err, top, l2, tile_l2 = grad_errors(gt, wt)
+        log(f"flash_bwd_seg (6z) {name}: max|kernel-plain| {err:.3e}, "
+            f"max|plain| {top:.3e} (tol {BWD_REL_TOL} x max|plain|); "
+            f"relative L2 {l2:.3e} (tol {BWD_L2_TOL}), worst (head, 64-row "
+            f"tile) {tile_l2:.3e} (tol {BWD_TILE_L2_TOL})")
+        if not (torch.isfinite(gt).all() and err <= BWD_REL_TOL * top
+                and l2 <= BWD_L2_TOL and tile_l2 <= BWD_TILE_L2_TOL):
+            raise AssertionError(f"flash_bwd_seg {name} disagrees with "
+                                 f"plain")
+        errs[name] = err
+    del got, want
+    delta = fa.bwd_delta(out, do)
+    bkw = dict(kw, scale=D ** -0.5, soft_cap=0.0, window=0,
+               out_dtype=torch.float32)
+    dq_ms = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **bkw))
+    dkv_ms = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                              **bkw))
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, **kw), iters=1, reps=2)
+    xs = [x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(Hq // Hkv, dim=1),
+        v.repeat_interleave(Hq // Hkv, dim=1))]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*xs, attn_mask=amask)
+
+    lib = time_ms(lambda: torch.autograd.grad(fwd(), xs, do)) - time_ms(fwd)
+    del xs
+    prod = 2 * D * visible * Hq
+    dq_b = bound_ms(io + 2 * W * Hq * S * 4 + q.numel() * 4, 3 * prod)
+    dkv_b = bound_ms(io + 2 * W * Hq * S * 4 + 2 * k.numel() * 4, 4 * prod)
+    log(f"flash_bwd_seg (6z): dq kernel {dq_ms:.4f} ms (bound "
+        f"{dq_b[0]:.4f} ms, {dq_b[1]}), dkv kernel {dkv_ms:.4f} ms (bound "
+        f"{dkv_b[0]:.4f} ms, {dkv_b[1]}), f32 gradients; plain gradient "
+        f"{plain_ms:.4f} ms; sdpa backward (boolean mask, K/V expanded) "
+        f"{lib:.4f} ms")
+    common = dict(plain_ms=plain_ms, library_ms=lib)
+    rows["flash_bwd_dq_seg"] = dict(common, ms=dq_ms, bound_ms=dq_b[0],
+                                    bound_by=dq_b[1], max_abs_err=errs["dq"])
+    rows["flash_bwd_dkv_seg"] = dict(
+        common, ms=dkv_ms, bound_ms=dkv_b[0], bound_by=dkv_b[1],
+        max_abs_err=max(errs["dk"], errs["dv"]))
+    del q, k, v, do, out, lse, delta, mask, amask
+    free_cuda()
+
+    # row 21: the fused ring kernel
+    q, k, v = randn(W, S, 1, Hq, D), randn(W, S, 1, Hkv, D), randn(W, S, 1,
+                                                                   Hkv, D)
+    gathered = [x.permute(2, 3, 0, 1, 4).reshape(1, x.shape[3], W * S, D)
+                for x in (q, k, v)]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        *gathered, is_causal=True, enable_gqa=True))
+    del gathered
+    n = W * S
+    b_ms, b_by = bound_ms((2 * q.numel() + 2 * k.numel()) * 2,
+                          4 * D * Hq * (n * (n + 1) // 2))
+
+    def check(tag, got, want):
+        # [W, S, B, H, D] -> [W B, H, S, D]: grad_errors' blocks are then
+        # (rank, batch, head, 64-row block)
+        err, _, l2, tile_l2 = grad_errors(
+            *(x.permute(0, 2, 3, 1, 4).flatten(0, 1) for x in (got, want)))
+        log(f"ring_attn {tag}: max|kernel-plain| {err:.3e} (tol {OUT_TOL}), "
+            f"relative L2 {l2:.3e} (tol {RING_L2_TOL}), worst (rank, head, "
+            f"64-row block) {tile_l2:.3e} (tol {RING_TILE_L2_TOL})")
+        if not (torch.isfinite(got).all() and err <= OUT_TOL
+                and l2 <= RING_L2_TOL and tile_l2 <= RING_TILE_L2_TOL):
+            raise AssertionError(f"ring_attn {tag} disagrees with plain")
+        return err
+
+    shapes, errs = {}, []
+    for zz in (False, True):
+        tag = "zigzag" if zz else "contiguous"
+        got = ra.ring_attn(q, k, v, zigzag=zz)
+        torch.cuda.synchronize()
+        want = ra._ring_attention_dense(q, k, v, causal=True,
+                                        scale=D ** -0.5, zigzag=zz)
+        err = check(f"{tag} W {W}, S_loc {S}", got, want)
+        errs.append(err)
+        del got, want
+        ms = event_ms(lambda: ra.ring_attn(q, k, v, zigzag=zz), iters=10)
+        plain_ms = event_ms(lambda: ra._ring_attention_dense(
+            q, k, v, causal=True, scale=D ** -0.5, zigzag=zz), iters=2)
+        log(f"ring_attn {tag}: kernel {ms:.4f} ms (eager, between CUDA "
+            f"events), plain {plain_ms:.4f} ms, sdpa over the gathered "
+            f"{n} positions {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        shapes[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib, max_abs_err=err)
+    stress = []
+    for i in range(10):
+        q, k, v = randn(W, S, 1, Hq, D), randn(W, S, 1, Hkv, D), randn(
+            W, S, 1, Hkv, D)
+        got = ra.ring_attn(q, k, v, zigzag=bool(i % 2))
+        want = ra._ring_attention_dense(q, k, v, causal=True,
+                                        scale=D ** -0.5, zigzag=bool(i % 2))
+        stress.append(check(f"call {i + 1} of ten in a row (new inputs, "
+                            f"{'zigzag' if i % 2 else 'contiguous'})",
+                            got, want))
+        del got, want
+    rows["ring_attn"] = dict(shapes["contiguous"],
+                             max_abs_err=max(errs + stress), shapes=shapes)
+    del q, k, v
+    free_cuda()
+    return rows
+
+
+def _cp_counters():
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    return {"flash_fwd": (fa.flash_attention, "launches"),
+            "flash_fwd_seg": (fa.flash_attention, "segmented_launches"),
+            "flash_bwd_dq_seg": (fa.flash_bwd_dq, "segmented_launches"),
+            "flash_bwd_dkv_seg": (fa.flash_bwd_dkv, "segmented_launches"),
+            "ring_attn": (ra.ring_attn, "launches"),
+            "all_to_all": (a2a.fast_all_to_all_shard, "launches")}
+
+
+def _zero_cp_counters():
+    for fn, attr in _cp_counters().values():
+        setattr(fn, attr, 0)
+
+
+def _read_cp_counters():
+    return {n: getattr(fn, attr) for n, (fn, attr) in _cp_counters().items()}
+
+
+def cp_forward_phase(cfg, params):
+    """Phase 17: Llama-3-8B at full width and 32 layers on phase 4's
+    weights, tokens [CP_SEQ 8192, 1] from a seed.  The world-1 forward at
+    the same S (and, as its noise floor, the same with the plain
+    attention), then ``make_cp_forward(cfg, CP)`` three ways: the ring
+    under ``impl="auto"`` (the zigzag flash ring: the flash kernels'
+    segmented mode), under ``impl="fused"`` (the contiguous layout through
+    ``ring_attn``) and Ulysses (two all-to-alls per layer around one
+    flash call), each with the CP launch counters zeroed just before and
+    read just after (its kernel > 0), timed (first and warm call) and
+    profiled (device busy, attention's share, the ring's rotation or the
+    all-to-all's share), its argmax held to the world-1 forward's at the
+    dense gates.  Returns each scheme's launch counts."""
+    import torch
+
+    from triton_dist_tpu_torch.models import cp, llama
+
+    rng = np.random.default_rng(17)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(CP_SEQ, 1)),
+                          device="cuda")
+    with torch.no_grad():
+        fwd1 = llama.make_forward(cfg)
+        ref = fwd1(params, tok)
+        t0 = time.perf_counter()
+        fwd1(params, tok)
+        torch.cuda.synchronize()
+        w1_ms = (time.perf_counter() - t0) * 1e3
+        busy1, top1 = profile_once(lambda: fwd1(params, tok), top_n=40)
+        floor = llama.make_forward(cfg, plain=True)(params, tok)
+    attn1 = sum(ms for name, _, ms in top1 if "flash_fwd" in name)
+    log(f"cp world-1 forward: {cfg.n_layers} layers, tokens [{CP_SEQ}, 1]: "
+        f"{w1_ms:.1f} ms wall, device busy {busy1:.2f} ms (idle share "
+        f"{1 - busy1 / w1_ms:.3f}), flash_fwd {attn1:.2f} ms "
+        f"({attn1 / busy1:.3f})")
+    argmax_agreement(f"cp noise floor: world-1 forward at S {CP_SEQ}, flash "
+                     f"kernel vs plain attention", floor, ref)
+    del floor
+    free_cuda()
+    launches = {}
+    for tag, attn, impl, key in (
+            ("ring auto (zigzag flash ring)", "ring", "auto",
+             "flash_fwd_seg"),
+            ("ring fused (contiguous, ring_attn)", "ring", "fused",
+             "ring_attn"),
+            ("ulysses", "ulysses", "auto", "all_to_all")):
+        fwd = cp.make_cp_forward(cfg, CP, attn=attn, impl=impl)
+        _zero_cp_counters()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits = fwd(params, tok)
+            torch.cuda.synchronize()
+            t_first = (time.perf_counter() - t0) * 1e3
+        counts = _read_cp_counters()
+        launches[attn if attn == "ulysses" else impl] = counts
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            fwd(params, tok)
+            torch.cuda.synchronize()
+            t_warm = (time.perf_counter() - t0) * 1e3
+            busy, top = profile_once(lambda: fwd(params, tok), top_n=40)
+        attn_ms = sum(ms for name, _, ms in top
+                      if "flash_fwd" in name or "ring_attn" in name)
+        comm_ms = sum(ms for name, _, ms in top
+                      if "roll_cuda" in name or "a2a_" in name)
+        log(f"cp forward {tag}: CP {CP}, {cfg.n_layers} layers, tokens "
+            f"[{CP_SEQ}, 1]: first call {t_first:.1f} ms, warm "
+            f"{t_warm:.1f} ms wall (world 1: {w1_ms:.1f}); profiled: device "
+            f"busy {busy:.2f} ms (idle share {1 - busy / t_warm:.3f}), "
+            f"attention kernels {attn_ms:.2f} ms ({attn_ms / busy:.3f}), "
+            f"ring rotation / all-to-all {comm_ms:.2f} ms "
+            f"({comm_ms / busy:.3f}); launches {counts}")
+        for name, n, ms in top[:10]:
+            log(f"cp forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+        if counts[key] <= 0:
+            raise AssertionError(f"kernel {key} never launched by the CP "
+                                 f"forward ({tag})")
+        if tuple(logits.shape) != (CP_SEQ, 1, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"cp forward {tag}: bad logits")
+        exact, ties = argmax_agreement(
+            f"cp forward {tag} vs world-1 forward ({CP_SEQ} positions)",
+            logits, ref)
+        if ties < AGREE_MIN or exact < STRICT_MIN:
+            raise AssertionError(f"cp forward {tag}: agreement {exact:.4f} "
+                                 f"exact (floor {STRICT_MIN}), {ties:.4f} "
+                                 f"with near-ties (floor {AGREE_MIN})")
+        del logits
+        free_cuda()
+    del ref
+    free_cuda()
+    return launches
+
+
+def cp_train_phase():
+    """Phase 18 on its own tree (seed 0), tokens [CP_SEQ, 1] from a seed.
+    (a) CP_SGD_STEPS in-place SGD steps at 32 layers through
+    ``make_cp_train_step(cfg, CP, impl="auto", remat=True)`` (the zigzag
+    flash ring forward and its reverse ring over the segmented backward
+    kernels), the CP counters zeroed just before and read just after (the
+    segmented flash forward and both backward kernels > 0): finite,
+    falling losses, step ms, trained tokens per second, peak memory, a
+    profiled step.  ``remat``: without it a step would hold every layer's
+    activations (~2.4 GB a layer at S 8192, from phase 6's 34.87 GiB peak
+    at S 2048) beside 32 GB of weights and gradients, past the card's 80
+    GB.  (b) One Ulysses step at 32 layers (the all-to-all > 0).  (c) At 2
+    layers and CP_GRAD_SEQ positions, the loss and every gradient leaf of
+    each scheme (ring auto, ring fused, Ulysses) against the same scheme
+    over the plain versions in the same layout (1e-3, 2e-2 relative L2):
+    the plain versions hold S x S f32 scores, so this check runs at S
+    4,096.  (d) What remat saves: the peak of one 2-layer gradient at
+    CP_SEQ without and with it.  (e) One fused step at 2 layers and CP_SEQ
+    (its backward is the dense VJP, [4, 32, 2048, 2048] f32 per ring step:
+    the depth is cut, not the sequence).  Returns the launch counts of (a),
+    (b) and (e)."""
+    from dataclasses import replace
+
+    import torch
+
+    from triton_dist_tpu_torch.models import cp, llama
+    from triton_dist_tpu_torch.runtime.utils import value_and_grad
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    rng = np.random.default_rng(18)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(CP_SEQ, 1)),
+                          device="cuda")
+    tgt = torch.roll(tok, -1, dims=0)
+    params = llama.init_params(cfg, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    step = cp.make_cp_train_step(cfg, CP, impl="auto", lr=SGD_LR,
+                                 remat=True)
+    _zero_cp_counters()
+    losses, times = [], []
+    for _ in range(CP_SGD_STEPS):
+        t0 = time.perf_counter()
+        _, loss = step(params, tok, tgt)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"sgd": _read_cp_counters()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall = float(np.median(times[1:]))
+    log(f"cp train (a) SGD lr {SGD_LR}, CP {CP}, {cfg.n_layers} layers, "
+        f"tokens [{CP_SEQ}, 1], remat: losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in times]} ({CP_SEQ / wall * 1e3:.0f} trained "
+        f"tok/s), peak memory {peak:.2f} GiB; launches {launches['sgd']}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"cp train (a): losses {losses} not finite and "
+                             f"falling")
+    for n in ("flash_fwd_seg", "flash_bwd_dq_seg", "flash_bwd_dkv_seg"):
+        if launches["sgd"][n] <= 0:
+            raise AssertionError(f"kernel {n} never launched by CP training")
+    busy, top = profile_once(lambda: step(params, tok, tgt), top_n=40)
+    attn_ms = sum(ms for name, _, ms in top if "flash" in name)
+    log(f"cp train (a) profiled step: device busy {busy:.1f} ms of a "
+        f"{wall:.1f} ms step, idle share {1 - busy / wall:.3f}, flash "
+        f"kernels {attn_ms:.1f} ms ({attn_ms / busy:.3f})")
+    for name, n, ms in top[:12]:
+        log(f"cp train (a)   {ms:8.2f} ms  x{n:<5d} {name[:90]}")
+    del step
+    free_cuda()
+
+    # (b) one Ulysses step at 32 layers
+    step = cp.make_cp_train_step(cfg, CP, attn="ulysses", lr=SGD_LR,
+                                 remat=True)
+    _zero_cp_counters()
+    t0 = time.perf_counter()
+    _, loss = step(params, tok, tgt)
+    loss = float(loss)
+    u_ms = (time.perf_counter() - t0) * 1e3
+    launches["ulysses"] = _read_cp_counters()
+    log(f"cp train (b) one Ulysses SGD step, {cfg.n_layers} layers: loss "
+        f"{loss:.4f}, {u_ms:.1f} ms (a first call); launches "
+        f"{launches['ulysses']}")
+    if not np.isfinite(loss) or launches["ulysses"]["all_to_all"] <= 0:
+        raise AssertionError("cp train (b): the Ulysses step failed")
+    del params, step
+    free_cuda()
+
+    # (c) 2-layer gradients, each scheme against its plain versions
+    cfg2 = replace(cfg, n_layers=2)
+    p2 = llama.init_params(cfg2, seed=0)
+    tok2, tgt2 = tok[:CP_GRAD_SEQ], tgt[:CP_GRAD_SEQ]
+    for attn, impl in (("ring", "auto"), ("ring", "fused"),
+                       ("ulysses", "auto")):
+        zz = cp._pick_zigzag(None, attn, CP_GRAD_SEQ, CP, impl,
+                             cfg.head_dim)
+        kw = dict(world=CP, attn=attn, impl=impl, zigzag=zz)
+        loss_k, g_k = value_and_grad(cp.cp_loss, p2, tok2, tgt2, cfg2, **kw)
+        loss_p, g_p = value_and_grad(cp.cp_loss, p2, tok2, tgt2, cfg2,
+                                     plain=True, **kw)
+        rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        worst = ("", 0.0)
+        for (name, a), (_, b) in zip(named_leaves(g_k), named_leaves(g_p)):
+            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+            if not rel <= 2e-2:
+                raise AssertionError(f"cp train (c) {attn}/{impl}: gradient "
+                                     f"{name} relative L2 {rel:.3e} > 2e-2")
+            worst = max(worst, (name, rel), key=lambda x: x[1])
+        log(f"cp train (c) {attn} {impl} (zigzag {zz}), 2 layers, S "
+            f"{CP_GRAD_SEQ}, kernels vs plain versions: loss "
+            f"{float(loss_k):.6f} vs {float(loss_p):.6f} (relative "
+            f"{rel_loss:.2e}, tol 1e-3); worst gradient leaf {worst[0]} "
+            f"relative L2 {worst[1]:.3e} (tol 2e-2)")
+        if not rel_loss <= 1e-3:
+            raise AssertionError(f"cp train (c) {attn}/{impl}: loss relative "
+                                 f"{rel_loss:.2e}")
+        del g_k, g_p
+        free_cuda()
+
+    # (d) what remat saves: one 2-layer gradient at the full sequence
+    # without and with it (the peak above what was allocated before)
+    peaks = {}
+    for remat in (False, True):
+        free_cuda()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value_and_grad(cp.cp_loss, p2, tok, tgt, cfg2, world=CP, remat=remat)
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    per_layer = peaks[False] - peaks[True]
+    log(f"cp train (d) 2 layers, tokens [{CP_SEQ}, 1]: peak {peaks[False]:.2f}"
+        f" GiB above the weights without remat, {peaks[True]:.2f} GiB with "
+        f"it: ~{per_layer:.2f} GiB of activations per layer, so "
+        f"{cfg.n_layers} layers without remat would hold "
+        f"~{per_layer * cfg.n_layers:.1f} GiB beside the 29.9 GiB of weights "
+        f"and gradients")
+    free_cuda()
+
+    # (e) the fused kernel's step at 2 layers, full sequence
+    torch.cuda.reset_peak_memory_stats()
+    step = cp.make_cp_train_step(cfg2, CP, impl="fused", lr=SGD_LR)
+    _zero_cp_counters()
+    t0 = time.perf_counter()
+    _, loss = step(p2, tok, tgt)
+    loss = float(loss)
+    f_ms = (time.perf_counter() - t0) * 1e3
+    launches["fused"] = _read_cp_counters()
+    log(f"cp train (e) one fused-ring SGD step, 2 layers, tokens "
+        f"[{CP_SEQ}, 1]: loss {loss:.4f}, {f_ms:.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{launches['fused']}")
+    if not np.isfinite(loss) or launches["fused"]["ring_attn"] <= 0:
+        raise AssertionError("cp train (e): the fused step failed")
+    del p2, step
+    free_cuda()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3145,10 +3655,19 @@ def main() -> int:
     w8_launches, _ = w8a8_tp_phase(cfg, params)
     launches["ag_gemm_i8"] = w8_launches["ag_gemm_i8"]
     heads_launches = heads_phase(cfg, params)
-    del params
     free_cuda()
     log(f"w8a8 tp and heads serving done at "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # phase 17: the context-parallel forward on phase 4's weights; the
+    # segmented flash forward's count comes from its zigzag flash ring,
+    # ring_attn's from its fused forward
+    cp_fwd = cp_forward_phase(cfg, params)
+    launches.update(flash_fwd_seg=cp_fwd["auto"]["flash_fwd_seg"],
+                    ring_attn=cp_fwd["fused"]["ring_attn"])
+    del params
+    free_cuda()
+    log(f"cp forward done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 6: training; the backward kernels' counts come from it (the
     # flash_fwd row keeps the serving path's count, printed beside)
@@ -3157,6 +3676,13 @@ def main() -> int:
                     flash_bwd_dkv=trained["flash_bwd_dkv"])
 
     log(f"training done at {time.perf_counter() - t_start:.1f} s")
+
+    # phase 18: context-parallel training on its own tree; the segmented
+    # backward kernels' counts come from its SGD steps
+    cp_train = cp_train_phase()
+    launches.update(flash_bwd_dq_seg=cp_train["sgd"]["flash_bwd_dq_seg"],
+                    flash_bwd_dkv_seg=cp_train["sgd"]["flash_bwd_dkv_seg"])
+    log(f"cp training done at {time.perf_counter() - t_start:.1f} s")
 
     # phases 7-10b: the MoE family; each grouped-GEMM mode's count comes
     # from the phase that drives it, the EP-4 counts ride along
@@ -3205,7 +3731,18 @@ def main() -> int:
            "ag_gemm_i8": ("triton_dist_tpu_torch/csrc/ag_gemm.cu",
                           "triton_dist_tpu/kernels/allgather_gemm.py:240"),
            "sp_combine": ("triton_dist_tpu_torch/csrc/sp_combine.cu",
-                          "triton_dist_tpu/kernels/flash_decode.py:851")}
+                          "triton_dist_tpu/kernels/flash_decode.py:851"),
+           # the segmented (zigzag) mode of rows 1 and 6
+           "flash_fwd_seg": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
+                             "triton_dist_tpu/kernels/flash_attention.py:116"),
+           "flash_bwd_dq_seg": (
+               "triton_dist_tpu_torch/csrc/flash_bwd.cu",
+               "triton_dist_tpu/kernels/flash_attention.py:347"),
+           "flash_bwd_dkv_seg": (
+               "triton_dist_tpu_torch/csrc/flash_bwd.cu",
+               "triton_dist_tpu/kernels/flash_attention.py:388"),
+           "ring_attn": ("triton_dist_tpu_torch/csrc/ring_attn.cu",
+                         "triton_dist_tpu/kernels/ring_attention.py:409")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -3229,6 +3766,15 @@ def main() -> int:
                                        "matmul_i8") else {}),
                         **({"w8a8_tp_launches": w8_launches[name]}
                            if name in ("matmul_i8", "flash_fwd") else {}),
+                        **({"cp_launches": {
+                            "forward": {t: c[name] for t, c in
+                                        cp_fwd.items()},
+                            "train": {t: c[name] for t, c in
+                                      cp_train.items()}}}
+                           if name in ("flash_fwd", "flash_fwd_seg",
+                                       "flash_bwd_dq_seg",
+                                       "flash_bwd_dkv_seg", "ring_attn",
+                                       "all_to_all") else {}),
                         **{k: r[k] for k in ("m8", "t8", "shapes",
                                              "algorithm_bound_ms")
                            if k in r}})

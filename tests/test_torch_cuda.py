@@ -1437,3 +1437,275 @@ def test_sp_generator_and_engine_match_world1_at_8b_width(cuda):
     assert sorted(outs) == ["r0", "r1"]
     assert all(len(o.token_ids) == 8 for o in outs.values())
     assert used == {0, 1, 2, 3}
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: the flash kernels' segmented mode, the fused ring
+# kernel, the flash ring, Ulysses, the CP model
+# ---------------------------------------------------------------------------
+
+
+def _zig_rows(world, b, s_loc, step):
+    """The folded batch's per-row run starts at ring step ``step`` (rank
+    r's q against rank r - step's zigzag block)."""
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    return ra._fold_starts(world, b, s_loc, True, step)
+
+
+SEG_CASES = [
+    # (world, b, Hq, Hkv, S_loc, step, window, cap): the W ranks of one
+    # zigzag ring step folded into the batch (two runs per side)
+    (4, 1, 8, 2, 512, 0, 0, 0.0),
+    (4, 1, 8, 2, 512, 1, 0, 0.0),
+    (4, 2, 8, 2, 256, 3, 0, 0.0),
+    (2, 1, 16, 4, 384, 1, 200, 20.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_flash_segmented_fwd_bwd_match_plain(cuda, case):
+    """The segmented mode (per-batch-row block-start vectors) of
+    flash_fwd, dq and dkv against the plain versions on the same per-row
+    run starts: out 2e-2 / lse 1e-3, f32 gradients by the bf16 gradient
+    rule; one launch each; rows that see no key of the block (the late
+    chunk's keys against the early chunk's rows) give out 0, lse NEG_INF
+    and zero gradients."""
+    world, b, Hq, Hkv, S, step, window, cap = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    B = world * b
+    q = _randn(g, (B, Hq, S, 128), cuda)
+    k = _randn(g, (B, Hkv, S, 128), cuda)
+    v = _randn(g, (B, Hkv, S, 128), cuda)
+    do = _randn(g, (B, Hq, S, 128), cuda)
+    kw = dict(causal=True, q_offset=_zig_rows(world, b, S, 0),
+              kv_offset=_zig_rows(world, b, S, step), window=window,
+              soft_cap=cap)
+    n0 = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+          fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                 grad_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in n0)
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, **kw)
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+    dead = ref_lse <= fd.NEG_INF / 2
+    assert torch.all(lse[dead] <= fd.NEG_INF / 2)
+    assert torch.all(out[dead] == 0)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
+        assert gt.dtype == torch.float32
+        if wt.abs().max() > 0:
+            _rel_close(gt, wt, name)
+        else:
+            assert torch.all(gt == 0), name
+
+
+def _ring_close(got, want):
+    """A ring's output [W, S_loc, B, H, hd] against the dense ring's:
+    within OUT_TOL absolute, and by the bf16 rule of :func:`_rel_close`
+    over each (rank, batch, head, 64-row block).  There is no lse to hold
+    it to, and a row that sees n unit-scale keys has |out| ~ sqrt(e / n),
+    near OUT_TOL itself at Llama-3-8B CP 4: a dropped key tile shows only
+    in the relative rule."""
+    _close(got, want, OUT_TOL)
+    _rel_close(*(x.permute(0, 2, 3, 1, 4).flatten(0, 1) for x in (got, want)),
+               "ring out")
+
+
+def _ring_inputs(g, dev, world, s_loc, b, hq, hkv):
+    return (_randn(g, (world, s_loc, b, hq, 128), dev),
+            _randn(g, (world, s_loc, b, hkv, 128), dev),
+            _randn(g, (world, s_loc, b, hkv, 128), dev))
+
+
+RING_ATTN_CASES = [
+    # (world, S_loc, B, Hq, Hkv, causal, window, cap, zigzag)
+    (4, 256, 1, 8, 2, True, 0, 0.0, False),
+    (4, 256, 1, 8, 2, False, 0, 0.0, False),
+    (2, 256, 2, 8, 2, True, 300, 15.0, False),
+    (4, 256, 1, 8, 2, True, 0, 0.0, True),
+    (2, 384, 1, 16, 4, True, 0, 0.0, True),
+    (4, 100, 1, 8, 2, True, 0, 0.0, False),    # a row tail that does not tile
+    (4, 512, 1, 32, 8, True, 0, 0.0, True),    # Llama-3-8B's heads
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RING_ATTN_CASES)
+def test_ring_attn_matches_plain(cuda, case):
+    """The fused ring kernel (one cooperative launch over W ranks, the KV
+    blocks through the workspace's slots) against its plain version, the
+    dense ring, within 2e-2 (bf16 out; the kernel rounds P to bf16) and by
+    the relative rule of :func:`_ring_close`."""
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    world, s_loc, b, hq, hkv, causal, window, cap, zz = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    q, k, v = _ring_inputs(g, cuda, world, s_loc, b, hq, hkv)
+    kw = dict(causal=causal, window=window, soft_cap=cap, zigzag=zz)
+    n0 = ra.ring_attn.launches
+    got = ra.ring_attn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ra.ring_attn.launches == n0 + 1
+    want = ra._ring_attention_dense(q, k, v, scale=128 ** -0.5, **kw)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _ring_close(got, want)
+
+
+@pytest.mark.gpu
+def test_ring_attn_ten_calls_in_a_row(cuda):
+    """Ten calls back to back on new inputs, each checked: every call's
+    epoch passes only its own arrivals, so slot reuse across calls shows."""
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    g = np.random.default_rng(77)
+    for i in range(10):
+        q, k, v = _ring_inputs(g, cuda, 4, 256, 1, 8, 2)
+        got = ra.ring_attn(q, k, v, zigzag=bool(i % 2))
+        want = ra._ring_attention_dense(q, k, v, causal=True,
+                                        scale=128 ** -0.5,
+                                        zigzag=bool(i % 2))
+        _ring_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,zigzag", [("flash", True), ("flash", False),
+                                         ("fused", True)])
+def test_ring_attention_grads_match_plain(cuda, impl, zigzag):
+    """``ring_attention_shard`` under autograd against the dense ring's
+    (plain) autograd: the flash ring (W flash launches forward, W dq and
+    dkv launches backward) and the fused kernel (one launch; its backward
+    is the dense VJP), outputs by :func:`_ring_close`, gradients by the
+    bf16 rule."""
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    g = np.random.default_rng(31 + zigzag)
+    world = 4
+    q, k, v = (t.requires_grad_() for t in _ring_inputs(g, cuda, world, 256,
+                                                        1, 8, 2))
+    w = _randn(g, tuple(q.shape), cuda)
+    n0 = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+          ra.ring_attn.launches)
+    out = ra.ring_attention_shard(q, k, v, impl=impl, zigzag=zigzag)
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    moved = (fa.flash_attention.launches - n0[0],
+             fa.flash_bwd_dq.launches - n0[1], ra.ring_attn.launches - n0[2])
+    assert moved == ((world, world, 0) if impl == "flash" else (0, 0, 1))
+    ref = ra.ring_attention_shard(q, k, v, zigzag=zigzag, plain=True)
+    want = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+    _ring_close(out.detach(), ref.detach())
+    for gt, wt, name in zip(got, want, "qkv"):
+        _rel_close(gt.flatten(0, 1), wt.flatten(0, 1), "d" + name,
+                   seq_first=True)
+
+
+@pytest.mark.gpu
+def test_ring_attention_refusals(cuda):
+    """An explicit impl="flash" on a shape the flash ring does not take
+    raises (``auto`` takes the fused kernel there); ring_attn refuses a
+    CUDA graph capture (each call takes a host epoch)."""
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    g = np.random.default_rng(3)
+    q, k, v = _ring_inputs(g, cuda, 4, 100, 1, 8, 2)
+    with pytest.raises(ra.RingShapeError):
+        ra.ring_attention_shard(q, k, v, impl="flash")
+    n0 = ra.ring_attn.launches
+    ra.ring_attention_shard(q, k, v)
+    assert ra.ring_attn.launches == n0 + 1
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            ra.ring_attn(q, k, v)
+
+
+@pytest.mark.gpu
+def test_ulysses_on_the_card(cuda):
+    """Ulysses over 4 ranks: two all-to-all launches forward (two more
+    backward) and one flash call, against the plain versions (out by
+    :func:`_ring_close`, gradients by the bf16 rule)."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import ulysses_attention as ua
+
+    g = np.random.default_rng(41)
+    q, k, v = (t.requires_grad_() for t in _ring_inputs(g, cuda, 4, 256, 1,
+                                                        8, 4))
+    w = _randn(g, tuple(q.shape), cuda)
+    n0 = (a2a.fast_all_to_all_shard.launches, fa.flash_attention.launches)
+    out = ua.ulysses_attention_shard(q, k, v)
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    assert (a2a.fast_all_to_all_shard.launches - n0[0],
+            fa.flash_attention.launches - n0[1]) == (4, 1)
+    ref = ua.ulysses_attention_shard(q, k, v, plain=True)
+    want = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+    _ring_close(out.detach(), ref.detach())
+    for gt, wt, name in zip(got, want, "qkv"):
+        _rel_close(gt.flatten(0, 1), wt.flatten(0, 1), "d" + name,
+                   seq_first=True)
+
+
+@pytest.mark.gpu
+def test_cp_llama_two_layers_on_the_card(cuda):
+    """A 2-layer Llama at narrow widths (dim 1024, 8 / 4 heads of 128,
+    bf16), S 2048 over 4 ranks: ``make_cp_forward`` three ways (the
+    zigzag flash ring, the fused kernel, Ulysses) against the world-1
+    forward (logits relative L2 within 2e-2), then one SGD step of each
+    scheme with a finite loss, the gradients against the plain versions'
+    within 2e-2 relative L2 per leaf."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+    from triton_dist_tpu_torch.models import cp, llama
+    from triton_dist_tpu_torch.runtime.utils import (
+        tree_leaves,
+        use_full_precision_matmul,
+        value_and_grad,
+    )
+
+    use_full_precision_matmul()
+    cfg = replace(llama.LlamaConfig.tiny(torch.bfloat16), vocab=4096,
+                  max_seq=2048)
+    params = llama.init_params(cfg, seed=0)
+    tok = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(2048, 1)), device=cuda)
+    with torch.no_grad():
+        ref = llama.make_forward(cfg)(params, tok)
+        for attn, impl in (("ring", "auto"), ("ring", "fused"),
+                           ("ulysses", "auto")):
+            n0 = (fa.flash_attention.launches, ra.ring_attn.launches)
+            got = cp.make_cp_forward(cfg, 4, attn=attn, impl=impl)(params,
+                                                                   tok)
+            moved = (fa.flash_attention.launches - n0[0],
+                     ra.ring_attn.launches - n0[1])
+            expect = {("ring", "auto"): (8, 0), ("ring", "fused"): (0, 2),
+                      ("ulysses", "auto"): (2, 0)}[attn, impl]
+            assert moved == expect, (attn, impl, moved)
+            rel = ((got - ref).norm() / ref.norm()).item()
+            assert rel <= 2e-2, (attn, impl, rel)
+    tgt = torch.roll(tok, -1, 0)
+    for attn, impl in (("ring", "auto"), ("ring", "fused"),
+                       ("ulysses", "auto")):
+        step = cp.make_cp_train_step(cfg, 4, attn=attn, impl=impl, lr=0.0)
+
+        def loss(p, t, y, plain=False):
+            zz = cp._pick_zigzag(None, attn, 2048, 4, impl, 128)
+            if zz:
+                t, y = ra.to_zigzag(t, 4), ra.to_zigzag(y, 4)
+            lg = cp.cp_forward_shard(p, t.reshape(4, 512, 1), cfg,
+                                     attn=attn, impl=impl, plain=plain,
+                                     zigzag=zz)
+            return torch.nn.functional.cross_entropy(
+                lg.reshape(-1, cfg.vocab), y.reshape(-1))
+
+        _, l_k = step(params, tok, tgt)
+        assert np.isfinite(float(l_k))
+        _, g_k = value_and_grad(loss, params, tok, tgt)
+        _, g_p = value_and_grad(loss, params, tok, tgt, plain=True)
+        for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
+            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+            assert rel <= 2e-2, (attn, impl, rel)

@@ -48,7 +48,10 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.runtime.bootstrap",
             "triton_dist_tpu_torch.runtime.symm_mem",
             "triton_dist_tpu_torch.serve.mesh",
-            "triton_dist_tpu_torch.models.llama_w8a8"} <= set(mods)
+            "triton_dist_tpu_torch.models.llama_w8a8",
+            "triton_dist_tpu_torch.kernels.ring_attention",
+            "triton_dist_tpu_torch.kernels.ulysses_attention",
+            "triton_dist_tpu_torch.models.cp"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -397,3 +400,37 @@ def test_w8a8_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
     meta = torch.empty((2, 64, 64), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         agm.ag_gemm_i8(meta, meta)
+
+
+def test_cp_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """The fused ring kernel's wrapper and the flash ring run their plain
+    versions on CPU tensors without counting a launch (of ring_attn, the
+    flash kernels or the all-to-all) and refuse other devices; an unknown
+    ring algorithm is refused; the CP contexts default to the card."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+    from triton_dist_tpu_torch.kernels import ulysses_attention as ua
+
+    rng = np.random.default_rng(7)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 128, 1, h, 128))
+                             .astype(np.float32)) for h in (4, 2))
+    counters = (ra.ring_attn, fa.flash_attention, fa.flash_bwd_dq,
+                a2a.fast_all_to_all_shard)
+    n0 = [fn.launches for fn in counters]
+    dense = ra.ring_attention_shard(q, k, k, plain=True)
+    assert torch.equal(ra.ring_attn(q, k, k), dense)
+    flash = ra.ring_attention_shard(q, k, k, impl="flash")
+    assert (flash - dense).abs().max() < 1e-5
+    ua.ulysses_attention_shard(q, k, k)
+    assert [fn.launches for fn in counters] == n0
+    meta = torch.empty((2, 128, 1, 4, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ra.ring_attn(meta, meta, meta)
+    with pytest.raises(ValueError, match="impl"):
+        ra.ring_attention_shard(q, k, k, impl="pallas")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ra.create_ring_attention_context(4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ua.create_ulysses_context(4)

@@ -106,18 +106,27 @@ def test_flash_plain_matches_pallas(name):
 
 
 def test_flash_gqa_layout_and_unported_options():
-    """The [S, B, H, D] wrapper and the loud refusals of what this slice
-    does not port (segmented offsets, int8 K/V)."""
+    """The [S, B, H, D] wrapper, and the offsets the port once refused:
+    run-start tuples (segmented layouts) now give the reference's dense
+    ``_flash_xla`` with the same tuples (f32, 2e-5); rows that do not
+    split into the runs are refused loudly."""
     q, k, v = _inputs(3, (64, 2, 4, D), (64, 2, 2, D), (64, 2, 2, D))
     got = tfa.flash_gqa_attention(_t(q), _t(k), _t(v))
     want = jfa.flash_gqa_attention(jnp.asarray(q), jnp.asarray(k),
                                    jnp.asarray(v), impl="xla")
     assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
-    qt = _t(q).permute(1, 2, 0, 3)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(qt, qt, qt, q_offset=(0, 32))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(qt, qt, qt, kv_offset=(0, 32))
+    qt, kt = (_t(x).permute(1, 2, 0, 3) for x in (q, k))
+    for qo, ko in (((0, 32), 0), (0, (0, 32)), ((32, 0), (16, 48))):
+        got, lse = tfa.flash_attention(qt, kt, kt, q_offset=qo,
+                                       kv_offset=ko, return_lse=True)
+        want, wlse = jfa._flash_xla(
+            jnp.asarray(qt.numpy()), jnp.asarray(kt.numpy()),
+            jnp.asarray(kt.numpy()), causal=True, scale=1.0 / np.sqrt(D),
+            q_offset=qo, kv_offset=ko)
+        assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
+        assert_allclose(lse, np.asarray(wlse), atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError, match="equal runs"):
+        tfa.flash_attention(qt, qt, qt, q_offset=(0, 32, 64))
 
 
 DECODE_CASES = {
@@ -1701,3 +1710,245 @@ def test_sp_flash_attention_plain_matches_pallas(q_offset, window, dead,
         q_offset=q_offset, window=window)
     assert torch.all(lses[dead] == tfd.NEG_INF)
     assert torch.all(outs[dead] == 0)
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: segmented flash, ring attention, Ulysses
+# ---------------------------------------------------------------------------
+
+jra = importlib.import_module("triton_dist_tpu.kernels.ring_attention")
+jua = importlib.import_module("triton_dist_tpu.kernels.ulysses_attention")
+GRAD_TOL = 5e-4
+
+
+SEG_CASES = {
+    # name: (q_offset, kv_offset, window, soft_cap): Sq = Sk = 256 in two
+    # runs of 128 (a zigzag shard's two chunks against another block's)
+    "zigzag_own": ((0, 896), (0, 896), 0, 0.0),
+    "zigzag_peer": ((256, 640), (128, 768), 0, 0.0),
+    "window_cap": ((256, 640), (384, 512), 300, 9.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEG_CASES))
+def test_flash_segmented_plain_matches_pallas(name):
+    """The segmented mode (run-start tuples) of ``flash_attention_ref``
+    and ``flash_attention_bwd_ref`` against the reference's Pallas
+    ``_flash_kernel`` and ``_flash_bwd_pallas`` (dq and dkv kernels) with
+    the same tuples, in interpret mode: Sq 256 in two runs of 128, f32,
+    forward 2e-5, gradients (``grad_dtype`` f32, the ring's) 5e-5; rows
+    that see no key give out 0 and lse NEG_INF on both sides."""
+    qo, ko, window, cap = SEG_CASES[name]
+    B, Hq, Hkv, S = 1, 4, 2, 256
+    q, k, v, do = _inputs(70 + len(name), (B, Hq, S, D), (B, Hkv, S, D),
+                          (B, Hkv, S, D), (B, Hq, S, D))
+    kw = dict(causal=True, q_offset=qo, kv_offset=ko, window=window,
+              soft_cap=cap)
+    j_out, j_lse = jfa.flash_attention(q, k, v, return_lse=True,
+                                       impl="pallas", interpret=True, **kw)
+    t_out, t_lse = tfa.flash_attention(_t(q), _t(k), _t(v), return_lse=True,
+                                       **kw)
+    assert_allclose(t_out, np.asarray(j_out), atol=TOL, rtol=TOL)
+    assert_allclose(t_lse, np.asarray(j_lse), atol=TOL, rtol=TOL)
+    scale = 1.0 / np.sqrt(D)
+    want = jfa._flash_bwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), j_out, j_lse,
+        jnp.asarray(do), qo, ko, True, scale, True, soft_cap=cap,
+        window=window, grad_dtype=jnp.float32)
+    got = tfa.flash_attention_bwd(_t(q), _t(k), _t(v), t_out, t_lse, _t(do),
+                                  grad_dtype=torch.float32, **kw)
+    for g, j in zip(got, want):
+        assert g.dtype == torch.float32
+        assert_allclose(g, np.asarray(j), atol=5e-5, rtol=5e-5)
+
+
+def test_flash_per_row_offsets_match_rowwise_calls():
+    """The port's fold of ranks into the batch: one call with per-batch-
+    row run starts equals one call per row with that row's starts (the
+    plain versions), forward and gradients, exactly."""
+    q, k, v, do = (_t(x) for x in _inputs(77, (3, 4, 256, D), (3, 2, 256, D),
+                                          (3, 2, 256, D), (3, 4, 256, D)))
+    rows_q = ((0, 896), (128, 768), (256, 640))
+    rows_k = ((256, 640), (0, 896), (512, 384))
+    out, lse = tfa.flash_attention(q, k, v, q_offset=rows_q,
+                                   kv_offset=rows_k, return_lse=True)
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, q_offset=rows_q,
+                                    kv_offset=rows_k)
+    for b in range(3):
+        sl = slice(b, b + 1)
+        o_b, l_b = tfa.flash_attention(q[sl], k[sl], v[sl],
+                                       q_offset=rows_q[b],
+                                       kv_offset=rows_k[b], return_lse=True)
+        assert torch.equal(o_b, out[sl]) and torch.equal(l_b, lse[sl])
+        g_b = tfa.flash_attention_bwd(q[sl], k[sl], v[sl], o_b, l_b, do[sl],
+                                      q_offset=rows_q[b],
+                                      kv_offset=rows_k[b])
+        for x, y in zip(g_b, grads):
+            assert_allclose(x, y[sl], atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="per-row"):
+        tfa.flash_attention(q, k, v, q_offset=rows_q[:2])
+
+
+def _ring_qkv(seed, S, B=2, Hq=4, Hkv=2, hd=D):
+    return _inputs(seed, (S, B, Hq, hd), (S, B, Hkv, hd), (S, B, Hkv, hd))
+
+
+def _port_ring(q, k, v, world, **kw):
+    """The port's host entry ``ring_attention`` on CPU tensors."""
+    from triton_dist_tpu_torch.kernels import ring_attention as tra
+
+    plain = kw.pop("plain", False)
+    ctx = tra.create_ring_attention_context(world, axis="tp", device="cpu",
+                                            plain=plain, **kw)
+    return tra.ring_attention(_t(q), _t(k), _t(v), ctx)
+
+
+RING_CASES = {
+    # name: (causal, window, soft_cap, zigzag) at S 32 over mesh4
+    "causal": (True, 0, 0.0, False),
+    "full": (False, 0, 0.0, False),
+    "window_cap": (True, 19, 7.0, False),
+    "zigzag": (True, 0, 0.0, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RING_CASES))
+def test_ring_attention_matches_pallas_kernel(name, mesh4):
+    """The port's dense ring (``plain``) and fused ring (``impl="fused"``:
+    ``ring_attn``'s plain version on CPU tensors) against the reference's
+    ``impl="pallas"`` in interpret mode (the TPU ``_ring_attn_kernel``
+    itself) on mesh4: S 32 (8 positions per rank), hd 128, causal and
+    not, window S/2 + 3 with cap 7, zigzag; f32 within 2e-5."""
+    causal, window, cap, zigzag = RING_CASES[name]
+    q, k, v = _ring_qkv(80 + len(name), 32)
+    kw = dict(causal=causal, window=window, soft_cap=cap, zigzag=zigzag)
+    ctx = jra.create_ring_attention_context(mesh4, axis="tp", impl="pallas",
+                                            interpret=True, **kw)
+    want = np.asarray(jra.ring_attention(q, k, v, ctx))
+    for impl, plain in (("fused", False), ("auto", True)):
+        got = _port_ring(q, k, v, 4, impl=impl, plain=plain, **kw)
+        assert got.shape == q.shape
+        assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+def test_flash_ring_matches_pallas_flash_ring(mesh4):
+    """The port's flash ring (``impl="flash"``: per step one flash call
+    over every rank with per-row offsets) against the reference's
+    ``impl="flash"`` in interpret mode on mesh4, S 512 (128 per rank),
+    causal; f32 within 2e-5; the dense ring agrees too."""
+    q, k, v = _ring_qkv(91, 512, B=1)
+    ctx = jra.create_ring_attention_context(mesh4, axis="tp", impl="flash",
+                                            interpret=True)
+    want = np.asarray(jra.ring_attention(q, k, v, ctx))
+    for kw in (dict(impl="flash"), dict(plain=True)):
+        assert_allclose(_port_ring(q, k, v, 4, **kw), want, atol=TOL,
+                        rtol=TOL)
+
+
+def _jax_ring_grads(q, k, v, w, mesh, **kw):
+    import functools
+
+    from jax.sharding import PartitionSpec as P
+
+    fn = jax.shard_map(functools.partial(jra.ring_attention_shard, axis="tp",
+                                         **kw),
+                       mesh=mesh, in_specs=(P("tp"),) * 3, out_specs=P("tp"),
+                       check_vma=False)
+    return jax.jit(jax.grad(lambda q_, k_, v_: jnp.sum(fn(q_, k_, v_) * w),
+                            argnums=(0, 1, 2)))(jnp.asarray(q),
+                                                jnp.asarray(k),
+                                                jnp.asarray(v))
+
+
+@pytest.mark.parametrize("S,impl,zigzag", [(32, "xla", False),
+                                           (32, "xla", True),
+                                           (512, "flash", False)])
+def test_ring_attention_grads_match_reference(S, impl, zigzag, mesh4):
+    """Gradients of every port algorithm (the dense ring under autograd,
+    the fused kernel's Function whose backward is the dense VJP, and at
+    S 512 the flash ring's reverse ring over the flash backward kernels)
+    against ``jax.grad`` of the reference's ``ring_attention_shard``
+    (``impl="xla"``, or ``"flash"`` in interpret mode) on mesh4, under a
+    non-uniform cotangent; f32 within 5e-4."""
+    from triton_dist_tpu_torch.kernels import ring_attention as tra
+
+    q, k, v = _ring_qkv(95 + S, S, B=1)
+    if zigzag:
+        q, k, v = (np.asarray(jra.to_zigzag(jnp.asarray(x), 4))
+                   for x in (q, k, v))
+    w = _inputs(96, q.shape)[0]
+    want = _jax_ring_grads(q, k, v, w, mesh4, impl=impl, zigzag=zigzag,
+                           interpret=impl != "xla")
+    algos = [dict(plain=True), dict(impl="fused")]
+    if S == 512:
+        algos.append(dict(impl="flash"))
+    for kw in algos:
+        x = [_t(a).reshape(4, S // 4, *a.shape[1:]).requires_grad_()
+             for a in (q, k, v)]
+        out = tra.ring_attention_shard(*x, zigzag=zigzag, **kw)
+        got = torch.autograd.grad((out.reshape(q.shape) * _t(w)).sum(), x)
+        for g, j in zip(got, want):
+            assert_allclose(g.reshape(j.shape), np.asarray(j),
+                            atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_zigzag_indices_round_trip():
+    """zigzag_indices equal the reference's; to_zigzag / from_zigzag are
+    inverse permutations and agree with the reference's on a global
+    array; a sequence that does not split into 2W chunks is refused."""
+    from triton_dist_tpu_torch.kernels import ring_attention as tra
+
+    for S, w in ((32, 4), (48, 2), (8192, 4)):
+        assert np.array_equal(tra.zigzag_indices(S, w),
+                              jra.zigzag_indices(S, w))
+    x = _inputs(97, (32, 3))[0]
+    z = tra.to_zigzag(_t(x), 4)
+    assert torch.equal(z, _t(np.asarray(jra.to_zigzag(jnp.asarray(x), 4))))
+    assert torch.equal(tra.from_zigzag(z, 4), _t(x))
+    with pytest.raises(ValueError, match="2\\*world"):
+        tra.zigzag_indices(30, 4)
+
+
+def _ulysses_jax(q, k, v, mesh, w=None):
+    import functools
+
+    from jax.sharding import PartitionSpec as P
+
+    fn = jax.shard_map(functools.partial(jua.ulysses_attention_shard,
+                                         axis="tp", impl="xla"),
+                       mesh=mesh, in_specs=(P("tp"),) * 3, out_specs=P("tp"),
+                       check_vma=False)
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    if w is None:
+        return np.asarray(jax.jit(fn)(*args))
+    return jax.jit(jax.grad(lambda *a: jnp.sum(fn(*a) * w),
+                            argnums=(0, 1, 2)))(*args)
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_ulysses_matches_reference(plain, mesh4):
+    """``ulysses_attention_shard`` (two all-to-alls, one attention call
+    over every rank's heads) and its host entry against the reference's
+    ``impl="xla"`` on mesh4: S 64, B 2, Hq 8 / Hkv 4 (2 / 1 per rank),
+    forward 2e-5 and gradients 5e-4; heads that do not divide by W are
+    refused."""
+    from triton_dist_tpu_torch.kernels import ulysses_attention as tua
+
+    q, k, v = _ring_qkv(98, 64, Hq=8, Hkv=4)
+    want = _ulysses_jax(q, k, v, mesh4)
+    ctx = tua.create_ulysses_context(4, axis="tp", device="cpu", plain=plain)
+    got = tua.ulysses_attention(_t(q), _t(k), _t(v), ctx)
+    assert_allclose(got, want, atol=TOL, rtol=TOL)
+    w = _inputs(99, q.shape)[0]
+    jg = _ulysses_jax(q, k, v, mesh4, w)
+    x = [_t(a).reshape(4, 16, *a.shape[1:]).requires_grad_()
+         for a in (q, k, v)]
+    out = tua.ulysses_attention_shard(*x, plain=plain)
+    got = torch.autograd.grad((out.reshape(q.shape) * _t(w)).sum(), x)
+    for g, j in zip(got, jg):
+        assert_allclose(g.reshape(j.shape), np.asarray(j), atol=GRAD_TOL,
+                        rtol=GRAD_TOL)
+    q3, k3, v3 = (_t(a).reshape(4, 16, *a.shape[1:])
+                  for a in _ring_qkv(98, 64, Hq=6, Hkv=2))
+    with pytest.raises(ValueError, match="divisible by world"):
+        tua.ulysses_attention_shard(q3, k3, v3)

@@ -25,6 +25,13 @@
   ``make_forward`` / ``make_grads`` / ``make_train_step`` and its
   capacity-truncated forward at the same tolerances; world-1 routes
   replayed at 4 ranks; ``examples/train.py --model moe --tp 4``.
+- Context parallelism (``models/cp.py``) over 4 ranks: ``make_cp_forward``
+  (ring contiguous, ring zigzag, Ulysses; at S 1024 the zigzag flash ring)
+  and ``make_cp_train_step`` against ``triton_dist_tpu.models.cp`` with
+  ``impl="xla"`` on a four-device ``cp`` mesh and the same weights
+  (``params_from_jax``): logits within 2e-5, the loss within 1e-5 and
+  every updated leaf within 5e-4; remat equals no remat, CP equals the
+  port's world-1 forward (5e-4, the reference's CP-vs-unsharded bound).
 """
 
 import os
@@ -43,10 +50,13 @@ import torch
 import torch.nn.functional as F
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from triton_dist_tpu.models import cp as jcp
 from triton_dist_tpu.models import llama as jllama
 from triton_dist_tpu.models import moe as jmoe
 from triton_dist_tpu.models import training as jtraining
 from triton_dist_tpu_torch.kernels import group_gemm as tgg
+from triton_dist_tpu_torch.kernels import ring_attention as tra
+from triton_dist_tpu_torch.models import cp as tcp
 from triton_dist_tpu_torch.models import llama as tllama
 from triton_dist_tpu_torch.models import moe as tmoe
 from triton_dist_tpu_torch.models import training as ttraining
@@ -541,11 +551,13 @@ def test_train_cli_tp4_runs(capsys):
 
 def test_train_cli_refuses_unported_tp_options(capsys):
     """--dp (checked first) and AdamW at --tp > 1 raise, each naming its
-    ROADMAP item; the MoE family at --tp 2 runs."""
+    ROADMAP entry (both now Queue 1's fifth, items 14 and 15); the MoE
+    family at --tp 2 runs."""
     from triton_dist_tpu_torch.examples import train
 
     for flags, item in ((["--tp", "4", "--dp", "2"], "items 14 and 15"),
-                        (["--tp", "4", "--opt", "adamw"], "item 14")):
+                        (["--tp", "4", "--opt", "adamw"],
+                         "items 14 and 15, the fifth entry")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
     train.main(["--device", "cpu", "--model", "moe", "--tp", "2", "--steps",
@@ -693,3 +705,120 @@ def test_train_cli_moe_tp4_runs(capsys):
     losses = [float(line.split()[3]) for line in out.splitlines()
               if line.startswith("step")]
     assert len(losses) == 3 and losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: CP 4 on the virtual world
+# ---------------------------------------------------------------------------
+
+
+def _mesh_cp():
+    return Mesh(np.array(jax.devices()[:4]), ("cp",))
+
+
+@pytest.fixture(scope="module")
+def cp_pair():
+    """(jax cfg, jax params, port cfg, port params): ``LlamaConfig.tiny()``
+    weights in both packages (the port's tree is the world-1 tree, which
+    ``place_cp_params`` keeps as it is)."""
+    jcfg = jllama.LlamaConfig.tiny()
+    jparams = jllama.init_params(jcfg, jax.random.key(21))
+    tcfg = tllama.LlamaConfig.tiny()
+    tparams = tllama.params_from_jax(jax.device_get(jparams), tcfg,
+                                     device="cpu")
+    assert tcp.place_cp_params(tparams, tcfg, 4) is tparams
+    return jcfg, jparams, tcfg, tparams
+
+
+def _cp_tokens(vocab, S=64, B=2, seed=22):
+    tok = np.random.default_rng(seed).integers(0, vocab, size=(S, B))
+    return tok, np.roll(tok, -1, axis=0)
+
+
+@pytest.mark.parametrize("attn,zigzag,S", [("ring", False, 64),
+                                           ("ring", True, 64),
+                                           ("ulysses", None, 64),
+                                           ("ring", None, 1024)])
+def test_cp_forward_matches_reference(cp_pair, attn, zigzag, S):
+    """make_cp_forward over 4 ranks against the reference's on a
+    four-device ``cp`` mesh (``impl="xla"``, zigzag as asked; at S 1024
+    the port's auto rule takes the zigzag flash ring, the reference runs
+    its dense ring in the same layout), logits f32 within 2e-5."""
+    jcfg, jparams, tcfg, tparams = cp_pair
+    tok, _ = _cp_tokens(jcfg.vocab, S=S, B=2 if S == 64 else 1)
+    mesh = _mesh_cp()
+    jz = zigzag
+    if S == 1024:
+        assert tcp._pick_zigzag(None, "ring", S, 4, "auto", 128)
+        jz = True
+    want = jcp.make_cp_forward(jcfg, mesh, attn=attn, impl="xla",
+                               interpret=True, zigzag=jz)(
+        jcp.place_cp_params(jparams, jcfg, mesh), jnp.asarray(tok))
+    with torch.no_grad():
+        got = tcp.make_cp_forward(tcfg, 4, attn=attn, zigzag=zigzag)(
+            tparams, torch.as_tensor(tok))
+    assert got.dtype == torch.float32 and got.shape == tuple(want.shape)
+    assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("attn,zigzag", [("ring", True), ("ulysses", None)])
+def test_cp_sgd_step_matches_reference(cp_pair, attn, zigzag):
+    """One in-place SGD step of make_cp_train_step over 4 ranks against
+    the reference's on the ``cp`` mesh (``impl="xla"``): the loss within
+    1e-5 and every updated leaf (each the world-1 tree's, its gradient
+    summed over the ranks) within 5e-4; the weights moved."""
+    jcfg, jparams, tcfg, _ = cp_pair
+    tok, tgt = _cp_tokens(jcfg.vocab, seed=23)
+    mesh = _mesh_cp()
+    jstep, _ = jcp.make_cp_train_step(jcfg, mesh, attn=attn, impl="xla",
+                                      interpret=True, lr=0.5, zigzag=zigzag)
+    jnew, jloss = jstep(jcp.place_cp_params(jparams, jcfg, mesh),
+                        jnp.asarray(tok), jnp.asarray(tgt))
+    tparams = tllama.params_from_jax(jax.device_get(jparams), tcfg,
+                                     device="cpu")
+    same, tloss = tcp.make_cp_train_step(tcfg, 4, attn=attn, lr=0.5,
+                                         zigzag=zigzag)(
+        tparams, torch.as_tensor(tok), torch.as_tensor(tgt))
+    assert same is tparams
+    assert_allclose(tloss, np.asarray(jloss), atol=1e-5, rtol=1e-5)
+    _assert_params_close(tparams, jnew)
+    before = tllama.params_from_jax(jax.device_get(jparams), tcfg,
+                                    device="cpu")
+    moved = max(float((a.detach() - b).abs().max()) for a, b in zip(
+        tree_leaves(tparams), tree_leaves(before)))
+    assert moved > 1e-3
+
+
+def test_cp_remat_and_world1(cp_pair):
+    """``remat=True`` (torch.utils.checkpoint per layer) gives the same
+    loss and gradients as no remat (1e-6), and the CP forward over 4
+    ranks (ring, zigzag and not; Ulysses) equals the port's world-1
+    forward within 5e-4; the dp axis and unknown schemes are refused."""
+    _, _, tcfg, tparams = cp_pair
+    tok, tgt = (torch.as_tensor(x) for x in _cp_tokens(tcfg.vocab, seed=24))
+
+    def grads(remat):
+        def loss(p, t, y):
+            lg = tcp.cp_forward_shard(p, t.reshape(4, 16, 2), tcfg,
+                                      remat=remat)
+            return F.cross_entropy(lg.reshape(-1, tcfg.vocab),
+                                   y.reshape(-1))
+        return value_and_grad(loss, tparams, tok, tgt)
+
+    (l0, g0), (l1, g1) = grads(False), grads(True)
+    assert_allclose(l1, l0, atol=1e-6, rtol=1e-6)
+    for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
+        assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+    with torch.no_grad():
+        ref = tllama.make_forward(tcfg)(tparams, tok)
+        for attn, zz in (("ring", False), ("ring", True), ("ulysses", None)):
+            got = tcp.make_cp_forward(tcfg, 4, attn=attn, zigzag=zz)(
+                tparams, tok)
+            assert_allclose(got, ref, atol=5e-4, rtol=5e-4)
+    with pytest.raises(NotImplementedError, match="items 14 and 15"):
+        tcp.make_cp_train_step(tcfg, 4, dp_axis="dp")
+    with pytest.raises(ValueError, match="attn"):
+        tcp.make_cp_forward(tcfg, 4, attn="tree")
+    with pytest.raises(ValueError, match="zigzag"):
+        tcp.make_cp_forward(tcfg, 4, attn="ulysses", zigzag=True)(
+            tparams, tok)

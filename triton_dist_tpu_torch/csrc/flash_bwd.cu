@@ -6,7 +6,11 @@
 // D], k / v [B, Hkv, Sk, D] in bf16 (any b/h/s strides, unit d stride),
 // lse and delta = rowsum(dout * out) [B, Hq, Sq] f32 contiguous; global
 // positions q_offset + i and kv_offset + j; causal, sliding window,
-// soft-cap.  Outputs are contiguous, bf16 or (out_f32) f32.  Each kernel
+// soft-cap; segmented positions by per-block start vectors qoffs / koffs
+// exactly as in flash_fwd.cu (its header: blocks of SEG = 64 rows, one
+// vector per batch row, so a ring step's ranks fold into the batch, and
+// a per-tile liveness test where the contiguous mode takes one range).
+// Outputs are contiguous, bf16 or (out_f32) f32.  Each kernel
 // recomputes P from (q, k, lse) tile by tile (`_recompute_p_ds`):
 //   P  = exp(s - lse), 0 where masked      (s = scale * q.k, soft-capped)
 //   dP = dO V^T
@@ -34,8 +38,9 @@
 //   G = Hq / Hkv heads of the group into its 64 rows (row r = g * BQ + i,
 //   BQ = 64 / G), as the forward does; each warp owns 16 rows and their
 //   16 x 128 dq accumulator.  Q and dO stay in shared memory; K / V tiles
-//   of 64 keys stream through the ring over the live key range only
-//   (`_block_live`: causal and window bounds give it directly).
+//   of 64 keys stream through the ring over the live key tiles only
+//   (`_block_live`: the closed-form range for contiguous keys, tested per
+//   tile for segmented ones).
 // - dkv: one block per (key-tile of 64, kv-head, batch); each warp owns 16
 //   keys and their dk and dv accumulators (2 x 16 x 128 f32).  The block
 //   computes the transposed tiles S^T = K Q^T and dP^T = V dO^T, so P^T
@@ -66,6 +71,7 @@ constexpr int DQ_BM = 64;      // dq: folded q rows per block (16 per warp)
 constexpr int DQ_BN = 64;      // dq: keys per streamed tile
 constexpr int KV_BN = 64;      // dkv: keys per block (16 per warp)
 constexpr int KV_BM = 32;      // dkv: folded q rows per streamed tile
+constexpr int SEG = 64;        // positions per entry of a start vector
 
 struct BwdParams {
   const bf16* q;
@@ -81,27 +87,45 @@ struct BwdParams {
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;  // dout
+  const int* qoffs;  // [B][Sq / SEG] block starts, or null (contiguous)
+  const int* koffs;  // [B][Sk / SEG]
+  long long qoffs_sb, koffs_sb;
   int q_offset, kv_offset, causal, window, out_f32;
   float scale, soft_cap;
 };
+
+// Global position of local row i of batch row b (flash_fwd.cu's rule).
+// SEGM: the segmented mode (a start vector on either side), its own
+// instantiation of each kernel, as in flash_fwd.cu; without it the
+// positions are the contiguous closed form.
+template <bool SEGM>
+__device__ inline int q_pos(const BwdParams& p, int b, int i) {
+  return SEGM && p.qoffs ? p.qoffs[b * p.qoffs_sb + i / SEG] + i % SEG
+                         : p.q_offset + i;
+}
+template <bool SEGM>
+__device__ inline int k_pos(const BwdParams& p, int b, int key) {
+  return SEGM && p.koffs ? p.koffs[b * p.koffs_sb + key / SEG] + key % SEG
+                         : p.kv_offset + key;
+}
 
 constexpr size_t DQ_SMEM = static_cast<size_t>(2 * DQ_BM + 4 * DQ_BN) * LD * 2;
 constexpr size_t KV_SMEM =
     static_cast<size_t>(2 * KV_BN + 4 * KV_BM) * LD * 2 + 4 * KV_BM * 4;
 
-// `_visibility_mask` with the ragged edges: is key `key` visible to q row
-// `i` (both local indices)?
-__device__ inline bool visible(const BwdParams& p, int i, int key) {
-  const int qpos = p.q_offset + i, kpos = p.kv_offset + key;
+// `_visibility_mask` with the ragged edges: is key `key` (at position
+// kpos) visible to q row `i` (at position qpos)?  Both local indices.
+__device__ inline bool visible(const BwdParams& p, int i, int key, int qpos,
+                               int kpos) {
   return i < p.Sq && key < p.Sk && (!p.causal || qpos >= kpos) &&
          (!p.window || qpos - kpos < p.window);
 }
 
-// `_block_full`: every (q row, key) pair of q rows [i0, i0 + nq) x keys
-// [k0, k0 + nk) is visible and in range.
-__device__ inline bool tile_full(const BwdParams& p, int i0, int nq, int k0,
-                                 int nk) {
-  const int q_first = p.q_offset + i0, k_first = p.kv_offset + k0;
+// `_block_full`: every (q row, key) pair of q rows [i0, i0 + nq) at
+// positions from q_first x keys [k0, k0 + nk) from k_first is visible and
+// in range.
+__device__ inline bool tile_full(const BwdParams& p, int i0, int nq,
+                                 int q_first, int k0, int nk, int k_first) {
   return i0 + nq <= p.Sq && k0 + nk <= p.Sk &&
          (!p.causal || q_first >= k_first + nk - 1) &&
          (!p.window || q_first + nq - 1 - k_first < p.window);
@@ -165,6 +189,7 @@ __device__ inline void load_k_side(bf16* dst, const bf16* src, long long sb,
   }
 }
 
+template <bool SEGM>
 __global__ void __launch_bounds__(NT, 2)
 flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
   extern __shared__ __align__(128) char smem_raw[];
@@ -178,16 +203,31 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
   const int BQ = DQ_BM / p.G;
   const int q0 = blockIdx.x * BQ;
   const int n_rows = min(BQ, p.Sq - q0);
-  const int q_first = p.q_offset + q0;
+  const int q_first = q_pos<SEGM>(p, b, q0);
   const int q_last = q_first + n_rows - 1;
 
-  // `_block_live` as a key range, as in the forward.
-  int hi = p.Sk;
-  if (p.causal) hi = min(hi, q_last - p.kv_offset + 1);
-  int lo = 0;
-  if (p.window) lo = max(lo, q_first - p.window + 1 - p.kv_offset);
-  const int first = (lo / DQ_BN) * DQ_BN;
-  const int n_tiles = hi > first ? (hi - first + DQ_BN - 1) / DQ_BN : 0;
+  // `_block_live` per key tile, as in the forward (contiguous keys take
+  // the closed-form live range and test no tile).
+  int t_begin = 0, t_end = (p.Sk + DQ_BN - 1) / DQ_BN;
+  if (!SEGM || !p.koffs) {
+    int hi = p.Sk;
+    if (p.causal) hi = min(hi, q_last - p.kv_offset + 1);
+    int lo = 0;
+    if (p.window) lo = max(lo, q_first - p.window + 1 - p.kv_offset);
+    t_begin = lo / DQ_BN;
+    t_end = hi > t_begin * DQ_BN ? (hi + DQ_BN - 1) / DQ_BN : t_begin;
+  }
+  auto next_live = [&](int t) {
+    if (!SEGM || !p.koffs) return t;
+    for (; t < t_end; ++t) {
+      const int kf = k_pos<SEGM>(p, b, t * DQ_BN);
+      const int nk = min(DQ_BN, p.Sk - t * DQ_BN);
+      if ((!p.causal || kf <= q_last) &&
+          (!p.window || kf + nk - 1 > q_first - p.window))
+        break;
+    }
+    return t;
+  };
 
   // This thread's two rows of the warp's 16: gq and gq + 8.
   float lse_r[2], dl_r[2];
@@ -204,11 +244,12 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
     }
   }
 
-  if (n_tiles > 0) {
+  int t = next_live(t_begin);
+  if (t < t_end) {
     load_q_side<DQ_BM>(sQ, p.q, p.q_sb, p.q_sh, p.q_ss, p, b, h, q0, BQ);
     load_q_side<DQ_BM>(sO, p.dout, p.o_sb, p.o_sh, p.o_ss, p, b, h, q0, BQ);
-    load_k_side<DQ_BN>(sK, p.k, p.k_sb, p.k_sh, p.k_ss, p, b, h, first);
-    load_k_side<DQ_BN>(sV, p.v, p.v_sb, p.v_sh, p.v_ss, p, b, h, first);
+    load_k_side<DQ_BN>(sK, p.k, p.k_sb, p.k_sh, p.k_ss, p, b, h, t * DQ_BN);
+    load_k_side<DQ_BN>(sV, p.v, p.v_sb, p.v_sh, p.v_ss, p, b, h, t * DQ_BN);
     cp_commit();
   }
 
@@ -216,14 +257,15 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = first + it * DQ_BN, buf = it & 1;
-    if (it + 1 < n_tiles) {
+  for (int it = 0; t < t_end; ++it) {
+    const int t0 = t * DQ_BN, buf = it & 1;
+    const int tn = next_live(t + 1);
+    if (tn < t_end) {
       const int nb = buf ^ 1;
       load_k_side<DQ_BN>(sK + nb * DQ_BN * LD, p.k, p.k_sb, p.k_sh, p.k_ss, p,
-                         b, h, t0 + DQ_BN);
+                         b, h, tn * DQ_BN);
       load_k_side<DQ_BN>(sV + nb * DQ_BN * LD, p.v, p.v_sb, p.v_sh, p.v_ss, p,
-                         b, h, t0 + DQ_BN);
+                         b, h, tn * DQ_BN);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -258,7 +300,8 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
     }
 
     // P and dS (into dp) on the two rows this thread holds.
-    const bool full = tile_full(p, q0, BQ, t0, DQ_BN);
+    const int k_first = k_pos<SEGM>(p, b, t0);
+    const bool full = tile_full(p, q0, BQ, q_first, t0, DQ_BN, k_first);
 #pragma unroll
     for (int j = 0; j < DQ_BN / 8; ++j) {
 #pragma unroll
@@ -268,7 +311,9 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
         bool vis = true;
         if (!full) {
           const int row = warp * 16 + gq + (e >> 1) * 8;
-          vis = visible(p, q0 + row % BQ, t0 + j * 8 + 2 * tq + (e & 1));
+          const int col = j * 8 + 2 * tq + (e & 1);
+          vis = visible(p, q0 + row % BQ, t0 + col, q_first + row % BQ,
+                        k_first + col);
         }
         const float pe = vis ? expf(x - lse_r[e >> 1]) : 0.f;
         dp[j][e] = pe * (dp[j][e] - dl_r[e >> 1]) * p.scale * dcap;
@@ -289,6 +334,7 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
       }
     }
     __syncthreads();  // every warp is done with buf before it refills
+    t = tn;
   }
 
 #pragma unroll
@@ -305,6 +351,7 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
   }
 }
 
+template <bool SEGM>
 __global__ void __launch_bounds__(NT, 2)
 flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
   extern __shared__ __align__(128) char smem_raw[];
@@ -320,18 +367,33 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
   const int BQ = KV_BM / p.G;
   const int k0 = blockIdx.x * KV_BN;
   const int n_keys = min(KV_BN, p.Sk - k0);
-  const int k_first = p.kv_offset + k0;
+  const int k_first = k_pos<SEGM>(p, b, k0);
   const int k_last = k_first + n_keys - 1;
 
-  // The live q range (the TPU kernel's `live` test as a range): causal
-  // rows start at the first key's position, a window ends past the last
-  // key's window.
-  int ihi = p.Sq;
-  if (p.window) ihi = min(ihi, k_last + p.window - p.q_offset);
-  int ilo = 0;
-  if (p.causal) ilo = max(ilo, k_first - p.q_offset);
-  const int first = (ilo / BQ) * BQ;
-  const int n_tiles = ihi > first ? (ihi - first + BQ - 1) / BQ : 0;
+  // The TPU kernel's `live` test per q tile of BQ positions: causal rows
+  // reach the first key's position, a window's rows start before the
+  // last key's window ends (contiguous rows take the closed-form live
+  // range and test no tile).
+  int t_begin = 0, t_end = (p.Sq + BQ - 1) / BQ;
+  if (!SEGM || !p.qoffs) {
+    int ihi = p.Sq;
+    if (p.window) ihi = min(ihi, k_last + p.window - p.q_offset);
+    int ilo = 0;
+    if (p.causal) ilo = max(ilo, k_first - p.q_offset);
+    t_begin = ilo / BQ;
+    t_end = ihi > t_begin * BQ ? (ihi + BQ - 1) / BQ : t_begin;
+  }
+  auto next_live = [&](int t) {
+    if (!SEGM || !p.qoffs) return t;
+    for (; t < t_end; ++t) {
+      const int qf = q_pos<SEGM>(p, b, t * BQ);
+      const int ql = qf + min(BQ, p.Sq - t * BQ) - 1;
+      if ((!p.causal || ql >= k_first) &&
+          (!p.window || qf < k_last + p.window))
+        break;
+    }
+    return t;
+  };
 
   // lse / delta of a folded q tile into shared memory (plain loads; the
   // barrier before the tile's use publishes them).
@@ -350,13 +412,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
     }
   };
 
-  if (n_tiles > 0) {
+  int t = next_live(t_begin);
+  if (t < t_end) {
     load_k_side<KV_BN>(sK, p.k, p.k_sb, p.k_sh, p.k_ss, p, b, h, k0);
     load_k_side<KV_BN>(sV, p.v, p.v_sb, p.v_sh, p.v_ss, p, b, h, k0);
-    load_q_side<KV_BM>(sQ, p.q, p.q_sb, p.q_sh, p.q_ss, p, b, h, first, BQ);
-    load_q_side<KV_BM>(sO, p.dout, p.o_sb, p.o_sh, p.o_ss, p, b, h, first,
+    load_q_side<KV_BM>(sQ, p.q, p.q_sb, p.q_sh, p.q_ss, p, b, h, t * BQ, BQ);
+    load_q_side<KV_BM>(sO, p.dout, p.o_sb, p.o_sh, p.o_ss, p, b, h, t * BQ,
                        BQ);
-    load_rows(first, 0);
+    load_rows(t * BQ, 0);
     cp_commit();
   }
 
@@ -367,15 +430,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
     acc_v[j][0] = acc_v[j][1] = acc_v[j][2] = acc_v[j][3] = 0.f;
   }
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = first + it * BQ, buf = it & 1;
-    if (it + 1 < n_tiles) {
+  for (int it = 0; t < t_end; ++it) {
+    const int q0 = t * BQ, buf = it & 1;
+    const int tn = next_live(t + 1);
+    if (tn < t_end) {
       const int nb = buf ^ 1;
       load_q_side<KV_BM>(sQ + nb * KV_BM * LD, p.q, p.q_sb, p.q_sh, p.q_ss, p,
-                         b, h, q0 + BQ, BQ);
+                         b, h, tn * BQ, BQ);
       load_q_side<KV_BM>(sO + nb * KV_BM * LD, p.dout, p.o_sb, p.o_sh,
-                         p.o_ss, p, b, h, q0 + BQ, BQ);
-      load_rows(q0 + BQ, nb);
+                         p.o_ss, p, b, h, tn * BQ, BQ);
+      load_rows(tn * BQ, nb);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -413,7 +477,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
 
     // P^T (into s) and dS^T (into dp): the row of an element is a key, its
     // column a folded q row.
-    const bool full = tile_full(p, q0, BQ, k0, KV_BN);
+    const int q_first = q_pos<SEGM>(p, b, q0);
+    const bool full = tile_full(p, q0, BQ, q_first, k0, KV_BN, k_first);
 #pragma unroll
     for (int j = 0; j < KV_BM / 8; ++j) {
 #pragma unroll
@@ -422,8 +487,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
         float dcap;
         const float x = logit(p, s[j][e], dcap);
         bool vis = true;
-        if (!full)
-          vis = visible(p, q0 + col % BQ, k0 + warp * 16 + gq + (e >> 1) * 8);
+        if (!full) {
+          const int kr = warp * 16 + gq + (e >> 1) * 8;
+          vis = visible(p, q0 + col % BQ, k0 + kr, q_first + col % BQ,
+                        k_first + kr);
+        }
         const float pe = vis ? expf(x - l_t[col]) : 0.f;
         s[j][e] = pe;
         dp[j][e] = pe * (dp[j][e] - d_t[col]) * p.scale * dcap;
@@ -449,6 +517,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
       }
     }
     __syncthreads();  // every warp is done with buf before it refills
+    t = tn;
   }
 
 #pragma unroll
@@ -469,7 +538,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
 BwdParams make_params(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* out0, void* out1, int Hq, int Hkv, int Sq, int Sk,
-                      const long long* st, int q_offset, int kv_offset,
+                      const long long* st, const void* qoffs,
+                      long long qoffs_sb, const void* koffs,
+                      long long koffs_sb, int q_offset, int kv_offset,
                       int causal, int window, int out_f32, float scale,
                       float soft_cap) {
   BwdParams p;
@@ -490,6 +561,10 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   p.k_sb = st[3]; p.k_sh = st[4]; p.k_ss = st[5];
   p.v_sb = st[6]; p.v_sh = st[7]; p.v_ss = st[8];
   p.o_sb = st[9]; p.o_sh = st[10]; p.o_ss = st[11];
+  p.qoffs = static_cast<const int*>(qoffs);
+  p.koffs = static_cast<const int*>(koffs);
+  p.qoffs_sb = qoffs_sb;
+  p.koffs_sb = koffs_sb;
   p.q_offset = q_offset;
   p.kv_offset = kv_offset;
   p.causal = causal;
@@ -514,30 +589,53 @@ cudaError_t allow_smem(K kernel, size_t bytes, unsigned& done) {
   return err;
 }
 
+template <bool SEGM>
+int launch_dq(const BwdParams& p, int B, void* stream) {
+  static unsigned attr_set = 0;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dq_kernel<SEGM>, DQ_SMEM, attr_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int BQ = DQ_BM / p.G;
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hkv, B);
+  flash_bwd_dq_kernel<SEGM><<<grid, NT, DQ_SMEM,
+                              static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SEGM>
+int launch_dkv(const BwdParams& p, int B, void* stream) {
+  static unsigned attr_set = 0;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkv_kernel<SEGM>, KV_SMEM, attr_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.Sk + KV_BN - 1) / KV_BN, p.Hkv, B);
+  flash_bwd_dkv_kernel<SEGM><<<grid, NT, KV_SMEM,
+                               static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// strides: q (b, h, s), k, v, dout — 12 values, element units.
+// strides: q (b, h, s), k, v, dout — 12 values, element units.  qoffs /
+// koffs: per-block start vectors (flash_fwd.cu's header), or null for
+// q_offset / kv_offset.
 extern "C" int tdt_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int Hq, int Hkv,
     int Sq, int Sk, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int q_offset, int kv_offset, int causal, int window,
+    long long o_ss, const void* qoffs, long long qoffs_sb, const void* koffs,
+    long long koffs_sb, int q_offset, int kv_offset, int causal, int window,
     int out_f32, float scale, float soft_cap, void* stream) {
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   const BwdParams p = make_params(q, k, v, dout, lse, delta, dq, nullptr, Hq,
-                                  Hkv, Sq, Sk, st, q_offset, kv_offset, causal,
+                                  Hkv, Sq, Sk, st, qoffs, qoffs_sb, koffs,
+                                  koffs_sb, q_offset, kv_offset, causal,
                                   window, out_f32, scale, soft_cap);
-  static unsigned attr_set = 0;
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel, DQ_SMEM, attr_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int BQ = DQ_BM / p.G;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hkv, B);
-  flash_bwd_dq_kernel<<<grid, NT, DQ_SMEM,
-                        static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return qoffs || koffs ? launch_dq<true>(p, B, stream)
+                        : launch_dq<false>(p, B, stream);
 }
 
 extern "C" int tdt_flash_bwd_dkv(
@@ -546,18 +644,15 @@ extern "C" int tdt_flash_bwd_dkv(
     int Hkv, int Sq, int Sk, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int q_offset, int kv_offset, int causal, int window,
+    long long o_ss, const void* qoffs, long long qoffs_sb, const void* koffs,
+    long long koffs_sb, int q_offset, int kv_offset, int causal, int window,
     int out_f32, float scale, float soft_cap, void* stream) {
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                             v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   const BwdParams p = make_params(q, k, v, dout, lse, delta, dk, dv, Hq, Hkv,
-                                  Sq, Sk, st, q_offset, kv_offset, causal,
+                                  Sq, Sk, st, qoffs, qoffs_sb, koffs, koffs_sb,
+                                  q_offset, kv_offset, causal,
                                   window, out_f32, scale, soft_cap);
-  static unsigned attr_set = 0;
-  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel, KV_SMEM, attr_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sk + KV_BN - 1) / KV_BN, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, NT, KV_SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return qoffs || koffs ? launch_dkv<true>(p, B, stream)
+                        : launch_dkv<false>(p, B, stream);
 }

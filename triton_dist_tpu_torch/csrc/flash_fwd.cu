@@ -7,14 +7,29 @@
 // positions q_offset + i and kv_offset + j; causal, sliding window,
 // soft-cap; rows with nothing visible give out 0 and lse NEG_INF.
 //
+// Segmented positions (the zigzag context-parallel shard: rows made of
+// several position runs) ride per-block start vectors, as the TPU
+// kernel's scalar-prefetch `qoffs` / `koffs` do: qoffs [B][Sq / SEG] and
+// koffs [B][Sk / SEG] int32 (batch stride qoffs_sb / koffs_sb, 0 to share
+// one vector) give the global position of row SEG j, and rows within a
+// block of SEG are contiguous.  Each batch row has its own vectors, so the
+// W ranks of one ring step fold into the batch and one launch serves
+// them all.  A null vector is the contiguous closed form
+// q_offset + i / kv_offset + j.  Every tile of the kernels (64 keys, 64 /
+// G query positions) lies inside one block of SEG, so a tile's positions
+// are its first position plus the row offset, and the key loop tests each
+// tile for liveness (`_block_live`) where the contiguous mode takes one
+// key range: over two runs the live tiles need not be contiguous.
+//
 // Design.  One block of 4 warps per (q-tile, kv-head, batch).  As on the
 // TPU the q-tile folds all G = Hq / Hkv heads of the group into its rows
 // (row r = g * BQ + i, 64 rows, so BQ = 64 / G query positions), so every
 // K/V tile read from device memory serves the whole group.  The key loop
-// visits only live tiles (`_block_live`: causal and window bounds give
-// the tile range directly) and drops the per-element mask on tiles that
-// are wholly visible (`_block_full`).  Ragged Sq / Sk edges are masked
-// here, so any length works.
+// visits only live tiles (`_block_live`: for contiguous keys the causal
+// and window bounds give the tile range directly, segmented keys test
+// each tile) and drops the per-element mask on tiles that are wholly
+// visible (`_block_full`).  Ragged Sq / Sk edges are masked here, so any
+// length works.
 //
 // What bounds it on an H100: causal prefill at the main path's shapes
 // (Sq 512..1024, Hq 32, D 128) does 2 * 2 * Sq * Sk * D * Hq / 2 flops
@@ -58,6 +73,7 @@ constexpr int LD = D + 8;    // bf16 row stride in shared memory (272 B)
 constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
 constexpr int LD8 = D + 16;    // int8 staging row stride (bytes)
 constexpr float NEG_INF = -1.0e30f;  // finite -inf proxy, as on the TPU
+constexpr int SEG = 64;      // positions per entry of a start vector
 
 struct FlashParams {
   const bf16* q;
@@ -75,9 +91,18 @@ struct FlashParams {
   long long v_sb, v_sh, v_ss;
   long long ks_sb, ks_sh, ks_ss;
   long long vs_sb, vs_sh, vs_ss;
+  const int* qoffs;  // [B][Sq / SEG] block starts, or null (contiguous)
+  const int* koffs;  // [B][Sk / SEG]
+  long long qoffs_sb, koffs_sb;
   int q_offset, kv_offset, causal, window;
   float scale, soft_cap;
 };
+
+// Global position of local row i of batch row b (see the header).
+__device__ inline int pos_of(const int* offs, long long sb, int base, int b,
+                             int i) {
+  return offs ? offs[b * sb + i / SEG] + i % SEG : base + i;
+}
 
 // bf16: Q and a two-stage K/V ring.  I8: Q, one bf16 K/V tile, and a
 // two-stage ring of int8 K/V tiles with their scales.
@@ -85,7 +110,10 @@ constexpr size_t SMEM_BYTES = static_cast<size_t>(BM + 4 * BN) * LD * 2;
 constexpr size_t SMEM_BYTES_I8 =
     static_cast<size_t>(BM + 2 * BN) * LD * 2 + 4 * BN * LD8 + 4 * BN * 4;
 
-template <bool I8>
+// SEGM: the segmented mode (a start vector on either side); without it
+// the kernel is the contiguous closed form, its own instantiation, so the
+// serving and training launches pay nothing for the segmented mode.
+template <bool I8, bool SEGM>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const __grid_constant__ FlashParams p) {
   extern __shared__ __align__(128) char smem_raw[];
@@ -102,17 +130,38 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * p.BQ;
   const int n_rows = min(p.BQ, p.Sq - q0);
-  const int q_first = p.q_offset + q0;
+  const int q_first =
+      SEGM ? pos_of(p.qoffs, p.qoffs_sb, p.q_offset, b, q0) : p.q_offset + q0;
   const int q_last = q_first + n_rows - 1;
+  auto k_pos = [&](int key) {
+    return SEGM ? pos_of(p.koffs, p.koffs_sb, p.kv_offset, b, key)
+                : p.kv_offset + key;
+  };
 
-  // `_block_live` as a key range: causal stops past the last row's
+  // `_block_live` per key tile t: causal stops past the last row's
   // position, a window starts at the first row's earliest visible key.
-  int hi = p.Sk;
-  if (p.causal) hi = min(hi, q_last - p.kv_offset + 1);
-  int lo = 0;
-  if (p.window) lo = max(lo, q_first - p.window + 1 - p.kv_offset);
-  const int first = (lo / BN) * BN;
-  const int n_tiles = hi > first ? (hi - first + BN - 1) / BN : 0;
+  // Contiguous keys take the closed-form live range [t_begin, t_end),
+  // every tile of which is live, and test no tile; segmented keys test
+  // each tile.
+  int t_begin = 0, t_end = (p.Sk + BN - 1) / BN;
+  if (!SEGM || !p.koffs) {
+    int hi = p.Sk;
+    if (p.causal) hi = min(hi, q_last - p.kv_offset + 1);
+    int lo = 0;
+    if (p.window) lo = max(lo, q_first - p.window + 1 - p.kv_offset);
+    t_begin = lo / BN;
+    t_end = hi > t_begin * BN ? (hi + BN - 1) / BN : t_begin;
+  }
+  auto live = [&](int t) {
+    const int kf = k_pos(t * BN), nk = min(BN, p.Sk - t * BN);
+    return (!p.causal || kf <= q_last) &&
+           (!p.window || kf + nk - 1 > q_first - p.window);
+  };
+  auto next_live = [&](int t) {
+    if (SEGM && p.koffs)
+      while (t < t_end && !live(t)) ++t;
+    return t;
+  };
 
   auto load_kv = [&](int t0, int buf) {
     if constexpr (I8) {
@@ -166,7 +215,8 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};
 
-  if (n_tiles > 0) {
+  int t = next_live(t_begin);
+  if (t < t_end) {
 #pragma unroll
     for (int i = 0; i < BM * CHUNKS / NT; ++i) {
       const int j = tid + i * NT, r = j / CHUNKS, c = j % CHUNKS;
@@ -176,15 +226,16 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
                                  + qi * p.q_ss + c * 8
                            : nullptr, p.k);
     }
-    load_kv(first, 0);
+    load_kv(t * BN, 0);
     cp_commit();
   }
 
   unsigned qf[D / 16][4];  // the warp's Q fragments, one per k-step
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = first + it * BN, buf = it & 1;
-    if (it + 1 < n_tiles) {
-      load_kv(t0 + BN, buf ^ 1);
+  for (int it = 0; t < t_end; ++it) {
+    const int t0 = t * BN, buf = it & 1;
+    const int tn = next_live(t + 1);
+    if (tn < t_end) {
+      load_kv(tn * BN, buf ^ 1);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -230,7 +281,7 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
 
     // Online softmax on the two rows this thread holds (the TPU kernels'
     // m / l / alpha rule; masked logits NEG_INF, their p an explicit 0).
-    const int k_first = p.kv_offset + t0;
+    const int k_first = k_pos(t0);
     const bool full =
         t0 + BN <= p.Sk && q0 + p.BQ <= p.Sq &&
         (!p.causal || q_first >= k_first + BN - 1) &&
@@ -251,7 +302,7 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
           const int row = warp * 16 + gq + (e >> 1) * 8;
           const int i = q0 + row % p.BQ;
           const int key = t0 + j * 8 + 2 * tq + (e & 1);
-          const int qpos = p.q_offset + i, kpos = p.kv_offset + key;
+          const int qpos = q_first + (i - q0), kpos = k_first + (key - t0);
           const bool vis = i < p.Sq && key < p.Sk &&
                            (!p.causal || qpos >= kpos) &&
                            (!p.window || qpos - kpos < p.window);
@@ -308,6 +359,7 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
       }
     }
     __syncthreads();  // every warp is done with buf before it refills
+    t = tn;
   }
 
   // Epilogue: out = O / l in bf16, lse = m + log(l) (NEG_INF when empty).
@@ -329,8 +381,8 @@ flash_fwd_kernel(const __grid_constant__ FlashParams p) {
   }
 }
 
-template <bool I8>
-int launch_flash(FlashParams& p, int B, void* stream) {
+template <bool I8, bool SEGM>
+int launch_mode(FlashParams& p, int B, void* stream) {
   constexpr size_t smem = I8 ? SMEM_BYTES_I8 : SMEM_BYTES;
   // once per device, process and instantiation (outside graph capture)
   static unsigned attr_set = 0;
@@ -338,15 +390,22 @@ int launch_flash(FlashParams& p, int B, void* stream) {
   cudaGetDevice(&dev);
   if (!(attr_set & (1u << dev))) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<I8, SEGM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set |= 1u << dev;
   }
   const dim3 grid((p.Sq + p.BQ - 1) / p.BQ, p.Hkv, B);
-  flash_fwd_kernel<I8><<<grid, NT, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  flash_fwd_kernel<I8, SEGM><<<grid, NT, smem,
+                               static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool I8>
+int launch_flash(FlashParams& p, int B, void* stream) {
+  return p.qoffs || p.koffs ? launch_mode<I8, true>(p, B, stream)
+                            : launch_mode<I8, false>(p, B, stream);
 }
 
 void fill_params(FlashParams& p, const void* q, const void* k,
@@ -354,8 +413,10 @@ void fill_params(FlashParams& p, const void* q, const void* k,
                  int Sq, int Sk, long long q_sb, long long q_sh,
                  long long q_ss, long long k_sb, long long k_sh,
                  long long k_ss, long long v_sb, long long v_sh,
-                 long long v_ss, int q_offset, int kv_offset, int causal,
-                 int window, float scale, float soft_cap) {
+                 long long v_ss, const void* qoffs, long long qoffs_sb,
+                 const void* koffs, long long koffs_sb, int q_offset,
+                 int kv_offset, int causal, int window, float scale,
+                 float soft_cap) {
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
@@ -374,6 +435,10 @@ void fill_params(FlashParams& p, const void* q, const void* k,
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.qoffs = static_cast<const int*>(qoffs);
+  p.koffs = static_cast<const int*>(koffs);
+  p.qoffs_sb = qoffs_sb;
+  p.koffs_sb = koffs_sb;
   p.q_offset = q_offset;
   p.kv_offset = kv_offset;
   p.causal = causal;
@@ -389,18 +454,21 @@ extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
                              int Sq, int Sk, long long q_sb, long long q_sh,
                              long long q_ss, long long k_sb, long long k_sh,
                              long long k_ss, long long v_sb, long long v_sh,
-                             long long v_ss, int q_offset, int kv_offset,
+                             long long v_ss, const void* qoffs,
+                             long long qoffs_sb, const void* koffs,
+                             long long koffs_sb, int q_offset, int kv_offset,
                              int causal, int window, float scale,
                              float soft_cap, void* stream) {
   FlashParams p;
   fill_params(p, q, k, v, out, lse, Hq, Hkv, Sq, Sk, q_sb, q_sh, q_ss, k_sb,
-              k_sh, k_ss, v_sb, v_sh, v_ss, q_offset, kv_offset, causal,
-              window, scale, soft_cap);
+              k_sh, k_ss, v_sb, v_sh, v_ss, qoffs, qoffs_sb, koffs, koffs_sb,
+              q_offset, kv_offset, causal, window, scale, soft_cap);
   return launch_flash<false>(p, B, stream);
 }
 
 // The int8 twin: k/v int8 (strides in bytes) with f32 scale planes
-// k_scale / v_scale [B, Hkv, Sk] and their strides.
+// k_scale / v_scale [B, Hkv, Sk] and their strides.  qoffs / koffs: the
+// per-block start vectors (header), or null for q_offset / kv_offset.
 extern "C" int tdt_flash_fwd_i8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, void* out, void* lse, int B, int Hq, int Hkv,
@@ -408,12 +476,13 @@ extern "C" int tdt_flash_fwd_i8(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long ks_sb, long long ks_sh,
     long long ks_ss, long long vs_sb, long long vs_sh, long long vs_ss,
-    int q_offset, int kv_offset, int causal, int window, float scale,
-    float soft_cap, void* stream) {
+    const void* qoffs, long long qoffs_sb, const void* koffs,
+    long long koffs_sb, int q_offset, int kv_offset, int causal, int window,
+    float scale, float soft_cap, void* stream) {
   FlashParams p;
   fill_params(p, q, k, v, out, lse, Hq, Hkv, Sq, Sk, q_sb, q_sh, q_ss, k_sb,
-              k_sh, k_ss, v_sb, v_sh, v_ss, q_offset, kv_offset, causal,
-              window, scale, soft_cap);
+              k_sh, k_ss, v_sb, v_sh, v_ss, qoffs, qoffs_sb, koffs, koffs_sb,
+              q_offset, kv_offset, causal, window, scale, soft_cap);
   p.ksc = static_cast<const float*>(k_scale);
   p.vsc = static_cast<const float*>(v_scale);
   p.ks_sb = ks_sb; p.ks_sh = ks_sh; p.ks_ss = ks_ss;

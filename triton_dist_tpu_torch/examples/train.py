@@ -177,7 +177,8 @@ def main(argv=None):
     if args.tp > 1 and args.opt == "adamw":
         raise NotImplementedError("--opt adamw --tp > 1: an optimizer over "
                                   "the sharded tree is not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
+                                  "(ROADMAP Queue 1 items 14 and 15, the "
+                                  "fifth entry)")
     device = resolve_device(args.device)
     use_full_precision_matmul()
     cfg, params, opt, step_fn = build(args, device)

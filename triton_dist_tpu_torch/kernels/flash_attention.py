@@ -24,6 +24,15 @@ rank's span of a rank-stacked cache at its global ``kv_offset``, and
 :func:`sp_flash_attention_shard` merges the partials through the SP
 combine (the reference's ``sp_flash_attention_shard``).
 
+Segmented layouts (the zigzag context-parallel shard): ``q_offset`` and
+``kv_offset`` may each be a tuple of run starts, as in the reference
+(``_as_starts`` :440): the rows are ``len(tuple)`` equal runs, each
+position-contiguous.  The port also takes a sequence of such tuples, one
+per batch row, so that the ranks of one ring step fold into the batch
+and share one launch.  On the card the runs ride per-block start vectors
+(``_block_starts``, blocks of :data:`SEG` rows); each run must tile by
+:data:`SEG`.
+
 Under autograd (grad enabled, an input that requires grad, no
 ``return_lse``) the call goes through :class:`FlashAttentionFn`, the
 counterpart of the reference's ``jax.custom_vjp`` ``_flash_diff``: it saves
@@ -45,25 +54,75 @@ from triton_dist_tpu_torch.kernels import _build
 
 NEG_INF = -1.0e30  # finite -inf proxy: survives exp/log without NaNs
 
+SEG = 64   # positions per entry of a start vector (csrc/flash_fwd.cu SEG)
+
+_STARTS = [ctypes.c_void_p, ctypes.c_longlong] * 2
 _FLASH_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float] * 2
                + [ctypes.c_void_p])
 _FLASH_SIG = {"tdt_flash_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-              + [ctypes.c_longlong] * 9 + _FLASH_TAIL,
+              + [ctypes.c_longlong] * 9 + _STARTS + _FLASH_TAIL,
               "tdt_flash_fwd_i8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-              + [ctypes.c_longlong] * 15 + _FLASH_TAIL}
-_BWD_TAIL = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+              + [ctypes.c_longlong] * 15 + _STARTS + _FLASH_TAIL}
+_BWD_TAIL = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + _STARTS
              + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _FLASH_BWD_SIG = {"tdt_flash_bwd_dq": [ctypes.c_void_p] * 7 + _BWD_TAIL,
                   "tdt_flash_bwd_dkv": [ctypes.c_void_p] * 8 + _BWD_TAIL}
 
 
 def _as_int(x) -> int:
-    if isinstance(x, (tuple, list)):
-        raise NotImplementedError(
-            "segmented q_offset/kv_offset (run-start tuples, the zigzag "
-            "context-parallel layout) are not ported yet: ROADMAP Queue 1 "
-            "item 14")
     return int(x.item()) if isinstance(x, torch.Tensor) else int(x)
+
+
+def _as_starts(starts_or_offset) -> tuple:
+    """Normalize an offset-like argument to a tuple of run starts: a
+    scalar offset (an int or a 0-d tensor) means ONE contiguous run."""
+    if isinstance(starts_or_offset, (tuple, list)):
+        return tuple(_as_int(s) for s in starts_or_offset)
+    return (_as_int(starts_or_offset),)
+
+
+def _row_starts(offset) -> tuple:
+    """``offset`` as a tuple of per-batch-row run-start tuples: one entry
+    shared by every row (a scalar or one tuple of run starts), or one per
+    row (a sequence of tuples, the port's fold of ranks into the batch)."""
+    if isinstance(offset, (tuple, list)) and offset and isinstance(
+            offset[0], (tuple, list)):
+        return tuple(_as_starts(r) for r in offset)
+    return (_as_starts(offset),)
+
+
+def _check_rows(rows, total, B, what):
+    if len(rows) not in (1, B):
+        raise ValueError(f"{what}: {len(rows)} per-row run starts for "
+                         f"{B} batch rows")
+    for r in rows:
+        if total % len(r):
+            raise ValueError(f"{what}: {total} rows do not split into "
+                             f"{len(r)} equal runs")
+
+
+def _run_positions(rows, total, device):
+    """[R, total] global positions of ``total`` rows split evenly over the
+    runs of each of the R per-row start tuples (reference
+    ``_run_positions`` :563, a row dimension added)."""
+    out = []
+    for starts in rows:
+        run = total // len(starts)
+        out.append(torch.cat([s + torch.arange(run, device=device)
+                              for s in starts]))
+    return torch.stack(out)
+
+
+def flash_shapes_ok(sq: int, sk: int, d: int, n_runs_q: int = 1,
+                    n_runs_k: int = 1) -> bool:
+    """The reference's legality rule for its flash tiles (:618): 128-lane
+    D, Sq and Sk tiling by 128, and each run of a segmented layout tiling
+    by 128 (blocks never straddle a run).  The ring attention's ``auto``
+    choice and the context-parallel zigzag rule read it, as the
+    reference's do; the CUDA kernels themselves take less (D 128, each
+    run of a segmented side tiling by :data:`SEG`)."""
+    return (d % 128 == 0 and sq % n_runs_q == 0 and sk % n_runs_k == 0
+            and (sq // n_runs_q) % 128 == 0 and (sk // n_runs_k) % 128 == 0)
 
 
 def apply_soft_cap(logits, soft_cap):
@@ -76,15 +135,17 @@ def apply_soft_cap(logits, soft_cap):
 
 def _visibility_mask(Sq, Sk, *, causal, window, q_offset, kv_offset,
                      device):
-    """THE masking rule (``_visibility_mask``): [Sq, Sk] bool, key j
-    visible to row i iff (not causal or qpos >= kpos) and (not window or
-    qpos - kpos < window); None when neither is set."""
+    """THE masking rule (``_visibility_mask``): [R, Sq, Sk] bool (R = 1,
+    or the batch rows of per-row offsets), key j visible to row i iff
+    (not causal or qpos >= kpos) and (not window or qpos - kpos <
+    window); None when neither is set.  Offsets as :func:`_row_starts`
+    takes them."""
     if not (causal or window):
         return None
-    rows = (q_offset + torch.arange(Sq, device=device))[:, None]
-    cols = (kv_offset + torch.arange(Sk, device=device))[None, :]
+    rows = _run_positions(_row_starts(q_offset), Sq, device)[:, :, None]
+    cols = _run_positions(_row_starts(kv_offset), Sk, device)[:, None, :]
     mask = (rows >= cols) if causal else torch.ones(
-        (Sq, Sk), dtype=torch.bool, device=device)
+        (1, Sq, Sk), dtype=torch.bool, device=device)
     if window:
         mask = mask & (rows - cols < window)
     return mask
@@ -95,13 +156,15 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0,
                         soft_cap=0.0, window=0):
     """Plain PyTorch version (dense, f32 math): out [B, Hq, Sq, D] in
     q.dtype, lse [B, Hq, Sq] f32 — the ``_flash_xla`` contract, int8 K/V
-    with ``k_scale``/``v_scale`` [B, Hkv, Sk] included."""
+    with ``k_scale``/``v_scale`` [B, Hkv, Sk] included; offsets may be
+    run-start tuples, shared or per batch row (module docstring)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    q_offset, kv_offset = _as_int(q_offset), _as_int(kv_offset)
+    _check_rows(_row_starts(q_offset), Sq, B, "q_offset")
+    _check_rows(_row_starts(kv_offset), Sk, B, "kv_offset")
     qf = q.float().reshape(B, Hkv, g, Sq, D)
     logits = torch.einsum("bhgsd,bhtd->bhgst", qf, k.float()) * scale
     if k_scale is not None:
@@ -111,6 +174,7 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, q_offset=0,
                             q_offset=q_offset, kv_offset=kv_offset,
                             device=q.device)
     if mask is not None:
+        mask = mask[:, None, None]
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=-1)
     nonempty = m > NEG_INF / 2
@@ -137,13 +201,15 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=True,
     dS = P * (dP - delta) * scale (times the soft-cap's 1 - tanh^2),
     delta = rowsum(dO * O).  Returns (dq, dk, dv) in the primal dtypes, or
     all in ``grad_dtype`` when set.  Masked lanes are zeroed before use,
-    so rows with nothing visible (lse = NEG_INF) give zero gradients."""
+    so rows with nothing visible (lse = NEG_INF) give zero gradients.
+    Offsets as :func:`flash_attention_ref` takes them."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    q_offset, kv_offset = _as_int(q_offset), _as_int(kv_offset)
+    _check_rows(_row_starts(q_offset), Sq, B, "q_offset")
+    _check_rows(_row_starts(kv_offset), Sk, B, "kv_offset")
     qf = q.float().reshape(B, Hkv, g, Sq, D)
     kf, vf = k.float(), v.float()
     dof = do.float().reshape(B, Hkv, g, Sq, D)
@@ -158,7 +224,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=True,
                             q_offset=q_offset, kv_offset=kv_offset,
                             device=q.device)
     if mask is not None:
-        p = torch.where(mask, p, torch.zeros_like(p))
+        p = torch.where(mask[:, None, None], p, torch.zeros_like(p))
     delta = (do.float() * out.float()).sum(-1).reshape(B, Hkv, g, Sq)
     dp = torch.einsum("bhgsd,bhtd->bhgst", dof, vf)
     ds = p * (dp - delta[..., None]) * scale
@@ -194,6 +260,52 @@ def _check_scale(name, s, shape, device):
         raise ValueError(f"{name} is on {s.device}, q on {device}")
 
 
+_BLOCK_STARTS: dict = {}
+
+
+def _starts_arg(offset, total, B, device, what):
+    """(vector, batch stride, scalar offset) of one side for the kernels:
+    a single contiguous run shared by every row is the scalar (no vector,
+    the path a CUDA graph can capture); anything else the per-block start
+    vector [R, total / SEG] int32 of every row (reference
+    ``_block_starts`` :448 at the kernels' SEG), made once per layout and
+    kept on the device, with batch stride 0 when one vector serves every
+    row."""
+    rows = _row_starts(offset)
+    _check_rows(rows, total, B, what)
+    if len(rows) == 1 and len(rows[0]) == 1:
+        return None, 0, rows[0][0]
+    for r in rows:
+        if (total // len(r)) % SEG:
+            raise ValueError(f"{what}: the kernels' segmented mode needs "
+                             f"each run to tile by {SEG} rows, got runs of "
+                             f"{total // len(r)}")
+    key = (rows, total, str(device))
+    vec = _BLOCK_STARTS.get(key)
+    if vec is None:
+        if len(_BLOCK_STARTS) > 1024:
+            _BLOCK_STARTS.clear()
+        host = _run_positions(rows, total, "cpu")[:, ::SEG]
+        vec = _BLOCK_STARTS[key] = host.to(device=device,
+                                           dtype=torch.int32).contiguous()
+    return vec, (vec.shape[1] if vec.shape[0] > 1 else 0), 0
+
+
+def _segmented(starts) -> int:
+    """1 when a launch carries a start vector (its segmented mode)."""
+    return int(starts[0] is not None or starts[2] is not None)
+
+
+def _starts_args(q, k, q_offset, kv_offset):
+    """The kernels' (qoffs, qoffs_sb, koffs, koffs_sb) pointers and
+    strides and their scalar (q_offset, kv_offset)."""
+    B, Sq, Sk = q.shape[0], q.shape[2], k.shape[2]
+    qv, qsb, qo = _starts_arg(q_offset, Sq, B, q.device, "q_offset")
+    kv, ksb, ko = _starts_arg(kv_offset, Sk, B, q.device, "kv_offset")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return (ptr(qv), qsb, ptr(kv), ksb), (qo, ko)
+
+
 def _flash_fwd_operands(q, k, v, kv_dtype):
     """Check what the forward kernel takes (D 128, G dividing 64, bf16 q,
     k/v in ``kv_dtype``, 16-byte aligned rows); returns the outputs."""
@@ -223,17 +335,19 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset,
     B, Hq, Sq, _ = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out, lse = _flash_fwd_operands(q, k, v, torch.bfloat16)
+    starts, offs = _starts_args(q, k, q_offset, kv_offset)
     lib = _build.load("flash_fwd", _FLASH_SIG)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tdt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], q_offset, kv_offset,
+            *k.stride()[:3], *v.stride()[:3], *starts, *offs,
             int(bool(causal)), int(window), float(scale),
             float(soft_cap or 0.0), stream)
     _build.check(err, "flash_fwd")
     flash_attention.launches += 1
+    flash_attention.segmented_launches += _segmented(starts)
     return out, lse
 
 
@@ -248,13 +362,14 @@ def flash_fwd_i8(q, k, v, k_scale, v_scale, *, causal, scale, q_offset,
     out, lse = _flash_fwd_operands(q, k, v, torch.int8)
     for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
         _check_scale(name, sc, k.shape[:3], q.device)
+    starts, offs = _starts_args(q, k, q_offset, kv_offset)
     lib = _build.load("flash_fwd", _FLASH_SIG)
     with torch.cuda.device(q.device):
         err = lib.tdt_flash_fwd_i8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Hq, Hkv,
             Sq, Sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *k_scale.stride(), *v_scale.stride(), q_offset, kv_offset,
+            *k_scale.stride(), *v_scale.stride(), *starts, *offs,
             int(bool(causal)), int(window), float(scale),
             float(soft_cap or 0.0), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_fwd_i8")
@@ -297,29 +412,32 @@ def _bwd_args(q, k, v, do, lse, delta, *, causal, scale, q_offset,
     Hkv, Sk = k.shape[1], k.shape[2]
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
+    starts, offs = _starts_args(q, k, q_offset, kv_offset)
     tail = (B, Hq, Hkv, Sq, Sk, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *do.stride()[:3], int(q_offset),
-            int(kv_offset), int(bool(causal)), int(window), int(out_f32),
+            *v.stride()[:3], *do.stride()[:3], *starts, *offs,
+            int(bool(causal)), int(window), int(out_f32),
             float(scale), float(soft_cap or 0.0),
             torch.cuda.current_stream(q.device).cuda_stream)
-    return head, tail
+    return head, tail, _segmented(starts)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, out_dtype, **kw):
     """The dq kernel (``_flash_bwd_dq_kernel``) on CUDA tensors checked by
     :func:`_flash_bwd_cuda`: dq [B, Hq, Sq, D] in ``out_dtype``."""
     dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
-    head, tail = _bwd_args(q, k, v, do, lse, delta,
-                           out_f32=out_dtype == torch.float32, **kw)
+    head, tail, seg = _bwd_args(q, k, v, do, lse, delta,
+                                out_f32=out_dtype == torch.float32, **kw)
     lib = _build.load("flash_bwd", _FLASH_BWD_SIG)
     with torch.cuda.device(q.device):
         err = lib.tdt_flash_bwd_dq(*head, dq.data_ptr(), *tail)
     _build.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.segmented_launches += seg
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.segmented_launches = 0   # of them, with a start vector
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, out_dtype, **kw):
@@ -328,24 +446,28 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, out_dtype, **kw):
     ``out_dtype``."""
     dk = torch.empty(k.shape, dtype=out_dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=out_dtype, device=k.device)
-    head, tail = _bwd_args(q, k, v, do, lse, delta,
-                           out_f32=out_dtype == torch.float32, **kw)
+    head, tail, seg = _bwd_args(q, k, v, do, lse, delta,
+                                out_f32=out_dtype == torch.float32, **kw)
     lib = _build.load("flash_bwd", _FLASH_BWD_SIG)
     with torch.cuda.device(q.device):
         err = lib.tdt_flash_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(),
                                     *tail)
     _build.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.segmented_launches += seg
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.segmented_launches = 0
 
 
-def _flash_bwd_cuda(q, k, v, out, lse, do, *, grad_dtype=None, **kw):
+def _flash_bwd_cuda(q, k, v, out, lse, do, *, grad_dtype=None, delta=None,
+                    **kw):
     """``_flash_bwd_pallas`` on the card: delta = rowsum(dO * O) in f32 by
-    one torch op (the reference leaves it to XLA), then the dq and dkv
-    kernels.  Gradients come back contiguous, bf16 or ``grad_dtype``
+    one torch op (the reference leaves it to XLA; a caller that runs
+    several blocks against one (out, dO) passes it once), then the dq and
+    dkv kernels.  Gradients come back contiguous, bf16 or ``grad_dtype``
     (f32 only)."""
     do = _bwd_operands(q, k, v, do)
     if grad_dtype not in (None, torch.bfloat16, torch.float32):
@@ -353,27 +475,36 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, *, grad_dtype=None, **kw):
                         f"{grad_dtype}")
     out_dtype = grad_dtype or torch.bfloat16
     lse = lse.float().contiguous()
-    delta = (do.float() * out.float()).sum(-1).contiguous()
+    if delta is None:
+        delta = bwd_delta(out, do)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, out_dtype=out_dtype, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, out_dtype=out_dtype,
                            **kw)
     return dq, dk, dv
 
 
+def bwd_delta(out, do):
+    """rowsum(dO * O) [B, Hq, Sq] f32, contiguous: what both backward
+    kernels read beside lse."""
+    return (do.float() * out.float()).sum(-1).contiguous()
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, scale=None,
                         q_offset=0, kv_offset=0, soft_cap=0.0, window=0,
-                        grad_dtype=None):
+                        grad_dtype=None, delta=None):
     """(dq, dk, dv) of :func:`flash_attention` from its saved (q, k, v,
     out, lse) and the output cotangent ``do``: the two backward kernels
-    on CUDA tensors (raising on what they do not take), the plain
-    :func:`flash_attention_bwd_ref` on CPU tensors."""
+    on CUDA tensors (raising on what they do not take; ``delta`` is
+    :func:`bwd_delta` of (out, do) when the caller has it), the plain
+    :func:`flash_attention_bwd_ref` on CPU tensors.  Offsets as
+    :func:`flash_attention` takes them."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    kw = dict(causal=causal, scale=scale, q_offset=_as_int(q_offset),
-              kv_offset=_as_int(kv_offset), soft_cap=soft_cap, window=window,
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              kv_offset=kv_offset, soft_cap=soft_cap, window=window,
               grad_dtype=grad_dtype)
     if q.is_cuda:
-        return _flash_bwd_cuda(q, k, v, out, lse, do, **kw)
+        return _flash_bwd_cuda(q, k, v, out, lse, do, delta=delta, **kw)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
     raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
@@ -417,8 +548,10 @@ def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
     ``window`` keeps keys with ``qpos - kpos < window``.  Differentiable
     through :class:`FlashAttentionFn` when grad is enabled and an input
     requires grad (not with ``return_lse``, as in the reference).  int8
-    k/v with ``k_scale``/``v_scale`` [B, Hkv, Sk] f32: forward only."""
-    q_offset, kv_offset = _as_int(q_offset), _as_int(kv_offset)
+    k/v with ``k_scale``/``v_scale`` [B, Hkv, Sk] f32: forward only.
+    ``q_offset``/``kv_offset``: ints, 0-d tensors, run-start tuples, or
+    one such tuple per batch row (module docstring)."""
+    q_offset, kv_offset = _row_starts(q_offset), _row_starts(kv_offset)
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
     if Hq % Hkv:
@@ -449,6 +582,9 @@ def flash_attention(q, k, v, *, causal=True, scale=None, q_offset=0,
 
 
 flash_attention.launches = 0
+# the launches that carried a start vector (segmented mode), counted
+# again here beside the total
+flash_attention.segmented_launches = 0
 
 
 def sp_flash_partials(q, k_shard, v_shard, *, causal=True, scale=None,
@@ -500,9 +636,22 @@ def flash_gqa_attention(q, k, v, *, causal=True, scale=None, window=0,
                         soft_cap=0.0, plain=False):
     """The model families' ``[S, B, H, D]`` layout: q [S, B, Hq, D];
     k/v [S, B, Hkv, D]; returns [S, B, Hq, D] in q's dtype.  The
-    transposes are views — the kernels read them by stride.  ``plain``
-    runs :func:`flash_attention_ref` on any device (a reference forward,
-    differentiated by autograd op by op)."""
+    transposes are views — the kernels read them by stride.  With a
+    leading rank dimension (q [W, S, B, Hq_loc, D], each rank's heads) the
+    ranks' heads are laid side by side, rank-major (the world-1 head
+    order, so every q head keeps its kv head), and attended in one call.
+    ``plain`` runs :func:`flash_attention_ref` on any device (a reference
+    forward, differentiated by autograd op by op)."""
+    if q.dim() == 5:
+        world, s, b, hq, d = q.shape
+
+        def heads(t):
+            return t.permute(1, 2, 0, 3, 4).reshape(s, b, -1, d)
+
+        o = flash_gqa_attention(heads(q), heads(k), heads(v), causal=causal,
+                                scale=scale, window=window,
+                                soft_cap=soft_cap, plain=plain)
+        return o.reshape(s, b, world, hq, d).permute(2, 0, 1, 3, 4)
     qt = q.permute(1, 2, 0, 3)
     kt = k.permute(1, 2, 0, 3)
     vt = v.permute(1, 2, 0, 3)

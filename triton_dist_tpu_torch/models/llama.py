@@ -302,21 +302,11 @@ def _attention(q, k, v, cfg: LlamaConfig, *, plain=False):
     """Causal GQA attention over the full sequence: q [S, B, Hq, hd], k/v
     [S, B, Hkv, hd] through the flash kernels (differentiable); ``plain``
     takes the plain PyTorch version under autograd instead.  With a
-    leading rank dimension (q [W, S, B, Hq/W, hd]) the ranks' heads are
-    laid side by side, rank-major (the world-1 head order, so every q head
-    keeps its kv head), and attended in one call."""
-    kw = dict(causal=True, scale=1.0 / math.sqrt(cfg.head_dim),
-              window=cfg.attn_window, soft_cap=cfg.attn_soft_cap,
-              plain=plain)
-    if q.dim() == 4:
-        return flash_gqa_attention(q, k, v, **kw)
-    world, s, b, hq, hd = q.shape
-
-    def heads(t):
-        return t.permute(1, 2, 0, 3, 4).reshape(s, b, -1, hd)
-
-    o = flash_gqa_attention(heads(q), heads(k), heads(v), **kw)
-    return o.reshape(s, b, world, hq, hd).permute(2, 0, 1, 3, 4)
+    leading rank dimension (q [W, S, B, Hq/W, hd]) every rank's heads go
+    through one call (``flash_gqa_attention``)."""
+    return flash_gqa_attention(
+        q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim),
+        window=cfg.attn_window, soft_cap=cfg.attn_soft_cap, plain=plain)
 
 
 def attention_block_shard(x, layer, cfg: LlamaConfig, *, plain=False):
