@@ -84,6 +84,19 @@ Phases, in order (any failure exits non-zero without the final line):
    causal
    SDPA call over the gathered 8,192 positions as the yardstick, and ten
    calls in a row on new inputs, each checked;
+   the collectives over meshes of an eight-rank virtual world (rows
+   10-12): the barrier over tp at (2, 2, 2) and over a flat axis of 8
+   (each rank's word back; latency only); the all-gather's ring, bidir
+   and full-mesh modes at the PP path's band ([1,024,528, 128] f32 per
+   rank, T 2 in four groups), T 4 over (2, 4), T 8 at [4,096, 128] bf16
+   and 37 rows, exactly equal to the plain version (a concatenation),
+   ``expand(...).contiguous()`` of the gathered view as the yardstick;
+   the reduce-scatter's ring and bidir modes at the path's plane
+   ([2,049,056, 128] f32 per rank over tp), T 4, T 8 bf16 and 5 and 1
+   rows per chunk, bit-equal to the plain version in the reference's ring
+   order, one ``sum`` over the rank dimension as the yardstick; each
+   timed eagerly between CUDA events and by the profiler's device time;
+   then ten bidir calls of each in a row, each checked;
 4. generator: Llama-3-8B at full width and all 32 layers, random weights
    from a seed: batch 2, a 512-token prompt, prefill + 32 greedy tokens;
 5. engine: ``ServeEngine`` (page 16, 8 slots, 512-token prefill chunks,
@@ -202,7 +215,19 @@ Phases, in order (any failure exits non-zero without the final line):
    4,096 the loss and every gradient leaf of each scheme against the same
    scheme over the plain versions (1e-3, 2e-2 relative L2), the peak of a
    2-layer gradient at S 8192 without and with remat, and one fused-ring
-   step at 2 layers and S 8192.
+   step at 2 layers and S 8192;
+19. PP train (last, on its own tree): ``LlamaConfig.mistral_7b()`` at
+   PP_LAYERS layers on a dcn 2 x pp 2 x tp 2 mesh of the virtual world,
+   tokens [S 2048, B 4] (S over tp, B over dcn, 2 microbatches), remat,
+   ``hier_dp_fast_axis="tp"``: (a) PP_STEPS SGD steps (finite, falling
+   losses; step ms, trained tok/s, peak memory; one reduce-scatter in its
+   bidir mode and one all-gather in its full-mesh mode per step; a
+   profiled step: device busy, idle share, the collectives', ring
+   kernels' and flash kernels' shares); (b) the same first two steps with
+   the plain psum (losses 1e-3 relative, every updated leaf 2e-2
+   relative L2); (c) at 2 layers the PP gradients against the port's
+   non-PP TP-2 step over the same batch and against the PP step over the
+   plain versions (1e-3; 2e-2 relative L2 per leaf).
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
@@ -229,7 +254,14 @@ each forward or step and read them after it: the segmented flash
 forward's count in the ``kernels`` line comes from phase 17's flash ring,
 ``ring_attn``'s from its fused forward, the segmented backward kernels'
 from phase 18 (a); every scheme's counts ride beside under "cp_launches"
-(flash_fwd's and the all-to-all's too).  A
+(flash_fwd's and the all-to-all's too).  Phase 19 zeroes the
+collectives' mode counters, the barrier's and the ring and flash
+kernels' counters just before its SGD steps and reads them just after: the all-gather's and the
+reduce-scatter's rows take their counts from there (the full-mesh
+all-gather and the bidir reduce-scatter > 0, the other modes 0: no path
+takes them at T 2), the barrier's is read there too and must be 0 (no model path calls
+it), and the
+ring and flash kernels' ride beside under "pp_launches".  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -335,6 +367,13 @@ CP = 4              # phases 17-18 and the CP kernel rows: virtual world ranks
 CP_SEQ = 8192       # Llama-3-8B's max_position_embeddings: 2,048 per rank
 CP_GRAD_SEQ = 4096  # phase 18 (c): the plain versions hold S x S f32 scores
 CP_SGD_STEPS = 3
+# Phase 19: Mistral-7B (vocab 32,000: the hierarchical step's f32 plane of
+# the tp-replicated gradients is 1.05 GB a rank, 8.4 GB for eight) on dcn 2
+# x pp 2 x tp 2; PERF.md holds the memory reckoning
+PP_LAYERS = 32
+PP_SEQ = 2048
+PP_BATCH = 4
+PP_STEPS = 3
 # Phase 15 holds the W8A8 TP forward to the float forward at the W8A8
 # gates (median relative error < 0.05, cosine > 0.995).  W8A8 error grows
 # with depth (each projection re-quantizes its rows): at 32 layers the
@@ -602,6 +641,7 @@ def kernel_phase(dev):
     rows.update(ring_rows(dev, g))
     rows["sp_combine"] = sp_combine_row(dev, g)
     rows.update(cp_kernel_rows(dev, g))
+    rows.update(collective_rows(dev, g))
     return rows
 
 
@@ -3502,6 +3542,396 @@ def cp_train_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 3 (collective rows) and 19: the barrier, all-gather and
+# reduce-scatter kernels over meshes of the virtual world, and
+# pipeline-parallel training with the hierarchical gradient all-reduce
+# ---------------------------------------------------------------------------
+
+
+def _mesh(shape, names):
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    return Mesh(shape, names, "cuda")
+
+
+def _timed(kind, tag, fn, key, n_bytes, plain_ms, lib_ms, lib_call,
+           algo_bytes=None):
+    """One collective's times: eager between CUDA events (a launch carries
+    its call's epoch, so no CUDA graph) and the profiler's device time of
+    its kernel, beside the bound (the function's bytes), the time the
+    kernel's own traffic needs at the memory rate (``algo_bytes``: the
+    schedule's reads and writes) and the yardsticks."""
+    ms = event_ms(fn, iters=10)
+    dev_ms = kernel_device_ms(fn, key, iters=10)
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms)
+    algo = ""
+    if algo_bytes is not None:
+        row["algorithm_bound_ms"] = algo_bytes / HBM_BYTES_S * 1e3
+        algo = (f", its own traffic {algo_bytes / 1e9:.2f} GB "
+                f"({row['algorithm_bound_ms']:.4f} ms at the memory rate, "
+                f"{algo_bytes / dev_ms / 1e6:.0f} GB/s achieved)")
+    log(f"{kind} {tag}: kernel {ms:.4f} ms eager ({dev_ms:.4f} ms device), "
+        f"plain {plain_ms:.4f} ms, library "
+        f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms ({lib_call})'}, "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB){algo}")
+    return row
+
+
+def collective_rows(dev, g):
+    """Phase 3's rows 10-12 over meshes of the virtual world (eight ranks
+    unless stated).  Row 10 (barrier): over tp at (2, 2, 2) and over a
+    flat axis of 8, each rank's word back; latency only (its payload is W
+    words), no PyTorch call is a cross-rank barrier.  Rows 11r / 11b / 11f
+    (the all-gather's ring, bidir and full-mesh modes): the path's band
+    [1,024,528, 128] f32 per rank over tp at (2, 2, 2) (four groups of
+    two), T 4 over (2, 4) at [131,072, 128] f32, T 8 at [4,096, 128] bf16
+    and an odd row count (37; bidir takes the ring there), each exactly
+    equal to the plain version (a concatenation); library: one
+    ``expand(...).contiguous()`` of the gathered view.  Rows 12r / 12b
+    (the reduce-scatter's ring and bidir modes): the path's plane
+    [2,049,056, 128] f32 per rank over tp at (2, 2, 2), T 4 at [4 x
+    65,536, 128] f32, T 8 at [8 x 4,096, 128] bf16, and 5 and 1 rows per
+    chunk, each bit-equal to the plain version in the reference's ring
+    order; library: one ``sum`` over the rank dimension of the stacked
+    view.  Bounds: every rank's input read once and output written once.
+    Then ten bidir all-gathers and ten bidir reduce-scatters in a row on
+    new inputs, each checked.  Rows report the path's shape; the others
+    ride along under "shapes"."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather as ag
+    from triton_dist_tpu_torch.kernels import common_ops as co
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    m222 = _mesh((2, 2, 2), ("dcn", "pp", "tp"))
+    m24 = _mesh((2, 4), ("dcn", "tp"))
+    m8 = _mesh((8,), ("tp",))
+    rows = {}
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # row 10: the barrier
+    shapes = {}
+    for tag, mesh in (("tp@2x2x2", m222), ("flat8", m8)):
+        x = torch.arange(8, dtype=torch.int32, device=dev).reshape(mesh.shape)
+        if not torch.equal(co.barrier_shard(x, mesh, "tp"), x):
+            raise AssertionError(f"barrier {tag}: words differ")
+        plain_ms = time_ms(lambda: co.barrier_ref(x))
+        shapes[tag] = _timed("barrier", tag,
+                             lambda: co.barrier_shard(x, mesh, "tp"),
+                             "barrier_kernel", 2 * x.numel() * 4, plain_ms,
+                             None, "")
+    rows["barrier"] = dict(shapes["tp@2x2x2"], max_abs_err=0.0,
+                           shapes=shapes)
+
+    # rows 11r / 11b / 11f: the all-gather
+    cases = [("band@tp2", m222, "tp", (1024528, 128), torch.float32),
+             ("t4", m24, "tp", (131072, 128), torch.float32),
+             ("t8_bf16", m8, "tp", (4096, 128), torch.bfloat16),
+             ("odd37", m222, "tp", (37, 128), torch.float32)]
+    inputs = {tag: randn((*m.shape, *shp), dt) for tag, m, _, shp, dt in cases}
+    for meth, name in ((ag.AllGatherMethod.RING_1D, "ring"),
+                       (ag.AllGatherMethod.RING_BIDIR, "bidir"),
+                       (ag.AllGatherMethod.FULL_MESH_PUSH, "full_mesh")):
+        shapes = {}
+        for tag, mesh, axis, shp, dt in cases:
+            x = inputs[tag]
+            got = ag.all_gather_shard(x, mesh, axis, meth)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ag.all_gather_ref(x, mesh, axis)):
+                raise AssertionError(f"allgather {name} {tag}: differs from "
+                                     f"the plain version")
+            del got
+            if tag == "odd37":
+                continue
+            nd, a = len(mesh.shape), mesh.dim(axis)
+            T = mesh.axis_size(axis)
+            gview = x.movedim(a, nd - 1).reshape(
+                *[s for i, s in enumerate(mesh.shape) if i != a],
+                T * shp[0], *shp[1:])
+            lib = event_ms(lambda: gview.unsqueeze(a).expand(
+                *mesh.shape, *gview.shape[nd - 1:]).contiguous(), iters=5)
+            plain_ms = event_ms(lambda: ag.all_gather_ref(x, mesh, axis),
+                                iters=5)
+            n_bytes = x.numel() * x.element_size() * (1 + T)
+            # every schedule reads T segments and writes T per rank
+            shapes[tag] = _timed(f"allgather {name}", tag,
+                                 lambda: ag.all_gather_shard(x, mesh, axis,
+                                                             meth),
+                                 "allgather_kernel", n_bytes, plain_ms, lib,
+                                 "expand(...).contiguous()",
+                                 algo_bytes=x.numel() * x.element_size()
+                                 * 2 * T)
+            free_cuda()
+        rows[f"allgather_{name}"] = dict(shapes["band@tp2"], max_abs_err=0.0,
+                                         shapes=shapes)
+    del inputs
+    free_cuda()
+
+    # rows 12r / 12b: the reduce-scatter
+    cases = [("plane@tp2", m222, "tp", 1024528, torch.float32),
+             ("t4", m24, "tp", 65536, torch.float32),
+             ("t8_bf16", m8, "tp", 4096, torch.bfloat16),
+             ("rows5", m24, "tp", 5, torch.float32),
+             ("rows1", m222, "tp", 1, torch.float32)]
+    for meth, name in ((rs.ReduceScatterMethod.RING_1D, "ring"),
+                       (rs.ReduceScatterMethod.RING_BIDIR, "bidir")):
+        shapes = {}
+        for tag, mesh, axis, r, dt in cases:
+            T = mesh.axis_size(axis)
+            x = randn((*mesh.shape, T * r, 128), dt)
+            got = rs.reduce_scatter_shard(x, mesh, axis, meth)
+            torch.cuda.synchronize()
+            if not torch.equal(got, rs.reduce_scatter_ref(x, mesh, axis,
+                                                          meth)):
+                raise AssertionError(f"reduce_scatter {name} {tag}: not bit-"
+                                     f"equal to the plain version")
+            del got
+            if tag.startswith("rows"):
+                continue
+            nd, a = len(mesh.shape), mesh.dim(axis)
+            stacked = x.view(*mesh.shape[:a + 1], T, r, 128)
+            lib = event_ms(lambda: stacked.sum(dim=a), iters=5)
+            plain_ms = event_ms(lambda: rs.reduce_scatter_ref(x, mesh, axis,
+                                                              meth), iters=3)
+            n_bytes = x.numel() * x.element_size() * (T + 1) // T
+            # per rank and chunk: T reads of its partial, T - 1 landing
+            # writes and reads, one band written
+            shapes[tag] = _timed(f"reduce_scatter {name}", tag,
+                                 lambda: rs.reduce_scatter_shard(
+                                     x, mesh, axis, meth),
+                                 "reduce_scatter_kernel", n_bytes, plain_ms,
+                                 lib, "sum over the rank dimension",
+                                 algo_bytes=x.numel() * x.element_size()
+                                 * (3 * T - 1) // T)
+            del x
+            free_cuda()
+        rows[f"reduce_scatter_{name}"] = dict(shapes["plane@tp2"],
+                                              max_abs_err=0.0, shapes=shapes)
+
+    # ten bidir calls of each in a row, on new inputs, each checked
+    for i in range(10):
+        x = randn((2, 2, 2, 65536, 128))
+        a = ag.all_gather_shard(x, m222, "tp", ag.AllGatherMethod.RING_BIDIR)
+        r = rs.reduce_scatter_shard(x, m222, "tp")
+        torch.cuda.synchronize()
+        if not (torch.equal(a, ag.all_gather_ref(x, m222, "tp")) and
+                torch.equal(r, rs.reduce_scatter_ref(x, m222, "tp"))):
+            raise AssertionError(f"collectives: call {i} of ten differs")
+    log("collectives: ten bidir all-gathers and reduce-scatters in a row, "
+        "each equal to its plain version")
+    free_cuda()
+    return rows
+
+
+def _pp_counters():
+    from triton_dist_tpu_torch.kernels import allgather as ag
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import common_ops as co
+    from triton_dist_tpu_torch.kernels import flash_attention as fa
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    return {"barrier": (co.barrier_shard, None),
+            "reduce_scatter_ring": (rs.reduce_scatter_shard, "ring"),
+            "reduce_scatter_bidir": (rs.reduce_scatter_shard, "bidir"),
+            "allgather_ring": (ag.all_gather_shard, "ring"),
+            "allgather_bidir": (ag.all_gather_shard, "bidir"),
+            "allgather_full_mesh": (ag.all_gather_shard, "full_mesh"),
+            "ag_gemm": (agm.ag_gemm, None), "gemm_rs": (grs.gemm_rs, None),
+            "flash_fwd": (fa.flash_attention, None),
+            "flash_bwd_dq": (fa.flash_bwd_dq, None),
+            "flash_bwd_dkv": (fa.flash_bwd_dkv, None)}
+
+
+def _zero_pp_counters():
+    for fn, mode in _pp_counters().values():
+        if mode is None:
+            fn.launches = 0
+        else:
+            fn.mode_launches[mode] = 0
+
+
+def _read_pp_counters():
+    return {n: fn.launches if mode is None else fn.mode_launches[mode]
+            for n, (fn, mode) in _pp_counters().items()}
+
+
+def pp_train_phase():
+    """Phase 19: Mistral-7B at full width and PP_LAYERS layers on a dcn 2 x
+    pp 2 x tp 2 mesh of the virtual world (the reference's hybrid mesh),
+    tokens [S 2048, B 4] from a seed (S over tp, B over dcn, 2
+    microbatches), remat, ``hier_dp_fast_axis="tp"``.  (a) PP_STEPS SGD
+    steps at SGD_LR with the launch counters zeroed just before and read
+    just after (one reduce-scatter in its bidir mode and one all-gather in
+    its full-mesh mode per step, the ring and flash kernels > 0): finite,
+    falling losses, step ms, trained tok/s, peak memory; then one profiled
+    step (device busy, idle share, the RS and AG share, the ring kernels'
+    and the flash kernels').  (b) Hierarchical against psum: the first two
+    steps of (a) against two steps of the same fresh tree with
+    ``hier_dp_fast_axis=None``: losses within 1e-3 relative, every updated
+    leaf within 2e-2 relative L2.  (c) At 2 layers, the PP step's loss and
+    gradients (``make_pp_grads``) against the port's non-PP
+    ``llama.make_train_step(cfg, 2)`` loss over the same batch and against
+    the PP step over the plain versions (1e-3; 2e-2 relative L2 per leaf).
+    Returns the launch counts of (a)."""
+    from dataclasses import replace
+
+    import torch
+
+    from triton_dist_tpu_torch.models import llama, pp
+    from triton_dist_tpu_torch.runtime.bootstrap import create_hybrid_mesh
+    from triton_dist_tpu_torch.runtime.utils import value_and_grad
+
+    cfg = replace(llama.LlamaConfig.mistral_7b(), n_layers=PP_LAYERS)
+    # the reference's hybrid mesh (__graft_entry__.py _dryrun_hybrid):
+    # dcn 2 x pp 2 x tp 2, the slow axis leading
+    mesh = create_hybrid_mesh({"pp": 2, "tp": 2}, n_slow=2, device="cuda")
+    rng = np.random.default_rng(19)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(PP_SEQ, PP_BATCH)),
+                          device="cuda")
+    tgt = torch.roll(tok, -1, dims=0)
+    kw = dict(dp_axis="dcn", n_micro=2, remat=True)
+
+    def fresh():
+        free_cuda()
+        t0 = time.perf_counter()
+        p = pp.place_pp_params(pp.init_pp_params(cfg, seed=0), cfg, mesh)
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    params, t_init = fresh()
+    log(f"pp train: mistral_7b {cfg.n_layers} layers (dim {cfg.dim}, vocab "
+        f"{cfg.vocab}), mesh dcn 2 x pp 2 x tp 2, random weights (seed 0, "
+        f"placed) in {t_init:.1f} s; tokens [{PP_SEQ}, {PP_BATCH}], 2 "
+        f"microbatches; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated")
+    torch.cuda.reset_peak_memory_stats()
+    step, _ = pp.make_pp_train_step(cfg, mesh, lr=SGD_LR,
+                                    hier_dp_fast_axis="tp", **kw)
+    _zero_pp_counters()
+    losses, times, hier_leaves = [], [], None
+    for i in range(PP_STEPS):
+        t0 = time.perf_counter()
+        _, loss = step(params, tok, tgt)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:      # (b): the tree after two steps, kept on the host
+            hier_leaves = [t.to("cpu", copy=True)
+                           for _, t in named_leaves(params)]
+    launches = _read_pp_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall = float(np.median(times[1:]))
+    log(f"pp train (a) SGD lr {SGD_LR}: losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in times]} ({PP_SEQ * PP_BATCH / wall * 1e3:.0f}"
+        f" trained tok/s), peak memory {peak:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f}; "
+        f"launches {launches}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"pp train (a): losses {losses} not finite and "
+                             f"falling")
+    # the barrier: no model path calls it (the reference's host barrier
+    # only), so the step must not launch it either
+    want = {"reduce_scatter_bidir": PP_STEPS, "allgather_full_mesh": PP_STEPS,
+            "barrier": 0}
+    for n, c in want.items():
+        if launches[n] != c:
+            raise AssertionError(f"pp train (a): {n} launched {launches[n]} "
+                                 f"times in {PP_STEPS} steps, expected {c}")
+    for n in ("ag_gemm", "gemm_rs", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkv"):
+        if launches[n] <= 0:
+            raise AssertionError(f"kernel {n} never launched by PP training")
+    busy, top = profile_once(lambda: step(params, tok, tgt), top_n=60)
+
+    def share(*keys):
+        return sum(ms for name, _, ms in top if any(k in name for k in keys))
+
+    rs_ms, ag_ms = share("reduce_scatter_kernel"), share("allgather_kernel")
+    ring_ms, flash_ms = share("ag_gemm", "gemm_rs"), share("flash")
+    log(f"pp train (a) profiled step: device busy {busy:.1f} ms of a "
+        f"{wall:.1f} ms step, idle share {1 - busy / wall:.3f}; "
+        f"reduce-scatter {rs_ms:.2f} ms + all-gather {ag_ms:.2f} ms "
+        f"({(rs_ms + ag_ms) / busy:.4f} of busy), ring kernels "
+        f"{ring_ms:.1f} ms ({ring_ms / busy:.3f}), flash kernels "
+        f"{flash_ms:.1f} ms ({flash_ms / busy:.3f})")
+    for name, n, ms in top[:14]:
+        log(f"pp train (a)   {ms:8.2f} ms  x{n:<5d} {name[:90]}")
+    del params, step
+
+    # (b) the same two steps through the plain psum
+    params, _ = fresh()
+    step, _ = pp.make_pp_train_step(cfg, mesh, lr=SGD_LR,
+                                    hier_dp_fast_axis=None, **kw)
+    plain_losses = [float(step(params, tok, tgt)[1]) for _ in range(2)]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses[:2],
+                                                       plain_losses))
+    worst = ("", -1.0)
+    for (name, a), b in zip(named_leaves(params), hier_leaves):
+        b = b.to("cuda", torch.float32)
+        rel = ((a.float() - b).norm() / b.norm()).item()
+        if not rel <= 2e-2:
+            raise AssertionError(f"pp train (b): leaf {name} relative L2 "
+                                 f"{rel:.3e} > 2e-2")
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+    log(f"pp train (b) hierarchical vs psum, 2 steps: losses "
+        f"{[round(x, 6) for x in losses[:2]]} vs "
+        f"{[round(x, 6) for x in plain_losses]} (relative {rel_loss:.2e}, "
+        f"tol 1e-3); worst updated leaf {worst[0]} relative L2 "
+        f"{worst[1]:.3e} (tol 2e-2)")
+    if not rel_loss <= 1e-3:
+        raise AssertionError(f"pp train (b): losses relative {rel_loss:.2e}")
+    del params, step, hier_leaves
+
+    # (c) 2 layers: the PP gradients against the non-PP step's and the
+    # plain versions'
+    free_cuda()
+    cfg2 = replace(cfg, n_layers=2)
+    stacked = pp.init_pp_params(cfg2, seed=0)
+    flat = {k: v for k, v in stacked.items() if k != "layers"}
+    flat["layers"] = [{k: v[i] for k, v in stacked["layers"].items()}
+                      for i in range(2)]
+    p2 = pp.place_pp_params(stacked, cfg2, mesh)
+    loss_k, g_k = pp.make_pp_grads(cfg2, mesh, hier_dp_fast_axis="tp",
+                                   **kw)(p2, tok, tgt)
+    loss_p, g_p = pp.make_pp_grads(cfg2, mesh, hier_dp_fast_axis="tp",
+                                   plain=True, **kw)(p2, tok, tgt)
+    tp2 = llama.shard_params(flat, cfg2, 2)
+    loss_t, g_t = value_and_grad(llama.loss_shard, tp2, tok, tgt, cfg2,
+                                 world=2)
+    checks = {"plain": [(n, a, b) for (n, a), (_, b) in
+                        zip(named_leaves(g_k), named_leaves(g_p))],
+              "non-pp": [(f"layers.{k}[{i}]", g_k["layers"][k][i], v)
+                         for i, layer in enumerate(g_t["layers"])
+                         for k, v in layer.items()]
+              + [(k, g_k[k], g_t[k]) for k in ("embed", "final_norm",
+                                                "lm_head")]}
+    for tag, ref_loss in (("plain", loss_p), ("non-pp", loss_t)):
+        rel_loss = abs(float(loss_k) - float(ref_loss)) / abs(float(ref_loss))
+        worst = ("", 0.0)
+        for name, a, b in checks[tag]:
+            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+            if not rel <= 2e-2:
+                raise AssertionError(f"pp train (c) vs {tag}: gradient "
+                                     f"{name} relative L2 {rel:.3e} > 2e-2")
+            worst = max(worst, (name, rel), key=lambda x: x[1])
+        log(f"pp train (c) 2 layers, PP kernels vs {tag}: loss "
+            f"{float(loss_k):.6f} vs {float(ref_loss):.6f} (relative "
+            f"{rel_loss:.2e}, tol 1e-3); worst gradient leaf {worst[0]} "
+            f"relative L2 {worst[1]:.3e} (tol 2e-2)")
+        if not rel_loss <= 1e-3:
+            raise AssertionError(f"pp train (c) vs {tag}: loss relative "
+                                 f"{rel_loss:.2e}")
+    del p2, g_k, g_p, g_t, tp2, flat, stacked
+    free_cuda()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3694,6 +4124,17 @@ def main() -> int:
     # the SGD steps (the forward's ride along), the dense GEMM's 0 too
     tp_fwd, tp_train = tp_phases()
     launches.update(tp_train)
+    log(f"tp done at {time.perf_counter() - t_start:.1f} s")
+
+    # phase 19: pipeline-parallel training with the hierarchical gradient
+    # all-reduce; the collectives' counts come from its SGD steps (the
+    # barrier's 0 too: no model path calls it), the ring and flash
+    # kernels' ride beside under "pp_launches"
+    pp_launches = pp_train_phase()
+    for n in ("barrier", "allgather_ring", "allgather_bidir",
+              "allgather_full_mesh", "reduce_scatter_ring",
+              "reduce_scatter_bidir"):
+        launches[n] = pp_launches[n]
 
     src = {"flash_fwd": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
                          "triton_dist_tpu/kernels/flash_attention.py:116"),
@@ -3742,7 +4183,22 @@ def main() -> int:
                "triton_dist_tpu_torch/csrc/flash_bwd.cu",
                "triton_dist_tpu/kernels/flash_attention.py:388"),
            "ring_attn": ("triton_dist_tpu_torch/csrc/ring_attn.cu",
-                         "triton_dist_tpu/kernels/ring_attention.py:409")}
+                         "triton_dist_tpu/kernels/ring_attention.py:409"),
+           "barrier": ("triton_dist_tpu_torch/csrc/barrier.cu",
+                       "triton_dist_tpu/kernels/common_ops.py:34"),
+           "allgather_ring": ("triton_dist_tpu_torch/csrc/allgather.cu",
+                              "triton_dist_tpu/kernels/allgather.py:109"),
+           "allgather_bidir": ("triton_dist_tpu_torch/csrc/allgather.cu",
+                               "triton_dist_tpu/kernels/allgather.py:146"),
+           "allgather_full_mesh": (
+               "triton_dist_tpu_torch/csrc/allgather.cu",
+               "triton_dist_tpu/kernels/allgather.py:185"),
+           "reduce_scatter_ring": (
+               "triton_dist_tpu_torch/csrc/reduce_scatter.cu",
+               "triton_dist_tpu/kernels/reduce_scatter.py:73"),
+           "reduce_scatter_bidir": (
+               "triton_dist_tpu_torch/csrc/reduce_scatter.cu",
+               "triton_dist_tpu/kernels/reduce_scatter.py:134")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -3775,8 +4231,11 @@ def main() -> int:
                                        "flash_bwd_dq_seg",
                                        "flash_bwd_dkv_seg", "ring_attn",
                                        "all_to_all") else {}),
+                        **({"pp_launches": pp_launches[name]}
+                           if name in pp_launches else {}),
                         **{k: r[k] for k in ("m8", "t8", "shapes",
-                                             "algorithm_bound_ms")
+                                             "algorithm_bound_ms",
+                                             "device_ms")
                            if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -21,6 +21,11 @@ of W ranks on the one card) follow the same bf16 rule over the whole
 output (f32 output: 1e-4 of the largest magnitude), the gathered A bit
 for bit.  The all-to-all moves bytes and is held to its plain version bit
 for bit on every row it defines (below each split, the own segment).
+The collectives over a mesh of the virtual world (barrier, every mode of
+the all-gather and the reduce-scatter) are held to their plain versions
+bit for bit (the reduce-scatter sums in the same ring order), and the
+hierarchical PP step to the psum step at the bf16 gates (losses 1e-3
+relative, leaves 2e-2 relative L2).
 """
 
 import zlib
@@ -1709,3 +1714,189 @@ def test_cp_llama_two_layers_on_the_card(cuda):
         for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
             rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
             assert rel <= 2e-2, (attn, impl, rel)
+
+
+# ---------------------------------------------------------------------------
+# Collectives over a mesh of the virtual world: barrier, all-gather,
+# reduce-scatter (bit for bit against their plain versions), the PP step
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_MESHES = [
+    # (mesh shape, axis names, the axis collected over): T 2 over grouped
+    # ranks, T 4 over a (2, 4) mesh, T 8 flat
+    ((2, 2, 2), ("dcn", "pp", "tp"), "tp"),
+    ((2, 2, 2), ("dcn", "pp", "tp"), "dcn"),
+    ((2, 4), ("dcn", "tp"), "tp"),
+    ((8,), ("tp",), "tp"),
+]
+
+
+def _mesh(shape, names, dev):
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    return Mesh(shape, names, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_case", COLLECTIVE_MESHES)
+def test_barrier_on_the_card(cuda, mesh_case):
+    """One launch of the barrier over every group of the axis returns each
+    rank's word; ten in a row."""
+    from triton_dist_tpu_torch.kernels import common_ops as co
+
+    mesh = _mesh(*mesh_case[:2], cuda)
+    x = torch.arange(mesh.size, dtype=torch.int32, device=cuda).reshape(
+        mesh.shape)
+    n0 = co.barrier_shard.launches
+    for _ in range(10):
+        assert torch.equal(co.barrier_shard(x, mesh, mesh_case[2]), x)
+    assert co.barrier_shard.launches == n0 + 10
+    got = co.barrier_all_on_mesh(mesh, mesh_case[2])
+    assert got.tolist() == [0] * mesh.axis_size(mesh_case[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_case", COLLECTIVE_MESHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("method", ["RING_1D", "RING_BIDIR",
+                                    "FULL_MESH_PUSH"])
+def test_all_gather_matches_plain(cuda, mesh_case, dtype, method):
+    """Every mode of the all-gather kernel equals its plain version bit for
+    bit, at even (1024) and odd (37: bidir takes the ring) rows per rank,
+    one launch per call."""
+    from triton_dist_tpu_torch.kernels import allgather as ag
+
+    mesh = _mesh(*mesh_case[:2], cuda)
+    axis = mesh_case[2]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for rows in (1024, 37):
+        x = torch.randn((*mesh.shape, rows, 128), generator=g,
+                        device=cuda).to(dtype)
+        n0 = ag.all_gather_shard.launches
+        got = ag.all_gather_shard(x, mesh, axis,
+                                  getattr(ag.AllGatherMethod, method))
+        torch.cuda.synchronize()
+        assert ag.all_gather_shard.launches == n0 + 1
+        assert torch.equal(got, ag.all_gather_ref(x, mesh, axis))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_case", COLLECTIVE_MESHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("method", ["RING_1D", "RING_BIDIR"])
+def test_reduce_scatter_matches_plain(cuda, mesh_case, dtype, method):
+    """Every mode of the reduce-scatter kernel equals its plain version
+    (the reference's ring order) bit for bit, in f32 and bf16, at rows per
+    rank 2048, 5 (unequal bidir halves) and 1 (the ring)."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    mesh = _mesh(*mesh_case[:2], cuda)
+    axis = mesh_case[2]
+    T = mesh.axis_size(axis)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    meth = getattr(rs.ReduceScatterMethod, method)
+    for rows in (2048, 5, 1):
+        x = torch.randn((*mesh.shape, T * rows, 128), generator=g,
+                        device=cuda).to(dtype)
+        got = rs.reduce_scatter_shard(x, mesh, axis, meth)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rs.reduce_scatter_ref(x, mesh, axis, meth))
+
+
+@pytest.mark.gpu
+def test_collectives_ten_calls_in_a_row_and_refuse_capture(cuda):
+    """Ten bidir all-gathers and ten bidir reduce-scatters in a row on new
+    inputs, each checked; a CUDA graph capture of either is refused (each
+    call takes a host epoch); an unsupported dtype is refused."""
+    from triton_dist_tpu_torch.kernels import allgather as ag
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    mesh = _mesh((2, 2, 2), ("dcn", "pp", "tp"), cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for _ in range(10):
+        x = torch.randn((2, 2, 2, 4096, 128), generator=g, device=cuda)
+        a = ag.all_gather_shard(x, mesh, "tp", ag.AllGatherMethod.RING_BIDIR)
+        r = rs.reduce_scatter_shard(x, mesh, "tp")
+        torch.cuda.synchronize()
+        assert torch.equal(a, ag.all_gather_ref(x, mesh, "tp"))
+        assert torch.equal(r, rs.reduce_scatter_ref(x, mesh, "tp"))
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            ag.all_gather_shard(x, mesh, "tp")
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        rs.reduce_scatter_shard(x.double(), mesh, "tp")
+
+
+@pytest.mark.gpu
+def test_hier_all_to_all_on_the_card(cuda):
+    """The two-stage all-to-all over a (2, 4) mesh on the kernel (one
+    launch per group of each axis: 4 + 2) equals its plain version on
+    every row below a split, padding rows zero."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+    from triton_dist_tpu_torch.kernels import hierarchical as hi
+
+    mesh = _mesh((2, 4), ("dp", "tp"), cuda)
+    gen = np.random.default_rng(4)
+    send = torch.from_numpy(gen.standard_normal((2, 4, 8, 64, 256)).astype(
+        np.float32)).to(device=cuda, dtype=torch.bfloat16)
+    splits = torch.from_numpy(gen.integers(0, 65, size=(2, 4, 8)).astype(
+        np.int32)).to(cuda)
+    n0 = a2a.fast_all_to_all_shard.launches
+    got, gs = hi.hier_all_to_all_shard(send, splits, mesh, slow_axis="dp",
+                                       fast_axis="tp")
+    torch.cuda.synchronize()
+    assert a2a.fast_all_to_all_shard.launches == n0 + 6
+    want, ws = hi.hier_all_to_all_shard(send, splits, mesh, slow_axis="dp",
+                                        fast_axis="tp", plain=True)
+    assert torch.equal(gs, ws)
+    row = torch.arange(64, device=cuda)
+    keep = (row < ws[..., None])[..., None]
+    assert torch.equal(torch.where(keep, got, 0), want)
+
+
+@pytest.mark.gpu
+def test_pp_hier_step_on_the_card(cuda):
+    """A 2-layer narrow Llama (dim 1024, 8 / 4 heads, bf16) on (dcn 2, pp
+    2, tp 2), S 512, B 4: the hierarchical step launches one
+    reduce-scatter (bidir) and one all-gather (full mesh) per step, and
+    its losses and updated leaves equal the psum step's (bf16 rounding:
+    losses 1e-3 relative, leaves 2e-2 relative L2)."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.kernels import allgather as ag
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+    from triton_dist_tpu_torch.models import llama, pp
+    from triton_dist_tpu_torch.runtime.utils import (
+        tree_leaves,
+        use_full_precision_matmul,
+    )
+
+    use_full_precision_matmul()
+    cfg = replace(llama.LlamaConfig.tiny(torch.bfloat16), vocab=4096,
+                  max_seq=512)
+    mesh = _mesh((2, 2, 2), ("dcn", "pp", "tp"), cuda)
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(512, 4)), device=cuda)
+    tgt = torch.roll(tok, -1, 0)
+    runs = {}
+    for hier in ("tp", None):
+        params = pp.place_pp_params(pp.init_pp_params(cfg, seed=0), cfg,
+                                    mesh)
+        step, _ = pp.make_pp_train_step(cfg, mesh, dp_axis="dcn", n_micro=2,
+                                        lr=0.2, remat=True,
+                                        hier_dp_fast_axis=hier)
+        n0 = (dict(rs.reduce_scatter_shard.mode_launches),
+              dict(ag.all_gather_shard.mode_launches))
+        losses = [float(step(params, tok, tgt)[1]) for _ in range(2)]
+        moved = (rs.reduce_scatter_shard.mode_launches["bidir"]
+                 - n0[0]["bidir"],
+                 ag.all_gather_shard.mode_launches["full_mesh"]
+                 - n0[1]["full_mesh"])
+        assert moved == ((2, 2) if hier else (0, 0)), moved
+        assert all(np.isfinite(losses)) and losses[1] < losses[0]
+        runs[hier] = (losses, tree_leaves(params))
+    np.testing.assert_allclose(runs["tp"][0], runs[None][0], rtol=1e-3)
+    for a, b in zip(runs["tp"][1], runs[None][1]):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 2e-2, rel

@@ -51,7 +51,15 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.models.llama_w8a8",
             "triton_dist_tpu_torch.kernels.ring_attention",
             "triton_dist_tpu_torch.kernels.ulysses_attention",
-            "triton_dist_tpu_torch.models.cp"} <= set(mods)
+            "triton_dist_tpu_torch.models.cp",
+            "triton_dist_tpu_torch.kernels.common_ops",
+            "triton_dist_tpu_torch.kernels.allgather",
+            "triton_dist_tpu_torch.kernels.reduce_scatter",
+            "triton_dist_tpu_torch.kernels.low_latency_allgather",
+            "triton_dist_tpu_torch.kernels.hierarchical",
+            "triton_dist_tpu_torch.layers.allgather_layer",
+            "triton_dist_tpu_torch.parallel.pipeline",
+            "triton_dist_tpu_torch.models.pp"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -434,3 +442,48 @@ def test_cp_wrappers_use_plain_versions_only_for_cpu_tensors():
             ra.create_ring_attention_context(4)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ua.create_ulysses_context(4)
+
+
+def test_collective_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """The barrier, all-gather, reduce-scatter and the hierarchical
+    all-reduce run their plain versions on CPU tensors without counting a
+    launch and refuse other devices; a mesh, the PP tree and the PP step's
+    parameters default to the card."""
+    from triton_dist_tpu_torch.kernels import allgather as ag
+    from triton_dist_tpu_torch.kernels import common_ops as co
+    from triton_dist_tpu_torch.kernels import hierarchical as hi
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+    from triton_dist_tpu_torch.models import llama, pp
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    mesh = Mesh((2, 2), ("dcn", "tp"), "cpu")
+    x = torch.arange(2 * 2 * 4 * 128, dtype=torch.float32).reshape(
+        2, 2, 4, 128)
+    counters = (co.barrier_shard, ag.all_gather_shard,
+                rs.reduce_scatter_shard)
+    n0 = [fn.launches for fn in counters]
+    co.barrier_shard(torch.zeros((2, 2), dtype=torch.int32), mesh, "tp")
+    for m in (ag.AllGatherMethod.RING_1D, ag.AllGatherMethod.RING_BIDIR,
+              ag.AllGatherMethod.FULL_MESH_PUSH):
+        assert ag.all_gather_shard(x, mesh, "tp", m).shape == (2, 2, 8, 128)
+    for m in (rs.ReduceScatterMethod.RING_1D,
+              rs.ReduceScatterMethod.RING_BIDIR):
+        assert rs.reduce_scatter_shard(x, mesh, "tp", m).shape == \
+            (2, 2, 2, 128)
+    total = hi.hier_all_reduce_shard(x, mesh, slow_axis="dcn",
+                                     fast_axis="tp")
+    assert torch.equal(total[1, 0], x.sum(dim=(0, 1)))
+    assert [fn.launches for fn in counters] == n0
+    meta = torch.empty((2, 2, 4, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ag.all_gather_shard(meta, mesh, "tp")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rs.reduce_scatter_shard(meta, mesh, "tp")
+    with pytest.raises(ValueError, match="unsupported device"):
+        co.barrier_shard(torch.zeros((2, 2), dtype=torch.int32,
+                                     device="meta"), mesh, "tp")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Mesh((2, 2), ("dcn", "tp"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pp.init_pp_params(llama.LlamaConfig.tiny())

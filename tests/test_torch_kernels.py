@@ -37,6 +37,17 @@ no multiple of the kernels' tile (m_loc 8 and 24 against the Pallas
 kernels, 5 against the XLA path), 1e-5; the W8A8 TP linears against the
 reference's (``impl="xla"``), 1e-5, and its oracle (median relative error
 against the float product < 0.02).
+
+Collectives over a mesh (``runtime/bootstrap.Mesh``): the all-gather's
+plain version (three methods, odd rows, a user's function around it,
+grouped axes of a (2, 4) mesh) bit for bit against the interpret-mode
+Pallas kernels (spied), the reduce-scatter's (ring and bidir at rows 8,
+5, 1; the host entry) bit-equal in f32, the XLA method within 1e-6;
+``choose_allgather_method``; ``fast_allgather`` and ``AllGatherLayer``
+exact; the barrier's host entry; the hierarchical all-gather,
+reduce-scatter and all-reduce bit for bit, ``hier_grad_allreduce`` within
+1e-2 (its test's bound, a bf16 leaf), the two-stage all-to-all exact on
+every valid row (``impl="xla"`` and interpret-mode Pallas).
 """
 
 import importlib
@@ -920,7 +931,8 @@ def test_all_to_all_context_entry_and_post_process(mesh4):
                                             4, 4)[1].numpy()))
     assert np.array_equal(tokens.numpy(), np.asarray(jt))
     assert np.array_equal(mask.numpy(), np.asarray(jm))
-    with pytest.raises(NotImplementedError, match="items 14 and 15"):
+    # a (slow, fast) axis is the two-stage path: it needs a Mesh of them
+    with pytest.raises(ValueError, match="needs a Mesh"):
         ta.create_all_to_all_context(4, 8, 128, axis=("dp", "tp"),
                                      device="cpu")
 
@@ -1059,7 +1071,7 @@ def test_moe_layer_w4_matches_reference(dtype_name, tol, mesh4):
     specs = {k: (0 if len(v) and v[0] == "tp" else None)
              for k, v in jl.weight_specs().items()}
     assert tl.weight_specs() == specs and tl.experts_per_rank == 2
-    with pytest.raises(NotImplementedError, match="items 14 and 15"):
+    with pytest.raises(NotImplementedError, match="ninth entry"):
         type(tl)(n_experts=8, topk=2, hidden=128, intermediate=128,
                  world=8, axis=("dp", "tp"), device="cpu")
     with pytest.raises(ValueError, match="do not split"):
@@ -1952,3 +1964,427 @@ def test_ulysses_matches_reference(plain, mesh4):
                   for a in _ring_qkv(98, 64, Hq=6, Hkv=2))
     with pytest.raises(ValueError, match="divisible by world"):
         tua.ulysses_attention_shard(q3, k3, v3)
+
+
+# ---------------------------------------------------------------------------
+# Collectives over a mesh: barrier, all-gather, reduce-scatter, the
+# latency-tuned all-gather and its layer, the hierarchical compositions
+# ---------------------------------------------------------------------------
+
+jag = importlib.import_module("triton_dist_tpu.kernels.allgather")
+jrs = importlib.import_module("triton_dist_tpu.kernels.reduce_scatter")
+jhi = importlib.import_module("triton_dist_tpu.kernels.hierarchical")
+
+
+def _tmesh(shape, names):
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    return Mesh(shape, names, "cpu")
+
+
+def _jmesh(shape, names):
+    from jax.sharding import Mesh
+
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), names)
+
+
+def _per_rank(fn, mesh, spec, *args):
+    """jit(shard_map(fn)) with every rank's result stacked on a new leading
+    dimension, sharded like the inputs (``spec``)."""
+    from jax.sharding import PartitionSpec as P
+
+    return np.asarray(_shard_map(lambda *a: fn(*a)[None], mesh,
+                                 tuple(P(spec) for _ in args), P(spec),
+                                 *[jnp.asarray(a) for a in args]))
+
+
+AG_CASES = {
+    # name: (method, rows per rank, multiply after the gather)
+    "ring": ("RING_1D", 8, 1.0),
+    "bidir": ("RING_BIDIR", 8, 1.0),
+    "full_mesh": ("FULL_MESH_PUSH", 8, 1.0),
+    "bidir_odd_rows": ("RING_BIDIR", 9, 1.0),
+    "ring_in_user_shard": ("RING_1D", 8, 2.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AG_CASES))
+def test_all_gather_plain_matches_pallas(name, mesh4, monkeypatch):
+    """all_gather_shard (its plain version, a concatenation, on CPU
+    tensors) against the reference's interpret-mode Pallas kernels on
+    mesh4 (spied: the kernel of the method traces), every rank's gathered
+    [4 rows, 128] f32 bit for bit; bidir on odd rows takes the ring, as
+    the reference does; a user function around the gather (x 2) too."""
+    from triton_dist_tpu_torch.kernels import allgather as tag
+
+    meth, rows, scale = AG_CASES[name]
+    traced = []
+    jmeth = getattr(jag.AllGatherMethod, meth)
+    kern_meth = (jag.AllGatherMethod.RING_1D if rows % 2 and
+                 meth == "RING_BIDIR" else jmeth)
+    kernel, n_sem = jag._KERNELS[kern_meth]
+
+    def spy(*a, **kw):
+        traced.append(kw["world"])
+        return kernel(*a, **kw)
+
+    monkeypatch.setitem(jag._KERNELS, kern_meth, (spy, n_sem))
+    x = _inputs(300 + rows, (4 * rows, 128))[0]
+    want = _per_rank(lambda s: jag.all_gather_shard(
+        s, "tp", method=jmeth, interpret=True) * scale, mesh4, "tp", x)
+    assert traced and set(traced) == {4}
+    n0 = tag.all_gather_shard.launches
+    got = tag.all_gather_shard(_t(x).reshape(4, rows, 128),
+                               _tmesh((4,), ("tp",)), "tp",
+                               getattr(tag.AllGatherMethod, meth)) * scale
+    assert tag.all_gather_shard.launches == n0
+    assert got.shape == (4, 4 * rows, 128)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("axis,meth", [("tp", "RING_BIDIR"),
+                                       ("dcn", "FULL_MESH_PUSH")])
+def test_all_gather_grouped_axis_matches_pallas(axis, meth):
+    """Over one axis of a (2, 4) mesh every group gathers alone: the plain
+    version against the interpret-mode kernels on a ("dcn", "tp") mesh,
+    every rank bit for bit; the host entry gathers a global array."""
+    from triton_dist_tpu_torch.kernels import allgather as tag
+
+    x = _inputs(310, (8 * 4, 128))[0]
+    want = _per_rank(lambda s: jag.all_gather_shard(
+        s, axis, method=getattr(jag.AllGatherMethod, meth),
+        interpret=True), _jmesh((2, 4), ("dcn", "tp")), ("dcn", "tp"), x)
+    mesh = _tmesh((2, 4), ("dcn", "tp"))
+    got = tag.all_gather_shard(_t(x).reshape(2, 4, 4, 128), mesh, axis,
+                               getattr(tag.AllGatherMethod, meth))
+    assert np.array_equal(got.reshape(want.shape).numpy(), want)
+    ctx = tag.create_allgather_context(mesh, axis="tp")
+    assert ctx.world == 4
+    assert np.array_equal(tag.all_gather(_t(x[:16]), ctx).numpy(), x[:16])
+
+
+RS_CASES = {"ring_8": ("RING_1D", 8), "bidir_8": ("RING_BIDIR", 8),
+            "bidir_5": ("RING_BIDIR", 5), "bidir_1": ("RING_BIDIR", 1),
+            "xla_8": ("XLA", 8)}
+
+
+@pytest.mark.parametrize("name", sorted(RS_CASES))
+def test_reduce_scatter_plain_matches_pallas(name, mesh4, monkeypatch):
+    """reduce_scatter_shard's plain version against the reference's
+    interpret-mode ring kernels on mesh4 (spied), distinct f32 partials
+    [4 rows, 128] per rank: bit-equal in the ring order, bidir at rows 8
+    and 5 (unequal halves) and 1 (the ring); the XLA method within 1e-6
+    (rank order against XLA's sum)."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as trs
+
+    meth, rows = RS_CASES[name]
+    traced = []
+    kname = "_bidir_ring_rs_kernel" if meth == "RING_BIDIR" and rows >= 2 \
+        else "_ring_rs_kernel"
+    kernel = getattr(jrs, kname)
+
+    def spy(*a, **kw):
+        traced.append(kw["world"])
+        return kernel(*a, **kw)
+
+    monkeypatch.setattr(jrs, kname, spy)
+    parts = _inputs(320 + rows, (4, 4 * rows, 128))[0]
+    jmeth = getattr(jrs.ReduceScatterMethod, meth)
+    want = _shard_map(lambda p: jrs.reduce_scatter_shard(
+        p[0], "tp", method=jmeth, interpret=True), mesh4,
+        (jax.sharding.PartitionSpec("tp"),), jax.sharding.PartitionSpec("tp"),
+        jnp.asarray(parts))
+    assert meth == "XLA" or (traced and set(traced) == {4})
+    n0 = trs.reduce_scatter_shard.launches
+    got = trs.reduce_scatter_shard(_t(parts), _tmesh((4,), ("tp",)), "tp",
+                                   getattr(trs.ReduceScatterMethod, meth))
+    assert trs.reduce_scatter_shard.launches == n0
+    assert got.shape == (4, rows, 128)
+    if meth == "XLA":
+        assert_allclose(got.reshape(-1, 128), np.asarray(want), atol=1e-6,
+                        rtol=1e-6)
+    else:
+        assert np.array_equal(got.reshape(-1, 128).numpy(),
+                              np.asarray(want))
+
+
+def test_reduce_scatter_host_entry_matches_reference(mesh4):
+    """The host entry's stacked-partials contract against the reference's
+    (ring, interpret mode): bit-equal; a leading dimension other than the
+    axis size is refused with the reference's message."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as trs
+
+    x = _inputs(330, (4, 32, 128))[0]
+    want = jrs.reduce_scatter(jnp.asarray(x), jrs.ReduceScatterContext(
+        mesh=mesh4, method=jrs.ReduceScatterMethod.RING_1D, interpret=True))
+    ctx = trs.create_reduce_scatter_context(
+        _tmesh((4,), ("tp",)), method=trs.ReduceScatterMethod.RING_1D)
+    got = trs.reduce_scatter(_t(x), ctx)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert trs.resolve_method() is trs.ReduceScatterMethod.RING_BIDIR
+    assert trs.resolve_method(plain=True) is trs.ReduceScatterMethod.XLA
+    with pytest.raises(ValueError, match="stacked partials"):
+        trs.reduce_scatter(_t(x[:3]), ctx)
+
+
+def test_choose_allgather_method_matches_reference():
+    """choose_allgather_method against the reference's on its own cases and
+    over several axes; a gather over two real axes (the torus schedule) is
+    refused naming its ROADMAP entry, a degenerate axis tuple is not."""
+    from triton_dist_tpu_torch.kernels import allgather as tag
+
+    M = tag.AllGatherMethod
+    assert tag.choose_allgather_method(1024, 8) is M.FULL_MESH_PUSH
+    assert tag.choose_allgather_method(64 << 20, 8) is M.RING_BIDIR
+    assert tag.choose_allgather_method(64 << 20, 2) is M.FULL_MESH_PUSH
+    for args in ((1024, 8), (64 << 20, 8), (64 << 20, 2), (300 << 10, 4),
+                 (1 << 20, 8, (2, 4)), (4096, 8, (2, 4)),
+                 (1 << 20, 4, (1, 4))):
+        assert tag.choose_allgather_method(*args).value == \
+            jag.choose_allgather_method(*args).value, args
+    mesh = _tmesh((2, 4), ("dcn", "tp"))
+    x = torch.zeros(2, 4, 3, 128)
+    with pytest.raises(NotImplementedError, match="eighth entry"):
+        tag.all_gather_shard(x, mesh, ("dcn", "tp"))
+    one = _tmesh((1, 4), ("dcn", "tp"))
+    got = tag.all_gather_shard(torch.arange(12.).reshape(1, 4, 3, 1), one,
+                               ("dcn", "tp"))
+    assert got[0, 2].flatten().tolist() == list(range(12))
+
+
+def test_fast_allgather_matches_reference(mesh8, mesh2d):
+    """fast_allgather at one level (8 ranks) and two (tp then dp over a
+    (2, 4) mesh) against the reference's interpret-mode full-mesh push,
+    bit for bit; the (out, lse) payload round trip."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import low_latency_allgather as tll
+
+    jll = importlib.import_module(
+        "triton_dist_tpu.kernels.low_latency_allgather")
+    x = _inputs(340, (64, 256))[0]
+    want = jll.fast_allgather(
+        jax.device_put(jnp.asarray(x), NamedSharding(mesh8, P("tp"))),
+        jll.create_fast_ag_context(mesh8, impl="pallas", interpret=True))
+    got = tll.fast_allgather(_t(x), tll.create_fast_ag_context(
+        _tmesh((8,), ("tp",))))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    x2 = x[:, :128]
+    want = jll.fast_allgather(
+        jax.device_put(jnp.asarray(x2), NamedSharding(mesh2d,
+                                                      P(("dp", "tp")))),
+        jll.create_fast_ag_context(mesh2d, axis="tp", inter_axis="dp",
+                                   impl="pallas", interpret=True))
+    ctx = tll.create_fast_ag_context(_tmesh((2, 4), ("dp", "tp")),
+                                     axis="tp", inter_axis="dp")
+    assert ctx.world == 8
+    assert np.array_equal(tll.fast_allgather(_t(x2), ctx).numpy(),
+                          np.asarray(want))
+    out, lse = _inputs(341, (4, 8, 128), (4, 8))
+    buf = tll.pack_payload(_t(out), _t(lse))
+    assert buf.shape == (4, 8, 129)
+    assert np.array_equal(buf.numpy(), np.asarray(
+        jll.pack_payload(jnp.asarray(out), jnp.asarray(lse))))
+    o2, l2 = tll.unpack_payload(buf[None])
+    assert torch.equal(o2[0], _t(out)) and torch.equal(l2[0], _t(lse))
+    with pytest.raises(ValueError, match="impl"):
+        tll.create_fast_ag_context(ctx.mesh, impl="pallas")
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_allgather_layer_matches_reference(impl, mesh2):
+    """AllGatherLayer's size policy (push at or under LATENCY_BOUND_BYTES
+    per rank, the ring above) gathers x whole either way, and
+    forward_packed's per-rank (out, lse) partials equal the reference's
+    (impl="xla", mesh2)."""
+    from triton_dist_tpu_torch.layers import allgather_layer as tal
+    from triton_dist_tpu_torch.kernels import low_latency_allgather as tll
+
+    jal = importlib.import_module("triton_dist_tpu.layers.allgather_layer")
+    jll = importlib.import_module(
+        "triton_dist_tpu.kernels.low_latency_allgather")
+    x = _t(_inputs(350, (32, 128))[0])
+    ctx = tll.create_fast_ag_context(_tmesh((4,), ("tp",)), impl=impl)
+    layer = tal.AllGatherLayer(ctx=ctx)
+    assert layer.latency_bound_bytes == jal.LATENCY_BOUND_BYTES
+    for got in (layer.forward_push(x), layer.forward_ring(x),
+                layer.forward(x),
+                tal.AllGatherLayer(ctx=ctx, latency_bound_bytes=1).forward(x)):
+        assert torch.equal(got, x)
+    out, lse = _inputs(351, (4, 8, 32), (4, 8))
+    jo, jl = jal.AllGatherLayer(ctx=jll.create_fast_ag_context(
+        mesh2, impl="xla")).forward_packed(jnp.asarray(out), jnp.asarray(lse))
+    to, tl = tal.AllGatherLayer(ctx=tll.create_fast_ag_context(
+        _tmesh((2,), ("tp",)), impl=impl)).forward_packed(_t(out), _t(lse))
+    assert to.shape == (2, 2, 8, 32)
+    assert np.array_equal(to.numpy(), np.asarray(jo))
+    assert np.array_equal(tl.numpy(), np.asarray(jl))
+
+
+def test_barrier_plain_matches_reference(mesh4):
+    """barrier_all_on_mesh returns the reference's [T] int32 zeros (its
+    interpret-mode barrier kernel on mesh4); on CPU tensors barrier_shard
+    is the identity over every axis of a (2, 2, 2) mesh and launches
+    nothing; the mesh's groups and strides, and the hybrid mesh's shape
+    contract (the slow axis leading, as the reference's
+    ``create_hybrid_mesh``)."""
+    from triton_dist_tpu_torch.kernels import common_ops as tco
+
+    jco = importlib.import_module("triton_dist_tpu.kernels.common_ops")
+    want = np.asarray(jco.barrier_all_on_mesh(mesh4, "tp", interpret=True))
+    got = tco.barrier_all_on_mesh(_tmesh((4,), ("tp",)), "tp")
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    mesh = _tmesh((2, 2, 2), ("dcn", "pp", "tp"))
+    x = torch.arange(8, dtype=torch.int32).reshape(2, 2, 2)
+    n0 = tco.barrier_shard.launches
+    for axis in mesh.axis_names:
+        assert torch.equal(tco.barrier_shard(x, mesh, axis), x)
+    assert tco.barrier_shard.launches == n0
+    assert tco.barrier_all_on_mesh(mesh, "pp").shape == (2,)
+    assert mesh.axis_groups("tp") == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    assert mesh.axis_groups("dcn") == [[0, 4], [1, 5], [2, 6], [3, 7]]
+    assert [mesh.axis_stride(a) for a in mesh.axis_names] == [4, 2, 1]
+    from triton_dist_tpu_torch.runtime.bootstrap import create_hybrid_mesh
+
+    hyb = create_hybrid_mesh({"pp": 2, "tp": 2}, n_slow=2, device="cpu")
+    assert hyb.axis_names == ("dcn", "pp", "tp") and hyb.shape == (2, 2, 2)
+    assert hyb.world is mesh.world
+    with pytest.raises(ValueError, match="int32"):
+        tco.barrier_shard(x.float(), mesh, "tp")
+
+
+def _hier_fn(op):
+    """The reference's shard-level hierarchical op on a ("dcn", "tp")
+    mesh, interpret mode, per rank."""
+    M = jrs.ReduceScatterMethod
+    if op == "all_gather":
+        return lambda s: jhi.hier_all_gather_shard(
+            s, slow_axis="dcn", fast_axis="tp", interpret=True,
+            fast_method=jag.AllGatherMethod.RING_BIDIR)
+    if op == "reduce_scatter":
+        return lambda p: jhi.hier_reduce_scatter_shard(
+            p[0], slow_axis="dcn", fast_axis="tp", interpret=True,
+            fast_method=M.RING_BIDIR)
+    return lambda p: jhi.hier_all_reduce_shard(
+        p[0], slow_axis="dcn", fast_axis="tp", interpret=True)
+
+
+@pytest.mark.parametrize("op", ["all_gather", "reduce_scatter",
+                                "all_reduce"])
+def test_hier_collectives_match_pallas(op):
+    """hier_all_gather_shard (flat order restored), hier_reduce_scatter_
+    shard (band ``hier_rs_band_index``) and hier_all_reduce_shard (RS over
+    tp, the dcn sum, AG over tp) against the reference's interpret-mode
+    kernels on a (2, 4) mesh, every rank bit for bit (f32: the same sums
+    in the same order)."""
+    from triton_dist_tpu_torch.kernels import hierarchical as thi
+
+    jmesh = _jmesh((2, 4), ("dcn", "tp"))
+    mesh = _tmesh((2, 4), ("dcn", "tp"))
+    if op == "all_gather":
+        x = _inputs(360, (8 * 4, 128))[0]
+        want = _per_rank(_hier_fn(op), jmesh, ("dcn", "tp"), x)
+        got = thi.hier_all_gather_shard(
+            _t(x).reshape(2, 4, 4, 128), mesh, slow_axis="dcn",
+            fast_axis="tp",
+            fast_method=thi.AllGatherMethod.RING_BIDIR)
+        assert np.array_equal(got.reshape(want.shape).numpy(), want)
+        return
+    x = _inputs(361, (8, 8 * 8, 128))[0]
+    want = _per_rank(_hier_fn(op), jmesh, ("dcn", "tp"), x)
+    fn = (thi.hier_reduce_scatter_shard if op == "reduce_scatter"
+          else thi.hier_all_reduce_shard)
+    got = fn(_t(x).reshape(2, 4, 64, 128), mesh, slow_axis="dcn",
+             fast_axis="tp")
+    assert np.array_equal(got.reshape(want.shape).numpy(), want)
+    if op == "reduce_scatter":
+        idx = thi.hier_rs_band_index(mesh, "dcn", "tp")
+        total = x.sum(axis=0)
+        for i in range(2):
+            for j in range(4):
+                b = int(idx[i, j])
+                assert b == j * 2 + i
+                assert_allclose(got[i, j], total[b * 8:(b + 1) * 8],
+                                atol=1e-4, rtol=1e-4)
+
+
+def test_hier_grad_allreduce_matches_reference():
+    """hier_grad_allreduce over ragged leaves (one bf16) against the
+    reference's on a (2, 4) mesh, 1e-2 as its test (the bf16 leaf is cast
+    back)."""
+    from jax.sharding import PartitionSpec as P
+
+    from triton_dist_tpu_torch.kernels import hierarchical as thi
+
+    w, b, e = _inputs(370, (2, 4, 17, 5), (2, 4, 3), (2, 4, 2, 2, 7))
+    tree = {"w": w, "b": b, "e": e}
+
+    def shard_fn(parts):
+        i, j = jax.lax.axis_index("dcn"), jax.lax.axis_index("tp")
+        mine = {k: v[i, j] for k, v in parts.items()}
+        mine["e"] = mine["e"].astype(jnp.bfloat16)
+        return jhi.hier_grad_allreduce(mine, slow_axis="dcn", fast_axis="tp",
+                                       interpret=True)
+
+    want = jax.jit(jax.shard_map(
+        shard_fn, mesh=_jmesh((2, 4), ("dcn", "tp")), in_specs=(P(),),
+        out_specs=P(), check_vma=False))(
+        {k: jnp.asarray(v) for k, v in tree.items()})
+    ttree = {"w": _t(w), "b": _t(b), "e": _t(e).to(torch.bfloat16)}
+    got = thi.hier_grad_allreduce(ttree, _tmesh((2, 4), ("dcn", "tp")),
+                                  slow_axis="dcn", fast_axis="tp")
+    for k in tree:
+        assert got[k].dtype == ttree[k].dtype
+        assert got[k].shape == ttree[k].shape
+        for i in range(2):
+            for j in range(4):
+                assert_allclose(got[k][i, j].float(),
+                                np.asarray(want[k], np.float32), atol=1e-2,
+                                rtol=1e-2)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_hier_all_to_all_matches_reference(impl, mesh2d):
+    """hier_all_to_all_shard (two stages over the all-to-all kernel's plain
+    version, bundles compacted) against the reference's on a (2, 4) mesh
+    (``impl="xla"``, and interpret-mode Pallas): split counts equal, every
+    row below a split bit for bit, padding rows ZERO; the host entry over
+    a (dp, tp) context gives the same."""
+    from triton_dist_tpu_torch.kernels import all_to_all as ta
+    from triton_dist_tpu_torch.kernels import hierarchical as thi
+
+    jaa = importlib.import_module("triton_dist_tpu.kernels.all_to_all")
+    world, T, H = 8, 4, 32
+    x = _inputs(380, (world * world, T, H))[0]
+    splits = np.random.default_rng(381).integers(
+        0, T + 1, size=(world * world,)).astype(np.int32)
+
+    def hier(send, sp):
+        return jhi.hier_all_to_all_shard(send, sp, slow_axis="dp",
+                                         fast_axis="tp", impl=impl,
+                                         interpret=impl == "pallas")
+
+    from jax.sharding import PartitionSpec as P
+
+    spec = P(("dp", "tp"))
+    jr, js = jax.jit(jax.shard_map(hier, mesh=mesh2d, in_specs=(spec, spec),
+                                   out_specs=(spec, spec), check_vma=False))(
+        jnp.asarray(x), jnp.asarray(splits))
+    jr, js = np.asarray(jr), np.asarray(js)
+    mesh = _tmesh((2, 4), ("dp", "tp"))
+    n0 = ta.fast_all_to_all_shard.launches
+    recv, rs = thi.hier_all_to_all_shard(
+        _t(x).reshape(2, 4, world, T, H), _t(splits).reshape(2, 4, world),
+        mesh, slow_axis="dp", fast_axis="tp")
+    assert ta.fast_all_to_all_shard.launches == n0
+    assert np.array_equal(rs.reshape(-1).numpy(), js)
+    got = recv.reshape(world * world, T, H).numpy()
+    for blk in range(world * world):
+        k = int(js[blk])
+        assert np.array_equal(got[blk, :k], jr[blk, :k])
+        assert not got[blk, k:].any()
+    ctx = ta.create_all_to_all_context(mesh, T, H, axis=("dp", "tp"))
+    r2, s2 = ta.fast_all_to_all(_t(x), _t(splits), ctx)
+    assert torch.equal(r2, recv.reshape(world * world, T, H))
+    assert torch.equal(s2, rs.reshape(-1))

@@ -32,6 +32,16 @@
   (``params_from_jax``): logits within 2e-5, the loss within 1e-5 and
   every updated leaf within 5e-4; remat equals no remat, CP equals the
   port's world-1 forward (5e-4, the reference's CP-vs-unsharded bound).
+- Pipeline parallelism (``models/pp.py``, ``parallel/pipeline.py``):
+  ``pipeline_spmd`` on the reference's toy stack (1e-6); the PP step of
+  Llama tiny on (pp 2, tp 2) against the reference's (``impl="xla"``) and
+  of MoE tiny on (dcn 2, pp 2, tp 2) with the hierarchical reduction
+  against the reference's interpret-mode kernels, two steps each: losses
+  within 1e-5, every updated leaf within 5e-4; hierarchical equals psum
+  (2e-4), remat equals no remat (1e-6), PP equals the port's TP-2 step
+  (1e-5 / 5e-4; ``make_pp_grads`` against its gradients); the families'
+  ``dp`` steps against the reference's ``dp_axis`` steps on a (dp 2, tp
+  2) mesh (1e-5, 5e-4) and ``examples/train.py --dp 2 --tp 2``.
 """
 
 import os
@@ -53,14 +63,19 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from triton_dist_tpu.models import cp as jcp
 from triton_dist_tpu.models import llama as jllama
 from triton_dist_tpu.models import moe as jmoe
+from triton_dist_tpu.models import pp as jpp
 from triton_dist_tpu.models import training as jtraining
+from triton_dist_tpu.parallel import pipeline as jpipe
 from triton_dist_tpu_torch.kernels import group_gemm as tgg
 from triton_dist_tpu_torch.kernels import ring_attention as tra
 from triton_dist_tpu_torch.models import cp as tcp
 from triton_dist_tpu_torch.models import llama as tllama
 from triton_dist_tpu_torch.models import moe as tmoe
+from triton_dist_tpu_torch.models import pp as tpp
 from triton_dist_tpu_torch.models import training as ttraining
+from triton_dist_tpu_torch.parallel import pipeline as tpipe
 from triton_dist_tpu_torch.runtime import checkpoint as ck
+from triton_dist_tpu_torch.runtime.bootstrap import Mesh as TMesh
 from triton_dist_tpu_torch.runtime.utils import (
     assert_allclose,
     tree_leaves,
@@ -321,9 +336,9 @@ def test_train_cli_and_resume(tmp_path):
 def test_train_cli_refuses_unported_options():
     from triton_dist_tpu_torch.examples import train
 
-    for flags, item in ((["--model", "moe", "--opt", "adamw", "--dp", "2"],
-                         "items 14 and 15"),
-                        (["--dp", "2"], "items 14 and 15"),
+    for flags, item in ((["--opt", "adamw", "--tp", "2"], "ninth entry"),
+                        (["--model", "moe", "--opt", "adamw", "--tp", "2"],
+                         "ninth entry"),
                         (["--profile", "p"], "item 16")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
@@ -550,14 +565,11 @@ def test_train_cli_tp4_runs(capsys):
 
 
 def test_train_cli_refuses_unported_tp_options(capsys):
-    """--dp (checked first) and AdamW at --tp > 1 raise, each naming its
-    ROADMAP entry (both now Queue 1's fifth, items 14 and 15); the MoE
-    family at --tp 2 runs."""
+    """AdamW at --tp > 1 raises, naming its ROADMAP entry (Queue 1's
+    ninth); the MoE family at --tp 2 runs."""
     from triton_dist_tpu_torch.examples import train
 
-    for flags, item in ((["--tp", "4", "--dp", "2"], "items 14 and 15"),
-                        (["--tp", "4", "--opt", "adamw"],
-                         "items 14 and 15, the fifth entry")):
+    for flags, item in ((["--tp", "4", "--opt", "adamw"], "ninth entry"),):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
     train.main(["--device", "cpu", "--model", "moe", "--tp", "2", "--steps",
@@ -815,10 +827,250 @@ def test_cp_remat_and_world1(cp_pair):
             got = tcp.make_cp_forward(tcfg, 4, attn=attn, zigzag=zz)(
                 tparams, tok)
             assert_allclose(got, ref, atol=5e-4, rtol=5e-4)
-    with pytest.raises(NotImplementedError, match="items 14 and 15"):
+    with pytest.raises(NotImplementedError, match="ninth entry"):
         tcp.make_cp_train_step(tcfg, 4, dp_axis="dp")
     with pytest.raises(ValueError, match="attn"):
         tcp.make_cp_forward(tcfg, 4, attn="tree")
     with pytest.raises(ValueError, match="zigzag"):
         tcp.make_cp_forward(tcfg, 4, attn="ulysses", zigzag=True)(
             tparams, tok)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (dcn x pp x tp) with the hierarchical gradient
+# all-reduce, and data parallelism in the family steps
+# ---------------------------------------------------------------------------
+
+def _jmesh(shape, names):
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), names)
+
+
+def test_pipeline_spmd_matches_reference():
+    """pipeline_spmd (only the live stage-microbatch pairs) on the
+    reference's toy stack (4 layers x * w + 1, pp 2, 3 microbatches)
+    against the reference's GPipe schedule on a (pp 2, tp 2) mesh, 1e-6;
+    stack_layer_params stacks as the reference's does."""
+    from jax.sharding import PartitionSpec as JP
+
+    n_layers, n_micro, mb = 4, 3, 8
+    ws = np.arange(1.0, n_layers + 1, dtype=np.float32)[:, None] * np.ones(
+        (n_layers, 128), np.float32)
+    xs = np.random.default_rng(400).standard_normal(
+        (n_micro, mb, 128)).astype(np.float32)
+
+    def shard_fn(w, x):
+        out = jpipe.pipeline_spmd(lambda a, b: b * a[None, :] + 1.0, w, x,
+                                  axis="pp", n_micro=n_micro)
+        last = jax.lax.axis_index("pp") == jax.lax.axis_size("pp") - 1
+        return jax.lax.psum(jnp.where(last, out, 0.0), "pp")
+
+    want = jax.jit(jax.shard_map(
+        shard_fn, mesh=_jmesh((2, 2), ("pp", "tp")),
+        in_specs=(JP("pp"), JP()), out_specs=JP(), check_vma=False))(
+        jnp.asarray(ws), jnp.asarray(xs))
+    got = tpipe.pipeline_spmd(lambda a, b: b * a[None, :] + 1.0,
+                              torch.as_tensor(ws).reshape(2, 2, 128),
+                              torch.as_tensor(xs), n_micro=n_micro)
+    assert_allclose(got, np.asarray(want), atol=1e-6, rtol=1e-6)
+    layers = [{"w": torch.full((3,), float(i))} for i in range(4)]
+    stacked = tpipe.stack_layer_params(layers)
+    assert stacked["w"].shape == (4, 3) and stacked["w"][2, 0] == 2.0
+
+
+def _pp_run(jcfg, tcfg, shape, names, *, dp_axis, hier, S, B, steps=2,
+            remat=False):
+    """The reference's make_pp_train_step (interpret mode, ``impl="xla"``
+    projections) and the port's on the same weights and tokens: (ref
+    losses, port losses, ref updated tree placed as the port's, port
+    tree)."""
+    jmesh, tmesh = _jmesh(shape, names), TMesh(shape, names, "cpu")
+    jp = jpp.init_pp_params(jcfg, jax.random.key(21))
+    host = jax.device_get(jp)
+    tparams = tpp.place_pp_params(tpp.params_from_jax(host, tcfg, "cpu"),
+                                  tcfg, tmesh)
+    tok = np.random.default_rng(22).integers(0, jcfg.vocab, size=(S, B))
+    tgt = np.roll(tok, -1, axis=0)
+    jstep, _ = jpp.make_pp_train_step(
+        jcfg, jmesh, dp_axis=dp_axis, n_micro=2, impl="xla",
+        interpret=True, lr=0.3, hier_dp_fast_axis=hier, remat=remat)
+    tstep, specs = tpp.make_pp_train_step(
+        tcfg, tmesh, dp_axis=dp_axis, n_micro=2, lr=0.3,
+        hier_dp_fast_axis=hier, remat=remat)
+    assert specs == tpp.pp_param_specs(tcfg)
+    jp = jpp.place_pp_params(jp, jcfg, jmesh)
+    jl, tl = [], []
+    for _ in range(steps):
+        jp, loss = jstep(jp, jnp.asarray(tok, jnp.int32),
+                         jnp.asarray(tgt, jnp.int32))
+        jl.append(float(loss))
+        tparams, loss = tstep(tparams, torch.as_tensor(tok),
+                              torch.as_tensor(tgt))
+        tl.append(float(loss))
+    want = tpp.place_pp_params(tpp.params_from_jax(jax.device_get(jp), tcfg,
+                                                   "cpu"), tcfg, tmesh)
+    return jl, tl, want, tparams
+
+
+def test_pp_llama_step_matches_reference():
+    """make_pp_train_step for Llama tiny on (pp 2, tp 2), two SGD steps,
+    against the reference's (``impl="xla"``) on the same weights
+    (``params_from_jax``): the losses within 1e-5 and every updated leaf
+    within 5e-4 (the world-1 tolerances; measured ~2e-7)."""
+    jl, tl, want, got = _pp_run(jllama.LlamaConfig.tiny(),
+                                tllama.LlamaConfig.tiny(), (2, 2),
+                                ("pp", "tp"), dp_axis=None, hier=None, S=32,
+                                B=4)
+    assert_allclose(tl, jl, atol=1e-5, rtol=1e-5)
+    assert got["layers"]["wq"].shape == (2, 2, 1024, 512)
+    assert got["layers"]["wo"].shape == (2, 2, 512, 1024)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert_allclose(g, w, atol=5e-4, rtol=5e-4)
+
+
+def test_pp_moe_hier_step_matches_reference():
+    """The hybrid step: MoE tiny on (dcn 2, pp 2, tp 2) with
+    hier_dp_fast_axis="tp" (the reduce-scatter and all-gather over tp, the
+    dcn sum between) against the reference's with its interpret-mode
+    kernels: losses within 1e-5, every updated leaf within 5e-4."""
+    jl, tl, want, got = _pp_run(jmoe.MoEConfig.tiny(), tmoe.MoEConfig.tiny(),
+                                (2, 2, 2), ("dcn", "pp", "tp"),
+                                dp_axis="dcn", hier="tp", S=16, B=8)
+    assert_allclose(tl, jl, atol=1e-5, rtol=1e-5)
+    assert tl[1] < tl[0]
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert_allclose(g, w, atol=5e-4, rtol=5e-4)
+
+
+def _pp_port(cfg, shape, names, *, dp_axis, hier, remat=False, S=16, B=8,
+             seed=23):
+    mesh = TMesh(shape, names, "cpu")
+    params = tpp.place_pp_params(tpp.init_pp_params(cfg, seed=seed,
+                                                    device="cpu"), cfg, mesh)
+    tok = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(S, B)))
+    tgt = torch.roll(tok, -1, dims=0)
+    step, _ = tpp.make_pp_train_step(cfg, mesh, dp_axis=dp_axis, n_micro=2,
+                                     lr=0.3, hier_dp_fast_axis=hier,
+                                     remat=remat)
+    losses = [float(step(params, tok, tgt)[1]) for _ in range(2)]
+    return losses, params
+
+
+def test_pp_hier_matches_psum():
+    """The hierarchical dp reduction equals the plain psum (the same sums
+    bracketed otherwise): MoE tiny on (dcn 2, pp 2, tp 2), two steps,
+    losses and every leaf within 2e-4 (the reference's
+    test_pp_hybrid_hier_dp_matches_plain bound); the hierarchical path
+    needs a dp axis and names the tp axis."""
+    cfg = tmoe.MoEConfig.tiny()
+    names = ("dcn", "pp", "tp")
+    lh, ph = _pp_port(cfg, (2, 2, 2), names, dp_axis="dcn", hier="tp")
+    lp, pp_ = _pp_port(cfg, (2, 2, 2), names, dp_axis="dcn", hier=None)
+    assert_allclose(lh, lp, atol=2e-4, rtol=2e-4)
+    for a, b in zip(tree_leaves(ph), tree_leaves(pp_)):
+        assert_allclose(a, b, atol=2e-4, rtol=2e-4)
+    with pytest.raises(ValueError, match="hier_dp_fast_axis"):
+        tpp.make_pp_train_step(cfg, TMesh((2, 2, 2), names, "cpu"),
+                               dp_axis="dcn", hier_dp_fast_axis="pp")
+
+
+def test_pp_remat_matches_no_remat():
+    """remat=True (each layer checkpointed) gives the step without it:
+    Llama tiny on (dcn 2, pp 2, tp 2) with the hierarchical reduction,
+    losses and leaves within 1e-6."""
+    cfg = tllama.LlamaConfig.tiny()
+    names = ("dcn", "pp", "tp")
+    l0, p0 = _pp_port(cfg, (2, 2, 2), names, dp_axis="dcn", hier="tp")
+    l1, p1 = _pp_port(cfg, (2, 2, 2), names, dp_axis="dcn", hier="tp",
+                      remat=True)
+    assert_allclose(l1, l0, atol=1e-6, rtol=1e-6)
+    for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
+        assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_pp_matches_non_pp_tp_step():
+    """Microbatching and stages are math-neutral: the PP step on (pp 2, tp
+    2) against the port's TP-2 make_train_step on the same weights and
+    tokens, two steps: losses within 1e-5, every layer leaf within 5e-4."""
+    cfg = tllama.LlamaConfig.tiny()
+    mesh = TMesh((2, 2), ("pp", "tp"), "cpu")
+    stacked = tpp.init_pp_params(cfg, seed=24, device="cpu")
+    flat = {k: v.clone() for k, v in stacked.items() if k != "layers"}
+    flat["layers"] = [{k: v[i].clone() for k, v in stacked["layers"].items()}
+                      for i in range(cfg.n_layers)]
+    tp_params = tllama.shard_params(flat, cfg, 2)
+    pp_params = tpp.place_pp_params(stacked, cfg, mesh)
+    tok = torch.as_tensor(np.random.default_rng(25).integers(
+        0, cfg.vocab, size=(32, 4)))
+    tgt = torch.roll(tok, -1, dims=0)
+    tp_step = tllama.make_train_step(cfg, 2, lr=0.3)
+    pp_step, _ = tpp.make_pp_train_step(cfg, mesh, n_micro=2, lr=0.3)
+    # make_pp_grads: the step's gradients, in the PP layout
+    lp, gp = tpp.make_pp_grads(cfg, mesh, n_micro=2)(pp_params, tok, tgt)
+    lt, gt = value_and_grad(tllama.loss_shard, tp_params, tok, tgt, cfg,
+                            world=2)
+    assert_allclose(lp, lt, atol=1e-5, rtol=1e-5)
+    for i, layer in enumerate(gt["layers"]):
+        for k, v in layer.items():
+            assert_allclose(gp["layers"][k][i], v, atol=1e-5, rtol=1e-4)
+    assert_allclose(gp["embed"], gt["embed"], atol=1e-5, rtol=1e-4)
+    for _ in range(2):
+        _, lt = tp_step(tp_params, tok, tgt)
+        _, lp = pp_step(pp_params, tok, tgt)
+        assert_allclose(lp, lt, atol=1e-5, rtol=1e-5)
+    for k in ("embed", "lm_head", "final_norm"):
+        assert_allclose(pp_params[k], tp_params[k], atol=5e-4, rtol=5e-4)
+    for i, layer in enumerate(tp_params["layers"]):
+        for k, v in layer.items():
+            assert_allclose(pp_params["layers"][k][i], v, atol=5e-4,
+                            rtol=5e-4)
+
+
+@pytest.mark.parametrize("family", ["llama", "moe"])
+def test_dp_train_step_matches_reference(family):
+    """make_train_step(cfg, 2, dp=2), the trainer's --dp 2 --tp 2, against
+    the reference's make_train_step over a (dp 2, tp 2) mesh
+    (``impl="xla"``): one step, the loss within 1e-5 and every updated
+    leaf within 5e-4 (the MoE balance loss is each dp rank's own, their
+    mean)."""
+    jfam, tfam = (jllama, tllama) if family == "llama" else (jmoe, tmoe)
+    jcfg, tcfg = jfam.LlamaConfig.tiny() if family == "llama" else \
+        jfam.MoEConfig.tiny(), tfam.LlamaConfig.tiny() if family == "llama" \
+        else tfam.MoEConfig.tiny()
+    jmesh = _jmesh((2, 2), ("dp", "tp"))
+    jparams = jfam.init_params(jcfg, jax.random.key(26))
+    host = jax.device_get(jparams)
+    tok = np.random.default_rng(27).integers(0, jcfg.vocab, size=(32, 4))
+    tgt = np.roll(tok, -1, axis=0)
+    sh = NamedSharding(jmesh, P("tp", "dp"))
+    jstep, _ = jfam.make_train_step(jcfg, jmesh, axis="tp", dp_axis="dp",
+                                    impl="xla", lr=0.5)
+    jnew, jloss = jstep(jfam.place_params(jparams, jcfg, jmesh),
+                        jax.device_put(jnp.asarray(tok, jnp.int32), sh),
+                        jax.device_put(jnp.asarray(tgt, jnp.int32), sh))
+    tparams = tfam.shard_params(tfam.params_from_jax(host, tcfg,
+                                                     device="cpu"), tcfg, 2)
+    _, tloss = tfam.make_train_step(tcfg, 2, lr=0.5, dp=2)(
+        tparams, torch.as_tensor(tok), torch.as_tensor(tgt))
+    assert_allclose(tloss, np.asarray(jloss), atol=1e-5, rtol=1e-5)
+    want = tfam.shard_params(tfam.params_from_jax(jax.device_get(jnew), tcfg,
+                                                  device="cpu"), tcfg, 2)
+    for g, w in zip(tree_leaves(tparams), tree_leaves(want)):
+        assert_allclose(g, w, atol=5e-4, rtol=5e-4)
+
+
+def test_train_cli_dp_tp_runs(capsys):
+    """examples/train.py --dp 2 --tp 2 on the CPU (the dcn x tp mesh): the
+    loss falls; a batch that does not split over --dp is refused."""
+    from triton_dist_tpu_torch.examples import train
+
+    train.main(["--dp", "2", "--tp", "2", "--device", "cpu", "--steps", "3",
+                "--seq", "16", "--batch", "4", "--lr", "0.5"])
+    out = capsys.readouterr().out
+    assert "dp=2" in out and "tp=2" in out and "done" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step")]
+    assert len(losses) == 3 and losses[-1] < losses[0]
+    with pytest.raises(SystemExit, match="does not split"):
+        train.main(["--dp", "3", "--device", "cpu", "--batch", "4"])

@@ -137,6 +137,33 @@ __device__ __forceinline__ void barrier_all(const Peers<unsigned>& bar,
   __syncthreads();
 }
 
+// Peers along one mesh axis.  The world's ranks are the row-major indices
+// of a mesh's coordinates, so an axis of `size` ranks `stride` apart puts
+// rank `me` at coordinate (me / stride) % size, and its peer at coordinate
+// c' is me + (c' - c) * stride: one pointer table of W ranks serves every
+// group of the axis, and one launch runs every group.
+__device__ __forceinline__ int axis_coord(int me, int size, int stride) {
+  return (me / stride) % size;
+}
+
+__device__ __forceinline__ int axis_peer(int me, int c, int to, int stride) {
+  return me + (to - c) * stride;
+}
+
+// barrier over one axis: barrier_all among the `size` ranks of me's group
+// (the slots are indexed by world rank, so groups never share a slot).
+__device__ __forceinline__ void barrier_axis(const Peers<unsigned>& bar,
+                                             int me, int size, int stride,
+                                             unsigned epoch) {
+  const int p = threadIdx.x;
+  if (p < size) {
+    const int peer = axis_peer(me, axis_coord(me, size, stride), p, stride);
+    st_release(bar.p[peer] + me, epoch);
+    spin_until(bar.p[me] + peer, epoch);
+  }
+  __syncthreads();
+}
+
 // Host side.  The pointer table of one buffer from `world` addresses.
 template <class T>
 Peers<T> peers(const long long* ptrs, int world) {

@@ -38,8 +38,19 @@ all-to-all kernel's peer segments, the experts on the grouped GEMM):
     python -m triton_dist_tpu_torch.examples.train --model moe --tp 4 \
         --steps 3 --seq 2048 --batch 1 --lr 0.2
 
+Data parallelism (``--dp N``, the reference trainer's dp x tp mesh, which
+the port does not build): the loss of N data-parallel ranks, each on its
+B / N columns of the global batch through the same weights, their
+gradients summed by autograd (the reference's dp ``psum``, XLA's there: no
+kernel is owed).  The dense loss has no per-rank term, so Llama takes it
+over the whole batch in one pass; MoE's balance loss is each rank's own,
+so MoE splits the batch (``models/*.dp_loss``):
+
+    python -m triton_dist_tpu_torch.examples.train --dp 2 --tp 2 \
+        --steps 3 --seq 2048 --batch 2 --lr 0.2
+
 On the CPU, a tiny config (head_dim 128) through the plain versions
-(``--tp 4`` too):
+(``--tp 4``, ``--dp 2`` too):
 
     python -m triton_dist_tpu_torch.examples.train --device cpu --steps 4
 """
@@ -72,7 +83,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", choices=("llama", "moe"), default="llama")
     p.add_argument("--steps", type=int, default=20)
-    p.add_argument("--dp", type=int, default=1, help="data-parallel degree")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel degree: the loss of dp ranks, "
+                        "each on its share of the batch")
     p.add_argument("--tp", type=int, default=1,
                    help="ranks of the virtual world on the one device "
                         "(SGD): tensor parallelism (Llama), TP attention "
@@ -151,13 +164,14 @@ def build(args, device):
         params = family.shard_params(params, cfg, args.tp)
     if args.opt == "adamw":
         opt_step, opt_init = training.make_optim_train_step(
-            family, cfg, training.adamw(args.lr))
+            family, cfg, training.adamw(args.lr), dp=args.dp)
         opt = opt_init(params)
 
         def step_fn(tokens, targets):
             return opt_step(params, opt, tokens, targets)[2]
     else:
-        sgd_step = family.make_train_step(cfg, args.tp, lr=args.lr)
+        sgd_step = family.make_train_step(cfg, args.tp, lr=args.lr,
+                                          dp=args.dp)
         opt = None
 
         def step_fn(tokens, targets):
@@ -167,23 +181,22 @@ def build(args, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError("--dp > 1: data parallelism over several "
-                                  "cards is not ported yet (ROADMAP Queue 1 "
-                                  "items 14 and 15)")
+    if args.batch % args.dp:
+        raise SystemExit(f"--batch {args.batch} does not split over --dp "
+                         f"{args.dp}")
     if args.profile:
         raise NotImplementedError("--profile: group_profile is not ported "
                                   "yet (ROADMAP Queue 1 item 16)")
     if args.tp > 1 and args.opt == "adamw":
         raise NotImplementedError("--opt adamw --tp > 1: an optimizer over "
                                   "the sharded tree is not ported yet "
-                                  "(ROADMAP Queue 1 items 14 and 15, the "
-                                  "fifth entry)")
+                                  "(ROADMAP Queue 1's ninth entry)")
     device = resolve_device(args.device)
     use_full_precision_matmul()
     cfg, params, opt, step_fn = build(args, device)
     print(f"device {device}  model={args.model}  {cfg.n_layers} layers dim "
-          f"{cfg.dim}  tp={args.tp}  opt={args.opt}", flush=True)
+          f"{cfg.dim}  dp={args.dp}  tp={args.tp}  opt={args.opt}",
+          flush=True)
 
     # Deterministic toy data: next-token prediction on a fixed random book.
     rng = np.random.default_rng(args.seed + 1)

@@ -1,11 +1,48 @@
-"""Attention kernels: hand-written Hopper CUDA kernels (``csrc/``) behind
-wrappers that take their plain PyTorch versions for CPU tensors only.
+"""Hand-written Hopper CUDA kernels (``csrc/``) behind wrappers that take
+their plain PyTorch versions for CPU tensors only.
 
 Context parallelism's names are re-exported here as the reference's
 package does, except the host entries ``ring_attention`` and
 ``ulysses_attention``: those names stay the modules (reach the entries as
 ``ring_attention.ring_attention``), so ``from triton_dist_tpu_torch.kernels
-import ring_attention`` always gives the module."""
+import ring_attention`` always gives the module.  The collectives (the
+barrier, all-gather, reduce-scatter, the latency-tuned all-gather and the
+hierarchical compositions) are re-exported under the reference's names,
+except the host entry ``reduce_scatter``, which stays the module, as
+above."""
+
+from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
+    AllGatherContext,
+    AllGatherMethod,
+    all_gather,
+    all_gather_shard,
+    choose_allgather_method,
+    create_allgather_context,
+)
+from triton_dist_tpu_torch.kernels.common_ops import (  # noqa: F401
+    barrier_all_on_mesh,
+)
+from triton_dist_tpu_torch.kernels.hierarchical import (  # noqa: F401
+    hier_all_gather_shard,
+    hier_all_reduce_shard,
+    hier_all_to_all_shard,
+    hier_grad_allreduce,
+    hier_reduce_scatter_shard,
+    hier_rs_band_index,
+)
+from triton_dist_tpu_torch.kernels.low_latency_allgather import (  # noqa: F401
+    FastAllGatherContext,
+    create_fast_ag_context,
+    fast_allgather,
+    pack_payload,
+    unpack_payload,
+)
+from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
+    ReduceScatterContext,
+    ReduceScatterMethod,
+    create_reduce_scatter_context,
+    reduce_scatter_shard,
+)
 
 from triton_dist_tpu_torch.kernels.ring_attention import (  # noqa: F401
     RingAttentionContext,

@@ -33,8 +33,10 @@ every rank.  Layout, the same at every world size (world 1 is W = 1):
 
 The reference's ``wire_block``, ``collective_id`` and ``TDT_A2A_POISON``
 have no counterpart: the kernel ships exactly the split's rows, a launch
-needs no collective id, and poison is the keyword alone.  A 2-tuple axis
-(the reference's hierarchical two-stage path) raises.
+needs no collective id, and poison is the keyword alone.  A (slow, fast)
+2-tuple axis is the reference's hierarchical two-stage path: a context
+over a ``Mesh`` of those two axes routes :func:`fast_all_to_all` through
+``kernels/hierarchical.hier_all_to_all_shard``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.runtime.bootstrap import (
     MAX_RANKS,
+    Mesh,
     World,
     get_world,
 )
@@ -60,14 +63,16 @@ _SIG = {"tdt_a2a_local": [ctypes.c_void_p] * 4
 CHUNK_BYTES = 1 << 16    # rows a block copies before it signals: ~64 KB
 
 
-def check_axis(axis) -> None:
-    """A (slow, fast) 2-tuple axis is the reference's hierarchical
-    two-stage all-to-all, not ported yet."""
-    if isinstance(axis, (tuple, list)):
-        raise NotImplementedError(
-            f"axis {tuple(axis)}: the two-stage all-to-all across slices "
-            f"(kernels/hierarchical.py) is not ported yet: ROADMAP Queue 1 "
-            f"items 14 and 15")
+def check_axis(axis) -> bool:
+    """Whether ``axis`` is a (slow, fast) 2-tuple, the reference's
+    hierarchical two-stage all-to-all (``kernels/hierarchical.py``); a
+    tuple of another length raises."""
+    if not isinstance(axis, (tuple, list)):
+        return False
+    if len(axis) != 2:
+        raise ValueError(f"axis {tuple(axis)}: one axis, or a (slow, fast) "
+                         f"pair for the two-stage all-to-all")
+    return True
 
 
 def _check(send, splits):
@@ -222,9 +227,14 @@ class AllToAllContext:
     hidden: int
     axis: str = "ep"
     plain: bool = False
+    mesh: Mesh | None = None
 
     def __post_init__(self):
-        check_axis(self.axis)
+        if check_axis(self.axis) and (
+                self.mesh is None
+                or self.mesh.axis_names != tuple(self.axis)):
+            raise ValueError(f"axis {tuple(self.axis)}: the two-stage "
+                             f"all-to-all needs a Mesh of those two axes")
 
     @property
     def size(self) -> int:
@@ -235,12 +245,16 @@ class AllToAllContext:
 def create_all_to_all_context(world, max_tokens, hidden, axis="ep", *,
                               device=None,
                               plain: bool = False) -> AllToAllContext:
-    """The context over ``world``: a :class:`World`, or a rank count
-    (the world of that size on ``device``, made on first use)."""
-    if not isinstance(world, World):
+    """The context over ``world``: a :class:`World`, a rank count (the
+    world of that size on ``device``, made on first use), or a
+    :class:`Mesh` (the two-stage path over its two axes)."""
+    mesh = world if isinstance(world, Mesh) else None
+    if mesh is not None:
+        world = mesh.world
+    elif not isinstance(world, World):
         world = get_world(int(world), device)
     return AllToAllContext(world=world, max_tokens=max_tokens, hidden=hidden,
-                           axis=axis, plain=plain)
+                           axis=axis, plain=plain, mesh=mesh)
 
 
 def fast_all_to_all(send, splits, ctx: AllToAllContext):
@@ -259,9 +273,20 @@ def fast_all_to_all(send, splits, ctx: AllToAllContext):
         raise ValueError(
             f"send shape {tuple(send.shape)} != ctx sizing {expected} "
             f"(world={w}, max_tokens={ctx.max_tokens}, hidden={ctx.hidden})")
-    recv, recv_splits = fast_all_to_all_shard(
-        send.reshape(w, w, ctx.max_tokens, ctx.hidden),
-        splits.reshape(w, w), plain=ctx.plain)
+    if check_axis(ctx.axis):
+        from triton_dist_tpu_torch.kernels.hierarchical import (
+            hier_all_to_all_shard,
+        )
+
+        d, t = ctx.mesh.shape
+        recv, recv_splits = hier_all_to_all_shard(
+            send.reshape(d, t, w, ctx.max_tokens, ctx.hidden),
+            splits.reshape(d, t, w), ctx.mesh, slow_axis=ctx.axis[0],
+            fast_axis=ctx.axis[1], plain=ctx.plain)
+    else:
+        recv, recv_splits = fast_all_to_all_shard(
+            send.reshape(w, w, ctx.max_tokens, ctx.hidden),
+            splits.reshape(w, w), plain=ctx.plain)
     return recv.reshape(expected), recv_splits.reshape(w * w)
 
 

@@ -1,0 +1,223 @@
+"""Reduce-scatter over one axis of a mesh: ring and bidirectional ring.
+
+Counterpart of ``triton_dist_tpu/kernels/reduce_scatter.py`` on the port's
+virtual world (``runtime/bootstrap.Mesh``): per-rank tensors carry the
+mesh shape as leading dimensions, x ``[*mesh.shape, T * rows, ...]`` (every
+rank's full-size partial) and the result ``[*mesh.shape, rows, ...]``,
+rank c of each group along ``axis`` holding the group's sum of chunk c
+(``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``).  One
+call serves every group of the axis.
+
+- :func:`reduce_scatter_ref`: the plain version, summed in the method's
+  order: ``RING_1D`` and ``RING_BIDIR`` in the reference's ring order
+  (chunk c starts at rank c + 1 and ends at rank c, ``acc = local +
+  recv``; ``bidir`` takes the first ``rows // 2`` rows rightward and the
+  rest leftward, :101-131, :160-206), so an f32 result is bit-equal to the
+  interpret-mode Pallas kernels; ``XLA`` in rank order.
+- :func:`reduce_scatter_shard`: the reference's dispatch, ``bidir`` at
+  rows >= 2 per rank, else ``ring``; an axis of one rank returns its
+  input.  On CUDA tensors ``RING_1D`` / ``RING_BIDIR`` launch
+  ``csrc/reduce_scatter.cu`` in its modes ``ring`` / ``bidir`` (the port
+  of the TPU ``_ring_rs_kernel`` :73 and ``_bidir_ring_rs_kernel`` :134;
+  f32 and bf16), counted in ``reduce_scatter_shard.launches`` and by
+  mode in ``.mode_launches``, or raises on what the kernel does not take;
+  the result is bit for bit the plain version's.  On CPU tensors, with
+  ``plain``, or for ``XLA``, the plain version.
+- :class:`ReduceScatterContext`, :func:`create_reduce_scatter_context`,
+  :func:`resolve_method` and the host :func:`reduce_scatter` with its
+  stacked-partials contract (:289-328).
+
+``AUTO`` is :func:`resolve_method`: the bidirectional ring, unless
+``plain``.  The reference resolves ``AUTO`` to ``XLA`` off the TPU; the
+port treats the card as the reference's chip, so ``AUTO`` picks the
+kernel there (and its ring order in the plain version on the CPU).  A
+multi-axis ``axis`` with two or more real axes (the torus schedule)
+raises ``NotImplementedError``: ROADMAP Queue 1's eighth entry.  The
+launches carry a host epoch, so none can be captured in a CUDA graph.
+
+Backpressure: the kernel holds T - 1 landing slots per rank and drops the
+reference's credit semaphore.  The slots (``T - 1`` chunks per rank, 4.2
+GB for the eight ranks of the hierarchical step's plane) are the only
+buffer peers write into, and they are allocated per call, outside the
+world's symmetric workspace: their peer table works only because the
+virtual world's ranks are slices of one allocation.  A multi-process
+backend has to take them from symmetric memory (ROADMAP Queue 1's tenth
+entry).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import enum
+import math
+from dataclasses import dataclass
+
+import torch
+
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.allgather import shard_over, single_axis
+from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+from triton_dist_tpu_torch.runtime.symm_mem import peer_table
+
+_SIG = {"tdt_reduce_scatter": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_void_p],
+        "tdt_reduce_scatter_flags": [ctypes.c_longlong, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_int]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class ReduceScatterMethod(enum.Enum):
+    AUTO = "auto"
+    XLA = "xla"
+    RING_1D = "ring_1d"
+    RING_BIDIR = "ring_bidir"
+
+
+@dataclass
+class ReduceScatterContext:
+    """Counterpart of the reference's context (:46); ``plain`` is its
+    non-interpret CPU path (``XLA``)."""
+
+    mesh: Mesh
+    axis: str = "tp"
+    method: ReduceScatterMethod = ReduceScatterMethod.AUTO
+    plain: bool = False
+
+    @property
+    def world(self) -> int:
+        return self.mesh.axis_size(self.axis)
+
+
+def create_reduce_scatter_context(mesh, axis="tp",
+                                  method=ReduceScatterMethod.AUTO,
+                                  plain=False) -> ReduceScatterContext:
+    return ReduceScatterContext(mesh=mesh, axis=axis, method=method,
+                                plain=plain)
+
+
+def resolve_method(plain: bool = False) -> ReduceScatterMethod:
+    """``AUTO``: the bidirectional ring, or ``XLA`` when ``plain``."""
+    return ReduceScatterMethod.XLA if plain else ReduceScatterMethod.RING_BIDIR
+
+
+def _check(x, mesh: Mesh, T: int):
+    nd = len(mesh.shape)
+    if x.dim() <= nd or tuple(x.shape[:nd]) != mesh.shape:
+        raise ValueError(f"reduce_scatter: x {tuple(x.shape)} must be "
+                         f"[*{mesh.shape}, T * rows, ...]")
+    if x.shape[nd] % T:
+        raise ValueError(f"reduce_scatter: {x.shape[nd]} rows do not split "
+                         f"into {T} chunks")
+
+
+def _ring_sum(xm, c, T, d, nd, r0, r1):
+    """Chunk c's rows [r0, r1) summed round the ring in direction d:
+    rank c + d first, then acc = local + acc at c + 2d, ..., c."""
+    def part(src):
+        return xm[src].select(nd - 1, c).narrow(nd - 1, r0, r1 - r0)
+
+    acc = part((c + d) % T)
+    for k in range(2, T + 1):
+        acc = part((c + d * k) % T) + acc
+    return acc
+
+
+def reduce_scatter_ref(x, mesh: Mesh, axis: str,
+                       method=ReduceScatterMethod.RING_BIDIR):
+    """The plain version (module docstring): [*mesh.shape, rows, ...]."""
+    nd, a, T = len(mesh.shape), mesh.dim(axis), mesh.axis_size(axis)
+    _check(x, mesh, T)
+    rows = x.shape[nd] // T
+    tail = x.shape[nd + 1:]
+    # [src, *others, chunk, rows, ...]
+    xm = x.movedim(a, 0).reshape(T, *x.shape[:a], *x.shape[a + 1:nd], T,
+                                 rows, *tail)
+    bands = []
+    for c in range(T):
+        if method is ReduceScatterMethod.XLA:
+            acc = xm[0].select(nd - 1, c)
+            for s in range(1, T):
+                acc = acc + xm[s].select(nd - 1, c)
+        elif method is ReduceScatterMethod.RING_BIDIR and rows >= 2:
+            ra = rows // 2
+            acc = torch.cat([_ring_sum(xm, c, T, 1, nd, 0, ra),
+                             _ring_sum(xm, c, T, -1, nd, ra, rows)],
+                            dim=nd - 1)
+        else:
+            acc = _ring_sum(xm, c, T, 1, nd, 0, rows)
+        bands.append(acc)
+    return torch.stack(bands, dim=a)
+
+
+def reduce_scatter_shard(x, mesh: Mesh, axis="tp",
+                         method=ReduceScatterMethod.AUTO, *,
+                         plain: bool = False):
+    """Reduce every rank's full-size partial over ``axis`` and scatter the
+    leading dimension: x [*mesh.shape, T * rows, ...] -> [*mesh.shape,
+    rows, ...] (module docstring)."""
+    axis = single_axis(axis, mesh, "reduce_scatter")
+    if method is ReduceScatterMethod.AUTO:
+        method = resolve_method(plain)
+    if axis is None:
+        return x
+    nd, T = len(mesh.shape), mesh.axis_size(axis)
+    _check(x, mesh, T)
+    if T == 1:
+        return x
+    if method is ReduceScatterMethod.XLA or plain or x.device.type == "cpu":
+        return reduce_scatter_ref(x, mesh, axis, method)
+    if not x.is_cuda:
+        raise ValueError(f"reduce_scatter: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"reduce_scatter kernel: f32 or bf16, got "
+                        f"{x.dtype}")
+    rows = x.shape[nd] // T
+    row = math.prod(x.shape[nd + 1:])
+    chunk = rows * row
+    bidir = method is ReduceScatterMethod.RING_BIDIR and rows >= 2
+    split = (rows // 2) * row if bidir else chunk
+    W, dtype = mesh.size, _DTYPES[x.dtype]
+    xs = x.contiguous().view(W, -1)
+    out = torch.empty((*mesh.shape, rows, *x.shape[nd + 1:]),
+                      dtype=x.dtype, device=x.device)
+    land = torch.empty((W, T - 1, chunk), dtype=x.dtype, device=x.device)
+    lib = _build.load("reduce_scatter", _SIG)
+    ws = mesh.world.workspace
+    flags = ws.flags("reduce_scatter",
+                     lib.tdt_reduce_scatter_flags(chunk, split, dtype, T))
+    bar = ws.flags("barrier", W)
+    epoch = ws.next_epoch()
+    tables = [(ctypes.c_longlong * W)(*peer_table(t))
+              for t in (xs, out.view(W, -1), land, flags, bar)]
+    with torch.cuda.device(x.device):
+        err = lib.tdt_reduce_scatter(*tables, chunk, split, dtype, W, T,
+                                     mesh.axis_stride(axis), epoch,
+                                     torch.cuda.current_stream().cuda_stream)
+    name = "bidir" if bidir else "ring"
+    _build.check(err, f"reduce_scatter ({name})")
+    reduce_scatter_shard.launches += 1
+    reduce_scatter_shard.mode_launches[name] += 1
+    return out
+
+
+reduce_scatter_shard.launches = 0
+reduce_scatter_shard.mode_launches = {"ring": 0, "bidir": 0}
+
+
+def reduce_scatter(x, ctx: ReduceScatterContext):
+    """Host entry (reference :289): x (T, T * rows, ...), the partials
+    stacked (rank i of the axis contributes x[i]; the mesh's other axes
+    hold the same) -> (T * rows, ...), rank i's band at rows i * rows ...
+    A leading dimension other than T raises ``ValueError``."""
+    T = ctx.world
+    if x.shape[0] != T:
+        raise ValueError(f"expected stacked partials with leading dim {T}, "
+                         f"got {tuple(x.shape)}")
+    mesh = ctx.mesh
+    parts = shard_over(x.reshape(T * x.shape[1], *x.shape[2:]), mesh,
+                       ctx.axis)
+    out = reduce_scatter_shard(parts, mesh, ctx.axis, ctx.method,
+                               plain=ctx.plain)
+    a = mesh.dim(ctx.axis)
+    bands = out.movedim(a, 0)[(slice(None),) + (0,) * (len(mesh.shape) - 1)]
+    return bands.reshape(T * bands.shape[1], *bands.shape[2:])

@@ -155,7 +155,9 @@ class DistributedMoELayer:
     dict of tensors on ``device`` (``init_weights``, or assigned
     directly), the expert stacks [E, ...] whatever the world (module
     docstring).  A (slow, fast) tuple ``axis`` (the reference's two-tier
-    all-to-all) raises."""
+    all-to-all) raises: the layer holds a flat world (the two-stage
+    all-to-all itself is ``kernels/hierarchical.hier_all_to_all_shard``
+    over a ``Mesh``)."""
 
     n_experts: int
     topk: int
@@ -170,7 +172,10 @@ class DistributedMoELayer:
     weights: dict = field(default=None)
 
     def __post_init__(self):
-        check_axis(self.axis)
+        if check_axis(self.axis):
+            raise NotImplementedError(
+                f"axis {tuple(self.axis)}: the layer over a (slow, fast) "
+                f"mesh is not ported yet (ROADMAP Queue 1's ninth entry)")
         if self.world < 1 or self.n_experts % self.world:
             raise ValueError(f"{self.n_experts} experts do not split over "
                              f"{self.world} ranks")

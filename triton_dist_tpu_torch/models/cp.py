@@ -24,7 +24,7 @@ is the reference's ``psum`` over the cp axis (:182-183).  RoPE uses each
 row's global position (the zigzag shard offsets each of its two chunks),
 so the sharded model is the same function as the world-1 one.  The
 reference's ``dp_axis`` (cp x dp) is not ported: it raises, naming
-ROADMAP Queue 1's fifth entry.
+ROADMAP Queue 1's ninth entry.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def _check(cfg: LlamaConfig, world: int, attn: str, dp_axis=None) -> None:
     if dp_axis is not None:
         raise NotImplementedError(
             f"dp_axis={dp_axis!r}: context x data parallelism is not ported "
-            f"yet (ROADMAP Queue 1 items 14 and 15, the fifth entry)")
+            f"yet (ROADMAP Queue 1's ninth entry)")
     if attn not in ATTNS:
         raise ValueError(f"attn {attn!r} is not one of {ATTNS}")
     if world < 1:

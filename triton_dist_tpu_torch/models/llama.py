@@ -81,13 +81,23 @@ class LlamaConfig:
                            n_kv_heads=8, ffn_dim=14336, dtype=torch.bfloat16)
 
     @staticmethod
+    def mistral_7b() -> "LlamaConfig":
+        """The reference's preset (``models/llama.py:82-90``): Llama-3-8B's
+        layer widths at a vocabulary of 32,000, rope_theta 1e6; the
+        sliding window stays off, as there."""
+        return LlamaConfig(vocab=32000, dim=4096, n_layers=32, n_heads=32,
+                           n_kv_heads=8, ffn_dim=14336, rope_theta=1e6,
+                           dtype=torch.bfloat16)
+
+    @staticmethod
     def tiny(dtype=torch.float32) -> "LlamaConfig":
         return LlamaConfig(vocab=512, dim=1024, n_layers=2, n_heads=8,
                            n_kv_heads=4, ffn_dim=1024, max_seq=256,
                            dtype=dtype)
 
 
-CONFIGS = {"llama3_8b": LlamaConfig.llama3_8b, "tiny": LlamaConfig.tiny}
+CONFIGS = {"llama3_8b": LlamaConfig.llama3_8b,
+           "mistral_7b": LlamaConfig.mistral_7b, "tiny": LlamaConfig.tiny}
 
 
 def _layer_shapes(cfg: LlamaConfig) -> dict:
@@ -352,27 +362,36 @@ def mlp_block_shard(x, layer, cfg: LlamaConfig, *, plain=False):
         x.shape)
 
 
+def _mm_f32(x2, w):
+    """x2 [N, D] @ w [D, V] with f32 accumulation into an f32 result."""
+    if x2.dtype == torch.float32:
+        return x2 @ w
+    if x2.is_cuda:
+        return torch.mm(x2, w, out_dtype=torch.float32)
+    return x2.float() @ w.float()
+
+
 class _LogitsF32(torch.autograd.Function):
     """``x @ lm_head`` with f32 logits, the reference's
     ``preferred_element_type=jnp.float32``: bf16 operands multiply with
     f32 accumulation into an f32 result.  The backward rounds the f32
     cotangent to the operands' dtype and takes the two products there
-    (f32 models: exactly the reference's VJP)."""
+    (f32 models: exactly the reference's VJP).  With a leading rank
+    dimension (x [R, N, D], w [R, D, V]: each rank's own lm_head, as the
+    pipelined step holds it) every rank's product is its own."""
 
     @staticmethod
     def forward(ctx, x2, w):
         ctx.save_for_backward(x2, w)
-        if x2.dtype == torch.float32:
-            return x2 @ w
-        if x2.is_cuda:
-            return torch.mm(x2, w, out_dtype=torch.float32)
-        return x2.float() @ w.float()
+        if x2.dim() == 3:
+            return torch.stack([_mm_f32(a, b) for a, b in zip(x2, w)])
+        return _mm_f32(x2, w)
 
     @staticmethod
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
         g = g.to(x2.dtype)
-        return g @ w.t(), x2.t() @ g
+        return g @ w.transpose(-1, -2), x2.transpose(-1, -2) @ g
 
 
 def forward_shard(params, tokens, cfg: LlamaConfig, *, world=1,
@@ -417,14 +436,37 @@ def make_forward(cfg: LlamaConfig, world: int = 1, *, plain=False):
                              plain=plain)
 
 
-def make_train_step(cfg: LlamaConfig, world: int = 1, *, lr=1e-3):
+def check_dp(tokens, dp: int) -> int:
+    """The columns of tokens [S, B] each of ``dp`` data-parallel ranks
+    takes (a batch that does not split raises ``ValueError``)."""
+    B = tokens.shape[1]
+    if B % dp:
+        raise ValueError(f"batch {B} does not split over {dp} dp ranks")
+    return B // dp
+
+
+def dp_loss(params, tokens, targets, cfg, *, dp: int = 1, **kw):
+    """The loss of the reference's data parallelism over ``dp`` ranks
+    (``dp_axis``): the mean over the ranks of each one's loss on its B / dp
+    columns of tokens / targets [S, B].  The dense loss is a mean over
+    tokens and no term is a rank's own, so that mean is the whole batch's
+    loss, taken here in one pass; the ranks share every leaf, so their
+    gradients' psum over dp (XLA's in the reference: no kernel is owed) is
+    the whole batch's gradient."""
+    check_dp(tokens, dp)
+    return loss_shard(params, tokens, targets, cfg, **kw)
+
+
+def make_train_step(cfg: LlamaConfig, world: int = 1, *, lr=1e-3,
+                    dp: int = 1):
     """Plain-SGD training step ``step(params, tokens, targets) ->
     (params, loss)``: loss and gradients by autograd (attention through
     the flash kernels' forward and backward; over ``world`` > 1 ranks
     every projection through the AG-GEMM / GEMM-RS kernels and their
     duals), then ``p - lr * g`` with the product taken in the parameter
     dtype, as the reference rounds.  A replicated leaf's gradient is the
-    sum of every rank's contribution, the reference's ``psum``.
+    sum of every rank's contribution, the reference's ``psum``; ``dp`` is
+    the reference's data-parallel degree (:func:`dp_loss`).
 
     Unlike the reference, which returns new arrays, the update is IN
     PLACE and the returned ``params`` is the same dict: a second copy of
@@ -434,8 +476,8 @@ def make_train_step(cfg: LlamaConfig, world: int = 1, *, lr=1e-3):
     _check_world(cfg, world)
 
     def step(params, tokens, targets):
-        loss, grads = value_and_grad(loss_shard, params, tokens, targets,
-                                     cfg, world=world)
+        loss, grads = value_and_grad(dp_loss, params, tokens, targets, cfg,
+                                     dp=dp, world=world)
         with torch.no_grad():
             for p, g in zip(tree_leaves(params), tree_leaves(grads)):
                 p.sub_(lr * g.to(p.dtype))

@@ -389,7 +389,21 @@ def make_forward(cfg: MoEConfig, world: int = 1, *, plain=False):
                              plain=plain)
 
 
-def make_train_step(cfg: MoEConfig, world: int = 1, *, lr=1e-3):
+def dp_loss(params, tokens, targets, cfg: MoEConfig, *, dp: int = 1, **kw):
+    """The loss of the reference's data parallelism over ``dp`` ranks
+    (``dp_axis``): the mean over the ranks of :func:`loss_shard`, rank d on
+    its B / dp columns of tokens / targets [S, B].  The balance loss is
+    each rank's own (the reference's ``aux / dp``), so the batch is split.
+    The ranks share every leaf, so autograd's accumulation over them is the
+    reference's psum over dp (XLA's there: no kernel is owed)."""
+    b = llama.check_dp(tokens, dp)
+    return sum(loss_shard(params, tokens[:, d * b:(d + 1) * b],
+                          targets[:, d * b:(d + 1) * b], cfg, **kw)
+               for d in range(dp)) / dp
+
+
+def make_train_step(cfg: MoEConfig, world: int = 1, *, lr=1e-3,
+                    dp: int = 1):
     """Plain-SGD step ``step(params, tokens, targets) -> (params, loss)``:
     loss and gradients by autograd (attention through the flash kernels
     and, over ``world`` > 1 ranks, the AG-GEMM / GEMM-RS kernels; dispatch
@@ -398,12 +412,13 @@ def make_train_step(cfg: MoEConfig, world: int = 1, *, lr=1e-3):
     parameter dtype, IN PLACE as ``llama.make_train_step`` does (a second
     copy of the weights would not fit the card).  A leaf held once (the
     router, norms, embed, lm_head) gets the sum of every rank's gradient,
-    the reference's psum."""
+    the reference's psum; ``dp`` > 1 splits the batch over data-parallel
+    ranks (:func:`dp_loss`)."""
     _check_world(cfg, world)
 
     def step(params, tokens, targets):
-        loss, grads = value_and_grad(loss_shard, params, tokens, targets,
-                                     cfg, world=world)
+        loss, grads = value_and_grad(dp_loss, params, tokens, targets, cfg,
+                                     dp=dp, world=world)
         with torch.no_grad():
             for p, g in zip(tree_leaves(params), tree_leaves(grads)):
                 p.sub_(lr * g.to(p.dtype))

@@ -43,19 +43,20 @@ def _check_family(family) -> None:
             f"(dense) and models.moe (Mixtral class)")
 
 
-def make_grads(family, cfg, *, world: int = 1,
-               plain: bool = False) -> Callable:
+def make_grads(family, cfg, *, world: int = 1, plain: bool = False,
+               dp: int = 1) -> Callable:
     """``grads_fn(params, tokens, targets) -> (loss, grads)``, grads a
     tree shaped like params.  ``family`` is ``models.llama`` or
     ``models.moe``; over ``world`` > 1 ranks ``params`` is the family's
     ``shard_params`` tree; ``plain`` differentiates the plain PyTorch
     versions of every hand-written kernel the family runs (a reference
-    gradient on any device)."""
+    gradient on any device); ``dp`` is the reference's data-parallel
+    degree (the family's ``dp_loss``)."""
     _check_family(family)
 
     def grads_fn(params, tokens, targets):
-        return value_and_grad(family.loss_shard, params, tokens, targets,
-                              cfg, world=world, plain=plain)
+        return value_and_grad(family.dp_loss, params, tokens, targets, cfg,
+                              dp=dp, world=world, plain=plain)
 
     return grads_fn
 
@@ -74,15 +75,16 @@ def adamw(lr: float) -> Callable:
     return make
 
 
-def make_optim_train_step(family, cfg, opt_factory: Callable):
+def make_optim_train_step(family, cfg, opt_factory: Callable, *,
+                          dp: int = 1):
     """(step, init) over a torch optimizer.
 
     ``init(params) -> opt``: the optimizer over ``params``'s leaves in
     ``jax.tree`` order; ``step(params, opt, tokens, targets) -> (params,
     opt, loss)``.  Gradients are cast to the parameter dtype before the
     update, as the reference casts them; parameters and optimizer state
-    update in place."""
-    grads_fn = make_grads(family, cfg)
+    update in place.  ``dp`` as in :func:`make_grads`."""
+    grads_fn = make_grads(family, cfg, dp=dp)
 
     def init(params):
         return opt_factory(tree_leaves(params))

@@ -16,10 +16,22 @@ virtual CPU mesh in its tests:
 A multi-process backend (one process per card, NCCL plus torch symmetric
 memory) changes only who fills that table.  It is not ported yet; asking
 for it raises, naming the ROADMAP item.
+
+:class:`Mesh` names axes over one world: the counterpart of the
+``jax.sharding.Mesh`` the reference's shard-level code runs under, with
+:func:`create_hybrid_mesh` for the shape contract of the reference's
+``runtime/topology.create_hybrid_mesh`` (:130: the slow ``dcn`` axis
+leading).  Rank r is the row-major index of its coordinates, per-rank
+tensors carry the mesh shape as leading dimensions (``[2, 2, 2, rows,
+128]`` on a (2, 2, 2) mesh), and a collective over one axis runs over
+every group of ranks that agree on the other axes: rank r's peer at
+coordinate c' of an axis is ``r + (c' - c) * stride`` (c its own), so one
+kernel launch serves every group.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import torch
@@ -88,6 +100,77 @@ def get_world(size: int, device) -> World:
 def finalize_distributed() -> None:
     """Drop every world and its workspace buffers."""
     _WORLDS.clear()
+
+
+@dataclass(eq=False)
+class Mesh:
+    """Named axes of ``shape`` over the world of ``prod(shape)`` ranks on
+    ``device`` (at most ``MAX_RANKS``): the axes' sizes, strides and
+    groups are the reference's ``jax.lax.axis_size`` / ``axis_index``."""
+
+    shape: tuple
+    axis_names: tuple
+    device: torch.device = None
+    world: World = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self.shape = tuple(int(s) for s in self.shape)
+        self.axis_names = tuple(self.axis_names)
+        if len(self.shape) != len(self.axis_names) or \
+                len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} and axis names "
+                             f"{self.axis_names} must pair up, names unique")
+        if self.world is None:
+            self.world = get_world(math.prod(self.shape),
+                                   canonical_device(self.device))
+        self.device = self.world.device
+        if self.world.size != math.prod(self.shape):
+            raise ValueError(f"mesh {self.shape} over a world of "
+                             f"{self.world.size} ranks")
+
+    @property
+    def size(self) -> int:
+        """The number of ranks."""
+        return self.world.size
+
+    def dim(self, axis: str) -> int:
+        """The leading dimension of a per-rank tensor that runs over
+        ``axis``."""
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} is not one of {self.axis_names}")
+        return self.axis_names.index(axis)
+
+    def axis_size(self, axis: str) -> int:
+        """The reference's ``jax.lax.axis_size(axis)``."""
+        return self.shape[self.dim(axis)]
+
+    def axis_stride(self, axis: str) -> int:
+        """How far apart, in ranks, two neighbours along ``axis`` are."""
+        return math.prod(self.shape[self.dim(axis) + 1:])
+
+    def axis_index(self, axis: str) -> torch.Tensor:
+        """Every rank's coordinate on ``axis`` (the reference's
+        ``jax.lax.axis_index``), as an int64 tensor of the mesh's shape on
+        the CPU."""
+        idx = torch.arange(self.shape[self.dim(axis)])
+        view = [1] * len(self.shape)
+        view[self.dim(axis)] = -1
+        return idx.reshape(view).expand(self.shape)
+
+    def axis_groups(self, axis: str) -> list[list[int]]:
+        """The ranks of each group along ``axis``, in coordinate order:
+        for ``tp`` of a (2, 2, 2) mesh, four groups of two."""
+        n, stride = self.axis_size(axis), self.axis_stride(axis)
+        firsts = [r for r in range(self.size) if (r // stride) % n == 0]
+        return [[r + c * stride for c in range(n)] for r in firsts]
+
+
+def create_hybrid_mesh(ici_axes: dict, dcn_axis: str = "dcn",
+                       n_slow: int = 1, device=None) -> Mesh:
+    """The reference's hybrid mesh shape: ``(n_slow, *ici_axes sizes)``
+    named ``(dcn_axis, *ici_axes)``, the slow axis leading."""
+    return Mesh((int(n_slow), *ici_axes.values()),
+                (dcn_axis, *ici_axes), device)
 
 
 def rank(world: World) -> range:
