@@ -227,7 +227,20 @@ Phases, in order (any failure exits non-zero without the final line):
    the plain psum (losses 1e-3 relative, every updated leaf 2e-2
    relative L2); (c) at 2 layers the PP gradients against the port's
    non-PP TP-2 step over the same batch and against the PP step over the
-   plain versions (1e-3; 2e-2 relative L2 per leaf).
+   plain versions (1e-3; 2e-2 relative L2 per leaf);
+20. ring GEMM entries and modes (last): the host entries ``ag_gemm_
+   gathered`` / ``gemm_rs`` with contexts on a ``Mesh`` of TP ranks at
+   Llama-3-8B TP-4 widths, at m_loc 512 (S 2,048) and 16 (decode): the
+   AG-GEMM at QKV and gate/up in its bidir, int8-wire and chunked (2, 4)
+   modes, the GEMM-RS at wo and down in its bidir and int8 modes, then
+   ``ag_gemm_autotuned`` (gate/up) and ``gemm_rs_autotuned`` (down) in
+   one ``contextual_autotune`` region (every config's time and the
+   winner printed); each result against its plain version (the gathered
+   A bit for bit, bf16 products within 2e-2 of the plain version's
+   largest magnitude and 1e-2 relative L2 over the tensor and each
+   128-row tile, int8 exactly), each mode timed eagerly between CUDA
+   events beside its bound, its plain version and one PyTorch call of
+   the same function where one exists.
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
@@ -261,7 +274,12 @@ reduce-scatter's rows take their counts from there (the full-mesh
 all-gather and the bidir reduce-scatter > 0, the other modes 0: no path
 takes them at T 2), the barrier's is read there too and must be 0 (no model path calls
 it), and the
-ring and flash kernels' ride beside under "pp_launches".  A
+ring and flash kernels' ride beside under "pp_launches".  The ring
+modes' counters (13b, 13w, 13c, 15b, 15i) are zeroed before phases 11,
+12 (a), 15 and 19 and read after them, where each must be 0 (no model
+path passes a mode: "model_path_launches"), and zeroed just before
+phase 20 and read just after its autotuned region: each row's count
+comes from there (> 0).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -1306,7 +1324,7 @@ def ring_rows(dev, g):
                              ("wdown_bwd", D, F, True)):
         a = randn(W, m_loc, K)
         b = randn(*((W, n, K) if trans else (W, K, n)), scale=K ** -0.5)
-        a_full, c = agm.ag_gemm(a, b, trans_b=trans)
+        a_full, c = agm.ag_gemm_shard(a, b, trans_b=trans)
         torch.cuda.synchronize()
         want_full, want_c = agm.ag_gemm_ref(a, b, trans_b=trans)
         if not torch.equal(a_full, want_full):
@@ -1314,7 +1332,7 @@ def ring_rows(dev, g):
         err = gemm_rule(f"ag_gemm {tag} (W {W}, m_loc {m_loc}, K {K}, n {n}"
                         f"{', B^T' if trans else ''})", c, want_c)
         del a_full, c, want_full, want_c
-        ms = event_ms(lambda: agm.ag_gemm(a, b, trans_b=trans), iters=10)
+        ms = event_ms(lambda: agm.ag_gemm_shard(a, b, trans_b=trans), iters=10)
         plain_ms = time_ms(lambda: agm.ag_gemm_ref(a, b, trans_b=trans),
                            iters=3)
         af = a.reshape(1, W * m_loc, K).expand(W, -1, -1)
@@ -1331,13 +1349,13 @@ def ring_rows(dev, g):
                              ("gate_up_bwd", F, D, True)):
         a = randn(W, W * m_loc, k)
         b = randn(*((W, N, k) if trans else (W, k, N)), scale=k ** -0.5)
-        out = grs.gemm_rs(a, b, trans_b=trans)
+        out = grs.gemm_rs_shard(a, b, trans_b=trans)
         torch.cuda.synchronize()
         err = gemm_rule(f"gemm_rs {tag} (W {W}, m_loc {m_loc}, k {k}, N {N}"
                         f"{', B^T' if trans else ''})", out,
                         grs.gemm_rs_ref(a, b, trans_b=trans))
         del out
-        ms = event_ms(lambda: grs.gemm_rs(a, b, trans_b=trans), iters=10)
+        ms = event_ms(lambda: grs.gemm_rs_shard(a, b, trans_b=trans), iters=10)
         plain_ms = time_ms(lambda: grs.gemm_rs_ref(a, b, trans_b=trans),
                            iters=3)
         a4 = a.view(W, W, m_loc, k)
@@ -1375,7 +1393,7 @@ def ag_gemm_i8_row(dev, g):
                           dtype=torch.int8)
         b = torch.randint(-127, 128, (W, K, n), generator=g, device=dev,
                           dtype=torch.int8)
-        a_full, c = agm.ag_gemm(a, b)
+        a_full, c = agm.ag_gemm_shard(a, b)
         torch.cuda.synchronize()
         want_full, want_c = agm.ag_gemm_ref(a, b)
         same_a, same_c = torch.equal(a_full, want_full), torch.equal(c,
@@ -1391,7 +1409,7 @@ def ag_gemm_i8_row(dev, g):
         if not (same_a and same_c):
             raise AssertionError(f"ag_gemm_i8 {tag} disagrees with plain")
         del a_full, c, want_full, want_c
-        ms = event_ms(lambda: agm.ag_gemm(a, b), iters=10)
+        ms = event_ms(lambda: agm.ag_gemm_shard(a, b), iters=10)
         plain_ms = time_ms(lambda: agm.ag_gemm_ref(a, b), iters=2, reps=2)
         lib = time_ms(lambda: torch._int_mm(af, b_cm), iters=5)
         ops = 2 * W * W * m_loc * n * K
@@ -1424,12 +1442,12 @@ def ragged_ring_rows(dev, g, rows):
                       dtype=torch.int8)
     b = torch.randint(-127, 128, (W, D, F), generator=g, device=dev,
                       dtype=torch.int8)
-    a_full, c = agm.ag_gemm(a, b)
+    a_full, c = agm.ag_gemm_shard(a, b)
     torch.cuda.synchronize()
     want_full, want_c = agm.ag_gemm_ref(a, b)
     if not (torch.equal(a_full, want_full) and torch.equal(c, want_c)):
         raise AssertionError("ag_gemm_i8 ragged250 disagrees with plain")
-    ms = event_ms(lambda: agm.ag_gemm(a, b), iters=5)
+    ms = event_ms(lambda: agm.ag_gemm_shard(a, b), iters=5)
     ops = 2 * W * W * m_loc * F * D
     b_ms, b_by = bound_ms(W * m_loc * D + W * D * F + W * W * m_loc * D
                           + 4 * W * W * m_loc * F, ops, INT8_OPS_S)
@@ -1445,14 +1463,14 @@ def ragged_ring_rows(dev, g, rows):
                 ).bfloat16()
 
     a, b = randn(W, m_loc, D), randn(W, D, F, scale=D ** -0.5)
-    a_full, c = agm.ag_gemm(a, b)
+    a_full, c = agm.ag_gemm_shard(a, b)
     torch.cuda.synchronize()
     want_full, want_c = agm.ag_gemm_ref(a, b)
     if not torch.equal(a_full, want_full):
         raise AssertionError("ag_gemm ragged250: gathered A differs")
     err = gemm_rule(f"ag_gemm ragged250 (W {W}, m_loc {m_loc}, K {D}, n "
                     f"{F})", c, want_c)
-    ms = event_ms(lambda: agm.ag_gemm(a, b), iters=5)
+    ms = event_ms(lambda: agm.ag_gemm_shard(a, b), iters=5)
     ops = 2 * W * W * m_loc * F * D
     b_ms, b_by = bound_ms(2 * (W * m_loc * D + W * D * F + W * W * m_loc
                                * (D + F)), ops)
@@ -1463,11 +1481,11 @@ def ragged_ring_rows(dev, g, rows):
     del a, b, a_full, c, want_full, want_c
 
     a, b = randn(W, W * m_loc, F), randn(W, F, D, scale=F ** -0.5)
-    out = grs.gemm_rs(a, b)
+    out = grs.gemm_rs_shard(a, b)
     torch.cuda.synchronize()
     err = gemm_rule(f"gemm_rs ragged250 (W {W}, m_loc {m_loc}, k {F}, N "
                     f"{D})", out, grs.gemm_rs_ref(a, b))
-    ms = event_ms(lambda: grs.gemm_rs(a, b), iters=5)
+    ms = event_ms(lambda: grs.gemm_rs_shard(a, b), iters=5)
     b_ms, b_by = bound_ms(2 * (W * W * m_loc * F + W * F * D + W * m_loc
                                * D), 2 * W * W * m_loc * F * D)
     log(f"gemm_rs ragged250: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -2121,11 +2139,13 @@ def w8a8_tp_phase(cfg, params):
         fwd = lw.make_w8a8_forward(cfg, TP)
         for fn in counters.values():
             fn.launches = 0
+        zero_ring_modes()
         t0 = time.perf_counter()
         logits = fwd(qp, tok)
         torch.cuda.synchronize()
         t_first = (time.perf_counter() - t0) * 1e3
         launches = {n: fn.launches for n, fn in counters.items()}
+        record_model_path_modes("w8a8_tp_forward")
         t0 = time.perf_counter()
         fwd(qp, tok)
         torch.cuda.synchronize()
@@ -2566,8 +2586,8 @@ def moe_ep_forward_phase(cfg, params, tok, ref, routes):
     from triton_dist_tpu_torch.models import moe
 
     counters = {"all_to_all": a2a.fast_all_to_all_shard,
-                "group_gemm": gg.group_gemm, "ag_gemm": agm.ag_gemm,
-                "gemm_rs": grs.gemm_rs}
+                "group_gemm": gg.group_gemm, "ag_gemm": agm.ag_gemm_shard,
+                "gemm_rs": grs.gemm_rs_shard}
     p4 = moe.shard_params(params, cfg, EP)
     fwd = moe.make_forward(cfg, EP)
     for fn in counters.values():
@@ -2809,7 +2829,7 @@ def moe_train_phase(cfg, world=1):
     counters = {"group_gemm": gg.group_gemm, "group_gemm_dx": gg.group_gemm_dx,
                 "all_to_all": a2a.fast_all_to_all_shard}
     if world > 1:
-        counters.update(ag_gemm=agm.ag_gemm, gemm_rs=grs.gemm_rs)
+        counters.update(ag_gemm=agm.ag_gemm_shard, gemm_rs=grs.gemm_rs_shard)
     for fn in counters.values():
         fn.launches = 0
     losses, times = [], []
@@ -2971,7 +2991,7 @@ def tp_phases():
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
                           device="cuda")
     tgt = torch.roll(tok, -1, dims=0)
-    counters = {"ag_gemm": agm.ag_gemm, "gemm_rs": grs.gemm_rs}
+    counters = {"ag_gemm": agm.ag_gemm_shard, "gemm_rs": grs.gemm_rs_shard}
     off_path = {"matmul": gemm.matmul}
 
     # 11: forward
@@ -2988,6 +3008,7 @@ def tp_phases():
     fwd = llama.make_forward(cfg, TP)
     for fn in (*counters.values(), *off_path.values()):
         fn.launches = 0
+    zero_ring_modes()
     with torch.no_grad():
         t0 = time.perf_counter()
         logits = fwd(tp, tok)
@@ -2995,6 +3016,7 @@ def tp_phases():
         t_first = (time.perf_counter() - t0) * 1e3
     fwd_launches = {n: fn.launches
                     for n, fn in {**counters, **off_path}.items()}
+    record_model_path_modes("tp_forward")
     with torch.no_grad():
         t0 = time.perf_counter()
         fwd(tp, tok)
@@ -3032,6 +3054,7 @@ def tp_phases():
     step = llama.make_train_step(cfg, TP, lr=TP_SGD_LR)
     for fn in (*counters.values(), *off_path.values()):
         fn.launches = 0
+    zero_ring_modes()
     losses, times = [], []
     for _ in range(TP_SGD_STEPS):
         t0 = time.perf_counter()
@@ -3040,6 +3063,7 @@ def tp_phases():
         times.append((time.perf_counter() - t0) * 1e3)
     train_launches = {n: fn.launches
                       for n, fn in {**counters, **off_path}.items()}
+    record_model_path_modes("tp_train")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"tp train (a) SGD lr {TP_SGD_LR}, TP {TP}, {cfg.n_layers} layers: "
         f"losses {[round(x, 4) for x in losses]}, step ms "
@@ -3742,7 +3766,8 @@ def _pp_counters():
             "allgather_ring": (ag.all_gather_shard, "ring"),
             "allgather_bidir": (ag.all_gather_shard, "bidir"),
             "allgather_full_mesh": (ag.all_gather_shard, "full_mesh"),
-            "ag_gemm": (agm.ag_gemm, None), "gemm_rs": (grs.gemm_rs, None),
+            "ag_gemm": (agm.ag_gemm_shard, None),
+            "gemm_rs": (grs.gemm_rs_shard, None),
             "flash_fwd": (fa.flash_attention, None),
             "flash_bwd_dq": (fa.flash_bwd_dq, None),
             "flash_bwd_dkv": (fa.flash_bwd_dkv, None)}
@@ -3814,6 +3839,7 @@ def pp_train_phase():
     step, _ = pp.make_pp_train_step(cfg, mesh, lr=SGD_LR,
                                     hier_dp_fast_axis="tp", **kw)
     _zero_pp_counters()
+    zero_ring_modes()
     losses, times, hier_leaves = [], [], None
     for i in range(PP_STEPS):
         t0 = time.perf_counter()
@@ -3824,6 +3850,7 @@ def pp_train_phase():
             hier_leaves = [t.to("cpu", copy=True)
                            for _, t in named_leaves(params)]
     launches = _read_pp_counters()
+    record_model_path_modes("pp_train")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     wall = float(np.median(times[1:]))
     log(f"pp train (a) SGD lr {SGD_LR}: losses "
@@ -3930,6 +3957,268 @@ def pp_train_phase():
     del p2, g_k, g_p, g_t, tp2, flat, stacked
     free_cuda()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the TP ring GEMMs' host entries and ring modes
+# ---------------------------------------------------------------------------
+
+# the kernel rows of the ring modes: (module attribute, counter key)
+RING_MODE_ROWS = {"ag_gemm_bidir": ("ag_gemm_shard", "bidir"),
+                  "ag_gemm_wire": ("ag_gemm_shard", "wire"),
+                  "ag_gemm_chunked": ("ag_gemm_shard", "chunked"),
+                  "gemm_rs_bidir": ("gemm_rs_shard", "bidir"),
+                  "gemm_rs_i8": ("gemm_rs_shard", "i8")}
+# the model paths that must launch none of them (their counts ride in the
+# kernels line under "model_path_launches")
+MODEL_PATH_MODES: dict = {}
+
+
+def _ring_mode_fns():
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    return {"ag_gemm_shard": agm.ag_gemm_shard,
+            "gemm_rs_shard": grs.gemm_rs_shard}
+
+
+def zero_ring_modes():
+    for fn in _ring_mode_fns().values():
+        for k in fn.mode_launches:
+            fn.mode_launches[k] = 0
+
+
+def read_ring_modes():
+    fns = _ring_mode_fns()
+    return {row: fns[f].mode_launches[k]
+            for row, (f, k) in RING_MODE_ROWS.items()}
+
+
+def record_model_path_modes(phase):
+    """Read the ring modes' counters after a model path (zeroed before
+    it): a model path passes no mode, so each must be 0."""
+    counts = read_ring_modes()
+    MODEL_PATH_MODES[phase] = counts
+    log(f"{phase}: ring-mode launches {counts} (expected 0: no model path "
+        f"passes a mode)")
+    if any(counts.values()):
+        raise AssertionError(f"{phase} launched a ring mode: {counts}")
+
+
+def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
+                     sizes=(("prefill", 512), ("decode", 16))):
+    """Phase 20: the TP ring GEMMs' host entries (``ag_gemm`` /
+    ``ag_gemm_gathered`` / ``gemm_rs`` with contexts on a port Mesh of TP
+    ranks) through the bidirectional, int8-wire and chunked ring modes at
+    Llama-3-8B TP-4 widths, at the prefill size (S 2,048: m_loc 512) and a
+    decode size (m_loc 16): (a) the AG-GEMM at QKV (N 6144) and gate/up
+    (N 14336, K 4096) in modes bidir, wire, chunks 2 and chunks 4, the
+    GEMM-RS at wo (k 4096) and down (k 14336, N 4096) in bidir and on int8
+    operands; (b) ``ag_gemm_autotuned`` at gate/up and
+    ``gemm_rs_autotuned`` at down in one ``contextual_autotune`` region.
+    The ring-mode counters are zeroed just before (a) and read just after
+    (b): each new row's count.  Then every result is held against its
+    plain version (the same context at ``impl="xla"``): the gathered A bit
+    for bit, bf16 products by check_tiles over 128-row tiles, int8
+    exactly; and each row is timed eagerly between CUDA events on the
+    rank-stacked shard function (a launch carries its call's epoch: no
+    graph) at every shape, beside its bound, its plain version and one
+    PyTorch call of the same function where one exists.  ``dims`` (D,
+    FFN, QKV width) and ``sizes`` (m_loc by name) are Llama-3-8B's unless
+    a caller cuts them."""
+    import torch
+
+    from triton_dist_tpu_torch.autotuner import contextual_autotune
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    W, (D, F, QKV), sizes = TP, dims, dict(sizes)
+    mesh = Mesh((W,), ("tp",), dev)
+    g = torch.Generator(device=dev).manual_seed(20)
+    ag_modes = {"bidir": dict(ring_mode="bidir"),
+                "wire": dict(wire_dtype="int8"),
+                "chunks2": dict(chunks=2), "chunks4": dict(chunks=4)}
+    ag_projs = {"qkv": (D, QKV), "gate_up": (D, F)}
+    rs_projs = {"wo": (D, D), "down": (F, D)}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).bfloat16()
+
+    def randi(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    inputs = {}
+    for size, m_loc in sizes.items():
+        for proj, (k, n) in ag_projs.items():
+            inputs["ag", size, proj] = (randn(W * m_loc, k),
+                                        randn(k, n, scale=k ** -0.5))
+        for proj, (k, n) in rs_projs.items():
+            inputs["rs", size, proj] = (randn(W * m_loc, k),
+                                        randn(k, n, scale=k ** -0.5))
+            inputs["i8", size, proj] = (randi(W * m_loc, k), randi(k, n))
+
+    # (a) + (b): the path, with the ring-mode counters zeroed first
+    zero_ring_modes()
+    n_uni = (agm.ag_gemm_shard.launches, grs.gemm_rs_shard.launches)
+    got = {}
+    for key, (a, b) in inputs.items():
+        kind, size, proj = key
+        if kind == "ag":
+            for mode, kw in ag_modes.items():
+                got[key + (mode,)] = agm.ag_gemm_gathered(
+                    a, b, agm.create_ag_gemm_context(mesh, **kw))
+        else:
+            got[key] = grs.gemm_rs(a, b, grs.create_gemm_rs_context(
+                mesh, ring_mode="bidir" if kind == "rs" else "uni"))
+
+    @contextual_autotune()     # the reference's 3 warm-up and 5 timed calls
+    def tuned_op(x, w, x2, w2):
+        return (agm.ag_gemm_autotuned(x, w, agm.create_ag_gemm_context(
+            mesh)), grs.gemm_rs_autotuned(x2, w2, grs.create_gemm_rs_context(
+                mesh)))
+
+    t0 = time.perf_counter()
+    tuned = tuned_op(*inputs["ag", "prefill", "gate_up"],
+                     *inputs["rs", "prefill", "down"])
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches = read_ring_modes()
+    uni = (agm.ag_gemm_shard.launches - n_uni[0],
+           grs.gemm_rs_shard.launches - n_uni[1])
+    log(f"ring modes: phase 20 launches {launches}; uni launches "
+        f"(autotune sweeps) ag_gemm {uni[0]}, gemm_rs {uni[1]}")
+    for row, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {row} never launched by phase 20")
+    for tuner, name in ((agm._ag_gemm_tunable, "ag_gemm_autotuned gate_up"),
+                        (grs._gemm_rs_tunable, "gemm_rs_autotuned down")):
+        sweep = next(reversed(tuner.sweeps.values()))
+        log(f"{name}: " + ", ".join(f"{c} {ms:.4f} ms" for c, ms in sweep)
+            + f"; winner {tuner.best_config} (region {tune_s:.2f} s)")
+
+    # the checks, against the plain versions
+    errs = {}
+
+    def tiles(tag, c, want):
+        return check_tiles(tag, c, want, min(128, want.shape[0]))
+
+    for key, res in got.items():
+        kind, size, proj = key[:3]
+        a, b = inputs[key[:3]]
+        tag = f"{'/'.join(key)} (W {W}, m_loc {sizes[size]})"
+        if kind == "ag":
+            mode = key[3]
+            full, c = res
+            want_full, want_c = agm.ag_gemm_gathered(
+                a, b, agm.create_ag_gemm_context(mesh, impl="xla",
+                                                 **ag_modes[mode]))
+            if not torch.equal(full, want_full):
+                raise AssertionError(f"{tag}: gathered A differs")
+            row = "ag_gemm_" + ("chunked" if "chunks" in mode else mode)
+            errs[row, size, proj, mode] = tiles(tag, c, want_c)
+        elif kind == "rs":
+            want = grs.gemm_rs(a, b, grs.create_gemm_rs_context(
+                mesh, impl="xla", ring_mode="bidir"))
+            errs["gemm_rs_bidir", size, proj, "bidir"] = tiles(tag, res,
+                                                               want)
+        else:
+            want = grs.gemm_rs(a, b, grs.create_gemm_rs_context(mesh,
+                                                                impl="xla"))
+            same = torch.equal(res, want)
+            log(f"{tag}: int32 C exactly equal {same}")
+            if not same:
+                raise AssertionError(f"{tag} disagrees with plain")
+            errs["gemm_rs_i8", size, proj, "i8"] = 0.0
+    del got
+    c, c2 = tuned
+    a, b = inputs["ag", "prefill", "gate_up"]
+    tiles("ag_gemm_autotuned gate_up (winner)", c, agm.ag_gemm(
+        a, b, agm.create_ag_gemm_context(mesh, impl="xla")))
+    a, b = inputs["rs", "prefill", "down"]
+    tiles("gemm_rs_autotuned down (winner)", c2, grs.gemm_rs(
+        a, b, grs.create_gemm_rs_context(mesh, impl="xla")))
+    del tuned, c, c2
+
+    # the times, on the rank-stacked shard functions
+    rows = {}
+    for (row, size, proj, mode), err in errs.items():
+        m_loc = sizes[size]
+        kind = "ag" if row.startswith("ag") else (
+            "rs" if row == "gemm_rs_bidir" else "i8")
+        a, b = inputs[kind, size, proj]
+        k, n = a.shape[1], b.shape[1]
+        if kind == "ag":
+            kw = ag_modes[mode]
+            a_r = a.view(W, m_loc, k)
+            b_r = b.view(k, W, n // W).permute(1, 0, 2).contiguous()
+            ms = event_ms(lambda: agm.ag_gemm_shard(a_r, b_r, **kw), iters=10)
+            plain = lambda: agm.ag_gemm_ref(a_r, b_r,  # noqa: E731
+                                            wire="wire_dtype" in kw)
+            ops = 2 * W * m_loc * n * k
+            wire = "wire_dtype" in kw
+            n_bytes = 2 * W * m_loc * k + 2 * k * n + 2 * W * m_loc * n + (
+                W * W * m_loc * (k + 4) if wire else 2 * W * W * m_loc * k)
+            if wire:
+                lib, lib_call = None, ("no one PyTorch call quantizes "
+                                       "each row to int8 before the product")
+            else:
+                af = a.view(1, W * m_loc, k).expand(W, -1, -1)
+                lib = time_ms(lambda: torch.matmul(af, b_r), iters=5)
+                lib_call = "batched torch.matmul of the gathered view"
+            b_ms, b_by = bound_ms(n_bytes, ops)
+        elif kind == "rs":
+            a_r = a.view(W * m_loc, W, k // W).permute(1, 0, 2).contiguous()
+            b_r = b.view(W, k // W, n)
+            ms = event_ms(lambda: grs.gemm_rs_shard(a_r, b_r,
+                                                    ring_mode="bidir"),
+                          iters=10)
+            plain = lambda: grs.gemm_rs_ref(a_r, b_r,  # noqa: E731
+                                            ring_mode="bidir")
+            ops = 2 * W * m_loc * n * k
+            b_ms, b_by = bound_ms(2 * (W * m_loc * k + k * n + W * m_loc * n),
+                                  ops)
+            a4 = a_r.view(W, W, m_loc, k // W)
+            lib = time_ms(lambda: torch.einsum("qrmk,qkn->rmn", a4, b_r),
+                          iters=5)
+            lib_call = "torch.einsum"
+        else:
+            a_r = a.view(W * m_loc, W, k // W).permute(1, 0, 2).contiguous()
+            b_r = b.view(W, k // W, n)
+            ms = event_ms(lambda: grs.gemm_rs_shard(a_r, b_r), iters=10)
+            plain = lambda: grs.gemm_rs_ref(a_r, b_r)  # noqa: E731
+            ops = 2 * W * m_loc * n * k
+            b_ms, b_by = bound_ms(W * m_loc * k + k * n + 4 * W * m_loc * n,
+                                  ops, INT8_OPS_S)
+            if W * m_loc > 16:
+                b_cm = b.t().contiguous().t()
+                lib = time_ms(lambda: torch._int_mm(a, b_cm), iters=5)
+                lib_call = ("torch._int_mm of the rows against B "
+                            "column-major: the sum over ranks is the "
+                            "contraction")
+            else:
+                lib, lib_call = None, "cuBLASLt takes no m <= 16"
+        headline = (size == "prefill" and proj in ("gate_up", "down")
+                    and mode in ("bidir", "wire", "chunks2", "i8"))
+        plain_ms = time_ms(plain, iters=2, reps=2) if headline else None
+        log(f"{row} {proj} {mode} {size} (W {W}, m_loc {m_loc}, k {k}, N "
+            f"{n}): kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+            f"{'TOP' if kind == 'i8' else 'TFLOP'}/s over {W} ranks), bound "
+            f"{b_ms:.4f} ms ({b_by}), plain "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+            f"library {'null' if lib is None else f'{lib:.4f} ms'} "
+            f"({lib_call})")
+        entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                     max_abs_err=err)
+        r = rows.setdefault(row, {"shapes": {}})
+        r["shapes"][f"{proj}_{mode}_{size}"] = entry
+        if headline:
+            r.update(entry, plain_ms=plain_ms)
+            if lib is None:
+                r["library_null_reason"] = lib_call
+    return rows, launches
 
 
 def main() -> int:
@@ -4135,6 +4424,14 @@ def main() -> int:
               "allgather_full_mesh", "reduce_scatter_ring",
               "reduce_scatter_bidir"):
         launches[n] = pp_launches[n]
+    log(f"pp done at {time.perf_counter() - t_start:.1f} s")
+
+    # phase 20: the ring GEMMs' host entries and ring modes; each mode's
+    # count comes from it (0 on every model path, beside)
+    mode_rows, mode_launches = ring_modes_phase(dev)
+    rows.update(mode_rows)
+    launches.update(mode_launches)
+    log(f"ring modes done at {time.perf_counter() - t_start:.1f} s")
 
     src = {"flash_fwd": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
                          "triton_dist_tpu/kernels/flash_attention.py:116"),
@@ -4198,7 +4495,22 @@ def main() -> int:
                "triton_dist_tpu/kernels/reduce_scatter.py:73"),
            "reduce_scatter_bidir": (
                "triton_dist_tpu_torch/csrc/reduce_scatter.cu",
-               "triton_dist_tpu/kernels/reduce_scatter.py:134")}
+               "triton_dist_tpu/kernels/reduce_scatter.py:134"),
+           "ag_gemm_bidir": ("triton_dist_tpu_torch/csrc/ag_gemm.cu",
+                             "triton_dist_tpu/kernels/allgather_gemm.py:108"),
+           # the int8-wire mode and the chunked forward of row 13
+           "ag_gemm_wire": ("triton_dist_tpu_torch/csrc/ag_gemm.cu",
+                            "triton_dist_tpu/kernels/allgather_gemm.py:240"),
+           "ag_gemm_chunked": (
+               "triton_dist_tpu_torch/csrc/ag_gemm.cu",
+               "triton_dist_tpu/kernels/allgather_gemm.py:240"),
+           "gemm_rs_bidir": (
+               "triton_dist_tpu_torch/csrc/gemm_rs.cu",
+               "triton_dist_tpu/kernels/gemm_reduce_scatter.py:205"),
+           # the int8 (quantized) mode of row 15
+           "gemm_rs_i8": (
+               "triton_dist_tpu_torch/csrc/gemm_rs.cu",
+               "triton_dist_tpu/kernels/gemm_reduce_scatter.py:103")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -4233,9 +4545,14 @@ def main() -> int:
                                        "all_to_all") else {}),
                         **({"pp_launches": pp_launches[name]}
                            if name in pp_launches else {}),
+                        **({"model_path_launches": {
+                            ph: c[name] for ph, c in
+                            MODEL_PATH_MODES.items()}}
+                           if name in RING_MODE_ROWS else {}),
                         **{k: r[k] for k in ("m8", "t8", "shapes",
                                              "algorithm_bound_ms",
-                                             "device_ms")
+                                             "device_ms",
+                                             "library_null_reason")
                            if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -872,8 +872,8 @@ def test_moe_ep4_forward_and_train_step_at_mixtral_width(cuda):
 
     def counts():
         return (a2a.fast_all_to_all_shard.launches, gg.group_gemm.launches,
-                gg.group_gemm_dx.launches, agm.ag_gemm.launches,
-                grs.gemm_rs.launches)
+                gg.group_gemm_dx.launches, agm.ag_gemm_shard.launches,
+                grs.gemm_rs_shard.launches)
 
     n0 = counts()
     routes = []
@@ -995,12 +995,12 @@ def test_ring_kernels_match_plain(cuda, case, trans_b):
     world, m_loc, k, n = case
     g = np.random.default_rng(zlib.crc32(repr((case, trans_b)).encode()))
     a, a_rs, b = _ring_case(cuda, g, world, m_loc, k, n, trans_b)
-    n0 = (agm.ag_gemm.launches, grs.gemm_rs.launches)
-    a_full, c = agm.ag_gemm(a, b, trans_b=trans_b)
-    out = grs.gemm_rs(a_rs, b, trans_b=trans_b)
+    n0 = (agm.ag_gemm_shard.launches, grs.gemm_rs_shard.launches)
+    a_full, c = agm.ag_gemm_shard(a, b, trans_b=trans_b)
+    out = grs.gemm_rs_shard(a_rs, b, trans_b=trans_b)
     torch.cuda.synchronize()
-    assert (agm.ag_gemm.launches, grs.gemm_rs.launches) == (n0[0] + 1,
-                                                             n0[1] + 1)
+    assert (agm.ag_gemm_shard.launches,
+            grs.gemm_rs_shard.launches) == (n0[0] + 1, n0[1] + 1)
     want_full, want_c = agm.ag_gemm_ref(a, b, trans_b=trans_b)
     assert a_full.shape == (world, world * m_loc, k)
     assert torch.equal(a_full, want_full)
@@ -1024,8 +1024,8 @@ def test_ring_kernels_rerandomized_back_to_back(cuda):
     for i in range(24):
         a, a_rs, b = _ring_case(cuda, g, 4, 256, 512, 512, bool(i % 2))
         results.append((a, a_rs, b, bool(i % 2),
-                        agm.ag_gemm(a, b, trans_b=bool(i % 2)),
-                        grs.gemm_rs(a_rs, b, trans_b=bool(i % 2))))
+                        agm.ag_gemm_shard(a, b, trans_b=bool(i % 2)),
+                        grs.gemm_rs_shard(a_rs, b, trans_b=bool(i % 2))))
     torch.cuda.synchronize()
     for i, (a, a_rs, b, tb, (a_full, c), out) in enumerate(results):
         want_full, want_c = agm.ag_gemm_ref(a, b, trans_b=tb)
@@ -1044,35 +1044,35 @@ def test_ring_kernels_refuse_what_they_do_not_take(cuda):
         return torch.zeros(shape, dtype=dtype, device=cuda)
 
     with pytest.raises(ValueError, match="positive"):
-        agm.ag_gemm(z(2, 0, 256), z(2, 256, 256))          # no rows
+        agm.ag_gemm_shard(z(2, 0, 256), z(2, 256, 256))          # no rows
     with pytest.raises(ValueError, match="multiples of 32 and 16"):
-        agm.ag_gemm(z(2, 64, 48, dtype=torch.int8),
+        agm.ag_gemm_shard(z(2, 64, 48, dtype=torch.int8),
                     z(2, 48, 256, dtype=torch.int8))       # int8 K % 32
     with pytest.raises(ValueError, match="multiples of 32 and 16"):
         agm.ag_gemm_i8(z(2, 64, 64, dtype=torch.int8),
                        z(2, 64, 40, dtype=torch.int8))     # int8 N % 16
     with pytest.raises(ValueError, match="without trans_b"):
-        agm.ag_gemm(z(2, 64, 64, dtype=torch.int8),
+        agm.ag_gemm_shard(z(2, 64, 64, dtype=torch.int8),
                     z(2, 64, 64, dtype=torch.int8), trans_b=True)
     with pytest.raises(ValueError, match="multiples of 8"):
-        agm.ag_gemm(z(2, 128, 260), z(2, 260, 256))        # K % 8
+        agm.ag_gemm_shard(z(2, 128, 260), z(2, 260, 256))        # K % 8
     with pytest.raises(ValueError, match="multiples of 8"):
-        grs.gemm_rs(z(2, 256, 256), z(2, 256, 100))        # N % 8
+        grs.gemm_rs_shard(z(2, 256, 256), z(2, 256, 100))        # N % 8
     with pytest.raises(ValueError, match="chunks"):
-        grs.gemm_rs(z(4, 130, 256), z(4, 256, 256))        # rows % W
+        grs.gemm_rs_shard(z(4, 130, 256), z(4, 256, 256))        # rows % W
     with pytest.raises(TypeError):
-        agm.ag_gemm(z(2, 128, 256, dtype=torch.float32),
+        agm.ag_gemm_shard(z(2, 128, 256, dtype=torch.float32),
                     z(2, 256, 256, dtype=torch.float32))
     with pytest.raises(ValueError, match="at most 8"):
-        agm.ag_gemm(z(9, 128, 64), z(9, 64, 64))
+        agm.ag_gemm_shard(z(9, 128, 64), z(9, 64, 64))
     with pytest.raises(ValueError, match="contraction"):
-        grs.gemm_rs(z(2, 256, 256), z(2, 128, 256))
+        grs.gemm_rs_shard(z(2, 256, 256), z(2, 128, 256))
     graph = torch.cuda.CUDAGraph()
     a, b = z(2, 128, 256), z(2, 256, 256)
-    agm.ag_gemm(a, b)
+    agm.ag_gemm_shard(a, b)
     with pytest.raises(RuntimeError, match="CUDA graph"):
         with torch.cuda.graph(graph):
-            agm.ag_gemm(a, b)
+            agm.ag_gemm_shard(a, b)
 
 
 @pytest.mark.gpu
@@ -1098,11 +1098,11 @@ def test_tp_linears_autograd_match_plain(cuda):
         outs = []
         for plain in (False, True):
             xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
-            n0 = (agm.ag_gemm.launches, grs.gemm_rs.launches)
+            n0 = (agm.ag_gemm_shard.launches, grs.gemm_rs_shard.launches)
             y = fn(xg, wg, plain=plain)
             outs.append((y, *torch.autograd.grad(y, (xg, wg), ct)))
-            moved = (agm.ag_gemm.launches - n0[0], grs.gemm_rs.launches
-                     - n0[1])
+            moved = (agm.ag_gemm_shard.launches - n0[0],
+                     grs.gemm_rs_shard.launches - n0[1])
             assert moved == ((0, 0) if plain else (1, 1)), moved
         for got, want, name in zip(outs[0], outs[1], ("out", "dx", "dw")):
             _gemm_close(got, want, f"{fn.__name__} {name}")
@@ -1129,7 +1129,7 @@ def test_tp4_llama_forward_and_train_step_at_8b_width(cuda):
         0, cfg.vocab, size=(512, 1)), device=cuda)
 
     def counts():
-        return agm.ag_gemm.launches, grs.gemm_rs.launches
+        return agm.ag_gemm_shard.launches, grs.gemm_rs_shard.launches
 
     n0 = counts()
     with torch.no_grad():
@@ -1147,6 +1147,239 @@ def test_tp4_llama_forward_and_train_step_at_8b_width(cuda):
     assert np.isfinite(float(loss))
     assert tuple(x - y for x, y in zip(counts(), n0)) == (
         5 * cfg.n_layers, 5 * cfg.n_layers)
+
+
+AG_MODES = {
+    # name: (shard kwargs, the counter the call moves)
+    "bidir": (dict(ring_mode="bidir"), "bidir"),
+    "wire": (dict(wire_dtype="int8"), "wire"),
+    "chunks2": (dict(chunks=2), "chunked"),
+    "chunks4": (dict(chunks=4), "chunked"),
+}
+MODE_CASES = [
+    # (world, m_loc, K, n): the TP-4 prefill rows cut in K and n, the
+    # decode size (m_loc 16: a half of 8 rows, one masked 128-row tile),
+    # several pieces per half, world 2 and 8, a ragged n edge
+    (4, 512, 512, 256), (4, 16, 256, 256), (4, 384, 256, 384),
+    (2, 32, 512, 200), (8, 16, 256, 128),
+]
+
+
+def _mode_counts():
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    return {"uni": agm.ag_gemm_shard.launches,
+            **agm.ag_gemm_shard.mode_launches,
+            "rs_uni": grs.gemm_rs_shard.launches,
+            **{f"rs_{k}": v for k, v in
+               grs.gemm_rs_shard.mode_launches.items()}}
+
+
+def _moved(n0):
+    now = _mode_counts()
+    return {k: now[k] - n0[k] for k in now if now[k] != n0[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MODE_CASES)
+@pytest.mark.parametrize("mode", sorted(AG_MODES))
+def test_ag_gemm_modes_match_plain(cuda, case, mode):
+    """The AG-GEMM's ring modes (``tdt_ag_gemm_bidir``, the int8 wire
+    ``tdt_ag_gemm_wire``, the chunked forward of ``tdt_ag_gemm``) against
+    the plain version: the gathered A bit for bit (the wire's rebuilt from
+    the same payload), C by the bf16 GEMM rule; each call moves its
+    schedule's counter only."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    world, m_loc, k, n = case
+    kw, counter = AG_MODES[mode]
+    g = np.random.default_rng(zlib.crc32(repr((case, mode)).encode()))
+    a, _, b = _ring_case(cuda, g, world, m_loc, k, n, False)
+    sched = agm.ag_gemm_schedule(m_loc, world, False, **kw)
+    n0 = _mode_counts()
+    a_full, c = agm.ag_gemm_shard(a, b, **kw)
+    torch.cuda.synchronize()
+    want = {"wire" if sched.wire else sched.mode: 1}
+    if sched.chunks > 1:
+        want["chunked"] = 1
+    assert _moved(n0) == want, (sched, _moved(n0))
+    want_full, want_c = agm.ag_gemm_ref(a, b, wire=sched.wire)
+    assert torch.equal(a_full, want_full)
+    _gemm_close(c, want_c, f"ag_gemm {mode} {case}")
+
+
+@pytest.mark.gpu
+def test_ag_gemm_modes_ten_calls_in_a_row(cuda):
+    """Ten calls of each ring mode in a row on fresh inputs, every result
+    checked afterwards: a flag or piece counter left by an earlier call
+    that let a wait pass early would show as a stale value."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    g = np.random.default_rng(13)
+    results = []
+    for i in range(10):
+        for mode in sorted(AG_MODES):
+            kw = AG_MODES[mode][0]
+            a, _, b = _ring_case(cuda, g, 4, 256 if i % 2 else 16, 256, 256,
+                                 False)
+            results.append((mode, kw, a, b, agm.ag_gemm_shard(a, b, **kw)))
+    torch.cuda.synchronize()
+    for mode, kw, a, b, (a_full, c) in results:
+        want_full, want_c = agm.ag_gemm_ref(a, b, wire="wire_dtype" in kw)
+        assert torch.equal(a_full, want_full), mode
+        _gemm_close(c, want_c, f"ag_gemm {mode} in a row")
+
+
+RS_MODE_CASES = [
+    # (world, m_loc, k, N): bidir needs (N / 2) % 128 == 0; decode size,
+    # ragged chunk rows, world 2 and 8
+    (4, 512, 512, 256), (4, 16, 256, 512), (2, 37, 256, 512),
+    (8, 16, 128, 256), (4, 250, 512, 768),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RS_MODE_CASES)
+def test_gemm_rs_bidir_matches_plain(cuda, case):
+    """``tdt_gemm_rs_bidir`` against the plain version of the bidir ring
+    (the reference's hop order and bf16 adds) by the bf16 GEMM rule (the
+    partials may round differently: another order over k); one launch of
+    the bidir counter only."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    world, m_loc, k, n = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    _, a, b = _ring_case(cuda, g, world, m_loc, k, n, False)
+    n0 = _mode_counts()
+    out = grs.gemm_rs_shard(a, b, ring_mode="bidir")
+    torch.cuda.synchronize()
+    assert _moved(n0) == {"rs_bidir": 1}
+    assert out.shape == (world, m_loc, n)
+    _gemm_close(out, grs.gemm_rs_ref(a, b, ring_mode="bidir"),
+                f"gemm_rs bidir {case}")
+
+
+@pytest.mark.gpu
+def test_gemm_rs_bidir_ten_calls_in_a_row(cuda):
+    """Ten bidir GEMM-RS calls in a row on fresh inputs, every result
+    checked afterwards (stale landing slots or flags would show)."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    g = np.random.default_rng(17)
+    results = []
+    for i in range(10):
+        _, a, b = _ring_case(cuda, g, 4, 128 if i % 2 else 16, 256, 512,
+                             False)
+        results.append((a, b, grs.gemm_rs_shard(a, b, ring_mode="bidir")))
+    torch.cuda.synchronize()
+    for i, (a, b, out) in enumerate(results):
+        _gemm_close(out, grs.gemm_rs_ref(a, b, ring_mode="bidir"),
+                    f"gemm_rs bidir call {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(4, 128, 512, 256), (4, 16, 1024, 1536),
+                                  (2, 37, 256, 144), (1, 64, 128, 128),
+                                  (4, 250, 512, 384)])
+def test_gemm_rs_i8_matches_plain(cuda, case):
+    """The GEMM-RS's int8 mode (``tdt_gemm_rs_i8``): int32 C exactly equal
+    to the plain version (exact partials and sums), ten calls in a row at
+    the first case; one launch of the int8 counter each."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    world, m_loc, k, n = case
+    g = torch.Generator(device=cuda).manual_seed(zlib.crc32(
+        repr(case).encode()))
+    calls = 10 if case == (4, 128, 512, 256) else 1
+    results = []
+    n0 = _mode_counts()
+    for _ in range(calls):
+        a = torch.randint(-127, 128, (world, world * m_loc, k), generator=g,
+                          device=cuda, dtype=torch.int8)
+        b = torch.randint(-127, 128, (world, k, n), generator=g,
+                          device=cuda, dtype=torch.int8)
+        results.append((a, b, grs.gemm_rs_shard(a, b)))
+    torch.cuda.synchronize()
+    assert _moved(n0) == {"rs_i8": calls}
+    for a, b, out in results:
+        assert out.dtype == torch.int32
+        assert torch.equal(out, grs.gemm_rs_ref(a, b))
+
+
+@pytest.mark.gpu
+def test_ring_host_entries_on_the_card(cuda):
+    """The host entries over a port Mesh on the card: ``ag_gemm`` /
+    ``ag_gemm_gathered`` / ``gemm_rs`` with contexts (every mode) against
+    the same contexts at ``impl="xla"`` (the plain versions), and the
+    autotuned entries inside one ``contextual_autotune`` region against
+    the plain versions."""
+    from triton_dist_tpu_torch.autotuner import contextual_autotune
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    mesh = Mesh((4,), ("tp",), cuda)
+    g = np.random.default_rng(21)
+    a = _randn(g, (256, 512), cuda)
+    b = (_randn(g, (512, 1024), cuda).float() / 512 ** 0.5).bfloat16()
+    for kw in (dict(), dict(ring_mode="bidir"), dict(chunks=2),
+               dict(wire_dtype="int8")):
+        full, c = agm.ag_gemm_gathered(
+            a, b, agm.create_ag_gemm_context(mesh, **kw))
+        want_full, want_c = agm.ag_gemm_gathered(
+            a, b, agm.create_ag_gemm_context(mesh, impl="xla", **kw))
+        assert torch.equal(full, want_full), kw
+        _gemm_close(c, want_c, f"host ag_gemm_gathered {kw}")
+        _gemm_close(agm.ag_gemm(a, b, agm.create_ag_gemm_context(mesh, **kw)),
+                    want_c, f"host ag_gemm {kw}")
+    a2 = _randn(g, (256, 1024), cuda)
+    b2 = (_randn(g, (1024, 512), cuda).float() / 1024 ** 0.5).bfloat16()
+    for kw in (dict(), dict(ring_mode="bidir")):
+        c = grs.gemm_rs(a2, b2, grs.create_gemm_rs_context(mesh, **kw))
+        _gemm_close(c, grs.gemm_rs(a2, b2, grs.create_gemm_rs_context(
+            mesh, impl="xla", **kw)), f"host gemm_rs {kw}")
+
+    @contextual_autotune(n_repeat=2, n_warmup=1)
+    def op(x, w, x2, w2):
+        return (agm.ag_gemm_autotuned(x, w, agm.create_ag_gemm_context(
+            mesh)), grs.gemm_rs_autotuned(x2, w2, grs.create_gemm_rs_context(
+                mesh)))
+
+    c, c2 = op(a, b, a2, b2)
+    _gemm_close(c, a.float() @ b.float(), "ag_gemm_autotuned")
+    _gemm_close(c2, a2.float() @ b2.float(), "gemm_rs_autotuned")
+
+
+@pytest.mark.gpu
+def test_ring_modes_refuse_what_they_do_not_take(cuda):
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    with pytest.raises(ValueError, match="trans_b"):
+        agm.ag_gemm_shard(z(4, 32, 256), z(4, 256, 256), trans_b=True,
+                          ring_mode="bidir")
+    with pytest.raises(ValueError, match="trans_b"):
+        agm.ag_gemm_shard(z(4, 32, 256), z(4, 256, 256), trans_b=True,
+                          wire_dtype="int8")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        agm.ag_gemm_shard(z(4, 32, 264), z(4, 264, 256), wire_dtype="int8")
+    with pytest.raises(ValueError, match="bidir"):
+        agm.ag_gemm_shard(z(4, 32, 256), z(4, 256, 256), ring_mode="bidir",
+                          chunks=2)
+    with pytest.raises(ValueError, match="trans_b"):
+        grs.gemm_rs_shard(z(4, 128, 256), z(4, 256, 256), trans_b=True,
+                          ring_mode="bidir")
+    with pytest.raises(ValueError, match="bf16 operands"):
+        grs.gemm_rs_shard(z(4, 128, 256, dtype=torch.int8),
+                          z(4, 256, 256, dtype=torch.int8),
+                          ring_mode="bidir")
+    with pytest.raises(ValueError, match="multiples of 32 and 16"):
+        grs.gemm_rs_shard(z(4, 128, 48, dtype=torch.int8),
+                          z(4, 48, 256, dtype=torch.int8))
 
 
 I8_RING_CASES = [
@@ -1174,10 +1407,10 @@ def test_ag_gemm_i8_matches_plain(cuda, case):
                       device=cuda, dtype=torch.int8)
     b = torch.randint(-127, 128, (world, k, n), generator=g, device=cuda,
                       dtype=torch.int8)
-    n0 = (agm.ag_gemm.launches, agm.ag_gemm_i8.launches)
-    a_full, c = agm.ag_gemm(a, b)
+    n0 = (agm.ag_gemm_shard.launches, agm.ag_gemm_i8.launches)
+    a_full, c = agm.ag_gemm_shard(a, b)
     torch.cuda.synchronize()
-    assert (agm.ag_gemm.launches, agm.ag_gemm_i8.launches) == (n0[0],
+    assert (agm.ag_gemm_shard.launches, agm.ag_gemm_i8.launches) == (n0[0],
                                                                n0[1] + 1)
     want_full, want_c = agm.ag_gemm_ref(a, b)
     assert a_full.dtype == torch.int8 and c.dtype == torch.int32

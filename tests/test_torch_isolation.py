@@ -59,7 +59,8 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.kernels.hierarchical",
             "triton_dist_tpu_torch.layers.allgather_layer",
             "triton_dist_tpu_torch.parallel.pipeline",
-            "triton_dist_tpu_torch.models.pp"} <= set(mods)
+            "triton_dist_tpu_torch.models.pp",
+            "triton_dist_tpu_torch.autotuner"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -318,20 +319,20 @@ def test_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
     rng = np.random.default_rng(4)
     a = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((2, 16, 24)).astype(np.float32))
-    counters = (gemm.matmul, agm.ag_gemm, grs.gemm_rs)
+    counters = (gemm.matmul, agm.ag_gemm_shard, grs.gemm_rs_shard)
     n0 = [fn.launches for fn in counters]
     bootstrap.finalize_distributed()
     assert torch.allclose(gemm.matmul(a[0], b[0]), a[0] @ b[0])
-    a_full, c = agm.ag_gemm(a, b)
+    a_full, c = agm.ag_gemm_shard(a, b)
     assert torch.equal(a_full[1], a.reshape(16, 16))
     assert torch.allclose(c[1], a.reshape(16, 16) @ b[1])
-    out = grs.gemm_rs(a, b)
+    out = grs.gemm_rs_shard(a, b)
     assert torch.allclose(out[1], a[0, 4:] @ b[0] + a[1, 4:] @ b[1],
                           atol=1e-5)
     assert [fn.launches for fn in counters] == n0
     assert not bootstrap._WORLDS
     meta = torch.empty((2, 128, 128), dtype=torch.bfloat16, device="meta")
-    for fn in (agm.ag_gemm, grs.gemm_rs):
+    for fn in (agm.ag_gemm_shard, grs.gemm_rs_shard):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(meta, meta)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -393,9 +394,9 @@ def test_w8a8_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
     rng = np.random.default_rng(6)
     a = torch.from_numpy(rng.integers(-127, 128, (2, 3, 32), dtype=np.int8))
     b = torch.from_numpy(rng.integers(-127, 128, (2, 32, 16), dtype=np.int8))
-    counters = (agm.ag_gemm, agm.ag_gemm_i8, quant.matmul_i8)
+    counters = (agm.ag_gemm_shard, agm.ag_gemm_i8, quant.matmul_i8)
     n0 = [fn.launches for fn in counters]
-    a_full, c = agm.ag_gemm(a, b)
+    a_full, c = agm.ag_gemm_shard(a, b)
     assert c.dtype == torch.int32
     assert torch.equal(c[1], quant.matmul_i8_ref(a.reshape(6, 32), b[1]))
     assert torch.equal(agm.ag_gemm_i8(a, b)[1], c)

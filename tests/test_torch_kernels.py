@@ -48,9 +48,23 @@ exact; the barrier's host entry; the hierarchical all-gather,
 reduce-scatter and all-reduce bit for bit, ``hier_grad_allreduce`` within
 1e-2 (its test's bound, a bf16 leaf), the two-stage all-to-all exact on
 every valid row (``impl="xla"`` and interpret-mode Pallas).
+
+The TP ring GEMMs' modes against the interpret-mode kernels (spied, on
+``mesh2`` / ``mesh4``, m_loc 16-32, n_loc 128): the bidir AG-GEMM (A_full
+bit for bit, C within 1e-5); the int8 wire (payload equal to the
+reference's ``quantize_rowwise``, scales within 1 ulp: under jit XLA
+divides by 127 as a product with 1 / 127, so the rebuilt A within 2 ulp,
+C within 1e-5); chunks 1 / 2 / 4 equal, and the chunk clamp and every
+schedule choice equal to the reference's (read from the kernel its trace
+reaches); the bidir GEMM-RS within 1e-5 and bit-equal on integer-valued
+inputs; the int8 GEMM-RS exactly; the host entries on a port ``Mesh``
+against the reference's (1e-5; A_full bit for bit); the autotuner's cases
+of tests/test_autotuner.py on torch tensors, and the autotuned entries
+equal to the plain versions whichever config wins.
 """
 
 import importlib
+import time
 
 import jax
 import jax.numpy as jnp
@@ -58,11 +72,17 @@ import numpy as np
 import pytest
 import torch
 
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from triton_dist_tpu_torch import autotuner as tat
+from triton_dist_tpu_torch.kernels import allgather_gemm as tag
 from triton_dist_tpu_torch.kernels import flash_attention as tfa
 from triton_dist_tpu_torch.kernels import flash_decode as tfd
+from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as trs
 from triton_dist_tpu_torch.kernels import group_gemm as tgg
 from triton_dist_tpu_torch.kernels import moe_utils as tmu
 from triton_dist_tpu_torch.kernels import quant as tq
+from triton_dist_tpu_torch.runtime.bootstrap import Mesh as TMesh
 from triton_dist_tpu_torch.runtime.utils import assert_allclose
 
 # the reference's kernels package re-exports functions under the module
@@ -72,6 +92,9 @@ jfd = importlib.import_module("triton_dist_tpu.kernels.flash_decode")
 jq = importlib.import_module("triton_dist_tpu.kernels.quant")
 jgg = importlib.import_module("triton_dist_tpu.kernels.group_gemm")
 jmu = importlib.import_module("triton_dist_tpu.kernels.moe_utils")
+jagm = importlib.import_module("triton_dist_tpu.kernels.allgather_gemm")
+jgrs = importlib.import_module("triton_dist_tpu.kernels.gemm_reduce_scatter")
+jgemm = importlib.import_module("triton_dist_tpu.kernels.gemm")
 
 TOL = 2e-5
 D = 128
@@ -1183,10 +1206,10 @@ def test_ag_gemm_plain_matches_pallas(world, monkeypatch, request):
                                    (P("tp"), P("tp")), jnp.asarray(a),
                                    jnp.asarray(b))
     assert traced and set(traced) == {world}
-    n0 = tag.ag_gemm.launches
-    a_full, c = tag.ag_gemm(_t(a).reshape(world, m_loc, K),
+    n0 = tag.ag_gemm_shard.launches
+    a_full, c = tag.ag_gemm_shard(_t(a).reshape(world, m_loc, K),
                             _stack_cols(b, world))
-    assert tag.ag_gemm.launches == n0                 # CPU: the plain version
+    assert tag.ag_gemm_shard.launches == n0       # CPU: the plain version
     assert a_full.shape == (world, world * m_loc, K)
     assert np.array_equal(a_full.numpy(), np.asarray(want_full))
     assert_allclose(c, np.asarray(want_c), atol=1e-5, rtol=1e-5)
@@ -1224,10 +1247,10 @@ def test_gemm_rs_plain_matches_pallas(world, monkeypatch, request):
         _mesh(world, request), (P(None, "tp"), P("tp", None)), P("tp"),
         jnp.asarray(a), jnp.asarray(b))
     assert traced and set(traced) == {world}
-    n0 = trs.gemm_rs.launches
-    out = trs.gemm_rs(torch.stack(_t(a).chunk(world, dim=1)),
+    n0 = trs.gemm_rs_shard.launches
+    out = trs.gemm_rs_shard(torch.stack(_t(a).chunk(world, dim=1)),
                       _stack_rows(b, world))
-    assert trs.gemm_rs.launches == n0
+    assert trs.gemm_rs_shard.launches == n0
     assert out.shape == (world, m_loc, N)
     assert_allclose(out.reshape(world * m_loc, N), np.asarray(want),
                     atol=1e-5, rtol=1e-5)
@@ -1243,18 +1266,18 @@ def test_ring_plain_versions_stage_in_the_operand_dtype():
 
     a, b = (_t(x) for x in _inputs(190, (4, 32, 64), (4, 64, 48)))
     a16, b16 = a.bfloat16(), b.bfloat16()
-    out = trs.gemm_rs(a16, b16)
+    out = trs.gemm_rs_shard(a16, b16)
     parts = [(a16[q].double() @ b16[q].double()).bfloat16().double()
              .reshape(4, 8, 48) for q in range(4)]
     want = (((parts[0] + parts[1]) + parts[2]) + parts[3])
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, want.float().bfloat16())
-    assert torch.equal(trs.gemm_rs(a, b.transpose(1, 2).contiguous(),
-                                   trans_b=True), trs.gemm_rs(a, b))
+    assert torch.equal(trs.gemm_rs_shard(a, b.transpose(1, 2).contiguous(),
+                                   trans_b=True), trs.gemm_rs_shard(a, b))
     a_loc = a[:, :8]
-    full_t, c_t = tag.ag_gemm(a_loc, b.transpose(1, 2).contiguous(),
+    full_t, c_t = tag.ag_gemm_shard(a_loc, b.transpose(1, 2).contiguous(),
                               trans_b=True)
-    full, c = tag.ag_gemm(a_loc, b)
+    full, c = tag.ag_gemm_shard(a_loc, b)
     assert torch.equal(full_t, full) and torch.equal(c_t, c)
 
 
@@ -1372,14 +1395,15 @@ def test_ag_gemm_i8_plain_matches_pallas(monkeypatch, mesh4):
                                    jnp.asarray(b))
     assert traced and set(traced) == {W}
     assert np.asarray(want_c).dtype == np.int32
-    n0 = (tag.ag_gemm.launches, tag.ag_gemm_i8.launches)
-    a_full, c = tag.ag_gemm(_t(a).reshape(W, m_loc, K), _stack_cols(b, W))
-    assert (tag.ag_gemm.launches, tag.ag_gemm_i8.launches) == n0
+    n0 = (tag.ag_gemm_shard.launches, tag.ag_gemm_i8.launches)
+    a_full, c = tag.ag_gemm_shard(_t(a).reshape(W, m_loc, K),
+                                  _stack_cols(b, W))
+    assert (tag.ag_gemm_shard.launches, tag.ag_gemm_i8.launches) == n0
     assert a_full.dtype == torch.int8 and c.dtype == torch.int32
     assert np.array_equal(a_full.numpy(), np.asarray(want_full))
     assert np.array_equal(c.numpy(), np.asarray(want_c))
     with pytest.raises(ValueError, match="without trans_b"):
-        tag.ag_gemm(_t(a).reshape(W, m_loc, K),
+        tag.ag_gemm_shard(_t(a).reshape(W, m_loc, K),
                     _stack_cols(b, W).transpose(1, 2).contiguous(),
                     trans_b=True)
 
@@ -1419,7 +1443,7 @@ def test_ring_plain_versions_take_ragged_rows(op, m_loc, impl, monkeypatch,
                                        (P("tp", None), P(None, "tp")),
                                        (P("tp"), P("tp")), jnp.asarray(a),
                                        jnp.asarray(b))
-        a_full, c = tag.ag_gemm(_t(a).reshape(W, m_loc, K),
+        a_full, c = tag.ag_gemm_shard(_t(a).reshape(W, m_loc, K),
                                 _stack_cols(b, W))
         assert np.array_equal(a_full.numpy(), np.asarray(want_full))
         assert_allclose(c, np.asarray(want_c), atol=1e-5, rtol=1e-5)
@@ -1432,7 +1456,7 @@ def test_ring_plain_versions_take_ragged_rows(op, m_loc, impl, monkeypatch,
         want = _shard_map(lambda x, w: jrs.gemm_rs_shard(x, w, **kw), mesh4,
                           (P(None, "tp"), P("tp", None)), P("tp"),
                           jnp.asarray(a), jnp.asarray(b))
-        out = trs.gemm_rs(torch.stack(_t(a).chunk(W, dim=1)),
+        out = trs.gemm_rs_shard(torch.stack(_t(a).chunk(W, dim=1)),
                           _stack_rows(b, W))
         assert out.shape == (W, m_loc, n)
         assert_allclose(out.reshape(W * m_loc, n), np.asarray(want),
@@ -2388,3 +2412,650 @@ def test_hier_all_to_all_matches_reference(impl, mesh2d):
     r2, s2 = ta.fast_all_to_all(_t(x), _t(splits), ctx)
     assert torch.equal(r2, recv.reshape(world * world, T, H))
     assert torch.equal(s2, rs.reshape(-1))
+
+# ---------------------------------------------------------------------------
+# The TP ring GEMMs' modes, host entries and the autotuner
+# ---------------------------------------------------------------------------
+
+RING_TOL = 1e-5
+# the wire's rebuilt A: q * scale with the reference's scale (computed
+# under jit) within 1 ulp of the port's, so the products within 2 ulp
+WIRE_A_RTOL = 2.5e-7
+
+
+def _spy_kernels(monkeypatch, module, *names):
+    """Record (kernel name, its keyword arguments) of every trace of
+    ``module.name`` for each name."""
+    traced = []
+    for name in names:
+        kernel = getattr(module, name)
+
+        def spy(*args, _k=kernel, _n=name, **kw):
+            traced.append((_n, kw))
+            return _k(*args, **kw)
+
+        monkeypatch.setattr(module, name, spy)
+    return traced
+
+
+def _ag_inputs(seed, world, m_loc, k, n_loc):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((world * m_loc, k)).astype(np.float32),
+            (rng.standard_normal((k, world * n_loc)) / np.sqrt(k)
+             ).astype(np.float32))
+
+
+def _ag_reference(mesh, a, b, **kw):
+    """The reference's per-device AG-GEMM in interpret mode inside
+    shard_map: (A_full [W, W m_loc, K], C [W, W m_loc, n_loc])."""
+    from jax.sharding import PartitionSpec as P
+
+    def shard(x, w):
+        a_full, c = jagm.ag_gemm_shard(x, w, axis="tp", impl="pallas", bm=8,
+                                      bn=128, bk=128, interpret=True, **kw)
+        return a_full[None], c[None]
+
+    full, c = _shard_map(shard, mesh, (P("tp", None), P(None, "tp")),
+                         (P("tp"), P("tp")), jnp.asarray(a), jnp.asarray(b))
+    return np.asarray(full), np.asarray(c)
+
+
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ag_gemm_bidir_matches_pallas(world, monkeypatch, request):
+    """ring_mode="bidir" against ``_ag_gemm_bidir_kernel`` (spied): every
+    rank's gathered A bit for bit, C within 1e-5; the port moves no
+    launch counter on the CPU."""
+    traced = _spy_kernels(monkeypatch, jagm, "_ag_gemm_bidir_kernel")
+    m_loc, k, n_loc = 16, 128, 128
+    a, b = _ag_inputs(300 + world, world, m_loc, k, n_loc)
+    want_full, want_c = _ag_reference(_mesh(world, request), a, b,
+                                      ring_mode="bidir")
+    assert traced and {kw["world"] for _, kw in traced} == {world}
+    n0 = dict(tag.ag_gemm_shard.mode_launches)
+    full, c = tag.ag_gemm_shard(_t(a).reshape(world, m_loc, k),
+                                _stack_cols(b, world), ring_mode="bidir")
+    assert tag.ag_gemm_shard.mode_launches == n0
+    assert np.array_equal(full.numpy(), want_full)
+    assert_allclose(c, want_c, atol=RING_TOL, rtol=RING_TOL)
+
+
+def test_ag_gemm_wire_payload_and_result_match_pallas(monkeypatch, mesh4):
+    """wire_dtype="int8": the port's int8 payload equal to the reference's
+    ``quantize_rowwise`` of each rank's rows and its scales within 1 ulp;
+    A_full (rebuilt from the payload) bit for bit and C within 1e-5 of the
+    reference's wire kernel (``_ag_gemm_kernel`` traced with wire=True)."""
+    traced = _spy_kernels(monkeypatch, jagm, "_ag_gemm_kernel")
+    W, m_loc, k, n_loc = 4, 16, 256, 128
+    a, b = _ag_inputs(310, W, m_loc, k, n_loc)
+    want_full, want_c = _ag_reference(mesh4, a, b, wire_dtype="int8")
+    assert traced and all(kw["wire"] for _, kw in traced)
+    ag_q, ag_s, c_plain = tag.ag_gemm_wire_ref(
+        _t(a).reshape(W, m_loc, k), _stack_cols(b, W))
+    # eagerly and under jit (where the reference's wire path runs, and XLA
+    # divides by 127 as a product with 1 / 127)
+    for quant in (jq.quantize_rowwise, jax.jit(jq.quantize_rowwise)):
+        q_ref, s_ref = (np.asarray(x) for x in quant(jnp.asarray(a)))
+        for r in range(W):
+            assert np.array_equal(ag_q[r].numpy(), q_ref)
+            ulp = np.spacing(np.abs(s_ref))
+            assert np.all(np.abs(ag_s[r].numpy() - s_ref) <= ulp)
+    full, c = tag.ag_gemm_shard(_t(a).reshape(W, m_loc, k),
+                                _stack_cols(b, W), wire_dtype="int8")
+    assert torch.equal(c, c_plain)
+    assert_allclose(full, want_full, atol=0, rtol=WIRE_A_RTOL)
+    assert_allclose(c, want_c, atol=RING_TOL, rtol=RING_TOL)
+
+
+def test_ag_gemm_chunks_equal_chunks_1(monkeypatch, mesh4):
+    """chunks 1, 2 and 4 give the same result (the chunking moves bytes,
+    not values), equal to the reference's chunked kernel within 1e-5."""
+    traced = _spy_kernels(monkeypatch, jagm, "_ag_gemm_kernel")
+    W, m_loc, k, n_loc = 4, 32, 128, 128
+    a, b = _ag_inputs(320, W, m_loc, k, n_loc)
+    ta, tb = _t(a).reshape(W, m_loc, k), _stack_cols(b, W)
+    full1, c1 = tag.ag_gemm_shard(ta, tb)
+    for chunks in (2, 4):
+        full, c = tag.ag_gemm_shard(ta, tb, chunks=chunks)
+        assert torch.equal(full, full1) and torch.equal(c, c1)
+    want_full, want_c = _ag_reference(mesh4, a, b, chunks=4)
+    assert [kw["chunks"] for _, kw in traced] == [4]
+    assert np.array_equal(full1.numpy(), want_full)
+    assert_allclose(c1, want_c, atol=RING_TOL, rtol=RING_TOL)
+
+
+def _traced_ag_schedule(monkeypatch, mesh, m_loc, int8, **kw):
+    """The schedule the reference's ag_gemm_shard takes, from the kernel
+    its trace reaches (traced only: ``make_jaxpr``, nothing runs)."""
+    traced = _spy_kernels(monkeypatch, jagm, "_ag_gemm_kernel",
+                  "_ag_gemm_bidir_kernel")
+    world = mesh.shape["tp"]
+    dt = jnp.int8 if int8 else jnp.float32
+    a = jnp.zeros((world * m_loc, 128), dt)
+    b = jnp.zeros((128, world * 128), dt)
+    jax.make_jaxpr(jax.shard_map(
+        lambda x, w: jagm.ag_gemm_shard(x, w, axis="tp", impl="pallas",
+                                       bm=8, bn=128, bk=128, interpret=True,
+                                       **kw)[1],
+        mesh=mesh, in_specs=(P("tp", None), P(None, "tp")),
+        out_specs=P(None, "tp"), check_vma=False))(a, b)
+    (name, k), = traced
+    if name == "_ag_gemm_bidir_kernel":
+        return tag.Schedule("bidir", 1, False)
+    return tag.Schedule("uni", k["chunks"], k.get("wire", False))
+
+
+@pytest.mark.parametrize("m_loc", [8, 16, 24, 40, 48, 96])
+def test_ag_gemm_chunk_clamp_matches_reference(m_loc, monkeypatch, mesh2):
+    """The port's clamp of ``chunks`` equals the reference's (:787-788)
+    over a grid of (m_loc, chunks), read from the chunks its kernel
+    traces with."""
+    for chunks in (1, 2, 3, 4, 5, 8):
+        want = _traced_ag_schedule(monkeypatch, mesh2, m_loc, False,
+                                   chunks=chunks)
+        monkeypatch.undo()
+        assert tag.ag_gemm_schedule(m_loc, 2, False, chunks=chunks) == \
+            want, (m_loc, chunks)
+        assert tag.clamp_chunks(m_loc, chunks) == want.chunks
+
+
+SCHEDULE_CASES = [
+    # (world, m_loc, int8, kwargs): bidir taken; bidir giving way for a
+    # half that does not tile by 8, an odd m_loc, int8 A; the wire taken,
+    # and ignored for int8 A; chunks with the wire
+    (2, 16, False, dict(ring_mode="bidir")),
+    (4, 32, False, dict(ring_mode="bidir")),
+    (2, 24, False, dict(ring_mode="bidir")),
+    (2, 8, False, dict(ring_mode="bidir")),
+    (2, 16, True, dict(ring_mode="bidir")),
+    (2, 16, False, dict(wire_dtype="int8")),
+    (2, 16, True, dict(wire_dtype="int8")),
+    (2, 32, False, dict(wire_dtype="int8", chunks=4)),
+    (2, 16, False, dict(ring_mode="other")),
+]
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_ag_gemm_schedule_matches_reference(case, monkeypatch, request):
+    """Which schedule a call takes (bidir or uni, the chunks, the wire)
+    equals the reference's."""
+    world, m_loc, int8, kw = case
+    want = _traced_ag_schedule(monkeypatch, _mesh(world, request), m_loc,
+                               int8, **kw)
+    assert tag.ag_gemm_schedule(m_loc, world, int8, **kw) == want
+
+
+def test_ring_mode_rejections_match_reference(mesh4):
+    """bidir refuses the wire and chunks > 1 with a ValueError naming
+    "bidir", before any shape check, in both packages; a wire dtype other
+    than int8 raises in both."""
+    a, b = _ag_inputs(330, 4, 16, 128, 128)
+    port_mesh = TMesh((4,), ("tp",), "cpu")
+    ja = jax.device_put(jnp.asarray(a), NamedSharding(mesh4, P("tp", None)))
+    jb = jax.device_put(jnp.asarray(b), NamedSharding(mesh4, P(None, "tp")))
+    for kw, match in ((dict(ring_mode="bidir", wire_dtype="int8"), "bidir"),
+                      (dict(ring_mode="bidir", chunks=4), "bidir"),
+                      (dict(wire_dtype="fp8"), "wire_dtype")):
+        with pytest.raises(ValueError, match=match):
+            jagm.ag_gemm(ja, jb, jagm.create_ag_gemm_context(
+                mesh4, impl="pallas", interpret=True, **kw))
+        with pytest.raises(ValueError, match=match):
+            tag.ag_gemm(_t(a), _t(b), tag.create_ag_gemm_context(
+                port_mesh, **kw))
+    # before any shape check: operands that are not rank-stacked
+    with pytest.raises(ValueError, match="bidir"):
+        tag.ag_gemm_shard(torch.zeros(3, 8), torch.zeros(8, 16),
+                          ring_mode="bidir", chunks=2)
+
+
+# ---------------------------------------------------------------------------
+# The GEMM-RS's modes
+# ---------------------------------------------------------------------------
+
+
+def _rs_reference(mesh, a, b, **kw):
+    return np.asarray(_shard_map(
+        lambda x, w: jgrs.gemm_rs_shard(x, w, axis="tp", impl="pallas", bm=8,
+                                       bn=128, bk=128, interpret=True, **kw),
+        mesh, (P(None, "tp"), P("tp", None)), P("tp"), jnp.asarray(a),
+        jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("ints", [False, True])
+@pytest.mark.parametrize("world", [2, 4])
+def test_gemm_rs_bidir_matches_pallas(world, ints, monkeypatch, request):
+    """ring_mode="bidir" against ``_gemm_rs_bidir_kernel`` (spied): f32
+    within 1e-5 relative; on integer-valued inputs (every product and sum
+    exact) bit-equal, which pins the chunk each rank ends with and each
+    half's direction."""
+    traced = _spy_kernels(monkeypatch, jgrs, "_gemm_rs_bidir_kernel")
+    m_loc, k_loc, N = 16, 128, 256
+    rng = np.random.default_rng(340 + world + 10 * ints)
+    if ints:
+        a = rng.integers(-4, 5, (world * m_loc, world * k_loc))
+        b = rng.integers(-4, 5, (world * k_loc, N))
+    else:
+        a = rng.standard_normal((world * m_loc, world * k_loc))
+        b = rng.standard_normal((world * k_loc, N)) / np.sqrt(world * k_loc)
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    want = _rs_reference(_mesh(world, request), a, b, ring_mode="bidir")
+    assert traced and {kw["world"] for _, kw in traced} == {world}
+    out = trs.gemm_rs_shard(torch.stack(_t(a).chunk(world, dim=1)),
+                            _stack_rows(b, world), ring_mode="bidir")
+    got = out.reshape(world * m_loc, N).numpy()
+    if ints:
+        assert np.array_equal(got, want)
+    else:
+        assert_allclose(got, want, atol=RING_TOL, rtol=RING_TOL)
+
+
+def test_gemm_rs_bidir_plain_adds_in_hop_order():
+    """The plain bidir sums add in the partials' dtype in the reference's
+    hop order: against a float64 model of the same bf16 roundings."""
+    W, m_loc, k, N = 4, 8, 64, 256
+    rng = np.random.default_rng(345)
+    a = _t(rng.standard_normal((W, W * m_loc, k)).astype(np.float32))
+    b = _t(rng.standard_normal((W, k, N)).astype(np.float32))
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    out = trs.gemm_rs_shard(a16, b16, ring_mode="bidir")
+    parts = [(a16[q].double() @ b16[q].double()).bfloat16()
+             .reshape(W, m_loc, N) for q in range(W)]
+    for c in range(W):
+        for d, sign in ((0, 1), (1, -1)):
+            cols = slice(d * N // 2, (d + 1) * N // 2)
+            acc = parts[(c + sign) % W][c][:, cols]
+            for j in range(2, W + 1):
+                acc = (parts[(c + sign * j) % W][c][:, cols].double()
+                       + acc.double()).bfloat16()
+            assert torch.equal(out[c][:, cols], acc)
+
+
+@pytest.mark.parametrize("n", [256, 384, 128])
+@pytest.mark.parametrize("world", [1, 2])
+def test_gemm_rs_schedule_matches_reference(world, n, monkeypatch, request):
+    """bidir is taken where the reference's is (world > 1, (N / 2) % 128
+    == 0), else the uni ring, read from the kernel the trace reaches."""
+    if world == 1:
+        from jax.sharding import Mesh
+
+        mesh = Mesh(np.array(jax.devices()[:1]), ("tp",))
+    else:
+        mesh = _mesh(world, request)
+    traced = _spy_kernels(monkeypatch, jgrs, "_gemm_rs_kernel",
+                  "_gemm_rs_bidir_kernel")
+    a = jnp.zeros((world * 16, world * 128), jnp.float32)
+    b = jnp.zeros((world * 128, n), jnp.float32)
+    jax.make_jaxpr(jax.shard_map(
+        lambda x, w: jgrs.gemm_rs_shard(x, w, axis="tp", impl="pallas", bm=8,
+                                       bn=128, bk=128, interpret=True,
+                                       ring_mode="bidir"),
+        mesh=mesh, in_specs=(P(None, "tp"), P("tp", None)),
+        out_specs=P("tp"), check_vma=False))(a, b)
+    (name, _), = traced
+    want = "bidir" if name == "_gemm_rs_bidir_kernel" else "uni"
+    assert trs.gemm_rs_schedule(world, n, "bidir") == want
+
+
+def test_gemm_rs_int8_exact_against_reference(mesh4):
+    """The int8 GEMM-RS through the host entries: the port equal to the
+    reference's interpret-mode kernel and to test_gemm_rs_int8_exact's
+    oracle (an int32 product), exactly; the bidir ring on int8 too."""
+    M, K, N = 64, 4 * 128, 256
+    rng = np.random.default_rng(0)
+    a = rng.integers(-64, 64, (M, K), dtype=np.int8)
+    b = rng.integers(-64, 64, (K, N), dtype=np.int8)
+    ja = jax.device_put(jnp.asarray(a), NamedSharding(mesh4, P(None, "tp")))
+    jb = jax.device_put(jnp.asarray(b), NamedSharding(mesh4, P("tp", None)))
+    want = np.asarray(jgrs.gemm_rs(ja, jb, jgrs.create_gemm_rs_context(
+        mesh4, axis="tp", impl="pallas", interpret=True)))
+    oracle = a.astype(np.int32) @ b.astype(np.int32)
+    assert np.array_equal(want, oracle)
+    port_mesh = TMesh((4,), ("tp",), "cpu")
+    for mode in ("uni", "bidir"):
+        c = trs.gemm_rs(_t(a), _t(b), trs.create_gemm_rs_context(
+            port_mesh, ring_mode=mode))
+        assert c.dtype == torch.int32
+        assert np.array_equal(c.numpy(), oracle)
+
+
+# ---------------------------------------------------------------------------
+# The host entries against the reference's
+# ---------------------------------------------------------------------------
+
+HOST_MODES = {"uni": {}, "bidir": dict(ring_mode="bidir"),
+              "chunks2": dict(chunks=2), "wire": dict(wire_dtype="int8")}
+
+
+@pytest.mark.parametrize("mode", sorted(HOST_MODES))
+def test_ag_gemm_host_entries_match_reference(mode, mesh4):
+    """Reference-style code on a port Mesh: ``ag_gemm(a, b,
+    create_ag_gemm_context(mesh, ...))`` and ``ag_gemm_gathered`` against
+    the reference's on mesh4 (interpret-mode kernels): A_full bit for bit,
+    C within 1e-5; the xla impl equal to the port's plain versions."""
+    kw = HOST_MODES[mode]
+    M, K, N = 64, 256, 512
+    rng = np.random.default_rng(350)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    ja = jax.device_put(jnp.asarray(a), NamedSharding(mesh4, P("tp", None)))
+    jb = jax.device_put(jnp.asarray(b), NamedSharding(mesh4, P(None, "tp")))
+    jctx = jagm.create_ag_gemm_context(
+        mesh4, impl="pallas", interpret=True,
+        config=jgemm.MatmulConfig(block_m=8, block_n=128, block_k=128), **kw)
+    want_full, want_c = jagm.ag_gemm_gathered(ja, jb, jctx)
+    port_mesh = TMesh((4,), ("tp",), "cpu")
+    ctx = tag.create_ag_gemm_context(port_mesh, **kw)
+    full, c = tag.ag_gemm_gathered(_t(a), _t(b), ctx)
+    assert full.shape == (M, K) and c.shape == (M, N)
+    if mode == "wire":
+        assert_allclose(full, np.asarray(want_full), atol=0,
+                        rtol=WIRE_A_RTOL)
+    else:
+        assert np.array_equal(full.numpy(), np.asarray(want_full))
+    assert_allclose(c, np.asarray(want_c), atol=RING_TOL, rtol=RING_TOL)
+    assert torch.equal(tag.ag_gemm(_t(a), _t(b), ctx), c)
+    assert torch.equal(tag.ag_gemm(_t(a), _t(b), tag.create_ag_gemm_context(
+        port_mesh, impl="xla", **kw)), c)
+
+
+@pytest.mark.parametrize("mode", ["uni", "bidir"])
+def test_gemm_rs_host_entry_matches_reference(mode, mesh4):
+    """``gemm_rs(a, b, create_gemm_rs_context(mesh, ...))`` on a port Mesh
+    against the reference's on mesh4, within 1e-5."""
+    M, K, N = 64, 512, 256
+    rng = np.random.default_rng(360)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    ja = jax.device_put(jnp.asarray(a), NamedSharding(mesh4, P(None, "tp")))
+    jb = jax.device_put(jnp.asarray(b), NamedSharding(mesh4, P("tp", None)))
+    want = jgrs.gemm_rs(ja, jb, jgrs.create_gemm_rs_context(
+        mesh4, impl="pallas", interpret=True, ring_mode=mode,
+        config=jgemm.MatmulConfig(block_m=8, block_n=128, block_k=128)))
+    port_mesh = TMesh((4,), ("tp",), "cpu")
+    c = trs.gemm_rs(_t(a), _t(b), trs.create_gemm_rs_context(
+        port_mesh, ring_mode=mode))
+    assert c.shape == (M, N)
+    assert_allclose(c, np.asarray(want), atol=RING_TOL, rtol=RING_TOL)
+
+
+def test_host_entries_refuse_other_real_axes():
+    """The ring kernels serve one flat world: a mesh whose other axes have
+    more than one rank raises; axes of one rank are fine."""
+    a, b = torch.zeros(16, 32), torch.zeros(32, 64)
+    with pytest.raises(NotImplementedError, match="flat world"):
+        tag.ag_gemm(a, b, tag.create_ag_gemm_context(
+            TMesh((2, 2), ("dp", "tp"), "cpu")))
+    c = tag.ag_gemm(a, b, tag.create_ag_gemm_context(
+        TMesh((1, 4), ("dp", "tp"), "cpu")))
+    assert c.shape == (16, 64)
+    with pytest.raises(ValueError, match="impl"):
+        tag.ag_gemm(a, b, tag.create_ag_gemm_context(
+            TMesh((4,), ("tp",), "cpu"), impl="mosaic"))
+
+
+# ---------------------------------------------------------------------------
+# The autotuner (tests/test_autotuner.py's CPU cases on torch tensors)
+# ---------------------------------------------------------------------------
+
+
+def make_slow_fast(counter):
+    @tat.autotune(configs=[tat.Config(slow=True), tat.Config(slow=False)])
+    def fn(x, *, slow):
+        counter[slow] = counter.get(slow, 0) + 1
+        if slow:
+            time.sleep(0.005)
+        return x + 1
+
+    return fn
+
+
+def test_eager_tuning_picks_fast_config():
+    counter = {}
+    fn = make_slow_fast(counter)
+    out = fn(torch.ones(4))
+    assert float(out[0]) == 2.0
+    assert fn.best_config == {"slow": False}
+    n_slow = counter[True]
+    fn(torch.ones(4))
+    assert counter[True] == n_slow
+    (sweep,) = fn.sweeps.values()
+    assert [c for c, _ in sweep] == [{"slow": True}, {"slow": False}]
+
+
+def test_contextual_tuning_two_inner_tuners():
+    c1, c2 = {}, {}
+    inner1, inner2 = make_slow_fast(c1), make_slow_fast(c2)
+    outer_calls = []
+
+    @tat.contextual_autotune(n_repeat=2, n_warmup=1)
+    def op(x):
+        outer_calls.append(1)
+        return inner2(inner1(x))
+
+    out = op(torch.zeros(4))
+    assert float(out[0]) == 2.0
+    assert inner1.best_config == {"slow": False}
+    assert inner2.best_config == {"slow": False}
+    assert len(outer_calls) >= 6
+
+
+def test_bad_configs_are_skipped():
+    @tat.autotune(configs=[tat.Config(bm=999), tat.Config(bm=4)])
+    def fn(x, *, bm):
+        if bm > x.shape[0]:
+            raise ValueError("tile larger than array")
+        return x * 2
+
+    assert float(fn(torch.ones(8))[0]) == 2.0
+    assert fn.best_config == {"bm": 4}
+
+
+def test_all_bad_configs_raise_with_the_cause():
+    @tat.autotune(configs=[tat.Config(a=1), tat.Config(a=2)])
+    def fn(x, *, a):
+        raise ValueError("root cause here")
+
+    with pytest.raises(RuntimeError, match="no valid config") as ei:
+        fn(torch.ones(2))
+    assert isinstance(ei.value.__cause__, ValueError)
+
+
+def test_cache_keyed_on_shape_dtype_and_key_args():
+    calls = []
+
+    @tat.autotune(configs=[tat.Config(c=0), tat.Config(c=1)], key=["mode"])
+    def fn(x, *, mode, c):
+        calls.append((tuple(x.shape), mode, c))
+        return x
+
+    fn(torch.ones(4), mode="a")
+    n = len(calls)
+    fn(torch.ones(4), mode="a")   # cache hit: one call
+    assert len(calls) == n + 1
+    fn(torch.ones(8), mode="a")   # new shape: re-tune
+    assert len(calls) > n + 2
+    fn(torch.ones(8, dtype=torch.float64), mode="a")   # new dtype
+    assert len(fn.cache) == 3
+
+
+def test_single_config_runs_directly():
+    @tat.autotune(configs=[tat.Config(k=3)])
+    def fn(x, *, k):
+        return x * k
+
+    assert float(fn(torch.ones(()))) == 3.0
+
+
+def test_contextual_with_bad_config_inside():
+    @tat.autotune(configs=[tat.Config(bm=999), tat.Config(bm=2)])
+    def inner(x, *, bm):
+        if bm > x.shape[0]:
+            raise ValueError("bad tile")
+        return x + 1
+
+    @tat.contextual_autotune(n_repeat=1, n_warmup=0)
+    def op(x):
+        return inner(x)
+
+    assert float(op(torch.zeros(4))[0]) == 1.0
+    assert inner.best_config == {"bm": 2}
+    assert isinstance(inner, tat.AutotunedFunction)
+
+
+def test_distinct_keys_tuned_in_one_contextual_region():
+    calls = []
+
+    @tat.autotune(configs=[tat.Config(c=0), tat.Config(c=1)])
+    def inner(x, *, c):
+        calls.append((x.shape[0], c))
+        return x
+
+    @tat.contextual_autotune(n_repeat=1, n_warmup=0)
+    def op(a, b):
+        return inner(a), inner(b)
+
+    op(torch.zeros(4), torch.zeros(8))
+    assert len(inner.cache) == 2
+    assert {(4, 0), (4, 1), (8, 0), (8, 1)} <= set(calls)
+
+
+def test_scalar_kwargs_split_cache_entries():
+    @tat.autotune(configs=[tat.Config(c=0), tat.Config(c=1)])
+    def fn(x, *, flag=False, c):
+        return x
+
+    fn(torch.ones(4), flag=True)
+    fn(torch.ones(4), flag=False)
+    assert len(fn.cache) == 2
+
+
+def test_aborted_region_does_not_poison_next():
+    boom = {"on": True}
+
+    @tat.autotune(configs=[tat.Config(c=0), tat.Config(c=1)])
+    def inner(x, *, c):
+        return x + c
+
+    @tat.contextual_autotune(n_repeat=1, n_warmup=0)
+    def op(x):
+        y = inner(x)
+        if boom["on"]:
+            raise RuntimeError("unrelated op failure")
+        return y
+
+    with pytest.raises(RuntimeError, match="unrelated"):
+        op(torch.zeros(4))
+    boom["on"] = False
+    out = op(torch.zeros(4))
+    assert inner.best_config in ({"c": 0}, {"c": 1})
+    assert float(out[0]) == inner.best_config["c"]
+
+
+def test_all_bad_configs_in_region_then_retry_raises_cleanly():
+    @tat.autotune(configs=[tat.Config(a=1), tat.Config(a=2)])
+    def inner(x, *, a):
+        raise ValueError("nope")
+
+    @tat.contextual_autotune(n_repeat=1, n_warmup=0)
+    def op(x):
+        return inner(x)
+
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no valid config"):
+            op(torch.zeros(2))
+
+
+def test_measure_hook_overrides_timing():
+    calls = []
+
+    def fake_measure(fn, args, kwargs, config):
+        calls.append(dict(config))
+        return fn(*args, **{**kwargs, **config}), (
+            1.0 if config["bm"] == 256 else 10.0)
+
+    f = tat.AutotunedFunction(
+        lambda x, *, bm: x * bm,
+        [tat.Config(bm=128), tat.Config(bm=256), tat.Config(bm=512)],
+        measure=fake_measure)
+    f(torch.ones(4))
+    assert f.best_config == {"bm": 256}
+    assert {c["bm"] for c in calls} == {128, 256, 512}
+    assert float(f(torch.ones(4))[0]) == 256.0
+
+
+def test_is_dist_is_the_identity_in_one_process():
+    """``is_dist`` MAX-reduces only over a process group of more than one
+    process; without one the times pass through."""
+    assert tat._allreduce_max([1.0, 3.0]) == [1.0, 3.0]
+
+
+def test_ring_tune_spaces_prune_to_distinct_schedules():
+    """No two configs of a sweep launch the same kernel with the same
+    arguments: at m_loc 16 chunks 4 clamps to 2 (dropped); at m_loc 12
+    chunks 2 and 4 clamp to 1 and bidir gives way (all but the first
+    dropped); the GEMM-RS's bidir gives way at N/2 % 128 != 0."""
+    mesh = TMesh((4,), ("tp",), "cpu")
+    ctx = tag.create_ag_gemm_context(mesh)
+    fn = tag._ag_gemm_tunable
+    assert fn._configs_for((torch.zeros(64, 128), torch.zeros(128, 512)),
+                           {"ctx": ctx}) == [
+        {"chunks": 1}, {"chunks": 2}, {"chunks": 1, "ring_mode": "bidir"}]
+    assert fn._configs_for((torch.zeros(48, 128), torch.zeros(128, 512)),
+                           {"ctx": ctx}) == [{"chunks": 1}]
+    rctx = trs.create_gemm_rs_context(mesh)
+    assert trs._gemm_rs_tunable._configs_for(
+        (torch.zeros(64, 512), torch.zeros(512, 384)), {"ctx": rctx}) == [
+            {"ring_mode": "uni"}]
+    assert len(trs._gemm_rs_tunable._configs_for(
+        (torch.zeros(64, 512), torch.zeros(512, 256)), {"ctx": rctx})) == 2
+
+
+@pytest.mark.parametrize("winner", [0, 1, 2, 3])
+def test_autotuned_entries_equal_plain_whichever_config_wins(winner,
+                                                             monkeypatch):
+    """``ag_gemm_autotuned`` / ``gemm_rs_autotuned`` inside one
+    contextual region, with a measure hook making config ``winner`` the
+    fastest: the winner is that config and the outputs equal the plain
+    host entries (the AG-GEMM's modes bit for bit, the GEMM-RS's within
+    1e-5: bidir adds in another order)."""
+    mesh = TMesh((4,), ("tp",), "cpu")
+    rng = np.random.default_rng(370)
+    a = _t(rng.standard_normal((128, 128)).astype(np.float32))
+    b = _t(rng.standard_normal((128, 512)).astype(np.float32))
+    a2 = _t(rng.standard_normal((128, 512)).astype(np.float32))
+    b2 = _t(rng.standard_normal((512, 256)).astype(np.float32))
+
+    def rig(fn):
+        configs = fn._configs_for  # the pruned sweep of these shapes
+
+        def measure(f, args, kwargs, config):
+            order = configs(args, kwargs)
+            fast = order[winner % len(order)]
+            return f(*args, **{**kwargs, **config}), (
+                1.0 if config == fast else 5.0)
+
+        monkeypatch.setattr(fn, "measure", measure)
+        monkeypatch.setattr(fn, "cache", {})
+        monkeypatch.setattr(fn, "sweeps", {})
+
+    rig(tag._ag_gemm_tunable)
+    rig(trs._gemm_rs_tunable)
+
+    @tat.contextual_autotune(n_repeat=1, n_warmup=1)
+    def op(x, w, x2, w2):
+        return (tag.ag_gemm_autotuned(x, w, tag.create_ag_gemm_context(
+            mesh)), trs.gemm_rs_autotuned(x2, w2, trs.create_gemm_rs_context(
+                mesh)))
+
+    c, c2 = op(a, b, a2, b2)
+    ag_cfgs = tag._ag_gemm_tunable._configs_for((a, b), {
+        "ctx": tag.create_ag_gemm_context(mesh)})
+    rs_cfgs = trs._gemm_rs_tunable._configs_for((a2, b2), {
+        "ctx": trs.create_gemm_rs_context(mesh)})
+    assert tag._ag_gemm_tunable.best_config == ag_cfgs[winner % len(ag_cfgs)]
+    assert trs._gemm_rs_tunable.best_config == rs_cfgs[winner % len(rs_cfgs)]
+    assert torch.equal(c, tag.ag_gemm(a, b, tag.create_ag_gemm_context(
+        mesh)))
+    assert_allclose(c2, trs.gemm_rs(a2, b2, trs.create_gemm_rs_context(
+        mesh)), atol=RING_TOL, rtol=RING_TOL)

@@ -14,16 +14,37 @@
 //   int32 product (the W8A8 column-parallel linears; no backward, so no
 //   transposed B).
 //
-// Schedule: full mesh, not the TPU's ring.  A TPU chip reaches its two
-// ring neighbours over ICI, so the reference forwards each segment one hop
-// per step; NVLink joins every H100 of a host to every other, so here each
-// rank pushes its own segment straight into every rank's gathered buffer
-// (putmem, one row tile at a time: 128 rows in bf16, 64 in int8) and
-// signals a flag per (receiving rank, segment, row tile).  The GEMM tiles
-// of rank r start on r's own segment, read from its input without waiting
-// (the reference's step 0), then walk the segments r + 1, r + 2, ... and
-// wait only on the flag of the rows they read.  On one card (the virtual
+// Schedule (uni): full mesh, not the TPU's ring.  A TPU chip reaches its
+// two ring neighbours over ICI, so the reference forwards each segment one
+// hop per step; NVLink joins every H100 of a host to every other, so here
+// each rank pushes its own segment straight into every rank's gathered
+// buffer.  The push is cut into the reference's `chunks` (:370-373): c row
+// chunks of m_loc / c rows, each with one flag per (receiving rank,
+// segment, chunk); a chunk moves as pieces of one row tile (128 rows bf16,
+// 64 int8), each piece pushed by one block and counted at the receiver,
+// and the last piece of a chunk raises its flag.  The GEMM tiles of rank r
+// start on r's own segment, read from its input without waiting (the
+// reference's step 0), then walk the segments r + 1, r + 2, ... and wait
+// on the flags of every chunk their rows span.  On one card (the virtual
 // world) the pushes are device-memory copies, not NVLink transfers.
+//
+// The int8 wire (tdt_ag_gemm_wire, the reference's `wire_dtype="int8"`,
+// :295-311): each rank's rows arrive quantized per row (int8 and an f32
+// scale per row; the reference's [m_loc, 128] scale plane is a TPU lane
+// unit, here [m_loc] floats), the pushes move the int8 rows and their
+// scales, and the GEMM tiles dequantize in their A-tile load
+// (bf16_tile.cuh A_I8): bf16(float(q) * scale), then the bf16 product.
+//
+// The bidirectional ring (tdt_ag_gemm_bidir, the TPU `_ag_gemm_bidir_
+// kernel` :108): each segment splits into a top half that rings rightward
+// and a bottom half that rings leftward.  At step s rank me holds the top
+// half of slot me - s and the bottom half of slot me + s: it forwards each
+// to its next peer in that half's direction (step 0 from its input, later
+// steps once the half's flag has reached this call), and its GEMM tiles
+// consume the two halves of step s in turn.  One flag set per direction
+// (slot and direction index the flag), as the reference keeps semaphores
+// per direction, so an arrival from one direction never passes a wait on
+// the other.
 //
 // Row tails: m_loc is any positive count (a 1,000-token prompt over 4
 // ranks gives 250 rows).  Tiles are indexed by (segment, tile within the
@@ -44,13 +65,23 @@
 // rank of the virtual world: a persistent grid, sized by the occupancy
 // calculator so every block is resident (a spin-wait is safe only then),
 // split evenly among the ranks.  A rank's blocks walk its item list in
-// strides: the copies first, then the GEMM tiles (128 x 128 on the tile
-// loop of bf16_tile.cuh; 64 x 128 on the int8 one of i8_tile.cuh), so no
-// block waits before every copy has a block working on it.  Every block
-// passes barrier_all on entry (the reference's neighbour barrier,
-// :339-344): no rank writes into a peer that has not entered the kernel.
+// strides: the copies first (the ring's forwards in step order), then the
+// GEMM tiles (128 x 128 on the tile loop of bf16_tile.cuh; 64 x 128 on
+// the int8 one of i8_tile.cuh).  Every item waits only on items at
+// earlier places of another rank's list, which every block reaches
+// first, so no wait can close a cycle.  Every block passes barrier_all on
+// entry (the reference's neighbour barrier, :339-344): no rank writes into
+// a peer that has not entered the kernel.
+//
+// Piece counters: a chunk's pieces add one each to the receiver's counter
+// for that chunk (after their copy and a system fence); the piece that
+// brings it to the chunk's count resets it to 0 for the next call and
+// raises the chunk's flag with this call's epoch.  A flag never needs
+// clearing; a counter is 0 between calls.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bf16_tile.cuh"
 #include "dist_verbs.cuh"
@@ -69,78 +100,132 @@ constexpr int BF16_SMEM = tdt_bf16::Tiles<true>::SMEM >
                               ? tdt_bf16::Tiles<true>::SMEM
                               : tdt_bf16::Tiles<false>::SMEM;
 
-template <class T, class OutT>
+template <class TA, class TB, class OutT>
 struct Params {
-  Peers<const T> a;        // rank r's rows [m_loc][K]
-  Peers<const T> b;        // rank r's weight [K][n], or [n][K] (B_NK)
-  Peers<T> ag;             // rank r's gathered A [W m_loc][K]: peers write
+  Peers<const TA> a;       // rank r's rows [m_loc][K] (the wire: int8)
+  Peers<const float> s;    // the wire: rank r's row scales [m_loc]
+  Peers<const TB> b;       // rank r's weight [K][n], or [n][K] (B_NK)
+  Peers<TA> ag;            // rank r's gathered A [W m_loc][K]: peers write
+  Peers<float> ag_s;       // the wire: rank r's gathered scales [W m_loc]
   Peers<OutT> c;           // rank r's C [W m_loc][n]
-  Peers<unsigned> flags;   // rank r's [W segments][tiles] tile flags
+  Peers<unsigned> flags;   // uni: [W segments][chunks]; bidir: [2][W]
+  Peers<unsigned> cnt;     // piece counters, laid out as the flags
   Peers<unsigned> bar;     // rank r's [W] barrier slots
   int world, m_loc, n, k;
+  int crow;                // rows of one chunk (uni; m_loc % crow == 0)
   unsigned epoch;
 };
 
-// One item of rank `me`'s list of n_copy + world * tiles * tiles_n: a copy
-// (it < n_copy) of row tile `tile` of my segment into rank `peer`'s
-// gathered buffer (the peers first, my own buffer last, so no block waits
-// on my own copy), or a GEMM tile (segment `seg`, row tile `tile`, column
-// tile `col`) walking the segments from my own.  `rows`: the rows the row
-// tile holds (the last one of a segment may hold fewer than BM).
+// Count one piece of a chunk at the receiver (after this block's copy);
+// the last of `pieces` resets the counter and raises the chunk's flag.
+__device__ __forceinline__ void count_signal(unsigned* cnt, int pieces,
+                                             unsigned* flag,
+                                             unsigned epoch) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    if (pieces == 1 ||
+        atomicAdd_system(cnt, 1u) == static_cast<unsigned>(pieces - 1)) {
+      if (pieces > 1) *cnt = 0u;
+      __threadfence_system();
+      tdt_dist::st_release(flag, epoch);
+    }
+  }
+}
+
+// The wire's scales of `rows` rows (whole floats, any count).
+__device__ __forceinline__ void put_scales(float* dst, const float* src,
+                                           int rows) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x)
+    dst[i] = __ldcg(src + i);
+}
+
+// One item of rank `me`'s uni list of n_copy + world * tiles * tiles_n: a
+// copy (it < n_copy) of piece `piece` of chunk `chunk` of my segment into
+// rank `peer`'s gathered buffer (the peers first, my own buffer last, so no
+// block waits on my own copy), or a GEMM tile (segment `seg`, row tile
+// `tile`, column tile `col`) walking the segments from my own.  `rows`:
+// the rows the piece or row tile holds.
 struct Item {
   bool copy;
-  int peer, seg, tile, col, rows;
+  int peer, chunk, piece, seg, tile, col, rows;
 };
 
 template <int BM>
 __device__ __forceinline__ Item item_of(int it, int me, int world,
-                                        int m_loc, int tiles, int tiles_n) {
+                                        int m_loc, int crow, int tiles,
+                                        int tiles_n) {
   Item x{};
-  const int n_copy = world * tiles;
+  const int ppc = (crow + BM - 1) / BM;           // pieces per chunk
+  const int per_peer = m_loc / crow * ppc;
+  const int n_copy = world * per_peer;
   x.copy = it < n_copy;
   if (x.copy) {
-    x.peer = (me + 1 + it / tiles) % world;
-    x.tile = it % tiles;
+    const int p = it / per_peer, rest = it - p * per_peer;
+    x.peer = me + 1 + p;
+    if (x.peer >= world) x.peer -= world;
+    x.chunk = rest / ppc;
+    x.piece = rest - x.chunk * ppc;
+    x.rows = min(BM, crow - x.piece * BM);
   } else {
     const int t = it - n_copy;
     x.seg = (me + t / (tiles * tiles_n)) % world;
     x.tile = (t / tiles_n) % tiles;
     x.col = t % tiles_n;
+    x.rows = min(BM, m_loc - x.tile * BM);
   }
-  x.rows = min(BM, m_loc - x.tile * BM);
   return x;
 }
 
 // The rows a GEMM tile reads: my own input for my own segment (no wait),
-// else my gathered buffer once the tile's flag has reached this call.
-template <int BM, class T, class OutT>
-__device__ __forceinline__ const T* tile_rows(const Params<T, OutT>& p,
-                                              int me, const Item& x,
-                                              int tiles) {
-  const long long off = static_cast<long long>(x.tile) * BM * p.k;
-  if (x.seg == me) return p.a.p[me] + off;
-  tdt_dist::wait(p.flags.p[me] + x.seg * tiles + x.tile, p.epoch);
-  return p.ag.p[me] + static_cast<long long>(x.seg) * p.m_loc * p.k + off;
+// else my gathered buffer once the flag of every chunk the tile's rows
+// span has reached this call.  `scale`: the wire's row scales beside.
+template <int BM, class TA, class TB, class OutT>
+__device__ __forceinline__ const TA* tile_rows(
+    const Params<TA, TB, OutT>& p, int me, const Item& x,
+    const float** scale) {
+  const long long row0 = static_cast<long long>(x.tile) * BM;
+  if (x.seg == me) {
+    *scale = p.s.p[me] ? p.s.p[me] + row0 : nullptr;
+    return p.a.p[me] + row0 * p.k;
+  }
+  const int n_chunks = p.m_loc / p.crow;
+  const int c0 = static_cast<int>(row0) / p.crow;
+  const int c1 = (static_cast<int>(row0) + x.rows - 1) / p.crow;
+  tdt_dist::wait(p.flags.p[me] + x.seg * n_chunks + c0, p.epoch,
+                 c1 - c0 + 1);
+  const long long seg_row = static_cast<long long>(x.seg) * p.m_loc + row0;
+  *scale = p.ag_s.p[me] ? p.ag_s.p[me] + seg_row : nullptr;
+  return p.ag.p[me] + seg_row * p.k;
 }
 
-// Push row tile x.tile of my segment into rank x.peer's gathered buffer
-// and raise its flag there.
-template <int BM, class T, class OutT>
-__device__ __forceinline__ void push_tile(const Params<T, OutT>& p, int me,
-                                          const Item& x, int tiles) {
-  const long long off = static_cast<long long>(x.tile) * BM * p.k;
-  tdt_dist::putmem_signal(
-      p.ag.p[x.peer] + static_cast<long long>(me) * p.m_loc * p.k + off,
-      p.a.p[me] + off,
-      static_cast<long long>(x.rows) * p.k * static_cast<int>(sizeof(T)),
-      p.flags.p[x.peer] + me * tiles + x.tile, p.epoch);
+// Push piece x.piece of chunk x.chunk of my segment into rank x.peer's
+// gathered buffer (and the wire's scales), then count it there.
+template <int BM, class TA, class TB, class OutT>
+__device__ __forceinline__ void push_piece(const Params<TA, TB, OutT>& p,
+                                           int me, const Item& x) {
+  const int n_chunks = p.m_loc / p.crow;
+  const int row0 = x.chunk * p.crow + x.piece * BM;
+  const long long dst_row = static_cast<long long>(me) * p.m_loc + row0;
+  tdt_dist::putmem(p.ag.p[x.peer] + dst_row * p.k,
+                   p.a.p[me] + static_cast<long long>(row0) * p.k,
+                   static_cast<long long>(x.rows) * p.k *
+                       static_cast<int>(sizeof(TA)));
+  if (p.s.p[me]) put_scales(p.ag_s.p[x.peer] + dst_row, p.s.p[me] + row0,
+                            x.rows);
+  const int f = me * n_chunks + x.chunk;
+  count_signal(p.cnt.p[x.peer] + f, (p.crow + BM - 1) / BM,
+               p.flags.p[x.peer] + f, p.epoch);
 }
 
-// bf16.  Two blocks per SM: 128 registers, no spills (ptxas), 10-30%
+// bf16, and the int8 wire (A_I8: int8 rows dequantized in the A-tile
+// load).  Two blocks per SM: 128 registers, no spills (ptxas), 10-30%
 // faster than the one block that 167-213 registers allow (PERF.md).
-template <bool B_NK>
+template <bool B_NK, bool A_I8>
 __global__ void __launch_bounds__(tdt_bf16::NT, 2)
-ag_gemm_kernel(const __grid_constant__ Params<bf16, bf16> p) {
+ag_gemm_kernel(const __grid_constant__
+               Params<typename std::conditional<A_I8, int8_t, bf16>::type,
+                      bf16, bf16> p) {
   constexpr int BM = tdt_bf16::BM, BN = tdt_bf16::BN;
   extern __shared__ __align__(128) char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -148,18 +233,21 @@ ag_gemm_kernel(const __grid_constant__ Params<bf16, bf16> p) {
   tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
 
   const int tiles = (p.m_loc + BM - 1) / BM, tiles_n = (p.n + BN - 1) / BN;
-  const int n_items = p.world * tiles * (1 + tiles_n);
+  const int n_copy = p.world * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
+  const int n_items = n_copy + p.world * tiles * tiles_n;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const Item x = item_of<BM>(it, me, p.world, p.m_loc, tiles, tiles_n);
+    const Item x = item_of<BM>(it, me, p.world, p.m_loc, p.crow, tiles,
+                               tiles_n);
     if (x.copy) {
-      push_tile<BM>(p, me, x, tiles);
+      push_piece<BM>(p, me, x);
       continue;
     }
-    const bf16* src = tile_rows<BM>(p, me, x, tiles);
+    const float* scale = nullptr;
+    const auto* src = tile_rows<BM>(p, me, x, &scale);
     float acc[4][4][4];
-    tdt_bf16::mma_tile<B_NK, true>(acc, smem, src, p.k, p.b.p[me],
-                                   B_NK ? p.k : p.n, x.rows, p.n, p.k, 0,
-                                   x.col * BN);
+    tdt_bf16::mma_tile<B_NK, true, A_I8>(acc, smem, src, p.k, p.b.p[me],
+                                         B_NK ? p.k : p.n, x.rows, p.n, p.k,
+                                         0, x.col * BN, scale);
     tdt_bf16::store_tile(acc,
                p.c.p[me] + (static_cast<long long>(x.seg) * p.m_loc +
                             static_cast<long long>(x.tile) * BM) * p.n,
@@ -170,21 +258,24 @@ ag_gemm_kernel(const __grid_constant__ Params<bf16, bf16> p) {
 // int8: 64 x 128 int32 tiles of i8_tile.cuh (4 warps, static shared
 // memory), summed exactly over the whole contraction.
 __global__ void __launch_bounds__(tdt_i8::NT)
-ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int> p) {
+ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int8_t, int> p) {
   constexpr int BM = tdt_i8::BM, BN = tdt_i8::BN;
   __shared__ __align__(128) int8_t smem[tdt_i8::SMEM];
   const int me = blockIdx.y;
   tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
 
   const int tiles = (p.m_loc + BM - 1) / BM, tiles_n = (p.n + BN - 1) / BN;
-  const int n_items = p.world * tiles * (1 + tiles_n);
+  const int n_copy = p.world * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
+  const int n_items = n_copy + p.world * tiles * tiles_n;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const Item x = item_of<BM>(it, me, p.world, p.m_loc, tiles, tiles_n);
+    const Item x = item_of<BM>(it, me, p.world, p.m_loc, p.crow, tiles,
+                               tiles_n);
     if (x.copy) {
-      push_tile<BM>(p, me, x, tiles);
+      push_piece<BM>(p, me, x);
       continue;
     }
-    const int8_t* src = tile_rows<BM>(p, me, x, tiles);
+    const float* unused = nullptr;
+    const int8_t* src = tile_rows<BM>(p, me, x, &unused);
     int acc[BM / 16][4][4];
 #pragma unroll
     for (int mt = 0; mt < BM / 16; ++mt)
@@ -201,72 +292,219 @@ ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int> p) {
   }
 }
 
-template <class T, class OutT>
-Params<T, OutT> make_params(const long long* a, const long long* b,
-                            const long long* ag, const long long* c,
-                            const long long* flags, const long long* bar,
-                            int world, int m_loc, int n, int k,
-                            unsigned epoch) {
-  Params<T, OutT> p;
-  p.a = peers<const T>(a, world);
-  p.b = peers<const T>(b, world);
-  p.ag = peers<T>(ag, world);
+// (me + d) mod world for |d| < world.
+__device__ __forceinline__ int ring_slot(int me, int d, int world) {
+  const int r = me + d;
+  return r < 0 ? r + world : (r >= world ? r - world : r);
+}
+
+// The bidirectional ring, bf16, B [K][n].  Rank me's list: the forwards
+// in step order (step s: the top half's pieces, then the bottom half's),
+// then the pieces of my own segment into my own gathered buffer (which no
+// one waits on), then the GEMM tiles in the reference's order (step s:
+// the top half of slot me - s, then the bottom half of slot me + s).  A
+// half's rows are tiled on their own (`tph` tiles of up to 128 rows, the
+// last masked), so a GEMM tile never spans the two halves.
+__global__ void __launch_bounds__(tdt_bf16::NT, 2)
+ag_gemm_bidir_kernel(const __grid_constant__ Params<bf16, bf16, bf16> p) {
+  constexpr int BM = tdt_bf16::BM, BN = tdt_bf16::BN;
+  extern __shared__ __align__(128) char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int me = blockIdx.y;
+  tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
+
+  const int hp = (p.m_loc / 2 + BM - 1) / BM;     // pieces (tiles) a half
+  const int n_fwd = (p.world - 1) * 2 * hp;
+  const int n_copy = n_fwd + (p.m_loc + BM - 1) / BM;
+  // the copies: a block takes its items of the list in order, so it
+  // finishes its copies before its GEMM tiles (the second loop)
+  int it = blockIdx.x;
+  for (; it < n_copy; it += gridDim.x) {
+    const long long seg = static_cast<long long>(p.m_loc) * p.k;
+    if (it >= n_fwd) {
+      // my own segment into my own gathered buffer
+      const int row0 = (it - n_fwd) * BM;
+      tdt_dist::putmem(
+          p.ag.p[me] + me * seg + static_cast<long long>(row0) * p.k,
+          p.a.p[me] + static_cast<long long>(row0) * p.k,
+          static_cast<long long>(min(BM, p.m_loc - row0)) * p.k * 2);
+      continue;
+    }
+    // forward (step, half, piece): the half's slot at this step
+    const int sh = it / hp, piece = it - sh * hp;
+    const int step = sh / 2, h = sh - 2 * step;
+    const int slot = ring_slot(me, h == 0 ? -step : step, p.world);
+    const int half = p.m_loc / 2;
+    const long long row0 = h * half + piece * BM;
+    const long long off = slot * seg + row0 * p.k;
+    if (step > 0)
+      tdt_dist::wait(p.flags.p[me] + h * p.world + slot, p.epoch);
+    const int to = ring_slot(me, h == 0 ? 1 : -1, p.world);
+    tdt_dist::putmem(p.ag.p[to] + off,
+                     step == 0 ? p.a.p[me] + row0 * p.k : p.ag.p[me] + off,
+                     static_cast<long long>(min(BM, half - piece * BM)) *
+                         p.k * 2);
+    count_signal(p.cnt.p[to] + h * p.world + slot, hp,
+                 p.flags.p[to] + h * p.world + slot, p.epoch);
+  }
+  // the GEMM tiles: (step, half, row tile, column tile)
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int n_items = n_copy + p.world * 2 * hp * tiles_n;
+  for (; it < n_items; it += gridDim.x) {
+    const int t = it - n_copy;
+    const int sh = t / (hp * tiles_n), rest = t - sh * (hp * tiles_n);
+    const int step = sh / 2, h = sh - 2 * step;
+    const int slot = ring_slot(me, h == 0 ? -step : step, p.world);
+    const int tile = rest / tiles_n, col = rest - tile * tiles_n;
+    const int half = p.m_loc / 2;
+    const int row0 = slot * p.m_loc + h * half + tile * BM;
+    const bf16* src;
+    if (step == 0) {
+      src = p.a.p[me] + static_cast<long long>(row0 - slot * p.m_loc) * p.k;
+    } else {
+      tdt_dist::wait(p.flags.p[me] + h * p.world + slot, p.epoch);
+      src = p.ag.p[me] + static_cast<long long>(row0) * p.k;
+    }
+    float acc[4][4][4];
+    const int rows = min(BM, half - tile * BM);
+    tdt_bf16::mma_tile<false, true>(acc, smem, src, p.k, p.b.p[me], p.n,
+                                    rows, p.n, p.k, 0, col * BN);
+    tdt_bf16::store_tile(acc, p.c.p[me] + static_cast<long long>(row0) * p.n,
+                         p.n, rows, p.n, 0, col * BN);
+  }
+}
+
+template <class TA, class TB, class OutT>
+Params<TA, TB, OutT> make_params(const long long* a, const long long* s,
+                                 const long long* b, const long long* ag,
+                                 const long long* ag_s, const long long* c,
+                                 const long long* flags,
+                                 const long long* cnt, const long long* bar,
+                                 int world, int m_loc, int n, int k,
+                                 int crow, unsigned epoch) {
+  Params<TA, TB, OutT> p;
+  p.a = peers<const TA>(a, world);
+  p.s = s ? peers<const float>(s, world) : Peers<const float>{};
+  p.b = peers<const TB>(b, world);
+  p.ag = peers<TA>(ag, world);
+  p.ag_s = ag_s ? peers<float>(ag_s, world) : Peers<float>{};
   p.c = peers<OutT>(c, world);
   p.flags = peers<unsigned>(flags, world);
+  p.cnt = peers<unsigned>(cnt, world);
   p.bar = peers<unsigned>(bar, world);
   p.world = world;
   p.m_loc = m_loc;
   p.n = n;
   p.k = k;
+  p.crow = crow;
   p.epoch = epoch;
   return p;
+}
+
+bool bad_shape(int world, int m_loc, int crow) {
+  return world < 1 || world > MAX_RANKS || m_loc < 1 || crow < 1 ||
+         m_loc % crow;
 }
 
 }  // namespace
 
 // One call for every rank of a world of `world` (<= 8): each pointer table
 // holds `world` device addresses.  bf16 throughout; m_loc >= 1, k % 8 == 0
-// and n % 8 == 0, every row 16-byte aligned (the wrapper checks); flags:
-// W * ceil(m_loc / 128) per rank; epoch: this call's, from the workspace.
+// and n % 8 == 0, every row 16-byte aligned (the wrapper checks); crow:
+// rows per chunk, dividing m_loc; flags and cnt: W * (m_loc / crow) per
+// rank (cnt zero between calls); epoch: this call's, from the workspace.
 extern "C" int tdt_ag_gemm(const long long* a, const long long* b,
                            const long long* ag, const long long* c,
-                           const long long* flags, const long long* bar,
-                           int world, int m_loc, int n, int k, int b_nk,
-                           unsigned epoch, void* stream) {
+                           const long long* flags, const long long* cnt,
+                           const long long* bar, int world, int m_loc,
+                           int n, int k, int crow, int b_nk, unsigned epoch,
+                           void* stream) {
   using tdt_bf16::BM;
   using tdt_bf16::BN;
-  if (world < 1 || world > MAX_RANKS || m_loc < 1)
+  if (bad_shape(world, m_loc, crow))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto p = make_params<bf16, bf16>(a, b, ag, c, flags, bar, world, m_loc,
-                                   n, k, epoch);
-  const int items = world * ((m_loc + BM - 1) / BM) * (1 + (n + BN - 1) /
-                                                       BN);
+  auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
+                                         flags, cnt, bar, world, m_loc, n,
+                                         k, crow, epoch);
+  const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
+                    world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
   const auto s = static_cast<cudaStream_t>(stream);
   static unsigned attr_kn = 0, attr_nk = 0;
-  return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true>, p,
+  return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true, false>, p,
                                       tdt_bf16::NT, BF16_SMEM, world, items,
                                       attr_nk, s)
-              : tdt_dist::launch_coop(ag_gemm_kernel<false>, p,
+              : tdt_dist::launch_coop(ag_gemm_kernel<false, false>, p,
                                       tdt_bf16::NT, BF16_SMEM, world, items,
                                       attr_kn, s);
 }
 
+// The int8 wire: a int8 rows and s their f32 scales per rank; ag / ag_s the
+// gathered int8 rows [W m_loc][k] and scales [W m_loc]; b bf16 [k][n]; c
+// bf16.  k % 16 == 0 (whole 16-byte int8 rows and loads), n % 8 == 0.
+extern "C" int tdt_ag_gemm_wire(const long long* a, const long long* s,
+                                const long long* b, const long long* ag,
+                                const long long* ag_s, const long long* c,
+                                const long long* flags, const long long* cnt,
+                                const long long* bar, int world, int m_loc,
+                                int n, int k, int crow, unsigned epoch,
+                                void* stream) {
+  using tdt_bf16::BM;
+  using tdt_bf16::BN;
+  if (bad_shape(world, m_loc, crow))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto p = make_params<int8_t, bf16, bf16>(a, s, b, ag, ag_s, c, flags, cnt,
+                                           bar, world, m_loc, n, k, crow,
+                                           epoch);
+  const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
+                    world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(ag_gemm_kernel<false, true>, p, tdt_bf16::NT,
+                               tdt_bf16::Tiles<false>::SMEM_I8, world, items,
+                               attr, static_cast<cudaStream_t>(stream));
+}
+
+// The bidirectional ring: bf16, b [k][n]; m_loc even (the halves' rows,
+// m_loc / 2, any positive count); flags and cnt: 2 W per rank.
+extern "C" int tdt_ag_gemm_bidir(const long long* a, const long long* b,
+                                 const long long* ag, const long long* c,
+                                 const long long* flags,
+                                 const long long* cnt, const long long* bar,
+                                 int world, int m_loc, int n, int k,
+                                 unsigned epoch, void* stream) {
+  using tdt_bf16::BM;
+  using tdt_bf16::BN;
+  if (bad_shape(world, m_loc, 1) || world < 2 || m_loc % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
+                                         flags, cnt, bar, world, m_loc, n,
+                                         k, m_loc, epoch);
+  const int hp = (m_loc / 2 + BM - 1) / BM;
+  const int items = (world - 1) * 2 * hp + (m_loc + BM - 1) / BM +
+                    world * 2 * hp * ((n + BN - 1) / BN);
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(ag_gemm_bidir_kernel, p, tdt_bf16::NT,
+                               BF16_SMEM, world, items, attr,
+                               static_cast<cudaStream_t>(stream));
+}
+
 // The int8 mode: int8 A and B, int32 C; m_loc >= 1, k % 32 == 0 and
-// n % 16 == 0 (whole 16-byte copies, the int8 tile's); flags: W *
-// ceil(m_loc / 64) per rank.
+// n % 16 == 0 (whole 16-byte copies, the int8 tile's); crow as above
+// (pieces of 64 rows); flags and cnt: W * (m_loc / crow) per rank.
 extern "C" int tdt_ag_gemm_i8(const long long* a, const long long* b,
                               const long long* ag, const long long* c,
-                              const long long* flags, const long long* bar,
-                              int world, int m_loc, int n, int k,
-                              unsigned epoch, void* stream) {
+                              const long long* flags, const long long* cnt,
+                              const long long* bar, int world, int m_loc,
+                              int n, int k, int crow, unsigned epoch,
+                              void* stream) {
   using tdt_i8::BM;
   using tdt_i8::BN;
-  if (world < 1 || world > MAX_RANKS || m_loc < 1)
+  if (bad_shape(world, m_loc, crow))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto p = make_params<int8_t, int>(a, b, ag, c, flags, bar, world, m_loc,
-                                    n, k, epoch);
-  const int items = world * ((m_loc + BM - 1) / BM) * (1 + (n + BN - 1) /
-                                                       BN);
+  auto p = make_params<int8_t, int8_t, int>(a, nullptr, b, ag, nullptr, c,
+                                            flags, cnt, bar, world, m_loc,
+                                            n, k, crow, epoch);
+  const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
+                    world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
   static unsigned attr = 0;
   return tdt_dist::launch_coop(ag_gemm_i8_kernel, p, tdt_i8::NT, 0, world,
                                items, attr,

@@ -19,6 +19,15 @@
 // 16-byte aligned and K (and N for a [k][n] B) is a multiple of 8, so each
 // 8-element vector lies wholly inside or outside and loads as one cp.async
 // that zero-fills; without VEC the tiles are loaded element by element.
+//
+// A_I8 (the AG-GEMM's int8 wire): A arrives as int8 rows with an f32
+// scale per row and is dequantized in the A-tile load, as the TPU's
+// `wire_gemm_pipeline_body` does at its MXU feed (gemm.py:163-165): each
+// value becomes bf16(float(q) * scale), rounded once, in shared memory;
+// the product is the bf16 one.  No bf16 A is written to device memory.
+// Those loads are plain (L1-bypassing) loads, not cp.async: each k step
+// fetches a later stage's int8 values into registers before its products
+// and dequantizes them into shared memory after.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +52,8 @@ struct Tiles {
   static constexpr int A = BM * LDA;                     // elements
   static constexpr int B = B_NK ? BN * LDA : BK * LDKN;  // elements
   static constexpr int SMEM = STAGES * (A + B) * 2;      // bytes
+  // A_I8: the A tile's row scales after the stages
+  static constexpr int SMEM_I8 = SMEM + BM * 4;          // bytes
 };
 
 // Eight consecutive values of `row` from column `col` into shared memory,
@@ -67,16 +78,41 @@ __device__ __forceinline__ void load8(bf16* dst, const bf16* row, int col,
   }
 }
 
+// The int8 wire's A loads (A_I8): a thread's sixteen int8 values of a row
+// at column `col` (zeros for a dead row or past K, K % 16 == 0), then,
+// once the stage's buffer is free, those values times the row's scale as
+// sixteen bf16 in shared memory.
+__device__ __forceinline__ uint4 fetch16_i8(const int8_t* row, int col,
+                                            int limit, bool live) {
+  return live && col < limit
+             ? __ldcg(reinterpret_cast<const uint4*>(row + col))
+             : make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ void put16_i8(bf16* dst, uint4 raw, float scale) {
+  const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    d[h] = make_uint4(pack_bf16(q[8 * h] * scale, q[8 * h + 1] * scale),
+                      pack_bf16(q[8 * h + 2] * scale, q[8 * h + 3] * scale),
+                      pack_bf16(q[8 * h + 4] * scale, q[8 * h + 5] * scale),
+                      pack_bf16(q[8 * h + 6] * scale, q[8 * h + 7] * scale));
+}
+
 // acc = A[m0 : m0 + BM, 0 : K] @ B[0 : K, n0 : n0 + BN] in f32.  a: row
-// 0 of a row-major A (row stride lda elements); b: a row-major [K][N] B
-// (row stride ldb), or with B_NK a row-major [N][K] B^T.  smem:
+// 0 of a row-major A (row stride lda elements; bf16, or int8 with A_I8 and
+// then a_scale[row] the scale of each row); b: a row-major [K][N] B (row
+// stride ldb), or with B_NK a row-major [N][K] B^T.  smem:
 // Tiles<B_NK>::SMEM bytes, 128-byte aligned.  Every thread of the block
 // calls it; it begins with a __syncthreads, so a block may loop over tiles.
-template <bool B_NK, bool VEC>
+template <bool B_NK, bool VEC, bool A_I8 = false>
 __device__ __forceinline__ void mma_tile(float (&acc)[4][4][4], bf16* smem,
-                                         const bf16* a, long long lda,
+                                         const void* a_any, long long lda,
                                          const bf16* b, long long ldb, int M,
-                                         int N, int K, int m0, int n0) {
+                                         int N, int K, int m0, int n0,
+                                         const float* a_scale = nullptr) {
+  const bf16* a = static_cast<const bf16*>(a_any);
   bf16* sA = smem;                                  // [STAGES][BM][LDA]
   bf16* sB = sA + STAGES * Tiles<B_NK>::A;          // [STAGES][B tile]
   const int tid = threadIdx.x, warp = tid / 32;
@@ -91,16 +127,39 @@ __device__ __forceinline__ void mma_tile(float (&acc)[4][4][4], bf16* smem,
           0.f;
   __syncthreads();   // every warp is done with the previous tile's stages
 
+  // A_I8: the tile's row scales are read once into shared memory (after
+  // the stages: Tiles::SMEM_I8); each thread owns 16 values of one row per
+  // stage (BM * BK / NT = 16).  The int8 values of stage kt + STAGES - 1
+  // are fetched into registers before stage kt's products and stored
+  // (dequantized) after them, so the loads' latency hides behind the MMAs
+  static_assert(BM * BK == 16 * NT, "one 16-value group per thread");
+  float* s_scale = reinterpret_cast<float*>(sB + STAGES * Tiles<B_NK>::B);
+  const int a8_row = tid / (BK / 16), a8_col = (tid % (BK / 16)) * 16;
+  const int8_t* a8 = static_cast<const int8_t*>(a_any) +
+                     static_cast<long long>(m0 + a8_row) * lda;
+  if constexpr (A_I8) {
+    if (tid < BM)
+      s_scale[tid] = m0 + tid < M ? __ldcg(a_scale + m0 + tid) : 0.f;
+    __syncthreads();
+  }
+  auto put_a8 = [&](uint4 raw, int st) {
+    put16_i8(sA + st * Tiles<B_NK>::A + a8_row * LDA + a8_col, raw,
+             s_scale[a8_row]);
+  };
+
   auto load = [&](int kt, int st) {
     const int k0 = kt * BK;
     bf16* dA = sA + st * Tiles<B_NK>::A;
     bf16* dB = sB + st * Tiles<B_NK>::B;
+    if constexpr (!A_I8) {
 #pragma unroll
-    for (int i = 0; i < BM * (BK / 8) / NT; ++i) {
-      const int j = tid + i * NT, r = j / (BK / 8), c = j % (BK / 8);
-      const int row = m0 + r;
-      load8<VEC>(dA + r * LDA + c * 8, a + static_cast<long long>(row) * lda,
-                 k0 + c * 8, K, row < M, a);
+      for (int i = 0; i < BM * (BK / 8) / NT; ++i) {
+        const int j = tid + i * NT, r = j / (BK / 8), c = j % (BK / 8);
+        const int row = m0 + r;
+        load8<VEC>(dA + r * LDA + c * 8,
+                   a + static_cast<long long>(row) * lda, k0 + c * 8, K,
+                   row < M, a);
+      }
     }
     if constexpr (B_NK) {
       // B^T rows are output columns: B[k][n] at n * ldb + k
@@ -127,14 +186,22 @@ __device__ __forceinline__ void mma_tile(float (&acc)[4][4][4], bf16* smem,
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_k) load(s, s);
+    if (s < n_k) {
+      load(s, s);
+      if constexpr (A_I8)
+        put_a8(fetch16_i8(a8, s * BK + a8_col, K, m0 + a8_row < M), s);
+    }
     cp_commit();
   }
   for (int kt = 0; kt < n_k; ++kt) {
     cp_wait<STAGES - 2>();   // stage kt has landed
     __syncthreads();         // and every warp is done with stage kt - 1
-    if (kt + STAGES - 1 < n_k) load(kt + STAGES - 1, (kt + STAGES - 1) %
-                                                         STAGES);
+    const int nk = kt + STAGES - 1;
+    uint4 raw;
+    if constexpr (A_I8) {
+      if (nk < n_k) raw = fetch16_i8(a8, nk * BK + a8_col, K, m0 + a8_row < M);
+    }
+    if (nk < n_k) load(nk, nk % STAGES);
     cp_commit();
 
     const int st = kt % STAGES;
@@ -163,6 +230,11 @@ __device__ __forceinline__ void mma_tile(float (&acc)[4][4][4], bf16* smem,
         for (int nt = 0; nt < 4; ++nt)
           mma16816(acc[mt][nt], af, bfr[nt][0], bfr[nt][1]);
       }
+    }
+    if constexpr (A_I8) {
+      // stage nk's buffer held stage kt - 1, which every warp finished
+      // before this step's __syncthreads
+      if (nk < n_k) put_a8(raw, nk % STAGES);
     }
   }
 }

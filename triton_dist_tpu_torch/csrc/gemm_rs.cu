@@ -41,11 +41,33 @@
 // GEMM tiles first, then the reduction tiles (which wait only on GEMM
 // tiles), after barrier_all on entry (the reference's neighbour barrier,
 // :144-149).
+//
+// The int8 mode (tdt_gemm_rs_i8, the reference's `quantized` path
+// :700-702): int8 A and B, exact int32 partials on the int8 tile loop of
+// i8_tile.cuh (64 x 128 tiles), staged in int32 and summed in rank order:
+// int32 adds are exact in any order, so the result is the exact product.
+//
+// The bidirectional ring (tdt_gemm_rs_bidir, the TPU `_gemm_rs_bidir_
+// kernel` :205): the N columns split in half; half 0's partials reduce
+// round the ring rightward (rank me folds chunk me - 1 - s at step s), half
+// 1's leftward (chunk me + 1 + s), each rank's own chunk last.  A ring
+// reduction in the reference's hop order: at step s rank me computes its
+// partial tile, rounds it to bf16 (the reference stages partials in the
+// output dtype), and for s >= 1 waits for the running sum its previous
+// peer left in its landing slot s - 1 and adds it in bf16 (`acc = local +
+// recv`, one rounding, `_add_body` :97-100), in place in the destination
+// where its rounded partial went: its next peer's landing slot s (or, at
+// the last step, its output); then it raises that slot's tile flag.
+// W - 1 landing slots per direction take the place of the reference's
+// credit semaphores (no slot is reused within a call), and each direction
+// has its own slots and flags.  Given the same
+// partials, the sums are bit for bit the reference's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_tile.cuh"
 #include "dist_verbs.cuh"
+#include "i8_tile.cuh"
 
 namespace {
 
@@ -131,6 +153,178 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// y += recv over rows < M, columns < N of a tile (both row-major, row
+// strides ldy and ldr; N % 8 == 0), each sum rounded to bf16 once: the
+// reference's `dst = dst + recv` (`_add_body` :97-100).  y holds the
+// block's own rounded partial (store_tile), so the partial leaves the
+// registers before the wait: an add from registers spilled.
+__device__ __forceinline__ void fold_add(bf16* y, long long ldy,
+                                         const bf16* recv, long long ldr,
+                                         int M, int N, int n0) {
+  for (int v = threadIdx.x; v < M * (BN / 8); v += NT) {
+    const int row = v / (BN / 8), col = n0 + (v % (BN / 8)) * 8;
+    if (col >= N) continue;
+    uint4* dst = reinterpret_cast<uint4*>(y + row * ldy + col);
+    const uint4 raw_y = __ldcg(dst);
+    const uint4 raw_r = __ldcg(reinterpret_cast<const uint4*>(
+        recv + row * ldr + col));
+    const bf16* x = reinterpret_cast<const bf16*>(&raw_y);
+    const bf16* r = reinterpret_cast<const bf16*>(&raw_r);
+    unsigned w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = pack_bf16(__bfloat162float(x[2 * e]) +
+                           __bfloat162float(r[2 * e]),
+                       __bfloat162float(x[2 * e + 1]) +
+                           __bfloat162float(r[2 * e + 1]));
+    *dst = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// land: rank r's [2 directions][W - 1 slots][m_loc][N / 2] running sums;
+// flags: rank r's [2][W - 1][tiles of m_loc x N / 2].  Rank me's items in
+// step order: (step s, direction d, tile t); an item of step s waits only
+// on the item (s - 1, d, t) of its previous peer, at an earlier place.
+__global__ void __launch_bounds__(NT, 2)
+gemm_rs_bidir_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int me = blockIdx.y, W = p.world;
+  tdt_dist::barrier_all(p.bar, me, W, p.epoch);
+
+  const int nh = p.n / 2, tiles_n = (nh + BN - 1) / BN;
+  const int per = (p.m_loc + BM - 1) / BM * tiles_n;  // tiles of a half
+  const long long slot = static_cast<long long>(p.m_loc) * nh;
+  const int n_items = W * 2 * per;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const int sd = it / per, t = it - sd * per;
+    const int s = sd / 2, d = sd - 2 * s;
+    const int i = t / tiles_n, j = t - i * tiles_n;
+    const bool last = s == W - 1;
+    // d 0: chunk me - 1 - s, to the right; d 1: chunk me + 1 + s, left
+    int chunk = last ? me : (d == 0 ? me - 1 - s : me + 1 + s);
+    chunk = chunk < 0 ? chunk + W : (chunk >= W ? chunk - W : chunk);
+    const int next = d == 0 ? (me + 1 == W ? 0 : me + 1)
+                            : (me == 0 ? W - 1 : me - 1);
+    const int rows = min(BM, p.m_loc - i * BM);
+    float acc[4][4][4];
+    tdt_bf16::mma_tile<false, true>(
+        acc, smem,
+        p.a.p[me] + (static_cast<long long>(chunk) * p.m_loc + i * BM) * p.k,
+        p.k, p.b.p[me] + d * nh, p.n, rows, nh, p.k, 0, j * BN);
+    // my rounded partial into its destination: my next peer's landing
+    // slot s, or my output at the last step; then + the running sum from
+    // my landing slot s - 1
+    bf16* dst = last ? p.out.p[me] + static_cast<long long>(i) * BM * p.n +
+                           d * nh
+                     : p.stage.p[next] + (d * (W - 1) + s) * slot +
+                           static_cast<long long>(i) * BM * nh;
+    const long long ld = last ? p.n : nh;
+    tdt_bf16::store_tile(acc, dst, ld, rows, nh, 0, j * BN);
+    if (s > 0) {
+      tdt_dist::wait(p.flags.p[me] + (d * (W - 1) + s - 1) * per + t,
+                     p.epoch);
+      fold_add(dst, ld, p.stage.p[me] + (d * (W - 1) + s - 1) * slot +
+                            static_cast<long long>(i) * BM * nh,
+               nh, rows, nh, j * BN);
+    }
+    if (!last)
+      tdt_dist::signal(p.flags.p[next] + (d * (W - 1) + s) * per + t,
+                       p.epoch);
+  }
+}
+
+struct ParamsI8 {
+  Peers<const int8_t> a;   // rank r's A [W m_loc][k]
+  Peers<const int8_t> b;   // rank r's weight [k][N]
+  Peers<int> stage;        // rank r's [W slots][m_loc][N]: rank q writes q
+  Peers<int> out;          // rank r's C [m_loc][N]
+  Peers<unsigned> flags;   // rank r's [W slots][tiles of m_loc x N]
+  Peers<unsigned> bar;     // rank r's [W] barrier slots
+  int world, m_loc, n, k;
+  unsigned epoch;
+};
+
+// The int8 mode: as gemm_rs_kernel on 64 x 128 int32 tiles, the partials
+// staged in int32 and summed exactly.
+__global__ void __launch_bounds__(tdt_i8::NT)
+gemm_rs_i8_kernel(const __grid_constant__ ParamsI8 p) {
+  constexpr int BM8 = tdt_i8::BM, BN8 = tdt_i8::BN, NT8 = tdt_i8::NT;
+  __shared__ __align__(128) int8_t smem[tdt_i8::SMEM];
+  const int me = blockIdx.y;
+  tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
+
+  const int tiles_n = (p.n + BN8 - 1) / BN8;
+  const int per = (p.m_loc + BM8 - 1) / BM8 * tiles_n;
+  const long long slot = static_cast<long long>(p.m_loc) * p.n;
+  const int n_gemm = p.world * per;
+  for (int it = blockIdx.x; it < n_gemm + per; it += gridDim.x) {
+    if (it < n_gemm) {
+      const int owner = (me + 2 * p.world - 1 - it / per) % p.world;
+      const int t = it % per, i = t / tiles_n, j = t % tiles_n;
+      const int rows = min(BM8, p.m_loc - i * BM8);
+      int acc[BM8 / 16][4][4];
+#pragma unroll
+      for (int mt = 0; mt < BM8 / 16; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
+              acc[mt][nt][3] = 0;
+      tdt_i8::mma_tile(
+          acc, smem,
+          p.a.p[me] + (static_cast<long long>(owner) * p.m_loc + i * BM8) *
+                          p.k,
+          p.b.p[me], rows, p.n, p.k, 0, j * BN8, 0, p.k);
+      tdt_i8::store_tile(acc, p.stage.p[owner] + me * slot +
+                                  static_cast<long long>(i) * BM8 * p.n,
+                         rows, p.n, 0, j * BN8, false);
+      tdt_dist::signal(p.flags.p[owner] + me * per + t, p.epoch);
+      continue;
+    }
+    // my chunk's tile (i, j): the W partials summed in rank order
+    const int t = it - n_gemm, i = t / tiles_n, j = t % tiles_n;
+    const int rows = min(BM8, p.m_loc - i * BM8);
+    tdt_dist::wait(p.flags.p[me] + t, p.epoch, p.world, per);
+    const int* st = p.stage.p[me];
+    int* out = p.out.p[me];
+    for (int v = threadIdx.x; v < rows * (BN8 / 4); v += NT8) {
+      const int row = i * BM8 + v / (BN8 / 4);
+      const int col = j * BN8 + (v % (BN8 / 4)) * 4;
+      if (col >= p.n) continue;
+      const long long off = static_cast<long long>(row) * p.n + col;
+      int4 sum = make_int4(0, 0, 0, 0);
+      for (int q = 0; q < p.world; ++q) {
+        const int4 x = __ldcg(reinterpret_cast<const int4*>(st + q * slot +
+                                                            off));
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+      *reinterpret_cast<int4*>(out + off) = sum;
+    }
+  }
+}
+
+Params make_params(const long long* a, const long long* b,
+                   const long long* stage, const long long* out,
+                   const long long* flags, const long long* bar, int world,
+                   int m_loc, int n, int k, unsigned epoch) {
+  Params p;
+  p.a = peers<const bf16>(a, world);
+  p.b = peers<const bf16>(b, world);
+  p.stage = peers<bf16>(stage, world);
+  p.out = peers<bf16>(out, world);
+  p.flags = peers<unsigned>(flags, world);
+  p.bar = peers<unsigned>(bar, world);
+  p.world = world;
+  p.m_loc = m_loc;
+  p.n = n;
+  p.k = k;
+  p.epoch = epoch;
+  return p;
+}
+
 }  // namespace
 
 // One call for every rank of a world of `world` (<= 8): each pointer table
@@ -145,18 +339,8 @@ extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
                            unsigned epoch, void* stream) {
   if (world < 1 || world > MAX_RANKS || m_loc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.a = peers<const bf16>(a, world);
-  p.b = peers<const bf16>(b, world);
-  p.stage = peers<bf16>(stage, world);
-  p.out = peers<bf16>(out, world);
-  p.flags = peers<unsigned>(flags, world);
-  p.bar = peers<unsigned>(bar, world);
-  p.world = world;
-  p.m_loc = m_loc;
-  p.n = n;
-  p.k = k;
-  p.epoch = epoch;
+  Params p = make_params(a, b, stage, out, flags, bar, world, m_loc, n, k,
+                         epoch);
   const int per = (m_loc + BM - 1) / BM * ((n + BN - 1) / BN);
   const int items = (world + 1) * per;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -165,4 +349,56 @@ extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
                                       world, items, attr_nk, s)
               : tdt_dist::launch_coop(gemm_rs_kernel<false>, p, NT, SMEM,
                                       world, items, attr_kn, s);
+}
+
+// The bidirectional ring: bf16, b [k][N] (no transposed mode); world >= 2,
+// N % 16 == 0 (whole 16-byte rows of each half); land: 2 (W - 1) m_loc
+// N / 2 per rank; flags: 2 (W - 1) ceil(m_loc / 128) ceil(N / 256) per
+// rank.
+extern "C" int tdt_gemm_rs_bidir(const long long* a, const long long* b,
+                                 const long long* land,
+                                 const long long* out,
+                                 const long long* flags,
+                                 const long long* bar, int world, int m_loc,
+                                 int n, int k, unsigned epoch,
+                                 void* stream) {
+  if (world < 2 || world > MAX_RANKS || m_loc < 1 || n % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(a, b, land, out, flags, bar, world, m_loc, n, k,
+                         epoch);
+  const int per = (m_loc + BM - 1) / BM * ((n / 2 + BN - 1) / BN);
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(gemm_rs_bidir_kernel, p, NT,
+                               Tiles<false>::SMEM, world, world * 2 * per,
+                               attr, static_cast<cudaStream_t>(stream));
+}
+
+// The int8 mode: int8 A and B, int32 stage and C; m_loc >= 1, k % 32 == 0
+// and n % 16 == 0 (the int8 tile's); flags: W * ceil(m_loc / 64) *
+// ceil(n / 128) per rank.
+extern "C" int tdt_gemm_rs_i8(const long long* a, const long long* b,
+                              const long long* stage, const long long* out,
+                              const long long* flags, const long long* bar,
+                              int world, int m_loc, int n, int k,
+                              unsigned epoch, void* stream) {
+  if (world < 1 || world > MAX_RANKS || m_loc < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ParamsI8 p;
+  p.a = peers<const int8_t>(a, world);
+  p.b = peers<const int8_t>(b, world);
+  p.stage = peers<int>(stage, world);
+  p.out = peers<int>(out, world);
+  p.flags = peers<unsigned>(flags, world);
+  p.bar = peers<unsigned>(bar, world);
+  p.world = world;
+  p.m_loc = m_loc;
+  p.n = n;
+  p.k = k;
+  p.epoch = epoch;
+  const int per = (m_loc + tdt_i8::BM - 1) / tdt_i8::BM *
+                  ((n + tdt_i8::BN - 1) / tdt_i8::BN);
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(gemm_rs_i8_kernel, p, tdt_i8::NT, 0, world,
+                               (world + 1) * per, attr,
+                               static_cast<cudaStream_t>(stream));
 }

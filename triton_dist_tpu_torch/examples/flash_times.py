@@ -109,8 +109,12 @@ def time_tree(tree: str, repeats: int) -> dict:
             for name, fn in calls.items()}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def main(argv=None, *, timer=time_tree, shapes=SHAPES, script=__file__,
+         doc=__doc__) -> int:
+    """Run ``timer(tree, repeats)`` (a dict of kernel name -> ms) in one
+    fresh process of ``script`` per (tree, round), interleaved; another
+    module times its kernels here by passing its own."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkout roots to compare")
     ap.add_argument("--rounds", type=int, default=2,
                     help="rounds of A B .. B A (default 2)")
@@ -119,20 +123,20 @@ def main(argv=None) -> int:
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(time_tree(args.trees[0], args.repeats)))
+        print(json.dumps(timer(args.trees[0], args.repeats)))
         return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
-    print(f"shapes: {SHAPES}", flush=True)
+    print(f"shapes: {shapes}", flush=True)
     trees = [os.path.realpath(t) for t in args.trees]
     order = (trees + trees[::-1]) * args.rounds
     seen: dict[str, list[dict]] = {t: [] for t in trees}
     for i, tree in enumerate(order):
         res = subprocess.run(
-            [sys.executable, os.path.realpath(__file__), "--child", tree,
+            [sys.executable, os.path.realpath(script), "--child", tree,
              "--repeats", str(args.repeats)], capture_output=True, text=True,
             cwd=tree)
         if res.returncode:

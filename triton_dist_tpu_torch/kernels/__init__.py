@@ -9,7 +9,9 @@ import ring_attention`` always gives the module.  The collectives (the
 barrier, all-gather, reduce-scatter, the latency-tuned all-gather and the
 hierarchical compositions) are re-exported under the reference's names,
 except the host entry ``reduce_scatter``, which stays the module, as
-above."""
+above.  So are the TP ring GEMMs' contexts, host entries (``ag_gemm``,
+``ag_gemm_gathered``, ``gemm_rs``), rank-stacked shard functions and
+autotuned entries."""
 
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     AllGatherContext,
@@ -19,8 +21,23 @@ from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     choose_allgather_method,
     create_allgather_context,
 )
+from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: F401
+    AllGatherGEMMContext,
+    ag_gemm,
+    ag_gemm_autotuned,
+    ag_gemm_gathered,
+    ag_gemm_shard,
+    create_ag_gemm_context,
+)
 from triton_dist_tpu_torch.kernels.common_ops import (  # noqa: F401
     barrier_all_on_mesh,
+)
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
+    GEMMReduceScatterContext,
+    create_gemm_rs_context,
+    gemm_rs,
+    gemm_rs_autotuned,
+    gemm_rs_shard,
 )
 from triton_dist_tpu_torch.kernels.hierarchical import (  # noqa: F401
     hier_all_gather_shard,

@@ -1,62 +1,105 @@
 """Overlapped AllGather-GEMM: the column-parallel projection of tensor
-parallelism (and the row-parallel one's backward), in bf16 and in int8.
+parallelism (and the row-parallel one's backward), in bf16 and in int8,
+with the reference's ring modes, contexts and host entries.
 
-Counterpart of ``triton_dist_tpu/kernels/allgather_gemm.py``'s
-``ag_gemm_shard`` (:642) over ``_ag_gemm_kernel`` (:240), its
-uni-directional ring.  The port runs a world of W ranks on one device
-(``runtime/bootstrap.py``): every per-rank operand carries a leading rank
-dimension, and one call serves every rank.  For each rank r, given its
-rows A_r [m_loc, K] and its weight shard B_r [K, n], the result is the
-gathered A_full [W m_loc, K] (rank s's rows at segment s) and C_r = A_full
-@ B_r [W m_loc, n].  ``trans_b`` takes B_r^T from a weight stored
-[n, K] (the row-parallel backward's ``b_shard.T``), read in place.  As in
-the reference (:700-705), A's dtype picks the mode: int8 A and B give the
-exact int32 C of the W8A8 column-parallel linear (the gather moves int8).
+Counterpart of ``triton_dist_tpu/kernels/allgather_gemm.py``.  The port
+runs a world of W ranks on one device (``runtime/bootstrap.py``).
 
-- :func:`ag_gemm_ref`: the plain version: the concatenation of the ranks'
-  rows, then one f32 product per rank cast to A's dtype, or for int8 the
-  exact int32 product (``quant.matmul_i8_ref``).
-- :func:`ag_gemm`: on CUDA tensors it launches ``csrc/ag_gemm.cu``
-  (``tdt_ag_gemm`` for bf16: the ranks' segments pushed into every rank's
-  gathered buffer with a flag per 128-row tile, the GEMM tiles starting on
-  each rank's own segment; int8 goes to :func:`ag_gemm_i8`) over the
-  world's symmetric workspace and counts the launch, or raises on what the
-  kernel does not take; on CPU tensors (or with ``plain``) the plain
-  version.
-- :func:`ag_gemm_i8`: the int8 mode (``tdt_ag_gemm_i8``, the same pushes
-  and flags per 64-row tile, the int8 tile loop of ``csrc/i8_tile.cuh``),
-  with its own launch count.
+**The shard function** :func:`ag_gemm_shard` (reference ``ag_gemm_shard``
+:642, run inside ``shard_map`` there) takes rank-stacked operands: every
+per-rank operand carries a leading rank dimension, and one call serves
+every rank.  For each rank r, given its rows A_r [m_loc, K] and its weight
+shard B_r [K, n], the result is the gathered A_full [W m_loc, K] (rank s's
+rows at segment s) and C_r = A_full @ B_r [W m_loc, n].  ``trans_b`` takes
+B_r^T from a weight stored [n, K] (the row-parallel backward's
+``b_shard.T``), read in place.  As in the reference (:700-705), A's dtype
+picks the mode: int8 A and B give the exact int32 C of the W8A8
+column-parallel linear (the gather moves int8).
 
-Any ``m_loc >= 1`` is taken: the last tile of each segment is masked to
-its rows, as the reference runs any row count (its Pallas kernel at
-``m_loc % 8 == 0``, its XLA path otherwise, :715-728).  The reference's
-``bm`` / ``bn`` / ``bk``, ``chunks``, ``wire_dtype`` and ``ring_mode``
-have no counterpart here: the kernel's tiles are its own, its schedule is
-a full mesh (NVLink joins every card of a host to every other), and the
-int8 wire, the chunked forward and the bidirectional ring are not ported
-(ROADMAP Queue 2).  World 1 goes through the kernel as well (one rank, one
-segment); the tensor-parallel linears take ``torch.matmul`` there, as the
+The ring modes follow the reference's rules for when each is taken, so the
+same call takes the same schedule in both packages (:func:`ag_gemm_
+schedule`):
+
+- ``ring_mode="bidir"`` (``_ag_gemm_bidir_kernel`` :108): each segment's
+  top half rings rightward and its bottom half leftward.  It refuses
+  ``wire_dtype`` and ``chunks > 1`` with a ValueError before any shape
+  check (:670-676), and gives way to the uni schedule when m_loc is odd or
+  ``(m_loc // 2) % 8``, for int8 A, and at world 1 (:750-752);
+- ``chunks`` (the chunked forward, :370-373): each segment's push moves in
+  ``chunks`` row chunks, each with its own flag, clamped as the reference
+  clamps it (:787-788: down to a count that divides m_loc into chunks of a
+  multiple of 8 rows, else 1).  ``chunks=1`` (the default) is one flag per
+  segment: a GEMM tile waits for its segment's whole push;
+- ``wire_dtype="int8"`` (:295-311): each rank's rows quantized per row
+  (:func:`quant.quantize_rowwise`: int8 and an f32 scale per row), the
+  gather moves int8 and the scales, and the GEMM dequantizes at its feed,
+  ``bf16(float(q) * scale)`` then the bf16 product (``kernels/gemm.py``
+  :163-165).  The reference's [m_loc, 128] scale plane is a TPU lane unit;
+  the port ships [m_loc] f32 scales.  The gathered A comes back rebuilt
+  from the gathered int8 and scales, outside the kernel (:822-826).  Any
+  other ``wire_dtype`` raises; int8 A ignores the wire (it is the wire).
+
+Giving way to another schedule is the reference's semantics, not a
+fallback to the plain version: each schedule launches its own kernel and
+has its own count (``ag_gemm_shard.launches`` the uni bf16 kernel, of which
+``.mode_launches["chunked"]`` the calls with chunks > 1 (int8 ones too);
+``.mode_launches["bidir"]`` and ``["wire"]``; :func:`ag_gemm_i8`'s the int8
+kernel).  On CUDA tensors each launches ``csrc/ag_gemm.cu``
+(``tdt_ag_gemm``: full-mesh pushes of each chunk in pieces of 128 rows,
+counted at the receiver, the last piece raising the chunk's flag;
+``tdt_ag_gemm_bidir``: the ring; ``tdt_ag_gemm_wire``; ``tdt_ag_gemm_i8``)
+over the world's symmetric workspace and counts the launch, or raises on
+what the kernel does not take (the bidir and wire kernels take no
+``trans_b``); on CPU tensors (or with ``plain``) the plain version.  Any
+``m_loc >= 1`` is taken: the last tile of each segment (of each half, in
+bidir) is masked to its rows.  World 1 goes through the kernel as well;
+the tensor-parallel linears take ``torch.matmul`` there, as the
 reference's auto dispatch takes XLA's dot.
+
+**The host entries** (reference :859-890): :class:`AllGatherGEMMContext`,
+:func:`create_ag_gemm_context`, :func:`ag_gemm` (a [M, K] sharded over
+``ctx.axis`` by rows, b [K, N] by columns -> C [M, N]) and
+:func:`ag_gemm_gathered` (-> (A_full [M, K], C)), on a port
+``runtime/bootstrap.Mesh`` as ``allgather.all_gather`` takes one.
+``impl`` and ``interpret`` are taken for source compatibility:
+``impl="xla"`` runs the plain versions on any device, "auto" and "pallas"
+the kernels on CUDA tensors; ``interpret`` changes nothing (CPU tensors
+run the plain versions).  ``config`` (the reference's MXU block triple)
+is kept and has no effect: the Hopper tiles are fixed (128 x 128 x 32
+bf16, ``csrc/bf16_tile.cuh``).  The ring kernels serve one flat world, so
+a mesh whose other axes have more than one rank raises
+NotImplementedError, as a tuple ``axis`` of two or more such axes (the
+torus schedule, ROADMAP Queue 1's eighth entry) does.
+
+**The autotuned entry** :func:`ag_gemm_autotuned` (reference :937) sweeps
+:data:`AG_GEMM_TUNE_SPACE` through ``triton_dist_tpu_torch.autotuner``:
+the reference's mode axis (chunks 1, 2, 4 and the bidir ring) without its
+TPU block triples, which the fixed Hopper tile does not take.  The prune
+drops every config whose resolved schedule another config already
+launches (chunks that clamp alike, a bidir that gives way), so no two
+configs of a sweep launch the same kernel with the same arguments.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 
+from triton_dist_tpu_torch.autotuner import Config, autotune
 from triton_dist_tpu_torch.kernels import _build
-from triton_dist_tpu_torch.kernels.quant import matmul_i8_ref
-from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, get_world
+from triton_dist_tpu_torch.kernels.allgather import shard_over, single_axis
+from triton_dist_tpu_torch.kernels.quant import matmul_i8_ref, quantize_rowwise
+from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, Mesh, get_world
 from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
-TILE_M = 128     # csrc/bf16_tile.cuh BM: rows of one segment tile
-TILE_M_I8 = 64   # csrc/i8_tile.cuh BM: the int8 mode's
-_RING_SIG = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_uint]
-             + [ctypes.c_void_p])
-_SIG = {"tdt_ag_gemm": _RING_SIG,
-        "tdt_ag_gemm_i8": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                           + [ctypes.c_uint] + [ctypes.c_void_p])}
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_SIG = {"tdt_ag_gemm": [_P] * 7 + [_I] * 6 + [_U, _P],
+        "tdt_ag_gemm_i8": [_P] * 7 + [_I] * 5 + [_U, _P],
+        "tdt_ag_gemm_wire": [_P] * 9 + [_I] * 5 + [_U, _P],
+        "tdt_ag_gemm_bidir": [_P] * 7 + [_I] * 4 + [_U, _P]}
 
 
 def check_operands(name, a, b, trans_b):
@@ -113,13 +156,75 @@ def _check_mode(a, b, trans_b):
     return int8
 
 
-def ag_gemm_ref(a, b, *, trans_b: bool = False):
+def clamp_chunks(m_loc: int, chunks: int) -> int:
+    """The reference's clamp (:787-788): the largest count <= ``chunks``
+    that cuts m_loc into chunks of a multiple of 8 rows, else 1."""
+    chunks = int(chunks)
+    while chunks > 1 and (m_loc % chunks or (m_loc // chunks) % 8):
+        chunks -= 1
+    return max(chunks, 1)
+
+
+@dataclass(frozen=True)
+class Schedule:
+    """What one AG-GEMM call runs: ``mode`` "uni" or "bidir", the clamped
+    ``chunks`` (uni), and whether the int8 wire ships A."""
+
+    mode: str
+    chunks: int
+    wire: bool
+
+
+def _reject_bidir(chunks, wire_dtype, ring_mode):
+    """bidir composes with neither the wire nor chunks > 1: raised before
+    any shape check, as the reference does (:670-676)."""
+    if ring_mode == "bidir" and (wire_dtype is not None or chunks > 1):
+        raise ValueError(
+            "ring_mode='bidir' composes with neither wire_dtype nor "
+            "chunks > 1 (the half split is the sub-chunking)")
+
+
+def ag_gemm_schedule(m_loc: int, world: int, int8: bool, *, chunks=1,
+                     wire_dtype=None, ring_mode="uni") -> Schedule:
+    """The schedule the reference's ``ag_gemm_shard`` takes for these
+    arguments (module docstring), or its ValueError; as there, any
+    ``ring_mode`` but "bidir" is the uni ring."""
+    _reject_bidir(chunks, wire_dtype, ring_mode)
+    wire = wire_dtype is not None
+    if wire and wire_dtype != "int8":
+        raise ValueError(f"wire_dtype must be 'int8' or None, got "
+                         f"{wire_dtype!r}")
+    wire = wire and not int8            # int8 A is the wire format already
+    if ring_mode == "bidir" and not (m_loc % 2 or (m_loc // 2) % 8 or int8
+                                     or world == 1):
+        return Schedule("bidir", 1, False)
+    return Schedule("uni", clamp_chunks(m_loc, chunks), wire)
+
+
+def _wire_rows(a):
+    """The wire's payload: every rank's rows quantized per row, (q [W,
+    m_loc, K] int8, scale [W, m_loc] f32)."""
+    world, m_loc, k = a.shape
+    q, scale = quantize_rowwise(a.reshape(world * m_loc, k))
+    return q.view(world, m_loc, k), scale.view(world, m_loc)
+
+
+def _dequant(q, scale, dtype):
+    """bf16(float(q) * scale) per row, the wire's reconstruction."""
+    return (q.float() * scale.unsqueeze(-1)).to(dtype)
+
+
+def ag_gemm_ref(a, b, *, trans_b: bool = False, wire: bool = False):
     """Plain (A_full [W, W m_loc, K], C [W, W m_loc, n]): A_full is the
     ranks' rows concatenated (the same on every rank: an expanded view),
     C[r] = A_full @ b[r] (``@ b[r]^T`` with ``trans_b``) in f32, cast to
-    a's dtype; int8 a and b give the exact int32 C."""
+    a's dtype; int8 a and b give the exact int32 C.  ``wire``: the rows
+    quantized per row and dequantized in a's dtype first (the reference's
+    XLA path, :719-725), A_full that reconstruction."""
     world, k, _ = check_operands("ag_gemm", a, b, trans_b)
     int8 = _check_mode(a, b, trans_b)
+    if wire and not int8:
+        a = _dequant(*_wire_rows(a), a.dtype)
     a_full = a.reshape(world * a.shape[1], k)
     bt = b.transpose(1, 2) if trans_b else b
     if int8:
@@ -130,66 +235,277 @@ def ag_gemm_ref(a, b, *, trans_b: bool = False):
     return a_full.expand(world, -1, -1), c
 
 
-def _launch(entry, a, b, n, c_dtype, tile_m, flag_name, *extra):
-    """One cooperative launch of ``entry`` for every rank: the gathered A
-    and C [W, W m_loc, n] allocated, flags per (segment, ``tile_m``-row
-    tile) and barrier slots from the world's workspace, this call's
-    epoch; ``extra``: the entry's arguments after k."""
+def ag_gemm_wire_ref(a, b):
+    """The wire mode's plain version with its payload: (gathered int8 [W,
+    W m_loc, K], gathered scales [W, W m_loc], C [W, W m_loc, n])."""
     world, m_loc, k = a.shape
+    q, scale = _wire_rows(a)
+    _, c = ag_gemm_ref(a, b, wire=True)
+    return (q.reshape(1, world * m_loc, k).expand(world, -1, -1),
+            scale.reshape(1, world * m_loc).expand(world, -1), c)
+
+
+def _launch(entry, a, buffers, ints, name, n_flags):
+    """One cooperative launch of ``entry`` for every rank: the pointer
+    tables of ``buffers``, then of the flags and piece counters of
+    ``name`` (``n_flags`` a rank) and the barrier slots from the world's
+    workspace; then ``ints`` and this call's epoch."""
+    world = a.shape[0]
     ws = get_world(world, a.device).workspace
-    flags = ws.flags(flag_name, world * -(-m_loc // tile_m))
-    bar = ws.flags("barrier", world)
-    a_full = torch.empty((world, world * m_loc, k), dtype=a.dtype,
-                         device=a.device)
-    c = torch.empty((world, world * m_loc, n), dtype=c_dtype,
-                    device=a.device)
+    tables = ring_tables(*buffers, ws.flags(name, n_flags),
+                         ws.flags(name + "_cnt", n_flags),
+                         ws.flags("barrier", world))
     epoch = ws.next_epoch()
     lib = _build.load("ag_gemm", _SIG)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            *ring_tables(a, b, a_full, c, flags, bar), world, m_loc, n, k,
-            *extra, epoch, stream)
+        err = getattr(lib, entry)(*tables, *ints, epoch,
+                                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, entry[4:])
+
+
+def _empty(a, *shape, dtype=None):
+    return torch.empty(shape, dtype=dtype or a.dtype, device=a.device)
+
+
+def ag_gemm_shard(a, b, *, trans_b: bool = False, plain: bool = False,
+                  chunks: int = 1, wire_dtype=None, ring_mode: str = "uni"):
+    """(A_full [W, W m_loc, K], C [W, W m_loc, n]) of rank-stacked a
+    [W, m_loc, K] and b [W, K, n] (``trans_b``: b [W, n, K], the product
+    taking b[r]^T), through the schedule :func:`ag_gemm_schedule` picks;
+    int8 a and b take the int8 mode (:func:`ag_gemm_i8`, int32 C)."""
+    return _ag_gemm(a, b, trans_b=trans_b, plain=plain, chunks=chunks,
+                    wire_dtype=wire_dtype, ring_mode=ring_mode,
+                    gathered=True)
+
+
+def _ag_gemm(a, b, *, trans_b, plain, chunks, wire_dtype, ring_mode,
+             gathered):
+    """:func:`ag_gemm_shard`; ``gathered=False`` leaves the wire's A_full
+    unbuilt (None), as the host's ``ag_gemm`` needs none."""
+    _reject_bidir(chunks, wire_dtype, ring_mode)
+    world, k, n = check_operands("ag_gemm", a, b, trans_b)
+    int8 = _check_mode(a, b, trans_b)
+    sched = ag_gemm_schedule(a.shape[1], world, int8, chunks=chunks,
+                             wire_dtype=wire_dtype, ring_mode=ring_mode)
+    if trans_b and (sched.mode == "bidir" or sched.wire):
+        raise ValueError("ag_gemm: the bidir and wire modes take b [W, K, "
+                         "n], not trans_b")
+    if int8:
+        return ag_gemm_i8(a, b, plain=plain, chunks=sched.chunks)
+    if plain or a.device.type == "cpu":
+        a_full, c = ag_gemm_ref(a, b, trans_b=trans_b, wire=sched.wire)
+        return (a_full if gathered else None), c
+    if not a.is_cuda:
+        raise ValueError(f"ag_gemm: unsupported device {a.device}")
+    m_loc = a.shape[1]
+    check_kernel_operands("ag_gemm", a, b, m_loc, k, n,
+                          k_mult=16 if sched.wire else 8)
+    a, b = a.contiguous(), b.contiguous()
+    c = _empty(a, world, world * m_loc, n)
+    dims = (world, m_loc, n, k)
+    if sched.wire:
+        q, scale = _wire_rows(a)
+        ag_q = _empty(a, world, world * m_loc, k, dtype=torch.int8)
+        ag_s = _empty(a, world, world * m_loc, dtype=torch.float32)
+        _launch("tdt_ag_gemm_wire", a, (q, scale, b, ag_q, ag_s, c),
+                (*dims, m_loc // sched.chunks), "ag_gemm_wire",
+                world * sched.chunks)
+        a_full = _dequant(ag_q, ag_s, a.dtype) if gathered else None
+        mode = "wire"
+    else:
+        a_full = _empty(a, world, world * m_loc, k)
+        if sched.mode == "bidir":
+            _launch("tdt_ag_gemm_bidir", a, (a, b, a_full, c), dims,
+                    "ag_gemm_bidir", 2 * world)
+        else:
+            _launch("tdt_ag_gemm", a, (a, b, a_full, c),
+                    (*dims, m_loc // sched.chunks, int(trans_b)), "ag_gemm",
+                    world * sched.chunks)
+            ag_gemm_shard.launches += 1
+        mode = sched.mode
+    if mode != "uni":
+        ag_gemm_shard.mode_launches[mode] += 1
+    if sched.chunks > 1:
+        ag_gemm_shard.mode_launches["chunked"] += 1
     return a_full, c
 
 
-def ag_gemm(a, b, *, trans_b: bool = False, plain: bool = False):
-    """(A_full [W, W m_loc, K], C [W, W m_loc, n]) of rank-stacked a
-    [W, m_loc, K] and b [W, K, n] (``trans_b``: b [W, n, K], the product
-    taking b[r]^T); int8 a and b take the int8 mode (:func:`ag_gemm_i8`,
-    int32 C)."""
-    _, k, n = check_operands("ag_gemm", a, b, trans_b)
-    if _check_mode(a, b, trans_b):
-        return ag_gemm_i8(a, b, plain=plain)
-    if plain or a.device.type == "cpu":
-        return ag_gemm_ref(a, b, trans_b=trans_b)
-    if not a.is_cuda:
-        raise ValueError(f"ag_gemm: unsupported device {a.device}")
-    check_kernel_operands("ag_gemm", a, b, a.shape[1], k, n)
-    out = _launch("tdt_ag_gemm", a.contiguous(), b.contiguous(), n,
-                  a.dtype, TILE_M, "ag_gemm", int(trans_b))
-    ag_gemm.launches += 1
-    return out
-
-
-def ag_gemm_i8(a, b, *, plain: bool = False):
+def ag_gemm_i8(a, b, *, plain: bool = False, chunks: int = 1):
     """The int8 mode: (A_full [W, W m_loc, K] int8, C [W, W m_loc, n]
-    int32, exact) of rank-stacked int8 a [W, m_loc, K] and b [W, K, n].
-    CUDA operands launch ``tdt_ag_gemm_i8`` (K % 32 == 0, n % 16 == 0,
-    any m_loc); CPU operands (or ``plain``) run :func:`ag_gemm_ref`."""
-    _, k, n = check_operands("ag_gemm_i8", a, b, False)
+    int32, exact) of rank-stacked int8 a [W, m_loc, K] and b [W, K, n],
+    ``chunks`` clamped as the bf16 mode's.  CUDA operands launch
+    ``tdt_ag_gemm_i8`` (K % 32 == 0, n % 16 == 0, any m_loc); CPU operands
+    (or ``plain``) run :func:`ag_gemm_ref`."""
+    world, k, n = check_operands("ag_gemm_i8", a, b, False)
     if plain or a.device.type == "cpu":
         return ag_gemm_ref(a, b)
     if not a.is_cuda:
         raise ValueError(f"ag_gemm_i8: unsupported device {a.device}")
-    check_kernel_operands("ag_gemm_i8", a, b, a.shape[1], k, n,
+    m_loc = a.shape[1]
+    check_kernel_operands("ag_gemm_i8", a, b, m_loc, k, n,
                           dtype=torch.int8, k_mult=32, n_mult=16)
-    out = _launch("tdt_ag_gemm_i8", a.contiguous(), b.contiguous(), n,
-                  torch.int32, TILE_M_I8, "ag_gemm_i8")
+    chunks = clamp_chunks(m_loc, chunks)
+    a, b = a.contiguous(), b.contiguous()
+    a_full = _empty(a, world, world * m_loc, k)
+    c = _empty(a, world, world * m_loc, n, dtype=torch.int32)
+    _launch("tdt_ag_gemm_i8", a, (a, b, a_full, c),
+            (world, m_loc, n, k, m_loc // chunks), "ag_gemm_i8",
+            world * chunks)
     ag_gemm_i8.launches += 1
+    if chunks > 1:
+        ag_gemm_shard.mode_launches["chunked"] += 1
+    return a_full, c
+
+
+ag_gemm_shard.launches = 0
+ag_gemm_shard.mode_launches = {"chunked": 0, "bidir": 0, "wire": 0}
+ag_gemm_i8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Host entries (reference :65-96, :859-890)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class AllGatherGEMMContext:
+    """Counterpart of the reference's context (:65): the mesh and axis,
+    ``impl`` ("auto" | "pallas": the kernels on CUDA tensors; "xla": the
+    plain versions), ``config`` (kept; no effect: the Hopper tiles are
+    fixed), the ring modes ``chunks`` / ``wire_dtype`` / ``ring_mode``,
+    and ``interpret`` (kept; no effect)."""
+
+    mesh: Mesh
+    axis: Any = "tp"
+    impl: str = "auto"
+    config: Any = None
+    chunks: int = 1
+    wire_dtype: str | None = None
+    ring_mode: str = "uni"
+    interpret: bool = False
+
+    @property
+    def world(self) -> int:
+        return self.mesh.axis_size(self.axis)
+
+
+def create_ag_gemm_context(mesh, axis="tp", impl="auto", config=None,
+                           chunks=1, wire_dtype=None, ring_mode="uni",
+                           interpret=False) -> AllGatherGEMMContext:
+    return AllGatherGEMMContext(mesh=mesh, axis=axis, impl=impl,
+                                config=config, chunks=chunks,
+                                wire_dtype=wire_dtype, ring_mode=ring_mode,
+                                interpret=interpret)
+
+
+def flat_axis(mesh: Mesh, axis, what: str) -> str | None:
+    """The one axis the ring GEMMs run over: ``axis`` (or the one real
+    axis of a tuple), when every other axis of the mesh has one rank."""
+    real = single_axis(axis, mesh, what)
+    others = [a for a in mesh.axis_names
+              if a != real and mesh.axis_size(a) > 1]
+    if others:
+        raise NotImplementedError(
+            f"{what} over {axis!r} of a mesh {mesh.shape}: the ring GEMMs "
+            f"run over one flat world, the other axes {others} must have "
+            f"one rank")
+    return real
+
+
+def _check_impl(impl):
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"impl must be 'auto', 'pallas' or 'xla', got "
+                         f"{impl!r}")
+    return impl == "xla"
+
+
+def ag_gemm_gathered(a, b, ctx: AllGatherGEMMContext):
+    """(A_full [M, K], C [M, N]): a [M, K] sharded over ``ctx.axis`` by
+    rows, b [K, N] by columns; every rank's gathered A is the same (rank
+    0's copy is returned), C's column blocks are the ranks' in rank
+    order."""
+    return _host(a, b, ctx, gathered=True)
+
+
+def ag_gemm(a, b, ctx: AllGatherGEMMContext):
+    """C = allgather(A, axis) @ B_local, overlapped (reference :859)."""
+    return _host(a, b, ctx, gathered=False)[1]
+
+
+def _host(a, b, ctx, *, gathered):
+    plain = _check_impl(ctx.impl)
+    mesh = ctx.mesh
+    axis = flat_axis(mesh, ctx.axis, "ag_gemm")
+    world = mesh.size
+    if b.shape[1] % world:
+        raise ValueError(f"ag_gemm: {b.shape[1]} columns do not shard over "
+                         f"{world} ranks")
+    a_r = shard_over(a, mesh, axis) if axis else a.unsqueeze(0)
+    a_r = a_r.reshape(world, -1, a.shape[1])
+    b_r = b.reshape(b.shape[0], world, -1).permute(1, 0, 2)
+    a_full, c = _ag_gemm(a_r, b_r, trans_b=False, plain=plain,
+                         chunks=ctx.chunks, wire_dtype=ctx.wire_dtype,
+                         ring_mode=ctx.ring_mode, gathered=gathered)
+    c = c.permute(1, 0, 2).reshape(c.shape[1], -1)
+    return (a_full[0] if a_full is not None else None), c
+
+
+# ---------------------------------------------------------------------------
+# The autotuned entry (reference :897-962)
+# ---------------------------------------------------------------------------
+
+# The reference's mode axis (chunks 1 / 2 / 4 and the bidir ring) without
+# its TPU block triples: the Hopper kernels take no block size.
+AG_GEMM_TUNE_SPACE = [Config(chunks=1), Config(chunks=2), Config(chunks=4),
+                      Config(chunks=1, ring_mode="bidir")]
+
+
+def _resolved(configs, a, ctx):
+    """Each config's schedule for a [M, K] under ``ctx`` (None where it
+    raises: the sweep skips it as a bad config)."""
+    world = ctx.mesh.size
+    int8 = a.dtype == torch.int8
+    out = []
+    for cfg in configs:
+        try:
+            out.append(ag_gemm_schedule(
+                a.shape[0] // world, world, int8,
+                chunks=cfg.get("chunks", 1), wire_dtype=ctx.wire_dtype,
+                ring_mode=cfg.get("ring_mode", "uni")))
+        except ValueError:
+            out.append(None)
     return out
 
 
-ag_gemm.launches = 0
-ag_gemm_i8.launches = 0
+def dedupe_configs(configs, scheds):
+    """The first config of each distinct schedule (and every config whose
+    schedule is None, to fail as the sweep's bad configs)."""
+    seen, keep = set(), []
+    for cfg, s in zip(configs, scheds):
+        if s is None or s not in seen:
+            keep.append(cfg)
+            seen.add(s)
+    return keep
+
+
+def _prune(configs, args, kwargs):
+    return dedupe_configs(configs, _resolved(configs, args[0],
+                                             kwargs["ctx"]))
+
+
+@autotune(configs=AG_GEMM_TUNE_SPACE, key=(), prune=_prune)
+def _ag_gemm_tunable(a, b, *, ctx, chunks=1, ring_mode="uni"):
+    tuned = AllGatherGEMMContext(
+        mesh=ctx.mesh, axis=ctx.axis, impl=ctx.impl, config=ctx.config,
+        chunks=chunks, wire_dtype=ctx.wire_dtype, ring_mode=ring_mode,
+        interpret=ctx.interpret)
+    return ag_gemm(a, b, tuned)
+
+
+def ag_gemm_autotuned(a, b, ctx: AllGatherGEMMContext):
+    """:func:`ag_gemm` with its ring mode picked by the autotuner (each
+    config times the whole call, gather and GEMM together); winners are
+    cached per (shapes, dtypes, ctx).  Inside a ``contextual_autotune``
+    region the sweep advances in lockstep with the region's other tuners;
+    outside one, the first call sweeps eagerly."""
+    return _ag_gemm_tunable(a, b, ctx=ctx)

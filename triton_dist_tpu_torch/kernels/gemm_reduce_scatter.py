@@ -1,50 +1,91 @@
 """Overlapped GEMM-ReduceScatter: the row-parallel projection of tensor
-parallelism (and the column-parallel one's backward).
+parallelism (and the column-parallel one's backward), with the reference's
+bidirectional ring, int8 mode, contexts and host entries.
 
-Counterpart of ``triton_dist_tpu/kernels/gemm_reduce_scatter.py``'s
-``gemm_rs_shard`` (:657) over ``_gemm_rs_kernel`` (:103), its
-uni-directional ring, on the port's virtual world (every per-rank operand
-carries a leading rank dimension; one call serves every rank).  Rank q
-holds A_q [W m_loc, k] (every row, its shard of the contraction) and B_q
-[k, N]; rank r gets C_r = sum over q of A_q[rows of chunk r] @ B_q,
-[m_loc, N].  ``trans_b`` takes B_q^T from a weight stored [N, k] (the
-column-parallel backward's ``b_shard.T``), read in place.
+Counterpart of ``triton_dist_tpu/kernels/gemm_reduce_scatter.py`` on the
+port's virtual world.  **The shard function** :func:`gemm_rs_shard`
+(reference ``gemm_rs_shard`` :657) takes rank-stacked operands (every
+per-rank operand carries a leading rank dimension; one call serves every
+rank).  Rank q holds A_q [W m_loc, k] (every row, its shard of the
+contraction) and B_q [k, N]; rank r gets C_r = sum over q of A_q[rows of
+chunk r] @ B_q, [m_loc, N].  ``trans_b`` takes B_q^T from a weight stored
+[N, k] (the column-parallel backward's ``b_shard.T``), read in place.
 
-Rounding: each rank's partial is staged in A's dtype, as the reference
-stages in its ``out_dtype`` (:764-772); the W partials are then summed in
-f32 in the fixed order q = 0 .. W-1 and rounded once.  The reference's
-ring adds in the staging dtype at every hop (``_add_body``, :100), W - 1
-roundings in a rank-dependent order: with bf16 operands the two differ by
-bf16 rounding; in f32 they agree to f32 rounding.
+Schedules (:func:`gemm_rs_schedule`, the reference's rules):
 
-- :func:`gemm_rs_ref`: the plain version with the same staging, order and
-  rounding.
-- :func:`gemm_rs`: on CUDA tensors it launches ``csrc/gemm_rs.cu`` (bf16;
-  every rank's partial tiles pushed into the owner's staging slots with a
-  flag per tile, each owner reducing its chunk) over the world's symmetric
-  workspace and counts the launch, or raises on what the kernel does not
-  take; on CPU tensors (or with ``plain``) the plain version.  Any
-  ``m_loc >= 1`` is taken: the last row tile of each chunk is masked.
+- uni (``_gemm_rs_kernel`` :103): every rank's partial tiles pushed into
+  the owner's staging slots, each owner summing its chunk;
+- ``ring_mode="bidir"`` (``_gemm_rs_bidir_kernel`` :205), taken only at
+  world > 1 when ``N % 2 == 0`` and ``(N // 2) % 128 == 0`` (:723-724),
+  else the uni schedule: the N columns split in half, half 0's partials
+  reduce round the ring rightward (chunk ``me - 1 - s`` at step s), half
+  1's leftward (``me + 1 + s``), each rank's own chunk last;
+- int8 A and B (the ``quantized`` path, :700-702): exact int32 partials
+  and sums, the uni schedule's staging in int32.
 
-As for the AG-GEMM, the reference's block sizes and ``ring_mode`` have no
-counterpart (full-mesh schedule; the bidirectional ring is not ported).
+Rounding.  uni: each rank's partial is staged in A's dtype, as the
+reference stages in its ``out_dtype`` (:764-772); the W partials are then
+summed in f32 in the fixed order q = 0 .. W-1 and rounded once.  The
+reference's ring adds in the staging dtype at every hop (``_add_body``,
+:100), W - 1 roundings in a rank-dependent order: with bf16 operands the
+two differ by bf16 rounding; in f32 they agree to f32 rounding.  bidir
+adds as the reference does: the partial rounded to A's dtype, then at each
+hop ``acc = local + recv`` in A's dtype, in the reference's hop order, so
+given the same partials its sums are bit for bit the reference's (the
+partials themselves may round differently: another order over k in f32).
+int8: exact in any order.
+
+On CUDA tensors each schedule launches ``csrc/gemm_rs.cu`` (``tdt_gemm_rs``
+bf16; ``tdt_gemm_rs_bidir`` bf16, b [W, k, N] only, its W - 1 landing
+slots per direction from the world's workspace; ``tdt_gemm_rs_i8``) and
+counts it (``gemm_rs_shard.launches`` the uni bf16 kernel,
+``.mode_launches["bidir"]`` / ``["i8"]``), or raises on what the kernel
+does not take (the int8 bidir ring is not ported: int8 operands with
+``ring_mode="bidir"`` raise on the card); on CPU tensors (or with
+``plain``) the plain version.  Any ``m_loc >= 1`` is taken: the last row
+tile of each chunk is masked.
+
+**The host entries** (reference :70-95, :794): :class:`GEMMReduceScatter
+Context`, :func:`create_gemm_rs_context` and :func:`gemm_rs` (a [M, K]
+sharded over ``ctx.axis`` by columns, b [K, N] by rows -> C [M, N], rank
+r's chunk at rows r m_loc ..), on a port ``Mesh``, with ``impl``,
+``config`` and ``interpret`` as ``allgather_gemm``'s context takes them.
+**The autotuned entry** :func:`gemm_rs_autotuned` (reference :863) sweeps
+:data:`GEMM_RS_TUNE_SPACE`: the uni and the bidir ring, without the TPU
+block triples; a bidir that gives way is pruned (it would launch the uni
+kernel again).
 """
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
+from typing import Any
+
 import torch
 
+from triton_dist_tpu_torch.autotuner import Config, autotune
 from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.allgather import shard_over
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
-    TILE_M,
-    _RING_SIG,
+    _check_impl,
     check_kernel_operands,
     check_operands,
+    dedupe_configs,
+    flat_axis,
     ring_tables,
 )
-from triton_dist_tpu_torch.runtime.bootstrap import get_world
+from triton_dist_tpu_torch.kernels.quant import matmul_i8_ref
+from triton_dist_tpu_torch.runtime.bootstrap import Mesh, get_world
 
-_SIG = {"tdt_gemm_rs": _RING_SIG}
+TILE_M = 128     # csrc/bf16_tile.cuh BM: rows of one chunk tile
+TILE_M_I8 = 64   # csrc/i8_tile.cuh BM: the int8 mode's
+# pointer tables (a, b, stage, out, flags, barrier), then world, m_loc, n,
+# k [, b_nk], the epoch and the stream
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_SIG = {"tdt_gemm_rs": [_P] * 6 + [_I] * 5 + [_U, _P],
+        "tdt_gemm_rs_bidir": [_P] * 6 + [_I] * 4 + [_U, _P],
+        "tdt_gemm_rs_i8": [_P] * 6 + [_I] * 4 + [_U, _P]}
 
 
 def _m_loc(a):
@@ -55,49 +96,215 @@ def _m_loc(a):
     return rows // world
 
 
-def gemm_rs_ref(a, b, *, trans_b: bool = False):
-    """Plain C [W, m_loc, N]: each rank's partial a[q] @ b[q] (``b[q]^T``
-    with ``trans_b``) in f32, staged in a's dtype; chunk r of the W partials
-    summed in f32 in rank order, cast to a's dtype."""
+def gemm_rs_schedule(world: int, n: int, ring_mode: str = "uni") -> str:
+    """"bidir" where the reference's ``gemm_rs_shard`` takes its bidir ring
+    (world > 1, N % 2 == 0, (N // 2) % 128 == 0), else "uni"."""
+    if ring_mode == "bidir" and world > 1 and n % 2 == 0 and \
+            (n // 2) % 128 == 0:
+        return "bidir"
+    return "uni"
+
+
+def _partials(a, b, trans_b):
+    """Each rank's partial [W, W, m_loc, N] staged in a's dtype (int32 for
+    int8)."""
     world, _, n = check_operands("gemm_rs", a, b, trans_b)
     m_loc = _m_loc(a)
     bt = b.transpose(1, 2) if trans_b else b
-    total = None
-    for q in range(world):
-        part = (a[q].float() @ bt[q].float()).to(a.dtype)
-        part = part.reshape(world, m_loc, n).float()
-        total = part if total is None else total + part
+    if a.dtype == torch.int8:
+        parts = [matmul_i8_ref(a[q], bt[q]) for q in range(world)]
+    else:
+        parts = [(a[q].float() @ bt[q].float()).to(a.dtype)
+                 for q in range(world)]
+    return torch.stack(parts).view(world, world, m_loc, n)
+
+
+def gemm_rs_ref(a, b, *, trans_b: bool = False, ring_mode: str = "uni"):
+    """Plain C [W, m_loc, N]: each rank's partial a[q] @ b[q] (``b[q]^T``
+    with ``trans_b``) in f32, staged in a's dtype; uni: chunk r of the W
+    partials summed in f32 in rank order, cast to a's dtype; bidir (where
+    :func:`gemm_rs_schedule` takes it): the reference's hop order and
+    rounding; int8 a and b: exact int32 sums."""
+    world, _, n = check_operands("gemm_rs", a, b, trans_b)
+    parts = _partials(a, b, trans_b)
+    if a.dtype == torch.int8:
+        return parts.sum(dim=0, dtype=torch.int32)
+    if gemm_rs_schedule(world, n, ring_mode) == "bidir":
+        return _bidir_sums(parts)
+    total = parts[0].float()
+    for q in range(1, world):
+        total = total + parts[q].float()
     return total.to(a.dtype)
 
 
-def gemm_rs(a, b, *, trans_b: bool = False, plain: bool = False):
+def _bidir_sums(parts):
+    """The bidir ring's sums: columns [0, N/2) of chunk c folded by ranks
+    c + 1, c + 2, ..., c (rightward), [N/2, N) by c - 1, c - 2, ..., c,
+    each hop ``acc = local + recv`` in the partials' dtype."""
+    world, n = parts.shape[0], parts.shape[-1]
+    nh = n // 2
+    out = []
+    for c in range(world):
+        halves = []
+        for d, sign in ((0, 1), (1, -1)):
+            cols = slice(d * nh, (d + 1) * nh)
+            acc = parts[(c + sign) % world, c, :, cols]
+            for j in range(2, world + 1):
+                acc = parts[(c + sign * j) % world, c, :, cols] + acc
+            halves.append(acc)
+        out.append(torch.cat(halves, dim=-1))
+    return torch.stack(out)
+
+
+def gemm_rs_shard(a, b, *, trans_b: bool = False, plain: bool = False,
+                  ring_mode: str = "uni"):
     """C [W, m_loc, N] of rank-stacked a [W, W m_loc, k] and b [W, k, N]
-    (``trans_b``: b [W, N, k], the product taking b[q]^T)."""
+    (``trans_b``: b [W, N, k], the product taking b[q]^T), through the
+    schedule :func:`gemm_rs_schedule` picks; int8 a and b give the exact
+    int32 C."""
     world, k, n = check_operands("gemm_rs", a, b, trans_b)
     m_loc = _m_loc(a)
+    int8 = a.dtype == torch.int8
+    if int8 and (b.dtype != torch.int8 or trans_b):
+        raise ValueError(f"gemm_rs: int8 a takes an int8 b [W, k, N] "
+                         f"without trans_b, got {b.dtype}"
+                         f"{' with trans_b' if trans_b else ''}")
+    mode = gemm_rs_schedule(world, n, ring_mode)
+    if mode == "bidir" and trans_b:
+        raise ValueError("gemm_rs: the bidir mode takes b [W, k, N], not "
+                         "trans_b")
     if plain or a.device.type == "cpu":
-        return gemm_rs_ref(a, b, trans_b=trans_b)
+        return gemm_rs_ref(a, b, trans_b=trans_b, ring_mode=ring_mode)
     if not a.is_cuda:
         raise ValueError(f"gemm_rs: unsupported device {a.device}")
+    if int8:
+        if mode == "bidir":
+            raise ValueError("gemm_rs: the bidir ring takes bf16 operands "
+                             "on the card (int8 takes ring_mode='uni')")
+        check_kernel_operands("gemm_rs (int8)", a, b, m_loc, k, n,
+                              dtype=torch.int8, k_mult=32, n_mult=16)
+        out = _launch("tdt_gemm_rs_i8", a, b, m_loc, n, torch.int32,
+                      "gemm_rs_i8",
+                      (world, m_loc, n), -(-m_loc // TILE_M_I8)
+                      * -(-n // 128) * world)
+        gemm_rs_shard.mode_launches["i8"] += 1
+        return out
     check_kernel_operands("gemm_rs", a, b, m_loc, k, n)
-    a, b = a.contiguous(), b.contiguous()
-    w = get_world(world, a.device)
-    ws = w.workspace
+    if mode == "bidir":
+        tiles = -(-m_loc // TILE_M) * -(-(n // 2) // TILE_M)
+        out = _launch("tdt_gemm_rs_bidir", a, b, m_loc, n, a.dtype,
+                      "gemm_rs_bidir", (2, world - 1, m_loc, n // 2),
+                      2 * (world - 1) * tiles)
+        gemm_rs_shard.mode_launches["bidir"] += 1
+        return out
     tiles = -(-m_loc // TILE_M) * -(-n // TILE_M)   # 128 x 128 tiles
-    stage = ws.get("gemm_rs_stage", (world, m_loc, n), a.dtype)
-    flags = ws.flags("gemm_rs", world * tiles)
-    bar = ws.flags("barrier", world)
-    out = torch.empty((world, m_loc, n), dtype=a.dtype, device=a.device)
-    epoch = ws.next_epoch()
-    lib = _build.load("gemm_rs", _SIG)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tdt_gemm_rs(*ring_tables(a, b, stage, out, flags, bar),
-                              world, m_loc, n, k, int(trans_b), epoch,
-                              stream)
-    _build.check(err, "gemm_rs")
-    gemm_rs.launches += 1
+    out = _launch("tdt_gemm_rs", a, b, m_loc, n, a.dtype, "gemm_rs",
+                  (world, m_loc, n), world * tiles, int(trans_b))
+    gemm_rs_shard.launches += 1
     return out
 
 
-gemm_rs.launches = 0
+def _launch(entry, a, b, m_loc, n, dtype, name, stage_shape, n_flags,
+            *extra):
+    """One cooperative launch of ``entry`` for every rank: its staging
+    (or landing) buffers ``stage_shape`` per rank and ``n_flags`` flags
+    per rank from the world's workspace, C [W, m_loc, n] allocated, this
+    call's epoch; ``extra``: the entry's arguments after k."""
+    world, _, k = a.shape
+    a, b = a.contiguous(), b.contiguous()
+    ws = get_world(world, a.device).workspace
+    stage = ws.get(name + "_stage", stage_shape, dtype)
+    flags = ws.flags(name, n_flags)
+    bar = ws.flags("barrier", world)
+    out = torch.empty((world, m_loc, n), dtype=dtype, device=a.device)
+    epoch = ws.next_epoch()
+    lib = _build.load("gemm_rs", _SIG)
+    with torch.cuda.device(a.device):
+        err = getattr(lib, entry)(
+            *ring_tables(a, b, stage, out, flags, bar), world, m_loc, n, k,
+            *extra, epoch, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, entry[4:])
+    return out
+
+
+gemm_rs_shard.launches = 0
+gemm_rs_shard.mode_launches = {"bidir": 0, "i8": 0}
+
+
+# ---------------------------------------------------------------------------
+# Host entries (reference :70-95, :794-840)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class GEMMReduceScatterContext:
+    """Counterpart of the reference's context (:70): the mesh and axis,
+    ``impl``, ``config`` and ``interpret`` as ``AllGatherGEMMContext``
+    takes them, and ``ring_mode``."""
+
+    mesh: Mesh
+    axis: Any = "tp"
+    impl: str = "auto"
+    config: Any = None
+    ring_mode: str = "uni"
+    interpret: bool = False
+
+    @property
+    def world(self) -> int:
+        return self.mesh.axis_size(self.axis)
+
+
+def create_gemm_rs_context(mesh, axis="tp", impl="auto", config=None,
+                           ring_mode="uni",
+                           interpret=False) -> GEMMReduceScatterContext:
+    return GEMMReduceScatterContext(mesh=mesh, axis=axis, impl=impl,
+                                    config=config, ring_mode=ring_mode,
+                                    interpret=interpret)
+
+
+def gemm_rs(a, b, ctx: GEMMReduceScatterContext):
+    """C = reduce_scatter(A_loc @ B_loc, axis), overlapped (reference
+    :794): a [M, K] sharded over ``ctx.axis`` by columns, b [K, N] by
+    rows -> C [M, N]."""
+    plain = _check_impl(ctx.impl)
+    mesh = ctx.mesh
+    axis = flat_axis(mesh, ctx.axis, "gemm_rs")
+    world = mesh.size
+    if a.shape[1] % world or a.shape[0] % world:
+        raise ValueError(f"gemm_rs: a {tuple(a.shape)} does not shard over "
+                         f"{world} ranks")
+    a_r = a.reshape(a.shape[0], world, -1).permute(1, 0, 2)
+    b_r = shard_over(b, mesh, axis) if axis else b.unsqueeze(0)
+    b_r = b_r.reshape(world, -1, b.shape[1])
+    out = gemm_rs_shard(a_r, b_r, plain=plain, ring_mode=ctx.ring_mode)
+    return out.reshape(a.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
+# The autotuned entry (reference :842-870)
+# ---------------------------------------------------------------------------
+
+# The reference's mode axis (the uni and the bidir ring) without its TPU
+# block triples.
+GEMM_RS_TUNE_SPACE = [Config(ring_mode="uni"), Config(ring_mode="bidir")]
+
+
+def _prune(configs, args, kwargs):
+    world = kwargs["ctx"].mesh.size
+    return dedupe_configs(configs, [
+        gemm_rs_schedule(world, args[1].shape[1], c.get("ring_mode", "uni"))
+        for c in configs])
+
+
+@autotune(configs=GEMM_RS_TUNE_SPACE, key=(), prune=_prune)
+def _gemm_rs_tunable(a, b, *, ctx, ring_mode="uni"):
+    tuned = GEMMReduceScatterContext(
+        mesh=ctx.mesh, axis=ctx.axis, impl=ctx.impl, config=ctx.config,
+        ring_mode=ring_mode, interpret=ctx.interpret)
+    return gemm_rs(a, b, tuned)
+
+
+def gemm_rs_autotuned(a, b, ctx: GEMMReduceScatterContext):
+    """:func:`gemm_rs` with its ring mode picked by the autotuner (each
+    config times the whole call); see ``ag_gemm_autotuned``."""
+    return _gemm_rs_tunable(a, b, ctx=ctx)

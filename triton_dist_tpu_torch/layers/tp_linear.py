@@ -48,8 +48,8 @@ from __future__ import annotations
 
 import torch
 
-from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm
-from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs
+from triton_dist_tpu_torch.kernels.allgather_gemm import ag_gemm_shard
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import gemm_rs_shard
 from triton_dist_tpu_torch.kernels.quant import (
     matmul_i8,
     matmul_i8_ref,
@@ -67,7 +67,7 @@ class ColumnParallelLinearFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, plain):
-        a_full, c = ag_gemm(a, b, plain=plain)
+        a_full, c = ag_gemm_shard(a, b, plain=plain)
         ctx.save_for_backward(a_full, b)
         ctx.plain = plain
         return c
@@ -76,7 +76,7 @@ class ColumnParallelLinearFn(torch.autograd.Function):
     def backward(ctx, dc):
         a_full, b = ctx.saved_tensors
         dc = dc.contiguous()
-        da = gemm_rs(dc, b, trans_b=True, plain=ctx.plain)
+        da = gemm_rs_shard(dc, b, trans_b=True, plain=ctx.plain)
         return da, _local_dw(a_full, dc, b.dtype), None
 
 
@@ -88,12 +88,12 @@ class RowParallelLinearFn(torch.autograd.Function):
     def forward(ctx, a, b, plain):
         ctx.save_for_backward(a, b)
         ctx.plain = plain
-        return gemm_rs(a, b, plain=plain)
+        return gemm_rs_shard(a, b, plain=plain)
 
     @staticmethod
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
-        dc_full, da = ag_gemm(dc.contiguous(), b, trans_b=True,
+        dc_full, da = ag_gemm_shard(dc.contiguous(), b, trans_b=True,
                               plain=ctx.plain)
         return da, _local_dw(a, dc_full, b.dtype), None
 
@@ -109,7 +109,7 @@ def column_parallel_linear(a, b, *, plain: bool = False):
     AG-GEMM; [m, K] x [K, n] -> a @ b at world 1."""
     if a.dim() == 2:
         return a @ b
-    return _apply(ColumnParallelLinearFn, lambda x, w, plain: ag_gemm(
+    return _apply(ColumnParallelLinearFn, lambda x, w, plain: ag_gemm_shard(
         x, w, plain=plain)[1], a, b, plain)
 
 
@@ -118,7 +118,7 @@ def row_parallel_linear(a, b, *, plain: bool = False):
     GEMM-RS; [m, k] x [k, N] -> a @ b at world 1."""
     if a.dim() == 2:
         return a @ b
-    return _apply(RowParallelLinearFn, gemm_rs, a, b, plain)
+    return _apply(RowParallelLinearFn, gemm_rs_shard, a, b, plain)
 
 
 def rank_sum(parts, dtype):
@@ -138,7 +138,7 @@ def column_parallel_linear_w8a8(a, w_q, w_scale, *, plain: bool = False):
     ``acc * a_scale_full[:, None] * w_scale[None, :]`` in f32."""
     world, m_loc, k = a.shape
     a_q, a_scale = quantize_rowwise(a.reshape(world * m_loc, k))
-    _, acc = ag_gemm(a_q.reshape(world, m_loc, k), w_q, plain=plain)
+    _, acc = ag_gemm_shard(a_q.reshape(world, m_loc, k), w_q, plain=plain)
     y = acc.float() * a_scale[None, :, None] * w_scale[:, None, :]
     return y.to(a.dtype)
 
