@@ -240,7 +240,26 @@ Phases, in order (any failure exits non-zero without the final line):
    largest magnitude and 1e-2 relative L2 over the tensor and each
    128-row tile, int8 exactly), each mode timed eagerly between CUDA
    events beside its bound, its plain version and one PyTorch call of
-   the same function where one exists.
+   the same function where one exists;
+21. MoE overlap kernels (last): the host entries ``ag_group_gemm`` /
+   ``moe_reduce_rs`` with contexts on a ``Mesh`` of TP ranks at
+   Mixtral-8x7B's expert widths (D 4096, F 14336, F_loc 3584, E 8,
+   top-2, bf16, seed 0), at a 2,048-token prefill (the load-aware
+   block_m 512: m_pad 5,120 a segment; and block_m 128: 2,048) and a
+   32-token decode (block_m 128: m_pad 1,152), each under balanced,
+   skewed (most assignments on two experts) and one-empty-expert
+   routing; then ``ag_group_gemm_autotuned`` and
+   ``moe_reduce_rs_autotuned`` in one ``contextual_autotune`` region
+   (every config's time and the winner printed) and the host planner
+   ``host_ops.moe_ag_scatter_align_block_size(impl="native")`` equal to
+   numpy; each host entry against its plain version, each kernel's
+   wrapper against its plain version (the gathered sorted x bit for
+   bit, the grouped outputs within 2e-2 of the plain version's largest
+   magnitude and 1e-2 relative L2 over the tensor and each 128-row tile,
+   padding rows exactly zero, ten calls in a row each equal to the
+   first), each kernel timed eagerly between CUDA events beside its
+   bounds (useful work 2 T topk D F, the padded work it does, bytes),
+   its plain version and one ``torch._grouped_mm`` of the same product.
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
@@ -279,7 +298,11 @@ modes' counters (13b, 13w, 13c, 15b, 15i) are zeroed before phases 11,
 12 (a), 15 and 19 and read after them, where each must be 0 (no model
 path passes a mode: "model_path_launches"), and zeroed just before
 phase 20 and read just after its autotuned region: each row's count
-comes from there (> 0).  A
+comes from there (> 0).  The
+counters of the two MoE overlap kernels (rows 19, 20) are zeroed with
+the ring modes' before phases 7, 7b, 11, 12 (a), 15 and 19 and read after
+them, where each must be 0, and zeroed just before phase 21 and read just
+after it: their counts come from there (> 0).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -2139,13 +2162,13 @@ def w8a8_tp_phase(cfg, params):
         fwd = lw.make_w8a8_forward(cfg, TP)
         for fn in counters.values():
             fn.launches = 0
-        zero_ring_modes()
+        zero_off_path_counters()
         t0 = time.perf_counter()
         logits = fwd(qp, tok)
         torch.cuda.synchronize()
         t_first = (time.perf_counter() - t0) * 1e3
         launches = {n: fn.launches for n, fn in counters.items()}
-        record_model_path_modes("w8a8_tp_forward")
+        record_model_path("w8a8_tp_forward")
         t0 = time.perf_counter()
         fwd(qp, tok)
         torch.cuda.synchronize()
@@ -2919,8 +2942,12 @@ def moe_phases():
     rng = np.random.default_rng(5)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(TRAIN_SEQ, 1)),
                           device="cuda")
+    zero_off_path_counters()
     fwd, ref, routes = moe_forward_phase(cfg, params, tok)
+    record_model_path("moe_forward")
+    zero_off_path_counters()
     ep_fwd = moe_ep_forward_phase(cfg, params, tok, ref, routes)
+    record_model_path("moe_ep_forward")
     del ref, routes
     free_cuda()
     moe_generator_phase(cfg, params)
@@ -3008,7 +3035,7 @@ def tp_phases():
     fwd = llama.make_forward(cfg, TP)
     for fn in (*counters.values(), *off_path.values()):
         fn.launches = 0
-    zero_ring_modes()
+    zero_off_path_counters()
     with torch.no_grad():
         t0 = time.perf_counter()
         logits = fwd(tp, tok)
@@ -3016,7 +3043,7 @@ def tp_phases():
         t_first = (time.perf_counter() - t0) * 1e3
     fwd_launches = {n: fn.launches
                     for n, fn in {**counters, **off_path}.items()}
-    record_model_path_modes("tp_forward")
+    record_model_path("tp_forward")
     with torch.no_grad():
         t0 = time.perf_counter()
         fwd(tp, tok)
@@ -3054,7 +3081,7 @@ def tp_phases():
     step = llama.make_train_step(cfg, TP, lr=TP_SGD_LR)
     for fn in (*counters.values(), *off_path.values()):
         fn.launches = 0
-    zero_ring_modes()
+    zero_off_path_counters()
     losses, times = [], []
     for _ in range(TP_SGD_STEPS):
         t0 = time.perf_counter()
@@ -3063,7 +3090,7 @@ def tp_phases():
         times.append((time.perf_counter() - t0) * 1e3)
     train_launches = {n: fn.launches
                       for n, fn in {**counters, **off_path}.items()}
-    record_model_path_modes("tp_train")
+    record_model_path("tp_train")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"tp train (a) SGD lr {TP_SGD_LR}, TP {TP}, {cfg.n_layers} layers: "
         f"losses {[round(x, 4) for x in losses]}, step ms "
@@ -3839,7 +3866,7 @@ def pp_train_phase():
     step, _ = pp.make_pp_train_step(cfg, mesh, lr=SGD_LR,
                                     hier_dp_fast_axis="tp", **kw)
     _zero_pp_counters()
-    zero_ring_modes()
+    zero_off_path_counters()
     losses, times, hier_leaves = [], [], None
     for i in range(PP_STEPS):
         t0 = time.perf_counter()
@@ -3850,7 +3877,7 @@ def pp_train_phase():
             hier_leaves = [t.to("cpu", copy=True)
                            for _, t in named_leaves(params)]
     launches = _read_pp_counters()
-    record_model_path_modes("pp_train")
+    record_model_path("pp_train")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     wall = float(np.median(times[1:]))
     log(f"pp train (a) SGD lr {SGD_LR}: losses "
@@ -3969,40 +3996,58 @@ RING_MODE_ROWS = {"ag_gemm_bidir": ("ag_gemm_shard", "bidir"),
                   "ag_gemm_chunked": ("ag_gemm_shard", "chunked"),
                   "gemm_rs_bidir": ("gemm_rs_shard", "bidir"),
                   "gemm_rs_i8": ("gemm_rs_shard", "i8")}
+# the MoE overlap kernels' rows (phase 21): the counting function
+MOE_TP_ROWS = {"ag_group_gemm": "ag_group_gemm_shard",
+               "moe_rs": "moe_reduce_rs_shard"}
 # the model paths that must launch none of them (their counts ride in the
 # kernels line under "model_path_launches")
-MODEL_PATH_MODES: dict = {}
+MODEL_PATH_COUNTS: dict = {}
 
 
-def _ring_mode_fns():
+def _off_path_fns():
     from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
     from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
 
     return {"ag_gemm_shard": agm.ag_gemm_shard,
-            "gemm_rs_shard": grs.gemm_rs_shard}
+            "gemm_rs_shard": grs.gemm_rs_shard,
+            "ag_group_gemm_shard": agg.ag_group_gemm_shard,
+            "moe_reduce_rs_shard": mrs.moe_reduce_rs_shard}
 
 
-def zero_ring_modes():
-    for fn in _ring_mode_fns().values():
-        for k in fn.mode_launches:
-            fn.mode_launches[k] = 0
+def zero_off_path_counters():
+    """Zero the counters of the kernels no model path launches: the ring
+    modes' and the MoE overlap kernels'."""
+    fns = _off_path_fns()
+    for name in ("ag_gemm_shard", "gemm_rs_shard"):
+        for k in fns[name].mode_launches:
+            fns[name].mode_launches[k] = 0
+    for name in MOE_TP_ROWS.values():
+        fns[name].launches = 0
 
 
 def read_ring_modes():
-    fns = _ring_mode_fns()
+    fns = _off_path_fns()
     return {row: fns[f].mode_launches[k]
             for row, (f, k) in RING_MODE_ROWS.items()}
 
 
-def record_model_path_modes(phase):
-    """Read the ring modes' counters after a model path (zeroed before
-    it): a model path passes no mode, so each must be 0."""
-    counts = read_ring_modes()
-    MODEL_PATH_MODES[phase] = counts
-    log(f"{phase}: ring-mode launches {counts} (expected 0: no model path "
-        f"passes a mode)")
+def read_moe_tp():
+    fns = _off_path_fns()
+    return {row: fns[f].launches for row, f in MOE_TP_ROWS.items()}
+
+
+def record_model_path(phase):
+    """Read the off-path counters after a model path (zeroed before it):
+    a model path passes no ring mode and calls no MoE overlap kernel, so
+    each must be 0."""
+    counts = {**read_ring_modes(), **read_moe_tp()}
+    MODEL_PATH_COUNTS[phase] = counts
+    log(f"{phase}: ring-mode and MoE overlap launches {counts} (expected 0: "
+        f"no model path takes them)")
     if any(counts.values()):
-        raise AssertionError(f"{phase} launched a ring mode: {counts}")
+        raise AssertionError(f"{phase} launched an off-path kernel: {counts}")
 
 
 def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
@@ -4061,7 +4106,7 @@ def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
             inputs["i8", size, proj] = (randi(W * m_loc, k), randi(k, n))
 
     # (a) + (b): the path, with the ring-mode counters zeroed first
-    zero_ring_modes()
+    zero_off_path_counters()
     n_uni = (agm.ag_gemm_shard.launches, grs.gemm_rs_shard.launches)
     got = {}
     for key, (a, b) in inputs.items():
@@ -4218,6 +4263,272 @@ def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
             r.update(entry, plain_ms=plain_ms)
             if lib is None:
                 r["library_null_reason"] = lib_call
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the MoE overlap kernels at Mixtral-8x7B TP-4 widths
+# ---------------------------------------------------------------------------
+
+MOE_TP_ROUTINGS = ("balanced", "skewed", "empty")
+
+
+def _grouped_mm_ms(a, w, te, block_m, n_experts):
+    """(ms, None) of one ``torch._grouped_mm`` over the same assignments:
+    a's row tiles sorted by expert (each segment's groups gathered per
+    expert, padding as it is) against the whole [E, K, N] stack, timed
+    eagerly; (None, reason) where this PyTorch lacks it or it fails."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this PyTorch has no torch._grouped_mm"
+    te = te.reshape(-1).long()
+    order = torch.argsort(te, stable=True)
+    rows = a.reshape(-1, block_m, a.shape[-1])[order].reshape(-1, a.shape[-1])
+    offs = (torch.bincount(te, minlength=n_experts).cumsum(0) * block_m).to(
+        torch.int32)
+    try:
+        torch._grouped_mm(rows, w, offs=offs)
+        return event_ms(lambda: torch._grouped_mm(rows, w, offs=offs),
+                        iters=10), None
+    except Exception as e:   # a yardstick only: report why it is null
+        return None, f"torch._grouped_mm failed: {str(e)[:120]}"
+
+
+def moe_tp_phase(dev, dims=(4096, 14336, 8, 2),
+                 sizes=(("prefill", 2048, None), ("prefill_bm128", 2048, 128),
+                        ("decode", 32, None))):
+    """Phase 21: the MoE overlap kernels' host entries on a port Mesh of TP
+    ranks at Mixtral-8x7B's expert widths (D 4096, F 14336, F_loc 3584, E
+    8, top-2, bf16; weights and tokens from seed 0), at each size (name,
+    tokens, block_m: None takes the load-aware default) under balanced,
+    skewed and one-empty-expert routing: (a) ``ag_group_gemm`` with the
+    gate slabs [E, D, F] and ``moe_reduce_rs`` with the down slabs [E, F,
+    D] on h built in the sorted layout from a seeded [T, F] activation;
+    (b) ``ag_group_gemm_autotuned`` and ``moe_reduce_rs_autotuned`` in one
+    ``contextual_autotune`` region (every config's time and the winner
+    printed); (c) the host planner (``impl="native"``) on the prefill
+    routing, equal to numpy.  The two kernels' counters are zeroed just
+    before (a) and read just after (c): each row's count.  Then every host
+    entry's output against the same context at ``impl="xla"``, and each
+    kernel's wrapper against its plain version: the gathered sorted x bit
+    for bit, the grouped outputs by check_tiles over 128-row tiles,
+    padding rows exactly zero, ten calls in a row each equal to the
+    first; each kernel timed eagerly between CUDA events (a launch
+    carries its epoch: no graph) beside its bounds (useful work 2 T topk
+    D F, the padded work the kernel does, and bytes), its plain version
+    and one ``torch._grouped_mm`` of the same product."""
+    import torch
+
+    from triton_dist_tpu_torch.autotuner import contextual_autotune
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+    from triton_dist_tpu_torch.runtime import host_ops
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    W, (D, F, E, topk) = TP, dims
+    mesh = Mesh((W,), ("tp",), dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).bfloat16()
+
+    w_gate = randn(E, D, F, scale=D ** -0.5)
+    w_down = randn(E, F, D, scale=F ** -0.5)
+    cases = {}
+    for size, T, bm in sizes:
+        for kind in MOE_TP_ROUTINGS:
+            logits = torch.randn((T, E), generator=g, device=dev)
+            if kind == "skewed":       # most assignments on experts 0, 1
+                logits[:, :2] += 4.0
+            elif kind == "empty":      # expert E - 1 gets no token
+                logits[:, -1] = -1e9
+            weights, experts = mu.topk_routing(logits, topk)
+            block_m = bm or agg.resolve_block_m(
+                agg.create_ag_group_gemm_context(mesh, E, topk), T)
+            dest, te, m_pad = agg._segment_plans(
+                experts.view(W, -1, topk), E, block_m)
+            act = randn(T, F).view(W, T // W, F)
+            h = torch.cat([mu.gather_sorted(act[s], dest[s], m_pad)
+                           for s in range(W)])
+            cases[size, kind] = dict(T=T, bm=bm, block_m=block_m,
+                                     m_pad=m_pad, dest=dest, te=te,
+                                     x=randn(T, D), weights=weights,
+                                     experts=experts, h=h)
+            log(f"moe tp {size} {kind}: T {T}, block_m {block_m}, m_pad "
+                f"{m_pad} a segment ({W * m_pad} gathered rows for "
+                f"{T * topk} assignments), experts used "
+                f"{sorted(set(experts.flatten().tolist()))}")
+
+    def ctxs(c, **kw):
+        return (agg.create_ag_group_gemm_context(mesh, E, topk,
+                                                 block_m=c["bm"], **kw),
+                mrs.create_moe_rs_context(mesh, E, topk, block_m=c["bm"],
+                                          **kw))
+
+    # (a) - (c): the path, with the two kernels' counters zeroed first
+    zero_off_path_counters()
+    got = {}
+    for key, c in cases.items():
+        ag_ctx, rs_ctx = ctxs(c)
+        got[key] = (agg.ag_group_gemm(c["x"], c["weights"], c["experts"],
+                                      w_gate, ag_ctx),
+                    mrs.moe_reduce_rs(c["h"], w_down, c["weights"],
+                                      c["experts"], rs_ctx))
+    c0 = cases["prefill", "balanced"]
+
+    @contextual_autotune()     # the reference's 3 warm-up and 5 timed calls
+    def tuned_op():
+        ag_ctx, rs_ctx = ctxs(c0)
+        return (agg.ag_group_gemm_autotuned(c0["x"], c0["weights"],
+                                            c0["experts"], w_gate, ag_ctx),
+                mrs.moe_reduce_rs_autotuned(c0["h"], w_down, c0["weights"],
+                                            c0["experts"], rs_ctx))
+
+    t0 = time.perf_counter()
+    tuned = tuned_op()
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    ids = c0["experts"].cpu().numpy()
+    plan = {impl: host_ops.moe_ag_scatter_align_block_size(
+        ids, W, E, c0["block_m"], impl=impl) for impl in ("native", "numpy")}
+    launches = read_moe_tp()
+    log(f"moe tp: phase 21 launches {launches}")
+    for row, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {row} never launched by phase 21")
+    for tuner, name in ((agg._ag_group_gemm_tunable,
+                         "ag_group_gemm_autotuned"),
+                        (mrs._moe_reduce_rs_tunable,
+                         "moe_reduce_rs_autotuned")):
+        sweep = next(reversed(tuner.sweeps.values()))
+        log(f"{name} prefill: " + ", ".join(f"{c} {ms:.4f} ms"
+                                            for c, ms in sweep)
+            + f"; winner {tuner.best_config} (region {tune_s:.2f} s)")
+    same = all(np.array_equal(plan["native"][k], plan["numpy"][k])
+               for k in plan["numpy"])
+    log(f"host planner (native vs numpy, prefill routing, block_m "
+        f"{c0['block_m']}): equal {same}, total_padded "
+        f"{plan['native']['total_padded']}, rank_block_num "
+        f"{plan['native']['rank_block_num'].tolist()}")
+    if not same:
+        raise AssertionError("the native host planner differs from numpy")
+
+    # the checks, against the plain versions
+    def tiles(tag, out, want):
+        return check_tiles(tag, out, want, min(128, want.shape[0]))
+
+    for key, (out_ag, out_rs) in got.items():
+        c = cases[key]
+        tag = f"{'/'.join(key)} (W {W}, T {c['T']}, block_m {c['block_m']})"
+        ag_ctx, rs_ctx = ctxs(c, impl="xla")
+        tiles(f"ag_group_gemm host {tag}", out_ag, agg.ag_group_gemm(
+            c["x"], c["weights"], c["experts"], w_gate, ag_ctx))
+        tiles(f"moe_reduce_rs host {tag}", out_rs, mrs.moe_reduce_rs(
+            c["h"], w_down, c["weights"], c["experts"], rs_ctx))
+    del got
+    out_ag, out_rs = tuned
+    ag_ctx, rs_ctx = ctxs(c0, impl="xla")
+    tiles("ag_group_gemm_autotuned (winner)", out_ag, agg.ag_group_gemm(
+        c0["x"], c0["weights"], c0["experts"], w_gate, ag_ctx))
+    tiles("moe_reduce_rs_autotuned (winner)", out_rs, mrs.moe_reduce_rs(
+        c0["h"], w_down, c0["weights"], c0["experts"], rs_ctx))
+    del tuned, out_ag, out_rs
+
+    w_r = w_gate.view(E, D, W, F // W).permute(2, 0, 1, 3)
+    wd_r = w_down.view(E, W, F // W, D).permute(1, 0, 2, 3)
+    rows = {}
+    for key, c in cases.items():
+        size, kind = key
+        T, bm, m_pad, te, dest = (c["T"], c["block_m"], c["m_pad"], c["te"],
+                                  c["dest"])
+        tag = f"{size}/{kind} (W {W}, T {T}, block_m {bm}, m_pad {m_pad})"
+        x_seg = c["x"].view(W, T // W, D)
+        xs = torch.stack([mu.gather_sorted(x_seg[r], dest[r], m_pad)
+                          for r in range(W)])
+        h_r = c["h"].view(W * m_pad, W, F // W).permute(1, 0, 2)
+        valid = torch.zeros((W, m_pad), dtype=torch.bool, device=dev)
+        valid.scatter_(1, dest, torch.ones_like(dest, dtype=torch.bool))
+        # the kernels against their plain versions, then ten calls each
+        gathered, y = agg.ag_group_gemm_sorted(xs, w_r, te, block_m=bm)
+        ys = mrs.moe_rs_sorted(h_r, wd_r, te, block_m=bm)
+        torch.cuda.synchronize()
+        want_g, want_y = agg.ag_group_gemm_ref(xs, w_r, te, block_m=bm)
+        if not torch.equal(gathered, want_g):
+            raise AssertionError(f"ag_group_gemm {tag}: gathered x differs")
+        err_ag = max(tiles(f"ag_group_gemm {tag} rank {r}", y[r], want_y[r])
+                     for r in range(W))
+        del want_g, want_y
+        want_ys = mrs.moe_rs_ref(h_r, wd_r, te, block_m=bm)
+        err_rs = max(tiles(f"moe_rs {tag} rank {r}", ys[r], want_ys[r])
+                     for r in range(W))
+        del want_ys
+        pad_zero = bool((y[:, ~valid.view(-1)] == 0).all()
+                        and (ys[~valid] == 0).all())
+        for _ in range(10):
+            g2, y2 = agg.ag_group_gemm_sorted(xs, w_r, te, block_m=bm)
+            ys2 = mrs.moe_rs_sorted(h_r, wd_r, te, block_m=bm)
+            if not (torch.equal(g2, gathered) and torch.equal(y2, y)
+                    and torch.equal(ys2, ys)):
+                raise AssertionError(f"{tag}: a call of ten in a row "
+                                     f"differs from the first")
+        del g2, y2, ys2, gathered, y, ys
+        log(f"moe tp {tag}: gathered x bit for bit, padding rows zero "
+            f"{pad_zero}, ten calls in a row equal")
+        if not pad_zero:
+            raise AssertionError(f"{tag}: padding rows are not zero")
+
+        # the times and bounds
+        useful = 2 * T * topk * D * F
+        padded = 2 * W * m_pad * D * F
+        n_slabs = len(set(c["experts"].flatten().tolist()))
+        slab_bytes = n_slabs * D * F * 2
+        by_ag = (W * m_pad * D + W * W * m_pad * D + W * m_pad * F) * 2 \
+            + slab_bytes
+        by_rs = (W * m_pad * F + W * m_pad * D) * 2 + slab_bytes
+        headline = kind == "balanced"
+        for row, fn, plain, n_bytes, err, lib_args in (
+                ("ag_group_gemm",
+                 lambda: agg.ag_group_gemm_sorted(xs, w_r, te, block_m=bm),
+                 lambda: agg.ag_group_gemm_ref(xs, w_r, te, block_m=bm),
+                 by_ag, err_ag, (xs, w_gate)),
+                ("moe_rs",
+                 lambda: mrs.moe_rs_sorted(h_r, wd_r, te, block_m=bm),
+                 lambda: mrs.moe_rs_ref(h_r, wd_r, te, block_m=bm),
+                 by_rs, err_rs, (c["h"], w_down))):
+            ms = event_ms(fn, iters=10)
+            b_ms, b_by = bound_ms(n_bytes, useful)
+            pad_ms = padded / BF16_FLOPS_S * 1e3
+            slab_ms = slab_bytes / HBM_BYTES_S * 1e3
+            plain_ms = event_ms(plain, iters=2) if headline else None
+            lib, why = (_grouped_mm_ms(*lib_args, te, bm, E) if headline
+                        else (None, "timed at balanced routing only"))
+            log(f"{row} {size} {kind} (W {W}, T {T}, block_m {bm}, m_pad "
+                f"{m_pad}): kernel {ms:.4f} ms ({padded / ms / 1e9:.1f} "
+                f"TFLOP/s padded, {useful / ms / 1e9:.1f} useful), bound "
+                f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, useful "
+                f"{useful / 1e9:.1f} GFLOP), padded-work bound {pad_ms:.4f} "
+                f"ms ({padded / 1e12:.3f} TFLOP), slab bytes {slab_ms:.4f} "
+                f"ms ({n_slabs} slabs, {slab_bytes / 1e6:.1f} MB), plain "
+                f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
+                f", library {'null' if lib is None else f'{lib:.4f} ms'} "
+                f"({why or 'torch._grouped_mm, rows sorted by expert, whole '
+                 'F against the whole [E, ., .] stack'})")
+            entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                         padded_ops_bound_ms=pad_ms, slab_bytes_ms=slab_ms,
+                         library_ms=lib, max_abs_err=err, block_m=bm,
+                         m_pad=m_pad)
+            r = rows.setdefault(row, {"shapes": {}})
+            r["shapes"][f"{size}_{kind}"] = entry
+            if key == ("prefill", "balanced"):
+                r.update(entry, plain_ms=plain_ms)
+                if lib is None:
+                    r["library_null_reason"] = why
+            elif plain_ms is not None:
+                entry["plain_ms"] = plain_ms
+    del cases, w_gate, w_down, w_r, wd_r
     return rows, launches
 
 
@@ -4433,6 +4744,14 @@ def main() -> int:
     launches.update(mode_launches)
     log(f"ring modes done at {time.perf_counter() - t_start:.1f} s")
 
+    # phase 21: the MoE overlap kernels' host entries; each kernel's count
+    # comes from it (0 on every model path, beside)
+    moe_tp_rows, moe_tp_launches = moe_tp_phase(dev)
+    rows.update(moe_tp_rows)
+    launches.update(moe_tp_launches)
+    free_cuda()
+    log(f"moe tp done at {time.perf_counter() - t_start:.1f} s")
+
     src = {"flash_fwd": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
                          "triton_dist_tpu/kernels/flash_attention.py:116"),
            "decode": ("triton_dist_tpu_torch/csrc/decode.cu",
@@ -4510,7 +4829,12 @@ def main() -> int:
            # the int8 (quantized) mode of row 15
            "gemm_rs_i8": (
                "triton_dist_tpu_torch/csrc/gemm_rs.cu",
-               "triton_dist_tpu/kernels/gemm_reduce_scatter.py:103")}
+               "triton_dist_tpu/kernels/gemm_reduce_scatter.py:103"),
+           "ag_group_gemm": (
+               "triton_dist_tpu_torch/csrc/ag_group_gemm.cu",
+               "triton_dist_tpu/kernels/allgather_group_gemm.py:103"),
+           "moe_rs": ("triton_dist_tpu_torch/csrc/moe_rs.cu",
+                      "triton_dist_tpu/kernels/moe_reduce_rs.py:106")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -4547,8 +4871,9 @@ def main() -> int:
                            if name in pp_launches else {}),
                         **({"model_path_launches": {
                             ph: c[name] for ph, c in
-                            MODEL_PATH_MODES.items()}}
-                           if name in RING_MODE_ROWS else {}),
+                            MODEL_PATH_COUNTS.items()}}
+                           if name in RING_MODE_ROWS or name in MOE_TP_ROWS
+                           else {}),
                         **{k: r[k] for k in ("m8", "t8", "shapes",
                                              "algorithm_bound_ms",
                                              "device_ms",

@@ -25,7 +25,10 @@ The collectives over a mesh of the virtual world (barrier, every mode of
 the all-gather and the reduce-scatter) are held to their plain versions
 bit for bit (the reduce-scatter sums in the same ring order), and the
 hierarchical PP step to the psum step at the bf16 gates (losses 1e-3
-relative, leaves 2e-2 relative L2).
+relative, leaves 2e-2 relative L2).  The MoE overlap kernels
+(AG-GroupGEMM, GroupGEMM-RS) follow the grouped GEMM's row-tile rule on
+each rank's output (padding tiles exactly zero), the gathered sorted x
+bit for bit.
 """
 
 import zlib
@@ -2133,3 +2136,231 @@ def test_pp_hier_step_on_the_card(cuda):
     for a, b in zip(runs["tp"][1], runs[None][1]):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 2e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# The MoE overlap kernels: AG-GroupGEMM (csrc/ag_group_gemm.cu) and
+# GroupGEMM-RS (csrc/moe_rs.cu) over a virtual world of W ranks
+# ---------------------------------------------------------------------------
+
+MOE_TP_CASES = [(W, bm, routing) for W in (2, 4) for bm in (128, 256)
+                for routing in ("balanced", "skewed", "empty")]
+
+
+def _moe_tp_case(dev, g, W, block_m, routing, t_loc=64, E=8, D=256,
+                 f_loc=256):
+    """Seeded top-2 routing (N(0, 1) logits; ``skewed``: most assignments
+    on experts 0 and 1; ``empty``: expert E - 1 gets none), the plans,
+    the sorted segments xs [W, m_pad, D], gate slabs [W, E, D, F_loc], h
+    [W, W m_pad, F_loc] in the sorted layout (padding rows zero) and down
+    slabs [W, E, F_loc, D]."""
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+
+    logits = g.standard_normal((W * t_loc, E)).astype(np.float32)
+    if routing == "skewed":
+        logits[:, :2] += 4.0
+    elif routing == "empty":
+        logits[:, -1] = -1e9
+    weights, experts = mu.topk_routing(torch.from_numpy(logits).to(dev), 2)
+    weights, experts = weights.view(W, t_loc, 2), experts.view(W, t_loc, 2)
+    dest, te, m_pad = agg._segment_plans(experts, E, block_m)
+    x = _randn(g, (W, t_loc, D), dev)
+    xs = torch.stack([mu.gather_sorted(x[r], dest[r], m_pad)
+                      for r in range(W)])
+    act = _randn(g, (W, t_loc, W * f_loc), dev)
+    h = torch.stack([torch.cat([
+        mu.gather_sorted(act[s, :, q * f_loc:(q + 1) * f_loc], dest[s],
+                         m_pad) for s in range(W)]) for q in range(W)])
+    w_up = (_randn(g, (W, E, D, f_loc), dev).float() / D ** 0.5).bfloat16()
+    w_dn = (_randn(g, (W, E, f_loc, D), dev).float() / f_loc ** 0.5
+            ).bfloat16()
+    return weights, experts, te, x, xs, w_up, h, w_dn
+
+
+def _segment_tiles_close(got, want, name):
+    """Each rank's grouped output by the row-tile rule (padding tiles
+    exactly zero)."""
+    for r in range(got.shape[0]):
+        _tile_close(got[r], want[r], 128, f"{name} rank {r}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MOE_TP_CASES)
+def test_ag_group_gemm_matches_plain(cuda, case):
+    """``tdt_ag_group_gemm`` against its plain version: the gathered
+    sorted segments bit for bit, every rank's grouped products by the
+    row-tile rule (padding tiles exactly zero), one launch counted; the
+    rank-stacked shard function (plans, sort, combine) by the bf16 GEMM
+    rule."""
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+
+    W, bm, routing = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    weights, experts, te, x, xs, w_up, _, _ = _moe_tp_case(cuda, g, W, bm,
+                                                           routing)
+    n0 = agg.ag_group_gemm_shard.launches
+    gathered, y = agg.ag_group_gemm_sorted(xs, w_up, te, block_m=bm)
+    torch.cuda.synchronize()
+    assert agg.ag_group_gemm_shard.launches == n0 + 1
+    want_g, want_y = agg.ag_group_gemm_ref(xs, w_up, te, block_m=bm)
+    assert torch.equal(gathered, want_g)
+    _segment_tiles_close(y, want_y, f"ag_group_gemm {case}")
+    kw = dict(n_experts=8, topk=2, block_m=bm)
+    _gemm_close(agg.ag_group_gemm_shard(x, weights, experts, w_up, **kw),
+                agg.ag_group_gemm_shard(x, weights, experts, w_up, plain=True,
+                                        **kw), f"ag_group_gemm_shard {case}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MOE_TP_CASES)
+def test_moe_rs_matches_plain(cuda, case):
+    """``tdt_moe_rs`` against its plain version (the same hop order and
+    bf16 adds; the partials may round differently): every owner's reduced
+    segment by the row-tile rule (padding tiles exactly zero), one launch
+    counted; the shard function by the bf16 GEMM rule."""
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+
+    W, bm, routing = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()) + 1)
+    weights, experts, te, _, _, _, h, w_dn = _moe_tp_case(cuda, g, W, bm,
+                                                          routing)
+    n0 = mrs.moe_reduce_rs_shard.launches
+    ys = mrs.moe_rs_sorted(h, w_dn, te, block_m=bm)
+    torch.cuda.synchronize()
+    assert mrs.moe_reduce_rs_shard.launches == n0 + 1
+    _segment_tiles_close(ys, mrs.moe_rs_ref(h, w_dn, te, block_m=bm),
+                         f"moe_rs {case}")
+    kw = dict(n_experts=8, topk=2, block_m=bm)
+    _gemm_close(mrs.moe_reduce_rs_shard(h, w_dn, weights, experts, **kw),
+                mrs.moe_reduce_rs_shard(h, w_dn, weights, experts,
+                                        plain=True, **kw),
+                f"moe_reduce_rs_shard {case}")
+
+
+@pytest.mark.gpu
+def test_moe_tp_kernels_ten_calls_in_a_row(cuda):
+    """Ten calls of each kernel in a row, alternating two shapes (a flag,
+    piece counter or landing slot left by an earlier call that let a wait
+    pass early would show): each result equal to the first call's on the
+    same inputs and to the plain version by the tile rule."""
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+
+    g = np.random.default_rng(31)
+    cases = [_moe_tp_case(cuda, g, 4, bm, "balanced") for bm in (128, 256)]
+    results = []
+    for i in range(10):
+        bm = (128, 256)[i % 2]
+        _, _, te, _, xs, w_up, h, w_dn = cases[i % 2]
+        results.append((i % 2, agg.ag_group_gemm_sorted(xs, w_up, te,
+                                                        block_m=bm),
+                        mrs.moe_rs_sorted(h, w_dn, te, block_m=bm)))
+    torch.cuda.synchronize()
+    first = {}
+    for c, (gathered, y), ys in results:
+        ref = first.setdefault(c, (gathered, y, ys))
+        assert torch.equal(gathered, ref[0]) and torch.equal(y, ref[1])
+        assert torch.equal(ys, ref[2])
+    for c, (gathered, y, ys) in first.items():
+        bm = (128, 256)[c]
+        _, _, te, _, xs, w_up, h, w_dn = cases[c]
+        assert torch.equal(gathered, agg.ag_group_gemm_ref(
+            xs, w_up, te, block_m=bm)[0])
+        _segment_tiles_close(y, agg.ag_group_gemm_ref(xs, w_up, te,
+                                                      block_m=bm)[1],
+                             "ag_group_gemm in a row")
+        _segment_tiles_close(ys, mrs.moe_rs_ref(h, w_dn, te, block_m=bm),
+                             "moe_rs in a row")
+
+
+@pytest.mark.gpu
+def test_moe_tp_kernels_refuse_what_they_do_not_take(cuda):
+    """f32 operands, block_m 64, D or F_loc off the 128 tile: raises on
+    the card (no fallback to the plain version)."""
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    te = z(2, 2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="bf16"):
+        agg.ag_group_gemm_sorted(z(2, 256, 256, dtype=torch.float32),
+                                 z(2, 4, 256, 256, dtype=torch.float32), te,
+                                 block_m=128)
+    with pytest.raises(TypeError, match="bf16"):
+        mrs.moe_rs_sorted(z(2, 512, 256, dtype=torch.float32),
+                          z(2, 4, 256, 256, dtype=torch.float32), te,
+                          block_m=128)
+    te64 = z(2, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        agg.ag_group_gemm_sorted(z(2, 128, 256), z(2, 4, 256, 256), te64,
+                                 block_m=64)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        mrs.moe_rs_sorted(z(2, 256, 256), z(2, 4, 256, 256), te64,
+                          block_m=64)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        agg.ag_group_gemm_sorted(z(2, 256, 200), z(2, 4, 200, 256), te,
+                                 block_m=128)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        mrs.moe_rs_sorted(z(2, 512, 256), z(2, 4, 256, 200), te,
+                          block_m=128)
+
+
+@pytest.mark.gpu
+def test_moe_tp_host_entries_on_the_card(cuda):
+    """The host entries over a port Mesh on the card, the expert stacks
+    [E, D, F] / [E, F, D] read in place as each rank's F block: against
+    the same contexts at ``impl="xla"``; then the autotuned entries in one
+    ``contextual_autotune`` region against the plain host entries; the
+    native host planner equal to numpy on the same routing."""
+    from triton_dist_tpu_torch.autotuner import contextual_autotune
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+    from triton_dist_tpu_torch.runtime import host_ops
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    W, T, D, F, E = 4, 512, 256, 1024, 8
+    mesh = Mesh((W,), ("tp",), cuda)
+    g = np.random.default_rng(33)
+    x = _randn(g, (T, D), cuda)
+    weights, experts = mu.topk_routing(torch.from_numpy(
+        g.standard_normal((T, E)).astype(np.float32)).to(cuda), 2)
+    w_up = (_randn(g, (E, D, F), cuda).float() / D ** 0.5).bfloat16()
+    w_dn = (_randn(g, (E, F, D), cuda).float() / F ** 0.5).bfloat16()
+    ctx = agg.create_ag_group_gemm_context(mesh, n_experts=E, topk=2)
+    out = agg.ag_group_gemm(x, weights, experts, w_up, ctx)
+    want = agg.ag_group_gemm(x, weights, experts, w_up,
+                             agg.create_ag_group_gemm_context(
+                                 mesh, n_experts=E, topk=2, impl="xla"))
+    _gemm_close(out, want, "host ag_group_gemm")
+    bm = agg.resolve_block_m(ctx, T)
+    dest, _, m_pad = agg._segment_plans(experts.view(W, -1, 2), E, bm)
+    act = _randn(g, (T, F), cuda).view(W, T // W, F)
+    h = torch.cat([mu.gather_sorted(act[s], dest[s], m_pad)
+                   for s in range(W)])
+    rctx = mrs.create_moe_rs_context(mesh, n_experts=E, topk=2)
+    got = mrs.moe_reduce_rs(h, w_dn, weights, experts, rctx)
+    _gemm_close(got, mrs.moe_reduce_rs(h, w_dn, weights, experts,
+                                       mrs.create_moe_rs_context(
+                                           mesh, n_experts=E, topk=2,
+                                           impl="xla")), "host moe_rs")
+
+    @contextual_autotune(n_repeat=2, n_warmup=1)
+    def op():
+        return (agg.ag_group_gemm_autotuned(x, weights, experts, w_up, ctx),
+                mrs.moe_reduce_rs_autotuned(h, w_dn, weights, experts,
+                                            rctx))
+
+    out_t, got_t = op()
+    _gemm_close(out_t, want, "ag_group_gemm_autotuned")
+    _gemm_close(got_t, got, "moe_reduce_rs_autotuned")
+    assert agg._ag_group_gemm_tunable.best_config is not None
+    ids = experts.cpu().numpy()
+    nat = host_ops.moe_ag_scatter_align_block_size(ids, W, E, bm,
+                                                   impl="native")
+    ref = host_ops.moe_ag_scatter_align_block_size(ids, W, E, bm,
+                                                   impl="numpy")
+    assert all(np.array_equal(nat[k], ref[k]) for k in ref)

@@ -60,7 +60,10 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.layers.allgather_layer",
             "triton_dist_tpu_torch.parallel.pipeline",
             "triton_dist_tpu_torch.models.pp",
-            "triton_dist_tpu_torch.autotuner"} <= set(mods)
+            "triton_dist_tpu_torch.autotuner",
+            "triton_dist_tpu_torch.kernels.allgather_group_gemm",
+            "triton_dist_tpu_torch.kernels.moe_reduce_rs",
+            "triton_dist_tpu_torch.runtime.host_ops"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -488,3 +491,58 @@ def test_collective_wrappers_use_plain_versions_only_for_cpu_tensors():
             Mesh((2, 2), ("dcn", "tp"))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pp.init_pp_params(llama.LlamaConfig.tiny())
+
+
+def test_moe_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """The MoE overlap kernels' wrappers (the AG-GroupGEMM and the
+    GroupGEMM-RS) run their plain versions on CPU tensors without counting
+    a launch and refuse other devices; their host entries' meshes default
+    to the card; the host planner builds the port's own C source into the
+    repository's build directory."""
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+    from triton_dist_tpu_torch.runtime import host_ops
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    rng = np.random.default_rng(8)
+    W, t_loc, E, bm = 2, 4, 3, 8
+    x = torch.from_numpy(rng.standard_normal((W, t_loc, 16)).astype(
+        np.float32))
+    experts = torch.from_numpy(rng.integers(0, E, (W, t_loc, 2)).astype(
+        np.int32))
+    weights = torch.full((W, t_loc, 2), 0.5)
+    w = torch.from_numpy(rng.standard_normal((W, E, 16, 24)).astype(
+        np.float32))
+    counters = (agg.ag_group_gemm_shard, mrs.moe_reduce_rs_shard)
+    n0 = [fn.launches for fn in counters]
+    out = agg.ag_group_gemm_shard(x, weights, experts, w, n_experts=E,
+                                  topk=2, block_m=bm)
+    assert out.shape == (W, W * t_loc, 24)
+    t = 5      # token 1 of rank 1 against rank 0's F shard
+    want = sum(0.5 * x[1, 1] @ w[0, e] for e in experts[1, 1].tolist())
+    assert torch.allclose(out[0, t], want, atol=1e-5)
+    dest, te, m_pad = agg._segment_plans(experts, E, bm)
+    h = torch.from_numpy(rng.standard_normal((W, W * m_pad, 24)).astype(
+        np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((W, E, 24, 16)).astype(
+        np.float32))
+    ys = mrs.moe_rs_sorted(h, w2, te, block_m=bm)
+    assert ys.shape == (W, m_pad, 16)
+    assert mrs.moe_reduce_rs_shard(h, w2, weights, experts, n_experts=E,
+                                   topk=2, block_m=bm).shape == (W, t_loc,
+                                                                 16)
+    assert [fn.launches for fn in counters] == n0
+    meta = torch.empty((W, m_pad, 128), dtype=torch.bfloat16, device="meta")
+    wm = torch.empty((W, E, 128, 128), dtype=torch.bfloat16, device="meta")
+    tm = torch.zeros((W, m_pad // bm), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        agg.ag_group_gemm_sorted(meta, wm, tm, block_m=bm)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mrs.moe_rs_sorted(meta.repeat(1, W, 1), wm, tm, block_m=bm)
+    assert host_ops.SRC.is_relative_to(PORT)
+    assert host_ops.BUILD_DIR == ROOT / "build" / "host_ops"
+    if not torch.cuda.is_available():
+        for make in (agg.create_ag_group_gemm_context,
+                     mrs.create_moe_rs_context):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make(Mesh((W,), ("tp",)), n_experts=E, topk=2)

@@ -61,6 +61,17 @@ inputs; the int8 GEMM-RS exactly; the host entries on a port ``Mesh``
 against the reference's (1e-5; A_full bit for bit); the autotuner's cases
 of tests/test_autotuner.py on torch tensors, and the autotuned entries
 equal to the plain versions whichever config wins.
+
+The MoE overlap kernels (AG-GroupGEMM, GroupGEMM-RS): ``_segment_plans``
+bit-equal to the reference's (block_m 8, 16, 128; balanced, skewed and
+one-empty-expert routing); the host entries ``ag_group_gemm`` and
+``moe_reduce_rs`` on a port Mesh against the reference's interpret-mode
+kernels (spied) at its own tests' cases (``mesh4`` f32 within 2e-4,
+``mesh2`` bf16 within 5e-2, world 1) and against their dense oracles,
+the port's sorted h bit-equal to the reference's; the reduce-scatter's
+hop order; the load-aware default's m_pad; the autotuned entries (every
+config's output equal to the host entry's, the prunes' survivors); the
+host planner (native and numpy) equal to the reference's.
 """
 
 import importlib
@@ -3059,3 +3070,391 @@ def test_autotuned_entries_equal_plain_whichever_config_wins(winner,
         mesh)))
     assert_allclose(c2, trs.gemm_rs(a2, b2, trs.create_gemm_rs_context(
         mesh)), atol=RING_TOL, rtol=RING_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The MoE overlap kernels (AG-GroupGEMM, GroupGEMM-RS), their host and
+# autotuned entries, and the AG-GroupGEMM feeder's host planner
+# ---------------------------------------------------------------------------
+
+jagg = importlib.import_module("triton_dist_tpu.kernels.allgather_group_gemm")
+jmrs = importlib.import_module("triton_dist_tpu.kernels.moe_reduce_rs")
+jho = importlib.import_module("triton_dist_tpu.runtime.host_ops")
+tagg = importlib.import_module("triton_dist_tpu_torch.kernels."
+                               "allgather_group_gemm")
+tmrs = importlib.import_module("triton_dist_tpu_torch.kernels.moe_reduce_rs")
+tho = importlib.import_module("triton_dist_tpu_torch.runtime.host_ops")
+
+ROUTINGS = ("balanced", "skewed", "empty")
+
+
+def _routing(rng, T, E, topk, kind="balanced"):
+    """(weights, experts) from the reference's router on seeded logits:
+    N(0, 1), ``skewed`` (+4 on experts 0 and 1: most assignments land
+    there) or ``empty`` (expert E - 1 gets no token)."""
+    logits = rng.standard_normal((T, E)).astype(np.float32)
+    if kind == "skewed":
+        logits[:, :2] += 4.0
+    elif kind == "empty":
+        logits[:, -1] = -1e9
+    return jmu.topk_routing(jnp.asarray(logits), topk)
+
+
+def _dense_moe(x, w, weights, experts):
+    """out[t] = sum_k weights[t, k] x[t] @ w[experts[t, k]] in f32 (the
+    reference tests' oracle)."""
+    xn, wn = np.asarray(x, np.float32), np.asarray(w, np.float32)
+    wts, exp = np.asarray(weights), np.asarray(experts)
+    out = np.zeros((xn.shape[0], wn.shape[-1]), np.float32)
+    for t in range(xn.shape[0]):
+        for k in range(wts.shape[1]):
+            out[t] += wts[t, k] * (xn[t] @ wn[exp[t, k]])
+    return out
+
+
+def _f32(x):
+    return np.asarray(x.float() if torch.is_tensor(x) else x, np.float32)
+
+
+@pytest.mark.parametrize("routing", ROUTINGS)
+@pytest.mark.parametrize("block_m", [8, 16, 128])
+def test_segment_plans_match_reference(block_m, routing):
+    """``_segment_plans`` on the port's sort_align: dest, tile_expert and
+    m_pad bit-equal to the reference's, per segment, under each
+    routing."""
+    W, t_loc, topk, E = 4, 24, 2, 8
+    _, experts = _routing(np.random.default_rng(block_m), W * t_loc, E,
+                          topk, routing)
+    exp = np.asarray(experts)
+    if routing == "empty":
+        assert (exp != E - 1).all()
+    jd, jte, jm = jagg._segment_plans(jnp.asarray(exp.reshape(
+        W, t_loc, topk)), E, block_m)
+    td, tte, tm = tagg._segment_plans(_t(exp).view(W, t_loc, topk), E,
+                                      block_m)
+    assert tm == jm
+    assert np.array_equal(td.numpy(), np.asarray(jd))
+    assert np.array_equal(tte.numpy(), np.asarray(jte))
+    assert tte.dtype == torch.int32
+
+
+AGG_CASES = {
+    # name: (W, T, D, F, E, block_m, dtype, tol): tests/test_ag_group_gemm.py
+    "mesh4_f32": (4, 64, 128, 512, 4, 8, "float32", 2e-4),
+    "mesh2_bf16": (2, 32, 256, 256, 8, 16, "bfloat16", 5e-2),
+    "world1": (1, 16, 128, 128, 4, 8, "float32", 2e-4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AGG_CASES))
+def test_ag_group_gemm_matches_reference(name, monkeypatch, request):
+    """The host entry ``ag_group_gemm(x, weights, experts, w_stack, ctx)``
+    on a port Mesh against the reference's on the same inputs (its
+    interpret-mode ``_ag_group_gemm_kernel``, spied) and against the dense
+    oracle, within the reference test's tolerance; ``impl="xla"`` equal
+    to the default on CPU tensors, and no launch counted."""
+    W, T, Dm, F, E, bm, dt, tol = AGG_CASES[name]
+    traced = _spy_kernels(monkeypatch, jagg, "_ag_group_gemm_kernel")
+    rng = np.random.default_rng(400 + W)
+    x = rng.standard_normal((T, Dm)).astype(np.float32)
+    w = (rng.standard_normal((E, Dm, F)) / np.sqrt(Dm)).astype(np.float32)
+    weights, experts = _routing(rng, T, E, 2)
+    jx, jw = jnp.asarray(x, dt), jnp.asarray(w, dt)
+    want = jagg.ag_group_gemm(jx, weights, experts, jw,
+                              jagg.create_ag_group_gemm_context(
+                                  _mesh(W, request), n_experts=E, topk=2,
+                                  block_m=bm, impl="pallas",
+                                  interpret=True))
+    assert traced
+    tx, tw = (_t(np.asarray(a.astype(jnp.float32))).to(getattr(torch, dt))
+              for a in (jx, jw))
+    port_mesh = TMesh((W,), ("tp",), "cpu")
+    args = (tx, _t(np.asarray(weights)), _t(np.asarray(experts)), tw)
+    n0 = tagg.ag_group_gemm_shard.launches
+    got = tagg.ag_group_gemm(*args, tagg.create_ag_group_gemm_context(
+        port_mesh, n_experts=E, topk=2, block_m=bm))
+    assert got.shape == (T, F) and got.dtype == tx.dtype
+    assert tagg.ag_group_gemm_shard.launches == n0
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f32(got), _dense_moe(jx, jw, weights,
+                                                     experts),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, tagg.ag_group_gemm(
+        *args, tagg.create_ag_group_gemm_context(
+            port_mesh, n_experts=E, topk=2, block_m=bm, impl="xla")))
+
+
+def _rs_case(W, T, Dm, E, topk, block_m, dt, seed):
+    """The reference test's case (tests/test_moe_reduce_rs.py): the first
+    layer is the identity (F == D), h the sorted tokens; returns the
+    reference's (h, w, weights, experts) and the port's h built through
+    the port's plans."""
+    rng = np.random.default_rng(seed)
+    t_loc = T // W
+    x = jnp.asarray(rng.standard_normal((T, Dm)).astype(np.float32), dt)
+    w = jnp.asarray((rng.standard_normal((E, Dm, Dm)) / np.sqrt(Dm))
+                    .astype(np.float32), dt)
+    weights, experts = _routing(rng, T, E, topk)
+    jd, _, m_pad = jagg._segment_plans(experts.reshape(W, t_loc, topk), E,
+                                       block_m)
+    h = jnp.concatenate([jmu.gather_sorted(x.reshape(W, t_loc, Dm)[s],
+                                           jd[s], m_pad) for s in range(W)])
+    tx = _t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dt))
+    td, _, tm = tagg._segment_plans(_t(np.asarray(experts)).view(
+        W, t_loc, topk), E, block_m)
+    th = torch.cat([tmu.gather_sorted(tx.view(W, t_loc, Dm)[s], td[s], tm)
+                    for s in range(W)])
+    return x, h, w, weights, experts, th
+
+
+RS_REF_CASES = {
+    # name: (W, T, D, E, block_m, dtype, rtol, atol): the reference's three
+    "mesh4_f32": (4, 64, 512, 4, 8, "float32", 2e-4, 2e-4),
+    "mesh2_bf16": (2, 32, 256, 8, 16, "bfloat16", 5e-2, 5e-1),
+    "world1": (1, 16, 128, 4, 8, "float32", 2e-4, 2e-4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RS_REF_CASES))
+def test_moe_reduce_rs_matches_reference(name, monkeypatch, request):
+    """``moe_reduce_rs(h, w_stack, weights, experts, ctx)`` on a port
+    Mesh: the port's h (its plans, its gather) bit-equal to the
+    reference's, the output against the reference's interpret-mode
+    ``_moe_rs_kernel`` (spied) and the dense oracle within the reference
+    test's tolerances; no launch counted on CPU tensors."""
+    W, T, Dm, E, bm, dt, rtol, atol = RS_REF_CASES[name]
+    traced = _spy_kernels(monkeypatch, jmrs, "_moe_rs_kernel")
+    x, h, w, weights, experts, th = _rs_case(W, T, Dm, E, 2, bm, dt,
+                                              410 + W)
+    assert np.array_equal(_f32(th), _f32(h.astype(jnp.float32)))
+    want = jmrs.moe_reduce_rs(h, w, weights, experts,
+                              jmrs.create_moe_rs_context(
+                                  _mesh(W, request), n_experts=E, topk=2,
+                                  block_m=bm, impl="pallas",
+                                  interpret=True))
+    assert traced
+    tw = _t(np.asarray(w.astype(jnp.float32))).to(getattr(torch, dt))
+    n0 = tmrs.moe_reduce_rs_shard.launches
+    got = tmrs.moe_reduce_rs(th, tw, _t(np.asarray(weights)),
+                             _t(np.asarray(experts)),
+                             tmrs.create_moe_rs_context(
+                                 TMesh((W,), ("tp",), "cpu"), n_experts=E,
+                                 topk=2, block_m=bm))
+    assert got.shape == (T, Dm) and tmrs.moe_reduce_rs_shard.launches == n0
+    np.testing.assert_allclose(_f32(got), _f32(want.astype(jnp.float32)),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(_f32(got), _dense_moe(x, w, weights, experts),
+                               rtol=rtol, atol=atol)
+
+
+def test_moe_rs_plain_adds_in_hop_order():
+    """The plain reduce-scatter sums segment c's bf16 partials in the
+    reference's hop order: rank c + 1's first, then ``acc = local + acc``
+    at c + 2, ..., c, each add rounded to bf16 (integer-valued partials
+    past bf16's 8-bit mantissa show any other order)."""
+    W, m_pad, f_loc, D, E, bm = 4, 8, 8, 8, 2, 8
+    te = torch.tensor([[0], [1], [0], [1]], dtype=torch.int32)
+    h = torch.zeros((W, W * m_pad, f_loc), dtype=torch.bfloat16)
+    w = torch.zeros((W, E, f_loc, D), dtype=torch.bfloat16)
+    vals = [256.0, 1.0, 1.0, 1.0]     # rank q's partial of every segment
+    for q in range(W):
+        h[q, :, 0] = 1.0
+        w[q, :, 0, :] = vals[q]
+    out = tmrs.moe_rs_ref(h, w, te, block_m=bm)
+    for c in range(W):
+        acc = torch.tensor(vals[(c + 1) % W], dtype=torch.bfloat16)
+        for j in range(2, W + 1):
+            acc = torch.tensor(vals[(c + j) % W], dtype=torch.bfloat16) + acc
+        assert torch.all(out[c] == acc), (c, out[c, 0, 0], acc)
+    # 256 + 1 rounds to 256 in bf16 and 3 + 256 to 260: the order decides
+    assert {float(out[c, 0, 0]) for c in range(W)} == {256.0, 260.0}
+
+
+@pytest.mark.parametrize("T,E,topk", [(64, 4, 2), (32, 8, 2), (2048, 8, 2),
+                                      (4096, 8, 2), (256, 32, 8)])
+def test_default_block_m_gives_reference_m_pad(T, E, topk):
+    """Without a ``block_m`` the entries take the reference's load-aware
+    tile (:258, :263) and so its sorted layout: the same m_pad, so an h
+    built for the reference's default fits the port's; h of any other
+    row count raises (the reference's assert)."""
+    W = 4
+    ref_bm = jgg.load_aware_block_m(T * topk, E)
+    ref_m_pad = jmu.padded_rows(T // W * topk, E, ref_bm)
+    ctx = tmrs.create_moe_rs_context(TMesh((W,), ("tp",), "cpu"),
+                                     n_experts=E, topk=topk)
+    assert tagg.launch_keys([{}], T, ctx) == [(ref_bm, ref_m_pad)]
+    if T <= 64:
+        rng = np.random.default_rng(T)
+        weights, experts = _routing(rng, T, E, topk)
+        wts, exp = _t(np.asarray(weights)), _t(np.asarray(experts))
+        w = torch.zeros((E, 128, 16))
+        out = tmrs.moe_reduce_rs(torch.zeros((W * ref_m_pad, 128)), w, wts,
+                                 exp, ctx)
+        assert out.shape == (T, 16)
+        with pytest.raises(ValueError, match="m_pad"):
+            tmrs.moe_reduce_rs(torch.zeros((W * ref_m_pad - 8, 128)), w,
+                               wts, exp, ctx)
+
+
+def test_moe_host_entries_refuse_other_real_axes_and_unknown_impls():
+    """As the ring GEMMs' entries: a mesh whose other axes have more than
+    one rank raises (one flat world), axes of one rank are fine; an
+    unknown ``impl`` raises."""
+    rng = np.random.default_rng(430)
+    weights, experts = _routing(rng, 16, 4, 2)
+    wts, exp = _t(np.asarray(weights)), _t(np.asarray(experts))
+    x, w = torch.zeros(16, 32), torch.zeros(4, 32, 64)
+    for shape, names in (((2, 2), ("dp", "tp")), ((1, 4), ("dp", "tp"))):
+        ctx = tagg.create_ag_group_gemm_context(TMesh(shape, names, "cpu"),
+                                                n_experts=4, topk=2,
+                                                block_m=8)
+        if shape[0] > 1:
+            with pytest.raises(NotImplementedError, match="flat world"):
+                tagg.ag_group_gemm(x, wts, exp, w, ctx)
+        else:
+            assert tagg.ag_group_gemm(x, wts, exp, w, ctx).shape == (16, 64)
+    rctx = tmrs.create_moe_rs_context(TMesh((2, 2), ("dp", "tp"), "cpu"),
+                                      n_experts=4, topk=2, block_m=8)
+    with pytest.raises(NotImplementedError, match="flat world"):
+        tmrs.moe_reduce_rs(torch.zeros(8, 64), torch.zeros(4, 64, 32), wts,
+                           exp, rctx)
+    with pytest.raises(ValueError, match="impl"):
+        tagg.ag_group_gemm(x, wts, exp, w, tagg.create_ag_group_gemm_context(
+            TMesh((4,), ("tp",), "cpu"), n_experts=4, topk=2, impl="mosaic"))
+
+
+def _tuning_rig(monkeypatch, fn, winner, outputs):
+    """A measure hook that makes config ``winner`` of ``fn``'s pruned sweep
+    the fastest and records each config's output."""
+    def measure(f, args, kwargs, config):
+        order = fn._configs_for(args, kwargs)
+        ret = f(*args, **{**kwargs, **config})
+        outputs.append((dict(config), ret))
+        return ret, 1.0 if config == order[winner % len(order)] else 5.0
+
+    monkeypatch.setattr(fn, "measure", measure)
+    monkeypatch.setattr(fn, "cache", {})
+    monkeypatch.setattr(fn, "sweeps", {})
+
+
+@pytest.mark.parametrize("winner", [0, 1, 2])
+def test_moe_autotuned_entries_equal_host_entries(winner, monkeypatch):
+    """``ag_group_gemm_autotuned`` (the case of tests/test_autotuner.py:330:
+    W 4, T 64, D 128, F 512, E 4) and ``moe_reduce_rs_autotuned`` (:385:
+    W 2, t_loc 16, F 256, D 128, block_m 8) in one contextual region, a
+    measure hook making config ``winner`` the fastest: the AG side's
+    prune keeps its three block_m, the RS side's one of its three (bn, bk)
+    (one launch on the fixed tile); every config's output equals the host
+    entry's at that config, the winner is best_config, and the AG output
+    is within the reference test's 2e-3 of the dense oracle."""
+    rng = np.random.default_rng(420)
+    T, Dm, F, E = 64, 128, 512, 4
+    x = rng.standard_normal((T, Dm)).astype(np.float32)
+    w = (rng.standard_normal((E, Dm, F)) / np.sqrt(Dm)).astype(np.float32)
+    weights, experts = _routing(rng, T, E, 2)
+    ag_args = (_t(x), _t(np.asarray(weights)), _t(np.asarray(experts)),
+               _t(w))
+    ag_ctx = tagg.create_ag_group_gemm_context(TMesh((4,), ("tp",), "cpu"),
+                                               n_experts=E, topk=2)
+    W2, t_loc, F2, D2, bm = 2, 16, 256, 128, 8
+    weights2, experts2 = _routing(rng, W2 * t_loc, E, 2)
+    td, _, m_pad = tagg._segment_plans(_t(np.asarray(experts2)).view(
+        W2, t_loc, 2), E, bm)
+    xs = _t(rng.standard_normal((W2, t_loc * 2, F2)).astype(np.float32))
+    h = torch.cat([tmu.gather_sorted(xs[s], td[s], m_pad)
+                   for s in range(W2)])
+    rs_args = (h, _t((rng.standard_normal((E, F2, D2)) / np.sqrt(F2))
+                     .astype(np.float32)),
+               _t(np.asarray(weights2)), _t(np.asarray(experts2)))
+    rs_ctx = tmrs.create_moe_rs_context(TMesh((W2,), ("tp",), "cpu"),
+                                        n_experts=E, topk=2, block_m=bm)
+    ag_fn, rs_fn = tagg._ag_group_gemm_tunable, tmrs._moe_reduce_rs_tunable
+    assert ag_fn._configs_for(ag_args, {"ctx": ag_ctx}) == \
+        tagg.AG_GROUP_GEMM_TUNE_SPACE
+    assert rs_fn._configs_for(rs_args, {"ctx": rs_ctx}) == \
+        tmrs.MOE_RS_TUNE_SPACE[:1]
+    ag_out, rs_out = [], []
+    _tuning_rig(monkeypatch, ag_fn, winner, ag_out)
+    _tuning_rig(monkeypatch, rs_fn, winner, rs_out)
+
+    @tat.contextual_autotune(n_repeat=1, n_warmup=1)
+    def op():
+        return (tagg.ag_group_gemm_autotuned(*ag_args, ag_ctx),
+                tmrs.moe_reduce_rs_autotuned(*rs_args, rs_ctx))
+
+    out, out2 = op()
+    assert ag_fn.best_config == tagg.AG_GROUP_GEMM_TUNE_SPACE[winner]
+    assert rs_fn.best_config == tmrs.MOE_RS_TUNE_SPACE[0]
+    assert {c["block_m"] for c, _ in ag_out} == {128, 256, 512}
+    host = {bm_: tagg.ag_group_gemm(*ag_args, tagg.create_ag_group_gemm_context(
+        ag_ctx.mesh, n_experts=E, topk=2, block_m=bm_))
+        for bm_ in (128, 256, 512)}
+    for cfg, ret in ag_out:
+        assert torch.equal(ret, host[cfg["block_m"]]), cfg
+    assert torch.equal(out, host[ag_fn.best_config["block_m"]])
+    np.testing.assert_allclose(out.numpy(), _dense_moe(x, w, weights,
+                                                       experts),
+                               rtol=2e-3, atol=2e-3)
+    want2 = tmrs.moe_reduce_rs(*rs_args, rs_ctx)
+    assert rs_out and all(torch.equal(ret, want2) for _, ret in rs_out)
+    assert torch.equal(out2, want2) and out2.shape == (W2 * t_loc, D2)
+
+
+HOST_PLAN_CASES = [
+    # (n_ranks, tokens, topk, n_experts, block_m): tests/test_host_ops.py's
+    # cases and its native-vs-numpy one
+    (1, 32, 2, 4, 8), (4, 16, 4, 8, 16), (2, 1, 1, 2, 8), (8, 64, 4, 16, 32),
+]
+
+
+@pytest.mark.parametrize("impl", ["native", "numpy"])
+@pytest.mark.parametrize("case", HOST_PLAN_CASES)
+def test_host_planner_matches_reference(impl, case):
+    """``host_ops.moe_ag_scatter_align_block_size`` (the C library built
+    from the port's own source, or numpy) equal to the reference's numpy
+    planner in every array and the padded total, with the default and a
+    custom ``pad_value``."""
+    n_ranks, tokens, topk, E, bm = case
+    flat = np.random.default_rng(42).integers(
+        0, E, n_ranks * tokens * topk).astype(np.int32)
+    for pad in (-1, 7):
+        got = tho.moe_ag_scatter_align_block_size(flat, n_ranks, E, bm,
+                                                  pad_value=pad, impl=impl)
+        want = jho.moe_ag_scatter_align_block_size(flat, n_ranks, E, bm,
+                                                   pad_value=pad,
+                                                   impl="numpy")
+        assert got.keys() == want.keys()
+        for k in want:
+            assert np.array_equal(got[k], want[k]), (k, pad)
+        n = got["total_padded"]
+        assert (got["sorted_token_ids"][n:] == pad).all()
+
+
+@pytest.mark.parametrize("impl", ["native", "numpy"])
+def test_host_planner_refuses_out_of_range_experts(impl):
+    with pytest.raises(ValueError):
+        tho.moe_ag_scatter_align_block_size(np.array([0, 1, 99], np.int32),
+                                            1, 4, 8, impl=impl)
+    with pytest.raises(ValueError):
+        tho.moe_ag_scatter_align_block_size(np.array([0, -1], np.int32), 1,
+                                            4, 8, impl=impl)
+    with pytest.raises(ValueError, match="divisible"):
+        tho.moe_ag_scatter_align_block_size(np.zeros(5, np.int32), 2, 4, 8,
+                                            impl=impl)
+
+
+def test_stable_rank_in_group_host_matches_reference():
+    """The host twin of ``stable_rank_in_group`` through the native
+    library: the reference test's case (tests/test_host_ops.py), and the
+    device version's ranks and counts on seeded keys."""
+    assert tho.native_available()
+    rank, counts = tho.stable_rank_in_group_host(
+        np.array([2, 0, 2, 1, 0, 2], np.int32), 3)
+    assert rank.tolist() == [0, 0, 1, 0, 1, 2] and counts.tolist() == [2, 1, 3]
+    keys = np.random.default_rng(3).integers(0, 5, 64).astype(np.int32)
+    rank, counts = tho.stable_rank_in_group_host(keys, 5)
+    want_rank, want_counts = tmu.stable_rank_in_group(_t(keys), 5)
+    assert np.array_equal(rank, want_rank.numpy())
+    assert np.array_equal(counts, want_counts.numpy())
+    with pytest.raises(ValueError):
+        tho.stable_rank_in_group_host(np.array([0, 9], np.int32), 3)

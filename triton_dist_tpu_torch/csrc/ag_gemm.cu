@@ -90,6 +90,7 @@
 namespace {
 
 using namespace tdt_frag;
+using tdt_dist::count_signal;
 using tdt_dist::MAX_RANKS;
 using tdt_dist::Peers;
 using tdt_dist::peers;
@@ -115,23 +116,6 @@ struct Params {
   int crow;                // rows of one chunk (uni; m_loc % crow == 0)
   unsigned epoch;
 };
-
-// Count one piece of a chunk at the receiver (after this block's copy);
-// the last of `pieces` resets the counter and raises the chunk's flag.
-__device__ __forceinline__ void count_signal(unsigned* cnt, int pieces,
-                                             unsigned* flag,
-                                             unsigned epoch) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    if (pieces == 1 ||
-        atomicAdd_system(cnt, 1u) == static_cast<unsigned>(pieces - 1)) {
-      if (pieces > 1) *cnt = 0u;
-      __threadfence_system();
-      tdt_dist::st_release(flag, epoch);
-    }
-  }
-}
 
 // The wire's scales of `rows` rows (whole floats, any count).
 __device__ __forceinline__ void put_scales(float* dst, const float* src,

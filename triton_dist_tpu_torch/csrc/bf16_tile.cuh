@@ -1,6 +1,7 @@
 // The bf16 tile loop shared by group_gemm.cu (the MoE family's grouped
-// GEMM), gemm.cu (the dense matmul) and the two tensor-parallel ring
-// kernels, ag_gemm.cu and gemm_rs.cu: one block of 8 warps sums a 128 x 128
+// GEMM), gemm.cu (the dense matmul), the two tensor-parallel ring
+// kernels, ag_gemm.cu and gemm_rs.cu, and the MoE overlap kernels,
+// ag_group_gemm.cu and moe_rs.cu: one block of 8 warps sums a 128 x 128
 // f32 output tile over the whole contraction.  The counterpart of the TPU's
 // `gemm_pipeline_body` (triton_dist_tpu/kernels/gemm.py:128), the inner
 // loop of its `_matmul_kernel` and of the ring kernels.
@@ -281,6 +282,35 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][4][4],
         }
       }
     }
+}
+
+// y += recv over rows < M, columns < N of a tile (both row-major, row
+// strides ldy and ldr; N % 8 == 0), each sum rounded to bf16 once: the
+// reference's ring add `dst = dst + recv` (gemm_reduce_scatter.py
+// `_add_body` :97-100).  y holds the block's own rounded partial
+// (store_tile), so the partial leaves the registers before the caller
+// waits for recv: an add from registers spilled.
+__device__ __forceinline__ void fold_add(bf16* y, long long ldy,
+                                         const bf16* recv, long long ldr,
+                                         int M, int N, int n0) {
+  for (int v = threadIdx.x; v < M * (BN / 8); v += NT) {
+    const int row = v / (BN / 8), col = n0 + (v % (BN / 8)) * 8;
+    if (col >= N) continue;
+    uint4* dst = reinterpret_cast<uint4*>(y + row * ldy + col);
+    const uint4 raw_y = __ldcg(dst);
+    const uint4 raw_r = __ldcg(reinterpret_cast<const uint4*>(
+        recv + row * ldr + col));
+    const bf16* x = reinterpret_cast<const bf16*>(&raw_y);
+    const bf16* r = reinterpret_cast<const bf16*>(&raw_r);
+    unsigned w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = pack_bf16(__bfloat162float(x[2 * e]) +
+                           __bfloat162float(r[2 * e]),
+                       __bfloat162float(x[2 * e + 1]) +
+                           __bfloat162float(r[2 * e + 1]));
+    *dst = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // cudaFuncSetAttribute once per kernel, device and process (outside any

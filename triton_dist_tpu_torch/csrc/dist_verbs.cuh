@@ -122,6 +122,26 @@ __device__ __forceinline__ void putmem_signal(void* dst, const void* src,
   signal(flag, epoch);
 }
 
+// count_signal: count one piece of a chunk at the receiver (after the
+// block's copy of it); the piece that brings the counter to `pieces`
+// resets it to 0 for the next call and raises the chunk's flag with this
+// call's epoch.  A chunk pushed by several blocks signals once, and a
+// counter is 0 between calls.
+__device__ __forceinline__ void count_signal(unsigned* cnt, int pieces,
+                                             unsigned* flag,
+                                             unsigned epoch) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    if (pieces == 1 ||
+        atomicAdd_system(cnt, 1u) == static_cast<unsigned>(pieces - 1)) {
+      if (pieces > 1) *cnt = 0u;
+      __threadfence_system();
+      st_release(flag, epoch);
+    }
+  }
+}
+
 // barrier_all: every rank stores the epoch into its slot of every peer's
 // barrier array and waits until its own array holds the epoch in every
 // slot (thread p serves peer p).  Every block of a rank calls it on entry,

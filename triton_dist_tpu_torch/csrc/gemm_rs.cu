@@ -74,6 +74,7 @@ namespace {
 using namespace tdt_frag;
 using tdt_bf16::BM;
 using tdt_bf16::BN;
+using tdt_bf16::fold_add;
 using tdt_bf16::NT;
 using tdt_bf16::Tiles;
 using tdt_dist::MAX_RANKS;
@@ -150,34 +151,6 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
           make_uint4(pack_bf16(sum[0], sum[1]), pack_bf16(sum[2], sum[3]),
                      pack_bf16(sum[4], sum[5]), pack_bf16(sum[6], sum[7]));
     }
-  }
-}
-
-// y += recv over rows < M, columns < N of a tile (both row-major, row
-// strides ldy and ldr; N % 8 == 0), each sum rounded to bf16 once: the
-// reference's `dst = dst + recv` (`_add_body` :97-100).  y holds the
-// block's own rounded partial (store_tile), so the partial leaves the
-// registers before the wait: an add from registers spilled.
-__device__ __forceinline__ void fold_add(bf16* y, long long ldy,
-                                         const bf16* recv, long long ldr,
-                                         int M, int N, int n0) {
-  for (int v = threadIdx.x; v < M * (BN / 8); v += NT) {
-    const int row = v / (BN / 8), col = n0 + (v % (BN / 8)) * 8;
-    if (col >= N) continue;
-    uint4* dst = reinterpret_cast<uint4*>(y + row * ldy + col);
-    const uint4 raw_y = __ldcg(dst);
-    const uint4 raw_r = __ldcg(reinterpret_cast<const uint4*>(
-        recv + row * ldr + col));
-    const bf16* x = reinterpret_cast<const bf16*>(&raw_y);
-    const bf16* r = reinterpret_cast<const bf16*>(&raw_r);
-    unsigned w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      w[e] = pack_bf16(__bfloat162float(x[2 * e]) +
-                           __bfloat162float(r[2 * e]),
-                       __bfloat162float(x[2 * e + 1]) +
-                           __bfloat162float(r[2 * e + 1]));
-    *dst = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 

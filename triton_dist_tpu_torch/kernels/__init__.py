@@ -11,7 +11,10 @@ hierarchical compositions) are re-exported under the reference's names,
 except the host entry ``reduce_scatter``, which stays the module, as
 above.  So are the TP ring GEMMs' contexts, host entries (``ag_gemm``,
 ``ag_gemm_gathered``, ``gemm_rs``), rank-stacked shard functions and
-autotuned entries."""
+autotuned entries, and the MoE overlap kernels' (``ag_group_gemm``,
+``moe_reduce_rs_autotuned``, ...), except the host entry
+``moe_reduce_rs``: that name stays the module (reach the entry as
+``moe_reduce_rs.moe_reduce_rs``)."""
 
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     AllGatherContext,
@@ -28,6 +31,13 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: F401
     ag_gemm_gathered,
     ag_gemm_shard,
     create_ag_gemm_context,
+)
+from triton_dist_tpu_torch.kernels.allgather_group_gemm import (  # noqa: F401
+    AGGroupGEMMContext,
+    ag_group_gemm,
+    ag_group_gemm_autotuned,
+    ag_group_gemm_shard,
+    create_ag_group_gemm_context,
 )
 from triton_dist_tpu_torch.kernels.common_ops import (  # noqa: F401
     barrier_all_on_mesh,
@@ -53,6 +63,12 @@ from triton_dist_tpu_torch.kernels.low_latency_allgather import (  # noqa: F401
     fast_allgather,
     pack_payload,
     unpack_payload,
+)
+from triton_dist_tpu_torch.kernels.moe_reduce_rs import (  # noqa: F401
+    MoEReduceRSContext,
+    create_moe_rs_context,
+    moe_reduce_rs_autotuned,
+    moe_reduce_rs_shard,
 )
 from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
     ReduceScatterContext,
