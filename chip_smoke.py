@@ -259,7 +259,19 @@ Phases, in order (any failure exits non-zero without the final line):
    padding rows exactly zero, ten calls in a row each equal to the
    first), each kernel timed eagerly between CUDA events beside its
    bounds (useful work 2 T topk D F, the padded work it does, bytes),
-   its plain version and one ``torch._grouped_mm`` of the same product.
+   its plain version and one ``torch._grouped_mm`` of the same product;
+22. torus (multi-axis) schedules (last): the host entries ``all_gather``,
+   ``reduce_scatter``, ``ag_gemm_gathered`` / ``ag_gemm`` and ``gemm_rs``
+   with a tuple axis (all of the mesh's axes) on the (2, 4), (4, 2) and
+   (2, 2, 2) meshes of eight ranks at Llama-3-8B TP-8 widths (a 2,048-token
+   prefill: 256 rows a rank; gate/up N 14336, QKV N 6144, down K 14336, wo
+   K 4096; bf16 and int8), then the autotuned entries; each against its
+   plain version, each of the six kernels (torus all-gather and
+   reduce-scatter, the torus AG-GEMM and GEMM-RS and their int8 modes)
+   against its plain version on every mesh (the gathers and the
+   reduce-scatter bit for bit, in f32 and bf16; the GEMMs by the 128-row
+   tile rule; int8 exactly), ten calls in a row equal, and timed on the
+   (2, 4) mesh beside its bound, its plain version and one PyTorch call.
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; every counter is
@@ -302,7 +314,11 @@ comes from there (> 0).  The
 counters of the two MoE overlap kernels (rows 19, 20) are zeroed with
 the ring modes' before phases 7, 7b, 11, 12 (a), 15 and 19 and read after
 them, where each must be 0, and zeroed just before phase 21 and read just
-after it: their counts come from there (> 0).  A
+after it: their counts come from there (> 0).  The six torus kernels'
+counters are never zeroed before phase 22: they are read after every
+model path above (0) and at the start of phase 22 (0: no earlier phase
+took a torus schedule), zeroed just before its path and read just after
+its autotuned region (each > 0).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
 by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
@@ -4039,13 +4055,14 @@ def read_moe_tp():
 
 
 def record_model_path(phase):
-    """Read the off-path counters after a model path (zeroed before it):
-    a model path passes no ring mode and calls no MoE overlap kernel, so
-    each must be 0."""
-    counts = {**read_ring_modes(), **read_moe_tp()}
+    """Read the off-path counters after a model path (zeroed before it;
+    the torus kernels' are never zeroed before phase 22, so theirs count
+    the run so far): a model path passes no ring mode, calls no MoE
+    overlap kernel and takes no torus schedule, so each must be 0."""
+    counts = {**read_ring_modes(), **read_moe_tp(), **read_torus()}
     MODEL_PATH_COUNTS[phase] = counts
-    log(f"{phase}: ring-mode and MoE overlap launches {counts} (expected 0: "
-        f"no model path takes them)")
+    log(f"{phase}: ring-mode, MoE overlap and torus launches {counts} "
+        f"(expected 0: no model path takes them)")
     if any(counts.values()):
         raise AssertionError(f"{phase} launched an off-path kernel: {counts}")
 
@@ -4532,6 +4549,345 @@ def moe_tp_phase(dev, dims=(4096, 14336, 8, 2),
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the torus (multi-axis) collectives and ring GEMMs at Llama-3-8B
+# TP-8 widths over the (2, 4), (4, 2) and (2, 2, 2) meshes
+# ---------------------------------------------------------------------------
+
+TORUS_MESHES = (((2, 4), ("x", "y")), ((4, 2), ("x", "y")),
+                ((2, 2, 2), ("x", "y", "z")))
+# the kernel rows of phase 22: (module, the counting function)
+TORUS_ROWS = {"torus_ag": ("torus", "torus_all_gather_shard"),
+              "torus_rs": ("torus", "torus_reduce_scatter_shard"),
+              "torus_ag_gemm": ("allgather_gemm", "torus_ag_gemm"),
+              "torus_ag_gemm_i8": ("allgather_gemm", "torus_ag_gemm_i8"),
+              "torus_gemm_rs": ("gemm_reduce_scatter", "torus_gemm_rs"),
+              "torus_gemm_rs_i8": ("gemm_reduce_scatter",
+                                   "torus_gemm_rs_i8")}
+
+
+def _torus_fns():
+    import importlib
+
+    return {row: getattr(importlib.import_module(
+        f"triton_dist_tpu_torch.kernels.{mod}"), fn)
+        for row, (mod, fn) in TORUS_ROWS.items()}
+
+
+def read_torus():
+    return {row: fn.launches for row, fn in _torus_fns().items()}
+
+
+def torus_phase(dev, dims=(4096, 14336, 6144), tokens=2048):
+    """Phase 22: the multi-axis (torus) schedules at Llama-3-8B TP-8 widths
+    (D 4096, F 14336, QKV 6144; a 2,048-token prefill, 256 rows a rank;
+    bf16, random from seed 0) on the virtual world's (2, 4), (4, 2) and
+    (2, 2, 2) meshes, the tuple axis all of the mesh's axes.  The path,
+    with the six kernels' counters zeroed just before and read just after
+    (each > 0; each read 0 at the start of the phase, so no earlier phase
+    took a torus schedule): on every mesh the host entries ``all_gather``
+    ([2048, 4096]: 2 MiB a rank, the torus kernel), ``reduce_scatter``
+    (stacked [8, 2048, 4096] partials, f32 and bf16), ``ag_gemm_gathered``
+    at gate/up (N 14336) and in int8, ``ag_gemm`` at QKV, ``gemm_rs`` at
+    down (K 14336), wo (K 4096) and in int8, then ``ag_gemm_autotuned`` /
+    ``gemm_rs_autotuned`` in one ``contextual_autotune`` region.  Checks:
+    every host entry against the same context's plain versions
+    (``impl="xla"``; the gathers exactly, the GEMMs by check_tiles over
+    128-row tiles, int8 exactly, the reduce-scatter against the f32 sum);
+    each kernel's wrapper against its plain version on every mesh (the
+    all-gather and the gathered A bit for bit, the reduce-scatter bit for
+    bit in f32 and bf16, the GEMMs by check_tiles, int8 exactly); ten
+    calls of each in a row on the (2, 4) mesh equal to the first.  Times
+    (eager between CUDA events: each launch carries its epoch) on the
+    (2, 4) mesh beside the bound (the function's bytes or operations),
+    the plain version and one PyTorch call: ``expand(...).contiguous()``
+    of the gathered view (22a), one ``sum`` over the rank dimension
+    (22r), a batched ``torch.matmul`` of the gathered view (14), one
+    ``torch.einsum`` (16), ``torch._int_mm`` (14i, 16i).  Rows report
+    (2, 4) at gate/up, down and f32; the rest ride under "shapes"."""
+    import torch
+
+    from triton_dist_tpu_torch.autotuner import contextual_autotune
+    from triton_dist_tpu_torch.kernels import allgather as ag
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+    from triton_dist_tpu_torch.kernels import torus
+
+    (D, F, QKV), M, W = dims, tokens, 8
+    before = read_torus()
+    log(f"torus: launches before phase 22 {before} (expected 0: no earlier "
+        f"phase takes a torus schedule)")
+    if any(before.values()):
+        raise AssertionError(f"a torus kernel launched before phase 22: "
+                             f"{before}")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def tiles(tag, got, want):
+        return check_tiles(tag, got, want, min(128, want.shape[0]))
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def randi(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    x = randn(M, D)
+    parts = {"f32": randn(W, M, D, dtype=torch.float32)}
+    parts["bf16"] = parts["f32"].bfloat16()
+    w = {"gate_up": randn(D, F, scale=D ** -0.5),
+         "qkv": randn(D, QKV, scale=D ** -0.5),
+         "down": randn(F, D, scale=F ** -0.5),
+         "wo": randn(D, D, scale=D ** -0.5)}
+    a_rs = {"down": randn(M, F), "wo": randn(M, D)}
+    i8 = {"ag": (randi(M, D), randi(D, F)), "rs": (randi(M, F), randi(F, D))}
+    meshes = [("x".join(map(str, shape)), names, _mesh(shape, names))
+              for shape, names in TORUS_MESHES]
+
+    # the path
+    for fn in _torus_fns().values():
+        fn.launches = 0
+    got = {}
+    for tag, axes, mesh in meshes:
+        actx = agm.create_ag_gemm_context(mesh, axis=axes)
+        rctx = grs.create_gemm_rs_context(mesh, axis=axes)
+        got[tag, "ag"] = ag.all_gather(x, ag.create_allgather_context(
+            mesh, axis=axes))
+        for dt, p in parts.items():
+            got[tag, f"rs_{dt}"] = rs.reduce_scatter(
+                p, rs.create_reduce_scatter_context(mesh, axis=axes))
+        got[tag, "gate_up"] = agm.ag_gemm_gathered(x, w["gate_up"], actx)
+        got[tag, "qkv"] = agm.ag_gemm(x, w["qkv"], actx)
+        got[tag, "ag_i8"] = agm.ag_gemm_gathered(*i8["ag"], actx)
+        for proj in ("down", "wo"):
+            got[tag, proj] = grs.gemm_rs(a_rs[proj], w[proj], rctx)
+        got[tag, "rs_i8"] = grs.gemm_rs(*i8["rs"], rctx)
+    mesh0, axes0 = meshes[0][2], meshes[0][1]
+
+    @contextual_autotune(n_repeat=2, n_warmup=1)
+    def tuned_op():
+        return (agm.ag_gemm_autotuned(x, w["gate_up"],
+                                      agm.create_ag_gemm_context(
+                                          mesh0, axis=axes0)),
+                grs.gemm_rs_autotuned(a_rs["down"], w["down"],
+                                      grs.create_gemm_rs_context(
+                                          mesh0, axis=axes0)))
+
+    tuned = tuned_op()
+    torch.cuda.synchronize()
+    launches = read_torus()
+    log(f"torus: phase 22 launches {launches}")
+    for row, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {row} never launched by phase 22")
+    for tuner, name in ((agm._ag_gemm_tunable, "ag_gemm_autotuned"),
+                        (grs._gemm_rs_tunable, "gemm_rs_autotuned")):
+        sweep = next(reversed(tuner.sweeps.values()))
+        log(f"{name} (torus, 2x4): " + ", ".join(
+            f"{c} {ms:.4f} ms" for c, ms in sweep)
+            + f"; winner {tuner.best_config}")
+
+    # the host entries against the plain versions
+    for tag, axes, mesh in meshes:
+        xctx = agm.create_ag_gemm_context(mesh, axis=axes, impl="xla")
+        rxctx = grs.create_gemm_rs_context(mesh, axis=axes, impl="xla")
+        same = torch.equal(got[tag, "ag"], x)
+        for dt, p in parts.items():
+            want = p.float().sum(0)
+            err = (got[tag, f"rs_{dt}"].float() - want).abs().max().item()
+            tol = (1e-4 if dt == "f32" else 4e-2) * want.abs().max().item()
+            log(f"torus host reduce_scatter {dt} {tag}: max |err| against "
+                f"the f32 sum {err:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"torus host reduce_scatter {dt} {tag}")
+        full, c = got[tag, "gate_up"]
+        want_full, want_c = agm.ag_gemm_gathered(x, w["gate_up"], xctx)
+        same = same and torch.equal(full, want_full)
+        tiles(f"torus host ag_gemm gate_up {tag}", c, want_c)
+        tiles(f"torus host ag_gemm qkv {tag}", got[tag, "qkv"],
+                    agm.ag_gemm(x, w["qkv"], xctx))
+        full, c = got[tag, "ag_i8"]
+        want_full, want_c = agm.ag_gemm_gathered(*i8["ag"], xctx)
+        same = same and torch.equal(full, want_full) and torch.equal(
+            c, want_c)
+        for proj in ("down", "wo"):
+            tiles(f"torus host gemm_rs {proj} {tag}", got[tag, proj],
+                        grs.gemm_rs(a_rs[proj], w[proj], rxctx))
+        same = same and torch.equal(got[tag, "rs_i8"],
+                                    grs.gemm_rs(*i8["rs"], rxctx))
+        log(f"torus host entries {tag}: gathers and int8 exactly equal "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"torus host entries {tag} differ")
+    c, c2 = tuned
+    tiles("ag_gemm_autotuned (torus, winner)", c,
+                got[meshes[0][0], "gate_up"][1])
+    tiles("gemm_rs_autotuned (torus, winner)", c2,
+                got[meshes[0][0], "down"])
+    del got, tuned, c, c2
+    free_cuda()
+
+    # each wrapper against its plain version, then the times on (2, 4)
+    rows = {row: {"shapes": {}} for row in TORUS_ROWS}
+
+    def stacked(tag, mesh):
+        """The rank-stacked operands of every row (the tuple is the mesh's
+        axes in mesh order, so joint index = world rank)."""
+        n_loc = {"gate_up": F // W, "qkv": QKV // W}
+        k_loc = {"down": F // W, "wo": D // W}
+        return dict(
+            ag=(x.view(*mesh.shape, M // W, D),),
+            rs_f32=(parts["f32"].view(*mesh.shape, M, D),),
+            rs_bf16=(parts["bf16"].view(*mesh.shape, M, D),),
+            **{p: (x.view(W, M // W, D), w[p].view(D, W, n).permute(
+                1, 0, 2).contiguous()) for p, n in n_loc.items()},
+            ag_i8=(i8["ag"][0].view(W, M // W, D), i8["ag"][1].view(
+                D, W, F // W).permute(1, 0, 2).contiguous()),
+            **{p: (a_rs[p].view(M, W, k).permute(1, 0, 2).contiguous(),
+                   w[p].view(W, k, D)) for p, k in k_loc.items()},
+            rs_i8=(i8["rs"][0].view(M, W, F // W).permute(
+                1, 0, 2).contiguous(), i8["rs"][1].view(W, F // W, D)))
+
+    calls = {"ag": ("torus_ag", torus.torus_all_gather_shard,
+                    torus.torus_all_gather_ref),
+             "rs_f32": ("torus_rs", torus.torus_reduce_scatter_shard,
+                        torus.torus_reduce_scatter_ref),
+             "rs_bf16": ("torus_rs", torus.torus_reduce_scatter_shard,
+                         torus.torus_reduce_scatter_ref),
+             "gate_up": ("torus_ag_gemm", agm.torus_ag_gemm,
+                         agm.torus_ag_gemm_ref),
+             "qkv": ("torus_ag_gemm", agm.torus_ag_gemm,
+                     agm.torus_ag_gemm_ref),
+             "ag_i8": ("torus_ag_gemm_i8", agm.torus_ag_gemm_i8,
+                       agm.torus_ag_gemm_ref),
+             "down": ("torus_gemm_rs", grs.torus_gemm_rs,
+                      grs.torus_gemm_rs_ref),
+             "wo": ("torus_gemm_rs", grs.torus_gemm_rs,
+                    grs.torus_gemm_rs_ref),
+             "rs_i8": ("torus_gemm_rs_i8", grs.torus_gemm_rs_i8,
+                       grs.torus_gemm_rs_ref)}
+
+    def agree(key, out, want):
+        """0.0 for an exact row (bit for bit), else check_tiles' max
+        |err|."""
+        if key in ("ag", "rs_f32", "rs_bf16", "ag_i8", "rs_i8"):
+            pairs = list(zip(out, want)) if isinstance(out, tuple) else [
+                (out, want)]
+            if not all(torch.equal(o, wnt) for o, wnt in pairs):
+                raise AssertionError(f"torus {key}: not bit-equal to plain")
+            return 0.0
+        if isinstance(out, tuple):
+            if not torch.equal(out[0], want[0]):
+                raise AssertionError(f"torus {key}: gathered A differs")
+            out, want = out[1], want[1]
+        return tiles(f"torus {key}", out.reshape(-1, out.shape[-1]),
+                           want.reshape(-1, want.shape[-1]))
+
+    for tag, axes, mesh in meshes:
+        ops = stacked(tag, mesh)
+        for key, (row, fn, ref) in calls.items():
+            args = ops[key]
+            out = fn(*args, mesh, axes)
+            torch.cuda.synchronize()
+            err = agree(key, out, ref(*args, mesh, axes))
+            del out
+            if tag == "2x4":
+                first = fn(*args, mesh, axes)
+                for _ in range(9):
+                    again = fn(*args, mesh, axes)
+                    same = all(torch.equal(u, v) for u, v in zip(
+                        again if isinstance(again, tuple) else (again,),
+                        first if isinstance(first, tuple) else (first,)))
+                    if not same:
+                        raise AssertionError(f"torus {key}: a call of ten "
+                                             f"in a row differs")
+                del first, again
+                rows[row]["shapes"][f"{key}_{tag}"] = _torus_times(
+                    key, args, mesh, axes, fn, ref, err, W, M, D, F, QKV)
+            free_cuda()
+        log(f"torus {tag}: every kernel equal to its plain version"
+            + (", ten calls in a row equal" if tag == "2x4" else ""))
+        del ops
+    for row, key in (("torus_ag", "ag_2x4"), ("torus_rs", "rs_f32_2x4"),
+                     ("torus_ag_gemm", "gate_up_2x4"),
+                     ("torus_ag_gemm_i8", "ag_i8_2x4"),
+                     ("torus_gemm_rs", "down_2x4"),
+                     ("torus_gemm_rs_i8", "rs_i8_2x4")):
+        rows[row].update(rows[row]["shapes"][key])
+    return rows, launches
+
+
+def _torus_times(key, args, mesh, axes, fn, ref, err, W, M, D, F, QKV):
+    """One phase-22 entry on the (2, 4) mesh: the kernel eager between CUDA
+    events (for the ~0.1 ms collectives the wrapper's host work between
+    launches counts too), its plain version (eager), its bound and one
+    PyTorch call."""
+    import torch
+
+    ms = event_ms(lambda: fn(*args, mesh, axes), iters=10)
+    plain_ms = event_ms(lambda: ref(*args, mesh, axes), iters=2)
+    a = args[0]
+    if key == "ag":
+        n_bytes = a.numel() * a.element_size() * (1 + W)
+        ops, rate = 0, BF16_FLOPS_S
+        view = a.reshape(1, M, D)
+        lib = event_ms(lambda: view.expand(W, M, D).contiguous(), iters=5)
+        lib_call = "expand(...).contiguous() of the gathered view"
+    elif key.startswith("rs_") and key != "rs_i8":
+        n_bytes = a.numel() * a.element_size() * (W + 1) // W
+        ops, rate = 0, BF16_FLOPS_S
+        view = a.view(W, W, M // W, D)
+        lib = event_ms(lambda: view.sum(dim=0), iters=5)
+        lib_call = "sum over the rank dimension"
+    elif key in ("gate_up", "qkv", "ag_i8"):
+        b = args[1]
+        n = b.shape[0] * b.shape[2]
+        ops = 2 * M * D * n
+        el = a.element_size()
+        n_bytes = el * (M * D + D * n + W * M * D) + (
+            4 if key == "ag_i8" else 2) * M * n
+        if key == "ag_i8":
+            rate = INT8_OPS_S
+            a2 = a.reshape(M, D)
+            b_cm = b.permute(1, 0, 2).reshape(D, n).t().contiguous().t()
+            lib = time_ms(lambda: torch._int_mm(a2, b_cm), iters=5)
+            lib_call = "torch._int_mm, B column-major"
+        else:
+            rate = BF16_FLOPS_S
+            af = a.reshape(1, M, D).expand(W, -1, -1)
+            lib = time_ms(lambda: torch.matmul(af, b), iters=5)
+            lib_call = "batched torch.matmul of the gathered view"
+    else:
+        b = args[1]
+        k = W * b.shape[1]
+        ops = 2 * M * k * D
+        el = a.element_size()
+        n_bytes = el * (M * k + k * D) + (4 if key == "rs_i8" else 2) * M * D
+        if key == "rs_i8":
+            rate = INT8_OPS_S
+            a2 = a.permute(1, 0, 2).reshape(M, k)
+            b_cm = b.reshape(k, D).t().contiguous().t()
+            lib = time_ms(lambda: torch._int_mm(a2, b_cm), iters=5)
+            lib_call = ("torch._int_mm of the rows against B column-major: "
+                        "the sum over ranks is the contraction")
+        else:
+            rate = BF16_FLOPS_S
+            a4 = a.view(W, W, M // W, b.shape[1])
+            lib = time_ms(lambda: torch.einsum("qrmk,qkn->rmn", a4, b),
+                          iters=5)
+            lib_call = "torch.einsum"
+    b_ms, b_by = bound_ms(n_bytes, ops, rate)
+    log(f"torus {key} (2x4, Llama-3-8B TP-8): kernel {ms:.4f} ms"
+        + (f" ({ops / ms / 1e9:.1f} T{'OP' if rate == INT8_OPS_S else 'FLOP'}"
+           f"/s)" if ops else f" ({n_bytes / ms / 1e9:.2f} TB/s)")
+        + f", plain {plain_ms:.4f} ms, library {lib:.4f} ms ({lib_call}), "
+        f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 2 ** 20:.1f} MiB, "
+        f"{ops / 1e9:.1f} G ops)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, max_abs_err=err)
+
+
 def main() -> int:
     import torch
 
@@ -4752,6 +5108,14 @@ def main() -> int:
     free_cuda()
     log(f"moe tp done at {time.perf_counter() - t_start:.1f} s")
 
+    # phase 22: the torus (multi-axis) collectives and ring GEMMs; each
+    # kernel's count comes from it (0 before it, and on every model path)
+    torus_rows, torus_launches = torus_phase(dev)
+    rows.update(torus_rows)
+    launches.update(torus_launches)
+    free_cuda()
+    log(f"torus done at {time.perf_counter() - t_start:.1f} s")
+
     src = {"flash_fwd": ("triton_dist_tpu_torch/csrc/flash_fwd.cu",
                          "triton_dist_tpu/kernels/flash_attention.py:116"),
            "decode": ("triton_dist_tpu_torch/csrc/decode.cu",
@@ -4834,7 +5198,23 @@ def main() -> int:
                "triton_dist_tpu_torch/csrc/ag_group_gemm.cu",
                "triton_dist_tpu/kernels/allgather_group_gemm.py:103"),
            "moe_rs": ("triton_dist_tpu_torch/csrc/moe_rs.cu",
-                      "triton_dist_tpu/kernels/moe_reduce_rs.py:106")}
+                      "triton_dist_tpu/kernels/moe_reduce_rs.py:106"),
+           "torus_ag": ("triton_dist_tpu_torch/csrc/torus.cu",
+                        "triton_dist_tpu/kernels/torus.py:104"),
+           "torus_rs": ("triton_dist_tpu_torch/csrc/torus.cu",
+                        "triton_dist_tpu/kernels/torus.py:311"),
+           "torus_ag_gemm": ("triton_dist_tpu_torch/csrc/ag_gemm.cu",
+                             "triton_dist_tpu/kernels/allgather_gemm.py:428"),
+           # the torus kernels' int8 modes (int8 A, int32 C)
+           "torus_ag_gemm_i8": (
+               "triton_dist_tpu_torch/csrc/ag_gemm.cu",
+               "triton_dist_tpu/kernels/allgather_gemm.py:428"),
+           "torus_gemm_rs": (
+               "triton_dist_tpu_torch/csrc/gemm_rs.cu",
+               "triton_dist_tpu/kernels/gemm_reduce_scatter.py:326"),
+           "torus_gemm_rs_i8": (
+               "triton_dist_tpu_torch/csrc/gemm_rs.cu",
+               "triton_dist_tpu/kernels/gemm_reduce_scatter.py:326")}
     kernels = []
     for name, r in rows.items():
         kernels.append({"name": name, "route": "cuda",
@@ -4873,7 +5253,7 @@ def main() -> int:
                             ph: c[name] for ph, c in
                             MODEL_PATH_COUNTS.items()}}
                            if name in RING_MODE_ROWS or name in MOE_TP_ROWS
-                           else {}),
+                           or name in TORUS_ROWS else {}),
                         **{k: r[k] for k in ("m8", "t8", "shapes",
                                              "algorithm_bound_ms",
                                              "device_ms",

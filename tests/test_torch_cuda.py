@@ -28,7 +28,11 @@ hierarchical PP step to the psum step at the bf16 gates (losses 1e-3
 relative, leaves 2e-2 relative L2).  The MoE overlap kernels
 (AG-GroupGEMM, GroupGEMM-RS) follow the grouped GEMM's row-tile rule on
 each rank's output (padding tiles exactly zero), the gathered sorted x
-bit for bit.
+bit for bit.  The torus kernels over a joint group (2-3 axes, reordered
+and subset tuples): the all-gather and the reduce-scatter bit for bit
+(the reduce-scatter in the same torus order), the torus GEMMs by the bf16
+rule over the whole output and each 128-row tile (bit for bit on
+integer-valued GEMM-RS operands), int8 exactly.
 """
 
 import zlib
@@ -2364,3 +2368,252 @@ def test_moe_tp_host_entries_on_the_card(cuda):
     ref = host_ops.moe_ag_scatter_align_block_size(ids, W, E, bm,
                                                    impl="numpy")
     assert all(np.array_equal(nat[k], ref[k]) for k in ref)
+
+
+# ---------------------------------------------------------------------------
+# The torus (multi-axis) collectives and ring GEMMs over a joint group
+# ---------------------------------------------------------------------------
+
+TORUS_MESHES = [
+    # (mesh shape, axis names, the joint axes): the reference's oracle
+    # meshes, a reordered tuple (joint index not the world rank), a subset
+    # tuple (two groups of four)
+    ((2, 4), ("x", "y"), ("x", "y")),
+    ((4, 2), ("x", "y"), ("x", "y")),
+    ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z")),
+    ((2, 4), ("x", "y"), ("y", "x")),
+    ((2, 2, 2), ("x", "y", "z"), ("y", "z")),
+]
+
+
+def _torus_counts():
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import torus
+
+    return (torus.torus_all_gather_shard.launches,
+            torus.torus_reduce_scatter_shard.launches,
+            agm.torus_ag_gemm.launches, agm.torus_ag_gemm_i8.launches,
+            grs.torus_gemm_rs.launches, grs.torus_gemm_rs_i8.launches)
+
+
+def _torus_moved(n0):
+    return tuple(x - y for x, y in zip(_torus_counts(), n0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_case", TORUS_MESHES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torus_collectives_match_plain(cuda, mesh_case, dtype):
+    """The torus all-gather bit for bit against its plain version (rows
+    256, 7 and 1 a rank), the torus reduce-scatter bit for bit against its
+    plain version (the reference's torus order and rounding: rows 256, 5
+    and 1 a band, rows of 128 and of 3 elements: the vector and the
+    element path), one launch of each per call."""
+    from triton_dist_tpu_torch.kernels import torus
+
+    mesh = _mesh(*mesh_case[:2], cuda)
+    axes = mesh_case[2]
+    G = mesh.joint_size(axes)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for rows, row in ((256, 128), (7, 128), (1, 128), (5, 3)):
+        x = torch.randn((*mesh.shape, rows, row), generator=g,
+                        device=cuda).to(dtype)
+        n0 = _torus_counts()
+        got = torus.torus_all_gather_shard(x, mesh, axes)
+        parts = torch.randn((*mesh.shape, G * rows, row), generator=g,
+                            device=cuda).to(dtype)
+        red = torus.torus_reduce_scatter_shard(parts, mesh, axes)
+        torch.cuda.synchronize()
+        assert _torus_moved(n0) == (1, 1, 0, 0, 0, 0)
+        assert torch.equal(got, torus.torus_all_gather_ref(x, mesh, axes))
+        assert torch.equal(red, torus.torus_reduce_scatter_ref(parts, mesh,
+                                                               axes))
+
+
+def _torus_gemm_close(got, want, name):
+    """The bf16 GEMM rule over each rank's output and per 128-row tile."""
+    _gemm_close(got, want, name)
+    for r in range(got.shape[0]):
+        _tile_close(got[r], want[r], 128, f"{name} rank {r}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_case", TORUS_MESHES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_torus_ag_gemm_matches_plain(cuda, mesh_case, int8):
+    """The torus AG-GEMM (``tdt_ag_gemm_torus``, and its int8 mode)
+    through ``ag_gemm_shard(mesh=, axis=tuple)``: the gathered A bit for
+    bit (flat axes-major), C by the bf16 rule over the whole output and
+    per 128-row tile (int8: exactly equal), at m_loc 256 and 37 (a masked
+    tile); one launch of the mode's counter."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    mesh = _mesh(*mesh_case[:2], cuda)
+    axes = mesh_case[2]
+    W = mesh.size
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for m_loc, k, n in ((256, 512, 256), (37, 256, 144)):
+        if int8:
+            a = torch.randint(-127, 128, (W, m_loc, k), generator=g,
+                              device=cuda, dtype=torch.int8)
+            b = torch.randint(-127, 128, (W, k, n), generator=g,
+                              device=cuda, dtype=torch.int8)
+        else:
+            a = torch.randn((W, m_loc, k), generator=g,
+                            device=cuda).bfloat16()
+            b = (torch.randn((W, k, n), generator=g, device=cuda)
+                 / k ** 0.5).bfloat16()
+        n0 = _torus_counts()
+        a_full, c = agm.ag_gemm_shard(a, b, mesh=mesh, axis=axes)
+        torch.cuda.synchronize()
+        assert _torus_moved(n0) == ((0, 0, 0, 1, 0, 0) if int8
+                                    else (0, 0, 1, 0, 0, 0))
+        want_full, want_c = agm.torus_ag_gemm_ref(a, b, mesh, axes)
+        assert torch.equal(a_full, want_full)
+        if int8:
+            assert torch.equal(c, want_c)
+        else:
+            _torus_gemm_close(c, want_c, f"torus ag_gemm {mesh_case}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_case", TORUS_MESHES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_torus_gemm_rs_matches_plain(cuda, mesh_case, int8):
+    """The torus GEMM-RS (``tdt_gemm_rs_group`` in its torus order, and
+    the int8 mode) through ``gemm_rs_shard(mesh=, axis=tuple)`` at m_loc
+    256 and 16: bf16 by the rule (whole and per 128-row tile) and bit for
+    bit on integer-valued operands (exact partials, so only the order and
+    rounding of the bf16 adds can differ); int8 exactly equal; at an
+    untileable k (264) the composition (the uni kernel over the first
+    axis, then the ring reduce-scatter) against its plain version."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    mesh = _mesh(*mesh_case[:2], cuda)
+    axes = mesh_case[2]
+    W, G = mesh.size, mesh.joint_size(axes)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for m_loc, k, n in ((256, 512, 512), (16, 256, 768)):
+        if int8:
+            a = torch.randint(-127, 128, (W, G * m_loc, k), generator=g,
+                              device=cuda, dtype=torch.int8)
+            b = torch.randint(-127, 128, (W, k, n), generator=g,
+                              device=cuda, dtype=torch.int8)
+            n0 = _torus_counts()
+            out = grs.gemm_rs_shard(a, b, mesh=mesh, axis=axes)
+            torch.cuda.synchronize()
+            assert _torus_moved(n0) == (0, 0, 0, 0, 0, 1)
+            assert torch.equal(out, grs.torus_gemm_rs_ref(a, b, mesh, axes))
+            continue
+        a = torch.randn((W, G * m_loc, k), generator=g,
+                        device=cuda).bfloat16()
+        b = (torch.randn((W, k, n), generator=g, device=cuda)
+             / k ** 0.5).bfloat16()
+        n0 = _torus_counts()
+        out = grs.gemm_rs_shard(a, b, mesh=mesh, axis=axes)
+        torch.cuda.synchronize()
+        assert _torus_moved(n0) == (0, 0, 0, 0, 1, 0)
+        _torus_gemm_close(out, grs.torus_gemm_rs_ref(a, b, mesh, axes),
+                          f"torus gemm_rs {mesh_case} m_loc {m_loc}")
+        ai = torch.randint(-1, 2, a.shape, generator=g,
+                           device=cuda).bfloat16()
+        bi = torch.randint(-2, 3, b.shape, generator=g,
+                           device=cuda).bfloat16()
+        assert torch.equal(grs.gemm_rs_shard(ai, bi, mesh=mesh, axis=axes),
+                           grs.torus_gemm_rs_ref(ai, bi, mesh, axes))
+    if not int8:
+        a = torch.randn((W, G * 128, 264), generator=g,
+                        device=cuda).bfloat16()
+        b = (torch.randn((W, 264, 256), generator=g, device=cuda)
+             / 264 ** 0.5).bfloat16()
+        n0 = _torus_counts()
+        out = grs.gemm_rs_shard(a, b, mesh=mesh, axis=axes)
+        torch.cuda.synchronize()
+        assert _torus_moved(n0)[4] == 0
+        _gemm_close(out, grs._compose(a, b, mesh, axes, False, True),
+                    f"torus gemm_rs composition {mesh_case}")
+
+
+@pytest.mark.gpu
+def test_torus_kernels_ten_calls_in_a_row(cuda):
+    """Ten calls of each torus kernel in a row on fresh inputs over the
+    (2, 4) mesh, every result checked afterwards (a flag or counter left
+    by an earlier call that let a wait pass early would show)."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import torus
+
+    mesh, axes = _mesh((2, 4), ("x", "y"), cuda), ("x", "y")
+    g = torch.Generator(device=cuda).manual_seed(8)
+    results = []
+    for i in range(10):
+        x = torch.randn((2, 4, 64 if i % 2 else 5, 256), generator=g,
+                        device=cuda).bfloat16()
+        p = torch.randn((2, 4, 8 * 32, 256), generator=g, device=cuda)
+        a = torch.randn((8, 128, 256), generator=g, device=cuda).bfloat16()
+        b = (torch.randn((8, 256, 256), generator=g, device=cuda)
+             / 16).bfloat16()
+        a2 = torch.randn((8, 8 * 128, 256), generator=g,
+                         device=cuda).bfloat16()
+        results.append((x, p, a, b, a2,
+                        torus.torus_all_gather_shard(x, mesh, axes),
+                        torus.torus_reduce_scatter_shard(p, mesh, axes),
+                        agm.ag_gemm_shard(a, b, mesh=mesh, axis=axes),
+                        grs.gemm_rs_shard(a2, b, mesh=mesh, axis=axes)))
+    torch.cuda.synchronize()
+    for x, p, a, b, a2, ag, rs, (a_full, c), out in results:
+        assert torch.equal(ag, torus.torus_all_gather_ref(x, mesh, axes))
+        assert torch.equal(rs, torus.torus_reduce_scatter_ref(p, mesh, axes))
+        want_full, want_c = agm.torus_ag_gemm_ref(a, b, mesh, axes)
+        assert torch.equal(a_full, want_full)
+        _gemm_close(c, want_c, "torus ag_gemm in a row")
+        _gemm_close(out, grs.torus_gemm_rs_ref(a2, b, mesh, axes),
+                    "torus gemm_rs in a row")
+
+
+@pytest.mark.gpu
+def test_torus_host_entries_on_the_card(cuda):
+    """The host entries with a tuple axis on the card against the same
+    contexts' plain versions (``plain`` / ``impl="xla"``): ``all_gather``
+    (above 64 KiB a rank: the torus kernel), ``reduce_scatter``,
+    ``ag_gemm_gathered``, ``gemm_rs``, and the autotuned entries (one
+    torus timing each) in one ``contextual_autotune`` region."""
+    from triton_dist_tpu_torch.autotuner import contextual_autotune
+    from triton_dist_tpu_torch.kernels import allgather as ag
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    mesh, axes = _mesh((4, 2), ("x", "y"), cuda), ("x", "y")
+    g = np.random.default_rng(9)
+    x = _randn(g, (8 * 512, 128), cuda)     # 128 KiB a rank
+    n0 = _torus_counts()
+    got = ag.all_gather(x, ag.create_allgather_context(mesh, axis=axes))
+    assert _torus_moved(n0)[0] == 1 and torch.equal(got, x)
+    parts = _randn(g, (8, 8 * 64, 128), cuda)
+    red = rs.reduce_scatter(parts, rs.create_reduce_scatter_context(
+        mesh, axis=axes))
+    _gemm_close(red, parts.float().sum(0), "host reduce_scatter", 2e-2)
+    a = _randn(g, (512, 512), cuda)
+    b = (_randn(g, (512, 1024), cuda).float() / 512 ** 0.5).bfloat16()
+    full, c = agm.ag_gemm_gathered(a, b, agm.create_ag_gemm_context(
+        mesh, axis=axes))
+    assert torch.equal(full, a)
+    _gemm_close(c, a.float() @ b.float(), "host torus ag_gemm")
+    a2 = _randn(g, (512, 1024), cuda)
+    b2 = (_randn(g, (1024, 512), cuda).float() / 1024 ** 0.5).bfloat16()
+    c2 = grs.gemm_rs(a2, b2, grs.create_gemm_rs_context(mesh, axis=axes))
+    _gemm_close(c2, grs.gemm_rs(a2, b2, grs.create_gemm_rs_context(
+        mesh, axis=axes, impl="xla")), "host torus gemm_rs")
+
+    @contextual_autotune(n_repeat=2, n_warmup=1)
+    def op():
+        return (agm.ag_gemm_autotuned(a, b, agm.create_ag_gemm_context(
+            mesh, axis=axes)), grs.gemm_rs_autotuned(
+                a2, b2, grs.create_gemm_rs_context(mesh, axis=axes)))
+
+    ct, c2t = op()
+    _gemm_close(ct, c, "ag_gemm_autotuned (torus)")
+    _gemm_close(c2t, c2, "gemm_rs_autotuned (torus)")
+    assert len(next(reversed(agm._ag_gemm_tunable.sweeps.values()))) == 1

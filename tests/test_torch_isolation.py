@@ -63,6 +63,7 @@ def test_every_port_module_imports_without_jax():
             "triton_dist_tpu_torch.autotuner",
             "triton_dist_tpu_torch.kernels.allgather_group_gemm",
             "triton_dist_tpu_torch.kernels.moe_reduce_rs",
+            "triton_dist_tpu_torch.kernels.torus",
             "triton_dist_tpu_torch.runtime.host_ops"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -546,3 +547,46 @@ def test_moe_tp_wrappers_use_plain_versions_only_for_cpu_tensors():
                      mrs.create_moe_rs_context):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make(Mesh((W,), ("tp",)), n_experts=E, topk=2)
+
+
+def test_torus_wrappers_use_plain_versions_only_for_cpu_tensors():
+    """The torus kernels' wrappers (all-gather, reduce-scatter, AG-GEMM and
+    GEMM-RS and their int8 modes, over the joint group of a (2, 2, 2)
+    mesh) run their plain versions on CPU tensors without counting a
+    launch, and refuse other devices."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import torus
+    from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+
+    mesh, axes = Mesh((2, 2, 2), ("x", "y", "z"), "cpu"), ("x", "y", "z")
+    counters = (torus.torus_all_gather_shard,
+                torus.torus_reduce_scatter_shard, agm.torus_ag_gemm,
+                agm.torus_ag_gemm_i8, grs.torus_gemm_rs,
+                grs.torus_gemm_rs_i8)
+    n0 = [fn.launches for fn in counters]
+    x = torch.randn(2, 2, 2, 3, 128)
+    assert torus.torus_all_gather_shard(x, mesh, axes).shape == \
+        (2, 2, 2, 24, 128)
+    assert torus.torus_reduce_scatter_shard(
+        torch.randn(2, 2, 2, 16, 128), mesh, axes).shape == (2, 2, 2, 2, 128)
+    a, b = torch.randn(8, 8, 128), torch.randn(8, 128, 128)
+    assert agm.torus_ag_gemm(a, b, mesh, axes)[1].shape == (8, 64, 128)
+    ai = torch.randint(-4, 4, (8, 8, 128), dtype=torch.int8)
+    bi = torch.randint(-4, 4, (8, 128, 128), dtype=torch.int8)
+    assert agm.torus_ag_gemm_i8(ai, bi, mesh, axes)[1].dtype == torch.int32
+    a2 = torch.randn(8, 64, 128)
+    assert grs.torus_gemm_rs(a2, b, mesh, axes).shape == (8, 8, 128)
+    assert grs.torus_gemm_rs_i8(ai.repeat(1, 8, 1), bi, mesh,
+                                axes).dtype == torch.int32
+    assert [fn.launches for fn in counters] == n0
+    meta = torch.empty((2, 2, 2, 8, 128), device="meta")
+    for fn in (torus.torus_all_gather_shard,
+               torus.torus_reduce_scatter_shard):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(meta, mesh, axes)
+    mb = torch.empty((8, 64, 128), dtype=torch.bfloat16, device="meta")
+    wb = torch.empty((8, 128, 128), dtype=torch.bfloat16, device="meta")
+    for fn in (agm.torus_ag_gemm, grs.torus_gemm_rs):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(mb, wb, mesh, axes)

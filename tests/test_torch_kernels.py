@@ -72,6 +72,14 @@ the port's sorted h bit-equal to the reference's; the reduce-scatter's
 hop order; the load-aware default's m_pad; the autotuned entries (every
 config's output equal to the host entry's, the prunes' survivors); the
 host planner (native and numpy) equal to the reference's.
+
+The torus (multi-axis) schedules against the reference's XLA math over
+the joint axes (every oracle mesh, a reordered and a subset tuple,
+degenerate size-1 axes): the gathers bit for bit, ``psum_scatter`` and
+the GEMM host entries within 1e-5 / 2e-3, int8 exact; the composition at
+untileable shapes; the dispatch and refusals under a tuple axis and the
+autotuner's one torus schedule.  The interpret-mode Pallas torus kernels
+are held in test_torch_train.py (their time kept off this file).
 """
 
 import importlib
@@ -2165,8 +2173,8 @@ def test_reduce_scatter_host_entry_matches_reference(mesh4):
 
 def test_choose_allgather_method_matches_reference():
     """choose_allgather_method against the reference's on its own cases and
-    over several axes; a gather over two real axes (the torus schedule) is
-    refused naming its ROADMAP entry, a degenerate axis tuple is not."""
+    over several axes; a gather over two real axes (the torus schedule)
+    gathers flat axes-major, a degenerate axis tuple over its one axis."""
     from triton_dist_tpu_torch.kernels import allgather as tag
 
     M = tag.AllGatherMethod
@@ -2179,9 +2187,10 @@ def test_choose_allgather_method_matches_reference():
         assert tag.choose_allgather_method(*args).value == \
             jag.choose_allgather_method(*args).value, args
     mesh = _tmesh((2, 4), ("dcn", "tp"))
-    x = torch.zeros(2, 4, 3, 128)
-    with pytest.raises(NotImplementedError, match="eighth entry"):
-        tag.all_gather_shard(x, mesh, ("dcn", "tp"))
+    x = torch.arange(2 * 4 * 3.).reshape(2, 4, 3, 1).expand(2, 4, 3, 128)
+    got = tag.all_gather_shard(x, mesh, ("dcn", "tp"))
+    assert got.shape == (2, 4, 24, 128)
+    assert got[1, 2, :, 0].tolist() == list(range(24))
     one = _tmesh((1, 4), ("dcn", "tp"))
     got = tag.all_gather_shard(torch.arange(12.).reshape(1, 4, 3, 1), one,
                                ("dcn", "tp"))
@@ -3458,3 +3467,249 @@ def test_stable_rank_in_group_host_matches_reference():
     assert np.array_equal(counts, want_counts.numpy())
     with pytest.raises(ValueError):
         tho.stable_rank_in_group_host(np.array([0, 9], np.int32), 3)
+
+
+
+# ---------------------------------------------------------------------------
+# The torus (multi-axis) collectives and ring GEMMs against the reference's
+# XLA math over the joint axes (the interpret-mode kernels' parity tests
+# are in test_torch_train.py), and their dispatch and contract
+# ---------------------------------------------------------------------------
+
+TORUS_XLA_MESHES = {
+    # name: (mesh shape, names, joint axes): the reference's oracle meshes,
+    # a reordered tuple, a subset tuple (two groups of four), degenerate
+    # size-1 axes (one real axis left; two left of three)
+    "2x4": ((2, 4), ("x", "y"), ("x", "y")),
+    "4x2": ((4, 2), ("x", "y"), ("x", "y")),
+    "2x2x2": ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z")),
+    "2x4_yx": ((2, 4), ("x", "y"), ("y", "x")),
+    "2x2x2_yz": ((2, 2, 2), ("x", "y", "z"), ("y", "z")),
+    "1x4": ((1, 4), ("x", "y"), ("x", "y")),
+    "2x1x4": ((2, 1, 4), ("x", "y", "z"), ("x", "y", "z")),
+}
+
+
+def _torus_xla_case(name):
+    shape, names, axes = TORUS_XLA_MESHES[name]
+    sizes = dict(zip(names, shape))
+    return (_jmesh(shape, names), _tmesh(shape, names), axes,
+            int(np.prod([sizes[a] for a in axes])), int(np.prod(shape)))
+
+
+@pytest.mark.parametrize("name", sorted(TORUS_XLA_MESHES))
+def test_torus_collectives_match_xla(name):
+    """The tuple-axis all-gather (80 KiB a rank: the torus schedule) bit
+    for bit against ``lax.all_gather`` over the joint axes, the
+    reduce-scatter (distinct f32 partials) within 1e-5 of
+    ``lax.psum_scatter`` over them (another order of adds), and RS(AG(x))
+    = G x band for band within 1e-5 (the reference's round trip)."""
+    from triton_dist_tpu_torch.kernels import allgather as tag_
+    from triton_dist_tpu_torch.kernels import reduce_scatter as trs_
+
+    jmesh, mesh, axes, G, W = _torus_xla_case(name)
+    rows = 160
+    x = _inputs(440, (G * rows, 128))[0]
+    want = np.asarray(_shard_map(
+        lambda s: jax.lax.all_gather(s, axes, axis=0, tiled=True)[None],
+        jmesh, (P(axes),), P(jmesh.axis_names), jnp.asarray(x)))
+    idx = torch.tensor(mesh.joint_index(axes))
+    xt = _t(x).reshape(G, rows, 128)[idx].reshape(*mesh.shape, rows, 128)
+    got = tag_.all_gather_shard(xt, mesh, axes)
+    assert np.array_equal(got.reshape(want.shape).numpy(), want)
+    parts = _inputs(441, (W, G * 8, 128))[0]
+    want = _shard_map(lambda p: jax.lax.psum_scatter(
+        p[0], axes, scatter_dimension=0, tiled=True)[None], jmesh,
+        (P(jmesh.axis_names),), P(jmesh.axis_names), jnp.asarray(parts))
+    got = trs_.reduce_scatter_shard(
+        _t(parts).reshape(*mesh.shape, G * 8, 128), mesh, axes)
+    assert_allclose(got.reshape(W, 8, 128), np.asarray(want), atol=1e-5,
+                    rtol=1e-5)
+    back = trs_.reduce_scatter_shard(got_ag := tag_.all_gather_shard(
+        xt, mesh, axes), mesh, axes)
+    assert got_ag.shape[-2] == G * rows
+    assert_allclose(back, G * xt, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(TORUS_XLA_MESHES))
+def test_torus_gemm_host_entries_match_xla(name):
+    """``ag_gemm_gathered`` and ``gemm_rs`` with a tuple axis on a port
+    Mesh against the reference's host entries (``impl="xla"``: XLA's
+    joint gather and ``psum_scatter`` around ``jnp.dot``): A_full bit for
+    bit, C within the reference tests' 2e-3; a's rows and b's columns (or
+    a's columns and b's rows) sharded flat axes-major."""
+    jmesh, mesh, axes, G, W = _torus_xla_case(name)
+    rng = np.random.default_rng(450)
+    a = rng.standard_normal((8 * G, 128)).astype(np.float32)
+    b = rng.standard_normal((128, 128 * G)).astype(np.float32)
+    ja = jax.device_put(jnp.asarray(a), NamedSharding(jmesh, P(axes, None)))
+    jb = jax.device_put(jnp.asarray(b), NamedSharding(jmesh, P(None, axes)))
+    want_full, want_c = jagm.ag_gemm_gathered(
+        ja, jb, jagm.create_ag_gemm_context(jmesh, axis=axes, impl="xla"))
+    full, c = tag.ag_gemm_gathered(_t(a), _t(b), tag.create_ag_gemm_context(
+        mesh, axis=axes))
+    assert np.array_equal(full.numpy(), np.asarray(want_full))
+    assert_allclose(c, np.asarray(want_c), atol=2e-3, rtol=2e-3)
+    a2 = rng.standard_normal((8 * G, 128 * G)).astype(np.float32)
+    b2 = (rng.standard_normal((128 * G, 256)) / np.sqrt(128 * G)).astype(
+        np.float32)
+    ja = jax.device_put(jnp.asarray(a2), NamedSharding(jmesh, P(None, axes)))
+    jb = jax.device_put(jnp.asarray(b2), NamedSharding(jmesh, P(axes, None)))
+    want = jgrs.gemm_rs(ja, jb, jgrs.create_gemm_rs_context(
+        jmesh, axis=axes, impl="xla"))
+    got = trs.gemm_rs(_t(a2), _t(b2), trs.create_gemm_rs_context(
+        mesh, axis=axes))
+    assert_allclose(got, np.asarray(want), atol=2e-3, rtol=2e-3)
+    assert_allclose(got, a2 @ b2, atol=2e-3, rtol=2e-3)
+
+
+def test_torus_int8_gemms_exact():
+    """int8 through the torus schedules is exact: the GEMM-RS at
+    test_torus_gemm_rs_int8_exact's case ((2, 4) mesh, M 64, K 1024, N
+    512, integers in [-63, 64) from default_rng(3)) and at an untileable
+    k (the reference composes; int32 sums agree in any order), and an
+    int8-A AG-GEMM over the (2, 2, 2) mesh, each against numpy's int64
+    product."""
+    mesh = _tmesh((2, 4), ("x", "y"))
+    rng = np.random.default_rng(3)
+    a = rng.integers(-63, 64, (64, 1024), np.int8)
+    b = rng.integers(-63, 64, (1024, 512), np.int8)
+    ref = a.astype(np.int64) @ b.astype(np.int64)
+    ctx = trs.create_gemm_rs_context(mesh, axis=("x", "y"))
+    got = trs.gemm_rs(_t(a), _t(b), ctx)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().astype(np.int64), ref)
+    got = trs.gemm_rs(_t(a[:, :8 * 40]), _t(b[:8 * 40]), ctx)
+    assert np.array_equal(got.numpy().astype(np.int64),
+                          a[:, :320].astype(np.int64) @ b[:320])
+    mesh3 = _tmesh((2, 2, 2), ("x", "y", "z"))
+    a = rng.integers(-127, 128, (64, 256), np.int8)
+    b = rng.integers(-127, 128, (256, 8 * 128), np.int8)
+    full, c = tag.ag_gemm_gathered(_t(a), _t(b), tag.create_ag_gemm_context(
+        mesh3, axis=("x", "y", "z")))
+    assert np.array_equal(full.numpy(), a)
+    assert c.dtype == torch.int32
+    assert np.array_equal(c.numpy().astype(np.int64),
+                          a.astype(np.int64) @ b.astype(np.int64))
+
+
+def test_torus_gemm_rs_composes_at_untileable_shapes():
+    """At shapes the reference's fused kernel cannot tile (k 64, m_loc 4,
+    N 200) the torus GEMM-RS composes as the reference does: the uni
+    GEMM-RS over the first axis, then a reduce-scatter over the other;
+    against the reference's host entry (``impl="xla"``) within 2e-3, and
+    the bands stay flat axes-major; ``impl="pallas"`` raises there, as the
+    reference's first step does."""
+    jmesh, mesh, axes = (_jmesh((2, 4), ("x", "y")),
+                         _tmesh((2, 4), ("x", "y")), ("y", "x"))
+    rng = np.random.default_rng(460)
+    for M, K, N in ((64, 512, 200), (32, 512, 256), (64, 8 * 64, 256)):
+        a = rng.standard_normal((M, K)).astype(np.float32)
+        b = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+        ja = jax.device_put(jnp.asarray(a), NamedSharding(jmesh,
+                                                          P(None, axes)))
+        jb = jax.device_put(jnp.asarray(b), NamedSharding(jmesh,
+                                                          P(axes, None)))
+        want = jgrs.gemm_rs(ja, jb, jgrs.create_gemm_rs_context(
+            jmesh, axis=axes, impl="xla"))
+        got = trs.gemm_rs(_t(a), _t(b), trs.create_gemm_rs_context(
+            mesh, axis=axes))
+        assert_allclose(got, np.asarray(want), atol=2e-3, rtol=2e-3)
+        with pytest.raises(ValueError, match="impl='pallas'"):
+            trs.gemm_rs(_t(a), _t(b), trs.create_gemm_rs_context(
+                mesh, axis=axes, impl="pallas"))
+
+
+def test_torus_dispatch_and_contract(monkeypatch):
+    """The reference's routing and refusals under a tuple axis: a gather of
+    64 KiB or less a rank takes XLA's joint gather (the plain math), a
+    larger one, or any method but XLA, the torus schedule; the
+    reduce-scatter's XLA method sums in joint order, every other the
+    torus schedule; more than three axes raise ValueError; ``wire_dtype``
+    raises NotImplementedError; ``ring_mode="bidir"`` with ``chunks > 1``
+    raises ValueError first, and is otherwise ignored, as ``chunks`` is;
+    ``impl="pallas"`` off the tiling raises; the MoE overlap kernels
+    refuse a joint group."""
+    from triton_dist_tpu_torch.kernels import allgather as tag_
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as tagg
+    from triton_dist_tpu_torch.kernels import reduce_scatter as trs_
+    from triton_dist_tpu_torch.kernels import torus as ttorus
+
+    calls = []
+    for fn in ("torus_all_gather_ref", "torus_all_gather_shard",
+               "torus_reduce_scatter_shard"):
+        orig = getattr(ttorus, fn)
+        monkeypatch.setattr(ttorus, fn, lambda *a, _o=orig, _n=fn, **kw: (
+            calls.append(_n), _o(*a, **kw))[1])
+    monkeypatch.setattr(trs_, "joint_sum_ref", lambda *a, _o=trs_.
+                        joint_sum_ref: (calls.append("joint_sum_ref"),
+                                        _o(*a))[1])
+    mesh, axes = _tmesh((2, 4), ("x", "y")), ("x", "y")
+    M = tag_.AllGatherMethod
+    for rows, method, want in ((128, M.AUTO, "torus_all_gather_ref"),
+                               (129, M.AUTO, "torus_all_gather_shard"),
+                               (4, M.RING_1D, "torus_all_gather_shard"),
+                               (4096, M.XLA, "torus_all_gather_ref")):
+        calls.clear()
+        x = torch.randn(2, 4, rows, 128)          # 512 bytes a row
+        got = tag_.all_gather_shard(x, mesh, axes, method)
+        assert calls[0] == want, (rows, method, calls)
+        assert torch.equal(got, ttorus.torus_all_gather_ref(x, mesh, axes))
+    R = trs_.ReduceScatterMethod
+    for method, want in ((R.XLA, "joint_sum_ref"),
+                         (R.AUTO, "torus_reduce_scatter_shard"),
+                         (R.RING_1D, "torus_reduce_scatter_shard")):
+        calls.clear()
+        trs_.reduce_scatter_shard(torch.randn(2, 4, 16, 128), mesh, axes,
+                                  method)
+        assert calls == [want]
+    mesh4 = _tmesh((2, 2, 2, 1), ("a", "b", "c", "d"))
+    with pytest.raises(ValueError, match="1-3 axes"):
+        tag_.all_gather_shard(torch.randn(2, 2, 2, 1, 8, 128), mesh4,
+                              ("a", "b", "c", "d"))
+    a, b = torch.randn(64, 128), torch.randn(128, 1024)
+    with pytest.raises(NotImplementedError, match="wire_dtype"):
+        tag.ag_gemm(a, b, tag.create_ag_gemm_context(
+            mesh, axis=axes, wire_dtype="int8"))
+    with pytest.raises(ValueError, match="bidir"):
+        tag.ag_gemm(a, b, tag.create_ag_gemm_context(
+            mesh, axis=axes, ring_mode="bidir", chunks=2))
+    with pytest.raises(ValueError, match="bidir"):
+        tag.ag_gemm_shard(torch.randn(8, 8, 128), torch.randn(8, 128, 128),
+                          ring_mode="bidir", chunks=2, mesh=mesh, axis=axes)
+    base = tag.ag_gemm(a, b, tag.create_ag_gemm_context(mesh, axis=axes))
+    for kw in (dict(ring_mode="bidir"), dict(chunks=4)):
+        assert torch.equal(tag.ag_gemm(a, b, tag.create_ag_gemm_context(
+            mesh, axis=axes, **kw)), base)
+    assert tag.ag_gemm_schedule(8, 8, False, chunks=4, torus=True) == \
+        tag.ag_gemm_schedule(8, 8, False, ring_mode="bidir", torus=True)
+    assert trs.gemm_rs_schedule(8, 512, "bidir", torus=True) == "torus"
+    with pytest.raises(ValueError, match="impl='pallas'"):
+        tag.ag_gemm(a[:60], b, tag.create_ag_gemm_context(
+            mesh, axis=axes, impl="pallas"))
+    with pytest.raises(NotImplementedError, match="flat world"):
+        tagg.ag_group_gemm(torch.zeros(16, 32), torch.ones(16, 2),
+                           torch.zeros(16, 2, dtype=torch.long),
+                           torch.zeros(4, 32, 64),
+                           tagg.create_ag_group_gemm_context(
+                               mesh, n_experts=4, topk=2, axis=axes))
+
+
+def test_torus_autotuner_dedupes_to_one_schedule():
+    """Under a tuple axis every config of the ring GEMMs' sweeps resolves
+    to the torus schedule, so the prune keeps one (the reference's sweep
+    collapses to one program); the autotuned entries equal the host
+    entries."""
+    mesh, axes = _tmesh((2, 2, 2), ("x", "y", "z")), ("x", "y", "z")
+    ctx = tag.create_ag_gemm_context(mesh, axis=axes)
+    a, b = torch.randn(64, 128), torch.randn(128, 1024)
+    assert tag._ag_gemm_tunable._configs_for((a, b), {"ctx": ctx}) == [
+        {"chunks": 1}]
+    rctx = trs.create_gemm_rs_context(mesh, axis=axes)
+    a2, b2 = torch.randn(64, 1024), torch.randn(1024, 256)
+    assert trs._gemm_rs_tunable._configs_for((a2, b2), {"ctx": rctx}) == [
+        {"ring_mode": "uni"}]
+    assert torch.equal(tag.ag_gemm_autotuned(a, b, ctx),
+                       tag.ag_gemm(a, b, ctx))
+    assert torch.equal(trs.gemm_rs_autotuned(a2, b2, rctx),
+                       trs.gemm_rs(a2, b2, rctx))

@@ -42,6 +42,11 @@
   (1e-5 / 5e-4; ``make_pp_grads`` against its gradients); the families'
   ``dp`` steps against the reference's ``dp_axis`` steps on a (dp 2, tp
   2) mesh (1e-5, 5e-4) and ``examples/train.py --dp 2 --tp 2``.
+- The torus (multi-axis) collectives and ring GEMMs over the oracle
+  meshes of tests/test_torus.py against the reference's interpret-mode
+  Pallas kernels (spied) at its tests' shapes: the all-gather and the
+  reduce-scatter bit for bit in f32 and bf16, the host GEMM-RS and
+  AG-GEMM within their tests' 2e-3 (the gathered A bit for bit).
 """
 
 import os
@@ -1074,3 +1079,168 @@ def test_train_cli_dp_tp_runs(capsys):
     assert len(losses) == 3 and losses[-1] < losses[0]
     with pytest.raises(SystemExit, match="does not split"):
         train.main(["--dp", "3", "--device", "cpu", "--batch", "4"])
+
+
+# ---------------------------------------------------------------------------
+# The torus (multi-axis) collectives and ring GEMMs against the reference's
+# interpret-mode Pallas kernels (spied), at its tests' shapes
+# ---------------------------------------------------------------------------
+
+
+def _torus_jmesh(shape, names):
+    return Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
+                names)
+
+
+def _torus_spy(monkeypatch, module, name):
+    """Record each trace of ``module.name`` (the Pallas kernel body)."""
+    kernel, traced = getattr(module, name), []
+
+    def spy(*a, **kw):
+        traced.append(name)
+        return kernel(*a, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return traced
+
+
+def _torus_per_rank(fn, jmesh, in_spec, x):
+    """Every rank's result of jit(shard_map(fn)), stacked in world-rank
+    order."""
+    out = jax.jit(jax.shard_map(
+        lambda s: fn(s)[None], mesh=jmesh, in_specs=(in_spec,),
+        out_specs=P(jmesh.axis_names), check_vma=False))(x)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _torus_dtypes(dtype):
+    return ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+            else (jnp.float32, torch.float32))
+
+
+TORUS_AG_CASES = {
+    # name: (mesh shape, names, joint axes, rows a rank, dtype): the
+    # reference's test_torus2d_allgather rows 8 and 6 (uneven quarters) and
+    # test_torus3d_allgather_bf16_uneven (rows 7: uneven sixths)
+    "2x4_rows8": ((2, 4), ("x", "y"), ("x", "y"), 8, "f32"),
+    "2x4_rows6": ((2, 4), ("x", "y"), ("x", "y"), 6, "f32"),
+    "2x2x2_bf16_rows7": ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z"), 7,
+                         "bf16"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TORUS_AG_CASES))
+def test_torus_all_gather_matches_pallas(name, monkeypatch):
+    """``torus_all_gather_shard``'s plain version against the reference's
+    interpret-mode ``_torus_ag_kernel`` (spied): every rank's gathered
+    shards bit for bit, flat axes-major; the port's rank r holds the row
+    block of its joint index."""
+    from triton_dist_tpu.kernels import torus as jtorus
+    from triton_dist_tpu_torch.kernels import torus as ttorus
+
+    shape, names, axes, rows, dt = TORUS_AG_CASES[name]
+    jdt, tdt = _torus_dtypes(dt)
+    traced = _torus_spy(monkeypatch, jtorus, "_torus_ag_kernel")
+    W = int(np.prod(shape))
+    x = np.random.default_rng(400 + rows).standard_normal(
+        (W * rows, 128)).astype(np.float32)
+    want = _torus_per_rank(
+        lambda s: jtorus.torus_all_gather_shard(s, axes, interpret=True),
+        _torus_jmesh(shape, names), P(axes), jnp.asarray(x).astype(jdt))
+    assert traced
+    mesh = TMesh(shape, names, "cpu")
+    xt = torch.from_numpy(x).to(tdt).reshape(W, rows, 128)
+    xt = xt[torch.tensor(mesh.joint_index(axes))].reshape(*shape, rows, 128)
+    got = ttorus.torus_all_gather_shard(xt, mesh, axes)
+    assert got.shape == (*shape, W * rows, 128)
+    assert np.array_equal(got.float().reshape(want.shape).numpy(), want)
+
+
+TORUS_RS_CASES = {
+    # name: (mesh shape, names, joint axes, rows a band, dtype): the
+    # reference's 2-D RS with distinct partials (rows 5: uneven quarters)
+    # and its 3-D RS (rows 6: one a path), that one in bf16
+    "2x4_f32_rows5": ((2, 4), ("x", "y"), ("x", "y"), 5, "f32"),
+    "2x2x2_bf16_rows6": ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z"), 6,
+                         "bf16"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TORUS_RS_CASES))
+def test_torus_reduce_scatter_matches_pallas(name, monkeypatch):
+    """``torus_reduce_scatter_shard``'s plain version against the
+    reference's interpret-mode ``_torus_rs_kernel`` (spied), a distinct
+    partial on every rank: bit for bit in f32 and bf16 (the reference's
+    torus order and rounding), where the joint-order sum differs."""
+    from triton_dist_tpu.kernels import torus as jtorus
+    from triton_dist_tpu_torch.kernels import reduce_scatter as trs
+    from triton_dist_tpu_torch.kernels import torus as ttorus
+
+    shape, names, axes, rows, dt = TORUS_RS_CASES[name]
+    jdt, tdt = _torus_dtypes(dt)
+    traced = _torus_spy(monkeypatch, jtorus, "_torus_rs_kernel")
+    W = int(np.prod(shape))
+    parts = np.random.default_rng(410 + rows).standard_normal(
+        (W, W * rows, 128)).astype(np.float32)
+    want = _torus_per_rank(
+        lambda s: jtorus.torus_reduce_scatter_shard(s[0], axes,
+                                                    interpret=True),
+        _torus_jmesh(shape, names), P(names), jnp.asarray(parts).astype(jdt))
+    assert traced
+    mesh = TMesh(shape, names, "cpu")
+    xt = torch.from_numpy(parts).to(tdt).reshape(*shape, W * rows, 128)
+    got = ttorus.torus_reduce_scatter_shard(xt, mesh, axes)
+    assert got.shape == (*shape, rows, 128)
+    assert np.array_equal(got.float().reshape(want.shape).numpy(), want)
+    assert not torch.equal(got, trs.joint_sum_ref(xt, mesh, axes))
+
+
+def test_torus_gemm_rs_matches_pallas(monkeypatch):
+    """The host ``gemm_rs`` over ("x", "y") of a (2, 2) mesh against the
+    reference's interpret-mode ``_torus_gemm_rs_kernel`` (spied) at
+    test_torus_gemm_rs_fused_small's case (M 32, K 512, N 512, f32: k_loc
+    128, so the fused kernel runs), within its 2e-3."""
+    from triton_dist_tpu.kernels import gemm_reduce_scatter as jgrs
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as tgrs
+
+    traced = _torus_spy(monkeypatch, jgrs, "_torus_gemm_rs_kernel")
+    rng = np.random.default_rng(420)
+    M, K, N = 32, 512, 512
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    want = jgrs.gemm_rs(jnp.asarray(a), jnp.asarray(b),
+                        jgrs.GEMMReduceScatterContext(
+                            mesh=_torus_jmesh((2, 2), ("x", "y")),
+                            axis=("x", "y"), impl="pallas", interpret=True))
+    assert traced
+    ctx = tgrs.create_gemm_rs_context(TMesh((2, 2), ("x", "y"), "cpu"),
+                                      axis=("x", "y"), impl="pallas")
+    got = tgrs.gemm_rs(torch.from_numpy(a), torch.from_numpy(b), ctx)
+    assert_allclose(got, np.asarray(want), atol=2e-3, rtol=2e-3)
+    assert_allclose(got, a @ b, atol=2e-3, rtol=2e-3)
+
+
+def test_torus_ag_gemm_matches_pallas(monkeypatch):
+    """The host ``ag_gemm_gathered`` over ("x", "y") of a (2, 4) mesh
+    against the reference's interpret-mode ``_torus_ag_gemm_kernel``
+    (spied) at test_torus_ag_gemm's case (M 64, K 128, N 1024, f32):
+    the gathered A bit for bit, C within its 2e-3."""
+    from triton_dist_tpu.kernels import allgather_gemm as jagm
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tagm
+
+    traced = _torus_spy(monkeypatch, jagm, "_torus_ag_gemm_kernel")
+    rng = np.random.default_rng(430)
+    M, K, N = 64, 128, 8 * 128
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    want_full, want_c = jagm.ag_gemm_gathered(
+        jnp.asarray(a), jnp.asarray(b), jagm.AllGatherGEMMContext(
+            mesh=_torus_jmesh((2, 4), ("x", "y")), axis=("x", "y"),
+            impl="pallas", interpret=True))
+    assert traced
+    ctx = tagm.create_ag_gemm_context(TMesh((2, 4), ("x", "y"), "cpu"),
+                                      axis=("x", "y"), impl="pallas")
+    full, c = tagm.ag_gemm_gathered(torch.from_numpy(a),
+                                    torch.from_numpy(b), ctx)
+    assert np.array_equal(full.numpy(), np.asarray(want_full))
+    assert_allclose(c, np.asarray(want_c), atol=2e-3, rtol=2e-3)

@@ -112,6 +112,7 @@ struct Params {
   Peers<unsigned> flags;   // uni: [W segments][chunks]; bidir: [2][W]
   Peers<unsigned> cnt;     // piece counters, laid out as the flags
   Peers<unsigned> bar;     // rank r's [W] barrier slots
+  tdt_dist::Group grp;     // uni: the ranks that gather (segment = index)
   int world, m_loc, n, k;
   int crow;                // rows of one chunk (uni; m_loc % crow == 0)
   unsigned epoch;
@@ -124,36 +125,39 @@ __device__ __forceinline__ void put_scales(float* dst, const float* src,
     dst[i] = __ldcg(src + i);
 }
 
-// One item of rank `me`'s uni list of n_copy + world * tiles * tiles_n: a
-// copy (it < n_copy) of piece `piece` of chunk `chunk` of my segment into
-// rank `peer`'s gathered buffer (the peers first, my own buffer last, so no
-// block waits on my own copy), or a GEMM tile (segment `seg`, row tile
-// `tile`, column tile `col`) walking the segments from my own.  `rows`:
-// the rows the piece or row tile holds.
+// One item of rank `me`'s uni list of n_copy + G * tiles * tiles_n (G the
+// ranks of its group `g`, `j` its index there): a copy (it < n_copy) of
+// piece `piece` of chunk `chunk` of my segment into rank `peer`'s gathered
+// buffer (the peers first, my own buffer last, so no block waits on my own
+// copy), or a GEMM tile (segment `seg`, row tile `tile`, column tile
+// `col`) walking the segments from my own.  `rows`: the rows the piece or
+// row tile holds.
 struct Item {
   bool copy;
   int peer, chunk, piece, seg, tile, col, rows;
 };
 
-template <int BM>
-__device__ __forceinline__ Item item_of(int it, int me, int world,
-                                        int m_loc, int crow, int tiles,
-                                        int tiles_n) {
+template <int BM, bool FLAT>
+__device__ __forceinline__ Item item_of(int it, int me,
+                                        const tdt_dist::Group& g, int G,
+                                        int j, int m_loc, int crow,
+                                        int tiles, int tiles_n) {
   Item x{};
   const int ppc = (crow + BM - 1) / BM;           // pieces per chunk
   const int per_peer = m_loc / crow * ppc;
-  const int n_copy = world * per_peer;
+  const int n_copy = G * per_peer;
   x.copy = it < n_copy;
   if (x.copy) {
     const int p = it / per_peer, rest = it - p * per_peer;
-    x.peer = me + 1 + p;
-    if (x.peer >= world) x.peer -= world;
+    int to = j + 1 + p;
+    if (to >= G) to -= G;
+    x.peer = FLAT ? to : tdt_dist::group_rank(g, me, to);
     x.chunk = rest / ppc;
     x.piece = rest - x.chunk * ppc;
     x.rows = min(BM, crow - x.piece * BM);
   } else {
     const int t = it - n_copy;
-    x.seg = (me + t / (tiles * tiles_n)) % world;
+    x.seg = (j + t / (tiles * tiles_n)) % G;
     x.tile = (t / tiles_n) % tiles;
     x.col = t % tiles_n;
     x.rows = min(BM, m_loc - x.tile * BM);
@@ -161,15 +165,15 @@ __device__ __forceinline__ Item item_of(int it, int me, int world,
   return x;
 }
 
-// The rows a GEMM tile reads: my own input for my own segment (no wait),
+// The rows a GEMM tile reads: my own input for my own segment j (no wait),
 // else my gathered buffer once the flag of every chunk the tile's rows
 // span has reached this call.  `scale`: the wire's row scales beside.
 template <int BM, class TA, class TB, class OutT>
 __device__ __forceinline__ const TA* tile_rows(
-    const Params<TA, TB, OutT>& p, int me, const Item& x,
+    const Params<TA, TB, OutT>& p, int me, int j, const Item& x,
     const float** scale) {
   const long long row0 = static_cast<long long>(x.tile) * BM;
-  if (x.seg == me) {
+  if (x.seg == j) {
     *scale = p.s.p[me] ? p.s.p[me] + row0 : nullptr;
     return p.a.p[me] + row0 * p.k;
   }
@@ -183,21 +187,21 @@ __device__ __forceinline__ const TA* tile_rows(
   return p.ag.p[me] + seg_row * p.k;
 }
 
-// Push piece x.piece of chunk x.chunk of my segment into rank x.peer's
+// Push piece x.piece of chunk x.chunk of my segment (j) into rank x.peer's
 // gathered buffer (and the wire's scales), then count it there.
 template <int BM, class TA, class TB, class OutT>
 __device__ __forceinline__ void push_piece(const Params<TA, TB, OutT>& p,
-                                           int me, const Item& x) {
+                                           int me, int j, const Item& x) {
   const int n_chunks = p.m_loc / p.crow;
   const int row0 = x.chunk * p.crow + x.piece * BM;
-  const long long dst_row = static_cast<long long>(me) * p.m_loc + row0;
+  const long long dst_row = static_cast<long long>(j) * p.m_loc + row0;
   tdt_dist::putmem(p.ag.p[x.peer] + dst_row * p.k,
                    p.a.p[me] + static_cast<long long>(row0) * p.k,
                    static_cast<long long>(x.rows) * p.k *
                        static_cast<int>(sizeof(TA)));
   if (p.s.p[me]) put_scales(p.ag_s.p[x.peer] + dst_row, p.s.p[me] + row0,
                             x.rows);
-  const int f = me * n_chunks + x.chunk;
+  const int f = j * n_chunks + x.chunk;
   count_signal(p.cnt.p[x.peer] + f, (p.crow + BM - 1) / BM,
                p.flags.p[x.peer] + f, p.epoch);
 }
@@ -205,7 +209,8 @@ __device__ __forceinline__ void push_piece(const Params<TA, TB, OutT>& p,
 // bf16, and the int8 wire (A_I8: int8 rows dequantized in the A-tile
 // load).  Two blocks per SM: 128 registers, no spills (ptxas), 10-30%
 // faster than the one block that 167-213 registers allow (PERF.md).
-template <bool B_NK, bool A_I8>
+// FLAT: the whole world in rank order, else the group `p.grp` (the torus).
+template <bool B_NK, bool A_I8, bool FLAT>
 __global__ void __launch_bounds__(tdt_bf16::NT, 2)
 ag_gemm_kernel(const __grid_constant__
                Params<typename std::conditional<A_I8, int8_t, bf16>::type,
@@ -213,21 +218,30 @@ ag_gemm_kernel(const __grid_constant__
   constexpr int BM = tdt_bf16::BM, BN = tdt_bf16::BN;
   extern __shared__ __align__(128) char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int me = blockIdx.y;
-  tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
+  __shared__ int s_j;
+  const int me = blockIdx.y, G = FLAT ? p.world : p.grp.G;
+  if (FLAT) {
+    tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
+  } else {
+    if (threadIdx.x == 0) s_j = tdt_dist::group_index(p.grp, me);
+    tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
+  }
 
   const int tiles = (p.m_loc + BM - 1) / BM, tiles_n = (p.n + BN - 1) / BN;
-  const int n_copy = p.world * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
-  const int n_items = n_copy + p.world * tiles * tiles_n;
+  const int n_copy = G * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
+  const int n_items = n_copy + G * tiles * tiles_n;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const Item x = item_of<BM>(it, me, p.world, p.m_loc, p.crow, tiles,
-                               tiles_n);
+    // off the flat world my index is read anew each item (shared memory):
+    // no group state held in registers across the tile's product
+    const int j = FLAT ? me : s_j;
+    const Item x = item_of<BM, FLAT>(it, me, p.grp, G, j, p.m_loc, p.crow,
+                                     tiles, tiles_n);
     if (x.copy) {
-      push_piece<BM>(p, me, x);
+      push_piece<BM>(p, me, j, x);
       continue;
     }
     const float* scale = nullptr;
-    const auto* src = tile_rows<BM>(p, me, x, &scale);
+    const auto* src = tile_rows<BM>(p, me, j, x, &scale);
     float acc[4][4][4];
     tdt_bf16::mma_tile<B_NK, true, A_I8>(acc, smem, src, p.k, p.b.p[me],
                                          B_NK ? p.k : p.n, x.rows, p.n, p.k,
@@ -241,25 +255,35 @@ ag_gemm_kernel(const __grid_constant__
 
 // int8: 64 x 128 int32 tiles of i8_tile.cuh (4 warps, static shared
 // memory), summed exactly over the whole contraction.
+template <bool FLAT>
 __global__ void __launch_bounds__(tdt_i8::NT)
 ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int8_t, int> p) {
   constexpr int BM = tdt_i8::BM, BN = tdt_i8::BN;
   __shared__ __align__(128) int8_t smem[tdt_i8::SMEM];
-  const int me = blockIdx.y;
-  tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
+  __shared__ int s_j;
+  const int me = blockIdx.y, G = FLAT ? p.world : p.grp.G;
+  if (FLAT) {
+    tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
+  } else {
+    if (threadIdx.x == 0) s_j = tdt_dist::group_index(p.grp, me);
+    tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
+  }
 
   const int tiles = (p.m_loc + BM - 1) / BM, tiles_n = (p.n + BN - 1) / BN;
-  const int n_copy = p.world * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
-  const int n_items = n_copy + p.world * tiles * tiles_n;
+  const int n_copy = G * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
+  const int n_items = n_copy + G * tiles * tiles_n;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const Item x = item_of<BM>(it, me, p.world, p.m_loc, p.crow, tiles,
-                               tiles_n);
+    // off the flat world my index is read anew each item (shared memory):
+    // no group state held in registers across the tile's product
+    const int j = FLAT ? me : s_j;
+    const Item x = item_of<BM, FLAT>(it, me, p.grp, G, j, p.m_loc, p.crow,
+                                     tiles, tiles_n);
     if (x.copy) {
-      push_piece<BM>(p, me, x);
+      push_piece<BM>(p, me, j, x);
       continue;
     }
     const float* unused = nullptr;
-    const int8_t* src = tile_rows<BM>(p, me, x, &unused);
+    const int8_t* src = tile_rows<BM>(p, me, j, x, &unused);
     int acc[BM / 16][4][4];
 #pragma unroll
     for (int mt = 0; mt < BM / 16; ++mt)
@@ -365,7 +389,8 @@ Params<TA, TB, OutT> make_params(const long long* a, const long long* s,
                                  const long long* flags,
                                  const long long* cnt, const long long* bar,
                                  int world, int m_loc, int n, int k,
-                                 int crow, unsigned epoch) {
+                                 int crow, unsigned epoch,
+                                 const tdt_dist::Group& grp) {
   Params<TA, TB, OutT> p;
   p.a = peers<const TA>(a, world);
   p.s = s ? peers<const float>(s, world) : Peers<const float>{};
@@ -376,6 +401,7 @@ Params<TA, TB, OutT> make_params(const long long* a, const long long* s,
   p.flags = peers<unsigned>(flags, world);
   p.cnt = peers<unsigned>(cnt, world);
   p.bar = peers<unsigned>(bar, world);
+  p.grp = grp;
   p.world = world;
   p.m_loc = m_loc;
   p.n = n;
@@ -409,17 +435,18 @@ extern "C" int tdt_ag_gemm(const long long* a, const long long* b,
     return static_cast<int>(cudaErrorInvalidValue);
   auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
                                          flags, cnt, bar, world, m_loc, n,
-                                         k, crow, epoch);
+                                         k, crow, epoch,
+                                         tdt_dist::flat_group(world));
   const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
                     world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
   const auto s = static_cast<cudaStream_t>(stream);
   static unsigned attr_kn = 0, attr_nk = 0;
-  return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true, false>, p,
-                                      tdt_bf16::NT, BF16_SMEM, world, items,
-                                      attr_nk, s)
-              : tdt_dist::launch_coop(ag_gemm_kernel<false, false>, p,
-                                      tdt_bf16::NT, BF16_SMEM, world, items,
-                                      attr_kn, s);
+  return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true, false, true>,
+                                      p, tdt_bf16::NT, BF16_SMEM, world,
+                                      items, attr_nk, s)
+              : tdt_dist::launch_coop(ag_gemm_kernel<false, false, true>,
+                                      p, tdt_bf16::NT, BF16_SMEM, world,
+                                      items, attr_kn, s);
 }
 
 // The int8 wire: a int8 rows and s their f32 scales per rank; ag / ag_s the
@@ -438,13 +465,15 @@ extern "C" int tdt_ag_gemm_wire(const long long* a, const long long* s,
     return static_cast<int>(cudaErrorInvalidValue);
   auto p = make_params<int8_t, bf16, bf16>(a, s, b, ag, ag_s, c, flags, cnt,
                                            bar, world, m_loc, n, k, crow,
-                                           epoch);
+                                           epoch,
+                                           tdt_dist::flat_group(world));
   const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
                     world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
   static unsigned attr = 0;
-  return tdt_dist::launch_coop(ag_gemm_kernel<false, true>, p, tdt_bf16::NT,
-                               tdt_bf16::Tiles<false>::SMEM_I8, world, items,
-                               attr, static_cast<cudaStream_t>(stream));
+  return tdt_dist::launch_coop(ag_gemm_kernel<false, true, true>, p,
+                               tdt_bf16::NT, tdt_bf16::Tiles<false>::SMEM_I8,
+                               world, items, attr,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The bidirectional ring: bf16, b [k][n]; m_loc even (the halves' rows,
@@ -461,7 +490,8 @@ extern "C" int tdt_ag_gemm_bidir(const long long* a, const long long* b,
     return static_cast<int>(cudaErrorInvalidValue);
   auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
                                          flags, cnt, bar, world, m_loc, n,
-                                         k, m_loc, epoch);
+                                         k, m_loc, epoch,
+                                         tdt_dist::flat_group(world));
   const int hp = (m_loc / 2 + BM - 1) / BM;
   const int items = (world - 1) * 2 * hp + (m_loc + BM - 1) / BM +
                     world * 2 * hp * ((n + BN - 1) / BN);
@@ -486,11 +516,74 @@ extern "C" int tdt_ag_gemm_i8(const long long* a, const long long* b,
     return static_cast<int>(cudaErrorInvalidValue);
   auto p = make_params<int8_t, int8_t, int>(a, nullptr, b, ag, nullptr, c,
                                             flags, cnt, bar, world, m_loc,
-                                            n, k, crow, epoch);
+                                            n, k, crow, epoch,
+                                            tdt_dist::flat_group(world));
   const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
                     world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
   static unsigned attr = 0;
-  return tdt_dist::launch_coop(ag_gemm_i8_kernel, p, tdt_i8::NT, 0, world,
-                               items, attr,
+  return tdt_dist::launch_coop(ag_gemm_i8_kernel<true>, p, tdt_i8::NT, 0,
+                               world, items, attr,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The torus AG-GEMM (the TPU `_torus_ag_gemm_kernel`, allgather_gemm.py
+// :428, launched from `_torus_ag_gemm_shard` :580): the uni kernels above
+// over the joint group `group` ([n, size0..2, stride0..2], 2 or 3 axes;
+// dist_verbs.cuh `Group`) instead of the flat world.  The TPU kernel
+// rings slots over its first axis, lines over its second and planes over
+// its third, each phase's DMA riding under the GEMMs of what arrived
+// before; NVLink (and one card) joins every rank of the group to every
+// other, so here each rank pushes its segment to every member of its
+// group at once, one flag per segment, and its GEMM tiles take its own
+// segment first (the reference's step 0) and then the others in joint
+// order as they land.  The gathered A comes out flat axes-major (segment
+// j = the rows of joint index j), C = gathered A @ B_r.  bf16 (b_nk as
+// tdt_ag_gemm) or, in tdt_ag_gemm_torus_i8, int8 A and B with the exact
+// int32 C; flags and cnt: G per rank.
+extern "C" int tdt_ag_gemm_torus(const long long* a, const long long* b,
+                                 const long long* ag, const long long* c,
+                                 const long long* flags,
+                                 const long long* cnt, const long long* bar,
+                                 const int* group, int world, int m_loc,
+                                 int n, int k, int b_nk, unsigned epoch,
+                                 void* stream) {
+  using tdt_bf16::BM;
+  using tdt_bf16::BN;
+  const tdt_dist::Group g = tdt_dist::group_from(group);
+  if (bad_shape(world, m_loc, m_loc) || tdt_dist::bad_group(g, world))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
+                                         flags, cnt, bar, world, m_loc, n,
+                                         k, m_loc, epoch, g);
+  const int items = g.G * ((m_loc + BM - 1) / BM) * (1 + (n + BN - 1) / BN);
+  const auto s = static_cast<cudaStream_t>(stream);
+  static unsigned attr_kn = 0, attr_nk = 0;
+  return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true, false, false>,
+                                      p, tdt_bf16::NT, BF16_SMEM, world,
+                                      items, attr_nk, s)
+              : tdt_dist::launch_coop(ag_gemm_kernel<false, false, false>,
+                                      p, tdt_bf16::NT, BF16_SMEM, world,
+                                      items, attr_kn, s);
+}
+
+extern "C" int tdt_ag_gemm_torus_i8(const long long* a, const long long* b,
+                                    const long long* ag, const long long* c,
+                                    const long long* flags,
+                                    const long long* cnt,
+                                    const long long* bar, const int* group,
+                                    int world, int m_loc, int n, int k,
+                                    unsigned epoch, void* stream) {
+  using tdt_i8::BM;
+  using tdt_i8::BN;
+  const tdt_dist::Group g = tdt_dist::group_from(group);
+  if (bad_shape(world, m_loc, m_loc) || tdt_dist::bad_group(g, world))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto p = make_params<int8_t, int8_t, int>(a, nullptr, b, ag, nullptr, c,
+                                            flags, cnt, bar, world, m_loc,
+                                            n, k, m_loc, epoch, g);
+  const int items = g.G * ((m_loc + BM - 1) / BM) * (1 + (n + BN - 1) / BN);
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(ag_gemm_i8_kernel<false>, p, tdt_i8::NT, 0,
+                               world, items, attr,
                                static_cast<cudaStream_t>(stream));
 }

@@ -71,32 +71,6 @@ struct Params {
   unsigned epoch;
 };
 
-// The block copies n bytes from src to dst: 16-byte vectors (four in
-// flight per thread) when both ends are 16-byte aligned, then the tail.
-__device__ __forceinline__ void block_copy(unsigned char* dst,
-                                           const unsigned char* src,
-                                           long long n) {
-  long long done = 0;
-  if (((reinterpret_cast<uintptr_t>(dst) |
-        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const long long nv = n / 16;
-    long long i = threadIdx.x;
-    for (; i + 3 * NT < nv; i += 4 * NT) {
-      const uint4 v0 = s[i], v1 = s[i + NT], v2 = s[i + 2 * NT],
-                  v3 = s[i + 3 * NT];
-      d[i] = v0;
-      d[i + NT] = v1;
-      d[i + 2 * NT] = v2;
-      d[i + 3 * NT] = v3;
-    }
-    for (; i < nv; i += NT) d[i] = s[i];
-    done = nv * 16;
-  }
-  for (long long i = done + threadIdx.x; i < n; i += NT) dst[i] = src[i];
-}
-
 // Piece k of half `h` of a slot: its byte range inside the slot.
 __device__ __forceinline__ void piece_range(const Params& p, int h, int k,
                                             long long& off, long long& n) {
@@ -126,7 +100,7 @@ __global__ void __launch_bounds__(NT) allgather_kernel(
     piece_range(p, h, k, off, n);
     if (step == T - 1) {
       // the own rows into the own slot, last
-      if (n > 0) block_copy(own + c * p.seg + off, x + off, n);
+      if (n > 0) tdt_dist::copy_bytes(own + c * p.seg + off, x + off, n);
       tdt_dist::signal(p.flags.p[me] + c * per_slot + flag, p.epoch);
       continue;
     }
@@ -150,7 +124,8 @@ __global__ void __launch_bounds__(NT) allgather_kernel(
       }
     }
     const int dst = tdt_dist::axis_peer(me, c, to, p.stride);
-    if (n > 0) block_copy(p.out.p[dst] + slot * p.seg + off, src, n);
+    if (n > 0)
+      tdt_dist::copy_bytes(p.out.p[dst] + slot * p.seg + off, src, n);
     tdt_dist::signal(p.flags.p[dst] + slot * per_slot + flag, p.epoch);
   }
 

@@ -184,6 +184,203 @@ __device__ __forceinline__ void barrier_axis(const Peers<unsigned>& bar,
   __syncthreads();
 }
 
+// Peers over a joint group of up to three axes (the reference's tuple
+// `axis`, e.g. ("x", "y") of a (2, 4) mesh): the ranks that agree on the
+// mesh's other axes.  A rank's joint index is its coordinates on the
+// tuple's axes read in mixed radix, the tuple's first axis slowest (the
+// flat axes-major order of `lax.all_gather` over the joint axes), whatever
+// the mesh's own axis order; so ("y", "x") of a (2, 4) mesh is a valid
+// group whose joint index is not the world rank.  One axis of `size` ranks
+// `stride` apart is the group of axis_coord / axis_peer; `flat_group(W)`
+// is the whole world of W ranks in rank order.
+struct Group {
+  int n;          // axes, 1..3
+  int size[3];    // each axis' ranks, in the tuple's order
+  int stride[3];  // each axis' distance in world ranks
+  int G;          // the group's ranks: the product of the sizes
+};
+
+__host__ __device__ __forceinline__ int group_coord(const Group& g, int me,
+                                                    int i) {
+  return (me / g.stride[i]) % g.size[i];
+}
+
+__host__ __device__ __forceinline__ int group_index(const Group& g,
+                                                    int me) {
+  int j = 0;
+  for (int i = 0; i < g.n; ++i) j = j * g.size[i] + group_coord(g, me, i);
+  return j;
+}
+
+// The world rank of joint index j in me's group.
+__host__ __device__ __forceinline__ int group_rank(const Group& g, int me,
+                                                   int j) {
+  int r = me;
+  for (int i = g.n - 1; i >= 0; --i) {
+    const int c = j % g.size[i];
+    j /= g.size[i];
+    r += (c - group_coord(g, me, i)) * g.stride[i];
+  }
+  return r;
+}
+
+// barrier over me's group (the slots are indexed by world rank, so groups
+// never share a slot).
+__device__ __forceinline__ void barrier_group(const Peers<unsigned>& bar,
+                                              int me, const Group& g,
+                                              unsigned epoch) {
+  const int p = threadIdx.x;
+  if (p < g.G) {
+    const int peer = group_rank(g, me, p);
+    st_release(bar.p[peer] + me, epoch);
+    spin_until(bar.p[me] + peer, epoch);
+  }
+  __syncthreads();
+}
+
+// The order in which the reference's torus reduce-scatter folds a joint
+// group's G values for one target (triton_dist_tpu/kernels/torus.py
+// `_torus_rs_kernel` :311, and the torus GEMM-RS :300).  The band is cut
+// into 2n parts; part q takes path flavor (s, d) = (q / 2, q odd ? -1 :
+// 1): phase l ring-reduces along axis (s + l) % n of the group in
+// direction d, and within a ring the sum for coordinate c starts at the
+// rank c + d and each hop adds the local value to the incoming sum (`acc =
+// local + acc`), ending at c.  So the value of target t is a nested ring
+// sum, the phase-0 axis innermost.  Position p of the G adds (3 bits each
+// in `src` and `first`, 2 in `carry`, so a plan is three registers) takes
+// source src_p; bit l of first_p says level l starts a new sum there (no
+// add); carry_p levels complete at p, each folded into the level above.
+struct FoldPlan {
+  unsigned src, first, carry;
+};
+
+__host__ __device__ __forceinline__ FoldPlan fold_plan(const Group& g,
+                                                       int t, int q) {
+  const int s = q / 2, d = q % 2 ? -1 : 1;
+  int ax[3], w[3], c[3], jst[3];
+  int js = 1;
+  for (int i = g.n - 1; i >= 0; --i) {
+    jst[i] = js;
+    js *= g.size[i];
+  }
+  for (int l = 0; l < g.n; ++l) {
+    ax[l] = (s + l) % g.n;
+    w[l] = g.size[ax[l]];
+    c[l] = (t / jst[ax[l]]) % w[l];
+  }
+  FoldPlan f{0u, 0u, 0u};
+  int k[3] = {1, 1, 1};  // ring step of each level, 1..w
+  for (int p = 0; p < g.G; ++p) {
+    unsigned src = 0, first = 0, carry = 0;
+    for (int l = 0; l < g.n; ++l) {
+      src += ((c[l] + k[l] * d) % w[l] + w[l]) % w[l] * jst[ax[l]];
+      if (k[l] == 1) first |= 1u << l;
+    }
+    while (carry < static_cast<unsigned>(g.n - 1) && k[carry] == w[carry])
+      ++carry;
+    f.src |= src << (3 * p);
+    f.first |= first << (3 * p);
+    f.carry |= carry << (2 * p);
+    for (int l = 0; l < g.n && ++k[l] > w[l]; ++l) k[l] = 1;
+  }
+  return f;
+}
+
+__host__ __device__ __forceinline__ int plan_src(const FoldPlan& f, int p) {
+  return (f.src >> (3 * p)) & 7;
+}
+
+// One position of a fold: x, the value of source plan_src(f, p), into the
+// running sums acc (levels 0..2), with the rounding add `add` (the
+// tensor's dtype at every hop, as `_fold_tiles` :294 adds).  After
+// position G - 1 the result is acc[n - 1].
+template <class Add>
+__device__ __forceinline__ void fold_step(const FoldPlan& f, int p, float x,
+                                          float (&acc)[3], Add add) {
+  const unsigned first = (f.first >> (3 * p)) & 7;
+  const unsigned carry = (f.carry >> (2 * p)) & 3;
+  acc[0] = (first & 1) ? x : add(x, acc[0]);
+#pragma unroll
+  for (int l = 0; l < 2; ++l)
+    if (l < static_cast<int>(carry))
+      acc[l + 1] = (first >> (l + 1) & 1) ? acc[l] : add(acc[l], acc[l + 1]);
+}
+
+// The fold's result: the sum of its outermost level (n axes).
+__device__ __forceinline__ float fold_result(const float (&acc)[3], int n) {
+  return n == 3 ? acc[2] : (n == 2 ? acc[1] : acc[0]);
+}
+
+// The fold of `f` over v, the G values in the plan's order (v[p] is
+// source plan_src(f, p)'s).  Unrolled over MAX_RANKS so v and the sums
+// stay in registers.
+template <class Add>
+__device__ __forceinline__ float fold(const FoldPlan& f, int G, int n,
+                                      const float* v, Add add) {
+  float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < MAX_RANKS; ++p)
+    if (p < G) fold_step(f, p, v[p], acc, add);
+  return fold_result(acc, n);
+}
+
+// The block copies n bytes from src to dst: 16-byte vectors (four in
+// flight per thread) when both ends are 16-byte aligned, then the tail.
+__device__ __forceinline__ void copy_bytes(unsigned char* dst,
+                                           const unsigned char* src,
+                                           long long n) {
+  const int nt = blockDim.x;
+  long long done = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) |
+        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const long long nv = n / 16;
+    long long i = threadIdx.x;
+    for (; i + 3 * nt < nv; i += 4 * nt) {
+      const uint4 v0 = s[i], v1 = s[i + nt], v2 = s[i + 2 * nt],
+                  v3 = s[i + 3 * nt];
+      d[i] = v0;
+      d[i + nt] = v1;
+      d[i + 2 * nt] = v2;
+      d[i + 3 * nt] = v3;
+    }
+    for (; i < nv; i += nt) d[i] = s[i];
+    done = nv * 16;
+  }
+  for (long long i = done + threadIdx.x; i < n; i += nt) dst[i] = src[i];
+}
+
+// Host side.  A joint group from its packed form [n, size0..2,
+// stride0..2] (the wrappers' `group_args`), or the flat world.
+inline Group group_from(const int* a) {
+  Group g{};
+  g.n = a[0];
+  g.G = 1;
+  for (int i = 0; i < 3; ++i) {
+    g.size[i] = i < g.n ? a[1 + i] : 1;
+    g.stride[i] = i < g.n ? a[4 + i] : 1;
+    g.G *= g.size[i];
+  }
+  return g;
+}
+
+inline Group flat_group(int world) {
+  const int a[7] = {1, world, 1, 1, 1, 1, 1};
+  return group_from(a);
+}
+
+// A group the kernels take: 1-3 axes of at least one rank, at most
+// MAX_RANKS ranks, every rank of the world in a group of its own.
+inline bool bad_group(const Group& g, int world) {
+  if (g.n < 1 || g.n > 3 || g.G < 1 || g.G > MAX_RANKS) return true;
+  for (int i = 0; i < g.n; ++i)
+    if (g.size[i] < 1 || g.stride[i] < 1 ||
+        world % (g.size[i] * g.stride[i]) != 0)
+      return true;
+  return false;
+}
+
 // Host side.  The pointer table of one buffer from `world` addresses.
 template <class T>
 Peers<T> peers(const long long* ptrs, int world) {

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("flash_fwd", "flash_bwd", "decode", "matmul_i8", "group_gemm",
            "all_to_all", "gemm", "ag_gemm", "gemm_rs", "sp_combine",
            "ring_attn", "barrier", "allgather", "reduce_scatter",
-           "ag_group_gemm", "moe_rs")
+           "ag_group_gemm", "moe_rs", "torus")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")

@@ -13,7 +13,13 @@ every group of the axis.
 - :func:`all_gather_shard`: the reference's dispatch.  ``AUTO`` picks by
   :func:`choose_allgather_method` (the reference's thresholds); ``bidir``
   on odd rows takes ``ring`` (:216-217); an axis of one rank returns its
-  input; ``TORUS_2D`` on one axis is ``bidir`` (:272-273).  On CUDA
+  input; ``TORUS_2D`` on one axis is ``bidir`` (:272-273).  A tuple
+  ``axis`` with two or more axes of more than one rank (:240-263) is a
+  joint group, gathered in flat axes-major order: ``AUTO`` takes the
+  torus kernel (``kernels/torus.py``) above 64 KiB a rank and XLA's joint
+  gather (the plain version) at or below it, and every other method but
+  ``XLA`` is the torus kernel; a tuple with one real axis is that axis.
+  On CUDA
   tensors the three methods launch ``csrc/allgather.cu`` in its modes
   ``ring`` / ``bidir`` / ``full_mesh`` (the port of the TPU
   ``_ring_ag_kernel`` :109, ``_bidir_ring_ag_kernel`` :146 and
@@ -28,10 +34,8 @@ every group of the axis.
 
 ``AUTO`` on the card: the reference's host entry resolves ``AUTO`` to
 ``XLA`` off the TPU (:289); the port treats the card as the reference's
-chip, so ``AUTO`` picks the kernels there.  A multi-axis ``axis`` with
-two or more axes of more than one rank (the reference's fused torus
-schedule, ``kernels/torus.py``) raises ``NotImplementedError``: ROADMAP
-Queue 1's eighth entry.  The launches carry a host epoch, so none can be
+chip, so ``AUTO`` picks the kernels there.  The launches carry a host
+epoch, so none can be
 captured in a CUDA graph.  The kernel pushes into the peers' outputs,
 which are allocated per call, outside the world's symmetric workspace:
 their peer table works only because the virtual world's ranks are slices
@@ -48,8 +52,8 @@ from dataclasses import dataclass
 
 import torch
 
-from triton_dist_tpu_torch.kernels import _build
-from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+from triton_dist_tpu_torch.kernels import _build, torus
+from triton_dist_tpu_torch.runtime.bootstrap import Mesh, as_axes
 from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
 _SIG = {"tdt_allgather": [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
@@ -107,7 +111,7 @@ class AllGatherContext:
 
     @property
     def world(self) -> int:
-        return self.mesh.axis_size(self.axis)
+        return self.mesh.joint_size(self.axis)
 
 
 def create_allgather_context(mesh, axis="tp", method=AllGatherMethod.AUTO,
@@ -122,18 +126,25 @@ def _check(x, mesh: Mesh):
                          f"[*{mesh.shape}, rows, ...]")
 
 
-def single_axis(axis, mesh: Mesh, what: str):
+def single_axis(axis, mesh: Mesh):
     """The one real axis of ``axis`` (a name, or a tuple whose other axes
-    have one rank), None when no axis has more than one rank; two or more
-    real axes raise: the torus schedules are not ported."""
+    have one rank), None when no axis has more than one rank; the caller
+    routes two or more real axes to the torus schedule first."""
     if not isinstance(axis, (tuple, list)):
         return axis
     real = [a for a in axis if mesh.axis_size(a) > 1]
-    if len(real) > 1:
-        raise NotImplementedError(
-            f"{what} over the axes {tuple(axis)}: the multi-axis (torus) "
-            f"schedules are not ported yet (ROADMAP Queue 1's eighth entry)")
+    assert len(real) <= 1, (axis, mesh.shape)
     return real[0] if real else None
+
+
+def joint_axes(axis, mesh: Mesh):
+    """The real axes of a tuple ``axis`` when two or more have more than
+    one rank (the torus schedule's group), else None; more than three
+    axes raise ``ValueError``."""
+    if not isinstance(axis, (tuple, list)):
+        return None
+    real = torus.real_axes(mesh, axis, "a joint group")
+    return real if len(real) >= 2 else None
 
 
 def all_gather_ref(x, mesh: Mesh, axis: str):
@@ -152,7 +163,18 @@ def all_gather_shard(x, mesh: Mesh, axis="tp",
     x [*mesh.shape, rows, ...] -> [*mesh.shape, T * rows, ...] (module
     docstring)."""
     _check(x, mesh)
-    axis = single_axis(axis, mesh, "all_gather")
+    joint = joint_axes(axis, mesh)
+    if joint is not None:
+        if method is AllGatherMethod.AUTO:
+            nd = len(mesh.shape)
+            nbytes = math.prod(x.shape[nd:]) * x.element_size()
+            method = choose_allgather_method(
+                nbytes, mesh.joint_size(joint),
+                axis_sizes=tuple(mesh.axis_size(a) for a in as_axes(axis)))
+        if method is AllGatherMethod.XLA:
+            return torus.torus_all_gather_ref(x, mesh, joint)
+        return torus.torus_all_gather_shard(x, mesh, joint, plain=plain)
+    axis = single_axis(axis, mesh)
     if axis is None:
         return x
     nd, T = len(mesh.shape), mesh.axis_size(axis)
@@ -219,8 +241,8 @@ def shard_over(x, mesh: Mesh, axes):
 
 def all_gather(x, ctx: AllGatherContext):
     """Host entry (reference :282): x [T * rows, ...], sharded over
-    ``ctx.axis`` -> the gathered [T * rows, ...] every rank holds (rank
-    0's copy)."""
+    ``ctx.axis`` (a tuple: flat axes-major over the joint group) -> the
+    gathered [T * rows, ...] every rank holds (rank 0's copy)."""
     out = all_gather_shard(shard_over(x, ctx.mesh, ctx.axis), ctx.mesh,
                            ctx.axis, ctx.method, plain=ctx.plain)
     return out[(0,) * len(ctx.mesh.shape)]

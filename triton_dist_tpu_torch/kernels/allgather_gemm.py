@@ -66,10 +66,19 @@ reference's auto dispatch takes XLA's dot.
 the kernels on CUDA tensors; ``interpret`` changes nothing (CPU tensors
 run the plain versions).  ``config`` (the reference's MXU block triple)
 is kept and has no effect: the Hopper tiles are fixed (128 x 128 x 32
-bf16, ``csrc/bf16_tile.cuh``).  The ring kernels serve one flat world, so
-a mesh whose other axes have more than one rank raises
-NotImplementedError, as a tuple ``axis`` of two or more such axes (the
-torus schedule, ROADMAP Queue 1's eighth entry) does.
+bf16, ``csrc/bf16_tile.cuh``).  A tuple ``axis`` with two or more axes of
+more than one rank takes the torus schedule over that joint group
+(reference :679-696, ``_torus_ag_gemm_kernel`` :428): a's rows and b's
+columns are sharded by joint index, flat axes-major (``P(axes)``), not by
+world rank.  ``wire_dtype`` then raises NotImplementedError (:687-692),
+``ring_mode="bidir"`` with ``chunks > 1`` still raises ValueError first,
+and ``chunks`` and ``ring_mode`` are otherwise ignored (:663-666).  The
+torus kernel (:func:`torus_ag_gemm`, :func:`torus_ag_gemm_i8`) is the uni
+kernel's full-mesh push run over the joint group (``csrc/ag_gemm.cu``
+``tdt_ag_gemm_torus``).  Any other axis must be the mesh's one real
+axis: a single axis of a mesh whose other axes have more than one rank
+raises NotImplementedError (ROADMAP Queue 1's seventeenth entry: the ring
+GEMMs over one axis of a larger mesh).
 
 **The autotuned entry** :func:`ag_gemm_autotuned` (reference :937) sweeps
 :data:`AG_GEMM_TUNE_SPACE` through ``triton_dist_tpu_torch.autotuner``:
@@ -89,17 +98,24 @@ from typing import Any
 import torch
 
 from triton_dist_tpu_torch.autotuner import Config, autotune
-from triton_dist_tpu_torch.kernels import _build
-from triton_dist_tpu_torch.kernels.allgather import shard_over, single_axis
+from triton_dist_tpu_torch.kernels import _build, torus
+from triton_dist_tpu_torch.kernels.allgather import joint_axes, shard_over
 from triton_dist_tpu_torch.kernels.quant import matmul_i8_ref, quantize_rowwise
-from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, Mesh, get_world
+from triton_dist_tpu_torch.runtime.bootstrap import (
+    MAX_RANKS,
+    Mesh,
+    as_axes,
+    get_world,
+)
 from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIG = {"tdt_ag_gemm": [_P] * 7 + [_I] * 6 + [_U, _P],
         "tdt_ag_gemm_i8": [_P] * 7 + [_I] * 5 + [_U, _P],
         "tdt_ag_gemm_wire": [_P] * 9 + [_I] * 5 + [_U, _P],
-        "tdt_ag_gemm_bidir": [_P] * 7 + [_I] * 4 + [_U, _P]}
+        "tdt_ag_gemm_bidir": [_P] * 7 + [_I] * 4 + [_U, _P],
+        "tdt_ag_gemm_torus": [_P] * 8 + [_I] * 5 + [_U, _P],
+        "tdt_ag_gemm_torus_i8": [_P] * 8 + [_I] * 4 + [_U, _P]}
 
 
 def check_operands(name, a, b, trans_b):
@@ -167,8 +183,8 @@ def clamp_chunks(m_loc: int, chunks: int) -> int:
 
 @dataclass(frozen=True)
 class Schedule:
-    """What one AG-GEMM call runs: ``mode`` "uni" or "bidir", the clamped
-    ``chunks`` (uni), and whether the int8 wire ships A."""
+    """What one AG-GEMM call runs: ``mode`` "uni", "bidir" or "torus", the
+    clamped ``chunks`` (uni), and whether the int8 wire ships A."""
 
     mode: str
     chunks: int
@@ -185,11 +201,21 @@ def _reject_bidir(chunks, wire_dtype, ring_mode):
 
 
 def ag_gemm_schedule(m_loc: int, world: int, int8: bool, *, chunks=1,
-                     wire_dtype=None, ring_mode="uni") -> Schedule:
+                     wire_dtype=None, ring_mode="uni",
+                     torus: bool = False) -> Schedule:
     """The schedule the reference's ``ag_gemm_shard`` takes for these
     arguments (module docstring), or its ValueError; as there, any
-    ``ring_mode`` but "bidir" is the uni ring."""
+    ``ring_mode`` but "bidir" is the uni ring.  ``torus`` (a joint group
+    of two or more real axes): the torus schedule, whatever ``chunks`` and
+    ``ring_mode`` say, and ``wire_dtype`` raises NotImplementedError
+    (:687-692)."""
     _reject_bidir(chunks, wire_dtype, ring_mode)
+    if torus:
+        if wire_dtype is not None:
+            raise NotImplementedError(
+                "wire_dtype is implemented for the 1-D ring schedule; the "
+                "torus schedule ships A as it is")
+        return Schedule("torus", 1, False)
     wire = wire_dtype is not None
     if wire and wire_dtype != "int8":
         raise ValueError(f"wire_dtype must be 'int8' or None, got "
@@ -245,16 +271,19 @@ def ag_gemm_wire_ref(a, b):
             scale.reshape(1, world * m_loc).expand(world, -1), c)
 
 
-def _launch(entry, a, buffers, ints, name, n_flags):
+def _launch(entry, a, buffers, ints, name, n_flags, group=None):
     """One cooperative launch of ``entry`` for every rank: the pointer
     tables of ``buffers``, then of the flags and piece counters of
     ``name`` (``n_flags`` a rank) and the barrier slots from the world's
-    workspace; then ``ints`` and this call's epoch."""
+    workspace; then the joint ``group`` ([n, sizes, strides], the torus
+    entries'), ``ints`` and this call's epoch."""
     world = a.shape[0]
     ws = get_world(world, a.device).workspace
     tables = ring_tables(*buffers, ws.flags(name, n_flags),
                          ws.flags(name + "_cnt", n_flags),
                          ws.flags("barrier", world))
+    if group is not None:
+        tables.append((ctypes.c_int * 7)(*group))
     epoch = ws.next_epoch()
     lib = _build.load("ag_gemm", _SIG)
     with torch.cuda.device(a.device):
@@ -268,25 +297,42 @@ def _empty(a, *shape, dtype=None):
 
 
 def ag_gemm_shard(a, b, *, trans_b: bool = False, plain: bool = False,
-                  chunks: int = 1, wire_dtype=None, ring_mode: str = "uni"):
+                  chunks: int = 1, wire_dtype=None, ring_mode: str = "uni",
+                  mesh: Mesh | None = None, axis=None):
     """(A_full [W, W m_loc, K], C [W, W m_loc, n]) of rank-stacked a
     [W, m_loc, K] and b [W, K, n] (``trans_b``: b [W, n, K], the product
     taking b[r]^T), through the schedule :func:`ag_gemm_schedule` picks;
-    int8 a and b take the int8 mode (:func:`ag_gemm_i8`, int32 C)."""
+    int8 a and b take the int8 mode (:func:`ag_gemm_i8`, int32 C).
+    ``mesh`` and ``axis`` (the reference's ``axis``): a tuple of two or
+    more axes of more than one rank takes the torus schedule over that
+    joint group (:func:`torus_ag_gemm`: A_full and C [W, G m_loc, .], flat
+    axes-major); otherwise ``axis`` must be the mesh's one real axis."""
     return _ag_gemm(a, b, trans_b=trans_b, plain=plain, chunks=chunks,
                     wire_dtype=wire_dtype, ring_mode=ring_mode,
-                    gathered=True)
+                    gathered=True, mesh=mesh, axis=axis)
 
 
 def _ag_gemm(a, b, *, trans_b, plain, chunks, wire_dtype, ring_mode,
-             gathered):
+             gathered, mesh=None, axis=None):
     """:func:`ag_gemm_shard`; ``gathered=False`` leaves the wire's A_full
     unbuilt (None), as the host's ``ag_gemm`` needs none."""
     _reject_bidir(chunks, wire_dtype, ring_mode)
     world, k, n = check_operands("ag_gemm", a, b, trans_b)
     int8 = _check_mode(a, b, trans_b)
+    joint = None
+    if mesh is not None:
+        if world != mesh.size:
+            raise ValueError(f"ag_gemm: {world} ranks stacked, the mesh "
+                             f"{mesh.shape} has {mesh.size}")
+        joint = joint_axes(axis, mesh)
+        if joint is None:
+            flat_axis(mesh, axis, "ag_gemm")
     sched = ag_gemm_schedule(a.shape[1], world, int8, chunks=chunks,
-                             wire_dtype=wire_dtype, ring_mode=ring_mode)
+                             wire_dtype=wire_dtype, ring_mode=ring_mode,
+                             torus=joint is not None)
+    if joint is not None:
+        fn = torus_ag_gemm_i8 if int8 else torus_ag_gemm
+        return fn(a, b, mesh, joint, trans_b=trans_b, plain=plain)
     if trans_b and (sched.mode == "bidir" or sched.wire):
         raise ValueError("ag_gemm: the bidir and wire modes take b [W, K, "
                          "n], not trans_b")
@@ -363,6 +409,85 @@ ag_gemm_i8.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The torus schedule (reference ``_torus_ag_gemm_kernel`` :428)
+# ---------------------------------------------------------------------------
+
+
+def torus_ag_gemm_ref(a, b, mesh: Mesh, axes, *, trans_b: bool = False):
+    """Plain (A_full [W, G m_loc, K], C [W, G m_loc, n]) over the joint
+    group ``axes``: A_full[r] is r's group's rows in joint order (flat
+    axes-major), C[r] = A_full[r] @ b[r] (``b[r]^T`` with ``trans_b``) in
+    f32, cast to a's dtype; int8 a and b give the exact int32 C."""
+    world, k, _ = check_operands("ag_gemm", a, b, trans_b)
+    int8 = _check_mode(a, b, trans_b)
+    m_loc = a.shape[1]
+    a_full = torus.torus_all_gather_ref(a.reshape(*mesh.shape, m_loc, k),
+                                        mesh, axes).reshape(world, -1, k)
+    bt = b.transpose(1, 2) if trans_b else b
+    if int8:
+        c = torch.stack([matmul_i8_ref(a_full[r], bt[r])
+                         for r in range(world)])
+    else:
+        c = torch.stack([(a_full[r].float() @ bt[r].float()).to(a.dtype)
+                         for r in range(world)])
+    return a_full, c
+
+
+def torus_ag_gemm(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
+                  plain: bool = False):
+    """The torus AG-GEMM, bf16 (:func:`torus_ag_gemm_ref`'s function):
+    CUDA operands launch ``tdt_ag_gemm_torus`` (``csrc/ag_gemm.cu``: the
+    uni kernel's full-mesh push over the joint group, one flag per
+    segment, each rank's own segment first), counted in ``.launches``;
+    CPU operands (or ``plain``) run the plain version."""
+    world, k, n = check_operands("torus_ag_gemm", a, b, trans_b)
+    if plain or a.device.type == "cpu":
+        return torus_ag_gemm_ref(a, b, mesh, axes, trans_b=trans_b)
+    if not a.is_cuda:
+        raise ValueError(f"torus_ag_gemm: unsupported device {a.device}")
+    m_loc, G = a.shape[1], mesh.joint_size(axes)
+    check_kernel_operands("torus_ag_gemm", a, b, m_loc, k, n)
+    a, b = a.contiguous(), b.contiguous()
+    a_full = _empty(a, world, G * m_loc, k)
+    c = _empty(a, world, G * m_loc, n)
+    _launch("tdt_ag_gemm_torus", a, (a, b, a_full, c),
+            (world, m_loc, n, k, int(trans_b)), "ag_gemm_torus", G,
+            group=mesh.group_args(axes))
+    torus_ag_gemm.launches += 1
+    return a_full, c
+
+
+def torus_ag_gemm_i8(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
+                     plain: bool = False):
+    """The torus AG-GEMM's int8 mode (the reference's int8 A, int32 C,
+    :596-598): CUDA operands launch ``tdt_ag_gemm_torus_i8`` (K % 32,
+    n % 16), counted in ``.launches``; CPU operands (or ``plain``) run
+    :func:`torus_ag_gemm_ref`."""
+    world, k, n = check_operands("torus_ag_gemm_i8", a, b, trans_b)
+    _check_mode(a, b, trans_b)
+    if plain or a.device.type == "cpu":
+        return torus_ag_gemm_ref(a, b, mesh, axes)
+    if not a.is_cuda:
+        raise ValueError(f"torus_ag_gemm_i8: unsupported device "
+                         f"{a.device}")
+    m_loc, G = a.shape[1], mesh.joint_size(axes)
+    check_kernel_operands("torus_ag_gemm_i8", a, b, m_loc, k, n,
+                          dtype=torch.int8, k_mult=32, n_mult=16)
+    a, b = a.contiguous(), b.contiguous()
+    a_full = _empty(a, world, G * m_loc, k)
+    c = _empty(a, world, G * m_loc, n, dtype=torch.int32)
+    _launch("tdt_ag_gemm_torus_i8", a, (a, b, a_full, c),
+            (world, m_loc, n, k), "ag_gemm_torus_i8", G,
+            group=mesh.group_args(axes))
+    torus_ag_gemm_i8.launches += 1
+    return a_full, c
+
+
+torus_ag_gemm.launches = 0
+torus_ag_gemm_i8.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Host entries (reference :65-96, :859-890)
 # ---------------------------------------------------------------------------
 
@@ -386,7 +511,7 @@ class AllGatherGEMMContext:
 
     @property
     def world(self) -> int:
-        return self.mesh.axis_size(self.axis)
+        return self.mesh.joint_size(self.axis)
 
 
 def create_ag_gemm_context(mesh, axis="tp", impl="auto", config=None,
@@ -399,17 +524,35 @@ def create_ag_gemm_context(mesh, axis="tp", impl="auto", config=None,
 
 
 def flat_axis(mesh: Mesh, axis, what: str) -> str | None:
-    """The one axis the ring GEMMs run over: ``axis`` (or the one real
-    axis of a tuple), when every other axis of the mesh has one rank."""
-    real = single_axis(axis, mesh, what)
+    """The one axis the ring kernels run over: ``axis`` (or the one real
+    axis of a tuple), when every other axis of the mesh has one rank;
+    else ``NotImplementedError`` (a joint group of two or more real axes
+    is the torus schedule, which only the AG-GEMM and GEMM-RS take)."""
+    real = [a for a in as_axes(axis) if mesh.axis_size(a) > 1]
     others = [a for a in mesh.axis_names
-              if a != real and mesh.axis_size(a) > 1]
+              if a not in real[:1] and mesh.axis_size(a) > 1]
     if others:
         raise NotImplementedError(
-            f"{what} over {axis!r} of a mesh {mesh.shape}: the ring GEMMs "
+            f"{what} over {axis!r} of a mesh {mesh.shape}: the ring kernels "
             f"run over one flat world, the other axes {others} must have "
-            f"one rank")
-    return real
+            f"one rank (ROADMAP Queue 1's seventeenth entry: the ring GEMMs "
+            f"over one axis of a larger mesh)")
+    if not isinstance(axis, (tuple, list)):
+        return axis
+    return real[0] if real else None
+
+
+def check_pallas_shape(impl, what, m, n, k):
+    """The reference's explicit ``impl="pallas"`` contract (``use_fallback``,
+    gemm.py :105): where its torus entries would leave the Pallas kernel
+    for another path, because a per-shard (m, n, k) is off the MXU tiling
+    (m % 8, n % 128, k % 128), they raise instead; so does the port's host
+    entry, whatever the Hopper kernel would take."""
+    if impl == "pallas" and (m % 8 or n % 128 or k % 128):
+        raise ValueError(
+            f"{what}: impl='pallas' requested but per-shard ({m}, {n}, {k}) "
+            f"fails the reference kernel's tiling contract (m % 8, n % 128, "
+            f"k % 128); pass impl='auto' to permit the other path")
 
 
 def _check_impl(impl):
@@ -435,6 +578,9 @@ def ag_gemm(a, b, ctx: AllGatherGEMMContext):
 def _host(a, b, ctx, *, gathered):
     plain = _check_impl(ctx.impl)
     mesh = ctx.mesh
+    joint = joint_axes(ctx.axis, mesh)
+    if joint is not None:
+        return _torus_host(a, b, ctx, joint, plain)
     axis = flat_axis(mesh, ctx.axis, "ag_gemm")
     world = mesh.size
     if b.shape[1] % world:
@@ -450,6 +596,28 @@ def _host(a, b, ctx, *, gathered):
     return (a_full[0] if a_full is not None else None), c
 
 
+def _torus_host(a, b, ctx, joint, plain):
+    """:func:`_host` over the joint group ``joint``: a's rows and b's
+    columns sharded by joint index (flat axes-major), C's column blocks
+    in that order."""
+    mesh, world = ctx.mesh, ctx.mesh.size
+    G = mesh.joint_size(joint)
+    if b.shape[1] % G:
+        raise ValueError(f"ag_gemm: {b.shape[1]} columns do not shard over "
+                         f"{G} ranks")
+    check_pallas_shape(ctx.impl, "ag_gemm (torus)", a.shape[0] // G,
+                       b.shape[1] // G, a.shape[1])
+    a_r = shard_over(a, mesh, ctx.axis).reshape(world, -1, a.shape[1])
+    b_r = b.reshape(b.shape[0], G, -1).permute(1, 0, 2)[
+        torch.tensor(mesh.joint_index(joint), device=b.device)]
+    a_full, c = _ag_gemm(a_r, b_r, trans_b=False, plain=plain,
+                         chunks=ctx.chunks, wire_dtype=ctx.wire_dtype,
+                         ring_mode=ctx.ring_mode, gathered=True, mesh=mesh,
+                         axis=ctx.axis)
+    c = c[mesh.joint_groups(joint)[0]]
+    return a_full[0], c.permute(1, 0, 2).reshape(c.shape[1], -1)
+
+
 # ---------------------------------------------------------------------------
 # The autotuned entry (reference :897-962)
 # ---------------------------------------------------------------------------
@@ -463,7 +631,8 @@ AG_GEMM_TUNE_SPACE = [Config(chunks=1), Config(chunks=2), Config(chunks=4),
 def _resolved(configs, a, ctx):
     """Each config's schedule for a [M, K] under ``ctx`` (None where it
     raises: the sweep skips it as a bad config)."""
-    world = ctx.mesh.size
+    joint = joint_axes(ctx.axis, ctx.mesh)
+    world = ctx.mesh.joint_size(joint) if joint else ctx.mesh.size
     int8 = a.dtype == torch.int8
     out = []
     for cfg in configs:
@@ -471,7 +640,8 @@ def _resolved(configs, a, ctx):
             out.append(ag_gemm_schedule(
                 a.shape[0] // world, world, int8,
                 chunks=cfg.get("chunks", 1), wire_dtype=ctx.wire_dtype,
-                ring_mode=cfg.get("ring_mode", "uni")))
+                ring_mode=cfg.get("ring_mode", "uni"),
+                torus=joint is not None))
         except ValueError:
             out.append(None)
     return out

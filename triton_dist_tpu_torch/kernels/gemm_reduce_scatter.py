@@ -45,11 +45,30 @@ does not take (the int8 bidir ring is not ported: int8 operands with
 ``plain``) the plain version.  Any ``m_loc >= 1`` is taken: the last row
 tile of each chunk is masked.
 
+**The torus schedule** (``_torus_gemm_rs_kernel`` :326, taken for a tuple
+``axis`` with two or more axes of more than one rank, :679-689, whatever
+``ring_mode`` says): :func:`torus_gemm_rs` over the joint group's G
+ranks, a's rows the G chunks in joint order (flat axes-major).  Each rank
+stages its bf16 partial of every chunk in the owner's slot and the owner
+folds its G partials in the reference's torus order and rounding: the N
+columns in 2n parts of 128-column units (``_split_parts(N // 128, 2n)``,
+:591-597), part q on path flavor q, every hop ``acc = local + recv`` in
+bf16 (``torus.torus_fold``), so given the same partials the sums are bit
+for bit the reference's.  At shapes the reference's fused kernel cannot
+tile (N % 128, m_loc % 8 or k % 128, and under ``plain``: the reference's
+``impl="xla"``) it composes, and so does the port: the uni GEMM-RS over
+``axes[0]``'s groups, then a reduce-scatter over each other axis
+(:603-622), on the card the uni kernel over a one-axis group
+(``tdt_gemm_rs_group``) and ``reduce_scatter_shard``'s kernels.  int8
+(exact int32 in any order) always takes the joint group's int8 kernel
+(:func:`torus_gemm_rs_i8`).
+
 **The host entries** (reference :70-95, :794): :class:`GEMMReduceScatter
 Context`, :func:`create_gemm_rs_context` and :func:`gemm_rs` (a [M, K]
 sharded over ``ctx.axis`` by columns, b [K, N] by rows -> C [M, N], rank
-r's chunk at rows r m_loc ..), on a port ``Mesh``, with ``impl``,
-``config`` and ``interpret`` as ``allgather_gemm``'s context takes them.
+r's chunk at rows r m_loc ..; a tuple axis: sharded by joint index, flat
+axes-major), on a port ``Mesh``, with ``impl``, ``config`` and
+``interpret`` as ``allgather_gemm``'s context takes them.
 **The autotuned entry** :func:`gemm_rs_autotuned` (reference :863) sweeps
 :data:`GEMM_RS_TUNE_SPACE`: the uni and the bidir ring, without the TPU
 block triples; a bidir that gives way is pruned (it would launch the uni
@@ -65,11 +84,12 @@ from typing import Any
 import torch
 
 from triton_dist_tpu_torch.autotuner import Config, autotune
-from triton_dist_tpu_torch.kernels import _build
-from triton_dist_tpu_torch.kernels.allgather import shard_over
+from triton_dist_tpu_torch.kernels import _build, torus
+from triton_dist_tpu_torch.kernels.allgather import joint_axes, shard_over
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _check_impl,
     check_kernel_operands,
+    check_pallas_shape,
     check_operands,
     dedupe_configs,
     flat_axis,
@@ -85,38 +105,47 @@ TILE_M_I8 = 64   # csrc/i8_tile.cuh BM: the int8 mode's
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIG = {"tdt_gemm_rs": [_P] * 6 + [_I] * 5 + [_U, _P],
         "tdt_gemm_rs_bidir": [_P] * 6 + [_I] * 4 + [_U, _P],
-        "tdt_gemm_rs_i8": [_P] * 6 + [_I] * 4 + [_U, _P]}
+        "tdt_gemm_rs_i8": [_P] * 6 + [_I] * 4 + [_U, _P],
+        "tdt_gemm_rs_group": [_P] * 8 + [_I] * 6 + [_U, _P],
+        "tdt_gemm_rs_group_i8": [_P] * 7 + [_I] * 4 + [_U, _P]}
 
 
-def _m_loc(a):
-    world, rows = a.shape[0], a.shape[1]
-    if rows % world:
-        raise ValueError(f"gemm_rs: {rows} rows do not split into {world} "
+def _m_loc(a, G=None):
+    """The rows of one of a's G chunks (G: the ranks that reduce, the
+    whole world by default)."""
+    G = G or a.shape[0]
+    if a.shape[1] % G:
+        raise ValueError(f"gemm_rs: {a.shape[1]} rows do not split into {G} "
                          f"chunks")
-    return rows // world
+    return a.shape[1] // G
 
 
-def gemm_rs_schedule(world: int, n: int, ring_mode: str = "uni") -> str:
-    """"bidir" where the reference's ``gemm_rs_shard`` takes its bidir ring
-    (world > 1, N % 2 == 0, (N // 2) % 128 == 0), else "uni"."""
+def gemm_rs_schedule(world: int, n: int, ring_mode: str = "uni",
+                     torus: bool = False) -> str:
+    """"torus" for a joint group of two or more real axes (``torus``),
+    else "bidir" where the reference's ``gemm_rs_shard`` takes its bidir
+    ring (world > 1, N % 2 == 0, (N // 2) % 128 == 0), else "uni"."""
+    if torus:
+        return "torus"
     if ring_mode == "bidir" and world > 1 and n % 2 == 0 and \
             (n // 2) % 128 == 0:
         return "bidir"
     return "uni"
 
 
-def _partials(a, b, trans_b):
-    """Each rank's partial [W, W, m_loc, N] staged in a's dtype (int32 for
-    int8)."""
+def _partials(a, b, trans_b, G=None):
+    """Each rank's partial [W, G, m_loc, N] of every chunk (G as
+    :func:`_m_loc`), staged in a's dtype (int32 for int8)."""
     world, _, n = check_operands("gemm_rs", a, b, trans_b)
-    m_loc = _m_loc(a)
+    G = G or world
+    m_loc = _m_loc(a, G)
     bt = b.transpose(1, 2) if trans_b else b
     if a.dtype == torch.int8:
         parts = [matmul_i8_ref(a[q], bt[q]) for q in range(world)]
     else:
         parts = [(a[q].float() @ bt[q].float()).to(a.dtype)
                  for q in range(world)]
-    return torch.stack(parts).view(world, world, m_loc, n)
+    return torch.stack(parts).view(world, G, m_loc, n)
 
 
 def gemm_rs_ref(a, b, *, trans_b: bool = False, ring_mode: str = "uni"):
@@ -157,12 +186,25 @@ def _bidir_sums(parts):
 
 
 def gemm_rs_shard(a, b, *, trans_b: bool = False, plain: bool = False,
-                  ring_mode: str = "uni"):
+                  ring_mode: str = "uni", mesh: Mesh | None = None,
+                  axis=None):
     """C [W, m_loc, N] of rank-stacked a [W, W m_loc, k] and b [W, k, N]
     (``trans_b``: b [W, N, k], the product taking b[q]^T), through the
     schedule :func:`gemm_rs_schedule` picks; int8 a and b give the exact
-    int32 C."""
+    int32 C.  ``mesh`` and ``axis`` (the reference's ``axis``): a tuple of
+    two or more axes of more than one rank takes the torus schedule over
+    that joint group (:func:`torus_gemm_rs`: a [W, G m_loc, k]);
+    otherwise ``axis`` must be the mesh's one real axis."""
     world, k, n = check_operands("gemm_rs", a, b, trans_b)
+    if mesh is not None:
+        if world != mesh.size:
+            raise ValueError(f"gemm_rs: {world} ranks stacked, the mesh "
+                             f"{mesh.shape} has {mesh.size}")
+        joint = joint_axes(axis, mesh)
+        if joint is not None:
+            return torus_gemm_rs(a, b, mesh, joint, trans_b=trans_b,
+                                 plain=plain)
+        flat_axis(mesh, axis, "gemm_rs")
     m_loc = _m_loc(a)
     int8 = a.dtype == torch.int8
     if int8 and (b.dtype != torch.int8 or trans_b):
@@ -205,11 +247,13 @@ def gemm_rs_shard(a, b, *, trans_b: bool = False, plain: bool = False,
 
 
 def _launch(entry, a, b, m_loc, n, dtype, name, stage_shape, n_flags,
-            *extra):
+            *extra, group=()):
     """One cooperative launch of ``entry`` for every rank: its staging
     (or landing) buffers ``stage_shape`` per rank and ``n_flags`` flags
     per rank from the world's workspace, C [W, m_loc, n] allocated, this
-    call's epoch; ``extra``: the entry's arguments after k."""
+    call's epoch; ``group``: the group entries' arguments after the
+    tables (the joint group, the torus parts, the torus flag); ``extra``:
+    the entry's arguments after k."""
     world, _, k = a.shape
     a, b = a.contiguous(), b.contiguous()
     ws = get_world(world, a.device).workspace
@@ -221,14 +265,167 @@ def _launch(entry, a, b, m_loc, n, dtype, name, stage_shape, n_flags,
     lib = _build.load("gemm_rs", _SIG)
     with torch.cuda.device(a.device):
         err = getattr(lib, entry)(
-            *ring_tables(a, b, stage, out, flags, bar), world, m_loc, n, k,
-            *extra, epoch, torch.cuda.current_stream().cuda_stream)
+            *ring_tables(a, b, stage, out, flags, bar), *group, world, m_loc,
+            n, k, *extra, epoch, torch.cuda.current_stream().cuda_stream)
     _build.check(err, entry[4:])
     return out
 
 
 gemm_rs_shard.launches = 0
 gemm_rs_shard.mode_launches = {"bidir": 0, "i8": 0}
+
+
+# ---------------------------------------------------------------------------
+# The torus schedule (reference ``_torus_gemm_rs_kernel`` :326)
+# ---------------------------------------------------------------------------
+
+
+def torus_gemm_rs_ref(a, b, mesh: Mesh, axes, *, trans_b: bool = False):
+    """Plain C [W, m_loc, N] over the joint group ``axes``: rank r of joint
+    index t gets chunk t summed over its group, in the reference's torus
+    order and rounding (module docstring); int8: the exact int32 sum."""
+    G = mesh.joint_size(axes)
+    parts = _partials(a, b, trans_b, G)
+    world, _, m_loc, n = parts.shape
+    groups = mesh.joint_groups(axes)
+    if a.dtype == torch.int8:
+        out = torch.empty((world, m_loc, n), dtype=torch.int32,
+                          device=a.device)
+        for group in groups:
+            for t, r in enumerate(group):
+                out[r] = parts[group, t].sum(dim=0, dtype=torch.int32)
+        return out
+    if n % TILE_M:
+        raise ValueError(f"gemm_rs: the torus order takes N % 128 == 0, "
+                         f"got {n}")
+    sizes = [mesh.axis_size(x) for x in axes]
+    paths = torus._paths_for(n // TILE_M, len(axes))
+    out = torch.empty((world, m_loc, n), dtype=a.dtype, device=a.device)
+    for group in groups:
+        for t, r in enumerate(group):
+            for off, ln, order, d in paths:
+                if ln:
+                    c0, c1 = off * TILE_M, (off + ln) * TILE_M
+                    out[r, :, c0:c1] = torus.torus_fold(
+                        lambda j: parts[group[j], t, :, c0:c1], sizes, t,
+                        order, d)
+    return out
+
+
+def group_gemm_rs_ref(a, b, mesh: Mesh, axes, *, trans_b: bool = False):
+    """Plain C [W, m_loc, N] of the uni schedule over the groups of
+    ``axes``: chunk t of the group's partials summed in f32 in joint
+    order, cast to a's dtype (the composition's first step)."""
+    G = mesh.joint_size(axes)
+    parts = _partials(a, b, trans_b, G)
+    out = torch.empty_like(parts[:, 0])
+    for group in mesh.joint_groups(axes):
+        for t, r in enumerate(group):
+            total = parts[group[0], t].float()
+            for q in group[1:]:
+                total = total + parts[q, t].float()
+            out[r] = total.to(a.dtype)
+    return out
+
+
+def torus_tileable(m_loc: int, n: int, k: int) -> bool:
+    """The shapes the reference's fused torus kernel tiles (:591-597): N %
+    128, m_loc % 8 and k % 128; at others it composes."""
+    return n % 128 == 0 and m_loc % 8 == 0 and k % 128 == 0
+
+
+def torus_gemm_rs(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
+                  plain: bool = False):
+    """The torus GEMM-RS over the joint group ``axes`` (module docstring):
+    C [W, m_loc, N] of a [W, G m_loc, k] and b [W, k, N].  bf16 CUDA
+    operands at tileable shapes launch ``tdt_gemm_rs_group`` in its torus
+    order, counted in ``.launches``; int8 takes :func:`torus_gemm_rs_i8`;
+    untileable shapes or ``plain`` compose; CPU operands run the plain
+    versions."""
+    world, k, n = check_operands("torus_gemm_rs", a, b, trans_b)
+    G = mesh.joint_size(axes)
+    m_loc = _m_loc(a, G)
+    if a.dtype == torch.int8:
+        return torus_gemm_rs_i8(a, b, mesh, axes, trans_b=trans_b,
+                                plain=plain)
+    if plain or not torus_tileable(m_loc, n, k):
+        return _compose(a, b, mesh, axes, trans_b, plain)
+    if a.device.type == "cpu":
+        return torus_gemm_rs_ref(a, b, mesh, axes, trans_b=trans_b)
+    if not a.is_cuda:
+        raise ValueError(f"torus_gemm_rs: unsupported device {a.device}")
+    check_kernel_operands("torus_gemm_rs", a, b, m_loc, k, n)
+    tiles = -(-m_loc // TILE_M) * (n // TILE_M)
+    ends = torus.part_ends(n // TILE_M, len(axes))
+    out = _launch("tdt_gemm_rs_group", a, b, m_loc, n, a.dtype,
+                  "gemm_rs_torus", (G, m_loc, n), G * tiles, int(trans_b),
+                  group=((ctypes.c_int * 7)(*mesh.group_args(axes)),
+                         (ctypes.c_int * 6)(*ends), 1))
+    torus_gemm_rs.launches += 1
+    return out
+
+
+def _compose(a, b, mesh, axes, trans_b, plain):
+    """The reference's composition (:603-622): the uni GEMM-RS over the
+    groups of ``axes[0]``, then a reduce-scatter over each other axis;
+    the bands stay flat axes-major."""
+    from triton_dist_tpu_torch.kernels.reduce_scatter import (
+        reduce_scatter_shard,
+    )
+
+    world, k, n = check_operands("gemm_rs", a, b, trans_b)
+    first = axes[:1]
+    if plain or a.device.type == "cpu":
+        part = group_gemm_rs_ref(a, b, mesh, first, trans_b=trans_b)
+    else:
+        if not a.is_cuda:
+            raise ValueError(f"gemm_rs: unsupported device {a.device}")
+        w0 = mesh.joint_size(first)
+        m0 = _m_loc(a, w0)
+        check_kernel_operands("gemm_rs", a, b, m0, k, n)
+        tiles = -(-m0 // TILE_M) * -(-n // TILE_M)
+        part = _launch("tdt_gemm_rs_group", a, b, m0, n, a.dtype,
+                       "gemm_rs_group", (w0, m0, n), w0 * tiles,
+                       int(trans_b),
+                       group=((ctypes.c_int * 7)(*mesh.group_args(first)),
+                              (ctypes.c_int * 6)(), 0))
+        gemm_rs_shard.launches += 1
+    part = part.view(*mesh.shape, *part.shape[1:])
+    for ax in axes[1:]:
+        part = reduce_scatter_shard(part, mesh, ax, plain=plain)
+    return part.reshape(world, *part.shape[len(mesh.shape):])
+
+
+def torus_gemm_rs_i8(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
+                     plain: bool = False):
+    """The torus GEMM-RS's int8 mode: exact int32 partials and sums, so
+    the torus order's sums at every shape.  CUDA operands launch
+    ``tdt_gemm_rs_group_i8`` over the joint group (K % 32, N % 16),
+    counted in ``.launches``; CPU operands (or ``plain``) run
+    :func:`torus_gemm_rs_ref`."""
+    world, k, n = check_operands("torus_gemm_rs_i8", a, b, trans_b)
+    if b.dtype != torch.int8 or trans_b:
+        raise ValueError(f"gemm_rs: int8 a takes an int8 b [W, k, N] "
+                         f"without trans_b, got {b.dtype}"
+                         f"{' with trans_b' if trans_b else ''}")
+    G = mesh.joint_size(axes)
+    m_loc = _m_loc(a, G)
+    if plain or a.device.type == "cpu":
+        return torus_gemm_rs_ref(a, b, mesh, axes)
+    if not a.is_cuda:
+        raise ValueError(f"torus_gemm_rs_i8: unsupported device {a.device}")
+    check_kernel_operands("torus_gemm_rs_i8", a, b, m_loc, k, n,
+                          dtype=torch.int8, k_mult=32, n_mult=16)
+    tiles = -(-m_loc // TILE_M_I8) * -(-n // 128)
+    out = _launch("tdt_gemm_rs_group_i8", a, b, m_loc, n, torch.int32,
+                  "gemm_rs_torus_i8", (G, m_loc, n), G * tiles,
+                  group=((ctypes.c_int * 7)(*mesh.group_args(axes)),))
+    torus_gemm_rs_i8.launches += 1
+    return out
+
+
+torus_gemm_rs.launches = 0
+torus_gemm_rs_i8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +448,7 @@ class GEMMReduceScatterContext:
 
     @property
     def world(self) -> int:
-        return self.mesh.axis_size(self.axis)
+        return self.mesh.joint_size(self.axis)
 
 
 def create_gemm_rs_context(mesh, axis="tp", impl="auto", config=None,
@@ -268,6 +465,24 @@ def gemm_rs(a, b, ctx: GEMMReduceScatterContext):
     rows -> C [M, N]."""
     plain = _check_impl(ctx.impl)
     mesh = ctx.mesh
+    joint = joint_axes(ctx.axis, mesh)
+    if joint is not None:
+        G, (M, K) = mesh.joint_size(joint), a.shape
+        if K % G or M % G:
+            raise ValueError(f"gemm_rs: a {tuple(a.shape)} does not shard "
+                             f"over {G} ranks")
+        if not torus_tileable(M // G, b.shape[1], K // G):
+            # the reference composes; its first step's kernel raises
+            check_pallas_shape(ctx.impl, "gemm_rs (torus)",
+                               M // mesh.axis_size(joint[0]), b.shape[1],
+                               K // G)
+        a_r = a.reshape(M, G, -1).permute(1, 0, 2)[
+            torch.tensor(mesh.joint_index(joint), device=a.device)]
+        b_r = shard_over(b, mesh, ctx.axis).reshape(mesh.size, -1,
+                                                    b.shape[1])
+        out = gemm_rs_shard(a_r, b_r, plain=plain, ring_mode=ctx.ring_mode,
+                            mesh=mesh, axis=ctx.axis)
+        return out[mesh.joint_groups(joint)[0]].reshape(M, -1)
     axis = flat_axis(mesh, ctx.axis, "gemm_rs")
     world = mesh.size
     if a.shape[1] % world or a.shape[0] % world:
@@ -290,9 +505,11 @@ GEMM_RS_TUNE_SPACE = [Config(ring_mode="uni"), Config(ring_mode="bidir")]
 
 
 def _prune(configs, args, kwargs):
-    world = kwargs["ctx"].mesh.size
+    ctx = kwargs["ctx"]
+    torus_axes = joint_axes(ctx.axis, ctx.mesh) is not None
     return dedupe_configs(configs, [
-        gemm_rs_schedule(world, args[1].shape[1], c.get("ring_mode", "uni"))
+        gemm_rs_schedule(ctx.mesh.size, args[1].shape[1],
+                         c.get("ring_mode", "uni"), torus=torus_axes)
         for c in configs])
 
 

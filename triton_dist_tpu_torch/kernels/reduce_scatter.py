@@ -22,7 +22,12 @@ call serves every group of the axis.
   f32 and bf16), counted in ``reduce_scatter_shard.launches`` and by
   mode in ``.mode_launches``, or raises on what the kernel does not take;
   the result is bit for bit the plain version's.  On CPU tensors, with
-  ``plain``, or for ``XLA``, the plain version.
+  ``plain``, or for ``XLA``, the plain version.  A tuple ``axis`` with two
+  or more axes of more than one rank (:217-226) is a joint group, its
+  bands in flat axes-major order: ``XLA`` sums in joint order (the plain
+  version of XLA's joint ``psum_scatter``), every other method takes the
+  torus schedule (``kernels/torus.py``); a tuple with one real axis is
+  that axis.
 - :class:`ReduceScatterContext`, :func:`create_reduce_scatter_context`,
   :func:`resolve_method` and the host :func:`reduce_scatter` with its
   stacked-partials contract (:289-328).
@@ -30,9 +35,7 @@ call serves every group of the axis.
 ``AUTO`` is :func:`resolve_method`: the bidirectional ring, unless
 ``plain``.  The reference resolves ``AUTO`` to ``XLA`` off the TPU; the
 port treats the card as the reference's chip, so ``AUTO`` picks the
-kernel there (and its ring order in the plain version on the CPU).  A
-multi-axis ``axis`` with two or more real axes (the torus schedule)
-raises ``NotImplementedError``: ROADMAP Queue 1's eighth entry.  The
+kernel there (and its ring order in the plain version on the CPU).  The
 launches carry a host epoch, so none can be captured in a CUDA graph.
 
 Backpressure: the kernel holds T - 1 landing slots per rank and drops the
@@ -54,8 +57,12 @@ from dataclasses import dataclass
 
 import torch
 
-from triton_dist_tpu_torch.kernels import _build
-from triton_dist_tpu_torch.kernels.allgather import shard_over, single_axis
+from triton_dist_tpu_torch.kernels import _build, torus
+from triton_dist_tpu_torch.kernels.allgather import (
+    joint_axes,
+    shard_over,
+    single_axis,
+)
 from triton_dist_tpu_torch.runtime.bootstrap import Mesh
 from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
@@ -85,7 +92,7 @@ class ReduceScatterContext:
 
     @property
     def world(self) -> int:
-        return self.mesh.axis_size(self.axis)
+        return self.mesh.joint_size(self.axis)
 
 
 def create_reduce_scatter_context(mesh, axis="tp",
@@ -149,15 +156,38 @@ def reduce_scatter_ref(x, mesh: Mesh, axis: str,
     return torch.stack(bands, dim=a)
 
 
+def joint_sum_ref(x, mesh: Mesh, axes):
+    """XLA's joint ``psum_scatter`` over the joint group ``axes``, plain:
+    each rank's band of the group's partials summed in joint order in
+    x's dtype, [*mesh.shape, rows, ...]."""
+    nd, G = len(mesh.shape), mesh.joint_size(axes)
+    _check(x, mesh, G)
+    rows = x.shape[nd] // G
+    xs = x.reshape(mesh.size, G, rows, *x.shape[nd + 1:])
+    out = torch.empty_like(xs[:, 0])
+    for group in mesh.joint_groups(axes):
+        for t, r in enumerate(group):
+            acc = xs[group[0], t]
+            for s in group[1:]:
+                acc = acc + xs[s, t]
+            out[r] = acc
+    return out.reshape(*mesh.shape, rows, *x.shape[nd + 1:])
+
+
 def reduce_scatter_shard(x, mesh: Mesh, axis="tp",
                          method=ReduceScatterMethod.AUTO, *,
                          plain: bool = False):
     """Reduce every rank's full-size partial over ``axis`` and scatter the
     leading dimension: x [*mesh.shape, T * rows, ...] -> [*mesh.shape,
     rows, ...] (module docstring)."""
-    axis = single_axis(axis, mesh, "reduce_scatter")
     if method is ReduceScatterMethod.AUTO:
         method = resolve_method(plain)
+    joint = joint_axes(axis, mesh)
+    if joint is not None:
+        if method is ReduceScatterMethod.XLA:
+            return joint_sum_ref(x, mesh, joint)
+        return torus.torus_reduce_scatter_shard(x, mesh, joint, plain=plain)
+    axis = single_axis(axis, mesh)
     if axis is None:
         return x
     nd, T = len(mesh.shape), mesh.axis_size(axis)
@@ -207,8 +237,9 @@ reduce_scatter_shard.mode_launches = {"ring": 0, "bidir": 0}
 def reduce_scatter(x, ctx: ReduceScatterContext):
     """Host entry (reference :289): x (T, T * rows, ...), the partials
     stacked (rank i of the axis contributes x[i]; the mesh's other axes
-    hold the same) -> (T * rows, ...), rank i's band at rows i * rows ...
-    A leading dimension other than T raises ``ValueError``."""
+    hold the same; a tuple axis: i the joint index, flat axes-major) ->
+    (T * rows, ...), rank i's band at rows i * rows ...  A leading
+    dimension other than T raises ``ValueError``."""
     T = ctx.world
     if x.shape[0] != T:
         raise ValueError(f"expected stacked partials with leading dim {T}, "
@@ -218,6 +249,6 @@ def reduce_scatter(x, ctx: ReduceScatterContext):
                        ctx.axis)
     out = reduce_scatter_shard(parts, mesh, ctx.axis, ctx.method,
                                plain=ctx.plain)
-    a = mesh.dim(ctx.axis)
-    bands = out.movedim(a, 0)[(slice(None),) + (0,) * (len(mesh.shape) - 1)]
+    out = out.reshape(mesh.size, *out.shape[len(mesh.shape):])
+    bands = out[mesh.joint_groups(ctx.axis)[0]]
     return bands.reshape(T * bands.shape[1], *bands.shape[2:])

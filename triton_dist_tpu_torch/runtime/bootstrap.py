@@ -164,6 +164,52 @@ class Mesh:
         firsts = [r for r in range(self.size) if (r // stride) % n == 0]
         return [[r + c * stride for c in range(n)] for r in firsts]
 
+    def joint_size(self, axes) -> int:
+        """The ranks of a joint group over ``axes`` (one name or a tuple):
+        the product of their sizes."""
+        return math.prod(self.axis_size(a) for a in as_axes(axes))
+
+    def joint_groups(self, axes) -> list[list[int]]:
+        """The ranks of each joint group over ``axes`` (the ranks that
+        agree on the other axes), each in joint order: flat axes-major,
+        ``axes[0]`` slowest, whatever the mesh's own axis order (the
+        order of ``lax.all_gather`` over the joint axes)."""
+        axes = as_axes(axes)
+        sizes = [self.axis_size(a) for a in axes]
+        strides = [self.axis_stride(a) for a in axes]
+        firsts = [r for r in range(self.size)
+                  if all((r // s) % n == 0 for s, n in zip(strides, sizes))]
+        groups = []
+        for r in firsts:
+            group = [r]
+            for s, n in zip(strides, sizes):
+                group = [g + c * s for g in group for c in range(n)]
+            groups.append(group)
+        return groups
+
+    def joint_index(self, axes) -> list[int]:
+        """Every rank's index in its joint group over ``axes``."""
+        index = [0] * self.size
+        for group in self.joint_groups(axes):
+            for j, r in enumerate(group):
+                index[r] = j
+        return index
+
+    def group_args(self, axes) -> list[int]:
+        """The joint group over ``axes`` (1-3 names) as the kernels take it
+        (csrc/dist_verbs.cuh ``group_from``): [n, size0..2, stride0..2]."""
+        axes = as_axes(axes)
+        if not 1 <= len(axes) <= 3:
+            raise ValueError(f"a joint group takes 1-3 axes, got {axes}")
+        pad = [1] * (3 - len(axes))
+        return [len(axes), *(self.axis_size(a) for a in axes), *pad,
+                *(self.axis_stride(a) for a in axes), *pad]
+
+
+def as_axes(axis) -> tuple:
+    """``axis`` as a tuple of names (a name is a tuple of one)."""
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
 
 def create_hybrid_mesh(ici_axes: dict, dcn_axis: str = "dcn",
                        n_slow: int = 1, device=None) -> Mesh:
