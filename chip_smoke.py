@@ -14,7 +14,10 @@ Phases, in order (any failure exits non-zero without the final line):
 2. build: every CUDA source of the port compiled with ``nvcc`` for
    ``sm_90a`` (one process per source, in parallel), with each kernel's
    registers / shared memory / spills from ``-Xptxas -v``; a kernel that
-   spills fails the run;
+   spills fails the run; then the count of ``HGMMA`` (wgmma) instructions
+   in the SASS (``cuobjdump --dump-sass``) of ``ring_attn_kernel`` and
+   both backward kernels beside their spill bytes (a count of 0 fails the
+   run; without ``cuobjdump`` the line says so);
 3. kernels: each Hopper kernel against its plain PyTorch version at the
    main path's shapes (Hq 32, Hkv 8, D 128, bf16), within the stated
    tolerance, then timed (CUDA events around CUDA-graph replays, so host
@@ -321,8 +324,10 @@ took a torus schedule), zeroed just before its path and read just after
 its autotuned region (each > 0).  A
 noise-floor line compares one prompt forward with the flash kernel
 against the plain attention (what bf16 rounding alone moves the logits
-by).  The ``kernels`` JSON line, the ``nvidia-smi`` line and the result
-line close the output.
+by).  A ``ratio`` line per kernel row (each layout of ``ring_attn``)
+gives its time over its library call's from the same run; the
+``kernels`` JSON line, the ``nvidia-smi`` line and the result line close
+the output.
 """
 
 from __future__ import annotations
@@ -4888,6 +4893,57 @@ def _torus_times(key, args, mesh, axes, fn, ref, err, W, M, D, F, QKV):
                 library_ms=lib, max_abs_err=err)
 
 
+# The wgmma kernels (csrc/sm90.cuh): each must hold HGMMA instructions in
+# its SASS and spill nothing.
+WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
+                 "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+
+
+def sass_check(_build):
+    """Count the HGMMA instructions of each wgmma kernel in ``cuobjdump
+    --dump-sass`` of its built library, beside its ptxas spill bytes; a
+    count of 0 or a spill fails the run.  Where the toolkit has no
+    cuobjdump, the line says so."""
+    tool = os.path.join(os.path.dirname(os.path.dirname(
+        _build.nvcc_path())), "bin", "cuobjdump")
+    report = _build.ptxas_report()
+    paths = _build.build(tuple(WGMMA_KERNELS))
+    for lib, kernels in WGMMA_KERNELS.items():
+        spill, fn = {}, None
+        for line in report.get(lib, "").splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                spill[fn] = int(m.group(1)) + int(m.group(2))
+        if not os.path.exists(tool):
+            log(f"sass {lib}: no cuobjdump at {tool}: HGMMA not counted")
+            continue
+        sass = subprocess.run([tool, "--dump-sass", str(paths[lib])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn and "HGMMA" in line:
+                counts[fn] += 1
+        for kern in kernels:
+            found = {f: c for f, c in counts.items() if kern in f}
+            for f, c in sorted(found.items()):
+                mode = ("segmented" if "ILb1E" in f else
+                        "contiguous" if "ILb0E" in f else "one instance")
+                log(f"sass {lib} {kern} ({mode}): {c} HGMMA, ptxas spill "
+                    f"bytes {spill.get(f, 'not reported (prebuilt)')}")
+            if not found or min(found.values()) == 0:
+                raise AssertionError(f"{kern}: no HGMMA in its SASS "
+                                     f"({found})")
+
+
 def main() -> int:
     import torch
 
@@ -4936,6 +4992,7 @@ def main() -> int:
                 spills.append(f"{name}: {line.strip()}")
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
+    sass_check(_build)
 
     # phase 3: kernels
     rows = kernel_phase(dev)
@@ -5259,6 +5316,12 @@ def main() -> int:
                                              "device_ms",
                                              "library_null_reason")
                            if k in r}})
+    for name, r in rows.items():
+        for tag, x in (r.get("shapes") or {"": r}).items():
+            if x.get("library_ms"):
+                log(f"ratio {name}{' ' + tag if tag else ''}: kernel "
+                    f"{x['ms']:.4f} ms / library {x['library_ms']:.4f} ms = "
+                    f"{x['ms'] / x['library_ms']:.2f}x")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -216,6 +216,14 @@ BWD_CASES = [
     (1, 8, 2, 192, 192, 0, True, 0, 30.0),       # soft-cap
     (1, 8, 2, 96, 300, 204, True, 0, 0.0),       # q offset, Sq != Sk
     (1, 32, 8, 2048, 2048, 0, True, 0, 0.0),     # the training shape
+    # the edges of the 128-row / 128-key tiles
+    (1, 8, 2, 64, 64, 0, True, 0, 0.0),          # one half tile
+    (1, 8, 2, 129, 129, 0, True, 0, 0.0),        # one row past a tile
+    (2, 4, 4, 200, 200, 0, True, 0, 0.0),        # G = 1 at 128-row tiles
+    (1, 16, 2, 1000, 1000, 0, False, 0, 0.0),    # G = 8, non-causal
+    (1, 8, 2, 1000, 1000, 0, True, 48, 0.0),     # window shorter than a tile
+    (1, 8, 1, 200, 200, 0, True, 0, 25.0),       # soft-cap, G = 8
+    (1, 4, 2, 129, 1000, 871, True, 0, 0.0),     # q offset, Sq != Sk
 ]
 
 
@@ -1705,6 +1713,10 @@ SEG_CASES = [
     (4, 1, 8, 2, 512, 1, 0, 0.0),
     (4, 2, 8, 2, 256, 3, 0, 0.0),
     (2, 1, 16, 4, 384, 1, 200, 20.0),
+    # 128-row tiles whose 64-row blocks fall in two runs (chunks of 192)
+    (2, 1, 4, 4, 384, 1, 0, 0.0),
+    (4, 1, 8, 1, 384, 2, 48, 10.0),
+    (2, 2, 8, 8, 256, 0, 0, 0.0),
 ]
 
 
@@ -1777,6 +1789,18 @@ RING_ATTN_CASES = [
     (2, 384, 1, 16, 4, True, 0, 0.0, True),
     (4, 100, 1, 8, 2, True, 0, 0.0, False),    # a row tail that does not tile
     (4, 512, 1, 32, 8, True, 0, 0.0, True),    # Llama-3-8B's heads
+    # the edges of the 128-row / 128-key tiles
+    (4, 64, 1, 8, 2, True, 0, 0.0, False),     # half a tile
+    (2, 129, 1, 8, 2, True, 0, 0.0, False),    # one row past a tile
+    (3, 200, 2, 4, 4, True, 0, 0.0, False),    # G = 1 at 128-row tiles
+    (2, 1000, 1, 16, 2, True, 0, 0.0, False),  # G = 8
+    (4, 384, 1, 8, 2, True, 0, 0.0, True),     # zigzag, 192-row chunks
+    (4, 256, 1, 8, 2, True, 48, 0.0, False),   # window shorter than a tile
+    (2, 200, 1, 8, 2, True, 0, 20.0, False),   # soft-cap
+    (3, 129, 1, 8, 2, False, 0, 0.0, False),   # non-causal
+    (1, 200, 1, 8, 2, True, 0, 0.0, False),    # W 1
+    (8, 128, 1, 8, 2, True, 0, 0.0, True),     # W 8
+    (8, 100, 1, 8, 1, False, 0, 0.0, False),   # W 8, G 8, a tail
 ]
 
 
@@ -1816,6 +1840,58 @@ def test_ring_attn_ten_calls_in_a_row(cuda):
                                         scale=128 ** -0.5,
                                         zigzag=bool(i % 2))
         _ring_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_attn_training_shape_repeats(cuda, zigzag):
+    """Ten calls back to back at Llama-3-8B CP 4 (W 4, S_loc 2048, Hq 32,
+    Hkv 8) on the same inputs agree with the first bit for bit (one block
+    owns each output row and sums in a fixed order), and the first with
+    the dense ring."""
+    from triton_dist_tpu_torch.kernels import ring_attention as ra
+
+    g = np.random.default_rng(5 + zigzag)
+    q, k, v = _ring_inputs(g, cuda, 4, 2048, 1, 32, 8)
+    first = ra.ring_attn(q, k, v, zigzag=zigzag)
+    for _ in range(9):
+        assert torch.equal(ra.ring_attn(q, k, v, zigzag=zigzag), first)
+    want = ra._ring_attention_dense(q, k, v, causal=True, scale=128 ** -0.5,
+                                    zigzag=zigzag)
+    _ring_close(first, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segmented", [False, True])
+def test_flash_bwd_training_shape_repeats(cuda, segmented):
+    """Ten backward calls back to back at the training shape (B 1, Hq 32,
+    Hkv 8, S 2048; and the CP-4 ring step's folded zigzag layout, S_loc
+    2048) agree with the first bit for bit (no atomics: one sequential
+    sum per output), and the first with the plain version."""
+    if segmented:
+        world, b, S = 4, 1, 2048
+        kw = dict(causal=True, q_offset=_zig_rows(world, b, S, 0),
+                  kv_offset=_zig_rows(world, b, S, 1))
+        B = world * b
+    else:
+        B, S, kw = 1, 2048, dict(causal=True)
+    g = np.random.default_rng(9 + segmented)
+    q = _randn(g, (B, 32, S, 128), cuda)
+    k = _randn(g, (B, 8, S, 128), cuda)
+    v = _randn(g, (B, 8, S, 128), cuda)
+    do = _randn(g, (B, 32, S, 128), cuda)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    for _ in range(9):
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        for a, f in zip(again, first):
+            assert torch.equal(a, f)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for gt, wt, name in zip(first, want, ("dq", "dk", "dv")):
+        if wt.abs().max() > 0:
+            _rel_close(gt, wt, name)
+        else:
+            assert torch.all(gt == 0), name
 
 
 @pytest.mark.gpu

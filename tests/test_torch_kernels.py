@@ -1844,6 +1844,80 @@ def test_flash_per_row_offsets_match_rowwise_calls():
         tfa.flash_attention(q, k, v, q_offset=rows_q[:2])
 
 
+RING_PLAN_LAYOUTS = {
+    # name: (S_loc, B, Hq, Hkv, causal, window, zigzag)
+    "contiguous": (256, 1, 8, 2, True, 0, False),
+    "zigzag": (384, 1, 4, 1, True, 0, True),       # 192-row chunks
+    "window": (300, 2, 8, 1, True, 200, False),    # a row tail too
+    "noncausal": (128, 1, 16, 2, False, 0, False),
+}
+
+
+def _ref_live_count(world, s_loc, group, rank, qt, *, causal, window,
+                    zigzag):
+    """Live K / V tiles of compute item (rank, q tile qt) over the W ring
+    steps by the reference's ``_block_live`` on each tile's first and last
+    positions (``RING_BM`` folded rows, ``RING_BN`` keys), positions from
+    the reference's ``_shard_starts``."""
+    from triton_dist_tpu_torch.kernels import ring_attention as tra
+
+    def pos(r, i):
+        starts = jra._shard_starts(r, s_loc, world, zigzag)
+        run = s_loc // len(starts)
+        return starts[i // run] + i % run
+
+    bq = tra.RING_BM // group
+    i0, i1 = qt * bq, min(qt * bq + bq, s_loc) - 1
+    qf, ql = pos(rank, i0), pos(rank, i1)
+    n = 0
+    for s in range(world):
+        src = (rank - s) % world
+        for k0 in range(0, s_loc, tra.RING_BN):
+            kf = pos(src, k0)
+            kl = pos(src, min(k0 + tra.RING_BN, s_loc) - 1)
+            n += bool(jfa._block_live(qf, kf, causal=causal, window=window,
+                                      bq=ql - qf + 1, bk=kl - kf + 1))
+    return n
+
+
+@pytest.mark.parametrize("world", range(1, 9))
+@pytest.mark.parametrize("layout", sorted(RING_PLAN_LAYOUTS))
+def test_ring_plan_item_table(layout, world):
+    """The fused ring kernel's one item list over every folded rank, as
+    ``_ring_plan`` builds it (an int32 tensor on the workspace's device):
+    every copy item (s, rank, pair, chunk) once, all before every compute
+    item and in step order; every compute item (rank, pair, q tile) once;
+    compute costs non-increasing along the list, each equal to the live
+    tile count by the reference's ``_block_live`` rule."""
+    from triton_dist_tpu_torch.kernels import ring_attention as tra
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    s_loc, b, hq, hkv, causal, window, zigzag = RING_PLAN_LAYOUTS[layout]
+    group, bh = hq // hkv, b * hkv
+    kw = dict(causal=causal, window=window, zigzag=zigzag)
+    ws = get_world(world, torch.device("cpu")).workspace
+    plan = tra._ring_plan(ws, bh, s_loc, D, group=group, **kw)
+    n_rc, items, n_copy = plan[1], plan[-2], plan[-1]
+    assert items.dtype == torch.int32 and items.device.type == "cpu"
+    items = items.numpy()
+    assert n_copy == (world - 1) * world * bh * n_rc
+    copy, comp = items[:n_copy], items[n_copy:]
+    assert sorted(map(tuple, copy)) == [
+        (s, r, p, c) for s in range(1, world) for r in range(world)
+        for p in range(bh) for c in range(n_rc)]
+    assert np.all(np.diff(copy[:, 0]) >= 0)          # step by step
+    n_qt = -(-s_loc // (tra.RING_BM // group))
+    assert np.all(comp[:, 0] == 0)
+    assert sorted(map(tuple, comp[:, 1:])) == [
+        (r, p, t) for r in range(world) for p in range(bh)
+        for t in range(n_qt)]
+    cost = [_ref_live_count(world, s_loc, group, r, t, **kw)
+            for _, r, _, t in comp]
+    assert all(a >= b for a, b in zip(cost, cost[1:]))
+    _, _, costs = tra._ring_items(world, s_loc, bh, group, n_rc, **kw)
+    assert list(costs[n_copy:]) == cost
+
+
 def _ring_qkv(seed, S, B=2, Hq=4, Hkv=2, hd=D):
     return _inputs(seed, (S, B, Hq, hd), (S, B, Hkv, hd), (S, B, Hkv, hd))
 

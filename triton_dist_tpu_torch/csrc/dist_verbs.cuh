@@ -424,4 +424,35 @@ int launch_coop(Kern kernel, Params& p, int threads, int smem, int n_ranks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The flat-grid variant: one cooperative 1-D grid of as many resident
+// blocks as the card holds (at most one per item) that walks ONE item
+// list over every rank (the item names its rank), instead of a fixed
+// share of blocks per rank.
+template <class Kern, class Params>
+int launch_coop_flat(Kern kernel, Params& p, int threads, int smem,
+                     int items, unsigned& attr_set, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaError_t err = cudaSuccess;
+  if (!(attr_set & (1u << dev))) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set |= 1u << dev;
+  }
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = per_sm * sms;
+  if (blocks > items) blocks = items;
+  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(blocks), dim3(threads), args, smem,
+                                    stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tdt_dist

@@ -1,5 +1,6 @@
 // ring_attn: fused ring attention for Hopper (sm_90a), over the
-// distributed verbs of dist_verbs.cuh.
+// distributed verbs of dist_verbs.cuh and the wgmma / TMA pieces of
+// sm90.cuh.
 //
 // Replaces the TPU kernel triton_dist_tpu/kernels/ring_attention.py
 // `_ring_attn_kernel` (:409, launched from `_ring_attention_pallas_fwd` at
@@ -19,91 +20,127 @@
 // rank r's slot s - 1, chunk by chunk (one (batch, kv-head) pair's K and V
 // rows [c * chunk_rows, ...) per chunk), and sets an arrival flag per
 // (slot, pair, chunk) to the call's epoch; one flag covers the chunk's K
-// and V rows.  A block computing on slot s - 1 waits on the flags of its
-// pair alone.
+// and V rows.  A compute item reading slot s - 1 waits on the flags of
+// its pair alone.
 //
 // Backpressure.  The TPU kernel keeps two slots and a credit semaphore:
 // a slot is reused every other step, so a sender must learn that the
 // receiver has finished with it.  Here every rank holds W - 1 slots, one
 // per step, each written once per call, so no slot is ever reused within
 // a call and no credit is needed (and a block never waits on a compute:
-// see the order below).  Between calls the entry barrier_all keeps a
-// rank from writing into a peer that has not entered this call (on one
-// card, the stream already orders the launches).  The price is memory:
+// see the order below).  Between calls the entry barrier keeps a rank
+// from writing into a peer that has not entered this call (on one card,
+// the stream already orders the launches).  The price is memory:
 // (W - 1) K / V blocks per rank, 25 MB per rank at the Llama-3-8B CP-4
 // shape (S_loc 2048, B 1, Hkv 8).
 //
-// Order and deadlock freedom.  One cooperative launch, a 2-D grid
-// (blockIdx.y = rank), every block resident and persistent, walking its
-// rank's items in one list: first every copy item (step by step), then
-// every compute item (a q tile).  A copy item of step s >= 2 waits on the
-// left rank's copy of step s - 1 (a lower index in the same list order),
-// a compute item waits on copies only, so every wait is on work that no
-// block puts behind a wait of its own.  With tile-outer order and two
-// slots a slot would never be released while tiles wait on the block
-// after it; W slots and copies first remove that cycle.
+// Schedule and deadlock freedom.  One cooperative launch of a flat grid,
+// as many blocks as the card holds resident (one an SM), walking ONE item
+// list over every folded rank, built on the host (`_ring_plan` in
+// kernels/ring_attention.py): first every copy item (step by step, rank
+// by rank), then every compute item (rank, pair, q tile) sorted heaviest
+// first by its count of live key tiles over the W steps.  Block b takes
+// items b, b + nb, ... in list order.  A copy item of step s >= 2 waits
+// on the left rank's copy of step s - 1 (a lower index), a compute item
+// waits on copies only, so every wait is on work that no block puts
+// behind a wait of its own, and every block is resident.  A fixed share
+// of blocks per rank (the design before) left the contiguous causal
+// layout's last rank, with 2W - 1 times the first rank's live tiles,
+// setting the time; one sorted list balances the ranks on one card.  On
+// separate cards each rank walks its own list, so the contiguous
+// layout's imbalance remains there, and zigzag is the reference's answer
+// to it.
 //
-// Compute.  The flash_fwd.cu design: a q tile of 64 folded rows (the
-// G = Hq / Hkv heads of one kv-head times BQ = 64 / G positions), 4
-// warps of 16 rows, Q fragments in registers, S = Q K^T and O += P V as
-// mma.sync.m16n8k16 bf16 products with f32 accumulation, P rounded to
-// bf16 (as the TPU kernel casts it to q's dtype), K / V tiles of 64 keys
-// through a two-stage cp.async ring.  The tile's (m, l, O) stay in
-// registers across all W steps (tile-outer order).  Dead key tiles
-// (`_block_live` false: wholly in the future, or outside every row's
-// window) are skipped, and a step with no live tile neither waits nor
-// loads: under zigzag half the (q chunk, kv chunk) pairs are dead.
-// Wholly visible tiles drop the per-element mask (`_block_full`).
+// Compute.  A block is three warpgroups: a producer and two consumers
+// (setmaxnreg moves registers from the first to the others).  A q tile is
+// 128 folded rows (the G = Hq / Hkv heads of one kv-head times BQ = 128 /
+// G positions), 64 per consumer.  The producer's first thread brings the
+// tile's Q (double-buffered, so the next item's Q arrives under this
+// one's tail) and each live K / V tile of 128 keys by TMA into a
+// two-stage ring of full / empty mbarriers; before a step s >= 1 the
+// producer warpgroup waits on the step's arrival flags.  Each consumer
+// computes S = Q K^T with wgmma.m64n128k16 (Q and K from shared memory,
+// K-major), runs the online softmax on the accumulator registers in f32
+// and base 2 (scale, soft-cap, then the mask only on tiles that
+// `_block_full` says need it, each pass a loop of its own: interleaved
+// per element, the common path ran 4x slower), rounds P to bf16 in
+// registers (as the TPU kernel casts it to
+// q's dtype) and issues O += P V with P as the register A operand and V's
+// tile as the MN-major B.  The tile's (m, l, O) stay in registers across
+// all W steps.  Dead key tiles (`_block_live` false: wholly in the
+// future, or outside every row's window) are neither loaded nor computed,
+// and a step with no live tile neither waits nor loads: under zigzag half
+// the (q chunk, kv chunk) pairs are dead.  Positions come from `pos_of`
+// per key and per row, so a tile may straddle zigzag's chunk seam (S_loc
+// 384: 192-row chunks); liveness and fullness take the tile's first and
+// last positions (pos_of is increasing along a shard).
 //
 // What bounds it on an H100: operations.  Causal attention over the
 // whole sequence at Llama-3-8B CP 4 (W 4, S_loc 2048, Hq 32, D 128) is
 // 4 * 32 * 8192^2 * 128 / 2 = 0.55 TFLOP per call, ~0.56 ms at 989
 // TFLOP/s bf16; the ring moves W (W - 1) blocks of 8.4 MB, ~0.03 ms at
-// 3.35 TB/s.  wgmma, TMA and a dynamic tile queue are later steps
-// (PERF.md has the measured time beside the bound).
+// 3.35 TB/s.  PERF.md has the measured time beside the bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dist_verbs.cuh"
-#include "mma_frag.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace tdt_frag;
+using namespace tdt_sm90;
+using bf16 = __nv_bfloat16;
 using tdt_dist::MAX_RANKS;
 using tdt_dist::Peers;
 using tdt_dist::peers;
 
 constexpr int D = 128;         // head dim
-constexpr int BM = 64;         // folded q rows per tile (16 per warp)
-constexpr int BN = 64;         // keys per tile
-constexpr int NT = 128;        // 4 warps
-constexpr int LD = D + 8;      // bf16 row stride in shared memory (272 B)
+constexpr int BM = 128;        // folded q rows per tile (64 per consumer)
+constexpr int BN = 128;        // keys per tile
+constexpr int ST = 2;          // K / V stages
+constexpr int NT = 384;        // producer + two consumer warpgroups
 constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 constexpr float NEG_INF = -1.0e30f;
-constexpr size_t SMEM_BYTES = static_cast<size_t>(BM + 4 * BN) * LD * 2;
+constexpr uint32_t Q_HALF = BM * 128;   // bytes of a tile's 64-column half
+constexpr uint32_t KV_HALF = BN * 128;
+
+struct Smem {
+  bf16 q[2][2 * BM * 64];   // two Q buffers, each two swizzled halves
+  bf16 k[ST][2 * BN * 64];
+  bf16 v[ST][2 * BN * 64];
+  uint64_t full[ST], empty[ST], qfull[2], qempty[2];
+};
+constexpr size_t SMEM_BYTES = sizeof(Smem) + 1024;  // + 1024-byte alignment
 
 struct Params {
-  const bf16* q;  // rank-stacked [W][S_loc][B][Hq][D] by the strides below
-  const bf16* k;
+  CUtensorMap qmap;  // q: {D, S_loc, Hq, B, W}, box {64, BQ, G, 1, 1}
+  CUtensorMap kmap;  // k: {D, S_loc, Hkv, B, W}, box {64, BN, 1, 1, 1}
+  CUtensorMap vmap;
+  CUtensorMap kslot_map[MAX_RANKS];  // rank r's {D, S_loc, B Hkv, W - 1}
+  CUtensorMap vslot_map[MAX_RANKS];
+  const bf16* k;  // rank-stacked [W][S_loc][B][Hkv][D] by the strides below
   const bf16* v;
   bf16* out;      // [W][S_loc][B][Hq][D] contiguous
-  long long q_rs, q_ss, q_sb, q_sh;  // rank, position, batch, head strides
   long long k_rs, k_ss, k_sb, k_sh;
   long long v_rs, v_ss, v_sb, v_sh;
   Peers<bf16> kslot;      // rank r's [W - 1][B * Hkv][S_loc][D]
   Peers<bf16> vslot;
   Peers<unsigned> flags;  // rank r's [W - 1][B * Hkv][n_rc]
   Peers<unsigned> bar;    // rank r's [W] barrier slots
+  const int4* items;      // [n_items] (s, rank, pair, chunk or q tile)
+  int n_items, n_copy;
   int world, s_loc, B, Hq, Hkv, G, BQ, chunk_rows, n_rc;
   int zigzag, causal, window;
   float scale, soft_cap;
   unsigned epoch;
 };
 
-// `_shard_starts`: global position of row i of rank `rank`'s shard.
-__device__ inline int pos_of(const Params& p, int rank, int i) {
+// `_shard_starts`: global position of row i of rank `rank`'s shard
+// (increasing in i).
+__device__ __forceinline__ int pos_of(const Params& p, int rank, int i) {
   if (!p.zigzag) return rank * p.s_loc + i;
   const int c = p.s_loc / 2;
   return i < c ? rank * c + i : (2 * p.world - 1 - rank) * c + (i - c);
@@ -111,7 +148,7 @@ __device__ inline int pos_of(const Params& p, int rank, int i) {
 
 // Copy item: rows [r0, r1) of pair bh's K and V block that rank `me`
 // consumed at step s - 1 into the right neighbour's slot s - 1, then the
-// chunk's arrival flag there.
+// chunk's arrival flag there.  The whole block copies.
 __device__ __forceinline__ void copy_item(const Params& p, int me, int s,
                                           int bh, int c) {
   const int BH = p.B * p.Hkv;
@@ -142,237 +179,303 @@ __device__ __forceinline__ void copy_item(const Params& p, int me, int s,
     *reinterpret_cast<uint4*>(dv + row * D + col) =
         *reinterpret_cast<const uint4*>(sv);
   }
+  fence_proxy_async_global();  // the receiver's TMA reads these rows
   tdt_dist::signal(p.flags.p[right] + ((s - 1) * BH + bh) * p.n_rc + c,
                    p.epoch);
 }
 
-// Compute item: q tile qt of pair bh over all W steps, then its out rows.
-__device__ __forceinline__ void compute_item(const Params& p, int me,
-                                             int bh, int qt, char* smem_raw) {
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
-  bf16* sK = sQ + BM * LD;                       // [2][BN][LD]
-  bf16* sV = sK + 2 * BN * LD;                   // [2][BN][LD]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane >> 2, tq = lane & 3;
+// A compute item's q tile: rank me, pair bh = b Hkv + h, folded rows
+// [0, 128) = head h G + r / BQ at local position q0 + r % BQ.
+struct QTile {
+  int me, bh, b, h, q0, n_rows, q_first, q_last;
+};
+
+__device__ __forceinline__ QTile q_tile(const Params& p, int4 w) {
+  QTile t;
+  t.me = w.y;
+  t.bh = w.z;
+  t.b = w.z / p.Hkv;
+  t.h = w.z % p.Hkv;
+  t.q0 = w.w * p.BQ;
+  t.n_rows = min(p.BQ, p.s_loc - t.q0);
+  t.q_first = pos_of(p, t.me, t.q0);
+  t.q_last = pos_of(p, t.me, t.q0 + t.n_rows - 1);
+  return t;
+}
+
+// `_block_live` of key tile t of rank src's block against the q tile.
+__device__ __forceinline__ bool tile_live(const Params& p, const QTile& q,
+                                          int src, int t) {
+  const int k0 = t * BN, nk = min(BN, p.s_loc - k0);
+  const int kf = pos_of(p, src, k0), kl = pos_of(p, src, k0 + nk - 1);
+  return (!p.causal || kf <= q.q_last) &&
+         (!p.window || kl > q.q_first - p.window);
+}
+
+__device__ __forceinline__ int next_live(const Params& p, const QTile& q,
+                                         int src, int t) {
+  const int n_kt = (p.s_loc + BN - 1) / BN;
+  while (t < n_kt && !tile_live(p, q, src, t)) ++t;
+  return t;
+}
+
+// The producer warpgroup: Q and every live K / V tile of this block's
+// compute items, in the consumers' order.  Thread 0 issues the TMA loads;
+// the warpgroup waits on a step's arrival flags together.
+__device__ __forceinline__ void producer(const Params& p, Smem& sm, int it0) {
+  const int tid = threadIdx.x;  // 0..127
+  const int n_kt = (p.s_loc + BN - 1) / BN;
   const int BH = p.B * p.Hkv;
-  const int b = bh / p.Hkv, h = bh % p.Hkv;
-  const int S = p.s_loc;
-  const int q0 = qt * p.BQ;
-  const int n_rows = min(p.BQ, S - q0);
-  const int q_first = pos_of(p, me, q0);
-  const int q_last = q_first + n_rows - 1;
-  const int n_kt = (S + BN - 1) / BN;
-
-  // Q tile: folded row r is head h * G + r / BQ at position q0 + r % BQ.
-#pragma unroll
-  for (int i = 0; i < BM * CHUNKS / NT; ++i) {
-    const int j = tid + i * NT, r = j / CHUNKS, c = j % CHUNKS;
-    const int qi = q0 + r % p.BQ;
-    cp_async16(sQ + r * LD + c * 8,
-               qi < S ? p.q + me * p.q_rs + qi * p.q_ss + b * p.q_sb +
-                            (h * p.G + r / p.BQ) * p.q_sh + c * 8
-                      : nullptr,
-               p.q);
-  }
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-  unsigned qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], sQ, LD, warp * 16, kk * 16);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};
-
-  for (int s = 0; s < p.world; ++s) {
-    const int src = (me - s + p.world) % p.world;
-    auto live = [&](int t) {
-      const int kf = pos_of(p, src, t * BN), nk = min(BN, S - t * BN);
-      return (!p.causal || kf <= q_last) &&
-             (!p.window || kf + nk - 1 > q_first - p.window);
-    };
-    auto next_live = [&](int t) {
-      while (t < n_kt && !live(t)) ++t;
-      return t;
-    };
-    int t = next_live(0);
-    if (t >= n_kt) continue;  // a dead block: no wait, no load
-
-    const bf16 *kb, *vb;
-    long long k_ss, v_ss;
-    if (s == 0) {
-      kb = p.k + me * p.k_rs + b * p.k_sb + h * p.k_sh;
-      vb = p.v + me * p.v_rs + b * p.v_sb + h * p.v_sh;
-      k_ss = p.k_ss;
-      v_ss = p.v_ss;
-    } else {
-      tdt_dist::wait(p.flags.p[me] + ((s - 1) * BH + bh) * p.n_rc, p.epoch,
-                     p.n_rc);
-      const long long off = ((s - 1) * BH + bh) * static_cast<long long>(S) * D;
-      kb = p.kslot.p[me] + off;
-      vb = p.vslot.p[me] + off;
-      k_ss = v_ss = D;
+  Ring<ST> ring;
+  Ring<2> qring;
+  for (int it = it0; it < p.n_items; it += gridDim.x) {
+    const QTile q = q_tile(p, p.items[it]);
+    if (tid == 0) {
+      const int st = qring.stage;
+      mbar_wait(&sm.qempty[st], qring.phase ^ 1u);
+      mbar_arrive_tx(&sm.qfull[st], 2 * Q_HALF);
+      for (int hf = 0; hf < 2; ++hf)
+        tma_load_5d(sm.q[st] + hf * BM * 64, &p.qmap, &sm.qfull[st], hf * 64,
+                    q.q0, q.h * p.G, q.b, q.me);
     }
-    auto load_kv = [&](int t0, int buf) {
-      bf16* dk = sK + buf * BN * LD;
-      bf16* dv = sV + buf * BN * LD;
-#pragma unroll
-      for (int i = 0; i < BN * CHUNKS / NT; ++i) {
-        const int j = tid + i * NT, r = j / CHUNKS, c = j % CHUNKS;
-        const int key = t0 + r;
-        const bool ok = key < S;
-        cp_async16(dk + r * LD + c * 8, ok ? kb + key * k_ss + c * 8 : nullptr,
-                   p.k);
-        cp_async16(dv + r * LD + c * 8, ok ? vb + key * v_ss + c * 8 : nullptr,
-                   p.k);
+    qring.next();
+    for (int s = 0; s < p.world; ++s) {
+      const int src = (q.me - s + p.world) % p.world;
+      int t = next_live(p, q, src, 0);
+      if (t >= n_kt) continue;  // a dead block: no wait, no load
+      if (s > 0) {
+        if (tid < p.n_rc)
+          tdt_dist::spin_until(
+              p.flags.p[q.me] + ((s - 1) * BH + q.bh) * p.n_rc + tid,
+              p.epoch);
+        named_sync(1, 128);
+        fence_proxy_async_global();
       }
-    };
-    load_kv(t * BN, 0);
-    cp_commit();
-    for (int it = 0; t < n_kt; ++it) {
-      const int t0 = t * BN, buf = it & 1;
-      const int tn = next_live(t + 1);
-      if (tn < n_kt) {
-        load_kv(tn * BN, buf ^ 1);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-      const bf16* k_t = sK + buf * BN * LD;
-      const bf16* v_t = sV + buf * BN * LD;
-
-      // S[16 x 64] = Q K^T.
-      float sc[BN / 8][4];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int jp = 0; jp < BN / 16; ++jp) {
-          unsigned kf[4];
-          load_b_nk(kf, k_t, LD, jp * 16, kk * 16);
-          mma16816(sc[2 * jp], qf[kk], kf[0], kf[1]);
-          mma16816(sc[2 * jp + 1], qf[kk], kf[2], kf[3]);
-        }
-      }
-
-      // Online softmax on this thread's two rows (`_block_update`).
-      const int k_first = pos_of(p, src, t0);
-      const bool full =
-          t0 + BN <= S && q0 + p.BQ <= S &&
-          (!p.causal || q_first >= k_first + BN - 1) &&
-          (!p.window || q_last - k_first < p.window);
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[j][e] * p.scale;
-          if (p.soft_cap > 0.f) x = p.soft_cap * tanhf(x / p.soft_cap);
-          if (!full) {
-            const int row = warp * 16 + gq + (e >> 1) * 8;
-            const int i = q0 + row % p.BQ;
-            const int kc = j * 8 + 2 * tq + (e & 1);
-            const int qpos = q_first + row % p.BQ, kpos = k_first + kc;
-            const bool vis = i < S && t0 + kc < S &&
-                             (!p.causal || qpos >= kpos) &&
-                             (!p.window || qpos - kpos < p.window);
-            if (!vis) x = NEG_INF;
+      for (; t < n_kt; t = next_live(p, q, src, t + 1)) {
+        if (tid == 0) {
+          const int st = ring.stage;
+          mbar_wait(&sm.empty[st], ring.phase ^ 1u);
+          mbar_arrive_tx(&sm.full[st], 4 * KV_HALF);
+          for (int hf = 0; hf < 2; ++hf) {
+            bf16* dk = sm.k[st] + hf * BN * 64;
+            bf16* dv = sm.v[st] + hf * BN * 64;
+            if (s == 0) {
+              tma_load_5d(dk, &p.kmap, &sm.full[st], hf * 64, t * BN, q.h,
+                          q.b, q.me);
+              tma_load_5d(dv, &p.vmap, &sm.full[st], hf * 64, t * BN, q.h,
+                          q.b, q.me);
+            } else {
+              tma_load_4d(dk, &p.kslot_map[q.me], &sm.full[st], hf * 64,
+                          t * BN, q.bh, s - 1);
+              tma_load_4d(dv, &p.vslot_map[q.me], &sm.full[st], hf * 64,
+                          t * BN, q.bh, s - 1);
+            }
           }
-          sc[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
+        ring.next();
       }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
-        alpha[r] = expf(m_r[r] - m_new);
-        m_r[r] = m_new;
-      }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = sc[j][e];
-          const float pe = x > 0.5f * NEG_INF ? expf(x - m_r[e >> 1]) : 0.f;
-          sum[e >> 1] += pe;
-          sc[j][e] = pe;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
-
-      // O[16 x 128] += P[16 x 64] V[64 x 128].
-#pragma unroll
-      for (int ks = 0; ks < BN / 16; ++ks) {
-        unsigned a[4];
-        acc_to_a(a, sc, ks);
-#pragma unroll
-        for (int jp = 0; jp < D / 16; ++jp) {
-          unsigned vf[4];
-          load_b_kn(vf, v_t, LD, ks * 16, jp * 16);
-          mma16816(o[2 * jp], a, vf[0], vf[1]);
-          mma16816(o[2 * jp + 1], a, vf[2], vf[3]);
-        }
-      }
-      __syncthreads();  // every warp is done with buf before it refills
-      t = tn;
     }
-  }
-
-  // out = O / l in bf16 (a row with nothing visible stays 0).
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_r[r]);
-    const int row = warp * 16 + gq + r * 8;
-    const int i = q0 + row % p.BQ;
-    if (i >= S) continue;
-    const long long o_row =
-        ((static_cast<long long>(me) * S + i) * p.B + b) * p.Hq + h * p.G +
-        row / p.BQ;
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    bf16* dst = p.out + o_row * D + 2 * tq;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
   }
 }
 
-__global__ void __launch_bounds__(NT, 2)
-ring_attn_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(128) char smem_raw[];
-  const int me = blockIdx.y, lb = blockIdx.x, nb = gridDim.x;
-  tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
-  const int BH = p.B * p.Hkv;
-  const int n_copy = (p.world - 1) * BH * p.n_rc;
-  const int n_qt = (p.s_loc + p.BQ - 1) / p.BQ;
-  const int n_items = n_copy + BH * n_qt;
-  for (int it = lb; it < n_items; it += nb) {
-    if (it < n_copy) {
-      const int per_step = BH * p.n_rc;
-      copy_item(p, me, 1 + it / per_step, (it % per_step) / p.n_rc,
-                it % p.n_rc);
-    } else {
-      const int c = it - n_copy;
-      compute_item(p, me, c / n_qt, c % n_qt, smem_raw);
+// A consumer warpgroup (cw = 0, 1): rows 64 cw .. 64 cw + 63 of each q
+// tile, over every live K / V tile the producer brings, then its out rows.
+__device__ __forceinline__ void consumer(const Params& p, Smem& sm, int it0,
+                                         int cw) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n_kt = (p.s_loc + BN - 1) / BN;
+  const int S = p.s_loc;
+  Ring<ST> ring;
+  Ring<2> qring;
+  for (int it = it0; it < p.n_items; it += gridDim.x) {
+    const QTile q = q_tile(p, p.items[it]);
+    // This thread's two rows: folded row, local index, global position.
+    int row_i[2], row_pos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 64 * cw + 16 * warp + gq + 8 * r;
+      row_i[r] = q.q0 + row % p.BQ;
+      row_pos[r] = row_i[r] < S ? pos_of(p, q.me, row_i[r]) : 0;
     }
-    __syncthreads();  // shared memory and flags are free for the next item
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_r[2] = {NEG_INF, NEG_INF};
+    float l_r[2] = {0.f, 0.f};
+
+    const int qst = qring.stage;
+    mbar_wait(&sm.qfull[qst], qring.phase);
+    const bf16* sq = sm.q[qst] + cw * 64 * 64;  // this consumer's 64 rows
+
+    for (int s = 0; s < p.world; ++s) {
+      const int src = (q.me - s + p.world) % p.world;
+      for (int t = next_live(p, q, src, 0); t < n_kt;
+           t = next_live(p, q, src, t + 1)) {
+        const int st = ring.stage;
+        mbar_wait(&sm.full[st], ring.phase);
+        const bf16* sk = sm.k[st];
+        const bf16* sv = sm.v[st];
+
+        // S[64 x 128] = Q K^T.
+        float sc[64];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n128<0>(sc, desc_k(sq, kk, Q_HALF),
+                           desc_k(sk, kk, KV_HALF), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // Online softmax on this thread's two rows (`_block_update`) in
+        // the base-2 domain (logits times log2(e), exp2): scale and cap
+        // every logit, then mask the tiles that need it, each in a loop
+        // of its own so the common path runs straight through.
+        const int t0 = t * BN;
+        const int k_first = pos_of(p, src, t0);
+        const int k_last = pos_of(p, src, min(t0 + BN, S) - 1);
+        const bool full =
+            t0 + BN <= S && q.q0 + p.BQ <= S &&
+            (!p.causal || q.q_first >= k_last) &&
+            (!p.window || q.q_last - k_first < p.window);
+        if (p.soft_cap > 0.f) {
+          const float in = p.scale / p.soft_cap, out = p.soft_cap * LOG2E;
+#pragma unroll
+          for (int i = 0; i < 64; ++i) sc[i] = out * tanh_fast(sc[i] * in);
+        } else {
+          const float sl = p.scale * LOG2E;
+#pragma unroll
+          for (int i = 0; i < 64; ++i) sc[i] *= sl;
+        }
+        if (!full) {
+          // Key positions: run 0 from local 0, zigzag's run 1 from split.
+          const int split = p.zigzag ? S / 2 : S;
+          const int run0 = pos_of(p, src, 0);
+          const int run1 = p.zigzag ? pos_of(p, src, split) - split : 0;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const int key = t0 + 8 * j + 2 * tq + (e & 1);
+              const int kpos = key + (key < split ? run0 : run1);
+              const bool vis = row_i[r] < S && key < S &&
+                               (!p.causal || row_pos[r] >= kpos) &&
+                               (!p.window || row_pos[r] - kpos < p.window);
+              if (!vis) sc[4 * j + e] = NEG_INF;
+            }
+          }
+        }
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
+          alpha[r] = exp2_approx(m_r[r] - m_new);
+          m_r[r] = m_new;
+        }
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int r = (i >> 1) & 1;
+          const float x = sc[i];
+          const float pe = x > 0.5f * NEG_INF ? exp2_approx(x - m_r[r]) : 0.f;
+          sum[r] += pe;
+          sc[i] = pe;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+        // O[64 x 128] += P[64 x 128] V[128 x 128], P in registers.
+        unsigned pa[BN / 16][4];
+#pragma unroll
+        for (int ks = 0; ks < BN / 16; ++ks) acc_to_a(pa[ks], sc, ks);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BN / 16; ++ks)
+          wgmma_rs_n128<1>(o, pa[ks], desc_mn(sv, ks, KV_HALF), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int ks = 0; ks < BN / 16; ++ks) fence_regs(pa[ks]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&sm.empty[st]);
+        ring.next();
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.qempty[qst]);
+    qring.next();
+
+    // out = O / l in bf16 (a row with nothing visible stays 0).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_r[r]);
+      const int row = 64 * cw + 16 * warp + gq + 8 * r;
+      const int i = row_i[r];
+      if (i >= S) continue;
+      const long long o_row =
+          ((static_cast<long long>(q.me) * S + i) * p.B + q.b) * p.Hq +
+          q.h * p.G + row / p.BQ;
+      const float inv = 1.0f / fmaxf(l, 1e-30f);
+      bf16* dst = p.out + o_row * D + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                  o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+ring_attn_kernel(const __grid_constant__ Params p) {
+  extern __shared__ char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.empty[i], 8);  // every consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.qfull[i], 1);
+      mbar_init(&sm.qempty[i], 8);
+    }
+    mbar_fence_init();
+  }
+  // The entry barrier of every rank this launch serves (barrier_all's
+  // protocol: thread (me, peer) marks me's arrival at peer and waits for
+  // peer's at me).
+  if (tid < p.world * p.world) {
+    const int me = tid / p.world, peer = tid % p.world;
+    tdt_dist::st_release(p.bar.p[peer] + me, p.epoch);
+    tdt_dist::spin_until(p.bar.p[me] + peer, p.epoch);
+  }
+  __syncthreads();
+
+  // Copy items first, by the whole block.
+  int it = blockIdx.x;
+  for (; it < p.n_copy; it += gridDim.x) {
+    const int4 w = p.items[it];
+    copy_item(p, w.y, w.x, w.z, w.w);
+    __syncthreads();
+  }
+  // Then this block's compute items, warp-specialised.
+  if (tid < 128) {
+    regs_dealloc<PRODUCER_REGS>();
+    producer(p, sm, it);
+  } else {
+    regs_alloc<CONSUMER_REGS>();
+    consumer(p, sm, it, tid / 128 - 1);
   }
 }
 
@@ -384,34 +487,38 @@ ring_attn_kernel(const __grid_constant__ Params p) {
 // out [W][S_loc][B][Hq][128] bf16 contiguous.  kslot / vslot / flags /
 // bar: pointer tables of `world` addresses (slots [W - 1][B Hkv][S_loc]
 // [128] bf16, flags [W - 1][B Hkv][n_rc], barrier [W]); a chunk is
-// chunk_rows rows, n_rc = ceil(S_loc / chunk_rows) <= 128.  Zigzag needs
-// (S_loc / 2) % 64 == 0.  epoch: this call's, from the workspace.
+// chunk_rows rows, n_rc = ceil(S_loc / chunk_rows) <= 128.  items: the
+// item list [n_items][4] int32 on the card (`_ring_plan`), its first
+// n_copy the copy items.  Zigzag needs (S_loc / 2) % 64 == 0.  epoch:
+// this call's, from the workspace.
 extern "C" int tdt_ring_attn(
     const void* q, const void* k, const void* v, void* out, long long q_rs,
     long long q_ss, long long q_sb, long long q_sh, long long k_rs,
     long long k_ss, long long k_sb, long long k_sh, long long v_rs,
     long long v_ss, long long v_sb, long long v_sh, const long long* kslot,
     const long long* vslot, const long long* flags, const long long* bar,
-    int world, int s_loc, int B, int Hq, int Hkv, int chunk_rows, int n_rc,
-    int zigzag, int causal, int window, float scale, float soft_cap,
-    unsigned epoch, void* stream) {
+    const void* items, int n_items, int n_copy, int world, int s_loc, int B,
+    int Hq, int Hkv, int chunk_rows, int n_rc, int zigzag, int causal,
+    int window, float scale, float soft_cap, unsigned epoch, void* stream) {
   if (world < 1 || world > MAX_RANKS || s_loc < 1 || B < 1 || Hkv < 1 ||
-      Hq % Hkv || BM % (Hq / Hkv) || chunk_rows < 1 || n_rc > NT ||
+      Hq % Hkv || 64 % (Hq / Hkv) || chunk_rows < 1 || n_rc > 128 ||
       n_rc != (s_loc + chunk_rows - 1) / chunk_rows ||
-      (zigzag && (s_loc / 2) % BN))
+      (zigzag && (s_loc / 2) % 64) || n_items < 1 || n_copy < 0 ||
+      n_copy > n_items)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
   p.out = static_cast<bf16*>(out);
-  p.q_rs = q_rs; p.q_ss = q_ss; p.q_sb = q_sb; p.q_sh = q_sh;
   p.k_rs = k_rs; p.k_ss = k_ss; p.k_sb = k_sb; p.k_sh = k_sh;
   p.v_rs = v_rs; p.v_ss = v_ss; p.v_sb = v_sb; p.v_sh = v_sh;
   p.kslot = peers<bf16>(kslot, world);
   p.vslot = peers<bf16>(vslot, world);
   p.flags = peers<unsigned>(flags, world);
   p.bar = peers<unsigned>(bar, world);
+  p.items = static_cast<const int4*>(items);
+  p.n_items = n_items;
+  p.n_copy = n_copy;
   p.world = world;
   p.s_loc = s_loc;
   p.B = B;
@@ -427,10 +534,31 @@ extern "C" int tdt_ring_attn(
   p.scale = scale;
   p.soft_cap = soft_cap;
   p.epoch = epoch;
-  const int BH = B * Hkv;
-  const int items = (world - 1) * BH * n_rc + BH * ((s_loc + p.BQ - 1) / p.BQ);
+
+  // Tensor maps: q / k / v by their strides, each rank's slots.
+  const long long qd[5] = {D, s_loc, Hq, B, world};
+  const long long qs[5] = {1, q_ss, q_sh, q_sb, q_rs};
+  const int qbox[5] = {64, p.BQ, p.G, 1, 1};
+  const long long kd[5] = {D, s_loc, Hkv, B, world};
+  const long long ks[5] = {1, k_ss, k_sh, k_sb, k_rs};
+  const long long vs[5] = {1, v_ss, v_sh, v_sb, v_rs};
+  const int kbox[5] = {64, BN, 1, 1, 1};
+  int err = make_map(&p.qmap, q, 5, qd, qs, qbox);
+  if (!err) err = make_map(&p.kmap, k, 5, kd, ks, kbox);
+  if (!err) err = make_map(&p.vmap, v, 5, kd, vs, kbox);
+  if (world > 1) {
+    const long long sd[4] = {D, s_loc, static_cast<long long>(B) * Hkv,
+                             world - 1};
+    const long long ss[4] = {1, D, static_cast<long long>(s_loc) * D,
+                             static_cast<long long>(B) * Hkv * s_loc * D};
+    for (int r = 0; r < world && !err; ++r) {
+      err = make_map(&p.kslot_map[r], p.kslot.p[r], 4, sd, ss, kbox);
+      if (!err) err = make_map(&p.vslot_map[r], p.vslot.p[r], 4, sd, ss, kbox);
+    }
+  }
+  if (err) return err;
   static unsigned attr = 0;
-  return tdt_dist::launch_coop(ring_attn_kernel, p, NT,
-                               static_cast<int>(SMEM_BYTES), world, items,
-                               attr, static_cast<cudaStream_t>(stream));
+  return tdt_dist::launch_coop_flat(ring_attn_kernel, p, NT,
+                                    static_cast<int>(SMEM_BYTES), n_items,
+                                    attr, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,406 @@
+// Hopper (sm_90a) building blocks of the warp-specialised attention
+// kernels (ring_attn.cu, flash_bwd.cu): mbarriers, TMA tile loads, the
+// wgmma shared-memory descriptor of 128-byte-swizzled bf16 tiles, wgmma
+// issue (A from shared memory or from registers), its fence / commit /
+// wait, setmaxnreg, and the host side that encodes a tensor map.
+//
+// Tiles.  A tile of R rows x 128 bf16 (one head-dim row per row) lives in
+// shared memory as two halves of R x 64 (128 bytes a row), each written by
+// one TMA load with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r
+// sits at chunk c ^ (r % 8).  Every half starts on a 1024-byte boundary,
+// so the swizzle the TMA applies is the one wgmma's descriptor names.
+// - As a K-major operand (rows = M or N, the 64 columns = K): descriptor
+//   start = half + 16 k bytes for the k16 step k of that half, stride
+//   between 8-row groups (SBO) 1024 bytes.
+// - As an MN-major operand (rows = K, columns = N, the transpose bit set,
+//   which bf16 allows): start = half + 16 rows x 128 bytes per k16 step,
+//   SBO 1024 (the next 8 rows of K), LBO = the stride between the two
+//   halves (the next 64 columns of N).
+//
+// Fragments.  wgmma's f32 accumulator of m64nN, per warp w of the
+// warpgroup: d[4 j + e] is row 16 w + lane / 4 + 8 (e / 2), column 8 j +
+// 2 (lane % 4) + e % 2 -- the mma.sync m16n8 C layout, N / 8 times over.
+// Its register A operand (m64k16) is the m16n8k16 A fragment of each
+// warp's 16 rows, so a product's accumulator turns into the next
+// product's A operand in registers (acc_to_a below).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tdt_sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// After the inits, before any other thread uses the barriers.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also tells the barrier to expect `bytes` of TMA data.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              unsigned parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that has
+// not passed in 10 s traps (a protocol fault becomes a launch error, never
+// a hung card).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = now_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (now_ns() - t0 > 10ull * 1000 * 1000 * 1000) __trap();
+}
+
+// A ring of NS stages: stage index and phase parity, advanced in step by
+// the producer and every consumer (they walk the same tile sequence).
+template <int NS>
+struct Ring {
+  int stage = 0;
+  unsigned phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == NS) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Named barrier over `threads` threads (a warpgroup's private sync; id 0
+// is __syncthreads).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;\n" :: "r"(id), "r"(threads)
+               : "memory");
+}
+
+// --------------------------------------------------------------------- TMA
+
+// Generic-proxy writes to global memory (another block's stores, seen
+// through an acquire) before this thread's TMA reads of them.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// Descriptor of a 128-byte-swizzled bf16 operand at `smem` (see the
+// header): lbo / sbo in bytes.
+__device__ __forceinline__ uint64_t desc_sw128(const void* smem,
+                                               uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// K-major: the k16 step k (0..7) of a [rows][128] tile stored as two
+// swizzled halves `half` bytes apart.
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int k,
+                                           uint32_t half) {
+  const char* p = static_cast<const char*>(tile) + (k >> 2) * half +
+                  (k & 3) * 32;
+  return desc_sw128(p, 16, 1024);
+}
+
+// MN-major (transposed B): the k16 step k over the rows of a [rows][128]
+// tile stored as two swizzled halves `half` bytes apart.
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int k,
+                                            uint32_t half) {
+  return desc_sw128(static_cast<const char*>(tile) + k * 2048, half, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// a wgmma issue or wait (the asm's operands are the only dependence it
+// sees).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(unsigned (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int REGS>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x in one MUFU.EX2 (exp(y) = exp2(y log2(e)) is how the softmax kernels
+// take their exponentials: the row maxima and the log-sum-exps are kept
+// in that base-2 domain).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(x) = 1 - 2 / (1 + e^(2x)) by MUFU.EX2 and MUFU.RCP: few registers
+// where a fully unrolled loop of tanhf would hold many; absolute error
+// ~1e-7 (exact limits +-1 at +-inf).
+__device__ __forceinline__ float tanh_fast(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n"
+      : "=f"(r) : "f"(1.f + exp2_approx(2.f * LOG2E * x)));
+  return 1.f - 2.f * r;
+}
+
+// Max / sum over the four lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The register A operand of the k16 step ks over columns 16 ks .. 16 ks +
+// 15 of an accumulator d[4 j + e], rounded to bf16.
+template <int N>
+__device__ __forceinline__ void acc_to_a(unsigned (&a)[4], const float (&d)[N],
+                                         int ks) {
+  a[0] = pack_bf16(d[8 * ks + 0], d[8 * ks + 1]);
+  a[1] = pack_bf16(d[8 * ks + 2], d[8 * ks + 3]);
+  a[2] = pack_bf16(d[8 * ks + 4], d[8 * ks + 5]);
+  a[3] = pack_bf16(d[8 * ks + 6], d[8 * ks + 7]);
+}
+
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B in shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers (the m16n8k16
+// A fragment of each warp's 16 rows), B in shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const unsigned (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TRANS_B));
+}
+
+// --------------------------------------------------------------- host side
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// libraries link against the runtime alone (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// The error a C entry returns when a tensor map cannot be encoded.
+constexpr int MAP_ERROR = 9001;
+
+// A bf16 tensor map of `rank` dims with 128-byte swizzle: dims[0] = 128
+// (the head dim, unit stride), dims / strides (elements) of the others in
+// the order the box's rows nest; box {64, box[1], ...}.  Rows past a dim's
+// end read as zeros.  Returns 0 or MAP_ERROR.
+inline int make_map(CUtensorMap* map, const void* base, int rank,
+                    const long long* dims, const long long* strides,
+                    const int* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return MAP_ERROR;
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t bdim[5], estride[5];
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    bdim[i] = static_cast<cuuint32_t>(i == 0 ? 64 : box[i]);
+    estride[i] = 1;
+    if (i > 0) gstride[i - 1] = static_cast<cuuint64_t>(strides[i]) * 2;
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        static_cast<cuuint32_t>(rank),
+                        const_cast<void*>(base), gdim, gstride, bdim, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ERROR;
+}
+
+}  // namespace tdt_sm90

@@ -66,8 +66,11 @@ _NEG = -1e30
 IMPLS = ("auto", "flash", "fused")
 RING_CHUNK_BYTES = 1 << 16   # K rows a copy item moves before it signals
 
+RING_BM = 128   # folded q rows per compute item (csrc/ring_attn.cu BM)
+RING_BN = 128   # keys per K / V tile (csrc/ring_attn.cu BN)
+
 _SIG = {"tdt_ring_attn": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
         + [ctypes.c_float] * 2 + [ctypes.c_uint, ctypes.c_void_p]}
 
 
@@ -406,11 +409,73 @@ def _check_ring_operand(name, x, shape):
                          f"{tuple(x.stride())})")
 
 
-def _ring_plan(ws, bh, s_loc, hd):
+def _ring_item_costs(world, s_loc, group, *, causal, window, zigzag):
+    """[world, n_qt] int64: each q tile's count of live K / V tiles over
+    the W ring steps, in the kernel's tiling (``RING_BM`` folded rows, so
+    ``RING_BM // group`` positions, against ``RING_BN`` keys), by the
+    reference's ``_block_live`` rule on each tile's first and last
+    positions (the rule the kernel's walk applies)."""
+    bq = RING_BM // group
+
+    def ends(rank, size):
+        # first / last global positions of each tile of `size` rows
+        first = torch.arange(0, s_loc, size)
+        last = torch.clamp(first + size, max=s_loc) - 1
+        starts = _shard_starts(rank, s_loc, world, zigzag)
+        return (_seg_positions(starts, first, s_loc),
+                _seg_positions(starts, last, s_loc))
+
+    cost = []
+    for me in range(world):
+        qf, ql = (x[:, None] for x in ends(me, bq))
+        n = 0
+        for s in range(world):
+            kf, kl = (x[None, :] for x in ends(_src_rank(me, s, world),
+                                               RING_BN))
+            live = torch.ones(qf.shape[0], kf.shape[1], dtype=torch.bool)
+            if causal:
+                live &= kf <= ql
+            if window:
+                live &= kl > qf - window
+            n = n + live.sum(1)
+        cost.append(n)
+    return torch.stack(cost).numpy()
+
+
+def _ring_items(world, s_loc, bh, group, n_rc, *, causal, window, zigzag):
+    """The kernel's one item list over every folded rank: (items [n, 4]
+    int32, n_copy, costs [n] int64).  Copy items (s, rank, pair, chunk)
+    come first, step by step and rank by rank, so every copy waits only on
+    a lower index (the left rank's copy of the step before); then the
+    compute items (0, rank, pair, q tile), heaviest first by their live
+    tile count (``_ring_item_costs``; ties in (rank, pair, tile) order).
+    Copy items cost 0."""
+    steps = np.arange(1, world)
+    ranks, pairs, chunks = np.arange(world), np.arange(bh), np.arange(n_rc)
+    copy = np.stack([g.ravel() for g in np.meshgrid(
+        steps, ranks, pairs, chunks, indexing="ij")], 1)
+    cost = _ring_item_costs(world, s_loc, group, causal=causal,
+                            window=window, zigzag=zigzag)
+    n_qt = cost.shape[1]
+    r, p, t = (g.ravel() for g in np.meshgrid(
+        ranks, pairs, np.arange(n_qt), indexing="ij"))
+    comp = np.stack([np.zeros_like(r), r, p, t], 1)
+    comp_cost = cost[r, t]
+    order = np.argsort(-comp_cost, kind="stable")
+    items = np.concatenate([copy.reshape(-1, 4), comp[order]]).astype(
+        np.int32)
+    costs = np.concatenate([np.zeros(len(copy), np.int64),
+                            comp_cost[order]])
+    return items, len(copy), costs
+
+
+def _ring_plan(ws, bh, s_loc, hd, *, group, causal, window, zigzag):
     """What a call at this shape keeps from call to call, made once and
-    held in the workspace: (chunk_rows, n_rc, and the pointer tables of
-    the K and V slots, the arrival flags and the barrier slots)."""
-    key = ("ring_attn", bh, s_loc, hd)
+    held in the workspace: (chunk_rows, n_rc, the pointer tables of the K
+    and V slots, the arrival flags and the barrier slots, the item list
+    [n, 4] int32 on the workspace's device, n_copy)."""
+    key = ("ring_attn", bh, s_loc, hd, group, bool(causal), int(window),
+           bool(zigzag))
     plan = ws.plans.get(key)
     if plan is None:
         world = ws.world.size
@@ -425,8 +490,13 @@ def _ring_plan(ws, bh, s_loc, hd):
                 ws.flags("ring_attn", steps * bh * n_rc),
                 ws.flags("barrier", world))
         table = ctypes.c_longlong * world
+        items, n_copy, _ = _ring_items(world, s_loc, bh, group, n_rc,
+                                       causal=causal, window=window,
+                                       zigzag=zigzag)
+        items = torch.from_numpy(items).to(bufs[0].device)
         plan = ws.plans[key] = (chunk_rows, n_rc,
-                                *[table(*peer_table(t)) for t in bufs])
+                                *[table(*peer_table(t)) for t in bufs],
+                                items, n_copy)
     return plan
 
 
@@ -468,8 +538,9 @@ def ring_attn(q, k, v, *, causal=True, scale=None, window=0, soft_cap=0.0,
             raise ValueError(f"ring_attn: {name} on {x.device}, q on "
                              f"{q.device}")
     ws = get_world(world, q.device).workspace
-    chunk_rows, n_rc, kslot, vslot, flags, bar = _ring_plan(
-        ws, b * hkv, s_loc, hd)
+    chunk_rows, n_rc, kslot, vslot, flags, bar, items, n_copy = _ring_plan(
+        ws, b * hkv, s_loc, hd, group=hq // hkv, causal=causal,
+        window=window, zigzag=zigzag)
     out = torch.empty((world, s_loc, b, hq, hd), dtype=q.dtype,
                       device=q.device)
     epoch = ws.next_epoch()
@@ -478,7 +549,8 @@ def ring_attn(q, k, v, *, causal=True, scale=None, window=0, soft_cap=0.0,
         err = lib.tdt_ring_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:4], *k.stride()[:4], *v.stride()[:4], kslot, vslot,
-            flags, bar, world, s_loc, b, hq, hkv, chunk_rows, n_rc,
+            flags, bar, items.data_ptr(), items.shape[0], n_copy, world,
+            s_loc, b, hq, hkv, chunk_rows, n_rc,
             int(bool(zigzag)), int(bool(causal)), int(window), float(scale),
             float(soft_cap or 0.0), epoch,
             torch.cuda.current_stream().cuda_stream)
