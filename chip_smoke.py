@@ -15,9 +15,10 @@ Phases, in order (any failure exits non-zero without the final line):
    ``sm_90a`` (one process per source, in parallel), with each kernel's
    registers / shared memory / spills from ``-Xptxas -v``; a kernel that
    spills fails the run; then the count of ``HGMMA`` (wgmma) instructions
-   in the SASS (``cuobjdump --dump-sass``) of ``ring_attn_kernel`` and
-   both backward kernels beside their spill bytes (a count of 0 fails the
-   run; without ``cuobjdump`` the line says so);
+   in the SASS (``cuobjdump --dump-sass``) of ``ring_attn_kernel``, both
+   backward kernels and the bf16 forward ``flash_fwd_wg_kernel`` (each
+   instance: contiguous and segmented) beside their spill bytes (a count
+   of 0 fails the run; without ``cuobjdump`` the line says so);
 3. kernels: each Hopper kernel against its plain PyTorch version at the
    main path's shapes (Hq 32, Hkv 8, D 128, bf16), within the stated
    tolerance, then timed (CUDA events around CUDA-graph replays, so host
@@ -77,6 +78,8 @@ Phases, in order (any failure exits non-zero without the final line):
    partials: within 1e-5 of the plain result's largest magnitude, the dead
    row 0, every rank's merge bit for bit the same; timed by the profiler's
    device time, softmax + einsum over the gathered stack as the yardstick;
+   checked (not timed) at W 8 ([8, 8, 32, 128]) and with fewer rows than
+   ranks ([8, 1, 3, 128]: owners with an empty band);
    the context-parallel rows at Llama-3-8B CP 4 (W 4, S_loc 2048): the
    flash forward and the dq / dkv kernels in their segmented mode (the
    four ranks of one zigzag ring step folded into the batch, per-row block
@@ -1555,23 +1558,25 @@ def sp_combine_row(dev, g):
     profiler's device time (a launch carries its call's epoch, so no CUDA
     graph; eager calls between CUDA events beside), next to its bound
     (what the function must move: every rank's partial read once and
-    every rank's final written once; the kernel's own traffic, the W^2
-    plane pushes read and written, the merge's reads of W slots on every
-    rank and the finals' writes, beside as "algorithm_bound_ms"), its
+    every rank's final written once; the kernel's own traffic, the
+    inputs read, the owners' gather slots written and read once and every
+    rank's final written, beside as "algorithm_bound_ms"), its
     plain version and, as the
     yardstick, ``torch.softmax`` of the lse over the ranks then one
     ``torch.einsum`` over the gathered stack (two calls: no single PyTorch
     call gathers across ranks).  The row reports the decode shape; both
-    ride along under "shapes"."""
+    ride along under "shapes".  Then, checked by the same rules and not
+    timed: W 8 at the decode shape ([8, 8, 32, 128]) and fewer rows than
+    ranks ([8, 1, 3, 128]: owners with an empty band)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import flash_decode as fd
 
-    W, Hq, D = SP, 32, 128
-    shapes, row = {}, None
-    for tag, B in (("decode", 8), ("chunk512", 512)):
-        out = torch.randn((W, B, Hq, D), generator=g, device=dev)
-        lse = 3 * torch.randn((W, B, Hq), generator=g, device=dev)
+    Hq, D = 32, 128
+
+    def checked(tag, W, B, H):
+        out = torch.randn((W, B, H, D), generator=g, device=dev)
+        lse = 3 * torch.randn((W, B, H), generator=g, device=dev)
         out[1], lse[1] = 0, fd.NEG_INF
         out[:, 0, 0], lse[:, 0, 0] = 0, fd.NEG_INF
         got = fd.sp_combine_shard(out, lse, all_ranks=True)
@@ -1580,14 +1585,19 @@ def sp_combine_row(dev, g):
         err = max_err(got[0], want)
         scale = want.abs().max().item()
         same = all(torch.equal(got[r], got[0]) for r in range(1, W))
-        log(f"sp_combine {tag} out {[W, B, Hq, D]} f32: max|kernel-plain| "
+        log(f"sp_combine {tag} out {[W, B, H, D]} f32: max|kernel-plain| "
             f"{err:.3e} (tol {SP_COMBINE_TOL} x {scale:.3f}), ranks bit-"
             f"equal {same}, dead row zero "
             f"{bool(torch.all(got[:, 0, 0] == 0))}")
         if not (err <= SP_COMBINE_TOL * scale and same
                 and torch.all(got[:, 0, 0] == 0)):
             raise AssertionError(f"sp_combine {tag} disagrees with plain")
-        del got
+        return out, lse, err
+
+    W = SP
+    shapes, row = {}, None
+    for tag, B in (("decode", 8), ("chunk512", 512)):
+        out, lse, err = checked(tag, W, B, Hq)
         eager = event_ms(lambda: fd.sp_combine_shard(out, lse), iters=20)
         ms = kernel_device_ms(lambda: fd.sp_combine_shard(out, lse),
                               "sp_combine")
@@ -1596,7 +1606,7 @@ def sp_combine_row(dev, g):
             "wbh,wbhd->bhd", torch.softmax(lse, 0), out))
         bh, plane = B * Hq, (D + fd.SP_PLANE_PAD) * 4
         n_bytes = W * bh * (D + 1) * 4 + W * bh * D * 4
-        algo_bytes = 3 * W * W * bh * plane + W * bh * D * 4
+        algo_bytes = n_bytes + 2 * W * bh * plane
         b_ms, b_by = bound_ms(n_bytes, 0)
         algo_ms, _ = bound_ms(algo_bytes, 0)
         log(f"sp_combine {tag}: kernel {ms:.4f} ms device (profiler; eager "
@@ -1611,6 +1621,8 @@ def sp_combine_row(dev, g):
                            max_abs_err=err)
         row = row or dict(shapes[tag])
         del out, lse
+    for tag, W, B, H in (("W 8 decode", 8, 8, Hq), ("bh < W", 8, 1, 3)):
+        checked(tag, W, B, H)
     return dict(row, shapes=shapes)
 
 
@@ -3219,6 +3231,7 @@ def cp_kernel_rows(dev, g):
                                kv_offset=kw["kv_offset"], device=dev)
     visible = int(mask.sum())            # every rank's pairs per q-head
     ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+    eager = call_ms(lambda: fa.flash_attention(q, k, v, **kw))
     plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw),
                        iters=2, reps=2)
     amask = mask[:, None]
@@ -3226,7 +3239,8 @@ def cp_kernel_rows(dev, g):
         q, k, v, attn_mask=amask, enable_gqa=True))
     io = (2 * q.numel() + 2 * k.numel()) * 2
     b_ms, b_by = bound_ms(io + W * Hq * S * 4, 4 * D * Hq * visible)
-    log(f"flash_fwd_seg (1z): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"flash_fwd_seg (1z): kernel {ms:.4f} ms (eager call {eager:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, "
         f"sdpa (boolean mask) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
         f"visible pairs {visible} of {W * S * S}")
     rows["flash_fwd_seg"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -4896,7 +4910,8 @@ def _torus_times(key, args, mesh, axes, fn, ref, err, W, M, D, F, QKV):
 # The wgmma kernels (csrc/sm90.cuh): each must hold HGMMA instructions in
 # its SASS and spill nothing.
 WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
-                 "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+                 "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+                 "flash_fwd": ("flash_fwd_wg_kernel",)}
 
 
 def sass_check(_build):

@@ -116,6 +116,118 @@ def test_flash_fwd_refuses_f32(cuda):
         fa.flash_attention(q, q, q)
 
 
+# The wgmma forward's grid: every group size it folds, ragged Sq / Sk
+# around its 128-row q tiles and 128-key tiles (1, 63, 200, 513, 2048),
+# q_offset > 0 (a chunk against a longer extent), the window, the
+# soft-cap and the non-causal mode.
+WG_SIZES = [(1, 1), (63, 63), (200, 200), (513, 513), (2048, 2048),
+            (1, 2048), (63, 513), (200, 2048)]
+WG_CASES = [(G, sq, sk, sk - sq, True, 0, 0.0)
+            for G in (1, 2, 4, 8) for sq, sk in WG_SIZES] + [
+    # (G, Sq, Sk, q_offset, causal, window, cap)
+    (4, 200, 513, 700, True, 0, 0.0),     # every key in the past
+    (2, 513, 513, 0, False, 0, 0.0),      # non-causal, ragged
+    (8, 63, 200, 0, False, 0, 30.0),      # non-causal, soft-capped
+    (1, 513, 2048, 1535, True, 300, 0.0),  # windowed chunk
+    (4, 200, 200, 0, True, 64, 20.0),     # window and soft-cap
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WG_CASES)
+def test_flash_fwd_wg_grid_matches_plain(cuda, case):
+    """The bf16 forward (``flash_fwd_wg_kernel``) against its plain
+    version over the group sizes and ragged edges of its tiles: out 2e-2,
+    lse 1e-3 (natural log), one launch each."""
+    G, Sq, Sk, off, causal, window, cap = case
+    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    q = _randn(g, (1, 2 * G, Sq, 128), cuda)
+    k = _randn(g, (1, 2, Sk, 128), cuda)
+    v = _randn(g, (1, 2, Sk, 128), cuda)
+    kw = dict(causal=causal, q_offset=off, window=window, soft_cap=cap)
+    n0 = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, **kw)
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_wg_masked_rows(cuda):
+    """kv_offset leaves the first 100 rows with nothing visible: out
+    exactly 0 and lse NEG_INF there, the plain version elsewhere."""
+    g = np.random.default_rng(3)
+    q = _randn(g, (2, 8, 200, 128), cuda)
+    k = _randn(g, (2, 2, 300, 128), cuda)
+    v = _randn(g, (2, 2, 300, 128), cuda)
+    out, lse = fa.flash_attention(q, k, v, kv_offset=100, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.all(out[:, :, :100] == 0)
+    assert torch.all(lse[:, :, :100] == fd.NEG_INF)
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v, kv_offset=100)
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["seq_first", "chunk", "sliced"])
+def test_flash_fwd_wg_strided_operands(cuda, layout):
+    """Views the model paths hand the kernel, read by TMA in place: the
+    [S, B, H, D] layout, a [B, c, H, D] chunk's transpose, and k / v
+    sliced out of a longer cache; a misaligned s-stride is refused."""
+    g = np.random.default_rng(zlib.crc32(layout.encode()))
+    if layout == "seq_first":
+        q, k, v = (_randn(g, (300, 2, h, 128), cuda).permute(1, 2, 0, 3)
+                   for h in (16, 4, 4))
+    elif layout == "chunk":
+        q = _randn(g, (2, 96, 32, 128), cuda).transpose(1, 2)
+        k, v = (_randn(g, (2, 8, 96, 128), cuda) for _ in range(2))
+    else:
+        q = _randn(g, (1, 8, 77, 128), cuda)
+        k, v = (_randn(g, (1, 2, 512, 128), cuda)[:, :, :200]
+                for _ in range(2))
+    assert all(fa.flash_operand_ok(x.shape, x.stride(), x.dtype,
+                                   x.storage_offset()) for x in (q, k, v))
+    out, lse = fa.flash_attention(q, k, v, q_offset=k.shape[2] - q.shape[2],
+                                  return_lse=True)
+    ref_out, ref_lse = fa.flash_attention_ref(
+        q, k, v, q_offset=k.shape[2] - q.shape[2])
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+    bad = _randn(g, (1, 2, 64, 132), cuda)[..., :128]   # s-stride 264 B
+    assert not fa.flash_operand_ok(bad.shape, bad.stride(), bad.dtype)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(q[:1, :8, :64], bad, bad)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_wg_autograd_through_lse(cuda):
+    """Training's path through the new forward: the backward kernels read
+    its lse (natural log) at G 1 with a window and a soft-cap and at G 4
+    at an offset; gradients against autograd through the plain version
+    by the bf16 gradient rule."""
+    for case in ((1, 300, 300, 0, 96, 15.0), (4, 200, 456, 256, 0, 0.0)):
+        G, Sq, Sk, off, window, cap = case
+        g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+        q = _randn(g, (1, 2 * G, Sq, 128), cuda).requires_grad_()
+        k = _randn(g, (1, 2, Sk, 128), cuda).requires_grad_()
+        v = _randn(g, (1, 2, Sk, 128), cuda).requires_grad_()
+        w = _randn(g, (1, 2 * G, Sq, 128), cuda)
+        kw = dict(q_offset=off, window=window, soft_cap=cap)
+        n0 = (fa.flash_attention.launches, fa.flash_bwd_dq.launches)
+        got = torch.autograd.grad(
+            (fa.flash_attention(q, k, v, **kw).float() * w).sum(), (q, k, v))
+        assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches) == (
+            n0[0] + 1, n0[1] + 1)
+        want = torch.autograd.grad(
+            (fa.flash_attention_ref(q, k, v, **kw)[0].float() * w).sum(),
+            (q, k, v))
+        for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
+            _rel_close(gt, wt, name)
+
+
 DECODE_CASES = [
     # (B, T, Hq, Hkv, S, window, cap, q_lens)
     (2, 1, 8, 2, 300, 0, 0.0, None),
@@ -1571,6 +1683,46 @@ def test_sp_combine_matches_plain(cuda, world, lead, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("world,lead", [
+    (2, (1, 1)), (3, (1, 2)), (5, (2, 2)), (6, (4, 32)), (7, (16, 32)),
+    (8, (1, 3)), (8, (8, 32)), (8, (64, 32))])
+def test_sp_combine_owner_bands_match_plain(cuda, world, lead):
+    """Worlds 2..8 with bh < W (owners with an empty band), bh = W - 1
+    and several chunks an owner: the merged rows against the plain
+    version (1e-5 of the largest), ranks bit-equal, the dead row 0."""
+    D = 128
+    g = np.random.default_rng(world * 7919 + int(np.prod(lead)))
+    out, lse = _sp_partials(g, cuda, world, lead, D, dead_rank=world - 1,
+                            dead_row=0)
+    got = fd.sp_combine_shard(out, lse, all_ranks=True).clone()
+    torch.cuda.synchronize()
+    want = fd.combine_partials(out, lse)
+    assert (got[0] - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
+    for r in range(1, world):
+        assert torch.equal(got[r], got[0]), r
+    assert torch.all(got.reshape(world, -1, D)[:, 0] == 0)
+
+
+@pytest.mark.gpu
+def test_sp_combine_interleaved_shapes_repeat(cuda):
+    """Two shapes interleaved over repeated calls (each call a new epoch,
+    the gather slots and counters of each shape reused): every result
+    against the plain version, ranks bit-equal."""
+    g = np.random.default_rng(17)
+    for i in range(6):
+        lead = (8, 32) if i % 2 else (512, 32)
+        out, lse = _sp_partials(g, cuda, 4, lead, 128, dead_rank=i % 4,
+                                dead_row=i)
+        got = fd.sp_combine_shard(out, lse, all_ranks=True).clone()
+        want = fd.combine_partials(out, lse)
+        assert (got[0] - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item(), i
+        for r in range(1, 4):
+            assert torch.equal(got[r], got[0]), (i, r)
+
+
+@pytest.mark.gpu
 def test_sp_combine_refuses_what_it_does_not_take(cuda):
     z = torch.zeros
     with pytest.raises(ValueError, match="multiple of 4"):
@@ -1717,6 +1869,10 @@ SEG_CASES = [
     (2, 1, 4, 4, 384, 1, 0, 0.0),
     (4, 1, 8, 1, 384, 2, 48, 10.0),
     (2, 2, 8, 8, 256, 0, 0, 0.0),
+    # runs of 64 (S_loc 128): every 128-row tile spans both runs
+    (4, 1, 8, 8, 128, 1, 0, 0.0),
+    (4, 2, 16, 2, 128, 3, 0, 0.0),
+    (2, 1, 16, 2, 128, 0, 0, 5.0),
 ]
 
 

@@ -1587,6 +1587,119 @@ def test_sp_combine_plain_matches_pallas(mesh4):
                        _t(out[0]))
 
 
+def _combine_protocol(sch):
+    """Walk csrc/sp_combine.cu's loops for every rank over a schedule:
+    (signals per flag, waits per flag, merged rows per owner), flags keyed
+    (rank holding it, kind, source or 0, chunk)."""
+    W, per_chunk = sch.world, -(-sch.chunk_rows // sch.merge_rows)
+    signals, waits, merged = {}, {}, {o: [] for o in range(W)}
+
+    def bump(d, key):
+        d[key] = d.get(key, 0) + 1
+
+    for me in range(W):
+        for c in range(sch.n_chunk):               # scatter
+            bump(signals, (c // sch.cpo, "scatter", me, c))
+        for it in range(sch.cpo * per_chunk):      # merge items
+            c = me * sch.cpo + it // per_chunk
+            if c >= sch.n_chunk:
+                break
+            r0, r1 = sch.chunk(c)
+            pieces = -(-(r1 - r0) // sch.merge_rows)
+            piece = it % per_chunk
+            if piece >= pieces:
+                continue
+            for src in range(W):
+                bump(waits, (me, "scatter", src, c))
+            a = r0 + piece * sch.merge_rows
+            merged[me].extend(range(a, min(a + sch.merge_rows, r1)))
+            if piece == pieces - 1:                # the count's last piece
+                for dst in range(W):
+                    bump(signals, (dst, "final", 0, c))
+        for c in range(sch.n_chunk):               # closing wait
+            bump(waits, (me, "final", 0, c))
+    return signals, waits, merged
+
+
+@pytest.mark.parametrize("world", range(2, 9))
+@pytest.mark.parametrize("which", ["1", "W-1", "W", "257", "16384"])
+def test_combine_schedule_owns_every_row_once(world, which):
+    """The owner merge's plan (``combine_schedule``, what
+    ``csrc/sp_combine.cu`` runs): chunks tile the rows, every chunk (so
+    every row) has one owner whose band holds it, the merge items cover
+    each owned chunk once, and walking the kernel's loops, every flag a
+    rank waits on is set exactly once per call (per source and owned
+    chunk on the owner; per chunk on every rank), each merge wait once,
+    and the flag counts equal the schedule's."""
+    bh = {"1": 1, "W-1": world - 1, "W": world, "257": 257,
+          "16384": 16384}[which]
+    sch = tfd.combine_schedule(world, bh, D)
+    assert sch.n_chunk == -(-bh // sch.chunk_rows)
+    assert sch.cpo == -(-sch.n_chunk // world)
+    assert sch.chunk_rows * (D + tfd.SP_PLANE_PAD) * 4 <= tfd.SP_CHUNK_BYTES
+    assert sch.merge_rows * (D // 4) <= \
+        tfd.SP_COMBINE_VEC * tfd.SP_COMBINE_THREADS
+    rows = [r for c in range(sch.n_chunk) for r in range(*sch.chunk(c))]
+    assert rows == list(range(bh))
+    owned = [c for o in range(world) for c in sch.owned(o)]
+    assert owned == list(range(sch.n_chunk))
+    band = sch.cpo * sch.chunk_rows
+    for o in range(world):
+        for c in sch.owned(o):
+            r0, r1 = sch.chunk(c)
+            assert o * band <= r0 < r1 <= (o + 1) * band
+    signals, waits, merged = _combine_protocol(sch)
+    for o in range(world):
+        owned_rows = sorted(r for c in sch.owned(o)
+                            for r in range(*sch.chunk(c)))
+        assert sorted(merged[o]) == owned_rows
+        assert sum(1 for k in waits if k[:2] == (o, "scatter")) == \
+            sch.scatter_waits(o)
+        assert sum(1 for k in waits if k[:2] == (o, "final")) == \
+            sch.final_waits()
+        assert sum(sch.pieces(c) for c in sch.owned(o)) == sum(
+            1 for k, n in waits.items()
+            if k[:3] == (o, "scatter", 0) for _ in range(n))
+    assert set(signals) == {k for k in waits}
+    assert all(n == 1 for n in signals.values())
+    if bh < world:     # owners past the last row have an empty band
+        assert all(not sch.owned(o) for o in range(bh, world))
+
+
+FLASH_OPERANDS = {
+    # name: (tensor factory, accepted)
+    "contiguous": (lambda: torch.empty(2, 8, 96, 128), True),
+    "seq_first_view": (lambda: torch.empty(300, 2, 8, 128).permute(
+        1, 2, 0, 3), True),
+    "chunk_transpose": (lambda: torch.empty(2, 96, 32, 128).transpose(
+        1, 2), True),
+    "cache_slice": (lambda: torch.empty(1, 2, 512, 128)[:, :, 7:200], True),
+    "one_row_dims": (lambda: torch.empty(1, 1, 5, 128).as_strided(
+        (1, 1, 5, 128), (3, 5, 128, 1)), True),
+    "s_stride_264B": (lambda: torch.empty(1, 2, 64, 132)[..., :128], False),
+    "offset_8B": (lambda: torch.empty(4 + 2 * 64 * 128)[4:].view(
+        1, 2, 64, 128), False),
+    "broadcast_s": (lambda: torch.empty(1, 2, 1, 128).expand(1, 2, 64, 128),
+                    False),
+    "head_dim_64": (lambda: torch.empty(1, 2, 64, 64), False),
+    "d_stride_2": (lambda: torch.empty(1, 2, 64, 256)[..., ::2], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_OPERANDS))
+def test_flash_operand_predicate(name):
+    """``flash_operand_ok``, what the bf16 forward kernel's TMA reads, as
+    a function of the layout: views the model paths make are accepted,
+    a misaligned s-stride or base, a broadcast dim, another head dim or
+    a strided d are refused; f32 is refused whatever the layout."""
+    make, ok = FLASH_OPERANDS[name]
+    x = make()       # element strides: the predicate reads them as bf16
+    assert tfa.flash_operand_ok(x.shape, x.stride(), torch.bfloat16,
+                                x.storage_offset()) is ok
+    assert not tfa.flash_operand_ok(x.shape, x.stride(), torch.float32,
+                                    x.storage_offset())
+
+
 SP_DECODE_CASES = {
     # name: (B, T, Hq, Hkv, lens, q_lens, window, soft_cap, int8)
     "t1": (3, 1, 4, 2, [512, 300, 77], None, 0, 0.0, False),

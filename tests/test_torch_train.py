@@ -1244,3 +1244,68 @@ def test_torus_ag_gemm_matches_pallas(monkeypatch):
                                     torch.from_numpy(b), ctx)
     assert np.array_equal(full.numpy(), np.asarray(want_full))
     assert_allclose(c, np.asarray(want_c), atol=2e-3, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# Every model path hands the bf16 flash forward operands its TMA reads
+# ---------------------------------------------------------------------------
+
+
+def _model_path(path):
+    """Run one model path's CPU forward at a small size (head dim 128:
+    the port's ``tiny`` configs)."""
+    from triton_dist_tpu_torch.models.generate import Generator
+    from triton_dist_tpu_torch.runtime.bootstrap import get_world
+
+    cfg = tllama.LlamaConfig.tiny()
+    tok = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(1024, 1)))
+    if path == "moe":
+        mcfg = tmoe.MoEConfig.tiny()
+        tmoe.forward_shard(tmoe.init_params(mcfg, device="cpu"), tok[:64],
+                           mcfg)
+        return
+    params = tllama.init_params(cfg, device="cpu")
+    if path == "llama_train":
+        for leaf in params["layers"][0].values():
+            leaf.requires_grad_()
+        tllama.forward_shard(params, tok[:128], cfg).sum().backward()
+    elif path == "llama_tp2":
+        tllama.forward_shard(tllama.shard_params(params, cfg, 2), tok[:128],
+                             cfg, world=2)
+    elif path in ("cp_zigzag", "cp_ulysses"):
+        attn, zz = ("ring", True) if path == "cp_zigzag" else ("ulysses",
+                                                               None)
+        # S 1024: the auto rule takes the zigzag flash ring (S_loc 256)
+        tcp.make_cp_forward(cfg, 4, attn=attn, zigzag=zz)(params, tok)
+    else:
+        mesh = get_world(4, "cpu") if path == "sp_generator" else None
+        gen = Generator(cfg, mesh=mesh, max_seq=256, device="cpu")
+        st = gen.prefill_chunked(params, tok[:200].T.numpy(), chunk_size=48)
+        gen.generate(params, st, 2)
+
+
+@pytest.mark.parametrize("path", ["llama_train", "llama_tp2", "moe",
+                                  "cp_zigzag", "cp_ulysses",
+                                  "generator_chunked", "sp_generator"])
+def test_model_paths_hand_flash_tma_operands(path, monkeypatch):
+    """A hook on the flash forward records the (shape, strides, offset)
+    of every q / k / v a model path passes; each must meet
+    ``flash_operand_ok`` (the bf16 kernel's TMA rule, read at bf16), so
+    no model path raises on the card."""
+    from triton_dist_tpu_torch.kernels import flash_attention as tfa
+
+    seen, real = [], tfa._flash_fwd
+
+    def spy(q, k, v, **kw):
+        seen.extend((tuple(x.shape), tuple(x.stride()), x.storage_offset())
+                    for x in (q, k, v))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tfa, "_flash_fwd", spy)
+    with torch.no_grad() if path != "llama_train" else torch.enable_grad():
+        _model_path(path)
+    assert seen, f"{path}: no flash forward call"
+    bad = [s for s in seen
+           if not tfa.flash_operand_ok(s[0], s[1], torch.bfloat16, s[2])]
+    assert not bad, f"{path}: operands the kernel would refuse: {bad[:3]}"

@@ -7,17 +7,19 @@ Counterpart of ``triton_dist_tpu/kernels/flash_attention.py``.
 dtype plus lse ``[B, Hq, Sq]`` f32.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/flash_fwd.cu`` (the port of the TPU ``_flash_kernel``; its source
-note says what bounds it and how it is built) or raises on what that
-kernel does not take.  On a CPU tensor it runs :func:`flash_attention_ref`,
-the plain PyTorch version (the counterpart of ``_flash_xla``), which the
-CPU tests and ``chip_smoke.py`` also call directly.
+``csrc/flash_fwd.cu`` (``flash_fwd_wg_kernel``, the port of the TPU
+``_flash_kernel`` on wgmma, TMA and warp specialisation; its source note
+says what bounds it and how it is built) or raises on what that kernel
+does not take (:func:`flash_operand_ok`: TMA reads the operands). On a CPU
+tensor it runs :func:`flash_attention_ref`, the plain PyTorch version (the
+counterpart of ``_flash_xla``), which the CPU tests and ``chip_smoke.py``
+also call directly.
 
 int8 K/V (``k_scale``/``v_scale`` [B, Hkv, Sk] f32, the serving int8
 cache) dequantize inside attention as the reference's ``_flash_xla`` does;
-on a CUDA tensor that is the int8 instantiation of the same kernel
-(:func:`flash_fwd_i8`, the port of ``_flash_kernel_i8``, with its own
-launch count).  The quantized path is forward-only, as in the reference.
+on a CUDA tensor that is the int8 kernel of the same source
+(``flash_fwd_i8_kernel`` through :func:`flash_fwd_i8`, the port of
+``_flash_kernel_i8``, with its own launch count).  The quantized path is forward-only, as in the reference.
 
 Sequence parallelism: :func:`sp_flash_partials` runs flash over each
 rank's span of a rank-stacked cache at its global ``kv_offset``, and
@@ -119,8 +121,12 @@ def flash_shapes_ok(sq: int, sk: int, d: int, n_runs_q: int = 1,
     D, Sq and Sk tiling by 128, and each run of a segmented layout tiling
     by 128 (blocks never straddle a run).  The ring attention's ``auto``
     choice and the context-parallel zigzag rule read it, as the
-    reference's do; the CUDA kernels themselves take less (D 128, each
-    run of a segmented side tiling by :data:`SEG`)."""
+    reference's do.  The CUDA kernels take more: D 128, any Sq and Sk
+    (ragged tiles masked), and each run of a segmented side tiling by
+    :data:`SEG` (64), so a 128-row tile of the bf16 forward or of the
+    backward may span two runs (its liveness and fullness take the least
+    and largest position over them); the bf16 forward's operands must be
+    TMA operands (:func:`flash_operand_ok`)."""
     return (d % 128 == 0 and sq % n_runs_q == 0 and sk % n_runs_k == 0
             and (sq // n_runs_q) % 128 == 0 and (sk // n_runs_k) % 128 == 0)
 
@@ -306,9 +312,41 @@ def _starts_args(q, k, q_offset, kv_offset):
     return (ptr(qv), qsb, ptr(kv), ksb), (qo, ko)
 
 
+_TMA_STRIDE_LIMIT = 1 << 40   # bytes: TMA's bound on a global stride
+
+
+def flash_operand_ok(shape, strides, dtype, offset=0) -> bool:
+    """Whether the bf16 forward kernel reads an operand [B, H, S, D] of
+    ``shape`` and element ``strides`` (``offset``: its storage offset in
+    elements, on a 16-byte aligned allocation) by TMA: bf16, D 128, unit
+    d stride, a 16-byte aligned base, and the stride of every dim of more
+    than one row a nonzero multiple of 16 bytes below 2**40 (a dim of one
+    row is never stepped; the wrapper hands the kernel a valid stride for
+    it).  A pure function of the layout: the CPU tests hold every model
+    path's operands to it."""
+    if dtype != torch.bfloat16 or len(shape) != 4 or shape[-1] != 128:
+        return False
+    size = torch.finfo(dtype).bits // 8
+    if strides[-1] != 1 or (offset * size) % 16:
+        return False
+    return all(n == 1 or (0 < st * size < _TMA_STRIDE_LIMIT
+                          and st * size % 16 == 0)
+               for n, st in zip(shape[:-1], strides[:-1]))
+
+
+def _tma_strides(x):
+    """(b, h, s) element strides of a [B, H, S, D] operand for the bf16
+    kernel's tensor maps: a dim of one row (never stepped) gets the
+    tensor's extent, a valid stride whatever its own."""
+    extent = 8 * -(-max(n * st for n, st in zip(x.shape, x.stride())) // 8)
+    return tuple(st if n > 1 else extent
+                 for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
 def _flash_fwd_operands(q, k, v, kv_dtype):
-    """Check what the forward kernel takes (D 128, G dividing 64, bf16 q,
-    k/v in ``kv_dtype``, 16-byte aligned rows); returns the outputs."""
+    """Check what the forward kernels take (D 128, G dividing 64, bf16 q,
+    k/v in ``kv_dtype``; bf16: :func:`flash_operand_ok`, int8: 16-byte
+    aligned rows); returns the outputs."""
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
     if D != 128:
@@ -316,12 +354,22 @@ def _flash_fwd_operands(q, k, v, kv_dtype):
     g = Hq // Hkv
     if 64 % g:
         raise ValueError(f"flash_fwd kernel: the group size Hq/Hkv={g} must "
-                         f"divide 64 (one 64-row q tile holds the group)")
+                         f"divide 64 (a q tile folds the group)")
+    tma = kv_dtype == torch.bfloat16   # the bf16 kernel reads by TMA
     for name, x, dt in (("q", q, torch.bfloat16), ("k", k, kv_dtype),
                         ("v", v, kv_dtype)):
-        _check_cuda_operand(name, x, dt)
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not tma or x.dtype != dt:
+            _check_cuda_operand(name, x, dt)
+        elif x.data_ptr() % 16 or not flash_operand_ok(
+                x.shape, x.stride(), x.dtype, x.storage_offset()):
+            raise ValueError(
+                f"flash_fwd kernel: {name} {tuple(x.shape)} with strides "
+                f"{tuple(x.stride())} (offset {x.storage_offset()}) is not "
+                f"a TMA operand: unit last stride, 16-byte aligned base, "
+                f"every stride of a dim of more than one row a nonzero "
+                f"multiple of 16 bytes")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -341,8 +389,8 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tdt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], *starts, *offs,
+            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, *_tma_strides(q),
+            *_tma_strides(k), *_tma_strides(v), *starts, *offs,
             int(bool(causal)), int(window), float(scale),
             float(soft_cap or 0.0), stream)
     _build.check(err, "flash_fwd")

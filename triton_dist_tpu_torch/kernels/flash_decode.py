@@ -34,13 +34,15 @@ query and the result are held once.
   rank's local decode in ONE kernel launch (the ranks folded into the
   batch, with the reference's ``ends = kv_lens - r * S_loc`` rule), then
   :func:`_combine_across_ranks`.
-- :func:`sp_combine_shard`: the inter-rank log-sum-exp merge.  On CUDA
+- :func:`sp_combine_shard`: the inter-rank log-sum-exp merge. On CUDA
   tensors it launches ``csrc/sp_combine.cu`` (the port of the TPU
-  ``_sp_combine_kernel``: barrier, every rank's packed (out, lse) plane
-  pushed to every peer, the merge in rank order, one cooperative launch)
-  and counts ``sp_combine_shard.launches``, or raises on what the kernel
-  does not take; on CPU tensors the plain version :func:`sp_combine_ref`
-  (the gather is the rank stack itself: :func:`combine_partials`).
+  ``_sp_combine_kernel`` as an owner merge: barrier, every rank's packed
+  (out, lse) rows scattered to the rows' owners, each owner's merge in
+  rank order broadcast to every rank, one cooperative launch; the plan is
+  :func:`combine_schedule`) and counts ``sp_combine_shard.launches``, or
+  raises on what the kernel does not take; on CPU tensors the plain
+  version :func:`sp_combine_ref` (the gather is the rank stack itself:
+  :func:`combine_partials`).
 - :class:`SpDecodeContext`, :func:`create_sp_decode_context` and the host
   entry :func:`sp_gqa_decode`.
 """
@@ -50,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -79,10 +82,13 @@ _DECODE_SIG = {
     "tdt_decode_paged_i8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
     + [ctypes.c_longlong] * 12 + _TAIL,
 }
-_SP_SIG = {"tdt_sp_combine": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_SP_SIG = {"tdt_sp_combine": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
            + [ctypes.c_uint, ctypes.c_void_p]}
 SP_PLANE_PAD = 4          # csrc/sp_combine.cu PAD: lse + 3 zeros per row
 SP_CHUNK_BYTES = 1 << 16  # plane rows a block pushes before it signals
+SP_CHUNKS_PER_OWNER = 4   # chunks an owner gets where the rows allow
+SP_COMBINE_THREADS = 256  # csrc/sp_combine.cu NT
+SP_COMBINE_VEC = 4        # csrc/sp_combine.cu V: float4s a thread merges
 
 
 def split_plan(n_pairs: int, S_total: int, sms: int):
@@ -447,27 +453,84 @@ def _check_combine(out, lse):
                          f"{out.shape[0]}")
 
 
+class CombineSchedule(NamedTuple):
+    """The owner merge's cut of ``bh`` rows over ``world`` ranks
+    (``csrc/sp_combine.cu``): chunks of ``chunk_rows`` rows (the last may
+    be short), ``n_chunk`` of them, chunk c owned by rank ``c // cpo``
+    (owners past the last chunk have an empty band), merged in items of
+    ``merge_rows`` rows."""
+
+    world: int
+    bh: int
+    chunk_rows: int
+    n_chunk: int
+    cpo: int
+    merge_rows: int
+
+    def chunk(self, c):
+        """Rows [r0, r1) of chunk c."""
+        r0 = c * self.chunk_rows
+        return r0, min(r0 + self.chunk_rows, self.bh)
+
+    def owned(self, o):
+        """The chunks rank o owns, as a range."""
+        return range(min(o * self.cpo, self.n_chunk),
+                     min((o + 1) * self.cpo, self.n_chunk))
+
+    def pieces(self, c):
+        """Merge items of chunk c (what its final flag counts)."""
+        r0, r1 = self.chunk(c)
+        return -(-(r1 - r0) // self.merge_rows)
+
+    def scatter_waits(self, o):
+        """Flags owner o waits on before merging: one per (source, owned
+        chunk)."""
+        return self.world * len(self.owned(o))
+
+    def final_waits(self):
+        """Final flags every rank waits on before its launch ends."""
+        return self.n_chunk
+
+
+def combine_schedule(world: int, bh: int, D: int) -> CombineSchedule:
+    """The owner merge's plan for ``bh`` rows of ``D`` over ``world``
+    ranks: chunks of at most SP_CHUNK_BYTES of plane rows, and at least
+    SP_CHUNKS_PER_OWNER chunks an owner where the rows allow (more blocks
+    push and merge at small shapes), at least one row; merge items of
+    ``SP_COMBINE_VEC`` float4s a thread (``SP_COMBINE_THREADS`` of
+    them)."""
+    plane = (D + SP_PLANE_PAD) * 4
+    chunk_rows = max(1, min(SP_CHUNK_BYTES // plane,
+                            -(-bh // (world * SP_CHUNKS_PER_OWNER))))
+    n_chunk = -(-bh // chunk_rows)
+    return CombineSchedule(world, bh, chunk_rows, n_chunk,
+                           -(-n_chunk // world),
+                           max(1, SP_COMBINE_VEC * SP_COMBINE_THREADS
+                               // (D // 4)))
+
+
 def _combine_plan(ws, bh, D):
     """What a combine of ``bh`` rows of ``D`` over a workspace's world
     keeps from call to call, made once per shape and held in the
-    workspace: (chunk_rows, n_chunk, the final buffer [W, bh, D] f32, and
-    the pointer tables of out, lse (filled in place by each call), the
-    gather buffer, the final, the flags and the barrier slots)."""
+    workspace: (its :func:`combine_schedule`, the final buffer [W, bh, D]
+    f32, and the pointer tables of out, lse (filled in place by each
+    call), the owners' gather buffers [W, cpo * chunk_rows, D + 4], the
+    finals, the flags ([W, n_chunk] scatter and [n_chunk] final a rank),
+    the merge-item counters and the barrier slots)."""
     key = ("sp_combine", bh, D)
     plan = ws.plans.get(key)
     if plan is None:
         world = ws.world.size
-        plane = D + SP_PLANE_PAD
-        chunk_rows = max(1, SP_CHUNK_BYTES // (plane * 4))
-        n_chunk = -(-bh // chunk_rows)
+        sch = combine_schedule(world, bh, D)
         final = ws.get("sp_combine_final", (bh, D), torch.float32)
-        bufs = (ws.get("sp_combine", (world, bh, plane), torch.float32),
-                final, ws.flags("sp_combine", world * n_chunk),
+        bufs = (ws.get("sp_combine", (world, sch.cpo * sch.chunk_rows,
+                                      D + SP_PLANE_PAD), torch.float32),
+                final, ws.flags("sp_combine", (world + 1) * sch.n_chunk),
+                ws.flags("sp_combine_count", sch.n_chunk),
                 ws.flags("barrier", world))
         table = ctypes.c_longlong * world
-        plan = ws.plans[key] = (chunk_rows, n_chunk, final, table(),
-                                table(), *[table(*peer_table(t))
-                                           for t in bufs])
+        plan = ws.plans[key] = (sch, final, table(), table(),
+                                *[table(*peer_table(t)) for t in bufs])
     return plan
 
 
@@ -476,12 +539,16 @@ def sp_combine_shard(out, lse, *, all_ranks: bool = False):
     lse [W, B, H] f32 (rank r's partial over its span at [r]; B and H may
     be any leading shape) -> [B, H, D] f32, the merged result every rank
     holds (rank 0's); ``all_ranks`` returns the rank-stacked [W, B, H, D]
-    instead (each rank's own merge, bit for bit the same on the card).
-    World 1 passes the partial through.  On CUDA tensors one launch of
-    ``csrc/sp_combine.cu`` (raising on what it does not take) into the
-    workspace's final buffer of this shape: the result stays valid until
-    the next combine of the same shape, as the reference's gather buffer
-    does.  On CPU tensors :func:`sp_combine_ref`, a new tensor."""
+    instead (each rank's final, bit for bit the same on the card: one
+    owner merges each row and writes it to every rank).  World 1 passes
+    the partial through.  On CUDA tensors one launch of
+    ``csrc/sp_combine.cu`` (raising on what it does not take): each rank
+    scatters its rows to their owners (:func:`combine_schedule`), each
+    owner merges its band in rank order and broadcasts it into every
+    rank's slice of the workspace's final buffer of this shape.  The
+    result stays valid until the next combine of the same shape, as the
+    reference's gather buffer does.  On CPU tensors :func:`sp_combine_ref`,
+    a new tensor."""
     _check_combine(out, lse)
     world = out.shape[0]
     if world == 1:
@@ -507,7 +574,7 @@ def sp_combine_shard(out, lse, *, all_ranks: bool = False):
         raise ValueError("sp_combine kernel: no rows to merge")
     out, lse = out.contiguous(), lse.contiguous()
     ws = get_world(world, out.device).workspace
-    chunk_rows, n_chunk, final, t_out, t_lse, gath, t_fin, flags, bar = \
+    sch, final, t_out, t_lse, gath, t_fin, flags, count, bar = \
         _combine_plan(ws, bh, D)
     for t, x, row in ((t_out, out, bh * D * 4), (t_lse, lse, bh * 4)):
         base = x.data_ptr()
@@ -516,8 +583,10 @@ def sp_combine_shard(out, lse, *, all_ranks: bool = False):
     epoch = ws.next_epoch()
     lib = _build.load("sp_combine", _SP_SIG)
     with torch.cuda.device(out.device):
-        err = lib.tdt_sp_combine(t_out, t_lse, gath, t_fin, flags, bar,
-                                 world, bh, D, chunk_rows, n_chunk, epoch,
+        err = lib.tdt_sp_combine(t_out, t_lse, gath, t_fin, flags, count,
+                                 bar, world, bh, D, sch.chunk_rows,
+                                 sch.n_chunk, sch.cpo, sch.merge_rows,
+                                 epoch,
                                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sp_combine")
     sp_combine_shard.launches += 1
