@@ -14,11 +14,13 @@ Phases, in order (any failure exits non-zero without the final line):
 2. build: every CUDA source of the port compiled with ``nvcc`` for
    ``sm_90a`` (one process per source, in parallel), with each kernel's
    registers / shared memory / spills from ``-Xptxas -v``; a kernel that
-   spills fails the run; then the count of ``HGMMA`` (wgmma) instructions
-   in the SASS (``cuobjdump --dump-sass``) of ``ring_attn_kernel``, both
-   backward kernels and the bf16 forward ``flash_fwd_wg_kernel`` (each
-   instance: contiguous and segmented) beside their spill bytes (a count
-   of 0 fails the run; without ``cuobjdump`` the line says so);
+   spills fails the run; then the count of wgmma instructions (``HGMMA``
+   bf16, ``IGMMA`` int8) in the SASS (``cuobjdump --dump-sass``) of
+   ``ring_attn_kernel``, both backward kernels, the bf16 forward
+   ``flash_fwd_wg_kernel`` (each instance: contiguous and segmented) and
+   the uni AG-GEMM's ``ag_gemm_wg_kernel`` (bf16 with B [K][n] and B^T,
+   int8) beside their spill bytes (a count of 0 fails the run; without
+   ``cuobjdump`` the line says so);
 3. kernels: each Hopper kernel against its plain PyTorch version at the
    main path's shapes (Hq 32, Hkv 8, D 128, bf16), within the stated
    tolerance, then timed (CUDA events around CUDA-graph replays, so host
@@ -1474,10 +1476,13 @@ def ag_gemm_i8_row(dev, g):
 
 def ragged_ring_rows(dev, g, rows):
     """The row tails: 250 rows per rank (a 1,000-token prompt at TP 4),
-    no multiple of either tile (128 bf16, 64 int8).  The int8 AG-GEMM at
-    the gate/up shape (exactly equal), the bf16 AG-GEMM at gate/up and the
-    GEMM-RS at down (the gathered A bit for bit, the products by the bf16
-    GEMM rule), each timed once between CUDA events beside its bound; the
+    no multiple of any tile's rows (128 for the AG-GEMM, 128 / 64 for the
+    GEMM-RS).  The int8 AG-GEMM at the gate/up shape (exactly equal), the
+    bf16 AG-GEMM at gate/up and the GEMM-RS at down (the gathered A bit
+    for bit, the products by the bf16 GEMM rule), each timed once between
+    CUDA events beside its bound and, for the AG-GEMMs, the library call
+    of its row (``torch._int_mm`` of the gathered rows against B
+    column-major; the batched ``torch.matmul`` of the gathered view); the
     entries ride under each row's "shapes" as "ragged250"."""
     import torch
 
@@ -1495,14 +1500,20 @@ def ragged_ring_rows(dev, g, rows):
     if not (torch.equal(a_full, want_full) and torch.equal(c, want_c)):
         raise AssertionError("ag_gemm_i8 ragged250 disagrees with plain")
     ms = event_ms(lambda: agm.ag_gemm_shard(a, b), iters=5)
+    b_cm = b.permute(1, 0, 2).reshape(D, W * F).t().contiguous().t()
+    af = a.reshape(W * m_loc, D)
+    lib = time_ms(lambda: torch._int_mm(af, b_cm), iters=5)
+    del b_cm, af
     ops = 2 * W * W * m_loc * F * D
     b_ms, b_by = bound_ms(W * m_loc * D + W * D * F + W * W * m_loc * D
                           + 4 * W * W * m_loc * F, ops, INT8_OPS_S)
     log(f"ag_gemm_i8 ragged250 (W {W}, m_loc {m_loc}, K {D}, n {F}): "
-        f"gathered A and C exactly equal; kernel {ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"gathered A and C exactly equal; kernel {ms:.4f} ms, library "
+        f"{lib:.4f} ms (torch._int_mm, B column-major), bound {b_ms:.4f} ms "
+        f"({b_by})")
     rows["ag_gemm_i8"]["shapes"]["ragged250"] = dict(
-        ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+        ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        max_abs_err=0.0)
     del a, b, a_full, c, want_full, want_c
 
     def randn(*shape, scale=1.0):
@@ -1518,13 +1529,16 @@ def ragged_ring_rows(dev, g, rows):
     err = gemm_rule(f"ag_gemm ragged250 (W {W}, m_loc {m_loc}, K {D}, n "
                     f"{F})", c, want_c)
     ms = event_ms(lambda: agm.ag_gemm_shard(a, b), iters=5)
+    af = a.reshape(1, W * m_loc, D).expand(W, -1, -1)
+    lib = time_ms(lambda: torch.matmul(af, b), iters=5)
     ops = 2 * W * W * m_loc * F * D
     b_ms, b_by = bound_ms(2 * (W * m_loc * D + W * D * F + W * W * m_loc
                                * (D + F)), ops)
-    log(f"ag_gemm ragged250: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+    log(f"ag_gemm ragged250: kernel {ms:.4f} ms, library {lib:.4f} ms "
+        f"(batched torch.matmul), bound {b_ms:.4f} ms ({b_by})")
     rows["ag_gemm"]["shapes"]["ragged250"] = dict(
-        ms=ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        max_abs_err=err)
     del a, b, a_full, c, want_full, want_c
 
     a, b = randn(W, W * m_loc, F), randn(W, F, D, scale=F ** -0.5)
@@ -4907,18 +4921,24 @@ def _torus_times(key, args, mesh, axes, fn, ref, err, W, M, D, F, QKV):
                 library_ms=lib, max_abs_err=err)
 
 
-# The wgmma kernels (csrc/sm90.cuh): each must hold HGMMA instructions in
-# its SASS and spill nothing.
+# The wgmma kernels (csrc/sm90.cuh, csrc/sm90_gemm.cuh): each must hold
+# GMMA instructions in its SASS (HGMMA bf16, IGMMA int8) and spill nothing.
 WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-                 "flash_fwd": ("flash_fwd_wg_kernel",)}
+                 "flash_fwd": ("flash_fwd_wg_kernel",),
+                 "ag_gemm": ("ag_gemm_wg_kernel",)}
+# instance labels by template arguments (<SEGM> of the attention kernels,
+# <I8, B_NK> of ag_gemm_wg_kernel)
+SASS_MODES = (("ILb1ELb0EE", "int8"), ("ILb0ELb0EE", "bf16, B [K][n]"),
+              ("ILb0ELb1EE", "bf16, B^T [n][K]"), ("ILb1EE", "segmented"),
+              ("ILb0EE", "contiguous"))
 
 
 def sass_check(_build):
-    """Count the HGMMA instructions of each wgmma kernel in ``cuobjdump
-    --dump-sass`` of its built library, beside its ptxas spill bytes; a
-    count of 0 or a spill fails the run.  Where the toolkit has no
-    cuobjdump, the line says so."""
+    """Count the GMMA instructions (HGMMA, IGMMA) of each wgmma kernel in
+    ``cuobjdump --dump-sass`` of its built library, beside its ptxas spill
+    bytes; a count of 0 or a spill fails the run.  Where the toolkit has
+    no cuobjdump, the line says so."""
     tool = os.path.join(os.path.dirname(os.path.dirname(
         _build.nvcc_path())), "bin", "cuobjdump")
     report = _build.ptxas_report()
@@ -4934,7 +4954,7 @@ def sass_check(_build):
             if m and fn:
                 spill[fn] = int(m.group(1)) + int(m.group(2))
         if not os.path.exists(tool):
-            log(f"sass {lib}: no cuobjdump at {tool}: HGMMA not counted")
+            log(f"sass {lib}: no cuobjdump at {tool}: GMMA not counted")
             continue
         sass = subprocess.run([tool, "--dump-sass", str(paths[lib])],
                               capture_output=True, text=True,
@@ -4945,17 +4965,17 @@ def sass_check(_build):
             if m:
                 fn = m.group(1)
                 counts[fn] = 0
-            elif fn and "HGMMA" in line:
+            elif fn and re.search(r"\b[HI]GMMA\.", line):
                 counts[fn] += 1
         for kern in kernels:
             found = {f: c for f, c in counts.items() if kern in f}
             for f, c in sorted(found.items()):
-                mode = ("segmented" if "ILb1E" in f else
-                        "contiguous" if "ILb0E" in f else "one instance")
-                log(f"sass {lib} {kern} ({mode}): {c} HGMMA, ptxas spill "
+                mode = next((m for key, m in SASS_MODES if key in f),
+                            "one instance")
+                log(f"sass {lib} {kern} ({mode}): {c} GMMA, ptxas spill "
                     f"bytes {spill.get(f, 'not reported (prebuilt)')}")
             if not found or min(found.values()) == 0:
-                raise AssertionError(f"{kern}: no HGMMA in its SASS "
+                raise AssertionError(f"{kern}: no GMMA in its SASS "
                                      f"({found})")
 
 

@@ -1545,6 +1545,130 @@ def test_ag_gemm_i8_matches_plain(cuda, case):
     assert torch.equal(c, want_c)
 
 
+# The uni kernels on sm90_gemm.cuh (128 x 256 tiles; bf16 B [K][n] or
+# [n][K], int8 B [K][n]): (world, m_loc, K, n, chunks).  W 2, 4, 8; m_loc
+# 512, 250 (row tails), 16 and 1; chunks 1, 2, 4 (W 8 at chunks 4: a tile
+# waits on a chunk's flag, then TMA reads rows that peers stored: the
+# proxy fence); K and n at their smallest legal multiples and at odd tile
+# counts (3 column tiles of 256, the last ragged; bf16 a K tail of 8 past
+# 3 k-tiles of 64, int8 one of 32 past 3 k-tiles of 128).
+WG_BF16_CASES = [
+    (2, 512, 1024, 1536, 1), (4, 512, 4096, 3584, 2), (8, 512, 256, 520, 4),
+    (4, 250, 200, 760, 2), (8, 250, 512, 256, 1), (2, 16, 8, 8, 1),
+    (8, 16, 200, 760, 2), (4, 1, 64, 264, 1), (8, 1, 8, 8, 1),
+]
+WG_I8_CASES = [
+    (2, 512, 1024, 1536, 1), (4, 512, 4096, 3584, 2), (8, 512, 256, 272, 4),
+    (4, 250, 416, 752, 2), (8, 250, 512, 256, 1), (2, 16, 32, 16, 1),
+    (8, 16, 416, 752, 2), (4, 1, 128, 144, 1), (8, 1, 32, 16, 1),
+]
+
+
+def _seg_tiles_close(c, want, world, m_loc, name):
+    """The bf16 GEMM rule over the whole C and each 128-row tile of each
+    rank's segments (relative L2 <= 1e-2 a tile: a tile that read the
+    wrong rows or a stale one shows)."""
+    _gemm_close(c, want, name)
+    err, w = c.float() - want.float(), want.float()
+    for s in range(world):
+        for r0 in range(0, m_loc, 128):
+            rows = slice(s * m_loc + r0, s * m_loc + min(r0 + 128, m_loc))
+            assert err[:, rows].norm() <= 1e-2 * w[:, rows].norm(), \
+                f"{name}: segment {s} rows {r0}.."
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WG_BF16_CASES)
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_ag_gemm_wg_bf16_matches_plain(cuda, case, trans_b):
+    """``tdt_ag_gemm`` (the uni bf16 AG-GEMM on wgmma / TMA) over a virtual
+    world of W ranks against ``ag_gemm_ref``: the gathered A bit for bit,
+    C by the bf16 GEMM rule over the whole output and each 128-row tile of
+    every segment; one uni launch a call."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    world, m_loc, k, n, chunks = case
+    g = np.random.default_rng(zlib.crc32(repr((case, trans_b)).encode()))
+    a, _, b = _ring_case(cuda, g, world, m_loc, k, n, trans_b)
+    n0 = agm.ag_gemm_shard.launches
+    a_full, c = agm.ag_gemm_shard(a, b, trans_b=trans_b, chunks=chunks)
+    torch.cuda.synchronize()
+    assert agm.ag_gemm_shard.launches == n0 + 1
+    want_full, want_c = agm.ag_gemm_ref(a, b, trans_b=trans_b)
+    assert torch.equal(a_full, want_full)
+    _seg_tiles_close(c, want_c, world, m_loc,
+                     f"ag_gemm {case}{' B^T' if trans_b else ''}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WG_I8_CASES)
+def test_ag_gemm_wg_i8_matches_plain(cuda, case):
+    """``tdt_ag_gemm_i8`` (the int8 AG-GEMM on wgmma / TMA, B transposed
+    in shared memory) against ``ag_gemm_ref``: the gathered int8 A bit for
+    bit, the int32 C exactly equal; one int8 launch a call."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    world, m_loc, k, n, chunks = case
+    g = torch.Generator(device=cuda).manual_seed(zlib.crc32(
+        repr(("wg", case)).encode()))
+    a = torch.randint(-127, 128, (world, m_loc, k), generator=g,
+                      device=cuda, dtype=torch.int8)
+    b = torch.randint(-127, 128, (world, k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    n0 = agm.ag_gemm_i8.launches
+    a_full, c = agm.ag_gemm_shard(a, b, chunks=chunks)
+    torch.cuda.synchronize()
+    assert agm.ag_gemm_i8.launches == n0 + 1
+    want_full, want_c = agm.ag_gemm_ref(a, b)
+    assert torch.equal(a_full, want_full)
+    assert torch.equal(c, want_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_ag_gemm_wg_w8_chunks4_twenty_calls(cuda, int8):
+    """W 8, chunks 4, twenty calls in a row on fresh inputs, each checked:
+    every tile of a peer's segment waits on its chunks' flags and then
+    reads the rows the peers' stores wrote by TMA, so without the proxy
+    fence between the two a tile reads stale rows (an earlier call's, in a
+    buffer the allocator handed back) and its 128-row tile fails."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    world, m_loc, k, n = 8, 512, 1024, 512
+    g = np.random.default_rng(8)
+    for i in range(20):
+        if int8:
+            a = torch.from_numpy(g.integers(-127, 128, (world, m_loc, k),
+                                            dtype=np.int8)).to(cuda)
+            b = torch.from_numpy(g.integers(-127, 128, (world, k, n),
+                                            dtype=np.int8)).to(cuda)
+        else:
+            a, _, b = _ring_case(cuda, g, world, m_loc, k, n, False)
+        a_full, c = agm.ag_gemm_shard(a, b, chunks=4)
+        torch.cuda.synchronize()
+        want_full, want_c = agm.ag_gemm_ref(a, b)
+        assert torch.equal(a_full, want_full), i
+        if int8:
+            assert torch.equal(c, want_c), i
+        else:
+            _seg_tiles_close(c, want_c, world, m_loc, f"call {i}")
+
+
+@pytest.mark.gpu
+def test_ag_gemm_wg_refuses_non_tma_operands(cuda):
+    """The uni kernels read by TMA: an operand whose base is not 16-byte
+    aligned raises (``ag_gemm_operand_ok``) before any launch."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    buf = torch.zeros(4 * 64 * 256 + 1, dtype=torch.bfloat16, device=cuda)
+    a = buf[1:].view(4, 64, 256)
+    b = torch.zeros(4, 256, 256, dtype=torch.bfloat16, device=cuda)
+    n0 = agm.ag_gemm_shard.launches
+    with pytest.raises(ValueError, match="TMA"):
+        agm.ag_gemm_shard(a, b)
+    assert agm.ag_gemm_shard.launches == n0
+
+
 @pytest.mark.gpu
 def test_tp4_w8a8_forward_at_8b_width(cuda):
     """Llama-3-8B widths at 2 layers, TP 4 on the virtual world, W8A8:

@@ -3900,3 +3900,113 @@ def test_torus_autotuner_dedupes_to_one_schedule():
                        tag.ag_gemm(a, b, ctx))
     assert torch.equal(trs.gemm_rs_autotuned(a2, b2, rctx),
                        trs.gemm_rs(a2, b2, rctx))
+
+
+# ---------------------------------------------------------------------------
+# The uni AG-GEMM on sm90_gemm.cuh: its TMA operand rule and its schedule
+# ---------------------------------------------------------------------------
+
+
+def test_ag_gemm_operand_ok_rule():
+    """``ag_gemm_operand_ok``: contiguous rank-stacked bf16 and int8
+    operands at the model paths' widths pass (a rank of one row too);
+    a misaligned base, a row or rank stride off 16 bytes, a non-unit last
+    stride, another dtype or rank fail."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+
+    ok = tag.ag_gemm_operand_ok
+    bf, i8 = torch.bfloat16, torch.int8
+    for shape, dt in (((4, 512, 4096), bf), ((4, 4096, 3584), bf),
+                      ((4, 1024, 4096), bf), ((8, 1, 8), bf),
+                      ((1, 250, 4096), bf), ((4, 512, 4096), i8),
+                      ((4, 4096, 1536), i8), ((2, 16, 32), i8)):
+        x = torch.empty(shape, dtype=torch.float32 if dt == bf else dt)
+        assert ok(shape, x.stride(), dt), (shape, dt)
+    full = torch.empty(4, 512, 4096)
+    assert ok((4, 512, 4096), full.stride(), bf, offset=8)
+    assert not ok((4, 512, 4096), full.stride(), bf, offset=1)
+    assert not ok((4, 512, 4), (2048, 4, 1), bf)        # 8-byte rows
+    assert not ok((4, 512, 8), (4097, 8, 1), bf)        # odd rank stride
+    assert not ok((4, 512, 4096), (2097152, 1, 512), bf)  # transposed view
+    assert not ok((4, 512, 8), (4096, 8, 1), i8)        # 8-byte int8 rows
+    assert not ok((4, 512, 64), (32768, 64, 1), torch.float32)
+    assert not ok((512, 4096), (4096, 1), bf)
+    assert ok((1, 512, 4096), (7, 4096, 1), bf)         # one rank: never stepped
+
+
+def _uni_walk(world, m_loc, n, crow, bn, bm=128):
+    """Walk ``ag_gemm_wg_kernel``'s loops for every rank (``item_of`` with
+    column bands outermost in a segment, ``push_piece``, the producer's
+    flag wait and box): the pushed rows per (receiver, segment, chunk)
+    with their piece counts, the output tiles written, and the flags
+    waited on."""
+    from collections import Counter, defaultdict
+
+    tiles, tiles_n = -(-m_loc // bm), -(-n // bn)
+    ppc, n_chunks = -(-crow // bm), m_loc // crow
+    per_peer = n_chunks * ppc
+    n_copy = world * per_peer
+    pieces, rows_in = Counter(), defaultdict(list)
+    written, waited = Counter(), Counter()
+    for me in range(world):
+        for it in range(n_copy + world * tiles * tiles_n):
+            if it < n_copy:
+                p, rest = divmod(it, per_peer)
+                to = (me + 1 + p) % world
+                chunk, piece = divmod(rest, ppc)
+                rows = min(bm, crow - piece * bm)
+                r0 = chunk * crow + piece * bm
+                pieces[to, me, chunk] += 1
+                rows_in[to, me, chunk].append((r0, r0 + rows))
+                continue
+            t = it - n_copy
+            seg = (me + t // (tiles * tiles_n)) % world
+            col, tile = divmod(t % (tiles * tiles_n), tiles)
+            rows = min(bm, m_loc - tile * bm)
+            row0 = tile * bm
+            # the box: rows [row0, row0 + bm) of a map bounded at m_loc
+            assert 0 <= row0 < m_loc and row0 + rows == min(row0 + bm, m_loc)
+            written[me, seg, tile, col] += 1
+            if seg != me:
+                c0, c1 = row0 // crow, (row0 + rows - 1) // crow
+                assert c1 - c0 + 1 <= 32    # one lane of warp 0 a flag
+                assert c0 * crow <= row0 and row0 + rows <= (c1 + 1) * crow
+                for c in range(c0, c1 + 1):
+                    waited[me, seg, c] += 1
+    return pieces, rows_in, written, waited, (tiles, tiles_n, ppc, n_chunks)
+
+
+@pytest.mark.parametrize("world", [2, 3, 4, 5, 6, 7, 8])
+def test_ag_gemm_uni_schedule_walk(world):
+    """The uni kernels' item list (``csrc/ag_gemm.cu``
+    ``ag_gemm_wg_kernel``, 128 x 256 tiles in bf16 and int8) walked
+    in Python for m_loc 1..2,048 and chunks 1..4 (clamped as the wrapper
+    clamps): every output tile of every rank is written once; every
+    chunk's flag at every receiver collects exactly its piece count (so it
+    is raised once a call) from pieces that tile the chunk's rows, and
+    every flag a tile waits on is one of them; no tile's box reaches past
+    its segment's m_loc rows; a tile waits on at most 32 flags."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+
+    for m_loc in (1, 2, 7, 8, 16, 100, 128, 129, 250, 256, 384, 512, 1000,
+                  2048):
+        for chunks in (1, 2, 3, 4):
+            crow = m_loc // tag.clamp_chunks(m_loc, chunks)
+            for n in (8, 16, 520, 1536):
+                pieces, rows_in, written, waited, (tiles, tiles_n, ppc,
+                                                   n_chunks) = _uni_walk(
+                    world, m_loc, n, crow, 256)
+                assert set(written.values()) == {1}
+                assert len(written) == world * world * tiles * tiles_n
+                assert len(pieces) == world * world * n_chunks
+                assert set(pieces.values()) == {ppc}
+                for (to, seg, c), spans in rows_in.items():
+                    assert sorted(spans)[0][0] == c * crow
+                    covered = sum(b - a for a, b in spans)
+                    assert covered == crow and max(b for _, b in spans) == \
+                        (c + 1) * crow
+                assert set(waited) <= set(pieces)
+                want = {(me, s, c) for me in range(world)
+                        for s in range(world) if s != me
+                        for c in range(n_chunks)}
+                assert set(waited) == want

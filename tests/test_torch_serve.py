@@ -637,8 +637,20 @@ def test_engine_seq_geometry_rejection_rows(served):
     # heads is ported: this model's one KV head does not split over 2
     with pytest.raises(ValueError, match="n_kv_heads"):
         build(_seq_world(2), kv_shard="heads")
-    # a mesh without a layout takes seq, the one ported
-    assert build(_seq_world(2), kv_shard=None).bm.shards == 2
+    # a mesh without a layout takes heads, the reference's default: this
+    # model's one KV head refuses it there as here (the same calls on the
+    # reference's mesh2)
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        build(_seq_world(2), kv_shard=None)
+    jcfg = jllama.LlamaConfig(**SMALL, dtype=jnp.float32)
+    jparams = jllama.init_params(jcfg, jax.random.key(1))
+    mesh2 = Mesh(np.array(jax.devices()[:2]), ("tp",))
+    jgen = JGenerator(jcfg, Mesh(np.array(jax.devices()[:1]), ("sp",)),
+                      axis="sp", max_seq=64)
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        jserve.ServeEngine(jgen, jparams, num_blocks=24, page_size=8,
+                           max_batch=2, prefill_chunk=4, mesh=mesh2,
+                           prefix_cache=False)
     with pytest.raises(ValueError, match="w8a8"):
         build(_seq_world(2), w8a8=True)
     # a span that cannot fit its partition is rejected at submit
@@ -681,15 +693,18 @@ def test_seq_rebase_and_rank_tables_match_reference(mesh4):
 
 
 def test_serve_cli_mesh_seq_on_cpu():
-    """``examples/serve.py --engine --mesh 4`` (``--kv-shard seq``, the
-    default with a mesh) serves on the CPU with prompts spanning three
-    ranks' spans; the other layouts raise naming their ROADMAP entry;
-    ``--kv-shard`` without ``--mesh`` is refused."""
+    """``examples/serve.py --engine --mesh 4 --kv-shard seq`` serves on the
+    CPU with prompts spanning three ranks' spans; the other layouts raise
+    naming their ROADMAP entry; ``--kv-shard seq`` without ``--mesh`` is
+    refused, and ``--kv-shard heads`` (the default) without it serves
+    world 1, as the reference's CLI does."""
     from triton_dist_tpu_torch.examples import serve as cli
 
     args = ["--engine", "--device", "cpu", "--requests", "2",
             "--new-tokens", "3", "--prompt-len", "120"]
-    outs = cli.run_engine(cli.parse_args(args + ["--mesh", "4"]))
+    assert cli.parse_args(args).kv_shard == "heads"
+    outs = cli.run_engine(cli.parse_args(args + ["--mesh", "4",
+                                                 "--kv-shard", "seq"]))
     want = cli.run_engine(cli.parse_args(args))
     assert {r: o.token_ids for r, o in outs.items()} == \
         {r: o.token_ids for r, o in want.items()}
@@ -697,6 +712,7 @@ def test_serve_cli_mesh_seq_on_cpu():
         cli.main(args + ["--mesh", "4", "--kv-shard", "heads+seq"])
     with pytest.raises(SystemExit):
         cli.main(args + ["--kv-shard", "seq"])
+    cli.main(args + ["--kv-shard", "heads"])
 
 
 # ---------------------------------------------------------------------------
@@ -841,6 +857,41 @@ def test_engine_heads_geometry_rejection_rows(heads_model):
     with pytest.raises(ValueError, match="w8a8"):
         build(tcfg, 2, kv_shard="seq", w8a8=True)
     assert build(tcfg, 2, kv_shard="heads", w8a8=True).tp_world == 2
+
+
+def test_engine_mesh_defaults_to_heads_as_reference(heads_model):
+    """A mesh with no ``kv_shard`` serves ``heads``, the reference's
+    default: ``ServeEngine(gen, params, mesh=World(2))`` lays out the
+    tensor-parallel weights and head-sharded pools and serves the streams
+    of the reference's engine on mesh2 built with no ``kv_shard`` either;
+    ``w8a8=True`` on a mesh with no layout serves too (the streams of the
+    explicit ``kv_shard="heads"`` W8A8 engine), where the reference's
+    does."""
+    jcfg, tcfg, jparams, tparams, prompts = heads_model
+    gen = TGenerator(tcfg, max_seq=64, device="cpu")
+    eng = tserve.ServeEngine(gen, tparams, mesh=_seq_world(2), clock=_Tick(),
+                             **ENGINE_KW)
+    assert (eng.kv_shard, eng.tp_world, eng.sp_world) == ("heads", 2, 1)
+    got = _drive_mix(tserve, eng, prompts)
+    mesh1 = Mesh(np.array(jax.devices()[:1]), ("sp",))
+    mesh2 = Mesh(np.array(jax.devices()[:2]), ("tp",))
+    jeng = jserve.ServeEngine(JGenerator(jcfg, mesh1, axis="sp", max_seq=64),
+                              jparams, mesh=mesh2, prefix_cache=False,
+                              clock=_Tick(), **ENGINE_KW)
+    assert jeng.kv_shard == "heads"
+    assert _drive_mix(jserve, jeng, prompts) == got
+
+    def w8a8(**kw):
+        e = tserve.ServeEngine(gen, tparams, mesh=_seq_world(2), w8a8=True,
+                               clock=_Tick(), **ENGINE_KW, **kw)
+        assert e.kv_shard == "heads" and e.tp_world == 2
+        return _drive_mix(tserve, e, prompts)
+
+    assert w8a8() == w8a8(kv_shard="heads")
+    jw = jserve.ServeEngine(JGenerator(jcfg, mesh1, axis="sp", max_seq=64),
+                            jparams, mesh=mesh2, w8a8=True,
+                            prefix_cache=False, clock=_Tick(), **ENGINE_KW)
+    assert jw.kv_shard == "heads" and jw.w8a8
 
 
 def test_serve_cli_heads_and_w8a8_scoring_on_cpu():

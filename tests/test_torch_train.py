@@ -1309,3 +1309,83 @@ def test_model_paths_hand_flash_tma_operands(path, monkeypatch):
     bad = [s for s in seen
            if not tfa.flash_operand_ok(s[0], s[1], torch.bfloat16, s[2])]
     assert not bad, f"{path}: operands the kernel would refuse: {bad[:3]}"
+
+
+# ---------------------------------------------------------------------------
+# Every model path hands the uni AG-GEMM operands its TMA reads
+# ---------------------------------------------------------------------------
+
+
+def _ag_gemm_path(path):
+    """Run one model path that reaches the AG-GEMM (TP 4 training, the W8A8
+    TP-4 forward, a PP step on (pp 2, tp 2), the autotuned host entry) on
+    the CPU at the tiny config."""
+    from triton_dist_tpu_torch import autotuner as tat
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+    from triton_dist_tpu_torch.models import llama_w8a8 as tw8
+
+    cfg = tllama.LlamaConfig.tiny()
+    rng = np.random.default_rng(7)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(128, 2)))
+    if path == "llama_tp4_train":
+        params = tllama.shard_params(tllama.init_params(cfg, device="cpu"),
+                                     cfg, 4)
+        for leaf in params["layers"][0].values():
+            leaf.requires_grad_()
+        tllama.forward_shard(params, tok, cfg, world=4).sum().backward()
+    elif path == "w8a8_tp4":
+        tq = tw8.place_w8a8_params(tw8.quantize_params_w8a8(
+            tllama.init_params(cfg, device="cpu"), cfg, 4), cfg, 4)
+        tw8.make_w8a8_forward(cfg, 4)(tq, tok)
+    elif path == "pp":
+        mesh = TMesh((2, 2), ("pp", "tp"), "cpu")
+        params = tpp.place_pp_params(tpp.init_pp_params(cfg, device="cpu"),
+                                     cfg, mesh)
+        step, _ = tpp.make_pp_train_step(cfg, mesh, dp_axis=None, n_micro=2,
+                                         lr=0.3)
+        step(params, tok[:32], torch.roll(tok[:32], -1, 0))
+    else:
+        mesh = TMesh((4,), ("tp",), "cpu")
+        a = torch.from_numpy(rng.standard_normal((256, 512)).astype(
+            np.float32))
+        b = torch.from_numpy(rng.standard_normal((512, 1024)).astype(
+            np.float32))
+
+        @tat.contextual_autotune(n_repeat=1, n_warmup=1)
+        def op(x, w):
+            return tag.ag_gemm_autotuned(x, w,
+                                         tag.create_ag_gemm_context(mesh))
+
+        op(a, b)
+
+
+@pytest.mark.parametrize("path", ["llama_tp4_train", "w8a8_tp4", "pp",
+                                  "autotuned"])
+def test_model_paths_hand_ag_gemm_tma_operands(path, monkeypatch):
+    """A hook on the AG-GEMM's dispatch records the (shape, strides,
+    offset) of every rank-stacked a and b a model path passes (the uni
+    bf16 calls, B^T ones of the backward included, and the int8 calls);
+    each must meet ``ag_gemm_operand_ok`` (the uni kernels' TMA rule, read
+    at bf16 or int8), so no model path raises on the card."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+
+    seen, real = [], tag._ag_gemm
+
+    def spy(a, b, **kw):
+        dtype = torch.int8 if a.dtype == torch.int8 else torch.bfloat16
+        seen.extend((tuple(x.shape), tuple(x.stride()), x.storage_offset(),
+                     dtype, kw["trans_b"]) for x in (a, b))
+        return real(a, b, **kw)
+
+    monkeypatch.setattr(tag, "_ag_gemm", spy)
+    with torch.enable_grad() if path in ("llama_tp4_train", "pp") else \
+            torch.no_grad():
+        _ag_gemm_path(path)
+    assert seen, f"{path}: no AG-GEMM call"
+    if path == "llama_tp4_train":
+        assert any(s[4] for s in seen), "no B^T call in the backward"
+    if path == "w8a8_tp4":
+        assert all(s[3] == torch.int8 for s in seen)
+    bad = [s for s in seen if not tag.ag_gemm_operand_ok(s[0], s[1], s[3],
+                                                         s[2])]
+    assert not bad, f"{path}: operands the kernel would refuse: {bad[:3]}"

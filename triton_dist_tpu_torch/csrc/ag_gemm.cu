@@ -61,17 +61,19 @@
 // 1,979 TOP/s int8 peak, against 218 MB (int8 A, B and gathered A, i32 C):
 // operations still bound it.
 //
-// Design (right and simple first).  One cooperative launch holds every
-// rank of the virtual world: a persistent grid, sized by the occupancy
-// calculator so every block is resident (a spin-wait is safe only then),
-// split evenly among the ranks.  A rank's blocks walk its item list in
-// strides: the copies first (the ring's forwards in step order), then the
-// GEMM tiles (128 x 128 on the tile loop of bf16_tile.cuh; 64 x 128 on
-// the int8 one of i8_tile.cuh).  Every item waits only on items at
-// earlier places of another rank's list, which every block reaches
-// first, so no wait can close a cycle.  Every block passes barrier_all on
-// entry (the reference's neighbour barrier, :339-344): no rank writes into
-// a peer that has not entered the kernel.
+// Design.  One cooperative launch holds every rank of the virtual world: a
+// persistent grid, sized by the occupancy calculator so every block is
+// resident (a spin-wait is safe only then), split evenly among the ranks.
+// A rank's blocks walk its item list in strides: the copies first (the
+// ring's forwards in step order), then the GEMM tiles.  Every item waits
+// only on items at earlier places of another rank's list, which every
+// block reaches first, so no wait can close a cycle.  Every block passes
+// barrier_all on entry (the reference's neighbour barrier, :339-344): no
+// rank writes into a peer that has not entered the kernel.  The uni
+// kernels (tdt_ag_gemm, tdt_ag_gemm_i8: ag_gemm_wg_kernel) run their tiles
+// on the wgmma / TMA mainloop of sm90_gemm.cuh, 128 x 256; the wire and
+// torus modes keep the tile loops of bf16_tile.cuh (128 x 128) and
+// i8_tile.cuh (64 x 128), and the bidir ring the first.
 //
 // Piece counters: a chunk's pieces add one each to the receiver's counter
 // for that chunk (after their copy and a system fence); the piece that
@@ -86,6 +88,7 @@
 #include "bf16_tile.cuh"
 #include "dist_verbs.cuh"
 #include "i8_tile.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -137,7 +140,7 @@ struct Item {
   int peer, chunk, piece, seg, tile, col, rows;
 };
 
-template <int BM, bool FLAT>
+template <int BM, bool FLAT, bool COLS_OUTER = false>
 __device__ __forceinline__ Item item_of(int it, int me,
                                         const tdt_dist::Group& g, int G,
                                         int j, int m_loc, int crow,
@@ -158,8 +161,13 @@ __device__ __forceinline__ Item item_of(int it, int me,
   } else {
     const int t = it - n_copy;
     x.seg = (j + t / (tiles * tiles_n)) % G;
-    x.tile = (t / tiles_n) % tiles;
-    x.col = t % tiles_n;
+    if (COLS_OUTER) {  // the blocks that run together share B's columns
+      x.col = (t / tiles) % tiles_n;
+      x.tile = t % tiles;
+    } else {
+      x.tile = (t / tiles_n) % tiles;
+      x.col = t % tiles_n;
+    }
     x.rows = min(BM, m_loc - x.tile * BM);
   }
   return x;
@@ -206,10 +214,10 @@ __device__ __forceinline__ void push_piece(const Params<TA, TB, OutT>& p,
                p.flags.p[x.peer] + f, p.epoch);
 }
 
-// bf16, and the int8 wire (A_I8: int8 rows dequantized in the A-tile
-// load).  Two blocks per SM: 128 registers, no spills (ptxas), 10-30%
-// faster than the one block that 167-213 registers allow (PERF.md).
-// FLAT: the whole world in rank order, else the group `p.grp` (the torus).
+// The tile-loop kernel of the int8 wire (A_I8: int8 rows dequantized in
+// the A-tile load; FLAT) and the bf16 torus (the group `p.grp`).  Two
+// blocks per SM: 128 registers, no spills (ptxas), 10-30% faster than the
+// one block that 167-213 registers allow (PERF.md).
 template <bool B_NK, bool A_I8, bool FLAT>
 __global__ void __launch_bounds__(tdt_bf16::NT, 2)
 ag_gemm_kernel(const __grid_constant__
@@ -253,8 +261,8 @@ ag_gemm_kernel(const __grid_constant__
   }
 }
 
-// int8: 64 x 128 int32 tiles of i8_tile.cuh (4 warps, static shared
-// memory), summed exactly over the whole contraction.
+// The int8 torus: 64 x 128 int32 tiles of i8_tile.cuh (4 warps, static
+// shared memory), summed exactly over the whole contraction.
 template <bool FLAT>
 __global__ void __launch_bounds__(tdt_i8::NT)
 ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int8_t, int> p) {
@@ -297,6 +305,110 @@ ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int8_t, int> p) {
                p.c.p[me] + (static_cast<long long>(x.seg) * p.m_loc +
                             static_cast<long long>(x.tile) * BM) * p.n,
                x.rows, p.n, 0, x.col * BN, false);
+  }
+}
+
+// The uni kernels of tdt_ag_gemm (bf16, B [K][n] or [n][K]) and
+// tdt_ag_gemm_i8 (int8, exact int32 C): the same item list, flags and
+// pushes as the tile-loop kernels above (item_of, push_piece; pieces of
+// 128 rows), each GEMM tile on the warp-specialised wgmma / TMA mainloop
+// of sm90_gemm.cuh (128 x 256 tiles, bf16 and int8).  A block runs
+// its copy items with all its threads, then splits: the producer
+// warpgroup's warp 0 waits on a tile's flags (lane i on chunk c0 + i),
+// then its lane 0 issues fence.proxy.async.global (the peers' pushes are
+// generic-proxy stores; the TMA that reads them is the async proxy) and
+// the tile's loads; in int8 warps 1-3 transpose each staged B tile; the
+// consumer warpgroups multiply and store.  Every TMA load reads this
+// rank's own memory: its input for its own segment, its gathered buffer
+// for the others, its own weight.  The maps span the rank-stacked
+// tensors with the rank outermost, and their row dimension is bounded at
+// m_loc, so a ragged last tile reads zeros, never the next segment's
+// rows (which may still be in flight): a tile waits only on its own
+// segment's chunks.
+template <bool I8, bool B_NK>
+struct WgParams {
+  CUtensorMap amap;   // a  {K, m_loc, W}
+  CUtensorMap agmap;  // ag {K, m_loc, W segments, W ranks}
+  CUtensorMap bmap;   // b  {n, K, W}, or {K, n, W} (B_NK)
+  Params<typename tdt_gemm90::Cfg<I8, B_NK>::T,
+         typename tdt_gemm90::Cfg<I8, B_NK>::T,
+         typename std::conditional<I8, int, bf16>::type> q;
+};
+
+template <bool I8, bool B_NK>
+__global__ void __launch_bounds__(tdt_gemm90::NT, 1)
+ag_gemm_wg_kernel(const __grid_constant__ WgParams<I8, B_NK> p) {
+  using C = tdt_gemm90::Cfg<I8, B_NK>;
+  using tdt_gemm90::BM;
+  using tdt_gemm90::BN;
+  extern __shared__ __align__(128) char wg_smem[];
+  auto& sm = tdt_gemm90::smem_of<C>(wg_smem);
+  const auto& q = p.q;
+  const int me = blockIdx.y, W = q.world;
+  if (threadIdx.x == 0) tdt_gemm90::init_barriers(sm);
+  tdt_dist::barrier_all(q.bar, me, W, q.epoch);  // syncs the block too
+
+  const int tiles = (q.m_loc + BM - 1) / BM, tiles_n = (q.n + BN - 1) / BN;
+  const int n_copy = W * (q.m_loc / q.crow) * ((q.crow + BM - 1) / BM);
+  const int n_items = n_copy + W * tiles * tiles_n;
+  int it = blockIdx.x;
+  for (; it < n_copy; it += gridDim.x)
+    push_piece<BM>(q, me, me,
+                   item_of<BM, true>(it, me, q.grp, W, me, q.m_loc, q.crow,
+                                     tiles, tiles_n));
+  const int n_kt = (q.k + C::BK - 1) / C::BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x < 128) {
+    tdt_sm90::regs_dealloc<C::PRODUCER_REGS>();
+    if (warp == 0) {
+      tdt_sm90::Ring<C::NS> ring;
+      for (int t = it; t < n_items; t += gridDim.x) {
+        const Item x = item_of<BM, true, true>(t, me, q.grp, W, me, q.m_loc,
+                                               q.crow, tiles, tiles_n);
+        const int row0 = x.tile * BM;
+        if (x.seg != me) {
+          const int c0 = row0 / q.crow;
+          if (lane <= (row0 + x.rows - 1) / q.crow - c0)
+            tdt_dist::spin_until(
+                q.flags.p[me] + x.seg * (q.m_loc / q.crow) + c0 + lane,
+                q.epoch);
+          __syncwarp();
+        }
+        if (lane == 0) {
+          if (x.seg != me) tdt_sm90::fence_proxy_async_global();
+          for (int kt = 0; kt < n_kt; ++kt)
+            tdt_gemm90::produce_k_tile<I8, B_NK>(
+                sm, ring, &p.bmap, x.col * BN, kt, me,
+                [&](void* dst, uint64_t* bar, int k0) {
+                  if (x.seg == me)
+                    tdt_sm90::tma_load_3d(dst, &p.amap, bar, k0, row0, me);
+                  else
+                    tdt_sm90::tma_load_4d(dst, &p.agmap, bar, k0, row0,
+                                          x.seg, me);
+                });
+        }
+        __syncwarp();
+      }
+    } else if (I8) {
+      const int mine = it < n_items ? (n_items - it - 1) / gridDim.x + 1 : 0;
+      tdt_gemm90::transposer<C>(sm, mine, n_kt, warp - 1);
+    }
+  } else {
+    tdt_sm90::regs_alloc<C::CONSUMER_REGS>();
+    const int cw = threadIdx.x / 128 - 1;
+    tdt_sm90::Ring<C::NS> ring;
+    tdt_sm90::Ring<C::NTS> tring;
+    for (int t = it; t < n_items; t += gridDim.x) {
+      const Item x = item_of<BM, true, true>(t, me, q.grp, W, me, q.m_loc,
+                                             q.crow, tiles, tiles_n);
+      typename C::Acc acc[C::NACC];
+      tdt_gemm90::mma_tile<I8, B_NK>(acc, sm, ring, tring, n_kt, cw);
+      tdt_gemm90::store_tile<I8, B_NK>(
+          acc,
+          q.c.p[me] + (static_cast<long long>(x.seg) * q.m_loc +
+                       static_cast<long long>(x.tile) * BM) * q.n,
+          q.n, x.rows, q.n, x.col * BN, cw);
+    }
   }
 }
 
@@ -416,37 +528,100 @@ bool bad_shape(int world, int m_loc, int crow) {
          m_loc % crow;
 }
 
+// The byte stride between consecutive ranks of a pointer table: the
+// rank-stacked tensor's outermost stride (`whole` at world 1, where it is
+// never stepped), or -1 when the ranks are not equally spaced or the
+// stride is not a positive multiple of 16 (TMA's rule).
+long long rank_stride(const long long* t, int world, long long whole) {
+  const long long s = world > 1 ? t[1] - t[0] : (whole + 15) / 16 * 16;
+  for (int r = 2; r < world; ++r)
+    if (t[r] - t[r - 1] != s) return -1;
+  return s > 0 && s % 16 == 0 ? s : -1;
+}
+
+// Launch the warp-specialised uni kernel: the three tensor maps over the
+// rank-stacked a, gathered A and b (see ag_gemm_wg_kernel), then the
+// cooperative grid.  crow: a 128-row tile waits on at most 32 chunks.
+template <bool I8, bool B_NK>
+int launch_wg(const long long* a, const long long* b, const long long* ag,
+              const long long* c, const long long* flags,
+              const long long* cnt, const long long* bar, int world,
+              int m_loc, int n, int k, int crow, unsigned epoch,
+              void* stream) {
+  using C = tdt_gemm90::Cfg<I8, B_NK>;
+  using T = typename C::T;
+  constexpr int BM = tdt_gemm90::BM, BN = tdt_gemm90::BN;
+  if (bad_shape(world, m_loc, crow) ||
+      (m_loc / crow > 32 && (BM - 2 + crow) / crow + 1 > 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr long long E = sizeof(T);
+  const long long a_rs = rank_stride(a, world, E * m_loc * k);
+  const long long ag_rs = rank_stride(ag, world, E * world * m_loc * k);
+  const long long b_rs = rank_stride(b, world, E * k * n);
+  if (a_rs < 0 || ag_rs < 0 || b_rs < 0 || a_rs % E || ag_rs % E || b_rs % E)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WgParams<I8, B_NK> p;
+  p.q = make_params<T, T, typename std::conditional<I8, int, bf16>::type>(
+      a, nullptr, b, ag, nullptr, c, flags, cnt, bar, world, m_loc, n, k,
+      crow, epoch, tdt_dist::flat_group(world));
+  const CUtensorMapDataType dt = I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const long long ad[3] = {k, m_loc, world};
+  const long long as[3] = {1, k, a_rs / E};
+  const int abox[3] = {C::BK, BM, 1};
+  const long long gd[4] = {k, m_loc, world, world};
+  const long long gs[4] = {1, k, static_cast<long long>(m_loc) * k,
+                           ag_rs / E};
+  const int gbox[4] = {C::BK, BM, 1, 1};
+  int err = tdt_sm90::make_map_t(&p.amap, dt, E, sw, p.q.a.p[0], 3, ad, as,
+                                 abox);
+  if (!err)
+    err = tdt_sm90::make_map_t(&p.agmap, dt, E, sw, p.q.ag.p[0], 4, gd, gs,
+                               gbox);
+  if (!err) {
+    if (B_NK) {  // b [W][n][K]: K-major boxes of 256 rows
+      const long long bd[3] = {k, n, world}, bs[3] = {1, k, b_rs / E};
+      const int bbox[3] = {C::BK, BN, 1};
+      err = tdt_sm90::make_map_t(&p.bmap, dt, E, sw, p.q.b.p[0], 3, bd, bs,
+                                 bbox);
+    } else {     // b [W][K][n]: bf16 64-column boxes; int8 the raw tile
+      const long long bd[3] = {n, k, world}, bs[3] = {1, n, b_rs / E};
+      const int bbox[3] = {I8 ? BN : 64, C::BK, 1};
+      err = tdt_sm90::make_map_t(&p.bmap, dt, E,
+                                 I8 ? CU_TENSOR_MAP_SWIZZLE_NONE : sw,
+                                 p.q.b.p[0], 3, bd, bs, bbox);
+    }
+  }
+  if (err) return err;
+  const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
+                    world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(ag_gemm_wg_kernel<I8, B_NK>, p,
+                               tdt_gemm90::NT, tdt_gemm90::smem_bytes<C>(),
+                               world, items, attr,
+                               static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // One call for every rank of a world of `world` (<= 8): each pointer table
-// holds `world` device addresses.  bf16 throughout; m_loc >= 1, k % 8 == 0
-// and n % 8 == 0, every row 16-byte aligned (the wrapper checks); crow:
-// rows per chunk, dividing m_loc; flags and cnt: W * (m_loc / crow) per
-// rank (cnt zero between calls); epoch: this call's, from the workspace.
+// holds `world` device addresses of one rank-stacked tensor (equally
+// spaced: the kernel's tensor maps span them).  bf16 throughout; m_loc >=
+// 1, k % 8 == 0 and n % 8 == 0, every base 16-byte aligned (the wrapper
+// checks); crow: rows per chunk, dividing m_loc; flags and cnt: W *
+// (m_loc / crow) per rank (cnt zero between calls); epoch: this call's,
+// from the workspace.
 extern "C" int tdt_ag_gemm(const long long* a, const long long* b,
                            const long long* ag, const long long* c,
                            const long long* flags, const long long* cnt,
                            const long long* bar, int world, int m_loc,
                            int n, int k, int crow, int b_nk, unsigned epoch,
                            void* stream) {
-  using tdt_bf16::BM;
-  using tdt_bf16::BN;
-  if (bad_shape(world, m_loc, crow))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
-                                         flags, cnt, bar, world, m_loc, n,
-                                         k, crow, epoch,
-                                         tdt_dist::flat_group(world));
-  const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
-                    world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
-  const auto s = static_cast<cudaStream_t>(stream);
-  static unsigned attr_kn = 0, attr_nk = 0;
-  return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true, false, true>,
-                                      p, tdt_bf16::NT, BF16_SMEM, world,
-                                      items, attr_nk, s)
-              : tdt_dist::launch_coop(ag_gemm_kernel<false, false, true>,
-                                      p, tdt_bf16::NT, BF16_SMEM, world,
-                                      items, attr_kn, s);
+  return b_nk ? launch_wg<false, true>(a, b, ag, c, flags, cnt, bar, world,
+                                       m_loc, n, k, crow, epoch, stream)
+              : launch_wg<false, false>(a, b, ag, c, flags, cnt, bar, world,
+                                        m_loc, n, k, crow, epoch, stream);
 }
 
 // The int8 wire: a int8 rows and s their f32 scales per rank; ag / ag_s the
@@ -502,28 +677,16 @@ extern "C" int tdt_ag_gemm_bidir(const long long* a, const long long* b,
 }
 
 // The int8 mode: int8 A and B, int32 C; m_loc >= 1, k % 32 == 0 and
-// n % 16 == 0 (whole 16-byte copies, the int8 tile's); crow as above
-// (pieces of 64 rows); flags and cnt: W * (m_loc / crow) per rank.
+// n % 16 == 0; crow as above (pieces of 128 rows); flags and cnt: W *
+// (m_loc / crow) per rank.
 extern "C" int tdt_ag_gemm_i8(const long long* a, const long long* b,
                               const long long* ag, const long long* c,
                               const long long* flags, const long long* cnt,
                               const long long* bar, int world, int m_loc,
                               int n, int k, int crow, unsigned epoch,
                               void* stream) {
-  using tdt_i8::BM;
-  using tdt_i8::BN;
-  if (bad_shape(world, m_loc, crow))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto p = make_params<int8_t, int8_t, int>(a, nullptr, b, ag, nullptr, c,
-                                            flags, cnt, bar, world, m_loc,
-                                            n, k, crow, epoch,
-                                            tdt_dist::flat_group(world));
-  const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
-                    world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
-  static unsigned attr = 0;
-  return tdt_dist::launch_coop(ag_gemm_i8_kernel<true>, p, tdt_i8::NT, 0,
-                               world, items, attr,
-                               static_cast<cudaStream_t>(stream));
+  return launch_wg<true, false>(a, b, ag, c, flags, cnt, bar, world, m_loc,
+                                n, k, crow, epoch, stream);
 }
 
 // The torus AG-GEMM (the TPU `_torus_ag_gemm_kernel`, allgather_gemm.py

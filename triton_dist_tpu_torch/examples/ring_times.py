@@ -1,6 +1,6 @@
 """Time the TP ring GEMMs' modes of several checkouts of this repository on
 one card, interleaved, to compare two versions of ``csrc/ag_gemm.cu`` /
-``csrc/gemm_rs.cu`` (and the tile loop they share) in the same call.
+``csrc/gemm_rs.cu`` (and the tile loops they run on) in the same call.
 
     python -m triton_dist_tpu_torch.examples.ring_times TREE_A TREE_B
 
@@ -9,9 +9,14 @@ in the order A B .. B A, each building and importing its own tree.  At
 Llama-3-8B TP-4 widths on a four-rank virtual world (K 4096, gate/up n
 3584 per rank; m_loc 512, the S 2,048 prefill, and 16, a decode step) it
 times the AG-GEMM's uni schedule at chunks 1, 2 and 4, its bidir ring and
-its int8 wire (PERF.md rows 13, 13c, 13b, 13w), each the median of
-``--repeats`` eager timings of 10 calls between CUDA events (a launch
-carries its call's epoch: no CUDA graph).
+its int8 wire (PERF.md rows 13, 13c, 13b, 13w), and at m_loc 512 the uni
+kernels at every shape of ``chip_smoke.py``'s rows 13 and 13i (bf16 QKV n
+1536, gate/up, wo^T n 1024 and wdown^T n 3584 with B read transposed,
+gate/up at m_loc 250; int8 gate/up, QKV and gate/up at m_loc 250), each
+the median of ``--repeats`` eager timings of 10 calls between CUDA events
+(a launch carries its call's epoch: no CUDA graph), and beside each of
+those the host's time per eager call ("host": checks, tensor-map
+encodes, launch).
 """
 
 from __future__ import annotations
@@ -21,7 +26,18 @@ import statistics
 import sys
 
 SHAPES = ("ag_gemm W 4, K 4096, n 3584 per rank, m_loc 512 and 16 (m16); "
-          "uni chunks 1 / 2 / 4, bidir, int8 wire")
+          "uni chunks 1 / 2 / 4, bidir, int8 wire; rows 13 / 13i: W 4, "
+          "m_loc 512 (r250: 250), K 4096, n 1536 / 3584 / 1024 (B^T) / "
+          "3584 (B^T), int8 n 3584 / 1536")
+# rows 13 / 13i: (tag, m_loc, n, trans_b, int8)
+ROWS = (("13 qkv", 512, 1536, False, False),
+        ("13 gate_up", 512, 3584, False, False),
+        ("13 wo_bwd", 512, 1024, True, False),
+        ("13 wdown_bwd", 512, 3584, True, False),
+        ("13 r250", 250, 3584, False, False),
+        ("13i gate_up", 512, 3584, False, True),
+        ("13i qkv", 512, 1536, False, True),
+        ("13i r250", 250, 3584, False, True))
 MODES = {"chunks1": {}, "chunks2": {"chunks": 2}, "chunks4": {"chunks": 4},
          "bidir": {"ring_mode": "bidir"}, "wire": {"wire_dtype": "int8"}}
 
@@ -39,6 +55,25 @@ def _event_ms(fn, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn, iters=20):
+    """Host time of one eager call (the wrapper's checks, its tensor-map
+    encodes and the launch), measured on the host clock without waiting
+    for the card; each call's device time is far longer, so the queue
+    never fills and blocks the host."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
 
 
 def time_tree(tree: str, repeats: int) -> dict:
@@ -67,6 +102,24 @@ def time_tree(tree: str, repeats: int) -> dict:
             out[tag + mode] = statistics.median(
                 _event_ms(lambda: agm.ag_gemm_shard(a, b, **kw))
                 for _ in range(repeats))
+    for tag, m_loc, n, trans, int8 in ROWS:
+        if int8:
+            a = torch.randint(-127, 128, (4, m_loc, 4096), generator=g,
+                              device=dev, dtype=torch.int8)
+            b = torch.randint(-127, 128, (4, 4096, n), generator=g,
+                              device=dev, dtype=torch.int8)
+        else:
+            a = torch.randn((4, m_loc, 4096), generator=g, device=dev
+                            ).to(torch.bfloat16)
+            b = (torch.randn((4, n, 4096) if trans else (4, 4096, n),
+                             generator=g, device=dev) / 64
+                 ).to(torch.bfloat16)
+        out[tag] = statistics.median(
+            _event_ms(lambda: agm.ag_gemm_shard(a, b, trans_b=trans))
+            for _ in range(repeats))
+        out[tag + " host"] = statistics.median(
+            _host_ms(lambda: agm.ag_gemm_shard(a, b, trans_b=trans))
+            for _ in range(repeats))
     return out
 
 

@@ -15,13 +15,13 @@ scales) and ``--w8a8`` (int8 weights and activations in the out and FFN
 projections); the two compose.
 
 Sharded serving: ``--mesh N`` places the engine on a virtual world of N
-ranks (on the one device).  ``--kv-shard seq`` (the default with a mesh):
-the paged KV shards by block over the ranks' sequence spans, and every
-decode and prompt chunk merges the ranks' attention partials through the
-SP combine kernel; long contexts (Llama-3-8B's 8,192 positions) span
-every rank.  ``--kv-shard heads``: tensor-parallel weights and pools
-sharded by KV head, the out and FFN seams summed over the ranks;
-``--w8a8`` and ``--kv-int8`` compose with it:
+ranks (on the one device).  ``--kv-shard heads`` (the default, as the
+reference's): tensor-parallel weights and pools sharded by KV head, the
+out and FFN seams summed over the ranks; ``--w8a8`` and ``--kv-int8``
+compose with it.  ``--kv-shard seq``: the paged KV shards by block over
+the ranks' sequence spans, and every decode and prompt chunk merges the
+ranks' attention partials through the SP combine kernel; long contexts
+(Llama-3-8B's 8,192 positions) span every rank:
 
     python -m triton_dist_tpu_torch.examples.serve --engine --mesh 4 \\
         --kv-shard seq --prompt-len 4096
@@ -113,13 +113,12 @@ def parse_args(argv=None):
                         "ranks on the one device (--kv-shard); with --w8a8 "
                         "and no --engine: score over N ranks")
     p.add_argument("--kv-shard", choices=("heads", "seq", "heads+seq"),
-                   default=None,
-                   help="--mesh KV layout: 'seq' (the default with --mesh) "
-                        "shards the paged pools by block, each rank owning "
-                        "a contiguous sequence span (SP flash-decode); "
-                        "'heads' shards weights and pools by head "
-                        "(tensor parallelism); 'heads+seq' is not ported "
-                        "yet")
+                   default="heads",
+                   help="--mesh KV layout: 'heads' (the default) shards "
+                        "weights and pools by head (tensor parallelism); "
+                        "'seq' shards the paged pools by block, each rank "
+                        "owning a contiguous sequence span (SP "
+                        "flash-decode); 'heads+seq' is not ported yet")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after the run, a second wave of the same prompts: "
                         "once every row decodes, time N steps, then run N "
@@ -330,7 +329,7 @@ def run_engine(args) -> dict:
           f"{kv['bytes_per_token']:.0f} B/token, weights "
           f"{'w8a8' if args.w8a8 else str(cfg.dtype)}"
           + (f"; mesh {args.mesh} ranks, kv_shard="
-             f"{args.kv_shard or 'seq'!r}, "
+             f"{args.kv_shard!r}, "
              f"{num_blocks} blocks" if mesh is not None else ""))
     sp = SamplingParams(max_new_tokens=args.new_tokens,
                         temperature=args.temperature, top_k=args.top_k,
@@ -387,13 +386,14 @@ def main(argv=None):
             "W8A8 forward serve the dense family only; MoE serving goes "
             "through MoEGenerator (drop the flag), and its engine path is "
             "ROADMAP Queue 1 item 13")
-    if args.kv_shard is not None and args.mesh is None:
+    if args.kv_shard != "heads" and args.mesh is None:
         # a non-default layout without a mesh would serve world 1 while
-        # the user believes they exercised sequence sharding
+        # the user believes they exercised sequence sharding (the
+        # default, heads, serves world 1 off-mesh, as the reference's)
         raise SystemExit("--kv-shard needs --mesh N (and --engine)")
     if not args.engine:
         # --w8a8 and --mesh together: the W8A8 prompt scoring
-        if args.profile or args.kv_shard is not None or \
+        if args.profile or args.kv_shard != "heads" or \
                 args.w8a8 != (args.mesh is not None):
             raise SystemExit("--profile / --kv-shard are engine-mode flags, "
                              "as are --w8a8 and --mesh alone (together, "

@@ -50,7 +50,11 @@ counted at the receiver, the last piece raising the chunk's flag;
 ``tdt_ag_gemm_bidir``: the ring; ``tdt_ag_gemm_wire``; ``tdt_ag_gemm_i8``)
 over the world's symmetric workspace and counts the launch, or raises on
 what the kernel does not take (the bidir and wire kernels take no
-``trans_b``); on CPU tensors (or with ``plain``) the plain version.  Any
+``trans_b``); on CPU tensors (or with ``plain``) the plain version.  The
+uni bf16 and int8 kernels run their GEMM tiles on the wgmma / TMA
+mainloop of ``csrc/sm90_gemm.cuh`` (tensor maps over the rank-stacked
+operands): their operands meet :func:`ag_gemm_operand_ok` or the wrapper
+raises.  Any
 ``m_loc >= 1`` is taken: the last tile of each segment (of each half, in
 bidir) is masked to its rows.  World 1 goes through the kernel as well;
 the tensor-parallel linears take ``torch.matmul`` there, as the
@@ -65,10 +69,12 @@ reference's auto dispatch takes XLA's dot.
 ``impl="xla"`` runs the plain versions on any device, "auto" and "pallas"
 the kernels on CUDA tensors; ``interpret`` changes nothing (CPU tensors
 run the plain versions).  ``config`` (the reference's MXU block triple)
-is kept and has no effect: the Hopper tiles are fixed (128 x 128 x 32
-bf16, ``csrc/bf16_tile.cuh``).  A tuple ``axis`` with two or more axes of
-more than one rank takes the torus schedule over that joint group
-(reference :679-696, ``_torus_ag_gemm_kernel`` :428): a's rows and b's
+is kept and has no effect: the Hopper tiles are fixed (the uni kernels'
+128 x 256 x 64 bf16 and 128 x 256 x 128 int8 of ``csrc/sm90_gemm.cuh``;
+the other modes' 128 x 128 x 32 of ``csrc/bf16_tile.cuh``).  A tuple
+``axis`` with two or more axes of more than one rank takes the torus
+schedule over that joint group (reference :679-696,
+``_torus_ag_gemm_kernel`` :428): a's rows and b's
 columns are sharded by joint index, flat axes-major (``P(axes)``), not by
 world rank.  ``wire_dtype`` then raises NotImplementedError (:687-692),
 ``ring_mode="bidir"`` with ``chunks > 1`` still raises ValueError first,
@@ -153,6 +159,40 @@ def check_kernel_operands(name, a, b, m_loc, k, n, *, dtype=torch.bfloat16,
         raise ValueError(f"{name} kernel: rows per rank {m_loc} must be "
                          f"positive, K={k} and N={n} positive multiples of "
                          f"{mults}")
+
+
+_TMA_STRIDE_LIMIT = 1 << 40   # bytes: TMA's bound on a global stride
+
+
+def ag_gemm_operand_ok(shape, strides, dtype, offset=0) -> bool:
+    """Whether the uni kernels (``tdt_ag_gemm`` / ``tdt_ag_gemm_i8``)
+    read a rank-stacked operand [W, rows, cols] of ``shape`` and element
+    ``strides`` by TMA (``offset``: its storage offset in elements, on a
+    16-byte aligned allocation): bf16 or int8, unit last stride, a 16-byte
+    aligned base, and the stride of every dim of more than one row a
+    nonzero multiple of 16 bytes below 2**40 (the rank stride included:
+    one map spans every rank).  A pure function of the layout: the CPU
+    tests hold every model path's operands to it."""
+    if dtype not in (torch.bfloat16, torch.int8) or len(shape) != 3:
+        return False
+    size = 2 if dtype == torch.bfloat16 else 1
+    if strides[-1] != 1 or (offset * size) % 16:
+        return False
+    return all(n == 1 or (0 < st * size < _TMA_STRIDE_LIMIT
+                          and st * size % 16 == 0)
+               for n, st in zip(shape[:-1], strides[:-1]))
+
+
+def _check_tma(name, *tensors):
+    """Raise unless every operand meets :func:`ag_gemm_operand_ok` at its
+    address."""
+    for t in tensors:
+        if not ag_gemm_operand_ok(tuple(t.shape), t.stride(),
+                                  t.dtype) or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: an operand {tuple(t.shape)} "
+                             f"of strides {t.stride()} at offset "
+                             f"{t.storage_offset()} breaks TMA's rules "
+                             f"(ag_gemm_operand_ok)")
 
 
 def ring_tables(*tensors):
@@ -364,6 +404,7 @@ def _ag_gemm(a, b, *, trans_b, plain, chunks, wire_dtype, ring_mode,
             _launch("tdt_ag_gemm_bidir", a, (a, b, a_full, c), dims,
                     "ag_gemm_bidir", 2 * world)
         else:
+            _check_tma("ag_gemm", a, b)
             _launch("tdt_ag_gemm", a, (a, b, a_full, c),
                     (*dims, m_loc // sched.chunks, int(trans_b)), "ag_gemm",
                     world * sched.chunks)
@@ -380,8 +421,9 @@ def ag_gemm_i8(a, b, *, plain: bool = False, chunks: int = 1):
     """The int8 mode: (A_full [W, W m_loc, K] int8, C [W, W m_loc, n]
     int32, exact) of rank-stacked int8 a [W, m_loc, K] and b [W, K, n],
     ``chunks`` clamped as the bf16 mode's.  CUDA operands launch
-    ``tdt_ag_gemm_i8`` (K % 32 == 0, n % 16 == 0, any m_loc); CPU operands
-    (or ``plain``) run :func:`ag_gemm_ref`."""
+    ``tdt_ag_gemm_i8`` (K % 32 == 0, n % 16 == 0, any m_loc; TMA's rules,
+    :func:`ag_gemm_operand_ok`); CPU operands (or ``plain``) run
+    :func:`ag_gemm_ref`."""
     world, k, n = check_operands("ag_gemm_i8", a, b, False)
     if plain or a.device.type == "cpu":
         return ag_gemm_ref(a, b)
@@ -392,6 +434,7 @@ def ag_gemm_i8(a, b, *, plain: bool = False, chunks: int = 1):
                           dtype=torch.int8, k_mult=32, n_mult=16)
     chunks = clamp_chunks(m_loc, chunks)
     a, b = a.contiguous(), b.contiguous()
+    _check_tma("ag_gemm_i8", a, b)
     a_full = _empty(a, world, world * m_loc, k)
     c = _empty(a, world, world * m_loc, n, dtype=torch.int32)
     _launch("tdt_ag_gemm_i8", a, (a, b, a_full, c),

@@ -32,11 +32,11 @@ two compose.
 Sharded serving over the W ranks of a ``runtime.bootstrap.World``
 (``mesh=``), the decode and chunked-prefill programs ``serve/mesh.py``'s:
 
-- ``kv_shard="seq"`` (the default with a mesh): weights stay whole, the
-  pools shard by block over the ranks' sequence spans (the partitioned
-  ``BlockManager``), attention is every rank's partial, then the SP
-  combine kernel;
-- ``kv_shard="heads"``: tensor-parallel weights (``llama.shard_params``:
+- ``kv_shard="seq"``: weights stay whole, the pools shard by block over
+  the ranks' sequence spans (the partitioned ``BlockManager``), attention
+  is every rank's partial, then the SP combine kernel;
+- ``kv_shard="heads"`` (the default, as the reference's; ``None`` means
+  it too): tensor-parallel weights (``llama.shard_params``:
   QKV and gate/up by columns, out and down by rows, rank-stacked), pools
   rank-stacked by KV head ``[W, num_blocks, Hkv/W, page, D]`` (int8
   pools' scale planes with them), one folded paged decode launch over
@@ -305,7 +305,7 @@ class ServeEngine:
                  prefill_budget: Optional[int] = None,
                  clock=time.monotonic,
                  horizon: int = 1, mesh=None,
-                 kv_shard: Optional[str] = None,
+                 kv_shard: Optional[str] = "heads",
                  w8a8: bool = False,
                  draft: Optional[Generator] = None, draft_params=None,
                  spec_k: int = 0, prefix_cache: bool = False,
@@ -322,7 +322,8 @@ class ServeEngine:
         if draft is not None or draft_params is not None or spec_k:
             _not_ported("draft/spec_k (speculative decoding)",
                         "Queue 1 item 8")
-        if kv_shard is not None and kv_shard not in serve_mesh.KV_SHARDS:
+        kv_shard = kv_shard or "heads"
+        if kv_shard not in serve_mesh.KV_SHARDS:
             # validated off-mesh too: a typo must not ride silently until
             # a mesh is added
             raise ValueError(f"kv_shard must be one of "
@@ -336,8 +337,7 @@ class ServeEngine:
                         f"runtime.bootstrap.World on one device)",
                         "Queue 1 item 11 (the multi-process backend)")
         if mesh is not None:
-            # "seq" was the first layout ported, so a mesh defaults to it
-            self.kv_shard = kv_shard or "seq"
+            self.kv_shard = kv_shard
             world = serve_mesh.validate_mesh_geometry(
                 mesh=mesh, kv_shard=self.kv_shard, cfg=gen.cfg,
                 max_seq=gen.max_seq, num_blocks=num_blocks,
