@@ -39,12 +39,14 @@ Phases, in order (any failure exits non-zero without the final line):
    inputs (``quantize_kv`` of N(0, 1) K/V; random int8 GEMM operands):
    decode_i8 and decode_paged_i8 at the decode shape, flash_fwd_i8 at the
    chunk shape (same tolerances), matmul_i8 at (m, k, n) = (8, 4096,
-   14336) and (512, 4096, 14336) by exact equality with its float64
-   plain version, ``torch._int_mm`` at m 512 as the yardstick; the
-   grouped GEMM's three modes (bf16, dx, int8) at Mixtral-8x7B's gate/up
-   shape with a sort_align tile map: bf16 within 2e-2 of the plain
-   version's largest magnitude and 1e-2 relative L2 over the tensor and
-   over each row tile, int8 exactly equal, padding tiles exactly zero;
+   14336), (512, 4096, 14336) and (2048, 3584, 4096) by exact equality
+   with its float64 plain version (the split-K loop at m 8, the wgmma
+   kernel at the others), ``torch._int_mm`` above m 16 as the yardstick;
+   the grouped GEMM's three modes (bf16, dx, int8) at Mixtral-8x7B's
+   gate/up shape with a sort_align tile map (int8 also at block_m 512,
+   its 256 x 128 tiles): bf16 within 2e-2 of the plain version's largest
+   magnitude and 1e-2 relative L2 over the tensor and over each row tile,
+   int8 exactly equal, padding tiles exactly zero;
    ``torch._grouped_mm`` as the bf16 yardstick; the bf16 forward and dx
    also at the down projection's shape (K 14336, N 4096) on the same tile
    map; the all-to-all kernel at world 1 at the MoE dispatch's shape
@@ -337,6 +339,7 @@ the output.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -813,30 +816,35 @@ def i8_attention_rows(dev, randn, k, v, lens, k_pool, v_pool, table):
 
 
 def matmul_i8_row(dev, g):
-    """matmul_i8 at the gate/up projection's decode width (m 8) and at a
-    512-row prefill chunk (k 4096, n 14336): exact equality with the plain
-    version (float64, exact), then timed beside its bound and, at m 512,
-    ``torch._int_mm`` (cuBLASLt; it takes no m <= 16).  The row reports
-    m 512; the m 8 numbers ride along under ``"m8"``."""
+    """matmul_i8 at the gate/up projection's decode width (m 8, the split-K
+    tile loop), at a 512-row prefill chunk (k 4096, n 14336) and at the
+    W8A8 TP-4 row side's down projection (m 2048, k 3584, n 4096), both
+    on the persistent wgmma kernel: exact equality with the plain version
+    (float64, exact), then timed beside its bound and, above m 16,
+    ``torch._int_mm`` (cuBLASLt; it takes no m <= 16).  The row reports m
+    512; the others ride along under "m8" and "tp_down", each with the
+    kernel ``matmul_i8_kernel_for`` chose."""
     import torch
 
     from triton_dist_tpu_torch.kernels import quant
 
-    k, n = 4096, 14336
     out = {}
-    b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                      dtype=torch.int8)
-    for m in (8, 512):
+    for tag, m, k, n in (("m8", 8, 4096, 14336), ("m512", 512, 4096, 14336),
+                         ("tp_down", 2048, 3584, 4096)):
+        b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
         a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                           dtype=torch.int8)
+        kind = quant.matmul_i8_kernel_for(m, n, k)
         got = quant.matmul_i8(a, b)
         torch.cuda.synchronize()
         want = quant.matmul_i8_ref(a, b)
         exact = torch.equal(got, want)
         err = (got.double() - want.double()).abs().max().item()
-        log(f"matmul_i8 m{m}: exact {exact}, max|kernel-plain| {err:.1f}")
+        log(f"matmul_i8 {tag} ({m}, {k}, {n}; {kind}): exact {exact}, "
+            f"max|kernel-plain| {err:.1f}")
         if not exact:
-            raise AssertionError(f"matmul_i8 m{m} is not exact")
+            raise AssertionError(f"matmul_i8 {tag} is not exact")
         ms = time_ms(lambda: quant.matmul_i8(a, b))
         eager = call_ms(lambda: quant.matmul_i8(a, b))
         plain_ms = time_ms(lambda: quant.matmul_i8_ref(a, b), iters=3)
@@ -855,13 +863,16 @@ def matmul_i8_row(dev, g):
                    f" {same}")
         b_ms, b_by = bound_ms(m * k + k * n + m * n * 4, 2 * m * n * k,
                               INT8_OPS_S)
-        log(f"matmul_i8 m{m}: kernel {ms:.4f} ms (eager call {eager:.4f} "
+        log(f"matmul_i8 {tag}: kernel {ms:.4f} ms "
+            f"({2 * m * n * k / ms / 1e9:.1f} TOP/s; eager call {eager:.4f} "
             f"ms), plain {plain_ms:.4f} ms, library "
             f"{'null' if lib is None else f'{lib:.4f} ms'} ({why}), bound "
             f"{b_ms:.4f} ms ({b_by})")
-        out[m] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=lib, max_abs_err=err)
-    return dict(out[512], m8=out[8])
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib, max_abs_err=err,
+                        kernel=kind)
+        del a, b, got, want
+    return dict(out["m512"], m8=out["m8"], tp_down=out["tp_down"])
 
 
 def bwd_kernel_rows(dev, randn):
@@ -942,22 +953,70 @@ def bwd_kernel_rows(dev, randn):
                                   max_abs_err=max(errs["dk"], errs["dv"]))}
 
 
-def event_ms(fn, iters=3):
+def event_ms(fn, iters=3, hold_gc=True):
     """Eager device time per call between CUDA events (for a plain version
     that reads the tile map on the host, which a CUDA graph cannot
-    capture)."""
+    capture), Python's collector held off in the timed window (unless
+    ``hold_gc`` is False): a collection there stalls the host while the
+    card idles between calls."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    was_on = gc.isenabled()
+    if hold_gc:
+        gc.disable()
+    try:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    finally:
+        if was_on:
+            gc.enable()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def gc_pauses(fn):
+    """(fn(), [(generation, ms)] of the Python collections that ran
+    during it)."""
+    seen, t = [], {}
+
+    def watch(phase, info):
+        if phase == "start":
+            t["s"] = time.perf_counter()
+        else:
+            seen.append((info["generation"],
+                         round((time.perf_counter() - t["s"]) * 1e3, 3)))
+
+    gc.callbacks.append(watch)
+    try:
+        return fn(), seen
+    finally:
+        gc.callbacks.remove(watch)
+
+
+def call_trace(fn, iters=10):
+    """Per-call device ms (CUDA events around each of ``iters`` eager
+    calls, one synchronisation at the end) and the host's ms for each
+    call, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    host = []
+    ev[0].record()
+    for i in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(iters)], host
 
 
 def kernel_device_ms(fn, key, iters=20):
@@ -1162,6 +1221,31 @@ def group_gemm_rows(dev, g):
     rows["group_gemm_i8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=None,
                                  max_abs_err=err)
+    del xq, yq, want
+
+    # the int8 mode at block_m 512, the W8A8 MoE layer's load-aware tile
+    # at 2,048 tokens: the kernel's 256 x 128 tiles (under "bm512")
+    _, experts = mu.topk_routing(torch.randn((2048, E), generator=g,
+                                             device=dev), 2)
+    plan = mu.sort_align(experts, E, 512)
+    te, valid = plan["tile_expert"], plan["valid_rows"]
+    M = plan["m_pad"]
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                       dtype=torch.int8) * valid[:, None].to(torch.int8)
+    yq = gg.group_gemm_i8(xq, wq, te, block_m=512)
+    torch.cuda.synchronize()
+    want = gg.group_gemm_ref(xq, wq, te, block_m=512)
+    err = (yq.double() - want.double()).abs().max().item()
+    if not torch.equal(yq, want):
+        raise AssertionError("group_gemm_i8 block_m 512 is not exact")
+    ms = time_ms(lambda: gg.group_gemm_i8(xq, wq, te, block_m=512))
+    b_ms, b_by, _ = bound(M * K, te, K * N, M * N * 4, 2 * M * K * N,
+                          INT8_OPS_S)
+    log(f"group_gemm_i8 T2048 block_m 512 (M_pad {M}): exact True; kernel "
+        f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TOP/s), bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    rows["group_gemm_i8"]["bm512"] = dict(ms=ms, bound_ms=b_ms,
+                                          bound_by=b_by, max_abs_err=err)
     return rows
 
 
@@ -1500,6 +1584,18 @@ def ragged_ring_rows(dev, g, rows):
     if not (torch.equal(a_full, want_full) and torch.equal(c, want_c)):
         raise AssertionError("ag_gemm_i8 ragged250 disagrees with plain")
     ms = event_ms(lambda: agm.ag_gemm_shard(a, b), iters=5)
+    # this row read 0.78-0.84 ms for calls of ~0.21 ms when a collection
+    # fell in its window (PERF.md §7): the same five calls with the
+    # collector on and the collections in their window, and a per-call
+    # trace, beside
+    on, pauses = gc_pauses(lambda: event_ms(
+        lambda: agm.ag_gemm_shard(a, b), iters=5, hold_gc=False))
+    per_call, host = call_trace(lambda: agm.ag_gemm_shard(a, b))
+    log(f"ag_gemm_i8 ragged250 timing: {ms:.4f} ms a call over five eager "
+        f"calls; with the collector on {on:.4f} ms (collections in the "
+        f"window, (generation, ms): {pauses}); per call, device ms "
+        f"{[round(x, 4) for x in per_call]}, host ms "
+        f"{[round(x, 4) for x in host]}")
     b_cm = b.permute(1, 0, 2).reshape(D, W * F).t().contiguous().t()
     af = a.reshape(W * m_loc, D)
     lib = time_ms(lambda: torch._int_mm(af, b_cm), iters=5)
@@ -2209,12 +2305,14 @@ def w8a8_tp_phase(cfg, params):
         fwd = lw.make_w8a8_forward(cfg, TP)
         for fn in counters.values():
             fn.launches = 0
+        quant.matmul_i8.mode_launches.update(wg=0, split_k=0)
         zero_off_path_counters()
         t0 = time.perf_counter()
         logits = fwd(qp, tok)
         torch.cuda.synchronize()
         t_first = (time.perf_counter() - t0) * 1e3
         launches = {n: fn.launches for n, fn in counters.items()}
+        i8_modes = dict(quant.matmul_i8.mode_launches)
         record_model_path("w8a8_tp_forward")
         t0 = time.perf_counter()
         fwd(qp, tok)
@@ -2230,7 +2328,7 @@ def w8a8_tp_phase(cfg, params):
         f"device busy {busy:.2f} ms, int8 AG-GEMM {ag_ms:.2f} ms "
         f"({ag_ms / busy:.3f} of it), matmul_i8 {i8_ms:.2f} ms "
         f"({i8_ms / busy:.3f}), idle share {1 - busy / t_warm:.3f}; "
-        f"launches {launches}")
+        f"launches {launches}, matmul_i8 by kernel {i8_modes}")
     for name, n, ms in top:
         log(f"w8a8 tp forward   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
     for n, c in launches.items():
@@ -2279,7 +2377,8 @@ def w8a8_tp_phase(cfg, params):
     del qp
     free_cuda()
     return launches, dict(first_ms=t_first, warm_ms=t_warm, busy_ms=busy,
-                          ag_gemm_i8_ms=ag_ms, matmul_i8_ms=i8_ms)
+                          ag_gemm_i8_ms=ag_ms, matmul_i8_ms=i8_ms,
+                          matmul_i8_mode_launches=i8_modes)
 
 
 def heads_phase(cfg, params):
@@ -4922,23 +5021,36 @@ def _torus_times(key, args, mesh, axes, fn, ref, err, W, M, D, F, QKV):
 
 
 # The wgmma kernels (csrc/sm90.cuh, csrc/sm90_gemm.cuh): each must hold
-# GMMA instructions in its SASS (HGMMA bf16, IGMMA int8) and spill nothing.
+# GMMA instructions in its SASS (HGMMA in a bf16 instance, IGMMA in an
+# int8 one), spill nothing, and draw no ptxas serialisation warning.
 WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
                  "flash_fwd": ("flash_fwd_wg_kernel",),
-                 "ag_gemm": ("ag_gemm_wg_kernel",)}
+                 "ag_gemm": ("ag_gemm_wg_kernel",),
+                 "group_gemm": ("group_gemm_wg_kernel",),
+                 "matmul_i8": ("matmul_i8_wg_kernel",)}
 # instance labels by template arguments (<SEGM> of the attention kernels,
-# <I8, B_NK> of ag_gemm_wg_kernel)
-SASS_MODES = (("ILb1ELb0EE", "int8"), ("ILb0ELb0EE", "bf16, B [K][n]"),
+# <I8, B_NK> of ag_gemm_wg_kernel, <I8, B_NK, TALL> of
+# group_gemm_wg_kernel); the int8 kernels' names (IGMMA expected)
+SASS_MODES = (("ILb1ELb0ELb1EE", "int8, 256 x 128"),
+              ("ILb1ELb0ELb0EE", "int8"),
+              ("ILb0ELb0ELb0EE", "bf16, B [K][n]"),
+              ("ILb0ELb1ELb0EE", "bf16, B^T [n][K]"),
+              ("ILb1ELb0EE", "int8"), ("ILb0ELb0EE", "bf16, B [K][n]"),
               ("ILb0ELb1EE", "bf16, B^T [n][K]"), ("ILb1EE", "segmented"),
               ("ILb0EE", "contiguous"))
+INT8_WGMMA = ("matmul_i8_wg_kernel",)
+# ptxas's notes that it serialised a kernel's wgmma instructions
+SERIALISED = ("C7512", "C7520")
 
 
 def sass_check(_build):
-    """Count the GMMA instructions (HGMMA, IGMMA) of each wgmma kernel in
-    ``cuobjdump --dump-sass`` of its built library, beside its ptxas spill
-    bytes; a count of 0 or a spill fails the run.  Where the toolkit has
-    no cuobjdump, the line says so."""
+    """Count the GMMA instructions of each wgmma kernel in ``cuobjdump
+    --dump-sass`` of its built library, HGMMA and IGMMA apart, beside its
+    ptxas spill bytes; a bf16 instance without HGMMA, an int8 one without
+    IGMMA, a spill or a ptxas serialisation warning (C7512 / C7520) in a
+    library of these kernels fails the run.  Where the toolkit has no
+    cuobjdump, the line says so."""
     tool = os.path.join(os.path.dirname(os.path.dirname(
         _build.nvcc_path())), "bin", "cuobjdump")
     report = _build.ptxas_report()
@@ -4953,6 +5065,9 @@ def sass_check(_build):
                           r"loads", line)
             if m and fn:
                 spill[fn] = int(m.group(1)) + int(m.group(2))
+            if any(code in line for code in SERIALISED):
+                raise AssertionError(f"ptxas serialised wgmma in {lib}: "
+                                     f"{line.strip()}")
         if not os.path.exists(tool):
             log(f"sass {lib}: no cuobjdump at {tool}: GMMA not counted")
             continue
@@ -4964,19 +5079,27 @@ def sass_check(_build):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = 0
-            elif fn and re.search(r"\b[HI]GMMA\.", line):
-                counts[fn] += 1
+                counts[fn] = {"HGMMA": 0, "IGMMA": 0}
+            elif fn:
+                m = re.search(r"\b([HI]GMMA)\.", line)
+                if m:
+                    counts[fn][m.group(1)] += 1
         for kern in kernels:
             found = {f: c for f, c in counts.items() if kern in f}
             for f, c in sorted(found.items()):
                 mode = next((m for key, m in SASS_MODES if key in f),
                             "one instance")
-                log(f"sass {lib} {kern} ({mode}): {c} GMMA, ptxas spill "
-                    f"bytes {spill.get(f, 'not reported (prebuilt)')}")
-            if not found or min(found.values()) == 0:
-                raise AssertionError(f"{kern}: no GMMA in its SASS "
-                                     f"({found})")
+                want = "IGMMA" if (mode.startswith("int8")
+                                   or kern in INT8_WGMMA) \
+                    else "HGMMA"
+                log(f"sass {lib} {kern} ({mode}): {c['HGMMA']} HGMMA, "
+                    f"{c['IGMMA']} IGMMA, ptxas spill bytes "
+                    f"{spill.get(f, 'not reported (prebuilt)')}")
+                if c[want] == 0:
+                    raise AssertionError(f"{kern} ({mode}): no {want} in "
+                                         f"its SASS ({c})")
+            if not found:
+                raise AssertionError(f"{kern}: not in the SASS of {lib}")
 
 
 def main() -> int:
@@ -5074,12 +5197,14 @@ def main() -> int:
                   "matmul_i8": quant.matmul_i8}
     for fn in list(counters.values()) + list(q_counters.values()):
         fn.launches = 0
+    quant.matmul_i8.mode_launches.update(wg=0, split_k=0)
     with torch.no_grad():
         gen_q = quant_generator_phase(cfg, params)
         after_gen = {n: fn.launches for n, fn in q_counters.items()}
         eng_q, reqs, outs, prompts = engine_phase(
             cfg, params, gen_q, w8a8=True, tag="quantized engine")
     q_launches = {n: fn.launches for n, fn in q_counters.items()}
+    i8_modes = {"serving": dict(quant.matmul_i8.mode_launches)}
     log(f"launches: quantized generator {after_gen}, quantized generator+"
         f"engine {q_launches} (float kernels "
         f"{ {n: fn.launches for n, fn in counters.items()} })")
@@ -5114,6 +5239,8 @@ def main() -> int:
         f"{np.mean(match):.4f} (per request "
         f"{[round(x, 3) for x in match]}; no gate: int8 error is real)")
     launches.update(q_launches)
+    log(f"matmul_i8 launches by kernel, quantized serving: "
+        f"{i8_modes['serving']}")
     del gen_q, eng_q, outs, plain   # plain holds the W8A8 tree
     free_cuda()
 
@@ -5130,8 +5257,9 @@ def main() -> int:
     # phases 15-16: W8A8 tensor parallelism and head-sharded serving on
     # phase 4's weights; the int8 AG-GEMM's count comes from phase 15's
     # forward, the heads engines' serving counts ride beside
-    w8_launches, _ = w8a8_tp_phase(cfg, params)
+    w8_launches, w8_stats = w8a8_tp_phase(cfg, params)
     launches["ag_gemm_i8"] = w8_launches["ag_gemm_i8"]
+    i8_modes["w8a8_tp_forward"] = w8_stats["matmul_i8_mode_launches"]
     heads_launches = heads_phase(cfg, params)
     free_cuda()
     log(f"w8a8 tp and heads serving done at "
@@ -5330,6 +5458,8 @@ def main() -> int:
                                        "matmul_i8") else {}),
                         **({"w8a8_tp_launches": w8_launches[name]}
                            if name in ("matmul_i8", "flash_fwd") else {}),
+                        **({"mode_launches": i8_modes}
+                           if name == "matmul_i8" else {}),
                         **({"cp_launches": {
                             "forward": {t: c[name] for t, c in
                                         cp_fwd.items()},
@@ -5346,8 +5476,8 @@ def main() -> int:
                             MODEL_PATH_COUNTS.items()}}
                            if name in RING_MODE_ROWS or name in MOE_TP_ROWS
                            or name in TORUS_ROWS else {}),
-                        **{k: r[k] for k in ("m8", "t8", "shapes",
-                                             "algorithm_bound_ms",
+                        **{k: r[k] for k in ("m8", "t8", "tp_down", "bm512",
+                                             "shapes", "algorithm_bound_ms",
                                              "device_ms",
                                              "library_null_reason")
                            if k in r}})

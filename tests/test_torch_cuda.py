@@ -549,10 +549,14 @@ def test_flash_fwd_i8_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 8, 37, 512])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 37, 63, 64, 65, 250, 512,
+                               2048])
 def test_matmul_i8_exact(cuda, m):
-    """Exact equality with the float64 plain product (split-K with int32
-    atomics at decode widths, one pass at 512 rows)."""
+    """Exact equality with the float64 plain product on both sides of the
+    crossover (split-K with int32 atomics at decode widths, the persistent
+    wgmma kernel from ``quant.WG_MIN_M`` rows), at k 32 / 1,024 / 14,336
+    and n 16 / 4,096 / 14,336, each call counted under the kernel
+    ``matmul_i8_kernel_for`` names."""
     from triton_dist_tpu_torch.kernels import quant
 
     g = torch.Generator(device=cuda).manual_seed(m)
@@ -562,9 +566,13 @@ def test_matmul_i8_exact(cuda, m):
     b = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
                       dtype=torch.int8)
     n0 = quant.matmul_i8.launches
+    kind = quant.matmul_i8_kernel_for(m, n, k)
+    modes0 = dict(quant.matmul_i8.mode_launches)
     got = quant.matmul_i8(a, b)
     torch.cuda.synchronize()
     assert quant.matmul_i8.launches == n0 + 1
+    assert quant.matmul_i8.mode_launches == dict(modes0, **{
+        kind: modes0[kind] + 1})
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert torch.equal(got, quant.matmul_i8_ref(a, b))
     # the down projection's shape: k 14336, n 4096, and a ragged n tail
@@ -573,6 +581,32 @@ def test_matmul_i8_exact(cuda, m):
     b2 = torch.randint(-127, 128, (14336, 4096 + 48), generator=g,
                        device=cuda, dtype=torch.int8)
     assert torch.equal(quant.matmul_i8(a2, b2), quant.matmul_i8_ref(a2, b2))
+    for kk in (32, 1024, 14336):
+        for nn in (16, 4096, 14336):
+            a3 = torch.randint(-127, 128, (m, kk), generator=g, device=cuda,
+                               dtype=torch.int8)
+            b3 = torch.randint(-127, 128, (kk, nn), generator=g,
+                               device=cuda, dtype=torch.int8)
+            assert torch.equal(quant.matmul_i8(a3, b3),
+                               quant.matmul_i8_ref(a3, b3)), (m, kk, nn)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [16, 512])
+def test_matmul_i8_ten_calls_in_a_row(cuda, m):
+    """Ten calls back to back without a synchronisation (the persistent
+    kernel's rings start afresh each launch; the split-K output is zeroed
+    each call) all equal the plain product."""
+    from triton_dist_tpu_torch.kernels import quant
+
+    g = torch.Generator(device=cuda).manual_seed(100 + m)
+    a = torch.randint(-127, 128, (m, 4096), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (4096, 3584), generator=g, device=cuda,
+                      dtype=torch.int8)
+    outs = [quant.matmul_i8(a, b) for _ in range(10)]
+    want = quant.matmul_i8_ref(a, b)
+    assert all(torch.equal(o, want) for o in outs)
 
 
 @pytest.mark.gpu
@@ -587,6 +621,18 @@ def test_matmul_i8_refuses_shapes(cuda):
     with pytest.raises(ValueError):
         quant.matmul_i8(a, torch.zeros((64, 120), dtype=torch.int8,
                                        device=cuda))
+    # operands that break TMA's rules, on both kernels (gemm_operand_ok)
+    n0 = quant.matmul_i8.launches
+    b = torch.zeros((1024, 4096), dtype=torch.int8, device=cuda)
+    for m in (8, 512):
+        a = torch.zeros((m, 1024 + 16), dtype=torch.int8, device=cuda)
+        with pytest.raises(ValueError, match="TMA"):
+            quant.matmul_i8(a[:, :1024], b)                # padded rows
+        with pytest.raises(ValueError, match="TMA"):
+            quant.matmul_i8(a.view(-1)[8:8 + m * 1024].view(m, 1024), b)
+        with pytest.raises(ValueError, match="TMA"):       # B column-major
+            quant.matmul_i8(a[:, :1024].contiguous(), b.t().contiguous().t())
+    assert quant.matmul_i8.launches == n0
 
 
 @pytest.mark.gpu
@@ -678,6 +724,8 @@ GG_CASES = [
     # (T, E, K, N, block_m)
     (100, 4, 256, 384, 128),          # mostly padding tiles
     (2048, 8, 4096, 14336, 512),      # Mixtral gate/up, the layer's block_m
+    (200, 8, 256, 14336, 256),        # int8 on 256 x 128 tiles
+    (64, 8, 4096, 384, 512),          # a ragged last 256-column band
 ]
 
 
@@ -713,8 +761,107 @@ def test_group_gemm_modes_match_plain(cuda, case):
         assert torch.all(out[~valid] == 0)
 
 
+def _gg_plan(cuda, T, E, K, block_m, routing, seed):
+    """A sort_align plan of T tokens routed ``routing``: "top2" (seeded
+    top-2 of E), "subset" (top-2 among the even experts: the odd ones get
+    no row), "one" (every token to one expert); x_sorted bf16 (padding
+    rows zero)."""
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+
+    g = np.random.default_rng(seed)
+    logits = torch.from_numpy(g.standard_normal((T, E)).astype(np.float32))
+    if routing == "one":
+        experts = torch.full((T, 1), E // 2, dtype=torch.int32)
+    else:
+        if routing == "subset":
+            logits[:, 1::2] = -1e9
+        experts = mu.topk_routing(logits, 2)[1]
+    plan = mu.sort_align(experts.to(cuda), E, block_m)
+    xs = mu.gather_sorted(_randn(g, (T, K), cuda),
+                          plan["dest"], plan["m_pad"])
+    return plan, xs, g
+
+
+GG_WG_CASES = [
+    # (T, E, K, N, block_m, routing)
+    (300, 8, 32, 128, 128, "top2"),
+    (300, 8, 96, 384, 256, "subset"),
+    (40, 8, 32, 384, 512, "top2"),          # mostly padding tiles
+    (64, 8, 4096, 384, 512, "one"),
+    (200, 4, 96, 14336, 256, "one"),
+    (500, 8, 4096, 14336, 128, "top2"),
+    (1024, 8, 4096, 128, 128, "subset"),
+    (700, 6, 1024, 14336, 512, "subset"),
+]
+
+
 @pytest.mark.gpu
-def test_group_gemm_autograd_matches_plain(cuda):
+@pytest.mark.parametrize("case", GG_WG_CASES)
+def test_group_gemm_wg_modes_match_plain(cuda, case):
+    """``group_gemm_wg_kernel`` in every mode against the plain version
+    over block_m 128 / 256 / 512, N 128 / 384 / 14,336 (a ragged last
+    256-column band), K 32 / 96 / 1,024 / 4,096 and plans with empty
+    experts, one expert only and trailing padding tiles: the bf16 forward
+    and, where the model's K tiles by 128, dx by the row-tile rule; int8
+    (K % 32) exactly; each mode ten calls in a row (the persistent rings
+    restart each launch), every call counted."""
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+
+    T, E, K, N, bm, routing = case
+    plan, xs, g = _gg_plan(cuda, T, E, K, bm, routing,
+                           zlib.crc32(repr(case).encode()))
+    te, valid = plan["tile_expert"], plan["valid_rows"]
+    w = (_randn(g, (E, K, N), cuda).float() / K ** 0.5).bfloat16()
+    n0 = (gg.group_gemm.launches, gg.group_gemm_dx.launches,
+          gg.group_gemm_i8.launches)
+    ys = [gg.group_gemm(xs, w, te, block_m=bm) for _ in range(10)]
+    want = gg.group_gemm_ref(xs, w, te, block_m=bm)
+    _tile_close(ys[0], want, bm, "fwd")
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    assert torch.all(ys[0][~valid] == 0)
+    dx_calls = 0
+    if K % 128 == 0:
+        dy = (_randn(g, (xs.shape[0], N), cuda)
+              * valid[:, None]).bfloat16()
+        dxs = [gg.group_gemm_dx(dy, w, te, block_m=bm) for _ in range(10)]
+        _tile_close(dxs[0], gg.group_gemm_ref(dy, w, te, block_m=bm,
+                                              trans_w=True), bm, "dx")
+        assert all(torch.equal(d, dxs[0]) for d in dxs[1:])
+        dx_calls = 10
+    xq = torch.from_numpy(g.integers(-127, 128, xs.shape, dtype=np.int8)
+                          ).to(cuda) * valid[:, None].to(torch.int8)
+    wq = torch.from_numpy(g.integers(-127, 128, (E, K, N), dtype=np.int8)
+                          ).to(cuda)
+    yqs = [gg.group_gemm_i8(xq, wq, te, block_m=bm) for _ in range(10)]
+    wantq = gg.group_gemm_ref(xq, wq, te, block_m=bm)
+    assert all(torch.equal(y, wantq) for y in yqs)
+    torch.cuda.synchronize()
+    assert (gg.group_gemm.launches, gg.group_gemm_dx.launches,
+            gg.group_gemm_i8.launches) == (n0[0] + 10, n0[1] + dx_calls,
+                                           n0[2] + 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_m", [64, 192])
+def test_group_gemm_i8_64_row_tiles(cuda, block_m):
+    """int8 takes block_m % 64: where block_m % 128 != 0 the kernel walks
+    64-row tiles (each in one expert), exactly equal to the plain
+    version."""
+    from triton_dist_tpu_torch.kernels import group_gemm as gg
+
+    plan, xs, g = _gg_plan(cuda, 200, 8, 256, block_m, "top2", block_m)
+    te, valid = plan["tile_expert"], plan["valid_rows"]
+    xq = torch.from_numpy(g.integers(-127, 128, xs.shape, dtype=np.int8)
+                          ).to(cuda) * valid[:, None].to(torch.int8)
+    wq = torch.from_numpy(g.integers(-127, 128, (8, 256, 384),
+                                     dtype=np.int8)).to(cuda)
+    assert torch.equal(gg.group_gemm_i8(xq, wq, te, block_m=block_m),
+                       gg.group_gemm_ref(xq, wq, te, block_m=block_m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm", [128, 256])
+def test_group_gemm_autograd_matches_plain(cuda, bm):
     """GroupGemmFn's backward on the card — dx through the transposed
     mode, dW by cuBLAS with f32 accumulation — against autograd through a
     per-tile f32 product: dx by the row-tile rule, each expert's dW within
@@ -722,7 +869,7 @@ def test_group_gemm_autograd_matches_plain(cuda):
     no tile exactly zero."""
     from triton_dist_tpu_torch.kernels import group_gemm as gg
 
-    E, bm = 6, 128
+    E = 6
     plan, xs, w, dy = _gg_case(cuda, 300, E, 512, 384, bm, 17)
     te = plan["tile_expert"]
     x1, w1 = xs.clone().requires_grad_(), w.clone().requires_grad_()
@@ -762,6 +909,27 @@ def test_group_gemm_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="block_m"):
         gg.group_gemm_i8(q, w.to(torch.int8), torch.zeros(
             (4,), dtype=torch.int32, device=cuda), block_m=32)
+    # operands that break TMA's rules (quant.gemm_operand_ok): no copy is
+    # made and nothing launches
+    n0 = (gg.group_gemm.launches, gg.group_gemm_dx.launches,
+          gg.group_gemm_i8.launches)
+    wide = torch.zeros((128, 512), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        gg.group_gemm(wide[:, :256], w, te[:1], block_m=128)   # padded rows
+    with pytest.raises(ValueError, match="TMA"):
+        gg.group_gemm(wide.view(-1)[4:4 + 128 * 256].view(128, 256), w,
+                      te[:1], block_m=128)                   # misaligned
+    with pytest.raises(ValueError, match="TMA"):
+        gg.group_gemm(x, w.transpose(1, 2), te[:1], block_m=128)
+    with pytest.raises(ValueError, match="TMA"):
+        gg.group_gemm_dx(x[:, :128].contiguous(), w[:, :, :128]
+                         .contiguous().transpose(1, 2).contiguous()
+                         .transpose(1, 2), te[:1], block_m=128)
+    with pytest.raises(ValueError, match="TMA"):
+        gg.group_gemm_i8(q, w.to(torch.int8).transpose(1, 2), te[:1],
+                         block_m=128)
+    assert (gg.group_gemm.launches, gg.group_gemm_dx.launches,
+            gg.group_gemm_i8.launches) == n0
 
 
 @pytest.mark.gpu

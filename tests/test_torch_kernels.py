@@ -4010,3 +4010,194 @@ def test_ag_gemm_uni_schedule_walk(world):
                         for s in range(world) if s != me
                         for c in range(n_chunks)}
                 assert set(waited) == want
+
+
+# ---------------------------------------------------------------------------
+# Rows 8 and 9 on the persistent GEMM of sm90_gemm.cuh: the tile order, the
+# int8 GEMM's kernel choice and the TMA operand rule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m_pad,n,block_m,int8", [
+    (m_pad, n, bm, int8) for m_pad, n, bm in (
+        (5120, 14336, 128),      # Mixtral gate/up, T 2,048
+        (1152, 14336, 128),      # T 8 (decode width)
+        (5120, 4096, 128),       # down / the dx of gate/up
+        (17408, 14336, 512),     # EP 4
+        (17408, 4096, 256),
+        (3072, 14336, 256),
+        (640, 384, 128),         # a ragged last column band
+        (128, 128, 128))
+    for int8 in (False, True)] + [
+    (192, 384, 64, True),        # int8 at block_m % 128 == 64: 64-row tiles
+    (768, 384, 192, True)])
+def test_group_gemm_tile_order_writes_each_tile_once(m_pad, n, block_m,
+                                                     int8):
+    """``group_gemm.tile_order``, the walk of ``tdt_gemm90::tile_rc`` over
+    the tiles of ``tile_shape`` (bf16 128 x 256; int8 256 x 128 at block_m
+    % 256, 64-row tiles at block_m % 128 == 64): every (row tile, column
+    band) once; each tile's rows inside one block_m row tile, so the B
+    coordinate its producer reads (``tile_expert[row0 // block_m]``) is
+    the expert of every row it writes; and the first GROUP x bands tiles
+    stay in the first GROUP row tiles, band by band."""
+    rng = np.random.default_rng(m_pad + n + block_m)
+    te = np.sort(rng.integers(0, 8, m_pad // block_m))
+    rows_of = np.arange(m_pad) // block_m
+    order = list(tgg.tile_order(m_pad, n, block_m, int8))
+    tr, tc = tgg.tile_shape(block_m, int8)
+    assert (tr, tc) == ((256, 128) if int8 and block_m % 256 == 0 else
+                        (128 if block_m % 128 == 0 else 64, 256))
+    seen = set()
+    for row0, rows, col0, cols, blk in order:
+        assert (rows, cols) == (tr, tc)
+        assert blk == row0 // block_m and row0 + rows <= m_pad
+        assert set(te[rows_of[row0:row0 + rows]]) == {te[blk]}
+        seen.add((row0, col0))
+    want = {(r, c) for r in range(0, m_pad, tr) for c in range(0, n, tc)}
+    assert len(order) == len(want) and seen == want
+    bands = -(-n // tc)
+    first = order[:tgg.GROUP * bands]
+    g_rows = min(tgg.GROUP, m_pad // tr)
+    assert {o[0] for o in first} == {i * tr for i in range(g_rows)}
+    assert [o[2] for o in first[:g_rows]] == [0] * g_rows
+
+
+def test_matmul_i8_kernel_choice_rule():
+    """``quant.matmul_i8_kernel_for``, the measured crossover: the split-K
+    tile loop at decode width (m <= 32: no library call takes m <= 16,
+    and it reaches ~58% of its bytes bound) and wherever the wgmma
+    kernel's 256 x 128 tiles number fewer than WG_MIN_TILES (down at m <=
+    256), the persistent wgmma kernel elsewhere; a pure function of (m,
+    n, k), monotone in m (no knob)."""
+    f = tq.matmul_i8_kernel_for
+    assert tq.SPLIT_K_MAX_M == 32 and tq.WG_MIN_TILES == 64
+    for n, k in ((14336, 4096), (4096, 14336), (4096, 1024),
+                 (4096, 3584), (3584, 4096), (16, 32)):
+        kinds = [f(m, n, k) for m in range(1, 8193)] + ["wg"]
+        assert "split_k" not in kinds[kinds.index("wg"):]
+        assert all(f(m, n, k) == "split_k" for m in (1, 8, 16, 32))
+    assert [f(m, 14336, 4096) for m in (33, 64, 512, 2048)] == ["wg"] * 4
+    assert [f(m, 4096, 14336) for m in (64, 256, 257, 512)] == [
+        "split_k", "split_k", "wg", "wg"]
+    assert f(2048, 4096, 1024) == f(2048, 4096, 3584) == "wg"   # TP-4 rows
+
+
+def test_gemm_operand_ok_rule():
+    """``quant.gemm_operand_ok`` (TMA's rule for the GEMMs on
+    ``csrc/sm90_gemm.cuh``; their entries take no strides): dense
+    row-major bf16 and int8 operands at the model paths' widths pass, a
+    view one row long too; a misaligned base, a padded or transposed row
+    stride, 8-byte rows, another dtype fail."""
+    ok = tq.gemm_operand_ok
+    bf, i8 = torch.bfloat16, torch.int8
+    for shape, dt in (((5120, 4096), bf), ((8, 4096, 14336), bf),
+                      ((8, 14336, 4096), bf), ((17408, 14336), bf),
+                      ((512, 4096), i8), ((4096, 14336), i8),
+                      ((14336, 4096), i8), ((1, 32), i8), ((8, 1024), i8),
+                      ((8, 4096, 14336), i8), ((0, 4096), i8)):
+        x = torch.empty(shape, dtype=torch.float32 if dt == bf else dt)
+        assert ok(shape, x.stride(), dt), (shape, dt)
+    w = torch.empty(4, 4096, 3584, dtype=i8)
+    assert ok((4096, 3584), w[1].stride(), i8, w[1].storage_offset())
+    assert ok((1, 4096), (7, 1), bf)                 # one row: never stepped
+    assert not ok((512, 4096), (4096, 1), bf, offset=1)
+    assert not ok((512, 4096), (4104, 1), bf)        # padded rows
+    assert not ok((512, 4096), (1, 512), bf)         # transposed view
+    assert not ok((4, 512, 64), (65536, 64, 1), bf)  # strided slab
+    assert not ok((512, 8), (8, 1), i8)              # 8-byte rows
+    assert not ok((512, 64), (64, 1), torch.float32)
+    assert not ok((), (), bf)
+
+
+def _gemm_path(path):
+    """Run one model path that reaches matmul_i8 or the grouped GEMM on the
+    CPU at a tiny config: the MoE forward and SGD step at world 1 and 4
+    (EP), the W8A8 MoE layer, W8A8 serving's hooks (decode and prefill
+    rows) and the W8A8 TP-4 forward."""
+    from dataclasses import replace
+
+    from triton_dist_tpu_torch.layers.moe_inference import (
+        DistributedMoELayer,
+    )
+    from triton_dist_tpu_torch.models import llama as tllama
+    from triton_dist_tpu_torch.models import llama_w8a8 as tw8
+    from triton_dist_tpu_torch.models import moe as tmoe
+
+    rng = np.random.default_rng(11)
+    if path in ("moe", "moe_ep4"):
+        cfg = replace(tmoe.MoEConfig.tiny(), n_layers=1)
+        world = 4 if path == "moe_ep4" else 1
+        params = tmoe.init_params(cfg, seed=2, device="cpu")
+        if world > 1:
+            params = tmoe.shard_params(params, cfg, world)
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(16, 2)))
+        with torch.no_grad():
+            tmoe.make_forward(cfg, world)(params, tok)
+        tmoe.make_train_step(cfg, world, lr=0.1)(params, tok,
+                                                 torch.roll(tok, -1, 0))
+    elif path == "w8a8_moe":
+        layer = DistributedMoELayer(n_experts=8, topk=2, hidden=128,
+                                    intermediate=128, block_m=8,
+                                    dtype=torch.float32, device="cpu")
+        layer.weights = layer.init_weights(3)
+        layer.quantize_weights()
+        layer.forward(torch.from_numpy(rng.standard_normal(
+            (32, 128)).astype(np.float32)))
+    elif path == "w8a8_serving":
+        cfg = tllama.LlamaConfig.tiny()
+        q = tw8.quantize_serve_params(tllama.init_params(cfg, device="cpu"),
+                                      cfg)
+        for rows in (2, 32):
+            h = torch.from_numpy(rng.standard_normal(
+                (rows, cfg.dim)).astype(np.float32))
+            tw8.w8a8_serve_ffn(h, q["layers"][0])
+            o = torch.from_numpy(rng.standard_normal(
+                (rows, q["layers"][0]["wo_q"].shape[0])).astype(np.float32))
+            tw8.w8a8_serve_out_proj(o, q["layers"][0])
+    else:
+        cfg = tllama.LlamaConfig.tiny()
+        tq_ = tw8.place_w8a8_params(tw8.quantize_params_w8a8(
+            tllama.init_params(cfg, device="cpu"), cfg, 4), cfg, 4)
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, size=(64, 2)))
+        tw8.make_w8a8_forward(cfg, 4)(tq_, tok)
+
+
+@pytest.mark.parametrize("path", ["moe", "moe_ep4", "w8a8_moe",
+                                  "w8a8_serving", "w8a8_tp4"])
+def test_model_paths_hand_gemm_tma_operands(path, monkeypatch):
+    """Hooks on the plain versions the CPU wrappers run (``group_gemm_ref``
+    for the forward, dx and int8 modes; ``matmul_i8_ref``) record the
+    (shape, strides, offset) of every operand a model path hands the
+    grouped GEMM and matmul_i8; each must meet ``quant.gemm_operand_ok``
+    (TMA's rule for the kernels on ``csrc/sm90_gemm.cuh``, read at bf16 or
+    int8), so no model path raises on the card."""
+    seen, real_gg, real_i8 = [], tgg.group_gemm_ref, tq.matmul_i8_ref
+
+    def note(name, *ts):
+        for x in ts:
+            dt = torch.int8 if x.dtype == torch.int8 else torch.bfloat16
+            seen.append((name, tuple(x.shape), tuple(x.stride()),
+                         x.storage_offset(), dt))
+
+    def gg_spy(x, w, tile_expert, **kw):
+        note("group_gemm" + ("_dx" if kw.get("trans_w") else ""), x, w)
+        return real_gg(x, w, tile_expert, **kw)
+
+    def i8_spy(a, b):
+        note("matmul_i8", a, b)
+        return real_i8(a, b)
+
+    monkeypatch.setattr(tgg, "group_gemm_ref", gg_spy)
+    monkeypatch.setattr(tq, "matmul_i8_ref", i8_spy)
+    _gemm_path(path)
+    names = {s[0] for s in seen}
+    want = {"moe": {"group_gemm", "group_gemm_dx"},
+            "moe_ep4": {"group_gemm", "group_gemm_dx"},
+            "w8a8_moe": {"group_gemm"},
+            "w8a8_serving": {"matmul_i8"}, "w8a8_tp4": {"matmul_i8"}}[path]
+    assert names == want, names
+    if path.startswith("w8a8"):
+        assert all(s[4] == torch.int8 for s in seen)
+    bad = [s for s in seen if not tq.gemm_operand_ok(s[1], s[2], s[4],
+                                                     s[3])]
+    assert not bad, f"{path}: operands the kernel would refuse: {bad[:3]}"

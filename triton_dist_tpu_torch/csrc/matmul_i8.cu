@@ -14,18 +14,33 @@
 // for gate/up of Llama-3-8B); a 512-row prefill chunk does 2 m n k int8
 // operations, 60 G at the 1,979 TOP/s int8 tensor-core peak = 30 us.
 //
-// Design (right and simple first; wgmma + TMA are later work).  One
-// block of 4 warps per 64 x 128 output tile, the tile loop of
-// i8_tile.cuh (shared with the grouped int8 mode of group_gemm.cu):
-// mma.sync m16n8k32 over a two-stage cp.async ring, each B tile
-// transposed in shared memory.  Few output tiles (decode width, n = 4096)
-// would leave SMs idle, so the wrapper may split the k loop across blocks
-// (grid.z): the partial sums meet by int32 atomics into a zeroed output,
-// which is exact in any order.
+// Two kernels, chosen by the wrapper from (m, n, k) alone (`quant.
+// matmul_i8_kernel_for`, the crossover measured on the card):
+//
+// - above the crossover, `matmul_i8_wg_kernel`: the persistent GEMM of
+//   sm90_gemm.cuh (a TMA producer warpgroup, two consumer warpgroups, one
+//   block an SM) on 256 x 128 tiles: each consumer takes 128 rows, two
+//   `wgmma m64n128k32.s32.s8.s8` a k-step on one B tile.  B [k][n] is
+//   staged as it lies and transposed in shared memory by the producer's
+//   warps 1-3 (wgmma takes 8-bit operands K-major only; the weight keeps
+//   its layout and no pass over it runs per call), and the transposers
+//   set the int8 rate: a 256 x 128 tile transposes half the B bytes a
+//   128 x 256 one does for the same products (0.0845 against 0.1004 ms
+//   at m 512, PERF.md row 8);
+// - at decode width (few rows), `matmul_i8_kernel`: one block of 4 warps
+//   per 64 x 128 output tile on the tile loop of i8_tile.cuh (mma.sync
+//   m16n8k32 over a two-stage cp.async ring, each B tile transposed in
+//   shared memory).  Few output tiles (decode width, n = 4096) would
+//   leave SMs idle, so the wrapper may split the k loop across blocks
+//   (grid.z): the partial sums meet by int32 atomics into a zeroed
+//   output, which is exact in any order.  The weight is read once; this
+//   kernel reaches ~58% of that bytes bound, and no library call takes
+//   m <= 16.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "i8_tile.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -54,8 +69,35 @@ matmul_i8_kernel(const __grid_constant__ Params p) {
   store_tile(acc, p.c, p.M, p.N, m0, n0, gridDim.z > 1);
 }
 
+// The persistent wgmma kernel: one slab, 256 x 128 tiles (the last row
+// tile masked at m), groups of row tiles as the grouped GEMM's.
+constexpr int WG_GROUP = 8;
+
+__global__ void __launch_bounds__(tdt_gemm90::NT, 1)
+matmul_i8_wg_kernel(const __grid_constant__ tdt_gemm90::Gemm p) {
+  extern __shared__ __align__(128) char wg_smem[];
+  tdt_gemm90::persistent_gemm<true, false, true>(p, wg_smem);
+}
+
 }  // namespace
 
+// C [M, N] int32 = A [M, K] int8 @ B [K, N] int8 on the persistent wgmma
+// kernel.  K % 32 == 0, N % 16 == 0, A, B and C contiguous with 16-byte
+// aligned bases (the wrapper checks).
+extern "C" int tdt_matmul_i8_wg(const void* a, const void* b, void* c, int M,
+                                int N, int K, void* stream) {
+  tdt_gemm90::Gemm p;
+  p.slab = nullptr;
+  p.c = c;
+  p.rows = p.slab_rows = tdt_gemm90::Cfg<true, false, true>::TM;
+  static unsigned attr = 0;
+  return tdt_gemm90::launch_gemm<true, false, true>(
+      matmul_i8_wg_kernel, p, a, b, M, N, K, 1, static_cast<long long>(K) * N,
+      WG_GROUP, attr, static_cast<cudaStream_t>(stream));
+}
+
+// The split-K tile loop: any M, K % 32 == 0, N % 16 == 0; k_split a
+// multiple of 64 (the k loop's share of one block).
 extern "C" int tdt_matmul_i8(const void* a, const void* b, void* c, int M,
                              int N, int K, int k_split, void* stream) {
   Params p;

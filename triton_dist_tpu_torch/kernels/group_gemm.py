@@ -13,10 +13,13 @@ w[tile_expert[i]]`` with w ``[E, K, N]`` in the reference's layout.
 - :func:`group_gemm` (bf16 forward), :func:`group_gemm_dx` (dy @ w[e]^T,
   the backward's dx) and :func:`group_gemm_i8` (exact int8 -> int32): on
   CUDA tensors each launches its mode of the hand-written Hopper kernel
-  ``csrc/group_gemm.cu`` (the port of the TPU ``_kernel``) or raises on
-  what it does not take, and counts its launches; on CPU tensors it runs
-  the plain version.  ``plain=True`` takes the plain version on any device
-  (a reference computation on the card).
+  ``group_gemm_wg_kernel`` (``csrc/group_gemm.cu``, the port of the TPU
+  ``_kernel``, on the persistent wgmma / TMA GEMM of
+  ``csrc/sm90_gemm.cuh``) or raises on what it does not take (operands
+  that break ``quant.gemm_operand_ok``, TMA's rule, included), and counts
+  its launches; on CPU tensors it runs the plain version.  ``plain=True``
+  takes the plain version on any device (a reference computation on the
+  card).
 - Under autograd, :func:`group_gemm` goes through :class:`GroupGemmFn`,
   the counterpart of the reference's ``custom_vjp``: dx is the transposed
   mode of the same kernel on dy cast to x's dtype; dW[e] sums x_tile^T @
@@ -36,13 +39,47 @@ import ctypes
 import torch
 
 from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.quant import check_operands
 
 _SIG = {"tdt_group_gemm_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_void_p],
         "tdt_group_gemm_i8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_void_p]}
-TILE_M, TILE_N, TILE_K = 128, 128, 32         # csrc/group_gemm.cu BM, BN, BK
-I8_TILE_M, I8_TILE_N, I8_TILE_K = 64, 128, 64  # csrc/i8_tile.cuh BM, BN, BK
+# what the kernel takes: block_m, N and K multiples of these (a tile lies
+# in one expert: bf16 tiles are 128 rows, int8 ones 64 where block_m %
+# 128 != 0)
+TILE_M, TILE_N, TILE_K = 128, 128, 32
+I8_TILE_M = 64
+# csrc/group_gemm.cu: output tiles of 128 x 256 (int8 at block_m % 256:
+# 256 x 128), walked in groups of GROUP row tiles, column band by column
+# band within a group
+TILE_SHAPE, TALL_SHAPE, GROUP = (128, 256), (256, 128), 8
+
+
+def tile_shape(block_m: int, int8: bool = False):
+    """(rows, columns) of the kernel's output tiles for ``block_m``: int8
+    takes 256 x 128 where block_m % 256 == 0; 64-row tiles where block_m
+    % 128 != 0 (int8 only)."""
+    if int8 and block_m % TALL_SHAPE[0] == 0:
+        return TALL_SHAPE
+    rows, cols = TILE_SHAPE
+    return (rows if block_m % rows == 0 else rows // 2), cols
+
+
+def tile_order(m_pad: int, n: int, block_m: int, int8: bool = False):
+    """The output tiles of one launch in the order its persistent blocks
+    take them (``tdt_gemm90::tile_rc``): (first row, rows, first column,
+    columns, row tile of ``block_m`` whose expert the tile reads) for
+    every tile of :func:`tile_shape`.  A pure function: the CPU tests
+    walk it."""
+    rows, cols = tile_shape(block_m, int8)
+    tiles_m, tiles_n = -(-m_pad // rows), -(-n // cols)
+    for t in range(tiles_m * tiles_n):
+        g0 = t // (GROUP * tiles_n) * GROUP
+        in_group = min(GROUP, tiles_m - g0)
+        r = t - g0 * tiles_n
+        row0 = (g0 + r % in_group) * rows
+        yield row0, rows, r // in_group * cols, cols, row0 // block_m
 
 
 def load_aware_block_m(total_rows: int, n_experts: int,
@@ -115,14 +152,14 @@ def _launch(name, x, w, tile_expert, block_m, out_cols, out_dtype, *,
     if tile_expert.dtype != torch.int32:
         raise TypeError(f"{name}: tile_expert must be int32, got "
                         f"{tile_expert.dtype}")
-    tm, tn, tk = ((I8_TILE_M, I8_TILE_N, I8_TILE_K) if int8
-                  else (TILE_M, TILE_N, TILE_K))
+    tm = I8_TILE_M if int8 else TILE_M
     m_pad, k = x.shape
-    if block_m % tm or out_cols % tn or k % tk:
+    if block_m % tm or out_cols % TILE_N or k % TILE_K:
         raise ValueError(f"{name} kernel: block_m={block_m} must be a "
-                         f"multiple of {tm}, N={out_cols} of {tn} and K={k} "
-                         f"of {tk}")
-    x, w, te = x.contiguous(), w.contiguous(), tile_expert.contiguous()
+                         f"multiple of {tm}, N={out_cols} of {TILE_N} and "
+                         f"K={k} of {TILE_K}")
+    check_operands(name, x, w)
+    te = tile_expert.contiguous()
     y = torch.empty((m_pad, out_cols), dtype=out_dtype, device=x.device)
     if m_pad == 0:
         return y

@@ -9,10 +9,13 @@ Counterpart of ``triton_dist_tpu/kernels/quant.py``:
 - :func:`quantize_rowwise` (dynamic, per activation row) and
   :func:`quantize_channelwise` (static, per weight output channel);
 - :func:`matmul_i8` — ``C[m, n] int32 = A[m, k] int8 @ B[k, n] int8``,
-  exact.  On a CUDA tensor it launches the hand-written Hopper kernel
-  ``csrc/matmul_i8.cu`` (the port of the TPU ``_matmul_i8_kernel``) or
-  raises on what it does not take; on a CPU tensor it runs
-  :func:`matmul_i8_ref`;
+  exact.  On a CUDA tensor it launches one of the two hand-written Hopper
+  kernels of ``csrc/matmul_i8.cu`` (the port of the TPU
+  ``_matmul_i8_kernel``), as :func:`matmul_i8_kernel_for` says: the
+  persistent wgmma / TMA kernel above a measured row count, the split-K
+  tile loop at decode width; it raises on what they do not take
+  (:func:`gemm_operand_ok`: TMA reads the operands).  On a CPU tensor it
+  runs :func:`matmul_i8_ref`;
 - :func:`w8a8_linear` — per-row activation quant, the int8 GEMM, and the
   reference's rank-1 f32 dequant in its order
   (``acc * x_scale[:, None] * w_scale[None, :]``), so f32 results are
@@ -31,9 +34,20 @@ import torch
 from triton_dist_tpu_torch.kernels import _build
 
 _MATMUL_I8_SIG = {"tdt_matmul_i8": [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
-TILE_M, TILE_N, TILE_K = 64, 128, 64   # csrc/matmul_i8.cu BM, BN, BK
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                  "tdt_matmul_i8_wg": [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+TILE_M, TILE_N, TILE_K = 64, 128, 64   # the split-K kernel's BM, BN, BK
 SPLIT_TARGET = 2   # split-K: about this many blocks per SM at least
+# The crossover, measured over m 8 .. 2,048 at Llama-3-8B's gate/up and
+# down widths (PERF.md row 8): the split-K tile loop up to SPLIT_K_MAX_M
+# rows, and wherever the wgmma kernel's 256 x 128 tiles would be fewer than
+# WG_MIN_TILES (one block an SM: half the card idle, each tile's k loop
+# on one SM).
+SPLIT_K_MAX_M = 32
+WG_MIN_TILES = 64
+WG_TILE_M, WG_TILE_N = 256, 128
+_TMA_STRIDE_LIMIT = 1 << 40   # bytes: TMA's bound on a global stride
 
 
 def symmetric_quantize(x, axis: int):
@@ -77,11 +91,55 @@ def _split_k(m_tiles, n_tiles, k_tiles, sms):
     return -(-k_tiles // per), per
 
 
+def matmul_i8_kernel_for(m: int, n: int, k: int) -> str:
+    """Which kernel of ``csrc/matmul_i8.cu`` a CUDA call of (m, n, k)
+    launches: "wg" (the persistent wgmma kernel) above SPLIT_K_MAX_M rows
+    where it has at least WG_MIN_TILES tiles, else "split_k" (the tile
+    loop that splits k across blocks)."""
+    tiles = -(-m // WG_TILE_M) * -(-n // WG_TILE_N)
+    return "wg" if m > SPLIT_K_MAX_M and tiles >= WG_MIN_TILES \
+        else "split_k"
+
+
+def gemm_operand_ok(shape, strides, dtype, offset=0) -> bool:
+    """Whether the GEMM kernels on ``csrc/sm90_gemm.cuh`` (``matmul_i8``,
+    the grouped GEMM) read an operand of ``shape`` and element
+    ``strides`` (``offset``: its storage offset in elements, on a 16-byte
+    aligned allocation) by TMA: bf16 or int8, dense row-major (their
+    entries take no strides), a 16-byte aligned base and rows a nonzero
+    multiple of 16 bytes below 2**40.  A pure function of the layout: the
+    CPU tests hold every model path's operands to it."""
+    if dtype not in (torch.bfloat16, torch.int8) or not shape:
+        return False
+    size = 2 if dtype == torch.bfloat16 else 1
+    dense = 1
+    for n, st in zip(reversed(shape), reversed(strides)):
+        if n != 1 and st != dense:
+            return False
+        dense *= n
+    row = shape[-1] * size
+    return (offset * size) % 16 == 0 and 0 < row < _TMA_STRIDE_LIMIT \
+        and row % 16 == 0
+
+
+def check_operands(name, *tensors):
+    """Raise unless every operand meets :func:`gemm_operand_ok` at its
+    address."""
+    for t in tensors:
+        if not gemm_operand_ok(tuple(t.shape), t.stride(),
+                               t.dtype) or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: an operand {tuple(t.shape)} "
+                             f"of strides {t.stride()} at offset "
+                             f"{t.storage_offset()} breaks TMA's rules "
+                             f"(gemm_operand_ok)")
+
+
 def matmul_i8(a, b):
     """``C[m, n] int32 = A[m, k] int8 @ B[k, n] int8``, exact.  CUDA
-    operands launch the kernel (any m; k % 32 == 0 and n % 16 == 0, so
-    every row is whole 16-byte copies); CPU operands run
-    :func:`matmul_i8_ref`."""
+    operands launch the kernel :func:`matmul_i8_kernel_for` names (any m;
+    k % 32 == 0 and n % 16 == 0; operands that meet
+    :func:`gemm_operand_ok`) and count it in ``matmul_i8.launches`` and
+    ``matmul_i8.mode_launches``; CPU operands run :func:`matmul_i8_ref`."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"matmul_i8 takes int8 operands, got {a.dtype} and "
                         f"{b.dtype}")
@@ -99,9 +157,12 @@ def matmul_i8(a, b):
     if k % 32 or n % 16:
         raise ValueError(f"matmul_i8 kernel: k={k} must be a multiple of 32 "
                          f"and n={n} of 16")
-    a, b = a.contiguous(), b.contiguous()
-    n_split, k_per = _split_k(-(-m // TILE_M), -(-n // TILE_N),
-                              -(-k // TILE_K), _build.sm_count(a.device))
+    check_operands("matmul_i8", a, b)
+    kind = matmul_i8_kernel_for(m, n, k)
+    n_split = 1
+    if kind == "split_k":
+        n_split, k_per = _split_k(-(-m // TILE_M), -(-n // TILE_N),
+                                  -(-k // TILE_K), _build.sm_count(a.device))
     # split-K partial sums meet by int32 atomics: exact in any order
     alloc = torch.zeros if n_split > 1 else torch.empty
     out = alloc((m, n), dtype=torch.int32, device=a.device)
@@ -109,15 +170,22 @@ def matmul_i8(a, b):
         return out
     lib = _build.load("matmul_i8", _MATMUL_I8_SIG)
     with torch.cuda.device(a.device):
-        err = lib.tdt_matmul_i8(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                m, n, k, k_per * TILE_K,
-                                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "wg":
+            err = lib.tdt_matmul_i8_wg(a.data_ptr(), b.data_ptr(),
+                                       out.data_ptr(), m, n, k, stream)
+        else:
+            err = lib.tdt_matmul_i8(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), m, n, k, k_per * TILE_K,
+                                    stream)
     _build.check(err, "matmul_i8")
     matmul_i8.launches += 1
+    matmul_i8.mode_launches[kind] += 1
     return out
 
 
 matmul_i8.launches = 0
+matmul_i8.mode_launches = {"wg": 0, "split_k": 0}
 
 
 def w8a8_linear(x, w_q, w_scale, *, out_dtype=None, plain=False):
