@@ -3898,15 +3898,14 @@ def collective_rows(dev, g):
             plain_ms = event_ms(lambda: rs.reduce_scatter_ref(x, mesh, axis,
                                                               meth), iters=3)
             n_bytes = x.numel() * x.element_size() * (T + 1) // T
-            # per rank and chunk: T reads of its partial, T - 1 landing
-            # writes and reads, one band written
+            # the pull: per rank, the T partials of its band read once and
+            # the band written once, the function's own bytes
             shapes[tag] = _timed(f"reduce_scatter {name}", tag,
                                  lambda: rs.reduce_scatter_shard(
                                      x, mesh, axis, meth),
                                  "reduce_scatter_kernel", n_bytes, plain_ms,
                                  lib, "sum over the rank dimension",
-                                 algo_bytes=x.numel() * x.element_size()
-                                 * (3 * T - 1) // T)
+                                 algo_bytes=n_bytes)
             del x
             free_cuda()
         rows[f"reduce_scatter_{name}"] = dict(shapes["plane@tp2"],
@@ -5027,12 +5026,18 @@ WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
                  "flash_fwd": ("flash_fwd_wg_kernel",),
                  "ag_gemm": ("ag_gemm_wg_kernel",),
+                 "gemm_rs": ("gemm_rs_wg_kernel",),
                  "group_gemm": ("group_gemm_wg_kernel",),
                  "matmul_i8": ("matmul_i8_wg_kernel",)}
 # instance labels by template arguments (<SEGM> of the attention kernels,
 # <I8, B_NK> of ag_gemm_wg_kernel, <I8, B_NK, TALL> of
-# group_gemm_wg_kernel); the int8 kernels' names (IGMMA expected)
-SASS_MODES = (("ILb1ELb0ELb1EE", "int8, 256 x 128"),
+# group_gemm_wg_kernel, <B_NK, MODE> of gemm_rs_wg_kernel); the int8
+# kernels' names (IGMMA expected)
+SASS_MODES = (("ILb0ELi0EE", "bf16, B [K][n]"),
+              ("ILb1ELi0EE", "bf16, B^T [n][K]"),
+              ("ILb0ELi1EE", "bf16, B [K][n], group"),
+              ("ILb1ELi1EE", "bf16, B^T [n][K], group"),
+              ("ILb1ELb0ELb1EE", "int8, 256 x 128"),
               ("ILb1ELb0ELb0EE", "int8"),
               ("ILb0ELb0ELb0EE", "bf16, B [K][n]"),
               ("ILb0ELb1ELb0EE", "bf16, B^T [n][K]"),

@@ -1837,6 +1837,113 @@ def test_ag_gemm_wg_refuses_non_tma_operands(cuda):
     assert agm.ag_gemm_shard.launches == n0
 
 
+# The uni GEMM-RS on sm90_gemm.cuh (128 x 256 tiles, a flag per staged
+# tile, the owner's fold in its tiles' epilogue): (world, m_loc, k, N).  W
+# 1, 2, 4, 8; m_loc 512, 250 (a chunk's last row tile masked: TMA loads
+# the next chunk's rows there) and 1; N a multiple of 256 and N % 256 ==
+# 128 (a half-empty last column tile); k with a tail of 8 past 64-deep
+# k-tiles.
+RS_WG_CASES = [(world, m_loc, k, n) for world in (1, 2, 4, 8)
+               for m_loc, k in ((512, 1024), (250, 264), (1, 72))
+               for n in (512, 384)]
+
+
+def _chunk_tiles_close(out, want, name):
+    """The bf16 GEMM rule over the whole output and each 128-row tile of
+    every rank's chunk (relative L2 <= 1e-2 a tile: a tile that folded a
+    wrong or a stale partial shows)."""
+    _gemm_close(out, want, name)
+    err, w = out.float() - want.float(), want.float()
+    for r in range(out.shape[0]):
+        for r0 in range(0, out.shape[1], 128):
+            assert err[r, r0:r0 + 128].norm() <= \
+                1e-2 * w[r, r0:r0 + 128].norm() + 1e-6, \
+                f"{name}: rank {r} rows {r0}.."
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RS_WG_CASES)
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_gemm_rs_wg_matches_plain(cuda, case, trans_b):
+    """``tdt_gemm_rs`` (the uni GEMM-RS on wgmma / TMA) over a virtual
+    world of W ranks against ``gemm_rs_ref`` by the bf16 GEMM rule over
+    the whole output and each 128-row tile of every chunk; both B
+    layouts; one uni launch a call."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    world, m_loc, k, n = case
+    g = np.random.default_rng(zlib.crc32(repr(("wg", case, trans_b))
+                                         .encode()))
+    _, a, b = _ring_case(cuda, g, world, m_loc, k, n, trans_b)
+    n0 = grs.gemm_rs_shard.launches
+    out = grs.gemm_rs_shard(a, b, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert grs.gemm_rs_shard.launches == n0 + 1
+    assert out.shape == (world, m_loc, n)
+    _chunk_tiles_close(out, grs.gemm_rs_ref(a, b, trans_b=trans_b),
+                       f"gemm_rs {case}{' B^T' if trans_b else ''}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", ["tp", "dcn"])
+@pytest.mark.parametrize("m_loc", [256, 250])
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_gemm_rs_wg_group_mode_matches_plain(cuda, axis, m_loc, trans_b):
+    """The uni kernel's GROUP mode (``tdt_gemm_rs_group``, torus = 0: the
+    first step of the torus composition) over one axis of a (2, 4) mesh,
+    G 4 ranks one apart or G 2 four apart, against ``group_gemm_rs_ref``
+    by the bf16 rule over each rank's chunk tiles; both B layouts."""
+    import ctypes
+
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    mesh = _mesh((2, 4), ("dcn", "tp"), cuda)
+    G, k, n = mesh.axis_size(axis), 264, 640
+    g = np.random.default_rng(zlib.crc32(repr((axis, m_loc, trans_b))
+                                         .encode()))
+    b = (_randn(g, (8, n, k) if trans_b else (8, k, n), cuda).float()
+         / k ** 0.5).bfloat16()
+    a = _randn(g, (8, G * m_loc, k), cuda)
+    out = grs._uni(a, b, m_loc, n, trans_b, "gemm_rs_group", G,
+                   group=((ctypes.c_int * 7)(*mesh.group_args((axis,))),
+                          (ctypes.c_int * 6)(), 0))
+    torch.cuda.synchronize()
+    want = grs.group_gemm_rs_ref(a, b, mesh, (axis,), trans_b=trans_b)
+    _chunk_tiles_close(out, want, f"gemm_rs group {axis} m_loc {m_loc}")
+
+
+@pytest.mark.gpu
+def test_gemm_rs_wg_ten_calls_in_a_row(cuda):
+    """Ten uni GEMM-RS calls in a row on new inputs (W 4, m_loc 512, both
+    B layouts in turn), each checked: a flag or a staged tile left by an
+    earlier call that let a fold pass early would show."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    g = np.random.default_rng(15)
+    for i in range(10):
+        trans_b = bool(i % 2)
+        _, a, b = _ring_case(cuda, g, 4, 512, 1024, 1024, trans_b)
+        out = grs.gemm_rs_shard(a, b, trans_b=trans_b)
+        torch.cuda.synchronize()
+        _chunk_tiles_close(out, grs.gemm_rs_ref(a, b, trans_b=trans_b),
+                           f"gemm_rs call {i}")
+
+
+@pytest.mark.gpu
+def test_gemm_rs_wg_refuses_non_tma_operands(cuda):
+    """The uni GEMM-RS reads by TMA: an operand whose base is not 16-byte
+    aligned raises before any launch."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    buf = torch.zeros(4 * 256 * 256 + 1, dtype=torch.bfloat16, device=cuda)
+    a = buf[1:].view(4, 256, 256)
+    b = torch.zeros(4, 256, 256, dtype=torch.bfloat16, device=cuda)
+    n0 = grs.gemm_rs_shard.launches
+    with pytest.raises(ValueError, match="TMA"):
+        grs.gemm_rs_shard(a, b)
+    assert grs.gemm_rs_shard.launches == n0
+
+
 @pytest.mark.gpu
 def test_tp4_w8a8_forward_at_8b_width(cuda):
     """Llama-3-8B widths at 2 layers, TP 4 on the virtual world, W8A8:
@@ -2550,8 +2657,10 @@ def test_all_gather_matches_plain(cuda, mesh_case, dtype, method):
 @pytest.mark.parametrize("method", ["RING_1D", "RING_BIDIR"])
 def test_reduce_scatter_matches_plain(cuda, mesh_case, dtype, method):
     """Every mode of the reduce-scatter kernel equals its plain version
-    (the reference's ring order) bit for bit, in f32 and bf16, at rows per
-    rank 2048, 5 (unequal bidir halves) and 1 (the ring)."""
+    (the reference's ring order, ``ring_fold_order``) bit for bit, in f32
+    and bf16, at rows per chunk 2048, 8, 5 (unequal bidir halves) and 1
+    (the ring), and at a row of 3 elements (the scalar path); one launch
+    of the method's mode a call."""
     from triton_dist_tpu_torch.kernels import reduce_scatter as rs
 
     mesh = _mesh(*mesh_case[:2], cuda)
@@ -2559,12 +2668,39 @@ def test_reduce_scatter_matches_plain(cuda, mesh_case, dtype, method):
     T = mesh.axis_size(axis)
     g = torch.Generator(device=cuda).manual_seed(2)
     meth = getattr(rs.ReduceScatterMethod, method)
-    for rows in (2048, 5, 1):
-        x = torch.randn((*mesh.shape, T * rows, 128), generator=g,
+    for rows, row in ((2048, 128), (8, 128), (5, 128), (1, 128), (5, 3)):
+        x = torch.randn((*mesh.shape, T * rows, row), generator=g,
                         device=cuda).to(dtype)
+        mode = "bidir" if method == "RING_BIDIR" and rows >= 2 else "ring"
+        n0 = rs.reduce_scatter_shard.mode_launches[mode]
         got = rs.reduce_scatter_shard(x, mesh, axis, meth)
         torch.cuda.synchronize()
+        assert rs.reduce_scatter_shard.mode_launches[mode] == n0 + 1
         assert torch.equal(got, rs.reduce_scatter_ref(x, mesh, axis, meth))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["RING_1D", "RING_BIDIR"])
+def test_reduce_scatter_allocates_only_its_output(cuda, method):
+    """A reduce-scatter call pulls the peers' partials in place: around
+    one call (after a first that set up the workspace's barrier slots)
+    ``torch.cuda.memory_allocated`` grows by no more than its output, and
+    nothing is left allocated but the output."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    mesh = _mesh((2, 4), ("dcn", "tp"), cuda)
+    meth = getattr(rs.ReduceScatterMethod, method)
+    x = torch.randn((2, 4, 4 * 4096, 128), device=cuda)
+    rs.reduce_scatter_shard(x, mesh, "tp", meth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = rs.reduce_scatter_shard(x, mesh, "tp", meth)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    out_bytes = out.numel() * out.element_size()
+    assert grew <= out_bytes, (grew, out_bytes)
+    assert torch.cuda.memory_allocated() - before == out_bytes
 
 
 @pytest.mark.gpu

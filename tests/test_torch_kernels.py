@@ -1234,13 +1234,24 @@ def test_ag_gemm_plain_matches_pallas(world, monkeypatch, request):
     assert_allclose(c, np.asarray(want_c), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("world", [1, 2, 4])
-def test_gemm_rs_plain_matches_pallas(world, monkeypatch, request):
+@pytest.mark.parametrize("world,m_loc,N,trans_b", [
+    pytest.param(1, 16, 256, False, id="1"),
+    pytest.param(2, 16, 256, False, id="2"),
+    pytest.param(4, 16, 256, False, id="4"),
+    # the uni kernel's 128 x 256 tiles: a chunk of 136 rows (a second row
+    # tile of 8), N % 256 == 128 (a half-empty column tile), B^T
+    pytest.param(2, 136, 384, True, id="2-ragged-bt"),
+    pytest.param(2, 136, 384, False, id="2-ragged"),
+    pytest.param(4, 16, 384, True, id="4-bt")])
+def test_gemm_rs_plain_matches_pallas(world, m_loc, N, trans_b, monkeypatch,
+                                      request):
     """gemm_rs (its plain version on CPU tensors) against the reference's
     ``_gemm_rs_kernel`` in interpret mode (spied) on a ``world``-device
-    mesh, per-device (m_loc 16, k_loc 128, N 256): every rank's reduced
-    chunk within 1e-5 (f32: the plain version's f32 sum in rank order and
-    the reference's ring adds differ by f32 rounding only)."""
+    mesh, per-device (m_loc, k_loc 128, N): every rank's reduced chunk
+    within 1e-5 (f32: the plain version's f32 sum in rank order and the
+    reference's ring adds differ by f32 rounding only); with ``trans_b``
+    the port reads the weight stored [N, k] (the reference's b
+    transposed)."""
     from jax.sharding import PartitionSpec as P
 
     from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as trs
@@ -1255,8 +1266,8 @@ def test_gemm_rs_plain_matches_pallas(world, monkeypatch, request):
         return kernel(*args, **kw)
 
     monkeypatch.setattr(jrs, "_gemm_rs_kernel", spy)
-    m_loc, k_loc, N = 16, 128, 256
-    a, b = _inputs(180 + world, (world * m_loc, world * k_loc),
+    k_loc = 128
+    a, b = _inputs(180 + world + m_loc + N, (world * m_loc, world * k_loc),
                    (world * k_loc, N))
     b /= np.sqrt(world * k_loc)
     want = _shard_map(
@@ -1267,8 +1278,11 @@ def test_gemm_rs_plain_matches_pallas(world, monkeypatch, request):
         jnp.asarray(a), jnp.asarray(b))
     assert traced and set(traced) == {world}
     n0 = trs.gemm_rs_shard.launches
-    out = trs.gemm_rs_shard(torch.stack(_t(a).chunk(world, dim=1)),
-                      _stack_rows(b, world))
+    b_r = _stack_rows(b, world)
+    if trans_b:
+        b_r = b_r.transpose(1, 2).contiguous()
+    out = trs.gemm_rs_shard(torch.stack(_t(a).chunk(world, dim=1)), b_r,
+                            trans_b=trans_b)
     assert trs.gemm_rs_shard.launches == n0
     assert out.shape == (world, m_loc, N)
     assert_allclose(out.reshape(world * m_loc, N), np.asarray(want),
@@ -2294,21 +2308,54 @@ def test_all_gather_grouped_axis_matches_pallas(axis, meth):
     assert np.array_equal(tag.all_gather(_t(x[:16]), ctx).numpy(), x[:16])
 
 
-RS_CASES = {"ring_8": ("RING_1D", 8), "bidir_8": ("RING_BIDIR", 8),
-            "bidir_5": ("RING_BIDIR", 5), "bidir_1": ("RING_BIDIR", 1),
-            "xla_8": ("XLA", 8)}
+RS_CASES = {
+    # name: (method, rows per chunk, ranks T, dtype)
+    "ring_8": ("RING_1D", 8, 4, "f32"), "bidir_8": ("RING_BIDIR", 8, 4, "f32"),
+    "bidir_5": ("RING_BIDIR", 5, 4, "f32"),
+    "bidir_1": ("RING_BIDIR", 1, 4, "f32"), "xla_8": ("XLA", 8, 4, "f32"),
+    "ring_8_t2": ("RING_1D", 8, 2, "f32"),
+    "bidir_8_t2": ("RING_BIDIR", 8, 2, "f32"),
+    "ring_8_bf16": ("RING_1D", 8, 4, "bf16"),
+    "bidir_5_bf16": ("RING_BIDIR", 5, 4, "bf16"),
+    "ring_8_t2_bf16": ("RING_1D", 8, 2, "bf16"),
+    "bidir_8_t2_bf16": ("RING_BIDIR", 8, 2, "bf16")}
+
+
+def _ring_fold(parts, T, rows, bidir, dtype):
+    """Every coordinate's chunk folded in ``ring_fold_order``'s order, in
+    torch: parts [T src, T chunk, rows, 128] -> [T, rows, 128]; bidir folds
+    the first rows // 2 rightward, the rest leftward."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as trs
+
+    x = _t(parts).to(dtype)
+    ra = rows // 2 if bidir else rows
+    out = []
+    for c in range(T):
+        halves = []
+        for d, r0, r1 in ((1, 0, ra), (-1, ra, rows)):
+            if r1 > r0:
+                first, *rest = trs.ring_fold_order(T, c, d)
+                acc = x[first, c, r0:r1]
+                for src in rest:
+                    acc = x[src, c, r0:r1] + acc
+                halves.append(acc)
+        out.append(torch.cat(halves))
+    return torch.stack(out)
 
 
 @pytest.mark.parametrize("name", sorted(RS_CASES))
-def test_reduce_scatter_plain_matches_pallas(name, mesh4, monkeypatch):
+def test_reduce_scatter_plain_matches_pallas(name, monkeypatch, request):
     """reduce_scatter_shard's plain version against the reference's
-    interpret-mode ring kernels on mesh4 (spied), distinct f32 partials
-    [4 rows, 128] per rank: bit-equal in the ring order, bidir at rows 8
-    and 5 (unequal halves) and 1 (the ring); the XLA method within 1e-6
-    (rank order against XLA's sum)."""
+    interpret-mode ring kernels on mesh2 / mesh4 (spied), distinct
+    partials [T rows, 128] per rank, f32 and bf16: bit-equal in the ring
+    order, bidir at rows 8 and 5 (unequal halves) and 1 (the ring), and so
+    is a fold in ``ring_fold_order``'s order, the table the kernel takes;
+    the XLA method within 1e-6 (rank order against XLA's sum)."""
     from triton_dist_tpu_torch.kernels import reduce_scatter as trs
 
-    meth, rows = RS_CASES[name]
+    meth, rows, T, dt = RS_CASES[name]
+    mesh = request.getfixturevalue(f"mesh{T}")
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
     traced = []
     kname = "_bidir_ring_rs_kernel" if meth == "RING_BIDIR" and rows >= 2 \
         else "_ring_rs_kernel"
@@ -2319,24 +2366,47 @@ def test_reduce_scatter_plain_matches_pallas(name, mesh4, monkeypatch):
         return kernel(*a, **kw)
 
     monkeypatch.setattr(jrs, kname, spy)
-    parts = _inputs(320 + rows, (4, 4 * rows, 128))[0]
+    parts = _inputs(320 + rows, (T, T * rows, 128))[0]
+    jparts = jnp.asarray(parts)
+    if dt == "bf16":
+        jparts = jparts.astype(jnp.bfloat16)
     jmeth = getattr(jrs.ReduceScatterMethod, meth)
     want = _shard_map(lambda p: jrs.reduce_scatter_shard(
-        p[0], "tp", method=jmeth, interpret=True), mesh4,
+        p[0], "tp", method=jmeth, interpret=True), mesh,
         (jax.sharding.PartitionSpec("tp"),), jax.sharding.PartitionSpec("tp"),
-        jnp.asarray(parts))
-    assert meth == "XLA" or (traced and set(traced) == {4})
+        jparts)
+    want = np.asarray(want, dtype=np.float32)
+    assert meth == "XLA" or (traced and set(traced) == {T})
     n0 = trs.reduce_scatter_shard.launches
-    got = trs.reduce_scatter_shard(_t(parts), _tmesh((4,), ("tp",)), "tp",
-                                   getattr(trs.ReduceScatterMethod, meth))
+    got = trs.reduce_scatter_shard(_t(parts).to(tdt), _tmesh((T,), ("tp",)),
+                                   "tp", getattr(trs.ReduceScatterMethod,
+                                                 meth))
     assert trs.reduce_scatter_shard.launches == n0
-    assert got.shape == (4, rows, 128)
+    assert got.shape == (T, rows, 128) and got.dtype == tdt
     if meth == "XLA":
-        assert_allclose(got.reshape(-1, 128), np.asarray(want), atol=1e-6,
-                        rtol=1e-6)
+        assert_allclose(got.reshape(-1, 128), want, atol=1e-6, rtol=1e-6)
     else:
-        assert np.array_equal(got.reshape(-1, 128).numpy(),
-                              np.asarray(want))
+        assert np.array_equal(got.float().reshape(-1, 128).numpy(), want)
+        folded = _ring_fold(parts.reshape(T, T, rows, 128), T, rows,
+                            meth == "RING_BIDIR" and rows >= 2, tdt)
+        assert np.array_equal(folded.float().reshape(-1, 128).numpy(), want)
+
+
+def test_ring_fold_order_and_table():
+    """``ring_fold_order`` is the reference's ring order (rank c + d
+    first, c last) and ``fold_table`` lays it out [8][2][8] for the
+    kernel, zeros past T; more than 8 ranks are refused."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as trs
+
+    assert trs.ring_fold_order(4, 1, 1) == [2, 3, 0, 1]
+    assert trs.ring_fold_order(4, 1, -1) == [0, 3, 2, 1]
+    assert trs.ring_fold_order(2, 0, 1) == trs.ring_fold_order(2, 0, -1)
+    table = np.array(trs.fold_table(3)).reshape(8, 2, 8)
+    assert table[2, 0, :3].tolist() == [0, 1, 2]
+    assert table[2, 1, :3].tolist() == [1, 0, 2]
+    assert not table[3:].any() and not table[:, :, 3:].any()
+    with pytest.raises(ValueError, match="ranks"):
+        trs.fold_table(9)
 
 
 def test_reduce_scatter_host_entry_matches_reference(mesh4):

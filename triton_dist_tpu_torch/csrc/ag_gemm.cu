@@ -528,17 +528,6 @@ bool bad_shape(int world, int m_loc, int crow) {
          m_loc % crow;
 }
 
-// The byte stride between consecutive ranks of a pointer table: the
-// rank-stacked tensor's outermost stride (`whole` at world 1, where it is
-// never stepped), or -1 when the ranks are not equally spaced or the
-// stride is not a positive multiple of 16 (TMA's rule).
-long long rank_stride(const long long* t, int world, long long whole) {
-  const long long s = world > 1 ? t[1] - t[0] : (whole + 15) / 16 * 16;
-  for (int r = 2; r < world; ++r)
-    if (t[r] - t[r - 1] != s) return -1;
-  return s > 0 && s % 16 == 0 ? s : -1;
-}
-
 // Launch the warp-specialised uni kernel: the three tensor maps over the
 // rank-stacked a, gathered A and b (see ag_gemm_wg_kernel), then the
 // cooperative grid.  crow: a 128-row tile waits on at most 32 chunks.
@@ -555,9 +544,10 @@ int launch_wg(const long long* a, const long long* b, const long long* ag,
       (m_loc / crow > 32 && (BM - 2 + crow) / crow + 1 > 32))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr long long E = sizeof(T);
-  const long long a_rs = rank_stride(a, world, E * m_loc * k);
-  const long long ag_rs = rank_stride(ag, world, E * world * m_loc * k);
-  const long long b_rs = rank_stride(b, world, E * k * n);
+  const long long a_rs = tdt_dist::rank_stride(a, world, E * m_loc * k);
+  const long long ag_rs =
+      tdt_dist::rank_stride(ag, world, E * world * m_loc * k);
+  const long long b_rs = tdt_dist::rank_stride(b, world, E * k * n);
   if (a_rs < 0 || ag_rs < 0 || b_rs < 0 || a_rs % E || ag_rs % E || b_rs % E)
     return static_cast<int>(cudaErrorInvalidValue);
   WgParams<I8, B_NK> p;

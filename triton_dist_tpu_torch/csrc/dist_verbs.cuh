@@ -390,6 +390,19 @@ Peers<T> peers(const long long* ptrs, int world) {
   return out;
 }
 
+// Host side.  The byte stride between consecutive ranks of a pointer
+// table: the rank-stacked tensor's outermost stride (`whole` at world 1,
+// where it is never stepped), or -1 when the ranks are not equally spaced
+// or the stride is not a positive multiple of 16 (TMA's rule: a tensor map
+// spans the ranks).
+inline long long rank_stride(const long long* t, int world,
+                             long long whole) {
+  const long long s = world > 1 ? t[1] - t[0] : (whole + 15) / 16 * 16;
+  for (int r = 2; r < world; ++r)
+    if (t[r] - t[r - 1] != s) return -1;
+  return s > 0 && s % 16 == 0 ? s : -1;
+}
+
 // A cooperative launch of `kernel(p)` for `n_ranks` ranks: as many blocks
 // as can be resident at once (the occupancy calculator), the same number
 // for each rank, at most one per item, as a grid [blocks per rank][ranks]

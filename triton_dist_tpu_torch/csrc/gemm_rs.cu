@@ -9,38 +9,70 @@
 // read in place), rank r gets C_r = sum over ranks q of A_q[rows of chunk
 // r] @ B_q, [m_loc, N] bf16.
 //
-// Rounding: each rank's partial is staged in bf16, as the reference stages
-// its partials in the output dtype (:764-772); the W partials of a tile are
-// summed in f32 in the fixed order q = 0 .. W-1 and rounded once.  The
-// reference instead adds in bf16 at every ring step (`_add_body`, :100),
-// rounding W - 1 times in a rank-dependent order; this kernel's sum is the
-// same on every run and closer to the exact one.
+// Rounding: each rank's partial is rounded to bf16, as the reference
+// stages its partials in the output dtype (:764-772); the W partials of a
+// tile are summed in f32 in the fixed order q = 0 .. W-1 and rounded once.
+// The reference instead adds in bf16 at every ring step (`_add_body`,
+// :100), rounding W - 1 times in a rank-dependent order; this kernel's sum
+// is the same on every run and closer to the exact one.
 //
-// Schedule: full mesh.  Rank q computes the partial of chunk c for every
-// chunk, in the reference's order (c = q - 1, q - 2, ..., its own chunk
-// last), and its epilogue stores each 128 x 128 partial tile straight into
-// slot q of rank c's staging buffer (a push: on NVLink a remote store) and
-// signals a flag per (slot, tile) there.  Then each rank reduces its own
-// chunk tile by tile, waiting on the W flags of the tile.  On one card (the
-// virtual world) the pushes are device-memory stores, not NVLink traffic.
+// What bounds it on an H100: operations.  Llama-3-8B's down projection at
+// TP 4 (M 2048, k 3584, N 4096) is 240.5 GFLOP over the four ranks, 0.2432
+// ms at the 989 TFLOP/s bf16 peak, against 192 MB of operands and output
+// (0.057 ms at 3.35 TB/s).  The staging adds each chunk's G bf16
+// partials, written and read once: 16 MB a rank at down.
 //
-// What bounds it on an H100: Llama-3-8B's down projection at TP 4 (M 2048,
-// k 3584, N 4096) is 240.5 GFLOP over the four ranks, 0.243 ms at the 989
-// TFLOP/s bf16 peak, against 192 MB of operands and output: operations
-// bound it.  The staging adds 4 x 16 MB of partials written and read.
+// The uni kernel (tdt_gemm_rs; tdt_gemm_rs_group with torus = 0, the same
+// kernel over one axis of a larger mesh: `gemm_rs_wg_kernel`), on the
+// warp-specialised mainloop of sm90_gemm.cuh: one cooperative launch, one
+// block of 384 threads an SM, the blocks split evenly among the ranks (a
+// spin-wait is safe only when every block is resident), every block past
+// barrier_all (the reference's neighbour barrier, :144-149) on entry.
+// - Schedule: the reference's chunk order.  Rank q computes its partial of
+//   chunk q - 1, q - 2, ..., its own chunk last; its blocks walk that list
+//   in strides, a chunk's 128 x 256 tiles column band by column band (the
+//   blocks that run together share B's columns; against row tiles
+//   outermost, down 0.3931 against 0.4945 ms, PERF.md row 15).
+// - Mainloop: producer warp 0's lane 0 issues the TMA loads of A (the
+//   rank's rows of chunk oj, through a map over the rank-stacked a [W,
+//   W m_loc, k]) and B ([k][N], the MN-major operand, or [N][k] with
+//   b_nk, both read in place) into a 4-stage ring; two consumer
+//   warpgroups run `wgmma m64n256k16` on rows 0-63 and 64-127;
+//   setmaxnreg moves registers from the producer (40) to them (232).  A
+//   chunk's last row tile may load the next chunk's rows (zeros past the
+//   operand's end): the stores and the fold drop them, so no partial
+//   reaches into the next chunk (any m_loc >= 1).
+// - Every chunk, the owner's own too: the consumers round the accumulator
+//   to bf16 and store it from registers into slot jm of the owner's
+//   staging buffer, in the accumulator's fragment order (thread t's
+//   16-byte vector v of consumer cw at uint4 (16 cw + v) x 128 + t of the
+//   tile: every store and every load of a warp is 512 contiguous bytes)
+//   and arrive on an mbarrier; producer warp 1, idle otherwise, waits on
+//   it and raises the flag of that (slot, 128 x 256 tile): a system fence
+//   and a release store.  Against one consumer thread raising it after a
+//   named barrier of the two warpgroups, whose fence held its warpgroup
+//   off the next product: wo 0.1605 against 0.1858 ms, down 0.3790
+//   against 0.3982 (PERF.md row 15).
+// - The fold: after its GEMM tiles, each rank walks its own chunk's tiles
+//   as separate items; a consumer warpgroup waits on the G flags of a
+//   tile, loads the G staged vectors of each of its 16 before adding them
+//   in f32 in index order, and writes C once.  The A/B against the fold in
+//   the epilogue of the owner's own tiles (its accumulator rounded and
+//   added in registers, no own staging; PERF.md row 15, NVIDIA H100 80GB
+//   HBM3, 700 W) read the same times within 2% at every shape (down
+//   0.3907 against 0.3931 ms), and the epilogue fold spilled 500 bytes a
+//   thread (its packed accumulator beside the loads at the kernel's 168
+//   registers, which setmaxnreg does not raise for ptxas): the separate
+//   items won, spill-free and one code path.  A fold through shared
+//   memory has no room: the ring takes 193 KB of the 227, a staged 128 x
+//   256 tile 64 KB.
+// On one card (the virtual world) the staging stores are device-memory
+// stores, not NVLink traffic.
 //
-// Row tails: m_loc is any positive count.  A chunk's tiles are indexed by
-// (row tile, column tile), ceil(m_loc / 128) row tiles per chunk, the last
-// masked to the rows it holds (loads past them zero-filled, stores and the
-// reduction past them skipped), so a partial tile never reaches into the
-// next chunk's rows.
-//
-// Design (right and simple first): one cooperative launch of a persistent
-// grid per call, as ag_gemm.cu: every block resident, split evenly among
-// the world's ranks, each rank's blocks walking its items in strides: the
-// GEMM tiles first, then the reduction tiles (which wait only on GEMM
-// tiles), after barrier_all on entry (the reference's neighbour barrier,
-// :144-149).
+// The tile loop of bf16_tile.cuh (128 x 128 tiles, mma.sync, two blocks
+// an SM) keeps the bidirectional ring and the torus order (see
+// tdt_gemm_rs_group), i8_tile.cuh the int8 mode; no model path launches
+// them.
 //
 // The int8 mode (tdt_gemm_rs_i8, the reference's `quantized` path
 // :700-702): int8 A and B, exact int32 partials on the int8 tile loop of
@@ -62,12 +94,18 @@
 // credit semaphores (no slot is reused within a call), and each direction
 // has its own slots and flags.  Given the same
 // partials, the sums are bit for bit the reference's.
+//
+// The SASS (`chip_smoke.py`'s build phase and `-Xptxas -v`, NVIDIA H100
+// 80GB HBM3, 700 W): 4 HGMMA in each of gemm_rs_wg_kernel's four
+// instances (B [k][N] or [N][k], FLAT or GROUP), 168 registers at launch
+// (setmaxnreg 40 / 232 at run time), 0 spills.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_tile.cuh"
 #include "dist_verbs.cuh"
 #include "i8_tile.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -86,15 +124,218 @@ using tdt_dist::peers;
 constexpr int SMEM = Tiles<true>::SMEM > Tiles<false>::SMEM
                          ? Tiles<true>::SMEM : Tiles<false>::SMEM;
 
+// ------------------------------------------------ the uni kernel (wgmma)
+
+enum Mode { FLAT = 0, GROUP = 1 };
+
+constexpr int WBM = tdt_gemm90::BM, WBN = tdt_gemm90::BN;
+constexpr int TILE_U4 = WBM * WBN / 8;  // 16-byte vectors of a staged tile
+
+struct WgParams {
+  CUtensorMap amap;       // a {k, G m_loc, W}
+  CUtensorMap bmap;       // b {N, k, W}, or {k, N, W} (B_NK)
+  Peers<uint4> stage;     // rank r's [G slots][tiles][TILE_U4]: rank q's
+                          // partial tiles in slot q, fragment order
+  Peers<bf16> out;        // rank r's C [m_loc][N]
+  Peers<unsigned> flags;  // rank r's [G slots][tiles]
+  Peers<unsigned> bar;    // rank r's [W] barrier slots
+  Group grp;              // GROUP: the ranks that reduce (slot = index)
+  int world, m_loc, n, k, tiles_m, tiles_n;
+  unsigned epoch;
+};
+
+// Item t of rank `me`'s list (index jm of G): its partial of chunk oj,
+// tile (i, j); the chunks jm - 1, jm - 2, ..., jm, each tiles_m x tiles_n
+// tiles column band by column band.
+struct WgItem {
+  int oj, i, j;
+};
+
+__device__ __forceinline__ WgItem wg_item(const WgParams& p, int t, int jm,
+                                          int G) {
+  const int per = p.tiles_m * p.tiles_n;
+  const int s = t / per, r = t - s * per;
+  WgItem x;
+  x.oj = (jm + 2 * G - 1 - s) % G;
+  x.j = r / p.tiles_m;
+  x.i = r - x.j * p.tiles_m;
+  return x;
+}
+
+// A consumer's half of a tile, rounded to bf16, in fragment order at
+// `tile` (the header).
+__device__ __forceinline__ void stage_tile(const float (&acc)[128],
+                                           uint4* tile, int cw) {
+  uint4* dst = tile + cw * (TILE_U4 / 2) + (threadIdx.x & 127);
+#pragma unroll
+  for (int v = 0; v < 16; ++v)
+    dst[v * 128] = make_uint4(pack_bf16(acc[8 * v], acc[8 * v + 1]),
+                              pack_bf16(acc[8 * v + 2], acc[8 * v + 3]),
+                              pack_bf16(acc[8 * v + 4], acc[8 * v + 5]),
+                              pack_bf16(acc[8 * v + 6], acc[8 * v + 7]));
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// The G staged partials of a consumer's half of a tile (slot q at
+// `slot0` + q x slot_u4 vectors) summed in f32 in index order q = 0 .. G -
+// 1 and written to C at c (the tile's row 0, row stride ldc; rows >=
+// `rows` and columns >= n dropped).  A 16-byte vector v of the fragment
+// order is the pairs of column tiles j = 2 v, 2 v + 1, rows r and r + 8.
+// Every load of a vector is issued before its adds.
+__device__ __forceinline__ void fold_store(const uint4* slot0,
+                                           long long slot_u4, int G, int cw,
+                                           bf16* c, long long ldc, int rows,
+                                           int n, int col0) {
+  const int wt = threadIdx.x & 127, warp = wt >> 5, lane = wt & 31;
+  const uint4* src = slot0 + cw * (TILE_U4 / 2) + wt;
+  const int r = 64 * cw + 16 * warp + (lane >> 2);
+  bf16* dst = c + r * ldc + col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int v = 0; v < 16; ++v) {
+    uint4 w[MAX_RANKS];
+#pragma unroll
+    for (int q = 0; q < MAX_RANKS; ++q)
+      if (q < G) w[q] = __ldcg(src + q * slot_u4 + v * 128);
+    float s[8];
+#pragma unroll
+    for (int q = 0; q < MAX_RANKS; ++q) {
+      if (q >= G) break;
+      const float x[8] = {bf16_lo(w[q].x), bf16_hi(w[q].x),
+                          bf16_lo(w[q].y), bf16_hi(w[q].y),
+                          bf16_lo(w[q].z), bf16_hi(w[q].z),
+                          bf16_lo(w[q].w), bf16_hi(w[q].w)};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s[e] = q == 0 ? x[e] : s[e] + x[e];
+    }
+    // s[4 h2 + 2 h + e]: column tile 2 v + h2, row r + 8 h, column + e
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int col = col0 + 8 * (2 * v + h2) + 2 * (lane & 3);
+      if (col >= n) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r + 8 * h < rows)
+          *reinterpret_cast<unsigned*>(dst + 8 * h * ldc + 8 * (2 * v + h2)) =
+              pack_bf16(s[4 * h2 + 2 * h], s[4 * h2 + 2 * h + 1]);
+    }
+  }
+}
+
+// MODE FLAT: the whole world reduces, in rank order (tdt_gemm_rs); GROUP:
+// the ranks of `p.grp`, in index order (tdt_gemm_rs_group, torus = 0).
+template <bool B_NK, int MODE>
+__global__ void __launch_bounds__(tdt_gemm90::NT, 1)
+gemm_rs_wg_kernel(const __grid_constant__ WgParams p) {
+  using C = tdt_gemm90::Cfg<false, B_NK>;
+  extern __shared__ __align__(128) char wg_smem[];
+  auto& sm = tdt_gemm90::smem_of<C>(wg_smem);
+  // staged tile n's stores done (the 256 consumer threads arrive), and
+  // its flag raised (the signal warp arrives); two of each in turn
+  __shared__ __align__(8) uint64_t staged[2], raised[2];
+  const int me = blockIdx.y;
+  const int G = MODE == FLAT ? p.world : p.grp.G;
+  const int jm = MODE == FLAT ? me : tdt_dist::group_index(p.grp, me);
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < 2; ++q) {
+      tdt_sm90::mbar_init(&staged[q], 256);
+      tdt_sm90::mbar_init(&raised[q], 1);
+    }
+    tdt_gemm90::init_barriers(sm);  // fences the inits
+  }
+  if (MODE == FLAT)  // both sync the block too
+    tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
+  else
+    tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
+
+  const int per = p.tiles_m * p.tiles_n;
+  const int n_gemm = G * per;
+  const int n_kt = (p.k + C::BK - 1) / C::BK;
+  if (threadIdx.x < 128) {
+    tdt_sm90::regs_dealloc<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      tdt_sm90::Ring<C::NS> ring;
+      for (int t = blockIdx.x; t < n_gemm; t += gridDim.x) {
+        const WgItem x = wg_item(p, t, jm, G);
+        const int row0 = x.oj * p.m_loc + x.i * WBM;
+        for (int kt = 0; kt < n_kt; ++kt)
+          tdt_gemm90::produce_k_tile<false, B_NK>(
+              sm, ring, &p.bmap, x.j * WBN, kt, me,
+              [&](void* dst, uint64_t* bar, int k0) {
+                tdt_sm90::tma_load_3d(dst, &p.amap, bar, k0, row0, me);
+              });
+      }
+    } else if (threadIdx.x == 32) {
+      // the signal warp: the flags of this block's staged tiles, in the
+      // consumers' order
+      int n = 0;
+      for (int t = blockIdx.x; t < n_gemm; t += gridDim.x, ++n) {
+        const WgItem x = wg_item(p, t, jm, G);
+        const int owner =
+            MODE == FLAT ? x.oj : tdt_dist::group_rank(p.grp, me, x.oj);
+        tdt_sm90::mbar_wait(&staged[n & 1], (n >> 1) & 1);
+        __threadfence_system();
+        tdt_dist::st_release(p.flags.p[owner] + static_cast<long long>(jm) *
+                                 per + x.i * p.tiles_n + x.j,
+                             p.epoch);
+        tdt_sm90::mbar_arrive(&raised[n & 1]);
+      }
+    }
+    return;
+  }
+  tdt_sm90::regs_alloc<C::CONSUMER_REGS>();
+  const int cw = threadIdx.x / 128 - 1, wt = threadIdx.x & 127;
+  tdt_sm90::Ring<C::NS> ring;
+  tdt_sm90::Ring<C::NTS> tring;
+  int n = 0;  // this block's staged tiles so far
+  for (int t = blockIdx.x; t < n_gemm + per; t += gridDim.x) {
+    if (t < n_gemm) {
+      // my partial of chunk oj into slot jm of its owner's staging; the
+      // signal warp raises the flag of that (slot, tile)
+      const WgItem x = wg_item(p, t, jm, G);
+      float acc[C::NACC];
+      tdt_gemm90::mma_tile<false, B_NK>(acc, sm, ring, tring, n_kt, cw);
+      const int owner =
+          MODE == FLAT ? x.oj : tdt_dist::group_rank(p.grp, me, x.oj);
+      const long long f = static_cast<long long>(jm) * per +
+                          x.i * p.tiles_n + x.j;
+      stage_tile(acc, p.stage.p[owner] + f * TILE_U4, cw);
+      // staged[n & 1] is free once the signal warp has raised tile n - 2
+      if (n >= 2) tdt_sm90::mbar_wait(&raised[n & 1], ((n >> 1) - 1) & 1);
+      tdt_sm90::mbar_arrive(&staged[n & 1]);
+      ++n;
+      continue;
+    }
+    // my chunk's tile: the G staged partials folded into C
+    const int tile = t - n_gemm, i = tile / p.tiles_n;
+    const int j = tile - i * p.tiles_n;
+    if (wt < G) tdt_dist::spin_until(p.flags.p[me] + wt * per + tile,
+                                     p.epoch);
+    tdt_sm90::named_sync(1 + cw, 128);
+    fold_store(p.stage.p[me] + static_cast<long long>(tile) * TILE_U4,
+               static_cast<long long>(per) * TILE_U4, G, cw,
+               p.out.p[me] + static_cast<long long>(i) * WBM * p.n, p.n,
+               min(WBM, p.m_loc - i * WBM), p.n, j * WBN);
+  }
+}
+
+// ------------------------------------------ the tile loop's torus order
+
 struct Params {
-  Peers<const bf16> a;     // rank r's A [W m_loc][k]
+  Peers<const bf16> a;     // rank r's A [G m_loc][k]
   Peers<const bf16> b;     // rank r's weight [k][N], or [N][k] (B_NK)
-  Peers<bf16> stage;       // rank r's [W slots][m_loc][N]: rank q writes q
+  Peers<bf16> stage;       // rank r's [G slots][m_loc][N]: rank q writes q
   Peers<bf16> out;         // rank r's C [m_loc][N]
-  Peers<unsigned> flags;   // rank r's [W slots][tiles of m_loc x N]
+  Peers<unsigned> flags;   // rank r's [G slots][tiles of m_loc x N]
   Peers<unsigned> bar;     // rank r's [W] barrier slots
-  Group grp;               // uni, torus: the ranks that reduce (slot = index)
-  int part_end[6];         // torus: column part q ends at tile part_end[q]
+  Group grp;               // the joint group (slot = joint index)
+  int part_end[6];         // column part q ends at tile part_end[q]
   int world, m_loc, n, k;
   unsigned epoch;
 };
@@ -106,34 +347,27 @@ struct AddBf16 {
   }
 };
 
-// two blocks per SM: 128 registers, no spills (ptxas), 10-30% faster
-// than the one block that 167-213 registers allow (PERF.md)
-// Who reduces: FLAT, the whole world in rank order (tdt_gemm_rs); GROUP,
-// the ranks of `p.grp` in index order (the uni kernel over one axis of a
-// larger mesh); TORUS, the joint group, its partials folded in the
-// reference's torus order (see tdt_gemm_rs_group).
-enum Mode { FLAT = 0, GROUP = 1, TORUS = 2 };
-
-// Rank `me`, of index jm in its group of G (FLAT: me of W), computes its
-// partial of every chunk and stages it in slot jm of the chunk owner's
-// stage.  Off the flat world, jm lives in shared memory and is read again
-// after each tile's product, so no group state is held in registers
-// across the product (its two blocks per SM leave none to spare).
-template <bool B_NK, int MODE>
+// The torus GEMM-RS on the tile loop (see tdt_gemm_rs_group).  Two blocks
+// per SM: 128 registers, no spills (ptxas), 10-30% faster than the one
+// block that 167-213 registers allow (PERF.md), so no group state is held
+// in registers across a tile's product: rank me's index jm in its joint
+// group lives in shared memory and is read again after each product.
+// Rank me computes its partial of every chunk and stages it in slot jm of
+// the chunk owner's stage; then the owner folds its G staged partials of
+// each tile in the reference's torus order.
+template <bool B_NK>
 __global__ void __launch_bounds__(NT, 2)
-gemm_rs_kernel(const __grid_constant__ Params p) {
+gemm_rs_torus_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) char smem_raw[];
   __shared__ FoldPlan plans[6];
   __shared__ int s_jm;
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int me = blockIdx.y, lb = blockIdx.x;
-  const int G = MODE == FLAT ? p.world : p.grp.G;
-  if (MODE == FLAT) {
-    tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
-  } else {
+  const int G = p.grp.G;
+  {
     const int jm = tdt_dist::group_index(p.grp, me);
     if (threadIdx.x == 0) s_jm = jm;
-    if (MODE == TORUS && threadIdx.x < 2 * p.grp.n)
+    if (threadIdx.x < 2 * p.grp.n)
       plans[threadIdx.x] = tdt_dist::fold_plan(p.grp, jm, threadIdx.x);
     tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
   }
@@ -147,19 +381,16 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
       // partial of chunk `oj`, tile (i, j), into my slot of its stage
       const int t = it % per, i = t / tiles_n, j = t % tiles_n;
       const int rows = min(BM, p.m_loc - i * BM);
-      const int oj = ((MODE == FLAT ? me : s_jm) + 2 * G - 1 - it / per) % G;
+      const int oj = (s_jm + 2 * G - 1 - it / per) % G;
       float acc[4][4][4];
       tdt_bf16::mma_tile<B_NK, true>(
           acc, smem,
           p.a.p[me] + (static_cast<long long>(oj) * p.m_loc + i * BM) *
                           p.k,
           p.k, p.b.p[me], B_NK ? p.k : p.n, rows, p.n, p.k, 0, j * BN);
-      const int jm = MODE == FLAT ? me : s_jm;
-      const int owner =
-          MODE == FLAT
-              ? (me + 2 * G - 1 - it / per) % G
-              : tdt_dist::group_rank(p.grp, me,
-                                     (jm + 2 * G - 1 - it / per) % G);
+      const int jm = s_jm;
+      const int owner = tdt_dist::group_rank(p.grp, me,
+                                             (jm + 2 * G - 1 - it / per) % G);
       tdt_bf16::store_tile(
           acc, p.stage.p[owner] + jm * slot + static_cast<long long>(i) *
                                                   BM * p.n,
@@ -167,61 +398,43 @@ gemm_rs_kernel(const __grid_constant__ Params p) {
       tdt_dist::signal(p.flags.p[owner] + jm * per + t, p.epoch);
       continue;
     }
-    // my chunk's tile (i, j): the G partials summed
+    // my chunk's tile (i, j): the G partials folded
     const int t = it - n_gemm, i = t / tiles_n, j = t % tiles_n;
     const int rows = min(BM, p.m_loc - i * BM);
     tdt_dist::wait(p.flags.p[me] + t, p.epoch, G, per);
     const bf16* st = p.stage.p[me];
     bf16* out = p.out.p[me];
-    FoldPlan f{0u, 0u, 0u};
-    if constexpr (MODE == TORUS) {
-      int q = 0;
-      while (j >= p.part_end[q]) ++q;
-      f = plans[q];
-    }
+    int q = 0;
+    while (j >= p.part_end[q]) ++q;
+    const FoldPlan f = plans[q];
     for (int v = threadIdx.x; v < rows * (BN / 8); v += NT) {
       const int row = i * BM + v / (BN / 8);
       const int col = j * BN + (v % (BN / 8)) * 8;
       if (col >= p.n) continue;
       const long long off = static_cast<long long>(row) * p.n + col;
-      if constexpr (MODE == TORUS) {
-        // in the plan's order, each add rounded to bf16 (`_add_body`),
-        // one source at a time (its two blocks per SM leave no registers
-        // for all G at once)
-        float acc[8][3] = {};
+      // in the plan's order, each add rounded to bf16 (`_add_body`), one
+      // source at a time (its two blocks per SM leave no registers for
+      // all G at once)
+      float acc[8][3] = {};
 #pragma unroll
-        for (int k = 0; k < MAX_RANKS; ++k) {
-          if (k < G) {
-            const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(
-                st + tdt_dist::plan_src(f, k) * slot + off));
-            const bf16* x = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-              tdt_dist::fold_step(f, k, __bfloat162float(x[e]), acc[e],
-                                  AddBf16());
-          }
-        }
-        unsigned w[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          w[e] = pack_bf16(tdt_dist::fold_result(acc[2 * e], p.grp.n),
-                           tdt_dist::fold_result(acc[2 * e + 1], p.grp.n));
-        *reinterpret_cast<uint4*>(out + off) =
-            make_uint4(w[0], w[1], w[2], w[3]);
-      } else {
-        // in f32 in index order, rounded once
-        float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < G; ++k) {
+      for (int k = 0; k < MAX_RANKS; ++k) {
+        if (k < G) {
           const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(
-              st + k * slot + off));
+              st + tdt_dist::plan_src(f, k) * slot + off));
           const bf16* x = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) sum[e] += __bfloat162float(x[e]);
+          for (int e = 0; e < 8; ++e)
+            tdt_dist::fold_step(f, k, __bfloat162float(x[e]), acc[e],
+                                AddBf16());
         }
-        *reinterpret_cast<uint4*>(out + off) =
-            make_uint4(pack_bf16(sum[0], sum[1]), pack_bf16(sum[2], sum[3]),
-                       pack_bf16(sum[4], sum[5]), pack_bf16(sum[6], sum[7]));
       }
+      unsigned w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = pack_bf16(tdt_dist::fold_result(acc[2 * e], p.grp.n),
+                         tdt_dist::fold_result(acc[2 * e + 1], p.grp.n));
+      *reinterpret_cast<uint4*>(out + off) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
@@ -291,7 +504,8 @@ struct ParamsI8 {
   unsigned epoch;
 };
 
-// The int8 mode: as gemm_rs_kernel on 64 x 128 int32 tiles, the partials
+// The int8 mode: every rank's partial of every chunk staged in the owner's
+// slot, then the owner's sum, on 64 x 128 int32 tiles, the partials
 // staged in int32 and summed exactly (so in any order: the torus order's
 // sums are these); FLAT: the whole world, else the group `p.grp`.
 template <bool FLAT>
@@ -380,13 +594,76 @@ Params make_params(const long long* a, const long long* b,
   return p;
 }
 
+// Launch the uni kernel over the group `g` (FLAT: the flat world): the
+// tensor maps over the rank-stacked a [W][G m_loc][k] and b, then the
+// cooperative grid.  The ranks of each table must be equally spaced (a
+// map spans them).
+template <bool B_NK, int MODE>
+int launch_wg(const long long* a, const long long* b, const long long* stage,
+              const long long* out, const long long* flags,
+              const long long* bar, const Group& g, int world, int m_loc,
+              int n, int k, unsigned epoch, void* stream) {
+  using C = tdt_gemm90::Cfg<false, B_NK>;
+  const long long a_rs = tdt_dist::rank_stride(a, world, 2LL * g.G * m_loc *
+                                                             k);
+  const long long b_rs = tdt_dist::rank_stride(b, world, 2LL * k * n);
+  if (a_rs < 0 || b_rs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the device's context current on this thread before the encodes (an
+  // autograd worker thread may have none yet: tdt_gemm90::launch_gemm)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaSetDevice(dev);
+  WgParams p;
+  p.stage = peers<uint4>(stage, world);
+  p.out = peers<bf16>(out, world);
+  p.flags = peers<unsigned>(flags, world);
+  p.bar = peers<unsigned>(bar, world);
+  p.grp = g;
+  p.world = world;
+  p.m_loc = m_loc;
+  p.n = n;
+  p.k = k;
+  p.tiles_m = (m_loc + WBM - 1) / WBM;
+  p.tiles_n = (n + WBN - 1) / WBN;
+  p.epoch = epoch;
+  const auto dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const void* a0 = reinterpret_cast<const void*>(a[0]);
+  const void* b0 = reinterpret_cast<const void*>(b[0]);
+  const long long ad[3] = {k, static_cast<long long>(g.G) * m_loc, world};
+  const long long as[3] = {1, k, a_rs / 2};
+  const int abox[3] = {C::BK, WBM, 1};
+  int err = tdt_sm90::make_map_t(&p.amap, dt, 2, sw, a0, 3, ad, as, abox);
+  if (!err) {
+    if (B_NK) {  // b [W][N][k]: K-major boxes of 256 rows
+      const long long bd[3] = {k, n, world}, bs[3] = {1, k, b_rs / 2};
+      const int bbox[3] = {C::BK, WBN, 1};
+      err = tdt_sm90::make_map_t(&p.bmap, dt, 2, sw, b0, 3, bd, bs, bbox);
+    } else {     // b [W][k][N]: 64-column boxes
+      const long long bd[3] = {n, k, world}, bs[3] = {1, n, b_rs / 2};
+      const int bbox[3] = {64, C::BK, 1};
+      err = tdt_sm90::make_map_t(&p.bmap, dt, 2, sw, b0, 3, bd, bs, bbox);
+    }
+  }
+  if (err) return err;
+  const int per = p.tiles_m * p.tiles_n;
+  const int items = (g.G + 1) * per;
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(gemm_rs_wg_kernel<B_NK, MODE>, p,
+                               tdt_gemm90::NT,
+                               tdt_gemm90::smem_bytes<C>(), world, items,
+                               attr, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // One call for every rank of a world of `world` (<= 8): each pointer table
-// holds `world` device addresses.  bf16 throughout; m_loc >= 1, k % 8 ==
-// 0 and n % 8 == 0, every row 16-byte aligned (the wrapper checks); flags:
-// W * ceil(m_loc / 128) * ceil(n / 128) per rank; epoch: this call's, from
-// the workspace.
+// holds `world` device addresses of one rank-stacked tensor (equally
+// spaced: the kernel's tensor maps span them).  bf16 throughout; m_loc >=
+// 1, k % 8 == 0 and n % 8 == 0, every base 16-byte aligned (the wrapper
+// checks); stage: W * tiles * 128 * 256 elements per rank and flags: W *
+// tiles per rank, tiles = ceil(m_loc / 128) * ceil(n / 256); epoch: this
+// call's, from the workspace.
 extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
                            const long long* stage, const long long* out,
                            const long long* flags, const long long* bar,
@@ -394,16 +671,11 @@ extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
                            unsigned epoch, void* stream) {
   if (world < 1 || world > MAX_RANKS || m_loc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p = make_params(a, b, stage, out, flags, bar, world, m_loc, n, k,
-                         epoch);
-  const int per = (m_loc + BM - 1) / BM * ((n + BN - 1) / BN);
-  const int items = (world + 1) * per;
-  const auto s = static_cast<cudaStream_t>(stream);
-  static unsigned attr_kn = 0, attr_nk = 0;
-  return b_nk ? tdt_dist::launch_coop(gemm_rs_kernel<true, FLAT>, p, NT,
-                                      SMEM, world, items, attr_nk, s)
-              : tdt_dist::launch_coop(gemm_rs_kernel<false, FLAT>, p, NT,
-                                      SMEM, world, items, attr_kn, s);
+  const Group g = tdt_dist::flat_group(world);
+  return b_nk ? launch_wg<true, FLAT>(a, b, stage, out, flags, bar, g,
+                                      world, m_loc, n, k, epoch, stream)
+              : launch_wg<false, FLAT>(a, b, stage, out, flags, bar, g,
+                                       world, m_loc, n, k, epoch, stream);
 }
 
 // The bidirectional ring: bf16, b [k][N] (no transposed mode); world >= 2,
@@ -460,25 +732,27 @@ extern "C" int tdt_gemm_rs_i8(const long long* a, const long long* b,
 }
 
 // The torus GEMM-RS (the TPU `_torus_gemm_rs_kernel`, gemm_reduce_scatter.py
-// :326, launched from `_torus_gemm_rs_shard` :580) and the uni kernels over
-// one axis of a larger mesh: gemm_rs_kernel / gemm_rs_i8_kernel over the
-// joint group `group` ([n, size0..2, stride0..2]; dist_verbs.cuh `Group`)
-// instead of the flat world.  A's rows are the group's G chunks in joint
-// order (flat axes-major), and rank r of joint index j gets chunk j.
+// :326, launched from `_torus_gemm_rs_shard` :580) and the uni kernel over
+// one axis of a larger mesh: the kernels over the joint group `group` ([n,
+// size0..2, stride0..2]; dist_verbs.cuh `Group`) instead of the flat
+// world.  A's rows are the group's G chunks in joint order (flat
+// axes-major), and rank r of joint index j gets chunk j.
 //
-// torus = 1 (bf16, 2 or 3 axes; N % 128 == 0): the reference's torus
-// order.  It cuts the N columns into 2n parts in 128-column units
-// (`_split_parts(N // 128, 2n)`, :591-597), part q taking path flavor q;
-// phase 0 rings along the flavor's first axis with the GEMM as producer,
-// later phases ring the order-major sub-bands (:415-561), every hop adding
-// `acc = local + recv` in bf16 (`_add_body`).  NVLink joins every rank of
-// the group to every other, so the schedule is the uni kernel's (every
-// rank stages its bf16 partial of every chunk in the owner's slot, the
-// owner reduces), and the owner folds its G staged partials of a tile in
-// that order and rounding (dist_verbs.cuh `fold_plan`): given the same
-// partials, the sums are bit for bit the reference's.  part_end: the 2n
-// parts' ends in 128-column tiles (the last = N / 128).
-// torus = 0: the uni kernel's f32 sum in index order (part_end unused).
+// torus = 1 (bf16, 2 or 3 axes; N % 128 == 0): gemm_rs_torus_kernel, the
+// reference's torus order.  It cuts the N columns into 2n parts in
+// 128-column units (`_split_parts(N // 128, 2n)`, :591-597), part q taking
+// path flavor q; phase 0 rings along the flavor's first axis with the GEMM
+// as producer, later phases ring the order-major sub-bands (:415-561),
+// every hop adding `acc = local + recv` in bf16 (`_add_body`).  NVLink
+// joins every rank of the group to every other, so every rank stages its
+// bf16 partial of every chunk in the owner's slot ([G][m_loc][N] a rank,
+// flags per 128 x 128 tile), and the owner folds its G staged partials of
+// a tile in that order and rounding (dist_verbs.cuh `fold_plan`): given
+// the same partials, the sums are bit for bit the reference's.  part_end:
+// the 2n parts' ends in 128-column tiles (the last = N / 128).
+// torus = 0: the uni kernel (gemm_rs_wg_kernel<., GROUP>), its f32 sum in
+// index order; stage and flags as tdt_gemm_rs's with G slots (part_end
+// unused).
 // The int8 mode (tdt_gemm_rs_group_i8): exact int32 partials and sums, so
 // the torus order's sums are these.
 extern "C" int tdt_gemm_rs_group(const long long* a, const long long* b,
@@ -494,24 +768,25 @@ extern "C" int tdt_gemm_rs_group(const long long* a, const long long* b,
       tdt_dist::bad_group(g, world) ||
       (torus && (g.n < 2 || n % BN || part_end[2 * g.n - 1] != n / BN)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!torus)
+    return b_nk ? launch_wg<true, GROUP>(a, b, stage, out, flags, bar, g,
+                                         world, m_loc, n, k, epoch, stream)
+                : launch_wg<false, GROUP>(a, b, stage, out, flags, bar, g,
+                                          world, m_loc, n, k, epoch,
+                                          stream);
   Params p = make_params(a, b, stage, out, flags, bar, world, m_loc, n, k,
                          epoch);
   p.grp = g;
   for (int q = 0; q < 6; ++q)
-    p.part_end[q] = torus && q < 2 * g.n ? part_end[q] : n / BN;
+    p.part_end[q] = q < 2 * g.n ? part_end[q] : n / BN;
   const int per = (m_loc + BM - 1) / BM * ((n + BN - 1) / BN);
   const int items = (g.G + 1) * per;
   const auto s = static_cast<cudaStream_t>(stream);
-  static unsigned attr[4] = {0, 0, 0, 0};
-  if (torus)
-    return b_nk ? tdt_dist::launch_coop(gemm_rs_kernel<true, TORUS>, p, NT,
-                                        SMEM, world, items, attr[0], s)
-                : tdt_dist::launch_coop(gemm_rs_kernel<false, TORUS>, p, NT,
-                                        SMEM, world, items, attr[1], s);
-  return b_nk ? tdt_dist::launch_coop(gemm_rs_kernel<true, GROUP>, p, NT,
-                                      SMEM, world, items, attr[2], s)
-              : tdt_dist::launch_coop(gemm_rs_kernel<false, GROUP>, p, NT,
-                                      SMEM, world, items, attr[3], s);
+  static unsigned attr[2] = {0, 0};
+  return b_nk ? tdt_dist::launch_coop(gemm_rs_torus_kernel<true>, p, NT,
+                                      SMEM, world, items, attr[0], s)
+              : tdt_dist::launch_coop(gemm_rs_torus_kernel<false>, p, NT,
+                                      SMEM, world, items, attr[1], s);
 }
 
 extern "C" int tdt_gemm_rs_group_i8(const long long* a, const long long* b,

@@ -43,7 +43,13 @@ counts it (``gemm_rs_shard.launches`` the uni bf16 kernel,
 does not take (the int8 bidir ring is not ported: int8 operands with
 ``ring_mode="bidir"`` raise on the card); on CPU tensors (or with
 ``plain``) the plain version.  Any ``m_loc >= 1`` is taken: the last row
-tile of each chunk is masked.
+tile of each chunk is masked.  The uni kernel runs on the wgmma / TMA
+mainloop of ``csrc/sm90_gemm.cuh`` (128 x 256 tiles, tensor maps over
+the rank-stacked operands, which must meet
+``allgather_gemm.ag_gemm_operand_ok`` or the wrapper raises); its staging
+holds each partial tile in the accumulator's fragment order, a flag per
+(slot, tile) (:func:`uni_tiles`), and each owner folds its chunk's G
+staged partials in items of its own after its GEMM tiles.
 
 **The torus schedule** (``_torus_gemm_rs_kernel`` :326, taken for a tuple
 ``axis`` with two or more axes of more than one rank, :679-689, whatever
@@ -88,6 +94,7 @@ from triton_dist_tpu_torch.kernels import _build, torus
 from triton_dist_tpu_torch.kernels.allgather import joint_axes, shard_over
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _check_impl,
+    _check_tma,
     check_kernel_operands,
     check_pallas_shape,
     check_operands,
@@ -100,6 +107,7 @@ from triton_dist_tpu_torch.runtime.bootstrap import Mesh, get_world
 
 TILE_M = 128     # csrc/bf16_tile.cuh BM: rows of one chunk tile
 TILE_M_I8 = 64   # csrc/i8_tile.cuh BM: the int8 mode's
+WG_TILE = (128, 256)   # csrc/sm90_gemm.cuh BM x BN: the uni kernel's tiles
 # pointer tables (a, b, stage, out, flags, barrier), then world, m_loc, n,
 # k [, b_nk], the epoch and the stream
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -118,6 +126,26 @@ def _m_loc(a, G=None):
         raise ValueError(f"gemm_rs: {a.shape[1]} rows do not split into {G} "
                          f"chunks")
     return a.shape[1] // G
+
+
+def uni_tiles(m_loc: int, n: int) -> int:
+    """The uni kernel's 128 x 256 tiles of one chunk [m_loc, n]: its flags
+    and staged tiles per slot (the last row tile masked to m_loc, the
+    last column tile to n)."""
+    return -(-m_loc // WG_TILE[0]) * -(-n // WG_TILE[1])
+
+
+def _uni(a, b, m_loc, n, trans_b, name, G, group=()):
+    """One launch of the uni kernel over G reducing ranks (``group``: the
+    group entry's arguments, the flat world without), its staging [G,
+    tiles, 128 x 256] and G x tiles flags a rank."""
+    a, b = a.contiguous(), b.contiguous()
+    _check_tma("gemm_rs", a, b)
+    tiles = uni_tiles(m_loc, n)
+    return _launch("tdt_gemm_rs_group" if group else "tdt_gemm_rs", a, b,
+                   m_loc, n, a.dtype, name,
+                   (G, tiles, WG_TILE[0] * WG_TILE[1]), G * tiles,
+                   int(trans_b), group=group)
 
 
 def gemm_rs_schedule(world: int, n: int, ring_mode: str = "uni",
@@ -239,9 +267,7 @@ def gemm_rs_shard(a, b, *, trans_b: bool = False, plain: bool = False,
                       2 * (world - 1) * tiles)
         gemm_rs_shard.mode_launches["bidir"] += 1
         return out
-    tiles = -(-m_loc // TILE_M) * -(-n // TILE_M)   # 128 x 128 tiles
-    out = _launch("tdt_gemm_rs", a, b, m_loc, n, a.dtype, "gemm_rs",
-                  (world, m_loc, n), world * tiles, int(trans_b))
+    out = _uni(a, b, m_loc, n, trans_b, "gemm_rs", world)
     gemm_rs_shard.launches += 1
     return out
 
@@ -383,12 +409,9 @@ def _compose(a, b, mesh, axes, trans_b, plain):
         w0 = mesh.joint_size(first)
         m0 = _m_loc(a, w0)
         check_kernel_operands("gemm_rs", a, b, m0, k, n)
-        tiles = -(-m0 // TILE_M) * -(-n // TILE_M)
-        part = _launch("tdt_gemm_rs_group", a, b, m0, n, a.dtype,
-                       "gemm_rs_group", (w0, m0, n), w0 * tiles,
-                       int(trans_b),
-                       group=((ctypes.c_int * 7)(*mesh.group_args(first)),
-                              (ctypes.c_int * 6)(), 0))
+        part = _uni(a, b, m0, n, trans_b, "gemm_rs_group", w0,
+                    group=((ctypes.c_int * 7)(*mesh.group_args(first)),
+                           (ctypes.c_int * 6)(), 0))
         gemm_rs_shard.launches += 1
     part = part.view(*mesh.shape, *part.shape[1:])
     for ax in axes[1:]:

@@ -38,14 +38,16 @@ port treats the card as the reference's chip, so ``AUTO`` picks the
 kernel there (and its ring order in the plain version on the CPU).  The
 launches carry a host epoch, so none can be captured in a CUDA graph.
 
-Backpressure: the kernel holds T - 1 landing slots per rank and drops the
-reference's credit semaphore.  The slots (``T - 1`` chunks per rank, 4.2
-GB for the eight ranks of the hierarchical step's plane) are the only
-buffer peers write into, and they are allocated per call, outside the
-world's symmetric workspace: their peer table works only because the
-virtual world's ranks are slices of one allocation.  A multi-process
-backend has to take them from symmetric memory (ROADMAP Queue 1's tenth
-entry).
+The fold order: :func:`ring_fold_order` is the reference's ring order for
+one chunk and direction, the plain version folds by it, and the kernel
+takes it from the host as a table (:func:`fold_table`).  The kernel is a
+pull: each rank reads its band of chunk c from the T partials of its
+group and folds them in that order, so nothing is pushed and no landing
+buffer exists (the reference's ring passes running sums hop by hop); it
+allocates nothing but its output.  Peers read each rank's input in
+place: the virtual world's ranks are slices of one allocation, and a
+multi-process backend has to put the inputs in symmetric memory and
+hold each rank at a barrier on exit (ROADMAP Queue 1's tenth entry).
 """
 
 from __future__ import annotations
@@ -63,13 +65,13 @@ from triton_dist_tpu_torch.kernels.allgather import (
     shard_over,
     single_axis,
 )
-from triton_dist_tpu_torch.runtime.bootstrap import Mesh
+from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, Mesh
 from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
-_SIG = {"tdt_reduce_scatter": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-        + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_void_p],
-        "tdt_reduce_scatter_flags": [ctypes.c_longlong, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int]}
+# pointer tables (x, out, barrier), the fold table, chunk, split, row,
+# dtype, world, size, stride, the epoch and the stream
+_SIG = {"tdt_reduce_scatter": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int] * 5 + [ctypes.c_uint, ctypes.c_void_p]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -117,15 +119,39 @@ def _check(x, mesh: Mesh, T: int):
                          f"into {T} chunks")
 
 
+def ring_fold_order(T: int, c: int, d: int) -> list[int]:
+    """The coordinates whose partials of chunk c are folded, in order, by
+    the reference's ring in direction d (+1 rightward, -1 leftward;
+    :101-131, :160-206): rank c + d starts the sum, and c + 2d, ..., c
+    each add their partial, ``acc = local + acc``."""
+    return [(c + d * k) % T for k in range(1, T + 1)]
+
+
+def fold_table(T: int) -> list[int]:
+    """The kernel's fold table [MAX_RANKS][2][MAX_RANKS] flat:
+    :func:`ring_fold_order` for each coordinate c < T and direction
+    (rightward, leftward), zeros elsewhere."""
+    if not 2 <= T <= MAX_RANKS:
+        raise ValueError(f"reduce_scatter kernel: 2 .. {MAX_RANKS} ranks "
+                         f"an axis, got {T}")
+    table = [0] * (MAX_RANKS * 2 * MAX_RANKS)
+    for c in range(T):
+        for di, d in enumerate((1, -1)):
+            at = (c * 2 + di) * MAX_RANKS
+            table[at:at + T] = ring_fold_order(T, c, d)
+    return table
+
+
 def _ring_sum(xm, c, T, d, nd, r0, r1):
-    """Chunk c's rows [r0, r1) summed round the ring in direction d:
-    rank c + d first, then acc = local + acc at c + 2d, ..., c."""
+    """Chunk c's rows [r0, r1) summed round the ring in direction d, in
+    :func:`ring_fold_order`'s order."""
     def part(src):
         return xm[src].select(nd - 1, c).narrow(nd - 1, r0, r1 - r0)
 
-    acc = part((c + d) % T)
-    for k in range(2, T + 1):
-        acc = part((c + d * k) % T) + acc
+    first, *rest = ring_fold_order(T, c, d)
+    acc = part(first)
+    for src in rest:
+        acc = part(src) + acc
     return acc
 
 
@@ -210,18 +236,17 @@ def reduce_scatter_shard(x, mesh: Mesh, axis="tp",
     xs = x.contiguous().view(W, -1)
     out = torch.empty((*mesh.shape, rows, *x.shape[nd + 1:]),
                       dtype=x.dtype, device=x.device)
-    land = torch.empty((W, T - 1, chunk), dtype=x.dtype, device=x.device)
+    order = (ctypes.c_int * (MAX_RANKS * 2 * MAX_RANKS))(*fold_table(T))
     lib = _build.load("reduce_scatter", _SIG)
     ws = mesh.world.workspace
-    flags = ws.flags("reduce_scatter",
-                     lib.tdt_reduce_scatter_flags(chunk, split, dtype, T))
     bar = ws.flags("barrier", W)
     epoch = ws.next_epoch()
     tables = [(ctypes.c_longlong * W)(*peer_table(t))
-              for t in (xs, out.view(W, -1), land, flags, bar)]
+              for t in (xs, out.view(W, -1), bar)]
     with torch.cuda.device(x.device):
-        err = lib.tdt_reduce_scatter(*tables, chunk, split, dtype, W, T,
-                                     mesh.axis_stride(axis), epoch,
+        err = lib.tdt_reduce_scatter(*tables, order, chunk, split, row,
+                                     dtype, W, T, mesh.axis_stride(axis),
+                                     epoch,
                                      torch.cuda.current_stream().cuda_stream)
     name = "bidir" if bidir else "ring"
     _build.check(err, f"reduce_scatter ({name})")
