@@ -16,11 +16,12 @@ Phases, in order (any failure exits non-zero without the final line):
    registers / shared memory / spills from ``-Xptxas -v``; a kernel that
    spills fails the run; then the count of wgmma instructions (``HGMMA``
    bf16, ``IGMMA`` int8) in the SASS (``cuobjdump --dump-sass``) of
-   ``ring_attn_kernel``, both backward kernels, the bf16 forward
-   ``flash_fwd_wg_kernel`` (each instance: contiguous and segmented) and
-   the uni AG-GEMM's ``ag_gemm_wg_kernel`` (bf16 with B [K][n] and B^T,
-   int8) beside their spill bytes (a count of 0 fails the run; without
-   ``cuobjdump`` the line says so);
+   ``ring_attn_kernel``, both backward kernels, the forward
+   ``flash_fwd_wg_kernel`` (each instance: contiguous and segmented, bf16
+   and int8 K/V) and the uni AG-GEMM's ``ag_gemm_wg_kernel`` (bf16 with B
+   [K][n] and B^T, int8), and of mma.sync instructions (``HMMA``) in each
+   instance of ``decode_kernel``, beside their spill bytes (a count of 0
+   fails the run; without ``cuobjdump`` the line says so);
 3. kernels: each Hopper kernel against its plain PyTorch version at the
    main path's shapes (Hq 32, Hkv 8, D 128, bf16), within the stated
    tolerance, then timed (CUDA events around CUDA-graph replays, so host
@@ -38,8 +39,10 @@ Phases, in order (any failure exits non-zero without the final line):
    beside SDPA's backward as the yardstick; the int8 kernels on quantized
    inputs (``quantize_kv`` of N(0, 1) K/V; random int8 GEMM operands):
    decode_i8 and decode_paged_i8 at the decode shape, flash_fwd_i8 at the
-   chunk shape (same tolerances), matmul_i8 at (m, k, n) = (8, 4096,
-   14336), (512, 4096, 14336) and (2048, 3584, 4096) by exact equality
+   chunk shape (same tolerances; every decode row's calls each one
+   kernel launch by the profiler's count: the split merge runs in the
+   launch), matmul_i8 at (m, k, n) = (8, 4096, 14336), (512, 4096,
+   14336) and (2048, 3584, 4096) by exact equality
    with its float64 plain version (the split-K loop at m 8, the wgmma
    kernel at the others), ``torch._int_mm`` above m 16 as the yardstick;
    the grouped GEMM's three modes (bf16, dx, int8) at Mixtral-8x7B's
@@ -633,6 +636,8 @@ def kernel_phase(dev):
                                                             <= -1e29)):
                 raise AssertionError("decode: dead row not zero / NEG_INF")
         errs.append(e_out)
+        one_kernel_per_call(f"decode {tag}", lambda: fd.gqa_decode_shard(
+            q, k, v, lens, q_lens=ql), lens_packing(lens, ql, T))
         if T == 1:
             ms = time_ms(lambda: fd.gqa_decode_shard(q, k, v, lens))
             eager = call_ms(lambda: fd.gqa_decode_shard(q, k, v, lens))
@@ -683,6 +688,10 @@ def kernel_phase(dev):
         if not (e_out <= OUT_TOL and e_lse <= LSE_TOL):
             raise AssertionError(f"decode_paged {tag} disagrees with plain")
         errs.append(e_out)
+        one_kernel_per_call(f"decode_paged {tag}",
+                            lambda: fd.gqa_decode_paged_shard(
+                                q, k_pool, v_pool, table, lens, q_lens=ql),
+                            lens_packing(lens, ql, T))
         if T == 1:
             ms = time_ms(lambda: fd.gqa_decode_paged_shard(
                 q, k_pool, v_pool, table, lens))
@@ -772,6 +781,9 @@ def i8_attention_rows(dev, randn, k, v, lens, k_pool, v_pool, table):
                 if not (torch.all(out[dead] == 0)
                         and torch.all(lse[dead] <= -1e29)):
                     raise AssertionError(f"{name}: dead row not zero")
+            one_kernel_per_call(f"{name} {tag}",
+                                lambda: kern(q, q_lens=ql),
+                                lens_packing(lens, ql, T))
             if T == 1:
                 ms = time_ms(lambda: kern(q))
                 eager = call_ms(lambda: kern(q))
@@ -1040,6 +1052,54 @@ def kernel_device_ms(fn, key, iters=20):
     if us <= 0:
         raise AssertionError(f"the profiler saw no kernel named {key}")
     return us / 1e3 / iters
+
+
+def device_kernels(fn):
+    """Names and counts of the device kernels one ``fn()`` launches (the
+    profiler's count, after a first call outside it)."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def lens_packing(lens, q_lens, T):
+    """The lens packing alone of a decode call at T > 1 (``pack_lens_arg``
+    stacks them on the device), else None."""
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+
+    if T == 1:
+        return None
+    return lambda: fd.pack_lens_arg(lens, None, q_lens, n_tok=T, window=0)
+
+
+def one_kernel_per_call(tag, fn, packing=None):
+    """Assert that one ``fn()`` launches exactly one device kernel, the
+    decode kernel, counting every kernel the profiler sees (the decode
+    kernel merges its splits inside its own launch).  ``packing`` (from
+    :func:`lens_packing`), where given, packs the call's lens alone: the
+    kernels it launches are taken off the count first."""
+    seen = device_kernels(fn)
+    if packing is not None:
+        pack = device_kernels(packing)
+        if any(seen[k] < n for k, n in pack.items()):
+            raise AssertionError(f"{tag}: one call launched {dict(seen)}, "
+                                 f"less than its lens packing {dict(pack)}")
+        seen -= pack
+    if list(seen.values()) != [1] or "decode_kernel" not in next(iter(seen)):
+        raise AssertionError(f"{tag}: one call launched {dict(seen)} "
+                             f"besides its lens packing, not one decode "
+                             f"kernel")
+    log(f"{tag}: one kernel a call, every kernel counted (profiler): "
+        f"{next(iter(seen))[:60]}")
 
 
 def check_tiles(tag, got, want, block_m):
@@ -5029,11 +5089,19 @@ WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "gemm_rs": ("gemm_rs_wg_kernel",),
                  "group_gemm": ("group_gemm_wg_kernel",),
                  "matmul_i8": ("matmul_i8_wg_kernel",)}
-# instance labels by template arguments (<SEGM> of the attention kernels,
+# The mma.sync kernels whose SASS must hold HMMA instructions (the decode
+# kernel: a stream, where wgmma's 64-row tiles would sit mostly idle).
+HMMA_KERNELS = {"decode": ("decode_kernel",)}
+# instance labels by template arguments (<SEGM, I8> of the flash forward,
+# <SEGM> of the other attention kernels,
 # <I8, B_NK> of ag_gemm_wg_kernel, <I8, B_NK, TALL> of
 # group_gemm_wg_kernel, <B_NK, MODE> of gemm_rs_wg_kernel); the int8
 # kernels' names (IGMMA expected)
-SASS_MODES = (("ILb0ELi0EE", "bf16, B [K][n]"),
+SASS_MODES = (("fwd_wg_kernelILb0ELb0EE", "bf16 K/V, contiguous"),
+              ("fwd_wg_kernelILb1ELb0EE", "bf16 K/V, segmented"),
+              ("fwd_wg_kernelILb0ELb1EE", "K/V int8 -> bf16, contiguous"),
+              ("fwd_wg_kernelILb1ELb1EE", "K/V int8 -> bf16, segmented"),
+              ("ILb0ELi0EE", "bf16, B [K][n]"),
               ("ILb1ELi0EE", "bf16, B^T [n][K]"),
               ("ILb0ELi1EE", "bf16, B [K][n], group"),
               ("ILb1ELi1EE", "bf16, B^T [n][K], group"),
@@ -5050,17 +5118,19 @@ SERIALISED = ("C7512", "C7520")
 
 
 def sass_check(_build):
-    """Count the GMMA instructions of each wgmma kernel in ``cuobjdump
-    --dump-sass`` of its built library, HGMMA and IGMMA apart, beside its
-    ptxas spill bytes; a bf16 instance without HGMMA, an int8 one without
-    IGMMA, a spill or a ptxas serialisation warning (C7512 / C7520) in a
-    library of these kernels fails the run.  Where the toolkit has no
-    cuobjdump, the line says so."""
+    """Count the MMA instructions of each wgmma kernel (and of the
+    mma.sync decode kernel) in ``cuobjdump --dump-sass`` of its built
+    library, HGMMA, IGMMA and HMMA apart, beside its ptxas spill bytes; a
+    bf16 wgmma instance without HGMMA, an int8 one without IGMMA, a decode
+    instance without HMMA, a spill or a ptxas serialisation warning
+    (C7512 / C7520) in a library of these kernels fails the run.  Where
+    the toolkit has no cuobjdump, the line says so."""
     tool = os.path.join(os.path.dirname(os.path.dirname(
         _build.nvcc_path())), "bin", "cuobjdump")
     report = _build.ptxas_report()
-    paths = _build.build(tuple(WGMMA_KERNELS))
-    for lib, kernels in WGMMA_KERNELS.items():
+    checked = {**WGMMA_KERNELS, **HMMA_KERNELS}
+    paths = _build.build(tuple(checked))
+    for lib, kernels in checked.items():
         spill, fn = {}, None
         for line in report.get(lib, "").splitlines():
             m = re.search(r"entry function '(\S+)'", line)
@@ -5074,7 +5144,7 @@ def sass_check(_build):
                 raise AssertionError(f"ptxas serialised wgmma in {lib}: "
                                      f"{line.strip()}")
         if not os.path.exists(tool):
-            log(f"sass {lib}: no cuobjdump at {tool}: GMMA not counted")
+            log(f"sass {lib}: no cuobjdump at {tool}: MMA not counted")
             continue
         sass = subprocess.run([tool, "--dump-sass", str(paths[lib])],
                               capture_output=True, text=True,
@@ -5084,22 +5154,29 @@ def sass_check(_build):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = {"HGMMA": 0, "IGMMA": 0}
+                counts[fn] = {"HGMMA": 0, "IGMMA": 0, "HMMA": 0}
             elif fn:
-                m = re.search(r"\b([HI]GMMA)\.", line)
+                m = re.search(r"\b(HGMMA|IGMMA|HMMA)\.", line)
                 if m:
                     counts[fn][m.group(1)] += 1
         for kern in kernels:
             found = {f: c for f, c in counts.items() if kern in f}
             for f, c in sorted(found.items()):
-                mode = next((m for key, m in SASS_MODES if key in f),
-                            "one instance")
-                want = "IGMMA" if (mode.startswith("int8")
-                                   or kern in INT8_WGMMA) \
-                    else "HGMMA"
+                if lib in HMMA_KERNELS:
+                    kw, ncw, i8 = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)EE",
+                                            f).groups()
+                    mode = (f"{kw}-key slices, {ncw} consumer warps, "
+                            f"{'int8' if i8 == '1' else 'bf16'}")
+                    want = "HMMA"
+                else:
+                    mode = next((m for key, m in SASS_MODES if key in f),
+                                "one instance")
+                    want = "IGMMA" if (mode.startswith("int8")
+                                       or kern in INT8_WGMMA) \
+                        else "HGMMA"
                 log(f"sass {lib} {kern} ({mode}): {c['HGMMA']} HGMMA, "
-                    f"{c['IGMMA']} IGMMA, ptxas spill bytes "
-                    f"{spill.get(f, 'not reported (prebuilt)')}")
+                    f"{c['IGMMA']} IGMMA, {c['HMMA']} HMMA, ptxas spill "
+                    f"bytes {spill.get(f, 'not reported (prebuilt)')}")
                 if c[want] == 0:
                     raise AssertionError(f"{kern} ({mode}): no {want} in "
                                          f"its SASS ({c})")

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import flash_attention as fa
 from triton_dist_tpu_torch.kernels import flash_decode as fd
 
@@ -521,6 +522,10 @@ FLASH_I8_CASES = [
     # (B, Hq, Hkv, Sq, Sk, q_offset, kv_offset, window, soft_cap)
     (1, 32, 8, 512, 2048, 1536, 0, 0, 0.0),     # the main path's chunk
     (2, 8, 2, 200, 330, 0, 100, 48, 25.0),      # dead rows, window, cap
+    (1, 8, 8, 300, 700, 400, 0, 0, 0.0),        # G 1, ragged Sk
+    (2, 16, 8, 256, 517, 261, 0, 0, 0.0),       # G 2, ragged Sk
+    (1, 64, 8, 130, 1000, 870, 0, 128, 0.0),    # G 8, window
+    (1, 32, 8, 64, 63, 0, 0, 0, 10.0),          # one ragged key tile
 ]
 
 
@@ -546,6 +551,241 @@ def test_flash_fwd_i8_matches_plain(cuda, case):
     if ko:
         assert torch.all(out[:, :, :ko] == 0)
         assert torch.all(lse[:, :, :ko] <= -1e29)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", [1, 2])
+def test_flash_fwd_i8_segmented_matches_plain(cuda, step):
+    """The int8 forward's segmented mode: the W ranks of one zigzag ring
+    step folded into the batch (per-row start vectors), int8 K / V with
+    their scales, against the plain version at the bf16 tolerances."""
+    world, b, Hq, Hkv, S = 4, 1, 16, 4, 256
+    g = np.random.default_rng(300 + step)
+    q = _randn(g, (world * b, Hq, S, 128), cuda)
+    kq, ks = _quantized(g, (world * b, Hkv, S, 128), cuda)
+    vq, vs = _quantized(g, (world * b, Hkv, S, 128), cuda)
+    kw = dict(causal=True, q_offset=_zig_rows(world, b, S, 0),
+              kv_offset=_zig_rows(world, b, S, step), k_scale=ks,
+              v_scale=vs)
+    n0 = fa.flash_fwd_i8.launches
+    out, lse = fa.flash_attention(q, kq, vq, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_i8.launches == n0 + 1
+    ref_out, ref_lse = fa.flash_attention_ref(q, kq, vq, **kw)
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_i8_refuses_non_tma_q(cuda):
+    """The int8 forward reads q by TMA: a q TMA cannot read (a row stride
+    that is not a multiple of 16 bytes) raises a ValueError before any
+    launch; int8 K / V views with strided rows are taken (one bulk copy a
+    row)."""
+    g = np.random.default_rng(31)
+    kq, ks = _quantized(g, (1, 2, 200, 128), cuda)
+    vq, vs = _quantized(g, (1, 2, 200, 128), cuda)
+    wide = _randn(g, (1, 8, 64, 136), cuda)
+    bad = wide[..., 4:132]
+    n0 = fa.flash_fwd_i8.launches
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention(bad, kq, vq, q_offset=136, k_scale=ks,
+                           v_scale=vs)
+    assert fa.flash_fwd_i8.launches == n0
+    pair = torch.stack([kq, vq], dim=3)          # rows 256 bytes apart
+    q = _randn(g, (1, 8, 64, 128), cuda)
+    kw = dict(q_offset=136, k_scale=ks, v_scale=vs)
+    out, lse = fa.flash_attention(q, pair[:, :, :, 0], pair[:, :, :, 1],
+                                  return_lse=True, **kw)
+    ref_out, ref_lse = fa.flash_attention_ref(q, kq, vq, **kw)
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+
+
+DECODE_ENTRIES = ["bf16", "int8", "paged", "paged_int8"]
+
+
+def _decode_call(kind, g, dev, *, B=8, T=1, Hq=32, Hkv=8, S=2048, page=16,
+                 lens=None, q_lens=None, window=0, cap=0.0, layout="dense"):
+    """(kernel call, plain call) of one decode entry on fresh inputs:
+    ``layout`` "pairs" makes K and V views of one [.., 2, ..] tensor
+    (pages or rows not contiguous), "rows" interleaves K and V rows
+    (row stride 2 D)."""
+    paged, int8 = kind.startswith("paged"), kind.endswith("int8")
+    lens = np.asarray(lens if lens is not None
+                      else g.integers(T, S + 1, size=B), np.int32)
+    n_pages = -(-S // page)
+    if paged:
+        rows = (B * n_pages + 1, Hkv, page)
+        table = torch.from_numpy((1 + g.permutation(B * n_pages)).reshape(
+            B, n_pages).astype(np.int32)).to(dev)
+    else:
+        rows = (B, Hkv, S)
+    x = torch.from_numpy(g.standard_normal(
+        (2,) + rows + (128,)).astype(np.float32)).to(dev)
+    if int8:
+        xq, xs = fd.quantize_kv(x)
+    else:
+        xq, xs = x.to(torch.bfloat16), None
+    if layout == "pairs":    # [N, 2, Hkv, page, D] / [B, 2, Hkv, S, D]
+        xq = xq.movedim(0, 1).contiguous().movedim(1, 0)
+        xs = None if xs is None else xs.movedim(0, 1).contiguous().movedim(
+            1, 0)
+    elif layout == "rows":   # K and V rows interleaved: row stride 2 D
+        xq = xq.movedim(0, -2).contiguous().movedim(-2, 0)
+    k, v = xq[0], xq[1]
+    assert layout == "dense" or not k.is_contiguous()
+    kw = dict(q_lens=None if q_lens is None else torch.tensor(
+        q_lens, dtype=torch.int32, device=dev), window=window, soft_cap=cap)
+    if int8:
+        kw.update(k_scale=xs[0], v_scale=xs[1])
+    shape = (B, T, Hq, 128) if T > 1 else (B, Hq, 128)
+    q = _randn(g, shape, dev)
+    lens_t = torch.from_numpy(lens).to(dev)
+    if paged:
+        return (lambda: fd.gqa_decode_paged_shard(q, k, v, table, lens_t,
+                                                  **kw),
+                lambda: fd.decode_paged_ref(q, k, v, table, lens_t, **kw))
+    return (lambda: fd.gqa_decode_shard(q, k, v, lens_t, **kw),
+            lambda: fd.decode_ref(q, k, v, lens_t, **kw))
+
+
+def _decode_agrees(kern, plain, q_lens=None):
+    out, lse = kern()
+    torch.cuda.synchronize()
+    ref_out, ref_lse = plain()
+    _close(out, ref_out, OUT_TOL)
+    _close(lse, ref_lse, LSE_TOL)
+    if q_lens is not None and 0 in q_lens:
+        dead = q_lens.index(0)
+        assert torch.all(out[dead] == 0) and torch.all(lse[dead] <= -1e29)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", DECODE_ENTRIES)
+@pytest.mark.parametrize("T", [1, 4])
+def test_decode_short_lens_and_straddling_pages(cuda, kind, T):
+    """Lengths shorter than a pair's split count in tiles (1, 63, 65, 64,
+    129: most splits empty), an empty row, full rows; pools of page 48,
+    whose 64-key tiles straddle pages; T 4 with a dead row."""
+    g = np.random.default_rng(17 * T + len(kind))
+    lens = [1, 63, 65, 2048, 700, 64, 129, 0] if T == 1 else \
+        [4, 63, 65, 2048, 700, 64, 129, 5]
+    ql = None if T == 1 else [4, 1, 0, 4, 2, 4, 3, 4]
+    kern, plain = _decode_call(kind, g, cuda, T=T, lens=lens, q_lens=ql,
+                               page=48)
+    _decode_agrees(kern, plain, ql)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", DECODE_ENTRIES)
+@pytest.mark.parametrize("layout", ["pairs", "rows"])
+def test_decode_pool_views(cuda, kind, layout):
+    """K and V (and int8 scales) as views of one tensor: pages or rows not
+    contiguous (a page of one, its partner's between), and rows 2 D apart
+    (one bulk copy a row in every case)."""
+    g = np.random.default_rng(5 + len(kind) + len(layout))
+    kern, plain = _decode_call(kind, g, cuda, B=4, S=600, layout=layout,
+                               window=200 if layout == "rows" else 0)
+    _decode_agrees(kern, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "paged_int8"])
+def test_decode_i8_verify_chunk_128_rows(cuda, kind):
+    """The int8 modes at T 32 (128 query rows: eight consumer warps, one
+    row group each), a window and a soft cap."""
+    g = np.random.default_rng(40 + len(kind))
+    kern, plain = _decode_call(kind, g, cuda, B=2, T=32, Hq=16, Hkv=4,
+                               S=640, window=300, cap=20.0,
+                               q_lens=[32, 17])
+    _decode_agrees(kern, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", DECODE_ENTRIES)
+def test_decode_merge_at_the_ring_cap(cuda, kind):
+    """One pair of 128 query rows (T 32, G 4) over 16,384 keys: the split
+    count is capped by what the pair's merge keeps in the kernel's ring
+    (``split_plan``: 134 bf16, 109 int8 splits, every one live), not by
+    the grid, and the merged result holds to the plain version."""
+    g = np.random.default_rng(90 + len(kind))
+    S = 16384
+    sms = _build.sm_count(cuda)
+    assert fd.split_plan(1, S, sms, 128, kind.endswith("int8")) == (
+        109 if kind.endswith("int8") else 134) < fd.BLOCKS_PER_SM * sms
+    kern, plain = _decode_call(kind, g, cuda, B=1, T=32, Hq=4, Hkv=1, S=S,
+                               lens=[S])
+    _decode_agrees(kern, plain)
+
+
+def _decode_kernels(fn):
+    """Names and counts of the device kernels one ``fn()`` launches, from
+    the profiler."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", DECODE_ENTRIES)
+@pytest.mark.parametrize("T", [1, 4])
+def test_decode_is_one_kernel_launch(cuda, kind, T):
+    """Every decode entry is one kernel launch per call (its split-KV
+    merge runs inside it), counted by the profiler at the main path's
+    shape, where every pair has several splits.  Every device kernel is
+    counted: at T 1 the call launches the decode kernel and nothing else;
+    at T 4 it also packs its lens (``pack_lens_arg``: a stack on the
+    device), whose kernels, counted alone, are taken off first."""
+    g = np.random.default_rng(60 + T)
+    kern, _ = _decode_call(kind, g, cuda, T=T,
+                           q_lens=None if T == 1 else [4] * 8)
+    seen = _decode_kernels(kern)
+    if T > 1:
+        lens = torch.ones(8, dtype=torch.int32, device=cuda)
+        pack = _decode_kernels(lambda: fd.pack_lens_arg(
+            lens, None, lens, n_tok=T, window=0))
+        assert all(seen[k] >= n for k, n in pack.items()), (seen, pack)
+        seen -= pack
+    assert list(seen.values()) == [1], seen
+    assert all("decode_kernel" in k for k in seen), seen
+
+
+@pytest.mark.gpu
+def test_decode_cuda_graph_replays_bit_equal(cuda):
+    """Two decode calls (bf16 contiguous T 1, int8 paged T 4) captured in
+    one CUDA graph and replayed three times, their outputs zeroed before
+    each replay: bit-equal to eager calls every time, so the merge
+    counters the last split resets are zero at every replay."""
+    g = np.random.default_rng(71)
+    a, _ = _decode_call("bf16", g, cuda)
+    b, _ = _decode_call("paged_int8", g, cuda, T=4, q_lens=[4, 1, 0, 4, 2,
+                                                            4, 3, 4])
+    want = [a(), b()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a(), b()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [a(), b()]
+    for _ in range(3):
+        for pair in got:
+            for x in pair:
+                x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for (go, gl), (wo, wl) in zip(got, want):
+            assert torch.equal(go, wo) and torch.equal(gl, wl)
 
 
 @pytest.mark.gpu

@@ -498,6 +498,164 @@ def test_decode_paged_i8_plain_matches_reference(T):
     assert torch.equal(c_out, got[0])
 
 
+def _visible_positions(llen, wlen, qlen, T, use_qlens, window, S):
+    """The positions some live query of one pair sees, by the plain
+    version's own rule (``decode_ref``'s mask, written out per query)."""
+    seen = set()
+    for t in range(T):
+        d = (qlen - 1 - t) if use_qlens else 0
+        if d < 0:
+            continue
+        end = (wlen - d) if use_qlens else S + 1
+        for pos in range(min(llen, S)):
+            if pos >= end:
+                continue
+            if window and pos < wlen - d - window:
+                continue
+            seen.add(pos)
+    return seen
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_decode_split_rule_covers_each_live_tile_once(seed):
+    """The decode kernel's split rule (``live_tiles`` + ``split_tiles``,
+    which ``csrc/decode.cu`` mirrors) over random lens, window lens,
+    windows, q_lens and split counts: the live tiles hold every position a
+    live query sees; the splits cover every live tile exactly once, in
+    order; a pair's splits differ by at most one tile; dead pairs
+    (q_lens 0) and empty ones (length 0) give empty ranges."""
+    rng = np.random.default_rng(seed)
+    tile = tfd.TILE
+    for _ in range(60):
+        S = int(rng.integers(1, 9)) * tile - int(rng.integers(0, 2)) * 17
+        T = int(rng.choice([1, 1, 3, 8]))
+        use_qlens = T > 1 or bool(rng.integers(0, 2))
+        llen = int(rng.integers(0, S + 1))
+        wlen = llen + int(rng.integers(-3, 4)) if use_qlens else llen
+        qlen = int(rng.integers(0, T + 1)) if use_qlens else T
+        window = int(rng.choice([0, 0, 1, 40, 100, 300]))
+        n_split = int(rng.integers(1, 12))
+        t_lo, t_hi = tfd.live_tiles(llen, wlen, qlen, use_qlens=use_qlens,
+                                    window=window, S_total=S)
+        seen = _visible_positions(llen, wlen, qlen, T, use_qlens, window, S)
+        assert all(t_lo * tile <= p < t_hi * tile for p in seen)
+        if (use_qlens and qlen == 0) or llen == 0:
+            assert t_lo == t_hi
+        shares = [tfd.split_tiles(t_lo, t_hi, n_split, s)
+                  for s in range(n_split)]
+        tiles = [t for a, b in shares for t in range(a, b)]
+        assert tiles == list(range(t_lo, t_hi))
+        sizes = [b - a for a, b in shares]
+        assert max(sizes) - min(sizes) <= 1
+        if t_hi - t_lo >= n_split:
+            assert min(sizes) >= 1
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_split_plan_fits_the_merge_in_the_ring(int8):
+    """``split_plan``'s split count, over pair counts, cache lengths, query
+    rows (T * G up to the kernel's 128) and SM counts: at least one, at
+    most one a cache tile and about BLOCKS_PER_SM blocks an SM, and never
+    more than lets a pair's merge keep its (n_split + 2) * rows f32 in the
+    kernel's ring (``RING_BYTES``, which ``csrc/decode.cu`` checks): one
+    pair of 128 rows over 16k keys is capped by the ring, not the grid."""
+    ring = tfd.RING_BYTES[int8]
+    assert ring == (3 * (2 * tfd.TILE * (D + 16) + 2 * tfd.TILE * 4) if int8
+                    else 2 * 2 * tfd.TILE * (D + 8) * 2)
+    for n_pairs in (1, 2, 3, 8, 64, 500):
+        for S in (1, 63, 64, 2048, 16384, 1 << 17):
+            for rows in (1, 4, 16, 17, 64, 100, 128):
+                for sms in (1, 78, 132):
+                    n = tfd.split_plan(n_pairs, S, sms, rows, int8)
+                    assert 1 <= n <= max(1, -(-S // tfd.TILE))
+                    assert n <= max(1, tfd.BLOCKS_PER_SM * sms // n_pairs)
+                    assert (n + 2) * rows * 4 <= ring
+    capped = tfd.split_plan(1, 16384, 132, 128, int8)
+    assert capped == ring // 512 - 2 < tfd.BLOCKS_PER_SM * 132
+
+
+SPLIT_MERGE_CASES = [
+    # (paged, int8, T, q_lens, window, soft_cap)
+    (False, False, 1, None, 0, 0.0),
+    (False, False, 3, [3, 0, 1, 2], 70, 0.0),
+    (False, True, 1, None, 90, 20.0),
+    (False, True, 2, [2, 1, 0, 2], 0, 0.0),
+    (True, False, 1, None, 0, 15.0),
+    (True, False, 3, [0, 3, 2, 1], 50, 0.0),
+    (True, True, 1, None, 0, 0.0),
+    (True, True, 2, [1, 2, 2, 0], 120, 10.0),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_MERGE_CASES)
+def test_decode_split_and_merge_equals_whole(case):
+    """What the kernel computes, on the plain versions: ``decode_ref``
+    over each split's share of the live tiles, merged by
+    ``combine_partials`` (the merge the kernel's last split does, lse by
+    the same log-sum-exp), equals ``decode_ref`` over the whole cache to
+    1e-5, split counts 1..9 (empty splits among them), a dead row
+    (q_lens 0) and a length-0 row included; contiguous and paged, f32 and
+    int8 caches."""
+    paged, int8, T, q_lens, window, cap = case
+    B, Hq, Hkv, S, page = 4, 4, 2, 5 * tfd.TILE - 20, 20
+    rng = np.random.default_rng(sum(map(ord, repr(case))))
+    qshape = (B, T, Hq, D) if T > 1 else (B, Hq, D)
+    q = _t(rng.standard_normal(qshape).astype(np.float32))
+    lens = _t(np.array([S, 130, 0, 65], np.int32))
+    ql = None if q_lens is None else _t(np.array(q_lens, np.int32))
+    kw = dict(soft_cap=cap, window=window, q_lens=ql)
+    n_pages = -(-S // page)
+    if paged:
+        n_blocks = B * n_pages + 1
+        k, v = (_t(rng.standard_normal((n_blocks, Hkv, page, D)).astype(
+            np.float32)) for _ in range(2))
+        table = _t((1 + rng.permutation(B * n_pages)).reshape(
+            B, n_pages).astype(np.int32))
+    else:
+        k, v = (_t(rng.standard_normal((B, Hkv, S, D)).astype(np.float32))
+                for _ in range(2))
+    if int8:
+        (k, ks), (v, vs) = tfd.quantize_kv(k), tfd.quantize_kv(v)
+        kw.update(k_scale=ks, v_scale=vs)
+
+    def ref(**extra):
+        if paged:
+            return tfd.decode_paged_ref(q, k, v, table, lens, **kw, **extra)
+        return tfd.decode_ref(q, k, v, lens, **kw, **extra)
+
+    want_out, want_lse = ref()
+    S_total = n_pages * page if paged else S
+    for n_split in range(1, 10):
+        outs, lses = [], []
+        for s in range(n_split):
+            lo, hi = [], []
+            for b in range(B):
+                llen = int(lens[b])
+                qlen = T if ql is None else int(ql[b])
+                a, z = tfd.split_tiles(*tfd.live_tiles(
+                    llen, llen, qlen, use_qlens=T > 1 or ql is not None,
+                    window=window, S_total=S_total), n_split, s)
+                lo.append(a * tfd.TILE)
+                hi.append(z * tfd.TILE)
+            o, l = ref(positions=(lo, hi))
+            outs.append(o)
+            lses.append(l)
+        outs, lses = torch.stack(outs), torch.stack(lses)
+        got_out = tfd.combine_partials(outs, lses)
+        m = lses.amax(dim=0)
+        got_lse = torch.where(
+            m > tfd.NEG_INF / 2,
+            m + torch.log(torch.exp(lses - m).sum(dim=0)),
+            torch.full_like(m, tfd.NEG_INF))
+        assert_allclose(got_out, want_out, atol=1e-5, rtol=1e-5)
+        assert_allclose(got_lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert torch.all(want_out[2] == 0)            # the length-0 row
+    if q_lens is not None:
+        dead = q_lens.index(0)
+        assert torch.all(want_out[dead] == 0)
+        assert torch.all(want_lse[dead] == tfd.NEG_INF)
+
+
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (96, 15.0)])
 def test_flash_i8_plain_matches_reference(window, cap):
     """flash_attention_ref with scales against the reference's dense

@@ -1311,6 +1311,38 @@ def test_model_paths_hand_flash_tma_operands(path, monkeypatch):
     assert not bad, f"{path}: operands the kernel would refuse: {bad[:3]}"
 
 
+def test_quantized_generator_hands_flash_i8_a_tma_q(monkeypatch):
+    """The int8 flash forward reads q by TMA as the bf16 one does (and its
+    int8 K / V rows by 1-D bulk copies): every call the int8-cache
+    Generator's chunked prefill makes holds q to ``flash_operand_ok`` and
+    the int8 rows to the copies' rule (unit last stride, 16-byte
+    strides), so the quantized path never raises on the card."""
+    from triton_dist_tpu_torch.kernels import flash_attention as tfa
+    from triton_dist_tpu_torch.models.generate import Generator
+
+    seen, real = [], tfa.flash_attention_ref
+
+    def spy(q, k, v, **kw):
+        if kw.get("k_scale") is not None:
+            seen.append((tuple(q.shape), tuple(q.stride()),
+                         q.storage_offset(), k.stride(), v.stride()))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention_ref", spy)
+    cfg = tllama.LlamaConfig.tiny()
+    tok = np.random.default_rng(5).integers(0, cfg.vocab, size=(1, 200))
+    gen = Generator(cfg, max_seq=256, device="cpu", kv_dtype=torch.int8)
+    with torch.no_grad():
+        gen.prefill_chunked(tllama.init_params(cfg, device="cpu"), tok,
+                            chunk_size=48)
+    assert seen, "no int8 flash forward call"
+    bad = [s for s in seen
+           if not tfa.flash_operand_ok(s[0], s[1], torch.bfloat16, s[2])
+           or any(st[-1] != 1 or any(x % 16 for x in st[:-1])
+                  for st in s[3:])]
+    assert not bad, f"operands the int8 kernel would refuse: {bad[:3]}"
+
+
 # ---------------------------------------------------------------------------
 # Every model path hands the uni AG-GEMM operands its TMA reads
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
-// The consumer's tile body of flash_fwd.cu's bf16 kernel, on the pieces
-// of sm90.cuh: one 64-row consumer warpgroup's step of the online softmax
-// over one 128-key K / V tile in shared memory, and the store of its
-// finished rows.  It is ring_attn.cu's consumer body, lifted out; the
-// ring kernel keeps its own copy, because built on this header it ran
-// 1-2% slower on an H100 in interleaved runs against its own copy (the
-// same SASS instruction mix, another schedule at the 168 registers ptxas
-// gives a consumer; PERF.md has the numbers).
+// The consumer's tile body of flash_fwd.cu's kernel (bf16 and int8 K /
+// V), on the pieces of sm90.cuh: one 64-row consumer warpgroup's step of
+// the online softmax over one 128-key K / V tile in shared memory, and
+// the store of its finished rows.  It is ring_attn.cu's consumer body,
+// lifted out; the ring kernel keeps its own copy, because built on this
+// header it ran 1-2% slower on an H100 in interleaved runs against its own
+// copy (the same SASS instruction mix, another schedule at the 168
+// registers ptxas gives a consumer; PERF.md has the numbers).
 //
 // A tile step (the reference's `_block_update`):
 // - S[64 x 128] = Q K^T by wgmma.m64n128k16 (Q and K from shared memory,
@@ -20,6 +20,13 @@
 //   B.
 // The row state (O in the m64n128 accumulator layout, m in the base-2
 // domain, l) stays in the caller's registers across tiles.
+//
+// int8 K / V (the I8 instantiation; the tiles arrive converted to bf16,
+// exact): `scl` holds the tile's f32 K scales [BN] and then its V scales
+// [BN].  K's scale multiplies each logit column after Q K^T (a thread's
+// accumulator columns are fixed, so it reads their scales from shared
+// memory); V's folds into P before P is rounded to the bf16 A operand,
+// where the TPU kernel rounds (l sums the unscaled P).
 //
 // Positions.  Row r (0, 1) of this thread has local index row_i[r] (rows
 // at or past n_q are padding and see nothing) and global position
@@ -54,11 +61,12 @@ struct Mask {
 // 64-row slice of a Q tile stored as two halves HALF bytes apart).
 // `full`: `_block_full`, every (row, key) pair of the tile visible, so
 // the mask pass is skipped.
+template <bool I8 = false>
 __device__ __forceinline__ void tile_step(
     float (&o)[64], float (&m_r)[2], float (&l_r)[2], const bf16* sq,
     const bf16* sk, const bf16* sv, bool full, const int (&row_i)[2],
     const int (&row_pos)[2], int n_q, int t0, int n_k, int split, int run0,
-    int run1, const Mask& mk) {
+    int run1, const Mask& mk, const float* scl = nullptr) {
   const int tq = (threadIdx.x % 32) & 3;
 
   // S[64 x 128] = Q K^T.
@@ -71,7 +79,30 @@ __device__ __forceinline__ void tile_step(
   wgmma_wait<0>();
   fence_regs(sc);
 
-  if (mk.soft_cap > 0.f) {
+  if constexpr (I8) {  // K's scale too, column 8 j + 2 tq + e % 2
+    if (mk.soft_cap > 0.f) {
+      const float in = mk.scale / mk.soft_cap, out = mk.soft_cap * LOG2E;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 k2 =
+            *reinterpret_cast<const float2*>(scl + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] =
+              out * tanh_fast(sc[4 * j + e] * ((e & 1) ? k2.y : k2.x) * in);
+      }
+    } else {
+      const float sl = mk.scale * LOG2E;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 k2 =
+            *reinterpret_cast<const float2*>(scl + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] *= ((e & 1) ? k2.y : k2.x) * sl;
+      }
+    }
+  } else if (mk.soft_cap > 0.f) {
     const float in = mk.scale / mk.soft_cap, out = mk.soft_cap * LOG2E;
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] = out * tanh_fast(sc[i] * in);
@@ -107,13 +138,29 @@ __device__ __forceinline__ void tile_step(
     m_r[r] = m_new;
   }
   float sum[2] = {0.f, 0.f};
+  if constexpr (I8) {  // V's scale folds into P before its rounding
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int r = (i >> 1) & 1;
-    const float x = sc[i];
-    const float pe = x > 0.5f * NEG_INF ? exp2_approx(x - m_r[r]) : 0.f;
-    sum[r] += pe;
-    sc[i] = pe;
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 v2 =
+          *reinterpret_cast<const float2*>(scl + BN + 8 * j + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float x = sc[4 * j + e];
+        const float pe = x > 0.5f * NEG_INF ? exp2_approx(x - m_r[r]) : 0.f;
+        sum[r] += pe;
+        sc[4 * j + e] = pe * ((e & 1) ? v2.y : v2.x);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      const float x = sc[i];
+      const float pe = x > 0.5f * NEG_INF ? exp2_approx(x - m_r[r]) : 0.f;
+      sum[r] += pe;
+      sc[i] = pe;
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];

@@ -2,14 +2,14 @@
 // int8 K/V.
 //
 // Replaces the TPU kernels triton_dist_tpu/kernels/flash_attention.py
-// `_flash_kernel` (:116, launched from `_flash_pallas`; here
-// `flash_fwd_wg_kernel`) and `_flash_kernel_i8` (:209; here
-// `flash_fwd_i8_kernel`).  Same contract: q [B, Hq, Sq, D], k/v [B, Hkv,
-// Sk, D] in bf16 (int8 with f32 scales for the twin; any b/h/s strides,
-// unit d stride) -> out [B, Hq, Sq, D] bf16 plus lse [B, Hq, Sq] f32 in
-// natural log (the backward kernels read it); global positions q_offset +
-// i and kv_offset + j; causal, sliding window, soft-cap; rows with nothing
-// visible give out 0 and lse NEG_INF.
+// `_flash_kernel` (:116, launched from `_flash_pallas`) and
+// `_flash_kernel_i8` (:209), both as `flash_fwd_wg_kernel` (its int8
+// instantiation for the second).  Same contract: q [B, Hq, Sq, D], k/v
+// [B, Hkv, Sk, D] in bf16 (int8 with f32 scales for the int8 mode; any
+// b/h/s strides, unit d stride) -> out [B, Hq, Sq, D] bf16 plus lse [B,
+// Hq, Sq] f32 in natural log (the backward kernels read it); global
+// positions q_offset + i and kv_offset + j; causal, sliding window,
+// soft-cap; rows with nothing visible give out 0 and lse NEG_INF.
 //
 // Segmented positions (the zigzag context-parallel shard: rows made of
 // several position runs) ride per-block start vectors, as the TPU
@@ -29,14 +29,15 @@
 // flop/byte balance, so the tensor cores bound it (989 TFLOP/s bf16
 // dense).  PERF.md has the measured time beside the bound.
 //
-// The bf16 kernel (`flash_fwd_wg_kernel`) runs on the wgmma / TMA pieces
-// of sm90.cuh and the consumer tile body of attn_tile.cuh (ring_attn.cu's
-// body, lifted out; that kernel keeps its copy, see the header).  One block per (q tile, kv-head, batch) is three
-// warpgroups: a producer and two consumers (setmaxnreg moves registers
-// from the first to the others).  As on the TPU the q tile folds all G =
-// Hq / Hkv heads of the group into its rows (row r = g * BQ + i, 128
-// rows, BQ = 128 / G positions, 64 rows a consumer), so every K/V tile
-// read from device memory serves the whole group; TMA brings it as one
+// The kernel (`flash_fwd_wg_kernel`) runs on the wgmma / TMA pieces of
+// sm90.cuh and the consumer tile body of attn_tile.cuh (ring_attn.cu's
+// body, lifted out; that kernel keeps its copy, see the header).  One
+// block per (q tile, kv-head, batch) is three warpgroups: a producer and
+// two consumers (setmaxnreg moves registers from the first to the
+// others).  As on the TPU the q tile folds all G = Hq / Hkv heads of the
+// group into its rows (row r = g * BQ + i, 128 rows, BQ = 128 / G
+// positions, 64 rows a consumer), so every K/V tile read from device
+// memory serves the whole group; TMA brings it as one
 // box {64, BQ, G, 1} over (d, s, hq, b) per 64-column half, rows past Sq
 // read as zeros and are never stored.  The producer's first thread then
 // brings each live 128-key K / V tile by TMA into a two-stage ring of
@@ -59,20 +60,21 @@
 // it.  The tensor maps are encoded on the host at each call (by value in
 // the kernel's parameters, so a CUDA graph replays them).
 //
-// The int8 kernel (`flash_fwd_i8_kernel`: chunked prefill against an int8
-// cache, forward only) keeps the Ampere design: one block of 4 warps per
-// (64-row q tile, kv-head, batch), the q tile folding the group (BQ = 64
-// / G), each warp 16 query rows with their fragments, score tile,
-// accumulator and softmax statistics in registers (FlashAttention-2);
-// S = Q K^T and O += P V are `mma.sync.m16n8k16` bf16 products fed by
-// `ldmatrix`.  The int8 K/V tiles and their per-position f32 scales [B,
-// Hkv, Sk] stream through a two-stage cp.async ring (half the bytes), and
-// each tile converts to bf16 in shared memory ahead of the mma.sync path
-// (|q| <= 127 is exact in bf16).  K's scale applies per S column after
-// Q K^T: a thread's C fragment holds columns 2 (lane % 4) + {0, 1} + 8 j,
-// whose scales it reads from shared memory; V's scale folds into P before
-// P is rounded to the bf16 A fragment of P V, where the TPU kernel
-// rounds.
+// The int8 mode (`flash_fwd_wg_kernel<SEGM, true>`: chunked prefill
+// against an int8 cache, forward only) is the same kernel.  The int8 K / V
+// tiles and their f32 per-position scales [B, Hkv, Sk] travel half the
+// bytes: producer warp 0 brings each 64-key half tile into a staging ring
+// of SST slots by 1-D bulk copies (one a tensor when its rows are
+// contiguous, else one a row: no tensor map) and the scales 4 bytes a
+// lane by cp.async on the same mbarrier; producer warps 1-3 convert each
+// staged half to bf16 (|q| <= 127 is exact: a byte permute and a
+// subtraction a value) in the 128-byte-swizzled layout the wgmma
+// descriptors read, copy the scales beside the bf16 stage (keys past Sk
+// get scale 0), and arrive on the stage's full barrier.  The consumers
+// run the bf16 tile body with two additions (attn_tile.cuh): K's scale
+// multiplies each logit column after Q K^T, V's folds into P before P is
+// rounded to the bf16 A operand, where the TPU kernel rounds.  Q still
+// arrives by TMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,29 +92,47 @@ __device__ inline int pos_of(const int* offs, long long sb, int base, int b,
   return offs ? offs[b * sb + i / SEG] + i % SEG : base + i;
 }
 
-// ------------------------------------------------------- the bf16 kernel
+// ------------------------------------------------------------- the kernel
 
 namespace wg {
 
 using namespace tdt_attn;
+using tdt_frag::i8x4_to_f32;
+using tdt_frag::pack_bf16_exact;
 
 constexpr int BM = 128;   // folded q rows per tile (64 per consumer)
 constexpr int ST = 2;     // K / V stages
 constexpr int NT = 384;   // producer + two consumer warpgroups
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
+// int8: 64-key half tiles staged as they arrive, converted by producer
+// warps 1-3 (the converters)
+constexpr int HB = 64;
+constexpr int SST = 3;
+constexpr int CONVERTERS = 3;
+// setmaxnreg moves registers within the launch's 168 a thread: the int8
+// producer warpgroup converts, so it keeps more than 40.
+template <bool I8>
+constexpr int PRODUCER_REGS = I8 ? 56 : 40;
+template <bool I8>
+constexpr int CONSUMER_REGS = I8 ? 224 : 232;
 
+template <bool I8>
 struct Smem {
   bf16 q[2 * BM * 64];  // two swizzled halves
   bf16 k[ST][2 * BN * 64];
   bf16 v[ST][2 * BN * 64];
+  // int8: each bf16 stage's K scales [BN] then V scales [BN], and the
+  // staging slots: K rows [HB][D], V rows, K scales [HB], V scales
+  float sc[I8 ? ST : 1][I8 ? 2 * BN : 1];
+  int8_t raw[I8 ? SST : 1][I8 ? 2 * HB * D + 2 * HB * 4 : 16];
   uint64_t qfull, full[ST], empty[ST];
+  uint64_t sfull[I8 ? SST : 1], sempty[I8 ? SST : 1];
 };
-constexpr size_t SMEM_BYTES = sizeof(Smem) + 1024;  // + 1024-byte alignment
+template <bool I8>
+constexpr size_t SMEM_BYTES = sizeof(Smem<I8>) + 1024;  // + alignment
 
 struct Params {
   CUtensorMap qmap;  // q: {D, Sq, Hq, B}, box {64, BQ, G, 1}
-  CUtensorMap kmap;  // k: {D, Sk, Hkv, B}, box {64, BN, 1, 1}
+  CUtensorMap kmap;  // bf16 k: {D, Sk, Hkv, B}, box {64, BN, 1, 1}
   CUtensorMap vmap;
   bf16* out;         // [B, Hq, Sq, D] contiguous
   float* lse;        // [B, Hq, Sq]
@@ -122,6 +142,13 @@ struct Params {
   long long qoffs_sb, koffs_sb;
   int q_offset, kv_offset;
   Mask mk;
+  // int8: k / v rows and their f32 scales, (b, h, s) strides in elements
+  const int8_t* k8;
+  const int8_t* v8;
+  const float* ksc;
+  const float* vsc;
+  long long k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long ks_sb, ks_sh, ks_ss, vs_sb, vs_sh, vs_ss;
 };
 
 // Least and largest position of local rows [i0, i0 + n) of one side: the
@@ -201,17 +228,23 @@ __device__ __forceinline__ int next_live(const Params& p, const QTile& t,
   return kt;
 }
 
-// The producer's first thread: Q once, then every live K / V tile.
+// Q by TMA (one thread), once: the consumers wait on qfull.
+__device__ __forceinline__ void issue_q(const Params& p, bf16* q,
+                                        uint64_t* qfull, const QTile& t) {
+  mbar_arrive_tx(qfull, 2 * HALF);
+  for (int hf = 0; hf < 2; ++hf)
+    tma_load_4d(q + hf * BM * 64, &p.qmap, qfull, hf * 64, t.q0, t.h * p.G,
+                t.b);
+}
+
+// bf16: the producer's first thread: Q once, then every live K / V tile.
 template <bool SEGM>
-__device__ __forceinline__ void producer(const Params& p, Smem& sm) {
+__device__ __forceinline__ void producer(const Params& p, Smem<false>& sm) {
   if (threadIdx.x != 0) return;
   const QTile t = q_tile<SEGM>(p);
   int kt = next_live<SEGM>(p, t, t.t_begin);
   if (kt >= t.t_end) return;  // nothing visible: the consumers store zeros
-  mbar_arrive_tx(&sm.qfull, 2 * HALF);
-  for (int hf = 0; hf < 2; ++hf)
-    tma_load_4d(sm.q + hf * BM * 64, &p.qmap, &sm.qfull, hf * 64, t.q0,
-                t.h * p.G, t.b);
+  issue_q(p, sm.q, &sm.qfull, t);
   Ring<ST> ring;
   for (; kt < t.t_end; kt = next_live<SEGM>(p, t, kt + 1)) {
     const int st = ring.stage;
@@ -227,9 +260,128 @@ __device__ __forceinline__ void producer(const Params& p, Smem& sm) {
   }
 }
 
-// A consumer warpgroup (cw = 0, 1): folded rows 64 cw .. 64 cw + 63.
+// int8, producer warp 0: Q once, then every live tile's two halves into
+// the staging slots.  Rows past Sk are not copied (the converters' bf16
+// rows for them hold whatever the slot held: finite, masked, scale 0).
 template <bool SEGM>
-__device__ __forceinline__ void consumer(const Params& p, Smem& sm, int cw) {
+__device__ __forceinline__ void loader(const Params& p, Smem<true>& sm) {
+  const int lane = threadIdx.x & 31;
+  const QTile t = q_tile<SEGM>(p);
+  int kt = next_live<SEGM>(p, t, t.t_begin);
+  if (kt >= t.t_end) return;
+  if (lane == 0) issue_q(p, sm.q, &sm.qfull, t);
+  const long long kb = t.b * p.k_sb + t.h * p.k_sh;
+  const long long vb = t.b * p.v_sb + t.h * p.v_sh;
+  const long long ksb = t.b * p.ks_sb + t.h * p.ks_sh;
+  const long long vsb = t.b * p.vs_sb + t.h * p.vs_sh;
+  Ring<SST> sr;
+  for (; kt < t.t_end; kt = next_live<SEGM>(p, t, kt + 1)) {
+    for (int hb = 0; hb < 2; ++hb) {
+      const int k0 = kt * BN + hb * HB;
+      const int nv = max(0, min(HB, p.Sk - k0));
+      uint64_t* bar = &sm.sfull[sr.stage];
+      int8_t* raw = sm.raw[sr.stage];
+      mbar_wait(&sm.sempty[sr.stage], sr.phase ^ 1u);
+      if (lane == 0) mbar_arrive_tx(bar, 2u * D * nv);
+      __syncwarp();
+      const int8_t* ks = p.k8 + kb + k0 * p.k_ss;
+      const int8_t* vs = p.v8 + vb + k0 * p.v_ss;
+      if (p.k_ss == D) {  // contiguous rows: one copy
+        if (lane == 0 && nv) bulk_load(raw, ks, D * nv, bar);
+      } else {
+        for (int r = lane; r < nv; r += 32)
+          bulk_load(raw + r * D, ks + r * p.k_ss, D, bar);
+      }
+      if (p.v_ss == D) {
+        if (lane == 0 && nv) bulk_load(raw + HB * D, vs, D * nv, bar);
+      } else {
+        for (int r = lane; r < nv; r += 32)
+          bulk_load(raw + (HB + r) * D, vs + r * p.v_ss, D, bar);
+      }
+      float* sc = reinterpret_cast<float*>(raw + 2 * HB * D);
+      for (int r = lane; r < nv; r += 32) {
+        cp_async_4(sc + r, p.ksc + ksb + (k0 + r) * p.ks_ss);
+        cp_async_4(sc + HB + r, p.vsc + vsb + (k0 + r) * p.vs_ss);
+      }
+      cp_async_arrive(bar);
+      sr.next();
+    }
+  }
+}
+
+// int8, converter warp cw (0..2) of one staged half (keys 64 hb ..) into
+// the bf16 K and V tiles: a task is 16 int8 values (a 16-byte chunk of
+// dims 16 c .. 16 c + 15 of one row) -> two 16-byte bf16 chunks at their
+// swizzled positions.  Consecutive lanes take the four chunks of one
+// 64-column half of a row, then the next row, so each 8-lane store phase
+// covers 8 distinct 16-byte bank groups (rows of both parities).
+__device__ __forceinline__ void convert_half(const int8_t* raw, bf16* kt,
+                                             bf16* vt, int hb, int cw) {
+  const int lane = threadIdx.x & 31;
+  for (int u = 32 * cw + lane; u < 2 * HB * (D / 16);
+       u += 32 * CONVERTERS) {
+    const int tensor = u / (HB * (D / 16));  // 0 K, 1 V
+    const int rem = u % (HB * (D / 16));
+    const int dh = rem / (HB * 4);           // 64-column half
+    const int rr = (rem % (HB * 4)) / 4, c4 = rem % 4;
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        raw + (tensor * HB + rr) * D + 16 * (4 * dh + c4));
+    const unsigned wd[4] = {x.x, x.y, x.z, x.w};
+    unsigned hv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float f[4];
+      i8x4_to_f32(wd[i], f);
+      hv[2 * i] = pack_bf16_exact(f[0], f[1]);
+      hv[2 * i + 1] = pack_bf16_exact(f[2], f[3]);
+    }
+    const int row = hb * HB + rr;
+    char* half = reinterpret_cast<char*>(tensor ? vt : kt) + dh * HALF +
+                 row * 128;
+    *reinterpret_cast<uint4*>(half + (((2 * c4) ^ (row & 7)) << 4)) =
+        make_uint4(hv[0], hv[1], hv[2], hv[3]);
+    *reinterpret_cast<uint4*>(half + (((2 * c4 + 1) ^ (row & 7)) << 4)) =
+        make_uint4(hv[4], hv[5], hv[6], hv[7]);
+  }
+}
+
+// int8, converter warps: every live tile, once its bf16 stage is free,
+// from its two staged halves (keys past Sk get scale 0).
+template <bool SEGM>
+__device__ __forceinline__ void converter(const Params& p, Smem<true>& sm,
+                                          int cw) {
+  const int lane = threadIdx.x & 31;
+  const QTile t = q_tile<SEGM>(p);
+  Ring<ST> ring;
+  Ring<SST> sr;
+  for (int kt = next_live<SEGM>(p, t, t.t_begin); kt < t.t_end;
+       kt = next_live<SEGM>(p, t, kt + 1)) {
+    const int st = ring.stage;
+    mbar_wait(&sm.empty[st], ring.phase ^ 1u);
+    for (int hb = 0; hb < 2; ++hb) {
+      mbar_wait(&sm.sfull[sr.stage], sr.phase);
+      const int8_t* raw = sm.raw[sr.stage];
+      const int nv = max(0, min(HB, p.Sk - (kt * BN + hb * HB)));
+      convert_half(raw, sm.k[st], sm.v[st], hb, cw);
+      const float* sc = reinterpret_cast<const float*>(raw + 2 * HB * D);
+      for (int r = 32 * cw + lane; r < HB; r += 32 * CONVERTERS) {
+        sm.sc[st][hb * HB + r] = r < nv ? sc[r] : 0.f;
+        sm.sc[st][BN + hb * HB + r] = r < nv ? sc[HB + r] : 0.f;
+      }
+      fence_proxy_async_shared();  // the stores, before wgmma reads them
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.sempty[sr.stage]);
+      sr.next();
+    }
+    if (lane == 0) mbar_arrive(&sm.full[st]);
+    ring.next();
+  }
+}
+
+// A consumer warpgroup (cw = 0, 1): folded rows 64 cw .. 64 cw + 63.
+template <bool SEGM, bool I8>
+__device__ __forceinline__ void consumer(const Params& p, Smem<I8>& sm,
+                                         int cw) {
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2;
   const QTile t = q_tile<SEGM>(p);
@@ -271,8 +423,9 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int cw) {
       run0 = p.koffs[e] - t0;
       run1 = split < p.Sk ? p.koffs[e + 1] - split : 0;
     }
-    tile_step(o, m_r, l_r, sq, sm.k[st], sm.v[st], whole, row_i, row_pos,
-              p.Sq, t0, p.Sk, split, run0, run1, p.mk);
+    tile_step<I8>(o, m_r, l_r, sq, sm.k[st], sm.v[st], whole, row_i,
+                  row_pos, p.Sq, t0, p.Sk, split, run0, run1, p.mk,
+                  I8 ? sm.sc[st] : nullptr);
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[st]);
     ring.next();
@@ -293,31 +446,44 @@ __device__ __forceinline__ void consumer(const Params& p, Smem& sm, int cw) {
   }
 }
 
-template <bool SEGM>
+template <bool SEGM, bool I8>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wg_kernel(const __grid_constant__ Params p) {
   extern __shared__ char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  Smem<I8>& sm = *reinterpret_cast<Smem<I8>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   if (threadIdx.x == 0) {
     mbar_init(&sm.qfull, 1);
     for (int i = 0; i < ST; ++i) {
-      mbar_init(&sm.full[i], 1);
+      mbar_init(&sm.full[i], I8 ? CONVERTERS : 1);
       mbar_init(&sm.empty[i], 8);  // every consumer warp
+    }
+    if constexpr (I8) {
+      for (int i = 0; i < SST; ++i) {
+        mbar_init(&sm.sfull[i], 1 + 32);  // + the cp.async lanes
+        mbar_init(&sm.sempty[i], CONVERTERS);
+      }
     }
     mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x < 128) {
-    regs_dealloc<PRODUCER_REGS>();
-    producer<SEGM>(p, sm);
+    regs_dealloc<PRODUCER_REGS<I8>>();
+    if constexpr (I8) {
+      if (threadIdx.x < 32)
+        loader<SEGM>(p, sm);
+      else
+        converter<SEGM>(p, sm, threadIdx.x / 32 - 1);
+    } else {
+      producer<SEGM>(p, sm);
+    }
   } else {
-    regs_alloc<CONSUMER_REGS>();
-    consumer<SEGM>(p, sm, threadIdx.x / 128 - 1);
+    regs_alloc<CONSUMER_REGS<I8>>();
+    consumer<SEGM, I8>(p, sm, threadIdx.x / 128 - 1);
   }
 }
 
-template <bool SEGM>
+template <bool SEGM, bool I8>
 int launch(const Params& p, void* stream) {
   // once per device, process and instantiation (outside graph capture)
   static unsigned attr_set = 0;
@@ -325,331 +491,51 @@ int launch(const Params& p, void* stream) {
   cudaGetDevice(&dev);
   if (!(attr_set & (1u << dev))) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_wg_kernel<SEGM>,
+        flash_fwd_wg_kernel<SEGM, I8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
+        static_cast<int>(SMEM_BYTES<I8>));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set |= 1u << dev;
   }
-  flash_fwd_wg_kernel<SEGM><<<p.n_qt * p.Hkv * p.B, NT, SMEM_BYTES,
-                              static_cast<cudaStream_t>(stream)>>>(p);
+  flash_fwd_wg_kernel<SEGM, I8><<<p.n_qt * p.Hkv * p.B, NT, SMEM_BYTES<I8>,
+                                  static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fields both modes share, and q's tensor map.
+int fill(Params& p, const void* q, void* out, void* lse, int B, int Hq,
+         int Hkv, int Sq, int Sk, long long q_sb, long long q_sh,
+         long long q_ss, const void* qoffs, long long qoffs_sb,
+         const void* koffs, long long koffs_sb, int q_offset, int kv_offset,
+         int causal, int window, float scale, float soft_cap) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv || 64 % (Hq / Hkv) || Sq < 1 || Sk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.out = static_cast<bf16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.B = B;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.G = Hq / Hkv;
+  p.BQ = BM / p.G;
+  p.n_qt = (Sq + p.BQ - 1) / p.BQ;
+  p.qoffs = static_cast<const int*>(qoffs);
+  p.koffs = static_cast<const int*>(koffs);
+  p.qoffs_sb = qoffs_sb;
+  p.koffs_sb = koffs_sb;
+  p.q_offset = q_offset;
+  p.kv_offset = kv_offset;
+  p.mk = Mask{causal, window, scale, soft_cap};
+  p.k8 = p.v8 = nullptr;
+  p.ksc = p.vsc = nullptr;
+  const long long qd[4] = {D, Sq, Hq, B};
+  const long long qs[4] = {1, q_ss, q_sh, q_sb};
+  const int qbox[4] = {64, p.BQ, p.G, 1};
+  return make_map(&p.qmap, q, 4, qd, qs, qbox);
 }
 
 }  // namespace wg
-
-// ------------------------------------------------------- the int8 kernel
-
-namespace i8 {
-
-using namespace tdt_frag;
-
-constexpr int D = 128;       // head dim
-constexpr int BM = 64;       // q-tile rows (16 per warp)
-constexpr int BN = 64;       // keys per tile
-constexpr int NT = 128;      // 4 warps
-constexpr int LD = D + 8;    // bf16 row stride in shared memory (272 B)
-constexpr int LD8 = D + 16;  // int8 staging row stride (bytes)
-constexpr float NEG_INF = -1.0e30f;  // finite -inf proxy, as on the TPU
-
-// This field order (k / v also as bf16 pointers) is kept for ptxas's
-// register assignment: without the two pointers it assigned others and
-// the kernel ran ~2% slower on an H100.
-struct Params {
-  const bf16* q;
-  const bf16* k;      // the int8 K / V's addresses (k: a valid address for
-  const bf16* v;      // a zero-filled cp.async)
-  const int8_t* k8;   // int8 K/V and their f32 scales [B, Hkv, Sk]
-  const int8_t* v8;
-  const float* ksc;
-  const float* vsc;
-  bf16* out;
-  float* lse;
-  int Sq, Sk, Hq, Hkv, G, BQ;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long ks_sb, ks_sh, ks_ss;
-  long long vs_sb, vs_sh, vs_ss;
-  const int* qoffs;  // [B][Sq / SEG] block starts, or null (contiguous)
-  const int* koffs;  // [B][Sk / SEG]
-  long long qoffs_sb, koffs_sb;
-  int q_offset, kv_offset, causal, window;
-  float scale, soft_cap;
-};
-
-// Q, one bf16 K/V tile, and a two-stage ring of int8 K/V tiles with their
-// scales.
-constexpr size_t SMEM_BYTES =
-    static_cast<size_t>(BM + 2 * BN) * LD * 2 + 4 * BN * LD8 + 4 * BN * 4;
-
-// Every tile of this kernel (64 keys, 64 / G query positions) lies inside
-// one block of SEG, so a tile's positions are its first position plus the
-// row offset.
-template <bool SEGM>
-__global__ void __launch_bounds__(NT, 2)
-flash_fwd_i8_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(128) char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
-  bf16* sK = sQ + BM * LD;                       // [BN][LD]
-  bf16* sV = sK + BN * LD;                       // [BN][LD]
-  int8_t* sK8 = reinterpret_cast<int8_t*>(sV + BN * LD);
-  int8_t* sV8 = sK8 + 2 * BN * LD8;              // [2][BN][LD8] each
-  float* sKs = reinterpret_cast<float*>(sV8 + 2 * BN * LD8);  // [2][BN]
-  float* sVs = sKs + 2 * BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane >> 2, tq = lane & 3;  // mma fragment row / column pair
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * p.BQ;
-  const int n_rows = min(p.BQ, p.Sq - q0);
-  const int q_first =
-      SEGM ? pos_of(p.qoffs, p.qoffs_sb, p.q_offset, b, q0) : p.q_offset + q0;
-  const int q_last = q_first + n_rows - 1;
-  auto k_pos = [&](int key) {
-    return SEGM ? pos_of(p.koffs, p.koffs_sb, p.kv_offset, b, key)
-                : p.kv_offset + key;
-  };
-
-  // `_block_live` per key tile t: causal stops past the last row's
-  // position, a window starts at the first row's earliest visible key.
-  // Contiguous keys take the closed-form live range [t_begin, t_end),
-  // every tile of which is live, and test no tile; segmented keys test
-  // each tile.
-  int t_begin = 0, t_end = (p.Sk + BN - 1) / BN;
-  if (!SEGM || !p.koffs) {
-    int hi = p.Sk;
-    if (p.causal) hi = min(hi, q_last - p.kv_offset + 1);
-    int lo = 0;
-    if (p.window) lo = max(lo, q_first - p.window + 1 - p.kv_offset);
-    t_begin = lo / BN;
-    t_end = hi > t_begin * BN ? (hi + BN - 1) / BN : t_begin;
-  }
-  auto live = [&](int t) {
-    const int kf = k_pos(t * BN), nk = min(BN, p.Sk - t * BN);
-    return (!p.causal || kf <= q_last) &&
-           (!p.window || kf + nk - 1 > q_first - p.window);
-  };
-  auto next_live = [&](int t) {
-    if (SEGM && p.koffs)
-      while (t < t_end && !live(t)) ++t;
-    return t;
-  };
-
-  auto load_kv = [&](int t0, int buf) {
-    int8_t* dk = sK8 + buf * BN * LD8;
-    int8_t* dv = sV8 + buf * BN * LD8;
-#pragma unroll
-    for (int i = 0; i < BN * (D / 16) / NT; ++i) {
-      const int j = tid + i * NT, r = j / (D / 16), c = j % (D / 16);
-      const int key = t0 + r;
-      const bool ok = key < p.Sk;
-      cp_async16(dk + r * LD8 + c * 16,
-                 ok ? p.k8 + b * p.k_sb + h * p.k_sh + key * p.k_ss + c * 16
-                    : nullptr, p.k8);
-      cp_async16(dv + r * LD8 + c * 16,
-                 ok ? p.v8 + b * p.v_sb + h * p.v_sh + key * p.v_ss + c * 16
-                    : nullptr, p.k8);
-    }
-    static_assert(NT == 2 * BN, "one scale per thread");
-    const int r = tid % BN, key = t0 + r;
-    const bool ok = key < p.Sk;
-    if (tid < BN)
-      cp_async4(sKs + buf * BN + r,
-                ok ? p.ksc + b * p.ks_sb + h * p.ks_sh + key * p.ks_ss
-                   : nullptr, p.ksc);
-    else
-      cp_async4(sVs + buf * BN + r,
-                ok ? p.vsc + b * p.vs_sb + h * p.vs_sh + key * p.vs_ss
-                   : nullptr, p.ksc);
-  };
-
-  // Each thread's two rows of the warp's 16: gq and gq + 8.
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};
-
-  int t = next_live(t_begin);
-  if (t < t_end) {
-#pragma unroll
-    for (int i = 0; i < BM * (D / 8) / NT; ++i) {
-      const int j = tid + i * NT, r = j / (D / 8), c = j % (D / 8);
-      const int qi = q0 + r % p.BQ;
-      cp_async16(sQ + r * LD + c * 8,
-                 qi < p.Sq ? p.q + b * p.q_sb + (h * p.G + r / p.BQ) * p.q_sh
-                                 + qi * p.q_ss + c * 8
-                           : nullptr, p.k);
-    }
-    load_kv(t * BN, 0);
-    cp_commit();
-  }
-
-  unsigned qf[D / 16][4];  // the warp's Q fragments, one per k-step
-  for (int it = 0; t < t_end; ++it) {
-    const int t0 = t * BN, buf = it & 1;
-    const int tn = next_live(t + 1);
-    if (tn < t_end) {
-      load_kv(tn * BN, buf ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        load_a(qf[kk], sQ, LD, warp * 16, kk * 16);
-    }
-    const float* ks_t = sKs + buf * BN;
-    const float* vs_t = sVs + buf * BN;
-    // the staged int8 tiles -> the bf16 tiles the fragments read
-#pragma unroll
-    for (int i = 0; i < BN * (D / 16) / NT; ++i) {
-      const int j = tid + i * NT, r = j / (D / 16), c = j % (D / 16);
-      cvt_i8x16_bf16(sK + r * LD + c * 16, sK8 + buf * BN * LD8 + r * LD8
-                                               + c * 16);
-      cvt_i8x16_bf16(sV + r * LD + c * 16, sV8 + buf * BN * LD8 + r * LD8
-                                               + c * 16);
-    }
-    __syncthreads();
-
-    // S[16 x 64] = Q K^T: 8 key n-tiles of 8, 8 k-steps of 16 over D.
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < BN / 16; ++jp) {
-        unsigned kb[4];
-        load_b_nk(kb, sK, LD, jp * 16, kk * 16);
-        mma16816(s[2 * jp], qf[kk], kb[0], kb[1]);
-        mma16816(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
-      }
-    }
-
-    // Online softmax on the two rows this thread holds (the TPU kernels'
-    // m / l / alpha rule; masked logits NEG_INF, their p an explicit 0).
-    const int k_first = k_pos(t0);
-    const bool full =
-        t0 + BN <= p.Sk && q0 + p.BQ <= p.Sq &&
-        (!p.causal || q_first >= k_first + BN - 1) &&
-        (!p.window || q_last - k_first < p.window);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 ks2 =
-          *reinterpret_cast<const float2*>(ks_t + j * 8 + 2 * tq);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * ((e & 1 ? ks2.y : ks2.x) * p.scale);
-        if (p.soft_cap > 0.f) x = p.soft_cap * tanhf(x / p.soft_cap);
-        if (!full) {
-          // `_visibility_mask`
-          const int row = warp * 16 + gq + (e >> 1) * 8;
-          const int i = q0 + row % p.BQ;
-          const int key = t0 + j * 8 + 2 * tq + (e & 1);
-          const int qpos = q_first + (i - q0), kpos = k_first + (key - t0);
-          const bool vis = i < p.Sq && key < p.Sk &&
-                           (!p.causal || qpos >= kpos) &&
-                           (!p.window || qpos - kpos < p.window);
-          if (!vis) x = NEG_INF;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
-      alpha[r] = expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 vs2 =
-          *reinterpret_cast<const float2*>(vs_t + j * 8 + 2 * tq);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float pe = x > 0.5f * NEG_INF ? expf(x - m_r[e >> 1]) : 0.f;
-        sum[e >> 1] += pe;
-        // V's scale folds into P before its bf16 rounding
-        s[j][e] = pe * (e & 1 ? vs2.y : vs2.x);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O[16 x 128] += P[16 x 64] V[64 x 128]: P's A fragments come from
-    // the S accumulators (n-tiles 2ks, 2ks + 1 = keys 16ks .. 16ks + 15).
-#pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-      unsigned a[4];
-      acc_to_a(a, s, ks);
-#pragma unroll
-      for (int jp = 0; jp < D / 16; ++jp) {
-        unsigned vb[4];
-        load_b_kn(vb, sV, LD, ks * 16, jp * 16);
-        mma16816(o[2 * jp], a, vb[0], vb[1]);
-        mma16816(o[2 * jp + 1], a, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buf before it refills
-    t = tn;
-  }
-
-  // Epilogue: out = O / l in bf16, lse = m + log(l) (NEG_INF when empty).
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_r[r]);
-    const int row = warp * 16 + gq + r * 8;
-    const int i = q0 + row % p.BQ;
-    if (i >= p.Sq) continue;
-    const long long o_row =
-        (static_cast<long long>(b) * p.Hq + h * p.G + row / p.BQ) * p.Sq + i;
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    bf16* dst = p.out + o_row * D + 2 * tq;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-    if (tq == 0) p.lse[o_row] = l > 0.f ? m_r[r] + logf(l) : NEG_INF;
-  }
-}
-
-template <bool SEGM>
-int launch(Params& p, int B, void* stream) {
-  // once per device, process and instantiation (outside graph capture)
-  static unsigned attr_set = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (!(attr_set & (1u << dev))) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_i8_kernel<SEGM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set |= 1u << dev;
-  }
-  const dim3 grid((p.Sq + p.BQ - 1) / p.BQ, p.Hkv, B);
-  flash_fwd_i8_kernel<SEGM><<<grid, NT, SMEM_BYTES,
-                              static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace i8
 
 }  // namespace
 
@@ -669,43 +555,26 @@ extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
                              int causal, int window, float scale,
                              float soft_cap, void* stream) {
   using namespace wg;
-  if (B < 1 || Hkv < 1 || Hq % Hkv || 64 % (Hq / Hkv) || Sq < 1 || Sk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.out = static_cast<bf16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.B = B;
-  p.Sq = Sq;
-  p.Sk = Sk;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.G = Hq / Hkv;
-  p.BQ = BM / p.G;
-  p.n_qt = (Sq + p.BQ - 1) / p.BQ;
-  p.qoffs = static_cast<const int*>(qoffs);
-  p.koffs = static_cast<const int*>(koffs);
-  p.qoffs_sb = qoffs_sb;
-  p.koffs_sb = koffs_sb;
-  p.q_offset = q_offset;
-  p.kv_offset = kv_offset;
-  p.mk = Mask{causal, window, scale, soft_cap};
-  const long long qd[4] = {D, Sq, Hq, B};
+  int err = fill(p, q, out, lse, B, Hq, Hkv, Sq, Sk, q_sb, q_sh, q_ss, qoffs,
+                 qoffs_sb, koffs, koffs_sb, q_offset, kv_offset, causal,
+                 window, scale, soft_cap);
   const long long kd[4] = {D, Sk, Hkv, B};
-  const long long qs[4] = {1, q_ss, q_sh, q_sb};
   const long long ks[4] = {1, k_ss, k_sh, k_sb};
   const long long vs[4] = {1, v_ss, v_sh, v_sb};
-  const int qbox[4] = {64, p.BQ, p.G, 1};
   const int kbox[4] = {64, BN, 1, 1};
-  int err = make_map(&p.qmap, q, 4, qd, qs, qbox);
   if (!err) err = make_map(&p.kmap, k, 4, kd, ks, kbox);
   if (!err) err = make_map(&p.vmap, v, 4, kd, vs, kbox);
   if (err) return err;
-  return qoffs || koffs ? launch<true>(p, stream) : launch<false>(p, stream);
+  return qoffs || koffs ? launch<true, false>(p, stream)
+                        : launch<false, false>(p, stream);
 }
 
-// The int8 twin: k/v int8 (strides in bytes) with f32 scale planes
-// k_scale / v_scale [B, Hkv, Sk] and their strides.  qoffs / koffs: the
-// per-block start vectors (header), or null for q_offset / kv_offset.
+// The int8 mode: q as above (read by TMA); k / v int8 [B, Hkv, Sk, D]
+// with strides in bytes (16-byte aligned rows: read by 1-D bulk copies)
+// and the f32 scale planes k_scale / v_scale [B, Hkv, Sk] with theirs
+// (any).  qoffs / koffs: the per-block start vectors (header), or null for
+// q_offset / kv_offset.
 extern "C" int tdt_flash_fwd_i8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, void* out, void* lse, int B, int Hq, int Hkv,
@@ -716,38 +585,20 @@ extern "C" int tdt_flash_fwd_i8(
     const void* qoffs, long long qoffs_sb, const void* koffs,
     long long koffs_sb, int q_offset, int kv_offset, int causal, int window,
     float scale, float soft_cap, void* stream) {
-  using namespace i8;
+  using namespace wg;
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
+  const int err = fill(p, q, out, lse, B, Hq, Hkv, Sq, Sk, q_sb, q_sh, q_ss,
+                       qoffs, qoffs_sb, koffs, koffs_sb, q_offset, kv_offset,
+                       causal, window, scale, soft_cap);
+  if (err) return err;
   p.k8 = static_cast<const int8_t*>(k);
   p.v8 = static_cast<const int8_t*>(v);
   p.ksc = static_cast<const float*>(k_scale);
   p.vsc = static_cast<const float*>(v_scale);
-  p.out = static_cast<bf16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.Sq = Sq;
-  p.Sk = Sk;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.G = Hq / Hkv;
-  p.BQ = BM / p.G;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.ks_sb = ks_sb; p.ks_sh = ks_sh; p.ks_ss = ks_ss;
   p.vs_sb = vs_sb; p.vs_sh = vs_sh; p.vs_ss = vs_ss;
-  p.qoffs = static_cast<const int*>(qoffs);
-  p.koffs = static_cast<const int*>(koffs);
-  p.qoffs_sb = qoffs_sb;
-  p.koffs_sb = koffs_sb;
-  p.q_offset = q_offset;
-  p.kv_offset = kv_offset;
-  p.causal = causal;
-  p.window = window;
-  p.scale = scale;
-  p.soft_cap = soft_cap;
-  return qoffs || koffs ? launch<true>(p, B, stream)
-                        : launch<false>(p, B, stream);
+  return qoffs || koffs ? launch<true, true>(p, stream)
+                        : launch<false, true>(p, stream);
 }

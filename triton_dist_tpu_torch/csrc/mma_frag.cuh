@@ -1,7 +1,9 @@
-// Register-tile building blocks of the flash kernels (flash_fwd.cu,
-// flash_bwd.cu) and the int8 GEMM (matmul_i8.cu): cp.async copies into
-// shared memory, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16
-// product with f32 accumulation and the int8 m16n8k32 one with int32.
+// Register-tile building blocks of the decode kernel (decode.cu), the
+// int8 flash forward's converters (flash_fwd.cu) and the bf16 / int8 GEMM
+// tile loops (bf16_tile.cuh, i8_tile.cuh): cp.async copies into shared
+// memory, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 product
+// with f32 accumulation and the int8 m16n8k32 one with int32, and the
+// exact int8 -> f32 / bf16 conversions.
 //
 // Fragment layout of m16n8k16 (lane = 4 * gq + tq): A rows gq and gq + 8,
 // columns 2tq, 2tq + 1 (+ 8); B columns gq, rows 2tq, 2tq + 1 (+ 8); C rows
@@ -131,18 +133,22 @@ __device__ inline void load_b_kn(unsigned (&b)[4], const bf16* tile, int ld,
                            n0 + (lane >> 4) * 8);
 }
 
-// 16 int8 values (16 bytes of shared memory) -> 16 bf16 (32 bytes),
-// exact: |q| <= 127 needs 7 of bf16's 8 mantissa bits.
-__device__ inline void cvt_i8x16_bf16(bf16* dst, const int8_t* src) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  unsigned h[8];
+// Four int8 values (one 32-bit word, byte i = value i) -> f32, exact and
+// without the quarter-rate I2F: byte i, biased by 128, is permuted into
+// the low mantissa bits of 2^23, and one subtraction takes 2^23 + 128
+// back out.
+__device__ inline void i8x4_to_f32(unsigned w, float (&f)[4]) {
+  const unsigned u = w ^ 0x80808080u;  // x + 128 in each byte
 #pragma unroll
-  for (int e = 0; e < 8; ++e)
-    h[e] = pack_bf16(static_cast<float>(b[2 * e]),
-                     static_cast<float>(b[2 * e + 1]));
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(h[0], h[1], h[2], h[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(h[4], h[5], h[6], h[7]);
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+           8388736.0f;
+}
+
+// Two f32 that bf16 holds exactly (|x| <= 127 integers, as i8x4_to_f32
+// gives) -> bf16x2 by truncation: one byte permute.
+__device__ inline unsigned pack_bf16_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 __device__ inline float quad_max(float x) {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
-// (ring_attn.cu, flash_fwd.cu, flash_bwd.cu, and the GEMM mainloop of
-// sm90_gemm.cuh): mbarriers, TMA tile loads, the wgmma shared-memory
+// (ring_attn.cu, flash_fwd.cu, flash_bwd.cu, decode.cu, and the GEMM
+// mainloop of sm90_gemm.cuh): mbarriers, TMA tile loads, 1-D bulk copies
+// and cp.async arrivals on an mbarrier, the wgmma shared-memory
 // descriptor of 128-byte-swizzled tiles, wgmma issue (bf16 with A from
 // shared memory or from registers; int8 with both from shared memory),
 // its fence / commit / wait, setmaxnreg, and the host side that encodes a
@@ -155,6 +156,31 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
+}
+
+// 1-D bulk copy (no tensor map) of `bytes` from global memory into this
+// block's shared memory, completing on `bar` as transaction bytes: both
+// addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 4-byte cp.async (one f32 that no bulk copy may move alone).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before has
+// landed; the barrier's count includes it (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // ------------------------------------------------------------------- wgmma

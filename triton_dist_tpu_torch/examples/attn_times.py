@@ -1,13 +1,15 @@
-"""Time the attention forwards and the SP combine of several checkouts of
-this repository on one card, interleaved, to compare two versions of
-``csrc/flash_fwd.cu``, ``csrc/ring_attn.cu`` (and the tile body they
-share) and ``csrc/sp_combine.cu`` in the same call.
+"""Time the attention forwards, the decode kernel and the SP combine of
+several checkouts of this repository on one card, interleaved, to compare
+two versions of ``csrc/flash_fwd.cu``, ``csrc/ring_attn.cu`` (and the tile
+body they share), ``csrc/decode.cu`` and ``csrc/sp_combine.cu`` in the
+same call.
 
     python -m triton_dist_tpu_torch.examples.attn_times TREE_A TREE_B
 
 The runner is ``flash_times``'s: one fresh process per tree and round, in
 the order A B .. B A, each building and importing its own tree.  At
-``chip_smoke.py``'s shapes it times PERF.md rows 1, 1z, 21 and 17:
+``chip_smoke.py``'s shapes it times PERF.md rows 1, 1z, 21, 2, 3, 4, 4p
+and 17:
 
 - ``flash_fwd``: the engine's 512-row chunk at q_offset 1536 over 2048
   keys, B 1, Hq 32 / Hkv 8, D 128, bf16 (CUDA-graph replays);
@@ -17,6 +19,13 @@ the order A B .. B A, each building and importing its own tree.  At
 - ``ring_attn`` / ``ring_attn_zigzag``: the fused ring at W 4, S_loc
   2048, B 1, causal (eager, 10 calls between CUDA events: a launch
   carries its call's epoch);
+- ``decode`` / ``decode_paged`` / ``decode_i8`` / ``decode_paged_i8``:
+  one decode token of B 8 sequences of lens 777..2048 over a cache of S
+  2048 (page 16 pools, shuffled tables), Hq 32 / Hkv 8, D 128, bf16 and
+  int8 K / V (CUDA-graph replays, L2 warm);
+- ``decode_i8_cold`` / ``decode_paged_i8_cold``: the int8 rows with L2
+  cold, a 128 MiB write before every call (CUDA-graph replays of write
+  and decode, less the replays of the write alone);
 - ``sp_combine`` / ``sp_combine_chunk``: the SP-4 combine of out [4, 8,
   32, 128] and [4, 512, 32, 128] f32 (the profiler's device time over 20
   eager calls: the decode shape's eager calls wait on the host).
@@ -33,7 +42,10 @@ import sys
 SHAPES = ("flash_fwd: [1, 32, 512, 128] at q_offset 1536 over [1, 8, 2048, "
           "128]; flash_fwd_seg: [4, 32, 2048, 128], zigzag CP-4 step 1; "
           "ring_attn: W 4, S_loc 2048, Hq 32 / Hkv 8, contiguous and "
-          "zigzag; sp_combine: [4, 8, 32, 128] and [4, 512, 32, 128] f32")
+          "zigzag; decode: q [8, 32, 128] over [8, 8, 2048, 128], lens "
+          "777..2048, page 16, bf16 and int8 (cold: 128 MiB written before "
+          "each call); sp_combine: [4, 8, 32, 128] and [4, 512, 32, 128] "
+          "f32")
 
 
 def _event_ms(fn, iters=10):
@@ -70,6 +82,50 @@ def _device_ms(fn, key, iters=20):
     return us / 1e3 / iters
 
 
+def _cold_ms(fn, flush, iters=20, reps=5):
+    """Device ms of one ``fn()`` with the L2 cold: CUDA-graph replays of
+    ``iters`` x (``flush()``, ``fn()``) less those of ``iters`` x
+    ``flush()``."""
+    from flash_times import _graph_ms
+
+    def both():
+        flush()
+        fn()
+
+    return (_graph_ms(both, iters, reps)
+            - _graph_ms(flush, iters, reps))
+
+
+def _decode_calls(torch, fd, randn, dev, Hq, Hkv, D):
+    """chip_smoke.py's decode rows: (name -> call) at its shapes."""
+    B, S, page = 8, 2048, 16
+    g = torch.Generator(device=dev).manual_seed(99)
+    k, v = randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+    lens = torch.tensor([2048, 1999, 1500, 1024, 1800, 777, 2047, 1300],
+                        dtype=torch.int32, device=dev)
+    q = randn(B, Hq, D)
+    need = [-(-int(n) // page) for n in lens.tolist()]
+    n_blocks = 1 + sum(need) + 64
+    perm = torch.randperm(n_blocks - 1, generator=g, device=dev) + 1
+    table = torch.zeros((B, S // page), dtype=torch.int32, device=dev)
+    at = 0
+    for b in range(B):
+        table[b, :need[b]] = perm[at:at + need[b]].to(torch.int32)
+        at += need[b]
+    kp, vp = randn(n_blocks, Hkv, page, D), randn(n_blocks, Hkv, page, D)
+    (kq, ks), (vq, vs) = (fd.quantize_kv(x.float()) for x in (k, v))
+    (kpq, kps), (vpq, vps) = (fd.quantize_kv(x.float()) for x in (kp, vp))
+    return {
+        "decode": lambda: fd.gqa_decode_shard(q, k, v, lens),
+        "decode_paged": lambda: fd.gqa_decode_paged_shard(q, kp, vp, table,
+                                                          lens),
+        "decode_i8": lambda: fd.gqa_decode_shard(q, kq, vq, lens,
+                                                 k_scale=ks, v_scale=vs),
+        "decode_paged_i8": lambda: fd.gqa_decode_paged_shard(
+            q, kpq, vpq, table, lens, k_scale=kps, v_scale=vps),
+    }
+
+
 def time_tree(tree: str, repeats: int) -> dict:
     """Median ms of each call of ``tree``'s port (imported from there)."""
     sys.path.insert(0, tree)
@@ -85,7 +141,7 @@ def time_tree(tree: str, repeats: int) -> dict:
     here = os.path.realpath(triton_dist_tpu_torch.__file__)
     if not here.startswith(os.path.realpath(tree) + os.sep):
         raise RuntimeError(f"imported the port from {here}, not {tree}")
-    _build.build(("flash_fwd", "ring_attn", "sp_combine"))
+    _build.build(("flash_fwd", "ring_attn", "sp_combine", "decode"))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
 
@@ -107,13 +163,18 @@ def time_tree(tree: str, repeats: int) -> dict:
     graphed = {
         "flash_fwd": lambda: fa.flash_attention(q, k, v, q_offset=1536),
         "flash_fwd_seg": lambda: fa.flash_attention(zq, zk, zv, **zkw),
+        **_decode_calls(torch, fd, randn, dev, Hq, Hkv, D),
     }
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     eager = {
         "ring_attn": lambda: ra.ring_attn(rq, rk, rv, zigzag=False),
         "ring_attn_zigzag": lambda: ra.ring_attn(rq, rk, rv, zigzag=True),
     }
     out = {n: statistics.median(_graph_ms(fn) for _ in range(repeats))
            for n, fn in graphed.items()}
+    for name in ("decode_i8", "decode_paged_i8"):
+        out[name + "_cold"] = statistics.median(
+            _cold_ms(graphed[name], scrub.zero_) for _ in range(repeats))
     out.update({n: statistics.median(_event_ms(fn) for _ in range(repeats))
                 for n, fn in eager.items()})
     for name, (o, lse) in parts.items():

@@ -17,9 +17,11 @@ also call directly.
 
 int8 K/V (``k_scale``/``v_scale`` [B, Hkv, Sk] f32, the serving int8
 cache) dequantize inside attention as the reference's ``_flash_xla`` does;
-on a CUDA tensor that is the int8 kernel of the same source
-(``flash_fwd_i8_kernel`` through :func:`flash_fwd_i8`, the port of
-``_flash_kernel_i8``, with its own launch count).  The quantized path is forward-only, as in the reference.
+on a CUDA tensor that is the same kernel's int8 instantiation
+(``flash_fwd_wg_kernel<SEGM, true>`` through :func:`flash_fwd_i8`, the
+port of ``_flash_kernel_i8``, with its own launch count; q by TMA as
+above, the int8 rows by 1-D bulk copies).  The quantized path is
+forward-only, as in the reference.
 
 Sequence parallelism: :func:`sp_flash_partials` runs flash over each
 rank's span of a rank-stacked cache at its global ``kv_offset``, and
@@ -344,9 +346,9 @@ def _tma_strides(x):
 
 
 def _flash_fwd_operands(q, k, v, kv_dtype):
-    """Check what the forward kernels take (D 128, G dividing 64, bf16 q,
-    k/v in ``kv_dtype``; bf16: :func:`flash_operand_ok`, int8: 16-byte
-    aligned rows); returns the outputs."""
+    """Check what the forward kernel takes (D 128, G dividing 64, bf16 q,
+    k/v in ``kv_dtype``; q and bf16 k / v: :func:`flash_operand_ok`, int8
+    k / v: 16-byte aligned rows); returns the outputs."""
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
     if D != 128:
@@ -355,12 +357,12 @@ def _flash_fwd_operands(q, k, v, kv_dtype):
     if 64 % g:
         raise ValueError(f"flash_fwd kernel: the group size Hq/Hkv={g} must "
                          f"divide 64 (a q tile folds the group)")
-    tma = kv_dtype == torch.bfloat16   # the bf16 kernel reads by TMA
     for name, x, dt in (("q", q, torch.bfloat16), ("k", k, kv_dtype),
                         ("v", v, kv_dtype)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if not tma or x.dtype != dt:
+        # TMA reads q and bf16 k / v; int8 rows come by 1-D bulk copies
+        if dt == torch.int8 or x.dtype != dt:
             _check_cuda_operand(name, x, dt)
         elif x.data_ptr() % 16 or not flash_operand_ok(
                 x.shape, x.stride(), x.dtype, x.storage_offset()):
@@ -402,9 +404,10 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, q_offset, kv_offset,
 def flash_fwd_i8(q, k, v, k_scale, v_scale, *, causal, scale, q_offset,
                  kv_offset, soft_cap, window):
     """The int8 instantiation of the forward kernel on CUDA tensors (the
-    port of ``_flash_kernel_i8``): q bf16 [B, Hq, Sq, D]; k/v int8
-    [B, Hkv, Sk, D] with f32 ``k_scale``/``v_scale`` [B, Hkv, Sk]
-    (any strides with unit last stride).  Returns (out bf16, lse f32)."""
+    port of ``_flash_kernel_i8``): q bf16 [B, Hq, Sq, D], a TMA operand
+    (:func:`flash_operand_ok`); k/v int8 [B, Hkv, Sk, D] with 16-byte
+    aligned rows and f32 ``k_scale``/``v_scale`` [B, Hkv, Sk] (any
+    strides).  Returns (out bf16, lse f32)."""
     B, Hq, Sq, _ = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out, lse = _flash_fwd_operands(q, k, v, torch.int8)
@@ -416,7 +419,7 @@ def flash_fwd_i8(q, k, v, k_scale, v_scale, *, causal, scale, q_offset,
         err = lib.tdt_flash_fwd_i8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Hq, Hkv,
-            Sq, Sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            Sq, Sk, *_tma_strides(q), *k.stride()[:3], *v.stride()[:3],
             *k_scale.stride(), *v_scale.stride(), *starts, *offs,
             int(bool(causal)), int(window), float(scale),
             float(soft_cap or 0.0), torch.cuda.current_stream().cuda_stream)

@@ -14,9 +14,15 @@ reference's ``_local_decode_xla`` does: K's scale multiplies the logit
 columns, V's folds into P before the PV product.
 
 On CUDA tensors both launch the hand-written Hopper kernel
-``csrc/decode.cu`` (one device function; the paged entry reads page ids
-from the block table; an int8 instantiation for int8 caches) or raise on
-what it does not take.  Each kernel mode counts its own launches:
+``csrc/decode.cu`` (one kernel: a producer warp streams K / V tiles into a
+ring by cp.async, consumer warps keep the softmax state in registers;
+the paged entry reads page ids from the block table; an int8
+instantiation for int8 caches) or raise on what it does not take.  A call
+is one launch: each split of a (batch, kv-head) pair takes its share of
+the pair's live tiles (:func:`live_tiles`, :func:`split_tiles`) and the
+last split to finish merges the pair's partials in the same launch,
+counting on a per-device workspace (:func:`_merge_counters`).  Each kernel
+mode counts its own launches:
 ``gqa_decode_shard.launches`` and ``gqa_decode_paged_shard.launches``
 (bf16), ``decode_i8.launches`` and ``decode_paged_i8.launches`` (int8).
 On CPU tensors they run the plain PyTorch versions :func:`decode_ref` and
@@ -68,18 +74,26 @@ from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, World, get_world
 from triton_dist_tpu_torch.runtime.symm_mem import peer_table
 
 MAX_ROWS = 128  # T * G query rows one decode block holds
-TILE = 64       # key positions per kernel tile (csrc/attn_common.cuh BN)
-BLOCKS_PER_SM = 4  # split-KV target: about this many blocks per SM
+TILE = 64       # key positions per kernel tile (csrc/decode.cu BN)
+# the split count keeps the grid within one wave of the kernel's 2
+# resident blocks an SM (PERF.md has the trials: examples/decode_trials.py)
+BLOCKS_PER_SM = 2
+# bytes of the kernel's K / V ring (csrc/decode.cu RING_BYTES: 2 stages of
+# 64 bf16 K and V rows of 136, or 3 of 64 int8 rows of 144 and their
+# scales), by int8-ness; a pair's merge keeps (n_split + 2) * T * G f32
+# there, which bounds the split count
+RING_BYTES = {False: 2 * (2 * TILE * 136 * 2),
+              True: 3 * (2 * TILE * 144 + 2 * TILE * 4)}
 
 _TAIL = [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _DECODE_SIG = {
-    "tdt_decode": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    "tdt_decode": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 6 + _TAIL,
-    "tdt_decode_paged": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    "tdt_decode_paged": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
     + [ctypes.c_longlong] * 6 + _TAIL,
-    "tdt_decode_i8": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    "tdt_decode_i8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 12 + _TAIL,
-    "tdt_decode_paged_i8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+    "tdt_decode_paged_i8": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
     + [ctypes.c_longlong] * 12 + _TAIL,
 }
 _SP_SIG = {"tdt_sp_combine": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
@@ -91,15 +105,75 @@ SP_COMBINE_THREADS = 256  # csrc/sp_combine.cu NT
 SP_COMBINE_VEC = 4        # csrc/sp_combine.cu V: float4s a thread merges
 
 
-def split_plan(n_pairs: int, S_total: int, sms: int):
-    """(n_split, split_len) of the split-KV grid: enough splits that
-    ``n_pairs`` (batch x kv-head) pairs fill about BLOCKS_PER_SM blocks
-    per SM, each split a whole number of tiles; computed from shapes
-    alone, so no host sync."""
+def split_plan(n_pairs: int, S_total: int, sms: int, rows: int = 1,
+               int8: bool = False) -> int:
+    """The split count of the decode grid: as many splits as keep the
+    grid within about BLOCKS_PER_SM blocks an SM (one wave at the
+    kernel's two resident blocks an SM: a block's start and its merge are
+    latencies a second wave would pay again), at least one, at most one
+    a tile of the cache, and at most what lets a pair's merge of ``rows``
+    (T * G) query rows keep its (n_split + 2) * rows f32 in the ring
+    (:data:`RING_BYTES`; the kernel refuses more); computed from shapes
+    alone, so no host sync (each block finds its own tiles on the device:
+    :func:`split_tiles`)."""
     n_tiles = max(1, -(-S_total // TILE))
-    want = max(1, -(-BLOCKS_PER_SM * sms // max(n_pairs, 1)))
-    per = -(-n_tiles // min(want, n_tiles))
-    return -(-n_tiles // per), per * TILE
+    fit = RING_BYTES[int8] // (4 * rows) - 2
+    return max(1, min(BLOCKS_PER_SM * sms // max(n_pairs, 1), n_tiles, fit))
+
+
+def live_tiles(llen, wlen, qlen, *, use_qlens, window, S_total):
+    """The kernel's live tiles [t_lo, t_hi) of one (batch, kv-head) pair:
+    the TILE-key tiles that hold a position some live query sees (the
+    visibility rule of :func:`decode_ref`), from the pair's lens alone
+    (``csrc/decode.cu`` `pair_of` mirrors it).  A dead pair (``q_lens``
+    0) or an empty one has none."""
+    hi = max(0, min(llen, S_total))
+    lo = 0
+    if use_qlens:
+        hi = min(hi, wlen) if qlen > 0 else 0
+        if window:
+            lo = wlen - (qlen - 1) - window
+    elif window:
+        lo = wlen - window
+    lo = max(lo, 0)
+    t_lo = lo // TILE
+    return t_lo, (-(-hi // TILE) if hi > lo else t_lo)
+
+
+def split_tiles(t_lo, t_hi, n_split, s):
+    """Split s's share [a, b) of the live tiles [t_lo, t_hi): the tiles
+    spread evenly, the first ``n % n_split`` splits one more
+    (``csrc/decode.cu`` `split_share`)."""
+    n = max(0, t_hi - t_lo)
+    q, r = divmod(n, n_split)
+    a = t_lo + s * q + min(s, r)
+    return a, a + q + (1 if s < r else 0)
+
+
+_COUNTS: dict = {}
+_COUNTS_KEPT: list = []
+
+
+def _merge_counters(device, n_pairs):
+    """The decode kernel's merge counters on ``device``: int32, one a
+    (batch, kv-head) pair, zero between calls (the split that merges a
+    pair resets its counter in the launch).  Made zeroed on first use and
+    grown as calls need more, never inside a CUDA-graph capture; a grown
+    buffer's predecessor is kept, so a graph captured on it stays valid.
+    Calls on one device are stream-ordered (one stream, or a graph of one
+    stream's calls): two decodes running at once would share counters."""
+    buf = _COUNTS.get(device)
+    if buf is None or buf.numel() < n_pairs:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode: call the kernel once outside the CUDA-graph "
+                "capture first (its merge counters are made zeroed there)")
+        if buf is not None:
+            _COUNTS_KEPT.append(buf)
+        buf = _COUNTS[device] = torch.zeros(max(n_pairs, 4096),
+                                            dtype=torch.int32,
+                                            device=device)
+    return buf
 
 
 def quantize_kv(x):
@@ -128,11 +202,14 @@ def pack_lens_arg(local_lens, window_lens, q_lens, *, n_tok, window):
 
 def decode_ref(q, k, v, local_lens, *, scale=None, k_scale=None,
                v_scale=None, soft_cap=0.0, window=0, window_lens=None,
-               q_lens=None):
+               q_lens=None, positions=None):
     """Plain PyTorch decode (f32 math, dense over the cache) — the
     ``_local_decode_xla`` contract: q [B, Hq, D] or [B, T, Hq, D]; k/v
     [B, Hkv, S, D] (int8 with ``k_scale``/``v_scale`` [B, Hkv, S]);
-    returns f32 (out, lse)."""
+    returns f32 (out, lse).  ``positions`` = (lo, hi), each [B], keeps
+    only the keys at positions [lo, hi) of each row: one split's share
+    (:func:`split_tiles`), whose partials :func:`combine_partials`
+    merges."""
     multi = q.dim() == 4
     if not multi:
         q = q[:, None]
@@ -157,6 +234,10 @@ def decode_ref(q, k, v, local_lens, *, scale=None, k_scale=None,
              & (pos < (wl[:, None] - d)[..., None]))                # [B,T,S]
     if window:
         valid = valid & (pos >= (wl[:, None] - d)[..., None] - window)
+    if positions is not None:
+        lo, hi = (torch.as_tensor(x, device=dev).to(torch.int64)[:, None, None]
+                  for x in positions)
+        valid = valid & (pos >= lo) & (pos < hi)
     vmask = valid[:, None, :, None, :]
     logits = torch.where(vmask, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=-1)                                         # [B,Hkv,T,g]
@@ -209,8 +290,9 @@ def decode_paged_ref(q, k_pool, v_pool, block_table, local_lens, *,
 
 def _decode_setup(q, k, v, local_lens, window_lens, q_lens, window,
                   S_total, kv_dtype=torch.bfloat16):
-    """Shape and operand checks shared by the two CUDA entries, plus the
-    outputs and the split-KV scratch (partial o and lse per split)."""
+    """Shape and operand checks shared by the CUDA entries, plus the
+    outputs, the split-KV scratch (partial o and lse per split) and the
+    merge counters."""
     multi = q.dim() == 4
     n_tok = q.shape[1] if multi else 1
     B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
@@ -241,16 +323,23 @@ def _decode_setup(q, k, v, local_lens, window_lens, q_lens, window,
     shape = (B, n_tok, Hq) if multi else (B, Hq)
     out = torch.empty(shape + (D,), dtype=torch.float32, device=q.device)
     lse = torch.empty(shape, dtype=torch.float32, device=q.device)
-    n_split, split_len = split_plan(B * Hkv, S_total,
-                                    _build.sm_count(q.device))
     R = n_tok * (Hq // Hkv)
-    part = (B, Hkv, n_split, R) if n_split > 1 else (0,)
+    n_split = split_plan(B * Hkv, S_total, _build.sm_count(q.device), R,
+                         kv_dtype == torch.int8)
+    part = (B * Hkv, n_split, R) if n_split > 1 else (0,)
     o_part = torch.empty(part + ((D,) if n_split > 1 else ()),
                          dtype=torch.float32, device=q.device)
     lse_part = torch.empty(part, dtype=torch.float32, device=q.device)
+    counts = _merge_counters(q.device, B * Hkv)
     return dict(qc=qc, lens=lens, use_qlens=use_qlens, out=out, lse=lse,
-                o_part=o_part, lse_part=lse_part, n_split=n_split,
-                split_len=split_len, B=B, T=n_tok, Hq=Hq, Hkv=Hkv)
+                o_part=o_part, lse_part=lse_part, counts=counts,
+                n_split=n_split, B=B, T=n_tok, Hq=Hq, Hkv=Hkv)
+
+
+def _scratch(a):
+    """The pointers of a call's partials and merge counters."""
+    return (a["o_part"].data_ptr(), a["lse_part"].data_ptr(),
+            a["counts"].data_ptr())
 
 
 def gqa_decode_shard(q, k, v, local_lens, *, block_s=None, k_scale=None,
@@ -279,10 +368,9 @@ def gqa_decode_shard(q, k, v, local_lens, *, block_s=None, k_scale=None,
     with torch.cuda.device(q.device):
         err = lib.tdt_decode(
             a["qc"].data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            a["out"].data_ptr(), a["lse"].data_ptr(),
-            a["o_part"].data_ptr(), a["lse_part"].data_ptr(), a["B"],
+            a["out"].data_ptr(), a["lse"].data_ptr(), *_scratch(a), a["B"],
             a["T"], a["Hq"], a["Hkv"], k.shape[2], a["n_split"],
-            a["split_len"], *k.stride()[:3], *v.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3],
             lens.shape[0] if lens.dim() == 2 else 1, int(a["use_qlens"]),
             int(window), 1.0 / math.sqrt(q.shape[-1]),
             float(soft_cap or 0.0), torch.cuda.current_stream().cuda_stream)
@@ -310,10 +398,9 @@ def decode_i8(q, k, v, k_scale, v_scale, local_lens, *, soft_cap=0.0,
         err = lib.tdt_decode_i8(
             a["qc"].data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
-            a["out"].data_ptr(), a["lse"].data_ptr(),
-            a["o_part"].data_ptr(), a["lse_part"].data_ptr(), a["B"],
+            a["out"].data_ptr(), a["lse"].data_ptr(), *_scratch(a), a["B"],
             a["T"], a["Hq"], a["Hkv"], k.shape[2], a["n_split"],
-            a["split_len"], *k.stride()[:3], *v.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3],
             *k_scale.stride(), *v_scale.stride(),
             lens.shape[0] if lens.dim() == 2 else 1, int(a["use_qlens"]),
             int(window), 1.0 / math.sqrt(q.shape[-1]),
@@ -366,9 +453,8 @@ def gqa_decode_paged_shard(q, k_pool, v_pool, block_table, local_lens, *,
         err = lib.tdt_decode_paged(
             a["qc"].data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             table.data_ptr(), lens.data_ptr(), a["out"].data_ptr(),
-            a["lse"].data_ptr(), a["o_part"].data_ptr(),
-            a["lse_part"].data_ptr(), a["B"], a["T"], a["Hq"], a["Hkv"],
-            page, table.shape[1], a["n_split"], a["split_len"],
+            a["lse"].data_ptr(), *_scratch(a), a["B"], a["T"], a["Hq"],
+            a["Hkv"], page, table.shape[1], a["n_split"],
             *k_pool.stride()[:3], *v_pool.stride()[:3],
             lens.shape[0] if lens.dim() == 2 else 1, int(a["use_qlens"]),
             int(window), 1.0 / math.sqrt(q.shape[-1]),
@@ -401,10 +487,10 @@ def decode_paged_i8(q, k_pool, v_pool, k_scale, v_scale, table, local_lens,
             a["qc"].data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
             lens.data_ptr(), a["out"].data_ptr(), a["lse"].data_ptr(),
-            a["o_part"].data_ptr(), a["lse_part"].data_ptr(), a["B"],
-            a["T"], a["Hq"], a["Hkv"], k_pool.shape[2], table.shape[1],
-            a["n_split"], a["split_len"], *k_pool.stride()[:3],
-            *v_pool.stride()[:3], *k_scale.stride(), *v_scale.stride(),
+            *_scratch(a), a["B"], a["T"], a["Hq"], a["Hkv"],
+            k_pool.shape[2], table.shape[1], a["n_split"],
+            *k_pool.stride()[:3], *v_pool.stride()[:3], *k_scale.stride(),
+            *v_scale.stride(),
             lens.shape[0] if lens.dim() == 2 else 1, int(a["use_qlens"]),
             int(window), 1.0 / math.sqrt(q.shape[-1]),
             float(soft_cap or 0.0), torch.cuda.current_stream().cuda_stream)
