@@ -18,10 +18,13 @@ Phases, in order (any failure exits non-zero without the final line):
    bf16, ``IGMMA`` int8) in the SASS (``cuobjdump --dump-sass``) of
    ``ring_attn_kernel``, both backward kernels, the forward
    ``flash_fwd_wg_kernel`` (each instance: contiguous and segmented, bf16
-   and int8 K/V) and the uni AG-GEMM's ``ag_gemm_wg_kernel`` (bf16 with B
-   [K][n] and B^T, int8), and of mma.sync instructions (``HMMA``) in each
-   instance of ``decode_kernel``, beside their spill bytes (a count of 0
-   fails the run; without ``cuobjdump`` the line says so);
+   and int8 K/V), the uni AG-GEMM's ``ag_gemm_wg_kernel`` (bf16 with B
+   [K][n] and B^T, int8), the GEMM-RS's ``gemm_rs_wg_kernel`` (bf16 and
+   int8, flat and group; int8 on both tiles) and
+   ``gemm_rs_bidir_i8_wg_kernel``, and the persistent GEMMs, and of
+   mma.sync instructions (``HMMA``) in each instance of
+   ``decode_kernel``, beside their ptxas registers and spill bytes (a
+   count of 0 fails the run; without ``cuobjdump`` the line says so);
 3. kernels: each Hopper kernel against its plain PyTorch version at the
    main path's shapes (Hq 32, Hkv 8, D 128, bf16), within the stated
    tolerance, then timed (CUDA events around CUDA-graph replays, so host
@@ -285,7 +288,8 @@ Phases, in order (any failure exits non-zero without the final line):
    Llama-3-8B TP-4 widths, at m_loc 512 (S 2,048) and 16 (decode): the
    AG-GEMM at QKV and gate/up in its bidir, int8-wire and chunked (2, 4)
    modes, the GEMM-RS at wo and down in its bidir mode and on int8
-   operands in its uni and bidir modes (rows 15i, 15bi), then
+   operands in its uni and bidir modes (rows 15i, 15bi; these two also
+   at a ragged m_loc 250), then
    ``ag_gemm_autotuned`` (gate/up) and ``gemm_rs_autotuned`` (down, bf16
    and int8) in one ``contextual_autotune`` region (every config's time
    and the winner printed; the int8 sweep must time the bidir config); each result against its plain version (the gathered
@@ -324,7 +328,8 @@ Phases, in order (any failure exits non-zero without the final line):
    against its plain version on every mesh (the gathers and the
    reduce-scatter bit for bit, in f32 and bf16; the GEMMs by the 128-row
    tile rule; int8 exactly), ten calls in a row equal, and timed on the
-   (2, 4) mesh beside its bound, its plain version and one PyTorch call.
+   (2, 4) mesh beside its bound, its plain version and one PyTorch call;
+   the int8 GEMM-RS also at a ragged m_loc (250) on every mesh, exactly.
 
 The launch counters of the three serving kernels are zeroed just before
 phase 4 and read just after phase 5: each must be > 0; flash_fwd's and
@@ -1102,21 +1107,42 @@ def kernel_device_ms(fn, key, iters=20):
     return us / 1e3 / iters
 
 
+# A profile of one call is framed by two fills of a float64 marker, a
+# kernel that no profiled call launches.  The profiler has been seen to
+# drop a short window's device events whole (a decode call's one kernel,
+# a lens packing's ``cat``), so a profile that lacks either marker is
+# incomplete and is taken again, up to ``PROFILES`` times; one that holds
+# both is judged as it stands.
+PROFILES = 3
+MARKER = "FillFunctor<double>"
+
+
 def device_kernels(fn):
     """Names and counts of the device kernels one ``fn()`` launches (the
-    profiler's count, after a first call outside it)."""
+    profiler's count, after a first call outside it, the markers taken
+    off), and the number of profiles it took to hold both markers."""
     from collections import Counter
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    mark = torch.zeros(1, dtype=torch.float64, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return Counter({e.key: e.count for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    for tries in range(1, PROFILES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mark.fill_(1.0)
+            fn()
+            mark.fill_(2.0)
+            torch.cuda.synchronize()
+        seen = Counter({e.key: e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        marks = [k for k in seen if MARKER in k]
+        if len(marks) == 1 and seen[marks[0]] >= 2:
+            seen[marks[0]] -= 2
+            return +seen, tries
+    raise AssertionError(f"{PROFILES} profiles, none holding both of its "
+                         f"markers: {dict(seen)}")
 
 
 def lens_packing(lens, q_lens, T):
@@ -1133,11 +1159,17 @@ def one_kernel_per_call(tag, fn, packing=None):
     """Assert that one ``fn()`` launches exactly one device kernel, the
     decode kernel, counting every kernel the profiler sees (the decode
     kernel merges its splits inside its own launch).  ``packing`` (from
-    :func:`lens_packing`), where given, packs the call's lens alone: the
-    kernels it launches are taken off the count first."""
-    seen = device_kernels(fn)
+    :func:`lens_packing`), where given, packs the call's lens alone: it
+    must show its stack's ``cat`` kernel, and the kernels it launches are
+    taken off the count first.  Each profile is judged once, as soon as
+    it holds both markers (:func:`device_kernels`)."""
+    seen, tries = device_kernels(fn)
     if packing is not None:
-        pack = device_kernels(packing)
+        pack, pack_tries = device_kernels(packing)
+        tries = max(tries, pack_tries)
+        if not any("Cat" in k for k in pack):
+            raise AssertionError(f"{tag}: the lens packing alone launched "
+                                 f"{dict(pack)}, no cat kernel")
         if any(seen[k] < n for k, n in pack.items()):
             raise AssertionError(f"{tag}: one call launched {dict(seen)}, "
                                  f"less than its lens packing {dict(pack)}")
@@ -1146,8 +1178,9 @@ def one_kernel_per_call(tag, fn, packing=None):
         raise AssertionError(f"{tag}: one call launched {dict(seen)} "
                              f"besides its lens packing, not one decode "
                              f"kernel")
-    log(f"{tag}: one kernel a call, every kernel counted (profiler): "
-        f"{next(iter(seen))[:60]}")
+    log(f"{tag}: one kernel a call, every kernel counted (profiler"
+        f"{'' if tries == 1 else f'; a profile taken {tries} times'}"
+        f"): {next(iter(seen))[:60]}")
 
 
 def check_tiles(tag, got, want, block_m):
@@ -4725,7 +4758,7 @@ def record_model_path(phase):
 
 
 def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
-                     sizes=(("prefill", 512), ("decode", 16))):
+                     sizes=(("prefill", 512), ("decode", 16)), ragged=250):
     """Phase 20: the TP ring GEMMs' host entries (``ag_gemm`` /
     ``ag_gemm_gathered`` / ``gemm_rs`` with contexts on a port Mesh of TP
     ranks) through the bidirectional, int8-wire and chunked ring modes at
@@ -4735,7 +4768,8 @@ def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
     GEMM-RS at wo (k 4096) and down (k 14336, N 4096) in bidir and on int8
     operands in the uni and bidir modes; (b) ``ag_gemm_autotuned`` at
     gate/up and ``gemm_rs_autotuned`` at down, on bf16 and on int8
-    operands, in one ``contextual_autotune`` region.
+    operands, in one ``contextual_autotune`` region; the int8 rows also at
+    a ragged m_loc (``ragged``, 250: "r250").
     The ring-mode counters are zeroed just before (a) and read just after
     (b): each new row's count.  Then every result is held against its
     plain version (the same context at ``impl="xla"``): the gathered A bit
@@ -4754,6 +4788,7 @@ def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
     from triton_dist_tpu_torch.runtime.bootstrap import Mesh
 
     W, (D, F, QKV), sizes = TP, dims, dict(sizes)
+    i8_sizes = {**sizes, "r250": ragged}
     mesh = Mesh((W,), ("tp",), dev)
     g = torch.Generator(device=dev).manual_seed(20)
     ag_modes = {"bidir": dict(ring_mode="bidir"),
@@ -4778,6 +4813,8 @@ def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
         for proj, (k, n) in rs_projs.items():
             inputs["rs", size, proj] = (randn(W * m_loc, k),
                                         randn(k, n, scale=k ** -0.5))
+    for size, m_loc in i8_sizes.items():
+        for proj, (k, n) in rs_projs.items():
             inputs["i8", size, proj] = (randi(W * m_loc, k), randi(k, n))
 
     # (a) + (b): the path, with the ring-mode counters zeroed first
@@ -4841,7 +4878,7 @@ def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
     for key, res in got.items():
         kind, size, proj = key[:3]
         a, b = inputs[key[:3]]
-        tag = f"{'/'.join(key)} (W {W}, m_loc {sizes[size]})"
+        tag = f"{'/'.join(key)} (W {W}, m_loc {i8_sizes[size]})"
         if kind == "ag":
             mode = key[3]
             full, c = res
@@ -4887,7 +4924,7 @@ def ring_modes_phase(dev, dims=(4096, 14336, (32 + 2 * 8) * 128),
     # the times, on the rank-stacked shard functions
     rows = {}
     for (row, size, proj, mode), err in errs.items():
-        m_loc = sizes[size]
+        m_loc = i8_sizes[size]
         kind = "ag" if row.startswith("ag") else (
             "rs" if row == "gemm_rs_bidir" else "i8")
         ring = "bidir" if row == "gemm_rs_i8_bidir" else "uni"
@@ -5262,7 +5299,7 @@ def read_torus():
     return {row: fn.launches for row, fn in _torus_fns().items()}
 
 
-def torus_phase(dev, dims=(4096, 14336, 6144), tokens=2048):
+def torus_phase(dev, dims=(4096, 14336, 6144), tokens=2048, ragged=250):
     """Phase 22: the multi-axis (torus) schedules at Llama-3-8B TP-8 widths
     (D 4096, F 14336, QKV 6144; a 2,048-token prefill, 256 rows a rank;
     bf16, random from seed 0) on the virtual world's (2, 4), (4, 2) and
@@ -5281,7 +5318,9 @@ def torus_phase(dev, dims=(4096, 14336, 6144), tokens=2048):
     each kernel's wrapper against its plain version on every mesh (the
     all-gather and the gathered A bit for bit, the reduce-scatter bit for
     bit in f32 and bf16, the GEMMs by check_tiles, int8 exactly); ten
-    calls of each in a row on the (2, 4) mesh equal to the first.  Times
+    calls of each in a row on the (2, 4) mesh equal to the first; the int8
+    GEMM-RS also at a ragged m_loc (``ragged`` rows a rank) on every mesh,
+    exactly.  Times
     (eager between CUDA events: each launch carries its epoch) on the
     (2, 4) mesh beside the bound (the function's bytes or operations),
     the plain version and one PyTorch call: ``expand(...).contiguous()``
@@ -5493,6 +5532,17 @@ def torus_phase(dev, dims=(4096, 14336, 6144), tokens=2048):
         log(f"torus {tag}: every kernel equal to its plain version"
             + (", ten calls in a row equal" if tag == "2x4" else ""))
         del ops
+    r = min(ragged, M // W - 1)
+    a8 = i8["rs"][0][:W * r].view(W * r, W, F // W).permute(
+        1, 0, 2).contiguous()
+    b8 = i8["rs"][1].view(W, F // W, D)
+    for tag, axes, mesh in meshes:
+        if not torch.equal(grs.torus_gemm_rs_i8(a8, b8, mesh, axes),
+                           grs.torus_gemm_rs_ref(a8, b8, mesh, axes)):
+            raise AssertionError(f"torus rs_i8 {tag} at m_loc {r}: not "
+                                 f"equal to plain")
+    log(f"torus rs_i8 at m_loc {r}: exactly equal to plain on every mesh")
+    del a8, b8
     for row, key in (("torus_ag", "ag_2x4"), ("torus_rs", "rs_f32_2x4"),
                      ("torus_ag_gemm", "gate_up_2x4"),
                      ("torus_ag_gemm_i8", "ag_i8_2x4"),
@@ -5579,7 +5629,8 @@ WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
                  "flash_fwd": ("flash_fwd_wg_kernel",),
                  "ag_gemm": ("ag_gemm_wg_kernel",),
-                 "gemm_rs": ("gemm_rs_wg_kernel",),
+                 "gemm_rs": ("gemm_rs_wg_kernel",
+                             "gemm_rs_bidir_i8_wg_kernel"),
                  "group_gemm": ("group_gemm_wg_kernel",),
                  "matmul_i8": ("matmul_i8_wg_kernel",)}
 # The mma.sync kernels whose SASS must hold HMMA instructions (the decode
@@ -5588,16 +5639,23 @@ HMMA_KERNELS = {"decode": ("decode_kernel",)}
 # instance labels by template arguments (<SEGM, I8> of the flash forward,
 # <SEGM> of the other attention kernels,
 # <I8, B_NK> of ag_gemm_wg_kernel, <I8, B_NK, TALL> of
-# group_gemm_wg_kernel, <B_NK, MODE> of gemm_rs_wg_kernel); the int8
-# kernels' names (IGMMA expected)
+# group_gemm_wg_kernel, <I8, B_NK, MODE, TALL> of gemm_rs_wg_kernel,
+# <TALL> of gemm_rs_bidir_i8_wg_kernel); the int8 kernels' names (IGMMA
+# expected)
 SASS_MODES = (("fwd_wg_kernelILb0ELb0EE", "bf16 K/V, contiguous"),
               ("fwd_wg_kernelILb1ELb0EE", "bf16 K/V, segmented"),
               ("fwd_wg_kernelILb0ELb1EE", "K/V int8 -> bf16, contiguous"),
               ("fwd_wg_kernelILb1ELb1EE", "K/V int8 -> bf16, segmented"),
-              ("ILb0ELi0EE", "bf16, B [K][n]"),
-              ("ILb1ELi0EE", "bf16, B^T [n][K]"),
-              ("ILb0ELi1EE", "bf16, B [K][n], group"),
-              ("ILb1ELi1EE", "bf16, B^T [n][K], group"),
+              ("ILb0ELb0ELi0ELb0EE", "bf16, B [K][n]"),
+              ("ILb0ELb1ELi0ELb0EE", "bf16, B^T [n][K]"),
+              ("ILb0ELb0ELi1ELb0EE", "bf16, B [K][n], group"),
+              ("ILb0ELb1ELi1ELb0EE", "bf16, B^T [n][K], group"),
+              ("ILb1ELb0ELi0ELb1EE", "int8, 256 x 128"),
+              ("ILb1ELb0ELi0ELb0EE", "int8, 128 x 256"),
+              ("ILb1ELb0ELi1ELb1EE", "int8, group, 256 x 128"),
+              ("ILb1ELb0ELi1ELb0EE", "int8, group, 128 x 256"),
+              ("bidir_i8_wg_kernelILb1EE", "int8 bidir, 256 x 128"),
+              ("bidir_i8_wg_kernelILb0EE", "int8 bidir, 128 x 256"),
               ("ILb1ELb0ELb1EE", "int8, 256 x 128"),
               ("ILb1ELb0ELb0EE", "int8"),
               ("ILb0ELb0ELb0EE", "bf16, B [K][n]"),
@@ -5613,9 +5671,10 @@ SERIALISED = ("C7512", "C7520")
 def sass_check(_build):
     """Count the MMA instructions of each wgmma kernel (and of the
     mma.sync decode kernel) in ``cuobjdump --dump-sass`` of its built
-    library, HGMMA, IGMMA and HMMA apart, beside its ptxas spill bytes; a
-    bf16 wgmma instance without HGMMA, an int8 one without IGMMA, a decode
-    instance without HMMA, a spill or a ptxas serialisation warning
+    library, HGMMA, IGMMA and HMMA apart, beside its ptxas registers and
+    spill bytes; a bf16 wgmma instance without HGMMA, an int8 one without
+    IGMMA, a decode instance without HMMA, a spill or a ptxas
+    serialisation warning
     (C7512 / C7520) in a library of these kernels fails the run.  Where
     the toolkit has no cuobjdump, the line says so."""
     tool = os.path.join(os.path.dirname(os.path.dirname(
@@ -5624,7 +5683,7 @@ def sass_check(_build):
     checked = {**WGMMA_KERNELS, **HMMA_KERNELS}
     paths = _build.build(tuple(checked))
     for lib, kernels in checked.items():
-        spill, fn = {}, None
+        spill, regs, fn = {}, {}, None
         for line in report.get(lib, "").splitlines():
             m = re.search(r"entry function '(\S+)'", line)
             if m:
@@ -5633,6 +5692,9 @@ def sass_check(_build):
                           r"loads", line)
             if m and fn:
                 spill[fn] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                regs[fn] = int(m.group(1))
             if any(code in line for code in SERIALISED):
                 raise AssertionError(f"ptxas serialised wgmma in {lib}: "
                                      f"{line.strip()}")
@@ -5668,8 +5730,9 @@ def sass_check(_build):
                                        or kern in INT8_WGMMA) \
                         else "HGMMA"
                 log(f"sass {lib} {kern} ({mode}): {c['HGMMA']} HGMMA, "
-                    f"{c['IGMMA']} IGMMA, {c['HMMA']} HMMA, ptxas spill "
-                    f"bytes {spill.get(f, 'not reported (prebuilt)')}")
+                    f"{c['IGMMA']} IGMMA, {c['HMMA']} HMMA, ptxas registers "
+                    f"{regs.get(f, 'not reported (prebuilt)')}, spill bytes "
+                    f"{spill.get(f, 'not reported (prebuilt)')}")
                 if c[want] == 0:
                     raise AssertionError(f"{kern} ({mode}): no {want} in "
                                          f"its SASS ({c})")

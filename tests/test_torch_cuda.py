@@ -1813,14 +1813,21 @@ def test_gemm_rs_bidir_ten_calls_in_a_row(cuda):
                     f"gemm_rs bidir call {i}")
 
 
+# (world, m_loc, K, N) of the int8 GEMM-RS: m_loc 1 / 16 / 250 / 512,
+# N 4,112 (a ragged column tile at 128 and 256), K % 128 != 0, worlds 2-8
+I8_RS_CASES = [(4, 128, 512, 256), (4, 16, 1024, 1536), (2, 37, 256, 144),
+               (1, 64, 128, 128), (4, 250, 512, 384), (2, 1, 96, 4112),
+               (4, 16, 544, 4112), (8, 250, 160, 4112),
+               (4, 512, 1056, 4112), (8, 512, 224, 4096)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [(4, 128, 512, 256), (4, 16, 1024, 1536),
-                                  (2, 37, 256, 144), (1, 64, 128, 128),
-                                  (4, 250, 512, 384)])
+@pytest.mark.parametrize("case", I8_RS_CASES)
 def test_gemm_rs_i8_matches_plain(cuda, case):
-    """The GEMM-RS's int8 mode (``tdt_gemm_rs_i8``): int32 C exactly equal
-    to the plain version (exact partials and sums), ten calls in a row at
-    the first case; one launch of the int8 counter each."""
+    """The GEMM-RS's int8 mode (``tdt_gemm_rs_i8``, the uni kernel on the
+    wgmma / TMA mainloop): int32 C exactly equal to the plain version
+    (exact partials and sums), ten calls in a row at the first case; one
+    launch of the int8 counter each."""
     from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
 
     world, m_loc, k, n = case
@@ -3383,7 +3390,7 @@ def test_torus_ag_gemm_matches_plain(cuda, mesh_case, int8):
 def test_torus_gemm_rs_matches_plain(cuda, mesh_case, int8):
     """The torus GEMM-RS (``tdt_gemm_rs_group`` in its torus order, and
     the int8 mode) through ``gemm_rs_shard(mesh=, axis=tuple)`` at m_loc
-    256 and 16: bf16 by the rule (whole and per 128-row tile) and bit for
+    256 and 16 (int8 also 1, 250 and 512): bf16 by the rule (whole and per 128-row tile) and bit for
     bit on integer-valued operands (exact partials, so only the order and
     rounding of the bf16 adds can differ); int8 exactly equal; at an
     untileable k (264) the composition (the uni kernel over the first
@@ -3394,7 +3401,10 @@ def test_torus_gemm_rs_matches_plain(cuda, mesh_case, int8):
     axes = mesh_case[2]
     W, G = mesh.size, mesh.joint_size(axes)
     g = torch.Generator(device=cuda).manual_seed(7)
-    for m_loc, k, n in ((256, 512, 512), (16, 256, 768)):
+    # int8 also at m_loc 1 / 250 / 512, K % 128 != 0 and N 4,112
+    shapes = ((256, 512, 512), (16, 256, 768)) + (
+        ((1, 96, 4112), (250, 160, 4112), (512, 544, 1040)) if int8 else ())
+    for m_loc, k, n in shapes:
         if int8:
             a = torch.randint(-127, 128, (W, G * m_loc, k), generator=g,
                               device=cuda, dtype=torch.int8)
@@ -3761,13 +3771,15 @@ def test_cow_split_on_shared_tail_on_card(cuda, horizon):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [(4, 128, 512, 256), (2, 37, 256, 512),
-                                  (4, 16, 1024, 1024), (4, 250, 512, 768)])
+                                  (4, 16, 1024, 1024), (4, 250, 512, 768),
+                                  (2, 1, 96, 4096), (4, 512, 544, 4096),
+                                  (8, 250, 160, 4096), (8, 16, 1056, 2048)])
 def test_gemm_rs_i8_bidir_matches_plain(cuda, case):
     """The int8 mode of the bidir ring (``tdt_gemm_rs_bidir_i8``): int32
-    C exactly equal to the plain version at world 2 and 4 (ragged m_loc,
-    several tiles a half), ten calls in a row at the first case (stale
-    landing slots or flags would show); one launch of its counter
-    each."""
+    C exactly equal to the plain version at worlds 2, 4 and 8 (m_loc 1 /
+    16 / 250 / 512, K % 128 != 0, several tiles a half), ten calls in a
+    row at the first case (stale landing slots or flags would show); one
+    launch of its counter each."""
     from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
 
     world, m_loc, k, n = case
@@ -3788,6 +3800,101 @@ def test_gemm_rs_i8_bidir_matches_plain(cuda, case):
     for a, b, out in results:
         assert out.dtype == torch.int32
         assert torch.equal(out, grs.gemm_rs_ref(a, b, ring_mode="bidir"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 250, 96, 4128), (4, 1, 160, 4128),
+                                  (8, 512, 544, 4160)])
+def test_gemm_rs_i8_bidir_kernel_at_ragged_halves(cuda, case):
+    """The int8 bidir kernel at an N whose halves are no multiple of 128
+    (N % 32 == 0, which the host entries give to the uni schedule), called
+    directly: int32 C exactly equal to the plain version."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    world, m_loc, k, n = case
+    g = torch.Generator(device=cuda).manual_seed(zlib.crc32(
+        repr(case).encode()))
+    a = torch.randint(-127, 128, (world, world * m_loc, k), generator=g,
+                      device=cuda, dtype=torch.int8)
+    b = torch.randint(-127, 128, (world, k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    out = grs._bidir_i8(a, b, m_loc, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, grs.gemm_rs_ref(a, b))
+
+
+@pytest.mark.gpu
+def test_gemm_rs_i8_ten_calls_in_a_row(cuda):
+    """Ten int8 GEMM-RS calls in a row on new inputs, the uni kernel, the
+    bidir ring and the group kernel over the torus of (2, 4) in turn, each
+    checked after all were queued: a flag, a staged tile or a landing slot
+    left by an earlier call (its epoch reused) would show."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    mesh = _mesh((2, 4), ("dcn", "tp"), cuda)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    results = []
+    for i in range(10):
+        kind = ("uni", "bidir", "torus")[i % 3]
+        world = 8 if kind == "torus" else 4
+        a = torch.randint(-127, 128, (world, world * 256, 544), generator=g,
+                          device=cuda, dtype=torch.int8)
+        b = torch.randint(-127, 128, (world, 544, 2048), generator=g,
+                          device=cuda, dtype=torch.int8)
+        if kind == "torus":
+            out = grs.torus_gemm_rs_i8(a, b, mesh, ("dcn", "tp"))
+        else:
+            out = grs.gemm_rs_shard(a, b, ring_mode=kind)
+        results.append((kind, a, b, out))
+    torch.cuda.synchronize()
+    for kind, a, b, out in results:
+        want = (grs.torus_gemm_rs_ref(a, b, mesh, ("dcn", "tp"))
+                if kind == "torus" else grs.gemm_rs_ref(a, b))
+        assert torch.equal(out, want), kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", ["tp", "dcn"])
+@pytest.mark.parametrize("m_loc", [256, 250, 16])
+def test_gemm_rs_i8_group_over_one_axis(cuda, axis, m_loc):
+    """The int8 group kernel (``tdt_gemm_rs_group_i8``) over one axis of a
+    (2, 4) mesh, G 4 ranks one apart or G 2 four apart, at N 4,112 and K
+    544: int32 C exactly equal to the plain version."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    mesh = _mesh((2, 4), ("dcn", "tp"), cuda)
+    G = mesh.axis_size(axis)
+    g = torch.Generator(device=cuda).manual_seed(zlib.crc32(
+        repr((axis, m_loc)).encode()))
+    a = torch.randint(-127, 128, (8, G * m_loc, 544), generator=g,
+                      device=cuda, dtype=torch.int8)
+    b = torch.randint(-127, 128, (8, 544, 4112), generator=g, device=cuda,
+                      dtype=torch.int8)
+    n0 = grs.torus_gemm_rs_i8.launches
+    out = grs.torus_gemm_rs_i8(a, b, mesh, (axis,))
+    torch.cuda.synchronize()
+    assert grs.torus_gemm_rs_i8.launches == n0 + 1
+    assert torch.equal(out, grs.torus_gemm_rs_ref(a, b, mesh, (axis,)))
+
+
+@pytest.mark.gpu
+def test_gemm_rs_i8_refuses_non_tma_operands(cuda):
+    """The int8 kernels read by TMA: an operand whose base is not 16-byte
+    aligned raises before any launch, in the uni, bidir and group
+    modes."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    buf = torch.zeros(4 * 512 * 256 + 1, dtype=torch.int8, device=cuda)
+    a = buf[1:].view(4, 512, 256)
+    b = torch.zeros(4, 256, 256, dtype=torch.int8, device=cuda)
+    mesh = _mesh((4,), ("tp",), cuda)
+    n0 = (_mode_counts(), grs.torus_gemm_rs_i8.launches)
+    for call in (lambda: grs.gemm_rs_shard(a, b),
+                 lambda: grs.gemm_rs_shard(a, b, ring_mode="bidir"),
+                 lambda: grs.torus_gemm_rs_i8(a, b, mesh, ("tp",))):
+        with pytest.raises(ValueError, match="TMA"):
+            call()
+    assert (_mode_counts(), grs.torus_gemm_rs_i8.launches) == n0
 
 
 @pytest.mark.gpu

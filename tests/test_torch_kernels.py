@@ -3158,6 +3158,59 @@ def test_gemm_rs_int8_exact_against_reference(mesh4, ring_mode):
     assert np.array_equal(c.numpy(), want)
 
 
+@pytest.mark.parametrize("case", [
+    # (G, m_loc, N, bidir, staging a rank, flags a rank): int32 tiles of
+    # 128 x 256 values, 256 x 128 above m_loc 128; the bidir ring tiles
+    # each half N / 2
+    (4, 512, 4096, False, (4, 64, 32768), 256),     # row 15i at down / wo
+    (4, 16, 4096, False, (4, 16, 32768), 64),       # m16: 128 x 256
+    (4, 128, 4112, False, (4, 17, 32768), 68),      # the last 128 x 256
+    (4, 129, 4096, False, (4, 32, 32768), 128),     # the first 256 x 128
+    (8, 250, 4112, False, (8, 33, 32768), 264),     # N 4,112: a ragged band
+    (2, 256, 4096, False, (2, 32, 32768), 64),      # row 16i over one axis
+    (4, 512, 4096, True, (2, 3, 32, 32768), 192),   # row 15bi at down / wo
+    (4, 16, 4096, True, (2, 3, 8, 32768), 48),      # 15bi at m16
+    (8, 1, 32, True, (2, 7, 1, 32768), 14),         # one row, 16 a half
+])
+def test_gemm_rs_i8_workspace(case):
+    """The int8 wgmma kernels' workspace a rank: the uni kernel's G slots
+    of int32 tiles in fragment order and a flag per (slot, tile), the
+    bidir ring's 2 (W - 1) landing slots of a half's tiles."""
+    G, m_loc, n, bidir, stage, n_flags = case
+    assert trs.i8_tile(m_loc) == ((128, 256) if m_loc <= 128 else (256, 128))
+    assert trs.wg_workspace(G, m_loc, n, int8=True, bidir=bidir) == (
+        stage, n_flags)
+
+
+def test_gemm_rs_i8_refuses_what_its_kernels_do_not_take():
+    """The int8 kernels' operand rule, checked before any launch: int8
+    operands, at most 8 ranks, K % 32 and N % 16 (the wrappers' check),
+    and TMA's 16-byte aligned base (the uni and bidir launches')."""
+    def z(*shape, dtype=torch.int8):
+        return torch.zeros(shape, dtype=dtype)
+
+    def check(a, b):
+        world, k, n = a.shape[0], a.shape[2], b.shape[2]
+        trs.check_kernel_operands("gemm_rs (int8)", a, b,
+                                  a.shape[1] // world, k, n,
+                                  dtype=torch.int8, k_mult=32, n_mult=16)
+
+    check(z(4, 64, 96), z(4, 96, 4112))
+    with pytest.raises(ValueError, match="multiples of 32 and 16"):
+        check(z(4, 64, 48), z(4, 48, 256))
+    with pytest.raises(ValueError, match="multiples of 32 and 16"):
+        check(z(4, 64, 64), z(4, 64, 264))
+    with pytest.raises(TypeError, match="int8"):
+        check(z(4, 64, 64), z(4, 64, 256, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="at most 8 ranks"):
+        check(z(9, 72, 64), z(9, 64, 256))
+    a = z(4 * 64 * 64 + 1)[1:].view(4, 64, 64)
+    with pytest.raises(ValueError, match="TMA"):
+        trs._uni(a, z(4, 64, 256), 16, 256, False, "gemm_rs_i8", 4)
+    with pytest.raises(ValueError, match="TMA"):
+        trs._bidir_i8(a, z(4, 64, 256), 16, 256)
+
+
 # ---------------------------------------------------------------------------
 # The host entries against the reference's
 # ---------------------------------------------------------------------------

@@ -70,18 +70,27 @@
 // stores, not NVLink traffic.
 //
 // The tile loop of bf16_tile.cuh (128 x 128 tiles, mma.sync, two blocks
-// an SM) keeps the bidirectional ring and the torus order (see
-// tdt_gemm_rs_group), i8_tile.cuh the int8 mode; no model path launches
-// them.
+// an SM) keeps the bf16 bidirectional ring and the torus order (see
+// tdt_gemm_rs_group); no model path launches them.
 //
-// The int8 mode (tdt_gemm_rs_i8, the reference's `quantized` path
-// :700-702): int8 A and B, exact int32 partials on the int8 tile loop of
-// i8_tile.cuh (64 x 128 tiles), staged in int32 and summed in rank order:
-// int32 adds are exact in any order, so the result is the exact product.
+// The int8 mode (tdt_gemm_rs_i8; tdt_gemm_rs_group_i8 over a group, the
+// reference's `quantized` path :700-702): gemm_rs_wg_kernel<I8 = true>,
+// the same items, staging, flags and fold on int8 A and B with exact
+// int32 partials (`wgmma ...s32.s8.s8`; producer warps 1-3 transpose each
+// staged B tile, sm90_gemm.cuh), staged in int32 in fragment order and
+// summed in index order: int32 adds are exact in any order, so the result
+// is the exact product.  Tiles of 256 x 128 (Cfg's TALL), or 128 x 256
+// where one tile holds a chunk's rows (i8_tall: m_loc <= 128, the decode
+// shapes, where the 256-row tile computed twice the products: m16 down
+// 0.2184 against 0.1367 ms; 256 x 128 won at the prefill shapes, down
+// 0.3986 against 0.4492, wo 0.2211 against 0.2364; PERF.md's int8
+// GEMM-RS findings).  A staged tile's vectors past a ragged chunk's rows
+// are neither stored nor read.  The consumers raise each staged tile's
+// flag (raise_tile): producer warps 1-3 transpose, so no signal warp is
+// free.
 //
 // The bidirectional ring (tdt_gemm_rs_bidir, the TPU `_gemm_rs_bidir_
-// kernel` :205; its int8 mode tdt_gemm_rs_bidir_i8, the same kernel's
-// int32 path at :698-702, on the int8 tile loop): the N columns split in half; half 0's partials reduce
+// kernel` :205): the N columns split in half; half 0's partials reduce
 // round the ring rightward (rank me folds chunk me - 1 - s at step s), half
 // 1's leftward (chunk me + 1 + s), each rank's own chunk last.  A ring
 // reduction in the reference's hop order: at step s rank me computes its
@@ -94,18 +103,23 @@
 // W - 1 landing slots per direction take the place of the reference's
 // credit semaphores (no slot is reused within a call), and each direction
 // has its own slots and flags.  Given the same
-// partials, the sums are bit for bit the reference's.
+// partials, the sums are bit for bit the reference's.  Its int8 mode
+// (tdt_gemm_rs_bidir_i8, the same kernel's int32 path :698-702):
+// gemm_rs_bidir_i8_wg_kernel, the same step order on the int8 uni
+// kernel's mainloop, tiles and fragment-order staging, each hop's add in
+// the int32 registers.
 //
 // The SASS (`chip_smoke.py`'s build phase and `-Xptxas -v`, NVIDIA H100
-// 80GB HBM3, 700 W): 4 HGMMA in each of gemm_rs_wg_kernel's four
+// 80GB HBM3, 700 W): 4 HGMMA in each of gemm_rs_wg_kernel's four bf16
 // instances (B [k][N] or [N][k], FLAT or GROUP), 168 registers at launch
-// (setmaxnreg 40 / 232 at run time), 0 spills.
+// (setmaxnreg 40 / 232 at run time), 0 spills; 8 IGMMA in each int8
+// instance of 256 x 128 tiles, 4 in each of 128 x 256 (uni FLAT and
+// GROUP, bidir), 168 registers (setmaxnreg 56 / 224), 0 spills.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_tile.cuh"
 #include "dist_verbs.cuh"
-#include "i8_tile.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
@@ -121,6 +135,8 @@ using tdt_dist::Group;
 using tdt_dist::MAX_RANKS;
 using tdt_dist::Peers;
 using tdt_dist::peers;
+using tdt_gemm90::frag_col;
+using tdt_gemm90::frag_row;
 
 constexpr int SMEM = Tiles<true>::SMEM > Tiles<false>::SMEM
                          ? Tiles<true>::SMEM : Tiles<false>::SMEM;
@@ -130,18 +146,28 @@ constexpr int SMEM = Tiles<true>::SMEM > Tiles<false>::SMEM
 enum Mode { FLAT = 0, GROUP = 1 };
 
 constexpr int WBM = tdt_gemm90::BM, WBN = tdt_gemm90::BN;
-constexpr int TILE_U4 = WBM * WBN / 8;  // 16-byte vectors of a staged tile
+// 16-byte vectors of a staged tile: bf16 partials, int32 in int8 (either
+// int8 tile shape holds 128 x 256 values)
+constexpr int TILE_U4 = WBM * WBN / 8;
+constexpr int TILE_U4_I8 = WBM * WBN / 4;
 
+// The int8 tile of a chunk of m_loc rows: 256 x 128 (Cfg's TALL: half the
+// transposes a product), unless one 128 x 256 tile holds the chunk's rows
+// (half the products).  gemm_reduce_scatter.i8_tile mirrors it.
+inline bool i8_tall(int m_loc) { return m_loc > WBM; }
+
+template <class OutT>
 struct WgParams {
   CUtensorMap amap;       // a {k, G m_loc, W}
   CUtensorMap bmap;       // b {N, k, W}, or {k, N, W} (B_NK)
   Peers<uint4> stage;     // rank r's [G slots][tiles][TILE_U4]: rank q's
-                          // partial tiles in slot q, fragment order
-  Peers<bf16> out;        // rank r's C [m_loc][N]
-  Peers<unsigned> flags;  // rank r's [G slots][tiles]
+                          // partial tiles in slot q, fragment order (bidir:
+                          // its landing slots [2][W - 1][tiles][TILE_U4_I8])
+  Peers<OutT> out;        // rank r's C [m_loc][N]
+  Peers<unsigned> flags;  // rank r's [G slots][tiles] ([2][W - 1][tiles])
   Peers<unsigned> bar;    // rank r's [W] barrier slots
   Group grp;              // GROUP: the ranks that reduce (slot = index)
-  int world, m_loc, n, k, tiles_m, tiles_n;
+  int world, m_loc, n, k, tiles_m, tiles_n;  // bidir: the tiles of a half
   unsigned epoch;
 };
 
@@ -152,8 +178,8 @@ struct WgItem {
   int oj, i, j;
 };
 
-__device__ __forceinline__ WgItem wg_item(const WgParams& p, int t, int jm,
-                                          int G) {
+template <class P>
+__device__ __forceinline__ WgItem wg_item(const P& p, int t, int jm, int G) {
   const int per = p.tiles_m * p.tiles_n;
   const int s = t / per, r = t - s * per;
   WgItem x;
@@ -174,6 +200,80 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[128],
                               pack_bf16(acc[8 * v + 2], acc[8 * v + 3]),
                               pack_bf16(acc[8 * v + 4], acc[8 * v + 5]),
                               pack_bf16(acc[8 * v + 6], acc[8 * v + 7]));
+}
+
+// int8: vector v of a consumer's half of a tile in fragment order is its
+// accumulator's acc[4 v .. 4 v + 3] (sm90_gemm.cuh's frag_row /
+// frag_col: rows r and r + 8, two columns); thread t's vector v of
+// consumer cw lies at uint4 (32 cw + v) x 128 + t of the tile, so every
+// access of a warp is 512 contiguous bytes.  Vectors whose rows lie past
+// the tile's `rows` (a ragged chunk's) are neither staged nor read.
+
+// int8: a consumer's half of a tile, plus (`from` not null) the running
+// sum staged at `from`, stored in fragment order at `to`, or (`to` null)
+// into C at c (the tile's row 0, row stride ldc; columns >= n dropped).
+// Eight vectors at a time, their loads first: each accumulator register
+// dies with its store, and `from` never aliases the destination, so the
+// next loads may be issued ahead of these stores.  (Groups of 4, 8, 16
+// and 32 at 15bi wo: 0.1913, 0.1802, 0.1842 and 0.2678 ms, 16 and 32
+// spilling; a load, add and store a vector with no restrict: 0.2448;
+// PERF.md's int8 GEMM-RS findings.)
+template <class C>
+__device__ __forceinline__ void tile_out(const int (&acc)[128], int cw,
+                                         int rows,
+                                         const uint4* __restrict__ from,
+                                         uint4* __restrict__ to,
+                                         int* __restrict__ c = nullptr,
+                                         long long ldc = 0, int n = 0,
+                                         int col0 = 0) {
+  const int off = cw * (TILE_U4_I8 / 2) + (threadIdx.x & 127);
+  constexpr int GV = 8;  // vectors a group
+#pragma unroll
+  for (int v0 = 0; v0 < 32; v0 += GV) {
+    uint4 y[GV];
+#pragma unroll
+    for (int u = 0; u < GV; ++u)
+      if (from != nullptr && frag_row<C>(v0 + u, cw) < rows)
+        y[u] = __ldcg(from + off + (v0 + u) * 128);
+#pragma unroll
+    for (int u = 0; u < GV; ++u) {
+      const int v = v0 + u, r = frag_row<C>(v, cw);
+      if (r >= rows) continue;
+      int4 x = make_int4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2],
+                         acc[4 * v + 3]);
+      if (from != nullptr) {
+        x.x += static_cast<int>(y[u].x);
+        x.y += static_cast<int>(y[u].y);
+        x.z += static_cast<int>(y[u].z);
+        x.w += static_cast<int>(y[u].w);
+      }
+      if (to != nullptr) {
+        reinterpret_cast<int4*>(to)[off + v * 128] = x;
+        continue;
+      }
+      const int col = col0 + frag_col<C>(v);
+      if (col >= n) continue;
+      *reinterpret_cast<int2*>(c + r * ldc + col) = make_int2(x.x, x.y);
+      if (r + 8 < rows)
+        *reinterpret_cast<int2*>(c + (r + 8) * ldc + col) =
+            make_int2(x.z, x.w);
+    }
+  }
+}
+
+// int8: the flag of a staged tile.  The two consumer warpgroups meet at a
+// named barrier and thread 128 raises it: a system fence and a release
+// store.  (No producer thread is free to take it, as bf16's signal warp
+// does: producer warps 1-3 transpose.  Against the TMA lane raising it
+// between its loads: within 2.5% either way at every prefill shape; a
+// transposer warp raising it between its k-tiles: 12-28% slower.  PERF.md's
+// int8 GEMM-RS findings.)
+__device__ __forceinline__ void raise_tile(unsigned* flag, unsigned epoch) {
+  tdt_sm90::named_sync(3, 256);
+  if (threadIdx.x == 128) {
+    __threadfence_system();
+    tdt_dist::st_release(flag, epoch);
+  }
 }
 
 __device__ __forceinline__ float bf16_lo(unsigned w) {
@@ -229,16 +329,57 @@ __device__ __forceinline__ void fold_store(const uint4* slot0,
   }
 }
 
-// MODE FLAT: the whole world reduces, in rank order (tdt_gemm_rs); GROUP:
-// the ranks of `p.grp`, in index order (tdt_gemm_rs_group, torus = 0).
-template <bool B_NK, int MODE>
+// The int8 fold: the G staged int32 partials of a consumer's half of a
+// tile summed in index order (exact) and written to C at c (tile_out's
+// vectors; rows >= `rows` and columns >= n dropped).
+template <class C>
+__device__ __forceinline__ void fold_store_i8(const uint4* slot0,
+                                              long long slot_u4, int G,
+                                              int cw, int* c, long long ldc,
+                                              int rows, int n, int col0) {
+  const uint4* src = slot0 + cw * (TILE_U4_I8 / 2) + (threadIdx.x & 127);
+#pragma unroll 4
+  for (int v = 0; v < 32; ++v) {
+    const int r = frag_row<C>(v, cw);
+    const int col = col0 + frag_col<C>(v);
+    if (r >= rows || col >= n) continue;
+    uint4 w[MAX_RANKS];
+#pragma unroll
+    for (int q = 0; q < MAX_RANKS; ++q)
+      if (q < G) w[q] = __ldcg(src + q * slot_u4 + v * 128);
+    int s[4] = {static_cast<int>(w[0].x), static_cast<int>(w[0].y),
+                static_cast<int>(w[0].z), static_cast<int>(w[0].w)};
+#pragma unroll
+    for (int q = 1; q < MAX_RANKS; ++q) {
+      if (q >= G) break;
+      s[0] += static_cast<int>(w[q].x);
+      s[1] += static_cast<int>(w[q].y);
+      s[2] += static_cast<int>(w[q].z);
+      s[3] += static_cast<int>(w[q].w);
+    }
+    *reinterpret_cast<int2*>(c + r * ldc + col) = make_int2(s[0], s[1]);
+    if (r + 8 < rows)
+      *reinterpret_cast<int2*>(c + (r + 8) * ldc + col) =
+          make_int2(s[2], s[3]);
+  }
+}
+
+// MODE FLAT: the whole world reduces, in rank order (tdt_gemm_rs,
+// tdt_gemm_rs_i8); GROUP: the ranks of `p.grp`, in index order
+// (tdt_gemm_rs_group torus = 0, tdt_gemm_rs_group_i8).  I8: int8 A and
+// B, exact int32 partials staged in int32 and summed exactly, on the
+// tile i8_tall picks (TALL).
+template <bool I8, bool B_NK, int MODE, bool TALL>
 __global__ void __launch_bounds__(tdt_gemm90::NT, 1)
-gemm_rs_wg_kernel(const __grid_constant__ WgParams p) {
-  using C = tdt_gemm90::Cfg<false, B_NK>;
+gemm_rs_wg_kernel(const __grid_constant__
+                  WgParams<typename std::conditional<I8, int, bf16>::type>
+                      p) {
+  using C = tdt_gemm90::Cfg<I8, B_NK, TALL>;
+  constexpr int TU4 = I8 ? TILE_U4_I8 : TILE_U4;
   extern __shared__ __align__(128) char wg_smem[];
   auto& sm = tdt_gemm90::smem_of<C>(wg_smem);
-  // staged tile n's stores done (the 256 consumer threads arrive), and
-  // its flag raised (the signal warp arrives); two of each in turn
+  // bf16: staged tile n's stores done (the 256 consumer threads arrive),
+  // and its flag raised (the signal warp arrives); two of each in turn
   __shared__ __align__(8) uint64_t staged[2], raised[2];
   const int me = blockIdx.y;
   const int G = MODE == FLAT ? p.world : p.grp.G;
@@ -264,15 +405,20 @@ gemm_rs_wg_kernel(const __grid_constant__ WgParams p) {
       tdt_sm90::Ring<C::NS> ring;
       for (int t = blockIdx.x; t < n_gemm; t += gridDim.x) {
         const WgItem x = wg_item(p, t, jm, G);
-        const int row0 = x.oj * p.m_loc + x.i * WBM;
+        const int row0 = x.oj * p.m_loc + x.i * C::TM;
         for (int kt = 0; kt < n_kt; ++kt)
-          tdt_gemm90::produce_k_tile<false, B_NK>(
-              sm, ring, &p.bmap, x.j * WBN, kt, me,
+          tdt_gemm90::produce_k_tile<I8, B_NK, TALL>(
+              sm, ring, &p.bmap, x.j * C::TN, kt, me,
               [&](void* dst, uint64_t* bar, int k0) {
                 tdt_sm90::tma_load_3d(dst, &p.amap, bar, k0, row0, me);
               });
       }
-    } else if (threadIdx.x == 32) {
+    } else if (I8 && threadIdx.x >= 32) {
+      const int mine = static_cast<int>(blockIdx.x) < n_gemm
+                           ? (n_gemm - blockIdx.x - 1) / gridDim.x + 1
+                           : 0;
+      tdt_gemm90::transposer<C>(sm, mine, n_kt, threadIdx.x / 32 - 1);
+    } else if (!I8 && threadIdx.x == 32) {
       // the signal warp: the flags of this block's staged tiles, in the
       // consumers' order
       int n = 0;
@@ -294,23 +440,29 @@ gemm_rs_wg_kernel(const __grid_constant__ WgParams p) {
   const int cw = threadIdx.x / 128 - 1, wt = threadIdx.x & 127;
   tdt_sm90::Ring<C::NS> ring;
   tdt_sm90::Ring<C::NTS> tring;
-  int n = 0;  // this block's staged tiles so far
+  int n = 0;  // bf16: this block's staged tiles so far
   for (int t = blockIdx.x; t < n_gemm + per; t += gridDim.x) {
     if (t < n_gemm) {
-      // my partial of chunk oj into slot jm of its owner's staging; the
-      // signal warp raises the flag of that (slot, tile)
+      // my partial of chunk oj into slot jm of its owner's staging, and
+      // the flag of that (slot, tile)
       const WgItem x = wg_item(p, t, jm, G);
-      float acc[C::NACC];
-      tdt_gemm90::mma_tile<false, B_NK>(acc, sm, ring, tring, n_kt, cw);
+      typename C::Acc acc[C::NACC];
+      tdt_gemm90::mma_tile<I8, B_NK, TALL>(acc, sm, ring, tring, n_kt, cw);
       const int owner =
           MODE == FLAT ? x.oj : tdt_dist::group_rank(p.grp, me, x.oj);
       const long long f = static_cast<long long>(jm) * per +
                           x.i * p.tiles_n + x.j;
-      stage_tile(acc, p.stage.p[owner] + f * TILE_U4, cw);
-      // staged[n & 1] is free once the signal warp has raised tile n - 2
-      if (n >= 2) tdt_sm90::mbar_wait(&raised[n & 1], ((n >> 1) - 1) & 1);
-      tdt_sm90::mbar_arrive(&staged[n & 1]);
-      ++n;
+      if constexpr (I8) {
+        tile_out<C>(acc, cw, p.m_loc - x.i * C::TM, nullptr,
+                    p.stage.p[owner] + f * TU4);
+        raise_tile(p.flags.p[owner] + f, p.epoch);
+      } else {
+        stage_tile(acc, p.stage.p[owner] + f * TU4, cw);
+        // staged[n & 1] is free once the signal warp has raised tile n - 2
+        if (n >= 2) tdt_sm90::mbar_wait(&raised[n & 1], ((n >> 1) - 1) & 1);
+        tdt_sm90::mbar_arrive(&staged[n & 1]);
+        ++n;
+      }
       continue;
     }
     // my chunk's tile: the G staged partials folded into C
@@ -319,10 +471,113 @@ gemm_rs_wg_kernel(const __grid_constant__ WgParams p) {
     if (wt < G) tdt_dist::spin_until(p.flags.p[me] + wt * per + tile,
                                      p.epoch);
     tdt_sm90::named_sync(1 + cw, 128);
-    fold_store(p.stage.p[me] + static_cast<long long>(tile) * TILE_U4,
-               static_cast<long long>(per) * TILE_U4, G, cw,
-               p.out.p[me] + static_cast<long long>(i) * WBM * p.n, p.n,
-               min(WBM, p.m_loc - i * WBM), p.n, j * WBN);
+    const uint4* slot0 = p.stage.p[me] + static_cast<long long>(tile) * TU4;
+    const long long slot_u4 = static_cast<long long>(per) * TU4;
+    const int rows = min(C::TM, p.m_loc - i * C::TM);
+    auto* c = p.out.p[me] + static_cast<long long>(i) * C::TM * p.n;
+    if constexpr (I8)
+      fold_store_i8<C>(slot0, slot_u4, G, cw, c, p.n, rows, p.n, j * C::TN);
+    else
+      fold_store(slot0, slot_u4, G, cw, c, p.n, rows, p.n, j * C::TN);
+  }
+}
+
+// The int8 bidirectional ring (tdt_gemm_rs_bidir_i8) on the same
+// mainloop and tiles: rank me's items in step order (step s, direction d,
+// tile t of a half: rows i, columns d N / 2 + j TN ..), the chunk me - 1 -
+// s (d 0, to the right) or me + 1 + s (d 1, to the left), its own at s =
+// W - 1.  The consumers compute the partial tile, then for s >= 1 wait on
+// the previous peer's flag of (d, s - 1, t), add that running sum from
+// this rank's landing slot into the int32 registers (fragment order), and
+// store the sum into the next peer's landing slot (d, s) in fragment
+// order and raise its flag, or at the last step into C (row-major, masked
+// to the half's columns and to m_loc).  A wait inside a consumer that
+// holds its accumulator is safe only because every block is resident
+// (cooperative launch) and an item waits only on an earlier step's item,
+// whose consumers raise its flag before they wait on anything.
+template <bool TALL>
+__global__ void __launch_bounds__(tdt_gemm90::NT, 1)
+gemm_rs_bidir_i8_wg_kernel(const __grid_constant__ WgParams<int> p) {
+  using C = tdt_gemm90::Cfg<true, false, TALL>;
+  extern __shared__ __align__(128) char wg_smem[];
+  auto& sm = tdt_gemm90::smem_of<C>(wg_smem);
+  const int me = blockIdx.y, W = p.world;
+  if (threadIdx.x == 0) tdt_gemm90::init_barriers(sm);
+  tdt_dist::barrier_all(p.bar, me, W, p.epoch);  // syncs the block too
+
+  const int nh = p.n / 2, per = p.tiles_m * p.tiles_n;
+  const int n_items = W * 2 * per;
+  const int n_kt = (p.k + C::BK - 1) / C::BK;
+  // item it: step s, direction d, tile t = (i, j), its chunk
+  struct Item {
+    int s, d, t, i, j, chunk;
+  };
+  auto item = [&](int it) {
+    Item x;
+    const int sd = it / per;
+    x.t = it - sd * per;
+    x.s = sd / 2;
+    x.d = sd - 2 * x.s;
+    x.i = x.t / p.tiles_n;
+    x.j = x.t - x.i * p.tiles_n;
+    const int c =
+        x.s == W - 1 ? me : (x.d == 0 ? me - 1 - x.s : me + 1 + x.s);
+    x.chunk = c < 0 ? c + W : (c >= W ? c - W : c);
+    return x;
+  };
+  if (threadIdx.x < 128) {
+    tdt_sm90::regs_dealloc<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      tdt_sm90::Ring<C::NS> ring;
+      for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+        const Item x = item(it);
+        const int row0 = x.chunk * p.m_loc + x.i * C::TM;
+        for (int kt = 0; kt < n_kt; ++kt)
+          tdt_gemm90::produce_k_tile<true, false, TALL>(
+              sm, ring, &p.bmap, x.d * nh + x.j * C::TN, kt, me,
+              [&](void* dst, uint64_t* bar, int k0) {
+                tdt_sm90::tma_load_3d(dst, &p.amap, bar, k0, row0, me);
+              });
+      }
+    } else if (threadIdx.x >= 32) {
+      const int mine = static_cast<int>(blockIdx.x) < n_items
+                           ? (n_items - blockIdx.x - 1) / gridDim.x + 1
+                           : 0;
+      tdt_gemm90::transposer<C>(sm, mine, n_kt, threadIdx.x / 32 - 1);
+    }
+    return;
+  }
+  tdt_sm90::regs_alloc<C::CONSUMER_REGS>();
+  const int cw = threadIdx.x / 128 - 1, wt = threadIdx.x & 127;
+  tdt_sm90::Ring<C::NS> ring;
+  tdt_sm90::Ring<C::NTS> tring;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    int acc[C::NACC];
+    tdt_gemm90::mma_tile<true, false, TALL>(acc, sm, ring, tring, n_kt, cw);
+    const Item x = item(it);  // after the product: no register held over it
+    const int rows = min(C::TM, p.m_loc - x.i * C::TM);
+    const uint4* from = nullptr;
+    if (x.s > 0) {
+      // landing slot (d, s - 1) of tile t: [2][W - 1][tiles], flags alike
+      const long long f =
+          static_cast<long long>(x.d * (W - 1) + x.s - 1) * per + x.t;
+      if (wt == 0) tdt_dist::spin_until(p.flags.p[me] + f, p.epoch);
+      tdt_sm90::named_sync(1 + cw, 128);
+      from = p.stage.p[me] + f * TILE_U4_I8;
+    }
+    if (x.s == W - 1) {
+      tile_out<C>(acc, cw, rows, from, nullptr,
+                  p.out.p[me] + static_cast<long long>(x.i) * C::TM * p.n +
+                      x.d * nh,
+                  p.n, nh, x.j * C::TN);
+      continue;
+    }
+    const int next = x.d == 0 ? (me + 1 == W ? 0 : me + 1)
+                              : (me == 0 ? W - 1 : me - 1);
+    const long long to =
+        static_cast<long long>(x.d * (W - 1) + x.s) * per + x.t;
+    tile_out<C>(acc, cw, rows, from, p.stage.p[next] + to * TILE_U4_I8);
+    raise_tile(p.flags.p[next] + to, p.epoch);
   }
 }
 
@@ -493,177 +748,6 @@ gemm_rs_bidir_kernel(const __grid_constant__ Params p) {
   }
 }
 
-struct ParamsI8 {
-  Peers<const int8_t> a;   // rank r's A [W m_loc][k]
-  Peers<const int8_t> b;   // rank r's weight [k][N]
-  Peers<int> stage;        // rank r's [W slots][m_loc][N]: rank q writes q
-  Peers<int> out;          // rank r's C [m_loc][N]
-  Peers<unsigned> flags;   // rank r's [W slots][tiles of m_loc x N]
-  Peers<unsigned> bar;     // rank r's [W] barrier slots
-  Group grp;               // the ranks that reduce (slot = index)
-  int world, m_loc, n, k;
-  unsigned epoch;
-};
-
-// The int8 mode: every rank's partial of every chunk staged in the owner's
-// slot, then the owner's sum, on 64 x 128 int32 tiles, the partials
-// staged in int32 and summed exactly (so in any order: the torus order's
-// sums are these); FLAT: the whole world, else the group `p.grp`.
-template <bool FLAT>
-__global__ void __launch_bounds__(tdt_i8::NT)
-gemm_rs_i8_kernel(const __grid_constant__ ParamsI8 p) {
-  constexpr int BM8 = tdt_i8::BM, BN8 = tdt_i8::BN, NT8 = tdt_i8::NT;
-  __shared__ __align__(128) int8_t smem[tdt_i8::SMEM];
-  const int me = blockIdx.y, G = FLAT ? p.world : p.grp.G;
-  const int jm = FLAT ? me : tdt_dist::group_index(p.grp, me);
-  if (FLAT)
-    tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
-  else
-    tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
-
-  const int tiles_n = (p.n + BN8 - 1) / BN8;
-  const int per = (p.m_loc + BM8 - 1) / BM8 * tiles_n;
-  const long long slot = static_cast<long long>(p.m_loc) * p.n;
-  const int n_gemm = G * per;
-  for (int it = blockIdx.x; it < n_gemm + per; it += gridDim.x) {
-    if (it < n_gemm) {
-      const int oj = (jm + 2 * G - 1 - it / per) % G;
-      const int owner = FLAT ? oj : tdt_dist::group_rank(p.grp, me, oj);
-      const int t = it % per, i = t / tiles_n, j = t % tiles_n;
-      const int rows = min(BM8, p.m_loc - i * BM8);
-      int acc[BM8 / 16][4][4];
-#pragma unroll
-      for (int mt = 0; mt < BM8 / 16; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
-              acc[mt][nt][3] = 0;
-      tdt_i8::mma_tile(
-          acc, smem,
-          p.a.p[me] + (static_cast<long long>(oj) * p.m_loc + i * BM8) *
-                          p.k,
-          p.b.p[me], rows, p.n, p.k, 0, j * BN8, 0, p.k);
-      tdt_i8::store_tile(acc, p.stage.p[owner] + jm * slot +
-                                  static_cast<long long>(i) * BM8 * p.n,
-                         rows, p.n, 0, j * BN8, false);
-      tdt_dist::signal(p.flags.p[owner] + jm * per + t, p.epoch);
-      continue;
-    }
-    // my chunk's tile (i, j): the G partials summed in index order
-    const int t = it - n_gemm, i = t / tiles_n, j = t % tiles_n;
-    const int rows = min(BM8, p.m_loc - i * BM8);
-    tdt_dist::wait(p.flags.p[me] + t, p.epoch, G, per);
-    const int* st = p.stage.p[me];
-    int* out = p.out.p[me];
-    for (int v = threadIdx.x; v < rows * (BN8 / 4); v += NT8) {
-      const int row = i * BM8 + v / (BN8 / 4);
-      const int col = j * BN8 + (v % (BN8 / 4)) * 4;
-      if (col >= p.n) continue;
-      const long long off = static_cast<long long>(row) * p.n + col;
-      int4 sum = make_int4(0, 0, 0, 0);
-      for (int q = 0; q < G; ++q) {
-        const int4 x = __ldcg(reinterpret_cast<const int4*>(st + q * slot +
-                                                            off));
-        sum.x += x.x;
-        sum.y += x.y;
-        sum.z += x.z;
-        sum.w += x.w;
-      }
-      *reinterpret_cast<int4*>(out + off) = sum;
-    }
-  }
-}
-
-// The int8 mode of the bidirectional ring (tdt_gemm_rs_bidir_i8): the
-// bidir kernel's schedule, step by step, on the int8 tile loop.  The
-// landing slots and C are int32; a hop adds the previous peer's running
-// sum to the partial in the accumulator's registers and stores the sum
-// once (exact, so the result is the exact product in any order).  A tile
-// of a half covers its columns [j BN8, j BN8 + BN8): the product reads B
-// at the half's offset with the full row stride N, and columns past the
-// half's end (another half's, or past N) are dropped at the store.
-__device__ __forceinline__ void store_sum_i8(
-    int (&acc)[tdt_i8::BM / 16][4][4], int* dst, long long ld,
-    const int* recv, long long ldr, int rows, int cols) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < tdt_i8::BM / 16; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = mt * 16 + gq + h * 8;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = warp * 32 + nt * 8 + 2 * tq;
-        if (col >= cols) continue;
-        int v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (recv != nullptr) {
-          const int2 r = __ldcg(reinterpret_cast<const int2*>(
-              recv + static_cast<long long>(row) * ldr + col));
-          v0 += r.x;
-          v1 += r.y;
-        }
-        *reinterpret_cast<int2*>(dst + static_cast<long long>(row) * ld +
-                                 col) = make_int2(v0, v1);
-      }
-    }
-}
-
-// land: rank r's [2][W - 1][m_loc][N / 2] int32 running sums; flags: rank
-// r's [2][W - 1][tiles of m_loc x N / 2] (64 x 128 tiles); the items and
-// their waits as gemm_rs_bidir_kernel's.
-__global__ void __launch_bounds__(tdt_i8::NT)
-gemm_rs_bidir_i8_kernel(const __grid_constant__ ParamsI8 p) {
-  constexpr int BM8 = tdt_i8::BM, BN8 = tdt_i8::BN;
-  __shared__ __align__(128) int8_t smem[tdt_i8::SMEM];
-  const int me = blockIdx.y, W = p.world;
-  tdt_dist::barrier_all(p.bar, me, W, p.epoch);
-
-  const int nh = p.n / 2, tiles_n = (nh + BN8 - 1) / BN8;
-  const int per = (p.m_loc + BM8 - 1) / BM8 * tiles_n;
-  const long long slot = static_cast<long long>(p.m_loc) * nh;
-  const int n_items = W * 2 * per;
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const int sd = it / per, t = it - sd * per;
-    const int s = sd / 2, d = sd - 2 * s;
-    const int i = t / tiles_n, j = t - i * tiles_n;
-    const bool last = s == W - 1;
-    int chunk = last ? me : (d == 0 ? me - 1 - s : me + 1 + s);
-    chunk = chunk < 0 ? chunk + W : (chunk >= W ? chunk - W : chunk);
-    const int next = d == 0 ? (me + 1 == W ? 0 : me + 1)
-                            : (me == 0 ? W - 1 : me - 1);
-    const int rows = min(BM8, p.m_loc - i * BM8);
-    int acc[BM8 / 16][4][4];
-#pragma unroll
-    for (int mt = 0; mt < BM8 / 16; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] =
-            0;
-    tdt_i8::mma_tile(
-        acc, smem,
-        p.a.p[me] + (static_cast<long long>(chunk) * p.m_loc + i * BM8) *
-                        p.k,
-        p.b.p[me], rows, p.n, p.k, 0, d * nh + j * BN8, 0, p.k);
-    const long long row0 = static_cast<long long>(i) * BM8;
-    int* dst = last ? p.out.p[me] + row0 * p.n + d * nh + j * BN8
-                    : p.stage.p[next] + (d * (W - 1) + s) * slot +
-                          row0 * nh + j * BN8;
-    const int* recv = nullptr;
-    if (s > 0) {
-      tdt_dist::wait(p.flags.p[me] + (d * (W - 1) + s - 1) * per + t,
-                     p.epoch);
-      recv = p.stage.p[me] + (d * (W - 1) + s - 1) * slot + row0 * nh +
-             j * BN8;
-    }
-    store_sum_i8(acc, dst, last ? p.n : nh, recv, nh, rows, nh - j * BN8);
-    if (!last)
-      tdt_dist::signal(p.flags.p[next] + (d * (W - 1) + s) * per + t,
-                       p.epoch);
-  }
-}
-
 Params make_params(const long long* a, const long long* b,
                    const long long* stage, const long long* out,
                    const long long* flags, const long long* bar, int world,
@@ -685,28 +769,56 @@ Params make_params(const long long* a, const long long* b,
   return p;
 }
 
-// Launch the uni kernel over the group `g` (FLAT: the flat world): the
-// tensor maps over the rank-stacked a [W][G m_loc][k] and b, then the
-// cooperative grid.  The ranks of each table must be equally spaced (a
-// map spans them).
-template <bool B_NK, int MODE>
-int launch_wg(const long long* a, const long long* b, const long long* stage,
-              const long long* out, const long long* flags,
-              const long long* bar, const Group& g, int world, int m_loc,
-              int n, int k, unsigned epoch, void* stream) {
-  using C = tdt_gemm90::Cfg<false, B_NK>;
-  const long long a_rs = tdt_dist::rank_stride(a, world, 2LL * g.G * m_loc *
-                                                             k);
-  const long long b_rs = tdt_dist::rank_stride(b, world, 2LL * k * n);
+// The tensor maps of p over the rank-stacked a [W][G m_loc][k] and b
+// ([W][k][N], or [W][N][k] with b_nk) for the tiles of C; the ranks of
+// each table must be equally spaced (a map spans them).  int8 B is
+// staged as it lies (the raw [128 k][TN] tile, no swizzle) for the
+// transposers.
+template <class C, class P>
+int make_maps(P& p, const long long* a, const long long* b, int G, int world,
+              int m_loc, int n, int k, bool b_nk) {
+  constexpr int E = sizeof(typename C::T);
+  constexpr bool I8 = E == 1;
+  const long long a_rs = tdt_dist::rank_stride(a, world,
+                                               1LL * E * G * m_loc * k);
+  const long long b_rs = tdt_dist::rank_stride(b, world, 1LL * E * k * n);
   if (a_rs < 0 || b_rs < 0) return static_cast<int>(cudaErrorInvalidValue);
   // the device's context current on this thread before the encodes (an
   // autograd worker thread may have none yet: tdt_gemm90::launch_gemm)
   int dev = 0;
   cudaGetDevice(&dev);
   cudaSetDevice(dev);
-  WgParams p;
+  const auto dt = I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const void* a0 = reinterpret_cast<const void*>(a[0]);
+  const void* b0 = reinterpret_cast<const void*>(b[0]);
+  const long long ad[3] = {k, static_cast<long long>(G) * m_loc, world};
+  const long long as[3] = {1, k, a_rs / E};
+  const int abox[3] = {C::BK, C::TM, 1};
+  int err = tdt_sm90::make_map_t(&p.amap, dt, E, sw, a0, 3, ad, as, abox);
+  if (err) return err;
+  if (b_nk) {  // b [W][N][k]: K-major boxes of 256 rows
+    const long long bd[3] = {k, n, world}, bs[3] = {1, k, b_rs / E};
+    const int bbox[3] = {C::BK, C::TN, 1};
+    return tdt_sm90::make_map_t(&p.bmap, dt, E, sw, b0, 3, bd, bs, bbox);
+  }
+  // b [W][k][N]: bf16 64-column boxes; int8 the raw tile
+  const long long bd[3] = {n, k, world}, bs[3] = {1, n, b_rs / E};
+  const int bbox[3] = {I8 ? C::TN : 64, C::BK, 1};
+  return tdt_sm90::make_map_t(&p.bmap, dt, E,
+                              I8 ? CU_TENSOR_MAP_SWIZZLE_NONE : sw, b0, 3,
+                              bd, bs, bbox);
+}
+
+template <class OutT>
+WgParams<OutT> wg_params(const long long* stage, const long long* out,
+                         const long long* flags, const long long* bar,
+                         const Group& g, int world, int m_loc, int n, int k,
+                         unsigned epoch) {
+  WgParams<OutT> p;
   p.stage = peers<uint4>(stage, world);
-  p.out = peers<bf16>(out, world);
+  p.out = peers<OutT>(out, world);
   p.flags = peers<unsigned>(flags, world);
   p.bar = peers<unsigned>(bar, world);
   p.grp = g;
@@ -714,35 +826,66 @@ int launch_wg(const long long* a, const long long* b, const long long* stage,
   p.m_loc = m_loc;
   p.n = n;
   p.k = k;
-  p.tiles_m = (m_loc + WBM - 1) / WBM;
-  p.tiles_n = (n + WBN - 1) / WBN;
   p.epoch = epoch;
-  const auto dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  const void* a0 = reinterpret_cast<const void*>(a[0]);
-  const void* b0 = reinterpret_cast<const void*>(b[0]);
-  const long long ad[3] = {k, static_cast<long long>(g.G) * m_loc, world};
-  const long long as[3] = {1, k, a_rs / 2};
-  const int abox[3] = {C::BK, WBM, 1};
-  int err = tdt_sm90::make_map_t(&p.amap, dt, 2, sw, a0, 3, ad, as, abox);
-  if (!err) {
-    if (B_NK) {  // b [W][N][k]: K-major boxes of 256 rows
-      const long long bd[3] = {k, n, world}, bs[3] = {1, k, b_rs / 2};
-      const int bbox[3] = {C::BK, WBN, 1};
-      err = tdt_sm90::make_map_t(&p.bmap, dt, 2, sw, b0, 3, bd, bs, bbox);
-    } else {     // b [W][k][N]: 64-column boxes
-      const long long bd[3] = {n, k, world}, bs[3] = {1, n, b_rs / 2};
-      const int bbox[3] = {64, C::BK, 1};
-      err = tdt_sm90::make_map_t(&p.bmap, dt, 2, sw, b0, 3, bd, bs, bbox);
-    }
-  }
+  return p;
+}
+
+// Launch the uni kernel over the group `g` (FLAT: the flat world): the
+// tensor maps, then the cooperative grid.
+template <bool I8, bool B_NK, int MODE, bool TALL = false>
+int launch_wg(const long long* a, const long long* b, const long long* stage,
+              const long long* out, const long long* flags,
+              const long long* bar, const Group& g, int world, int m_loc,
+              int n, int k, unsigned epoch, void* stream) {
+  using C = tdt_gemm90::Cfg<I8, B_NK, TALL>;
+  auto p = wg_params<typename std::conditional<I8, int, bf16>::type>(
+      stage, out, flags, bar, g, world, m_loc, n, k, epoch);
+  p.tiles_m = (m_loc + C::TM - 1) / C::TM;
+  p.tiles_n = (n + C::TN - 1) / C::TN;
+  const int err = make_maps<C>(p, a, b, g.G, world, m_loc, n, k, B_NK);
   if (err) return err;
-  const int per = p.tiles_m * p.tiles_n;
-  const int items = (g.G + 1) * per;
+  const int items = (g.G + 1) * p.tiles_m * p.tiles_n;
   static unsigned attr = 0;
-  return tdt_dist::launch_coop(gemm_rs_wg_kernel<B_NK, MODE>, p,
-                               tdt_gemm90::NT,
-                               tdt_gemm90::smem_bytes<C>(), world, items,
+  return tdt_dist::launch_coop(gemm_rs_wg_kernel<I8, B_NK, MODE, TALL>, p,
+                               tdt_gemm90::NT, tdt_gemm90::smem_bytes<C>(),
+                               world, items, attr,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The int8 uni kernel on the tile i8_tall picks.
+template <int MODE>
+int launch_wg_i8(const long long* a, const long long* b,
+                 const long long* stage, const long long* out,
+                 const long long* flags, const long long* bar, const Group& g,
+                 int world, int m_loc, int n, int k, unsigned epoch,
+                 void* stream) {
+  return i8_tall(m_loc)
+             ? launch_wg<true, false, MODE, true>(a, b, stage, out, flags,
+                                                  bar, g, world, m_loc, n, k,
+                                                  epoch, stream)
+             : launch_wg<true, false, MODE, false>(a, b, stage, out, flags,
+                                                   bar, g, world, m_loc, n,
+                                                   k, epoch, stream);
+}
+
+// The int8 bidir ring: the tile grid of a half (N / 2 columns), the same
+// maps as the uni kernel's over the flat world.
+template <bool TALL>
+int launch_bidir_i8(const long long* a, const long long* b,
+                    const long long* land, const long long* out,
+                    const long long* flags, const long long* bar, int world,
+                    int m_loc, int n, int k, unsigned epoch, void* stream) {
+  using C = tdt_gemm90::Cfg<true, false, TALL>;
+  auto p = wg_params<int>(land, out, flags, bar, tdt_dist::flat_group(world),
+                          world, m_loc, n, k, epoch);
+  p.tiles_m = (m_loc + C::TM - 1) / C::TM;
+  p.tiles_n = (n / 2 + C::TN - 1) / C::TN;
+  const int err = make_maps<C>(p, a, b, world, world, m_loc, n, k, false);
+  if (err) return err;
+  static unsigned attr = 0;
+  return tdt_dist::launch_coop(gemm_rs_bidir_i8_wg_kernel<TALL>, p,
+                               tdt_gemm90::NT, tdt_gemm90::smem_bytes<C>(),
+                               world, world * 2 * p.tiles_m * p.tiles_n,
                                attr, static_cast<cudaStream_t>(stream));
 }
 
@@ -763,10 +906,12 @@ extern "C" int tdt_gemm_rs(const long long* a, const long long* b,
   if (world < 1 || world > MAX_RANKS || m_loc < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Group g = tdt_dist::flat_group(world);
-  return b_nk ? launch_wg<true, FLAT>(a, b, stage, out, flags, bar, g,
-                                      world, m_loc, n, k, epoch, stream)
-              : launch_wg<false, FLAT>(a, b, stage, out, flags, bar, g,
-                                       world, m_loc, n, k, epoch, stream);
+  return b_nk ? launch_wg<false, true, FLAT>(a, b, stage, out, flags, bar,
+                                             g, world, m_loc, n, k, epoch,
+                                             stream)
+              : launch_wg<false, false, FLAT>(a, b, stage, out, flags, bar,
+                                              g, world, m_loc, n, k, epoch,
+                                              stream);
 }
 
 // The bidirectional ring: bf16, b [k][N] (no transposed mode); world >= 2,
@@ -792,9 +937,10 @@ extern "C" int tdt_gemm_rs_bidir(const long long* a, const long long* b,
 }
 
 // The int8 mode of the bidirectional ring: int8 A and B [k][N], int32
-// land and C; world >= 2, k % 32 == 0 and N % 32 == 0 (each half's B
-// columns start 16-byte aligned); land: 2 (W - 1) m_loc N / 2 int32 per rank; flags: 2 (W
-// - 1) ceil(m_loc / 64) ceil(N / 256) per rank.
+// land and C; world >= 2, k % 32 == 0 and N % 32 == 0 (each half starts
+// on a 16-byte column); land: 2 (W - 1) tiles x 128 x 256 int32 per rank
+// and flags: 2 (W - 1) tiles per rank, tiles = ceil(m_loc / TM) x
+// ceil(N / 2 / TN) (the int8 tile TM x TN).
 extern "C" int tdt_gemm_rs_bidir_i8(const long long* a, const long long* b,
                                     const long long* land,
                                     const long long* out,
@@ -804,56 +950,26 @@ extern "C" int tdt_gemm_rs_bidir_i8(const long long* a, const long long* b,
                                     void* stream) {
   if (world < 2 || world > MAX_RANKS || m_loc < 1 || n % 32 || k % 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  ParamsI8 p;
-  p.a = peers<const int8_t>(a, world);
-  p.b = peers<const int8_t>(b, world);
-  p.stage = peers<int>(land, world);
-  p.out = peers<int>(out, world);
-  p.flags = peers<unsigned>(flags, world);
-  p.bar = peers<unsigned>(bar, world);
-  p.grp = tdt_dist::flat_group(world);
-  p.world = world;
-  p.m_loc = m_loc;
-  p.n = n;
-  p.k = k;
-  p.epoch = epoch;
-  const int per = (m_loc + tdt_i8::BM - 1) / tdt_i8::BM *
-                  ((n / 2 + tdt_i8::BN - 1) / tdt_i8::BN);
-  static unsigned attr = 0;
-  return tdt_dist::launch_coop(gemm_rs_bidir_i8_kernel, p, tdt_i8::NT, 0,
-                               world, world * 2 * per, attr,
-                               static_cast<cudaStream_t>(stream));
+  return i8_tall(m_loc)
+             ? launch_bidir_i8<true>(a, b, land, out, flags, bar, world,
+                                     m_loc, n, k, epoch, stream)
+             : launch_bidir_i8<false>(a, b, land, out, flags, bar, world,
+                                      m_loc, n, k, epoch, stream);
 }
 
-// The int8 mode: int8 A and B, int32 stage and C; m_loc >= 1, k % 32 == 0
-// and n % 16 == 0 (the int8 tile's); flags: W * ceil(m_loc / 64) *
-// ceil(n / 128) per rank.
+// The int8 mode: int8 A and B [k][N], int32 stage and C; m_loc >= 1, k %
+// 32 == 0 and n % 16 == 0; stage: W * tiles * 128 * 256 int32 per rank
+// and flags: W * tiles per rank, tiles = ceil(m_loc / TM) * ceil(n / TN).
 extern "C" int tdt_gemm_rs_i8(const long long* a, const long long* b,
                               const long long* stage, const long long* out,
                               const long long* flags, const long long* bar,
                               int world, int m_loc, int n, int k,
                               unsigned epoch, void* stream) {
-  if (world < 1 || world > MAX_RANKS || m_loc < 1)
+  if (world < 1 || world > MAX_RANKS || m_loc < 1 || n % 16 || k % 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  ParamsI8 p;
-  p.a = peers<const int8_t>(a, world);
-  p.b = peers<const int8_t>(b, world);
-  p.stage = peers<int>(stage, world);
-  p.out = peers<int>(out, world);
-  p.flags = peers<unsigned>(flags, world);
-  p.bar = peers<unsigned>(bar, world);
-  p.grp = tdt_dist::flat_group(world);
-  p.world = world;
-  p.m_loc = m_loc;
-  p.n = n;
-  p.k = k;
-  p.epoch = epoch;
-  const int per = (m_loc + tdt_i8::BM - 1) / tdt_i8::BM *
-                  ((n + tdt_i8::BN - 1) / tdt_i8::BN);
-  static unsigned attr = 0;
-  return tdt_dist::launch_coop(gemm_rs_i8_kernel<true>, p, tdt_i8::NT, 0,
-                               world, (world + 1) * per, attr,
-                               static_cast<cudaStream_t>(stream));
+  return launch_wg_i8<FLAT>(a, b, stage, out, flags, bar,
+                            tdt_dist::flat_group(world), world, m_loc, n, k,
+                            epoch, stream);
 }
 
 // The torus GEMM-RS (the TPU `_torus_gemm_rs_kernel`, gemm_reduce_scatter.py
@@ -894,11 +1010,12 @@ extern "C" int tdt_gemm_rs_group(const long long* a, const long long* b,
       (torus && (g.n < 2 || n % BN || part_end[2 * g.n - 1] != n / BN)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!torus)
-    return b_nk ? launch_wg<true, GROUP>(a, b, stage, out, flags, bar, g,
-                                         world, m_loc, n, k, epoch, stream)
-                : launch_wg<false, GROUP>(a, b, stage, out, flags, bar, g,
-                                          world, m_loc, n, k, epoch,
-                                          stream);
+    return b_nk ? launch_wg<false, true, GROUP>(a, b, stage, out, flags,
+                                                bar, g, world, m_loc, n, k,
+                                                epoch, stream)
+                : launch_wg<false, false, GROUP>(a, b, stage, out, flags,
+                                                 bar, g, world, m_loc, n, k,
+                                                 epoch, stream);
   Params p = make_params(a, b, stage, out, flags, bar, world, m_loc, n, k,
                          epoch);
   p.grp = g;
@@ -922,26 +1039,9 @@ extern "C" int tdt_gemm_rs_group_i8(const long long* a, const long long* b,
                                     int world, int m_loc, int n, int k,
                                     unsigned epoch, void* stream) {
   const Group g = tdt_dist::group_from(group);
-  if (world < 1 || world > MAX_RANKS || m_loc < 1 ||
+  if (world < 1 || world > MAX_RANKS || m_loc < 1 || n % 16 || k % 32 ||
       tdt_dist::bad_group(g, world))
     return static_cast<int>(cudaErrorInvalidValue);
-  ParamsI8 p;
-  p.a = peers<const int8_t>(a, world);
-  p.b = peers<const int8_t>(b, world);
-  p.stage = peers<int>(stage, world);
-  p.out = peers<int>(out, world);
-  p.flags = peers<unsigned>(flags, world);
-  p.bar = peers<unsigned>(bar, world);
-  p.grp = g;
-  p.world = world;
-  p.m_loc = m_loc;
-  p.n = n;
-  p.k = k;
-  p.epoch = epoch;
-  const int per = (m_loc + tdt_i8::BM - 1) / tdt_i8::BM *
-                  ((n + tdt_i8::BN - 1) / tdt_i8::BN);
-  static unsigned attr = 0;
-  return tdt_dist::launch_coop(gemm_rs_i8_kernel<false>, p, tdt_i8::NT, 0,
-                               world, (g.G + 1) * per, attr,
-                               static_cast<cudaStream_t>(stream));
+  return launch_wg_i8<GROUP>(a, b, stage, out, flags, bar, g, world, m_loc,
+                             n, k, epoch, stream);
 }

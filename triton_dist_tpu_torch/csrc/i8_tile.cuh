@@ -1,6 +1,7 @@
-// The int8 tile loop shared by matmul_i8.cu (the W8A8 projections) and
-// group_gemm.cu (the grouped int8 mode): one block of 4 warps sums a
-// 64 x 128 int32 output tile over a k range, exactly.
+// The int8 tile loop shared by matmul_i8.cu (its split-K path for the
+// W8A8 projections' few-tile shapes) and ag_gemm.cu (the int8 torus
+// AG-GEMM, row 14i): one block of 4 warps sums a 64 x 128 int32 output
+// tile over a k range, exactly.
 //
 // Each warp owns 32 columns and up to four 16-row m-tiles (m-tiles wholly
 // past M are skipped, so a decode row costs one).  The k loop walks 64-deep

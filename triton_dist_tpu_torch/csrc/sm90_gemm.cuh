@@ -314,29 +314,47 @@ __device__ __forceinline__ void store2(int* p, int x, int y) {
   *reinterpret_cast<int2*>(p) = make_int2(x, y);
 }
 
+// The accumulator's fragment order: a consumer's value pairs of its m64
+// product i and column tile j (8 columns) are v = i (TN / 8) + j, held
+// at acc[4 v], acc[4 v + 1] (row frag_row(v), columns frag_col(v) and
+// + 1 of the tile) and acc[4 v + 2], acc[4 v + 3] (row frag_row(v) + 8,
+// the same columns): thread (warp w, lane) of consumer cw holds rows TM /
+// 2 cw + 64 i + 16 w + lane / 4 (+ 8), columns 8 j + 2 (lane % 4) (+ 1).
+template <class C>
+__device__ __forceinline__ int frag_row(int v, int cw) {
+  const int wt = threadIdx.x & 127;
+  return C::TM / 2 * cw + 64 * (v / (C::TN / 8)) + 16 * (wt >> 5) +
+         ((wt & 31) >> 2);
+}
+
+template <class C>
+__device__ __forceinline__ int frag_col(int v) {
+  return 8 * (v % (C::TN / 8)) + 2 * (threadIdx.x & 3);
+}
+
 // A consumer's rows of the tile at c (its row 0, column 0 of C; row
-// stride ldc), straight from the accumulator: thread (warp w, lane)
-// holds, for each of its m64 products i, rows TM / 2 cw + 64 i + 16 w +
-// lane / 4 (+ 8) and column pairs 8 j + 2 (lane % 4) of the tile's
-// columns col0..; rows >= `rows` and columns >= n are dropped (n even).
+// stride ldc), straight from the accumulator in fragment order, at the
+// tile's columns col0..; rows >= `rows` and columns >= n are dropped (n
+// even).
 template <bool I8, bool B_NK, bool TALL = false, class OutT>
 __device__ __forceinline__ void store_tile(
     const typename Cfg<I8, B_NK, TALL>::Acc (&acc)[Cfg<I8, B_NK, TALL>::NACC],
     OutT* c, long long ldc, int rows, int n, int col0, int cw) {
   using C = Cfg<I8, B_NK, TALL>;
-  const int wt = threadIdx.x & 127, warp = wt >> 5, lane = wt & 31;
 #pragma unroll
   for (int i = 0; i < C::SUB; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = C::TM / 2 * cw + 64 * i + 16 * warp + (lane >> 2) + 8 * h;
+      const int v0 = i * (C::TN / 8);
+      const int r = frag_row<C>(v0, cw) + 8 * h;
       if (r >= rows) continue;
-      OutT* dst = c + r * ldc + col0 + 2 * (lane & 3);
-      const int a0 = i * C::TN / 2 + 2 * h;
+      OutT* dst = c + r * ldc + col0;
 #pragma unroll
-      for (int j = 0; j < C::TN / 8; ++j)
-        if (col0 + 8 * j + 2 * (lane & 3) < n)
-          store2(dst + 8 * j, acc[a0 + 4 * j], acc[a0 + 4 * j + 1]);
+      for (int j = 0; j < C::TN / 8; ++j) {
+        const int v = v0 + j, col = frag_col<C>(v);
+        if (col0 + col < n)
+          store2(dst + col, acc[4 * v + 2 * h], acc[4 * v + 2 * h + 1]);
+      }
     }
 }
 

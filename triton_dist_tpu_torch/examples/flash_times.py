@@ -110,20 +110,29 @@ def time_tree(tree: str, repeats: int) -> dict:
 
 
 def main(argv=None, *, timer=time_tree, shapes=SHAPES, script=__file__,
-         doc=__doc__) -> int:
+         doc=__doc__, rows=()) -> int:
     """Run ``timer(tree, repeats)`` (a dict of kernel name -> ms) in one
     fresh process of ``script`` per (tree, round), interleaved; another
-    module times its kernels here by passing its own."""
+    module times its kernels here by passing its own.  ``rows``, where
+    given, are the row names that ``timer`` knows: ``--rows`` picks some
+    of them by exact name (all by default), and the timer is called as
+    ``timer(tree, repeats, rows)``."""
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="checkout roots to compare")
     ap.add_argument("--rounds", type=int, default=2,
                     help="rounds of A B .. B A (default 2)")
     ap.add_argument("--repeats", type=int, default=9,
                     help="CUDA-graph timings per kernel, median (default 9)")
+    if rows:
+        ap.add_argument("--rows", nargs="+", choices=rows,
+                        default=list(rows),
+                        help="rows to time, by exact name (default all)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    picked = ["--rows", *args.rows] if rows else []
     if args.child:
-        print(json.dumps(timer(args.trees[0], args.repeats)))
+        print(json.dumps(timer(args.trees[0], args.repeats,
+                               *([args.rows] if rows else []))))
         return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -137,8 +146,8 @@ def main(argv=None, *, timer=time_tree, shapes=SHAPES, script=__file__,
     for i, tree in enumerate(order):
         res = subprocess.run(
             [sys.executable, os.path.realpath(script), "--child", tree,
-             "--repeats", str(args.repeats)], capture_output=True, text=True,
-            cwd=tree)
+             "--repeats", str(args.repeats), *picked], capture_output=True,
+            text=True, cwd=tree)
         if res.returncode:
             sys.stderr.write(res.stdout + res.stderr)
             raise SystemExit(f"timing {tree} failed ({res.returncode})")

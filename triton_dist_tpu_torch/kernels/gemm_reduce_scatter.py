@@ -39,18 +39,19 @@ int8: exact in any order.
 On CUDA tensors each schedule launches ``csrc/gemm_rs.cu`` (``tdt_gemm_rs``
 bf16; ``tdt_gemm_rs_bidir`` bf16, b [W, k, N] only, its W - 1 landing
 slots per direction from the world's workspace; ``tdt_gemm_rs_i8``;
-``tdt_gemm_rs_bidir_i8``, the bidir ring on the int8 tile loop with int32
-landing slots, each hop's ``acc = local + recv`` added in registers) and
-counts it (``gemm_rs_shard.launches`` the uni bf16 kernel,
+``tdt_gemm_rs_bidir_i8``, the bidir ring with int32 landing slots, each
+hop's ``acc = local + recv`` added in registers) and counts it
+(``gemm_rs_shard.launches`` the uni bf16 kernel,
 ``.mode_launches["bidir"]`` / ``["i8"]`` / ``["i8_bidir"]``), or raises on
 what the kernel does not take; on CPU tensors (or with ``plain``) the
-plain version.  Any ``m_loc >= 1`` is taken: the last row
-tile of each chunk is masked.  The uni kernel runs on the wgmma / TMA
-mainloop of ``csrc/sm90_gemm.cuh`` (128 x 256 tiles, tensor maps over
-the rank-stacked operands, which must meet
-``allgather_gemm.ag_gemm_operand_ok`` or the wrapper raises); its staging
-holds each partial tile in the accumulator's fragment order, a flag per
-(slot, tile) (:func:`uni_tiles`), and each owner folds its chunk's G
+plain version.  Any ``m_loc >= 1`` is taken: the last row tile of each
+chunk is masked.  The uni kernel (bf16 and int8) and the int8 bidir ring
+run on the wgmma / TMA mainloop of ``csrc/sm90_gemm.cuh`` (128 x 256
+tiles, int8 :func:`i8_tile`'s; tensor maps over the rank-stacked
+operands, which must meet ``allgather_gemm.ag_gemm_operand_ok`` or the
+wrapper raises); their staging and landing slots hold each partial tile
+in the accumulator's fragment order, a flag per (slot, tile)
+(:func:`wg_workspace`), and the uni kernel's owner folds its chunk's G
 staged partials in items of its own after its GEMM tiles.
 
 **The torus schedule** (``_torus_gemm_rs_kernel`` :326, taken for a tuple
@@ -108,7 +109,6 @@ from triton_dist_tpu_torch.kernels.quant import matmul_i8_ref
 from triton_dist_tpu_torch.runtime.bootstrap import Mesh, get_world
 
 TILE_M = 128     # csrc/bf16_tile.cuh BM: rows of one chunk tile
-TILE_M_I8 = 64   # csrc/i8_tile.cuh BM: the int8 mode's
 WG_TILE = (128, 256)   # csrc/sm90_gemm.cuh BM x BN: the uni kernel's tiles
 # pointer tables (a, b, stage, out, flags, barrier), then world, m_loc, n,
 # k [, b_nk], the epoch and the stream
@@ -131,24 +131,48 @@ def _m_loc(a, G=None):
     return a.shape[1] // G
 
 
-def uni_tiles(m_loc: int, n: int) -> int:
-    """The uni kernel's 128 x 256 tiles of one chunk [m_loc, n]: its flags
-    and staged tiles per slot (the last row tile masked to m_loc, the
-    last column tile to n)."""
-    return -(-m_loc // WG_TILE[0]) * -(-n // WG_TILE[1])
+def i8_tile(m_loc: int) -> tuple[int, int]:
+    """The int8 kernels' tile for chunks of m_loc rows (``csrc/gemm_rs.cu``
+    ``i8_tall``): 256 x 128, unless one 128 x 256 tile holds the rows."""
+    return WG_TILE if m_loc <= WG_TILE[0] else (256, 128)
+
+
+def uni_tiles(m_loc: int, n: int, int8: bool = False) -> int:
+    """The uni kernel's tiles of one chunk [m_loc, n] (128 x 256; int8
+    :func:`i8_tile`): its flags and staged tiles per slot (the last row
+    tile masked to m_loc, the last column tile to n)."""
+    tm, tn = i8_tile(m_loc) if int8 else WG_TILE
+    return -(-m_loc // tm) * -(-n // tn)
+
+
+def wg_workspace(G: int, m_loc: int, n: int, int8: bool = False,
+                 bidir: bool = False):
+    """(staging shape, flags) a rank of the wgmma kernels: the uni
+    kernel's G slots of ``uni_tiles`` tiles, each 128 x 256 values (bf16,
+    int32 in int8) in the accumulator's fragment order, a flag per (slot,
+    tile); ``bidir`` (int8, G the world): the ring's 2 (G - 1) landing
+    slots, each the int32 tiles of one half [m_loc, n / 2]."""
+    size = WG_TILE[0] * WG_TILE[1]
+    if bidir:
+        tiles = uni_tiles(m_loc, n // 2, True)
+        return (2, G - 1, tiles, size), 2 * (G - 1) * tiles
+    tiles = uni_tiles(m_loc, n, int8)
+    return (G, tiles, size), G * tiles
 
 
 def _uni(a, b, m_loc, n, trans_b, name, G, group=()):
     """One launch of the uni kernel over G reducing ranks (``group``: the
-    group entry's arguments, the flat world without), its staging [G,
-    tiles, 128 x 256] and G x tiles flags a rank."""
+    group entry's arguments, the flat world without), bf16 or int8 (int32
+    staging and C), its :func:`wg_workspace`."""
     a, b = a.contiguous(), b.contiguous()
     _check_tma("gemm_rs", a, b)
-    tiles = uni_tiles(m_loc, n)
-    return _launch("tdt_gemm_rs_group" if group else "tdt_gemm_rs", a, b,
-                   m_loc, n, a.dtype, name,
-                   (G, tiles, WG_TILE[0] * WG_TILE[1]), G * tiles,
-                   int(trans_b), group=group)
+    int8 = a.dtype == torch.int8
+    stage, n_flags = wg_workspace(G, m_loc, n, int8)
+    entry = ("tdt_gemm_rs_group" if group else "tdt_gemm_rs") + (
+        "_i8" if int8 else "")
+    return _launch(entry, a, b, m_loc, n, torch.int32 if int8 else a.dtype,
+                   name, stage, n_flags, *(() if int8 else (int(trans_b),)),
+                   group=group)
 
 
 def gemm_rs_schedule(world: int, n: int, ring_mode: str = "uni",
@@ -254,18 +278,10 @@ def gemm_rs_shard(a, b, *, trans_b: bool = False, plain: bool = False,
         check_kernel_operands("gemm_rs (int8)", a, b, m_loc, k, n,
                               dtype=torch.int8, k_mult=32, n_mult=16)
         if mode == "bidir":
-            # int32 landing slots: [2 directions][W - 1][m_loc][N / 2]
-            out = _launch("tdt_gemm_rs_bidir_i8", a, b, m_loc, n,
-                          torch.int32, "gemm_rs_bidir_i8",
-                          (2, world - 1, m_loc, n // 2),
-                          2 * (world - 1) * -(-m_loc // TILE_M_I8)
-                          * -(-(n // 2) // 128))
+            out = _bidir_i8(a, b, m_loc, n)
             gemm_rs_shard.mode_launches["i8_bidir"] += 1
             return out
-        out = _launch("tdt_gemm_rs_i8", a, b, m_loc, n, torch.int32,
-                      "gemm_rs_i8",
-                      (world, m_loc, n), -(-m_loc // TILE_M_I8)
-                      * -(-n // 128) * world)
+        out = _uni(a, b, m_loc, n, False, "gemm_rs_i8", world)
         gemm_rs_shard.mode_launches["i8"] += 1
         return out
     check_kernel_operands("gemm_rs", a, b, m_loc, k, n)
@@ -279,6 +295,16 @@ def gemm_rs_shard(a, b, *, trans_b: bool = False, plain: bool = False,
     out = _uni(a, b, m_loc, n, trans_b, "gemm_rs", world)
     gemm_rs_shard.launches += 1
     return out
+
+
+def _bidir_i8(a, b, m_loc, n):
+    """One launch of the int8 bidir ring (any N % 32: the host entries
+    take it at (N / 2) % 128 == 0), its :func:`wg_workspace`."""
+    a, b = a.contiguous(), b.contiguous()
+    _check_tma("gemm_rs", a, b)
+    return _launch("tdt_gemm_rs_bidir_i8", a, b, m_loc, n, torch.int32,
+                   "gemm_rs_bidir_i8",
+                   *wg_workspace(a.shape[0], m_loc, n, bidir=True))
 
 
 def _launch(entry, a, b, m_loc, n, dtype, name, stage_shape, n_flags,
@@ -448,10 +474,8 @@ def torus_gemm_rs_i8(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
         raise ValueError(f"torus_gemm_rs_i8: unsupported device {a.device}")
     check_kernel_operands("torus_gemm_rs_i8", a, b, m_loc, k, n,
                           dtype=torch.int8, k_mult=32, n_mult=16)
-    tiles = -(-m_loc // TILE_M_I8) * -(-n // 128)
-    out = _launch("tdt_gemm_rs_group_i8", a, b, m_loc, n, torch.int32,
-                  "gemm_rs_torus_i8", (G, m_loc, n), G * tiles,
-                  group=((ctypes.c_int * 7)(*mesh.group_args(axes)),))
+    out = _uni(a, b, m_loc, n, False, "gemm_rs_torus_i8", G,
+               group=((ctypes.c_int * 7)(*mesh.group_args(axes)),))
     torus_gemm_rs_i8.launches += 1
     return out
 
