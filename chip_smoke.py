@@ -19,9 +19,10 @@ Phases, in order (any failure exits non-zero without the final line):
    ``ring_attn_kernel``, both backward kernels, the forward
    ``flash_fwd_wg_kernel`` (each instance: contiguous and segmented, bf16
    and int8 K/V), the uni AG-GEMM's ``ag_gemm_wg_kernel`` (bf16 with B
-   [K][n] and B^T, int8), the GEMM-RS's ``gemm_rs_wg_kernel`` (bf16 and
-   int8, flat and group; int8 on both tiles) and
-   ``gemm_rs_bidir_i8_wg_kernel``, and the persistent GEMMs, and of
+   [K][n] and B^T, int8) and its bidir ring's ``ag_gemm_bidir_wg_kernel``,
+   the GEMM-RS's ``gemm_rs_wg_kernel`` (bf16 and int8, flat and group;
+   int8 on both tiles) and ``gemm_rs_bidir_i8_wg_kernel``, the MoE
+   GroupGEMM-RS's ``moe_rs_wg_kernel``, and the persistent GEMMs, and of
    mma.sync instructions (``HMMA``) in each instance of
    ``decode_kernel``, beside their ptxas registers and spill bytes (a
    count of 0 fails the run; without ``cuobjdump`` the line says so);
@@ -5628,9 +5629,10 @@ def _torus_times(key, args, mesh, axes, fn, ref, err, W, M, D, F, QKV):
 WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
                  "flash_fwd": ("flash_fwd_wg_kernel",),
-                 "ag_gemm": ("ag_gemm_wg_kernel",),
+                 "ag_gemm": ("ag_gemm_wg_kernel", "ag_gemm_bidir_wg_kernel"),
                  "gemm_rs": ("gemm_rs_wg_kernel",
                              "gemm_rs_bidir_i8_wg_kernel"),
+                 "moe_rs": ("moe_rs_wg_kernel",),
                  "group_gemm": ("group_gemm_wg_kernel",),
                  "matmul_i8": ("matmul_i8_wg_kernel",)}
 # The mma.sync kernels whose SASS must hold HMMA instructions (the decode

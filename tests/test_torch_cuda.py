@@ -1694,9 +1694,10 @@ AG_MODES = {
 MODE_CASES = [
     # (world, m_loc, K, n): the TP-4 prefill rows cut in K and n, the
     # decode size (m_loc 16: a half of 8 rows, one masked 128-row tile),
-    # several pieces per half, world 2 and 8, a ragged n edge
+    # several pieces per half, world 2 and 8, a ragged n edge; QKV's n
+    # (1536) over halves of 200 rows (a ragged last row tile a half)
     (4, 512, 512, 256), (4, 16, 256, 256), (4, 384, 256, 384),
-    (2, 32, 512, 200), (8, 16, 256, 128),
+    (2, 32, 512, 200), (8, 16, 256, 128), (4, 400, 256, 1536),
 ]
 
 
@@ -1915,9 +1916,10 @@ def test_ring_modes_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="trans_b"):
         grs.gemm_rs_shard(z(4, 128, 256), z(4, 256, 256), trans_b=True,
                           ring_mode="bidir")
-    with pytest.raises(ValueError, match="bf16 operands"):
-        grs.gemm_rs_shard(z(4, 128, 256, dtype=torch.int8),
-                          z(4, 256, 256, dtype=torch.int8),
+    # int8 operands take the int8 bidir ring (row 15bi) since it was
+    # ported; an int8 a against a bf16 b it does not take
+    with pytest.raises(ValueError, match="int8 b"):
+        grs.gemm_rs_shard(z(4, 128, 256, dtype=torch.int8), z(4, 256, 256),
                           ring_mode="bidir")
     with pytest.raises(ValueError, match="multiples of 32 and 16"):
         grs.gemm_rs_shard(z(4, 128, 48, dtype=torch.int8),
@@ -3055,7 +3057,17 @@ def test_pp_hier_step_on_the_card(cuda):
 # ---------------------------------------------------------------------------
 
 MOE_TP_CASES = [(W, bm, routing) for W in (2, 4) for bm in (128, 256)
-                for routing in ("balanced", "skewed", "empty")]
+                for routing in ("balanced", "skewed", "empty")] + [
+    # (W, block_m, routing, D): D 384 leaves a ragged 128-column band of
+    # moe_rs's 256-column tiles to mask; and the largest world
+    (4, 128, "balanced", 384), (8, 128, "balanced")]
+
+
+def _moe_tp_args(case):
+    """(W, block_m, routing, keyword arguments of _moe_tp_case) of a
+    MOE_TP_CASES entry."""
+    W, bm, routing, *dims = case
+    return W, bm, routing, dict(D=dims[0]) if dims else {}
 
 
 def _moe_tp_case(dev, g, W, block_m, routing, t_loc=64, E=8, D=256,
@@ -3106,10 +3118,10 @@ def test_ag_group_gemm_matches_plain(cuda, case):
     rule."""
     from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
 
-    W, bm, routing = case
+    W, bm, routing, kw = _moe_tp_args(case)
     g = np.random.default_rng(zlib.crc32(repr(case).encode()))
     weights, experts, te, x, xs, w_up, _, _ = _moe_tp_case(cuda, g, W, bm,
-                                                           routing)
+                                                           routing, **kw)
     n0 = agg.ag_group_gemm_shard.launches
     gathered, y = agg.ag_group_gemm_sorted(xs, w_up, te, block_m=bm)
     torch.cuda.synchronize()
@@ -3132,10 +3144,10 @@ def test_moe_rs_matches_plain(cuda, case):
     counted; the shard function by the bf16 GEMM rule."""
     from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
 
-    W, bm, routing = case
+    W, bm, routing, kw = _moe_tp_args(case)
     g = np.random.default_rng(zlib.crc32(repr(case).encode()) + 1)
     weights, experts, te, _, _, _, h, w_dn = _moe_tp_case(cuda, g, W, bm,
-                                                          routing)
+                                                          routing, **kw)
     n0 = mrs.moe_reduce_rs_shard.launches
     ys = mrs.moe_rs_sorted(h, w_dn, te, block_m=bm)
     torch.cuda.synchronize()
@@ -3183,6 +3195,43 @@ def test_moe_tp_kernels_ten_calls_in_a_row(cuda):
                              "ag_group_gemm in a row")
         _segment_tiles_close(ys, mrs.moe_rs_ref(h, w_dn, te, block_m=bm),
                              "moe_rs in a row")
+
+
+@pytest.mark.gpu
+def test_moe_rs_after_a_call_of_another_shape(cuda):
+    """Calls at one shape, another and the first again (D 384 at block_m
+    256, then D 256 at block_m 128): the landing slots and flags of the
+    other shape sit in the workspace between them; every call against the
+    plain version by the row-tile rule, the repeat equal to the first."""
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+
+    g = np.random.default_rng(37)
+    shapes = [(_moe_tp_case(cuda, g, 4, 256, "skewed", D=384), 256),
+              (_moe_tp_case(cuda, g, 4, 128, "balanced"), 128)]
+    outs = []
+    for case, bm in shapes + shapes[:1]:
+        te, h, w_dn = case[2], case[6], case[7]
+        ys = mrs.moe_rs_sorted(h, w_dn, te, block_m=bm)
+        torch.cuda.synchronize()
+        _segment_tiles_close(ys, mrs.moe_rs_ref(h, w_dn, te, block_m=bm),
+                             f"moe_rs block_m {bm} D {w_dn.shape[-1]}")
+        outs.append(ys)
+    assert torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.gpu
+def test_moe_rs_refuses_non_tma_operands(cuda):
+    """Slabs whose rank stride is 0 (one stack expanded over the ranks)
+    pass the grouped kernels' row rule but break TMA's
+    (``moe_rs_operand_ok``): a ValueError before any launch."""
+    from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
+
+    g = np.random.default_rng(39)
+    _, _, te, _, _, _, h, w_dn = _moe_tp_case(cuda, g, 2, 128, "balanced")
+    n0 = mrs.moe_reduce_rs_shard.launches
+    with pytest.raises(ValueError, match="TMA"):
+        mrs.moe_rs_sorted(h, w_dn[:1].expand_as(w_dn), te, block_m=128)
+    assert mrs.moe_reduce_rs_shard.launches == n0
 
 
 @pytest.mark.gpu

@@ -3751,6 +3751,49 @@ def test_moe_rs_plain_adds_in_hop_order():
     assert {float(out[c, 0, 0]) for c in range(W)} == {256.0, 260.0}
 
 
+def test_moe_rs_operand_rule():
+    """``moe_rs_operand_ok``, what ``tdt_moe_rs``'s tensor maps read: the
+    views ``moe_reduce_rs`` builds at Mixtral-8x7B TP-4 widths (h [W, W
+    m_pad, F_loc] of the sorted [W m_pad, F] and the down slabs [W, E,
+    F_loc, D] of [E, F, D], each rank's F block in place; shapes on the
+    meta device) pass, at one rank too; a zero rank or expert stride (a
+    stack expanded over the ranks), a stride off 16 bytes, a misaligned
+    base, a non-unit last stride, f32 and a 2-D operand fail."""
+    ok = tmrs.moe_rs_operand_ok
+    bf = torch.bfloat16
+    W, m_pad, F, D, E = 4, 5120, 14336, 4096, 8
+    h = torch.empty((W * m_pad, F), dtype=bf, device="meta")
+    h_r = h.view(W * m_pad, W, F // W).permute(1, 0, 2)
+    w = torch.empty((E, F, D), dtype=bf, device="meta")
+    w_r = w.view(E, W, F // W, D).permute(1, 0, 2, 3)
+    for t in (h_r, w_r, h_r[:1], w_r[:1], w_r[:, :1]):
+        assert ok(tuple(t.shape), t.stride(), bf), (t.shape, t.stride())
+    assert not ok(tuple(w_r.shape), (0, *w_r.stride()[1:]), bf)
+    assert not ok(tuple(w_r.shape), (w_r.stride(0), 0, *w_r.stride()[2:]),
+                  bf)
+    assert not ok((4, 512, 256), (260, 1040, 1), bf)    # 520-byte ranks
+    assert not ok(tuple(h_r.shape), h_r.stride(), bf, offset=4)
+    assert not ok((4, 512, 256), (256, 1, 512), bf)     # transposed rows
+    assert not ok(tuple(h_r.shape), h_r.stride(), torch.float32)
+    assert not ok((512, 256), (256, 1), bf)
+    with pytest.raises(ValueError, match="TMA"):
+        tag._check_tma("moe_reduce_rs", w[:1].expand(W, E, F, D),
+                        rule=tmrs.moe_rs_operand_ok)
+
+
+@pytest.mark.parametrize("W,m_pad,n,slots,flags", [
+    (4, 5120, 4096, (3, 640, 32768), 1920),   # Mixtral TP 4, block_m 512
+    (4, 256, 384, (3, 4, 32768), 12),         # a ragged 128-column band
+    (8, 128, 384, (7, 2, 32768), 14),
+    (1, 512, 4096, (0, 64, 32768), 0),        # no hop: no slot, no flag
+])
+def test_moe_rs_workspace_sizes(W, m_pad, n, slots, flags):
+    """``moe_rs_workspace``: W - 1 landing slots a rank, each every 128 x
+    256 tile of [m_pad, n] (ceil(n / 256) column bands), and a flag per
+    (slot, tile)."""
+    assert tmrs.moe_rs_workspace(W, m_pad, n) == (slots, flags)
+
+
 @pytest.mark.parametrize("T,E,topk", [(64, 4, 2), (32, 8, 2), (2048, 8, 2),
                                       (4096, 8, 2), (256, 32, 8)])
 def test_default_block_m_gives_reference_m_pad(T, E, topk):

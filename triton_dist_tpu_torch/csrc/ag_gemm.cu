@@ -41,10 +41,16 @@
 // half of slot me - s and the bottom half of slot me + s: it forwards each
 // to its next peer in that half's direction (step 0 from its input, later
 // steps once the half's flag has reached this call), and its GEMM tiles
-// consume the two halves of step s in turn.  One flag set per direction
-// (slot and direction index the flag), as the reference keeps semaphores
-// per direction, so an arrival from one direction never passes a wait on
-// the other.
+// consume the two halves of step s.  One flag set per direction (slot and
+// direction index the flag), as the reference keeps semaphores per
+// direction, so an arrival from one direction never passes a wait on the
+// other.  Its GEMM tiles run on the uni kernel's wgmma / TMA mainloop
+// (ag_gemm_bidir_wg_kernel), step by step, within a step column band by
+// column band over both halves' row tiles, so the blocks that run
+// together share B's columns as the uni kernel's do over a segment (the
+// reference's order, half, row tile, then column, put every column band
+// under one wave: gate/up 0.73 against 0.54 ms, PERF.md row 13b).  The
+// tile-loop kernel it replaced ran gate/up in 1.03 ms.
 //
 // Row tails: m_loc is any positive count (a 1,000-token prompt over 4
 // ranks gives 250 rows).  Tiles are indexed by (segment, tile within the
@@ -70,10 +76,11 @@
 // block reaches first, so no wait can close a cycle.  Every block passes
 // barrier_all on entry (the reference's neighbour barrier, :339-344): no
 // rank writes into a peer that has not entered the kernel.  The uni
-// kernels (tdt_ag_gemm, tdt_ag_gemm_i8: ag_gemm_wg_kernel) run their tiles
-// on the wgmma / TMA mainloop of sm90_gemm.cuh, 128 x 256; the wire and
-// torus modes keep the tile loops of bf16_tile.cuh (128 x 128) and
-// i8_tile.cuh (64 x 128), and the bidir ring the first.
+// kernels (tdt_ag_gemm, tdt_ag_gemm_i8: ag_gemm_wg_kernel) and the bidir
+// ring (tdt_ag_gemm_bidir: ag_gemm_bidir_wg_kernel) run their tiles on the
+// wgmma / TMA mainloop of sm90_gemm.cuh, 128 x 256; the wire and torus
+// modes keep the tile loops of bf16_tile.cuh (128 x 128) and i8_tile.cuh
+// (64 x 128).
 //
 // Piece counters: a chunk's pieces add one each to the receiver's counter
 // for that chunk (after their copy and a system fence); the piece that
@@ -412,85 +419,152 @@ ag_gemm_wg_kernel(const __grid_constant__ WgParams<I8, B_NK> p) {
   }
 }
 
+// The bidirectional ring (tdt_ag_gemm_bidir), bf16, B [K][n], on the
+// mainloop of ag_gemm_wg_kernel (128 x 256 tiles).  Rank me's list: the
+// forwards in step order (step s: the top half's pieces, then the bottom
+// half's; step 0 from the input, later steps once the half's flag has
+// reached this call), then the pieces of my own segment into my own
+// gathered buffer (which no one waits on), all run by every thread of the
+// block before the warpgroups split; then the GEMM tiles step by step
+// (step s: the top half of slot me - s and the bottom half of slot me +
+// s), column band by column band, both halves' row tiles inside a band
+// (the file's header: the reference's order, half, row tile, then
+// column, ran gate/up 1.3x slower).  A half's rows are tiled on their own
+// (`hp` tiles of up to 128 rows, the last masked), so a GEMM tile never
+// spans the two halves.  Producer warp 0's lane 0 waits on
+// the half's flag for s > 0, issues fence.proxy.async.global (the peers'
+// forwards are generic-proxy stores) and loads A from the input at s = 0
+// or from the gathered buffer after that, B from the rank's weight.  The A
+// maps' rows are bounded at the half ({K, m_loc / 2, 2 halves, ...}), so
+// a ragged last tile of a half reads zeros, never the other half's rows,
+// which may still be in flight.
+struct BidirParams {
+  CUtensorMap amap;   // a  {K, m_loc / 2, 2 halves, W}
+  CUtensorMap agmap;  // ag {K, m_loc / 2, 2 halves, W segments, W ranks}
+  CUtensorMap bmap;   // b  {n, K, W}
+  Params<bf16, bf16, bf16> q;
+};
+
 // (me + d) mod world for |d| < world.
 __device__ __forceinline__ int ring_slot(int me, int d, int world) {
   const int r = me + d;
   return r < 0 ? r + world : (r >= world ? r - world : r);
 }
 
-// The bidirectional ring, bf16, B [K][n].  Rank me's list: the forwards
-// in step order (step s: the top half's pieces, then the bottom half's),
-// then the pieces of my own segment into my own gathered buffer (which no
-// one waits on), then the GEMM tiles in the reference's order (step s:
-// the top half of slot me - s, then the bottom half of slot me + s).  A
-// half's rows are tiled on their own (`tph` tiles of up to 128 rows, the
-// last masked), so a GEMM tile never spans the two halves.
-__global__ void __launch_bounds__(tdt_bf16::NT, 2)
-ag_gemm_bidir_kernel(const __grid_constant__ Params<bf16, bf16, bf16> p) {
-  constexpr int BM = tdt_bf16::BM, BN = tdt_bf16::BN;
-  extern __shared__ __align__(128) char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int me = blockIdx.y;
-  tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
-
-  const int hp = (p.m_loc / 2 + BM - 1) / BM;     // pieces (tiles) a half
-  const int n_fwd = (p.world - 1) * 2 * hp;
-  const int n_copy = n_fwd + (p.m_loc + BM - 1) / BM;
-  // the copies: a block takes its items of the list in order, so it
-  // finishes its copies before its GEMM tiles (the second loop)
-  int it = blockIdx.x;
-  for (; it < n_copy; it += gridDim.x) {
-    const long long seg = static_cast<long long>(p.m_loc) * p.k;
-    if (it >= n_fwd) {
-      // my own segment into my own gathered buffer
-      const int row0 = (it - n_fwd) * BM;
-      tdt_dist::putmem(
-          p.ag.p[me] + me * seg + static_cast<long long>(row0) * p.k,
-          p.a.p[me] + static_cast<long long>(row0) * p.k,
-          static_cast<long long>(min(BM, p.m_loc - row0)) * p.k * 2);
-      continue;
-    }
-    // forward (step, half, piece): the half's slot at this step
-    const int sh = it / hp, piece = it - sh * hp;
-    const int step = sh / 2, h = sh - 2 * step;
-    const int slot = ring_slot(me, h == 0 ? -step : step, p.world);
-    const int half = p.m_loc / 2;
-    const long long row0 = h * half + piece * BM;
-    const long long off = slot * seg + row0 * p.k;
-    if (step > 0)
-      tdt_dist::wait(p.flags.p[me] + h * p.world + slot, p.epoch);
-    const int to = ring_slot(me, h == 0 ? 1 : -1, p.world);
-    tdt_dist::putmem(p.ag.p[to] + off,
-                     step == 0 ? p.a.p[me] + row0 * p.k : p.ag.p[me] + off,
-                     static_cast<long long>(min(BM, half - piece * BM)) *
-                         p.k * 2);
-    count_signal(p.cnt.p[to] + h * p.world + slot, hp,
-                 p.flags.p[to] + h * p.world + slot, p.epoch);
+// Copy item `it` of rank me's bidir list (hp pieces a half, n_fwd
+// forwards first), by the whole block.
+__device__ __forceinline__ void bidir_copy(const Params<bf16, bf16, bf16>& p,
+                                           int me, int it, int hp,
+                                           int n_fwd) {
+  constexpr int BM = tdt_gemm90::BM;
+  const long long seg = static_cast<long long>(p.m_loc) * p.k;
+  if (it >= n_fwd) {
+    // my own segment into my own gathered buffer
+    const int row0 = (it - n_fwd) * BM;
+    tdt_dist::putmem(
+        p.ag.p[me] + me * seg + static_cast<long long>(row0) * p.k,
+        p.a.p[me] + static_cast<long long>(row0) * p.k,
+        static_cast<long long>(min(BM, p.m_loc - row0)) * p.k * 2);
+    return;
   }
-  // the GEMM tiles: (step, half, row tile, column tile)
-  const int tiles_n = (p.n + BN - 1) / BN;
-  const int n_items = n_copy + p.world * 2 * hp * tiles_n;
-  for (; it < n_items; it += gridDim.x) {
-    const int t = it - n_copy;
-    const int sh = t / (hp * tiles_n), rest = t - sh * (hp * tiles_n);
-    const int step = sh / 2, h = sh - 2 * step;
-    const int slot = ring_slot(me, h == 0 ? -step : step, p.world);
-    const int tile = rest / tiles_n, col = rest - tile * tiles_n;
-    const int half = p.m_loc / 2;
-    const int row0 = slot * p.m_loc + h * half + tile * BM;
-    const bf16* src;
-    if (step == 0) {
-      src = p.a.p[me] + static_cast<long long>(row0 - slot * p.m_loc) * p.k;
-    } else {
-      tdt_dist::wait(p.flags.p[me] + h * p.world + slot, p.epoch);
-      src = p.ag.p[me] + static_cast<long long>(row0) * p.k;
+  // forward (step, half, piece): the half's slot at this step
+  const int sh = it / hp, piece = it - sh * hp;
+  const int step = sh / 2, h = sh - 2 * step;
+  const int slot = ring_slot(me, h == 0 ? -step : step, p.world);
+  const int half = p.m_loc / 2;
+  const long long row0 = h * half + piece * BM;
+  const long long off = slot * seg + row0 * p.k;
+  if (step > 0) tdt_dist::wait(p.flags.p[me] + h * p.world + slot, p.epoch);
+  const int to = ring_slot(me, h == 0 ? 1 : -1, p.world);
+  tdt_dist::putmem(p.ag.p[to] + off,
+                   step == 0 ? p.a.p[me] + row0 * p.k : p.ag.p[me] + off,
+                   static_cast<long long>(min(BM, half - piece * BM)) *
+                       p.k * 2);
+  count_signal(p.cnt.p[to] + h * p.world + slot, hp,
+               p.flags.p[to] + h * p.world + slot, p.epoch);
+}
+
+// GEMM item t of rank me's bidir list: step s, then column tile `col`,
+// then half h and row tile `tile` of the half (the half's slot at step s).
+struct BidirTile {
+  int s, h, slot, tile, col;
+};
+
+__device__ __forceinline__ BidirTile bidir_tile(int t, int me, int world,
+                                                int hp, int tiles_n) {
+  BidirTile x;
+  const int per = 2 * hp * tiles_n;  // GEMM items a step
+  x.s = t / per;
+  const int rest = t - x.s * per;
+  x.col = rest / (2 * hp);
+  const int r = rest - x.col * (2 * hp);
+  x.h = r / hp;
+  x.tile = r - x.h * hp;
+  x.slot = ring_slot(me, x.h == 0 ? -x.s : x.s, world);
+  return x;
+}
+
+__global__ void __launch_bounds__(tdt_gemm90::NT, 1)
+ag_gemm_bidir_wg_kernel(const __grid_constant__ BidirParams p) {
+  using C = tdt_gemm90::Cfg<false, false>;
+  using tdt_gemm90::BM;
+  using tdt_gemm90::BN;
+  extern __shared__ __align__(128) char wg_smem[];
+  auto& sm = tdt_gemm90::smem_of<C>(wg_smem);
+  const auto& q = p.q;
+  const int me = blockIdx.y, W = q.world;
+  if (threadIdx.x == 0) tdt_gemm90::init_barriers(sm);
+  tdt_dist::barrier_all(q.bar, me, W, q.epoch);  // syncs the block too
+
+  const int half = q.m_loc / 2;
+  const int hp = (half + BM - 1) / BM;  // pieces (row tiles) a half
+  const int n_fwd = (W - 1) * 2 * hp;
+  const int n_copy = n_fwd + (q.m_loc + BM - 1) / BM;
+  const int tiles_n = (q.n + BN - 1) / BN;
+  const int n_items = n_copy + W * 2 * hp * tiles_n;
+  // the copies: a block takes its items of the list in order, so it
+  // finishes its copies before its GEMM tiles
+  int it = blockIdx.x;
+  for (; it < n_copy; it += gridDim.x) bidir_copy(q, me, it, hp, n_fwd);
+  const int n_kt = (q.k + C::BK - 1) / C::BK;
+  if (threadIdx.x < 128) {
+    tdt_sm90::regs_dealloc<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      tdt_sm90::Ring<C::NS> ring;
+      for (int t = it; t < n_items; t += gridDim.x) {
+        const BidirTile x = bidir_tile(t - n_copy, me, W, hp, tiles_n);
+        if (x.s > 0) {
+          tdt_dist::spin_until(q.flags.p[me] + x.h * W + x.slot, q.epoch);
+          tdt_sm90::fence_proxy_async_global();
+        }
+        const int r0 = x.tile * BM;
+        for (int kt = 0; kt < n_kt; ++kt)
+          tdt_gemm90::produce_k_tile<false, false>(
+              sm, ring, &p.bmap, x.col * BN, kt, me,
+              [&](void* dst, uint64_t* bar, int k0) {
+                if (x.s == 0)
+                  tdt_sm90::tma_load_4d(dst, &p.amap, bar, k0, r0, x.h, me);
+                else
+                  tdt_sm90::tma_load_5d(dst, &p.agmap, bar, k0, r0, x.h,
+                                        x.slot, me);
+              });
+      }
     }
-    float acc[4][4][4];
-    const int rows = min(BM, half - tile * BM);
-    tdt_bf16::mma_tile<false, true>(acc, smem, src, p.k, p.b.p[me], p.n,
-                                    rows, p.n, p.k, 0, col * BN);
-    tdt_bf16::store_tile(acc, p.c.p[me] + static_cast<long long>(row0) * p.n,
-                         p.n, rows, p.n, 0, col * BN);
+    return;
+  }
+  tdt_sm90::regs_alloc<C::CONSUMER_REGS>();
+  const int cw = threadIdx.x / 128 - 1;
+  tdt_sm90::Ring<C::NS> ring;
+  tdt_sm90::Ring<C::NTS> tring;
+  for (int t = it; t < n_items; t += gridDim.x) {
+    float acc[C::NACC];
+    tdt_gemm90::mma_tile<false, false>(acc, sm, ring, tring, n_kt, cw);
+    const BidirTile x = bidir_tile(t - n_copy, me, W, hp, tiles_n);
+    const long long row0 =
+        static_cast<long long>(x.slot) * q.m_loc + x.h * half + x.tile * BM;
+    tdt_gemm90::store_tile<false, false>(acc, q.c.p[me] + row0 * q.n, q.n,
+                                         half - x.tile * BM, q.n,
+                                         x.col * BN, cw);
   }
 }
 
@@ -526,6 +600,30 @@ Params<TA, TB, OutT> make_params(const long long* a, const long long* s,
 bool bad_shape(int world, int m_loc, int crow) {
   return world < 1 || world > MAX_RANKS || m_loc < 1 || crow < 1 ||
          m_loc % crow;
+}
+
+// The map over the rank-stacked weight (b_rs: its rank stride in bytes):
+// b [W][n][K] (B_NK), K-major boxes of 256 rows; b [W][K][n], bf16
+// 64-column boxes, int8 the raw tile (sm90_gemm.cuh).
+template <bool I8, bool B_NK>
+int b_map(CUtensorMap* map, const void* b, int world, int n, int k,
+          long long b_rs) {
+  using C = tdt_gemm90::Cfg<I8, B_NK>;
+  constexpr int E = sizeof(typename C::T);
+  const CUtensorMapDataType dt = I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (B_NK) {
+    const long long bd[3] = {k, n, world}, bs[3] = {1, k, b_rs / E};
+    const int bbox[3] = {C::BK, tdt_gemm90::BN, 1};
+    return tdt_sm90::make_map_t(map, dt, E, CU_TENSOR_MAP_SWIZZLE_128B, b, 3,
+                                bd, bs, bbox);
+  }
+  const long long bd[3] = {n, k, world}, bs[3] = {1, n, b_rs / E};
+  const int bbox[3] = {I8 ? tdt_gemm90::BN : 64, C::BK, 1};
+  return tdt_sm90::make_map_t(
+      map, dt, E,
+      I8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, b, 3, bd,
+      bs, bbox);
 }
 
 // Launch the warp-specialised uni kernel: the three tensor maps over the
@@ -569,20 +667,7 @@ int launch_wg(const long long* a, const long long* b, const long long* ag,
   if (!err)
     err = tdt_sm90::make_map_t(&p.agmap, dt, E, sw, p.q.ag.p[0], 4, gd, gs,
                                gbox);
-  if (!err) {
-    if (B_NK) {  // b [W][n][K]: K-major boxes of 256 rows
-      const long long bd[3] = {k, n, world}, bs[3] = {1, k, b_rs / E};
-      const int bbox[3] = {C::BK, BN, 1};
-      err = tdt_sm90::make_map_t(&p.bmap, dt, E, sw, p.q.b.p[0], 3, bd, bs,
-                                 bbox);
-    } else {     // b [W][K][n]: bf16 64-column boxes; int8 the raw tile
-      const long long bd[3] = {n, k, world}, bs[3] = {1, n, b_rs / E};
-      const int bbox[3] = {I8 ? BN : 64, C::BK, 1};
-      err = tdt_sm90::make_map_t(&p.bmap, dt, E,
-                                 I8 ? CU_TENSOR_MAP_SWIZZLE_NONE : sw,
-                                 p.q.b.p[0], 3, bd, bs, bbox);
-    }
-  }
+  if (!err) err = b_map<I8, B_NK>(&p.bmap, p.q.b.p[0], world, n, k, b_rs);
   if (err) return err;
   const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
                     world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
@@ -642,28 +727,53 @@ extern "C" int tdt_ag_gemm_wire(const long long* a, const long long* s,
 }
 
 // The bidirectional ring: bf16, b [k][n]; m_loc even (the halves' rows,
-// m_loc / 2, any positive count); flags and cnt: 2 W per rank.
+// m_loc / 2, any positive count), k % 8 == 0 and n % 8 == 0, every base
+// 16-byte aligned and the ranks equally spaced (TMA's rules: the wrapper
+// checks); flags and cnt: 2 W per rank.
 extern "C" int tdt_ag_gemm_bidir(const long long* a, const long long* b,
                                  const long long* ag, const long long* c,
                                  const long long* flags,
                                  const long long* cnt, const long long* bar,
                                  int world, int m_loc, int n, int k,
                                  unsigned epoch, void* stream) {
-  using tdt_bf16::BM;
-  using tdt_bf16::BN;
+  using C = tdt_gemm90::Cfg<false, false>;
+  constexpr int BM = tdt_gemm90::BM, BN = tdt_gemm90::BN;
   if (bad_shape(world, m_loc, 1) || world < 2 || m_loc % 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
-                                         flags, cnt, bar, world, m_loc, n,
-                                         k, m_loc, epoch,
-                                         tdt_dist::flat_group(world));
+  const long long a_rs = tdt_dist::rank_stride(a, world, 2LL * m_loc * k);
+  const long long ag_rs =
+      tdt_dist::rank_stride(ag, world, 2LL * world * m_loc * k);
+  const long long b_rs = tdt_dist::rank_stride(b, world, 2LL * k * n);
+  if (a_rs < 0 || ag_rs < 0 || b_rs < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BidirParams p;
+  p.q = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c, flags,
+                                      cnt, bar, world, m_loc, n, k, m_loc,
+                                      epoch, tdt_dist::flat_group(world));
+  const auto dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const long long half = m_loc / 2;
+  const long long ad[4] = {k, half, 2, world};
+  const long long as[4] = {1, k, half * k, a_rs / 2};
+  const int abox[4] = {C::BK, BM, 1, 1};
+  const long long gd[5] = {k, half, 2, world, world};
+  const long long gs[5] = {1, k, half * k, static_cast<long long>(m_loc) * k,
+                           ag_rs / 2};
+  const int gbox[5] = {C::BK, BM, 1, 1, 1};
+  int err = tdt_sm90::make_map_t(&p.amap, dt, 2, sw, p.q.a.p[0], 4, ad, as,
+                                 abox);
+  if (!err)
+    err = tdt_sm90::make_map_t(&p.agmap, dt, 2, sw, p.q.ag.p[0], 5, gd, gs,
+                               gbox);
+  if (!err) err = b_map<false, false>(&p.bmap, p.q.b.p[0], world, n, k, b_rs);
+  if (err) return err;
   const int hp = (m_loc / 2 + BM - 1) / BM;
   const int items = (world - 1) * 2 * hp + (m_loc + BM - 1) / BM +
                     world * 2 * hp * ((n + BN - 1) / BN);
   static unsigned attr = 0;
-  return tdt_dist::launch_coop(ag_gemm_bidir_kernel, p, tdt_bf16::NT,
-                               BF16_SMEM, world, items, attr,
-                               static_cast<cudaStream_t>(stream));
+  return tdt_dist::launch_coop(ag_gemm_bidir_wg_kernel, p, tdt_gemm90::NT,
+                               tdt_gemm90::smem_bytes<C>(), world, items,
+                               attr, static_cast<cudaStream_t>(stream));
 }
 
 // The int8 mode: int8 A and B, int32 C; m_loc >= 1, k % 32 == 0 and

@@ -135,6 +135,8 @@ using tdt_dist::Group;
 using tdt_dist::MAX_RANKS;
 using tdt_dist::Peers;
 using tdt_dist::peers;
+using tdt_gemm90::bf16_hi;
+using tdt_gemm90::bf16_lo;
 using tdt_gemm90::frag_col;
 using tdt_gemm90::frag_row;
 
@@ -274,14 +276,6 @@ __device__ __forceinline__ void raise_tile(unsigned* flag, unsigned epoch) {
     __threadfence_system();
     tdt_dist::st_release(flag, epoch);
   }
-}
-
-__device__ __forceinline__ float bf16_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float bf16_hi(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
 }
 
 // The G staged partials of a consumer's half of a tile (slot q at

@@ -136,11 +136,14 @@ __device__ __forceinline__ void init_barriers(Smem<C>& sm) {
 // The producer's lane 0: k-tile kt of a tile into the ring's next stage,
 // A by `load_a(dst, bar, k0)` (the caller's map and coordinates), B from
 // the map `bmap` over the rank-stacked weight ({n, K, W}, or {K, n, W}
-// with B_NK) at columns col0.. of rank `rank`.
+// with B_NK) at columns col0.. of rank `rank`; with `slab` >= 0 (bf16 B
+// [K][n] only) from the 4-D map {n, K, slabs, W} over rank-stacked slab
+// stacks, slab `slab` of rank `rank`.
 template <bool I8, bool B_NK, bool TALL = false, class LoadA>
 __device__ __forceinline__ void produce_k_tile(
     Smem<Cfg<I8, B_NK, TALL>>& sm, Ring<Cfg<I8, B_NK, TALL>::NS>& ring,
-    const CUtensorMap* bmap, int col0, int kt, int rank, LoadA load_a) {
+    const CUtensorMap* bmap, int col0, int kt, int rank, LoadA load_a,
+    int slab = -1) {
   using C = Cfg<I8, B_NK, TALL>;
   const int st = ring.stage;
   mbar_wait(&sm.empty[st], ring.phase ^ 1u);
@@ -151,6 +154,11 @@ __device__ __forceinline__ void produce_k_tile(
     tma_load_3d(sm.raw[st], bmap, &sm.full[st], col0, k0, rank);
   } else if (B_NK) {
     tma_load_3d(sm.b[st], bmap, &sm.full[st], k0, col0, rank);
+  } else if (slab >= 0) {
+#pragma unroll
+    for (int q = 0; q < C::TN / 64; ++q)
+      tma_load_4d(sm.b[st] + q * 64 * KB, bmap, &sm.full[st], col0 + 64 * q,
+                  k0, slab, rank);
   } else {
 #pragma unroll
     for (int q = 0; q < C::TN / 64; ++q)
@@ -312,6 +320,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 
 __device__ __forceinline__ void store2(int* p, int x, int y) {
   *reinterpret_cast<int2*>(p) = make_int2(x, y);
+}
+
+// The two bf16 halves of a packed word (pack_bf16's), as f32.
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
 }
 
 // The accumulator's fragment order: a consumer's value pairs of its m64

@@ -9,7 +9,8 @@ in the order A B .. B A, each building and importing its own tree.  At
 Llama-3-8B TP-4 widths on a four-rank virtual world (K 4096, gate/up n
 3584 per rank; m_loc 512, the S 2,048 prefill, and 16, a decode step) it
 times the AG-GEMM's uni schedule at chunks 1, 2 and 4, its bidir ring and
-its int8 wire (PERF.md rows 13, 13c, 13b, 13w), and at m_loc 512 the uni
+its int8 wire (PERF.md rows 13, 13c, 13b, 13w), the bidir ring also at
+QKV's n 1536 ("bidir qkv"), and at m_loc 512 the uni
 kernels at every shape of ``chip_smoke.py``'s rows 13 and 13i (bf16 QKV n
 1536, gate/up, wo^T n 1024 and wdown^T n 3584 with B read transposed,
 gate/up at m_loc 250; int8 gate/up, QKV and gate/up at m_loc 250), each
@@ -26,7 +27,8 @@ import statistics
 import sys
 
 SHAPES = ("ag_gemm W 4, K 4096, n 3584 per rank, m_loc 512 and 16 (m16); "
-          "uni chunks 1 / 2 / 4, bidir, int8 wire; rows 13 / 13i: W 4, "
+          "uni chunks 1 / 2 / 4, bidir (also at n 1536: bidir qkv), int8 "
+          "wire; rows 13 / 13i: W 4, "
           "m_loc 512 (r250: 250), K 4096, n 1536 / 3584 / 1024 (B^T) / "
           "3584 (B^T), int8 n 3584 / 1536")
 # rows 13 / 13i: (tag, m_loc, n, trans_b, int8)
@@ -102,6 +104,11 @@ def time_tree(tree: str, repeats: int) -> dict:
             out[tag + mode] = statistics.median(
                 _event_ms(lambda: agm.ag_gemm_shard(a, b, **kw))
                 for _ in range(repeats))
+        b = (torch.randn((4, 4096, 1536), generator=g, device=dev) / 64
+             ).to(torch.bfloat16)
+        out[tag + "bidir qkv"] = statistics.median(
+            _event_ms(lambda: agm.ag_gemm_shard(a, b, ring_mode="bidir"))
+            for _ in range(repeats))
     for tag, m_loc, n, trans, int8 in ROWS:
         if int8:
             a = torch.randint(-127, 128, (4, m_loc, 4096), generator=g,

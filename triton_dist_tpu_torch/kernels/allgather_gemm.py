@@ -51,10 +51,10 @@ counted at the receiver, the last piece raising the chunk's flag;
 over the world's symmetric workspace and counts the launch, or raises on
 what the kernel does not take (the bidir and wire kernels take no
 ``trans_b``); on CPU tensors (or with ``plain``) the plain version.  The
-uni bf16 and int8 kernels run their GEMM tiles on the wgmma / TMA
-mainloop of ``csrc/sm90_gemm.cuh`` (tensor maps over the rank-stacked
-operands): their operands meet :func:`ag_gemm_operand_ok` or the wrapper
-raises.  Any
+uni bf16 and int8 kernels and the bidir ring run their GEMM tiles on the
+wgmma / TMA mainloop of ``csrc/sm90_gemm.cuh`` (tensor maps over the
+rank-stacked operands): their operands meet :func:`ag_gemm_operand_ok` or
+the wrapper raises.  Any
 ``m_loc >= 1`` is taken: the last tile of each segment (of each half, in
 bidir) is masked to its rows.  World 1 goes through the kernel as well;
 the tensor-parallel linears take ``torch.matmul`` there, as the
@@ -70,8 +70,9 @@ reference's auto dispatch takes XLA's dot.
 the kernels on CUDA tensors; ``interpret`` changes nothing (CPU tensors
 run the plain versions).  ``config`` (the reference's MXU block triple)
 is kept and has no effect: the Hopper tiles are fixed (the uni kernels'
-128 x 256 x 64 bf16 and 128 x 256 x 128 int8 of ``csrc/sm90_gemm.cuh``;
-the other modes' 128 x 128 x 32 of ``csrc/bf16_tile.cuh``).  A tuple
+and the bidir ring's 128 x 256 x 64 bf16 and 128 x 256 x 128 int8 of
+``csrc/sm90_gemm.cuh``; the wire's and the bf16 torus order's 128 x 128 x 32
+of ``csrc/bf16_tile.cuh``).  A tuple
 ``axis`` with two or more axes of more than one rank takes the torus
 schedule over that joint group (reference :679-696,
 ``_torus_ag_gemm_kernel`` :428): a's rows and b's
@@ -175,7 +176,16 @@ def ag_gemm_operand_ok(shape, strides, dtype, offset=0) -> bool:
     tests hold every model path's operands to it."""
     if dtype not in (torch.bfloat16, torch.int8) or len(shape) != 3:
         return False
-    size = 2 if dtype == torch.bfloat16 else 1
+    return tma_layout_ok(shape, strides, 2 if dtype == torch.bfloat16 else 1,
+                         offset)
+
+
+def tma_layout_ok(shape, strides, size, offset=0) -> bool:
+    """TMA's rule for one tensor map over a strided view of elements of
+    ``size`` bytes: unit last stride, a 16-byte aligned base (``offset``
+    elements into a 16-byte aligned allocation), and the stride of every
+    dim of more than one row a nonzero multiple of 16 bytes below
+    2**40."""
     if strides[-1] != 1 or (offset * size) % 16:
         return False
     return all(n == 1 or (0 < st * size < _TMA_STRIDE_LIMIT
@@ -183,16 +193,16 @@ def ag_gemm_operand_ok(shape, strides, dtype, offset=0) -> bool:
                for n, st in zip(shape[:-1], strides[:-1]))
 
 
-def _check_tma(name, *tensors):
-    """Raise unless every operand meets :func:`ag_gemm_operand_ok` at its
-    address."""
+def _check_tma(name, *tensors, rule=ag_gemm_operand_ok):
+    """Raise unless every operand meets ``rule`` (by default
+    :func:`ag_gemm_operand_ok`) at its address."""
     for t in tensors:
-        if not ag_gemm_operand_ok(tuple(t.shape), t.stride(),
-                                  t.dtype) or t.data_ptr() % 16:
+        if not rule(tuple(t.shape), t.stride(), t.dtype) or \
+                t.data_ptr() % 16:
             raise ValueError(f"{name} kernel: an operand {tuple(t.shape)} "
                              f"of strides {t.stride()} at offset "
                              f"{t.storage_offset()} breaks TMA's rules "
-                             f"(ag_gemm_operand_ok)")
+                             f"({rule.__name__})")
 
 
 def ring_tables(*tensors):
@@ -400,11 +410,11 @@ def _ag_gemm(a, b, *, trans_b, plain, chunks, wire_dtype, ring_mode,
         mode = "wire"
     else:
         a_full = _empty(a, world, world * m_loc, k)
+        _check_tma("ag_gemm", a, b)
         if sched.mode == "bidir":
             _launch("tdt_ag_gemm_bidir", a, (a, b, a_full, c), dims,
                     "ag_gemm_bidir", 2 * world)
         else:
-            _check_tma("ag_gemm", a, b)
             _launch("tdt_ag_gemm", a, (a, b, a_full, c),
                     (*dims, m_loc // sched.chunks, int(trans_b)), "ag_gemm",
                     world * sched.chunks)

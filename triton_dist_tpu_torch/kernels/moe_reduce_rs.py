@@ -24,13 +24,16 @@ in f32).
   (rank q's F shard of every segment), the rank-stacked slabs w [W, E,
   F_loc, D] and ``tile_expert`` [W, n_tiles] -> [W, m_pad, D], rank c's
   reduced segment.  On CUDA tensors it launches ``csrc/moe_rs.cu``
-  (``tdt_moe_rs``, the port of the TPU ``_moe_rs_kernel`` :106) over the
-  world's symmetric workspace (W - 1 landing slots per rank, as
-  ``tdt_gemm_rs_bidir`` takes them) and counts the launch in
-  ``moe_reduce_rs_shard.launches``, or raises on what the kernel does not
-  take (as ``allgather_group_gemm.check_grouped_kernel``: bf16, block_m,
-  F_loc and D multiples of 128; h and w may be strided views).  On CPU
-  tensors, or with ``plain``, :func:`moe_rs_ref`.
+  (``tdt_moe_rs``, the port of the TPU ``_moe_rs_kernel`` :106, on the
+  wgmma / TMA mainloop of ``csrc/sm90_gemm.cuh``) over the world's
+  symmetric workspace (W - 1 landing slots per rank of 128 x 256 tiles
+  in the accumulator's fragment order, :func:`moe_rs_workspace`) and
+  counts the launch in ``moe_reduce_rs_shard.launches``, or raises on
+  what the kernel does not take (as ``allgather_group_gemm.
+  check_grouped_kernel``: bf16, block_m, F_loc and D multiples of 128;
+  and TMA's rule, :func:`moe_rs_operand_ok`: h and w may be strided
+  views, read in place by tensor maps).  On CPU tensors, or with
+  ``plain``, :func:`moe_rs_ref`.
 - :func:`moe_reduce_rs_shard` (reference :196): rank-stacked h, w,
   weights / experts [W, t_loc, topk] -> out [W, t_loc, D].
 - The host entry :func:`moe_reduce_rs` (reference :257) with
@@ -62,9 +65,11 @@ from triton_dist_tpu_torch.autotuner import Config, autotune
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _check_impl,
+    _check_tma,
     dedupe_configs,
     flat_axis,
     ring_tables,
+    tma_layout_ok,
 )
 from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
     _segment_plans,
@@ -73,15 +78,37 @@ from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
     launch_keys,
     resolve_block_m,
 )
-from triton_dist_tpu_torch.kernels.group_gemm import TILE_M, group_gemm_ref
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import WG_TILE
+from triton_dist_tpu_torch.kernels.group_gemm import group_gemm_ref
 from triton_dist_tpu_torch.kernels.moe_utils import combine_topk
 from triton_dist_tpu_torch.runtime.bootstrap import Mesh, get_world
 
 _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_uint
 # pointer tables (h, w, landing slots, out, flags, barrier), the tile map,
-# world, m_pad, n, k, block_m, lda, ldb, e_stride, epoch, stream
-_SIG = {"tdt_moe_rs": [_P] * 7 + [_I] * 7 + [_L, _U, _P]}
+# world, m_pad, n, k, block_m, n_experts, lda, ldb, e_stride, epoch, stream
+_SIG = {"tdt_moe_rs": [_P] * 7 + [_I] * 8 + [_L, _U, _P]}
+
+
+def moe_rs_workspace(world: int, m_pad: int, n: int):
+    """(landing-slot shape, flags) a rank of ``tdt_moe_rs``: W - 1 slots,
+    each every 128 x 256 tile of [m_pad, n] (the last column band ragged
+    where n % 256 == 128) as bf16 in the accumulator's fragment order, and
+    a flag per (slot, tile)."""
+    tm, tn = WG_TILE
+    tiles = m_pad // tm * -(-n // tn)
+    return (world - 1, tiles, tm * tn), (world - 1) * tiles
+
+
+def moe_rs_operand_ok(shape, strides, dtype, offset=0) -> bool:
+    """Whether ``tdt_moe_rs`` reads an operand of ``shape`` and element
+    ``strides`` by TMA (``offset``: its storage offset in elements, on a
+    16-byte aligned allocation): bf16 h [W, W m_pad, F_loc] or w [W, E,
+    F_loc, D], strided views under ``allgather_gemm.tma_layout_ok`` (one
+    map spans every rank, and w's spans every expert).  A pure function of
+    the layout."""
+    return dtype == torch.bfloat16 and len(shape) in (3, 4) and \
+        tma_layout_ok(shape, strides, 2, offset)
 
 
 def moe_rs_ref(h, w, tile_expert, *, block_m: int):
@@ -114,20 +141,24 @@ def moe_rs_sorted(h, w, tile_expert, *, block_m: int, plain: bool = False):
     if not h.is_cuda:
         raise ValueError(f"moe_reduce_rs: unsupported device {h.device}")
     check_grouped_kernel("moe_reduce_rs", h, w, tile_expert, block_m, k, n)
+    _check_tma("moe_reduce_rs", h, w, rule=moe_rs_operand_ok)
     te = tile_expert.contiguous()
     ws = get_world(world, h.device).workspace
-    land = ws.get("moe_rs_land", (world - 1, m_pad, n), h.dtype)
+    slots, n_flags = moe_rs_workspace(world, m_pad, n)
+    land = ws.get("moe_rs_land", slots, h.dtype)
     out = torch.empty((world, m_pad, n), dtype=h.dtype, device=h.device)
-    tiles = m_pad // TILE_M * (n // TILE_M)
-    tables = ring_tables(h, w, land, out,
-                         ws.flags("moe_rs", (world - 1) * tiles),
+    tables = ring_tables(h, w, land, out, ws.flags("moe_rs", n_flags),
                          ws.flags("barrier", world))
+    n_experts = w.shape[1]
+    # one expert: its stride is never stepped, but TMA wants a valid one
+    e_stride = w.stride(1) if n_experts > 1 else k * w.stride(2)
     epoch = ws.next_epoch()
     lib = _build.load("moe_rs", _SIG)
     with torch.cuda.device(h.device):
         err = lib.tdt_moe_rs(*tables, te.data_ptr(), world, m_pad, n, k,
-                             block_m, h.stride(1), w.stride(2), w.stride(1),
-                             epoch, torch.cuda.current_stream().cuda_stream)
+                             block_m, n_experts, h.stride(1), w.stride(2),
+                             e_stride, epoch,
+                             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "moe_rs")
     moe_reduce_rs_shard.launches += 1
     return out
