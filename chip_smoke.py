@@ -5633,6 +5633,7 @@ WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "gemm_rs": ("gemm_rs_wg_kernel",
                              "gemm_rs_bidir_i8_wg_kernel"),
                  "moe_rs": ("moe_rs_wg_kernel",),
+                 "ag_group_gemm": ("ag_group_gemm_wg_kernel",),
                  "group_gemm": ("group_gemm_wg_kernel",),
                  "matmul_i8": ("matmul_i8_wg_kernel",)}
 # The mma.sync kernels whose SASS must hold HMMA instructions (the decode
@@ -5640,11 +5641,19 @@ WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
 HMMA_KERNELS = {"decode": ("decode_kernel",)}
 # instance labels by template arguments (<SEGM, I8> of the flash forward,
 # <SEGM> of the other attention kernels,
-# <I8, B_NK> of ag_gemm_wg_kernel, <I8, B_NK, TALL> of
+# <I8, B_NK, FLAT, TALL> of ag_gemm_wg_kernel (first: its WgParams<I8,
+# B_NK> argument also reads as a two-flag key), <I8, B_NK, TALL> of
 # group_gemm_wg_kernel, <I8, B_NK, MODE, TALL> of gemm_rs_wg_kernel,
 # <TALL> of gemm_rs_bidir_i8_wg_kernel); the int8 kernels' names (IGMMA
 # expected)
-SASS_MODES = (("fwd_wg_kernelILb0ELb0EE", "bf16 K/V, contiguous"),
+SASS_MODES = (("ILb0ELb0ELb1ELb0EE", "bf16, B [K][n], flat world"),
+              ("ILb0ELb1ELb1ELb0EE", "bf16, B^T [n][K], flat world"),
+              ("ILb1ELb0ELb1ELb0EE", "int8, flat world"),
+              ("ILb0ELb0ELb0ELb0EE", "bf16, B [K][n], torus group"),
+              ("ILb0ELb1ELb0ELb0EE", "bf16, B^T [n][K], torus group"),
+              ("ILb1ELb0ELb0ELb1EE", "int8, torus group, 256 x 128"),
+              ("ILb1ELb0ELb0ELb0EE", "int8, torus group, 128 x 256"),
+              ("fwd_wg_kernelILb0ELb0EE", "bf16 K/V, contiguous"),
               ("fwd_wg_kernelILb1ELb0EE", "bf16 K/V, segmented"),
               ("fwd_wg_kernelILb0ELb1EE", "K/V int8 -> bf16, contiguous"),
               ("fwd_wg_kernelILb1ELb1EE", "K/V int8 -> bf16, segmented"),

@@ -3058,16 +3058,18 @@ def test_pp_hier_step_on_the_card(cuda):
 
 MOE_TP_CASES = [(W, bm, routing) for W in (2, 4) for bm in (128, 256)
                 for routing in ("balanced", "skewed", "empty")] + [
-    # (W, block_m, routing, D): D 384 leaves a ragged 128-column band of
-    # moe_rs's 256-column tiles to mask; and the largest world
-    (4, 128, "balanced", 384), (8, 128, "balanced")]
+    # (W, block_m, routing, D[, F_loc]): D 384 leaves a ragged 128-column
+    # band of moe_rs's 256-column tiles to mask, F_loc 384 one of
+    # ag_group_gemm's; and the largest world
+    (4, 128, "balanced", 384), (8, 128, "balanced"),
+    (4, 128, "balanced", 256, 384)]
 
 
 def _moe_tp_args(case):
     """(W, block_m, routing, keyword arguments of _moe_tp_case) of a
     MOE_TP_CASES entry."""
     W, bm, routing, *dims = case
-    return W, bm, routing, dict(D=dims[0]) if dims else {}
+    return W, bm, routing, dict(zip(("D", "f_loc"), dims))
 
 
 def _moe_tp_case(dev, g, W, block_m, routing, t_loc=64, E=8, D=256,
@@ -3223,7 +3225,7 @@ def test_moe_rs_after_a_call_of_another_shape(cuda):
 def test_moe_rs_refuses_non_tma_operands(cuda):
     """Slabs whose rank stride is 0 (one stack expanded over the ranks)
     pass the grouped kernels' row rule but break TMA's
-    (``moe_rs_operand_ok``): a ValueError before any launch."""
+    (``grouped_operand_ok``): a ValueError before any launch."""
     from triton_dist_tpu_torch.kernels import moe_reduce_rs as mrs
 
     g = np.random.default_rng(39)
@@ -3402,14 +3404,19 @@ def test_torus_ag_gemm_matches_plain(cuda, mesh_case, int8):
     through ``ag_gemm_shard(mesh=, axis=tuple)``: the gathered A bit for
     bit (flat axes-major), C by the bf16 rule over the whole output and
     per 128-row tile (int8: exactly equal), at m_loc 256 and 37 (a masked
-    tile); one launch of the mode's counter."""
+    tile), and in bf16 with B^T read in place (``trans_b``: the B^T
+    instance over a group) at m_loc 100 and n 272 (a ragged column tile);
+    one launch of the mode's counter."""
     from triton_dist_tpu_torch.kernels import allgather_gemm as agm
 
     mesh = _mesh(*mesh_case[:2], cuda)
     axes = mesh_case[2]
     W = mesh.size
     g = torch.Generator(device=cuda).manual_seed(6)
-    for m_loc, k, n in ((256, 512, 256), (37, 256, 144)):
+    shapes = [(256, 512, 256, False), (37, 256, 144, False)]
+    if not int8:
+        shapes.append((100, 384, 272, True))
+    for m_loc, k, n, trans in shapes:
         if int8:
             a = torch.randint(-127, 128, (W, m_loc, k), generator=g,
                               device=cuda, dtype=torch.int8)
@@ -3418,14 +3425,16 @@ def test_torus_ag_gemm_matches_plain(cuda, mesh_case, int8):
         else:
             a = torch.randn((W, m_loc, k), generator=g,
                             device=cuda).bfloat16()
-            b = (torch.randn((W, k, n), generator=g, device=cuda)
-                 / k ** 0.5).bfloat16()
+            b = (torch.randn((W, n, k) if trans else (W, k, n), generator=g,
+                             device=cuda) / k ** 0.5).bfloat16()
         n0 = _torus_counts()
-        a_full, c = agm.ag_gemm_shard(a, b, mesh=mesh, axis=axes)
+        a_full, c = agm.ag_gemm_shard(a, b, trans_b=trans, mesh=mesh,
+                                      axis=axes)
         torch.cuda.synchronize()
         assert _torus_moved(n0) == ((0, 0, 0, 1, 0, 0) if int8
                                     else (0, 0, 1, 0, 0, 0))
-        want_full, want_c = agm.torus_ag_gemm_ref(a, b, mesh, axes)
+        want_full, want_c = agm.torus_ag_gemm_ref(a, b, mesh, axes,
+                                                  trans_b=trans)
         assert torch.equal(a_full, want_full)
         if int8:
             assert torch.equal(c, want_c)

@@ -95,6 +95,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from triton_dist_tpu_torch import autotuner as tat
 from triton_dist_tpu_torch.kernels import allgather_gemm as tag
+from triton_dist_tpu_torch.kernels import allgather_group_gemm as tagg
 from triton_dist_tpu_torch.kernels import flash_attention as tfa
 from triton_dist_tpu_torch.kernels import flash_decode as tfd
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as trs
@@ -3752,14 +3753,14 @@ def test_moe_rs_plain_adds_in_hop_order():
 
 
 def test_moe_rs_operand_rule():
-    """``moe_rs_operand_ok``, what ``tdt_moe_rs``'s tensor maps read: the
+    """``grouped_operand_ok``, what ``tdt_moe_rs``'s tensor maps read: the
     views ``moe_reduce_rs`` builds at Mixtral-8x7B TP-4 widths (h [W, W
     m_pad, F_loc] of the sorted [W m_pad, F] and the down slabs [W, E,
     F_loc, D] of [E, F, D], each rank's F block in place; shapes on the
     meta device) pass, at one rank too; a zero rank or expert stride (a
     stack expanded over the ranks), a stride off 16 bytes, a misaligned
     base, a non-unit last stride, f32 and a 2-D operand fail."""
-    ok = tmrs.moe_rs_operand_ok
+    ok = tagg.grouped_operand_ok
     bf = torch.bfloat16
     W, m_pad, F, D, E = 4, 5120, 14336, 4096, 8
     h = torch.empty((W * m_pad, F), dtype=bf, device="meta")
@@ -3778,7 +3779,79 @@ def test_moe_rs_operand_rule():
     assert not ok((512, 256), (256, 1), bf)
     with pytest.raises(ValueError, match="TMA"):
         tag._check_tma("moe_reduce_rs", w[:1].expand(W, E, F, D),
-                        rule=tmrs.moe_rs_operand_ok)
+                        rule=tagg.grouped_operand_ok)
+
+
+@pytest.mark.parametrize("world,block_m,n", [(1, 128, 256), (2, 256, 384),
+                                              (4, 512, 3584), (8, 128, 128)])
+def test_ag_group_gemm_tile_order_writes_each_tile_once(world, block_m, n):
+    """``allgather_group_gemm.tile_order``, the expert-major walk of
+    ``tdt_ag_group_gemm`` (sorted plans with an empty expert and padding
+    tiles clamped to E - 1): every rank writes each (segment, row tile,
+    column band) of its output once, each tile against its own expert;
+    an expert's tiles are contiguous in the list, experts ascending; and
+    its first row group holds the rank's own segment's tiles of it
+    first."""
+    rng = np.random.default_rng(world * block_m + n)
+    n_bt, E = 6, 5
+    te = np.sort(rng.integers(0, E - 1, (world, n_bt)), axis=1)
+    te[:, -2:] = E - 1        # padding tiles clamp to the last expert
+    per, tiles_n = block_m // 128, -(-n // 256)
+    for me in range(world):
+        order = list(tagg.tile_order(te, me, n, block_m))
+        seen = {(s, i, c) for s, i, c, _ in order}
+        assert len(order) == len(seen) == world * n_bt * per * tiles_n
+        assert all(te[s][i // per] == e for s, i, _, e in order)
+        experts = [e for *_, e in order]
+        assert experts == sorted(experts)
+        for e in set(experts):
+            first = [s for s, _, _, x in order if x == e][:8]
+            own = sum(1 for x in te[me] if x == e) * per
+            assert first[:min(own, 8)] == [me] * min(own, 8)
+
+
+def test_ag_group_gemm_and_torus_ag_gemm_operand_rules():
+    """The TMA rules the row 19 and torus AG-GEMM wrappers check before a
+    launch.  ``grouped_operand_ok`` takes the views ``ag_group_gemm``
+    builds at Mixtral-8x7B TP-4 widths (the sorted segments xs [W, m_pad,
+    D], the gathered [W, W m_pad, D] and the gate slabs [W, E, D, F_loc] of
+    [E, D, F], each rank's F block in place; shapes on the meta device), at
+    one rank and one expert too; ``ag_gemm_operand_ok`` takes the torus
+    operands at ``chip_smoke.py`` phase 22's widths (Llama-3-8B TP 8 on
+    (2, 4): a [8, 256, 4096], gate/up and QKV B and B^T, the gathered [8,
+    2048, 4096], int8 a and B).  A zero rank stride (one stack expanded
+    over the ranks), F blocks 7,176 bytes apart, a misaligned base, f32, a
+    2-D operand and 8-byte int8 rows fail, and ``_check_tma`` raises on
+    the expanded stack."""
+    ok, bf, i8 = tagg.grouped_operand_ok, torch.bfloat16, torch.int8
+    W, m_pad, D, F, E = 4, 5120, 4096, 14336, 8
+    xs = torch.empty((W, m_pad, D), dtype=bf, device="meta")
+    gathered = torch.empty((W, W * m_pad, D), dtype=bf, device="meta")
+    w = torch.empty((E, D, F), dtype=bf, device="meta")
+    w_r = w.view(E, D, W, F // W).permute(2, 0, 1, 3)
+    for t in (xs, gathered, w_r, xs[:1], w_r[:1], w_r[:, :1]):
+        assert ok(tuple(t.shape), t.stride(), bf), (t.shape, t.stride())
+    assert not ok(tuple(w_r.shape), (0, *w_r.stride()[1:]), bf)
+    w_odd = torch.empty((E, D, W * 3588), dtype=bf, device="meta").view(
+        E, D, W, 3588).permute(2, 0, 1, 3)
+    assert not ok(tuple(w_odd.shape), w_odd.stride(), bf)
+    assert not ok(tuple(xs.shape), xs.stride(), bf, offset=4)
+    assert not ok(tuple(xs.shape), xs.stride(), torch.float32)
+    assert not ok((m_pad, D), (D, 1), bf)
+    with pytest.raises(ValueError, match="TMA"):
+        tag._check_tma("ag_group_gemm", w_r[:1].expand(W, E, D, F // W),
+                       rule=ok)
+    G, m_loc = 8, 256
+    for shape, dt in (((G, m_loc, D), bf), ((G, D, F // G), bf),
+                      ((G, F // G, D), bf), ((G, D, 6144 // G), bf),
+                      ((G, 6144 // G, D), bf), ((G, G * m_loc, D), bf),
+                      ((G, m_loc, D), i8), ((G, D, F // G), i8),
+                      ((G, G * m_loc, D), i8)):
+        t = torch.empty(shape, dtype=dt, device="meta")
+        assert tag.ag_gemm_operand_ok(shape, t.stride(), dt), (shape, dt)
+    assert not tag.ag_gemm_operand_ok((G, D, 8), (D * 8, 8, 1), i8)
+    assert not tag.ag_gemm_operand_ok((G, m_loc, D), (m_loc * D, D, 1), bf,
+                                      offset=1)
 
 
 @pytest.mark.parametrize("W,m_pad,n,slots,flags", [

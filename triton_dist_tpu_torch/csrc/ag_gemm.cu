@@ -20,12 +20,12 @@
 // each rank pushes its own segment straight into every rank's gathered
 // buffer.  The push is cut into the reference's `chunks` (:370-373): c row
 // chunks of m_loc / c rows, each with one flag per (receiving rank,
-// segment, chunk); a chunk moves as pieces of one row tile (128 rows bf16,
-// 64 int8), each piece pushed by one block and counted at the receiver,
-// and the last piece of a chunk raises its flag.  The GEMM tiles of rank r
-// start on r's own segment, read from its input without waiting (the
-// reference's step 0), then walk the segments r + 1, r + 2, ... and wait
-// on the flags of every chunk their rows span.  On one card (the virtual
+// segment, chunk); a chunk moves as pieces of one row tile (128 rows; 256
+// on the torus int8 tile), each pushed by one block and counted at the
+// receiver, and the last piece of a chunk raises its flag.  The GEMM tiles
+// of rank r start on r's own segment, read from its input without waiting
+// (the reference's step 0), then walk the segments r + 1, r + 2, ... and
+// wait on the flags of every chunk their rows span.  On one card (the virtual
 // world) the pushes are device-memory copies, not NVLink transfers.
 //
 // The int8 wire (tdt_ag_gemm_wire, the reference's `wire_dtype="int8"`,
@@ -65,7 +65,9 @@
 // gathered A and C): operations bound it.  The gather moves 16 x 4 MB.
 // In int8 the same projection is 240.5 G int8 operations, 0.1215 ms at the
 // 1,979 TOP/s int8 peak, against 218 MB (int8 A, B and gathered A, i32 C):
-// operations still bound it.
+// operations still bound it.  The torus order at TP 8 over (2, 4) (m_loc
+// 256, n 1,792 a rank) does the same 240.5 G operations: 0.243 ms bf16,
+// 0.1215 ms int8.
 //
 // Design.  One cooperative launch holds every rank of the virtual world: a
 // persistent grid, sized by the occupancy calculator so every block is
@@ -74,13 +76,25 @@
 // ring's forwards in step order), then the GEMM tiles.  Every item waits
 // only on items at earlier places of another rank's list, which every
 // block reaches first, so no wait can close a cycle.  Every block passes
-// barrier_all on entry (the reference's neighbour barrier, :339-344): no
-// rank writes into a peer that has not entered the kernel.  The uni
-// kernels (tdt_ag_gemm, tdt_ag_gemm_i8: ag_gemm_wg_kernel) and the bidir
-// ring (tdt_ag_gemm_bidir: ag_gemm_bidir_wg_kernel) run their tiles on the
-// wgmma / TMA mainloop of sm90_gemm.cuh, 128 x 256; the wire and torus
-// modes keep the tile loops of bf16_tile.cuh (128 x 128) and i8_tile.cuh
-// (64 x 128).
+// barrier_all on entry (the reference's neighbour barrier, :339-344), or
+// barrier_group over the torus's joint group: no rank writes into a peer
+// that has not entered the kernel.  The uni kernels (tdt_ag_gemm,
+// tdt_ag_gemm_i8) and the torus order (tdt_ag_gemm_torus[_i8]) are one
+// kernel, ag_gemm_wg_kernel, over the flat world (FLAT) or a joint group;
+// it and the bidir ring (tdt_ag_gemm_bidir: ag_gemm_bidir_wg_kernel) run
+// their tiles on the wgmma / TMA mainloop of sm90_gemm.cuh, 128 x 256
+// (the torus int8 256 x 128); the wire keeps the tile loop of
+// bf16_tile.cuh (128 x 128).  The torus's int8 tile, A/B at Llama-3-8B
+// TP-8 widths on (2, 4), m_loc 256 (PERF.md row 14i; NVIDIA H100 80GB
+// HBM3, 700 W): 256 x 128 0.4108 ms against 128 x 256 0.4297 (the
+// transposers set the int8 rate, and a transposed byte serves twice the
+// rows); the flat int8 mode stays on 128 x 256 (PERF.md rows 8 / 9).
+// The tile loops the torus order ran on before (bf16_tile.cuh 128 x 128,
+// i8_tile.cuh 64 x 128) took gate/up 0.99 ms bf16, 1.01 int8.  The flat
+// instances' loops keep their earlier text (item_of for every item, the
+// group flags folded in): a walk split into copy and tile functions ran
+// the flat int8 mode 4% slower in device time with fewer instructions
+// (PERF.md, PR 24).
 //
 // Piece counters: a chunk's pieces add one each to the receiver's counter
 // for that chunk (after their copy and a system fence); the piece that
@@ -94,7 +108,6 @@
 
 #include "bf16_tile.cuh"
 #include "dist_verbs.cuh"
-#include "i8_tile.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
@@ -104,12 +117,6 @@ using tdt_dist::count_signal;
 using tdt_dist::MAX_RANKS;
 using tdt_dist::Peers;
 using tdt_dist::peers;
-
-// the larger of the two bf16 B layouts' shared memory (one launch helper)
-constexpr int BF16_SMEM = tdt_bf16::Tiles<true>::SMEM >
-                                  tdt_bf16::Tiles<false>::SMEM
-                              ? tdt_bf16::Tiles<true>::SMEM
-                              : tdt_bf16::Tiles<false>::SMEM;
 
 template <class TA, class TB, class OutT>
 struct Params {
@@ -221,46 +228,34 @@ __device__ __forceinline__ void push_piece(const Params<TA, TB, OutT>& p,
                p.flags.p[x.peer] + f, p.epoch);
 }
 
-// The tile-loop kernel of the int8 wire (A_I8: int8 rows dequantized in
-// the A-tile load; FLAT) and the bf16 torus (the group `p.grp`).  Two
-// blocks per SM: 128 registers, no spills (ptxas), 10-30% faster than the
-// one block that 167-213 registers allow (PERF.md).
-template <bool B_NK, bool A_I8, bool FLAT>
+// The tile-loop kernel of the int8 wire (int8 rows dequantized in the
+// A-tile load of bf16_tile.cuh, B [K][n]; the flat world).  Two blocks per
+// SM: 128 registers, no spills (ptxas), 10-30% faster than the one block
+// that 167-213 registers allow (PERF.md).
 __global__ void __launch_bounds__(tdt_bf16::NT, 2)
-ag_gemm_kernel(const __grid_constant__
-               Params<typename std::conditional<A_I8, int8_t, bf16>::type,
-                      bf16, bf16> p) {
+ag_gemm_kernel(const __grid_constant__ Params<int8_t, bf16, bf16> p) {
   constexpr int BM = tdt_bf16::BM, BN = tdt_bf16::BN;
   extern __shared__ __align__(128) char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  __shared__ int s_j;
-  const int me = blockIdx.y, G = FLAT ? p.world : p.grp.G;
-  if (FLAT) {
-    tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
-  } else {
-    if (threadIdx.x == 0) s_j = tdt_dist::group_index(p.grp, me);
-    tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
-  }
+  const int me = blockIdx.y, W = p.world;
+  tdt_dist::barrier_all(p.bar, me, W, p.epoch);
 
   const int tiles = (p.m_loc + BM - 1) / BM, tiles_n = (p.n + BN - 1) / BN;
-  const int n_copy = G * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
-  const int n_items = n_copy + G * tiles * tiles_n;
+  const int n_copy = W * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
+  const int n_items = n_copy + W * tiles * tiles_n;
   for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    // off the flat world my index is read anew each item (shared memory):
-    // no group state held in registers across the tile's product
-    const int j = FLAT ? me : s_j;
-    const Item x = item_of<BM, FLAT>(it, me, p.grp, G, j, p.m_loc, p.crow,
+    const Item x = item_of<BM, true>(it, me, p.grp, W, me, p.m_loc, p.crow,
                                      tiles, tiles_n);
     if (x.copy) {
-      push_piece<BM>(p, me, j, x);
+      push_piece<BM>(p, me, me, x);
       continue;
     }
     const float* scale = nullptr;
-    const auto* src = tile_rows<BM>(p, me, j, x, &scale);
+    const int8_t* src = tile_rows<BM>(p, me, me, x, &scale);
     float acc[4][4][4];
-    tdt_bf16::mma_tile<B_NK, true, A_I8>(acc, smem, src, p.k, p.b.p[me],
-                                         B_NK ? p.k : p.n, x.rows, p.n, p.k,
-                                         0, x.col * BN, scale);
+    tdt_bf16::mma_tile<false, true, true>(acc, smem, src, p.k, p.b.p[me],
+                                          p.n, x.rows, p.n, p.k, 0,
+                                          x.col * BN, scale);
     tdt_bf16::store_tile(acc,
                p.c.p[me] + (static_cast<long long>(x.seg) * p.m_loc +
                             static_cast<long long>(x.tile) * BM) * p.n,
@@ -268,65 +263,23 @@ ag_gemm_kernel(const __grid_constant__
   }
 }
 
-// The int8 torus: 64 x 128 int32 tiles of i8_tile.cuh (4 warps, static
-// shared memory), summed exactly over the whole contraction.
-template <bool FLAT>
-__global__ void __launch_bounds__(tdt_i8::NT)
-ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int8_t, int> p) {
-  constexpr int BM = tdt_i8::BM, BN = tdt_i8::BN;
-  __shared__ __align__(128) int8_t smem[tdt_i8::SMEM];
-  __shared__ int s_j;
-  const int me = blockIdx.y, G = FLAT ? p.world : p.grp.G;
-  if (FLAT) {
-    tdt_dist::barrier_all(p.bar, me, p.world, p.epoch);
-  } else {
-    if (threadIdx.x == 0) s_j = tdt_dist::group_index(p.grp, me);
-    tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
-  }
-
-  const int tiles = (p.m_loc + BM - 1) / BM, tiles_n = (p.n + BN - 1) / BN;
-  const int n_copy = G * (p.m_loc / p.crow) * ((p.crow + BM - 1) / BM);
-  const int n_items = n_copy + G * tiles * tiles_n;
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    // off the flat world my index is read anew each item (shared memory):
-    // no group state held in registers across the tile's product
-    const int j = FLAT ? me : s_j;
-    const Item x = item_of<BM, FLAT>(it, me, p.grp, G, j, p.m_loc, p.crow,
-                                     tiles, tiles_n);
-    if (x.copy) {
-      push_piece<BM>(p, me, j, x);
-      continue;
-    }
-    const float* unused = nullptr;
-    const int8_t* src = tile_rows<BM>(p, me, j, x, &unused);
-    int acc[BM / 16][4][4];
-#pragma unroll
-    for (int mt = 0; mt < BM / 16; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
-            acc[mt][nt][3] = 0;
-    tdt_i8::mma_tile(acc, smem, src, p.b.p[me], x.rows, p.n, p.k, 0,
-                     x.col * BN, 0, p.k);
-    tdt_i8::store_tile(acc,
-               p.c.p[me] + (static_cast<long long>(x.seg) * p.m_loc +
-                            static_cast<long long>(x.tile) * BM) * p.n,
-               x.rows, p.n, 0, x.col * BN, false);
-  }
-}
-
 // The uni kernels of tdt_ag_gemm (bf16, B [K][n] or [n][K]) and
-// tdt_ag_gemm_i8 (int8, exact int32 C): the same item list, flags and
-// pushes as the tile-loop kernels above (item_of, push_piece; pieces of
-// 128 rows), each GEMM tile on the warp-specialised wgmma / TMA mainloop
-// of sm90_gemm.cuh (128 x 256 tiles, bf16 and int8).  A block runs
-// its copy items with all its threads, then splits: the producer
-// warpgroup's warp 0 waits on a tile's flags (lane i on chunk c0 + i),
-// then its lane 0 issues fence.proxy.async.global (the peers' pushes are
+// tdt_ag_gemm_i8 (int8, exact int32 C) over the flat world (FLAT), and of
+// the torus entries over a joint group: the same item list, flags and
+// pushes as the wire's kernel above (item_of, push_piece; pieces of one
+// row tile), each GEMM tile on the warp-specialised wgmma / TMA
+// mainloop of sm90_gemm.cuh (Cfg's tile: 128 x 256, or int8 256 x 128 with
+// TALL).  A block passes the entry barrier (barrier_all, or off the flat
+// world barrier_group after thread 0 has put my index j in the group into
+// shared memory: the producer's 40 registers hold no group state, it
+// reads j there at every tile), runs its copy items with all its threads,
+// then splits: the producer warpgroup's warp 0 waits on a tile's flags
+// (lane i on chunk c0 + i; the torus has one chunk a segment), then its
+// lane 0 issues fence.proxy.async.global (the peers' pushes are
 // generic-proxy stores; the TMA that reads them is the async proxy) and
 // the tile's loads; in int8 warps 1-3 transpose each staged B tile; the
 // consumer warpgroups multiply and store.  Every TMA load reads this
-// rank's own memory: its input for its own segment, its gathered buffer
+// rank's own memory: its input for its own segment j, its gathered buffer
 // for the others, its own weight.  The maps span the rank-stacked
 // tensors with the rank outermost, and their row dimension is bounded at
 // m_loc, so a ragged last tile reads zeros, never the next segment's
@@ -335,34 +288,41 @@ ag_gemm_i8_kernel(const __grid_constant__ Params<int8_t, int8_t, int> p) {
 template <bool I8, bool B_NK>
 struct WgParams {
   CUtensorMap amap;   // a  {K, m_loc, W}
-  CUtensorMap agmap;  // ag {K, m_loc, W segments, W ranks}
+  CUtensorMap agmap;  // ag {K, m_loc, G segments, W ranks}
   CUtensorMap bmap;   // b  {n, K, W}, or {K, n, W} (B_NK)
   Params<typename tdt_gemm90::Cfg<I8, B_NK>::T,
          typename tdt_gemm90::Cfg<I8, B_NK>::T,
          typename std::conditional<I8, int, bf16>::type> q;
 };
 
-template <bool I8, bool B_NK>
+template <bool I8, bool B_NK, bool FLAT, bool TALL = false>
 __global__ void __launch_bounds__(tdt_gemm90::NT, 1)
 ag_gemm_wg_kernel(const __grid_constant__ WgParams<I8, B_NK> p) {
-  using C = tdt_gemm90::Cfg<I8, B_NK>;
-  using tdt_gemm90::BM;
-  using tdt_gemm90::BN;
+  using C = tdt_gemm90::Cfg<I8, B_NK, TALL>;
+  constexpr int BM = C::TM, BN = C::TN;
   extern __shared__ __align__(128) char wg_smem[];
   auto& sm = tdt_gemm90::smem_of<C>(wg_smem);
+  __shared__ int s_j;  // my index in the group
   const auto& q = p.q;
-  const int me = blockIdx.y, W = q.world;
+  const int me = blockIdx.y, W = FLAT ? q.world : q.grp.G;
   if (threadIdx.x == 0) tdt_gemm90::init_barriers(sm);
-  tdt_dist::barrier_all(q.bar, me, W, q.epoch);  // syncs the block too
+  if (FLAT) {
+    tdt_dist::barrier_all(q.bar, me, W, q.epoch);  // syncs the block too
+  } else {
+    if (threadIdx.x == 0) s_j = tdt_dist::group_index(q.grp, me);
+    tdt_dist::barrier_group(q.bar, me, q.grp, q.epoch);
+  }
 
   const int tiles = (q.m_loc + BM - 1) / BM, tiles_n = (q.n + BN - 1) / BN;
   const int n_copy = W * (q.m_loc / q.crow) * ((q.crow + BM - 1) / BM);
   const int n_items = n_copy + W * tiles * tiles_n;
   int it = blockIdx.x;
-  for (; it < n_copy; it += gridDim.x)
-    push_piece<BM>(q, me, me,
-                   item_of<BM, true>(it, me, q.grp, W, me, q.m_loc, q.crow,
+  for (; it < n_copy; it += gridDim.x) {
+    const int j = FLAT ? me : s_j;
+    push_piece<BM>(q, me, j,
+                   item_of<BM, FLAT>(it, me, q.grp, W, j, q.m_loc, q.crow,
                                      tiles, tiles_n));
+  }
   const int n_kt = (q.k + C::BK - 1) / C::BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x < 128) {
@@ -370,10 +330,11 @@ ag_gemm_wg_kernel(const __grid_constant__ WgParams<I8, B_NK> p) {
     if (warp == 0) {
       tdt_sm90::Ring<C::NS> ring;
       for (int t = it; t < n_items; t += gridDim.x) {
-        const Item x = item_of<BM, true, true>(t, me, q.grp, W, me, q.m_loc,
+        const int j = FLAT ? me : s_j;
+        const Item x = item_of<BM, FLAT, true>(t, me, q.grp, W, j, q.m_loc,
                                                q.crow, tiles, tiles_n);
         const int row0 = x.tile * BM;
-        if (x.seg != me) {
+        if (x.seg != j) {
           const int c0 = row0 / q.crow;
           if (lane <= (row0 + x.rows - 1) / q.crow - c0)
             tdt_dist::spin_until(
@@ -382,12 +343,12 @@ ag_gemm_wg_kernel(const __grid_constant__ WgParams<I8, B_NK> p) {
           __syncwarp();
         }
         if (lane == 0) {
-          if (x.seg != me) tdt_sm90::fence_proxy_async_global();
+          if (x.seg != j) tdt_sm90::fence_proxy_async_global();
           for (int kt = 0; kt < n_kt; ++kt)
-            tdt_gemm90::produce_k_tile<I8, B_NK>(
+            tdt_gemm90::produce_k_tile<I8, B_NK, TALL>(
                 sm, ring, &p.bmap, x.col * BN, kt, me,
                 [&](void* dst, uint64_t* bar, int k0) {
-                  if (x.seg == me)
+                  if (x.seg == j)
                     tdt_sm90::tma_load_3d(dst, &p.amap, bar, k0, row0, me);
                   else
                     tdt_sm90::tma_load_4d(dst, &p.agmap, bar, k0, row0,
@@ -406,11 +367,12 @@ ag_gemm_wg_kernel(const __grid_constant__ WgParams<I8, B_NK> p) {
     tdt_sm90::Ring<C::NS> ring;
     tdt_sm90::Ring<C::NTS> tring;
     for (int t = it; t < n_items; t += gridDim.x) {
-      const Item x = item_of<BM, true, true>(t, me, q.grp, W, me, q.m_loc,
+      const Item x = item_of<BM, FLAT, true>(t, me, q.grp, W,
+                                             FLAT ? me : s_j, q.m_loc,
                                              q.crow, tiles, tiles_n);
       typename C::Acc acc[C::NACC];
-      tdt_gemm90::mma_tile<I8, B_NK>(acc, sm, ring, tring, n_kt, cw);
-      tdt_gemm90::store_tile<I8, B_NK>(
+      tdt_gemm90::mma_tile<I8, B_NK, TALL>(acc, sm, ring, tring, n_kt, cw);
+      tdt_gemm90::store_tile<I8, B_NK, TALL>(
           acc,
           q.c.p[me] + (static_cast<long long>(x.seg) * q.m_loc +
                        static_cast<long long>(x.tile) * BM) * q.n,
@@ -603,76 +565,79 @@ bool bad_shape(int world, int m_loc, int crow) {
 }
 
 // The map over the rank-stacked weight (b_rs: its rank stride in bytes):
-// b [W][n][K] (B_NK), K-major boxes of 256 rows; b [W][K][n], bf16
+// b [W][n][K] (B_NK), K-major boxes of TN rows; b [W][K][n], bf16
 // 64-column boxes, int8 the raw tile (sm90_gemm.cuh).
-template <bool I8, bool B_NK>
+template <bool I8, bool B_NK, bool TALL = false>
 int b_map(CUtensorMap* map, const void* b, int world, int n, int k,
           long long b_rs) {
-  using C = tdt_gemm90::Cfg<I8, B_NK>;
+  using C = tdt_gemm90::Cfg<I8, B_NK, TALL>;
   constexpr int E = sizeof(typename C::T);
   const CUtensorMapDataType dt = I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (B_NK) {
     const long long bd[3] = {k, n, world}, bs[3] = {1, k, b_rs / E};
-    const int bbox[3] = {C::BK, tdt_gemm90::BN, 1};
+    const int bbox[3] = {C::BK, C::TN, 1};
     return tdt_sm90::make_map_t(map, dt, E, CU_TENSOR_MAP_SWIZZLE_128B, b, 3,
                                 bd, bs, bbox);
   }
   const long long bd[3] = {n, k, world}, bs[3] = {1, n, b_rs / E};
-  const int bbox[3] = {I8 ? tdt_gemm90::BN : 64, C::BK, 1};
+  const int bbox[3] = {I8 ? C::TN : 64, C::BK, 1};
   return tdt_sm90::make_map_t(
       map, dt, E,
       I8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, b, 3, bd,
       bs, bbox);
 }
 
-// Launch the warp-specialised uni kernel: the three tensor maps over the
-// rank-stacked a, gathered A and b (see ag_gemm_wg_kernel), then the
-// cooperative grid.  crow: a 128-row tile waits on at most 32 chunks.
-template <bool I8, bool B_NK>
+// Launch the warp-specialised uni kernel over the group `g` (the flat
+// world: flat_group): the three tensor maps over the rank-stacked a,
+// gathered A [W][G m_loc][K] and b (see ag_gemm_wg_kernel), then the
+// cooperative grid.  crow: a row tile waits on at most 32 chunks.
+template <bool I8, bool B_NK, bool FLAT, bool TALL = false>
 int launch_wg(const long long* a, const long long* b, const long long* ag,
               const long long* c, const long long* flags,
               const long long* cnt, const long long* bar, int world,
               int m_loc, int n, int k, int crow, unsigned epoch,
-              void* stream) {
-  using C = tdt_gemm90::Cfg<I8, B_NK>;
+              void* stream, const tdt_dist::Group& g) {
+  using C = tdt_gemm90::Cfg<I8, B_NK, TALL>;
   using T = typename C::T;
-  constexpr int BM = tdt_gemm90::BM, BN = tdt_gemm90::BN;
-  if (bad_shape(world, m_loc, crow) ||
-      (m_loc / crow > 32 && (BM - 2 + crow) / crow + 1 > 32))
+  constexpr int TM = C::TM, TN = C::TN;
+  if (bad_shape(world, m_loc, crow) || tdt_dist::bad_group(g, world) ||
+      (FLAT && g.G != world) ||
+      (m_loc / crow > 32 && (TM - 2 + crow) / crow + 1 > 32))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr long long E = sizeof(T);
   const long long a_rs = tdt_dist::rank_stride(a, world, E * m_loc * k);
   const long long ag_rs =
-      tdt_dist::rank_stride(ag, world, E * world * m_loc * k);
+      tdt_dist::rank_stride(ag, world, E * g.G * m_loc * k);
   const long long b_rs = tdt_dist::rank_stride(b, world, E * k * n);
   if (a_rs < 0 || ag_rs < 0 || b_rs < 0 || a_rs % E || ag_rs % E || b_rs % E)
     return static_cast<int>(cudaErrorInvalidValue);
   WgParams<I8, B_NK> p;
   p.q = make_params<T, T, typename std::conditional<I8, int, bf16>::type>(
       a, nullptr, b, ag, nullptr, c, flags, cnt, bar, world, m_loc, n, k,
-      crow, epoch, tdt_dist::flat_group(world));
+      crow, epoch, g);
   const CUtensorMapDataType dt = I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
   const long long ad[3] = {k, m_loc, world};
   const long long as[3] = {1, k, a_rs / E};
-  const int abox[3] = {C::BK, BM, 1};
-  const long long gd[4] = {k, m_loc, world, world};
+  const int abox[3] = {C::BK, TM, 1};
+  const long long gd[4] = {k, m_loc, g.G, world};
   const long long gs[4] = {1, k, static_cast<long long>(m_loc) * k,
                            ag_rs / E};
-  const int gbox[4] = {C::BK, BM, 1, 1};
+  const int gbox[4] = {C::BK, TM, 1, 1};
   int err = tdt_sm90::make_map_t(&p.amap, dt, E, sw, p.q.a.p[0], 3, ad, as,
                                  abox);
   if (!err)
     err = tdt_sm90::make_map_t(&p.agmap, dt, E, sw, p.q.ag.p[0], 4, gd, gs,
                                gbox);
-  if (!err) err = b_map<I8, B_NK>(&p.bmap, p.q.b.p[0], world, n, k, b_rs);
+  if (!err)
+    err = b_map<I8, B_NK, TALL>(&p.bmap, p.q.b.p[0], world, n, k, b_rs);
   if (err) return err;
-  const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
-                    world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
+  const int items = g.G * (m_loc / crow) * ((crow + TM - 1) / TM) +
+                    g.G * ((m_loc + TM - 1) / TM) * ((n + TN - 1) / TN);
   static unsigned attr = 0;
-  return tdt_dist::launch_coop(ag_gemm_wg_kernel<I8, B_NK>, p,
+  return tdt_dist::launch_coop(ag_gemm_wg_kernel<I8, B_NK, FLAT, TALL>, p,
                                tdt_gemm90::NT, tdt_gemm90::smem_bytes<C>(),
                                world, items, attr,
                                static_cast<cudaStream_t>(stream));
@@ -693,10 +658,13 @@ extern "C" int tdt_ag_gemm(const long long* a, const long long* b,
                            const long long* bar, int world, int m_loc,
                            int n, int k, int crow, int b_nk, unsigned epoch,
                            void* stream) {
-  return b_nk ? launch_wg<false, true>(a, b, ag, c, flags, cnt, bar, world,
-                                       m_loc, n, k, crow, epoch, stream)
-              : launch_wg<false, false>(a, b, ag, c, flags, cnt, bar, world,
-                                        m_loc, n, k, crow, epoch, stream);
+  const tdt_dist::Group g = tdt_dist::flat_group(world);
+  return b_nk ? launch_wg<false, true, true>(a, b, ag, c, flags, cnt, bar,
+                                             world, m_loc, n, k, crow, epoch,
+                                             stream, g)
+              : launch_wg<false, false, true>(a, b, ag, c, flags, cnt, bar,
+                                              world, m_loc, n, k, crow,
+                                              epoch, stream, g);
 }
 
 // The int8 wire: a int8 rows and s their f32 scales per rank; ag / ag_s the
@@ -720,7 +688,7 @@ extern "C" int tdt_ag_gemm_wire(const long long* a, const long long* s,
   const int items = world * (m_loc / crow) * ((crow + BM - 1) / BM) +
                     world * ((m_loc + BM - 1) / BM) * ((n + BN - 1) / BN);
   static unsigned attr = 0;
-  return tdt_dist::launch_coop(ag_gemm_kernel<false, true, true>, p,
+  return tdt_dist::launch_coop(ag_gemm_kernel, p,
                                tdt_bf16::NT, tdt_bf16::Tiles<false>::SMEM_I8,
                                world, items, attr,
                                static_cast<cudaStream_t>(stream));
@@ -785,24 +753,29 @@ extern "C" int tdt_ag_gemm_i8(const long long* a, const long long* b,
                               const long long* bar, int world, int m_loc,
                               int n, int k, int crow, unsigned epoch,
                               void* stream) {
-  return launch_wg<true, false>(a, b, ag, c, flags, cnt, bar, world, m_loc,
-                                n, k, crow, epoch, stream);
+  return launch_wg<true, false, true>(a, b, ag, c, flags, cnt, bar, world,
+                                      m_loc, n, k, crow, epoch, stream,
+                                      tdt_dist::flat_group(world));
 }
 
 // The torus AG-GEMM (the TPU `_torus_ag_gemm_kernel`, allgather_gemm.py
-// :428, launched from `_torus_ag_gemm_shard` :580): the uni kernels above
-// over the joint group `group` ([n, size0..2, stride0..2], 2 or 3 axes;
-// dist_verbs.cuh `Group`) instead of the flat world.  The TPU kernel
-// rings slots over its first axis, lines over its second and planes over
-// its third, each phase's DMA riding under the GEMMs of what arrived
-// before; NVLink (and one card) joins every rank of the group to every
-// other, so here each rank pushes its segment to every member of its
-// group at once, one flag per segment, and its GEMM tiles take its own
-// segment first (the reference's step 0) and then the others in joint
-// order as they land.  The gathered A comes out flat axes-major (segment
-// j = the rows of joint index j), C = gathered A @ B_r.  bf16 (b_nk as
-// tdt_ag_gemm) or, in tdt_ag_gemm_torus_i8, int8 A and B with the exact
-// int32 C; flags and cnt: G per rank.
+// :428, launched from `_torus_ag_gemm_shard` :580): the uni kernel
+// (ag_gemm_wg_kernel) over the joint group `group` ([n, size0..2,
+// stride0..2], 2 or 3 axes; dist_verbs.cuh `Group`) instead of the flat
+// world.  The TPU kernel rings slots over its first axis, lines over its
+// second and planes over its third, each phase's DMA riding under the
+// GEMMs of what arrived before; NVLink (and one card) joins every rank of
+// the group to every other, so here each rank pushes its segment to every
+// member of its group at once, one flag per segment, and its GEMM tiles
+// take its own segment first (the reference's step 0) and then the others
+// in joint order as they land.  The gathered A comes out flat axes-major
+// (segment j = the rows of joint index j), C = gathered A @ B_r.  bf16
+// (b_nk as tdt_ag_gemm) or, in tdt_ag_gemm_torus_i8, int8 A and B with
+// the exact int32 C (K % 32, n % 16) on TORUS_I8_TALL's tile; the ranks
+// equally spaced and every base 16-byte aligned (TMA's rules: the wrapper
+// checks); flags and cnt: G per rank.
+constexpr bool TORUS_I8_TALL = true;
+
 extern "C" int tdt_ag_gemm_torus(const long long* a, const long long* b,
                                  const long long* ag, const long long* c,
                                  const long long* flags,
@@ -810,23 +783,13 @@ extern "C" int tdt_ag_gemm_torus(const long long* a, const long long* b,
                                  const int* group, int world, int m_loc,
                                  int n, int k, int b_nk, unsigned epoch,
                                  void* stream) {
-  using tdt_bf16::BM;
-  using tdt_bf16::BN;
   const tdt_dist::Group g = tdt_dist::group_from(group);
-  if (bad_shape(world, m_loc, m_loc) || tdt_dist::bad_group(g, world))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto p = make_params<bf16, bf16, bf16>(a, nullptr, b, ag, nullptr, c,
-                                         flags, cnt, bar, world, m_loc, n,
-                                         k, m_loc, epoch, g);
-  const int items = g.G * ((m_loc + BM - 1) / BM) * (1 + (n + BN - 1) / BN);
-  const auto s = static_cast<cudaStream_t>(stream);
-  static unsigned attr_kn = 0, attr_nk = 0;
-  return b_nk ? tdt_dist::launch_coop(ag_gemm_kernel<true, false, false>,
-                                      p, tdt_bf16::NT, BF16_SMEM, world,
-                                      items, attr_nk, s)
-              : tdt_dist::launch_coop(ag_gemm_kernel<false, false, false>,
-                                      p, tdt_bf16::NT, BF16_SMEM, world,
-                                      items, attr_kn, s);
+  return b_nk ? launch_wg<false, true, false>(a, b, ag, c, flags, cnt, bar,
+                                              world, m_loc, n, k, m_loc,
+                                              epoch, stream, g)
+              : launch_wg<false, false, false>(a, b, ag, c, flags, cnt, bar,
+                                               world, m_loc, n, k, m_loc,
+                                               epoch, stream, g);
 }
 
 extern "C" int tdt_ag_gemm_torus_i8(const long long* a, const long long* b,
@@ -836,17 +799,7 @@ extern "C" int tdt_ag_gemm_torus_i8(const long long* a, const long long* b,
                                     const long long* bar, const int* group,
                                     int world, int m_loc, int n, int k,
                                     unsigned epoch, void* stream) {
-  using tdt_i8::BM;
-  using tdt_i8::BN;
-  const tdt_dist::Group g = tdt_dist::group_from(group);
-  if (bad_shape(world, m_loc, m_loc) || tdt_dist::bad_group(g, world))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto p = make_params<int8_t, int8_t, int>(a, nullptr, b, ag, nullptr, c,
-                                            flags, cnt, bar, world, m_loc,
-                                            n, k, m_loc, epoch, g);
-  const int items = g.G * ((m_loc + BM - 1) / BM) * (1 + (n + BN - 1) / BN);
-  static unsigned attr = 0;
-  return tdt_dist::launch_coop(ag_gemm_i8_kernel<false>, p, tdt_i8::NT, 0,
-                               world, items, attr,
-                               static_cast<cudaStream_t>(stream));
+  return launch_wg<true, false, false, TORUS_I8_TALL>(
+      a, b, ag, c, flags, cnt, bar, world, m_loc, n, k, m_loc, epoch, stream,
+      tdt_dist::group_from(group));
 }

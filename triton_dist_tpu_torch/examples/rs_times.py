@@ -65,27 +65,6 @@ RS = (("plane", (2, 2, 2), ("dcn", "pp", "tp"), 1024528, "float32"),
       ("t8_bf16", (8,), ("tp",), 4096, "bfloat16"))
 
 
-def _device_ms(fn, iters=20):
-    """Device time per call of ``fn``: the own device time of every
-    kernel that ``iters`` eager calls launch, from ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us += float(getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0.0))
-    return us / 1e3 / iters
-
-
 def time_tree(tree: str, repeats: int, rows=ROWS) -> dict:
     """Median ms of the GEMM-RS and reduce-scatter ``rows`` of ``tree``'s
     port (imported from there), with the library calls, device and host
@@ -158,7 +137,7 @@ def time_tree(tree: str, repeats: int, rows=ROWS) -> dict:
                 grs.gemm_rs_ref(a8, b8)))
             call = (lambda: grs.gemm_rs_shard(a8, b8, ring_mode=mode))
             out[f"{row} {tag}"] = med(call)
-            out[f"{row} {tag} dev"] = _device_ms(call)
+            out[f"{row} {tag} dev"] = ring_times._device_ms(call)
             out[f"{row} {tag} host"] = med(call, ring_times._host_ms)
         if m_loc > 16 and (want("15i") or want("15bi")):
             a2 = a8.view(W, W, m_loc, k).permute(1, 2, 0, 3).reshape(
@@ -184,7 +163,7 @@ def time_tree(tree: str, repeats: int, rows=ROWS) -> dict:
             grs.torus_gemm_rs_ref(a8, b8, mesh, axes)))
         call = (lambda: grs.torus_gemm_rs_i8(a8, b8, mesh, axes))
         out["16i down"] = med(call)
-        out["16i down dev"] = _device_ms(call)
+        out["16i down dev"] = ring_times._device_ms(call)
         out["16i down host"] = med(call, ring_times._host_ms)
         del a8, b8
     for tag, shape, names, rows, dt in RS if want("12") else ():

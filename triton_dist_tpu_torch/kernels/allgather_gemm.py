@@ -69,10 +69,10 @@ reference's auto dispatch takes XLA's dot.
 ``impl="xla"`` runs the plain versions on any device, "auto" and "pallas"
 the kernels on CUDA tensors; ``interpret`` changes nothing (CPU tensors
 run the plain versions).  ``config`` (the reference's MXU block triple)
-is kept and has no effect: the Hopper tiles are fixed (the uni kernels'
-and the bidir ring's 128 x 256 x 64 bf16 and 128 x 256 x 128 int8 of
-``csrc/sm90_gemm.cuh``; the wire's and the bf16 torus order's 128 x 128 x 32
-of ``csrc/bf16_tile.cuh``).  A tuple
+is kept and has no effect: the Hopper tiles are fixed (the uni kernels',
+the torus order's and the bidir ring's 128 x 256 x 64 bf16 and 128 x 256
+x 128 int8 (the torus int8 256 x 128 x 128) of ``csrc/sm90_gemm.cuh``; the
+wire's 128 x 128 x 32 of ``csrc/bf16_tile.cuh``).  A tuple
 ``axis`` with two or more axes of more than one rank takes the torus
 schedule over that joint group (reference :679-696,
 ``_torus_ag_gemm_kernel`` :428): a's rows and b's
@@ -81,11 +81,12 @@ world rank.  ``wire_dtype`` then raises NotImplementedError (:687-692),
 ``ring_mode="bidir"`` with ``chunks > 1`` still raises ValueError first,
 and ``chunks`` and ``ring_mode`` are otherwise ignored (:663-666).  The
 torus kernel (:func:`torus_ag_gemm`, :func:`torus_ag_gemm_i8`) is the uni
-kernel's full-mesh push run over the joint group (``csrc/ag_gemm.cu``
-``tdt_ag_gemm_torus``).  Any other axis must be the mesh's one real
-axis: a single axis of a mesh whose other axes have more than one rank
-raises NotImplementedError (ROADMAP Queue 1's seventeenth entry: the ring
-GEMMs over one axis of a larger mesh).
+kernel run over the joint group (``csrc/ag_gemm.cu`` ``tdt_ag_gemm_torus``:
+``ag_gemm_wg_kernel`` off the flat world), its operands held to
+:func:`ag_gemm_operand_ok` as the uni paths' are.  Any other axis must be
+the mesh's one real axis: a single axis of a mesh whose other axes have
+more than one rank raises NotImplementedError (ROADMAP Queue 1's
+seventeenth entry: the ring GEMMs over one axis of a larger mesh).
 
 **The autotuned entry** :func:`ag_gemm_autotuned` (reference :937) sweeps
 :data:`AG_GEMM_TUNE_SPACE` through ``triton_dist_tpu_torch.autotuner``:
@@ -490,9 +491,9 @@ def torus_ag_gemm(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
                   plain: bool = False):
     """The torus AG-GEMM, bf16 (:func:`torus_ag_gemm_ref`'s function):
     CUDA operands launch ``tdt_ag_gemm_torus`` (``csrc/ag_gemm.cu``: the
-    uni kernel's full-mesh push over the joint group, one flag per
-    segment, each rank's own segment first), counted in ``.launches``;
-    CPU operands (or ``plain``) run the plain version."""
+    uni kernel over the joint group, one flag per segment, each rank's own
+    segment first; TMA's rules, :func:`ag_gemm_operand_ok`), counted in
+    ``.launches``; CPU operands (or ``plain``) run the plain version."""
     world, k, n = check_operands("torus_ag_gemm", a, b, trans_b)
     if plain or a.device.type == "cpu":
         return torus_ag_gemm_ref(a, b, mesh, axes, trans_b=trans_b)
@@ -501,6 +502,7 @@ def torus_ag_gemm(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
     m_loc, G = a.shape[1], mesh.joint_size(axes)
     check_kernel_operands("torus_ag_gemm", a, b, m_loc, k, n)
     a, b = a.contiguous(), b.contiguous()
+    _check_tma("torus_ag_gemm", a, b)
     a_full = _empty(a, world, G * m_loc, k)
     c = _empty(a, world, G * m_loc, n)
     _launch("tdt_ag_gemm_torus", a, (a, b, a_full, c),
@@ -527,6 +529,7 @@ def torus_ag_gemm_i8(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
     check_kernel_operands("torus_ag_gemm_i8", a, b, m_loc, k, n,
                           dtype=torch.int8, k_mult=32, n_mult=16)
     a, b = a.contiguous(), b.contiguous()
+    _check_tma("torus_ag_gemm_i8", a, b)
     a_full = _empty(a, world, G * m_loc, k)
     c = _empty(a, world, G * m_loc, n, dtype=torch.int32)
     _launch("tdt_ag_gemm_torus_i8", a, (a, b, a_full, c),

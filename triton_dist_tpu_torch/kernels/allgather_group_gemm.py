@@ -23,8 +23,9 @@ virtual world sees the whole ``[T, topk]`` (the reference's small
   ``_ag_group_gemm_kernel`` :103) over the world's symmetric workspace and
   counts the launch in ``ag_group_gemm_shard.launches``, or raises on
   what the kernel does not take: bf16 operands, ``block_m`` a multiple of
-  128, D and F_loc multiples of 128, 16-byte aligned rows (``w`` may be a
-  strided view: the host entry hands each rank its column block of the
+  128, D and F_loc multiples of 128, at most 256 experts, and operands its
+  tensor maps can read (:func:`grouped_operand_ok`: ``w`` may be a
+  strided view, the host entry hands each rank its column block of the
   [E, D, F] stack in place).  On CPU tensors, or with ``plain``, it runs
   :func:`ag_group_gemm_ref`: the gather as a concatenation and each rank's
   grouped GEMM through ``group_gemm_ref``.
@@ -63,9 +64,11 @@ from triton_dist_tpu_torch.autotuner import Config, autotune
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels.allgather_gemm import (
     _check_impl,
+    _check_tma,
     dedupe_configs,
     flat_axis,
     ring_tables,
+    tma_layout_ok,
 )
 from triton_dist_tpu_torch.kernels.group_gemm import (
     TILE_M,
@@ -82,8 +85,11 @@ from triton_dist_tpu_torch.runtime.bootstrap import MAX_RANKS, Mesh, get_world
 _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_uint
 # pointer tables (xs, w, gathered, out, flags, piece counters, barrier),
-# the tile map, world, m_pad, n, k, block_m, ldb, e_stride, epoch, stream
-_SIG = {"tdt_ag_group_gemm": [_P] * 8 + [_I] * 6 + [_L, _U, _P]}
+# the tile map, world, m_pad, n, k, block_m, n_experts, ldb, e_stride,
+# epoch, stream
+_SIG = {"tdt_ag_group_gemm": [_P] * 8 + [_I] * 7 + [_L, _U, _P]}
+MAX_EXPERTS = 256   # what the kernel's expert-major walk holds
+WG_TILE, TILE_GROUP = (128, 256), 8   # the kernel's tile and row group
 
 
 def _segment_plans(experts_all, n_experts: int, block_m: int):
@@ -144,6 +150,40 @@ def check_grouped_kernel(name, a, w, tile_expert, block_m, k, n):
                              f"(a row stride below 2**31)")
 
 
+def tile_order(tile_expert, me: int, n: int, block_m: int):
+    """Rank ``me``'s GEMM tiles in ``tdt_ag_group_gemm``'s order (the
+    kernel's expert-major walk, held by a CPU test): for each expert its
+    128-row tiles of every segment, segment me first, then me - 1, me - 2,
+    ..., in ``tdt_gemm90::tile_rc``'s groups of TILE_GROUP row tiles walked
+    column band by column band.  ``tile_expert`` [W, m_pad / block_m] on
+    the host, each row nondecreasing with ids below ``MAX_EXPERTS`` (the
+    plans'); yields (segment, row tile, column tile, expert)."""
+    te = [list(map(int, row)) for row in tile_expert]
+    world, (tm, tn) = len(te), WG_TILE
+    tiles_n, per = -(-n // tn), block_m // tm
+    segs = [(me - q) % world for q in range(world)]
+    for e in range(max(max(row) for row in te) + 1):
+        rows = [(s, i * per + j) for s in segs
+                for i, x in enumerate(te[s]) if x == e for j in range(per)]
+        for t in range(len(rows) * tiles_n):
+            g0 = t // (TILE_GROUP * tiles_n) * TILE_GROUP
+            in_group = min(TILE_GROUP, len(rows) - g0)
+            r = t - g0 * tiles_n
+            yield (*rows[g0 + r % in_group], r // in_group, e)
+
+
+def grouped_operand_ok(shape, strides, dtype, offset=0) -> bool:
+    """Whether the MoE overlap kernels (``tdt_ag_group_gemm``,
+    ``tdt_moe_rs``) read an operand of ``shape`` and element ``strides``
+    by TMA (``offset``: its storage offset in elements, on a 16-byte
+    aligned allocation): bf16 segments [W, rows, K] or slabs [W, E, K, N],
+    strided views under ``allgather_gemm.tma_layout_ok`` (one map spans
+    every rank, and a slab map every expert).  A pure function of the
+    layout."""
+    return dtype == torch.bfloat16 and len(shape) in (3, 4) and \
+        tma_layout_ok(shape, strides, 2, offset)
+
+
 def ag_group_gemm_ref(xs, w, tile_expert, *, block_m: int):
     """Plain (gathered [W, W m_pad, D], y [W, W m_pad, F_loc]): the
     segments concatenated in rank order (the same on every rank: an
@@ -171,21 +211,29 @@ def ag_group_gemm_sorted(xs, w, tile_expert, *, block_m: int,
         raise ValueError(f"ag_group_gemm: unsupported device {xs.device}")
     xs = xs.contiguous()
     check_grouped_kernel("ag_group_gemm", xs, w, tile_expert, block_m, d, n)
+    n_experts = w.shape[1]
+    if n_experts > MAX_EXPERTS:
+        raise ValueError(f"ag_group_gemm kernel: at most {MAX_EXPERTS} "
+                         f"experts, got {n_experts}")
     te = tile_expert.contiguous()
     gathered = torch.empty((world, world * m_pad, d), dtype=xs.dtype,
                            device=xs.device)
+    _check_tma("ag_group_gemm", xs, w, gathered,
+               rule=grouped_operand_ok)
     y = torch.empty((world, world * m_pad, n), dtype=xs.dtype,
                     device=xs.device)
     ws = get_world(world, xs.device).workspace
     tables = ring_tables(xs, w, gathered, y, ws.flags("ag_group_gemm", world),
                          ws.flags("ag_group_gemm_cnt", world),
                          ws.flags("barrier", world))
+    # one expert: its stride is never stepped, but TMA wants a valid one
+    e_stride = w.stride(1) if n_experts > 1 else d * w.stride(2)
     epoch = ws.next_epoch()
     lib = _build.load("ag_group_gemm", _SIG)
     with torch.cuda.device(xs.device):
         err = lib.tdt_ag_group_gemm(
-            *tables, te.data_ptr(), world, m_pad, n, d, block_m,
-            w.stride(2), w.stride(1), epoch,
+            *tables, te.data_ptr(), world, m_pad, n, d, block_m, n_experts,
+            w.stride(2), e_stride, epoch,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ag_group_gemm")
     ag_group_gemm_shard.launches += 1

@@ -31,8 +31,8 @@ in f32).
   counts the launch in ``moe_reduce_rs_shard.launches``, or raises on
   what the kernel does not take (as ``allgather_group_gemm.
   check_grouped_kernel``: bf16, block_m, F_loc and D multiples of 128;
-  and TMA's rule, :func:`moe_rs_operand_ok`: h and w may be strided
-  views, read in place by tensor maps).  On CPU tensors, or with
+  and TMA's rule, ``allgather_group_gemm.grouped_operand_ok``: h and w
+  may be strided views, read in place by tensor maps).  On CPU tensors, or with
   ``plain``, :func:`moe_rs_ref`.
 - :func:`moe_reduce_rs_shard` (reference :196): rank-stacked h, w,
   weights / experts [W, t_loc, topk] -> out [W, t_loc, D].
@@ -69,12 +69,12 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (
     dedupe_configs,
     flat_axis,
     ring_tables,
-    tma_layout_ok,
 )
 from triton_dist_tpu_torch.kernels.allgather_group_gemm import (
     _segment_plans,
     check_grouped_kernel,
     check_sorted,
+    grouped_operand_ok,
     launch_keys,
     resolve_block_m,
 )
@@ -98,17 +98,6 @@ def moe_rs_workspace(world: int, m_pad: int, n: int):
     tm, tn = WG_TILE
     tiles = m_pad // tm * -(-n // tn)
     return (world - 1, tiles, tm * tn), (world - 1) * tiles
-
-
-def moe_rs_operand_ok(shape, strides, dtype, offset=0) -> bool:
-    """Whether ``tdt_moe_rs`` reads an operand of ``shape`` and element
-    ``strides`` by TMA (``offset``: its storage offset in elements, on a
-    16-byte aligned allocation): bf16 h [W, W m_pad, F_loc] or w [W, E,
-    F_loc, D], strided views under ``allgather_gemm.tma_layout_ok`` (one
-    map spans every rank, and w's spans every expert).  A pure function of
-    the layout."""
-    return dtype == torch.bfloat16 and len(shape) in (3, 4) and \
-        tma_layout_ok(shape, strides, 2, offset)
 
 
 def moe_rs_ref(h, w, tile_expert, *, block_m: int):
@@ -141,7 +130,7 @@ def moe_rs_sorted(h, w, tile_expert, *, block_m: int, plain: bool = False):
     if not h.is_cuda:
         raise ValueError(f"moe_reduce_rs: unsupported device {h.device}")
     check_grouped_kernel("moe_reduce_rs", h, w, tile_expert, block_m, k, n)
-    _check_tma("moe_reduce_rs", h, w, rule=moe_rs_operand_ok)
+    _check_tma("moe_reduce_rs", h, w, rule=grouped_operand_ok)
     te = tile_expert.contiguous()
     ws = get_world(world, h.device).workspace
     slots, n_flags = moe_rs_workspace(world, m_pad, n)
