@@ -1544,7 +1544,8 @@ def matmul_row(dev, g):
     """csrc/gemm.cu at (M, K, N) = (2048, 4096, 14336) (a 2048-token
     projection of Llama-3-8B's FFN width) against its plain version by the
     bf16 GEMM rule, timed beside its bound and torch.matmul (cuBLAS, the
-    yardstick)."""
+    yardstick); the line names the kernel the call took
+    (``matmul.mode_launches``)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import gemm
@@ -1552,14 +1553,17 @@ def matmul_row(dev, g):
     M, K, N = 2048, 4096, 14336
     a = torch.randn((M, K), generator=g, device=dev).bfloat16()
     b = (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).bfloat16()
+    modes0 = dict(gemm.matmul.mode_launches)
     got = gemm.matmul(a, b)
     torch.cuda.synchronize()
+    kind = next(k for k, n in gemm.matmul.mode_launches.items()
+                if n > modes0[k])
     err = gemm_rule(f"matmul ({M}, {K}, {N})", got, gemm.matmul_ref(a, b))
     ms = time_ms(lambda: gemm.matmul(a, b))
     plain_ms = time_ms(lambda: gemm.matmul_ref(a, b), iters=3)
     lib = time_ms(lambda: torch.matmul(a, b))
     b_ms, b_by = bound_ms(2 * (M * K + K * N + M * N), 2 * M * N * K)
-    log(f"matmul ({M}, {K}, {N}): kernel {ms:.4f} ms "
+    log(f"matmul ({M}, {K}, {N}): kernel ({kind}) {ms:.4f} ms "
         f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"library {lib:.4f} ms (torch.matmul), bound {b_ms:.4f} ms ({b_by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -5635,7 +5639,8 @@ WGMMA_KERNELS = {"ring_attn": ("ring_attn_kernel",),
                  "moe_rs": ("moe_rs_wg_kernel",),
                  "ag_group_gemm": ("ag_group_gemm_wg_kernel",),
                  "group_gemm": ("group_gemm_wg_kernel",),
-                 "matmul_i8": ("matmul_i8_wg_kernel",)}
+                 "matmul_i8": ("matmul_i8_wg_kernel",),
+                 "gemm": ("matmul_wg_kernel",)}
 # The mma.sync kernels whose SASS must hold HMMA instructions (the decode
 # kernel: a stream, where wgmma's 64-row tiles would sit mostly idle).
 HMMA_KERNELS = {"decode": ("decode_kernel",)}
@@ -5644,9 +5649,11 @@ HMMA_KERNELS = {"decode": ("decode_kernel",)}
 # <I8, B_NK, FLAT, TALL> of ag_gemm_wg_kernel (first: its WgParams<I8,
 # B_NK> argument also reads as a two-flag key), <I8, B_NK, TALL> of
 # group_gemm_wg_kernel, <I8, B_NK, MODE, TALL> of gemm_rs_wg_kernel,
-# <TALL> of gemm_rs_bidir_i8_wg_kernel); the int8 kernels' names (IGMMA
-# expected)
-SASS_MODES = (("ILb0ELb0ELb1ELb0EE", "bf16, B [K][n], flat world"),
+# <TALL> of gemm_rs_bidir_i8_wg_kernel, <OutT> of matmul_wg_kernel); the
+# int8 kernels' names (IGMMA expected)
+SASS_MODES = (("matmul_wg_kernelIfEE", "f32 out"),
+              ("matmul_wg_kernelI13__nv_bfloat16EE", "bf16 out"),
+              ("ILb0ELb0ELb1ELb0EE", "bf16, B [K][n], flat world"),
               ("ILb0ELb1ELb1ELb0EE", "bf16, B^T [n][K], flat world"),
               ("ILb1ELb0ELb1ELb0EE", "int8, flat world"),
               ("ILb0ELb0ELb0ELb0EE", "bf16, B [K][n], torus group"),
@@ -5661,6 +5668,8 @@ SASS_MODES = (("ILb0ELb0ELb1ELb0EE", "bf16, B [K][n], flat world"),
               ("ILb0ELb1ELi0ELb0EE", "bf16, B^T [n][K]"),
               ("ILb0ELb0ELi1ELb0EE", "bf16, B [K][n], group"),
               ("ILb0ELb1ELi1ELb0EE", "bf16, B^T [n][K], group"),
+              ("ILb0ELb0ELi2ELb0EE", "bf16, B [K][n], torus order"),
+              ("ILb0ELb1ELi2ELb0EE", "bf16, B^T [n][K], torus order"),
               ("ILb1ELb0ELi0ELb1EE", "int8, 256 x 128"),
               ("ILb1ELb0ELi0ELb0EE", "int8, 128 x 256"),
               ("ILb1ELb0ELi1ELb1EE", "int8, group, 256 x 128"),

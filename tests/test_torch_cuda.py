@@ -1450,10 +1450,11 @@ def _gemm_close(got, want, name, tol=2e-2):
 
 
 MATMUL_CASES = [
-    # (M, K, N): aligned, a ragged edge in every dimension (element loads),
-    # a K tail inside one 32-deep stage, a single row, the row-7 shape
-    (256, 512, 384), (130, 200, 97), (64, 40, 136), (1, 64, 8),
-    (2048, 4096, 14336),
+    # (M, K, N, the kernel): aligned, a ragged edge in every dimension (the
+    # tile loop's element loads), a K tail inside one k-tile, a single row,
+    # the row-7 shape
+    (256, 512, 384, "wgmma"), (130, 200, 97, "tile"), (64, 40, 136, "wgmma"),
+    (1, 64, 8, "wgmma"), (2048, 4096, 14336, "wgmma"),
 ]
 
 
@@ -1463,16 +1464,19 @@ MATMUL_CASES = [
 def test_matmul_matches_plain(cuda, case, out_dtype):
     """csrc/gemm.cu against its plain version: bf16 output to the bf16
     rule, f32 output to 1e-4 of the largest magnitude (only the order of
-    the f32 sums differs); one launch per call."""
+    the f32 sums differs); one launch per call, of the kernel
+    ``matmul_kernel_for`` names (``mode_launches``)."""
     from triton_dist_tpu_torch.kernels import gemm
 
-    M, K, N = case
-    g = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    M, K, N, kind = case
+    g = np.random.default_rng(zlib.crc32(repr(case[:3]).encode()))
     a, b = _randn(g, (M, K), cuda), _randn(g, (K, N), cuda)
-    n0 = gemm.matmul.launches
+    n0, modes0 = gemm.matmul.launches, dict(gemm.matmul.mode_launches)
     got = gemm.matmul(a, b, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert gemm.matmul.launches == n0 + 1
+    assert gemm.matmul.mode_launches == dict(modes0, **{
+        kind: modes0[kind] + 1})
     assert got.dtype == out_dtype and got.shape == (M, N)
     want = gemm.matmul_ref(a, b, out_dtype=torch.float32)
     if out_dtype == torch.float32:
@@ -1480,6 +1484,28 @@ def test_matmul_matches_plain(cuda, case, out_dtype):
         assert err <= 1e-4 * want.abs().max().item(), err
     else:
         _gemm_close(got, want, f"matmul {case}")
+
+
+@pytest.mark.gpu
+def test_matmul_misaligned_base_takes_the_tile_loop(cuda):
+    """An operand 2 bytes off a 16-byte boundary (a contiguous view at
+    storage offset 1) is no TMA operand: the tile loop takes it, and
+    agrees with the plain version by the bf16 rule."""
+    from triton_dist_tpu_torch.kernels import gemm
+
+    g = np.random.default_rng(77)
+    M, K, N = 192, 256, 320
+    a = torch.empty(M * K + 1, dtype=torch.bfloat16, device=cuda)[1:].view(
+        M, K)
+    a.copy_(_randn(g, (M, K), cuda))
+    b = _randn(g, (K, N), cuda)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    modes0 = dict(gemm.matmul.mode_launches)
+    got = gemm.matmul(a, b)
+    torch.cuda.synchronize()
+    assert gemm.matmul.mode_launches == dict(modes0, tile=modes0["tile"] + 1)
+    _gemm_close(got, gemm.matmul_ref(a, b, out_dtype=torch.float32),
+                "matmul misaligned")
 
 
 @pytest.mark.gpu

@@ -3183,6 +3183,64 @@ def test_gemm_rs_i8_workspace(case):
         stage, n_flags)
 
 
+@pytest.mark.parametrize("case", [
+    # (G, m_loc, N, axes, staging a rank, flags a rank, part ends, the
+    # 256-column tiles that span two parts): phase 22's shapes on (2, 4)
+    # and (2, 2, 2), and N 640, where column 384 (the end of part 1) falls
+    # inside tile 1
+    (8, 256, 4096, 2, (8, 32, 32768), 256, [8, 16, 24, 32], []),
+    (8, 16, 4096, 2, (8, 16, 32768), 128, [8, 16, 24, 32], []),
+    (8, 256, 4096, 3, (8, 32, 32768), 256, [6, 12, 17, 22, 27, 32],
+     [8, 13]),
+    (8, 256, 640, 2, (8, 6, 32768), 48, [2, 3, 4, 5], [1]),
+])
+def test_gemm_rs_torus_workspace(case):
+    """The bf16 torus mode of the uni kernel takes the uni kernel's
+    workspace (G slots of 128 x 256 bf16 tiles in fragment order, a flag
+    per (slot, tile)) and folds each 128-column unit of a tile in the plan
+    of its part (``part_ends``, the kernel's ``part_end``; ``torus_part``
+    in ``csrc/gemm_rs.cu``: the first part whose end lies past the unit),
+    so a tile that spans a part boundary folds its halves in two
+    orders."""
+    from triton_dist_tpu_torch.kernels import torus as ttorus
+
+    G, m_loc, n, axes, stage, n_flags, ends, split = case
+    assert trs.wg_workspace(G, m_loc, n) == (stage, n_flags)
+    assert ttorus.part_ends(n // trs.TORUS_UNIT, axes) == ends
+    part = [next(q for q, e in enumerate(ends) if u < e)
+            for u in range(n // trs.TORUS_UNIT)]
+    tiles = -(-n // trs.WG_TILE[1])
+    assert [j for j in range(tiles) if 2 * j + 1 < len(part)
+            and part[2 * j] != part[2 * j + 1]] == split
+    # every part's columns, in the reference's paths, are the units the
+    # kernel gives it
+    for q, (off, ln, _, _) in enumerate(ttorus._paths_for(len(part), axes)):
+        assert [u for u, p in enumerate(part) if p == q] == list(
+            range(off, off + ln))
+
+
+def test_matmul_kernel_choice_rule():
+    """``gemm.matmul_kernel_for``: the persistent wgmma kernel wherever
+    TMA reads the operands in place (K and N multiples of 8, 16-byte
+    aligned bases; any M), else the element-wise tile loop; a pure
+    function of the shape and the alignment (no knob).  On CPU tensors
+    ``matmul`` launches neither."""
+    from triton_dist_tpu_torch.kernels import gemm as tgemm
+
+    f = tgemm.matmul_kernel_for
+    for m, n, k in ((2048, 14336, 4096), (16, 14336, 4096), (1, 8, 64),
+                    (130, 4096, 200), (64, 136, 40), (7, 8, 8)):
+        assert f(m, n, k, True) == "wgmma", (m, n, k)
+        assert f(m, n, k, False) == "tile", (m, n, k)    # a base off 16 B
+    for m, n, k in ((130, 97, 200), (2048, 14340, 4096), (64, 136, 41),
+                    (256, 384, 513), (1, 1, 1)):
+        assert f(m, n, k, True) == "tile", (m, n, k)     # ragged N or K
+    modes0 = dict(tgemm.matmul.mode_launches)
+    tgemm.matmul(torch.ones((4, 8)), torch.ones((8, 8)))
+    assert tgemm.matmul.mode_launches == modes0 == {
+        "wgmma": modes0["wgmma"], "tile": modes0["tile"]}
+
+
 def test_gemm_rs_i8_refuses_what_its_kernels_do_not_take():
     """The int8 kernels' operand rule, checked before any launch: int8
     operands, at most 8 ranks, K % 32 and N % 16 (the wrappers' check),

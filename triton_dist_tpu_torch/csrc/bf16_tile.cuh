@@ -1,10 +1,11 @@
-// The bf16 tile loop shared by gemm.cu (the dense matmul), the modes of
-// the two tensor-parallel ring kernels still on it (ag_gemm.cu's int8 wire
-// and torus order; gemm_rs.cu's bf16 bidir ring and torus order) and the
-// MoE overlap kernel ag_group_gemm.cu: one block of 8 warps sums a 128 x
-// 128 f32 output tile over the whole contraction.  The counterpart of the
-// TPU's `gemm_pipeline_body` (triton_dist_tpu/kernels/gemm.py:128), the
-// inner loop of its `_matmul_kernel` and of the ring kernels.
+// The bf16 tile loop shared by gemm.cu (the dense matmul's shapes that TMA
+// does not take: rows of K or N not a multiple of 8, bases off 16 bytes)
+// and the modes of the two tensor-parallel ring kernels still on it
+// (ag_gemm.cu's int8 wire, gemm_rs.cu's bf16 bidir ring): one block of 8
+// warps sums a 128 x 128 f32 output tile over the whole contraction.  The
+// counterpart of the TPU's `gemm_pipeline_body`
+// (triton_dist_tpu/kernels/gemm.py:128), the inner loop of its
+// `_matmul_kernel` and of the ring kernels.
 //
 // Warps 2 x 4, each 64 rows x 32 columns: 4 x 4 mma.sync.m16n8k16 per
 // 16-deep step, a 4-stage cp.async ring of 32-deep A and B tiles in dynamic

@@ -293,10 +293,11 @@ __host__ __device__ __forceinline__ int plan_src(const FoldPlan& f, int p) {
 // One position of a fold: x, the value of source plan_src(f, p), into the
 // running sums acc (levels 0..2), with the rounding add `add` (the
 // tensor's dtype at every hop, as `_fold_tiles` :294 adds).  After
-// position G - 1 the result is acc[n - 1].
-template <class Add>
-__device__ __forceinline__ void fold_step(const FoldPlan& f, int p, float x,
-                                          float (&acc)[3], Add add) {
+// position G - 1 the result is acc[n - 1].  T: a value (float), or a
+// word of packed values that `add` adds lane by lane.
+template <class T, class Add>
+__device__ __forceinline__ void fold_step(const FoldPlan& f, int p, T x,
+                                          T (&acc)[3], Add add) {
   const unsigned first = (f.first >> (3 * p)) & 7;
   const unsigned carry = (f.carry >> (2 * p)) & 3;
   acc[0] = (first & 1) ? x : add(x, acc[0]);
@@ -307,7 +308,8 @@ __device__ __forceinline__ void fold_step(const FoldPlan& f, int p, float x,
 }
 
 // The fold's result: the sum of its outermost level (n axes).
-__device__ __forceinline__ float fold_result(const float (&acc)[3], int n) {
+template <class T>
+__device__ __forceinline__ T fold_result(const T (&acc)[3], int n) {
   return n == 3 ? acc[2] : (n == 2 ? acc[1] : acc[0]);
 }
 

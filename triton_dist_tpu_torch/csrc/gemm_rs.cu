@@ -22,8 +22,9 @@
 // (0.057 ms at 3.35 TB/s).  The staging adds each chunk's G bf16
 // partials, written and read once: 16 MB a rank at down.
 //
-// The uni kernel (tdt_gemm_rs; tdt_gemm_rs_group with torus = 0, the same
-// kernel over one axis of a larger mesh: `gemm_rs_wg_kernel`), on the
+// The uni kernel (tdt_gemm_rs; tdt_gemm_rs_group, the same kernel over a
+// group of a larger mesh, with torus = 0 in index order and with torus =
+// 1 in the torus order: `gemm_rs_wg_kernel`), on the
 // warp-specialised mainloop of sm90_gemm.cuh: one cooperative launch, one
 // block of 384 threads an SM, the blocks split evenly among the ranks (a
 // spin-wait is safe only when every block is resident), every block past
@@ -56,22 +57,23 @@
 // - The fold: after its GEMM tiles, each rank walks its own chunk's tiles
 //   as separate items; a consumer warpgroup waits on the G flags of a
 //   tile, loads the G staged vectors of each of its 16 before adding them
-//   in f32 in index order, and writes C once.  The A/B against the fold in
-//   the epilogue of the owner's own tiles (its accumulator rounded and
-//   added in registers, no own staging; PERF.md row 15, NVIDIA H100 80GB
-//   HBM3, 700 W) read the same times within 2% at every shape (down
-//   0.3907 against 0.3931 ms), and the epilogue fold spilled 500 bytes a
-//   thread (its packed accumulator beside the loads at the kernel's 168
-//   registers, which setmaxnreg does not raise for ptxas): the separate
-//   items won, spill-free and one code path.  A fold through shared
-//   memory has no room: the ring takes 193 KB of the 227, a staged 128 x
-//   256 tile 64 KB.
+//   in f32 in index order (the torus mode: in the torus order, each add
+//   rounded to bf16; see tdt_gemm_rs_group), and writes C once.  The A/B
+//   against the fold in the epilogue of the owner's own tiles (its
+//   accumulator rounded and added in registers, no own staging; PERF.md
+//   row 15, NVIDIA H100 80GB HBM3, 700 W) read the same times within 2%
+//   at every shape (down 0.3907 against 0.3931 ms), and the epilogue fold
+//   spilled 500 bytes a thread (its packed accumulator beside the loads
+//   at the kernel's 168 registers, which setmaxnreg does not raise for
+//   ptxas): the separate items won, spill-free and one code path.  An
+//   epilogue fold through shared memory has no room: the ring takes 193
+//   KB of the 227, a staged 128 x 256 tile 64 KB (the torus mode's fold
+//   items borrow the ring once the block's GEMM items are done).
 // On one card (the virtual world) the staging stores are device-memory
 // stores, not NVLink traffic.
 //
 // The tile loop of bf16_tile.cuh (128 x 128 tiles, mma.sync, two blocks
-// an SM) keeps the bf16 bidirectional ring and the torus order (see
-// tdt_gemm_rs_group); no model path launches them.
+// an SM) keeps the bf16 bidirectional ring; no model path launches it.
 //
 // The int8 mode (tdt_gemm_rs_i8; tdt_gemm_rs_group_i8 over a group, the
 // reference's `quantized` path :700-702): gemm_rs_wg_kernel<I8 = true>,
@@ -110,9 +112,9 @@
 // the int32 registers.
 //
 // The SASS (`chip_smoke.py`'s build phase and `-Xptxas -v`, NVIDIA H100
-// 80GB HBM3, 700 W): 4 HGMMA in each of gemm_rs_wg_kernel's four bf16
-// instances (B [k][N] or [N][k], FLAT or GROUP), 168 registers at launch
-// (setmaxnreg 40 / 232 at run time), 0 spills; 8 IGMMA in each int8
+// 80GB HBM3, 700 W): 4 HGMMA in each of gemm_rs_wg_kernel's six bf16
+// instances (B [k][N] or [N][k], FLAT, GROUP or TORUS), 168 registers at
+// launch (setmaxnreg 40 / 232 at run time), 0 spills; 8 IGMMA in each int8
 // instance of 256 x 128 tiles, 4 in each of 128 x 256 (uni FLAT and
 // GROUP, bidir), 168 registers (setmaxnreg 56 / 224), 0 spills.
 #include <cuda_runtime.h>
@@ -140,18 +142,20 @@ using tdt_gemm90::bf16_lo;
 using tdt_gemm90::frag_col;
 using tdt_gemm90::frag_row;
 
-constexpr int SMEM = Tiles<true>::SMEM > Tiles<false>::SMEM
-                         ? Tiles<true>::SMEM : Tiles<false>::SMEM;
-
 // ------------------------------------------------ the uni kernel (wgmma)
 
-enum Mode { FLAT = 0, GROUP = 1 };
+enum Mode { FLAT = 0, GROUP = 1, TORUS = 2 };
 
 constexpr int WBM = tdt_gemm90::BM, WBN = tdt_gemm90::BN;
 // 16-byte vectors of a staged tile: bf16 partials, int32 in int8 (either
 // int8 tile shape holds 128 x 256 values)
 constexpr int TILE_U4 = WBM * WBN / 8;
 constexpr int TILE_U4_I8 = WBM * WBN / 4;
+// The torus order's column unit: the reference cuts N into its 2n parts in
+// 128-column units (`_split_parts(N // 128, 2n)`); a 128 x 256 tile spans
+// two units, each of which lies in one part.
+constexpr int TORUS_UNIT = 128;
+static_assert(WBN == 2 * TORUS_UNIT, "a tile spans two torus units");
 
 // The int8 tile of a chunk of m_loc rows: 256 x 128 (Cfg's TALL: half the
 // transposes a product), unless one 128 x 256 tile holds the chunk's rows
@@ -168,7 +172,10 @@ struct WgParams {
   Peers<OutT> out;        // rank r's C [m_loc][N]
   Peers<unsigned> flags;  // rank r's [G slots][tiles] ([2][W - 1][tiles])
   Peers<unsigned> bar;    // rank r's [W] barrier slots
-  Group grp;              // GROUP: the ranks that reduce (slot = index)
+  Group grp;              // GROUP, TORUS: the ranks that reduce (slot =
+                          // index)
+  int part_end[6];        // TORUS: column part q ends at unit part_end[q]
+  FoldPlan plans[MAX_RANKS][6];  // TORUS: joint index j's fold of part q
   int world, m_loc, n, k, tiles_m, tiles_n;  // bidir: the tiles of a half
   unsigned epoch;
 };
@@ -278,6 +285,40 @@ __device__ __forceinline__ void raise_tile(unsigned* flag, unsigned epoch) {
   }
 }
 
+// The torus order's add on two packed bf16 lanes: `add.rn.bf16x2`, the
+// exact sum rounded once to bf16.  The reference's `_add_body` adds bf16
+// values in f32 and rounds the sum to bf16; the bits agree, since f32's
+// 24 bits hold 2 x 8 + 2 and a sum of two bf16 values rounds innocuously
+// through it.
+struct AddBf16x2 {
+  __device__ __forceinline__ unsigned operator()(unsigned a,
+                                                 unsigned b) const {
+    unsigned d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+};
+
+// One fragment-order vector v of a consumer's sums into C, as packed bf16
+// pairs: word 2 h2 + h is column tile 2 v + h2, row r + 8 h (rows >=
+// `rows` dropped), columns + 0, 1 (columns >= n dropped); dst is the
+// thread's row r, column col0 + 2 (lane % 4).
+__device__ __forceinline__ void store_vec(bf16* dst, const unsigned (&wd)[4],
+                                          int v, long long ldc, int r,
+                                          int rows, int n, int col0,
+                                          int lane) {
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int col = col0 + 8 * (2 * v + h2) + 2 * (lane & 3);
+    if (col >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r + 8 * h < rows)
+        *reinterpret_cast<unsigned*>(dst + 8 * h * ldc + 8 * (2 * v + h2)) =
+            wd[2 * h2 + h];
+  }
+}
+
 // The G staged partials of a consumer's half of a tile (slot q at
 // `slot0` + q x slot_u4 vectors) summed in f32 in index order q = 0 .. G -
 // 1 and written to C at c (the tile's row 0, row stride ldc; rows >=
@@ -309,18 +350,90 @@ __device__ __forceinline__ void fold_store(const uint4* slot0,
 #pragma unroll
       for (int e = 0; e < 8; ++e) s[e] = q == 0 ? x[e] : s[e] + x[e];
     }
-    // s[4 h2 + 2 h + e]: column tile 2 v + h2, row r + 8 h, column + e
+    const unsigned wd[4] = {pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]),
+                            pack_bf16(s[4], s[5]), pack_bf16(s[6], s[7])};
+    store_vec(dst, wd, v, ldc, r, rows, n, col0, lane);
+  }
+}
+
+// The torus fold of a consumer's half of a tile: fold_store's sums in the
+// reference's torus order and rounding, and its stores.  The
+// fragment-order vector v holds columns 16 v .. 16 v + 15 of the tile, so
+// 128-column unit v / 8: vectors 0-7 fold by the plan f0, 8-15 by f1
+// (dist_verbs.cuh `fold_plan`; n_axes, the group's axes), every add
+// rounded to bf16, on the packed words as they were staged.  The loads
+// land in shared memory, not registers: `land`, this warpgroup's half of
+// the mainloop ring's B tiles (idle once the block's GEMM items are done),
+// two buffers of FOLD_V vectors x MAX_RANKS positions x 128 threads.
+// Each thread copies its G staged vectors of a batch by cp.async, in plan
+// order (position q's source plan_src(f, q) at q), while it folds the
+// batch before; it reads back only what it copied, so no barrier.  (Held
+// in registers, the G loads of a vector spilled at the kernel's 168
+// registers with a second vector in flight (36 bytes: down 0.5090, wo
+// 0.2515 ms); four positions at a time spilled nothing but ran 0.5246
+// and 0.2665, against this design's 0.5035 and 0.2429 in the same call,
+// PERF.md row 16.)
+constexpr int FOLD_V = 2;
+constexpr int LAND_U4 = 2 * FOLD_V * MAX_RANKS * 128;  // a warpgroup's
+static_assert(LAND_U4 * 16 * 2 <= tdt_gemm90::Cfg<false, false>::NS *
+                                      tdt_gemm90::Cfg<false, false>::B_BYTES,
+              "both warpgroups' landing buffers fit in the ring's B tiles");
+
+__device__ __forceinline__ void fold_store_torus(
+    const uint4* slot0, long long slot_u4, int G, int cw, bf16* c,
+    long long ldc, int rows, int n, int col0, const FoldPlan& f0,
+    const FoldPlan& f1, int n_axes, uint4* land) {
+  constexpr int BATCHES = 16 / FOLD_V;
+  const int wt = threadIdx.x & 127, warp = wt >> 5, lane = wt & 31;
+  const uint4* src = slot0 + cw * (TILE_U4 / 2) + wt;
+  const int r = 64 * cw + 16 * warp + (lane >> 2);
+  bf16* dst = c + r * ldc + col0 + 2 * (lane & 3);
+  land += wt;
+  // batch b: vectors FOLD_V b .., into buffer b % 2
+  auto issue = [&](int b) {
+    const FoldPlan f = FOLD_V * b < 8 ? f0 : f1;
+    uint4* to = land + (b & 1) * (LAND_U4 / 2);
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int col = col0 + 8 * (2 * v + h2) + 2 * (lane & 3);
-      if (col >= n) continue;
+    for (int k = 0; k < FOLD_V; ++k)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (r + 8 * h < rows)
-          *reinterpret_cast<unsigned*>(dst + 8 * h * ldc + 8 * (2 * v + h2)) =
-              pack_bf16(s[4 * h2 + 2 * h], s[4 * h2 + 2 * h + 1]);
+      for (int q = 0; q < MAX_RANKS; ++q)
+        if (q < G) {
+          const uint4* from = src + tdt_dist::plan_src(f, q) * slot_u4 +
+                              (FOLD_V * b + k) * 128;
+          cp_async16(to + (k * MAX_RANKS + q) * 128, from, from);
+        }
+    cp_commit();
+  };
+  issue(0);
+#pragma unroll 1
+  for (int b = 0; b < BATCHES; ++b) {
+    if (b + 1 < BATCHES)
+      issue(b + 1);
+    else
+      cp_commit();  // an empty group: batch b is then the older one
+    cp_wait<1>();
+    const FoldPlan f = FOLD_V * b < 8 ? f0 : f1;
+    const uint4* at = land + (b & 1) * (LAND_U4 / 2);
+#pragma unroll
+    for (int k = 0; k < FOLD_V; ++k) {
+      unsigned acc[4][3];  // each word's running sums by level
+#pragma unroll
+      for (int q = 0; q < MAX_RANKS; ++q) {
+        if (q >= G) break;
+        const uint4 w = at[(k * MAX_RANKS + q) * 128];
+        const unsigned x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tdt_dist::fold_step(f, q, x[i], acc[i], AddBf16x2());
+      }
+      const unsigned wd[4] = {tdt_dist::fold_result(acc[0], n_axes),
+                              tdt_dist::fold_result(acc[1], n_axes),
+                              tdt_dist::fold_result(acc[2], n_axes),
+                              tdt_dist::fold_result(acc[3], n_axes)};
+      store_vec(dst, wd, FOLD_V * b + k, ldc, r, rows, n, col0, lane);
     }
   }
+  cp_wait<0>();
 }
 
 // The int8 fold: the G staged int32 partials of a consumer's half of a
@@ -358,16 +471,28 @@ __device__ __forceinline__ void fold_store_i8(const uint4* slot0,
   }
 }
 
+// The torus part of 128-column unit u: the first q with u < part_end[q]
+// (a part of no units is passed over; a unit past N, in the last tile's
+// second half, takes the last part and is never stored).
+template <class P>
+__device__ __forceinline__ int torus_part(const P& p, int u) {
+  int q = 0;
+  while (q < 2 * p.grp.n - 1 && u >= p.part_end[q]) ++q;
+  return q;
+}
+
 // MODE FLAT: the whole world reduces, in rank order (tdt_gemm_rs,
 // tdt_gemm_rs_i8); GROUP: the ranks of `p.grp`, in index order
-// (tdt_gemm_rs_group torus = 0, tdt_gemm_rs_group_i8).  I8: int8 A and
-// B, exact int32 partials staged in int32 and summed exactly, on the
-// tile i8_tall picks (TALL).
+// (tdt_gemm_rs_group torus = 0, tdt_gemm_rs_group_i8); TORUS (bf16): the
+// ranks of `p.grp`, each column part in its torus order and rounding
+// (tdt_gemm_rs_group torus = 1).  I8: int8 A and B, exact int32 partials
+// staged in int32 and summed exactly, on the tile i8_tall picks (TALL).
 template <bool I8, bool B_NK, int MODE, bool TALL>
 __global__ void __launch_bounds__(tdt_gemm90::NT, 1)
 gemm_rs_wg_kernel(const __grid_constant__
                   WgParams<typename std::conditional<I8, int, bf16>::type>
                       p) {
+  static_assert(!(I8 && MODE == TORUS), "the torus order is bf16's");
   using C = tdt_gemm90::Cfg<I8, B_NK, TALL>;
   constexpr int TU4 = I8 ? TILE_U4_I8 : TILE_U4;
   extern __shared__ __align__(128) char wg_smem[];
@@ -469,10 +594,21 @@ gemm_rs_wg_kernel(const __grid_constant__
     const long long slot_u4 = static_cast<long long>(per) * TU4;
     const int rows = min(C::TM, p.m_loc - i * C::TM);
     auto* c = p.out.p[me] + static_cast<long long>(i) * C::TM * p.n;
-    if constexpr (I8)
+    if constexpr (I8) {
       fold_store_i8<C>(slot0, slot_u4, G, cw, c, p.n, rows, p.n, j * C::TN);
-    else
+    } else if constexpr (MODE == TORUS) {
+      // the first fold item: both consumer warpgroups are past their last
+      // product (wgmma_wait<0>), and every TMA load of the ring has landed,
+      // so the ring's B tiles are free for the fold's landing buffers
+      if (t - static_cast<int>(gridDim.x) < n_gemm)
+        tdt_sm90::named_sync(4, 256);
+      fold_store_torus(slot0, slot_u4, G, cw, c, p.n, rows, p.n, j * C::TN,
+                       p.plans[jm][torus_part(p, 2 * j)],
+                       p.plans[jm][torus_part(p, 2 * j + 1)], p.grp.n,
+                       reinterpret_cast<uint4*>(sm.b[0]) + cw * LAND_U4);
+    } else {
       fold_store(slot0, slot_u4, G, cw, c, p.n, rows, p.n, j * C::TN);
+    }
   }
 }
 
@@ -575,119 +711,18 @@ gemm_rs_bidir_i8_wg_kernel(const __grid_constant__ WgParams<int> p) {
   }
 }
 
-// ------------------------------------------ the tile loop's torus order
+// ------------------------------------------ the tile loop's bidir ring
 
 struct Params {
-  Peers<const bf16> a;     // rank r's A [G m_loc][k]
-  Peers<const bf16> b;     // rank r's weight [k][N], or [N][k] (B_NK)
-  Peers<bf16> stage;       // rank r's [G slots][m_loc][N]: rank q writes q
+  Peers<const bf16> a;     // rank r's A [W m_loc][k]
+  Peers<const bf16> b;     // rank r's weight [k][N]
+  Peers<bf16> stage;       // rank r's landing slots (below)
   Peers<bf16> out;         // rank r's C [m_loc][N]
-  Peers<unsigned> flags;   // rank r's [G slots][tiles of m_loc x N]
+  Peers<unsigned> flags;   // rank r's flags (below)
   Peers<unsigned> bar;     // rank r's [W] barrier slots
-  Group grp;               // the joint group (slot = joint index)
-  int part_end[6];         // column part q ends at tile part_end[q]
   int world, m_loc, n, k;
   unsigned epoch;
 };
-
-// The torus order's add: the f32 sum of two bf16 values rounded to bf16.
-struct AddBf16 {
-  __device__ __forceinline__ float operator()(float a, float b) const {
-    return __bfloat162float(__float2bfloat16_rn(a + b));
-  }
-};
-
-// The torus GEMM-RS on the tile loop (see tdt_gemm_rs_group).  Two blocks
-// per SM: 128 registers, no spills (ptxas), 10-30% faster than the one
-// block that 167-213 registers allow (PERF.md), so no group state is held
-// in registers across a tile's product: rank me's index jm in its joint
-// group lives in shared memory and is read again after each product.
-// Rank me computes its partial of every chunk and stages it in slot jm of
-// the chunk owner's stage; then the owner folds its G staged partials of
-// each tile in the reference's torus order.
-template <bool B_NK>
-__global__ void __launch_bounds__(NT, 2)
-gemm_rs_torus_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(128) char smem_raw[];
-  __shared__ FoldPlan plans[6];
-  __shared__ int s_jm;
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int me = blockIdx.y, lb = blockIdx.x;
-  const int G = p.grp.G;
-  {
-    const int jm = tdt_dist::group_index(p.grp, me);
-    if (threadIdx.x == 0) s_jm = jm;
-    if (threadIdx.x < 2 * p.grp.n)
-      plans[threadIdx.x] = tdt_dist::fold_plan(p.grp, jm, threadIdx.x);
-    tdt_dist::barrier_group(p.bar, me, p.grp, p.epoch);
-  }
-
-  const int tiles_n = (p.n + BN - 1) / BN;
-  const int per = (p.m_loc + BM - 1) / BM * tiles_n;   // tiles of a chunk
-  const long long slot = static_cast<long long>(p.m_loc) * p.n;
-  const int n_gemm = G * per;
-  for (int it = lb; it < n_gemm + per; it += gridDim.x) {
-    if (it < n_gemm) {
-      // partial of chunk `oj`, tile (i, j), into my slot of its stage
-      const int t = it % per, i = t / tiles_n, j = t % tiles_n;
-      const int rows = min(BM, p.m_loc - i * BM);
-      const int oj = (s_jm + 2 * G - 1 - it / per) % G;
-      float acc[4][4][4];
-      tdt_bf16::mma_tile<B_NK, true>(
-          acc, smem,
-          p.a.p[me] + (static_cast<long long>(oj) * p.m_loc + i * BM) *
-                          p.k,
-          p.k, p.b.p[me], B_NK ? p.k : p.n, rows, p.n, p.k, 0, j * BN);
-      const int jm = s_jm;
-      const int owner = tdt_dist::group_rank(p.grp, me,
-                                             (jm + 2 * G - 1 - it / per) % G);
-      tdt_bf16::store_tile(
-          acc, p.stage.p[owner] + jm * slot + static_cast<long long>(i) *
-                                                  BM * p.n,
-          p.n, rows, p.n, 0, j * BN);
-      tdt_dist::signal(p.flags.p[owner] + jm * per + t, p.epoch);
-      continue;
-    }
-    // my chunk's tile (i, j): the G partials folded
-    const int t = it - n_gemm, i = t / tiles_n, j = t % tiles_n;
-    const int rows = min(BM, p.m_loc - i * BM);
-    tdt_dist::wait(p.flags.p[me] + t, p.epoch, G, per);
-    const bf16* st = p.stage.p[me];
-    bf16* out = p.out.p[me];
-    int q = 0;
-    while (j >= p.part_end[q]) ++q;
-    const FoldPlan f = plans[q];
-    for (int v = threadIdx.x; v < rows * (BN / 8); v += NT) {
-      const int row = i * BM + v / (BN / 8);
-      const int col = j * BN + (v % (BN / 8)) * 8;
-      if (col >= p.n) continue;
-      const long long off = static_cast<long long>(row) * p.n + col;
-      // in the plan's order, each add rounded to bf16 (`_add_body`), one
-      // source at a time (its two blocks per SM leave no registers for
-      // all G at once)
-      float acc[8][3] = {};
-#pragma unroll
-      for (int k = 0; k < MAX_RANKS; ++k) {
-        if (k < G) {
-          const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(
-              st + tdt_dist::plan_src(f, k) * slot + off));
-          const bf16* x = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            tdt_dist::fold_step(f, k, __bfloat162float(x[e]), acc[e],
-                                AddBf16());
-        }
-      }
-      unsigned w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        w[e] = pack_bf16(tdt_dist::fold_result(acc[2 * e], p.grp.n),
-                         tdt_dist::fold_result(acc[2 * e + 1], p.grp.n));
-      *reinterpret_cast<uint4*>(out + off) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
 
 // land: rank r's [2 directions][W - 1 slots][m_loc][N / 2] running sums;
 // flags: rank r's [2][W - 1][tiles of m_loc x N / 2].  Rank me's items in
@@ -753,8 +788,6 @@ Params make_params(const long long* a, const long long* b,
   p.out = peers<bf16>(out, world);
   p.flags = peers<unsigned>(flags, world);
   p.bar = peers<unsigned>(bar, world);
-  p.grp = tdt_dist::flat_group(world);
-  for (int q = 0; q < 6; ++q) p.part_end[q] = 0;
   p.world = world;
   p.m_loc = m_loc;
   p.n = n;
@@ -824,16 +857,26 @@ WgParams<OutT> wg_params(const long long* stage, const long long* out,
   return p;
 }
 
-// Launch the uni kernel over the group `g` (FLAT: the flat world): the
-// tensor maps, then the cooperative grid.
+// Launch the uni kernel over the group `g` (FLAT: the flat world;
+// TORUS: part_end, the 2 g.n parts' ends in 128-column units, and each
+// joint index's fold plans, made here): the tensor maps, then the
+// cooperative grid.
 template <bool I8, bool B_NK, int MODE, bool TALL = false>
 int launch_wg(const long long* a, const long long* b, const long long* stage,
               const long long* out, const long long* flags,
               const long long* bar, const Group& g, int world, int m_loc,
-              int n, int k, unsigned epoch, void* stream) {
+              int n, int k, unsigned epoch, void* stream,
+              const int* part_end = nullptr) {
   using C = tdt_gemm90::Cfg<I8, B_NK, TALL>;
   auto p = wg_params<typename std::conditional<I8, int, bf16>::type>(
       stage, out, flags, bar, g, world, m_loc, n, k, epoch);
+  for (int q = 0; q < 6; ++q) {
+    p.part_end[q] = part_end != nullptr && q < 2 * g.n ? part_end[q] : 0;
+    for (int j = 0; j < MAX_RANKS; ++j)
+      p.plans[j][q] = part_end != nullptr && q < 2 * g.n && j < g.G
+                          ? tdt_dist::fold_plan(g, j, q)
+                          : FoldPlan{0u, 0u, 0u};
+  }
   p.tiles_m = (m_loc + C::TM - 1) / C::TM;
   p.tiles_n = (n + C::TN - 1) / C::TN;
   const int err = make_maps<C>(p, a, b, g.G, world, m_loc, n, k, B_NK);
@@ -967,27 +1010,34 @@ extern "C" int tdt_gemm_rs_i8(const long long* a, const long long* b,
 }
 
 // The torus GEMM-RS (the TPU `_torus_gemm_rs_kernel`, gemm_reduce_scatter.py
-// :326, launched from `_torus_gemm_rs_shard` :580) and the uni kernel over
-// one axis of a larger mesh: the kernels over the joint group `group` ([n,
-// size0..2, stride0..2]; dist_verbs.cuh `Group`) instead of the flat
-// world.  A's rows are the group's G chunks in joint order (flat
-// axes-major), and rank r of joint index j gets chunk j.
+// :326, launched from `_torus_gemm_rs_shard` :571) and the uni kernel over
+// one axis of a larger mesh: gemm_rs_wg_kernel over the joint group
+// `group` ([n, size0..2, stride0..2]; dist_verbs.cuh `Group`) instead of
+// the flat world.  A's rows are the group's G chunks in joint order (flat
+// axes-major), and rank r of joint index j gets chunk j.  Stage and flags
+// as tdt_gemm_rs's with G slots (gemm_reduce_scatter.wg_workspace).
 //
-// torus = 1 (bf16, 2 or 3 axes; N % 128 == 0): gemm_rs_torus_kernel, the
+// torus = 1 (bf16, 2 or 3 axes; N % 128 == 0): the TORUS mode, the
 // reference's torus order.  It cuts the N columns into 2n parts in
 // 128-column units (`_split_parts(N // 128, 2n)`, :591-597), part q taking
 // path flavor q; phase 0 rings along the flavor's first axis with the GEMM
 // as producer, later phases ring the order-major sub-bands (:415-561),
 // every hop adding `acc = local + recv` in bf16 (`_add_body`).  NVLink
-// joins every rank of the group to every other, so every rank stages its
-// bf16 partial of every chunk in the owner's slot ([G][m_loc][N] a rank,
-// flags per 128 x 128 tile), and the owner folds its G staged partials of
-// a tile in that order and rounding (dist_verbs.cuh `fold_plan`): given
-// the same partials, the sums are bit for bit the reference's.  part_end:
-// the 2n parts' ends in 128-column tiles (the last = N / 128).
-// torus = 0: the uni kernel (gemm_rs_wg_kernel<., GROUP>), its f32 sum in
-// index order; stage and flags as tdt_gemm_rs's with G slots (part_end
-// unused).
+// joins every rank of the group to every other, so the kernel keeps the
+// uni kernel's items, staging and flags (every rank's bf16 partial of
+// every chunk in slot jm of the owner's stage, fragment order, a flag per
+// (slot, 128 x 256 tile)), and only its fold items differ: the owner
+// loads the G staged vectors of each fragment-order vector, then folds
+// them in the order and rounding of the part its 16 columns fall in
+// (dist_verbs.cuh `fold_plan`: the G x 2n plans made on the host, in the
+// parameters; a 128 x 256 tile may span two parts).  Given the same
+// partials, the sums are bit for bit the reference's.  part_end: the 2n
+// parts' ends in 128-column units (the last = N / 128).  Deadlock
+// freedom is the uni kernel's: the launch is cooperative (every block
+// resident), in every rank's list every GEMM item comes before every fold
+// item, a fold item waits only on GEMM items' flags, and a GEMM item
+// waits on nothing.
+// torus = 0: the GROUP mode, its f32 sum in index order (part_end unused).
 // The int8 mode (tdt_gemm_rs_group_i8): exact int32 partials and sums, so
 // the torus order's sums are these.
 extern "C" int tdt_gemm_rs_group(const long long* a, const long long* b,
@@ -1001,28 +1051,22 @@ extern "C" int tdt_gemm_rs_group(const long long* a, const long long* b,
   const Group g = tdt_dist::group_from(group);
   if (world < 1 || world > MAX_RANKS || m_loc < 1 ||
       tdt_dist::bad_group(g, world) ||
-      (torus && (g.n < 2 || n % BN || part_end[2 * g.n - 1] != n / BN)))
+      (torus && (g.n < 2 || n % TORUS_UNIT ||
+                 part_end[2 * g.n - 1] != n / TORUS_UNIT)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!torus)
-    return b_nk ? launch_wg<false, true, GROUP>(a, b, stage, out, flags,
-                                                bar, g, world, m_loc, n, k,
-                                                epoch, stream)
-                : launch_wg<false, false, GROUP>(a, b, stage, out, flags,
+  if (torus)
+    return b_nk ? launch_wg<false, true, TORUS>(a, b, stage, out, flags, bar,
+                                                g, world, m_loc, n, k, epoch,
+                                                stream, part_end)
+                : launch_wg<false, false, TORUS>(a, b, stage, out, flags,
                                                  bar, g, world, m_loc, n, k,
-                                                 epoch, stream);
-  Params p = make_params(a, b, stage, out, flags, bar, world, m_loc, n, k,
-                         epoch);
-  p.grp = g;
-  for (int q = 0; q < 6; ++q)
-    p.part_end[q] = q < 2 * g.n ? part_end[q] : n / BN;
-  const int per = (m_loc + BM - 1) / BM * ((n + BN - 1) / BN);
-  const int items = (g.G + 1) * per;
-  const auto s = static_cast<cudaStream_t>(stream);
-  static unsigned attr[2] = {0, 0};
-  return b_nk ? tdt_dist::launch_coop(gemm_rs_torus_kernel<true>, p, NT,
-                                      SMEM, world, items, attr[0], s)
-              : tdt_dist::launch_coop(gemm_rs_torus_kernel<false>, p, NT,
-                                      SMEM, world, items, attr[1], s);
+                                                 epoch, stream, part_end);
+  return b_nk ? launch_wg<false, true, GROUP>(a, b, stage, out, flags, bar,
+                                              g, world, m_loc, n, k, epoch,
+                                              stream)
+              : launch_wg<false, false, GROUP>(a, b, stage, out, flags, bar,
+                                               g, world, m_loc, n, k, epoch,
+                                               stream);
 }
 
 extern "C" int tdt_gemm_rs_group_i8(const long long* a, const long long* b,

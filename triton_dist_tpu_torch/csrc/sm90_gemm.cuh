@@ -1,7 +1,7 @@
 // A warp-specialised GEMM mainloop for Hopper (sm_90a) on the wgmma / TMA
 // pieces of sm90.cuh, for kernels that walk their own list of output
-// tiles (ag_gemm.cu's uni AG-GEMM; written so that the other ring GEMMs
-// can take it), and on it the persistent GEMM of group_gemm.cu and
+// tiles (the ring GEMMs of ag_gemm.cu, gemm_rs.cu, ag_group_gemm.cu and
+// moe_rs.cu), and on it the persistent GEMM of gemm.cu, group_gemm.cu and
 // matmul_i8.cu (`persistent_gemm`, at the end).
 //
 // A block is three warpgroups (NT = 384 threads, one block an SM):
@@ -322,6 +322,10 @@ __device__ __forceinline__ void store2(int* p, int x, int y) {
   *reinterpret_cast<int2*>(p) = make_int2(x, y);
 }
 
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
 // The two bf16 halves of a packed word (pack_bf16's), as f32.
 __device__ __forceinline__ float bf16_lo(unsigned w) {
   return __uint_as_float(w << 16);
@@ -397,12 +401,14 @@ __host__ __device__ __forceinline__ TileRC tile_rc(int t, int tiles_m,
 // One launch of the persistent GEMM: C [M][N] = A [M][K] @ B, row tile i
 // (`rows` rows from row i x rows) against slab `slab[i x rows / slab_rows]`
 // of the stacked B (slab 0 where `slab` is null), B [K][N] each (the
-// mainloop's MN-major bf16 or staged int8 tile) or [N][K] (B_NK).
+// mainloop's MN-major bf16 or staged int8 tile) or [N][K] (B_NK); C
+// int32 in int8, bf16 or f32 (OutT) from bf16, rounded once from the f32
+// accumulator.
 struct Gemm {
   CUtensorMap amap;  // A {K, M, 1}: [BK][128-row] boxes, 128-byte swizzle
   CUtensorMap bmap;  // B {N, K, slabs}, or {K, N, slabs} (B_NK)
   const int* slab;   // [M / slab_rows] or null
-  void* c;           // [M][N]: bf16, or int32 (int8)
+  void* c;           // [M][N]: OutT
   int M, N, K, rows, slab_rows, tiles_m, tiles_n, group;
 };
 
@@ -413,10 +419,12 @@ struct Gemm {
 // tile t + gridDim.x while the consumers still multiply and store tile t;
 // in int8 producer warps 1-3 transpose every staged B tile.  No block
 // waits on another: a plain launch.
-template <bool I8, bool B_NK, bool TALL = false>
+template <bool I8, bool B_NK, bool TALL = false,
+          class OutT =
+              typename std::conditional<I8, int, __nv_bfloat16>::type>
 __device__ __forceinline__ void persistent_gemm(const Gemm& p, char* raw) {
   using C = Cfg<I8, B_NK, TALL>;
-  using OutT = typename std::conditional<I8, int, __nv_bfloat16>::type;
+  static_assert(!I8 || std::is_same<OutT, int>::value, "int8 C is int32");
   auto& sm = smem_of<C>(raw);
   if (threadIdx.x == 0) init_barriers(sm);
   __syncthreads();

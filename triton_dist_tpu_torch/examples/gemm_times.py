@@ -1,12 +1,19 @@
-"""Time the int8 GEMM and the grouped GEMM (PERF.md rows 8 and 9) of several
-checkouts of this repository on one card, interleaved, to compare two
-versions of ``csrc/matmul_i8.cu`` / ``csrc/group_gemm.cu`` (and the
-mainloop they run on) in the same call.
+"""Time the dense GEMM, the int8 GEMM and the grouped GEMM (PERF.md rows 7,
+8 and 9) of several checkouts of this repository on one card,
+interleaved, to compare two versions of ``csrc/gemm.cu`` /
+``csrc/matmul_i8.cu`` / ``csrc/group_gemm.cu`` (and the mainloop they run
+on) in the same call.
 
     python -m triton_dist_tpu_torch.examples.gemm_times TREE_A TREE_B
 
 The runner is ``flash_times``'s: one fresh process per tree and round, in
-the order A B .. B A, each building and importing its own tree.  It times:
+the order A B .. B A, each building and importing its own tree.  It times
+(``--rows`` picks rows by exact name, all by default):
+
+- row 7 (bf16 operands, bf16 C) at (M, K, N) = (2048, 4096, 14336)
+  ("7": ``chip_smoke.py``'s shape), at m 16 ("7 m16") and at a ragged
+  shape that takes the tile loop ("7 ragged": K and N not multiples of
+  8), each with one ``torch.matmul`` beside (" lib");
 
 - row 9 at ``chip_smoke.py``'s shapes (Mixtral-8x7B, E 8, K 4096, N
   14336, block_m 128, each row tile's expert from ``sort_align`` of seeded
@@ -34,24 +41,31 @@ import os
 import statistics
 import sys
 
-SHAPES = ("row 9: E 8, K 4096, N 14336, block_m 128, top-2 plans of 2,048 "
-          "tokens (M_pad 5,120) and 8 (M_pad 1,152): fwd, T8, dx, down, down "
-          "dx, int8 (block_m 128 and 512); row 8: m 8 .. 2,048 at (k 4096, "
+SHAPES = ("row 7: (2048, 4096, 14336), m16 (16, 4096, 14336), ragged "
+          "(2048, 4090, 14330); row 9: E 8, K 4096, N 14336, block_m 128, "
+          "top-2 plans of 2,048 tokens (M_pad 5,120) and 8 (M_pad 1,152): "
+          "fwd, T8, dx, down, down dx, int8 (block_m 128 and 512); row 8: "
+          "m 8 .. 2,048 at (k 4096, "
           "n 14336) and (k 14336, n 4096), TP-4 row side m 2,048 at k "
           "1,024 / 3,584, n 4,096")
+ROWS = ("7", "8", "9")
+# row 7: (tag, M, K, N)
+ROW7 = (("7", 2048, 4096, 14336), ("7 m16", 16, 4096, 14336),
+        ("7 ragged", 2048, 4090, 14330))
 M_SWEEP = (8, 16, 32, 64, 128, 256, 512, 2048)
 I8_WIDTHS = {"gate_up": (4096, 14336), "down": (14336, 4096)}
 TP_ROW_SIDE = {"tp_wo": (2048, 1024, 4096), "tp_down": (2048, 3584, 4096)}
 
 
-def time_tree(tree: str, repeats: int) -> dict:
-    """Median ms (and host ms) of rows 8 and 9 of ``tree``'s port
-    (imported from there)."""
+def time_tree(tree: str, repeats: int, rows=ROWS) -> dict:
+    """Median ms (and host ms) of ``rows`` (of 7, 8 and 9) of ``tree``'s
+    port (imported from there)."""
     sys.path.insert(0, tree)
     import torch
 
     import triton_dist_tpu_torch
     from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import gemm
     from triton_dist_tpu_torch.kernels import group_gemm as gg
     from triton_dist_tpu_torch.kernels import moe_utils as mu
     from triton_dist_tpu_torch.kernels import quant
@@ -63,7 +77,7 @@ def time_tree(tree: str, repeats: int) -> dict:
     here = os.path.realpath(triton_dist_tpu_torch.__file__)
     if not here.startswith(os.path.realpath(tree) + os.sep):
         raise RuntimeError(f"imported the port from {here}, not {tree}")
-    _build.build(("group_gemm", "matmul_i8"))
+    _build.build(("gemm", "group_gemm", "matmul_i8"))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     out = {}
@@ -74,6 +88,22 @@ def time_tree(tree: str, repeats: int) -> dict:
         out[tag + " host"] = statistics.median(ring_times._host_ms(fn)
                                                for _ in range(repeats))
 
+    for tag, m, k, n in ROW7 if "7" in rows else ():
+        a = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+             ).bfloat16()
+        timed(tag, lambda: gemm.matmul(a, b))
+        timed(tag + " lib", lambda: torch.matmul(a, b))
+        del a, b
+    if "9" in rows:
+        _row9(torch, gg, mu, dev, g, timed)
+    if "8" in rows:
+        _row8(torch, quant, dev, g, timed)
+    return out
+
+
+def _row9(torch, gg, mu, dev, g, timed):
+    """Row 9's entries (the module docstring)."""
     E, K, N, bm = 8, 4096, 14336, 128
     w = (torch.randn((E, K, N), generator=g, device=dev) / K ** 0.5
          ).bfloat16()
@@ -119,6 +149,9 @@ def time_tree(tree: str, repeats: int) -> dict:
     del w, w_down
     torch.cuda.empty_cache()
 
+
+def _row8(torch, quant, dev, g, timed):
+    """Row 8's entries (the module docstring)."""
     rule = getattr(quant, "matmul_i8_kernel_for", None)
     shapes = [(f"i8 m{m} {tag}", m, k, n) for tag, (k, n) in
               I8_WIDTHS.items() for m in M_SWEEP]
@@ -138,7 +171,6 @@ def time_tree(tree: str, repeats: int) -> dict:
                 timed(f"{tag} {kind}", lambda: quant.matmul_i8(a, b))
             finally:
                 quant.matmul_i8_kernel_for = rule
-    return out
 
 
 def main(argv=None) -> int:
@@ -148,7 +180,7 @@ def main(argv=None) -> int:
     import flash_times
 
     return flash_times.main(argv, timer=time_tree, shapes=SHAPES,
-                            script=__file__, doc=__doc__)
+                            script=__file__, doc=__doc__, rows=ROWS)
 
 
 if __name__ == "__main__":

@@ -22,9 +22,13 @@ times, at ``chip_smoke.py``'s shapes:
   (column-major; at m16 none: cuBLASLt takes no m <= 16), and beside
   each int8 time its device time per call from ``torch.profiler`` ("
   dev": every kernel of 20 calls) and the host's time per eager call ("
-  host"); the torus order (16) and the int8 group kernel (16i) at
-  ``chip_smoke.py`` phase 22's down (TP-8 widths on a (2, 4) mesh: m_loc
-  256, k 1792, N 4096);
+  host"); the torus order (16) at ``chip_smoke.py`` phase 22's down and
+  wo (TP-8 widths on a (2, 4) mesh: m_loc 256, k 1792 / 512, N 4096),
+  each with its relative L2 error, device and host times, one
+  ``torch.einsum`` beside (" lib") and the same kernel's index-order fold
+  over the same joint group (" group": ``tdt_gemm_rs_group`` torus = 0, the
+  yardstick of the torus fold's cost), and the int8 group kernel (16i)
+  at down;
 - rows 12r / 12b in both modes: the PP path's plane (2,049,056 x 128 f32
   a rank over tp of (2, 2, 2)), T 4 ([4 x 65,536, 128] f32 over (2, 4))
   and T 8 ([8 x 4,096, 128] bf16), beside each (" lib") one ``sum`` over
@@ -43,6 +47,7 @@ and a last JSON line with every tree's median over its rounds.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import statistics
 import sys
@@ -50,7 +55,7 @@ import sys
 SHAPES = ("row 15: W 4, m_loc 512 (r250: 250), N 4096, k 1024 (wo) / 3584 "
           "(down) / 1536 (QKV^T) / 3584 (gate/up^T), 15b / 15i / 15bi at wo "
           "and down (15i / 15bi also at m_loc 16); rows 16 / 16i: (2, 4), "
-          "m_loc 256, k 1792, N 4096; row 12: plane "
+          "m_loc 256, k 1792 (16 also 512), N 4096; row 12: plane "
           "[2 x 1,024,528, 128] f32 over tp of (2, 2, 2), T4 [4 x 65,536, "
           "128] f32 over (2, 4), T8 [8 x 4,096, 128] bf16 over (8,)")
 # the rows --rows picks from
@@ -147,14 +152,30 @@ def time_tree(tree: str, repeats: int, rows=ROWS) -> dict:
             del a2, b2
         del a8, b8
     mesh = Mesh((2, 4), ("dcn", "tp"), dev)
-    if want("16"):
-        a = torch.randn((8, 8 * 256, 1792), generator=g, device=dev
+    for tag, k in (("down", 1792), ("wo", 512)) if want("16") else ():
+        axes = ("dcn", "tp")
+        a = torch.randn((8, 8 * 256, k), generator=g, device=dev
                         ).to(torch.bfloat16)
-        b = (torch.randn((8, 1792, N), generator=g, device=dev)
-             / 1792 ** 0.5).to(torch.bfloat16)
-        out["16 down"] = med(lambda: grs.torus_gemm_rs(a, b, mesh,
-                                                       ("dcn", "tp")))
-        del a, b
+        b = (torch.randn((8, k, N), generator=g, device=dev)
+             / k ** 0.5).to(torch.bfloat16)
+        want_c = grs.torus_gemm_rs_ref(a, b, mesh, axes).float()
+        err = grs.torus_gemm_rs(a, b, mesh, axes).float() - want_c
+        out[f"16 {tag} rel l2"] = (err.norm() / want_c.norm()).item()
+        del want_c, err
+        call = (lambda: grs.torus_gemm_rs(a, b, mesh, axes))
+        out[f"16 {tag}"] = med(call)
+        out[f"16 {tag} dev"] = ring_times._device_ms(call)
+        out[f"16 {tag} host"] = med(call, ring_times._host_ms)
+        group = ((ctypes.c_int * 7)(*mesh.group_args(axes)),
+                 (ctypes.c_int * 6)(), 0)
+        index_order = (lambda: grs._uni(a, b, 256, N, False,
+                                        "gemm_rs_group", 8, group=group))
+        out[f"16 {tag} group"] = med(index_order)
+        out[f"16 {tag} group dev"] = ring_times._device_ms(index_order)
+        a4 = a.view(8, 8, 256, k)
+        out[f"16 {tag} lib"] = med(lambda: torch.einsum("qrmk,qkn->rmn",
+                                                        a4, b))
+        del a, b, a4
     if want("16i"):
         a8, b8 = randi(8, 8 * 256, 1792), randi(8, 1792, N)
         axes = ("dcn", "tp")

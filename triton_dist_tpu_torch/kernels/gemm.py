@@ -3,18 +3,23 @@
 Counterpart of ``triton_dist_tpu/kernels/gemm.py``'s ``matmul`` (:229)
 over ``_matmul_kernel`` (:192).  The reference's model paths take XLA's
 dot wherever it needs no collective, and so do the port's: no model path
-calls this kernel.  Its tile loop (``csrc/bf16_tile.cuh``) is the inner
-loop of the grouped GEMM and of both ring kernels, so this is that loop's
-standalone check against cuBLAS.
+calls this kernel.
 
 - :func:`matmul_ref`: the plain version, f32 products cast to the output
   dtype.
-- :func:`matmul`: on CUDA tensors it launches ``csrc/gemm.cu`` (bf16
-  operands, bf16 or f32 output) and counts the launch, or raises on what
-  the kernel does not take; on CPU tensors the plain version.
+- :func:`matmul`: on CUDA tensors it launches one kernel of
+  ``csrc/gemm.cu`` (bf16 operands, bf16 or f32 output), the one
+  :func:`matmul_kernel_for` names, and counts the launch, or raises on
+  what the kernels do not take; on CPU tensors the plain version.
+- :func:`matmul_kernel_for`: "wgmma" (``matmul_wg_kernel``, the persistent
+  GEMM of ``csrc/sm90_gemm.cuh``: TMA, wgmma, 128 x 256 tiles in groups
+  of 8 row tiles) wherever TMA takes the operands, else "tile" (the
+  element-wise tile loop of ``csrc/bf16_tile.cuh``, 128 x 128 tiles,
+  which takes any shape: TMA refuses rows whose byte length is not a
+  multiple of 16 and bases off 16 bytes).
 
-The reference's ``config`` (block sizes) has no counterpart: the kernel's
-tiles are its own (128 x 128 x 32).
+The reference's ``config`` (block sizes) has no counterpart: the kernels'
+tiles are their own.
 """
 
 from __future__ import annotations
@@ -35,6 +40,15 @@ def _shapes(a, b):
                          f"needs [M, K] @ [K, N]")
 
 
+def matmul_kernel_for(m: int, n: int, k: int, aligned: bool) -> str:
+    """Which kernel of ``csrc/gemm.cu`` a CUDA call of C [m, n] = A [m, k]
+    @ B [k, n] launches: "wgmma" where TMA reads the operands in place (k
+    % 8 == 0 and n % 8 == 0: rows of whole 16-byte vectors; ``aligned``:
+    the three bases 16-byte aligned), else "tile"."""
+    del m  # any m: TMA loads zeros past the last row
+    return "wgmma" if k % 8 == 0 and n % 8 == 0 and aligned else "tile"
+
+
 def matmul_ref(a, b, out_dtype=None):
     """Plain C = A @ B: the product in f32, cast to ``out_dtype`` (a's
     dtype by default)."""
@@ -44,7 +58,7 @@ def matmul_ref(a, b, out_dtype=None):
 
 def matmul(a, b, out_dtype=None):
     """C [M, N] = A [M, K] @ B [K, N] with f32 accumulation, rounded once
-    to ``out_dtype`` (a's dtype by default; the kernel writes bf16 or
+    to ``out_dtype`` (a's dtype by default; the kernels write bf16 or
     f32)."""
     _shapes(a, b)
     out_dtype = out_dtype or a.dtype
@@ -62,19 +76,21 @@ def matmul(a, b, out_dtype=None):
     a, b = a.contiguous(), b.contiguous()
     (m, k), n = a.shape, b.shape[1]
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if c.numel() == 0:
-        return c
-    vec = (k % 8 == 0 and n % 8 == 0
-           and all(t.data_ptr() % 16 == 0 for t in (a, b, c)))
+    if c.numel() == 0 or k == 0:   # an empty sum: no launch
+        return c.zero_()
+    kind = matmul_kernel_for(m, n, k, all(t.data_ptr() % 16 == 0
+                                          for t in (a, b, c)))
     lib = _build.load("gemm", _SIG)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tdt_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
-                             k, int(vec), int(out_dtype == torch.float32),
-                             stream)
+                             k, int(kind == "wgmma"),
+                             int(out_dtype == torch.float32), stream)
     _build.check(err, "matmul")
     matmul.launches += 1
+    matmul.mode_launches[kind] += 1
     return c
 
 
 matmul.launches = 0
+matmul.mode_launches = {"wgmma": 0, "tile": 0}

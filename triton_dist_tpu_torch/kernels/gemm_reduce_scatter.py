@@ -45,11 +45,12 @@ hop's ``acc = local + recv`` added in registers) and counts it
 ``.mode_launches["bidir"]`` / ``["i8"]`` / ``["i8_bidir"]``), or raises on
 what the kernel does not take; on CPU tensors (or with ``plain``) the
 plain version.  Any ``m_loc >= 1`` is taken: the last row tile of each
-chunk is masked.  The uni kernel (bf16 and int8) and the int8 bidir ring
-run on the wgmma / TMA mainloop of ``csrc/sm90_gemm.cuh`` (128 x 256
-tiles, int8 :func:`i8_tile`'s; tensor maps over the rank-stacked
-operands, which must meet ``allgather_gemm.ag_gemm_operand_ok`` or the
-wrapper raises); their staging and landing slots hold each partial tile
+chunk is masked.  The uni kernel (bf16 and int8, with its group and
+torus modes) and the int8 bidir ring run on the wgmma / TMA mainloop of
+``csrc/sm90_gemm.cuh`` (128 x 256 tiles, int8 :func:`i8_tile`'s; tensor
+maps over the rank-stacked operands, which must meet
+``allgather_gemm.ag_gemm_operand_ok`` or the wrapper raises); their
+staging and landing slots hold each partial tile
 in the accumulator's fragment order, a flag per (slot, tile)
 (:func:`wg_workspace`), and the uni kernel's owner folds its chunk's G
 staged partials in items of its own after its GEMM tiles.
@@ -57,13 +58,14 @@ staged partials in items of its own after its GEMM tiles.
 **The torus schedule** (``_torus_gemm_rs_kernel`` :326, taken for a tuple
 ``axis`` with two or more axes of more than one rank, :679-689, whatever
 ``ring_mode`` says): :func:`torus_gemm_rs` over the joint group's G
-ranks, a's rows the G chunks in joint order (flat axes-major).  Each rank
-stages its bf16 partial of every chunk in the owner's slot and the owner
-folds its G partials in the reference's torus order and rounding: the N
-columns in 2n parts of 128-column units (``_split_parts(N // 128, 2n)``,
-:591-597), part q on path flavor q, every hop ``acc = local + recv`` in
-bf16 (``torus.torus_fold``), so given the same partials the sums are bit
-for bit the reference's.  At shapes the reference's fused kernel cannot
+ranks, a's rows the G chunks in joint order (flat axes-major), on the uni
+kernel in its torus mode: each rank stages its bf16 partial of every
+chunk in the owner's slot (:func:`wg_workspace`) and the owner folds its
+G partials in the reference's torus order and rounding: the N columns in
+2n parts of 128-column units (``_split_parts(N // 128, 2n)``, :591-597),
+part q on path flavor q, every hop ``acc = local + recv`` in bf16
+(``torus.torus_fold``), so given the same partials the sums are bit for
+bit the reference's.  At shapes the reference's fused kernel cannot
 tile (N % 128, m_loc % 8 or k % 128, and under ``plain``: the reference's
 ``impl="xla"``) it composes, and so does the port: the uni GEMM-RS over
 ``axes[0]``'s groups, then a reduce-scatter over each other axis
@@ -108,7 +110,8 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (
 from triton_dist_tpu_torch.kernels.quant import matmul_i8_ref
 from triton_dist_tpu_torch.runtime.bootstrap import Mesh, get_world
 
-TILE_M = 128     # csrc/bf16_tile.cuh BM: rows of one chunk tile
+TILE_M = 128     # csrc/bf16_tile.cuh BM: the bidir ring's tile rows
+TORUS_UNIT = 128   # columns of the torus order's unit (its parts' grain)
 WG_TILE = (128, 256)   # csrc/sm90_gemm.cuh BM x BN: the uni kernel's tiles
 # pointer tables (a, b, stage, out, flags, barrier), then world, m_loc, n,
 # k [, b_nk], the epoch and the stream
@@ -356,17 +359,17 @@ def torus_gemm_rs_ref(a, b, mesh: Mesh, axes, *, trans_b: bool = False):
             for t, r in enumerate(group):
                 out[r] = parts[group, t].sum(dim=0, dtype=torch.int32)
         return out
-    if n % TILE_M:
+    if n % TORUS_UNIT:
         raise ValueError(f"gemm_rs: the torus order takes N % 128 == 0, "
                          f"got {n}")
     sizes = [mesh.axis_size(x) for x in axes]
-    paths = torus._paths_for(n // TILE_M, len(axes))
+    paths = torus._paths_for(n // TORUS_UNIT, len(axes))
     out = torch.empty((world, m_loc, n), dtype=a.dtype, device=a.device)
     for group in groups:
         for t, r in enumerate(group):
             for off, ln, order, d in paths:
                 if ln:
-                    c0, c1 = off * TILE_M, (off + ln) * TILE_M
+                    c0, c1 = off * TORUS_UNIT, (off + ln) * TORUS_UNIT
                     out[r, :, c0:c1] = torus.torus_fold(
                         lambda j: parts[group[j], t, :, c0:c1], sizes, t,
                         order, d)
@@ -400,9 +403,10 @@ def torus_gemm_rs(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
     """The torus GEMM-RS over the joint group ``axes`` (module docstring):
     C [W, m_loc, N] of a [W, G m_loc, k] and b [W, k, N].  bf16 CUDA
     operands at tileable shapes launch ``tdt_gemm_rs_group`` in its torus
-    order, counted in ``.launches``; int8 takes :func:`torus_gemm_rs_i8`;
-    untileable shapes or ``plain`` compose; CPU operands run the plain
-    versions."""
+    order (the uni kernel's TORUS mode, its :func:`wg_workspace`; the
+    operands must meet TMA's rules or it raises), counted in
+    ``.launches``; int8 takes :func:`torus_gemm_rs_i8`; untileable shapes
+    or ``plain`` compose; CPU operands run the plain versions."""
     world, k, n = check_operands("torus_gemm_rs", a, b, trans_b)
     G = mesh.joint_size(axes)
     m_loc = _m_loc(a, G)
@@ -416,12 +420,10 @@ def torus_gemm_rs(a, b, mesh: Mesh, axes, *, trans_b: bool = False,
     if not a.is_cuda:
         raise ValueError(f"torus_gemm_rs: unsupported device {a.device}")
     check_kernel_operands("torus_gemm_rs", a, b, m_loc, k, n)
-    tiles = -(-m_loc // TILE_M) * (n // TILE_M)
-    ends = torus.part_ends(n // TILE_M, len(axes))
-    out = _launch("tdt_gemm_rs_group", a, b, m_loc, n, a.dtype,
-                  "gemm_rs_torus", (G, m_loc, n), G * tiles, int(trans_b),
-                  group=((ctypes.c_int * 7)(*mesh.group_args(axes)),
-                         (ctypes.c_int * 6)(*ends), 1))
+    ends = torus.part_ends(n // TORUS_UNIT, len(axes))
+    out = _uni(a, b, m_loc, n, trans_b, "gemm_rs_torus", G,
+               group=((ctypes.c_int * 7)(*mesh.group_args(axes)),
+                      (ctypes.c_int * 6)(*ends), 1))
     torus_gemm_rs.launches += 1
     return out
 
